@@ -1,0 +1,28 @@
+"""DeepSeek-OCR-2 in PyTorch and CUDA for NVIDIA Hopper (H100).
+
+A port of the JAX package `deepseek_ocr2_tpu`, which stays the numeric
+reference. The layout mirrors it module for module:
+- io:       safetensors reader/writer (BF16 native) with the dtype policy
+- ops:      norms / rope / attention / moe / sampling, plus the hand-written
+            CUDA kernels (flash_attention, fused_mlp) and their plain twins
+- models:   sam (ViT-B), qwen2 (compressor), deepseek_v2 (LM), deepseek_ocr2
+- runtime:  KV cache, greedy generation, the OCR pipeline
+- cli:      `generate-ocr`
+
+The config dataclasses (`configs`, a re-export), the tokenizer helpers and
+the dtype policy are imported from `deepseek_ocr2_tpu` (those modules
+import no jax).
+
+Numeric defaults of CUDA that break the reference's parity policy are
+switched off here, once, at import: no TF32 in matmuls or cuDNN convs (SAM's
+neck / net_2 / net_3 would otherwise run in TF32), and no reduced-precision
+bf16 reductions inside cuBLAS.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,208 @@
+"""SAM ViT-B image encoder (port of deepseek_ocr2_tpu.models.sam).
+
+NHWC tokens through the transformer, windowed blocks with true 14x14
+windows (196 keys; the TPU's 16x16 padding was a lane workaround), the
+64 -> 70 zero padding of `window_partition` kept (those tokens are real keys
+in HF semantics), decomposed relative-position attention through kernel B
+(`ops.flash_attention.mha_relpos`) and every block MLP through kernel C
+(`ops.fused_mlp.mlp_gelu`). The rel_h / rel_w einsums stay outside the
+kernel, as in the JAX package. Weights keep HF layout ([out, in] linears,
+OIHW convs).
+
+This slice runs the 1024^2 global view only, where the pos-embed and the
+rel-pos tables need no resize; the 768^2 crop view is the next slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs import SamConfig
+
+from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
+from ..ops.flash_attention import mha_relpos
+from ..ops.fused_mlp import mlp_gelu
+from ..ops.norms import layer_norm
+
+Params = Dict[str, Any]
+
+_BLOCK_KEYS = {
+    "ln1_w": "norm1.weight", "ln1_b": "norm1.bias",
+    "ln2_w": "norm2.weight", "ln2_b": "norm2.bias",
+    "qkv_w": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
+    "proj_w": "attn.proj.weight", "proj_b": "attn.proj.bias",
+    "rel_h": "attn.rel_pos_h", "rel_w": "attn.rel_pos_w",
+    "w1": "mlp.lin1.weight", "b1": "mlp.lin1.bias",
+    "w2": "mlp.lin2.weight", "b2": "mlp.lin2.bias",
+}
+_TOP_KEYS = {
+    "patch_w": "patch_embed.proj.weight", "patch_b": "patch_embed.proj.bias",
+    "pos_embed": "pos_embed",
+    "neck_conv1": "neck.0.weight", "neck_ln1_w": "neck.1.weight", "neck_ln1_b": "neck.1.bias",
+    "neck_conv2": "neck.2.weight", "neck_ln2_w": "neck.3.weight", "neck_ln2_b": "neck.3.bias",
+    "net_2": "net_2.weight", "net_3": "net_3.weight",
+}
+
+
+def params_from_source(src: FlatSource, cfg: SamConfig, prefix: str = "model.sam_model.") -> Params:
+    params = {k: src.take(prefix + hf) for k, hf in _TOP_KEYS.items()}
+    params["blocks"] = [
+        {k: src.take(f"{prefix}blocks.{i}.{hf}") for k, hf in _BLOCK_KEYS.items()}
+        for i in range(cfg.depth)
+    ]
+    return params
+
+
+def params_from_flat(flat, cfg: SamConfig, device="cpu", policy=None) -> Tuple[Params, LoadReport]:
+    src = FlatSource(flat, torch.device(device), policy or DtypePolicy(default=None))
+    return params_from_source(src, cfg), src.report
+
+
+def params_from_jax(tree: Params, cfg: SamConfig, device="cpu") -> Params:
+    """From the JAX package's SAM pytree (numpy leaves; linears [in, out])."""
+
+    def t(a, transpose=False):
+        x = as_tensor(np.asarray(a))
+        return (x.t() if transpose else x).contiguous().to(device)
+
+    blocks = []
+    for blk in tree["blocks"]:
+        a, m = blk["attn"], blk["mlp"]
+        blocks.append({
+            "ln1_w": t(blk["ln1"]["w"]), "ln1_b": t(blk["ln1"]["b"]),
+            "ln2_w": t(blk["ln2"]["w"]), "ln2_b": t(blk["ln2"]["b"]),
+            "qkv_w": t(a["qkv_w"], True), "qkv_b": t(a["qkv_b"]),
+            "proj_w": t(a["proj_w"], True), "proj_b": t(a["proj_b"]),
+            "rel_h": t(a["rel_h"]), "rel_w": t(a["rel_w"]),
+            "w1": t(m["w1"], True), "b1": t(m["b1"]),
+            "w2": t(m["w2"], True), "b2": t(m["b2"]),
+        })
+    neck = tree["neck"]
+    return {
+        "patch_w": t(tree["patch_embed"]["w"]), "patch_b": t(tree["patch_embed"]["b"]),
+        "pos_embed": t(tree["pos_embed"]),
+        "neck_conv1": t(neck["conv1"]),
+        "neck_ln1_w": t(neck["ln1"]["w"]), "neck_ln1_b": t(neck["ln1"]["b"]),
+        "neck_conv2": t(neck["conv2"]),
+        "neck_ln2_w": t(neck["ln2"]["w"]), "neck_ln2_b": t(neck["ln2"]["b"]),
+        "net_2": t(tree["net_2"]), "net_3": t(tree["net_3"]),
+        "blocks": blocks,
+    }
+
+
+def _patch_embed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, 3, S, S] -> [B, S/p, S/p, E]: a stride == kernel conv is a reshape
+    plus one GEMM, written as the JAX package writes it."""
+    b_, c, hh, ww = x.shape
+    h, w_ = hh // patch, ww // patch
+    xp = x.reshape(b_, c, h, patch, w_, patch).permute(0, 2, 4, 3, 5, 1)
+    xp = xp.reshape(b_, h, w_, patch * patch * c)
+    wm = w.to(x.dtype).permute(2, 3, 1, 0).reshape(patch * patch * c, -1)
+    return torch.matmul(xp, wm) + b.to(x.dtype)
+
+
+def window_partition(x: torch.Tensor, window: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """[B, H, W, C] -> [B*nW, win, win, C], zero-padded to whole windows."""
+    b, h, w, c = x.shape
+    pad_h = (window - h % window) % window
+    pad_w = (window - w % window) % window
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.reshape(b, hp // window, window, wp // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), (hp, wp)
+
+
+def window_unpartition(windows, window: int, pad_hw, hw) -> torch.Tensor:
+    hp, wp = pad_hw
+    h, w = hw
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((hp // window) * (wp // window))
+    x = windows.reshape(b, hp // window, wp // window, window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)[:, :h, :w, :]
+
+
+def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """[q_size, k_size, head_dim] f32 table lookup (no resize in this slice)."""
+    max_rel_dist = 2 * max(q_size, k_size) - 1
+    if rel_pos.shape[0] != max_rel_dist:
+        raise NotImplementedError(
+            "rel-pos table resize (the 768^2 crop view) is the next slice"
+        )
+    idx = torch.arange(q_size)[:, None] - torch.arange(k_size)[None, :] + (k_size - 1)
+    return rel_pos.float()[idx.to(rel_pos.device)]
+
+
+def _attention(x: torch.Tensor, blk: Params, num_heads: int) -> torch.Tensor:
+    """Decomposed rel-pos attention on [B, H, W, C] through kernel B."""
+    b, h, w, dim = x.shape
+    hd = dim // num_heads
+    l = h * w
+    qkv = (F.linear(x, blk["qkv_w"].to(x.dtype)) + blk["qkv_b"].to(x.dtype)).reshape(
+        b, l, 3, num_heads, hd
+    )
+    q = qkv[:, :, 0].transpose(1, 2)  # [B, heads, L, hd]
+    k = qkv[:, :, 1].transpose(1, 2)
+    v = qkv[:, :, 2].transpose(1, 2)
+
+    # Bias terms from the unscaled q, in f32.
+    rh = get_rel_pos(h, h, blk["rel_h"])
+    rw = get_rel_pos(w, w, blk["rel_w"])
+    r_q = q.float().reshape(b * num_heads, h, w, hd)
+    rel_h = torch.einsum("nhwc,hkc->nhwk", r_q, rh).reshape(b, num_heads, l, h)
+    rel_w = torch.einsum("nhwc,wkc->nhwk", r_q, rw).reshape(b, num_heads, l, w)
+
+    ctx = mha_relpos(q, k, v, rel_h, rel_w, scale=1.0 / math.sqrt(hd))
+    ctx = ctx.transpose(1, 2).reshape(b, h, w, dim)
+    return F.linear(ctx, blk["proj_w"].to(x.dtype)) + blk["proj_b"].to(x.dtype)
+
+
+def _block(x: torch.Tensor, blk: Params, cfg: SamConfig, window: int) -> torch.Tensor:
+    shortcut = x
+    x = layer_norm(x, blk["ln1_w"], blk["ln1_b"], cfg.layer_norm_eps)
+    if window > 0:
+        _, h, w, _ = x.shape
+        wins, pad_hw = window_partition(x, window)
+        x = window_unpartition(_attention(wins, blk, cfg.num_heads), window, pad_hw, (h, w))
+    else:
+        x = _attention(x, blk, cfg.num_heads)
+    x = shortcut + x
+    xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"], cfg.layer_norm_eps)
+    bb, hh, ww, cc = xn.shape
+    mlp = mlp_gelu(xn.reshape(bb * hh * ww, cc), blk["w1"], blk["b1"], blk["w2"], blk["b2"])
+    return x + mlp.reshape(bb, hh, ww, cc)
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """3x3 / padding-1 conv on NHWC tokens with an OIHW weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=stride, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def sam_forward(params: Params, cfg: SamConfig, x: torch.Tensor) -> torch.Tensor:
+    """[B, 3, S, S] image -> [B, net_3_chans, S/64, S/64] features."""
+    x = _patch_embed(x, params["patch_w"], params["patch_b"], cfg.patch_size)
+    _, h, w, _ = x.shape
+    pos = params["pos_embed"]
+    if tuple(pos.shape[1:3]) != (h, w):
+        raise NotImplementedError(
+            f"pos-embed resize to {h}x{w} (the 768^2 crop view) is the next slice"
+        )
+    x = x + pos.to(x.dtype)
+    for i, blk in enumerate(params["blocks"]):
+        window = 0 if i in cfg.global_attn_indexes else cfg.window_size
+        x = _block(x, blk, cfg, window)
+
+    eps = cfg.layer_norm_eps
+    x = torch.matmul(x, params["neck_conv1"][:, :, 0, 0].t().to(x.dtype))  # 1x1 conv
+    x = layer_norm(x, params["neck_ln1_w"], params["neck_ln1_b"], eps)
+    x = _conv_nhwc(x, params["neck_conv2"])
+    x = layer_norm(x, params["neck_ln2_w"], params["neck_ln2_b"], eps)
+    x = _conv_nhwc(x, params["net_2"], stride=2)
+    x = _conv_nhwc(x, params["net_3"], stride=2)
+    return x.permute(0, 3, 1, 2)

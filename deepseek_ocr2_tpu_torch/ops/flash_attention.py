@@ -1,0 +1,142 @@
+"""Exact attention kernels A and B: CUDA wrappers and their plain twins.
+
+Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
+- A, `mha` (replaces `_attn_kernel` via `mha_pallas`): modes none / causal /
+  prefix. LM prefill runs it in causal mode on f32 q/k/v after RoPE.
+- B, `mha_relpos` (replaces `_attn_kernel_relpos` via
+  `mha_pallas(rel_h=, rel_w=)`): SAM attention with the decomposed relative
+  position bias bias[q, kh*Kw + kw] = rel_h[q, kh] + rel_w[q, kw], folded in
+  per score; the [L, L] bias is never built.
+
+Both are one CUDA template, `csrc/flash_attention.cu` (see its header for the
+design: 64-query blocks streaming 64-key tiles with an online f32 softmax).
+The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
+tiling choices; the CUDA kernel takes every shape and masks the ragged edge.
+
+A wrapper runs its plain twin only for CPU tensors. For CUDA tensors it
+launches the kernel or raises; there is no fallback. `launches` counts
+kernel launches (the twin does not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import cuda_build
+from .attention import MASK_VALUE
+
+_MODES = {"none": 0, "causal": 1, "prefix": 2}
+_RELPOS = 3
+_HEAD_DIMS = (64, 128)  # SAM, LM
+
+
+def mha_reference(
+    q: torch.Tensor,  # [B, H, Lq, D]
+    k: torch.Tensor,  # [B, H, Lk, D]
+    v: torch.Tensor,
+    *,
+    scale: float,
+    mode: str = "none",
+    n_prefix: int = 0,
+    rel_h: Optional[torch.Tensor] = None,  # [B, H, Lq, Kh] f32
+    rel_w: Optional[torch.Tensor] = None,  # [B, H, Lq, Kw] f32
+) -> torch.Tensor:
+    """Plain twin of A and B: full f32 score rows and an exact softmax,
+    written in q's dtype."""
+    lq, lk = q.shape[2], k.shape[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if rel_h is not None:
+        kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+        bias = rel_h.float()[..., :, None] + rel_w.float()[..., None, :]
+        scores = scores + bias.reshape(*rel_h.shape[:-1], kh * kw)
+    q_pos = torch.arange(lq, device=q.device)[:, None]
+    k_pos = torch.arange(lk, device=q.device)[None, :]
+    if mode == "causal":
+        scores = scores.masked_fill(k_pos > q_pos, MASK_VALUE)
+    elif mode == "prefix":
+        query_col = k_pos >= n_prefix
+        disallow = ((q_pos < n_prefix) & query_col) | (
+            (q_pos >= n_prefix) & query_col & (k_pos > q_pos)
+        )
+        scores = scores.masked_fill(disallow, MASK_VALUE)
+    return torch.matmul(torch.softmax(scores, dim=-1), v.float()).to(q.dtype)
+
+
+def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> None:
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must share one dtype, f32 or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != (b, h, lk, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    lib = cuda_build.load("flash_attention")
+    fn = lib.attn_f32 if q.dtype == torch.float32 else lib.attn_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rh = cuda_build.ptr(rel_h) if rel_h is not None else None
+    rw = cuda_build.ptr(rel_w) if rel_w is not None else None
+    err = fn(
+        cuda_build.ptr(q), cuda_build.ptr(k), cuda_build.ptr(v), cuda_build.ptr(out), rh, rw,
+        b * h, lq, lk, d, mode_id, n_prefix, kh, kw, scale, cuda_build.stream_of(q),
+    )
+    cuda_build.check(err, "flash_attention")
+
+
+def mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    mode: str = "none",
+    n_prefix: int = 0,
+) -> torch.Tensor:
+    """Kernel A. Returns [B, H, Lq, D] in q's dtype."""
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r} not in {tuple(_MODES)}")
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, scale=scale, mode=mode, n_prefix=n_prefix)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda_build.require_cuda(q, k, v)
+    out = torch.empty_like(q)
+    _launch(q, k, v, out, None, None, _MODES[mode], n_prefix, 0, 0, scale)
+    mha.launches += 1
+    return out
+
+
+mha.launches = 0
+
+
+def mha_relpos(
+    q: torch.Tensor,  # [B, H, L, D], L = Kh * Kw
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h: torch.Tensor,  # [B, H, L, Kh] f32
+    rel_w: torch.Tensor,  # [B, H, L, Kw] f32
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Kernel B. Returns [B, H, L, D] in q's dtype."""
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    if kh * kw != k.shape[2]:
+        raise ValueError(f"rel-pos grid {kh}x{kw} does not cover {k.shape[2]} keys")
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, scale=scale, rel_h=rel_h, rel_w=rel_w)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    rel_h = rel_h.float().contiguous()
+    rel_w = rel_w.float().contiguous()
+    cuda_build.require_cuda(q, k, v, rel_h, rel_w)
+    if rel_h.shape[:3] != q.shape[:3] or rel_w.shape[:3] != q.shape[:3]:
+        raise ValueError("rel_h / rel_w must be [B, H, Lq, K*]")
+    out = torch.empty_like(q)
+    _launch(q, k, v, out, rel_h, rel_w, _RELPOS, 0, kh, kw, scale)
+    mha_relpos.launches += 1
+    return out
+
+
+mha_relpos.launches = 0

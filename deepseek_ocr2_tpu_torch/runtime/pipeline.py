@@ -1,0 +1,164 @@
+"""End-to-end OCR pipeline, no-crop slice (port of
+deepseek_ocr2_tpu.runtime.pipeline).
+
+Host stage (`preprocess_host`): decode, rotate, the crop decision and the
+letterbox to the base size, with PIL imported only there. Device stage
+(`preprocess_finish` and `build_ocr_embeds`): ship the uint8 view, normalize
+on the device, vision towers, injection. Then greedy generation.
+A page that would be cropped (a side above `crop_image_size` without
+`no_crop`) raises NotImplementedError: crop mode is the next slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..configs import OCR2Config
+from deepseek_ocr2_tpu.utils.tokenizer import decode_output, tokenize_with_image
+
+from ..models import deepseek_ocr2 as ocr2
+from ..models.deepseek_v2 import rope_consts
+from .generate import greedy_generate
+from .kv_cache import bucket_capacity
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    text: str
+    token_ids: List[int]
+    prompt_len: int
+    prefill_seconds: float  # LM prefill (vision excluded; see vision_seconds)
+    decode_seconds: float
+    new_tokens: int
+    vision_seconds: float = 0.0  # upload + normalize + towers + injection
+    logits0: Optional[torch.Tensor] = None  # step-0 logits [V] f32, CPU
+    step_logits: Optional[List[torch.Tensor]] = None  # every step's [V], with keep_logits
+
+    @property
+    def decode_tokens_per_sec(self) -> float:
+        return self.new_tokens / self.decode_seconds if self.decode_seconds > 0 else 0.0
+
+
+class OCR2Pipeline:
+    """Single-page pipeline on `device` ("cuda" or "cpu"; no silent fallback)."""
+
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        cfg: OCR2Config,
+        tokenizer,
+        device: Union[str, torch.device] = "cuda",
+        kv_dtype: str = "float32",
+        act_dtype: str = "float32",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' was asked for but no CUDA device is available")
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.kv_dtype = _DTYPES[kv_dtype]
+        self.act_dtype = _DTYPES[act_dtype]
+        self.rope = rope_consts(cfg.lm, self.device)  # host-built once, not per page
+
+    def preprocess_host(
+        self, image, no_crop: bool = False, rotate: Optional[int] = 0, auto_rotate: bool = False
+    ) -> Dict[str, Any]:
+        """Decode + rotate + letterbox on the host. `image` is a path or a PIL
+        image. Returns {"base": u8 [1, 3, S, S], "rot": degrees}."""
+        from PIL import Image
+
+        from deepseek_ocr2_tpu.preprocess.image import (
+            auto_rotate_choice,
+            preprocess_base_u8,
+            rotate_image,
+            should_crop,
+        )
+
+        cfg = self.cfg
+        img = Image.open(image).convert("RGB") if isinstance(image, str) else image.convert("RGB")
+        rot = rotate if rotate else 0
+        if rot == 0 and auto_rotate:
+            rot = auto_rotate_choice(img)
+        img = rotate_image(img, rot)
+        if should_crop(img, not no_crop, cfg.crop_image_size):
+            raise NotImplementedError(
+                f"page {img.size[0]}x{img.size[1]} takes crop mode, which is the next slice "
+                "(ROADMAP: crop mode with the aligned gmm kernel); pass no_crop=True"
+            )
+        return {"base": preprocess_base_u8(img, cfg.base_image_size, cfg.pad_color), "rot": rot}
+
+    def preprocess_finish(self, pre: Dict[str, Any]) -> Tuple[torch.Tensor, None, Tuple[int, int], int]:
+        """Ship the host-stage view to the device: (base, patches=None,
+        crop_ratio=(1, 1), rotation)."""
+        base = torch.as_tensor(np.ascontiguousarray(pre["base"])).to(self.device)
+        s = self.cfg.base_image_size
+        if tuple(base.shape) != (1, 3, s, s):
+            raise ValueError(f"base view must be [1, 3, {s}, {s}], got {tuple(base.shape)}")
+        return base, None, (1, 1), pre.get("rot", 0)
+
+    @torch.no_grad()
+    def build_ocr_embeds(self, ids: List[int], image_base: torch.Tensor, image_start: int) -> torch.Tensor:
+        ids_t = torch.tensor([ids], dtype=torch.long, device=self.device)
+        pixels = ocr2.normalize_pixels(image_base, self.act_dtype)
+        vision = ocr2.encode_views(self.params, self.cfg, pixels)
+        return ocr2.build_inputs_embeds(self.params, ids_t, vision, image_start)
+
+    def generate_ocr(
+        self,
+        image,
+        prompt: Optional[str] = None,
+        max_new_tokens: int = 512,
+        no_crop: bool = False,
+        rotate: Optional[int] = 0,
+        auto_rotate: bool = False,
+        ngram_size: int = 20,
+        eos_token_id: Optional[int] = None,
+        keep_logits: bool = False,
+    ) -> GenerationResult:
+        """OCR one page. `image` is a path, a PIL image, or the dict that
+        `preprocess_host` returns (for callers that letterbox themselves).
+        `keep_logits` copies every step's logits to the host (debugging)."""
+        cfg = self.cfg
+        eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
+        prompt = prompt or cfg.default_ocr_prompt
+
+        t0 = time.perf_counter()
+        pre = image if isinstance(image, dict) else self.preprocess_host(
+            image, no_crop=no_crop, rotate=rotate, auto_rotate=auto_rotate
+        )
+        image_base, _, crop_ratio, _ = self.preprocess_finish(pre)
+        ids, _, image_start = tokenize_with_image(self.tokenizer, prompt, cfg, crop_ratio)
+        embeds = self.build_ocr_embeds(ids, image_base, image_start)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        vision_seconds = time.perf_counter() - t0
+
+        stats: Dict[str, Any] = {}
+        tokens, n_gen = greedy_generate(
+            self.params["lm"], cfg.lm, embeds, torch.tensor(ids),
+            max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=eos,
+            capacity=bucket_capacity(len(ids) + max_new_tokens), kv_dtype=self.kv_dtype,
+            stats=stats, keep_logits=keep_logits, rope=self.rope,
+        )
+        total = len(ids) + int(n_gen[0])
+        all_ids = tokens[0, :total].tolist()
+        gen_ids = all_ids[len(ids):]
+        return GenerationResult(
+            text=decode_output(self.tokenizer, gen_ids, cfg.stop_string),
+            token_ids=all_ids,
+            prompt_len=len(ids),
+            prefill_seconds=stats["prefill_s"],
+            decode_seconds=stats["decode_s"],
+            new_tokens=len(gen_ids),
+            vision_seconds=vision_seconds,
+            logits0=stats["logits0"][0],
+            step_logits=[lg[0] for lg in stats["logits"]] if keep_logits else None,
+        )

@@ -19,3 +19,9 @@ import jax  # noqa: E402
 
 # Full-precision matmuls on CPU so torch-vs-jax parity is tight.
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (inside the test) where there is none"
+    )

@@ -1,0 +1,186 @@
+"""The port's no-crop OCR slice end to end on the CPU, against the JAX
+package: greedy tokens (f32), bf16-LM logits, the CLI, and the guarantees
+that the port imports no jax and never runs on the CPU when a GPU is asked for.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from deepseek_ocr2_tpu_torch.configs import tiny_ocr2_config
+from deepseek_ocr2_tpu.io import DtypePolicy as JaxPolicy
+from deepseek_ocr2_tpu.models import deepseek_ocr2 as jocr2
+from deepseek_ocr2_tpu.models import deepseek_v2 as jdsv2
+from deepseek_ocr2_tpu.runtime.generate import greedy_generate as jax_greedy
+from deepseek_ocr2_tpu.runtime.kv_cache import make_kv_cache as jax_make_kv_cache
+from deepseek_ocr2_tpu_torch.io import DtypePolicy, save_flat
+from deepseek_ocr2_tpu_torch.models import deepseek_ocr2 as tocr2
+from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+
+import reference_torch_vision as refv
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _policy(cls, lm_dtype):
+    p = cls(default=lm_dtype)
+    for prefix in ("model.sam_model", "model.qwen2_model", "model.projector", "model.view_seperator"):
+        p = p.with_prefix(prefix, "float32")
+    return p
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = tiny_ocr2_config()
+    flat = refv.random_ocr2_flat(cfg, seed=11)
+    n_img = cfg.image_token_count((1, 1))
+    ids = [cfg.bos_token_id, 17] + [cfg.image_token_id % cfg.lm.vocab_size] * n_img + [23, 29]
+    base = np.random.default_rng(42).uniform(-1, 1, (1, 3, cfg.base_image_size, cfg.base_image_size))
+    return cfg, flat, ids, base.astype(np.float32)
+
+
+def _jax_embeds(cfg, flat, ids, base, lm_dtype):
+    jp = jocr2.params_from_flat({k: _policy(JaxPolicy, lm_dtype).apply(k, v) for k, v in flat.items()}, cfg)[0]
+    jp = jax.tree_util.tree_map(jnp.asarray, jp)
+    return jp, jocr2.ocr_prefill_embeds(jp, cfg, jnp.asarray(ids, jnp.int32)[None], jnp.asarray(base), None, 2)
+
+
+def _torch_embeds(cfg, flat, ids, base, lm_dtype):
+    tp, report = tocr2.params_from_flat(flat, cfg, policy=_policy(DtypePolicy, lm_dtype))
+    report.raise_on_errors()
+    with torch.no_grad():
+        vision = tocr2.encode_views(tp, cfg, torch.from_numpy(base))
+        return tp, tocr2.build_inputs_embeds(tp, torch.tensor([ids]), vision, 2)
+
+
+def test_no_crop_greedy_tokens_match_jax_f32(setup):
+    cfg, flat, ids, base = setup
+    jp, je = _jax_embeds(cfg, flat, ids, base, "float32")
+    tokens, n_gen = jax_greedy(jp["lm"], cfg.lm, je, jnp.asarray(ids, jnp.int32), max_new_tokens=8,
+                               ngram_size=3, eos_id=1, capacity=128, kv_dtype="float32")
+    want = np.asarray(tokens[0, : len(ids) + int(n_gen[0])]).tolist()
+
+    tp, te = _torch_embeds(cfg, flat, ids, base, "float32")
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-4, atol=1e-4)
+    tokens, n_gen = greedy_generate(tp["lm"], cfg.lm, te, torch.tensor(ids), max_new_tokens=8,
+                                    ngram_size=3, eos_id=1, capacity=128, kv_dtype=torch.float32)
+    assert tokens[0, : len(ids) + int(n_gen[0])].tolist() == want
+
+
+def test_no_crop_bf16_lm_logits_match_jax(setup):
+    """LM weights and embeddings in bf16, vision f32 (the CLI defaults). Both
+    sides round to bf16 at the same points, but one f32 sum that lands on
+    the other side of a rounding boundary moves a bf16 activation by an ulp
+    (2^-8 relative) and the LM's layers carry that on. The step-0 logits
+    (bf16, like the JAX ones) differ by one bf16 ulp of the largest logit
+    on this input (seeds 11-13 alike); the bound is 4 x 2^-8 of the
+    largest logit, two to four ulps."""
+    cfg, flat, ids, base = setup
+    lm = cfg.lm
+    jp, je = _jax_embeds(cfg, flat, ids, base, "bfloat16")
+    cache = jax_make_kv_cache(lm.num_hidden_layers, 1, lm.num_attention_heads, 128, lm.head_dim, jnp.float32)
+    hidden, _ = jdsv2.lm_forward(jp["lm"], lm, je, cache, pos=0, is_prefill=True)
+    want = np.asarray(jdsv2.logits_last(jp["lm"], hidden).astype(jnp.float32))
+
+    tp, te = _torch_embeds(cfg, flat, ids, base, "bfloat16")
+    assert te.dtype == torch.bfloat16
+    stats = {}
+    greedy_generate(tp["lm"], lm, te, torch.tensor(ids), max_new_tokens=1, capacity=128,
+                    kv_dtype=torch.float32, stats=stats)
+    got = stats["logits0"].numpy()
+    assert np.abs(got - want).max() <= 4 * 2.0**-8 * np.abs(want).max()
+
+
+@pytest.fixture(scope="module")
+def cli_assets(tmp_path_factory):
+    """The tiny CLI assets of the verify recipe: checkpoint, config,
+    word-level tokenizer and a small page."""
+    from PIL import Image
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    d = tmp_path_factory.mktemp("clitest")
+    cfg = dataclasses.replace(tiny_ocr2_config(), image_token_id=500)
+    (d / "tiny_config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    save_flat(refv.random_ocr2_flat(cfg, seed=21), str(d / "tiny.safetensors"))
+    tok = Tokenizer(models.WordLevel({"<unk>": 2, "Free": 10, "OCR.": 11, "hello": 13}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.save(str(d / "tokenizer.json"))
+    rng = np.random.default_rng(3)
+    Image.fromarray(rng.integers(0, 256, (120, 160, 3), np.uint8)).save(d / "page.png")
+    return d
+
+
+def test_cli_generate_ocr_runs(cli_assets, capsys):
+    from deepseek_ocr2_tpu_torch.cli import main
+
+    d = cli_assets
+    rc = main([
+        "generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+        "--tokenizer", str(d / "tokenizer.json"), "--config", str(d / "tiny_config.json"),
+        "--image", str(d / "page.png"), "--image-token-id", "500", "--max-new-tokens", "6",
+        "--no-repeat-ngram-size", "3",
+    ])
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "missing=0" in err and "tokens" in err
+
+
+def test_cli_refuses_flags_outside_the_slice(cli_assets):
+    from deepseek_ocr2_tpu_torch.cli import main
+
+    d = cli_assets
+    with pytest.raises(SystemExit, match="int8"):
+        main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int8"])
+
+
+_NO_JAX_SCRIPT = """
+import dataclasses, sys
+import torch
+import deepseek_ocr2_tpu_torch
+from deepseek_ocr2_tpu_torch.configs import tiny_ocr2_config
+from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+import chip_smoke as cs
+
+cfg = dataclasses.replace(tiny_ocr2_config(), image_token_id=500)
+g = torch.Generator().manual_seed(0)
+flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g) * std)
+params = cs.load_model(cfg, flat, "cpu", "bfloat16", "float32")
+pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device="cpu")
+canvas = torch.full((1, 3, cfg.base_image_size, cfg.base_image_size), 127, dtype=torch.uint8)
+r = pipe.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
+assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("JAX_MODULES", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "JAX_MODULES []" in proc.stdout
+
+
+def test_no_silent_cpu_run_when_cuda_is_asked_for(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU refusal cannot be observed")
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg, flat, _, _ = setup
+    with pytest.raises(RuntimeError, match="cuda"):
+        OCR2Pipeline({}, cfg, tokenizer=None, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tocr2.params_from_flat(flat, cfg, device="cuda")
