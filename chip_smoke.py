@@ -5,18 +5,25 @@
 
 Phases (each raises on failure, so the exit code is non-zero):
 1. device: require CUDA, print the card's name and power limit, build the
-   hand-written kernels from `deepseek_ocr2_tpu_torch/csrc/`;
+   hand-written kernels from `deepseek_ocr2_tpu_torch/csrc/` (one nvcc per
+   source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
-   the main path's shapes, with the max abs error beside its tolerance and
-   both median times (CUDA events);
+   the main path's shapes (no-crop and crop pages), with the max abs error
+   beside its tolerance and both median times (CUDA events); the grouped-
+   GEMM MoE (D, E) also whole against its grouped twin, and once under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync);
 3. model: HF-layout random weights for the full-width default OCR2Config
-   (about 3.5 B parameters) from a seeded torch.Generator on the card,
+   (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
    (LM bf16, vision f32);
-4. main path: `OCR2Pipeline.generate_ocr` on 3 synthetic no-crop pages;
-   every kernel must launch, every step-0 logit must be finite;
+4. main path: `OCR2Pipeline.generate_ocr` on 3 synthetic no-crop pages and
+   2 crop pages (grids (2, 1) and (2, 3)); every kernel must launch, D and
+   E once per MoE layer on a crop page and never on a no-crop page, every
+   step-0 logit must be finite;
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
-   weights; step-0 logits within tolerance, greedy tokens compared.
+   weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
+   D and E on the card, the grouped twin on the CPU); step-0 logits within
+   tolerance, greedy tokens compared.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -33,12 +40,15 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 0
 PAGES = [(700, 500), (768, 768), (420, 640)]  # (w, h): both sides <= 768 -> no crop
+CROP_PAGES = [(1400, 800, (2, 1)), (1700, 2200, (2, 3))]  # (w, h, the crop grid it takes)
+KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm")
 
 # Tolerances on max |kernel - twin| (both on the card, same inputs):
 # - f32: the kernels take sums in another order and A/B take an online
@@ -54,6 +64,10 @@ F32_TOL = 1e-4
 
 def bf16_tol(ref: torch.Tensor) -> float:
     return 4 * 2.0**-8 * max(1.0, float(ref.abs().max()))
+
+
+def tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
+    return F32_TOL if dtype == torch.float32 else bf16_tol(ref)
 
 
 # Step-0 logits, card vs CPU, f32 at reduced depth: every layer's sums are
@@ -121,8 +135,9 @@ def phase_device() -> str:
     print(smi)  # as nvidia-smi gives it, on a line of its own
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
-    for name in ("flash_attention", "fused_mlp"):
-        cuda_build.load(name)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # nvcc runs as a child process
+        list(pool.map(cuda_build.load, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
         log = cuda_build.BUILD_LOG.get(name, "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
@@ -134,6 +149,67 @@ def phase_device() -> str:
 
 # ---------------------------------------------------------------------------
 # Phase 2
+
+
+def gmm_results(dev, randn, record) -> None:
+    """Kernels D and E at the LM's MoE shapes (E = 64, k = 6, H = 1280,
+    I = 896) for the prompts of a 2-crop and a 6-crop page (N = 550, 1125),
+    routed by a random f32 router: each kernel alone against its per-tile
+    twin on the same aligned rows, then the whole `moe_ffn_gmm` against the
+    grouped twin `moe_ffn_gmm_reference`, and the dense form's time at
+    N = 550 (the 512-row cut-over). One call runs in sync-debug mode."""
+    from deepseek_ocr2_tpu_torch.ops import moe_gmm
+    from deepseek_ocr2_tpu_torch.ops.moe import moe_ffn_dense, route
+
+    e, k, h, i = 64, 6, 1280, 896
+    for n in (550, 1125):
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(n, h, dtype=dt)
+            ex = {
+                "gate": randn(e, i, h, std=h**-0.5, dtype=dt),
+                "up": randn(e, i, h, std=h**-0.5, dtype=dt),
+                "down": randn(e, h, i, std=i**-0.5, dtype=dt),
+            }
+            weights, idx = route(x, randn(e, h, std=h**-0.5), k)
+            x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+            n_valid = int(tile_valid.sum())
+            dts = str(dt)[6:]
+            case = f"N {n} k {k}: {tile_valid.numel()} tiles, {n_valid} valid, {dts}"
+
+            args_d = (x_al, ex["gate"], ex["up"], e_tile, tile_valid)
+            act = moe_gmm.gmm_swiglu_reference(*args_d)
+            got = moe_gmm.moe_gmm_swiglu(*args_d)
+            record("D", f"swiglu {case}", act, got, tolerance(act, dt),
+                   median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d)),
+                   median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)))
+            args_e = (act, ex["down"], e_tile, tile_valid)
+            y = moe_gmm.gmm_down_reference(*args_e)
+            got = moe_gmm.moe_gmm_down(*args_e)
+            record("E", f"down {case}", y, got, tolerance(y, dt),
+                   median_ms(lambda: moe_gmm.moe_gmm_down(*args_e)),
+                   median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)))
+            del act, got, y, args_d, args_e
+
+            args = (x, ex, weights, idx)
+            ref = moe_gmm.moe_ffn_gmm_reference(*args)
+            got = moe_gmm.moe_ffn_gmm(*args)
+            record("D+E", f"moe_ffn_gmm vs grouped twin, {case}", ref, got, tolerance(ref, dt),
+                   median_ms(lambda: moe_gmm.moe_ffn_gmm(*args)),
+                   median_ms(lambda: moe_gmm.moe_ffn_gmm_reference(*args)))
+            if n == 550:
+                print(f"[kernel] dense all-expert MoE N {n} {dts}: "
+                      f"{median_ms(lambda: moe_ffn_dense(*args)):.3f} ms")
+            if n == 1125 and dt == torch.bfloat16:
+                torch.cuda.synchronize(dev)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    moe_gmm.moe_ffn_gmm(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize(dev)
+                print(f"[kernel] moe_ffn_gmm under set_sync_debug_mode('error'), {case}: no host sync ok")
+            del x, ex, args, ref, got
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(dev) -> dict:
@@ -158,41 +234,50 @@ def phase_kernels(dev) -> dict:
             dict(case=case, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
         )
 
-    # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64] (14 x 14)
-    for case, (b, side) in (("global", (1, 64)), ("window", (25, 14))):
-        for dt in (torch.float32, torch.bfloat16):
-            l = side * side
-            q, k, v = (randn(b, 12, l, 64, dtype=dt) for _ in range(3))
-            rh, rw = randn(b, 12, l, side, std=0.3), randn(b, 12, l, side, std=0.3)
-            scale = 1.0 / 8.0
-            ref = mha_reference(q, k, v, scale=scale, rel_h=rh, rel_w=rw)
-            got = mha_relpos(q, k, v, rh, rw, scale=scale)
-            tol = F32_TOL if dt == torch.float32 else bf16_tol(ref)
-            ms = median_ms(lambda: mha_relpos(q, k, v, rh, rw, scale=scale))
-            plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, rel_h=rh, rel_w=rw))
-            record("B", f"{case} {tuple(q.shape)} {str(dt)[6:]}", ref, got, tol, ms, plain)
-            del q, k, v, rh, rw, ref, got
+    # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
+    # the CLI's LM dtype, first: it is the main-path case of the record).
+    gmm_results(dev, randn, record)
 
-    # A: LM prefill, causal, f32 [1, 10, 260, 128]
-    q, k, v = (randn(1, 10, 260, 128) for _ in range(3))
-    scale = 1.0 / math.sqrt(128)
-    ref = mha_reference(q, k, v, scale=scale, mode="causal")
-    got = mha(q, k, v, scale=scale, mode="causal")
-    ms = median_ms(lambda: mha(q, k, v, scale=scale, mode="causal"))
-    plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, mode="causal"))
-    record("A", f"causal {tuple(q.shape)} float32", ref, got, F32_TOL, ms, plain)
+    # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
+    # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
+    # [6, 12, 2304, 64] (48 x 48) and windows [96, 12, 196, 64], f32.
+    cases = [("global", 1, 64, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [("window", 25, 14, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [("crop global", 6, 48, torch.float32), ("crop window", 96, 14, torch.float32)]
+    for case, b, side, dt in cases:
+        l = side * side
+        q, k, v = (randn(b, 12, l, 64, dtype=dt) for _ in range(3))
+        rh, rw = randn(b, 12, l, side, std=0.3), randn(b, 12, l, side, std=0.3)
+        scale = 1.0 / 8.0
+        ref = mha_reference(q, k, v, scale=scale, rel_h=rh, rel_w=rw)
+        got = mha_relpos(q, k, v, rh, rw, scale=scale)
+        ms = median_ms(lambda: mha_relpos(q, k, v, rh, rw, scale=scale))
+        plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, rel_h=rh, rel_w=rw))
+        record("B", f"{case} {tuple(q.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain)
+        del q, k, v, rh, rw, ref, got
 
-    # C: SAM MLP, M = 4096, 768 -> 3072 -> 768
-    for dt in (torch.float32, torch.bfloat16):
-        x = randn(4096, 768, dtype=dt)
+    # A: LM prefill, causal, f32: a no-crop prompt [1, 10, 260, 128] and a
+    # 6-crop one [1, 10, 1125, 128].
+    for length in (260, 1125):
+        q, k, v = (randn(1, 10, length, 128) for _ in range(3))
+        scale = 1.0 / math.sqrt(128)
+        ref = mha_reference(q, k, v, scale=scale, mode="causal")
+        got = mha(q, k, v, scale=scale, mode="causal")
+        ms = median_ms(lambda: mha(q, k, v, scale=scale, mode="causal"))
+        plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, mode="causal"))
+        record("A", f"causal {tuple(q.shape)} float32", ref, got, F32_TOL, ms, plain)
+
+    # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view) and, f32,
+    # M = 6 * 2304 = 13824 (six 768^2 crops in one batch).
+    for m, dt in ((4096, torch.float32), (4096, torch.bfloat16), (6 * 2304, torch.float32)):
+        x = randn(m, 768, dtype=dt)
         w1, b1 = randn(3072, 768, std=768**-0.5, dtype=dt), randn(3072, std=0.02, dtype=dt)
         w2, b2 = randn(768, 3072, std=3072**-0.5, dtype=dt), randn(768, std=0.02, dtype=dt)
         ref = mlp_gelu_reference(x, w1, b1, w2, b2)
         got = mlp_gelu(x, w1, b1, w2, b2)
-        tol = F32_TOL if dt == torch.float32 else bf16_tol(ref)
         ms = median_ms(lambda: mlp_gelu(x, w1, b1, w2, b2))
         plain = median_ms(lambda: mlp_gelu_reference(x, w1, b1, w2, b2))
-        record("C", f"{tuple(x.shape)} x {tuple(w1.shape)} {str(dt)[6:]}", ref, got, tol, ms, plain)
+        record("C", f"{tuple(x.shape)} x {tuple(w1.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain)
     torch.cuda.synchronize(dev)
     return results
 
@@ -313,29 +398,43 @@ def load_model(cfg, flat, device, lm_dtype: str, vision_dtype: str):
     return params
 
 
-def synthetic_page(w: int, h: int, size: int, seed: int):
+def synthetic_page(w: int, h: int, cfg, seed: int, grid=(1, 1)):
     """A page with text-like dark strokes. Returns a PIL image when PIL is
-    installed; otherwise the host-stage dict of the pipeline: the page drawn
-    straight at its letterboxed size into a [1, 3, size, size] uint8 canvas
-    of pad colour 127."""
+    installed (the pipeline then decides the crop grid itself); otherwise
+    the host-stage dict of the pipeline: the page drawn straight at its
+    letterboxed size into a [1, 3, S, S] uint8 canvas of pad colour 127 and,
+    for a crop grid (gw, gh), drawn at gw x gh crop sizes and cut into
+    [gw * gh, 3, c, c] row-major tiles."""
     rng = np.random.default_rng(seed)
     try:
         from PIL import Image
     except ImportError:
         Image = None
-    if Image is None:
-        scale = min(size / w, size / h)
-        w, h = max(round(w * scale), 1), max(round(h * scale), 1)
-    page = np.full((h, w, 3), 235, np.uint8)
-    for _ in range(40):
-        y, x = int(rng.integers(0, h - 8)), int(rng.integers(0, w - 60))
-        page[y : y + 6, x : x + int(rng.integers(20, 60))] = rng.integers(0, 60, 3, dtype=np.uint8)
+
+    def draw(w, h):
+        page = np.full((h, w, 3), 235, np.uint8)
+        for _ in range(40 * max(1, w * h // 10**6)):
+            y, x = int(rng.integers(0, h - 8)), int(rng.integers(0, w - 60))
+            page[y : y + 6, x : x + int(rng.integers(20, 60))] = rng.integers(0, 60, 3, dtype=np.uint8)
+        return page
+
     if Image is not None:
-        return Image.fromarray(page), "pil"
+        return Image.fromarray(draw(w, h)), "pil"
+    size = cfg.base_image_size
+    scale = min(size / w, size / h)
+    bw, bh = max(round(w * scale), 1), max(round(h * scale), 1)
     canvas = np.full((1, 3, size, size), 127, np.uint8)
-    y0, x0 = (size - h) // 2, (size - w) // 2
-    canvas[0, :, y0 : y0 + h, x0 : x0 + w] = page.transpose(2, 0, 1)
-    return {"base": canvas, "rot": 0}, "host-stage dict"
+    y0, x0 = (size - bh) // 2, (size - bw) // 2
+    canvas[0, :, y0 : y0 + bh, x0 : x0 + bw] = draw(bw, bh).transpose(2, 0, 1)
+    pre = {"base": canvas, "rot": 0}
+    if grid != (1, 1):
+        c, (gw, gh) = cfg.crop_image_size, grid
+        big = draw(gw * c, gh * c).transpose(2, 0, 1)
+        pre["patches"] = np.stack(
+            [big[:, r * c : (r + 1) * c, q * c : (q + 1) * c] for r in range(gh) for q in range(gw)]
+        )
+        pre["ratio"] = grid
+    return pre, "host-stage dict"
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +444,9 @@ def synthetic_page(w: int, h: int, size: int, seed: int):
 def counters():
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_relpos
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_down, moe_gmm_swiglu
 
-    return {"A": mha, "B": mha_relpos, "C": mlp_gelu}
+    return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down}
 
 
 def phase_main_path(dev) -> dict:
@@ -367,24 +467,34 @@ def phase_main_path(dev) -> dict:
 
     pipe = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=dev, kv_dtype="float32", act_dtype="float32")
     kernels = counters()
-    pages = [synthetic_page(w, h, cfg.base_image_size, seed=i) for i, (w, h) in enumerate(PAGES)]
-    print(f"[main] pages handed to the pipeline as {pages[0][1]}")
+    pages = [(f"{w}x{h}", (1, 1), *synthetic_page(w, h, cfg, seed=i)) for i, (w, h) in enumerate(PAGES)]
+    pages += [(f"{w}x{h} crop", grid, *synthetic_page(w, h, cfg, seed=10 + i, grid=grid))
+              for i, (w, h, grid) in enumerate(CROP_PAGES)]
+    print(f"[main] pages handed to the pipeline as {pages[0][3]}")
     for fn in kernels.values():
         fn.launches = 0
-    for i, (page, _) in enumerate(pages):
+    for name, grid, page, _ in pages:
         before = {k: fn.launches for k, fn in kernels.items()}
         r = pipe.generate_ocr(page, max_new_tokens=32, ngram_size=20)
         delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
         finite = bool(torch.isfinite(r.logits0).all())
-        print(f"[main] page {i} {PAGES[i][0]}x{PAGES[i][1]}: prompt {r.prompt_len} tokens, "
+        print(f"[main] page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
               f"vision {r.vision_seconds * 1e3:.1f} ms, prefill {r.prefill_seconds * 1e3:.1f} ms, "
               f"decode {r.decode_seconds * 1e3:.1f} ms for {r.new_tokens} tokens "
               f"({r.decode_tokens_per_sec:.1f} tok/s), launches {delta}, logits finite {finite}")
         print(f"[main]   tokens {r.token_ids[r.prompt_len:]}")
         if not finite:
-            raise AssertionError(f"page {i}: non-finite step-0 logits")
+            raise AssertionError(f"page {name}: non-finite step-0 logits")
+        if r.crop_ratio != grid:
+            raise AssertionError(f"page {name}: crop grid {r.crop_ratio}, expected {grid}")
+        moe_launches = cfg.lm.num_moe_layers if grid != (1, 1) else 0  # crop prompts are > 512 rows
+        if delta["D"] != moe_launches or delta["E"] != moe_launches:
+            raise AssertionError(f"page {name}: D/E launched {delta['D']}/{delta['E']} times, "
+                                 f"expected {moe_launches} (one per MoE layer in prefill)")
+        if grid != (1, 1) and min(delta[k] for k in "ABC") == 0:
+            raise AssertionError(f"page {name}: a kernel of A, B, C did not launch: {delta}")
     launches = {k: fn.launches for k, fn in kernels.items()}
-    print(f"[main] launches over 3 pages {launches}")
+    print(f"[main] launches over {len(pages)} pages {launches}")
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -412,29 +522,39 @@ def phase_card_vs_cpu(dev) -> None:
     flat = random_hf_flat(
         cfg, lambda shape, std: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
     )
-    page, _ = synthetic_page(*PAGES[0], cfg.base_image_size, seed=99)
+    w, h, grid = CROP_PAGES[0]
+    pages = {"no-crop": synthetic_page(*PAGES[0], cfg, seed=99)[0],
+             f"{grid} crop": synthetic_page(w, h, cfg, seed=98, grid=grid)[0]}
+    kernels = counters()
     results = {}
     for device in ("cpu", dev):
         params = load_model(cfg, flat, device, lm_dtype="float32", vision_dtype="float32")
         pipe = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="float32", act_dtype="float32")
-        t0 = time.perf_counter()
-        results[str(device)] = pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20, keep_logits=True)
-        print(f"[cpu-vs-card] {device}: {time.perf_counter() - t0:.1f} s")
+        for name, page in pages.items():
+            before = {k: fn.launches for k, fn in kernels.items()}
+            t0 = time.perf_counter()
+            r = results[name, str(device)] = pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20, keep_logits=True)
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            print(f"[cpu-vs-card] {name} page on {device}: prompt {r.prompt_len} tokens, "
+                  f"{time.perf_counter() - t0:.1f} s, launches {delta}")
+            if name != "no-crop" and device != "cpu" and (delta["D"] == 0 or delta["E"] == 0):
+                raise AssertionError(f"{name} page: the card's MoE did not run D and E")
         del pipe, params
-    cpu, card = results["cpu"], results[str(dev)]
-    err = float((cpu.logits0 - card.logits0).abs().max())
-    tol = LOGITS_RTOL * float(cpu.logits0.abs().max())
-    print(f"[cpu-vs-card] step-0 logits max_abs_err {err:.3e} (tol {tol:.3e}, "
-          f"max |logit| {float(cpu.logits0.abs().max()):.3f})")
-    if not err <= tol:
-        raise AssertionError(f"step-0 logits differ by {err}, above {tol}")
-    a, b = cpu.token_ids[cpu.prompt_len:], card.token_ids[card.prompt_len:]
-    print(f"[cpu-vs-card] greedy tokens agree: {a == b} (cpu {a}, card {b})")
-    if a != b:
-        step = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
-        top2 = torch.topk(cpu.step_logits[step], 2).values
-        print(f"[cpu-vs-card] first difference at step {step}: cpu top-2 margin "
-              f"{float(top2[0] - top2[1]):.3e}")
+    for name in pages:
+        cpu, card = results[name, "cpu"], results[name, str(dev)]
+        err = float((cpu.logits0 - card.logits0).abs().max())
+        tol = LOGITS_RTOL * float(cpu.logits0.abs().max())
+        print(f"[cpu-vs-card] {name}: step-0 logits max_abs_err {err:.3e} (tol {tol:.3e}, "
+              f"max |logit| {float(cpu.logits0.abs().max()):.3f})")
+        if not err <= tol:
+            raise AssertionError(f"{name}: step-0 logits differ by {err}, above {tol}")
+        a, b = cpu.token_ids[cpu.prompt_len:], card.token_ids[card.prompt_len:]
+        print(f"[cpu-vs-card] {name}: greedy tokens agree: {a == b} (cpu {a}, card {b})")
+        if a != b:
+            step = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+            top2 = torch.topk(cpu.step_logits[step], 2).values
+            print(f"[cpu-vs-card] {name}: first difference at step {step}: cpu top-2 margin "
+                  f"{float(top2[0] - top2[1]):.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -459,11 +579,17 @@ def main() -> int:
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
         "B": ("flash_attention.mha_relpos (SAM attention)", "deepseek_ocr2_tpu/ops/flash_attention.py:101"),
         "C": ("fused_mlp.mlp_gelu (SAM MLP)", "deepseek_ocr2_tpu/ops/fused_mlp.py:66"),
+        "D": ("moe_gmm.moe_gmm_swiglu (grouped-GEMM MoE prefill, gate/up + SwiGLU)",
+              "deepseek_ocr2_tpu/ops/moe_gmm.py:223"),
+        "E": ("moe_gmm.moe_gmm_down (grouped-GEMM MoE prefill, down)", "deepseek_ocr2_tpu/ops/moe_gmm.py:237"),
     }
-    sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu"}
+    sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
+               "D": "moe_gmm.cu", "E": "moe_gmm.cu"}
     record = {"kernels": []}
-    for k in ("A", "B", "C"):
-        main_case = results[k][0]  # the f32 main-path shape (B: SAM global)
+    for k in ("A", "B", "C", "D", "E"):
+        # The first case is the main path's: f32 at the no-crop shapes for
+        # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E.
+        main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],
             "route": "cuda",

@@ -4,7 +4,8 @@ A port of the JAX package `deepseek_ocr2_tpu`, which stays the numeric
 reference. The layout mirrors it module for module:
 - io:       safetensors reader/writer (BF16 native) with the dtype policy
 - ops:      norms / rope / attention / moe / sampling, plus the hand-written
-            CUDA kernels (flash_attention, fused_mlp) and their plain twins
+            CUDA kernels (flash_attention, fused_mlp, moe_gmm) and their
+            plain twins
 - models:   sam (ViT-B), qwen2 (compressor), deepseek_v2 (LM), deepseek_ocr2
 - runtime:  KV cache, greedy generation, the OCR pipeline
 - cli:      `generate-ocr`

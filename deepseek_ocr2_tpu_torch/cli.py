@@ -1,9 +1,11 @@
-"""CLI of the port: `generate-ocr` (no-crop slice).
+"""CLI of the port: `generate-ocr`.
 
 Same flags and defaults as `deepseek_ocr2_tpu.cli generate-ocr`, except
-`--backend`, which picks cuda (default) or cpu. Flags for features outside
-this slice (quantized tiers, lookup decoding, device resize, sampling,
-profiling, crop mode) raise a clear error instead of being ignored.
+`--backend`, which picks cuda (default) or cpu. Crop mode is on by default:
+a page with a side above `--crop-image-size` (768) is read as 2-6 local
+crops plus the global view, unless `--no-crop` is given. Flags for features
+the port does not have yet (quantized tiers, lookup decoding, device resize,
+sampling, profiling) raise a clear error instead of being ignored.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
         --tokenizer tokenizer.json --image page.png

@@ -1,0 +1,356 @@
+// Expert-aligned grouped-GEMM MoE prefill for sm_90a: kernels D and E.
+//
+// Replaces the Pallas TPU kernels of deepseek_ocr2_tpu/ops/moe_gmm.py:
+//   D  gmm_swiglu  <- _gmm_swiglu_kernel_al: act = round(round(silu(round(x Wg^T))) * round(x Wu^T))
+//   E  gmm_down    <- _gmm_down_kernel_al:   y   = round(act Wd^T)
+// Run one after the other they also replace _gmm_ffn_kernel_al, the fused
+// visit the JAX package launches by default: it rounds act at the same
+// point, so the pair gives the same bits. round() is to the working type T
+// (identity for f32); every sum is accumulated in f32, silu is f32.
+//
+// Layout (built on the device by ops/moe_gmm.py, with no host sync): the
+// token -> expert assignments are sorted by expert and each expert's group
+// is padded to a multiple of BM = 32 rows, so row tile t of x [S, K] holds
+// rows of one expert only, e_tile[t]; pad rows are zero. The grid is the
+// static worst case, T = S / BM tiles. A tile past the last group has
+// tile_valid[t] == 0 and its blocks return at once (the wrapper zeroes the
+// output, so those rows read as zero).
+//
+// Weights keep HF's [out, in] layout, stacked over experts (Wg, Wu
+// [E, I, H], Wd [E, H, I]), so both operands of each GEMM are contiguous
+// along K: out = x W^T.
+//
+// What bounds it: a valid tile reads its expert's weights (6.9 MB in bf16
+// for the three matrices at H = 1280, I = 896) and reuses each element for
+// BM rows: 2 * BM FLOP per weight element, 32 FLOP per byte in bf16, far
+// below the ~295 FLOP per byte at which the H100's bf16 tensor cores would
+// outrun HBM. Tiles of one expert follow each other, so the repeats come
+// from the 50 MB L2 and HBM sees each layer's 440 MB of expert weights
+// about once (0.13 ms at 3.35 TB/s).
+// - bf16 (the LM's dtype on the main path): tensor cores, mma.sync
+//   m16n8k16 with f32 sums, fed from a cp.async double buffer; bound by
+//   streaming the weight slices from L2 and HBM. wgmma, TMA and a
+//   persistent grid are later work.
+// - f32 (full f32, no TF32): FMAs on the CUDA cores, whose 67 TFLOP/s peak
+//   makes it compute-bound. 8 row groups x 16 column groups of threads
+//   each hold a 4 x TN tile of the sums, fed by float4 reads of x and the
+//   weights, both staged transposed in shared memory.
+// BM = 32 keeps the pad rows at ~16 per expert (they cost full FMAs in f32).
+//
+// Two launches, not one fused visit: at crop sizes a page has ~100-300
+// valid tiles, fewer than one block per SM each if a tile were one block,
+// as on the TPU's sequential grid. D's grid is (T, ceil(I / 64)) and E's
+// (T, ceil(H / 128)), so every tile's output columns are spread over 14
+// and 10 blocks. The [S, I] activation makes one round trip through HBM
+// (13 MB in bf16 at S = 7424, a few microseconds).
+//
+// Shapes: N a multiple of 4, K a multiple of 4 (f32) or 8 (bf16: 16-byte
+// copies), x and the weights 16-byte aligned (checked by the wrapper);
+// ragged K and N edges are masked here.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int BM = 32;    // rows per tile: one expert
+constexpr int BK = 32;    // K slice staged per step
+constexpr int TM = 4;     // rows per thread
+constexpr int NTY = BM / TM;  // 8 row groups
+constexpr int NTX = 16;   // column groups
+constexpr int NT = NTY * NTX;  // 128 threads
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores.
+//
+// One (tile, column block) of out = f(x W0^T [, x W1^T]).
+// NW = 2: kernel D (W0 = Wg, W1 = Wu, SwiGLU epilogue), TN = 4, BN = 64.
+// NW = 1: kernel E (W0 = Wd), TN = 8, BN = 128.
+// Thread (ty, tx) owns rows 4 ty .. 4 ty + 3 of the tile and the columns
+// 4 tx + 64 j + {0..3}, j < TN / 4 (consecutive lanes read consecutive
+// float4s of the staged weights: no bank conflicts).
+template <int NW, int TN>
+__global__ void __launch_bounds__(NT) gmm_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1,
+    const int* __restrict__ e_tile, const int* __restrict__ tile_valid, float* __restrict__ out,
+    int k_dim, int n_dim) {
+  constexpr int BN = NTX * TN;
+  constexpr int XS = BM + 4;  // row stride of the transposed x slice [BK][XS]
+  constexpr int WS = BN + 4;  // row stride of a transposed weight slice [BK][WS]
+  __shared__ __align__(16) float xs[BK * XS];
+  __shared__ __align__(16) float ws[NW][BK * WS];
+
+  const int t = blockIdx.x;
+  if (!tile_valid[t]) return;
+  const int e = e_tile[t];
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int ty = tid / NTX, tx = tid % NTX;
+  const float* xt = x + (size_t)t * BM * k_dim;
+  const float* wp[NW];
+  wp[0] = w0 + (size_t)e * n_dim * k_dim;
+  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
+
+  float acc[NW][TM][TN];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[w][i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k_dim; k0 += BK) {
+    __syncthreads();  // the previous slice is consumed
+    for (int i = tid; i < BM * (BK / 4); i += NT) {
+      // Lanes on consecutive rows: conflict-free transposed stores; the
+      // rest of each 32-byte sector is read by the next warp, from L1.
+      const int r = i % BM, kc = 4 * (i / BM);
+      const float4 v = k0 + kc < k_dim ? *reinterpret_cast<const float4*>(xt + (size_t)r * k_dim + k0 + kc)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      xs[(kc + 0) * XS + r] = v.x;
+      xs[(kc + 1) * XS + r] = v.y;
+      xs[(kc + 2) * XS + r] = v.z;
+      xs[(kc + 3) * XS + r] = v.w;
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      for (int i = tid; i < BN * (BK / 4); i += NT) {
+        const int n = i % BN, kc = 4 * (i / BN);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n0 + n < n_dim && k0 + kc < k_dim)
+          v = *reinterpret_cast<const float4*>(wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc);
+        ws[w][(kc + 0) * WS + n] = v.x;
+        ws[w][(kc + 1) * WS + n] = v.y;
+        ws[w][(kc + 2) * WS + n] = v.z;
+        ws[w][(kc + 3) * WS + n] = v.w;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + k * XS + ty * TM);
+      const float av[TM] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int jj = 0; jj < TN / 4; ++jj) {
+          const float4 b = *reinterpret_cast<const float4*>(ws[w] + k * WS + tx * 4 + 64 * jj);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            acc[w][i][4 * jj + 0] = fmaf(av[i], b.x, acc[w][i][4 * jj + 0]);
+            acc[w][i][4 * jj + 1] = fmaf(av[i], b.y, acc[w][i][4 * jj + 1]);
+            acc[w][i][4 * jj + 2] = fmaf(av[i], b.z, acc[w][i][4 * jj + 2]);
+            acc[w][i][4 * jj + 3] = fmaf(av[i], b.w, acc[w][i][4 * jj + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float* orow = out + ((size_t)t * BM + ty * TM + i) * n_dim;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx * 4 + 64 * (j / 4) + j % 4;
+      if (col < n_dim) orow[col] = NW == 2 ? silu(acc[0][i][j]) * acc[NW - 1][i][j] : acc[0][i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums).
+//
+// The same (tile, column block) grid and epilogue. 4 warps: warp w takes
+// rows 16 (w % 2) .. +15 of the tile and half of the BN columns, NJ = BN / 16
+// n8 tiles. K is streamed in 64-wide slices, copied with cp.async into a
+// double buffer (16-byte chunks, zero-filled past the K and N edges) while
+// the previous slice is multiplied. x and the weights are both staged as
+// they lie in memory, K fastest, with rows padded to 72 elements: a
+// fragment word at (row g, k 2t) then sits in bank 4g + t, so the 32 lanes
+// of a fragment load hit 32 banks.
+
+constexpr int MK = 64;       // K slice
+constexpr int MS = MK + 8;   // row stride of a staged slice, in bf16
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NW, int BN>
+__global__ void __launch_bounds__(NT) gmm_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
+    const __nv_bfloat16* __restrict__ w1, const int* __restrict__ e_tile,
+    const int* __restrict__ tile_valid, __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
+  constexpr int NJ = BN / 16;  // n8 tiles per warp
+  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * MS];
+  __shared__ __align__(16) __nv_bfloat16 ws[2][NW][BN * MS];
+
+  const int t = blockIdx.x;
+  if (!tile_valid[t]) return;
+  const int e = e_tile[t];
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;  // fragment row / column pair
+  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
+  const __nv_bfloat16* xt = x + (size_t)t * BM * k_dim;
+  const __nv_bfloat16* wp[NW];
+  wp[0] = w0 + (size_t)e * n_dim * k_dim;
+  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
+
+  auto stage = [&](int buf, int k0) {
+    for (int i = tid; i < BM * (MK / 8); i += NT) {
+      const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
+      const bool full = k0 + kc < k_dim;
+      cp_async16(&xs[buf][r * MS + kc], full ? xt + (size_t)r * k_dim + k0 + kc : xt, full);
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      for (int i = tid; i < BN * (MK / 8); i += NT) {
+        const int n = i / (MK / 8), kc = 8 * (i % (MK / 8));
+        const bool full = n0 + n < n_dim && k0 + kc < k_dim;
+        cp_async16(&ws[buf][w][n * MS + kc], full ? wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc : wp[w], full);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[NW][NJ][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[w][j][c] = 0.f;
+
+  const int n_slices = (k_dim + MK - 1) / MK;
+  stage(0, 0);
+  for (int s = 0; s < n_slices; ++s) {
+    const int buf = s % 2;
+    if (s + 1 < n_slices) {
+      stage(buf ^ 1, (s + 1) * MK);  // the buffer read in step s - 1, freed by its closing barrier
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < MK; kk += 16) {
+      const __nv_bfloat16* xa = &xs[buf][(wm + g) * MS + kk + 2 * q];
+      unsigned a[4];
+      a[0] = *reinterpret_cast<const unsigned*>(xa);
+      a[1] = *reinterpret_cast<const unsigned*>(xa + 8 * MS);
+      a[2] = *reinterpret_cast<const unsigned*>(xa + 8);
+      a[3] = *reinterpret_cast<const unsigned*>(xa + 8 * MS + 8);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const __nv_bfloat16* wb = &ws[buf][w][(wn + 8 * j + g) * MS + kk + 2 * q];
+          mma_bf16(acc[w][j], a, *reinterpret_cast<const unsigned*>(wb),
+                   *reinterpret_cast<const unsigned*>(wb + 8));
+        }
+      }
+    }
+    __syncthreads();  // everyone is done with buf before it is refilled
+  }
+
+  // Accumulator c of n8 tile j: row g (c < 2) or g + 8, column 2q + c % 2.
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * q;
+    if (col >= n_dim) continue;  // n_dim is a multiple of 4: col + 1 is in range too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (NW == 2) {
+          const float gate = round_bf16(acc[0][j][2 * h + c]);
+          const float up = round_bf16(acc[NW - 1][j][2 * h + c]);
+          v[c] = round_bf16(silu(gate)) * up;
+        } else {
+          v[c] = acc[0][j][2 * h + c];
+        }
+      }
+      const size_t row = (size_t)t * BM + wm + g + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(out + row * n_dim + col) = __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+bool bad_shape(int n_tiles, int bm, int k_dim, int n_dim, int k_align) {
+  return bm != BM || n_tiles <= 0 || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
+}
+
+template <int NW, int TN>
+int launch_f32(const void* x, const void* w0, const void* w1, const void* e_tile,
+               const void* tile_valid, void* out, int n_tiles, int bm, int k_dim, int n_dim,
+               void* stream) {
+  if (bad_shape(n_tiles, bm, k_dim, n_dim, 4)) return (int)cudaErrorInvalidValue;
+  constexpr int BN = NTX * TN;
+  const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
+  gmm_kernel<NW, TN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(w1),
+      static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid), static_cast<float*>(out),
+      k_dim, n_dim);
+  return (int)cudaGetLastError();
+}
+
+template <int NW, int BN>
+int launch_bf16(const void* x, const void* w0, const void* w1, const void* e_tile,
+                const void* tile_valid, void* out, int n_tiles, int bm, int k_dim, int n_dim,
+                void* stream) {
+  if (bad_shape(n_tiles, bm, k_dim, n_dim, 8)) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
+  gmm_mma_kernel<NW, BN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const B*>(x), static_cast<const B*>(w0), static_cast<const B*>(w1),
+      static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid), static_cast<B*>(out),
+      k_dim, n_dim);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// D: x [S, H], wg / wu [E, I, H] -> act [S, I].
+extern "C" int gmm_swiglu_f32(const void* x, const void* wg, const void* wu, const void* e_tile,
+                              const void* tile_valid, void* act, int n_tiles, int bm, int h,
+                              int i, void* stream) {
+  return launch_f32<2, 4>(x, wg, wu, e_tile, tile_valid, act, n_tiles, bm, h, i, stream);
+}
+
+extern "C" int gmm_swiglu_bf16(const void* x, const void* wg, const void* wu, const void* e_tile,
+                               const void* tile_valid, void* act, int n_tiles, int bm, int h,
+                               int i, void* stream) {
+  return launch_bf16<2, 64>(x, wg, wu, e_tile, tile_valid, act, n_tiles, bm, h, i, stream);
+}
+
+// E: act [S, I], wd [E, H, I] -> y [S, H].
+extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile,
+                            const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
+                            void* stream) {
+  return launch_f32<1, 8>(act, wd, wd, e_tile, tile_valid, y, n_tiles, bm, i, h, stream);
+}
+
+extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* e_tile,
+                             const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
+                             void* stream) {
+  return launch_bf16<1, 128>(act, wd, wd, e_tile, tile_valid, y, n_tiles, bm, i, h, stream);
+}

@@ -2,8 +2,8 @@
 
 SAM -> Qwen2 compressor -> linear projector (896 -> 1280) plus the learned
 `view_seperator`; the vision tokens replace the `<image>` placeholder block
-of the prompt. This slice encodes the global view only (no crops):
-tokens are global -> view_seperator.
+of the prompt, in the order local (the crops, row-major) -> global ->
+view_seperator.
 """
 
 from __future__ import annotations
@@ -70,15 +70,19 @@ def params_from_jax(tree: Params, cfg: OCR2Config, device="cpu") -> Params:
 def encode_views(
     params: Params, cfg: OCR2Config, image_base: torch.Tensor, patches: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """[1, 3, S, S] normalized view -> injected token rows [n_img, lm_hidden]."""
-    if patches is not None:
-        raise NotImplementedError("crop mode (local views) is the next slice")
+    """[1, 3, S, S] normalized global view and, in crop mode, the [P, 3, c, c]
+    crops (one SAM batch) -> injected token rows [n_img, lm_hidden]."""
     h = cfg.lm.hidden_size
-    feats = sam_mod.sam_forward(params["sam"], cfg.sam, image_base)
-    feats = qwen2_mod.qwen2_encode(params["qwen2"], cfg.qwen2, feats)
-    dt = feats.dtype
-    g = (F.linear(feats, params["projector_w"].to(dt)) + params["projector_b"].to(dt)).reshape(-1, h)
-    return torch.cat([g, params["view_seperator"].reshape(1, h).to(dt)], dim=0)
+
+    def tower(imgs):
+        feats = sam_mod.sam_forward(params["sam"], cfg.sam, imgs)
+        feats = qwen2_mod.qwen2_encode(params["qwen2"], cfg.qwen2, feats)
+        dt = feats.dtype
+        return (F.linear(feats, params["projector_w"].to(dt)) + params["projector_b"].to(dt)).reshape(-1, h)
+
+    g = tower(image_base)
+    views = [g] if patches is None else [tower(patches), g]
+    return torch.cat([*views, params["view_seperator"].reshape(1, h).to(g.dtype)], dim=0)
 
 
 def build_inputs_embeds(

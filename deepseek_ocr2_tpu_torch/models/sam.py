@@ -9,8 +9,10 @@ in HF semantics), decomposed relative-position attention through kernel B
 kernel, as in the JAX package. Weights keep HF layout ([out, in] linears,
 OIHW convs).
 
-This slice runs the 1024^2 global view only, where the pos-embed and the
-rel-pos tables need no resize; the 768^2 crop view is the next slice.
+At the 768^2 crop views the absolute pos-embed (64 x 64) is resized to the
+48 x 48 patch grid (bicubic with antialias) and the global blocks' rel-pos
+tables (127 rows) to 95 (linear), both in f32 with `F.interpolate`, as the
+JAX package does with `jax.image.resize` (the same HF contract).
 """
 
 from __future__ import annotations
@@ -128,14 +130,25 @@ def window_unpartition(windows, window: int, pad_hw, hw) -> torch.Tensor:
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
-    """[q_size, k_size, head_dim] f32 table lookup (no resize in this slice)."""
+    """[q_size, k_size, head_dim] f32 table lookup; a table of another
+    length is first resized linearly (align_corners=False, no antialias)."""
     max_rel_dist = 2 * max(q_size, k_size) - 1
-    if rel_pos.shape[0] != max_rel_dist:
-        raise NotImplementedError(
-            "rel-pos table resize (the 768^2 crop view) is the next slice"
-        )
+    rel = rel_pos.float()
+    if rel.shape[0] != max_rel_dist:
+        rel = F.interpolate(rel.t()[None], size=max_rel_dist, mode="linear", align_corners=False)[0].t()
     idx = torch.arange(q_size)[:, None] - torch.arange(k_size)[None, :] + (k_size - 1)
-    return rel_pos.float()[idx.to(rel_pos.device)]
+    return rel[idx.to(rel.device)]
+
+
+def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[1, ph, pw, C] -> [1, h, w, C]: bicubic with antialias,
+    align_corners=False, in f32, cast back."""
+    if tuple(pos.shape[1:3]) == (h, w):
+        return pos
+    out = F.interpolate(
+        pos.float().permute(0, 3, 1, 2), size=(h, w), mode="bicubic", antialias=True, align_corners=False
+    )
+    return out.permute(0, 2, 3, 1).to(pos.dtype)
 
 
 def _attention(x: torch.Tensor, blk: Params, num_heads: int) -> torch.Tensor:
@@ -188,12 +201,7 @@ def sam_forward(params: Params, cfg: SamConfig, x: torch.Tensor) -> torch.Tensor
     """[B, 3, S, S] image -> [B, net_3_chans, S/64, S/64] features."""
     x = _patch_embed(x, params["patch_w"], params["patch_b"], cfg.patch_size)
     _, h, w, _ = x.shape
-    pos = params["pos_embed"]
-    if tuple(pos.shape[1:3]) != (h, w):
-        raise NotImplementedError(
-            f"pos-embed resize to {h}x{w} (the 768^2 crop view) is the next slice"
-        )
-    x = x + pos.to(x.dtype)
+    x = x + resize_pos_embed(params["pos_embed"], h, w).to(x.dtype)
     for i, blk in enumerate(params["blocks"]):
         window = 0 if i in cfg.global_attn_indexes else cfg.window_size
         x = _block(x, blk, cfg, window)

@@ -16,8 +16,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-# Prefill rows above which the JAX package switches to the expert-aligned
-# grouped-GEMM kernel (ops/moe.py there), not yet ported to CUDA.
+from .moe_gmm import moe_ffn_gmm
+
+# Prefill rows above which the JAX package switches from the dense form to
+# the expert-aligned grouped GEMM (ops/moe.py there); the port keeps the
+# cut-over (an H100 measurement has not moved it yet).
 GMM_ROWS = 512
 
 
@@ -61,15 +64,12 @@ def moe_ffn_dense(
 
 
 def moe_ffn_prefill(x_flat, experts, weights, idx) -> torch.Tensor:
-    """Prefill MoE. At most GMM_ROWS rows the JAX package runs the dense
-    form, and so does the port. Above that it runs the grouped-GEMM kernel,
-    whose CUDA port is the next slice (ROADMAP queue 2, item 4)."""
-    if x_flat.shape[0] > GMM_ROWS and x_flat.is_cuda:
-        raise NotImplementedError(
-            f"prefill MoE over {x_flat.shape[0]} > {GMM_ROWS} rows needs the grouped "
-            "GEMM kernel (ROADMAP queue 2 item 4, moe_gmm._gmm_ffn_kernel_al), "
-            "not yet ported to CUDA"
-        )
+    """Prefill MoE. At most GMM_ROWS rows: the dense form. Above: the
+    grouped GEMM (`moe_gmm.moe_ffn_gmm`), kernels D and E on CUDA and the
+    grouped twin on the CPU, as the JAX package's CPU path runs its ragged
+    grouped form there."""
+    if x_flat.shape[0] > GMM_ROWS:
+        return moe_ffn_gmm(x_flat, experts, weights, idx)
     return moe_ffn_dense(x_flat, experts, weights, idx)
 
 

@@ -1,12 +1,10 @@
-"""End-to-end OCR pipeline, no-crop slice (port of
-deepseek_ocr2_tpu.runtime.pipeline).
+"""End-to-end OCR pipeline (port of deepseek_ocr2_tpu.runtime.pipeline).
 
-Host stage (`preprocess_host`): decode, rotate, the crop decision and the
-letterbox to the base size, with PIL imported only there. Device stage
-(`preprocess_finish` and `build_ocr_embeds`): ship the uint8 view, normalize
-on the device, vision towers, injection. Then greedy generation.
-A page that would be cropped (a side above `crop_image_size` without
-`no_crop`) raises NotImplementedError: crop mode is the next slice.
+Host stage (`preprocess_host`): decode, rotate, the crop decision (a side
+above `crop_image_size`, unless `no_crop`), the crop grid, the letterbox to
+the base size and the crop tiles, with PIL imported only there. Device stage
+(`preprocess_finish` and `build_ocr_embeds`): ship the uint8 views,
+normalize on the device, vision towers, injection. Then greedy generation.
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ class GenerationResult:
     decode_seconds: float
     new_tokens: int
     vision_seconds: float = 0.0  # upload + normalize + towers + injection
+    crop_ratio: Tuple[int, int] = (1, 1)  # the (w, h) crop grid; (1, 1) without crops
     logits0: Optional[torch.Tensor] = None  # step-0 logits [V] f32, CPU
     step_logits: Optional[List[torch.Tensor]] = None  # every step's [V], with keep_logits
 
@@ -71,13 +70,18 @@ class OCR2Pipeline:
     def preprocess_host(
         self, image, no_crop: bool = False, rotate: Optional[int] = 0, auto_rotate: bool = False
     ) -> Dict[str, Any]:
-        """Decode + rotate + letterbox on the host. `image` is a path or a PIL
-        image. Returns {"base": u8 [1, 3, S, S], "rot": degrees}."""
+        """Decode + rotate + crop decision + letterbox and tiles on the host.
+        `image` is a path or a PIL image. Returns {"base": u8 [1, 3, S, S],
+        "patches": u8 [P, 3, c, c] or None, "ratio": the (w, h) crop grid,
+        (1, 1) without crops, "rot": degrees}."""
         from PIL import Image
 
         from deepseek_ocr2_tpu.preprocess.image import (
             auto_rotate_choice,
+            candidate_ratios,
+            find_closest_aspect_ratio,
             preprocess_base_u8,
+            preprocess_tiles_u8,
             rotate_image,
             should_crop,
         )
@@ -88,27 +92,48 @@ class OCR2Pipeline:
         if rot == 0 and auto_rotate:
             rot = auto_rotate_choice(img)
         img = rotate_image(img, rot)
+        patches, ratio = None, (1, 1)
         if should_crop(img, not no_crop, cfg.crop_image_size):
-            raise NotImplementedError(
-                f"page {img.size[0]}x{img.size[1]} takes crop mode, which is the next slice "
-                "(ROADMAP: crop mode with the aligned gmm kernel); pass no_crop=True"
-            )
-        return {"base": preprocess_base_u8(img, cfg.base_image_size, cfg.pad_color), "rot": rot}
+            w, h = img.size
+            ratios = candidate_ratios(cfg.min_crop_tiles, cfg.max_crop_tiles)
+            ratio = find_closest_aspect_ratio(w / h, ratios, w, h, cfg.crop_image_size)
+            patches = preprocess_tiles_u8(img, cfg.crop_image_size, ratio)
+        base = preprocess_base_u8(img, cfg.base_image_size, cfg.pad_color)
+        return {"base": base, "patches": patches, "ratio": ratio, "rot": rot}
 
-    def preprocess_finish(self, pre: Dict[str, Any]) -> Tuple[torch.Tensor, None, Tuple[int, int], int]:
-        """Ship the host-stage view to the device: (base, patches=None,
-        crop_ratio=(1, 1), rotation)."""
-        base = torch.as_tensor(np.ascontiguousarray(pre["base"])).to(self.device)
-        s = self.cfg.base_image_size
+    def preprocess_finish(
+        self, pre: Dict[str, Any]
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Tuple[int, int], int]:
+        """Ship the host-stage views to the device: (base, patches or None,
+        crop_ratio, rotation). `patches` and `ratio` may be left out of
+        `pre` for a page without crops."""
+        def ship(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+
+        base = ship(pre["base"])
+        s, c = self.cfg.base_image_size, self.cfg.crop_image_size
         if tuple(base.shape) != (1, 3, s, s):
             raise ValueError(f"base view must be [1, 3, {s}, {s}], got {tuple(base.shape)}")
-        return base, None, (1, 1), pre.get("rot", 0)
+        ratio = tuple(pre.get("ratio", (1, 1)))
+        patches = pre.get("patches")
+        n_tiles = ratio[0] * ratio[1] if ratio != (1, 1) else 0
+        if n_tiles == 0 and patches is not None:
+            raise ValueError(f"patches were given with the crop grid {ratio}")
+        if n_tiles:
+            patches = ship(patches)
+            if tuple(patches.shape) != (n_tiles, 3, c, c):
+                raise ValueError(f"crop grid {ratio} needs patches [{n_tiles}, 3, {c}, {c}], "
+                                 f"got {tuple(patches.shape)}")
+        return base, patches, ratio, pre.get("rot", 0)
 
     @torch.no_grad()
-    def build_ocr_embeds(self, ids: List[int], image_base: torch.Tensor, image_start: int) -> torch.Tensor:
+    def build_ocr_embeds(
+        self, ids: List[int], image_base: torch.Tensor, patches: Optional[torch.Tensor], image_start: int
+    ) -> torch.Tensor:
         ids_t = torch.tensor([ids], dtype=torch.long, device=self.device)
         pixels = ocr2.normalize_pixels(image_base, self.act_dtype)
-        vision = ocr2.encode_views(self.params, self.cfg, pixels)
+        crops = None if patches is None else ocr2.normalize_pixels(patches, self.act_dtype)
+        vision = ocr2.encode_views(self.params, self.cfg, pixels, crops)
         return ocr2.build_inputs_embeds(self.params, ids_t, vision, image_start)
 
     def generate_ocr(
@@ -124,7 +149,8 @@ class OCR2Pipeline:
         keep_logits: bool = False,
     ) -> GenerationResult:
         """OCR one page. `image` is a path, a PIL image, or the dict that
-        `preprocess_host` returns (for callers that letterbox themselves).
+        `preprocess_host` returns (for callers that letterbox and tile
+        themselves; `result.crop_ratio` is the grid that ran).
         `keep_logits` copies every step's logits to the host (debugging)."""
         cfg = self.cfg
         eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
@@ -134,9 +160,9 @@ class OCR2Pipeline:
         pre = image if isinstance(image, dict) else self.preprocess_host(
             image, no_crop=no_crop, rotate=rotate, auto_rotate=auto_rotate
         )
-        image_base, _, crop_ratio, _ = self.preprocess_finish(pre)
+        image_base, patches, crop_ratio, _ = self.preprocess_finish(pre)
         ids, _, image_start = tokenize_with_image(self.tokenizer, prompt, cfg, crop_ratio)
-        embeds = self.build_ocr_embeds(ids, image_base, image_start)
+        embeds = self.build_ocr_embeds(ids, image_base, patches, image_start)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         vision_seconds = time.perf_counter() - t0
@@ -159,6 +185,7 @@ class OCR2Pipeline:
             decode_seconds=stats["decode_s"],
             new_tokens=len(gen_ids),
             vision_seconds=vision_seconds,
+            crop_ratio=crop_ratio,
             logits0=stats["logits0"][0],
             step_logits=[lg[0] for lg in stats["logits"]] if keep_logits else None,
         )

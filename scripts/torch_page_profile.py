@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where one no-crop page's time goes in the PyTorch port, on one GPU.
+"""Where one page's time goes in the PyTorch port, on one GPU.
 
-    python3 scripts/torch_page_profile.py [--new-tokens 32]
+    python3 scripts/torch_page_profile.py [--new-tokens 32] [--crop W H]
 
 Builds the full-width model with random weights (as chip_smoke.py does:
 LM bf16, vision f32), runs one warm-up page, then profiles the three
-stages of a second page with torch.profiler: vision (towers + injection),
+stages of a second page with torch.profiler. The page is a 700x500 no-crop
+page, or with `--crop W H` a W x H page that takes crop mode (for example
+`--crop 1700 2200`, a (2, 3) grid of 768^2 crops). Stages: vision (towers + injection),
 LM prefill (one forward + the first pick) and the decode loop. For each
 stage it prints the host wall time, the summed device kernel time, the
 device idle share (1 - kernel time / wall time) and the kernels that take
@@ -54,6 +56,8 @@ def report(stage, wall, busy, rows, top=8):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--crop", type=int, nargs=2, metavar=("W", "H"), default=None,
+                    help="profile a W x H page in crop mode instead of the no-crop page")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -74,13 +78,21 @@ def main() -> int:
     params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")
     del flat
     pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device=dev)
-    page, _ = cs.synthetic_page(700, 500, cfg.base_image_size, seed=0)
+    if args.crop:
+        w, h = args.crop
+        grid = {(cw, ch): cg for cw, ch, cg in cs.CROP_PAGES}.get((w, h))
+        page, how = cs.synthetic_page(w, h, cfg, seed=0, grid=grid or (1, 1))
+        if how != "pil" and grid is None:  # a page drawn without PIL needs its grid given
+            raise SystemExit(f"without PIL, --crop takes a size of chip_smoke.CROP_PAGES: {cs.CROP_PAGES}")
+    else:
+        page, _ = cs.synthetic_page(700, 500, cfg, seed=0)
     pipe.generate_ocr(page, max_new_tokens=4)  # warm-up: builds kernels, cuBLAS handles
 
     pre = page if isinstance(page, dict) else pipe.preprocess_host(page)
-    base, _, ratio, _ = pipe.preprocess_finish(pre)
+    base, patches, ratio, _ = pipe.preprocess_finish(pre)
     ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
-    embeds, wall, busy, rows = profiled(lambda: pipe.build_ocr_embeds(ids, base, start), dev)
+    print(f"[page] crop grid {ratio}, prompt {len(ids)} tokens")
+    embeds, wall, busy, rows = profiled(lambda: pipe.build_ocr_embeds(ids, base, patches, start), dev)
     report("vision", wall, busy, rows)
 
     def gen(n):

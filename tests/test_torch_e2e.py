@@ -1,6 +1,8 @@
-"""The port's no-crop OCR slice end to end on the CPU, against the JAX
-package: greedy tokens (f32), bf16-LM logits, the CLI, and the guarantees
-that the port imports no jax and never runs on the CPU when a GPU is asked for.
+"""The port's OCR path end to end on the CPU, against the JAX package:
+no-crop greedy tokens (f32), bf16-LM logits, the CLI on a no-crop and a crop
+page, and the guarantees that the port imports no jax (over a no-crop and a
+crop page) and never runs on the CPU when a GPU is asked for. Crop mode's
+parity with the JAX package is in tests/test_torch_crop.py.
 """
 
 import dataclasses
@@ -116,6 +118,8 @@ def cli_assets(tmp_path_factory):
     tok.save(str(d / "tokenizer.json"))
     rng = np.random.default_rng(3)
     Image.fromarray(rng.integers(0, 256, (120, 160, 3), np.uint8)).save(d / "page.png")
+    # A side above the tiny config's crop size (192): crop mode, grid (3, 2).
+    Image.fromarray(rng.integers(0, 256, (300, 500, 3), np.uint8)).save(d / "page_crop.png")
     return d
 
 
@@ -132,6 +136,20 @@ def test_cli_generate_ocr_runs(cli_assets, capsys):
     assert rc == 0
     err = capsys.readouterr().err
     assert "missing=0" in err and "tokens" in err
+
+
+def test_cli_generate_ocr_runs_a_crop_page(cli_assets, capsys):
+    from deepseek_ocr2_tpu_torch.cli import main
+
+    d = cli_assets
+    rc = main([
+        "generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+        "--tokenizer", str(d / "tokenizer.json"), "--config", str(d / "tiny_config.json"),
+        "--image", str(d / "page_crop.png"), "--image-token-id", "500", "--max-new-tokens", "6",
+        "--no-repeat-ngram-size", "3",
+    ])
+    assert rc == 0
+    assert "tokens" in capsys.readouterr().err
 
 
 def test_cli_refuses_flags_outside_the_slice(cli_assets):
@@ -158,6 +176,12 @@ params = cs.load_model(cfg, flat, "cpu", "bfloat16", "float32")
 pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device="cpu")
 canvas = torch.full((1, 3, cfg.base_image_size, cfg.base_image_size), 127, dtype=torch.uint8)
 r = pipe.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
+assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+c = cfg.crop_image_size
+crops = torch.randint(0, 256, (2, 3, c, c), generator=g, dtype=torch.uint8)
+r = pipe.generate_ocr({"base": canvas.numpy(), "patches": crops.numpy(), "ratio": (2, 1)},
+                      max_new_tokens=4, ngram_size=3)
+assert r.crop_ratio == (2, 1) and r.prompt_len > cfg.image_token_count((2, 1))
 assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)

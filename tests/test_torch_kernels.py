@@ -1,6 +1,7 @@
-"""Kernels A, B, C of the PyTorch port: plain twins against the JAX Pallas
-kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
-against their twins where a card is present.
+"""Kernels A, B, C, D, E of the PyTorch port: plain twins against the JAX
+Pallas kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA
+kernels against their twins where a card is present. (D and E's CPU parity
+with the JAX package is in tests/test_torch_crop.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -24,6 +25,8 @@ import torch
 
 from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
+from deepseek_ocr2_tpu_torch.ops import moe_gmm
+from deepseek_ocr2_tpu_torch.ops.moe import route
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 
@@ -129,6 +132,12 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError):
         mlp_gelu(x, torch.zeros(8, 16, device="meta"), torch.zeros(8, device="meta"),
                  torch.zeros(16, 8, device="meta"), torch.zeros(16, device="meta"))
+    tiles = torch.zeros(2, dtype=torch.int32, device="meta")
+    w = torch.zeros(3, 8, 16, device="meta")
+    with pytest.raises(ValueError):
+        moe_gmm.moe_gmm_swiglu(torch.zeros(64, 16, device="meta"), w, w, tiles, tiles)
+    with pytest.raises(ValueError):
+        moe_gmm.moe_gmm_down(torch.zeros(64, 16, device="meta"), torch.zeros(3, 8, 16, device="meta"), tiles, tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -181,3 +190,62 @@ def test_cuda_mlp_matches_twin(cuda, dtype, m, e, f):
     assert mlp_gelu.launches == before + 1
     ref = mlp_gelu_reference(x, w1, b1, w2, b2)
     assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+def _moe_case(dev, dtype, n, e, h, i, k, routing):
+    """Experts with fan-in scaled weights; `routing` is "router" (a random
+    f32 router: realistic group sizes), "one" (every row on expert 5) or
+    "few" (every row on experts 0-2, the others empty)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, h, generator=g, device=dev).to(dtype)
+    experts = {
+        name: (torch.randn(e, *shape, generator=g, device=dev) * shape[1] ** -0.5).to(dtype)
+        for name, shape in (("gate", (i, h)), ("up", (i, h)), ("down", (h, i)))
+    }
+    if routing == "router":
+        return x, experts, *route(x, torch.randn(e, h, generator=g, device=dev) * h**-0.5, k)
+    weights = torch.rand(n, k, generator=g, device=dev)
+    if routing == "one":
+        idx = torch.full((n, k), 5, device=dev)
+    else:
+        idx = torch.randint(0, 3, (n, k), generator=g, device=dev)
+    return x, experts, weights, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,h,i,k,routing", [
+    (550, 64, 1280, 896, 6, "router"),  # a 2-crop prompt at full LM width
+    (77, 8, 200, 96, 2, "router"),  # ragged K and N edges
+    (300, 8, 128, 64, 1, "one"),  # all rows on one expert
+    (200, 64, 256, 128, 2, "few"),  # most experts empty
+])
+def test_cuda_gmm_matches_twin(cuda, dtype, n, e, h, i, k, routing):
+    x, experts, weights, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
+    before = (moe_gmm.moe_gmm_swiglu.launches, moe_gmm.moe_gmm_down.launches)
+    got = moe_gmm.moe_ffn_gmm(x, experts, weights, idx)
+    torch.cuda.synchronize()
+    assert (moe_gmm.moe_gmm_swiglu.launches, moe_gmm.moe_gmm_down.launches) == (before[0] + 1, before[1] + 1)
+    ref = moe_gmm.moe_ffn_gmm_reference(x, experts, weights, idx)
+    assert got.dtype == dtype and got.shape == (n, h)
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+    # Each kernel alone against its per-tile twin, on the same aligned rows.
+    x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+    act = moe_gmm.gmm_swiglu_reference(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
+    got_act = moe_gmm.moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
+    assert float((got_act.float() - act.float()).abs().max()) <= _tol(act.float(), dtype)
+    y = moe_gmm.gmm_down_reference(act, experts["down"], e_tile, tile_valid)
+    got_y = moe_gmm.moe_gmm_down(act, experts["down"], e_tile, tile_valid)
+    assert float((got_y.float() - y.float()).abs().max()) <= _tol(y.float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_makes_no_host_sync(cuda):
+    x, experts, weights, idx = _moe_case(cuda, torch.bfloat16, 550, 64, 1280, 896, 6, "router")
+    moe_gmm.moe_ffn_gmm(x, experts, weights, idx)  # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe_gmm.moe_ffn_gmm(x, experts, weights, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
