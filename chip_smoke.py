@@ -8,10 +8,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    hand-written kernels from `deepseek_ocr2_tpu_torch/csrc/` (one nvcc per
    source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
-   the main path's shapes (no-crop and crop pages), with the max abs error
-   beside its tolerance and both median times (CUDA events); the grouped-
-   GEMM MoE (D, E) also whole against its grouped twin, and once under
-   `torch.cuda.set_sync_debug_mode("error")` (no host sync);
+   the main path's shapes (no-crop and crop pages, the 16-slot decode
+   batch), with the max abs error beside its tolerance and both median
+   times (CUDA events); the grouped-GEMM MoE (D, E) also whole against its
+   grouped twin; D+E and F once each under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync); one batched-
+   decode MoE layer timed in its three forms at the B * k <= E cut-over;
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
@@ -23,7 +25,18 @@ Phases (each raises on failure, so the exit code is non-zero):
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
    weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
    D and E on the card, the grouped twin on the CPU); step-0 logits within
-   tolerance, greedy tokens compared.
+   tolerance, greedy tokens compared;
+6. serving at full width, on phase 3's model: `OCR2Engine(batch_size=16)`
+   on 16 no-crop and 2 crop pages; `ContinuousOCREngine(slots=16)` on 24
+   pages with a pool that makes slots grow (and preempt); one
+   `decode_chunk` under sync-debug mode "error"; the online engine behind
+   `OCRHttpServer` (4 concurrent POSTs, one SSE stream, /healthz,
+   /v1/stats). F must launch once per MoE layer and G once per layer in
+   every decode step of the continuous engine;
+7. serving is token-exact: on phase 5's card model, both engines (16
+   slots) against each page's single-page `generate_ocr`; a difference is
+   accepted only where the single run's top-2 margin at the first
+   differing step is below LOGITS_RTOL of its largest logit.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,12 +61,14 @@ import torch
 SEED = 0
 PAGES = [(700, 500), (768, 768), (420, 640)]  # (w, h): both sides <= 768 -> no crop
 CROP_PAGES = [(1400, 800, (2, 1)), (1700, 2200, (2, 3))]  # (w, h, the crop grid it takes)
-KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm")
+KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm", "moe_decode", "paged_attention")
+SERVE_PAGES = [(700, 500), (768, 768), (420, 640), (600, 760), (512, 512), (760, 430)]  # no crop
 
 # Tolerances on max |kernel - twin| (both on the card, same inputs):
 # - f32: the kernels take sums in another order and A/B take an online
 #   softmax over key tiles instead of a full-row one; outputs are O(1), so
 #   f32 rounding stays far below 1e-4.
+#   G reads f32 or bf16 pools but computes in f32 on both sides: F32_TOL.
 # - bf16: both sides round the same f32 values to bf16 at the same points;
 #   an f32 sum that lands on the other side of a rounding boundary moves
 #   an output by one bf16 ulp (2^-8 relative), and in C such a flip of the
@@ -212,6 +227,82 @@ def gmm_results(dev, randn, record) -> None:
     torch.cuda.empty_cache()
 
 
+def decode_results(dev, randn, record) -> None:
+    """Kernels F and G at the serving shapes. F: the routed MoE of one
+    decode step (E = 64, k = 6, H = 1280, I = 896) at B = 16 and 32 in bf16
+    and B = 16 in f32, against the visit twin; one call in sync-debug mode;
+    then one MoE layer at B = 8, 11, 16, 32 timed in its three forms (F,
+    the per-selection path, the dense form) around the B * k <= E cut-over
+    (11 rows). G: [12, P, 10, 128, 128] pools in f32 and bf16, 16 rows of
+    ragged lengths 260..2048 with random block tables, one row on the
+    scratch page 0, layers 0 and 11."""
+    from deepseek_ocr2_tpu_torch.ops import moe_decode
+    from deepseek_ocr2_tpu_torch.ops import moe as moe_ops
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool,
+        paged_decode_attention_reference,
+    )
+
+    e, k, h, i = 64, 6, 1280, 896
+
+    def experts(dt):
+        return {"gate": randn(e, i, h, std=h**-0.5, dtype=dt), "up": randn(e, i, h, std=h**-0.5, dtype=dt),
+                "down": randn(e, h, i, std=i**-0.5, dtype=dt)}
+
+    router = randn(e, h, std=h**-0.5)
+    for b, dt in ((16, torch.bfloat16), (32, torch.bfloat16), (16, torch.float32)):
+        ex = experts(dt)
+        x = randn(b, h, dtype=dt)
+        args = (x, ex, *moe_ops.route(x, router, k))
+        n_visits = int(moe_decode.distinct_schedule(args[3], e)[1].sum())
+        ref = moe_decode.moe_ffn_decode_visits_reference(*args)
+        got = moe_decode.moe_ffn_decode_fused(*args)
+        record("F", f"B {b} k {k}: {n_visits} distinct experts, {str(dt)[6:]}", ref, got, tolerance(ref, dt),
+               median_ms(lambda: moe_decode.moe_ffn_decode_fused(*args)),
+               median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)))
+        if b == 16 and dt == torch.bfloat16:
+            torch.cuda.synchronize(dev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe_decode.moe_ffn_decode_fused(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize(dev)
+            print("[kernel] F under set_sync_debug_mode('error'), B 16 bf16: no host sync ok")
+        del ex, args, ref, got
+
+    ex = experts(torch.bfloat16)
+    for b in (8, 11, 16, 32):
+        x = randn(b, h, dtype=torch.bfloat16)
+        args = (x, ex, *moe_ops.route(x, router, k))
+        forms = {"F": moe_decode.moe_ffn_decode_fused, "per-selection": moe_ops.moe_ffn_decode_per_selection,
+                 "dense": moe_ops.moe_ffn_dense}
+        times = ", ".join(f"{name} {median_ms(lambda: fn(*args)):.3f} ms" for name, fn in forms.items())
+        print(f"[cut-over] one MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): {times}")
+    del ex
+
+    scale = 128**-0.5
+    for dt in (torch.float32, torch.bfloat16):
+        n_pages, page, b = 64, 128, 16
+        k_pool = randn(12, n_pages, 10, page, 128, dtype=dt)
+        v_pool = randn(12, n_pages, 10, page, 128, dtype=dt)
+        q = randn(b, 10, 128)
+        bt = torch.randint(1, n_pages, (b, 2048 // page), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+        bt[-1] = 0  # a finished row: every page is the scratch page
+        lens = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32)
+        for li in (0, 11):
+            args = (q, k_pool, v_pool, bt, lens)
+            ref = paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens, scale=scale)
+            got = paged_decode_attention_pool(*args, li, scale=scale)
+            record("G", f"pool {tuple(k_pool.shape)} {str(dt)[6:]}, B {b}, lengths 260..2048, layer {li}",
+                   ref, got, F32_TOL, median_ms(lambda: paged_decode_attention_pool(*args, li, scale=scale)),
+                   median_ms(lambda: paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens,
+                                                                      scale=scale)))
+        del k_pool, v_pool
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(dev) -> dict:
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
@@ -237,6 +328,8 @@ def phase_kernels(dev) -> dict:
     # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
     # the CLI's LM dtype, first: it is the main-path case of the record).
     gmm_results(dev, randn, record)
+    # F, G: the decode step of the 16-slot serving batch.
+    decode_results(dev, randn, record)
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
@@ -444,12 +537,15 @@ def synthetic_page(w: int, h: int, cfg, seed: int, grid=(1, 1)):
 def counters():
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_relpos
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu
+    from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_fused
     from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_down, moe_gmm_swiglu
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import paged_decode_attention_pool
 
-    return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down}
+    return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
+            "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool}
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev):
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
@@ -495,19 +591,17 @@ def phase_main_path(dev) -> dict:
             raise AssertionError(f"page {name}: a kernel of A, B, C did not launch: {delta}")
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"[main] launches over {len(pages)} pages {launches}")
-    for k, n in launches.items():
-        if n == 0:
+    for k in "ABCDE":
+        if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    del pipe, params
-    torch.cuda.empty_cache()
-    return launches
+    return launches, pipe
 
 
 # ---------------------------------------------------------------------------
 # Phase 5
 
 
-def phase_card_vs_cpu(dev) -> None:
+def phase_card_vs_cpu(dev):
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
@@ -539,7 +633,8 @@ def phase_card_vs_cpu(dev) -> None:
                   f"{time.perf_counter() - t0:.1f} s, launches {delta}")
             if name != "no-crop" and device != "cpu" and (delta["D"] == 0 or delta["E"] == 0):
                 raise AssertionError(f"{name} page: the card's MoE did not run D and E")
-        del pipe, params
+        if device == "cpu":
+            del pipe, params
     for name in pages:
         cpu, card = results[name, "cpu"], results[name, str(dev)]
         err = float((cpu.logits0 - card.logits0).abs().max())
@@ -555,9 +650,239 @@ def phase_card_vs_cpu(dev) -> None:
             top2 = torch.topk(cpu.step_logits[step], 2).values
             print(f"[cpu-vs-card] {name}: first difference at step {step}: cpu top-2 margin "
                   f"{float(top2[0] - top2[1]):.3e}")
+    return pipe
 
 
 # ---------------------------------------------------------------------------
+
+
+def _post(port: int, path: str, body: bytes, timeout: float = 300.0):
+    """POST to the local server; returns (status, parsed body or SSE events)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "image/png"}, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.headers["Content-Type"] == "text/event-stream":
+            return r.status, [json.loads(line[6:]) for line in r if line.startswith(b"data: ")]
+        return r.status, json.loads(r.read())
+
+
+def _get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _serve_pages(cfg, n_plain: int, n_crop: int, seed: int) -> list:
+    """n_plain no-crop pages of varied sizes, then n_crop (2, 1) crop pages."""
+    pages = [synthetic_page(*SERVE_PAGES[i % len(SERVE_PAGES)], cfg, seed=seed + i)[0] for i in range(n_plain)]
+    w, h, grid = CROP_PAGES[0]
+    return pages + [synthetic_page(w, h, cfg, seed=seed + 100 + i, grid=grid)[0] for i in range(n_crop)]
+
+
+def phase_serving(dev, pipe) -> dict:
+    """Phase 6: the serving path at full width, on phase 3's model."""
+    import io
+
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+    from deepseek_ocr2_tpu_torch.runtime.http_server import OCRHttpServer
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def delta_since(before):
+        return {k: fn.launches - before[k] for k, fn in kernels.items()}
+
+    def check_results(results, what):
+        for r in results:
+            if r is None or r.new_tokens < 1 or r.prompt_len < cfg.image_token_count((1, 1)):
+                raise AssertionError(f"{what}: a page came back without tokens: {r}")
+
+    # Group engine: 16 no-crop pages in one chunk (B = 16: F in decode), 2 crop pages in another.
+    pages = _serve_pages(cfg, 16, 2, seed=200)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t0 = time.perf_counter()
+    res = OCR2Engine(pipe, batch_size=16).run(pages, max_new_tokens=32, ngram_size=20)
+    dt = time.perf_counter() - t0
+    check_results(res, "OCR2Engine")
+    grids = sorted({r.crop_ratio for r in res})
+    n_tok = sum(r.new_tokens for r in res)
+    delta = delta_since(before)
+    # A chunk's decode loop runs while a row is live, so it takes the
+    # longest row's new tokens less one steps (the first comes from prefill).
+    steps16 = max(r.new_tokens for r in res[:16]) - 1
+    steps_crop = max(r.new_tokens for r in res[16:]) - 1
+    print(f"[serve] OCR2Engine(batch_size=16): {len(pages)} pages (grids {grids}) in {dt:.2f} s = "
+          f"{len(pages) / dt:.2f} pages/s; 16-page chunk: vision {res[0].prefill_seconds * 1e3:.1f} ms, "
+          f"prefill + decode {res[0].decode_seconds * 1e3:.1f} ms for {res[0].new_tokens} tokens a page "
+          f"({16 * (res[0].new_tokens - 1) / res[0].decode_seconds:.1f} tok/s over both); {n_tok} tokens; "
+          f"decode steps: 16-page chunk {steps16}, 2-page crop chunk {steps_crop}; launches {delta}")
+    if grids != [(1, 1), CROP_PAGES[0][2]]:
+        raise AssertionError(f"OCR2Engine ran the crop grids {grids}")
+    moe_layers = lm.num_moe_layers
+    # The 16-page chunk decodes at B·k = 96 > E: F in every MoE layer of every
+    # step. The 2-page crop chunk (B·k = 12 <= E) takes the per-selection
+    # path, so it adds no F; the contiguous cache's attention is plain torch.
+    if steps16 < 1 or steps_crop < 1 or delta["F"] != moe_layers * steps16 or delta["G"] != 0:
+        raise AssertionError(f"OCR2Engine: F {delta['F']} / G {delta['G']} launches, expected F "
+                             f"{moe_layers} x {steps16} steps of the 16-page chunk only, and no G")
+    if min(delta[k] for k in "ABCDE") == 0:
+        raise AssertionError(f"the group engine's batched admissions did not run every kernel of A-E: {delta}")
+
+    # Continuous engine, 16 slots, a pool of 56 pages: admission takes 3 (no
+    # crop) or 5 (crop) pages a slot, a full page 4 or 6, so slots grow.
+    pages = _serve_pages(cfg, 20, 4, seed=300)
+    engine = ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128,
+                                 pool_tokens=56 * 128)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t0 = time.perf_counter()
+    res = engine.run(pages, max_new_tokens=128, ngram_size=20)
+    dt = time.perf_counter() - t0
+    check_results(res, "ContinuousOCREngine")
+    delta = delta_since(before)
+    steps = engine.last_decode_steps
+    decoded = sum(r.new_tokens - 1 for r in res)  # the first token of a page comes from its admission
+    admit_ms = sorted({round(r.prefill_seconds * 1e3, 1) for r in res})
+    print(f"[serve] ContinuousOCREngine(slots=16, page 128, pool 56 pages): {len(pages)} pages in {dt:.2f} s = "
+          f"{len(pages) / dt:.2f} pages/s; {steps} decode steps in {engine.last_decode_seconds:.2f} s, "
+          f"{decoded} tokens = {decoded / engine.last_decode_seconds:.1f} tok/s in total, "
+          f"{decoded / engine.last_decode_seconds / 16:.1f} per slot; admissions (vision + prefill) "
+          f"{admit_ms} ms; preempted {engine.last_preempted}; launches {delta}")
+    if delta["F"] != moe_layers * steps or delta["G"] != lm.num_hidden_layers * steps:
+        raise AssertionError(f"continuous decode: F {delta['F']} / G {delta['G']} launches in {steps} steps, "
+                             f"expected {moe_layers} / {lm.num_hidden_layers} a step")
+    if min(delta[k] for k in "ABCDE") == 0:
+        raise AssertionError(f"the batched admissions did not run every kernel of A-E: {delta}")
+    if engine.alloc.n_free != 56:
+        raise AssertionError("the engine did not return every page to the pool")
+
+    # The online engine behind the HTTP server: 4 concurrent POSTs and an SSE stream.
+    from PIL import Image  # the request bodies are PNG bytes
+
+    def png(page: Image.Image) -> bytes:
+        buf = io.BytesIO()
+        page.save(buf, format="PNG")
+        return buf.getvalue()
+
+    online = ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=8)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    online.start(ngram_size=20)
+    server = OCRHttpServer(online, port=0).start_background()
+    try:
+        bodies = [png(p) for p in _serve_pages(cfg, 3, 1, seed=400)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            outs = list(ex.map(lambda body: _post(server.port, "/v1/ocr?max_new_tokens=16", body), bodies))
+        t_post = time.perf_counter() - t0
+        code, events = _post(server.port, "/v1/ocr?max_new_tokens=16&stream=1", bodies[0])
+        health, stats = _get(server.port, "/healthz"), _get(server.port, "/v1/stats")
+    finally:
+        server.shutdown()
+        online.stop(timeout=120)
+    final = events[-1] if events else {}
+    print(f"[serve] HTTP: 4 concurrent POSTs {[c for c, _ in outs]} in {t_post:.2f} s, new_tokens "
+          f"{[o['new_tokens'] for _, o in outs]}; SSE {code}, {len(events)} events, new_tokens "
+          f"{final.get('new_tokens')}; /healthz {health[0]}, /v1/stats {stats[0]} {stats[1]}")
+    if any(c != 200 or o["new_tokens"] < 1 for c, o in outs) or code != 200 or not final.get("done") \
+            or final.get("new_tokens", 0) < 1 or health[0] != 200 or stats[0] != 200 or stats[1]["requests"] < 5:
+        raise AssertionError("the HTTP front end did not answer every request")
+    delta, steps = delta_since(before), online.last_decode_steps
+    print(f"[serve] HTTP: {steps} decode steps; launches {delta}")
+    if steps < 1 or delta["F"] != moe_layers * steps or delta["G"] != lm.num_hidden_layers * steps:
+        raise AssertionError(f"online engine: F {delta['F']} / G {delta['G']} launches in {steps} steps, "
+                             f"expected {moe_layers} / {lm.num_hidden_layers} a step")
+    # The main path's counts end here: the group, continuous and HTTP runs.
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[serve] launches over the serving phase {launches}")
+    _decode_chunk_sync_check(dev, pipe, kernels)
+    return launches
+
+
+def _decode_chunk_sync_check(dev, pipe, kernels) -> None:
+    """One decode_chunk with the host-sync check on: 16 rows at ragged
+    lengths over a synthetic pool (the K/V contents do not matter here).
+    It runs after phase 6 has read its counts, so it adds nothing to them."""
+    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    moe_layers = lm.num_moe_layers
+    pool = make_paged_kv_cache(lm.num_hidden_layers, 16 * 4 + 1, lm.num_attention_heads, 128, lm.head_dim,
+                               dtype=pipe.kv_dtype, device=dev)
+    state = DecodeState.empty(16, 512, dev)
+    state.tokens.random_(2, lm.vocab_size)
+    state.cur_lens.copy_(torch.arange(120, 136, dtype=torch.int32, device=dev))  # across a page end
+    state.done.zero_()
+    state.limits.fill_(200)
+    tables = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(16, 4)
+    chunk = dict(n_steps=2, ngram_size=20, eos_id=cfg.eos_token_id, rope=pipe.rope)
+    lm_params = pipe.params["lm"]
+    decode_chunk(lm_params, lm, pool, state, tables, **chunk)  # warm-up
+    torch.cuda.synchronize(dev)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        status = decode_chunk(lm_params, lm, pool, state, tables, **chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lens = status[:16].cpu()
+    d = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    print(f"[serve] decode_chunk(2 steps, 16 rows) under set_sync_debug_mode('error'): no host sync ok; "
+          f"lengths {lens[0].item()}..{lens[-1].item()}, launches F {d['F']} G {d['G']}")
+    if d["F"] != 2 * moe_layers or d["G"] != 2 * lm.num_hidden_layers or not torch.equal(
+            lens, torch.arange(124, 140, dtype=torch.int32)):
+        raise AssertionError(f"decode_chunk: launches {d}, lengths {lens.tolist()}")
+    del pool, state
+
+
+def _first_difference(single, served) -> str:
+    """'' when the tokens agree; otherwise a note on the first difference,
+    or an AssertionError when the single run's choice there was not close."""
+    a, b = single.token_ids[single.prompt_len:], served.token_ids[served.prompt_len:]
+    if a == b:
+        return ""
+    step = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), min(len(a), len(b)))
+    logits = single.step_logits[min(step, len(single.step_logits) - 1)]
+    top2 = torch.topk(logits, 2).values
+    margin, tol = float(top2[0] - top2[1]), LOGITS_RTOL * float(logits.abs().max())
+    note = f"first difference at step {step}: single-page top-2 margin {margin:.3e} (bound {tol:.3e})"
+    if not margin < tol:
+        raise AssertionError(f"served tokens differ from the single page's, {note}")
+    return note
+
+
+def phase_serving_exact(dev, pipe) -> None:
+    """Phase 7: both engines token-exact against single-page generate_ocr, on
+    phase 5's reduced-depth f32 model on the card."""
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+
+    kernels = counters()
+    pages = _serve_pages(pipe.cfg, 14, 2, seed=500)
+    gen = dict(max_new_tokens=16, ngram_size=20)
+    singles = [pipe.generate_ocr(p, keep_logits=True, **gen) for p in pages]
+    before = {k: fn.launches for k, fn in kernels.items()}
+    served = {
+        "OCR2Engine(batch_size=16)": OCR2Engine(pipe, batch_size=16).run(pages, **gen),
+        "ContinuousOCREngine(slots=16)": ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=8).run(
+            pages, **gen),
+    }
+    d = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    for name, results in served.items():
+        notes = [(i, _first_difference(s, r)) for i, (s, r) in enumerate(zip(singles, results))]
+        exact = sum(1 for _, n in notes if not n)
+        print(f"[serve-exact] {name}: {exact} of {len(pages)} pages token-exact against generate_ocr")
+        for i, n in notes:
+            if n:
+                print(f"[serve-exact]   page {i}: {n}")
+    print(f"[serve-exact] launches {d}")
+    if d["F"] == 0 or d["G"] == 0:
+        raise AssertionError(f"the reduced-depth serving run did not reach F and G: {d}")
 
 
 def main() -> int:
@@ -570,11 +895,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_device()
     results = phase_kernels(dev)
-    launches = phase_main_path(dev)
-    phase_card_vs_cpu(dev)
+    main_launches, pipe = phase_main_path(dev)
+    serve_launches = phase_serving(dev, pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    card_pipe = phase_card_vs_cpu(dev)
+    phase_serving_exact(dev, card_pipe)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    # The main path is one page through generate_ocr (phase 4) and serving
+    # (phase 6); each was driven with the counts at 0 and read after.
+    launches = {k: main_launches[k] + serve_launches[k] for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
         "B": ("flash_attention.mha_relpos (SAM attention)", "deepseek_ocr2_tpu/ops/flash_attention.py:101"),
@@ -582,13 +914,18 @@ def main() -> int:
         "D": ("moe_gmm.moe_gmm_swiglu (grouped-GEMM MoE prefill, gate/up + SwiGLU)",
               "deepseek_ocr2_tpu/ops/moe_gmm.py:223"),
         "E": ("moe_gmm.moe_gmm_down (grouped-GEMM MoE prefill, down)", "deepseek_ocr2_tpu/ops/moe_gmm.py:237"),
+        "F": ("moe_decode.moe_ffn_decode_fused (batched-decode MoE, one visit per distinct expert)",
+              "deepseek_ocr2_tpu/ops/moe_decode.py:85"),
+        "G": ("paged_attention.paged_decode_attention_pool (paged decode attention)",
+              "deepseek_ocr2_tpu/ops/paged_attention.py:158"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
-               "D": "moe_gmm.cu", "E": "moe_gmm.cu"}
+               "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu"}
     record = {"kernels": []}
-    for k in ("A", "B", "C", "D", "E"):
+    for k in "ABCDEFG":
         # The first case is the main path's: f32 at the no-crop shapes for
-        # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E.
+        # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
+        # bf16 at 16 slots for F; an f32 pool at 16 slots for G.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

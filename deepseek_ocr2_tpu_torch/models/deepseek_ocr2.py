@@ -85,6 +85,50 @@ def encode_views(
     return torch.cat([*views, params["view_seperator"].reshape(1, h).to(g.dtype)], dim=0)
 
 
+def encode_views_batched(
+    params: Params, cfg: OCR2Config, image_base: torch.Tensor, patches: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Batched vision for multi-page serving: [B, 3, S, S] global views and,
+    in crop mode, [B, P, 3, c, c] crops (pages of a batch share the crop
+    grid) -> [B, n_img, lm_hidden]. The crops flatten into one SAM batch of
+    B * P tiles; each page's tokens go local -> global -> separator."""
+    h = cfg.lm.hidden_size
+    b = image_base.shape[0]
+
+    def tower(imgs):
+        feats = sam_mod.sam_forward(params["sam"], cfg.sam, imgs)
+        feats = qwen2_mod.qwen2_encode(params["qwen2"], cfg.qwen2, feats)
+        dt = feats.dtype
+        return F.linear(feats, params["projector_w"].to(dt)) + params["projector_b"].to(dt)
+
+    g = tower(image_base)  # [B, nq_base, H]
+    sep = params["view_seperator"].to(g.dtype).reshape(1, 1, h).expand(b, 1, h)
+    if patches is None:
+        return torch.cat([g, sep], dim=1)
+    p = patches.shape[1]
+    loc = tower(patches.reshape(b * p, *patches.shape[2:]))  # [B * P, nq_crop, H]
+    return torch.cat([loc.reshape(b, -1, h), g, sep], dim=1)
+
+
+def ocr_prefill_embeds_batched(
+    params: Params,
+    cfg: OCR2Config,
+    input_ids: torch.Tensor,  # [B, S]
+    image_base: torch.Tensor,  # [B, 3, S, S] normalized
+    patches: Optional[torch.Tensor],  # [B, P, 3, c, c] normalized, or None
+    image_start: int,
+) -> torch.Tensor:
+    """[B, S, H] prompt embeddings of a batch of pages sharing one prompt:
+    the placeholder block of every row replaced by that page's tokens."""
+    vision = encode_views_batched(params, cfg, image_base, patches)
+    n = vision.shape[1]
+    input_ids = input_ids.clone()
+    input_ids[:, image_start : image_start + n] = 0  # placeholder ids are never looked up
+    base = F.embedding(input_ids, params["lm"]["embed"])
+    base[:, image_start : image_start + n] = vision.to(base.dtype)
+    return base
+
+
 def build_inputs_embeds(
     params: Params, input_ids: torch.Tensor, vision_tokens: torch.Tensor, image_start: int
 ) -> torch.Tensor:

@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from .moe_decode import moe_ffn_decode_fused
 from .moe_gmm import moe_ffn_gmm
 
 # Prefill rows above which the JAX package switches from the dense form to
@@ -73,14 +74,12 @@ def moe_ffn_prefill(x_flat, experts, weights, idx) -> torch.Tensor:
     return moe_ffn_dense(x_flat, experts, weights, idx)
 
 
-def moe_ffn_decode(x_flat, experts, weights, idx) -> torch.Tensor:
-    """Decode MoE. N*k <= E: per selection, reading only the selected
-    experts (gathered by index on device, no host sync), accumulated in
-    selection order in f32. Otherwise the dense form."""
+def moe_ffn_decode_per_selection(x_flat, experts, weights, idx) -> torch.Tensor:
+    """Per selection: each row against only its selected experts (gathered by
+    index on the device, no host sync), accumulated in selection order in
+    f32."""
     n, h = x_flat.shape
     k = idx.shape[1]
-    if n * k > experts["gate"].shape[0]:
-        return moe_ffn_dense(x_flat, experts, weights, idx)
     acc = torch.zeros(n, h, dtype=torch.float32, device=x_flat.device)
     for t in range(n):
         sel = idx[t]
@@ -92,3 +91,14 @@ def moe_ffn_decode(x_flat, experts, weights, idx) -> torch.Tensor:
         for j in range(k):
             acc[t] += y[j].float() * weights[t, j]
     return acc.to(x_flat.dtype)
+
+
+def moe_ffn_decode(x_flat, experts, weights, idx) -> torch.Tensor:
+    """Decode MoE. N*k <= E: the per-selection path. Otherwise one visit per
+    distinct selected expert (`moe_decode.moe_ffn_decode_fused`): kernel F
+    on CUDA tensors, its plain twin on CPU tensors. The cut-over is the JAX
+    package's; N is the static decode batch, every slot, not only the
+    active rows."""
+    if x_flat.shape[0] * idx.shape[1] > experts["gate"].shape[0]:
+        return moe_ffn_decode_fused(x_flat, experts, weights, idx)
+    return moe_ffn_decode_per_selection(x_flat, experts, weights, idx)

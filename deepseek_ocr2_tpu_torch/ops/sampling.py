@@ -1,5 +1,6 @@
 """Greedy sampling with the no-repeat-ngram ban, on device
-(port of deepseek_ocr2_tpu.ops.sampling; greedy only in this slice)."""
+(port of deepseek_ocr2_tpu.ops.sampling; greedy only: `sample_pick` is not
+ported yet)."""
 
 from __future__ import annotations
 
@@ -8,34 +9,37 @@ from typing import Optional
 import torch
 
 
-def ngram_ban_mask(
-    tokens: torch.Tensor,  # [T] token buffer (prompt + generated, padded)
-    cur_len: int,  # number of valid tokens
+def ngram_ban_mask_batched(
+    tokens: torch.Tensor,  # [B, T] token buffers (prompt + generated, padded)
+    cur_lens: torch.Tensor,  # [B] int tensor: valid tokens per row
     ngram_size: int,
     vocab_size: int,
 ) -> torch.Tensor:
-    """Bool [vocab], True = banned next token: for every window
-    tokens[i : i+n-1] equal to the current suffix tokens[cur_len-n+1 : cur_len]
-    with i + n <= cur_len, the continuation tokens[i+n-1] is banned."""
+    """Bool [B, vocab], True = banned next token, each row at its own
+    length: for every window tokens[r, i : i+n-1] equal to the row's suffix
+    tokens[r, len-n+1 : len] with i + n <= len, the continuation
+    tokens[r, i+n-1] is banned. As `jax.vmap(ngram_ban_mask, in_axes=(0, 0,
+    None, None))`; the lengths stay on the device, nothing is read back."""
+    b, t = tokens.shape
     device = tokens.device
-    t = tokens.shape[0]
     if ngram_size == 0 or t < ngram_size:
-        return torch.zeros(vocab_size, dtype=torch.bool, device=device)
+        return torch.zeros(b, vocab_size, dtype=torch.bool, device=device)
     tokens = tokens.long()
+    lens = cur_lens.long()[:, None]  # [B, 1]
     prefix_len = ngram_size - 1
-    start = max(cur_len - prefix_len, 0)
+    start = (lens - prefix_len).clamp(min=0)
     idx = (start + torch.arange(prefix_len, device=device)).clamp(max=t - 1)
-    prefix = tokens[idx]
+    prefix = tokens.gather(1, idx)  # [B, prefix_len]
     n_win = t - prefix_len
-    matches = torch.ones(n_win, dtype=torch.bool, device=device)
+    matches = torch.ones(b, n_win, dtype=torch.bool, device=device)
     for j in range(prefix_len):
-        matches &= tokens[j : j + n_win] == prefix[j]
-    valid = (torch.arange(n_win, device=device) + ngram_size) <= cur_len
-    valid &= matches & (cur_len >= prefix_len)
-    nxt = tokens[prefix_len:]
+        matches &= tokens[:, j : j + n_win] == prefix[:, j : j + 1]
+    valid = (torch.arange(n_win, device=device)[None, :] + ngram_size) <= lens
+    valid &= matches & (lens >= prefix_len)
+    nxt = tokens[:, prefix_len:]
     valid &= nxt < vocab_size  # ids outside the vocabulary ban nothing (JAX drops them)
-    mask = torch.zeros(vocab_size, dtype=torch.int32, device=device)
-    mask.scatter_reduce_(0, nxt.clamp(max=vocab_size - 1), valid.int(), reduce="amax")
+    mask = torch.zeros(b, vocab_size, dtype=torch.int32, device=device)
+    mask.scatter_reduce_(1, nxt.clamp(max=vocab_size - 1), valid.int(), reduce="amax")
     return mask.bool()
 
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..configs import DeepseekV2Config
 
 from ..models.deepseek_v2 import lm_forward, logits_last, rope_consts
-from ..ops.sampling import greedy_pick, ngram_ban_mask
+from ..ops.sampling import greedy_pick, ngram_ban_mask_batched
 from .kv_cache import make_kv_cache
 
 
@@ -74,8 +74,8 @@ def greedy_generate(
     tokens[:, :s] = prompt_ids.to(device)
 
     def pick(logits, cur_len):
-        ban = torch.stack([ngram_ban_mask(tokens[r], cur_len, ngram_size, vocab) for r in range(b)])
-        return greedy_pick(logits, ban)
+        lens = torch.full((b,), cur_len, dtype=torch.long, device=device)
+        return greedy_pick(logits, ngram_ban_mask_batched(tokens, lens, ngram_size, vocab))
 
     tok = pick(logits, s)
     if stats is not None:

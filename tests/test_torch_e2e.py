@@ -1,7 +1,8 @@
 """The port's OCR path end to end on the CPU, against the JAX package:
 no-crop greedy tokens (f32), bf16-LM logits, the CLI on a no-crop and a crop
-page, and the guarantees that the port imports no jax (over a no-crop and a
-crop page) and never runs on the CPU when a GPU is asked for. Crop mode's
+page, `serve` (group and continuous engines), and the guarantees that the
+port imports no jax (over a no-crop and a crop page and both serving
+engines) and never runs on the CPU when a GPU is asked for. Crop mode's
 parity with the JAX package is in tests/test_torch_crop.py.
 """
 
@@ -152,6 +153,41 @@ def test_cli_generate_ocr_runs_a_crop_page(cli_assets, capsys):
     assert "tokens" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("mode", [["--continuous", "--capacity", "128", "--page-size", "16", "--pool-tokens", "160"],
+                                  []])
+def test_cli_serve_runs(cli_assets, capsys, mode):
+    """`serve` over a no-crop and a crop page: the continuous engine with a
+    tight pool, and the group engine."""
+    from deepseek_ocr2_tpu_torch.cli import main
+
+    d = cli_assets
+    rc = main([
+        "serve", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+        "--tokenizer", str(d / "tokenizer.json"), "--config", str(d / "tiny_config.json"),
+        "--images", str(d / "page.png"), str(d / "page_crop.png"), "--batch-size", "2",
+        "--max-new-tokens", "6", "--no-repeat-ngram-size", "3", "--vision-dtype", "f32", "--lm-dtype", "f32",
+        "--per-page-stats", *mode,
+    ])
+    assert rc == 0
+    out = capsys.readouterr()
+    assert out.out.count("=== ") == 2 and "pages/s" in out.err and "tokens]" in out.err
+
+
+def test_cli_serve_refuses_what_it_cannot_run(cli_assets):
+    from deepseek_ocr2_tpu_torch.cli import main
+
+    d = cli_assets
+    base = ["serve", "--weights", str(d / "tiny.safetensors"), "--tokenizer", str(d / "tokenizer.json"),
+            "--images", str(d / "page.png")]
+    with pytest.raises(SystemExit, match="quantized"):
+        main([*base, "--backend", "cpu", "--continuous", "--kv-cache", "int8"])
+    with pytest.raises(SystemExit, match="sampling"):
+        main([*base, "--backend", "cpu", "--temperature", "0.7"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            main(base)  # --backend cuda is the default
+
+
 def test_cli_refuses_flags_outside_the_slice(cli_assets):
     from deepseek_ocr2_tpu_torch.cli import main
 
@@ -183,6 +219,14 @@ r = pipe.generate_ocr({"base": canvas.numpy(), "patches": crops.numpy(), "ratio"
                       max_new_tokens=4, ngram_size=3)
 assert r.crop_ratio == (2, 1) and r.prompt_len > cfg.image_token_count((2, 1))
 assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+from deepseek_ocr2_tpu_torch.ops import paged_attention  # noqa: F401
+from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+from deepseek_ocr2_tpu_torch.runtime.http_server import OCRHttpServer  # noqa: F401
+pages = [{"base": canvas.numpy()}, {"base": canvas.numpy(), "patches": crops.numpy(), "ratio": (2, 1)}] * 3
+group = OCR2Engine(pipe, batch_size=6).run(pages, max_new_tokens=3, ngram_size=3)
+cont = ContinuousOCREngine(pipe, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
+assert [r.token_ids for r in group] == [r.token_ids for r in cont]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)
 sys.exit(1 if bad else 0)

@@ -1,7 +1,8 @@
-"""Kernels A, B, C, D, E of the PyTorch port: plain twins against the JAX
-Pallas kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA
-kernels against their twins where a card is present. (D and E's CPU parity
-with the JAX package is in tests/test_torch_crop.py.)
+"""Kernels A-G of the PyTorch port: plain twins against the JAX Pallas
+kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
+against their twins where a card is present. (D and E's CPU parity with the
+JAX package is in tests/test_torch_crop.py, F's in test_torch_moe_decode.py,
+G's in test_torch_paged.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -25,7 +26,7 @@ import torch
 
 from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
-from deepseek_ocr2_tpu_torch.ops import moe_gmm
+from deepseek_ocr2_tpu_torch.ops import moe_decode, moe_gmm, paged_attention
 from deepseek_ocr2_tpu_torch.ops.moe import route
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -138,6 +139,15 @@ def test_wrappers_refuse_non_cuda_devices():
         moe_gmm.moe_gmm_swiglu(torch.zeros(64, 16, device="meta"), w, w, tiles, tiles)
     with pytest.raises(ValueError):
         moe_gmm.moe_gmm_down(torch.zeros(64, 16, device="meta"), torch.zeros(3, 8, 16, device="meta"), tiles, tiles)
+    ex = {"gate": w, "up": w, "down": torch.zeros(3, 16, 8, device="meta")}
+    sel = torch.zeros(4, 2, dtype=torch.long, device="meta")
+    with pytest.raises(ValueError):
+        moe_decode.moe_ffn_decode_fused(torch.zeros(4, 16, device="meta"), ex, torch.zeros(4, 2, device="meta"), sel)
+    pool = torch.zeros(2, 3, 10, 16, 128, device="meta")
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention_pool(
+            torch.zeros(4, 10, 128, device="meta"), pool, pool, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
+            torch.zeros(4, dtype=torch.int32, device="meta"), 1, scale=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +259,99 @@ def test_cuda_gmm_makes_no_host_sync(cuda):
         moe_gmm.moe_ffn_gmm(x, experts, weights, idx)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# Kernels F (batched-decode MoE) and G (paged decode attention) against
+# their twins, at the serving shapes: 64 experts of the full-width LM, top-6,
+# H = 1280, I = 896; a [12, P, 10, 128, 128] pool with 128-token pages.
+
+
+def _decode_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, generator=g, device=dev).to(dtype)
+    experts = {
+        name: (torch.randn(e, *shape, generator=g, device=dev) * shape[1] ** -0.5).to(dtype)
+        for name, shape in (("gate", (i, h)), ("up", (i, h)), ("down", (h, i)))
+    }
+    weights, idx = route(x, torch.randn(e, h, generator=g, device=dev) * h**-0.5, k)
+    return x, experts, weights, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 16),
+                                     (torch.bfloat16, 5), (torch.float32, 40)])
+def test_cuda_moe_decode_matches_twin(cuda, dtype, b):
+    x, experts, weights, idx = _decode_moe_case(cuda, dtype, b)
+    before = moe_decode.moe_ffn_decode_fused.launches
+    got = moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)
+    torch.cuda.synchronize()
+    assert moe_decode.moe_ffn_decode_fused.launches == before + 1
+    ref = moe_decode.moe_ffn_decode_visits_reference(x, experts, weights, idx)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_decode_rows_do_not_depend_on_the_batch(cuda):
+    """No atomics, a fixed visit order: a row's output is bit-identical from
+    run to run and whatever the other rows select (a visit it did not select
+    adds an exact zero), which preemption in the continuous engine needs."""
+    x, experts, weights, idx = _decode_moe_case(cuda, torch.bfloat16, 16)
+    a = moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)
+    assert torch.equal(a, moe_decode.moe_ffn_decode_fused(x, experts, weights, idx))
+    idx2, w2 = idx.clone(), weights.clone()
+    idx2[1:] = (idx2[1:] + 7) % 64  # every other row picks other experts
+    w2[1:] = w2[1:].flip(1)
+    b = moe_decode.moe_ffn_decode_fused(x, experts, w2, idx2)
+    assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_decode_makes_no_host_sync(cuda):
+    x, experts, weights, idx = _decode_moe_case(cuda, torch.bfloat16, 16)
+    moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)  # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _paged_case(dev, dtype, b=16, n_pages=64, page=128, seed=6):
+    """A [12, P, 10, 128, 128] pool, ragged lengths 260..2048, random block
+    tables over pages 1..P-1; the last row points at the scratch page 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (12, n_pages, 10, page, 128)
+    k_pool = torch.randn(shape, generator=g, device=dev).to(dtype)
+    v_pool = torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = torch.randn(b, 10, 128, generator=g, device=dev)
+    max_pages = 2048 // page
+    bt = torch.randint(1, n_pages, (b, max_pages), generator=g, device=dev, dtype=torch.int32)
+    bt[-1] = 0
+    seq_lens = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32)
+    return q, k_pool, v_pool, bt, seq_lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layer", [0, 11])
+def test_cuda_paged_attention_matches_twin(cuda, dtype, layer):
+    q, k_pool, v_pool, bt, seq_lens = _paged_case(cuda, dtype)
+    before = paged_attention.paged_decode_attention_pool.launches
+    got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq_lens, layer, scale=128**-0.5)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention_pool.launches == before + 1
+    ref = paged_attention.paged_decode_attention_reference(q, k_pool[layer], v_pool[layer], bt, seq_lens,
+                                                           scale=128**-0.5)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert float((got - ref).abs().max()) <= 1e-4  # f32 math on both sides, whatever the pool's type
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_small_pages(cuda):
+    q, k_pool, v_pool, bt, seq_lens = _paged_case(cuda, torch.float32, b=5, n_pages=300, page=16)
+    got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq_lens, 3, scale=0.1)
+    ref = paged_attention.paged_decode_attention_reference(q, k_pool[3], v_pool[3], bt, seq_lens, scale=0.1)
+    assert float((got - ref).abs().max()) <= 1e-4

@@ -141,9 +141,25 @@ def test_swiglu_matches_jax():
 def test_ngram_ban_mask_matches_jax(ngram):
     tokens = np.array([5, 7, 9, 5, 7, 3, 5, 7, 600, 0, 0, 0], np.int32)  # 600 lies outside the vocab
     for cur_len in (2, 5, 7, 8, 9):
-        got = tsampling.ngram_ban_mask(torch.from_numpy(tokens), cur_len, ngram, 32).numpy()
+        got = tsampling.ngram_ban_mask_batched(torch.from_numpy(tokens)[None], torch.tensor([cur_len]), ngram, 32)[0]
         want = np.asarray(jsampling.ngram_ban_mask(jnp.asarray(tokens), jnp.int32(cur_len), ngram, 32))
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ngram", [0, 2, 3])
+def test_ngram_ban_mask_batched_matches_jax_vmap(ngram):
+    """Per-row lengths in a [B] tensor, as the continuous engine's
+    `jax.vmap(ngram_ban_mask, in_axes=(0, 0, None, None))`."""
+    import jax
+
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, 6, (5, 14)).astype(np.int32)
+    tokens[1, 4] = 600  # outside the vocab
+    lens = np.array([0, 5, 9, 14, 2], np.int32)
+    want = np.asarray(jax.vmap(jsampling.ngram_ban_mask, in_axes=(0, 0, None, None))(
+        jnp.asarray(tokens), jnp.asarray(lens), ngram, 32))
+    got = tsampling.ngram_ban_mask_batched(torch.from_numpy(tokens), torch.from_numpy(lens), ngram, 32)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_greedy_pick_first_index_nan_and_ban():
