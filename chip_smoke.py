@@ -9,11 +9,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the main path's shapes (no-crop and crop pages, the 16-slot decode
-   batch), with the max abs error beside its tolerance and both median
-   times (CUDA events); the grouped-GEMM MoE (D, E) also whole against its
-   grouped twin; D+E and F once each under
-   `torch.cuda.set_sync_debug_mode("error")` (no host sync); one batched-
-   decode MoE layer timed in its three forms at the B * k <= E cut-over;
+   batch, the int8 decode step), with the max abs error beside its
+   tolerance, both median times (CUDA events), the least time the card
+   could take (`bound_ms`) and, where one PyTorch call computes the same
+   function, that call's time (`library_ms`); the grouped-GEMM MoE (D, E)
+   also whole against its grouped twin; D+E, F, H, I, J and K once each
+   under `torch.cuda.set_sync_debug_mode("error")` (no host sync); one
+   batched-decode MoE layer timed in its three forms at the B * k <= E
+   cut-over, and its int8 layer as I and as J;
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
@@ -22,21 +25,31 @@ Phases (each raises on failure, so the exit code is non-zero):
    2 crop pages (grids (2, 1) and (2, 3)); every kernel must launch, D and
    E once per MoE layer on a crop page and never on a no-crop page, every
    step-0 logit must be finite;
+4b. int8 weights: phase 3's LM quantized on the card, scope "full"
+   (`--int8`) then "experts" (`--moe-int8`); a no-crop and the (2, 1) crop
+   page through `generate_ocr` for each, every kernel's launches held to
+   the count derived from the code (PERF.md);
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
    weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
    D and E on the card, the grouped twin on the CPU); step-0 logits within
-   tolerance, greedy tokens compared;
+   tolerance, greedy tokens compared; then the same with `--int8` (5b: the
+   card's and the CPU's int8 codes equal, K, I and H on the card);
 6. serving at full width, on phase 3's model: `OCR2Engine(batch_size=16)`
    on 16 no-crop and 2 crop pages; `ContinuousOCREngine(slots=16)` on 24
    pages with a pool that makes slots grow (and preempt); one
    `decode_chunk` under sync-debug mode "error"; the online engine behind
    `OCRHttpServer` (4 concurrent POSTs, one SSE stream, /healthz,
    /v1/stats). F must launch once per MoE layer and G once per layer in
-   every decode step of the continuous engine;
+   every decode step of the continuous engine; 6b: with `--int8`, both
+   engines at 16 on 16 pages, held to K 12, J 11, H 3 a step (group) and
+   J 11, G 12, H 27 a step (continuous), beside the same pages on the
+   bf16 LM; then device time and device launches per decode token for bf16
+   and both int8 scopes (torch.profiler, after every timed phase);
 7. serving is token-exact: on phase 5's card model, both engines (16
-   slots) against each page's single-page `generate_ocr`; a difference is
-   accepted only where the single run's top-2 margin at the first
-   differing step is below LOGITS_RTOL of its largest logit.
+   slots) against each page's single-page `generate_ocr`, in bf16-free f32
+   weights and again with `--int8` (7b); a difference is accepted only
+   where the single run's top-2 margin at the first differing step is
+   below LOGITS_RTOL of its largest logit.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -57,11 +70,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 PAGES = [(700, 500), (768, 768), (420, 640)]  # (w, h): both sides <= 768 -> no crop
 CROP_PAGES = [(1400, 800, (2, 1)), (1700, 2200, (2, 3))]  # (w, h, the crop grid it takes)
-KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm", "moe_decode", "paged_attention")
+KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm", "moe_decode", "paged_attention", "linear_q8", "moe_q8",
+                  "attn_fused")
 SERVE_PAGES = [(700, 500), (768, 768), (420, 640), (600, 760), (512, 512), (760, 430)]  # no crop
 
 # Tolerances on max |kernel - twin| (both on the card, same inputs):
@@ -83,6 +98,26 @@ def bf16_tol(ref: torch.Tensor) -> float:
 
 def tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
     return F32_TOL if dtype == torch.float32 else bf16_tol(ref)
+
+
+# The least time the card could take for a kernel's work (`bound_ms`): the
+# larger of the bytes it must move (each input read once, each output
+# written once) over the memory rate, and its operations over the peak rate
+# of their type. NVIDIA H100 SXM data sheet, dense, at the full 700 W:
+# 3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside
+# them (f32 inputs: the port keeps TF32 off).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
+    """(ms, "bytes" or "operations": which of the two sets it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 # Step-0 logits, card vs CPU, f32 at reduced depth: every layer's sums are
@@ -166,6 +201,19 @@ def phase_device() -> str:
 # Phase 2
 
 
+def no_host_sync(dev, what: str, fn):
+    """fn() with any host sync raising; returns its result."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    print(f"[sync] {what} under set_sync_debug_mode('error'): no host sync ok")
+    return out
+
+
 def gmm_results(dev, randn, record) -> None:
     """Kernels D and E at the LM's MoE shapes (E = 64, k = 6, H = 1280,
     I = 896) for the prompts of a 2-crop and a 6-crop page (N = 550, 1125),
@@ -190,19 +238,26 @@ def gmm_results(dev, randn, record) -> None:
             n_valid = int(tile_valid.sum())
             dts = str(dt)[6:]
             case = f"N {n} k {k}: {tile_valid.numel()} tiles, {n_valid} valid, {dts}"
+            # This routing's work: the selected experts' weights once, the
+            # N * k (row, expert) products.
+            n_used = int(torch.unique(idx).numel())
+            w_expert = nbytes(ex["gate"][0])
+            flops_gu, flops_d = 2 * 2 * n * k * h * i, 2 * n * k * i * h
 
             args_d = (x_al, ex["gate"], ex["up"], e_tile, tile_valid)
             act = moe_gmm.gmm_swiglu_reference(*args_d)
             got = moe_gmm.moe_gmm_swiglu(*args_d)
             record("D", f"swiglu {case}", act, got, tolerance(act, dt),
                    median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d)),
-                   median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)))
+                   median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
+                   bound_ms(nbytes(x_al, act) + 2 * n_used * w_expert, flops_gu, dt))
             args_e = (act, ex["down"], e_tile, tile_valid)
             y = moe_gmm.gmm_down_reference(*args_e)
             got = moe_gmm.moe_gmm_down(*args_e)
             record("E", f"down {case}", y, got, tolerance(y, dt),
                    median_ms(lambda: moe_gmm.moe_gmm_down(*args_e)),
-                   median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)))
+                   median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)),
+                   bound_ms(nbytes(act, y) + n_used * w_expert, flops_d, dt))
             del act, got, y, args_d, args_e
 
             args = (x, ex, weights, idx)
@@ -210,19 +265,13 @@ def gmm_results(dev, randn, record) -> None:
             got = moe_gmm.moe_ffn_gmm(*args)
             record("D+E", f"moe_ffn_gmm vs grouped twin, {case}", ref, got, tolerance(ref, dt),
                    median_ms(lambda: moe_gmm.moe_ffn_gmm(*args)),
-                   median_ms(lambda: moe_gmm.moe_ffn_gmm_reference(*args)))
+                   median_ms(lambda: moe_gmm.moe_ffn_gmm_reference(*args)),
+                   bound_ms(nbytes(x, ref, weights, idx) + 3 * n_used * w_expert, flops_gu + flops_d, dt))
             if n == 550:
                 print(f"[kernel] dense all-expert MoE N {n} {dts}: "
                       f"{median_ms(lambda: moe_ffn_dense(*args)):.3f} ms")
             if n == 1125 and dt == torch.bfloat16:
-                torch.cuda.synchronize(dev)
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    moe_gmm.moe_ffn_gmm(*args)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                torch.cuda.synchronize(dev)
-                print(f"[kernel] moe_ffn_gmm under set_sync_debug_mode('error'), {case}: no host sync ok")
+                no_host_sync(dev, f"D+E ({case})", lambda: moe_gmm.moe_ffn_gmm(*args))
             del x, ex, args, ref, got
     torch.cuda.empty_cache()
 
@@ -259,16 +308,10 @@ def decode_results(dev, randn, record) -> None:
         got = moe_decode.moe_ffn_decode_fused(*args)
         record("F", f"B {b} k {k}: {n_visits} distinct experts, {str(dt)[6:]}", ref, got, tolerance(ref, dt),
                median_ms(lambda: moe_decode.moe_ffn_decode_fused(*args)),
-               median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)))
+               median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)),
+               bound_ms(nbytes(x, ref, *args[2:]) + n_visits * 3 * nbytes(ex["gate"][0]), 2 * b * k * 3 * h * i, dt))
         if b == 16 and dt == torch.bfloat16:
-            torch.cuda.synchronize(dev)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                moe_decode.moe_ffn_decode_fused(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize(dev)
-            print("[kernel] F under set_sync_debug_mode('error'), B 16 bf16: no host sync ok")
+            no_host_sync(dev, "F (B 16 bf16)", lambda: moe_decode.moe_ffn_decode_fused(*args))
         del ex, args, ref, got
 
     ex = experts(torch.bfloat16)
@@ -295,11 +338,139 @@ def decode_results(dev, randn, record) -> None:
             args = (q, k_pool, v_pool, bt, lens)
             ref = paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens, scale=scale)
             got = paged_decode_attention_pool(*args, li, scale=scale)
+            n_keys = int(lens.sum())
             record("G", f"pool {tuple(k_pool.shape)} {str(dt)[6:]}, B {b}, lengths 260..2048, layer {li}",
                    ref, got, F32_TOL, median_ms(lambda: paged_decode_attention_pool(*args, li, scale=scale)),
                    median_ms(lambda: paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens,
-                                                                      scale=scale)))
+                                                                      scale=scale)),
+                   bound_ms(nbytes(q, ref, bt, lens) + 2 * n_keys * 10 * 128 * k_pool.element_size(),
+                            4 * n_keys * 10 * 128, torch.float32))
         del k_pool, v_pool
+    torch.cuda.empty_cache()
+
+
+def q8_results(dev, randn, record) -> None:
+    """Kernels H, I, J and K at the int8 decode shapes of the full-width LM
+    (H = 1280, 10 heads of 128, E = 64, k = 6, I = 896, 2 shared
+    pseudo-experts), bf16 activations as the CLI's LM dtype. H: lm_head at
+    B = 1 and 16 (f32 logits), the dense down 6848 -> 1280, the shared
+    gate||up 1280 -> 3584 (f32 out, as swiglu_q8). I: one row with the
+    pseudo-experts, 8 rows without. J: 16 and 32 rows with them. K: one row
+    at capacity 1024 and pos 300, f32 and bf16 caches; 16 rows at ragged
+    positions from 0. Then one int8 MoE decode layer timed as I and as J at
+    B = 8, 11 and 16 (the B * k <= E cut-over), and each kernel once in
+    sync-debug mode."""
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.ops import attn_fused, linear_q8, moe_decode, moe_q8
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def qlin(out_dim, in_dim):
+        return linear_q8.quantize_linear(randn(out_dim, in_dim, std=in_dim**-0.5))
+
+    def int8pack(x, w):
+        """`torch._weight_int8pack_mm` (w8a16, scales and output in x's
+        dtype) where this build runs it on CUDA, else None: the library
+        yardstick of H."""
+        fn = getattr(torch, "_weight_int8pack_mm", None)
+        if fn is None:
+            return None
+        scale = w["scale"].to(x.dtype)
+        try:
+            fn(x, w["q8"], scale)
+            torch.cuda.synchronize(dev)
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"[kernel] torch._weight_int8pack_mm unavailable here: {str(e).splitlines()[0][:120]}")
+            return None
+        return lambda: fn(x, w["q8"], scale)
+
+    head = qlin(129280, 1280)
+    for name, b, w, od in (("lm_head", 1, head, f32), ("lm_head", 16, head, f32), ("dense down", 1, qlin(1280, 6848), None),
+                           ("shared gate||up", 1, qlin(3584, 1280), f32)):
+        out_dim, in_dim = w["q8"].shape
+        x = randn(b, in_dim, dtype=bf)
+        ref = linear_q8.linear_q8_reference(x, w, out_dtype=od)
+        got = linear_q8.linear_q8(x, w, out_dtype=od)
+        record("H", f"{name} B {b} [{out_dim}, {in_dim}] bf16 -> {str(ref.dtype)[6:]}", ref, got,
+               tolerance(ref, ref.dtype), median_ms(lambda: linear_q8.linear_q8(x, w, out_dtype=od)),
+               median_ms(lambda: linear_q8.linear_q8_reference(x, w, out_dtype=od)),
+               bound_ms(nbytes(x, w["q8"], w["scale"], ref), 2 * b * in_dim * out_dim, bf),
+               int8pack(x, w))
+    del head
+    no_host_sync(dev, "H", lambda: linear_q8.linear_q8(x, w, out_dtype=od))
+
+    e, k, h, i, n_sh = 64, 6, 1280, 896, 2
+
+    def experts(n):
+        return moe_q8.quantize_experts({"gate": randn(n, i, h, std=h**-0.5), "up": randn(n, i, h, std=h**-0.5),
+                                        "down": randn(n, h, i, std=i**-0.5)})
+
+    eq = experts(e)
+    eq_pe = {**eq, **{f"pe_{n}": t for n, t in experts(n_sh).items()}}
+    router = randn(e, h, std=h**-0.5)
+    e_bytes = nbytes(*(eq[n][0] for n in ("gu_q8", "gu_scale", "down_q8", "down_scale")))
+    for b, with_shared in ((1, True), (8, False)):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        n_visit = b * k + (b * n_sh if with_shared else 0)
+        n_read = int(torch.unique(idx).numel()) + (n_sh if with_shared else 0)
+        args = (x, eq_pe, wts, idx)
+        ref = moe_q8.moe_ffn_decode_q8_reference(*args, with_shared=with_shared)
+        got = moe_q8.moe_ffn_decode_q8(*args, with_shared=with_shared)
+        record("I", f"B {b} k {k}{' + 2 pseudo-experts' if with_shared else ''}: {n_read} experts read, bf16", ref,
+               got, tolerance(ref, bf), median_ms(lambda: moe_q8.moe_ffn_decode_q8(*args, with_shared=with_shared)),
+               median_ms(lambda: moe_q8.moe_ffn_decode_q8_reference(*args, with_shared=with_shared)),
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * n_visit * 3 * h * i, bf))
+    no_host_sync(dev, "I (B 8)", lambda: moe_q8.moe_ffn_decode_q8(*args))
+    for b in (16, 32):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        n_read = int(torch.unique(idx).numel()) + n_sh
+        args = (x, eq_pe, wts, idx)
+        ref = moe_decode.moe_ffn_decode_q8_visits_reference(*args)
+        got = moe_decode.moe_ffn_decode_q8_fused(*args)
+        record("J", f"B {b} k {k} + 2 pseudo-experts: {n_read} experts read, bf16", ref, got, tolerance(ref, bf),
+               median_ms(lambda: moe_decode.moe_ffn_decode_q8_fused(*args)),
+               median_ms(lambda: moe_decode.moe_ffn_decode_q8_visits_reference(*args)),
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * b * (k + n_sh) * 3 * h * i, bf))
+    no_host_sync(dev, "J (B 32)", lambda: moe_decode.moe_ffn_decode_q8_fused(*args))
+    for b in (8, 11, 16):
+        x = randn(b, h, dtype=bf)
+        args = (x, eq, *route(x, router, k))
+        print(f"[cut-over] one int8 MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): "
+              f"I {median_ms(lambda: moe_q8.moe_ffn_decode_q8(*args)):.3f} ms, "
+              f"J {median_ms(lambda: moe_decode.moe_ffn_decode_q8_fused(*args)):.3f} ms")
+    del eq, eq_pe
+
+    cfg = DeepseekV2Config()
+    hh, d = cfg.num_attention_heads, cfg.head_dim
+    cos, sin = rope_consts(cfg, dev)
+    attn = {"wqkv": qlin(3 * h, h), "wo": qlin(h, h)}
+    for b, cap, kv_dt in ((1, 1024, f32), (1, 1024, bf), (16, 1024, f32), (16, 1024, bf)):
+        k_all = randn(2, b, hh, cap, d, std=0.5, dtype=kv_dt)
+        v_all = randn(2, b, hh, cap, d, dtype=kv_dt)
+        xn = randn(b, 1, h, dtype=bf)
+        pos = [300] if b == 1 else [0] + torch.linspace(1, cap - 1, b - 1).round().int().tolist()
+        pos_b = torch.tensor(pos, dtype=torch.int32, device=dev)
+        args = (xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+        ref = attn_fused.attn_decode_fused_reference(*args)
+        got = attn_fused.attn_decode_fused(*args)
+        n_keys = sum(pos)
+        n_bytes = (nbytes(xn, attn["wqkv"]["q8"], attn["wqkv"]["scale"], attn["wo"]["q8"], attn["wo"]["scale"],
+                          ref[0], ref[1], ref[2]) + 2 * n_keys * hh * d * k_all.element_size() + 2 * b * d * 4)
+        flops = 2 * b * h * 4 * h + 4 * (n_keys + b) * hh * d
+        for j, (r, g) in enumerate(zip(ref, got)):
+            if j == 0:
+                record("K", f"B {b} cap {cap} pos {pos[0] if b == 1 else '0..1023'}, bf16, "
+                            f"{str(kv_dt)[6:]} cache", r, g, tolerance(r, bf),
+                       median_ms(lambda: attn_fused.attn_decode_fused(*args)),
+                       median_ms(lambda: attn_fused.attn_decode_fused_reference(*args)), bound_ms(n_bytes, flops, bf))
+            elif not float((g.float() - r.float()).abs().max()) <= tolerance(r.float(), bf):
+                raise AssertionError(f"K: new {'kv'[j - 1]} rows differ from the twin's")
+    no_host_sync(dev, "K (B 16)", lambda: attn_fused.attn_decode_fused(*args))
+    del k_all, v_all, attn
     torch.cuda.empty_cache()
 
 
@@ -314,22 +485,28 @@ def phase_kernels(dev) -> dict:
 
     results = {}
 
-    def record(kernel, case, ref, got, tol, ms, plain_ms):
+    def record(kernel, case, ref, got, tol, ms, plain_ms, bound=None, library=None):
+        """`bound`: bound_ms of the case's work; `library`: a callable of one
+        PyTorch call computing the same function, timed here, or None."""
         err = float((got.float() - ref.float()).abs().max())
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
+        lib_ms = median_ms(library) if library is not None else None
+        bound, by = bound if bound is not None else (None, None)
         print(f"[kernel] {kernel} {case}: max_abs_err {err:.3e} (tol {tol:.1e}) "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {'-' if bound is None else f'{bound:.4f}'} ms "
+              f"({by}), library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {case}: error {err} above {tol}")
-        results.setdefault(kernel, []).append(
-            dict(case=case, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
-        )
+        results.setdefault(kernel, []).append(dict(case=case, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bound, bound_by=by, library_ms=lib_ms))
 
     # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
     # the CLI's LM dtype, first: it is the main-path case of the record).
     gmm_results(dev, randn, record)
     # F, G: the decode step of the 16-slot serving batch.
     decode_results(dev, randn, record)
+    # H, I, J, K: the int8 decode step (--int8 and --moe-int8).
+    q8_results(dev, randn, record)
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
@@ -346,8 +523,12 @@ def phase_kernels(dev) -> dict:
         got = mha_relpos(q, k, v, rh, rw, scale=scale)
         ms = median_ms(lambda: mha_relpos(q, k, v, rh, rw, scale=scale))
         plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, rel_h=rh, rel_w=rw))
-        record("B", f"{case} {tuple(q.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain)
-        del q, k, v, rh, rw, ref, got
+        # Library: SDPA with the rel-pos bias materialized (outside the timing).
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(b, 12, l, l).to(dt)
+        record("B", f"{case} {tuple(q.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain,
+               bound_ms(nbytes(q, k, v, rh, rw, ref), 4 * b * 12 * l * l * 64, dt),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale))
+        del q, k, v, rh, rw, ref, got, bias
 
     # A: LM prefill, causal, f32: a no-crop prompt [1, 10, 260, 128] and a
     # 6-crop one [1, 10, 1125, 128].
@@ -358,7 +539,9 @@ def phase_kernels(dev) -> dict:
         got = mha(q, k, v, scale=scale, mode="causal")
         ms = median_ms(lambda: mha(q, k, v, scale=scale, mode="causal"))
         plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, mode="causal"))
-        record("A", f"causal {tuple(q.shape)} float32", ref, got, F32_TOL, ms, plain)
+        record("A", f"causal {tuple(q.shape)} float32", ref, got, F32_TOL, ms, plain,
+               bound_ms(nbytes(q, k, v, ref), 2 * 10 * 128 * length * (length + 1), torch.float32),
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale))
 
     # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view) and, f32,
     # M = 6 * 2304 = 13824 (six 768^2 crops in one batch).
@@ -370,7 +553,8 @@ def phase_kernels(dev) -> dict:
         got = mlp_gelu(x, w1, b1, w2, b2)
         ms = median_ms(lambda: mlp_gelu(x, w1, b1, w2, b2))
         plain = median_ms(lambda: mlp_gelu_reference(x, w1, b1, w2, b2))
-        record("C", f"{tuple(x.shape)} x {tuple(w1.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain)
+        record("C", f"{tuple(x.shape)} x {tuple(w1.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain,
+               bound_ms(nbytes(x, w1, b1, w2, b2, ref), 2 * 2 * m * 768 * 3072, dt))
     torch.cuda.synchronize(dev)
     return results
 
@@ -540,9 +724,37 @@ def counters():
     from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_fused
     from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_down, moe_gmm_swiglu
     from deepseek_ocr2_tpu_torch.ops.paged_attention import paged_decode_attention_pool
+    from deepseek_ocr2_tpu_torch.ops.attn_fused import attn_decode_fused
+    from deepseek_ocr2_tpu_torch.ops.linear_q8 import linear_q8
+    from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_q8_fused
+    from deepseek_ocr2_tpu_torch.ops.moe_q8 import moe_ffn_decode_q8
 
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
-            "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool}
+            "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
+            "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused}
+
+
+def int8_launches_per_step(lm, scope: str, rows: int, paged: bool) -> dict:
+    """The int8 kernels' launches in one decode step, derived from the code
+    (models/deepseek_v2.py `lm_forward` / `ffn`, runtime/paged_kv.py):
+    - K once a layer with int8 attention weights, on the contiguous cache
+      (scope "full", not paged); paged decode runs G and H for qkv and wo;
+    - the routed experts: I while rows * k <= E, J above, once a MoE layer;
+    - H for the dense MLP's two int8 linears and for an int8 lm_head, and in
+      scope "full" for the shared MLP's two unless the pseudo-experts are
+      folded in (always with J, at one row with I)."""
+    full = scope == "full"
+    n_moe, n_dense = lm.num_moe_layers, lm.first_k_dense_replace
+    j = rows * lm.num_experts_per_tok > lm.n_routed_experts
+    shared_h = 0 if (j or rows == 1) else 2 * n_moe
+    return {
+        "K": lm.num_hidden_layers if full and not paged else 0,
+        "G": lm.num_hidden_layers if paged else 0,
+        "I": 0 if j else n_moe,
+        "J": n_moe if j else 0,
+        "H": (2 * n_dense + 1 + shared_h + (2 * lm.num_hidden_layers if paged else 0)) if full else 0,
+        "F": 0,
+    }
 
 
 def phase_main_path(dev):
@@ -597,12 +809,126 @@ def phase_main_path(dev):
     return launches, pipe
 
 
+def decode_per_token(pipe, page, n: int = 16) -> dict:
+    """Device kernel time, device launches and wall time per decode token of
+    one page, on the pipeline's current LM weights: greedy_generate with
+    1 and with n + 1 new tokens (no EOS stop) under torch.profiler, the
+    difference over n. Launches count every device activity the profiler
+    records (kernels, copies, fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+    from deepseek_ocr2_tpu_torch.runtime.kv_cache import bucket_capacity
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    cfg, dev = pipe.cfg, pipe.device
+    pre = page if isinstance(page, dict) else pipe.preprocess_host(page)
+    base, patches, ratio, _ = pipe.preprocess_finish(pre)
+    ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
+    embeds = pipe.build_ocr_embeds(ids, base, patches, start)
+
+    def gen(m):
+        return greedy_generate(pipe.params["lm"], cfg.lm, embeds, torch.tensor(ids), max_new_tokens=m,
+                               ngram_size=20, eos_id=-1, capacity=bucket_capacity(len(ids) + m),
+                               kv_dtype=pipe.kv_dtype, rope=pipe.rope)
+
+    gen(n + 1)  # warm-up
+
+    def measure(m):
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gen(m)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall, sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+
+    w1, d1, c1 = measure(1)
+    wn, dn, cn = measure(n + 1)
+    return {"wall_ms": (wn - w1) * 1e3 / n, "device_ms": (dn - d1) / n, "launches": (cn - c1) / n}
+
+
+def phase_int8_main_path(dev, pipe) -> dict:
+    """Phase 4b: phase 3's LM quantized on the card, scope "full" (--int8),
+    then "experts" (--moe-int8). For each, a no-crop page and the (2, 1)
+    crop page through generate_ocr, each kernel's launches held to
+    `int8_launches_per_step` times the decode steps (plus H once after
+    prefill for an int8 lm_head, and D and E once a MoE layer in the crop
+    page's prefill, on the dequantized experts). Returns the launches."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    bf16_lm = pipe.params["lm"]
+    w, h, grid = CROP_PAGES[0]
+    pages = [(f"{PAGES[0][0]}x{PAGES[0][1]}", (1, 1), synthetic_page(*PAGES[0], cfg, seed=0)[0]),
+             (f"{w}x{h} crop", grid, synthetic_page(w, h, cfg, seed=10, grid=grid)[0])]
+    launches = dict.fromkeys(kernels, 0)
+    for fn in kernels.values():
+        fn.launches = 0
+    for scope, flag in (("full", "--int8"), ("experts", "--moe-int8")):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope)}
+        torch.cuda.synchronize(dev)
+        print(f"[int8] {flag}: LM quantized on the card in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card")
+        per_step = int8_launches_per_step(lm, scope, rows=1, paged=False)
+        for name, grid, page in pages:
+            before = {k: fn.launches for k, fn in kernels.items()}
+            r = pipe.generate_ocr(page, max_new_tokens=32, ngram_size=20)
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            launches = {k: launches[k] + delta[k] for k in launches}
+            steps = r.new_tokens - 1
+            want = {k: n * steps for k, n in per_step.items()}
+            want["H"] += 1 if scope == "full" else 0  # the int8 lm_head after prefill
+            moe_prefill = lm.num_moe_layers if grid != (1, 1) else 0
+            want.update(D=moe_prefill, E=moe_prefill)
+            finite = bool(torch.isfinite(r.logits0).all())
+            print(f"[int8] {flag} page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
+                  f"vision {r.vision_seconds * 1e3:.1f} ms, prefill {r.prefill_seconds * 1e3:.1f} ms, "
+                  f"decode {r.decode_seconds * 1e3:.1f} ms for {r.new_tokens} tokens "
+                  f"({r.decode_tokens_per_sec:.1f} tok/s), launches {delta}, logits finite {finite}")
+            print(f"[int8]   tokens {r.token_ids[r.prompt_len:]}")
+            bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+            if not finite or r.crop_ratio != grid or bad or min(delta[k] for k in "ABC") == 0:
+                raise AssertionError(f"{flag} page {name}: launches (got, derived) {bad}, finite {finite}")
+    pipe.params = {**pipe.params, "lm": bf16_lm}
+    torch.cuda.empty_cache()
+    print(f"[int8] launches over phase 4b {launches}")
+    return launches
+
+
+def phase_decode_profile(pipe) -> None:
+    """Device time and launches per decode token on a no-crop page at batch
+    1, for the LM in bf16, --int8 and --moe-int8, in this one call. It runs
+    after the timed serving phases: the profiler's tracing can slow the
+    launches of what runs after it."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+
+    bf16_lm = pipe.params["lm"]
+    page = synthetic_page(*PAGES[0], pipe.cfg, seed=0)[0]
+    for tier, scope in (("bf16", None), ("--int8", "full"), ("--moe-int8", "experts")):
+        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope) if scope else bf16_lm}
+        t = decode_per_token(pipe, page)
+        print(f"[profile] decode per token, no-crop page, batch 1, LM {tier}: device {t['device_ms']:.3f} ms, "
+              f"{t['launches']:.1f} device launches, wall {t['wall_ms']:.2f} ms (torch.profiler)")
+    pipe.params = {**pipe.params, "lm": bf16_lm}
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 5
 
 
 def phase_card_vs_cpu(dev):
+    """Phase 5 and 5b: the card against the CPU at full widths and reduced
+    depth in f32, with the LM's weights as loaded, then quantized with
+    --int8 (on each device; the codes must agree bit for bit). Returns the
+    card's pipelines {"f32": ..., "int8": ...} for phase 7."""
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
     base = OCR2Config()
@@ -620,37 +946,53 @@ def phase_card_vs_cpu(dev):
     pages = {"no-crop": synthetic_page(*PAGES[0], cfg, seed=99)[0],
              f"{grid} crop": synthetic_page(w, h, cfg, seed=98, grid=grid)[0]}
     kernels = counters()
-    results = {}
+    results, pipes, codes = {}, {}, {}
     for device in ("cpu", dev):
         params = load_model(cfg, flat, device, lm_dtype="float32", vision_dtype="float32")
-        pipe = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="float32", act_dtype="float32")
-        for name, page in pages.items():
-            before = {k: fn.launches for k, fn in kernels.items()}
-            t0 = time.perf_counter()
-            r = results[name, str(device)] = pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20, keep_logits=True)
-            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
-            print(f"[cpu-vs-card] {name} page on {device}: prompt {r.prompt_len} tokens, "
-                  f"{time.perf_counter() - t0:.1f} s, launches {delta}")
-            if name != "no-crop" and device != "cpu" and (delta["D"] == 0 or delta["E"] == 0):
-                raise AssertionError(f"{name} page: the card's MoE did not run D and E")
-        if device == "cpu":
-            del pipe, params
-    for name in pages:
-        cpu, card = results[name, "cpu"], results[name, str(dev)]
-        err = float((cpu.logits0 - card.logits0).abs().max())
-        tol = LOGITS_RTOL * float(cpu.logits0.abs().max())
-        print(f"[cpu-vs-card] {name}: step-0 logits max_abs_err {err:.3e} (tol {tol:.3e}, "
-              f"max |logit| {float(cpu.logits0.abs().max()):.3f})")
-        if not err <= tol:
-            raise AssertionError(f"{name}: step-0 logits differ by {err}, above {tol}")
-        a, b = cpu.token_ids[cpu.prompt_len:], card.token_ids[card.prompt_len:]
-        print(f"[cpu-vs-card] {name}: greedy tokens agree: {a == b} (cpu {a}, card {b})")
-        if a != b:
-            step = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
-            top2 = torch.topk(cpu.step_logits[step], 2).values
-            print(f"[cpu-vs-card] {name}: first difference at step {step}: cpu top-2 margin "
-                  f"{float(top2[0] - top2[1]):.3e}")
-    return pipe
+        for tier in ("f32", "int8"):
+            if tier == "int8":
+                params = {**params, "lm": quantize_lm_params(params["lm"], scope="full")}
+                codes[str(device)] = [params["lm"]["lm_head"]["q8"].cpu(), params["lm"]["layers"][1]["wqkv"]["q8"].cpu(),
+                                      params["lm"]["layers"][1]["experts_q8"]["pe_down_scale"].cpu()]
+            pipe = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="float32",
+                                act_dtype="float32")
+            for name, page in pages.items():
+                before = {k: fn.launches for k, fn in kernels.items()}
+                t0 = time.perf_counter()
+                r = results[tier, name, str(device)] = pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20,
+                                                                         keep_logits=True)
+                delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+                print(f"[cpu-vs-card] {tier} {name} page on {device}: prompt {r.prompt_len} tokens, "
+                      f"{time.perf_counter() - t0:.1f} s, launches {delta}")
+                if device != "cpu" and name != "no-crop" and (delta["D"] == 0 or delta["E"] == 0):
+                    raise AssertionError(f"{tier} {name} page: the card's MoE did not run D and E")
+                if device != "cpu" and tier == "int8" and min(delta[k] for k in "HIK") == 0:
+                    raise AssertionError(f"int8 {name} page: the card did not run H, I and K: {delta}")
+            if device != "cpu":
+                pipes[tier] = pipe
+        del params
+    names = ("lm_head codes", "layer 1 wqkv codes", "layer 1 pseudo-expert down scales")
+    diff = {n: int((a != b).sum()) for n, a, b in zip(names, codes["cpu"], codes[str(dev)])}
+    if any(diff.values()):
+        raise AssertionError(f"the card's int8 codes or scales differ from the CPU's: elements differing {diff}")
+    print("[cpu-vs-card] int8 codes and scales: card and CPU bit-identical")
+    for tier in ("f32", "int8"):
+        for name in pages:
+            cpu, card = results[tier, name, "cpu"], results[tier, name, str(dev)]
+            err = float((cpu.logits0 - card.logits0).abs().max())
+            tol = LOGITS_RTOL * float(cpu.logits0.abs().max())
+            print(f"[cpu-vs-card] {tier} {name}: step-0 logits max_abs_err {err:.3e} (tol {tol:.3e}, "
+                  f"max |logit| {float(cpu.logits0.abs().max()):.3f})")
+            if not err <= tol:
+                raise AssertionError(f"{tier} {name}: step-0 logits differ by {err}, above {tol}")
+            a, b = cpu.token_ids[cpu.prompt_len:], card.token_ids[card.prompt_len:]
+            print(f"[cpu-vs-card] {tier} {name}: greedy tokens agree: {a == b} (cpu {a}, card {b})")
+            if a != b:
+                step = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+                top2 = torch.topk(cpu.step_logits[step], 2).values
+                print(f"[cpu-vs-card] {tier} {name}: first difference at step {step}: cpu top-2 margin "
+                      f"{float(top2[0] - top2[1]):.3e}")
+    return pipes
 
 
 # ---------------------------------------------------------------------------
@@ -803,6 +1145,76 @@ def phase_serving(dev, pipe) -> dict:
     return launches
 
 
+def phase_serving_int8(dev, pipe) -> dict:
+    """Phase 6b: --int8 serving at full width on phase 3's LM quantized on
+    the card (scope "full"): the group engine with one 16-page chunk and
+    the continuous engine with 16 slots, on the same 16 no-crop pages at 64
+    new tokens. Each run's decode launches are held to
+    `int8_launches_per_step` (group: K 12, J 11, H 3 a step, and H once
+    after the chunk's prefill; continuous: J 11, G 12, H 27 a step, and H
+    once an admission group)."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    bf16_lm = pipe.params["lm"]
+    pages = _serve_pages(cfg, 16, 0, seed=600)
+    # The same workload on the bf16 LM first, for the side-by-side rates.
+    for name, make in (("OCR2Engine(batch_size=16)", lambda: OCR2Engine(pipe, batch_size=16)),
+                       ("ContinuousOCREngine(slots=16)",
+                        lambda: ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128))):
+        t0 = time.perf_counter()
+        res = make().run(pages, max_new_tokens=64, ngram_size=20)
+        dt = time.perf_counter() - t0
+        print(f"[serve-int8] {name}, bf16 LM, the same 16 pages: {dt:.2f} s = {len(pages) / dt:.2f} pages/s, "
+              f"{sum(r.new_tokens for r in res)} tokens")
+    pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope="full")}
+    for fn in kernels.values():
+        fn.launches = 0
+
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t0 = time.perf_counter()
+    res = OCR2Engine(pipe, batch_size=16).run(pages, max_new_tokens=64, ngram_size=20)
+    dt = time.perf_counter() - t0
+    delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    steps = max(r.new_tokens for r in res) - 1
+    want = {k: n * steps for k, n in int8_launches_per_step(lm, "full", rows=16, paged=False).items()}
+    want["H"] += 1
+    n_tok = sum(r.new_tokens for r in res)
+    print(f"[serve-int8] OCR2Engine(batch_size=16), --int8: {len(pages)} pages in {dt:.2f} s = "
+          f"{len(pages) / dt:.2f} pages/s; vision {res[0].prefill_seconds * 1e3:.1f} ms, prefill + {steps} decode "
+          f"steps {res[0].decode_seconds * 1e3:.1f} ms ({16 * steps / res[0].decode_seconds:.1f} tok/s); "
+          f"{n_tok} tokens; launches {delta}")
+    bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+    if bad or steps < 1 or any(r.new_tokens < 1 for r in res):
+        raise AssertionError(f"int8 group engine: launches (got, derived) {bad}")
+
+    engine = ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t0 = time.perf_counter()
+    res = engine.run(pages, max_new_tokens=64, ngram_size=20)
+    dt = time.perf_counter() - t0
+    delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    steps = engine.last_decode_steps
+    decoded = sum(r.new_tokens - 1 for r in res)
+    want = {k: n * steps for k, n in int8_launches_per_step(lm, "full", rows=16, paged=True).items()}
+    want["H"] += engine.last_admissions
+    print(f"[serve-int8] ContinuousOCREngine(slots=16), --int8: {len(pages)} pages in {dt:.2f} s = "
+          f"{len(pages) / dt:.2f} pages/s; {steps} decode steps in {engine.last_decode_seconds:.2f} s, "
+          f"{decoded} tokens = {decoded / engine.last_decode_seconds:.1f} tok/s in total; "
+          f"{engine.last_admissions} admission groups; launches {delta}")
+    bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+    if bad or steps < 1 or any(r is None or r.new_tokens < 1 for r in res):
+        raise AssertionError(f"int8 continuous engine: launches (got, derived) {bad}")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[serve-int8] launches over phase 6b {launches}")
+    pipe.params = {**pipe.params, "lm": bf16_lm}
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _decode_chunk_sync_check(dev, pipe, kernels) -> None:
     """One decode_chunk with the host-sync check on: 16 rows at ragged
     lengths over a synthetic pool (the K/V contents do not matter here).
@@ -825,15 +1237,11 @@ def _decode_chunk_sync_check(dev, pipe, kernels) -> None:
     decode_chunk(lm_params, lm, pool, state, tables, **chunk)  # warm-up
     torch.cuda.synchronize(dev)
     before = {k: fn.launches for k, fn in kernels.items()}
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        status = decode_chunk(lm_params, lm, pool, state, tables, **chunk)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    status = no_host_sync(dev, "decode_chunk(2 steps, 16 rows)",
+                          lambda: decode_chunk(lm_params, lm, pool, state, tables, **chunk))
     lens = status[:16].cpu()
     d = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    print(f"[serve] decode_chunk(2 steps, 16 rows) under set_sync_debug_mode('error'): no host sync ok; "
-          f"lengths {lens[0].item()}..{lens[-1].item()}, launches F {d['F']} G {d['G']}")
+    print(f"[serve] decode_chunk: lengths {lens[0].item()}..{lens[-1].item()}, launches F {d['F']} G {d['G']}")
     if d["F"] != 2 * moe_layers or d["G"] != 2 * lm.num_hidden_layers or not torch.equal(
             lens, torch.arange(124, 140, dtype=torch.int32)):
         raise AssertionError(f"decode_chunk: launches {d}, lengths {lens.tolist()}")
@@ -856,14 +1264,20 @@ def _first_difference(single, served) -> str:
     return note
 
 
-def phase_serving_exact(dev, pipe) -> None:
-    """Phase 7: both engines token-exact against single-page generate_ocr, on
-    phase 5's reduced-depth f32 model on the card."""
+def phase_serving_exact(dev, pipe, tier: str = "f32") -> None:
+    """Phase 7 (7b with int8 weights): both engines token-exact against
+    single-page generate_ocr, on phase 5's reduced-depth f32 model on the
+    card."""
     from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
     from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
 
     kernels = counters()
-    pages = _serve_pages(pipe.cfg, 14, 2, seed=500)
+    # With int8 weights the shared MLP is folded into the expert kernels as
+    # pseudo-experts at one row and above E / k rows, but runs as its own
+    # int8 stream (other down scales) in between, as in the JAX package: a
+    # 2-page crop chunk of the group engine is not comparable with single
+    # pages. 7b serves 16 no-crop pages: one 16-row chunk, 16 slots.
+    pages = _serve_pages(pipe.cfg, 14, 2, seed=500) if tier == "f32" else _serve_pages(pipe.cfg, 16, 0, seed=700)
     gen = dict(max_new_tokens=16, ngram_size=20)
     singles = [pipe.generate_ocr(p, keep_logits=True, **gen) for p in pages]
     before = {k: fn.launches for k, fn in kernels.items()}
@@ -876,13 +1290,14 @@ def phase_serving_exact(dev, pipe) -> None:
     for name, results in served.items():
         notes = [(i, _first_difference(s, r)) for i, (s, r) in enumerate(zip(singles, results))]
         exact = sum(1 for _, n in notes if not n)
-        print(f"[serve-exact] {name}: {exact} of {len(pages)} pages token-exact against generate_ocr")
+        print(f"[serve-exact] {tier} {name}: {exact} of {len(pages)} pages token-exact against generate_ocr")
         for i, n in notes:
             if n:
                 print(f"[serve-exact]   page {i}: {n}")
-    print(f"[serve-exact] launches {d}")
-    if d["F"] == 0 or d["G"] == 0:
-        raise AssertionError(f"the reduced-depth serving run did not reach F and G: {d}")
+    print(f"[serve-exact] {tier} launches {d}")
+    need = "FG" if tier == "f32" else "GHJK"
+    if min(d[k] for k in need) == 0:
+        raise AssertionError(f"the reduced-depth {tier} serving run did not reach {', '.join(need)}: {d}")
 
 
 def main() -> int:
@@ -896,17 +1311,23 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels(dev)
     main_launches, pipe = phase_main_path(dev)
+    int8_launches = phase_int8_main_path(dev, pipe)
     serve_launches = phase_serving(dev, pipe)
+    serve_int8_launches = phase_serving_int8(dev, pipe)
+    phase_decode_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
-    card_pipe = phase_card_vs_cpu(dev)
-    phase_serving_exact(dev, card_pipe)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    card_pipes = phase_card_vs_cpu(dev)
+    phase_serving_exact(dev, card_pipes["f32"])
+    phase_serving_exact(dev, card_pipes["int8"], tier="int8")
+    if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
 
-    # The main path is one page through generate_ocr (phase 4) and serving
-    # (phase 6); each was driven with the counts at 0 and read after.
-    launches = {k: main_launches[k] + serve_launches[k] for k in main_launches}
+    # The main path is one page through generate_ocr (phase 4, and with int8
+    # weights 4b) and serving (phase 6, and 6b); each was driven with the
+    # counts at 0 and read after.
+    runs = (main_launches, int8_launches, serve_launches, serve_int8_launches)
+    launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
         "B": ("flash_attention.mha_relpos (SAM attention)", "deepseek_ocr2_tpu/ops/flash_attention.py:101"),
@@ -918,14 +1339,24 @@ def main() -> int:
               "deepseek_ocr2_tpu/ops/moe_decode.py:85"),
         "G": ("paged_attention.paged_decode_attention_pool (paged decode attention)",
               "deepseek_ocr2_tpu/ops/paged_attention.py:158"),
+        "H": ("linear_q8.linear_q8 (int8-weight skinny GEMM, w8a16)", "deepseek_ocr2_tpu/ops/linear_q8.py:78"),
+        "I": ("moe_q8.moe_ffn_decode_q8 (int8 MoE decode, one visit per row and selection)",
+              "deepseek_ocr2_tpu/ops/moe_q8.py:50"),
+        "J": ("moe_decode.moe_ffn_decode_q8_fused (int8 batched-decode MoE, one visit per distinct expert)",
+              "deepseek_ocr2_tpu/ops/moe_decode.py:220"),
+        "K": ("attn_fused.attn_decode_fused (fused decode attention, int8 weights)",
+              "deepseek_ocr2_tpu/ops/attn_fused.py:100"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
-               "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu"}
+               "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
+               "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFG":
+    for k in "ABCDEFGHIJK":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
-        # bf16 at 16 slots for F; an f32 pool at 16 slots for G.
+        # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
+        # one row for H; one row with the pseudo-experts for I; 16 rows for
+        # J; one row at pos 300 on an f32 cache for K.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],
@@ -936,6 +1367,9 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in results[k]),
             "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps(record))

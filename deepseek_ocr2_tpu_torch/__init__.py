@@ -4,15 +4,16 @@ A port of the JAX package `deepseek_ocr2_tpu`, which stays the numeric
 reference. The layout mirrors it module for module:
 - io:       safetensors reader/writer (BF16 native) with the dtype policy
 - ops:      norms / rope / attention / moe / sampling, plus the hand-written
-            CUDA kernels (flash_attention, fused_mlp, moe_gmm) and their
-            plain twins
+            CUDA kernels (csrc/*.cu) and their plain twins
 - models:   sam (ViT-B), qwen2 (compressor), deepseek_v2 (LM), deepseek_ocr2
-- runtime:  KV cache, greedy generation, the OCR pipeline
-- cli:      `generate-ocr`
+- preprocess, utils: host image preprocessing, tokenizer and debug helpers
+- runtime:  KV caches, greedy generation, the OCR pipeline, the serving
+            engines and the HTTP front end
+- cli:      `generate-ocr` and `serve`
 
-The config dataclasses (`configs`, a re-export), the tokenizer helpers and
-the dtype policy are imported from `deepseek_ocr2_tpu` (those modules
-import no jax).
+The port imports nothing of `deepseek_ocr2_tpu`, not even its modules that
+import no jax: the config dataclasses, the dtype policy, the tokenizer and
+debug helpers and the host preprocessing are the port's own copies.
 
 Numeric defaults of CUDA that break the reference's parity policy are
 switched off here, once, at import: no TF32 in matmuls or cuDNN convs (SAM's

@@ -3,8 +3,10 @@
 Same flags and defaults as `deepseek_ocr2_tpu.cli generate-ocr` and
 `serve`, except `--backend`, which picks cuda (default) or cpu. Crop mode is on by default:
 a page with a side above `--crop-image-size` (768) is read as 2-6 local
-crops plus the global view, unless `--no-crop` is given. Flags for features
-the port does not have yet (quantized tiers, lookup decoding, device resize,
+crops plus the global view, unless `--no-crop` is given. `--moe-int8`
+(routed experts) and `--int8` (every decode weight) quantize the LM to int8
+after loading, as the JAX CLI does. Flags for features the port does not
+have yet (int4 weights, the int8 KV pools, lookup decoding, device resize,
 sampling, profiling) raise a clear error instead of being ignored.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
@@ -100,19 +102,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+_NEXT_SLICE = "it belongs to the next slice: int4 weights, the int8 / int8tail KV pools and sample_pick"
+
+
 def _refuse_outside_slice(args) -> None:
     refused = [
-        (args.int8 or args.int4 or args.moe_int8, "--int8/--int4/--moe-int8 (quantized tiers)"),
-        (args.kv_cache.lower() in ("int8", "int8tail"), "--kv-cache int8/int8tail (quantized tiers)"),
-        (args.lookup_decode > 0, "--lookup-decode"),
-        (args.device_resize is not None, "--device-resize"),
-        (args.temperature != 0.0, "--temperature > 0 (sampling)"),
-        (getattr(args, "profile_dir", None) is not None, "--profile-dir"),
-        (args.trim_memory, "--trim-memory"),
+        (args.int4, "--int4", _NEXT_SLICE),
+        (args.kv_cache.lower() in ("int8", "int8tail"), "--kv-cache int8/int8tail", _NEXT_SLICE),
+        (args.lookup_decode > 0, "--lookup-decode", "see ROADMAP.md"),
+        (args.device_resize is not None, "--device-resize", "see ROADMAP.md"),
+        (args.temperature != 0.0, "--temperature > 0 (sampling)", _NEXT_SLICE),
+        (getattr(args, "profile_dir", None) is not None, "--profile-dir", "see ROADMAP.md"),
+        (args.trim_memory, "--trim-memory", "see ROADMAP.md"),
     ]
-    for hit, flag in refused:
+    for hit, flag, where in refused:
         if hit:
-            raise SystemExit(f"error: {flag} is not available in the PyTorch port yet (see ROADMAP.md)")
+            raise SystemExit(f"error: {flag} is not available in the PyTorch port yet ({where})")
+
+
+def int8_scope(args) -> Optional[str]:
+    """The LM quantization the flags ask for (the JAX CLI's `_int8_scope`
+    without int4): "full" for --int8, "experts" for --moe-int8, else None."""
+    if args.int8:
+        return "full"
+    return "experts" if args.moe_int8 else None
 
 
 def _load_pipeline(args):
@@ -121,11 +134,11 @@ def _load_pipeline(args):
     import torch
 
     from .configs import OCR2Config, config_from_json
-    from deepseek_ocr2_tpu.utils.tokenizer import load_tokenizer
 
     from .io import DtypePolicy, load_flat
     from .models import deepseek_ocr2 as ocr2
     from .runtime.pipeline import OCR2Pipeline
+    from .utils.tokenizer import load_tokenizer
 
     _refuse_outside_slice(args)
     kv = _dtype_arg(args.kv_cache)
@@ -160,6 +173,12 @@ def _load_pipeline(args):
     if report.missing:
         raise SystemExit(f"error: {len(report.missing)} tensors missing, e.g. {report.missing[:4]}")
     del flat
+    scope = int8_scope(args)
+    if scope:
+        from .models.deepseek_v2 import quantize_lm_params
+
+        params = {**params, "lm": quantize_lm_params(params["lm"], scope=scope)}
+        print(f"int8: LM weights quantized (scope={scope})", file=sys.stderr)
 
     act = "float32" if vision_default == "float32" else "bfloat16"
     return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=kv, act_dtype=act)

@@ -6,8 +6,8 @@
 // expert's weights stream from HBM once per step however many rows chose
 // it. Rows that did not select a visit's expert get a zero combine weight.
 //
-// The visit list (built on the device by ops/moe_decode.py, no host sync):
-// ve [E] holds the distinct selected expert ids in ascending order, padded
+// The visit list (built on the device by schedule_kernel below, one launch,
+// no host sync; kernel J of csrc/moe_q8.cu takes the same one): ve [E] holds the distinct selected expert ids in ascending order, padded
 // to E by repeating the last; valid [E] is 1 for a real visit. w_visit
 // [E, B] f32 holds each row's routing weight for the visit's expert (0 if
 // the row did not select it, and for every pad visit).
@@ -19,7 +19,7 @@
 //   y    = act Wd^T                                (f32, not rounded)
 //   out  = round(sum over visits, ascending expert id, of y * w_visit)
 //
-// Three launches:
+// Three launches after the schedule's:
 //   1. swiglu: grid (visit, I tile, row tile) writes act [E, B, I] (T);
 //   2. down:   grid (visit, H tile, row tile) writes y * w [E, B, H] (f32);
 //   3. combine: one thread per (row, column) sums the valid visits in visit
@@ -299,4 +299,55 @@ extern "C" int moe_decode_bf16(const void* x, const void* wg, const void* wu, co
                                int n_exp, int h_dim, int i_dim, void* stream) {
   return launch<__nv_bfloat16>(x, wg, wu, wd, ve, valid, w_visit, act, yw, out, nb, n_exp, h_dim, i_dim,
                                stream);
+}
+
+// The visit schedule of F and J in one launch (the semantics of
+// ops/moe_decode.py's distinct_schedule and combine_table): one block of E
+// threads; thread e flags whether any row selected expert e, its rank
+// among the flagged gives its visit; visits past the n distinct ones repeat
+// the last distinct id with valid 0; w_visit[v, b] is the sum of row b's
+// routing weights for visit v's expert (0 for a pad visit). idx int64 and
+// wts f32 [B, k], rows ld apart; ve / valid int32 [E]; w_visit f32 [E, B].
+namespace {
+
+__global__ void schedule_kernel(const long long* __restrict__ idx, const float* __restrict__ wts, int nb, int k,
+                                int ld, int n_exp, int* __restrict__ ve, int* __restrict__ valid,
+                                float* __restrict__ w_visit) {
+  extern __shared__ int sh[];  // present [E], then the distinct ids [E]
+  int* present = sh;
+  int* ids = sh + n_exp;
+  const int e = threadIdx.x;
+  int p = 0;
+  for (int b = 0; b < nb; ++b)
+    for (int j = 0; j < k; ++j) p |= idx[(size_t)b * ld + j] == e;
+  present[e] = p;
+  __syncthreads();
+  int rank = 0, n_distinct = 0;
+  for (int j = 0; j < n_exp; ++j) {
+    rank += j < e ? present[j] : 0;
+    n_distinct += present[j];
+  }
+  if (p) ids[rank] = e;
+  __syncthreads();
+  const int v = e;  // thread e also writes visit v = e
+  const bool ok = v < n_distinct;
+  const int vid = ids[ok ? v : max(n_distinct - 1, 0)];
+  ve[v] = vid;
+  valid[v] = ok;
+  for (int b = 0; b < nb; ++b) {
+    float w = 0.f;
+    for (int j = 0; j < k; ++j) w += idx[(size_t)b * ld + j] == vid ? wts[(size_t)b * ld + j] : 0.f;
+    w_visit[(size_t)v * nb + b] = ok ? w : 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" int moe_decode_schedule(const void* idx, const void* wts, int nb, int k, int ld, int n_exp, void* ve,
+                                   void* valid, void* w_visit, void* stream) {
+  if (nb <= 0 || k <= 0 || ld < k || n_exp <= 0 || n_exp > 1024) return (int)cudaErrorInvalidValue;
+  schedule_kernel<<<1, n_exp, 2 * n_exp * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(idx), static_cast<const float*>(wts), nb, k, ld, n_exp, static_cast<int*>(ve),
+      static_cast<int*>(valid), static_cast<float*>(w_visit));
+  return (int)cudaGetLastError();
 }

@@ -6,22 +6,76 @@ and the raw little-endian tensor bytes. Reading it directly keeps BF16
 native (torch has the type; numpy does not) and keeps the port free of
 packages the GPU machine may lack.
 
-Semantics match `deepseek_ocr2_tpu.io.safetensors_io`: the same
+Semantics match `deepseek_ocr2_tpu.io.safetensors_io`: a copy of its
 `DtypePolicy` (longest-prefix per-tensor cast of float tensors),
 `include_regex` partial loads and `LoadReport` bookkeeping.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import struct
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from deepseek_ocr2_tpu.io.safetensors_io import DtypePolicy, LoadReport  # noqa: F401
+
+@dataclasses.dataclass
+class DtypePolicy:
+    """Per-prefix dtype cast policy for float tensors (copy of the JAX
+    package's; `apply_policy` below is its `apply` for torch tensors).
+
+    Equivalent of the reference's `SelectiveCastDTypeAdapter`
+    (store_adapters.rs:105-167): a default target dtype plus longest-match
+    per-prefix overrides. Non-float tensors are never cast. A target of
+    ``None`` keeps the stored dtype.
+    """
+
+    default: Optional[str] = "bfloat16"
+    prefixes: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
+
+    def with_prefix(self, prefix: str, dtype: Optional[str]) -> "DtypePolicy":
+        new = dict(self.prefixes)
+        new[prefix] = dtype
+        return DtypePolicy(default=self.default, prefixes=new)
+
+    def target_for(self, name: str) -> Optional[str]:
+        best: Optional[str] = self.default
+        best_len = -1
+        for prefix, dtype in self.prefixes.items():
+            if name.startswith(prefix) and len(prefix) > best_len:
+                best = dtype
+                best_len = len(prefix)
+        return best
+
+
+@dataclasses.dataclass
+class LoadReport:
+    """Load bookkeeping (reference main.rs:832-838)."""
+
+    applied: List[str] = dataclasses.field(default_factory=list)
+    missing: List[str] = dataclasses.field(default_factory=list)
+    skipped: List[str] = dataclasses.field(default_factory=list)
+    errors: List[str] = dataclasses.field(default_factory=list)
+
+    def merge(self, other: "LoadReport") -> None:
+        self.applied.extend(other.applied)
+        self.missing.extend(other.missing)
+        self.skipped.extend(other.skipped)
+        self.errors.extend(other.errors)
+
+    def summary(self) -> str:
+        return (
+            f"loaded: applied={len(self.applied)}, missing={len(self.missing)}, "
+            f"skipped={len(self.skipped)}, errors={len(self.errors)}"
+        )
+
+    def raise_on_errors(self) -> None:
+        if self.errors:
+            raise ValueError("weight load errors:\n" + "\n".join(self.errors))
 
 _DTYPES = {
     "BF16": torch.bfloat16,

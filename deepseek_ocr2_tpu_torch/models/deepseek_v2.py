@@ -10,6 +10,24 @@ Prefill attention runs kernel A (`ops.flash_attention.mha`, causal) on f32
 q/k/v after RoPE, at every prompt length. Decode attends over the
 preallocated contiguous cache with the plain `sdpa`, as the JAX package's
 default "pool" strategy does. The cache is updated in place.
+
+Int8 weights (`quantize_lm_params`, the CLI's `--moe-int8` and `--int8`):
+- scope "experts": each MoE layer's routed experts become `experts_q8`
+  (`ops.moe_q8.quantize_experts`);
+- scope "full": also the attention (q, k, v fused into one [3H, H] stream
+  `wqkv`, and `wo`), the dense MLP and the shared MLP (gate||up fused into
+  `gu`, and `down`), each an int8 linear (`ops.linear_q8`), and `lm_head`;
+  the shared MLP is also split along its intermediate dim into n_shared
+  expert-shaped pseudo-experts (`pe_*` keys of `experts_q8`) that the
+  decode kernels fold in as always-on visits.
+Routers, norms and the embedding stay in the model dtype. The port's layers
+are unstacked already, so the JAX package's unrolled `_lm_forward_q8` has no
+counterpart: its branches sit in the one layer loop. Decode: kernel H for
+the int8 linears, I (B * k <= E) or J for the experts with the JAX package's
+dispatch, K for the attention block on the contiguous cache. Prefill: the
+int8 linears through `linear_q8_plain` and each layer's experts dequantized
+(scale folded before the dtype cast, as the JAX package does) into the
+unquantized MoE forms.
 """
 
 from __future__ import annotations
@@ -22,11 +40,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
-
 from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
 from ..ops.attention import decode_mask, sdpa
+from ..ops.attn_fused import attn_decode_fused, fused_attn_enabled
 from ..ops.flash_attention import mha
+from ..ops.linear_q8 import is_qlinear, qmm, quantize_linear, swiglu_q8
 from ..ops.moe import moe_ffn_decode, moe_ffn_prefill, route, swiglu
+from ..ops.moe_decode import moe_ffn_decode_q8_fused
+from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cache
 
@@ -76,49 +97,141 @@ def params_from_flat(flat, cfg: DeepseekV2Config, device="cpu", policy=None) -> 
 
 def params_from_jax(tree: Params, cfg: DeepseekV2Config, device="cpu") -> Params:
     """From the JAX pytree: dense and MoE layers stacked separately,
-    linears [in, out], experts [L, E, H, I] / [L, E, I, H]."""
+    linears [in, out], experts [L, E, H, I] / [L, E, I, H]. A tree from the
+    JAX package's `quantize_lm_params` (int8, either scope) comes over with
+    its codes and scales, transposed to the port's layout (its In-padding
+    to a multiple of 128 dropped), so both packages compute from the same
+    int8 weights."""
 
     def t(a, transpose=False):
         x = as_tensor(np.asarray(a))
         return (x.transpose(-1, -2) if transpose else x).contiguous().to(device)
 
-    def attn(group, j):
+    def qlin(qd, in_dim):  # {"q8": [In_pad, Out], "scale": [1, Out]} -> the port's int8 linear
+        return {"q8": t(np.asarray(qd["q8"])[:in_dim], True), "scale": t(np.asarray(qd["scale"])[0])}
+
+    def qexperts(qd):  # gu_q8 [E, H, 2I], gu_scale [E, 1, 2I], ... (+ pe_*)
+        return {k: t(v, True) if k.endswith("q8") else t(np.asarray(v)[..., 0, :]) for k, v in qd.items()}
+
+    h, q8l = cfg.hidden_size, tree.get("q8_layers")
+
+    def attn(group, j, which):
+        if q8l is not None:
+            q = q8l[which][j]
+            return {"wqkv": qlin(q["wqkv"], h), "wo": qlin(q["wo"], h)}
         return {"w" + n: t(group["attn"]["w" + n][j], True) for n in ("q", "k", "v", "o")}
+
+    def mlp(group, j, name, qnames, inter):
+        if q8l is not None:
+            q = q8l["dense" if name == "mlp" else "moe"][j]
+            return {"gu": qlin(q[qnames[0]], h), "down": qlin(q[qnames[1]], inter)}
+        return {n: t(group[name][n][j], True) for n in ("gate", "up", "down")}
 
     dense, moe = tree["layers_dense"], tree["layers_moe"]
     layers = []
     for j in range(cfg.first_k_dense_replace):
         layers.append({
-            "ln1": t(dense["ln1"][j]), "ln2": t(dense["ln2"][j]), **attn(dense, j),
-            "mlp": {n: t(dense["mlp"][n][j], True) for n in ("gate", "up", "down")},
+            "ln1": t(dense["ln1"][j]), "ln2": t(dense["ln2"][j]), **attn(dense, j, "dense"),
+            "mlp": mlp(dense, j, "mlp", ("gu", "down"), cfg.intermediate_size),
         })
     for j in range(cfg.num_moe_layers):
-        layers.append({
-            "ln1": t(moe["ln1"][j]), "ln2": t(moe["ln2"][j]), **attn(moe, j),
+        layer = {
+            "ln1": t(moe["ln1"][j]), "ln2": t(moe["ln2"][j]), **attn(moe, j, "moe"),
             "router": t(moe["router"][j], True),
-            "experts": {n: t(moe["experts"][n][j], True) for n in ("gate", "up", "down")},
-            "shared": {n: t(moe["shared"][n][j], True) for n in ("gate", "up", "down")},
-        })
-    return {
-        "embed": t(tree["embed"]),
-        "layers": layers,
-        "norm": t(tree["norm"]),
-        "lm_head": t(tree["lm_head"], True),
-    }
+            "shared": mlp(moe, j, "shared", ("shared_gu", "shared_down"),
+                          cfg.moe_intermediate_size * cfg.n_shared_experts),
+        }
+        if "moe_q8" in tree:
+            layer["experts_q8"] = qexperts(tree["moe_q8"][j])
+        else:
+            layer["experts"] = {n: t(moe["experts"][n][j], True) for n in ("gate", "up", "down")}
+        layers.append(layer)
+    head = qlin(tree["q8_lm_head"], h) if "q8_lm_head" in tree else t(tree["lm_head"], True)
+    return {"embed": t(tree["embed"]), "layers": layers, "norm": t(tree["norm"]), "lm_head": head}
+
+
+def quantize_lm_params(params: Params, scope: str = "experts", bits: int = 8) -> Params:
+    """Weight-only int8 quantization (port of the JAX function; see the
+    module docstring for the two scopes). Returns new params; the input's
+    tensors are not changed."""
+    if bits == 4:
+        raise ValueError("int4 weights are not ported yet: they belong to the next slice of the port "
+                         "(int4 weights, the int8 / int8tail KV pools and sample_pick)")
+    if bits != 8 or scope not in ("experts", "full"):
+        raise ValueError(f"quantize_lm_params takes scope 'experts' or 'full' and bits 8, got {scope!r}, {bits}")
+    layers = []
+    for layer in params["layers"]:
+        q = dict(layer)
+        if "experts" in q:
+            q["experts_q8"] = quantize_experts(q.pop("experts"))
+        if scope == "full":
+            q["wqkv"] = quantize_linear(torch.cat([q.pop("wq"), q.pop("wk"), q.pop("wv")]))
+            q["wo"] = quantize_linear(q["wo"])
+            name = "mlp" if "mlp" in q else "shared"
+            m = q[name]
+            q[name] = {"gu": quantize_linear(torch.cat([m["gate"], m["up"]])), "down": quantize_linear(m["down"])}
+            if name == "shared":
+                q["experts_q8"] = {**q["experts_q8"], **_pseudo_experts(m, q["experts_q8"])}
+        layers.append(q)
+    new = {**params, "layers": layers}
+    if scope == "full":
+        new["lm_head"] = quantize_linear(params["lm_head"])
+    return new
+
+
+def _pseudo_experts(shared: Dict[str, torch.Tensor], eq) -> Dict[str, torch.Tensor]:
+    """The shared MLP (intermediate n_shared * I) split along its
+    intermediate dim into n_shared expert-shaped SwiGLUs whose down
+    products sum, quantized as experts: `pe_*` keys. Per-channel scales over
+    the halves, so the down scales differ from the fused stream's."""
+    i_e = eq["gu_q8"].shape[1] // 2
+    i_tot = shared["gate"].shape[0]
+    if i_tot % i_e:
+        return {}
+    n_sh = i_tot // i_e
+    pe = quantize_experts({
+        "gate": torch.stack([shared["gate"][t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
+        "up": torch.stack([shared["up"][t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
+        "down": torch.stack([shared["down"][:, t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
+    })
+    return {f"pe_{k}": v for k, v in pe.items()}
+
+
+def dequantize_experts(eq, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Int8 experts back to {gate, up: [E, I, H], down: [E, H, I]} in
+    `dtype`, the scale folded in f32 before the cast (the JAX package's
+    `_dequantize_experts`), for the prefill MoE forms."""
+    i = eq["gu_q8"].shape[1] // 2
+
+    def deq(q, s):  # contiguous, as kernels D and E take them
+        return (q.float() * s[..., None]).to(dtype)
+
+    return {"gate": deq(eq["gu_q8"][:, :i], eq["gu_scale"][:, :i]),
+            "up": deq(eq["gu_q8"][:, i:], eq["gu_scale"][:, i:]),
+            "down": deq(eq["down_q8"], eq["down_scale"])}
+
+
+def vocab_size_of(params: Params) -> int:
+    head = params["lm_head"]
+    return (head["q8"] if is_qlinear(head) else head).shape[0]
 
 
 def rope_consts(cfg: DeepseekV2Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return rope_cache(cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta, device=device)
 
 
+def qkv_proj(x2: torch.Tensor, layer, decode: bool):
+    """q, k, v [N, H] each: three linears, or the fused int8 [3H, H] stream
+    split after the product."""
+    if "wqkv" in layer:
+        return qmm(x2, layer["wqkv"], decode=decode).chunk(3, dim=-1)
+    return F.linear(x2, layer["wq"]), F.linear(x2, layer["wk"]), F.linear(x2, layer["wv"])
+
+
 def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, is_prefill: bool):
     b, s, h = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
-
-    def heads(w):
-        return F.linear(x, w).reshape(b, s, nh, d).transpose(1, 2)
-
-    q, k, v = heads(layer["wq"]), heads(layer["wk"]), heads(layer["wv"])
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill))
     q32, k32 = apply_rope(q, k, rope[0], rope[1], start=pos)
     v32 = v.float()
     ck, cv = cache["k"][li], cache["v"][li]  # [B, Hh, cap, D] views
@@ -132,8 +245,50 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, 
     else:
         mask = decode_mask(ck.shape[2], pos + s - 1, device=x.device)[None, None]
         ctx = sdpa(q32, ck, cv, scale=scale, mask=mask, out_dtype=torch.float32)
-    ctx = ctx.transpose(1, 2).reshape(b, s, h).to(x.dtype)
-    return F.linear(ctx, layer["wo"])
+    ctx = ctx.transpose(1, 2).reshape(b * s, h).to(x.dtype)
+    return qmm(ctx, layer["wo"], decode=not is_prefill).reshape(b, s, h)
+
+
+def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, pos_b):
+    """Kernel K for one decode step of a layer with int8 attention weights;
+    the new token's K/V go into the cache at `pos`."""
+    out, k_new, v_new = attn_decode_fused(xn, layer, cfg, rope[0], rope[1], cache["k"], cache["v"], li, pos_b)
+    cache["k"][li][:, :, pos] = k_new
+    cache["v"][li][:, :, pos] = v_new
+    return out
+
+
+def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool) -> torch.Tensor:
+    """A layer's MLP on [N, H] rows: the dense SwiGLU, or the routed experts
+    plus the shared MLP, each weight plain or int8. Int8 experts in decode
+    follow the JAX package's `_q8_ffn`: kernel J once N * k > E, kernel I
+    otherwise; the shared pseudo-experts, when present, are folded into J
+    always and into I at N = 1, and the shared MLP is then not added again.
+    Prefill dequantizes the experts into the unquantized forms."""
+    m = layer.get("mlp")
+    if m is not None:
+        return swiglu_q8(x_flat, m["gu"], m["down"], decode=decode) if "gu" in m else \
+            swiglu(x_flat, m["gate"], m["up"], m["down"])
+    weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
+    n = x_flat.shape[0]
+    eq = layer.get("experts_q8")
+    merged = False
+    if eq is None:
+        routed = (moe_ffn_decode if decode else moe_ffn_prefill)(x_flat, layer["experts"], weights, idx)
+    elif not decode:
+        routed = moe_ffn_prefill(x_flat, dequantize_experts(eq, x_flat.dtype), weights, idx)
+    elif n * cfg.num_experts_per_tok > eq["gu_q8"].shape[0]:
+        merged = "pe_gu_q8" in eq
+        routed = moe_ffn_decode_q8_fused(x_flat, eq, weights, idx)
+    else:
+        merged = "pe_gu_q8" in eq and n == 1
+        routed = moe_ffn_decode_q8(x_flat, eq, weights, idx, with_shared=merged)
+    if merged:
+        return routed
+    sh = layer["shared"]
+    shared = swiglu_q8(x_flat, sh["gu"], sh["down"], decode=decode) if "gu" in sh else \
+        swiglu(x_flat, sh["gate"], sh["up"], sh["down"])
+    return routed + shared
 
 
 def lm_forward(
@@ -147,30 +302,34 @@ def lm_forward(
 ) -> torch.Tensor:
     """Run the decoder stack; returns the final-normed hidden [B, S, H].
 
-    Prefill (S tokens at pos 0) or decode (S == 1 at `pos`)."""
+    Prefill (S tokens at pos 0) or decode (S == 1 at `pos`). A decode step
+    of a layer with int8 attention weights runs kernel K unless
+    DEEPSEEK_FUSED_ATTN=0."""
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
+    b, s, h = embeds.shape
+    fused = not is_prefill and s == 1 and fused_attn_enabled()
+    pos_b = None
     x = embeds
     for li, layer in enumerate(params["layers"]):
         res = x
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill)
+        if fused and "wqkv" in layer:
+            if pos_b is None:  # one fill a step, shared by the layers
+                pos_b = torch.full((b,), pos, dtype=torch.int32, device=embeds.device)
+            x = res + _fused_attention(xn, layer, cfg, rope, cache, li, pos, pos_b)
+        else:
+            x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill)
         res = x
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-        b, s, h = xn.shape
-        x_flat = xn.reshape(b * s, h)
-        if "mlp" in layer:
-            m = layer["mlp"]
-            out = swiglu(x_flat, m["gate"], m["up"], m["down"])
-        else:
-            weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
-            ffn = moe_ffn_prefill if is_prefill else moe_ffn_decode
-            routed = ffn(x_flat, layer["experts"], weights, idx)
-            sh = layer["shared"]
-            out = routed + swiglu(x_flat, sh["gate"], sh["up"], sh["down"])
-        x = res + out.reshape(b, s, h)
+        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=not is_prefill).reshape(b, s, h)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
 def logits_last(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """lm_head on the last position only: [B, V] in the model dtype."""
-    return F.linear(hidden[:, -1, :], params["lm_head"])
+    """lm_head on the last position only: [B, V], in the model dtype, or in
+    f32 through kernel H when lm_head is int8 (rows here are at most the
+    decode batch)."""
+    head = params["lm_head"]
+    if is_qlinear(head):
+        return qmm(hidden[:, -1, :], head, decode=True, out_dtype=torch.float32)
+    return F.linear(hidden[:, -1, :], head)

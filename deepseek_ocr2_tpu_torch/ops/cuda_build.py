@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes plain `extern "C"` entry points. It is compiled
 with nvcc for sm_90a into `build/torch_kernels/` at the repo root, at first
-use, under a name keyed by a hash of the source, and bound with ctypes (no
+use, under a name keyed by a hash of the source and of the shared headers
+(`csrc/*.cuh`), and bound with ctypes (no
 PyTorch headers, so a build takes seconds, not minutes). Nothing here runs
 at import: the CPU tests import every module.
 
@@ -48,7 +49,8 @@ def load(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared device code
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-"""Batched-decode MoE, kernel F: the visit schedule, the CUDA wrapper and
-its plain twin.
+"""Batched-decode MoE, kernels F (bf16 / f32 experts) and J (int8
+experts): the visit schedule, the CUDA wrappers and their plain twins.
 
 Port of deepseek_ocr2_tpu/ops/moe_decode.py (`moe_ffn_decode_fused`, the
 Pallas kernel `_decode_kernel`). Once a decode batch selects more experts
@@ -16,12 +16,22 @@ The JAX package lifts the layer-stacked experts out of its scan so the
 kernel can index the stack; the port keeps one expert stack per layer and
 needs no such lift.
 
-On CUDA nothing here reads a value back to the host: the schedule comes from
-`scatter_add_`, `sort` and `cumsum` (not `bincount`, `unique` or `nonzero`,
-which size their output from the data), and the grid is the static E visits.
+`distinct_schedule` and `combine_table` are the twins' plan. On CUDA, F and
+J take the same plan from one launch, `device_schedule` (`schedule_kernel`
+in `csrc/moe_decode.cu`), which reads nothing back to the host; the grid is
+the static E visits. Kernel J (`moe_ffn_decode_q8_fused`, port of the JAX
+function of that name and its Pallas kernels `_decode_q8_kernel` / `_decode_q8_pe_kernel`) is the
+same plan over int8 experts (`moe_q8.quantize_experts`), with the q8
+rounding points: gate and up stay in f32 after the scale (F rounds them to
+the model dtype before silu). When the experts carry the shared
+pseudo-experts (`pe_*` keys), their n_sh visits follow the E expert visits
+with weight 1 for every row, and the caller adds no separate shared term.
+Its source is `csrc/moe_q8.cu`, shared with kernel I.
+
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
-launches the kernel or raises. `launches` counts calls that launch F (one
-per MoE layer per decode step; F is three CUDA launches).
+launches the kernel or raises. `launches` counts calls that launch F or J
+(one per MoE layer per decode step; each is four CUDA launches, the
+schedule's included).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .moe_q8 import QExperts, expert_swiglu_q8, launch_moe_q8, pseudo_experts, routing_rows
 
 
 def distinct_schedule(idx: torch.Tensor, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,6 +76,28 @@ def combine_table(
     rows = torch.arange(b, device=idx.device)[:, None].expand_as(idx)
     w_full.index_put_((idx.long(), rows), weights.float(), accumulate=True)
     return w_full.index_select(0, ve.long()) * valid[:, None].float()
+
+
+def device_schedule(idx: torch.Tensor, weights: torch.Tensor, e: int, b: int):
+    """The plan of F and J, `distinct_schedule` and `combine_table` in one
+    CUDA launch (`moe_decode_schedule` in `csrc/moe_decode.cu`; the same
+    outputs): (ve [E] int32, valid [E] int32, w_visit [E, B] f32)."""
+    idx, weights, ld = routing_rows(idx, weights)
+    if idx.shape != weights.shape or idx.shape[0] != b or not 0 < e <= 1024:
+        raise ValueError(f"routing idx {tuple(idx.shape)} / weights {tuple(weights.shape)}, {b} rows, E {e}")
+    if idx.device.type != "cuda" or weights.device != idx.device:
+        raise ValueError(f"the schedule's inputs must share one CUDA device, got {idx.device} / {weights.device}")
+    ve = torch.empty(e, dtype=torch.int32, device=idx.device)
+    valid = torch.empty_like(ve)
+    w_visit = torch.empty(e, b, dtype=torch.float32, device=idx.device)
+    lib = cuda_build.load("moe_decode")
+    fn = lib.moe_decode_schedule
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(p(idx), p(weights), b, idx.shape[1], ld, e, p(ve), p(valid), p(w_visit), cuda_build.stream_of(idx))
+    cuda_build.check(err, "moe_decode_schedule")
+    return ve, valid, w_visit
 
 
 def moe_ffn_decode_visits_reference(
@@ -116,11 +149,10 @@ def moe_ffn_decode_fused(
     if h % 8 or i % 8:
         raise ValueError(f"kernel F needs H ({h}) and I ({i}) multiples of 8")
     x = x.contiguous()
-    cuda_build.require_cuda(x, wg, wu, wd, weights.contiguous(), idx.contiguous())
+    cuda_build.require_cuda(x, wg, wu, wd)
     if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
         raise ValueError("kernel F reads 16-byte aligned rows")
-    ve, valid = distinct_schedule(idx, e)
-    w_visit = combine_table(idx, weights, ve, valid, e).contiguous()
+    ve, valid, w_visit = device_schedule(idx, weights, e, b)
     act = torch.empty(e, b, i, dtype=dt, device=x.device)
     yw = torch.empty(e, b, h, dtype=torch.float32, device=x.device)
     out = torch.empty(b, h, dtype=dt, device=x.device)
@@ -137,3 +169,50 @@ def moe_ffn_decode_fused(
 
 
 moe_ffn_decode_fused.launches = 0
+
+
+def moe_ffn_decode_q8_visits_reference(
+    x: torch.Tensor,  # [B, H]
+    eq: QExperts,  # gu_q8 [E, 2I, H], gu_scale, down_q8 [E, H, I], down_scale (+ pe_* streams)
+    weights: torch.Tensor,  # [B, k] f32
+    idx: torch.Tensor,  # [B, k]
+) -> torch.Tensor:
+    """Plain twin of J: every visit of the schedule over all rows at the q8
+    rounding points (`moe_q8.expert_swiglu_q8`), y * w summed in f32 in
+    visit order, then the pseudo-experts with weight 1. Returns [B, H] in
+    x's dtype."""
+    e = eq["gu_q8"].shape[0]
+    ve, valid = distinct_schedule(idx, e)
+    w_visit = combine_table(idx, weights, ve, valid, e)
+    x32 = x.float()
+    out = torch.zeros(x.shape[0], eq["down_q8"].shape[1], dtype=torch.float32, device=x.device)
+    for v in range(e):
+        ex = ve[v : v + 1].long()
+        wts = [eq[n].index_select(0, ex)[0] for n in ("gu_q8", "gu_scale", "down_q8", "down_scale")]
+        out = out + expert_swiglu_q8(x32, *wts, x.dtype) * w_visit[v][:, None]
+    if "pe_gu_q8" in eq:
+        for pe in pseudo_experts(eq):
+            out = out + expert_swiglu_q8(x32, *pe, x.dtype)
+    return out.to(x.dtype)
+
+
+def moe_ffn_decode_q8_fused(
+    x: torch.Tensor,  # [B, H]
+    eq: QExperts,
+    weights: torch.Tensor,  # [B, k] f32
+    idx: torch.Tensor,  # [B, k]
+) -> torch.Tensor:
+    """Kernel J: the int8 distinct-expert batched-decode MoE FFN, the shared
+    pseudo-experts folded in when `eq` has them. Returns [B, H] in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return moe_ffn_decode_q8_visits_reference(x, eq, weights, idx)
+    e = eq["gu_q8"].shape[0]
+    n_sh = eq["pe_gu_q8"].shape[0] if "pe_gu_q8" in eq else 0
+    ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
+    out = launch_moe_q8(False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+    moe_ffn_decode_q8_fused.launches += 1
+    return out
+
+
+moe_ffn_decode_q8_fused.launches = 0

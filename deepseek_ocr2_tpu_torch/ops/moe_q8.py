@@ -1,0 +1,172 @@
+"""Int8-weight MoE decode, kernel I: one visit per (row, selection)
+(port of deepseek_ocr2_tpu/ops/moe_q8.py).
+
+Quantization keeps the port's [out, in] layout, symmetric per output
+channel as `linear_q8.quantize_per_col`:
+- gu_q8 int8 [E, 2I, H] (gate rows, then up rows: one weight stream per
+  expert), gu_scale f32 [E, 2I];
+- down_q8 int8 [E, H, I], down_scale f32 [E, H].
+A per-output-channel scale is unchanged by the gate||up concat, so the codes
+and scales are the JAX package's, transposed.
+
+`moe_ffn_decode_q8` is kernel I (`csrc/moe_q8.cu`, whose header gives the
+design and the rounding points): for each row, its k selected experts in
+top-k order and, with `with_shared`, the n_sh shared pseudo-experts
+(`pe_*` keys, the shared MLP split along its intermediate dim) with weight
+1, summed in that order in f32. Its plain twin is
+`moe_ffn_decode_q8_reference`. The JAX package takes it while B * k <= E;
+above, kernel J (`moe_decode.moe_ffn_decode_q8_fused`) reads each distinct
+expert once. Both kernels share one CUDA source and its launcher here.
+
+A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
+launches the kernel or raises. Nothing here reads a value back to the host.
+`launches` counts calls that launch I (three CUDA launches each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .linear_q8 import quantize_per_col
+
+QExperts = Dict[str, torch.Tensor]
+
+
+def quantize_experts(experts: Dict[str, torch.Tensor]) -> QExperts:
+    """{gate, up: [E, I, H], down: [E, H, I]} -> {gu_q8, gu_scale, down_q8,
+    down_scale} (gate||up fused along the output rows)."""
+    gu_q8, gu_scale = quantize_per_col(torch.cat([experts["gate"], experts["up"]], dim=-2))
+    down_q8, down_scale = quantize_per_col(experts["down"])
+    return {"gu_q8": gu_q8.contiguous(), "gu_scale": gu_scale.contiguous(),
+            "down_q8": down_q8.contiguous(), "down_scale": down_scale.contiguous()}
+
+
+def expert_swiglu_q8(x32: torch.Tensor, gu, gus, down, ds, dtype: torch.dtype) -> torch.Tensor:
+    """One int8 expert on f32 rows x32 [N, H] at the kernels' rounding
+    points: gate and up in f32 after the scale, silu in f32, the activation
+    rounded to `dtype`, y = (act . down) * ds in f32. gu [2I, H] or a batch
+    [N, 2I, H] (one expert per row), and so on."""
+    if gu.dim() == 2:
+        h2 = F.linear(x32, gu.float()) * gus
+    else:
+        h2 = torch.einsum("nh,nih->ni", x32, gu.float()) * gus
+    i = h2.shape[-1] // 2
+    act = (F.silu(h2[:, :i]) * h2[:, i:]).to(dtype).float()
+    if down.dim() == 2:
+        return F.linear(act, down.float()) * ds
+    return torch.einsum("ni,nhi->nh", act, down.float()) * ds
+
+
+def pseudo_experts(eq: QExperts):
+    """The n_sh shared pseudo-experts as (gu, gus, down, ds) tuples."""
+    return [(eq["pe_gu_q8"][t], eq["pe_gu_scale"][t], eq["pe_down_q8"][t], eq["pe_down_scale"][t])
+            for t in range(eq["pe_gu_q8"].shape[0])]
+
+
+def moe_ffn_decode_q8_reference(x, eq: QExperts, weights, idx, *, with_shared: bool = False) -> torch.Tensor:
+    """Plain twin of I: each row's selections in top-k order (the selected
+    experts gathered per row), then the pseudo-experts with weight 1,
+    accumulated in f32 in that order. Returns [B, H] in x's dtype."""
+    x32 = x.float()
+    out = torch.zeros(x.shape[0], eq["down_q8"].shape[1], dtype=torch.float32, device=x.device)
+    for j in range(idx.shape[1]):
+        ex = idx[:, j].long()
+        y = expert_swiglu_q8(x32, eq["gu_q8"][ex], eq["gu_scale"][ex], eq["down_q8"][ex], eq["down_scale"][ex],
+                             x.dtype)
+        out = out + y * weights[:, j : j + 1].float()
+    if with_shared:
+        for pe in pseudo_experts(eq):
+            out = out + expert_swiglu_q8(x32, *pe, x.dtype)
+    return out.to(x.dtype)
+
+
+def routing_rows(idx: torch.Tensor, weights: torch.Tensor):
+    """(idx, weights, row stride) for the kernels of `csrc/moe_q8.cu`: the
+    router's outputs are [:, :k] slices of its sorted [B, E] tensors, read
+    in place (rows E apart) when their rows are unit-stride and share a
+    stride; otherwise copied contiguous."""
+    weights = weights.float()
+    if idx.dtype != torch.int64:
+        idx = idx.long()
+    if idx.stride(1) != 1 or weights.stride(1) != 1 or idx.stride(0) != weights.stride(0):
+        idx, weights = idx.contiguous(), weights.contiguous()
+    return idx, weights, idx.stride(0)
+
+
+def launch_moe_q8(per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, idx=None, weights=None,
+                  ve=None, valid=None, w_visit=None) -> torch.Tensor:
+    """Launch kernel I (`per_sel`, with idx / weights) or J (with the visit
+    schedule ve / valid / w_visit) of `csrc/moe_q8.cu`. Returns [B, H]."""
+    gu, gus, down, ds = eq["gu_q8"], eq["gu_scale"], eq["down_q8"], eq["down_scale"]
+    e, i2, h = gu.shape
+    i = i2 // 2
+    b = x.shape[0]
+    dt = x.dtype
+    name = "I" if per_sel else "J"
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel {name} takes f32 or bf16 x, got {dt}")
+    if x.shape != (b, h) or down.shape != (e, h, i) or gus.shape != (e, i2) or ds.shape != (e, h) \
+            or gu.dtype != torch.int8 or down.dtype != torch.int8 \
+            or gus.dtype != torch.float32 or ds.dtype != torch.float32:
+        raise ValueError(f"x {tuple(x.shape)} and int8 experts gu {tuple(gu.shape)} down {tuple(down.shape)} "
+                         "do not fit")
+    if h % 16 or i % 16:
+        raise ValueError(f"kernel {name} needs H ({h}) and I ({i}) multiples of 16")
+    pe = [eq[f"pe_{n}"] for n in ("gu_q8", "gu_scale", "down_q8", "down_scale")] if n_sh else []
+    if pe and (pe[0].shape != (n_sh, i2, h) or pe[2].shape != (n_sh, h, i)):
+        raise ValueError(f"pseudo-experts {tuple(pe[0].shape)} / {tuple(pe[2].shape)} do not fit")
+    x = x.contiguous()
+    sched = [t for t in (ve, valid, w_visit) if t is not None]
+    cuda_build.require_cuda(x, gu, gus, down, ds, *pe, *sched)
+    if any(t.data_ptr() % 16 for t in (x, gu, down, *pe[::2])):
+        raise ValueError(f"kernel {name} reads 16-byte aligned rows")
+    ld = 1
+    if per_sel:
+        idx, weights, ld = routing_rows(idx, weights)
+        if idx.device != x.device or weights.device != x.device or idx.shape != weights.shape \
+                or idx.shape[0] != b:
+            raise ValueError(f"routing idx {tuple(idx.shape)} / weights {tuple(weights.shape)} do not fit x")
+        n_rows, n_visits = 1, b * (idx.shape[1] + n_sh)
+    else:
+        if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
+            raise ValueError("kernel J takes an int32 schedule and an f32 combine table")
+        n_rows, n_visits = b, e + n_sh
+    act = torch.empty(n_visits, n_rows, i, dtype=dt, device=x.device)
+    yw = torch.empty(n_visits, n_rows, h, dtype=torch.float32, device=x.device)
+    out = torch.empty(b, h, dtype=dt, device=x.device)
+    lib = cuda_build.load("moe_q8")
+    fn = lib.moe_q8_f32 if dt == torch.float32 else lib.moe_q8_bf16
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def p(t: Optional[torch.Tensor]):
+        return ctypes.c_void_p(None) if t is None else cuda_build.ptr(t)
+
+    pgu, pgus, pdown, pds = pe or (None,) * 4
+    k = idx.shape[1] if per_sel else 1
+    err = fn(int(per_sel), p(x), p(gu), p(gus), p(down), p(ds), p(pgu), p(pgus), p(pdown), p(pds),
+             p(idx), p(weights), p(ve), p(valid), p(w_visit), p(act), p(yw), p(out),
+             b, e, k, ld, n_sh, h, i, cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_q8")
+    return out
+
+
+def moe_ffn_decode_q8(x: torch.Tensor, eq: QExperts, weights: torch.Tensor, idx: torch.Tensor, *,
+                      with_shared: bool = False) -> torch.Tensor:
+    """Kernel I: the per-selection int8 MoE decode FFN. With `with_shared`
+    the shared pseudo-experts are folded in and the caller adds no separate
+    shared term. Returns [B, H] in x's dtype."""
+    if x.device.type == "cpu":
+        return moe_ffn_decode_q8_reference(x, eq, weights, idx, with_shared=with_shared)
+    n_sh = eq["pe_gu_q8"].shape[0] if with_shared else 0
+    out = launch_moe_q8(True, x, eq, n_sh, idx=idx, weights=weights)
+    moe_ffn_decode_q8.launches += 1
+    return out
+
+
+moe_ffn_decode_q8.launches = 0

@@ -46,12 +46,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepseek_ocr2_tpu.utils.debug import dbg_print, enabled
-from deepseek_ocr2_tpu.utils.tokenizer import decode_output, tokenize_with_image
-
 from ..configs import DeepseekV2Config
-from ..models.deepseek_v2 import lm_forward, logits_last
+from ..models.deepseek_v2 import lm_forward, logits_last, vocab_size_of
 from ..ops.sampling import greedy_pick, ngram_ban_mask_batched
+from ..utils.debug import dbg_print, enabled
+from ..utils.tokenizer import decode_output, tokenize_with_image
 from .engine import batched_vision_prefill, refuse_sampling
 from .kv_cache import make_kv_cache
 from .paged_kv import PageAllocator, lm_decode_step_paged, make_paged_kv_cache, pages_for, write_prompt_pool_batched
@@ -144,7 +143,7 @@ def decode_chunk(
     (int32 [2B]) on the device, for the caller's one readback."""
     tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
     b, tok_cap = tokens.shape
-    vocab = lm_params["lm_head"].shape[0]
+    vocab = vocab_size_of(lm_params)  # lm_head may be int8
     rows = torch.arange(b, device=tokens.device)
     scratch = torch.zeros_like(block_tables)
     for _ in range(n_steps):
@@ -352,6 +351,7 @@ class ContinuousOCREngine:
         self.last_preempted = 0
         self.last_decode_steps = 0
         self.last_decode_seconds = 0.0
+        self.last_admissions = 0  # admission groups (one batched prefill each), re-admissions included
         self.alloc: Optional[PageAllocator] = None
 
     # ---- public API -----------------------------------------------------
@@ -457,7 +457,7 @@ class ContinuousOCREngine:
                                     lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev)
         alloc = PageAllocator(self.num_pages)
         self.alloc = alloc  # monitors read n_free while the loop runs
-        self.last_decode_steps, self.last_decode_seconds = 0, 0.0
+        self.last_decode_steps, self.last_decode_seconds, self.last_admissions = 0, 0.0, 0
         block_tables_np = np.zeros((b, self.max_pages_per_slot), np.int32)
         state = DecodeState.empty(b, tok_cap, dev)
         done_np = np.ones((b,), bool)
@@ -495,6 +495,7 @@ class ContinuousOCREngine:
             ids_t, embeds = batched_vision_prefill(pipe, ids, bases, patches, image_start)
             k_new, v_new, first = admit_prefill(lm, lm_cfg, embeds, ids_t, capacity=n_prompt_pages * page,
                                                 kv_dtype=pipe.kv_dtype, ngram_size=ngram_size, rope=pipe.rope)
+            self.last_admissions += 1
             # Lazy allocation: prompt + first token + first chunk; grow_pages tops up.
             page_ids = np.zeros((g, n_prompt_pages), np.int32)
             for row, (slot, req) in enumerate(zip(slot_ids, reqs)):

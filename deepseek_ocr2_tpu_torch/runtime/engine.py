@@ -15,9 +15,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from deepseek_ocr2_tpu.utils.tokenizer import decode_output, tokenize_with_image
-
 from ..models import deepseek_ocr2 as ocr2
+from ..utils.tokenizer import decode_output, tokenize_with_image
 from .generate import greedy_generate
 from .kv_cache import bucket_capacity
 from .pipeline import GenerationResult, OCR2Pipeline

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 
-from ..models.deepseek_v2 import lm_forward, logits_last, rope_consts
+from ..models.deepseek_v2 import lm_forward, logits_last, rope_consts, vocab_size_of
 from ..ops.sampling import greedy_pick, ngram_ban_mask_batched
 from .kv_cache import make_kv_cache
 
@@ -58,7 +58,7 @@ def greedy_generate(
         raise ValueError(f"capacity {capacity} < prompt {s} + max_new_tokens {max_new_tokens}")
     if prompt_ids.ndim == 1:
         prompt_ids = prompt_ids[None]
-    vocab = params["lm_head"].shape[0]
+    vocab = vocab_size_of(params)  # lm_head may be int8
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
     cache = make_kv_cache(

@@ -16,8 +16,9 @@ sequence's pages. Duplicate writes to it are harmless: no live row reads it.
 The pool is updated in place. The JAX package's per-row
 dynamic_update_slice chain (paged_kv.py:221-241) works around XLA's copy of
 a scattered carry; here one `index_put_` per layer writes every row's token.
-Only plain decode (one query per row) is ported: the chunk mode of lookup
-decoding and the int8 / int8tail pools belong to later slices.
+Only plain decode (one query per row) is ported, with plain or int8
+weights: the chunk mode of lookup decoding and the int8 / int8tail pools
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -26,11 +27,10 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
-from ..models.deepseek_v2 import rope_consts
-from ..ops.moe import moe_ffn_decode, route, swiglu
+from ..models.deepseek_v2 import ffn, qkv_proj, rope_consts
+from ..ops.linear_q8 import qmm
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention_pool
 
@@ -143,11 +143,7 @@ def _paged_attention_step(
         raise ValueError("paged decode takes one query per row here; the chunk mode (S > 1) "
                          "belongs to the lookup-decoding slice of the port")
     nh, d = cfg.num_attention_heads, cfg.head_dim
-
-    def heads(w):
-        return F.linear(xn, w).reshape(b, s, nh, d).transpose(1, 2)  # [B, Hh, 1, D]
-
-    q, k, v = heads(layer["wq"]), heads(layer["wk"]), heads(layer["wv"])
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(xn.reshape(b, h), layer, True))
     q32, k32 = q.float(), k.float()
     q32 = q32 * cos_b + _rotate_half(q32) * sin_b
     k32 = k32 * cos_b + _rotate_half(k32) * sin_b
@@ -165,7 +161,7 @@ def _paged_attention_step(
     ctx = paged_decode_attention_pool(
         q32[:, :, 0, :].contiguous(), k_pool, v_pool, block_tables, seq_lens, li, scale=1.0 / math.sqrt(d)
     )
-    return F.linear(ctx.reshape(b, 1, h).to(xn.dtype), layer["wo"])
+    return qmm(ctx.reshape(b, h).to(xn.dtype), layer["wo"], decode=True).reshape(b, 1, h)
 
 
 def _chunk_rope(cos: torch.Tensor, sin: torch.Tensor, pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +181,11 @@ def lm_decode_step_paged(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step over the paged pool; returns the final-normed hidden
-    [B, 1, H]. The routed MoE of a layer is kernel F when B * k > E (every
-    slot counts, active or not), the per-selection path otherwise."""
+    [B, 1, H]. The routed MoE of a layer is kernel F (J with int8 experts)
+    when B * k > E (every slot counts, active or not), the per-selection
+    path (I with int8 experts) otherwise; int8 linears run kernel H, and
+    the attention kernel G whatever the weights (the JAX package's
+    `_lm_decode_step_paged_q8` is this loop)."""
     cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
     cos_b, sin_b = _chunk_rope(cos, sin, pos)
     b, s, h = embeds.shape
@@ -197,15 +196,5 @@ def lm_decode_step_paged(
         x = res + _paged_attention_step(xn, layer, cfg, cache, li, block_tables, pos, cos_b, sin_b)
         res = x
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-        x_flat = xn.reshape(b * s, h)
-        if "mlp" in layer:
-            m = layer["mlp"]
-            out = swiglu(x_flat, m["gate"], m["up"], m["down"])
-        else:
-            weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
-            sh = layer["shared"]
-            out = moe_ffn_decode(x_flat, layer["experts"], weights, idx) + swiglu(
-                x_flat, sh["gate"], sh["up"], sh["down"]
-            )
-        x = res + out.reshape(b, s, h)
+        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=True).reshape(b, s, h)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)

@@ -17,10 +17,9 @@ import numpy as np
 import torch
 
 from ..configs import OCR2Config
-from deepseek_ocr2_tpu.utils.tokenizer import decode_output, tokenize_with_image
-
 from ..models import deepseek_ocr2 as ocr2
 from ..models.deepseek_v2 import rope_consts
+from ..utils.tokenizer import decode_output, tokenize_with_image
 from .generate import greedy_generate
 from .kv_cache import bucket_capacity
 
@@ -76,7 +75,7 @@ class OCR2Pipeline:
         (1, 1) without crops, "rot": degrees}."""
         from PIL import Image
 
-        from deepseek_ocr2_tpu.preprocess.image import (
+        from ..preprocess.image import (
             auto_rotate_choice,
             candidate_ratios,
             find_closest_aspect_ratio,

@@ -63,7 +63,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
-    from deepseek_ocr2_tpu.utils.tokenizer import tokenize_with_image
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
     from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
     from deepseek_ocr2_tpu_torch.runtime.kv_cache import bucket_capacity
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline

@@ -1,8 +1,9 @@
 """The port's OCR path end to end on the CPU, against the JAX package:
 no-crop greedy tokens (f32), bf16-LM logits, the CLI on a no-crop and a crop
 page, `serve` (group and continuous engines), and the guarantees that the
-port imports no jax (over a no-crop and a crop page and both serving
-engines) and never runs on the CPU when a GPU is asked for. Crop mode's
+port imports neither jax nor anything of the JAX package (over a no-crop
+and a crop page, both serving engines and, with int8 weights, a page and
+the continuous engine) and never runs on the CPU when a GPU is asked for. Crop mode's
 parity with the JAX package is in tests/test_torch_crop.py.
 """
 
@@ -179,7 +180,7 @@ def test_cli_serve_refuses_what_it_cannot_run(cli_assets):
     d = cli_assets
     base = ["serve", "--weights", str(d / "tiny.safetensors"), "--tokenizer", str(d / "tokenizer.json"),
             "--images", str(d / "page.png")]
-    with pytest.raises(SystemExit, match="quantized"):
+    with pytest.raises(SystemExit, match="next slice"):
         main([*base, "--backend", "cpu", "--continuous", "--kv-cache", "int8"])
     with pytest.raises(SystemExit, match="sampling"):
         main([*base, "--backend", "cpu", "--temperature", "0.7"])
@@ -192,9 +193,13 @@ def test_cli_refuses_flags_outside_the_slice(cli_assets):
     from deepseek_ocr2_tpu_torch.cli import main
 
     d = cli_assets
-    with pytest.raises(SystemExit, match="int8"):
+    with pytest.raises(SystemExit, match="--int4 .*next slice"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
-              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int8"])
+              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4"])
+    with pytest.raises(SystemExit, match="--kv-cache int8/int8tail .*next slice"):
+        main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int8",
+              "--kv-cache", "int8tail"])
 
 
 _NO_JAX_SCRIPT = """
@@ -227,7 +232,16 @@ pages = [{"base": canvas.numpy()}, {"base": canvas.numpy(), "patches": crops.num
 group = OCR2Engine(pipe, batch_size=6).run(pages, max_new_tokens=3, ngram_size=3)
 cont = ContinuousOCREngine(pipe, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
 assert [r.token_ids for r in group] == [r.token_ids for r in cont]
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+from deepseek_ocr2_tpu_torch import cli  # noqa: F401
+from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+q8 = OCR2Pipeline({**params, "lm": quantize_lm_params(params["lm"], scope="full")}, cfg,
+                  cs.StubTokenizer(cfg.lm.vocab_size), device="cpu")
+r = q8.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
+assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+cont = ContinuousOCREngine(q8, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
+assert all(r.new_tokens >= 1 for r in cont)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "deepseek_ocr2_tpu" or m.startswith("deepseek_ocr2_tpu."))
 print("JAX_MODULES", bad)
 sys.exit(1 if bad else 0)
 """

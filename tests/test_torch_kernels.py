@@ -1,8 +1,8 @@
-"""Kernels A-G of the PyTorch port: plain twins against the JAX Pallas
+"""Kernels A-K of the PyTorch port: plain twins against the JAX Pallas
 kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
 against their twins where a card is present. (D and E's CPU parity with the
 JAX package is in tests/test_torch_crop.py, F's in test_torch_moe_decode.py,
-G's in test_torch_paged.py.)
+G's in test_torch_paged.py, H-K's in test_torch_q8.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -26,7 +26,7 @@ import torch
 
 from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
-from deepseek_ocr2_tpu_torch.ops import moe_decode, moe_gmm, paged_attention
+from deepseek_ocr2_tpu_torch.ops import attn_fused, linear_q8, moe_decode, moe_gmm, moe_q8, paged_attention
 from deepseek_ocr2_tpu_torch.ops.moe import route
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -355,3 +355,191 @@ def test_cuda_paged_attention_small_pages(cuda):
     got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq_lens, 3, scale=0.1)
     ref = paged_attention.paged_decode_attention_reference(q, k_pool[3], v_pool[3], bt, seq_lens, scale=0.1)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernels H (linear), I (per-selection MoE), J (distinct-expert MoE)
+# and K (fused decode attention) against their twins, at the LM's shapes
+# (H = 1280, 10 heads of 128, E = 64, k = 6, I = 896, 2 pseudo-experts) and
+# ragged ones.
+
+
+def _qlin(dev, out_dim, in_dim, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return linear_q8.quantize_linear(torch.randn(out_dim, in_dim, generator=g, device=dev) * in_dim**-0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,in_dim,out_dim", [
+    (1, 1280, 129280),  # lm_head at one row
+    (16, 1280, 129280),  # lm_head at 16 slots
+    (3, 6848, 1280),  # the dense down projection: In not a multiple of 128
+    (32, 1280, 3584),  # the shared gate||up stream
+    (6, 1280, 3840),  # the tensor-core form's one 8-row tile
+    (40, 208, 1000),  # more than one row tile, ragged Out
+])
+def test_cuda_linear_q8_matches_twin(cuda, dtype, b, in_dim, out_dim):
+    w = _qlin(cuda, out_dim, in_dim, seed=7)
+    x = torch.randn(b, in_dim, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda).to(dtype)
+    for out_dtype in (None, torch.float32):
+        before = linear_q8.linear_q8.launches
+        got = linear_q8.linear_q8(x, w, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert linear_q8.linear_q8.launches == before + 1
+        ref = linear_q8.linear_q8_reference(x, w, out_dtype=out_dtype)
+        assert got.dtype == ref.dtype and got.shape == (b, out_dim)
+        assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), ref.dtype)
+
+
+def _q8_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, n_sh=2, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def experts(n):
+        return moe_q8.quantize_experts({
+            name: torch.randn(n, *shape, generator=g, device=dev) * shape[1] ** -0.5
+            for name, shape in (("gate", (i, h)), ("up", (i, h)), ("down", (h, i)))})
+
+    eq = experts(e)
+    if n_sh:
+        eq.update({f"pe_{n}": t for n, t in experts(n_sh).items()})
+    x = torch.randn(b, h, generator=g, device=dev).to(dtype)
+    weights, idx = route(x, torch.randn(e, h, generator=g, device=dev) * h**-0.5, k)
+    return x, eq, weights, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,with_shared", [(1, 6, True), (8, 6, False), (3, 1, False), (1, 1, True)])
+def test_cuda_moe_q8_matches_twin(cuda, dtype, b, k, with_shared):
+    x, eq, weights, idx = _q8_moe_case(cuda, dtype, b, k=k)
+    before = moe_q8.moe_ffn_decode_q8.launches
+    got = moe_q8.moe_ffn_decode_q8(x, eq, weights, idx, with_shared=with_shared)
+    torch.cuda.synchronize()
+    assert moe_q8.moe_ffn_decode_q8.launches == before + 1
+    ref = moe_q8.moe_ffn_decode_q8_reference(x, eq, weights, idx, with_shared=with_shared)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,n_sh", [(torch.bfloat16, 16, 2), (torch.bfloat16, 32, 2), (torch.float32, 16, 2),
+                                          (torch.bfloat16, 11, 0), (torch.float32, 40, 2), (torch.bfloat16, 5, 2)])
+def test_cuda_moe_q8_fused_matches_twin(cuda, dtype, b, n_sh):
+    x, eq, weights, idx = _q8_moe_case(cuda, dtype, b, n_sh=n_sh)
+    before = moe_decode.moe_ffn_decode_q8_fused.launches
+    got = moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)
+    torch.cuda.synchronize()
+    assert moe_decode.moe_ffn_decode_q8_fused.launches == before + 1
+    ref = moe_decode.moe_ffn_decode_q8_visits_reference(x, eq, weights, idx)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_q8_rows_do_not_depend_on_the_batch(cuda):
+    """As for F: a row's bits under J do not change with the other rows'
+    routing, nor from run to run; nor under I with the batch."""
+    x, eq, weights, idx = _q8_moe_case(cuda, torch.bfloat16, 16)
+    a = moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)
+    assert torch.equal(a, moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx))
+    idx2, w2 = idx.clone(), weights.clone()
+    idx2[1:] = (idx2[1:] + 7) % 64
+    w2[1:] = w2[1:].flip(1)
+    assert torch.equal(a[0], moe_decode.moe_ffn_decode_q8_fused(x, eq, w2, idx2)[0])
+    one = moe_q8.moe_ffn_decode_q8(x[:1], eq, weights[:1], idx[:1])
+    assert torch.equal(one[0], moe_q8.moe_ffn_decode_q8(x, eq, weights, idx)[0])
+
+
+def _attn_case(dev, dtype, kv_dtype, b, cap, hidden=1280, heads=10, seed=10):
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+
+    cfg = DeepseekV2Config(hidden_size=hidden, num_attention_heads=heads)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    attn = {"wqkv": linear_q8.quantize_linear(torch.randn(3 * hidden, hidden, generator=g, device=dev) * 0.03),
+            "wo": linear_q8.quantize_linear(torch.randn(hidden, hidden, generator=g, device=dev) * 0.03)}
+    shape = (2, b, heads, cap, 128)
+    k_all = (torch.randn(shape, generator=g, device=dev) * 0.5).to(kv_dtype)
+    v_all = torch.randn(shape, generator=g, device=dev).to(kv_dtype)
+    xn = torch.randn(b, 1, hidden, generator=g, device=dev).to(dtype)
+    return cfg, attn, k_all, v_all, xn, rope_consts(cfg, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                                            (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b,cap,pos", [
+    (1, 1024, [300]),  # one page
+    (16, 1024, "ragged"),  # the group engine's 16 pages, one at pos 0
+    (3, 1280, [0, 700, 1279]),  # a capacity the TPU kernel refuses (not a multiple of 512)
+    (2, 100, [99, 37]),  # a capacity under one 64-key tile's multiple
+])
+def test_cuda_attn_fused_matches_twin(cuda, dtype, kv_dtype, b, cap, pos):
+    cfg, attn, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, dtype, kv_dtype, b, cap)
+    if pos == "ragged":
+        pos = [0] + torch.linspace(1, cap - 1, b - 1).round().int().tolist()
+    pos_b = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = attn_fused.attn_decode_fused.launches
+    got, k_new, v_new = attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    torch.cuda.synchronize()
+    assert attn_fused.attn_decode_fused.launches == before + 1
+    ref, k_ref, v_ref = attn_fused.attn_decode_fused_reference(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    assert got.dtype == dtype and got.shape == xn.shape and k_new.dtype == kv_dtype
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+    for a, r in ((k_new, k_ref), (v_new, v_ref)):
+        assert float((a.float() - r.float()).abs().max()) <= _tol(r.float(), dtype if kv_dtype == dtype else
+                                                                   torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_kernels_make_no_host_sync(cuda):
+    w = _qlin(cuda, 1000, 1280, seed=11)
+    x, eq, weights, idx = _q8_moe_case(cuda, torch.bfloat16, 16)
+    cfg, attn, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, torch.bfloat16, torch.bfloat16, 4, 256)
+    pos_b = torch.tensor([0, 5, 100, 255], dtype=torch.int32, device=cuda)
+
+    def run():
+        linear_q8.linear_q8(x, w)
+        moe_q8.moe_ffn_decode_q8(x[:1], eq, weights[:1], idx[:1], with_shared=True)
+        moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)
+        attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 0, pos_b)
+
+    run()  # builds the libraries first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_cuda_quantization_matches_cpu(cuda):
+    """The card quantizes to the CPU's codes and scales, bit for bit (the
+    CPU's are the JAX package's: tests/test_torch_q8.py)."""
+    g = torch.Generator().manual_seed(12)
+    w = torch.randn(300, 1280, generator=g) * 0.03
+    w[7] = 0.0
+    want, got = linear_q8.quantize_linear(w), linear_q8.quantize_linear(w.to(cuda))
+    assert torch.equal(got["q8"].cpu(), want["q8"]) and torch.equal(got["scale"].cpu(), want["scale"])
+    ex = {n: torch.randn(4, *s, generator=g) * 0.05 for n, s in (("gate", (64, 128)), ("up", (64, 128)),
+                                                                 ("down", (128, 64)))}
+    want = moe_q8.quantize_experts(ex)
+    got = moe_q8.quantize_experts({n: t.to(cuda) for n, t in ex.items()})
+    assert all(torch.equal(got[n].cpu(), want[n]) for n in want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(16, 6), (1, 6), (40, 2)])
+def test_cuda_device_schedule_matches_the_torch_schedule(cuda, b, k):
+    """F and J's one-launch schedule equals distinct_schedule + combine_table, read
+    from the router's strided [:, :k] outputs."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(b, 256, generator=g, device=cuda)
+    weights, idx = route(x, torch.randn(64, 256, generator=g, device=cuda), k)
+    assert not idx.is_contiguous() or b == 1
+    ve, valid, w_visit = moe_decode.device_schedule(idx, weights, 64, b)
+    want_ve, want_valid = moe_decode.distinct_schedule(idx, 64)
+    assert torch.equal(ve, want_ve) and torch.equal(valid, want_valid)
+    assert torch.equal(w_visit, moe_decode.combine_table(idx, weights, want_ve, want_valid, 64))

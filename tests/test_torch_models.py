@@ -155,3 +155,35 @@ def test_bucket_capacity_matches_jax():
 
     for n in (1, 300, 1024, 1025, 2049):
         assert bucket_capacity(n) == jax_bucket(n)
+
+
+@pytest.mark.parametrize("name", ["DeepseekV2Config", "Qwen2Config", "SamConfig", "OCR2Config", "tiny_lm_config",
+                                  "tiny_qwen2_config", "tiny_sam_config", "tiny_ocr2_config"])
+def test_copied_configs_equal_the_jax_packages(name):
+    """The port keeps its own copy of the config module: every default and
+    tiny config equals the JAX package's field by field."""
+    import dataclasses
+
+    from deepseek_ocr2_tpu import configs as jcfg
+    from deepseek_ocr2_tpu_torch import configs as tcfg
+
+    got, want = getattr(tcfg, name)(), getattr(jcfg, name)()
+    assert type(got).__module__ == "deepseek_ocr2_tpu_torch.configs"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert sorted(f.name for f in dataclasses.fields(got)) == sorted(f.name for f in dataclasses.fields(want))
+
+
+def test_copied_config_from_json_equals_the_jax_packages(tmp_path):
+    import dataclasses
+    import json
+
+    from deepseek_ocr2_tpu import configs as jcfg
+    from deepseek_ocr2_tpu_torch import configs as tcfg
+
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"lm": {"num_hidden_layers": 3, "vocab_size": 1000},
+                                "sam": {"depth": 4, "global_attn_indexes": [1, 3]},
+                                "qwen2": {"num_hidden_layers": 2}, "base_image_size": 512}))
+    got, want = tcfg.config_from_json(str(path)), jcfg.config_from_json(str(path))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.image_token_count((2, 3)) == want.image_token_count((2, 3))
