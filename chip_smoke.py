@@ -9,14 +9,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the main path's shapes (no-crop and crop pages, the 16-slot decode
-   batch, the int8 decode step), with the max abs error beside its
+   batch, the int8 and int4 decode steps), with the max abs error beside its
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`); the grouped-GEMM MoE (D, E)
-   also whole against its grouped twin; D+E, F, H, I, J and K once each
+   also whole against its grouped twin; D+E, F and H-O once each
    under `torch.cuda.set_sync_debug_mode("error")` (no host sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
-   cut-over, and its int8 layer as I and as J;
+   cut-over, its int8 layer as I and as J, its int4 layer as M and as N;
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
@@ -28,12 +28,15 @@ Phases (each raises on failure, so the exit code is non-zero):
 4b. int8 weights: phase 3's LM quantized on the card, scope "full"
    (`--int8`) then "experts" (`--moe-int8`); a no-crop and the (2, 1) crop
    page through `generate_ocr` for each, every kernel's launches held to
-   the count derived from the code (PERF.md);
+   the count derived from the code (`quant_launches_per_step`, PERF.md);
+4c. the same with int4 weights (`--int4`: L, M, N, O in place of H, I, J,
+   K);
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
    weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
    D and E on the card, the grouped twin on the CPU); step-0 logits within
    tolerance, greedy tokens compared; then the same with `--int8` (5b: the
-   card's and the CPU's int8 codes equal, K, I and H on the card);
+   card's and the CPU's int8 codes equal, K, I and H on the card) and with
+   `--int4` (5c: levels and scales equal, O, M and L on the card);
 6. serving at full width, on phase 3's model: `OCR2Engine(batch_size=16)`
    on 16 no-crop and 2 crop pages; `ContinuousOCREngine(slots=16)` on 24
    pages with a pool that makes slots grow (and preempt); one
@@ -43,13 +46,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    every decode step of the continuous engine; 6b: with `--int8`, both
    engines at 16 on 16 pages, held to K 12, J 11, H 3 a step (group) and
    J 11, G 12, H 27 a step (continuous), beside the same pages on the
-   bf16 LM; then device time and device launches per decode token for bf16
-   and both int8 scopes (torch.profiler, after every timed phase);
+   bf16 LM; 6c: the same with `--int4` (O, N, L in place of K, J, H); then
+   device time and device launches per decode token for bf16, both int8
+   scopes and `--int4` (torch.profiler, after every timed phase);
 7. serving is token-exact: on phase 5's card model, both engines (16
    slots) against each page's single-page `generate_ocr`, in bf16-free f32
-   weights and again with `--int8` (7b); a difference is accepted only
-   where the single run's top-2 margin at the first differing step is
-   below LOGITS_RTOL of its largest logit.
+   weights and again with `--int8` (7b) and `--int4` (7c); a difference
+   is accepted only where the single run's top-2 margin at the first
+   differing step is below LOGITS_RTOL of its largest logit.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -75,8 +79,8 @@ import torch.nn.functional as F
 SEED = 0
 PAGES = [(700, 500), (768, 768), (420, 640)]  # (w, h): both sides <= 768 -> no crop
 CROP_PAGES = [(1400, 800, (2, 1)), (1700, 2200, (2, 3))]  # (w, h, the crop grid it takes)
-KERNEL_SOURCES = ("flash_attention", "fused_mlp", "moe_gmm", "moe_decode", "paged_attention", "linear_q8", "moe_q8",
-                  "attn_fused")
+KERNEL_SOURCES = ("moe_q4", "linear_q4", "attn_fused", "moe_q8", "flash_attention", "fused_mlp", "moe_gmm",
+                  "moe_decode", "paged_attention", "linear_q8")  # the slowest builds first
 SERVE_PAGES = [(700, 500), (768, 768), (420, 640), (600, 760), (512, 512), (760, 430)]  # no crop
 
 # Tolerances on max |kernel - twin| (both on the card, same inputs):
@@ -167,6 +171,30 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """The card's time per call of fn, without the host's: fn captured once
+    into a CUDA graph and replayed reps times between two events (a replay
+    is enqueued in a few microseconds, so the card, not the wrapper's Python,
+    sets the time). `median_ms` of a decode kernel's wrapper is mostly the
+    wrapper's host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +425,7 @@ def q8_results(dev, randn, record) -> None:
                tolerance(ref, ref.dtype), median_ms(lambda: linear_q8.linear_q8(x, w, out_dtype=od)),
                median_ms(lambda: linear_q8.linear_q8_reference(x, w, out_dtype=od)),
                bound_ms(nbytes(x, w["q8"], w["scale"], ref), 2 * b * in_dim * out_dim, bf),
-               int8pack(x, w))
+               int8pack(x, w), graph=lambda: linear_q8.linear_q8(x, w, out_dtype=od))
     del head
     no_host_sync(dev, "H", lambda: linear_q8.linear_q8(x, w, out_dtype=od))
 
@@ -422,7 +450,8 @@ def q8_results(dev, randn, record) -> None:
         record("I", f"B {b} k {k}{' + 2 pseudo-experts' if with_shared else ''}: {n_read} experts read, bf16", ref,
                got, tolerance(ref, bf), median_ms(lambda: moe_q8.moe_ffn_decode_q8(*args, with_shared=with_shared)),
                median_ms(lambda: moe_q8.moe_ffn_decode_q8_reference(*args, with_shared=with_shared)),
-               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * n_visit * 3 * h * i, bf))
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * n_visit * 3 * h * i, bf),
+               graph=lambda: moe_q8.moe_ffn_decode_q8(*args, with_shared=with_shared))
     no_host_sync(dev, "I (B 8)", lambda: moe_q8.moe_ffn_decode_q8(*args))
     for b in (16, 32):
         x = randn(b, h, dtype=bf)
@@ -434,7 +463,8 @@ def q8_results(dev, randn, record) -> None:
         record("J", f"B {b} k {k} + 2 pseudo-experts: {n_read} experts read, bf16", ref, got, tolerance(ref, bf),
                median_ms(lambda: moe_decode.moe_ffn_decode_q8_fused(*args)),
                median_ms(lambda: moe_decode.moe_ffn_decode_q8_visits_reference(*args)),
-               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * b * (k + n_sh) * 3 * h * i, bf))
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * b * (k + n_sh) * 3 * h * i, bf),
+               graph=lambda: moe_decode.moe_ffn_decode_q8_fused(*args))
     no_host_sync(dev, "J (B 32)", lambda: moe_decode.moe_ffn_decode_q8_fused(*args))
     for b in (8, 11, 16):
         x = randn(b, h, dtype=bf)
@@ -466,10 +496,141 @@ def q8_results(dev, randn, record) -> None:
                 record("K", f"B {b} cap {cap} pos {pos[0] if b == 1 else '0..1023'}, bf16, "
                             f"{str(kv_dt)[6:]} cache", r, g, tolerance(r, bf),
                        median_ms(lambda: attn_fused.attn_decode_fused(*args)),
-                       median_ms(lambda: attn_fused.attn_decode_fused_reference(*args)), bound_ms(n_bytes, flops, bf))
+                       median_ms(lambda: attn_fused.attn_decode_fused_reference(*args)), bound_ms(n_bytes, flops, bf),
+                       graph=lambda: attn_fused.attn_decode_fused(*args))
             elif not float((g.float() - r.float()).abs().max()) <= tolerance(r.float(), bf):
                 raise AssertionError(f"K: new {'kv'[j - 1]} rows differ from the twin's")
     no_host_sync(dev, "K (B 16)", lambda: attn_fused.attn_decode_fused(*args))
+    del k_all, v_all, attn
+    torch.cuda.empty_cache()
+
+
+def q4_results(dev, randn, record) -> None:
+    """Kernels L, M, N and O at the int4 decode shapes of the full-width LM
+    (`--int4`; the same shapes as q8_results), bf16 activations. L: lm_head
+    at B = 1 and 16 (f32 logits), the dense down 6848 -> 1280 (its last
+    group half padding); library call `torch._weight_int4pack_mm` (group
+    128, unsigned levels + 8, zero point 0) where this build runs it. M: one
+    row with the pseudo-experts, 8 rows without. N: 16 and 32 rows with
+    them. O: one row at capacity 1024 and pos 300, f32 and bf16 caches; 16
+    rows at ragged positions from 0. Then one int4 MoE decode layer timed as
+    M and as N at B = 8, 11 and 16 (the B * k <= E cut-over), and each
+    kernel once in sync-debug mode."""
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.ops import attn_fused, linear_q4, moe_q4
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def qlin(out_dim, in_dim):
+        return linear_q4.quantize_linear_q4(randn(out_dim, in_dim, std=in_dim**-0.5))
+
+    def int4pack(x, w, ref):
+        """`torch._weight_int4pack_mm` on the same levels and scales (bf16)
+        where this build runs it on these shapes, else None: the library
+        yardstick of L."""
+        out_dim, in_dim = w["q4"].shape[0], x.shape[1]
+        u = (linear_q4.unpack_q4(w["q4"])[:, :in_dim].to(torch.int32) + 8)
+        sz = torch.stack([w["scale"].T, torch.zeros_like(w["scale"].T)], dim=-1).to(x.dtype).contiguous()
+        try:  # uint8 [N, K / 2], the even element in the high nibble (PyTorch >= 2.5)
+            packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+            got = torch._weight_int4pack_mm(x, packed, 128, sz)
+            torch.cuda.synchronize(dev)
+        except (AttributeError, RuntimeError, NotImplementedError) as e:
+            print(f"[kernel] torch._weight_int4pack_mm unavailable here: {str(e).splitlines()[0][:160]}")
+            return None
+        print(f"[kernel] torch._weight_int4pack_mm [{out_dim}, {in_dim}] B {x.shape[0]}: max_abs_err "
+              f"{float((got.float() - ref.float()).abs().max()):.3e} against L's twin")
+        return lambda: torch._weight_int4pack_mm(x, packed, 128, sz)
+
+    head = qlin(129280, 1280)
+    for name, b, w, in_dim, od in (("lm_head", 1, head, 1280, f32), ("lm_head", 16, head, 1280, f32),
+                                   ("dense down", 1, qlin(1280, 6848), 6848, None)):
+        out_dim = w["q4"].shape[0]
+        x = randn(b, in_dim, dtype=bf)
+        ref = linear_q4.linear_q4_reference(x, w, out_dtype=od)
+        got = linear_q4.linear_q4(x, w, out_dtype=od)
+        record("L", f"{name} B {b} [{out_dim}, {in_dim}] bf16 -> {str(ref.dtype)[6:]}", ref, got,
+               tolerance(ref, ref.dtype), median_ms(lambda: linear_q4.linear_q4(x, w, out_dtype=od)),
+               median_ms(lambda: linear_q4.linear_q4_reference(x, w, out_dtype=od)),
+               bound_ms(nbytes(x, w["q4"], w["scale"], ref), 2 * b * in_dim * out_dim, bf),
+               int4pack(x, w, ref), graph=lambda: linear_q4.linear_q4(x, w, out_dtype=od))
+    del head
+    no_host_sync(dev, "L", lambda: linear_q4.linear_q4(x, w, out_dtype=od))
+
+    e, k, h, i, n_sh = 64, 6, 1280, 896, 2
+
+    def experts(n):
+        return moe_q4.quantize_experts_q4({"gate": randn(n, i, h, std=h**-0.5), "up": randn(n, i, h, std=h**-0.5),
+                                           "down": randn(n, h, i, std=i**-0.5)})
+
+    eq = experts(e)
+    eq_pe = {**eq, **{f"pe_{n}": t for n, t in experts(n_sh).items()}}
+    router = randn(e, h, std=h**-0.5)
+    e_bytes = nbytes(*(eq[n][0] for n in ("gu_q4", "gu_scale", "down_q4", "down_scale")))
+    for b, with_shared in ((1, True), (8, False)):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        n_visit = b * k + (b * n_sh if with_shared else 0)
+        n_read = int(torch.unique(idx).numel()) + (n_sh if with_shared else 0)
+        args = (x, eq_pe, wts, idx)
+        ref = moe_q4.moe_ffn_decode_q4_reference(*args, with_shared=with_shared)
+        got = moe_q4.moe_ffn_decode_q4(*args, with_shared=with_shared)
+        record("M", f"B {b} k {k}{' + 2 pseudo-experts' if with_shared else ''}: {n_read} experts read, bf16", ref,
+               got, tolerance(ref, bf), median_ms(lambda: moe_q4.moe_ffn_decode_q4(*args, with_shared=with_shared)),
+               median_ms(lambda: moe_q4.moe_ffn_decode_q4_reference(*args, with_shared=with_shared)),
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * n_visit * 3 * h * i, bf),
+               graph=lambda: moe_q4.moe_ffn_decode_q4(*args, with_shared=with_shared))
+    no_host_sync(dev, "M (B 8)", lambda: moe_q4.moe_ffn_decode_q4(*args))
+    for b in (16, 32):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        n_read = int(torch.unique(idx).numel()) + n_sh
+        args = (x, eq_pe, wts, idx)
+        ref = moe_q4.moe_ffn_decode_q4_visits_reference(*args)
+        got = moe_q4.moe_ffn_decode_q4_fused(*args)
+        record("N", f"B {b} k {k} + 2 pseudo-experts: {n_read} experts read, bf16", ref, got, tolerance(ref, bf),
+               median_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)),
+               median_ms(lambda: moe_q4.moe_ffn_decode_q4_visits_reference(*args)),
+               bound_ms(nbytes(x, ref, wts, idx) + n_read * e_bytes, 2 * b * (k + n_sh) * 3 * h * i, bf),
+               graph=lambda: moe_q4.moe_ffn_decode_q4_fused(*args))
+    no_host_sync(dev, "N (B 32)", lambda: moe_q4.moe_ffn_decode_q4_fused(*args))
+    for b in (8, 11, 16):
+        x = randn(b, h, dtype=bf)
+        args = (x, eq, *route(x, router, k))
+        print(f"[cut-over] one int4 MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): "
+              f"M {median_ms(lambda: moe_q4.moe_ffn_decode_q4(*args)):.3f} ms, "
+              f"N {median_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)):.3f} ms")
+    del eq, eq_pe
+
+    cfg = DeepseekV2Config()
+    hh, d = cfg.num_attention_heads, cfg.head_dim
+    cos, sin = rope_consts(cfg, dev)
+    attn = {"wqkv": qlin(3 * h, h), "wo": qlin(h, h)}
+    for b, cap, kv_dt in ((1, 1024, f32), (1, 1024, bf), (16, 1024, f32), (16, 1024, bf)):
+        k_all = randn(2, b, hh, cap, d, std=0.5, dtype=kv_dt)
+        v_all = randn(2, b, hh, cap, d, dtype=kv_dt)
+        xn = randn(b, 1, h, dtype=bf)
+        pos = [300] if b == 1 else [0] + torch.linspace(1, cap - 1, b - 1).round().int().tolist()
+        pos_b = torch.tensor(pos, dtype=torch.int32, device=dev)
+        args = (xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+        ref = attn_fused.attn_decode_fused_reference(*args)
+        got = attn_fused.attn_decode_fused(*args)
+        n_keys = sum(pos)
+        n_bytes = (nbytes(xn, *attn["wqkv"].values(), *attn["wo"].values(), ref[0], ref[1], ref[2])
+                   + 2 * n_keys * hh * d * k_all.element_size() + 2 * b * d * 4)
+        flops = 2 * b * h * 4 * h + 4 * (n_keys + b) * hh * d
+        for j, (r, g) in enumerate(zip(ref, got)):
+            if j == 0:
+                record("O", f"B {b} cap {cap} pos {pos[0] if b == 1 else '0..1023'}, bf16, "
+                            f"{str(kv_dt)[6:]} cache", r, g, tolerance(r, bf),
+                       median_ms(lambda: attn_fused.attn_decode_fused(*args)),
+                       median_ms(lambda: attn_fused.attn_decode_fused_reference(*args)), bound_ms(n_bytes, flops, bf),
+                       graph=lambda: attn_fused.attn_decode_fused(*args))
+            elif not float((g.float() - r.float()).abs().max()) <= tolerance(r.float(), bf):
+                raise AssertionError(f"O: new {'kv'[j - 1]} rows differ from the twin's")
+    no_host_sync(dev, "O (B 16)", lambda: attn_fused.attn_decode_fused(*args))
     del k_all, v_all, attn
     torch.cuda.empty_cache()
 
@@ -485,20 +646,24 @@ def phase_kernels(dev) -> dict:
 
     results = {}
 
-    def record(kernel, case, ref, got, tol, ms, plain_ms, bound=None, library=None):
+    def record(kernel, case, ref, got, tol, ms, plain_ms, bound=None, library=None, graph=None):
         """`bound`: bound_ms of the case's work; `library`: a callable of one
-        PyTorch call computing the same function, timed here, or None."""
+        PyTorch call computing the same function, timed here, or None;
+        `graph`: a callable of the kernel's wrapper, timed by `graph_ms`, or
+        None."""
         err = float((got.float() - ref.float()).abs().max())
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
         lib_ms = median_ms(library) if library is not None else None
+        dev_ms = graph_ms(graph) if graph is not None else None
         bound, by = bound if bound is not None else (None, None)
         print(f"[kernel] {kernel} {case}: max_abs_err {err:.3e} (tol {tol:.1e}) "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {'-' if bound is None else f'{bound:.4f}'} ms "
+              f"kernel {ms:.3f} ms{'' if dev_ms is None else f' (in a CUDA graph {dev_ms:.4f})'}, "
+              f"plain {plain_ms:.3f} ms, bound {'-' if bound is None else f'{bound:.4f}'} ms "
               f"({by}), library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {case}: error {err} above {tol}")
         results.setdefault(kernel, []).append(dict(case=case, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                                                   bound_ms=bound, bound_by=by, library_ms=lib_ms))
+                                                   bound_ms=bound, bound_by=by, library_ms=lib_ms, graph_ms=dev_ms))
 
     # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
     # the CLI's LM dtype, first: it is the main-path case of the record).
@@ -507,6 +672,8 @@ def phase_kernels(dev) -> dict:
     decode_results(dev, randn, record)
     # H, I, J, K: the int8 decode step (--int8 and --moe-int8).
     q8_results(dev, randn, record)
+    # L, M, N, O: the int4 decode step (--int4).
+    q4_results(dev, randn, record)
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
@@ -728,33 +895,47 @@ def counters():
     from deepseek_ocr2_tpu_torch.ops.linear_q8 import linear_q8
     from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_q8_fused
     from deepseek_ocr2_tpu_torch.ops.moe_q8 import moe_ffn_decode_q8
+    from deepseek_ocr2_tpu_torch.ops.attn_fused import attn_decode_fused_q4
+    from deepseek_ocr2_tpu_torch.ops.linear_q4 import linear_q4
+    from deepseek_ocr2_tpu_torch.ops.moe_q4 import moe_ffn_decode_q4, moe_ffn_decode_q4_fused
 
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
             "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
-            "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused}
+            "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused, "L": linear_q4, "M": moe_ffn_decode_q4,
+            "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4}
 
 
-def int8_launches_per_step(lm, scope: str, rows: int, paged: bool) -> dict:
-    """The int8 kernels' launches in one decode step, derived from the code
-    (models/deepseek_v2.py `lm_forward` / `ffn`, runtime/paged_kv.py):
-    - K once a layer with int8 attention weights, on the contiguous cache
-      (scope "full", not paged); paged decode runs G and H for qkv and wo;
-    - the routed experts: I while rows * k <= E, J above, once a MoE layer;
-    - H for the dense MLP's two int8 linears and for an int8 lm_head, and in
-      scope "full" for the shared MLP's two unless the pseudo-experts are
-      folded in (always with J, at one row with I)."""
+# The quantized tiers of the CLI: (flag, scope, bits).
+INT8, MOE_INT8, INT4 = ("--int8", "full", 8), ("--moe-int8", "experts", 8), ("--int4", "full", 4)
+
+
+def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool) -> dict:
+    """The quantized kernels' launches in one decode step, derived from the
+    code (models/deepseek_v2.py `lm_forward` / `ffn`, runtime/paged_kv.py);
+    int8 names first, int4 ones after the slash:
+    - K / O once a layer with quantized attention weights, on the contiguous
+      cache (scope "full", not paged); paged decode runs G and H / L for qkv
+      and wo;
+    - the routed experts: I / M while rows * k <= E, J / N above, once a MoE
+      layer;
+    - H / L for the dense MLP's two linears and for lm_head, and in scope
+      "full" for the shared MLP's two unless the pseudo-experts are folded
+      in (always with J / N, at one row with I / M).
+    The other tier's four kernels and F launch none."""
     full = scope == "full"
     n_moe, n_dense = lm.num_moe_layers, lm.first_k_dense_replace
     j = rows * lm.num_experts_per_tok > lm.n_routed_experts
     shared_h = 0 if (j or rows == 1) else 2 * n_moe
-    return {
-        "K": lm.num_hidden_layers if full and not paged else 0,
+    att, sel, distinct, lin = "KIJH" if bits == 8 else "OMNL"
+    want = dict.fromkeys("FHIJKLMNO", 0)
+    want.update({
+        att: lm.num_hidden_layers if full and not paged else 0,
         "G": lm.num_hidden_layers if paged else 0,
-        "I": 0 if j else n_moe,
-        "J": n_moe if j else 0,
-        "H": (2 * n_dense + 1 + shared_h + (2 * lm.num_hidden_layers if paged else 0)) if full else 0,
-        "F": 0,
-    }
+        sel: 0 if j else n_moe,
+        distinct: n_moe if j else 0,
+        lin: (2 * n_dense + 1 + shared_h + (2 * lm.num_hidden_layers if paged else 0)) if full else 0,
+    })
+    return want
 
 
 def phase_main_path(dev):
@@ -849,13 +1030,14 @@ def decode_per_token(pipe, page, n: int = 16) -> dict:
     return {"wall_ms": (wn - w1) * 1e3 / n, "device_ms": (dn - d1) / n, "launches": (cn - c1) / n}
 
 
-def phase_int8_main_path(dev, pipe) -> dict:
-    """Phase 4b: phase 3's LM quantized on the card, scope "full" (--int8),
-    then "experts" (--moe-int8). For each, a no-crop page and the (2, 1)
-    crop page through generate_ocr, each kernel's launches held to
-    `int8_launches_per_step` times the decode steps (plus H once after
-    prefill for an int8 lm_head, and D and E once a MoE layer in the crop
-    page's prefill, on the dequantized experts). Returns the launches."""
+def phase_quant_main_path(dev, pipe, tiers, tag: str) -> dict:
+    """Phases 4b (`tiers` --int8, --moe-int8) and 4c (--int4): phase 3's LM
+    quantized on the card for each tier, a no-crop page and the (2, 1) crop
+    page through generate_ocr, each kernel's launches held to
+    `quant_launches_per_step` times the decode steps (plus H or L once after
+    prefill for a quantized lm_head, and D and E once a MoE layer in the
+    crop page's prefill, on the dequantized experts). Returns the
+    launches."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
 
     cfg, lm = pipe.cfg, pipe.cfg.lm
@@ -867,14 +1049,14 @@ def phase_int8_main_path(dev, pipe) -> dict:
     launches = dict.fromkeys(kernels, 0)
     for fn in kernels.values():
         fn.launches = 0
-    for scope, flag in (("full", "--int8"), ("experts", "--moe-int8")):
+    for flag, scope, bits in tiers:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope)}
+        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope, bits=bits)}
         torch.cuda.synchronize(dev)
-        print(f"[int8] {flag}: LM quantized on the card in {time.perf_counter() - t0:.1f} s, "
+        print(f"[{tag}] {flag}: LM quantized on the card in {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card")
-        per_step = int8_launches_per_step(lm, scope, rows=1, paged=False)
+        per_step = quant_launches_per_step(lm, scope, bits, rows=1, paged=False)
         for name, grid, page in pages:
             before = {k: fn.launches for k, fn in kernels.items()}
             r = pipe.generate_ocr(page, max_new_tokens=32, ngram_size=20)
@@ -882,35 +1064,38 @@ def phase_int8_main_path(dev, pipe) -> dict:
             launches = {k: launches[k] + delta[k] for k in launches}
             steps = r.new_tokens - 1
             want = {k: n * steps for k, n in per_step.items()}
-            want["H"] += 1 if scope == "full" else 0  # the int8 lm_head after prefill
+            want["H" if bits == 8 else "L"] += 1 if scope == "full" else 0  # the quantized lm_head after prefill
             moe_prefill = lm.num_moe_layers if grid != (1, 1) else 0
             want.update(D=moe_prefill, E=moe_prefill)
             finite = bool(torch.isfinite(r.logits0).all())
-            print(f"[int8] {flag} page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
+            print(f"[{tag}] {flag} page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
                   f"vision {r.vision_seconds * 1e3:.1f} ms, prefill {r.prefill_seconds * 1e3:.1f} ms, "
                   f"decode {r.decode_seconds * 1e3:.1f} ms for {r.new_tokens} tokens "
                   f"({r.decode_tokens_per_sec:.1f} tok/s), launches {delta}, logits finite {finite}")
-            print(f"[int8]   tokens {r.token_ids[r.prompt_len:]}")
+            print(f"[{tag}]   tokens {r.token_ids[r.prompt_len:]}")
             bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
             if not finite or r.crop_ratio != grid or bad or min(delta[k] for k in "ABC") == 0:
                 raise AssertionError(f"{flag} page {name}: launches (got, derived) {bad}, finite {finite}")
-    pipe.params = {**pipe.params, "lm": bf16_lm}
-    torch.cuda.empty_cache()
-    print(f"[int8] launches over phase 4b {launches}")
+        pipe.params = {**pipe.params, "lm": bf16_lm}  # one quantized copy on the card at a time
+        torch.cuda.empty_cache()
+    print(f"[{tag}] launches over the phase {launches}")
     return launches
 
 
 def phase_decode_profile(pipe) -> None:
     """Device time and launches per decode token on a no-crop page at batch
-    1, for the LM in bf16, --int8 and --moe-int8, in this one call. It runs
-    after the timed serving phases: the profiler's tracing can slow the
-    launches of what runs after it."""
+    1, for the LM in bf16, --int8, --moe-int8 and --int4, in this one call.
+    It runs after the timed serving phases: the profiler's tracing can slow
+    the launches of what runs after it."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
 
     bf16_lm = pipe.params["lm"]
     page = synthetic_page(*PAGES[0], pipe.cfg, seed=0)[0]
-    for tier, scope in (("bf16", None), ("--int8", "full"), ("--moe-int8", "experts")):
-        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope) if scope else bf16_lm}
+    for tier, scope, bits in (("bf16", None, 8), INT8, MOE_INT8, INT4):
+        pipe.params = {**pipe.params, "lm": bf16_lm}  # the last tier's copy freed before the next is made
+        torch.cuda.empty_cache()
+        pipe.params = {**pipe.params,
+                       "lm": quantize_lm_params(bf16_lm, scope=scope, bits=bits) if scope else bf16_lm}
         t = decode_per_token(pipe, page)
         print(f"[profile] decode per token, no-crop page, batch 1, LM {tier}: device {t['device_ms']:.3f} ms, "
               f"{t['launches']:.1f} device launches, wall {t['wall_ms']:.2f} ms (torch.profiler)")
@@ -923,10 +1108,11 @@ def phase_decode_profile(pipe) -> None:
 
 
 def phase_card_vs_cpu(dev):
-    """Phase 5 and 5b: the card against the CPU at full widths and reduced
-    depth in f32, with the LM's weights as loaded, then quantized with
-    --int8 (on each device; the codes must agree bit for bit). Returns the
-    card's pipelines {"f32": ..., "int8": ...} for phase 7."""
+    """Phases 5, 5b and 5c: the card against the CPU at full widths and
+    reduced depth in f32, with the LM's weights as loaded, then quantized
+    with --int8 and with --int4 (on each device; the codes or levels and the
+    scales must agree bit for bit). Returns the card's pipelines {"f32",
+    "int8", "int4"} for phase 7."""
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
@@ -946,14 +1132,17 @@ def phase_card_vs_cpu(dev):
     pages = {"no-crop": synthetic_page(*PAGES[0], cfg, seed=99)[0],
              f"{grid} crop": synthetic_page(w, h, cfg, seed=98, grid=grid)[0]}
     kernels = counters()
+    tiers = {"f32": None, "int8": 8, "int4": 4}
     results, pipes, codes = {}, {}, {}
     for device in ("cpu", dev):
-        params = load_model(cfg, flat, device, lm_dtype="float32", vision_dtype="float32")
-        for tier in ("f32", "int8"):
-            if tier == "int8":
-                params = {**params, "lm": quantize_lm_params(params["lm"], scope="full")}
-                codes[str(device)] = [params["lm"]["lm_head"]["q8"].cpu(), params["lm"]["layers"][1]["wqkv"]["q8"].cpu(),
-                                      params["lm"]["layers"][1]["experts_q8"]["pe_down_scale"].cpu()]
+        loaded = load_model(cfg, flat, device, lm_dtype="float32", vision_dtype="float32")
+        for tier, bits in tiers.items():
+            params = loaded
+            if bits:
+                params = {**loaded, "lm": quantize_lm_params(loaded["lm"], scope="full", bits=bits)}
+                lm_q, key = params["lm"], f"q{bits}"
+                codes[tier, str(device)] = [lm_q["lm_head"][key].cpu(), lm_q["layers"][1]["wqkv"][key].cpu(),
+                                            lm_q["layers"][1]["experts_q8"]["pe_down_scale"].cpu()]
             pipe = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="float32",
                                 act_dtype="float32")
             for name, page in pages.items():
@@ -966,17 +1155,20 @@ def phase_card_vs_cpu(dev):
                       f"{time.perf_counter() - t0:.1f} s, launches {delta}")
                 if device != "cpu" and name != "no-crop" and (delta["D"] == 0 or delta["E"] == 0):
                     raise AssertionError(f"{tier} {name} page: the card's MoE did not run D and E")
-                if device != "cpu" and tier == "int8" and min(delta[k] for k in "HIK") == 0:
-                    raise AssertionError(f"int8 {name} page: the card did not run H, I and K: {delta}")
+                need = {"f32": "", "int8": "HIK", "int4": "LMO"}[tier]
+                if device != "cpu" and need and min(delta[k] for k in need) == 0:
+                    raise AssertionError(f"{tier} {name} page: the card did not run {', '.join(need)}: {delta}")
             if device != "cpu":
                 pipes[tier] = pipe
-        del params
+            del params, pipe
+        del loaded
     names = ("lm_head codes", "layer 1 wqkv codes", "layer 1 pseudo-expert down scales")
-    diff = {n: int((a != b).sum()) for n, a, b in zip(names, codes["cpu"], codes[str(dev)])}
-    if any(diff.values()):
-        raise AssertionError(f"the card's int8 codes or scales differ from the CPU's: elements differing {diff}")
-    print("[cpu-vs-card] int8 codes and scales: card and CPU bit-identical")
-    for tier in ("f32", "int8"):
+    for tier in ("int8", "int4"):
+        diff = {n: int((a != b).sum()) for n, a, b in zip(names, codes[tier, "cpu"], codes[tier, str(dev)])}
+        if any(diff.values()):
+            raise AssertionError(f"the card's {tier} codes or scales differ from the CPU's: elements differing {diff}")
+        print(f"[cpu-vs-card] {tier} codes and scales: card and CPU bit-identical")
+    for tier in tiers:
         for name in pages:
             cpu, card = results[tier, name, "cpu"], results[tier, name, str(dev)]
             err = float((cpu.logits0 - card.logits0).abs().max())
@@ -1145,14 +1337,15 @@ def phase_serving(dev, pipe) -> dict:
     return launches
 
 
-def phase_serving_int8(dev, pipe) -> dict:
-    """Phase 6b: --int8 serving at full width on phase 3's LM quantized on
-    the card (scope "full"): the group engine with one 16-page chunk and
-    the continuous engine with 16 slots, on the same 16 no-crop pages at 64
-    new tokens. Each run's decode launches are held to
-    `int8_launches_per_step` (group: K 12, J 11, H 3 a step, and H once
-    after the chunk's prefill; continuous: J 11, G 12, H 27 a step, and H
-    once an admission group)."""
+def phase_serving_quant(dev, pipe) -> dict:
+    """Phases 6b (--int8) and 6c (--int4): serving at full width on phase
+    3's LM quantized on the card (scope "full"), one tier at a time: the
+    group engine with one 16-page chunk and the continuous engine with 16
+    slots, on the same 16 no-crop pages at 64 new tokens, beside the same
+    runs on the bf16 LM. Each run's decode launches are held to
+    `quant_launches_per_step` (group: K / O 12, J / N 11, H / L 3 a step,
+    and H / L once after the chunk's prefill; continuous: J / N 11, G 12,
+    H / L 27 a step, and H / L once an admission group)."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
     from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
     from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
@@ -1168,50 +1361,52 @@ def phase_serving_int8(dev, pipe) -> dict:
         t0 = time.perf_counter()
         res = make().run(pages, max_new_tokens=64, ngram_size=20)
         dt = time.perf_counter() - t0
-        print(f"[serve-int8] {name}, bf16 LM, the same 16 pages: {dt:.2f} s = {len(pages) / dt:.2f} pages/s, "
+        print(f"[serve-quant] {name}, bf16 LM, the same 16 pages: {dt:.2f} s = {len(pages) / dt:.2f} pages/s, "
               f"{sum(r.new_tokens for r in res)} tokens")
-    pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope="full")}
     for fn in kernels.values():
         fn.launches = 0
+    for flag, scope, bits in (INT8, INT4):
+        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope=scope, bits=bits)}
+        lin = "H" if bits == 8 else "L"
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        res = OCR2Engine(pipe, batch_size=16).run(pages, max_new_tokens=64, ngram_size=20)
+        dt = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        steps = max(r.new_tokens for r in res) - 1
+        want = {k: n * steps for k, n in quant_launches_per_step(lm, scope, bits, rows=16, paged=False).items()}
+        want[lin] += 1
+        n_tok = sum(r.new_tokens for r in res)
+        print(f"[serve-quant] OCR2Engine(batch_size=16), {flag}: {len(pages)} pages in {dt:.2f} s = "
+              f"{len(pages) / dt:.2f} pages/s; vision {res[0].prefill_seconds * 1e3:.1f} ms, prefill + {steps} "
+              f"decode steps {res[0].decode_seconds * 1e3:.1f} ms ({16 * steps / res[0].decode_seconds:.1f} tok/s); "
+              f"{n_tok} tokens; launches {delta}")
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad or steps < 1 or any(r.new_tokens < 1 for r in res):
+            raise AssertionError(f"{flag} group engine: launches (got, derived) {bad}")
 
-    before = {k: fn.launches for k, fn in kernels.items()}
-    t0 = time.perf_counter()
-    res = OCR2Engine(pipe, batch_size=16).run(pages, max_new_tokens=64, ngram_size=20)
-    dt = time.perf_counter() - t0
-    delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    steps = max(r.new_tokens for r in res) - 1
-    want = {k: n * steps for k, n in int8_launches_per_step(lm, "full", rows=16, paged=False).items()}
-    want["H"] += 1
-    n_tok = sum(r.new_tokens for r in res)
-    print(f"[serve-int8] OCR2Engine(batch_size=16), --int8: {len(pages)} pages in {dt:.2f} s = "
-          f"{len(pages) / dt:.2f} pages/s; vision {res[0].prefill_seconds * 1e3:.1f} ms, prefill + {steps} decode "
-          f"steps {res[0].decode_seconds * 1e3:.1f} ms ({16 * steps / res[0].decode_seconds:.1f} tok/s); "
-          f"{n_tok} tokens; launches {delta}")
-    bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
-    if bad or steps < 1 or any(r.new_tokens < 1 for r in res):
-        raise AssertionError(f"int8 group engine: launches (got, derived) {bad}")
-
-    engine = ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128)
-    before = {k: fn.launches for k, fn in kernels.items()}
-    t0 = time.perf_counter()
-    res = engine.run(pages, max_new_tokens=64, ngram_size=20)
-    dt = time.perf_counter() - t0
-    delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    steps = engine.last_decode_steps
-    decoded = sum(r.new_tokens - 1 for r in res)
-    want = {k: n * steps for k, n in int8_launches_per_step(lm, "full", rows=16, paged=True).items()}
-    want["H"] += engine.last_admissions
-    print(f"[serve-int8] ContinuousOCREngine(slots=16), --int8: {len(pages)} pages in {dt:.2f} s = "
-          f"{len(pages) / dt:.2f} pages/s; {steps} decode steps in {engine.last_decode_seconds:.2f} s, "
-          f"{decoded} tokens = {decoded / engine.last_decode_seconds:.1f} tok/s in total; "
-          f"{engine.last_admissions} admission groups; launches {delta}")
-    bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
-    if bad or steps < 1 or any(r is None or r.new_tokens < 1 for r in res):
-        raise AssertionError(f"int8 continuous engine: launches (got, derived) {bad}")
+        engine = ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        res = engine.run(pages, max_new_tokens=64, ngram_size=20)
+        dt = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        steps = engine.last_decode_steps
+        decoded = sum(r.new_tokens - 1 for r in res)
+        want = {k: n * steps for k, n in quant_launches_per_step(lm, scope, bits, rows=16, paged=True).items()}
+        want[lin] += engine.last_admissions
+        print(f"[serve-quant] ContinuousOCREngine(slots=16), {flag}: {len(pages)} pages in {dt:.2f} s = "
+              f"{len(pages) / dt:.2f} pages/s; {steps} decode steps in {engine.last_decode_seconds:.2f} s, "
+              f"{decoded} tokens = {decoded / engine.last_decode_seconds:.1f} tok/s in total; "
+              f"{engine.last_admissions} admission groups; launches {delta}")
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad or steps < 1 or any(r is None or r.new_tokens < 1 for r in res):
+            raise AssertionError(f"{flag} continuous engine: launches (got, derived) {bad}")
+        pipe.params = {**pipe.params, "lm": bf16_lm}  # one quantized copy on the card at a time
+        del engine, res
+        torch.cuda.empty_cache()
     launches = {k: fn.launches for k, fn in kernels.items()}
-    print(f"[serve-int8] launches over phase 6b {launches}")
-    pipe.params = {**pipe.params, "lm": bf16_lm}
-    torch.cuda.empty_cache()
+    print(f"[serve-quant] launches over phases 6b and 6c {launches}")
     return launches
 
 
@@ -1265,19 +1460,23 @@ def _first_difference(single, served) -> str:
 
 
 def phase_serving_exact(dev, pipe, tier: str = "f32") -> None:
-    """Phase 7 (7b with int8 weights): both engines token-exact against
-    single-page generate_ocr, on phase 5's reduced-depth f32 model on the
-    card."""
+    """Phase 7 (7b with int8 weights, 7c with int4): both engines
+    token-exact against single-page generate_ocr, on phase 5's
+    reduced-depth f32 model on the card."""
     from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
     from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
 
     kernels = counters()
-    # With int8 weights the shared MLP is folded into the expert kernels as
-    # pseudo-experts at one row and above E / k rows, but runs as its own
-    # int8 stream (other down scales) in between, as in the JAX package: a
-    # 2-page crop chunk of the group engine is not comparable with single
-    # pages. 7b serves 16 no-crop pages: one 16-row chunk, 16 slots.
-    pages = _serve_pages(pipe.cfg, 14, 2, seed=500) if tier == "f32" else _serve_pages(pipe.cfg, 16, 0, seed=700)
+    # With quantized weights the shared MLP is folded into the expert kernels
+    # as pseudo-experts at one row and above E / k rows, but runs as its own
+    # stream in between (a 2-page crop chunk of the group engine), as in the
+    # JAX package. With int8 its down scales are per channel over the whole
+    # stream, not per half: not comparable with single pages, so 7b serves
+    # 16 no-crop pages (one 16-row chunk, 16 slots). With int4 at I = 896 (a
+    # multiple of 128) the pseudo-experts' levels and scales are the fused
+    # stream's, so 7c serves phase 7's pages, the 2-page crop chunk (M
+    # without the pseudo-experts, L for the shared MLP) included.
+    pages = _serve_pages(pipe.cfg, 14, 2, seed=500) if tier != "int8" else _serve_pages(pipe.cfg, 16, 0, seed=700)
     gen = dict(max_new_tokens=16, ngram_size=20)
     singles = [pipe.generate_ocr(p, keep_logits=True, **gen) for p in pages]
     before = {k: fn.launches for k, fn in kernels.items()}
@@ -1295,7 +1494,7 @@ def phase_serving_exact(dev, pipe, tier: str = "f32") -> None:
             if n:
                 print(f"[serve-exact]   page {i}: {n}")
     print(f"[serve-exact] {tier} launches {d}")
-    need = "FG" if tier == "f32" else "GHJK"
+    need = {"f32": "FG", "int8": "GHJK", "int4": "GLMNO"}[tier]
     if min(d[k] for k in need) == 0:
         raise AssertionError(f"the reduced-depth {tier} serving run did not reach {', '.join(need)}: {d}")
 
@@ -1311,22 +1510,24 @@ def main() -> int:
     smi = phase_device()
     results = phase_kernels(dev)
     main_launches, pipe = phase_main_path(dev)
-    int8_launches = phase_int8_main_path(dev, pipe)
+    int8_launches = phase_quant_main_path(dev, pipe, (INT8, MOE_INT8), "int8")
+    int4_launches = phase_quant_main_path(dev, pipe, (INT4,), "int4")
     serve_launches = phase_serving(dev, pipe)
-    serve_int8_launches = phase_serving_int8(dev, pipe)
+    serve_quant_launches = phase_serving_quant(dev, pipe)
     phase_decode_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
     card_pipes = phase_card_vs_cpu(dev)
     phase_serving_exact(dev, card_pipes["f32"])
     phase_serving_exact(dev, card_pipes["int8"], tier="int8")
+    phase_serving_exact(dev, card_pipes["int4"], tier="int4")
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
-    # The main path is one page through generate_ocr (phase 4, and with int8
-    # weights 4b) and serving (phase 6, and 6b); each was driven with the
-    # counts at 0 and read after.
-    runs = (main_launches, int8_launches, serve_launches, serve_int8_launches)
+    # The main path is one page through generate_ocr (phase 4, and with
+    # quantized weights 4b and 4c) and serving (phase 6, and 6b and 6c);
+    # each was driven with the counts at 0 and read after.
+    runs = (main_launches, int8_launches, int4_launches, serve_launches, serve_quant_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
@@ -1346,17 +1547,26 @@ def main() -> int:
               "deepseek_ocr2_tpu/ops/moe_decode.py:220"),
         "K": ("attn_fused.attn_decode_fused (fused decode attention, int8 weights)",
               "deepseek_ocr2_tpu/ops/attn_fused.py:100"),
+        "L": ("linear_q4.linear_q4 (int4-weight skinny GEMM, w4a16, group-128 scales)",
+              "deepseek_ocr2_tpu/ops/linear_q4.py:181"),
+        "M": ("moe_q4.moe_ffn_decode_q4 (int4 MoE decode, one visit per row and selection)",
+              "deepseek_ocr2_tpu/ops/moe_q4.py:99"),
+        "N": ("moe_q4.moe_ffn_decode_q4_fused (int4 batched-decode MoE, one visit per distinct expert)",
+              "deepseek_ocr2_tpu/ops/moe_q4.py:280"),
+        "O": ("attn_fused.attn_decode_fused_q4 (fused decode attention, int4 weights)",
+              "deepseek_ocr2_tpu/ops/attn_fused.py:100"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
-               "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu"}
+               "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu",
+               "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJK":
+    for k in "ABCDEFGHIJKLMNO":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
-        # one row for H; one row with the pseudo-experts for I; 16 rows for
-        # J; one row at pos 300 on an f32 cache for K.
+        # one row for H and L; one row with the pseudo-experts for I and M;
+        # 16 rows for J and N; one row at pos 300 on an f32 cache for K and O.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

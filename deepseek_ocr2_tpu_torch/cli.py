@@ -5,8 +5,9 @@ Same flags and defaults as `deepseek_ocr2_tpu.cli generate-ocr` and
 a page with a side above `--crop-image-size` (768) is read as 2-6 local
 crops plus the global view, unless `--no-crop` is given. `--moe-int8`
 (routed experts) and `--int8` (every decode weight) quantize the LM to int8
-after loading, as the JAX CLI does. Flags for features the port does not
-have yet (int4 weights, the int8 KV pools, lookup decoding, device resize,
+after loading, `--int4` (every decode weight, group-128 scales) to int4, as
+the JAX CLI does; `--int4` wins over the other two. Flags for features the
+port does not have yet (the int8 KV pools, lookup decoding, device resize,
 sampling, profiling) raise a clear error instead of being ignored.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
@@ -20,7 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 def _dtype_arg(value: str) -> str:
@@ -102,12 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NEXT_SLICE = "it belongs to the next slice: int4 weights, the int8 / int8tail KV pools and sample_pick"
+_NEXT_SLICE = "it belongs to the next slice: the int8 / int8tail KV pools and sample_pick"
 
 
 def _refuse_outside_slice(args) -> None:
     refused = [
-        (args.int4, "--int4", _NEXT_SLICE),
         (args.kv_cache.lower() in ("int8", "int8tail"), "--kv-cache int8/int8tail", _NEXT_SLICE),
         (args.lookup_decode > 0, "--lookup-decode", "see ROADMAP.md"),
         (args.device_resize is not None, "--device-resize", "see ROADMAP.md"),
@@ -120,12 +120,15 @@ def _refuse_outside_slice(args) -> None:
             raise SystemExit(f"error: {flag} is not available in the PyTorch port yet ({where})")
 
 
-def int8_scope(args) -> Optional[str]:
-    """The LM quantization the flags ask for (the JAX CLI's `_int8_scope`
-    without int4): "full" for --int8, "experts" for --moe-int8, else None."""
+def int8_scope(args) -> Tuple[Optional[str], int]:
+    """(scope, bits) of the LM quantization the flags ask for (the JAX CLI's
+    `_int8_scope`): ("full", 4) for --int4, ("full", 8) for --int8,
+    ("experts", 8) for --moe-int8, else (None, 8)."""
+    if args.int4:
+        return "full", 4
     if args.int8:
-        return "full"
-    return "experts" if args.moe_int8 else None
+        return "full", 8
+    return ("experts" if args.moe_int8 else None), 8
 
 
 def _load_pipeline(args):
@@ -173,12 +176,12 @@ def _load_pipeline(args):
     if report.missing:
         raise SystemExit(f"error: {len(report.missing)} tensors missing, e.g. {report.missing[:4]}")
     del flat
-    scope = int8_scope(args)
+    scope, bits = int8_scope(args)
     if scope:
         from .models.deepseek_v2 import quantize_lm_params
 
-        params = {**params, "lm": quantize_lm_params(params["lm"], scope=scope)}
-        print(f"int8: LM weights quantized (scope={scope})", file=sys.stderr)
+        params = {**params, "lm": quantize_lm_params(params["lm"], scope=scope, bits=bits)}
+        print(f"int{bits}: LM weights quantized (scope={scope})", file=sys.stderr)
 
     act = "float32" if vision_default == "float32" else "bfloat16"
     return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=kv, act_dtype=act)

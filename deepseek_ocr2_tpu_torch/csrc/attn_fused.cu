@@ -1,26 +1,31 @@
-// Fused decode attention with int8 weights for sm_90a: kernel K.
+// Fused decode attention with int8 or int4 weights for sm_90a: kernels K
+// and O.
 //
 // Replaces the Pallas TPU kernel deepseek_ocr2_tpu/ops/attn_fused.py:
-// _fused_kernel with bits = 8 (via attn_decode_fused): one decode step of
+// _fused_kernel with bits = 8 (K) and bits = 4 (O) (via attn_decode_fused):
+// one decode step of
 // one layer's attention block on the contiguous layer-stacked cache
 // [L, B, Hh, cap, D], for every row at its own position pos[b] (the number
 // of cached keys):
-//   1. qkv = round_T((xn . wqkv) * s): the fused [3H, H] int8 stream, rounded
-//      to the activation type T as the unfused projection's output is;
+//   1. qkv = round_T(xn . wqkv): the fused [3H, H] stream (int8 with one
+//      scale per output, or int4 with group-128 scales, each group's dot
+//      scaled in f32), rounded to the activation type T as the unfused
+//      projection's output is;
 //   2. RoPE in f32 on q and k from the cos/sin tables at pos[b];
 //   3. an online softmax in f32 over cache[li, b, :, :pos[b]], seeded with
 //      the current token from registers (m = q.k_cur * scale, l = 1,
 //      acc = v_cur): the current token is attended in f32, before it is
 //      rounded into the cache; keys at or past pos[b] are -inf; the output
 //      is acc / max(l, 1e-37);
-//   4. ctx rounded to T, out = round_T((ctx . wo) * s_o);
+//   4. ctx rounded to T, out = round_T(ctx . wo), wo as wqkv;
 //   5. k_new / v_new leave in the cache type; the caller writes them into
 //      cache[li, b, :, pos[b]].
 // One launch cannot sync the grid between the qkv GEMV, the attention and
 // the wo GEMV (on the TPU the grid runs in order on one core), so this is
 // three launches: the two projections are linear_q8.cuh's int8 GEMV (kernel
-// H's device code) and the attention runs one block per (row, head). The
-// wrapper counts the three as one K.
+// H's device code) for K or linear_q4.cuh's int4 GEMV (kernel L's) for O,
+// and the attention runs one block per (row, head), the same for both. The
+// wrapper counts the three as one K or one O.
 //
 // Attention: D = 128 threads; thread t owns dim t of q, k, v and of the
 // output. Keys go in tiles of 64: warp w scores keys w, w + 4, ... of the
@@ -33,10 +38,13 @@
 //
 // What bounds it: bytes. At b = 1, capacity 1024, pos ~ 300: 4.9 MB of wqkv
 // + 1.6 MB of wo int8 + 1.5 MB of bf16 K/V, 2.4 us at 3.35 TB/s; in practice
-// three launches of a few microseconds each bound it.
+// three launches of a few microseconds each bound it. With int4 weights
+// (O), 3.5 MB of codes and scales: 0.002 ms with an f32 cache at pos 300.
 //
-// Shapes: D = 128; H = Hh * D a multiple of 16; T and the cache f32 or bf16.
+// Shapes: D = 128; H = Hh * D a multiple of 16 (int8) or 32 (int4); T and
+// the cache f32 or bf16.
 
+#include "linear_q4.cuh"
 #include "linear_q8.cuh"
 
 #include <math.h>
@@ -89,9 +97,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(const T* __restrict__ qkv, con
   // The caller keeps pos below the capacity and the RoPE tables; never read past either.
   const int p = min(max(pos[b], 0), min(cap, max_pos) - 1);
   const T* row = qkv + (size_t)b * 3 * hidden + head * D;
-  const float qv = q8::to_f32(row[t]);
-  const float kv = q8::to_f32(row[hidden + t]);
-  const float vv = q8::to_f32(row[2 * hidden + t]);
+  const float qv = gemv::to_f32(row[t]);
+  const float kv = gemv::to_f32(row[hidden + t]);
+  const float vv = gemv::to_f32(row[2 * hidden + t]);
   qs[t] = qv;
   ks[t] = kv;
   __syncthreads();
@@ -103,8 +111,8 @@ __global__ void __launch_bounds__(NT) attn_kernel(const T* __restrict__ qkv, con
   const float qr = qv * c + sgn * qs[partner] * s;
   const float kr = kv * c + sgn * ks[partner] * s;
   const size_t no = ((size_t)b * n_heads + head) * D + t;
-  k_new[no] = q8::from_f32<C>(kr);
-  v_new[no] = q8::from_f32<C>(vv);
+  k_new[no] = gemv::from_f32<C>(kr);
+  v_new[no] = gemv::from_f32<C>(vv);
   __syncthreads();  // every thread has read qs / ks
   qs[t] = qr;
   float d = qr * kr;
@@ -153,27 +161,34 @@ __global__ void __launch_bounds__(NT) attn_kernel(const T* __restrict__ qkv, con
     for (int j = 0; j < n; ++j) {
       const float pj = w[j];
       psum += pj;
-      pv = fmaf(pj, q8::to_f32(v_cache[base + (size_t)(j0 + j) * D + t]), pv);
+      pv = fmaf(pj, gemv::to_f32(v_cache[base + (size_t)(j0 + j) * D + t]), pv);
     }
     l = alpha * l + psum;
     acc = acc * alpha + pv;
     m = m_new;
     __syncthreads();  // w and part are rewritten by the next tile
   }
-  ctx[(size_t)b * hidden + head * D + t] = q8::from_f32<T>(acc / fmaxf(l, 1e-37f));
+  ctx[(size_t)b * hidden + head * D + t] = gemv::from_f32<T>(acc / fmaxf(l, 1e-37f));
+}
+
+// The projections: int8 (linear_q8.cuh) or int4 (linear_q4.cuh) weights.
+inline int gemv(int bits, const void* x, const void* w, const void* ws, void* out, int nb, int in_dim, int out_dim,
+                int bf16, cudaStream_t s) {
+  if (bits == 4) return q4::gemv_dispatch(x, w, ws, out, nb, in_dim, out_dim, bf16, bf16, s);
+  return q8::gemv_dispatch(x, w, ws, out, nb, in_dim, out_dim, bf16, bf16, s);
 }
 
 template <typename T, typename C>
-int launch(const void* xn, const void* wqkv, const void* wqkv_s, const void* wo, const void* wo_s,
+int launch(int bits, const void* xn, const void* wqkv, const void* wqkv_s, const void* wo, const void* wo_s,
            const void* k_cache, const void* v_cache, const void* pos, const void* cos_t, const void* sin_t, void* qkv,
            void* ctx, void* out, void* k_new, void* v_new, int nb, int n_heads, int head_dim, int cap, int max_pos,
            float scale, cudaStream_t s) {
   const int hidden = n_heads * head_dim;
-  if (nb <= 0 || n_heads <= 0 || head_dim != D || cap <= 0 || max_pos <= 0 || hidden % q8::KV) {
+  if (nb <= 0 || n_heads <= 0 || head_dim != D || cap <= 0 || max_pos <= 0 || (bits != 4 && bits != 8)) {
     return (int)cudaErrorInvalidValue;
   }
   constexpr bool TB = sizeof(T) == 2;
-  int err = q8::gemv_dispatch(xn, wqkv, wqkv_s, qkv, nb, hidden, 3 * hidden, TB, TB, s);
+  int err = gemv(bits, xn, wqkv, wqkv_s, qkv, nb, hidden, 3 * hidden, TB, s);
   if (err) return err;
   attn_kernel<T, C><<<dim3(nb, n_heads), NT, 0, s>>>(
       static_cast<const T*>(qkv), static_cast<const C*>(k_cache), static_cast<const C*>(v_cache),
@@ -181,28 +196,30 @@ int launch(const void* xn, const void* wqkv, const void* wqkv_s, const void* wo,
       static_cast<T*>(ctx), static_cast<C*>(k_new), static_cast<C*>(v_new), n_heads, cap, max_pos, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return q8::gemv_dispatch(ctx, wo, wo_s, out, nb, hidden, hidden, TB, TB, s);
+  return gemv(bits, ctx, wo, wo_s, out, nb, hidden, hidden, TB, s);
 }
 
 }  // namespace
 
-// xn [B, H] (T); wqkv int8 [3H, H], wqkv_s f32 [3H]; wo int8 [H, H], wo_s
-// f32 [H]; k_cache / v_cache: layer li's [B, Hh, cap, D] (C); pos [B] int32;
-// cos / sin [max_pos, D] f32; workspaces qkv [B, 3H] and ctx [B, H] (T);
-// out [B, H] (T); k_new / v_new [B, Hh, D] (C). x_bf16 / kv_bf16 pick bf16
-// for T / C, else f32.
-extern "C" int attn_fused_q8(const void* xn, const void* wqkv, const void* wqkv_s, const void* wo, const void* wo_s,
-                             const void* k_cache, const void* v_cache, const void* pos, const void* cos_t,
-                             const void* sin_t, void* qkv, void* ctx, void* out, void* k_new, void* v_new, int nb,
-                             int n_heads, int head_dim, int cap, int max_pos, float scale, int x_bf16, int kv_bf16,
-                             void* stream) {
+// bits 8: wqkv int8 [3H, H], wqkv_s f32 [3H]; wo int8 [H, H], wo_s f32 [H].
+// bits 4: wqkv uint8 [3H, H_p / 2], wqkv_s f32 [3H, H_p / 128]; wo uint8
+// [H, H_p / 2], wo_s f32 [H, H_p / 128] (H_p: H rounded up to 128).
+// xn [B, H] (T); k_cache / v_cache: layer li's [B, Hh, cap, D] (C); pos [B]
+// int32; cos / sin [max_pos, D] f32; workspaces qkv [B, 3H] and ctx [B, H]
+// (T); out [B, H] (T); k_new / v_new [B, Hh, D] (C). x_bf16 / kv_bf16 pick
+// bf16 for T / C, else f32.
+extern "C" int attn_fused(int bits, const void* xn, const void* wqkv, const void* wqkv_s, const void* wo,
+                          const void* wo_s, const void* k_cache, const void* v_cache, const void* pos,
+                          const void* cos_t, const void* sin_t, void* qkv, void* ctx, void* out, void* k_new,
+                          void* v_new, int nb, int n_heads, int head_dim, int cap, int max_pos, float scale,
+                          int x_bf16, int kv_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ATTN_Q8_LAUNCH(T, C)                                                                                    \
-  return launch<T, C>(xn, wqkv, wqkv_s, wo, wo_s, k_cache, v_cache, pos, cos_t, sin_t, qkv, ctx, out, k_new, \
+#define ATTN_LAUNCH(T, C)                                                                                       \
+  return launch<T, C>(bits, xn, wqkv, wqkv_s, wo, wo_s, k_cache, v_cache, pos, cos_t, sin_t, qkv, ctx, out, k_new, \
                       v_new, nb, n_heads, head_dim, cap, max_pos, scale, s)
-  if (x_bf16 && kv_bf16) ATTN_Q8_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  if (x_bf16) ATTN_Q8_LAUNCH(__nv_bfloat16, float);
-  if (kv_bf16) ATTN_Q8_LAUNCH(float, __nv_bfloat16);
-  ATTN_Q8_LAUNCH(float, float);
-#undef ATTN_Q8_LAUNCH
+  if (x_bf16 && kv_bf16) ATTN_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (x_bf16) ATTN_LAUNCH(__nv_bfloat16, float);
+  if (kv_bf16) ATTN_LAUNCH(float, __nv_bfloat16);
+  ATTN_LAUNCH(float, float);
+#undef ATTN_LAUNCH
 }

@@ -36,16 +36,20 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemv_common.cuh"
 
 namespace q8 {
 
-constexpr int NT = 256;  // 8 warps
-constexpr int WARPS = NT / 32;
+using gemv::FULL;
+using gemv::from_f32;
+using gemv::mma_bf16;
+using gemv::NT;
+using gemv::to_f32;
+using gemv::warp_sum;
+using gemv::WARPS;
+using gemv::word;
+
 constexpr int KV = 16;  // codes per lane per step
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void load16(const float* p, float* o) {
   const float4* v = reinterpret_cast<const float4*>(p);
@@ -84,24 +88,7 @@ __device__ __forceinline__ void widen16(const uint4 w, float* o) {
   }
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename O>
-__device__ __forceinline__ O from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
-template <int N>
-__device__ __forceinline__ void warp_sum(float* a) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) a[j] += __shfl_xor_sync(FULL, a[j], off);
-  }
-}
 
 // Partial dots of COLS int8 rows (row pointers `rows`) against RB rows of x
 // starting at x + b0 * in_dim, reduced across the warp: acc[c * RB + r].
@@ -137,24 +124,12 @@ __device__ __forceinline__ void warp_dots(const T* __restrict__ x, int nb, int b
 
 constexpr int MK = 64;  // contraction chunk
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two int8 codes of a word (bytes t, t + 1) as a bf16x2, exactly.
 __device__ __forceinline__ unsigned widen2_bf16(unsigned w, int t) {
   const float lo = (float)(((int)(w << (24 - 8 * t))) >> 24);
   const float hi = (float)(((int)(w << (16 - 8 * t))) >> 24);
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ unsigned word(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
 // Partial tiles of MT 16-row weight tiles against NTL 8-row tiles of x (x
@@ -355,8 +330,11 @@ constexpr int MMA_MIN_ROWS = 4;
 // Type dispatch on flags: x_bf16 / out_bf16 pick bf16, else f32; bf16 x
 // with In a multiple of 64 and more than MMA_MIN_ROWS rows takes the
 // tensor cores.
-inline int gemv_dispatch(const void* x, const void* q, const void* scale, void* out, int nb, int in_dim,
-                         int out_dim, int x_bf16, int out_bf16, cudaStream_t s) {
+// A template (of nothing) so that a source including this header for its
+// device dots alone instantiates none of the GEMV kernels.
+template <int = 0>
+int gemv_dispatch(const void* x, const void* q, const void* scale, void* out, int nb, int in_dim,
+                  int out_dim, int x_bf16, int out_bf16, cudaStream_t s) {
   if (nb <= 0 || in_dim <= 0 || out_dim <= 0 || in_dim % KV) return (int)cudaErrorInvalidValue;
   if (x_bf16 && in_dim % MK == 0 && nb > MMA_MIN_ROWS) {
     if (out_bf16) return gemv_mma<__nv_bfloat16>(x, q, scale, out, nb, in_dim, out_dim, s);

@@ -11,23 +11,28 @@ q/k/v after RoPE, at every prompt length. Decode attends over the
 preallocated contiguous cache with the plain `sdpa`, as the JAX package's
 default "pool" strategy does. The cache is updated in place.
 
-Int8 weights (`quantize_lm_params`, the CLI's `--moe-int8` and `--int8`):
+Int8 and int4 weights (`quantize_lm_params`, the CLI's `--moe-int8`,
+`--int8` and `--int4`):
 - scope "experts": each MoE layer's routed experts become `experts_q8`
-  (`ops.moe_q8.quantize_experts`);
+  (`ops.moe_q8.quantize_experts`, or `ops.moe_q4.quantize_experts_q4` at
+  bits 4);
 - scope "full": also the attention (q, k, v fused into one [3H, H] stream
   `wqkv`, and `wo`), the dense MLP and the shared MLP (gate||up fused into
-  `gu`, and `down`), each an int8 linear (`ops.linear_q8`), and `lm_head`;
-  the shared MLP is also split along its intermediate dim into n_shared
-  expert-shaped pseudo-experts (`pe_*` keys of `experts_q8`) that the
-  decode kernels fold in as always-on visits.
+  `gu`, and `down`), each an int8 linear (`ops.linear_q8`) or int4 linear
+  (`ops.linear_q4`), and `lm_head`; the shared MLP is also split along its
+  intermediate dim into n_shared expert-shaped pseudo-experts (`pe_*` keys
+  of `experts_q8`) that the decode kernels fold in as always-on visits.
+As in the JAX package, int4 weights keep the containers' names and
+describe themselves by their leaves ("q4", "gu_q4"), on which every
+dispatch keys.
 Routers, norms and the embedding stay in the model dtype. The port's layers
 are unstacked already, so the JAX package's unrolled `_lm_forward_q8` has no
-counterpart: its branches sit in the one layer loop. Decode: kernel H for
-the int8 linears, I (B * k <= E) or J for the experts with the JAX package's
-dispatch, K for the attention block on the contiguous cache. Prefill: the
-int8 linears through `linear_q8_plain` and each layer's experts dequantized
-(scale folded before the dtype cast, as the JAX package does) into the
-unquantized MoE forms.
+counterpart: its branches sit in the one layer loop. Decode: kernel H (L
+for int4) for the linears, I or M (B * k <= E) or J or N for the experts
+with the JAX package's dispatch, K or O for the attention block on the
+contiguous cache. Prefill: the linears through `linear_q8_plain` or
+`linear_q4_plain` and each layer's experts dequantized (scale folded before
+the dtype cast, as the JAX package does) into the unquantized MoE forms.
 """
 
 from __future__ import annotations
@@ -44,9 +49,11 @@ from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tenso
 from ..ops.attention import decode_mask, sdpa
 from ..ops.attn_fused import attn_decode_fused, fused_attn_enabled
 from ..ops.flash_attention import mha
+from ..ops.linear_q4 import from_jax_q4, quantize_linear_q4
 from ..ops.linear_q8 import is_qlinear, qmm, quantize_linear, swiglu_q8
 from ..ops.moe import moe_ffn_decode, moe_ffn_prefill, route, swiglu
 from ..ops.moe_decode import moe_ffn_decode_q8_fused
+from ..ops.moe_q4 import dequantize_experts_q4, moe_ffn_decode_q4, moe_ffn_decode_q4_fused, quantize_experts_q4
 from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cache
@@ -98,20 +105,34 @@ def params_from_flat(flat, cfg: DeepseekV2Config, device="cpu", policy=None) -> 
 def params_from_jax(tree: Params, cfg: DeepseekV2Config, device="cpu") -> Params:
     """From the JAX pytree: dense and MoE layers stacked separately,
     linears [in, out], experts [L, E, H, I] / [L, E, I, H]. A tree from the
-    JAX package's `quantize_lm_params` (int8, either scope) comes over with
-    its codes and scales, transposed to the port's layout (its In-padding
-    to a multiple of 128 dropped), so both packages compute from the same
-    int8 weights."""
+    JAX package's `quantize_lm_params` (int8 or int4, either scope) comes
+    over with its codes and scales in the port's layout (int8 transposed,
+    its In-padding to a multiple of 128 dropped; int4 unpacked, its padding
+    to 256 cut to 128 and repacked by `from_jax_q4`), so both packages
+    compute from the same levels and scales."""
 
     def t(a, transpose=False):
         x = as_tensor(np.asarray(a))
         return (x.transpose(-1, -2) if transpose else x).contiguous().to(device)
 
-    def qlin(qd, in_dim):  # {"q8": [In_pad, Out], "scale": [1, Out]} -> the port's int8 linear
+    def q4(packed, scale, in_dim):
+        codes, s = from_jax_q4(packed, scale, in_dim)
+        return codes.to(device), s.to(device)
+
+    def qlin(qd, in_dim):  # {"q8": [In_pad, Out], "scale": [1, Out]} or {"q4", "scale"} -> the port's
+        if "q4" in qd:
+            return dict(zip(("q4", "scale"), q4(qd["q4"], qd["scale"], in_dim)))
         return {"q8": t(np.asarray(qd["q8"])[:in_dim], True), "scale": t(np.asarray(qd["scale"])[0])}
 
-    def qexperts(qd):  # gu_q8 [E, H, 2I], gu_scale [E, 1, 2I], ... (+ pe_*)
-        return {k: t(v, True) if k.endswith("q8") else t(np.asarray(v)[..., 0, :]) for k, v in qd.items()}
+    def qexperts(qd):  # gu_q8 [E, H, 2I], gu_scale [E, 1, 2I], ... (+ pe_*), or the int4 keys
+        if "gu_q4" not in qd:
+            return {k: t(v, True) if k.endswith("q8") else t(np.asarray(v)[..., 0, :]) for k, v in qd.items()}
+        h, i = qd["down_q4"].shape[-1], qd["gu_q4"].shape[-1] // 2
+        out = {}
+        for pre in ("", "pe_") if "pe_gu_q4" in qd else ("",):
+            for n, in_dim in (("gu", h), ("down", i)):
+                out[f"{pre}{n}_q4"], out[f"{pre}{n}_scale"] = q4(qd[f"{pre}{n}_q4"], qd[f"{pre}{n}_scale"], in_dim)
+        return out
 
     h, q8l = cfg.hidden_size, tree.get("q8_layers")
 
@@ -151,45 +172,47 @@ def params_from_jax(tree: Params, cfg: DeepseekV2Config, device="cpu") -> Params
 
 
 def quantize_lm_params(params: Params, scope: str = "experts", bits: int = 8) -> Params:
-    """Weight-only int8 quantization (port of the JAX function; see the
-    module docstring for the two scopes). Returns new params; the input's
-    tensors are not changed."""
-    if bits == 4:
-        raise ValueError("int4 weights are not ported yet: they belong to the next slice of the port "
-                         "(int4 weights, the int8 / int8tail KV pools and sample_pick)")
-    if bits != 8 or scope not in ("experts", "full"):
-        raise ValueError(f"quantize_lm_params takes scope 'experts' or 'full' and bits 8, got {scope!r}, {bits}")
+    """Weight-only int8 or int4 quantization (port of the JAX function; see
+    the module docstring for the two scopes). Returns new params; the
+    input's tensors are not changed."""
+    if bits not in (4, 8) or scope not in ("experts", "full"):
+        raise ValueError(f"quantize_lm_params takes scope 'experts' or 'full' and bits 4 or 8, "
+                         f"got {scope!r}, {bits}")
+    qlinear, qexperts = (quantize_linear_q4, quantize_experts_q4) if bits == 4 else (quantize_linear, quantize_experts)
     layers = []
     for layer in params["layers"]:
         q = dict(layer)
         if "experts" in q:
-            q["experts_q8"] = quantize_experts(q.pop("experts"))
+            q["experts_q8"] = qexperts(q.pop("experts"))
         if scope == "full":
-            q["wqkv"] = quantize_linear(torch.cat([q.pop("wq"), q.pop("wk"), q.pop("wv")]))
-            q["wo"] = quantize_linear(q["wo"])
+            q["wqkv"] = qlinear(torch.cat([q.pop("wq"), q.pop("wk"), q.pop("wv")]))
+            q["wo"] = qlinear(q["wo"])
             name = "mlp" if "mlp" in q else "shared"
             m = q[name]
-            q[name] = {"gu": quantize_linear(torch.cat([m["gate"], m["up"]])), "down": quantize_linear(m["down"])}
+            q[name] = {"gu": qlinear(torch.cat([m["gate"], m["up"]])), "down": qlinear(m["down"])}
             if name == "shared":
-                q["experts_q8"] = {**q["experts_q8"], **_pseudo_experts(m, q["experts_q8"])}
+                q["experts_q8"] = {**q["experts_q8"], **_pseudo_experts(m, q["experts_q8"], qexperts)}
         layers.append(q)
     new = {**params, "layers": layers}
     if scope == "full":
-        new["lm_head"] = quantize_linear(params["lm_head"])
+        new["lm_head"] = qlinear(params["lm_head"])
     return new
 
 
-def _pseudo_experts(shared: Dict[str, torch.Tensor], eq) -> Dict[str, torch.Tensor]:
+def _pseudo_experts(shared: Dict[str, torch.Tensor], eq, qexperts) -> Dict[str, torch.Tensor]:
     """The shared MLP (intermediate n_shared * I) split along its
     intermediate dim into n_shared expert-shaped SwiGLUs whose down
-    products sum, quantized as experts: `pe_*` keys. Per-channel scales over
-    the halves, so the down scales differ from the fused stream's."""
-    i_e = eq["gu_q8"].shape[1] // 2
+    products sum, quantized as experts by `qexperts`: `pe_*` keys. Int8
+    scales are per channel over the halves, so the down scales differ from
+    the fused stream's; int4 scales are per group of 128, so where I is a
+    multiple of 128 (the full width: 896) the levels and scales are the
+    fused stream's."""
+    i_e = eq["gu_q4" if "gu_q4" in eq else "gu_q8"].shape[1] // 2
     i_tot = shared["gate"].shape[0]
     if i_tot % i_e:
         return {}
     n_sh = i_tot // i_e
-    pe = quantize_experts({
+    pe = qexperts({
         "gate": torch.stack([shared["gate"][t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
         "up": torch.stack([shared["up"][t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
         "down": torch.stack([shared["down"][:, t * i_e : (t + 1) * i_e] for t in range(n_sh)]),
@@ -198,9 +221,11 @@ def _pseudo_experts(shared: Dict[str, torch.Tensor], eq) -> Dict[str, torch.Tens
 
 
 def dequantize_experts(eq, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Int8 experts back to {gate, up: [E, I, H], down: [E, H, I]} in
-    `dtype`, the scale folded in f32 before the cast (the JAX package's
+    """Int8 or int4 experts back to {gate, up: [E, I, H], down: [E, H, I]}
+    in `dtype`, the scale folded in f32 before the cast (the JAX package's
     `_dequantize_experts`), for the prefill MoE forms."""
+    if "gu_q4" in eq:
+        return dequantize_experts_q4(eq, dtype)
     i = eq["gu_q8"].shape[1] // 2
 
     def deq(q, s):  # contiguous, as kernels D and E take them
@@ -213,7 +238,7 @@ def dequantize_experts(eq, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
 
 def vocab_size_of(params: Params) -> int:
     head = params["lm_head"]
-    return (head["q8"] if is_qlinear(head) else head).shape[0]
+    return (head.get("q8", head.get("q4")) if is_qlinear(head) else head).shape[0]
 
 
 def rope_consts(cfg: DeepseekV2Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -221,8 +246,8 @@ def rope_consts(cfg: DeepseekV2Config, device) -> Tuple[torch.Tensor, torch.Tens
 
 
 def qkv_proj(x2: torch.Tensor, layer, decode: bool):
-    """q, k, v [N, H] each: three linears, or the fused int8 [3H, H] stream
-    split after the product."""
+    """q, k, v [N, H] each: three linears, or the fused int8 or int4 [3H, H]
+    stream split after the product."""
     if "wqkv" in layer:
         return qmm(x2, layer["wqkv"], decode=decode).chunk(3, dim=-1)
     return F.linear(x2, layer["wq"]), F.linear(x2, layer["wk"]), F.linear(x2, layer["wv"])
@@ -250,8 +275,8 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, 
 
 
 def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, pos_b):
-    """Kernel K for one decode step of a layer with int8 attention weights;
-    the new token's K/V go into the cache at `pos`."""
+    """Kernel K (O for int4) for one decode step of a layer with quantized
+    attention weights; the new token's K/V go into the cache at `pos`."""
     out, k_new, v_new = attn_decode_fused(xn, layer, cfg, rope[0], rope[1], cache["k"], cache["v"], li, pos_b)
     cache["k"][li][:, :, pos] = k_new
     cache["v"][li][:, :, pos] = v_new
@@ -260,11 +285,12 @@ def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos
 
 def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool) -> torch.Tensor:
     """A layer's MLP on [N, H] rows: the dense SwiGLU, or the routed experts
-    plus the shared MLP, each weight plain or int8. Int8 experts in decode
-    follow the JAX package's `_q8_ffn`: kernel J once N * k > E, kernel I
-    otherwise; the shared pseudo-experts, when present, are folded into J
-    always and into I at N = 1, and the shared MLP is then not added again.
-    Prefill dequantizes the experts into the unquantized forms."""
+    plus the shared MLP, each weight plain, int8 or int4. Quantized experts
+    in decode follow the JAX package's `_q8_ffn`, keyed on `gu_q4`: kernel J
+    (N for int4) once N * k > E, kernel I (M) otherwise; the shared
+    pseudo-experts, when present, are folded into J / N always and into
+    I / M at N = 1, and the shared MLP is then not added again. Prefill
+    dequantizes the experts into the unquantized forms."""
     m = layer.get("mlp")
     if m is not None:
         return swiglu_q8(x_flat, m["gu"], m["down"], decode=decode) if "gu" in m else \
@@ -277,12 +303,16 @@ def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool) -> 
         routed = (moe_ffn_decode if decode else moe_ffn_prefill)(x_flat, layer["experts"], weights, idx)
     elif not decode:
         routed = moe_ffn_prefill(x_flat, dequantize_experts(eq, x_flat.dtype), weights, idx)
-    elif n * cfg.num_experts_per_tok > eq["gu_q8"].shape[0]:
-        merged = "pe_gu_q8" in eq
-        routed = moe_ffn_decode_q8_fused(x_flat, eq, weights, idx)
     else:
-        merged = "pe_gu_q8" in eq and n == 1
-        routed = moe_ffn_decode_q8(x_flat, eq, weights, idx, with_shared=merged)
+        q4 = "gu_q4" in eq
+        pe_key = "pe_gu_q4" if q4 else "pe_gu_q8"
+        if n * cfg.num_experts_per_tok > cfg.n_routed_experts:
+            merged = pe_key in eq
+            routed = (moe_ffn_decode_q4_fused if q4 else moe_ffn_decode_q8_fused)(x_flat, eq, weights, idx)
+        else:
+            merged = pe_key in eq and n == 1
+            routed = (moe_ffn_decode_q4 if q4 else moe_ffn_decode_q8)(x_flat, eq, weights, idx,
+                                                                       with_shared=merged)
     if merged:
         return routed
     sh = layer["shared"]
@@ -327,8 +357,8 @@ def lm_forward(
 
 def logits_last(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """lm_head on the last position only: [B, V], in the model dtype, or in
-    f32 through kernel H when lm_head is int8 (rows here are at most the
-    decode batch)."""
+    f32 through kernel H (L) when lm_head is int8 (int4) (rows here are at
+    most the decode batch)."""
     head = params["lm_head"]
     if is_qlinear(head):
         return qmm(hidden[:, -1, :], head, decode=True, out_dtype=torch.float32)

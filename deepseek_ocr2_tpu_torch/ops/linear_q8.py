@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .linear_q4 import linear_q4, linear_q4_plain
 
 QLinear = Dict[str, torch.Tensor]  # {"q8": int8 [Out, In], "scale": f32 [Out]}
 
@@ -56,7 +57,8 @@ def quantize_linear(w: torch.Tensor) -> QLinear:
 
 
 def is_qlinear(w) -> bool:
-    return isinstance(w, dict) and "q8" in w
+    """An int8 linear, or an int4 one ("q4" dict, `linear_q4`)."""
+    return isinstance(w, dict) and ("q8" in w or "q4" in w)
 
 
 def _out_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -111,20 +113,23 @@ linear_q8.launches = 0
 
 
 def qmm(x: torch.Tensor, w, *, decode: bool = False, out_dtype=None) -> torch.Tensor:
-    """x [N, In] times a plain HF-layout weight [Out, In] or an int8 linear:
-    kernel H when `decode` (a decode step's few rows), the prefill form
-    otherwise."""
+    """x [N, In] times a plain HF-layout weight [Out, In], an int8 or an int4
+    linear: kernel H (L for int4) when `decode` (a decode step's few rows),
+    the prefill form otherwise (the JAX package's `qmm`)."""
     if not is_qlinear(w):
         y = F.linear(x, w)
         return y if out_dtype is None else y.to(out_dtype)
+    if "q4" in w:
+        return (linear_q4 if decode else linear_q4_plain)(x, w, out_dtype=out_dtype)
     if decode:
         return linear_q8(x, w, out_dtype=out_dtype)
     return linear_q8_plain(x, w, out_dtype=out_dtype)
 
 
 def swiglu_q8(x: torch.Tensor, gu: QLinear, down: QLinear, *, decode: bool = False) -> torch.Tensor:
-    """SwiGLU with the fused gate||up stream [2I, H]: gate and up kept in f32
-    after the scale, silu in f32, the activation rounded to x's dtype."""
+    """SwiGLU with the fused gate||up stream [2I, H] (int8 or int4): gate
+    and up kept in f32 after the scale, silu in f32, the activation rounded
+    to x's dtype."""
     h2 = qmm(x, gu, decode=decode, out_dtype=torch.float32)
     i = h2.shape[-1] // 2
     act = (F.silu(h2[:, :i]) * h2[:, i:]).to(x.dtype)

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .moe_q8 import QExperts, expert_swiglu_q8, launch_moe_q8, pseudo_experts, routing_rows
+from .moe_q8 import QExperts, expert_swiglu_q8, launch_moe_quant, pseudo_experts, routing_rows
 
 
 def distinct_schedule(idx: torch.Tensor, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -210,7 +210,7 @@ def moe_ffn_decode_q8_fused(
     e = eq["gu_q8"].shape[0]
     n_sh = eq["pe_gu_q8"].shape[0] if "pe_gu_q8" in eq else 0
     ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
-    out = launch_moe_q8(False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+    out = launch_moe_quant(8, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
     moe_ffn_decode_q8_fused.launches += 1
     return out
 

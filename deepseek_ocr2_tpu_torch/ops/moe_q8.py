@@ -16,7 +16,9 @@ top-k order and, with `with_shared`, the n_sh shared pseudo-experts
 1, summed in that order in f32. Its plain twin is
 `moe_ffn_decode_q8_reference`. The JAX package takes it while B * k <= E;
 above, kernel J (`moe_decode.moe_ffn_decode_q8_fused`) reads each distinct
-expert once. Both kernels share one CUDA source and its launcher here.
+expert once. Both kernels share one CUDA source and its launcher here,
+`launch_moe_quant`, which also launches the int4 kernels M and N
+(`moe_q4`).
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Nothing here reads a value back to the host.
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .linear_q4 import GROUP, padded
 from .linear_q8 import quantize_per_col
 
 QExperts = Dict[str, torch.Tensor]
@@ -98,27 +101,41 @@ def routing_rows(idx: torch.Tensor, weights: torch.Tensor):
     return idx, weights, idx.stride(0)
 
 
-def launch_moe_q8(per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, idx=None, weights=None,
-                  ve=None, valid=None, w_visit=None) -> torch.Tensor:
+def _stream_shapes(bits: int, rows: int, in_dim: int):
+    """(codes, scales) shapes of `rows` quantized rows over `in_dim` inputs:
+    int8 [rows, In] with one scale a row, or int4 [rows, In_p / 2] with one
+    a group of 128 (`linear_q4`'s layout)."""
+    if bits == 8:
+        return (rows, in_dim), (rows,)
+    return (rows, padded(in_dim) // 2), (rows, padded(in_dim) // GROUP)
+
+
+def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, idx=None,
+                     weights=None, ve=None, valid=None, w_visit=None) -> torch.Tensor:
     """Launch kernel I (`per_sel`, with idx / weights) or J (with the visit
-    schedule ve / valid / w_visit) of `csrc/moe_q8.cu`. Returns [B, H]."""
-    gu, gus, down, ds = eq["gu_q8"], eq["gu_scale"], eq["down_q8"], eq["down_scale"]
-    e, i2, h = gu.shape
+    schedule ve / valid / w_visit) of `csrc/moe_q8.cu` over int8 experts
+    (bits 8), or M or N of `csrc/moe_q4.cu` over int4 ones (bits 4). One set
+    of kernels serves both (`csrc/moe_quant.cuh`). Returns [B, H]."""
+    names = (f"gu_q{bits}", "gu_scale", f"down_q{bits}", "down_scale")
+    gu, gus, down, ds = (eq[n] for n in names)
+    e, i2 = gu.shape[:2]
     i = i2 // 2
-    b = x.shape[0]
+    b, h = x.shape
     dt = x.dtype
-    name = "I" if per_sel else "J"
+    name = ("I" if per_sel else "J") if bits == 8 else ("M" if per_sel else "N")
+    code_dt, align = (torch.int8, 16) if bits == 8 else (torch.uint8, 32)
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel {name} takes f32 or bf16 x, got {dt}")
-    if x.shape != (b, h) or down.shape != (e, h, i) or gus.shape != (e, i2) or ds.shape != (e, h) \
-            or gu.dtype != torch.int8 or down.dtype != torch.int8 \
-            or gus.dtype != torch.float32 or ds.dtype != torch.float32:
-        raise ValueError(f"x {tuple(x.shape)} and int8 experts gu {tuple(gu.shape)} down {tuple(down.shape)} "
+    (cg, sg), (cd, sd) = _stream_shapes(bits, i2, h), _stream_shapes(bits, h, i)
+    if gu.shape != (e, *cg) or gus.shape != (e, *sg) or down.shape != (e, *cd) or ds.shape != (e, *sd) \
+            or gu.dtype != code_dt or down.dtype != code_dt or gus.dtype != torch.float32 \
+            or ds.dtype != torch.float32:
+        raise ValueError(f"x {tuple(x.shape)} and int{bits} experts gu {tuple(gu.shape)} down {tuple(down.shape)} "
                          "do not fit")
-    if h % 16 or i % 16:
-        raise ValueError(f"kernel {name} needs H ({h}) and I ({i}) multiples of 16")
-    pe = [eq[f"pe_{n}"] for n in ("gu_q8", "gu_scale", "down_q8", "down_scale")] if n_sh else []
-    if pe and (pe[0].shape != (n_sh, i2, h) or pe[2].shape != (n_sh, h, i)):
+    if h % align or i % align:
+        raise ValueError(f"kernel {name} needs H ({h}) and I ({i}) multiples of {align}")
+    pe = [eq[f"pe_{n}"] for n in names] if n_sh else []
+    if pe and (pe[0].shape != (n_sh, *cg) or pe[2].shape != (n_sh, *cd)):
         raise ValueError(f"pseudo-experts {tuple(pe[0].shape)} / {tuple(pe[2].shape)} do not fit")
     x = x.contiguous()
     sched = [t for t in (ve, valid, w_visit) if t is not None]
@@ -134,13 +151,13 @@ def launch_moe_q8(per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, id
         n_rows, n_visits = 1, b * (idx.shape[1] + n_sh)
     else:
         if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
-            raise ValueError("kernel J takes an int32 schedule and an f32 combine table")
+            raise ValueError(f"kernel {name} takes an int32 schedule and an f32 combine table")
         n_rows, n_visits = b, e + n_sh
     act = torch.empty(n_visits, n_rows, i, dtype=dt, device=x.device)
     yw = torch.empty(n_visits, n_rows, h, dtype=torch.float32, device=x.device)
     out = torch.empty(b, h, dtype=dt, device=x.device)
-    lib = cuda_build.load("moe_q8")
-    fn = lib.moe_q8_f32 if dt == torch.float32 else lib.moe_q8_bf16
+    lib = cuda_build.load(f"moe_q{bits}")
+    fn = getattr(lib, f"moe_q{bits}_{'f32' if dt == torch.float32 else 'bf16'}")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -152,7 +169,7 @@ def launch_moe_q8(per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, id
     err = fn(int(per_sel), p(x), p(gu), p(gus), p(down), p(ds), p(pgu), p(pgus), p(pdown), p(pds),
              p(idx), p(weights), p(ve), p(valid), p(w_visit), p(act), p(yw), p(out),
              b, e, k, ld, n_sh, h, i, cuda_build.stream_of(x))
-    cuda_build.check(err, "moe_q8")
+    cuda_build.check(err, f"moe_q{bits}")
     return out
 
 
@@ -164,7 +181,7 @@ def moe_ffn_decode_q8(x: torch.Tensor, eq: QExperts, weights: torch.Tensor, idx:
     if x.device.type == "cpu":
         return moe_ffn_decode_q8_reference(x, eq, weights, idx, with_shared=with_shared)
     n_sh = eq["pe_gu_q8"].shape[0] if with_shared else 0
-    out = launch_moe_q8(True, x, eq, n_sh, idx=idx, weights=weights)
+    out = launch_moe_quant(8, True, x, eq, n_sh, idx=idx, weights=weights)
     moe_ffn_decode_q8.launches += 1
     return out
 

@@ -143,7 +143,7 @@ def decode_chunk(
     (int32 [2B]) on the device, for the caller's one readback."""
     tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
     b, tok_cap = tokens.shape
-    vocab = vocab_size_of(lm_params)  # lm_head may be int8
+    vocab = vocab_size_of(lm_params)  # lm_head may be int8 or int4
     rows = torch.arange(b, device=tokens.device)
     scratch = torch.zeros_like(block_tables)
     for _ in range(n_steps):

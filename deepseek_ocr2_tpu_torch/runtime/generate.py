@@ -58,7 +58,7 @@ def greedy_generate(
         raise ValueError(f"capacity {capacity} < prompt {s} + max_new_tokens {max_new_tokens}")
     if prompt_ids.ndim == 1:
         prompt_ids = prompt_ids[None]
-    vocab = vocab_size_of(params)  # lm_head may be int8
+    vocab = vocab_size_of(params)  # lm_head may be int8 or int4
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
     cache = make_kv_cache(

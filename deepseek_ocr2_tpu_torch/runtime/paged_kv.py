@@ -16,7 +16,7 @@ sequence's pages. Duplicate writes to it are harmless: no live row reads it.
 The pool is updated in place. The JAX package's per-row
 dynamic_update_slice chain (paged_kv.py:221-241) works around XLA's copy of
 a scattered carry; here one `index_put_` per layer writes every row's token.
-Only plain decode (one query per row) is ported, with plain or int8
+Only plain decode (one query per row) is ported, with plain, int8 or int4
 weights: the chunk mode of lookup decoding and the int8 / int8tail pools
 belong to later slices.
 """
@@ -181,11 +181,12 @@ def lm_decode_step_paged(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step over the paged pool; returns the final-normed hidden
-    [B, 1, H]. The routed MoE of a layer is kernel F (J with int8 experts)
-    when B * k > E (every slot counts, active or not), the per-selection
-    path (I with int8 experts) otherwise; int8 linears run kernel H, and
-    the attention kernel G whatever the weights (the JAX package's
-    `_lm_decode_step_paged_q8` is this loop)."""
+    [B, 1, H]. The routed MoE of a layer is kernel F (J with int8 experts,
+    N with int4) when B * k > E (every slot counts, active or not), the
+    per-selection path (I with int8 experts, M with int4) otherwise; int8
+    linears run kernel H, int4 ones L, and the attention kernel G whatever
+    the weights (the JAX package's `_lm_decode_step_paged_q8` is this
+    loop)."""
     cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
     cos_b, sin_b = _chunk_rope(cos, sin, pos)
     b, s, h = embeds.shape

@@ -193,9 +193,10 @@ def test_cli_refuses_flags_outside_the_slice(cli_assets):
     from deepseek_ocr2_tpu_torch.cli import main
 
     d = cli_assets
-    with pytest.raises(SystemExit, match="--int4 .*next slice"):
+    with pytest.raises(SystemExit, match="--lookup-decode .*ROADMAP"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
-              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4"])
+              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4",
+              "--lookup-decode", "4"])
     with pytest.raises(SystemExit, match="--kv-cache int8/int8tail .*next slice"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
               "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int8",
@@ -239,6 +240,12 @@ q8 = OCR2Pipeline({**params, "lm": quantize_lm_params(params["lm"], scope="full"
 r = q8.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
 assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
 cont = ContinuousOCREngine(q8, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
+assert all(r.new_tokens >= 1 for r in cont)
+q4 = OCR2Pipeline({**params, "lm": quantize_lm_params(params["lm"], scope="full", bits=4)}, cfg,
+                  cs.StubTokenizer(cfg.lm.vocab_size), device="cpu")
+r = q4.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
+assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+cont = ContinuousOCREngine(q4, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
 assert all(r.new_tokens >= 1 for r in cont)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "deepseek_ocr2_tpu" or m.startswith("deepseek_ocr2_tpu."))

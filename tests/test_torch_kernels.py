@@ -1,8 +1,9 @@
-"""Kernels A-K of the PyTorch port: plain twins against the JAX Pallas
+"""Kernels A-O of the PyTorch port: plain twins against the JAX Pallas
 kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
 against their twins where a card is present. (D and E's CPU parity with the
 JAX package is in tests/test_torch_crop.py, F's in test_torch_moe_decode.py,
-G's in test_torch_paged.py, H-K's in test_torch_q8.py.)
+G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
+test_torch_q4.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -26,7 +27,8 @@ import torch
 
 from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
-from deepseek_ocr2_tpu_torch.ops import attn_fused, linear_q8, moe_decode, moe_gmm, moe_q8, paged_attention
+from deepseek_ocr2_tpu_torch.ops import (attn_fused, linear_q4, linear_q8, moe_decode, moe_gmm, moe_q4, moe_q8,
+                                         paged_attention)
 from deepseek_ocr2_tpu_torch.ops.moe import route
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -543,3 +545,148 @@ def test_cuda_device_schedule_matches_the_torch_schedule(cuda, b, k):
     want_ve, want_valid = moe_decode.distinct_schedule(idx, 64)
     assert torch.equal(ve, want_ve) and torch.equal(valid, want_valid)
     assert torch.equal(w_visit, moe_decode.combine_table(idx, weights, want_ve, want_valid, 64))
+
+
+# ---------------------------------------------------------------------------
+# The int4 kernels L (linear), M (per-selection MoE), N (distinct-expert MoE)
+# and O (fused decode attention with int4 weights) against their twins, at
+# the LM's shapes and ragged ones.
+
+
+def _qlin4(dev, out_dim, in_dim, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return linear_q4.quantize_linear_q4(torch.randn(out_dim, in_dim, generator=g, device=dev) * in_dim**-0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,in_dim,out_dim", [
+    (1, 1280, 129280),  # lm_head at one row
+    (16, 1280, 129280),  # lm_head at 16 slots
+    (3, 6848, 1280),  # the dense down projection: the last group half padding
+    (32, 1280, 3584),  # the shared gate||up stream
+    (6, 1792, 1280),  # the shared down, the tensor-core form's one 8-row tile
+    (40, 224, 1000),  # more than one row tile, ragged Out, a partial group
+])
+def test_cuda_linear_q4_matches_twin(cuda, dtype, b, in_dim, out_dim):
+    w = _qlin4(cuda, out_dim, in_dim, seed=7)
+    x = torch.randn(b, in_dim, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda).to(dtype)
+    for out_dtype in (None, torch.float32):
+        before = linear_q4.linear_q4.launches
+        got = linear_q4.linear_q4(x, w, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert linear_q4.linear_q4.launches == before + 1
+        ref = linear_q4.linear_q4_reference(x, w, out_dtype=out_dtype)
+        assert got.dtype == ref.dtype and got.shape == (b, out_dim)
+        assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), ref.dtype)
+
+
+def _q4_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, n_sh=2, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def experts(n):
+        return moe_q4.quantize_experts_q4({
+            name: torch.randn(n, *shape, generator=g, device=dev) * shape[1] ** -0.5
+            for name, shape in (("gate", (i, h)), ("up", (i, h)), ("down", (h, i)))})
+
+    eq = experts(e)
+    if n_sh:
+        eq.update({f"pe_{n}": t for n, t in experts(n_sh).items()})
+    x = torch.randn(b, h, generator=g, device=dev).to(dtype)
+    weights, idx = route(x, torch.randn(e, h, generator=g, device=dev) * h**-0.5, k)
+    return x, eq, weights, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,with_shared", [(1, 6, True), (8, 6, False), (3, 1, False), (1, 1, True)])
+def test_cuda_moe_q4_matches_twin(cuda, dtype, b, k, with_shared):
+    x, eq, weights, idx = _q4_moe_case(cuda, dtype, b, k=k)
+    before = moe_q4.moe_ffn_decode_q4.launches
+    got = moe_q4.moe_ffn_decode_q4(x, eq, weights, idx, with_shared=with_shared)
+    torch.cuda.synchronize()
+    assert moe_q4.moe_ffn_decode_q4.launches == before + 1
+    ref = moe_q4.moe_ffn_decode_q4_reference(x, eq, weights, idx, with_shared=with_shared)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,n_sh,h,i", [
+    (torch.bfloat16, 16, 2, 1280, 896), (torch.bfloat16, 32, 2, 1280, 896), (torch.float32, 16, 2, 1280, 896),
+    (torch.bfloat16, 11, 0, 1280, 896), (torch.float32, 40, 2, 1280, 896),
+    (torch.bfloat16, 12, 2, 320, 96),  # partial groups along H and I on the tensor cores
+])
+def test_cuda_moe_q4_fused_matches_twin(cuda, dtype, b, n_sh, h, i):
+    x, eq, weights, idx = _q4_moe_case(cuda, dtype, b, n_sh=n_sh, h=h, i=i)
+    before = moe_q4.moe_ffn_decode_q4_fused.launches
+    got = moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)
+    torch.cuda.synchronize()
+    assert moe_q4.moe_ffn_decode_q4_fused.launches == before + 1
+    ref = moe_q4.moe_ffn_decode_q4_visits_reference(x, eq, weights, idx)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_q4_rows_do_not_depend_on_the_batch(cuda):
+    x, eq, weights, idx = _q4_moe_case(cuda, torch.bfloat16, 16)
+    a = moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)
+    assert torch.equal(a, moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx))
+    idx2, w2 = idx.clone(), weights.clone()
+    idx2[1:] = (idx2[1:] + 7) % 64
+    w2[1:] = w2[1:].flip(1)
+    assert torch.equal(a[0], moe_q4.moe_ffn_decode_q4_fused(x, eq, w2, idx2)[0])
+    one = moe_q4.moe_ffn_decode_q4(x[:1], eq, weights[:1], idx[:1])
+    assert torch.equal(one[0], moe_q4.moe_ffn_decode_q4(x, eq, weights, idx)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                                            (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b,cap,pos", [(1, 1024, [300]), (16, 1024, "ragged"), (3, 1280, [0, 700, 1279])])
+def test_cuda_attn_fused_q4_matches_twin(cuda, dtype, kv_dtype, b, cap, pos):
+    cfg, _, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, dtype, kv_dtype, b, cap)
+    attn = {"wqkv": _qlin4(cuda, 3 * 1280, 1280, seed=12), "wo": _qlin4(cuda, 1280, 1280, seed=13)}
+    if pos == "ragged":
+        pos = [0] + torch.linspace(1, cap - 1, b - 1).round().int().tolist()
+    pos_b = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = (attn_fused.attn_decode_fused.launches, attn_fused.attn_decode_fused_q4.launches)
+    got, k_new, v_new = attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    torch.cuda.synchronize()
+    assert (attn_fused.attn_decode_fused.launches, attn_fused.attn_decode_fused_q4.launches) == (
+        before[0], before[1] + 1)
+    ref, k_ref, v_ref = attn_fused.attn_decode_fused_reference(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    assert got.dtype == dtype and got.shape == xn.shape and k_new.dtype == kv_dtype
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+    for a, r in ((k_new, k_ref), (v_new, v_ref)):
+        assert float((a.float() - r.float()).abs().max()) <= _tol(r.float(), dtype if kv_dtype == dtype else
+                                                                   torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_int4_kernels_make_no_host_sync_and_quantize_as_the_cpu(cuda):
+    w = _qlin4(cuda, 1000, 1280, seed=11)
+    x, eq, weights, idx = _q4_moe_case(cuda, torch.bfloat16, 16)
+    cfg, _, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, torch.bfloat16, torch.bfloat16, 4, 256)
+    attn = {"wqkv": _qlin4(cuda, 3 * 1280, 1280, seed=12), "wo": _qlin4(cuda, 1280, 1280, seed=13)}
+    pos_b = torch.tensor([0, 5, 100, 255], dtype=torch.int32, device=cuda)
+
+    def run():
+        linear_q4.linear_q4(x, w)
+        moe_q4.moe_ffn_decode_q4(x[:1], eq, weights[:1], idx[:1], with_shared=True)
+        moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)
+        attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 0, pos_b)
+
+    run()  # builds the libraries first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = torch.Generator().manual_seed(12)
+    wc = torch.randn(300, 6848, generator=g) * 0.03
+    wc[7] = 0.0
+    want, got = linear_q4.quantize_linear_q4(wc), linear_q4.quantize_linear_q4(wc.to(cuda))
+    assert torch.equal(got["q4"].cpu(), want["q4"]) and torch.equal(got["scale"].cpu(), want["scale"])

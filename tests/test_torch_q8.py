@@ -131,12 +131,6 @@ def test_quantize_lm_params_matches_jax(scope):
             jdsv2.quantize_lm_params(jparams, scope=scope))
 
 
-def test_quantize_lm_params_refuses_int4():
-    cfg, jparams = _jax_lm()
-    with pytest.raises(ValueError, match="next slice"):
-        tdsv2.quantize_lm_params(tdsv2.params_from_jax(jparams, cfg), scope="full", bits=4)
-
-
 def test_dequantize_experts_matches_jax():
     cfg, jparams = _jax_lm()
     jq = jdsv2.quantize_lm_params(jparams)["moe_q8"][0]
