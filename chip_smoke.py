@@ -9,11 +9,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    source, all started together);
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the main path's shapes (no-crop and crop pages, the 16-slot decode
-   batch, the int8 and int4 decode steps), with the max abs error beside its
+   batch on f32, bf16, int8 and int8tail pools, the int8 and int4 decode
+   steps), with the max abs error beside its
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`); the grouped-GEMM MoE (D, E)
-   also whole against its grouped twin; D+E, F and H-O once each
+   also whole against its grouped twin; D+E, F, H-O and P once each
    under `torch.cuda.set_sync_debug_mode("error")` (no host sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
    cut-over, its int8 layer as I and as J, its int4 layer as M and as N;
@@ -48,12 +49,24 @@ Phases (each raises on failure, so the exit code is non-zero):
    J 11, G 12, H 27 a step (continuous), beside the same pages on the
    bf16 LM; 6c: the same with `--int4` (O, N, L in place of K, J, H); then
    device time and device launches per decode token for bf16, both int8
-   scopes and `--int4` (torch.profiler, after every timed phase);
+   scopes and `--int4` (torch.profiler, after every timed phase); 6d: the
+   continuous engine at 16 slots on 6b's pages with the bf16 LM on a bf16,
+   an int8 (`--kv-cache int8`) and an int8tail pool, and with `--int8` on
+   int8tail: pages/s, decode tok/s and pool bytes, held to P 12 and G 0 a
+   step on the quantized pools; one sampled `decode_chunk` on an int8tail
+   pool under sync-debug mode "error";
 7. serving is token-exact: on phase 5's card model, both engines (16
    slots) against each page's single-page `generate_ocr`, in bf16-free f32
    weights and again with `--int8` (7b) and `--int4` (7c); a difference
    is accepted only where the single run's top-2 margin at the first
-   differing step is below LOGITS_RTOL of its largest logit.
+   differing step is below LOGITS_RTOL of its largest logit. 7d: on the
+   same model, card against CPU with the quantized pools: the pools after
+   one admission (the card's codes, scales and open pages bit-identical to
+   the CPU's quantization of the card's own prefill K/V; card and CPU
+   within the stated bounds), the continuous engine's tokens on int8 and
+   int8tail under the margin rule on the CPU engine's logits, and sampled
+   `generate_ocr` (temperature 0.7, top-k 50, top-p 0.9, seed 3) under the
+   same rule on logits / T + Gumbel noise; at temperature 0 it is greedy.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -87,7 +100,8 @@ SERVE_PAGES = [(700, 500), (768, 768), (420, 640), (600, 760), (512, 512), (760,
 # - f32: the kernels take sums in another order and A/B take an online
 #   softmax over key tiles instead of a full-row one; outputs are O(1), so
 #   f32 rounding stays far below 1e-4.
-#   G reads f32 or bf16 pools but computes in f32 on both sides: F32_TOL.
+#   G reads f32 or bf16 pools but computes in f32 on both sides: F32_TOL;
+#   so does P, from int8 codes times f32 scales (and bf16 open pages).
 # - bf16: both sides round the same f32 values to bf16 at the same points;
 #   an f32 sum that lands on the other side of a rounding boundary moves
 #   an output by one bf16 ulp (2^-8 relative), and in C such a flip of the
@@ -372,8 +386,67 @@ def decode_results(dev, randn, record) -> None:
                    median_ms(lambda: paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens,
                                                                       scale=scale)),
                    bound_ms(nbytes(q, ref, bt, lens) + 2 * n_keys * 10 * 128 * k_pool.element_size(),
-                            4 * n_keys * 10 * 128, torch.float32))
+                            4 * n_keys * 10 * 128, torch.float32),
+                   graph=lambda: paged_decode_attention_pool(*args, li, scale=scale))
         del k_pool, v_pool
+    torch.cuda.empty_cache()
+    paged_q8_results(dev, record)
+
+
+def paged_q8_results(dev, record) -> None:
+    """Kernel P at G's main-path shape (16 rows of lengths 260..2048 over
+    128-token pages, a [12, 257, 10, 128, 128] int8 pool) and at one row of
+    1500 tokens, plain int8 and int8tail, layer 11. Block tables are
+    row-exclusive, as the engine keeps them (the twin's open-page patch
+    needs it); at 16 rows the last row is finished on the scratch page 0,
+    and in tail mode its output is not compared (the twin puts its open
+    page on every one of its page-0 entries, the kernel only on the last;
+    the engine discards it). The bound counts each row's tokens once: codes
+    and scales of K and V, and in tail mode the last page's tokens as bf16
+    instead. One int8tail launch runs in sync-debug mode."""
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool_q8,
+        paged_decode_attention_q8_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    page, heads, d, li, scale = 128, 10, 128, 11, 128**-0.5
+    for b in (16, 1):
+        max_pages = 2048 // page
+        n_pages = b * max_pages + 1
+        codes = [torch.randint(-127, 128, (12, n_pages, heads, page, d), generator=g, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(12, n_pages, heads, page, generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2)]
+        opens = [torch.randn(12, b, heads, page, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+        bt = (torch.randperm(n_pages - 1, generator=g, device=dev)[: b * max_pages] + 1).reshape(b, max_pages)
+        bt = bt.to(torch.int32)
+        lens = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32) if b > 1 else \
+            torch.full((1,), 1500, dtype=torch.int32, device=dev)
+        if b > 1:
+            bt[-1] = 0
+        q = torch.randn(b, heads, d, generator=g, device=dev)
+        n = lens.long().cpu()
+        n_tail = n - (n - 1) // page * page  # tokens of each row's last page
+        for tail in (False, True):
+            kw = dict(scale=scale, open_k=opens[0], open_v=opens[1]) if tail else dict(scale=scale)
+            args = (q, codes[0], codes[1], scales[0], scales[1], bt, lens, li)
+            ref = paged_decode_attention_q8_reference(*args, **kw)
+            got = paged_decode_attention_pool_q8(*args, **kw)
+            live = slice(None, -1) if tail and b > 1 else slice(None)
+            if tail:
+                kv_bytes = int((n - n_tail).sum()) * 2 * heads * (d + 4) + int(n_tail.sum()) * 2 * heads * d * 2
+            else:
+                kv_bytes = int(n.sum()) * 2 * heads * (d + 4)
+            record("P", f"{'int8tail' if tail else 'int8'} pool {tuple(codes[0].shape)}, B {b}, "
+                        f"lengths {int(n.min())}..{int(n.max())}, layer {li}",
+                   ref[live], got[live], F32_TOL,
+                   median_ms(lambda: paged_decode_attention_pool_q8(*args, **kw)),
+                   median_ms(lambda: paged_decode_attention_q8_reference(*args, **kw)),
+                   bound_ms(nbytes(q, ref, bt, lens) + kv_bytes, 4 * int(n.sum()) * heads * d, torch.float32),
+                   graph=lambda: paged_decode_attention_pool_q8(*args, **kw))
+            if tail and b > 1:
+                no_host_sync(dev, "P (int8tail, B 16)", lambda: paged_decode_attention_pool_q8(*args, **kw))
+        del codes, scales, opens
     torch.cuda.empty_cache()
 
 
@@ -890,7 +963,7 @@ def counters():
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu
     from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_fused
     from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_down, moe_gmm_swiglu
-    from deepseek_ocr2_tpu_torch.ops.paged_attention import paged_decode_attention_pool
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import paged_decode_attention_pool, paged_decode_attention_pool_q8
     from deepseek_ocr2_tpu_torch.ops.attn_fused import attn_decode_fused
     from deepseek_ocr2_tpu_torch.ops.linear_q8 import linear_q8
     from deepseek_ocr2_tpu_torch.ops.moe_decode import moe_ffn_decode_q8_fused
@@ -902,14 +975,14 @@ def counters():
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
             "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
             "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused, "L": linear_q4, "M": moe_ffn_decode_q4,
-            "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4}
+            "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8}
 
 
 # The quantized tiers of the CLI: (flag, scope, bits).
 INT8, MOE_INT8, INT4 = ("--int8", "full", 8), ("--moe-int8", "experts", 8), ("--int4", "full", 4)
 
 
-def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool) -> dict:
+def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool, q8_pool: bool = False) -> dict:
     """The quantized kernels' launches in one decode step, derived from the
     code (models/deepseek_v2.py `lm_forward` / `ffn`, runtime/paged_kv.py);
     int8 names first, int4 ones after the slash:
@@ -921,16 +994,17 @@ def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool) -
     - H / L for the dense MLP's two linears and for lm_head, and in scope
       "full" for the shared MLP's two unless the pseudo-experts are folded
       in (always with J / N, at one row with I / M).
-    The other tier's four kernels and F launch none."""
+    The other tier's four kernels and F launch none; on a quantized pool
+    (`q8_pool`) P takes G's place."""
     full = scope == "full"
     n_moe, n_dense = lm.num_moe_layers, lm.first_k_dense_replace
     j = rows * lm.num_experts_per_tok > lm.n_routed_experts
     shared_h = 0 if (j or rows == 1) else 2 * n_moe
     att, sel, distinct, lin = "KIJH" if bits == 8 else "OMNL"
-    want = dict.fromkeys("FHIJKLMNO", 0)
+    want = dict.fromkeys("FGHIJKLMNOP", 0)
     want.update({
         att: lm.num_hidden_layers if full and not paged else 0,
-        "G": lm.num_hidden_layers if paged else 0,
+        "P" if q8_pool else "G": lm.num_hidden_layers if paged else 0,
         sel: 0 if j else n_moe,
         distinct: n_moe if j else 0,
         lin: (2 * n_dense + 1 + shared_h + (2 * lm.num_hidden_layers if paged else 0)) if full else 0,
@@ -1112,7 +1186,7 @@ def phase_card_vs_cpu(dev):
     reduced depth in f32, with the LM's weights as loaded, then quantized
     with --int8 and with --int4 (on each device; the codes or levels and the
     scales must agree bit for bit). Returns the card's pipelines {"f32",
-    "int8", "int4"} for phase 7."""
+    "int8", "int4"} for phase 7 and the CPU's f32 weights for phase 7d."""
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
@@ -1161,6 +1235,8 @@ def phase_card_vs_cpu(dev):
             if device != "cpu":
                 pipes[tier] = pipe
             del params, pipe
+        if device == "cpu":
+            cpu_params = loaded
         del loaded
     names = ("lm_head codes", "layer 1 wqkv codes", "layer 1 pseudo-expert down scales")
     for tier in ("int8", "int4"):
@@ -1184,7 +1260,7 @@ def phase_card_vs_cpu(dev):
                 top2 = torch.topk(cpu.step_logits[step], 2).values
                 print(f"[cpu-vs-card] {tier} {name}: first difference at step {step}: cpu top-2 margin "
                       f"{float(top2[0] - top2[1]):.3e}")
-    return pipes
+    return pipes, cpu_params
 
 
 # ---------------------------------------------------------------------------
@@ -1410,37 +1486,108 @@ def phase_serving_quant(dev, pipe) -> dict:
     return launches
 
 
-def _decode_chunk_sync_check(dev, pipe, kernels) -> None:
+def _decode_chunk_sync_check(dev, pipe, kernels, kv_dtype=None, sampling=None) -> None:
     """One decode_chunk with the host-sync check on: 16 rows at ragged
-    lengths over a synthetic pool (the K/V contents do not matter here).
-    It runs after phase 6 has read its counts, so it adds nothing to them."""
+    lengths over a synthetic pool (the K/V contents do not matter here), of
+    the pipeline's kv_dtype or `kv_dtype`, greedy or with `sampling`. It
+    runs after its phase has read its counts, so it adds nothing to them."""
     from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
     from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache
 
     cfg, lm = pipe.cfg, pipe.cfg.lm
     moe_layers = lm.num_moe_layers
+    kv_dtype = kv_dtype or pipe.kv_dtype
+    attention = "P" if isinstance(kv_dtype, str) else "G"
     pool = make_paged_kv_cache(lm.num_hidden_layers, 16 * 4 + 1, lm.num_attention_heads, 128, lm.head_dim,
-                               dtype=pipe.kv_dtype, device=dev)
+                               dtype=kv_dtype, device=dev, slots=16)
     state = DecodeState.empty(16, 512, dev)
     state.tokens.random_(2, lm.vocab_size)
     state.cur_lens.copy_(torch.arange(120, 136, dtype=torch.int32, device=dev))  # across a page end
     state.done.zero_()
     state.limits.fill_(200)
+    state.seeds.copy_(torch.arange(16, device=dev))
     tables = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(16, 4)
-    chunk = dict(n_steps=2, ngram_size=20, eos_id=cfg.eos_token_id, rope=pipe.rope)
+    chunk = dict(n_steps=2, ngram_size=20, eos_id=cfg.eos_token_id, rope=pipe.rope, **(sampling or {}))
     lm_params = pipe.params["lm"]
     decode_chunk(lm_params, lm, pool, state, tables, **chunk)  # warm-up
     torch.cuda.synchronize(dev)
     before = {k: fn.launches for k, fn in kernels.items()}
-    status = no_host_sync(dev, "decode_chunk(2 steps, 16 rows)",
-                          lambda: decode_chunk(lm_params, lm, pool, state, tables, **chunk))
+    what = f"decode_chunk(2 steps, 16 rows, {kv_dtype} pool{', sampled' if sampling else ''})"
+    status = no_host_sync(dev, what, lambda: decode_chunk(lm_params, lm, pool, state, tables, **chunk))
     lens = status[:16].cpu()
     d = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    print(f"[serve] decode_chunk: lengths {lens[0].item()}..{lens[-1].item()}, launches F {d['F']} G {d['G']}")
-    if d["F"] != 2 * moe_layers or d["G"] != 2 * lm.num_hidden_layers or not torch.equal(
+    print(f"[serve] {what}: lengths {lens[0].item()}..{lens[-1].item()}, launches F {d['F']} "
+          f"{attention} {d[attention]}")
+    if d["F"] != 2 * moe_layers or d[attention] != 2 * lm.num_hidden_layers or not torch.equal(
             lens, torch.arange(124, 140, dtype=torch.int32)):
         raise AssertionError(f"decode_chunk: launches {d}, lengths {lens.tolist()}")
     del pool, state
+
+
+def _pool_bytes(lm, num_pages: int, slots: int, kv_dtype) -> int:
+    """The bytes of a paged pool, from its tensors' shapes (built on the meta
+    device: nothing is allocated)."""
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache
+
+    pool = make_paged_kv_cache(lm.num_hidden_layers, num_pages, lm.num_attention_heads, 128, lm.head_dim,
+                               dtype=kv_dtype, device="meta", slots=slots)
+    return nbytes(*pool.values())
+
+
+def phase_serving_kv(dev, pipe) -> dict:
+    """Phase 6d: the continuous engine at 16 slots on phase 6b's 16 no-crop
+    pages at 64 new tokens, on phase 3's bf16 LM with a bf16 pool, an int8
+    pool and an int8tail pool, then with --int8 weights on an int8tail
+    pool: pages/s, decode tok/s and the pool's bytes. Decode launches are
+    held to G 12 a step on the bf16 pool and P 12, G 0 on the quantized
+    ones (with the bf16 LM, F 11; with --int8, `quant_launches_per_step`).
+    Then one sampled decode_chunk on an int8tail pool in sync-debug mode.
+    Returns the launches of the four runs."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    pages = _serve_pages(cfg, 16, 0, seed=600)
+    bf16_lm = pipe.params["lm"]
+    for fn in kernels.values():
+        fn.launches = 0
+    for tier, kv in (("bf16", "bfloat16"), ("bf16", "int8"), ("bf16", "int8tail"), ("--int8", "int8tail")):
+        lm_params = bf16_lm if tier == "bf16" else quantize_lm_params(bf16_lm, scope="full", bits=8)
+        kpipe = OCR2Pipeline({**pipe.params, "lm": lm_params}, cfg, pipe.tokenizer, device=dev, kv_dtype=kv,
+                             act_dtype="float32")
+        engine = ContinuousOCREngine(kpipe, slots=16, capacity=1024, chunk_steps=16, page_size=128)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        res = engine.run(pages, max_new_tokens=64, ngram_size=20)
+        dt = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        steps = engine.last_decode_steps
+        decoded = sum(r.new_tokens - 1 for r in res)
+        attention = "G" if kv == "bfloat16" else "P"
+        if tier == "bf16":
+            want = dict.fromkeys("FGHIJKLMNOP", 0)
+            want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
+        else:
+            want = {k: n * steps for k, n in quant_launches_per_step(lm, "full", 8, rows=16, paged=True,
+                                                                     q8_pool=attention == "P").items()}
+            want["H"] += engine.last_admissions
+        pool_mb = _pool_bytes(lm, engine.num_pages, 16, kv if kv != "bfloat16" else torch.bfloat16) / 2**20
+        print(f"[serve-kv] ContinuousOCREngine(slots=16), {tier} LM, {kv} pool ({pool_mb:.1f} MiB for "
+              f"{engine.num_pages} pages): {len(pages)} pages in {dt:.2f} s = {len(pages) / dt:.2f} pages/s; "
+              f"{steps} decode steps in {engine.last_decode_seconds:.2f} s, {decoded} tokens = "
+              f"{decoded / engine.last_decode_seconds:.1f} tok/s in total; launches {delta}")
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad or steps < 1 or any(r is None or r.new_tokens < 1 for r in res):
+            raise AssertionError(f"{tier} LM on the {kv} pool: launches (got, derived) {bad}")
+        del engine, res, kpipe, lm_params
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[serve-kv] launches over phase 6d {launches}")
+    _decode_chunk_sync_check(dev, pipe, kernels, kv_dtype="int8tail",
+                             sampling=dict(temperature=0.7, top_k=50, top_p=0.9))
+    return launches
 
 
 def _first_difference(single, served) -> str:
@@ -1499,6 +1646,155 @@ def phase_serving_exact(dev, pipe, tier: str = "f32") -> None:
         raise AssertionError(f"the reduced-depth {tier} serving run did not reach {', '.join(need)}: {d}")
 
 
+def _sampled_margin(r, step: int, sampling: dict) -> tuple:
+    """(top-2 margin, bound) of the sampled choice at `step` of a CPU
+    generate_ocr run with keep_logits: the candidates' logits / T (NaN and
+    n-gram-banned ones -inf, the top-k, the nucleus) plus the Gumbel noise
+    of that step's key, as `greedy_generate` and `sample_pick` draw it; the
+    bound is LOGITS_RTOL of the largest |logit / T|."""
+    from deepseek_ocr2_tpu_torch.ops import prng
+    from deepseek_ocr2_tpu_torch.ops.sampling import ngram_ban_mask_batched
+
+    logits = r.step_logits[step].float()[None]
+    n = r.prompt_len + step
+    ban = ngram_ban_mask_batched(torch.tensor([r.token_ids[:n]]), torch.tensor([n]), 20, logits.shape[-1])
+    l32 = logits.masked_fill(torch.isnan(logits) | ban, float("-inf")) / sampling["temperature"]
+    vals = torch.sort(l32, dim=-1, descending=True, stable=True).values[:, : sampling["top_k"]]
+    e = torch.exp(vals - vals.max())
+    probs = e / e.sum()
+    vals = vals.masked_fill((torch.cumsum(probs, -1) - probs) >= sampling["top_p"], float("-inf"))
+    key = prng.prng_key(sampling["seed"])
+    for _ in range(step + 1):  # one split before the first pick and one a step
+        key, sub = prng.split(key)
+    scores = (vals + prng.gumbel(prng.split(sub, 1), (vals.shape[-1],)))[0]
+    top2 = torch.topk(scores[torch.isfinite(scores)], 2).values
+    finite = l32[torch.isfinite(l32)]
+    return float(top2[0] - top2[1]), LOGITS_RTOL * float(finite.abs().max())
+
+
+def phase_kv_card_vs_cpu(dev, card_params, cpu_params) -> None:
+    """Phase 7d: phase 5's reduced-depth f32 model, card against CPU, with
+    the quantized pools. For int8 and int8tail: two no-crop pages admitted
+    as one group into a fresh pool on each device; the card's pool must
+    equal, bit for bit, the CPU's quantization of the card's own prefill
+    K/V (quantize_kv, the page scatter, the open-page staging), and the
+    card's and the CPU's pools agree within the bounds printed (codes one
+    apart at most, where the two devices' K/V straddle a rounding point).
+    Then the continuous engine on both devices over the same pages at 16
+    new tokens, tokens under phase 7's margin rule on the CPU engine's
+    logits. Last, sampled generate_ocr (temperature 0.7, top-k 50, top-p
+    0.9, seed 3) on both devices under the same rule on logits / T + noise,
+    and at temperature 0 on the card, which must be greedy's tokens."""
+    from types import SimpleNamespace
+
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.runtime import continuous as cont
+    from deepseek_ocr2_tpu_torch.runtime.engine import batched_vision_prefill
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for, write_prompt_pool_batched
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    base = OCR2Config()
+    cfg = dataclasses.replace(
+        base,
+        lm=dataclasses.replace(base.lm, num_hidden_layers=2),
+        qwen2=dataclasses.replace(base.qwen2, num_hidden_layers=2),
+        sam=dataclasses.replace(base.sam, depth=3, global_attn_indexes=(2,)),
+    )
+    lm, page = cfg.lm, 128
+    tok = StubTokenizer(lm.vocab_size)
+    pages = [synthetic_page(*PAGES[i], cfg, seed=90 + i)[0] for i in range(2)]
+    roles = {"cpu": (torch.device("cpu"), cpu_params), "card": (dev, card_params)}
+    kernels = counters()
+    for kv in ("int8", "int8tail"):
+        pipes = {role: OCR2Pipeline(p, cfg, tok, device=d, kv_dtype=kv, act_dtype="float32")
+                 for role, (d, p) in roles.items()}
+        pools, prefill = {}, {}
+        for role, kp in pipes.items():
+            d = kp.device
+            bases = torch.cat([kp.preprocess_finish(p if isinstance(p, dict) else kp.preprocess_host(p))[0]
+                               for p in pages])
+            ids, _, start = tokenize_with_image(tok, cfg.default_ocr_prompt, cfg, (1, 1))
+            ids_t, embeds = batched_vision_prefill(kp, ids, bases, None, start)
+            n_prompt = pages_for(len(ids), page)
+            k_new, v_new, _ = cont.admit_prefill(kp.params["lm"], lm, embeds, ids_t, capacity=n_prompt * page,
+                                                 kv_dtype=torch.float32, ngram_size=20, rope=kp.rope)
+            pool = make_paged_kv_cache(lm.num_hidden_layers, 2 * n_prompt + 1, lm.num_attention_heads, page,
+                                       lm.head_dim, dtype=kv, device=d, slots=2)
+            page_ids = torch.arange(1, 2 * n_prompt + 1, dtype=torch.int32, device=d).reshape(2, n_prompt)
+            write_prompt_pool_batched(pool, k_new, v_new, page_ids, len(ids), slot_ids=torch.arange(2, device=d))
+            pools[role] = {name: t.cpu() for name, t in pool.items()}
+            prefill[role] = (k_new.cpu(), v_new.cpu(), page_ids.cpu(), len(ids))
+        card, cpu = pools["card"], pools["cpu"]
+        k_new, v_new, page_ids, n = prefill["card"]
+        again = make_paged_kv_cache(lm.num_hidden_layers, page_ids.numel() + 1, lm.num_attention_heads, page,
+                                    lm.head_dim, dtype=kv, slots=2)
+        write_prompt_pool_batched(again, k_new, v_new, page_ids, n, slot_ids=torch.arange(2))
+        same = {name: int((card[name].view(torch.uint8) != again[name].view(torch.uint8)).sum()) for name in card}
+        if any(same.values()):
+            raise AssertionError(f"{kv}: the card's pool differs from the CPU's quantization of the card's K/V: {same}")
+        # Card vs CPU: the prefill K/V within LOGITS_RTOL of their largest
+        # value (f32 sums in another order); a code may then differ by one
+        # where the two devices' K/V straddle a rounding point, the scales
+        # by the K/V's own relative difference, an open page by a bf16 ulp
+        # (2^-7 of the largest value at most).
+        kv_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(prefill["card"][:2], prefill["cpu"]))
+        code_diff = max(int((card[name].int() - cpu[name].int()).abs().max()) for name in ("k", "v"))
+        flips = sum(int((card[name] != cpu[name]).sum()) for name in ("k", "v"))
+        rel = {name: float((card[name].float() - cpu[name].float()).abs().max() / cpu[name].float().abs().max())
+               for name in card if name not in ("k", "v")}  # relative to the plane's largest value
+        print(f"[kv-card-vs-cpu] {kv} pool after one admission: the card's pool bit-identical to the CPU's "
+              f"quantization of the card's K/V; card vs CPU: prefill K/V max relative error {kv_err:.2e}, "
+              f"{flips} of {2 * card['k'].numel()} codes differ, by at most {code_diff}; max relative "
+              f"difference {rel}")
+        if kv_err > LOGITS_RTOL or code_diff > 1 or max(v for n, v in rel.items() if n.endswith("scale")) > \
+                LOGITS_RTOL or max((v for n, v in rel.items() if n.startswith("open")), default=0.0) > 2.0**-7:
+            raise AssertionError(f"{kv}: card and CPU pools apart beyond the bounds")
+
+        logits, orig = [], cont.logits_last
+        served = {}
+        for role, kp in pipes.items():
+            engine = cont.ContinuousOCREngine(kp, slots=2, capacity=512, chunk_steps=8, page_size=page)
+            reqs = engine.prestage(pages, max_new_tokens=16)  # both pages ready: one admission group
+            before = {k: fn.launches for k, fn in kernels.items()}
+            if role == "cpu":
+                cont.logits_last = lambda params, hidden: logits.append(orig(params, hidden).float()) or logits[-1]
+            try:
+                served[role] = engine.run_requests(reqs, ngram_size=20)
+            finally:
+                cont.logits_last = orig
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            if role == "card" and (delta["P"] != lm.num_hidden_layers * engine.last_decode_steps or delta["G"]):
+                raise AssertionError(f"{kv} engine on the card: P {delta['P']}, G {delta['G']} launches")
+        for i in range(2):
+            single = SimpleNamespace(token_ids=served["cpu"][i].token_ids, prompt_len=served["cpu"][i].prompt_len,
+                                     step_logits=[lg[i] for lg in logits])
+            note = _first_difference(single, served["card"][i])
+            print(f"[kv-card-vs-cpu] {kv} continuous engine page {i}: card "
+                  f"{'= CPU' if not note else note} ({served['card'][i].new_tokens} tokens)")
+
+    samp = dict(temperature=0.7, top_k=50, top_p=0.9, seed=3)
+    f32 = {role: OCR2Pipeline(p, cfg, tok, device=d, kv_dtype="float32", act_dtype="float32")
+           for role, (d, p) in roles.items()}
+    gen = dict(max_new_tokens=16, ngram_size=20)
+    cpu_r = f32["cpu"].generate_ocr(pages[0], keep_logits=True, sampling=samp, **gen)
+    card_r = f32["card"].generate_ocr(pages[0], sampling=samp, **gen)
+    a, b = cpu_r.token_ids[cpu_r.prompt_len:], card_r.token_ids[card_r.prompt_len:]
+    note = "card = CPU"
+    if a != b:
+        step = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), min(len(a), len(b)))
+        margin, bound = _sampled_margin(cpu_r, min(step, len(cpu_r.step_logits) - 1), samp)
+        note = f"first difference at step {step}: CPU margin of logits / T + noise {margin:.3e} (bound {bound:.3e})"
+        if not margin < bound:
+            raise AssertionError(f"sampled generate_ocr: card and CPU tokens differ, {note}")
+    greedy = f32["card"].generate_ocr(pages[0], **gen)
+    zero = f32["card"].generate_ocr(pages[0], sampling={**samp, "temperature": 0.0}, **gen)
+    print(f"[kv-card-vs-cpu] sampled generate_ocr {samp}: {note} ({len(b)} tokens: {b}); temperature 0 = greedy: "
+          f"{zero.token_ids == greedy.token_ids}")
+    if zero.token_ids != greedy.token_ids:
+        raise AssertionError("generate_ocr at temperature 0 is not greedy")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1514,20 +1810,23 @@ def main() -> int:
     int4_launches = phase_quant_main_path(dev, pipe, (INT4,), "int4")
     serve_launches = phase_serving(dev, pipe)
     serve_quant_launches = phase_serving_quant(dev, pipe)
+    serve_kv_launches = phase_serving_kv(dev, pipe)
     phase_decode_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
-    card_pipes = phase_card_vs_cpu(dev)
+    card_pipes, cpu_params = phase_card_vs_cpu(dev)
     phase_serving_exact(dev, card_pipes["f32"])
     phase_serving_exact(dev, card_pipes["int8"], tier="int8")
     phase_serving_exact(dev, card_pipes["int4"], tier="int4")
+    phase_kv_card_vs_cpu(dev, card_pipes["f32"].params, cpu_params)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
     # The main path is one page through generate_ocr (phase 4, and with
-    # quantized weights 4b and 4c) and serving (phase 6, and 6b and 6c);
-    # each was driven with the counts at 0 and read after.
-    runs = (main_launches, int8_launches, int4_launches, serve_launches, serve_quant_launches)
+    # quantized weights 4b and 4c) and serving (phase 6, and 6b, 6c and, on
+    # the quantized pools, 6d); each was driven with the counts at 0 and
+    # read after.
+    runs = (main_launches, int8_launches, int4_launches, serve_launches, serve_quant_launches, serve_kv_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
@@ -1555,18 +1854,22 @@ def main() -> int:
               "deepseek_ocr2_tpu/ops/moe_q4.py:280"),
         "O": ("attn_fused.attn_decode_fused_q4 (fused decode attention, int4 weights)",
               "deepseek_ocr2_tpu/ops/attn_fused.py:100"),
+        "P": ("paged_attention.paged_decode_attention_pool_q8 (paged decode attention, int8 / int8tail pool)",
+              "deepseek_ocr2_tpu/ops/paged_attention.py:629"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
                "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu",
-               "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu"}
+               "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu",
+               "P": "paged_attention.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJKLMNO":
+    for k in "ABCDEFGHIJKLMNOP":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
         # one row for H and L; one row with the pseudo-experts for I and M;
-        # 16 rows for J and N; one row at pos 300 on an f32 cache for K and O.
+        # 16 rows for J and N; one row at pos 300 on an f32 cache for K and
+        # O; an int8 pool at 16 slots for P.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

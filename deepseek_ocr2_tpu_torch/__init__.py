@@ -3,13 +3,16 @@
 A port of the JAX package `deepseek_ocr2_tpu`, which stays the numeric
 reference. The layout mirrors it module for module:
 - io:       safetensors reader/writer (BF16 native) with the dtype policy
-- ops:      norms / rope / attention / moe / sampling, plus the hand-written
-            CUDA kernels (csrc/*.cu) and their plain twins
+- ops:      norms / rope / attention / moe / sampling (JAX's threefry
+            stream in prng), plus the hand-written CUDA kernels (csrc/*.cu)
+            and their plain twins
 - models:   sam (ViT-B), qwen2 (compressor), deepseek_v2 (LM), deepseek_ocr2
 - preprocess, utils: host image preprocessing, tokenizer and debug helpers
-- runtime:  KV caches, greedy generation, the OCR pipeline, the serving
+- runtime:  KV caches (contiguous; paged f32 / bf16 / int8 / int8tail),
+            greedy or sampled generation, the OCR pipeline, the serving
             engines and the HTTP front end
-- cli:      `generate-ocr` and `serve`
+- cli:      `inspect`, `generate-text`, `generate-ocr`, `debug-rope` and
+            `serve`
 
 The port imports nothing of `deepseek_ocr2_tpu`, not even its modules that
 import no jax: the config dataclasses, the dtype policy, the tokenizer and

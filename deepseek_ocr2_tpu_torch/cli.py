@@ -1,19 +1,27 @@
-"""CLI of the port: `generate-ocr` and `serve`.
+"""CLI of the port: `inspect`, `generate-text`, `generate-ocr`, `debug-rope`
+and `serve`.
 
-Same flags and defaults as `deepseek_ocr2_tpu.cli generate-ocr` and
-`serve`, except `--backend`, which picks cuda (default) or cpu. Crop mode is on by default:
-a page with a side above `--crop-image-size` (768) is read as 2-6 local
-crops plus the global view, unless `--no-crop` is given. `--moe-int8`
+Same flags and defaults as the JAX package's commands of those names,
+except `--backend`, which picks cuda (default) or cpu. Crop mode is on by
+default: a page with a side above `--crop-image-size` (768) is read as 2-6
+local crops plus the global view, unless `--no-crop` is given. `--moe-int8`
 (routed experts) and `--int8` (every decode weight) quantize the LM to int8
 after loading, `--int4` (every decode weight, group-128 scales) to int4, as
-the JAX CLI does; `--int4` wins over the other two. Flags for features the
-port does not have yet (the int8 KV pools, lookup decoding, device resize,
-sampling, profiling) raise a clear error instead of being ignored.
+the JAX CLI does; `--int4` wins over the other two. `--temperature > 0`
+samples (with `--top-k`, `--top-p`, `--seed`); `--kv-cache int8|int8tail`
+selects the quantized paged pools of `serve --continuous` / `--http`
+(elsewhere it fails as in the JAX CLI). Flags for features the port does
+not have yet (lookup decoding, device resize, profiling, memory trimming)
+raise a clear error instead of being ignored.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
         --tokenizer tokenizer.json --image page.png
     python -m deepseek_ocr2_tpu_torch.cli serve --weights W.safetensors \
         --tokenizer tokenizer.json --images p1.png p2.png [--continuous | --http]
+    python -m deepseek_ocr2_tpu_torch.cli generate-text --weights W.safetensors \
+        --tokenizer tokenizer.json --prompt "..."
+    python -m deepseek_ocr2_tpu_torch.cli inspect --weights W.safetensors
+    python -m deepseek_ocr2_tpu_torch.cli debug-rope
 """
 
 from __future__ import annotations
@@ -38,15 +46,24 @@ def _dtype_arg(value: str) -> str:
     return table[v]
 
 
-def _common_gen(sp, vision_default: str) -> None:
-    """The flags `generate-ocr` and `serve` share (the JAX CLI's common_gen)."""
+def _kv_dtype_arg(value: str) -> str:
+    if value.lower() in ("int8", "int8tail"):
+        return value.lower()
+    return _dtype_arg(value)
+
+
+def _common_gen(sp, vision_default: Optional[str]) -> None:
+    """The flags the generation commands share (the JAX CLI's common_gen);
+    `vision_default` None is `generate-text`, which has no image flags."""
     sp.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
     sp.add_argument("--weights", required=True)
     sp.add_argument("--tokenizer", required=True)
     sp.add_argument("--config", default=None, help="JSON file overriding model config fields")
-    sp.add_argument("--max-new-tokens", type=int, default=512)
+    sp.add_argument("--max-new-tokens", type=int, default=512 if vision_default else 128)
     sp.add_argument("--eos-token-id", type=int, default=1)
-    sp.add_argument("--kv-cache", default="float32", help="KV cache dtype (f32|f16|bf16)")
+    sp.add_argument("--kv-cache", type=_kv_dtype_arg, default="float32",
+                    help="KV cache dtype (f32|f16|bf16); 'int8' / 'int8tail' quantize the paged pool of "
+                         "serve --continuous/--http ('int8tail' keeps each slot's newest page exact in bf16)")
     sp.add_argument("--trim-memory", action="store_true")
     sp.add_argument("--moe-int8", action="store_true")
     sp.add_argument("--int8", action="store_true")
@@ -58,6 +75,8 @@ def _common_gen(sp, vision_default: str) -> None:
     sp.add_argument("--top-k", type=int, default=0)
     sp.add_argument("--top-p", type=float, default=1.0)
     sp.add_argument("--seed", type=int, default=0)
+    if vision_default is None:
+        return
     sp.add_argument("--no-crop", action="store_true")
     sp.add_argument("--rotate", choices=["0", "90", "180", "270"], default="0")
     sp.add_argument("--auto-rotate", action="store_true")
@@ -71,6 +90,22 @@ def build_parser() -> argparse.ArgumentParser:
         prog="deepseek-ocr2-torch", description="DeepSeek-OCR-2 on PyTorch + CUDA (Hopper)"
     )
     sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("inspect", help="List tensors in a .safetensors file")
+    sp.add_argument("--weights", required=True)
+    sp.add_argument("--take", type=int, default=50, help="entries to print (0 = all)")
+
+    sp = sub.add_parser("generate-text", help="Text-only generation (LM backbone)")
+    _common_gen(sp, vision_default=None)
+    sp.add_argument("--prompt", required=True)
+    sp.add_argument("--num-hidden-layers", type=int, default=12)
+    sp.add_argument("--cast-f16", action="store_true", help="run weights in bf16")
+
+    sp = sub.add_parser("debug-rope", help="RoPE numeric sanity check on this backend")
+    sp.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    sp.add_argument("--max-seq-len", type=int, default=16)
+    sp.add_argument("--head-dim", type=int, default=128)
+    sp.add_argument("--seq-len", type=int, default=4)
+
     sp = sub.add_parser("generate-ocr", help="End-to-end OCR (image + language)")
     _common_gen(sp, vision_default="float32")
     sp.add_argument("--image", required=True)
@@ -103,21 +138,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NEXT_SLICE = "it belongs to the next slice: the int8 / int8tail KV pools and sample_pick"
-
-
 def _refuse_outside_slice(args) -> None:
     refused = [
-        (args.kv_cache.lower() in ("int8", "int8tail"), "--kv-cache int8/int8tail", _NEXT_SLICE),
-        (args.lookup_decode > 0, "--lookup-decode", "see ROADMAP.md"),
-        (args.device_resize is not None, "--device-resize", "see ROADMAP.md"),
-        (args.temperature != 0.0, "--temperature > 0 (sampling)", _NEXT_SLICE),
-        (getattr(args, "profile_dir", None) is not None, "--profile-dir", "see ROADMAP.md"),
-        (args.trim_memory, "--trim-memory", "see ROADMAP.md"),
+        (args.lookup_decode > 0, "--lookup-decode"),
+        (args.device_resize is not None, "--device-resize"),
+        (getattr(args, "profile_dir", None) is not None, "--profile-dir"),
+        (args.trim_memory, "--trim-memory"),
     ]
-    for hit, flag, where in refused:
+    for hit, flag in refused:
         if hit:
-            raise SystemExit(f"error: {flag} is not available in the PyTorch port yet ({where})")
+            raise SystemExit(f"error: {flag} is not available in the PyTorch port yet (see ROADMAP.md)")
+
+
+def _sampling_args(args) -> Optional[dict]:
+    """The sampling keywords of the flags, None for greedy (the JAX CLI's
+    `_sampling_args`, with its checks)."""
+    if args.temperature < 0:
+        raise SystemExit("error: --temperature must be >= 0 (0 = greedy)")
+    if not 0.0 < args.top_p <= 1.0:
+        raise SystemExit("error: --top-p must be in (0, 1]")
+    if args.temperature == 0.0:
+        return None
+    return dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, seed=args.seed)
+
+
+def _device(backend: str):
+    """`--backend`'s device; cuda without a GPU exits (no CPU fallback)."""
+    import torch
+
+    device = torch.device(backend)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: --backend cuda but no CUDA device is available")
+    return device
 
 
 def int8_scope(args) -> Tuple[Optional[str], int]:
@@ -134,17 +186,13 @@ def int8_scope(args) -> Tuple[Optional[str], int]:
 def _load_pipeline(args):
     """Config, weights under the CLI's dtype policy, tokenizer -> OCR2Pipeline
     on `--backend` (cuda without a GPU exits; there is no CPU fallback)."""
-    import torch
-
     from .configs import OCR2Config, config_from_json
-
     from .io import DtypePolicy, load_flat
     from .models import deepseek_ocr2 as ocr2
     from .runtime.pipeline import OCR2Pipeline
     from .utils.tokenizer import load_tokenizer
 
     _refuse_outside_slice(args)
-    kv = _dtype_arg(args.kv_cache)
     base_cfg = config_from_json(args.config) if args.config else OCR2Config()
     cfg = dataclasses.replace(
         base_cfg,
@@ -166,9 +214,7 @@ def _load_pipeline(args):
     ):
         policy = policy.with_prefix(prefix, getattr(args, flag, None) or vision_default)
 
-    device = torch.device(args.backend)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("error: --backend cuda but no CUDA device is available")
+    device = _device(args.backend)
     flat = load_flat(args.weights, policy)
     params, report = ocr2.params_from_flat(flat, cfg, device=device)
     print(report.summary(), file=sys.stderr)
@@ -184,10 +230,89 @@ def _load_pipeline(args):
         print(f"int{bits}: LM weights quantized (scope={scope})", file=sys.stderr)
 
     act = "float32" if vision_default == "float32" else "bfloat16"
-    return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=kv, act_dtype=act)
+    return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=args.kv_cache,
+                        act_dtype=act)
+
+
+def cmd_inspect(args) -> int:
+    from .io import inspect_safetensors
+
+    rows = inspect_safetensors(args.weights)
+    take = args.take if args.take > 0 else len(rows)
+    for name, shape, dtype in rows[:take]:
+        print(f"{name}\t{list(shape)}\t{dtype}")
+    if take < len(rows):
+        print(f"... ({len(rows) - take} more)")
+    return 0
+
+
+def cmd_generate_text(args) -> int:
+    """As the JAX CLI's generate-text: the LM trunk alone (include_regex),
+    stored dtypes unless --cast-f16, activations in the embedding's dtype."""
+    import torch
+
+    from .configs import DeepseekV2Config, OCR2Config, config_from_json
+    from .io import DtypePolicy, load_flat
+    from .models import deepseek_v2 as dsv2
+    from .runtime.pipeline import OCR2Pipeline
+    from .utils.tokenizer import load_tokenizer
+
+    _refuse_outside_slice(args)
+    sampling = _sampling_args(args)
+    if args.config:
+        lm_cfg = config_from_json(args.config).lm
+        if args.num_hidden_layers != 12:
+            lm_cfg = dataclasses.replace(lm_cfg, num_hidden_layers=args.num_hidden_layers)
+    else:
+        lm_cfg = DeepseekV2Config(num_hidden_layers=args.num_hidden_layers)
+    device = _device(args.backend)
+    policy = DtypePolicy(default="bfloat16" if args.cast_f16 else None)
+    flat = load_flat(args.weights, policy, include_regex=[
+        r"^model\.embed_tokens\.", r"^model\.layers\.", r"^model\.norm\.", r"^lm_head\.",
+    ])
+    params, report = dsv2.params_from_flat(flat, lm_cfg, device=device)
+    print(report.summary(), file=sys.stderr)
+    report.raise_on_errors()
+    del flat
+    scope, bits = int8_scope(args)
+    if scope:
+        params = dsv2.quantize_lm_params(params, scope=scope, bits=bits)
+        print(f"int{bits}: LM weights quantized (scope={scope})", file=sys.stderr)
+    cfg = OCR2Config(lm=lm_cfg, eos_token_id=args.eos_token_id)
+    act = "float32" if params["embed"].dtype == torch.float32 else "bfloat16"
+    pipe = OCR2Pipeline({"lm": params}, cfg, load_tokenizer(args.tokenizer), device=device,
+                        kv_dtype=args.kv_cache, act_dtype=act)
+    result = pipe.generate_text(args.prompt, max_new_tokens=args.max_new_tokens, eos_token_id=args.eos_token_id,
+                                sampling=sampling)
+    print(result.text)
+    print(f"[{result.new_tokens} tokens, {result.decode_tokens_per_sec:.1f} tok/s]", file=sys.stderr)
+    return 0
+
+
+def cmd_debug_rope(args) -> int:
+    """As the JAX CLI's debug-rope, on the port's ops/rope.py on --backend."""
+    import numpy as np
+    import torch
+
+    from .ops.rope import apply_rope, rope_cache
+
+    device = _device(args.backend)
+    cos, sin = rope_cache(args.max_seq_len, args.head_dim, 10000.0, device=device)
+    print(f"cos[0,:4]={cos[0, :4].cpu().numpy()} sin[1,:4]={sin[1, :4].cpu().numpy()}")
+    for name, dtype in (("zeros", torch.float32), ("f32", torch.float32), ("bf16", torch.bfloat16)):
+        shape = (1, 1, args.seq_len, args.head_dim)
+        if name == "zeros":
+            x = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            x = torch.arange(int(np.prod(shape)), dtype=torch.float32, device=device).reshape(shape).to(dtype) / 100.0
+        q, k = apply_rope(x, x, cos, sin, 0)
+        nan_q, nan_k = int(torch.isnan(q).sum()), int(torch.isnan(k).sum())
+        print(f"{name}: nan_q={nan_q} nan_k={nan_k} q[0,0,0,:3]={q[0, 0, 0, :3].cpu().numpy()}")
+    return 0
 
 
 def cmd_generate_ocr(args) -> int:
+    sampling = _sampling_args(args)
     pipe = _load_pipeline(args)
     result = pipe.generate_ocr(
         args.image,
@@ -198,6 +323,7 @@ def cmd_generate_ocr(args) -> int:
         auto_rotate=args.auto_rotate,
         ngram_size=args.no_repeat_ngram_size,
         eos_token_id=args.eos_token_id,
+        sampling=sampling,
     )
     print(result.text)
     print(
@@ -217,6 +343,7 @@ def cmd_serve(args) -> int:
     if not args.http and not args.images:
         print("error: --images is required unless --http is set", file=sys.stderr)
         return 2
+    sampling = _sampling_args(args)
     pipe = _load_pipeline(args)
     if args.http or args.continuous:
         from .runtime.continuous import ContinuousOCREngine
@@ -230,7 +357,7 @@ def cmd_serve(args) -> int:
     if args.http:
         from .runtime.http_server import OCRHttpServer
 
-        engine.start(ngram_size=args.no_repeat_ngram_size)
+        engine.start(ngram_size=args.no_repeat_ngram_size, sampling=sampling)
         server = OCRHttpServer(engine, host=args.host, port=args.port, include_token_ids=args.include_token_ids)
         print(f"serving OCR at http://{args.host}:{server.port}/v1/ocr (slots={args.batch_size}); "
               "Ctrl-C to stop", file=sys.stderr)
@@ -250,6 +377,7 @@ def cmd_serve(args) -> int:
         rotate=int(args.rotate),
         auto_rotate=args.auto_rotate,
         ngram_size=args.no_repeat_ngram_size,
+        sampling=sampling,
     )
     dt = time.perf_counter() - t0
     for path, res in zip(args.images, results):
@@ -264,6 +392,12 @@ def cmd_serve(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "inspect":
+        return cmd_inspect(args)
+    if args.command == "generate-text":
+        return cmd_generate_text(args)
+    if args.command == "debug-rope":
+        return cmd_debug_rope(args)
     if args.command == "generate-ocr":
         return cmd_generate_ocr(args)
     if args.command == "serve":

@@ -36,6 +36,28 @@
 //
 // Shapes: D = 128 (the LM's head dim), page <= 128, f32 or bf16 pool, q
 // f32 (checked by the wrapper).
+//
+// Kernel P (paged_decode_q8) replaces deepseek_ocr2_tpu/ops/paged_attention.py:
+// _paged_kernel_pool_q8, its one-query form: the same walk over an int8 pool.
+// Page p of the head is a [page, D] slab of int8 codes and a [page] row of
+// f32 scales (pool[li, bt[row, p], head] and scale[li, bt[row, p], head]);
+// key j widens to codes[j, :] * scale[j] in f32 before the dot product, as
+// the TPU kernel and the plain twin (dequantize, then attend) do. In tail
+// mode (int8tail pools) the row's last page, p == (seq_len - 1) / page, is
+// read instead from the row's bf16 open page open[li, row, head], exact; a
+// row of seq_len <= page reads only that. Finished rows point at the scratch
+// page 0 and read their own slot's open page; their output is discarded.
+//
+// Same layout as G: one block per (row, head), D = 128 threads. Scores: a
+// lane reads 4 codes (a char4, sign-extended) where G reads 4 floats, so a
+// warp reads one 128-byte key row. PV: thread t owns output dim t. The page's
+// two scale rows sit in shared memory.
+//
+// What bounds it: bytes. A token of a (row, head) costs 2 * 128 code bytes
+// and 2 * 4 scale bytes, 264 bytes against G's 1024 (f32) and 512 (bf16);
+// the open page adds 2 * 2 * 128 bytes a token of the last page. The same
+// 160 blocks at 16 rows as G: splitting a row's pages across blocks is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,7 +163,115 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
   return (int)cudaGetLastError();
 }
 
+template <bool TAIL>
+__global__ void __launch_bounds__(NT) paged_q8_kernel(
+    const float* __restrict__ q, const signed char* __restrict__ k_pages, const signed char* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ open_k,
+    const __nv_bfloat16* __restrict__ open_v, const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
+    float* __restrict__ out, int n_heads, int page, int max_pages, float scale) {
+  __shared__ float w[MAX_PAGE];
+  __shared__ float ks[MAX_PAGE];
+  __shared__ float vs[MAX_PAGE];
+  __shared__ float wmax[WARPS];
+  const int row = blockIdx.x, head = blockIdx.y;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const size_t qo = ((size_t)row * n_heads + head) * D;
+  float qf[4];
+  load4(q + qo + lane * 4, qf);
+
+  const int len = seq_lens[row];
+  const int last = len > 0 ? (len - 1) / page : -1;
+  const size_t obase = ((size_t)row * n_heads + head) * page * D;  // the row's open page (tail mode)
+  float m = -INFINITY, l = 0.f, acc = 0.f;
+  for (int p = 0; p < max_pages && p * page < len; ++p) {
+    const int pg = block_tables[(size_t)row * max_pages + p];
+    const size_t sbase = ((size_t)pg * n_heads + head) * page;
+    const size_t base = sbase * D;
+    const bool in_open = TAIL && p == last;
+    if (!in_open && t < page) {
+      ks[t] = k_scale[sbase + t];
+      vs[t] = v_scale[sbase + t];
+    }
+    __syncthreads();
+    float mx = -INFINITY;
+#pragma unroll 4
+    for (int j = warp; j < page; j += WARPS) {
+      float kf[4];
+      if (in_open) {
+        load4(open_k + obase + (size_t)j * D + lane * 4, kf);
+      } else {
+        const char4 c = *reinterpret_cast<const char4*>(k_pages + base + (size_t)j * D + lane * 4);
+        const float sj = ks[j];
+        kf[0] = (float)c.x * sj;
+        kf[1] = (float)c.y * sj;
+        kf[2] = (float)c.z * sj;
+        kf[3] = (float)c.w * sj;
+      }
+      float d = qf[0] * kf[0];
+      d = fmaf(qf[1], kf[1], d);
+      d = fmaf(qf[2], kf[2], d);
+      d = fmaf(qf[3], kf[3], d);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
+      const float s = (p * page + j < len) ? d * scale : -INFINITY;
+      if (lane == 0) w[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    if (lane == 0) wmax[warp] = mx;
+    __syncthreads();
+    float m_new = m;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) m_new = fmaxf(m_new, wmax[i]);
+    const float alpha = expf(m - m_new);
+    if (t < page) w[t] = expf(w[t] - m_new);
+    __syncthreads();
+    float psum = 0.f, pv = 0.f;
+    if (in_open) {
+#pragma unroll 8
+      for (int j = 0; j < page; ++j) {
+        psum += w[j];
+        pv = fmaf(w[j], __bfloat162float(open_v[obase + (size_t)j * D + t]), pv);
+      }
+    } else {
+#pragma unroll 8
+      for (int j = 0; j < page; ++j) {
+        psum += w[j];
+        pv = fmaf(w[j], (float)v_pages[base + (size_t)j * D + t] * vs[j], pv);
+      }
+    }
+    l = alpha * l + psum;
+    acc = acc * alpha + pv;
+    m = m_new;
+    __syncthreads();  // w, wmax and the scale rows are rewritten by the next page
+  }
+  out[qo + t] = acc / fmaxf(l, 1e-37f);
+}
+
 }  // namespace
+
+// Kernel P. q [B, Hh, D] f32; k_pages / v_pages: one layer of the int8 pool,
+// [P, Hh, page, D]; k_scale / v_scale: that layer's [P, Hh, page] f32;
+// open_k / open_v: that layer's open pages [B, Hh, page, D] bf16 when tail is
+// non-zero (ignored otherwise); block_tables [B, max_pages] int32; seq_lens
+// [B] int32; out [B, Hh, D] f32.
+extern "C" int paged_decode_q8(const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
+                               const void* v_scale, const void* open_k, const void* open_v, const void* block_tables,
+                               const void* seq_lens, void* out, int batch, int n_heads, int head_dim, int page,
+                               int max_pages, int tail, float scale, void* stream) {
+  if (batch <= 0 || n_heads <= 0 || head_dim != D || page <= 0 || page > MAX_PAGE || max_pages <= 0 ||
+      (tail && (open_k == nullptr || open_v == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch, n_heads);
+  const auto kernel = tail ? paged_q8_kernel<true> : paged_q8_kernel<false>;
+  kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const signed char*>(k_pages), static_cast<const signed char*>(v_pages),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const __nv_bfloat16*>(open_k), static_cast<const __nv_bfloat16*>(open_v),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads,
+      page, max_pages, scale);
+  return (int)cudaGetLastError();
+}
 
 // q [B, Hh, D] f32; k_pages / v_pages: one layer of the pool, [P, Hh, page,
 // D]; block_tables [B, max_pages] int32; seq_lens [B] int32; out [B, Hh, D] f32.

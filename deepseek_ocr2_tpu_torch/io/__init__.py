@@ -1,6 +1,7 @@
 from .safetensors_torch import (  # noqa: F401
     DtypePolicy,
     LoadReport,
+    inspect_safetensors,
     load_flat,
     save_flat,
 )

@@ -104,6 +104,15 @@ def _read_header(f) -> Tuple[dict, int]:
     return header, 8 + n
 
 
+def inspect_safetensors(path: str) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(name, shape, dtype) of every tensor, sorted by name, from the header
+    alone (the JAX package's `inspect_safetensors`, without `safetensors`);
+    dtype is the header's string, e.g. "F32" or "BF16"."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f)
+    return [(name, tuple(header[name]["shape"]), header[name]["dtype"]) for name in sorted(header)]
+
+
 def apply_policy(policy: DtypePolicy, name: str, t: torch.Tensor) -> torch.Tensor:
     """`DtypePolicy.apply` for torch tensors: casts float tensors only."""
     target = policy.target_for(name)

@@ -1,4 +1,5 @@
-"""Paged decode attention, kernel G: the CUDA wrapper and its plain twin.
+"""Paged decode attention, kernels G and P: the CUDA wrappers and their
+plain twins.
 
 Port of `paged_decode_attention_pool` in deepseek_ocr2_tpu/ops/paged_attention.py
 (the Pallas kernel `_paged_kernel_pool`): one query per row against the
@@ -6,6 +7,12 @@ row's pages of the layer-stacked pool [L, P, Hh, page, D], listed by its
 block-table row, keys at or beyond `seq_lens[row]` masked to -inf, f32 online
 softmax. The CUDA source is `csrc/paged_attention.cu` (its header gives the
 design and what bounds it).
+
+Kernel P (`paged_decode_attention_pool_q8`) is the same walk over an int8
+pool: port of the Pallas kernel `_paged_kernel_pool_q8`. A page arrives as
+int8 codes plus a per-(token, head) f32 scale row and is widened to f32
+before the dot products; with the open pages of an int8tail pool, each
+row's last page is read exact in bf16 from its slot's open page instead.
 
 The JAX kernel reads the layer index through scalar prefetch only because
 XLA copies a scan-sliced operand; here `k_pool[layer]` is a view of the pool
@@ -19,6 +26,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -96,3 +104,98 @@ def paged_decode_attention_pool(
 
 
 paged_decode_attention_pool.launches = 0
+
+
+def dequant_pages(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[..., page, D] int8 codes and [..., page] f32 scales -> f32 (the JAX
+    package's `dequant_pages`)."""
+    return codes.float() * scales[..., None]
+
+
+def paged_decode_attention_q8_reference(
+    q: torch.Tensor,  # [B, Hh, D]
+    k_pool: torch.Tensor,  # [L, P, Hh, page, D] int8
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, P, Hh, page] f32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    seq_lens: torch.Tensor,  # [B] int
+    layer: int,
+    *,
+    scale: float,
+    open_k: Optional[torch.Tensor] = None,  # [L, B, Hh, page, D] bf16: int8tail
+    open_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain twin of P, the JAX package's XLA oracle: dequantize layer
+    `layer`, overwrite each row's last page with its open page (tail mode;
+    a row's pages are its own, and finished rows all land on the scratch
+    page, which no live row reads), then G's gather twin. [B, Hh, D] f32."""
+    k_layer = dequant_pages(k_pool[layer], k_scale[layer])
+    v_layer = dequant_pages(v_pool[layer], v_scale[layer])
+    if open_k is not None:
+        page = k_pool.shape[3]
+        rows = torch.arange(q.shape[0], device=q.device)
+        last_pg = block_tables.long()[rows, (seq_lens.long() - 1) // page]
+        k_layer[last_pg] = open_k[layer].float()
+        v_layer[last_pg] = open_v[layer].float()
+    return paged_decode_attention_reference(q, k_layer, v_layer, block_tables, seq_lens, scale=scale)
+
+
+def paged_decode_attention_pool_q8(
+    q: torch.Tensor,  # [B, Hh, D] f32
+    k_pool: torch.Tensor,  # [L, P, Hh, page, D] int8
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, P, Hh, page] f32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    seq_lens: torch.Tensor,  # [B] int32
+    layer: int,
+    *,
+    scale: float,
+    open_k: Optional[torch.Tensor] = None,  # [L, B, Hh, page, D] bf16: int8tail
+    open_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel P on layer `layer` of an int8 pool; with open_k / open_v
+    (int8tail), each row's last page is read from its open page, whose
+    second axis is the row. Returns [B, Hh, D] f32."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_q8_reference(q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens,
+                                                   layer, scale=scale, open_k=open_k, open_v=open_v)
+    b, hh, d = q.shape
+    n_layers, n_pages, _, page, _ = k_pool.shape
+    tail = open_k is not None
+    if q.dtype != torch.float32 or d != _HEAD_DIM:
+        raise ValueError(f"kernel P takes f32 q with head dim {_HEAD_DIM}, got {q.dtype} {tuple(q.shape)}")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 or k_scale.dtype != torch.float32 \
+            or v_scale.dtype != torch.float32:
+        raise ValueError(f"kernel P takes int8 pools and f32 scales, got {k_pool.dtype} / {k_scale.dtype}")
+    if k_pool.shape != (n_layers, n_pages, hh, page, d) or v_pool.shape != k_pool.shape or page > _MAX_PAGE \
+            or k_scale.shape != k_pool.shape[:4] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"pool {tuple(k_pool.shape)} / scales {tuple(k_scale.shape)} do not fit q "
+                         f"{tuple(q.shape)} (page <= {_MAX_PAGE})")
+    if tail and (open_v is None or open_k.dtype != torch.bfloat16 or open_v.dtype != torch.bfloat16
+                 or open_k.shape != (n_layers, b, hh, page, d) or open_v.shape != open_k.shape):
+        raise ValueError(f"open pages must be bf16 [{n_layers}, {b}, {hh}, {page}, {d}] (one a row), got "
+                         f"{None if open_k is None else tuple(open_k.shape)}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("block_tables and seq_lens must be int32")
+    if block_tables.shape[0] != b or seq_lens.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs {b} rows")
+    views = [k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]]  # views, never copies
+    opens = [open_k[layer], open_v[layer]] if tail else []
+    cuda_build.require_cuda(q, *views, *opens, block_tables, seq_lens)
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_decode_q8
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    p = cuda_build.ptr
+    open_ptrs = [p(t) for t in opens] if tail else [None, None]  # NULL pointers: no tail
+    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(out),
+             b, hh, d, page, block_tables.shape[1], int(tail), scale, cuda_build.stream_of(q))
+    cuda_build.check(err, "paged_attention (P)")
+    paged_decode_attention_pool_q8.launches += 1
+    return out
+
+
+paged_decode_attention_pool_q8.launches = 0

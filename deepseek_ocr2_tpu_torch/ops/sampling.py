@@ -1,12 +1,17 @@
-"""Greedy sampling with the no-repeat-ngram ban, on device
-(port of deepseek_ocr2_tpu.ops.sampling; greedy only: `sample_pick` is not
-ported yet)."""
+"""Greedy and stochastic token choice with the no-repeat-ngram ban, on
+the device (port of deepseek_ocr2_tpu.ops.sampling).
+
+`sample_pick` draws from JAX's threefry stream (`ops.prng`), so a row's
+key gives the JAX package's token; every function works on a batch of rows
+and reads nothing back to the host."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from . import prng
 
 
 def ngram_ban_mask_batched(
@@ -51,3 +56,47 @@ def greedy_pick(logits: torch.Tensor, ban_mask: Optional[torch.Tensor] = None) -
     if ban_mask is not None:
         l32 = l32.masked_fill(ban_mask, float("-inf"))
     return torch.argmax(l32, dim=-1)
+
+
+def sample_pick(
+    logits: torch.Tensor,  # [B, V]
+    keys: torch.Tensor,  # [B, 2] threefry keys, one a row
+    ban_mask: Optional[torch.Tensor] = None,  # [B, V] bool
+    *,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    nucleus_candidates: int = 1024,
+) -> torch.Tensor:
+    """`jax.vmap(sample_pick)` of the JAX package, row by row:
+    - temperature 0: exactly `greedy_pick`;
+    - NaN and banned logits become -inf, then all are divided by the
+      temperature;
+    - top_k <= 0 and top_p >= 1: categorical over the whole vocabulary;
+    - otherwise categorical over the top_k (or `nucleus_candidates`) largest,
+      sorted descending with ties to the lower index as `lax.top_k` sorts
+      (a stable descending sort; `torch.topk` makes no promise on ties),
+      with top_p < 1 keeping the candidates whose preceding mass
+      (cum - probs) is below top_p; a row whose candidates are all banned
+      takes greedy over the masked row."""
+    if temperature == 0.0:
+        return greedy_pick(logits, ban_mask)
+    l32 = logits.float()
+    l32 = l32.masked_fill(torch.isnan(l32), float("-inf"))
+    if ban_mask is not None:
+        l32 = l32.masked_fill(ban_mask, float("-inf"))
+    l32 = l32 / torch.full((), temperature, dtype=torch.float32, device=l32.device)
+    if top_k <= 0 and top_p >= 1.0:
+        return prng.categorical(keys, l32)
+    k = min(top_k if top_k > 0 else nucleus_candidates, l32.shape[-1])
+    vals, idx = torch.sort(l32, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    if top_p < 1.0:
+        # jax.nn.softmax's form: exp(x - max) / sum.
+        e = torch.exp(vals - vals.max(dim=-1, keepdim=True).values)
+        probs = e / e.sum(dim=-1, keepdim=True)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < torch.full((), top_p, dtype=torch.float32, device=l32.device)
+        vals = vals.masked_fill(~keep, float("-inf"))
+    choice = prng.categorical(keys, vals)
+    picked = idx.gather(1, choice[:, None])[:, 0]
+    return torch.where(torch.isfinite(vals).any(dim=-1), picked, torch.argmax(l32, dim=-1))

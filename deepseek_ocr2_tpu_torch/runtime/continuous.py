@@ -1,5 +1,5 @@
 """Continuous-batching OCR engine on the paged KV cache (port of
-deepseek_ocr2_tpu.runtime.continuous; greedy decoding).
+deepseek_ocr2_tpu.runtime.continuous; greedy or sampled decoding).
 
 A fixed set of decode slots shares one paged K/V pool (runtime/paged_kv.py);
 pending pages are admitted into free slots as others finish, so vision,
@@ -11,9 +11,16 @@ the first decode chunk need; before every chunk each active slot is topped up
 to cover the next chunk (`grow_pages`, bounded by the slot's own prompt +
 max_new budget), and pages return to the pool at harvest. If growth finds
 the pool empty, a strictly younger slot is preempted: its pages are freed and
-its page re-queued. Greedy decode is deterministic and a row's result does
-not depend on the other rows of the batch (kernel F sums in a fixed order),
-so a re-admitted page reproduces its tokens.
+its page re-queued. Greedy decode is deterministic, a sampled row draws
+with the key fold_in(fold_in(PRNGKey(0), seed), position), and a row's
+result does not depend on the other rows of the batch (kernel F sums in a
+fixed order), so a re-admitted page reproduces its tokens. The first token
+of a page comes from its admission and stays greedy, as in the JAX package.
+
+Pools: f32 / bf16 (attention kernel G), or with the pipeline's kv_dtype
+"int8" / "int8tail" the quantized pools (kernel P); the transient prefill
+cache then keeps the activation dtype and admission quantizes the prompt
+into the pool (and stages its last page into the slot's open page).
 
 Device and host:
 - admission, per group of pending pages that share a crop grid and prompt
@@ -26,9 +33,8 @@ Device and host:
   the device and no step reads a value back; the host reads one packed
   status tensor per chunk. That keeps a captured CUDA graph possible later.
 
-Out of this slice, each refused with an error naming its slice: sampling
-(temperature > 0), prompt-lookup decoding (`lookup_chunk`), the int8 pools,
-device resize.
+Out of this slice, refused with an error naming its slice: prompt-lookup
+decoding (`lookup_chunk`).
 
 `DEEPSEEK_DEBUG_SERVE` (any value) prints a wall-clock trace of the serve
 loop to stderr: admission, decode chunk, harvest and preprocess waits.
@@ -48,10 +54,11 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 from ..models.deepseek_v2 import lm_forward, logits_last, vocab_size_of
-from ..ops.sampling import greedy_pick, ngram_ban_mask_batched
+from ..ops import prng
+from ..ops.sampling import greedy_pick, ngram_ban_mask_batched, sample_pick
 from ..utils.debug import dbg_print, enabled
 from ..utils.tokenizer import decode_output, tokenize_with_image
-from .engine import batched_vision_prefill, refuse_sampling
+from .engine import batched_vision_prefill
 from .kv_cache import make_kv_cache
 from .paged_kv import PageAllocator, lm_decode_step_paged, make_paged_kv_cache, pages_for, write_prompt_pool_batched
 from .pipeline import GenerationResult, OCR2Pipeline
@@ -65,6 +72,7 @@ class DecodeState:
     cur_lens: torch.Tensor  # [B] int32: valid tokens
     done: torch.Tensor  # [B] bool: finished or empty
     limits: torch.Tensor  # [B] int32: stop length (prompt + max_new)
+    seeds: torch.Tensor  # [B] int64: sampling seed of the slot's page
 
     @classmethod
     def empty(cls, slots: int, tok_cap: int, device) -> "DecodeState":
@@ -73,6 +81,7 @@ class DecodeState:
             cur_lens=torch.zeros(slots, dtype=torch.int32, device=device),
             done=torch.ones(slots, dtype=torch.bool, device=device),  # empty slots count as done
             limits=torch.zeros(slots, dtype=torch.int32, device=device),
+            seeds=torch.zeros(slots, dtype=torch.long, device=device),
         )
 
 
@@ -88,8 +97,10 @@ def admit_prefill(
     ngram_size: int,
     rope,
 ):
-    """Batched LM prefill of an admission group sharing one prompt length.
-    Returns (k [L, G, Hh, cap, D], v, first token [G])."""
+    """Batched LM prefill of an admission group sharing one prompt length,
+    into a contiguous cache of `kv_dtype` (f32 or bf16). Returns (k [L, G,
+    Hh, cap, D], v, first token [G]); the first token is greedy, also when
+    the engine samples."""
     g, s, _ = embeds.shape
     cache = make_kv_cache(cfg.num_hidden_layers, g, cfg.num_attention_heads, capacity, cfg.head_dim,
                           dtype=kv_dtype, device=embeds.device)
@@ -113,22 +124,25 @@ def insert_group(
     group_tokens: torch.Tensor,  # [G, tok_cap] int64: prompt + first token
     done0: torch.Tensor,  # [G] bool
     group_limits: torch.Tensor,  # [G] int32
+    group_seeds: torch.Tensor,  # [G] int64
     prompt_len: int,
 ) -> None:
-    """Scatter an admission group's prompt K/V into its pages and its decode
-    state into the slot arrays."""
-    write_prompt_pool_batched(cache, k_new, v_new, page_ids, prompt_len)
+    """Scatter an admission group's prompt K/V into its pages (quantized,
+    and its last page staged into the slots' open pages, as the pool asks)
+    and its decode state into the slot arrays."""
+    write_prompt_pool_batched(cache, k_new, v_new, page_ids, prompt_len, slot_ids=slot_ids)
     state.tokens.index_copy_(0, slot_ids, group_tokens)
     state.cur_lens.index_fill_(0, slot_ids, prompt_len + 1)
     state.limits.index_copy_(0, slot_ids, group_limits)
     state.done.index_copy_(0, slot_ids, done0)
+    state.seeds.index_copy_(0, slot_ids, group_seeds)
 
 
 @torch.no_grad()
 def decode_chunk(
     lm_params,
     cfg: DeepseekV2Config,
-    cache,  # paged pool {"k", "v"} [L, P, Hh, page, D], updated in place
+    cache,  # paged pool {"k", "v"} [L, P, Hh, page, D] (+ scales, open pages), updated in place
     state: DecodeState,  # updated in place
     block_tables: torch.Tensor,  # [B, max_pages] int32, on the device
     *,
@@ -136,16 +150,22 @@ def decode_chunk(
     ngram_size: int,
     eos_id: int,
     rope,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
 ) -> torch.Tensor:
-    """Advance every active slot by up to `n_steps` greedy steps. Finished
-    rows are frozen (their K/V goes to the scratch page 0). No step reads a
-    value back to the host. Returns the packed status [cur_lens, done]
-    (int32 [2B]) on the device, for the caller's one readback."""
+    """Advance every active slot by up to `n_steps` steps, greedy at
+    temperature 0, else sampled with the row key fold_in(fold_in(
+    PRNGKey(0), seed), cur_len). Finished rows are frozen (their K/V goes
+    to the scratch page 0). No step reads a value back to the host. Returns
+    the packed status [cur_lens, done] (int32 [2B]) on the device, for the
+    caller's one readback."""
     tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
     b, tok_cap = tokens.shape
     vocab = vocab_size_of(lm_params)  # lm_head may be int8 or int4
     rows = torch.arange(b, device=tokens.device)
     scratch = torch.zeros_like(block_tables)
+    base_keys = prng.fold_in(prng.prng_key(0, tokens.device), state.seeds) if temperature != 0.0 else None
     for _ in range(n_steps):
         active = ~done
         pos = (cur_lens - 1).clamp(0, tok_cap - 1)
@@ -154,7 +174,12 @@ def decode_chunk(
         bt = torch.where(done[:, None], scratch, block_tables)
         hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
         logits = logits_last(lm_params, hidden)  # [B, V]
-        nxt = greedy_pick(logits, ngram_ban_mask_batched(tokens, cur_lens, ngram_size, vocab))
+        ban = ngram_ban_mask_batched(tokens, cur_lens, ngram_size, vocab)
+        if base_keys is None:
+            nxt = greedy_pick(logits, ban)
+        else:
+            nxt = sample_pick(logits, prng.fold_in(base_keys, cur_lens), ban, temperature=temperature,
+                              top_k=top_k, top_p=top_p)
         nxt = torch.where(active, nxt, last)
         widx = cur_lens.long().clamp(0, tok_cap - 1)
         tokens[rows, widx] = torch.where(active, nxt, tokens[rows, widx])
@@ -368,13 +393,14 @@ class ContinuousOCREngine:
 
     def run_requests(self, reqs: List[OCRRequest], ngram_size: int = 20,
                      sampling: Optional[dict] = None) -> List[GenerationResult]:
-        """Batch-serve already-built requests (see `prestage`)."""
-        refuse_sampling(sampling)
+        """Batch-serve already-built requests (see `prestage`). `sampling`
+        takes the keys temperature, top_k, top_p and seed; page i samples
+        with seed + its request's seq."""
         if self._thread is not None:
             raise RuntimeError("engine is running online; use submit()")
         with self._cv:
             self._pending.extend(reqs)
-        self._serve(ngram_size=ngram_size, online=False)
+        self._serve(ngram_size=ngram_size, sampling=sampling, online=False)
         for r in reqs:
             if r.error is not None:
                 raise r.error
@@ -395,11 +421,11 @@ class ContinuousOCREngine:
 
     def start(self, ngram_size: int = 20, sampling: Optional[dict] = None):
         """Online mode: spawn the serve loop; `submit` feeds it."""
-        refuse_sampling(sampling)
         if self._thread is not None:
             raise RuntimeError("engine already started")
         self._stop = False
-        self._thread = threading.Thread(target=self._serve, kwargs=dict(ngram_size=ngram_size, online=True),
+        self._thread = threading.Thread(target=self._serve,
+                                        kwargs=dict(ngram_size=ngram_size, sampling=sampling, online=True),
                                         daemon=True)
         self._thread.start()
         return self
@@ -446,15 +472,23 @@ class ContinuousOCREngine:
             req.image, no_crop=req.no_crop, rotate=req.rotate, auto_rotate=req.auto_rotate)
         return self.pipe.preprocess_finish(pre)
 
-    def _serve(self, ngram_size: int, online: bool):
+    def _serve(self, ngram_size: int, sampling: Optional[dict], online: bool):
         pipe = self.pipe
         cfg, lm, lm_cfg, dev = pipe.cfg, pipe.params["lm"], pipe.cfg.lm, pipe.device
         b, tok_cap, page = self.slots, self.capacity, self.page_size
         eos = cfg.eos_token_id
         trace = enabled("DEEPSEEK_DEBUG_SERVE")
+        sampling = sampling or {}
+        samp = dict(temperature=sampling.get("temperature", 0.0), top_k=sampling.get("top_k", 0),
+                    top_p=sampling.get("top_p", 1.0))
+        base_seed = sampling.get("seed", 0)
 
+        # The quantized pools quantize at the pool boundary; the transient
+        # contiguous prefill cache keeps the activation dtype.
+        quantized = isinstance(pipe.kv_dtype, str)
+        prefill_kv = pipe.act_dtype if quantized else pipe.kv_dtype
         cache = make_paged_kv_cache(lm_cfg.num_hidden_layers, self.num_pages, lm_cfg.num_attention_heads, page,
-                                    lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev)
+                                    lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev, slots=b)
         alloc = PageAllocator(self.num_pages)
         self.alloc = alloc  # monitors read n_free while the loop runs
         self.last_decode_steps, self.last_decode_seconds, self.last_admissions = 0, 0.0, 0
@@ -494,7 +528,7 @@ class ContinuousOCREngine:
             patches = None if pre[0][1] is None else torch.stack([p[1] for p in pre])  # [G, P, 3, c, c]
             ids_t, embeds = batched_vision_prefill(pipe, ids, bases, patches, image_start)
             k_new, v_new, first = admit_prefill(lm, lm_cfg, embeds, ids_t, capacity=n_prompt_pages * page,
-                                                kv_dtype=pipe.kv_dtype, ngram_size=ngram_size, rope=pipe.rope)
+                                                kv_dtype=prefill_kv, ngram_size=ngram_size, rope=pipe.rope)
             self.last_admissions += 1
             # Lazy allocation: prompt + first token + first chunk; grow_pages tops up.
             page_ids = np.zeros((g, n_prompt_pages), np.int32)
@@ -512,9 +546,10 @@ class ContinuousOCREngine:
             group_tokens[:, s] = first
             max_new = torch.tensor([r.max_new_tokens for r in reqs], dtype=torch.int32, device=dev)
             done0 = (first == eos) | (max_new <= 1)
+            seeds = torch.tensor([base_seed + r.seq for r in reqs], dtype=torch.long, device=dev)
             insert_group(cache, state, k_new, v_new, torch.from_numpy(page_ids).to(dev),
                          torch.tensor(slot_ids, dtype=torch.long, device=dev), group_tokens, done0,
-                         max_new + s, prompt_len=s)
+                         max_new + s, seeds, prompt_len=s)
             done0_h = done0.cpu().numpy()  # the admission's one readback, and its barrier
             dt = time.perf_counter() - t0
             if trace:
@@ -679,7 +714,8 @@ class ContinuousOCREngine:
 
         def preempt(slot: int):
             """Evict an active slot: free its pages and re-queue its request
-            (the deterministic re-decode reproduces its tokens)."""
+            (the deterministic re-decode reproduces its tokens; re-admission
+            stages its open page again)."""
             nonlocal n_preempted
             req = slot_req.pop(slot)
             alloc.release(slot_pages.pop(slot))
@@ -803,7 +839,7 @@ class ContinuousOCREngine:
                 if did_decode:
                     status = decode_chunk(
                         lm, lm_cfg, cache, state, torch.from_numpy(block_tables_np).to(dev),
-                        n_steps=self.chunk_steps, ngram_size=ngram_size, eos_id=eos, rope=pipe.rope,
+                        n_steps=self.chunk_steps, ngram_size=ngram_size, eos_id=eos, rope=pipe.rope, **samp,
                     )
                     status_h = status.cpu().numpy()  # the chunk's one readback
                     self.last_decode_steps += self.chunk_steps

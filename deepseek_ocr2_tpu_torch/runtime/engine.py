@@ -4,7 +4,9 @@ Pages are preprocessed on the host and grouped by crop grid (pages of a
 group share the prompt length and the vision shapes); each group is cut into
 chunks of `batch_size` pages, and each chunk runs one batched vision pass
 (the crops of all its pages flatten into one SAM batch), one batched LM
-prefill and the batched greedy decode.
+prefill and the batched decode, greedy or sampled. With sampling, chunk i
+(counted over the crop-grid groups in order) draws with seed + i, so the
+chunks' streams differ, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,12 +22,6 @@ from ..utils.tokenizer import decode_output, tokenize_with_image
 from .generate import greedy_generate
 from .kv_cache import bucket_capacity
 from .pipeline import GenerationResult, OCR2Pipeline
-
-
-def refuse_sampling(sampling: Optional[dict]) -> None:
-    if sampling and sampling.get("temperature", 0.0) != 0.0:
-        raise ValueError("sampling (temperature > 0) is not ported yet: `sample_pick` belongs to a later "
-                         "slice of the port; serving is greedy")
 
 
 @torch.no_grad()
@@ -62,8 +58,8 @@ class OCR2Engine:
         sampling: Optional[dict] = None,
     ) -> List[GenerationResult]:
         """OCR every page (a path, a PIL image or a `preprocess_host` dict);
-        results come back in the order of `images`."""
-        refuse_sampling(sampling)
+        results come back in the order of `images`. `sampling` takes the
+        keys temperature, top_k, top_p and seed of `greedy_generate`."""
         pipe = self.pipe
         prompt = prompt or pipe.cfg.default_ocr_prompt
         groups: Dict[Tuple[int, int], list] = defaultdict(list)
@@ -75,14 +71,17 @@ class OCR2Engine:
             groups[ratio].append((idx, base, patches))
 
         results: List[Optional[GenerationResult]] = [None] * len(images)
+        chunk_index = 0
         for ratio, items in groups.items():
             ids, _, image_start = tokenize_with_image(pipe.tokenizer, prompt, pipe.cfg, ratio)
             for start in range(0, len(items), self.batch_size):
+                chunk_sampling = {**sampling, "seed": sampling.get("seed", 0) + chunk_index} if sampling else {}
                 self._run_chunk(items[start : start + self.batch_size], ids, image_start, ratio,
-                                max_new_tokens, ngram_size, results)
+                                max_new_tokens, ngram_size, results, chunk_sampling)
+                chunk_index += 1
         return results  # type: ignore[return-value]
 
-    def _run_chunk(self, chunk, ids, image_start, ratio, max_new_tokens, ngram_size, results) -> None:
+    def _run_chunk(self, chunk, ids, image_start, ratio, max_new_tokens, ngram_size, results, sampling) -> None:
         pipe, cfg = self.pipe, self.pipe.cfg
         t0 = time.perf_counter()
         bases = torch.cat([base for _, base, _ in chunk])  # [B, 3, S, S]
@@ -96,7 +95,7 @@ class OCR2Engine:
         tokens, n_gen = greedy_generate(
             pipe.params["lm"], cfg.lm, embeds, ids_t, max_new_tokens=max_new_tokens,
             ngram_size=ngram_size, eos_id=cfg.eos_token_id, capacity=bucket_capacity(s + max_new_tokens),
-            kv_dtype=pipe.kv_dtype, rope=pipe.rope,
+            kv_dtype=pipe.kv_dtype, rope=pipe.rope, **sampling,
         )
         tokens, n_gen = tokens.cpu(), n_gen.cpu()
         t2 = time.perf_counter()

@@ -1,10 +1,12 @@
-"""Greedy generation (port of deepseek_ocr2_tpu.runtime.generate).
+"""Greedy or sampled generation (port of deepseek_ocr2_tpu.runtime.generate).
 
 Prefill, then an eager decode loop of one forward per token: on-device
 n-gram ban and argmax, EOS handling as in the JAX loop (the EOS id is kept
-in the output; finished rows freeze). The host reads the done flags once a
-step to leave the loop early. Capturing the step in a CUDA graph is later
-work.
+in the output; finished rows freeze). With temperature > 0 each step draws
+from JAX's threefry stream as the JAX loop does: the key is PRNGKey(seed),
+split once before the first pick and once a step, and the step's subkey
+split into one key a row. The host reads the done flags once a step to
+leave the loop early. Capturing the step in a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 from ..configs import DeepseekV2Config
 
 from ..models.deepseek_v2 import lm_forward, logits_last, rope_consts, vocab_size_of
-from ..ops.sampling import greedy_pick, ngram_ban_mask_batched
+from ..ops import prng
+from ..ops.sampling import ngram_ban_mask_batched, sample_pick
 from .kv_cache import make_kv_cache
 
 
@@ -42,8 +45,13 @@ def greedy_generate(
     stats: Optional[Dict[str, object]] = None,
     keep_logits: bool = False,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B, S + max_new] int64, n_generated [B]).
+    Greedy at temperature 0; otherwise `sample_pick` with top_k / top_p.
 
     `tokens[b, :S + n_generated[b]]` is the prompt plus the generated ids.
     If `stats` is a dict it receives `prefill_s`, `decode_s` (host clock,
@@ -73,9 +81,17 @@ def greedy_generate(
     tokens = torch.zeros(b, t_buf, dtype=torch.long, device=device)
     tokens[:, :s] = prompt_ids.to(device)
 
+    key = prng.prng_key(seed, device)
+
     def pick(logits, cur_len):
+        nonlocal key
         lens = torch.full((b,), cur_len, dtype=torch.long, device=device)
-        return greedy_pick(logits, ngram_ban_mask_batched(tokens, lens, ngram_size, vocab))
+        ban = ngram_ban_mask_batched(tokens, lens, ngram_size, vocab)
+        keys = None
+        if temperature != 0.0:
+            key, sub = prng.split(key)
+            keys = prng.split(sub, b)
+        return sample_pick(logits, keys, ban, temperature=temperature, top_k=top_k, top_p=top_p)
 
     tok = pick(logits, s)
     if stats is not None:

@@ -2,6 +2,9 @@
 
 One [L, B, Hh, capacity, D] buffer each for K and V, in f32 or bf16,
 written in place as tokens arrive. Attention always widens cached K/V to f32.
+The int8 / int8tail kinds are paged pools only (runtime/paged_kv.py): asked
+for here they raise the JAX package's error, so `generate-ocr` and the group
+engine refuse them as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -17,6 +20,12 @@ def make_kv_cache(
     num_layers: int, batch: int, num_heads: int, capacity: int, head_dim: int,
     dtype: torch.dtype = torch.bfloat16, device=None,
 ) -> KVCache:
+    if dtype in ("int8", "int8tail", torch.int8):
+        raise ValueError(
+            "int8/int8tail KV applies to the paged pool only (serve "
+            "--continuous/--http with --kv-cache int8|int8tail); contiguous "
+            "caches are f32/bf16"
+        )
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"contiguous KV caches are f32 or bf16, not {dtype}")
     shape = (num_layers, batch, num_heads, capacity, head_dim)

@@ -1,13 +1,20 @@
 """Paged KV cache: fixed-size pages from a shared pool + per-slot block
-tables (port of deepseek_ocr2_tpu.runtime.paged_kv, f32 and bf16 pools).
+tables (port of deepseek_ocr2_tpu.runtime.paged_kv).
 
 The pool keeps the JAX layout, {"k", "v"}: [L, P, Hh, page, D], so a port
 pool and a JAX pool compare element by element after the same admissions.
 Sequences of very different lengths share it, pages are recycled on
 completion, and capacity is bounded by the tokens in flight rather than
 slots x max_len. Page allocation is on the host (the engine owns the free
-list); decode attention over the pages is kernel G
-(`ops.paged_attention.paged_decode_attention_pool`).
+list). Decode attention over the pages is kernel G
+(`ops.paged_attention.paged_decode_attention_pool`) on an f32 or bf16 pool.
+
+The quantized pools ("int8", "int8tail") hold int8 codes in "k"/"v" and
+per-(token, head) f32 absmax scales in "k_scale"/"v_scale": [L, P, Hh,
+page]. "int8tail" adds one bf16 open page a slot, "open_k"/"open_v": [L,
+slots, Hh, page, D], holding each row's newest page exactly; attention
+reads the row's last page from it. Decode attention over them is kernel P
+(`paged_decode_attention_pool_q8`).
 
 Page 0 is reserved as a scratch page: finished and empty slots of a batched
 decode step write their discarded K/V there, so they never clobber a live
@@ -17,8 +24,7 @@ The pool is updated in place. The JAX package's per-row
 dynamic_update_slice chain (paged_kv.py:221-241) works around XLA's copy of
 a scattered carry; here one `index_put_` per layer writes every row's token.
 Only plain decode (one query per row) is ported, with plain, int8 or int4
-weights: the chunk mode of lookup decoding and the int8 / int8tail pools
-belong to later slices.
+weights: the chunk mode of lookup decoding belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -32,11 +38,9 @@ from ..configs import DeepseekV2Config
 from ..models.deepseek_v2 import ffn, qkv_proj, rope_consts
 from ..ops.linear_q8 import qmm
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import paged_decode_attention_pool
+from ..ops.paged_attention import paged_decode_attention_pool, paged_decode_attention_pool_q8
 
-PagedKV = Dict[str, torch.Tensor]  # {"k": [L, P, Hh, page, D], "v": ...}
-
-_QUANTIZED = ("int8", "int8tail")
+PagedKV = Dict[str, torch.Tensor]  # {"k": [L, P, Hh, page, D], "v": ...} (+ the quantized pools' planes)
 
 
 def make_paged_kv_cache(
@@ -47,17 +51,50 @@ def make_paged_kv_cache(
     head_dim: int,
     dtype=torch.bfloat16,
     device=None,
+    slots: int = 0,
 ) -> PagedKV:
-    """Zeroed K/V pool [L, P, Hh, page, D] in f32 or bf16."""
-    if isinstance(dtype, str) and dtype in _QUANTIZED:
-        raise ValueError(f"the {dtype} KV pool belongs to the quantized slice of the port, not ported yet")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"paged KV pools are f32 or bf16, not {dtype}")
+    """Zeroed K/V pool [L, P, Hh, page, D]: f32 or bf16, or "int8" (also
+    torch.int8) with f32 scale planes [L, P, Hh, page], or "int8tail", which
+    adds the bf16 open pages [L, slots, Hh, page, D] and needs `slots`, the
+    decode batch width."""
     shape = (num_layers, num_pages, num_heads, page_size, head_dim)
+    tail = dtype == "int8tail"
+    if tail or dtype in ("int8", torch.int8):
+        sshape = (num_layers, num_pages, num_heads, page_size)
+        cache = {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+        }
+        if tail:
+            if slots <= 0:
+                raise ValueError("int8tail pool needs slots= (decode batch width)")
+            oshape = (num_layers, slots, num_heads, page_size, head_dim)
+            cache["open_k"] = torch.zeros(oshape, dtype=torch.bfloat16, device=device)
+            cache["open_v"] = torch.zeros(oshape, dtype=torch.bfloat16, device=device)
+        return cache
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged KV pools are f32, bf16, int8 or int8tail, not {dtype}")
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8 over the trailing (head_dim) axis, bit for
+    bit the JAX package's: (codes int8 [..., D], scale f32 [...]), scale =
+    max(absmax / 127, 1e-8), codes = clip(round(x / scale), -127, 127) with
+    ties to even (torch.round, as jnp.round). The divisor 127 is a tensor:
+    CUDA turns a division by a Python scalar into a multiply by its
+    reciprocal, one ulp off."""
+    x = x.float()
+    absmax = x.abs().amax(dim=-1)
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)  # a fill kernel: no host copy
+    scale = torch.maximum(absmax / c127, torch.full((), 1e-8, dtype=torch.float32, device=x.device))
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 class PageAllocator:
@@ -105,16 +142,43 @@ def write_prompt_pages_batched(
     return pool
 
 
+def write_prompt_scales_batched(
+    spool: torch.Tensor,  # [L, P, Hh, page] f32, written in place
+    s_prompt: torch.Tensor,  # [L, G, Hh, cap] per-token scales
+    page_ids: torch.Tensor,  # [G, n_pages] int
+    seq_len: int,
+) -> torch.Tensor:
+    """Scatter an admission group's per-token scales into a quantized
+    pool's scale plane (the page walk of `write_prompt_pages_batched`)."""
+    return write_prompt_pages_batched(spool[..., None], s_prompt[..., None], page_ids, seq_len)[..., 0]
+
+
 def write_prompt_pool_batched(
     cache: PagedKV,
     k_new: torch.Tensor,  # [L, G, Hh, cap, D] contiguous prefill K
     v_new: torch.Tensor,
     page_ids: torch.Tensor,  # [G, n_pages] int
     seq_len: int,
+    slot_ids: Optional[torch.Tensor] = None,  # [G] int: needed by int8tail pools
 ) -> PagedKV:
-    """Scatter an admission group's prompt K/V into the pool, in place."""
-    write_prompt_pages_batched(cache["k"], k_new, page_ids, seq_len)
-    write_prompt_pages_batched(cache["v"], v_new, page_ids, seq_len)
+    """Scatter an admission group's prompt K/V into the pool, in place,
+    quantizing on the way in when the pool is int8. An int8tail pool also
+    stages each prompt's last page, exact in bf16, into its slot's open
+    page."""
+    if "k_scale" not in cache:
+        write_prompt_pages_batched(cache["k"], k_new, page_ids, seq_len)
+        write_prompt_pages_batched(cache["v"], v_new, page_ids, seq_len)
+        return cache
+    for name, new in (("k", k_new), ("v", v_new)):
+        codes, scales = quantize_kv(new)
+        write_prompt_pages_batched(cache[name], codes, page_ids, seq_len)
+        write_prompt_scales_batched(cache[name + "_scale"], scales, page_ids, seq_len)
+        if "open_" + name in cache:
+            if slot_ids is None:
+                raise ValueError("int8tail prompt write needs slot_ids")
+            page = cache[name].shape[3]
+            sl = (seq_len - 1) // page * page  # the group's last page
+            cache["open_" + name][:, slot_ids.long()] = new[:, :, :, sl : sl + page].to(torch.bfloat16)
     return cache
 
 
@@ -134,10 +198,13 @@ def _paged_attention_step(
     cos_b: torch.Tensor,  # [B, 1, 1, D]
     sin_b: torch.Tensor,
 ) -> torch.Tensor:
-    """QKV + per-row RoPE + paged KV write + kernel G + out projection, for
-    one query per row (S == 1). Row r's token lands in page
+    """QKV + per-row RoPE + paged KV write + attention + out projection,
+    for one query per row (S == 1). Row r's token lands in page
     block_tables[r, pos // page] at offset pos % page, then attends over
-    its pos + 1 tokens."""
+    its pos + 1 tokens: kernel G on an f32 / bf16 pool, P on a quantized
+    one (codes and scales written after RoPE; an int8tail pool also keeps
+    the exact K/V at open_k[li, r, :, pos % page] for every row, finished
+    rows included, as the JAX package does)."""
     b, s, h = xn.shape
     if s != 1:
         raise ValueError("paged decode takes one query per row here; the chunk mode (S > 1) "
@@ -155,12 +222,23 @@ def _paged_attention_step(
     pos_l = pos.long()
     page_ids = block_tables.long()[rows, pos_l // page]
     off = pos_l % page
-    k_pool[li][page_ids, :, off] = k32[:, :, 0, :].to(k_pool.dtype)  # one index_put_ per pool
-    v_pool[li][page_ids, :, off] = v32[:, :, 0, :].to(v_pool.dtype)
     seq_lens = (pos + 1).to(torch.int32)
-    ctx = paged_decode_attention_pool(
-        q32[:, :, 0, :].contiguous(), k_pool, v_pool, block_tables, seq_lens, li, scale=1.0 / math.sqrt(d)
-    )
+    q_dec, scale = q32[:, :, 0, :].contiguous(), 1.0 / math.sqrt(d)
+    if "k_scale" in cache:
+        for name, new in (("k", k32[:, :, 0, :]), ("v", v32[:, :, 0, :])):
+            codes, scales = quantize_kv(new)  # [B, Hh, D] / [B, Hh]
+            cache[name][li][page_ids, :, off] = codes
+            cache[name + "_scale"][li][page_ids, :, off] = scales
+            if "open_" + name in cache:
+                cache["open_" + name][li][rows, :, off] = new.to(torch.bfloat16)
+        ctx = paged_decode_attention_pool_q8(
+            q_dec, k_pool, v_pool, cache["k_scale"], cache["v_scale"], block_tables, seq_lens, li, scale=scale,
+            open_k=cache.get("open_k"), open_v=cache.get("open_v"),
+        )
+    else:
+        k_pool[li][page_ids, :, off] = k32[:, :, 0, :].to(k_pool.dtype)  # one index_put_ per pool
+        v_pool[li][page_ids, :, off] = v32[:, :, 0, :].to(v_pool.dtype)
+        ctx = paged_decode_attention_pool(q_dec, k_pool, v_pool, block_tables, seq_lens, li, scale=scale)
     return qmm(ctx.reshape(b, h).to(xn.dtype), layer["wo"], decode=True).reshape(b, 1, h)
 
 
@@ -184,9 +262,9 @@ def lm_decode_step_paged(
     [B, 1, H]. The routed MoE of a layer is kernel F (J with int8 experts,
     N with int4) when B * k > E (every slot counts, active or not), the
     per-selection path (I with int8 experts, M with int4) otherwise; int8
-    linears run kernel H, int4 ones L, and the attention kernel G whatever
-    the weights (the JAX package's `_lm_decode_step_paged_q8` is this
-    loop)."""
+    linears run kernel H, int4 ones L, and the attention kernel G on an f32
+    or bf16 pool and P on a quantized one, whatever the weights (the JAX
+    package's `_lm_decode_step_paged_q8` is this loop)."""
     cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
     cos_b, sin_b = _chunk_rope(cos, sin, pos)
     b, s, h = embeds.shape

@@ -4,7 +4,13 @@ Host stage (`preprocess_host`): decode, rotate, the crop decision (a side
 above `crop_image_size`, unless `no_crop`), the crop grid, the letterbox to
 the base size and the crop tiles, with PIL imported only there. Device stage
 (`preprocess_finish` and `build_ocr_embeds`): ship the uint8 views,
-normalize on the device, vision towers, injection. Then greedy generation.
+normalize on the device, vision towers, injection. Then generation, greedy
+or sampled (`sampling`). `generate_text` runs the LM alone on a text
+prompt.
+
+`kv_dtype` "int8" / "int8tail" selects the quantized paged pools, which
+only the continuous engine has; `generate_ocr` and the group engine refuse
+them through `make_kv_cache`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,11 +25,12 @@ import torch
 from ..configs import OCR2Config
 from ..models import deepseek_ocr2 as ocr2
 from ..models.deepseek_v2 import rope_consts
-from ..utils.tokenizer import decode_output, tokenize_with_image
+from ..utils.tokenizer import decode_output, tokenize_text, tokenize_with_image
 from .generate import greedy_generate
 from .kv_cache import bucket_capacity
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_QUANTIZED_KV = ("int8", "int8tail")  # paged pools only: kept as the string
 
 
 @dataclasses.dataclass
@@ -62,7 +69,7 @@ class OCR2Pipeline:
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
-        self.kv_dtype = _DTYPES[kv_dtype]
+        self.kv_dtype = kv_dtype if kv_dtype in _QUANTIZED_KV else _DTYPES[kv_dtype]
         self.act_dtype = _DTYPES[act_dtype]
         self.rope = rope_consts(cfg.lm, self.device)  # host-built once, not per page
 
@@ -146,11 +153,14 @@ class OCR2Pipeline:
         ngram_size: int = 20,
         eos_token_id: Optional[int] = None,
         keep_logits: bool = False,
+        sampling: Optional[dict] = None,
     ) -> GenerationResult:
         """OCR one page. `image` is a path, a PIL image, or the dict that
         `preprocess_host` returns (for callers that letterbox and tile
         themselves; `result.crop_ratio` is the grid that ran).
-        `keep_logits` copies every step's logits to the host (debugging)."""
+        `keep_logits` copies every step's logits to the host (debugging).
+        `sampling` takes the keys temperature, top_k, top_p and seed of
+        `greedy_generate`; None is greedy."""
         cfg = self.cfg
         eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
         prompt = prompt or cfg.default_ocr_prompt
@@ -171,7 +181,7 @@ class OCR2Pipeline:
             self.params["lm"], cfg.lm, embeds, torch.tensor(ids),
             max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=eos,
             capacity=bucket_capacity(len(ids) + max_new_tokens), kv_dtype=self.kv_dtype,
-            stats=stats, keep_logits=keep_logits, rope=self.rope,
+            stats=stats, keep_logits=keep_logits, rope=self.rope, **(sampling or {}),
         )
         total = len(ids) + int(n_gen[0])
         all_ids = tokens[0, :total].tolist()
@@ -187,4 +197,39 @@ class OCR2Pipeline:
             crop_ratio=crop_ratio,
             logits0=stats["logits0"][0],
             step_logits=[lg[0] for lg in stats["logits"]] if keep_logits else None,
+        )
+
+    def generate_text(
+        self,
+        prompt: str,
+        max_new_tokens: int = 128,
+        eos_token_id: Optional[int] = None,
+        ngram_size: int = 0,
+        sampling: Optional[dict] = None,
+    ) -> GenerationResult:
+        """Text-only generation on the LM: BOS + the prompt's ids, their
+        embeddings in the activation dtype (the JAX package's
+        `generate_text`)."""
+        cfg = self.cfg
+        eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
+        ids = tokenize_text(self.tokenizer, prompt, bos_id=cfg.bos_token_id)
+        ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
+        embeds = self.params["lm"]["embed"][ids_t][None].to(self.act_dtype)
+        stats: Dict[str, Any] = {}
+        tokens, n_gen = greedy_generate(
+            self.params["lm"], cfg.lm, embeds, ids_t,
+            max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=eos,
+            capacity=bucket_capacity(len(ids) + max_new_tokens), kv_dtype=self.kv_dtype,
+            stats=stats, rope=self.rope, **(sampling or {}),
+        )
+        all_ids = tokens[0, : len(ids) + int(n_gen[0])].tolist()
+        gen_ids = all_ids[len(ids):]
+        return GenerationResult(
+            text=decode_output(self.tokenizer, gen_ids, cfg.stop_string),
+            token_ids=all_ids,
+            prompt_len=len(ids),
+            prefill_seconds=stats["prefill_s"],
+            decode_seconds=stats["decode_s"],
+            new_tokens=len(gen_ids),
+            logits0=stats["logits0"][0],
         )

@@ -3,7 +3,8 @@ no-crop greedy tokens (f32), bf16-LM logits, the CLI on a no-crop and a crop
 page, `serve` (group and continuous engines), and the guarantees that the
 port imports neither jax nor anything of the JAX package (over a no-crop
 and a crop page, both serving engines and, with int8 weights, a page and
-the continuous engine) and never runs on the CPU when a GPU is asked for. Crop mode's
+the continuous engine; the int8tail continuous engine sampling, and a sampled
+`greedy_generate`) and never runs on the CPU when a GPU is asked for. Crop mode's
 parity with the JAX package is in tests/test_torch_crop.py.
 """
 
@@ -180,10 +181,13 @@ def test_cli_serve_refuses_what_it_cannot_run(cli_assets):
     d = cli_assets
     base = ["serve", "--weights", str(d / "tiny.safetensors"), "--tokenizer", str(d / "tokenizer.json"),
             "--images", str(d / "page.png")]
-    with pytest.raises(SystemExit, match="next slice"):
-        main([*base, "--backend", "cpu", "--continuous", "--kv-cache", "int8"])
-    with pytest.raises(SystemExit, match="sampling"):
-        main([*base, "--backend", "cpu", "--temperature", "0.7"])
+    tiny = ["--config", str(d / "tiny_config.json"), "--max-new-tokens", "4", "--no-repeat-ngram-size", "3",
+            "--vision-dtype", "f32", "--lm-dtype", "f32"]
+    # The quantized pools and sampling are ported: these run where they were refused.
+    assert main([*base, *tiny, "--backend", "cpu", "--continuous", "--capacity", "128", "--kv-cache", "int8"]) == 0
+    assert main([*base, *tiny, "--backend", "cpu", "--temperature", "0.7", "--top-k", "50", "--seed", "3"]) == 0
+    with pytest.raises(SystemExit, match="top-p"):
+        main([*base, "--backend", "cpu", "--temperature", "0.7", "--top-p", "0"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             main(base)  # --backend cuda is the default
@@ -197,10 +201,11 @@ def test_cli_refuses_flags_outside_the_slice(cli_assets):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
               "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4",
               "--lookup-decode", "4"])
-    with pytest.raises(SystemExit, match="--kv-cache int8/int8tail .*next slice"):
+    # generate-ocr's contiguous cache has no int8 kind: the JAX CLI's error.
+    with pytest.raises(ValueError, match="int8/int8tail KV applies to the paged pool only"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
-              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int8",
-              "--kv-cache", "int8tail"])
+              "--tokenizer", str(d / "tokenizer.json"), "--config", str(d / "tiny_config.json"),
+              "--image", str(d / "page.png"), "--int8", "--kv-cache", "int8tail", "--max-new-tokens", "2"])
 
 
 _NO_JAX_SCRIPT = """
@@ -247,6 +252,15 @@ r = q4.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
 assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
 cont = ContinuousOCREngine(q4, slots=6, capacity=256, chunk_steps=2).run(pages, max_new_tokens=3, ngram_size=3)
 assert all(r.new_tokens >= 1 for r in cont)
+tail = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device="cpu", kv_dtype="int8tail")
+cont = ContinuousOCREngine(tail, slots=6, capacity=256, chunk_steps=2).run(
+    pages, max_new_tokens=3, ngram_size=3, sampling=dict(temperature=0.8, top_k=50, top_p=0.9, seed=1))
+assert all(r.new_tokens >= 1 for r in cont)
+from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+ids = torch.tensor([[0, 5, 9], [0, 7, 3]])
+toks, n_gen = greedy_generate(params["lm"], cfg.lm, params["lm"]["embed"][ids], ids, max_new_tokens=4, capacity=64,
+                              kv_dtype=torch.float32, temperature=0.7, top_p=0.9, seed=2)
+assert bool((n_gen >= 1).all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "deepseek_ocr2_tpu" or m.startswith("deepseek_ocr2_tpu."))
 print("JAX_MODULES", bad)

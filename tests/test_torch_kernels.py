@@ -150,6 +150,13 @@ def test_wrappers_refuse_non_cuda_devices():
         paged_attention.paged_decode_attention_pool(
             torch.zeros(4, 10, 128, device="meta"), pool, pool, torch.zeros(4, 2, dtype=torch.int32, device="meta"),
             torch.zeros(4, dtype=torch.int32, device="meta"), 1, scale=1.0)
+    codes, scales = torch.zeros(2, 3, 10, 16, 128, dtype=torch.int8, device="meta"), torch.zeros(2, 3, 10, 16,
+                                                                                                  device="meta")
+    with pytest.raises(ValueError):
+        paged_attention.paged_decode_attention_pool_q8(
+            torch.zeros(4, 10, 128, device="meta"), codes, codes, scales, scales,
+            torch.zeros(4, 2, dtype=torch.int32, device="meta"), torch.zeros(4, dtype=torch.int32, device="meta"),
+            1, scale=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +364,67 @@ def test_cuda_paged_attention_small_pages(cuda):
     got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq_lens, 3, scale=0.1)
     ref = paged_attention.paged_decode_attention_reference(q, k_pool[3], v_pool[3], bt, seq_lens, scale=0.1)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _paged_q8_case(dev, tail, lens, page, finished, seed=7):
+    """Kernel P's inputs: a 2-layer int8 pool with 10 heads of 128, random
+    codes in [-127, 127] and scales, row-exclusive block tables (as the
+    engine keeps them: the twin's open-page patch needs it), bf16 open pages
+    one a row in tail mode; with `finished` the last row points at the
+    scratch page 0 only."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, max_pages = len(lens), -(-max(lens) // page)
+    n_pages = b * max_pages + 1
+    codes = [torch.randint(-127, 128, (2, n_pages, 10, page, 128), generator=g, device=dev, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(2, n_pages, 10, page, generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2)]
+    opens = [torch.randn(2, b, 10, page, 128, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)] \
+        if tail else [None, None]
+    bt = (torch.randperm(n_pages - 1, generator=g, device=dev)[: b * max_pages] + 1).reshape(b, max_pages)
+    bt = bt.to(torch.int32)
+    if finished:
+        bt[-1] = 0
+    q = torch.randn(b, 10, 128, generator=g, device=dev)
+    return q, codes, scales, opens, bt, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("b,page", [(1, 16), (1, 128), (3, 16), (3, 128), (16, 16), (16, 128)])
+def test_cuda_paged_q8_matches_twin(cuda, tail, b, page):
+    """Lengths 1, page, page + 1 and 2048 (a row whose last page is its
+    first, one that ends on a page end, one a token past it); at B >= 3 the
+    last row is finished on the scratch page 0. In tail mode a finished
+    row's output is not compared: the kernel reads codes for its earlier
+    pages, the twin's patch puts its open page on every page-0 entry, and
+    the engine discards it either way."""
+    edge = [1, page, page + 1, 2048]
+    cases = [[n] for n in edge] if b == 1 else [[edge[(i + r) % 4] for i in range(b)] for r in range(2)]
+    for lens in cases:
+        q, (kc, vc), (ks, vs), (ok, ov), bt, seq_lens = _paged_q8_case(cuda, tail, lens, page, finished=b > 1)
+        before = paged_attention.paged_decode_attention_pool_q8.launches
+        got = paged_attention.paged_decode_attention_pool_q8(q, kc, vc, ks, vs, bt, seq_lens, 1, scale=128**-0.5,
+                                                             open_k=ok, open_v=ov)
+        torch.cuda.synchronize()
+        assert paged_attention.paged_decode_attention_pool_q8.launches == before + 1
+        ref = paged_attention.paged_decode_attention_q8_reference(q, kc, vc, ks, vs, bt, seq_lens, 1,
+                                                                  scale=128**-0.5, open_k=ok, open_v=ov)
+        live = slice(None, -1) if tail and b > 1 else slice(None)
+        assert got.shape == q.shape and bool(torch.isfinite(got).all())
+        assert float((got[live] - ref[live]).abs().max()) <= 1e-4, lens  # f32 math on both sides
+
+
+@pytest.mark.gpu
+def test_cuda_paged_q8_makes_no_host_sync(cuda):
+    q, (kc, vc), (ks, vs), (ok, ov), bt, seq_lens = _paged_q8_case(cuda, True, [300, 5, 2048], 128, True)
+    args = (q, kc, vc, ks, vs, bt, seq_lens, 1)
+    paged_attention.paged_decode_attention_pool_q8(*args, scale=0.1, open_k=ok, open_v=ov)  # builds first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        paged_attention.paged_decode_attention_pool_q8(*args, scale=0.1, open_k=ok, open_v=ov)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 # ---------------------------------------------------------------------------

@@ -100,9 +100,20 @@ def test_write_prompt_pool_and_allocator_match_jax():
 
 
 def test_quantized_pools_name_their_slice():
-    for dtype in ("int8", "int8tail"):
-        with pytest.raises(ValueError, match="quantized slice"):
-            tpaged.make_paged_kv_cache(2, 4, 2, 16, 8, dtype)
+    """The quantized pools exist now: their planes, and the ValueErrors of
+    an int8tail pool built without `slots` and written without `slot_ids`
+    (the JAX package asserts the latter)."""
+    pool = tpaged.make_paged_kv_cache(2, 4, 2, 16, 8, "int8")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in pool.items()} == {
+        "k": ((2, 4, 2, 16, 8), torch.int8), "v": ((2, 4, 2, 16, 8), torch.int8),
+        "k_scale": ((2, 4, 2, 16), torch.float32), "v_scale": ((2, 4, 2, 16), torch.float32)}
+    with pytest.raises(ValueError, match="slots"):
+        tpaged.make_paged_kv_cache(2, 4, 2, 16, 8, "int8tail")
+    pool = tpaged.make_paged_kv_cache(2, 4, 2, 16, 8, "int8tail", slots=3)
+    assert pool["open_k"].shape == (2, 3, 2, 16, 8) and pool["open_v"].dtype == torch.bfloat16
+    new = torch.zeros(2, 1, 2, 16, 8)
+    with pytest.raises(ValueError, match="slot_ids"):
+        tpaged.write_prompt_pool_batched(pool, new, new, torch.tensor([[1]]), 10)
 
 
 @pytest.fixture(scope="module")

@@ -320,12 +320,15 @@ def test_out_of_slice_options_name_their_slice(setup):
     _, _, pipe = setup
     with pytest.raises(ValueError, match="lookup"):
         ContinuousOCREngine(pipe, slots=2, capacity=128, lookup_chunk=4)
+    # Sampling is ported: the engines run with it where they refused it.
     engine = ContinuousOCREngine(pipe, slots=2, capacity=128)
-    with pytest.raises(ValueError, match="sampl"):
-        engine.run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))
-    with pytest.raises(ValueError, match="sampl"):
-        engine.start(sampling=dict(temperature=0.7))
-    with pytest.raises(ValueError, match="sampl"):
-        OCR2Engine(pipe).run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))
+    res = engine.run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))
+    assert res[0].new_tokens >= 1
+    engine.start(sampling=dict(temperature=0.7, seed=5))
+    try:
+        assert engine.submit(_pages(1)[0], max_new_tokens=2).result(timeout=120).new_tokens >= 1
+    finally:
+        engine.stop(timeout=60)
+    assert OCR2Engine(pipe).run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))[0].new_tokens >= 1
     with pytest.raises(ValueError, match="cannot hold"):
         ContinuousOCREngine(pipe, slots=2, capacity=128, page_size=16, pool_tokens=64)
