@@ -10,12 +10,15 @@ Phases (each raises on failure, so the exit code is non-zero):
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the main path's shapes (no-crop and crop pages, the 16-slot decode
    batch on f32, bf16, int8 and int8tail pools, the int8 and int4 decode
-   steps), with the max abs error beside its
+   steps, the chunk form of lookup decoding at S = 4 on f32, bf16, int8
+   and int8tail pools, chunks across a page end among them), with the max
+   abs error beside its
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`); the grouped-GEMM MoE (D, E)
    also whole against its grouped twin; D+E, F, H-O and P once each
-   under `torch.cuda.set_sync_debug_mode("error")` (no host sync); one
+   and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
+   sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
    cut-over, its int8 layer as I and as J, its int4 layer as M and as N;
 3. model: HF-layout random weights for the full-width default OCR2Config
@@ -32,6 +35,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    the count derived from the code (`quant_launches_per_step`, PERF.md);
 4c. the same with int4 weights (`--int4`: L, M, N, O in place of H, I, J,
    K);
+4d. prompt-lookup decoding (`lookup_chunk=4`) of one no-crop page through
+   `generate_ocr` on phase 3's bf16 LM: tokens, forwards and decode tok/s,
+   held to no decode kernel at all (the chunk's attention is plain on the
+   contiguous cache, its MoE the per-selection path at 4 rows x 6 <= 64);
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
    weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
    D and E on the card, the grouped twin on the CPU); step-0 logits within
@@ -54,7 +61,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    an int8 (`--kv-cache int8`) and an int8tail pool, and with `--int8` on
    int8tail: pages/s, decode tok/s and pool bytes, held to P 12 and G 0 a
    step on the quantized pools; one sampled `decode_chunk` on an int8tail
-   pool under sync-debug mode "error";
+   pool under sync-debug mode "error"; 6e: the continuous engine with
+   `lookup_chunk=4` on 6d's pages and slots, on the bf16 and the int8tail
+   pool (Q or R 12 and F 11 a chunk forward, G and P none), and on a
+   full-width LM that emits a cycle of period 24 (attention and MLPs zero,
+   embedding -> lm_head a shift): there the drafts accept, forwards under
+   half the tokens;
 7. serving is token-exact: on phase 5's card model, both engines (16
    slots) against each page's single-page `generate_ocr`, in bf16-free f32
    weights and again with `--int8` (7b) and `--int4` (7c); a difference
@@ -67,6 +79,11 @@ Phases (each raises on failure, so the exit code is non-zero):
    int8tail under the margin rule on the CPU engine's logits, and sampled
    `generate_ocr` (temperature 0.7, top-k 50, top-p 0.9, seed 3) under the
    same rule on logits / T + Gumbel noise; at temperature 0 it is greedy.
+   7e: lookup decoding on the same model: `generate_ocr` with lookup_chunk
+   4 against plain greedy on the card, both engines with lookup against
+   single pages (the continuous one on an f32 and an int8tail pool, on
+   which single pages decode the plain engine's way), and the card's lookup
+   tokens against the CPU's, each under the margin rule.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -101,7 +118,8 @@ SERVE_PAGES = [(700, 500), (768, 768), (420, 640), (600, 760), (512, 512), (760,
 #   softmax over key tiles instead of a full-row one; outputs are O(1), so
 #   f32 rounding stays far below 1e-4.
 #   G reads f32 or bf16 pools but computes in f32 on both sides: F32_TOL;
-#   so does P, from int8 codes times f32 scales (and bf16 open pages).
+#   so does P, from int8 codes times f32 scales (and bf16 open pages), and
+#   so do their chunk forms Q and R.
 # - bf16: both sides round the same f32 values to bf16 at the same points;
 #   an f32 sum that lands on the other side of a rounding boundary moves
 #   an output by one bf16 ulp (2^-8 relative), and in C such a flip of the
@@ -391,6 +409,7 @@ def decode_results(dev, randn, record) -> None:
         del k_pool, v_pool
     torch.cuda.empty_cache()
     paged_q8_results(dev, record)
+    chunk_results(dev, record)
 
 
 def paged_q8_results(dev, record) -> None:
@@ -447,6 +466,91 @@ def paged_q8_results(dev, record) -> None:
             if tail and b > 1:
                 no_host_sync(dev, "P (int8tail, B 16)", lambda: paged_decode_attention_pool_q8(*args, **kw))
         del codes, scales, opens
+    torch.cuda.empty_cache()
+
+
+def chunk_results(dev, record) -> None:
+    """Kernels Q and R, the chunk forms of G and P that lookup decoding's
+    verification runs, at S = 4 queries a row, layer 11 of [12, 257, 10,
+    128, 128] pools with row-exclusive block tables (the engine's), 16 rows:
+    - "lengths 260..2048": the rows' largest budgets spread as in G's case
+      (query i of a row at budget largest - 3 + i);
+    - "across a page end": largest budgets 128 j + 2 (the chunk's first two
+      queries in one page, its last two in the next), rows 14 and 15
+      finished on the scratch page 0.
+    Q on f32 and bf16 pools, R on int8 codes and on int8tail (bf16 open
+    pages, read for the page of the row's largest budget). In tail mode the
+    scratch rows' outputs are not compared: the twin puts an open page on
+    every page-0 entry of such a row, the kernel on its last only, and the
+    engine discards them. The bound counts each row's tokens up to its
+    largest budget once (K and V); each kernel launches once in sync-debug
+    mode."""
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_chunk_q8_reference,
+        paged_decode_attention_chunk_reference,
+        paged_decode_attention_pool_chunk,
+        paged_decode_attention_pool_chunk_q8,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    page, heads, d, li, scale, b, s = 128, 10, 128, 11, 128**-0.5, 16, 4
+    max_pages = 2048 // page
+    n_pages = b * max_pages + 1
+    bt0 = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).reshape(b, max_pages).to(torch.int32)
+    spread = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32)
+    across = (128 * torch.arange(1, b + 1, device=dev).clamp(max=max_pages - 1) + 2).to(torch.int32)
+    cases = []
+    for name, ends, n_scratch in (("lengths 260..2048", spread, 0), ("across a page end", across, 2)):
+        bt = bt0.clone()
+        if n_scratch:
+            bt[-n_scratch:] = 0
+        lens = (ends[:, None] - s + 1 + torch.arange(s, device=dev, dtype=torch.int32)).contiguous()  # [B, S]
+        cases.append((name, bt, lens, b - n_scratch))
+    q = torch.randn(b, s, heads, d, generator=g, device=dev)
+    shape = (12, n_pages, heads, page, d)
+    for dt in (torch.bfloat16, torch.float32):  # the bf16 pool first: the main path's (phase 6e)
+        k_pool = torch.randn(shape, generator=g, device=dev).to(dt)
+        v_pool = torch.randn(shape, generator=g, device=dev).to(dt)
+        for name, bt, lens, _ in cases:
+            n_keys = int(lens[:, -1].sum())
+            args = (q, k_pool, v_pool, bt, lens, li)
+            ref = paged_decode_attention_chunk_reference(q, k_pool[li], v_pool[li], bt, lens, scale=scale)
+            got = paged_decode_attention_pool_chunk(*args, scale=scale)
+            record("Q", f"{str(dt)[6:]} pool {shape}, B {b}, S {s}, {name}, layer {li}", ref, got, F32_TOL,
+                   median_ms(lambda: paged_decode_attention_pool_chunk(*args, scale=scale)),
+                   median_ms(lambda: paged_decode_attention_chunk_reference(q, k_pool[li], v_pool[li], bt, lens,
+                                                                            scale=scale)),
+                   bound_ms(nbytes(q, ref, bt, lens) + 2 * n_keys * heads * d * k_pool.element_size(),
+                            4 * s * n_keys * heads * d, torch.float32),
+                   graph=lambda: paged_decode_attention_pool_chunk(*args, scale=scale))
+        no_host_sync(dev, f"Q ({str(dt)[6:]} pool, B 16, S 4)",
+                     lambda: paged_decode_attention_pool_chunk(q, k_pool, v_pool, *cases[0][1:3], li, scale=scale))
+        del k_pool, v_pool
+    torch.cuda.empty_cache()
+    codes = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(shape[:4], generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2)]
+    opens = [torch.randn(12, b, heads, page, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+    for tail in (True, False):  # int8tail first: the main path's (phase 6e)
+        kw = dict(scale=scale, open_k=opens[0], open_v=opens[1]) if tail else dict(scale=scale)
+        for name, bt, lens, n_live in cases:
+            args = (q, codes[0], codes[1], scales[0], scales[1], bt, lens, li)
+            ref = paged_decode_attention_chunk_q8_reference(*args, **kw)
+            got = paged_decode_attention_pool_chunk_q8(*args, **kw)
+            live = slice(None, n_live) if tail else slice(None)
+            n = lens[:, -1].long().cpu()
+            n_tail = n - (n - 1) // page * page  # tokens of each row's last page
+            kv_bytes = int((n - n_tail).sum()) * 2 * heads * (d + 4) + int(n_tail.sum()) * 2 * heads * d * 2 \
+                if tail else int(n.sum()) * 2 * heads * (d + 4)
+            record("R", f"{'int8tail' if tail else 'int8'} pool {shape}, B {b}, S {s}, {name}, layer {li}",
+                   ref[live], got[live], F32_TOL,
+                   median_ms(lambda: paged_decode_attention_pool_chunk_q8(*args, **kw)),
+                   median_ms(lambda: paged_decode_attention_chunk_q8_reference(*args, **kw)),
+                   bound_ms(nbytes(q, ref, bt, lens) + kv_bytes, 4 * s * int(n.sum()) * heads * d, torch.float32),
+                   graph=lambda: paged_decode_attention_pool_chunk_q8(*args, **kw))
+        no_host_sync(dev, f"R ({'int8tail' if tail else 'int8'}, B 16, S 4)",
+                     lambda: paged_decode_attention_pool_chunk_q8(q, codes[0], codes[1], scales[0], scales[1],
+                                                                  *cases[0][1:3], li, **kw))
+    del codes, scales, opens
     torch.cuda.empty_cache()
 
 
@@ -971,11 +1075,16 @@ def counters():
     from deepseek_ocr2_tpu_torch.ops.attn_fused import attn_decode_fused_q4
     from deepseek_ocr2_tpu_torch.ops.linear_q4 import linear_q4
     from deepseek_ocr2_tpu_torch.ops.moe_q4 import moe_ffn_decode_q4, moe_ffn_decode_q4_fused
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool_chunk,
+        paged_decode_attention_pool_chunk_q8,
+    )
 
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
             "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
             "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused, "L": linear_q4, "M": moe_ffn_decode_q4,
-            "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8}
+            "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8,
+            "Q": paged_decode_attention_pool_chunk, "R": paged_decode_attention_pool_chunk_q8}
 
 
 # The quantized tiers of the CLI: (flag, scope, bits).
@@ -994,14 +1103,14 @@ def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool, q
     - H / L for the dense MLP's two linears and for lm_head, and in scope
       "full" for the shared MLP's two unless the pseudo-experts are folded
       in (always with J / N, at one row with I / M).
-    The other tier's four kernels and F launch none; on a quantized pool
-    (`q8_pool`) P takes G's place."""
+    The other tier's four kernels, F and the chunk kernels Q and R launch
+    none; on a quantized pool (`q8_pool`) P takes G's place."""
     full = scope == "full"
     n_moe, n_dense = lm.num_moe_layers, lm.first_k_dense_replace
     j = rows * lm.num_experts_per_tok > lm.n_routed_experts
     shared_h = 0 if (j or rows == 1) else 2 * n_moe
     att, sel, distinct, lin = "KIJH" if bits == 8 else "OMNL"
-    want = dict.fromkeys("FGHIJKLMNOP", 0)
+    want = dict.fromkeys("FGHIJKLMNOPQR", 0)
     want.update({
         att: lm.num_hidden_layers if full and not paged else 0,
         "P" if q8_pool else "G": lm.num_hidden_layers if paged else 0,
@@ -1153,6 +1262,40 @@ def phase_quant_main_path(dev, pipe, tiers, tag: str) -> dict:
         pipe.params = {**pipe.params, "lm": bf16_lm}  # one quantized copy on the card at a time
         torch.cuda.empty_cache()
     print(f"[{tag}] launches over the phase {launches}")
+    return launches
+
+
+def phase_lookup_main_path(dev, pipe) -> dict:
+    """Phase 4d: prompt-lookup decoding (lookup_chunk 4) of one no-crop page
+    through generate_ocr on phase 3's bf16 LM and f32 cache. The chunk
+    forward attends with the plain sdpa on the contiguous cache (no G, P,
+    K, O, Q or R) and its MoE takes the per-selection path (4 rows x 6 <= 64
+    experts: no F), so only the prefill's kernels launch: A, B and C.
+    Returns the launches."""
+    cfg = pipe.cfg
+    kernels = counters()
+    page = synthetic_page(*PAGES[0], cfg, seed=0)[0]
+    pipe.lookup_chunk = 4
+    try:
+        pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20)  # the chunk shapes' first calls, not timed
+        for fn in kernels.values():
+            fn.launches = 0
+        r = pipe.generate_ocr(page, max_new_tokens=64, ngram_size=20)
+    finally:
+        pipe.lookup_chunk = 0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    fw = r.lookup_forwards
+    decode_fw = fw - 1  # the prefill counts as one
+    print(f"[lookup] generate_ocr, lookup_chunk 4, no-crop page {PAGES[0][0]}x{PAGES[0][1]}: prompt {r.prompt_len}, "
+          f"{r.new_tokens} tokens in {fw} forwards ({(r.new_tokens - 1) / max(decode_fw, 1):.2f} tokens a chunk "
+          f"forward), prefill {r.prefill_seconds * 1e3:.1f} ms, decode {r.decode_seconds * 1e3:.1f} ms "
+          f"({r.decode_tokens_per_sec:.1f} tok/s, {r.decode_seconds * 1e3 / max(decode_fw, 1):.2f} ms a forward); "
+          f"launches {launches}, a chunk forward "
+          f"{ {k: n / max(decode_fw, 1) for k, n in launches.items() if k not in 'ABC'} }")
+    print(f"[lookup]   tokens {r.token_ids[r.prompt_len:]}")
+    bad = {k: n for k, n in launches.items() if k not in "ABC" and n}
+    if bad or min(launches[k] for k in "ABC") == 0 or r.new_tokens < 1 or decode_fw < 1:
+        raise AssertionError(f"lookup generate_ocr: launches {launches}, expected A, B, C only")
     return launches
 
 
@@ -1567,7 +1710,7 @@ def phase_serving_kv(dev, pipe) -> dict:
         decoded = sum(r.new_tokens - 1 for r in res)
         attention = "G" if kv == "bfloat16" else "P"
         if tier == "bf16":
-            want = dict.fromkeys("FGHIJKLMNOP", 0)
+            want = dict.fromkeys("FGHIJKLMNOPQR", 0)
             want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
         else:
             want = {k: n * steps for k, n in quant_launches_per_step(lm, "full", 8, rows=16, paged=True,
@@ -1587,6 +1730,88 @@ def phase_serving_kv(dev, pipe) -> dict:
     print(f"[serve-kv] launches over phase 6d {launches}")
     _decode_chunk_sync_check(dev, pipe, kernels, kv_dtype="int8tail",
                              sampling=dict(temperature=0.7, top_k=50, top_p=0.9))
+    return launches
+
+
+CYCLE = 24  # the period of `cycle_lm`, over the ids 2 .. 25 (clear of BOS 0 and EOS 1)
+
+
+def cycle_lm(lm_params, lm) -> dict:
+    """A full-width LM that emits a cycle (the JAX package's
+    tests/test_lookup_decode.py LM): attention, MLPs, experts and routers
+    zero, so each position's hidden state is its own embedding; id 2 + i
+    (i < CYCLE) embeds as the unit vector e_i and lm_head maps e_i to id 2 +
+    (i + 1) mod CYCLE. Every other id embeds as e_(CYCLE - 1), so the prompt
+    leads into the cycle at id 2. The norms keep phase 3's weights."""
+    emb = lm_params["embed"]
+    embed = torch.zeros(lm.vocab_size, lm.hidden_size, dtype=emb.dtype, device=emb.device)
+    head = torch.zeros_like(embed)
+    i = torch.arange(CYCLE, device=emb.device)
+    embed[:, CYCLE - 1] = 1.0
+    embed[2 + i] = 0.0
+    embed[2 + i, i] = 1.0
+    head[2 + (i + 1) % CYCLE, i] = 1.0
+    layers = [{k: v if k in ("ln1", "ln2") else
+               ({n: torch.zeros_like(w) for n, w in v.items()} if isinstance(v, dict) else torch.zeros_like(v))
+               for k, v in layer.items()} for layer in lm_params["layers"]]
+    return {"embed": embed, "layers": layers, "norm": lm_params["norm"], "lm_head": head}
+
+
+def phase_serving_lookup(dev, pipe) -> dict:
+    """Phase 6e: the continuous engine with lookup_chunk 4 at 16 slots on
+    6d's 16 no-crop pages at 64 new tokens (chunk_steps 16: 4 chunk
+    forwards a dispatch), on phase 3's bf16 LM with a bf16 pool and an
+    int8tail pool, then on `cycle_lm` (bf16 pool, 128 new tokens, no n-gram
+    ban), where the drafts accept. Each chunk forward launches Q (bf16 pool)
+    or R (int8tail) once a layer and F once a MoE layer (64 rows x 6 > 64
+    experts), and G, P none. Returns the launches."""
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    pages = _serve_pages(cfg, 16, 0, seed=600)
+    for fn in kernels.values():
+        fn.launches = 0
+    runs = (("bf16", "bfloat16", 64, 20), ("bf16", "int8tail", 64, 20), ("cycle", "bfloat16", 128, 0))
+    for tier, kv, max_new, ngram in runs:
+        lm_params = pipe.params["lm"] if tier == "bf16" else cycle_lm(pipe.params["lm"], lm)
+        kpipe = OCR2Pipeline({**pipe.params, "lm": lm_params}, cfg, pipe.tokenizer, device=dev, kv_dtype=kv,
+                             act_dtype="float32")
+        engine = ContinuousOCREngine(kpipe, slots=16, capacity=1024, chunk_steps=16, page_size=128, lookup_chunk=4)
+        # The cycle's 16 pages admit as one group (prestaged), so their rows
+        # run in step and a forward's count is each slot's.
+        reqs = engine.prestage(pages, max_new_tokens=max_new) if tier == "cycle" else None
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        res = engine.run_requests(reqs, ngram_size=ngram) if reqs else \
+            engine.run(pages, max_new_tokens=max_new, ngram_size=ngram)
+        dt = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        steps, fw = engine.last_decode_steps, engine.last_lookup_forwards
+        decoded = sum(r.new_tokens - 1 for r in res)  # the first token of a page comes from its admission
+        attention = "Q" if kv == "bfloat16" else "R"
+        want = dict.fromkeys("FGHIJKLMNOPQR", 0)
+        want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
+        print(f"[serve-lookup] ContinuousOCREngine(slots=16, lookup_chunk=4), {tier} LM, {kv} pool: "
+              f"{len(pages)} pages in {dt:.2f} s = {len(pages) / dt:.2f} pages/s; {steps} chunk forwards "
+              f"({fw} with an active slot) in {engine.last_decode_seconds:.2f} s, {decoded} tokens = "
+              f"{decoded / engine.last_decode_seconds:.1f} tok/s in total, {decoded / 16 / max(fw, 1):.2f} "
+              f"tokens a slot a forward; lookup_forwards {fw}; launches {delta}")
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad or fw < 1 or any(r is None or r.new_tokens < 1 for r in res):
+            raise AssertionError(f"lookup engine, {tier} LM on the {kv} pool: launches (got, derived) {bad}")
+        if tier == "cycle":
+            first = res[0].token_ids[res[0].prompt_len:]
+            cyc = all(2 <= a < 2 + CYCLE and b == 2 + (a - 1) % CYCLE for a, b in zip(first, first[1:]))
+            print(f"[serve-lookup]   cycle LM: {res[0].new_tokens} tokens a page in {fw} forwards, a cycle of "
+                  f"{CYCLE}: {cyc}; tokens {first[:30]}...")
+            if not cyc or any(r.token_ids[r.prompt_len:] != first for r in res) or not fw < res[0].new_tokens / 2:
+                raise AssertionError(f"cycle LM: {fw} forwards for {res[0].new_tokens} tokens a page, cycle {cyc}")
+        del engine, res, kpipe, lm_params
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[serve-lookup] launches over phase 6e {launches}")
     return launches
 
 
@@ -1795,6 +2020,86 @@ def phase_kv_card_vs_cpu(dev, card_params, cpu_params) -> None:
         raise AssertionError("generate_ocr at temperature 0 is not greedy")
 
 
+def phase_lookup_exact(dev, pipe, cpu_params) -> None:
+    """Phase 7e: lookup decoding (lookup_chunk 4) on phase 5's reduced-depth
+    f32 model on the card, under phase 7's margin rule: generate_ocr with
+    lookup against plain greedy single pages; the group engine and the
+    continuous engine (4 slots, one admission group) with lookup against
+    them on the f32 cache and pool; on an int8tail pool, the continuous
+    engine with lookup against the plain one (the margin from the plain
+    engine's own logits); and the card's lookup tokens of page 0 against
+    the CPU's."""
+    from types import SimpleNamespace
+
+    from deepseek_ocr2_tpu_torch.runtime import continuous as cont
+    from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg = pipe.cfg
+    kernels = counters()
+    pages = _serve_pages(cfg, 4, 0, seed=800)
+    gen = dict(max_new_tokens=32, ngram_size=20)
+    singles = [pipe.generate_ocr(p, keep_logits=True, **gen) for p in pages]
+    before = {k: fn.launches for k, fn in kernels.items()}
+    pipe.lookup_chunk = 4
+    try:
+        served = {
+            "generate_ocr": [pipe.generate_ocr(p, **gen) for p in pages],
+            "OCR2Engine(batch_size=4)": OCR2Engine(pipe, batch_size=4).run(pages, **gen),
+        }
+    finally:
+        pipe.lookup_chunk = 0
+    engine = cont.ContinuousOCREngine(pipe, slots=4, capacity=512, chunk_steps=8, lookup_chunk=4)
+    served["ContinuousOCREngine(slots=4), f32 pool"] = engine.run_requests(
+        engine.prestage(pages, max_new_tokens=gen["max_new_tokens"]), ngram_size=20)
+    for name, results in served.items():
+        notes = [(i, _first_difference(s, r)) for i, (s, r) in enumerate(zip(singles, results))]
+        print(f"[lookup-exact] {name} with lookup: {sum(1 for _, n in notes if not n)} of {len(pages)} pages "
+              f"token-exact against plain greedy generate_ocr")
+        for i, n in notes:
+            if n:
+                print(f"[lookup-exact]   page {i}: {n}")
+
+    tpipe = OCR2Pipeline(pipe.params, cfg, pipe.tokenizer, device=dev, kv_dtype="int8tail", act_dtype="float32")
+    logits, orig = [], cont.logits_last
+    tail = {}
+    for chunk in (0, 4):
+        engine = cont.ContinuousOCREngine(tpipe, slots=4, capacity=512, chunk_steps=8, lookup_chunk=chunk)
+        reqs = engine.prestage(pages, max_new_tokens=gen["max_new_tokens"])  # one admission group: slot i = page i
+        if chunk == 0:
+            cont.logits_last = lambda params, hidden: logits.append(orig(params, hidden).float()) or logits[-1]
+        try:
+            tail[chunk] = engine.run_requests(reqs, ngram_size=20)
+        finally:
+            cont.logits_last = orig
+    for i in range(len(pages)):
+        plain = SimpleNamespace(token_ids=tail[0][i].token_ids, prompt_len=tail[0][i].prompt_len,
+                                step_logits=[lg[i].cpu() for lg in logits])
+        note = _first_difference(plain, tail[4][i])
+        print(f"[lookup-exact] int8tail pool, continuous engine page {i}: lookup "
+              f"{'= plain' if not note else note} ({tail[4][i].new_tokens} tokens)")
+    d = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    print(f"[lookup-exact] launches {d}")
+    if min(d[k] for k in "PQR") == 0 or d["G"]:  # the plain runs: the contiguous cache and the int8tail pool
+        raise AssertionError(f"the reduced-depth runs did not reach Q, R (lookup) and P (plain int8tail): {d}")
+
+    # Card vs CPU at 16 new tokens (the CPU's full-width forwards are slow).
+    gen16 = dict(gen, max_new_tokens=16)
+    cpu = OCR2Pipeline(cpu_params, cfg, pipe.tokenizer, device="cpu", kv_dtype="float32", act_dtype="float32")
+    cpu_single = cpu.generate_ocr(pages[0], keep_logits=True, **gen16)
+    cpu.lookup_chunk = pipe.lookup_chunk = 4
+    try:
+        cpu_lookup, card_lookup = cpu.generate_ocr(pages[0], **gen16), pipe.generate_ocr(pages[0], **gen16)
+    finally:
+        pipe.lookup_chunk = 0
+    note = _first_difference(SimpleNamespace(token_ids=cpu_lookup.token_ids, prompt_len=cpu_lookup.prompt_len,
+                                             step_logits=cpu_single.step_logits), card_lookup)
+    print(f"[lookup-exact] page 0 with lookup: card {'= CPU' if not note else note} "
+          f"({cpu_lookup.new_tokens} tokens on the CPU in {cpu_lookup.lookup_forwards} forwards, "
+          f"{card_lookup.new_tokens} on the card in {card_lookup.lookup_forwards}; CPU lookup = CPU greedy: "
+          f"{cpu_lookup.token_ids == cpu_single.token_ids})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1808,9 +2113,11 @@ def main() -> int:
     main_launches, pipe = phase_main_path(dev)
     int8_launches = phase_quant_main_path(dev, pipe, (INT8, MOE_INT8), "int8")
     int4_launches = phase_quant_main_path(dev, pipe, (INT4,), "int4")
+    lookup_launches = phase_lookup_main_path(dev, pipe)
     serve_launches = phase_serving(dev, pipe)
     serve_quant_launches = phase_serving_quant(dev, pipe)
     serve_kv_launches = phase_serving_kv(dev, pipe)
+    serve_lookup_launches = phase_serving_lookup(dev, pipe)
     phase_decode_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
@@ -1819,14 +2126,16 @@ def main() -> int:
     phase_serving_exact(dev, card_pipes["int8"], tier="int8")
     phase_serving_exact(dev, card_pipes["int4"], tier="int4")
     phase_kv_card_vs_cpu(dev, card_pipes["f32"].params, cpu_params)
+    phase_lookup_exact(dev, card_pipes["f32"], cpu_params)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
     # The main path is one page through generate_ocr (phase 4, and with
-    # quantized weights 4b and 4c) and serving (phase 6, and 6b, 6c and, on
-    # the quantized pools, 6d); each was driven with the counts at 0 and
-    # read after.
-    runs = (main_launches, int8_launches, int4_launches, serve_launches, serve_quant_launches, serve_kv_launches)
+    # quantized weights 4b and 4c, with lookup decoding 4d) and serving
+    # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
+    # decoding 6e); each was driven with the counts at 0 and read after.
+    runs = (main_launches, int8_launches, int4_launches, lookup_launches, serve_launches, serve_quant_launches,
+            serve_kv_launches, serve_lookup_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
@@ -1856,20 +2165,25 @@ def main() -> int:
               "deepseek_ocr2_tpu/ops/attn_fused.py:100"),
         "P": ("paged_attention.paged_decode_attention_pool_q8 (paged decode attention, int8 / int8tail pool)",
               "deepseek_ocr2_tpu/ops/paged_attention.py:629"),
+        "Q": ("paged_attention.paged_decode_attention_pool_chunk (chunk paged attention of lookup decoding, "
+              "f32 / bf16 pool)", "deepseek_ocr2_tpu/ops/paged_attention.py:304"),
+        "R": ("paged_attention.paged_decode_attention_pool_chunk_q8 (chunk paged attention of lookup decoding, "
+              "int8 / int8tail pool)", "deepseek_ocr2_tpu/ops/paged_attention.py:808"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
                "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu",
                "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu",
-               "P": "paged_attention.cu"}
+               "P": "paged_attention.cu", "Q": "paged_attention.cu", "R": "paged_attention.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJKLMNOP":
+    for k in "ABCDEFGHIJKLMNOPQR":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
         # one row for H and L; one row with the pseudo-experts for I and M;
         # 16 rows for J and N; one row at pos 300 on an f32 cache for K and
-        # O; an int8 pool at 16 slots for P.
+        # O; an int8 pool at 16 slots for P; a bf16 pool at 16 slots for Q
+        # and an int8tail one for R (phase 6e's), S = 4.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

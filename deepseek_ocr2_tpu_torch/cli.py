@@ -10,9 +10,11 @@ after loading, `--int4` (every decode weight, group-128 scales) to int4, as
 the JAX CLI does; `--int4` wins over the other two. `--temperature > 0`
 samples (with `--top-k`, `--top-p`, `--seed`); `--kv-cache int8|int8tail`
 selects the quantized paged pools of `serve --continuous` / `--http`
-(elsewhere it fails as in the JAX CLI). Flags for features the port does
-not have yet (lookup decoding, device resize, profiling, memory trimming)
-raise a clear error instead of being ignored.
+(elsewhere it fails as in the JAX CLI). `--lookup-decode CHUNK` decodes
+greedy pages by prompt lookup (`generate-ocr` and every `serve` mode; with
+`--temperature > 0` serve notes that it ignores it). Flags for features the
+port does not have yet (device resize, profiling, memory trimming) raise a
+clear error instead of being ignored.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
         --tokenizer tokenizer.json --image page.png
@@ -68,7 +70,9 @@ def _common_gen(sp, vision_default: Optional[str]) -> None:
     sp.add_argument("--moe-int8", action="store_true")
     sp.add_argument("--int8", action="store_true")
     sp.add_argument("--int4", action="store_true")
-    sp.add_argument("--lookup-decode", type=int, default=0, metavar="CHUNK")
+    sp.add_argument("--lookup-decode", type=int, default=0, metavar="CHUNK",
+                    help="prompt-lookup speculative greedy decoding with this chunk width "
+                         "(verified drafts, greedy-exact output)")
     sp.add_argument("--device-resize", nargs="?", const="auto", default=None,
                     choices=["auto", "always", "off"])
     sp.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
@@ -140,7 +144,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_outside_slice(args) -> None:
     refused = [
-        (args.lookup_decode > 0, "--lookup-decode"),
         (args.device_resize is not None, "--device-resize"),
         (getattr(args, "profile_dir", None) is not None, "--profile-dir"),
         (args.trim_memory, "--trim-memory"),
@@ -231,7 +234,7 @@ def _load_pipeline(args):
 
     act = "float32" if vision_default == "float32" else "bfloat16"
     return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=args.kv_cache,
-                        act_dtype=act)
+                        act_dtype=act, lookup_chunk=args.lookup_decode)
 
 
 def cmd_inspect(args) -> int:
@@ -281,7 +284,7 @@ def cmd_generate_text(args) -> int:
     cfg = OCR2Config(lm=lm_cfg, eos_token_id=args.eos_token_id)
     act = "float32" if params["embed"].dtype == torch.float32 else "bfloat16"
     pipe = OCR2Pipeline({"lm": params}, cfg, load_tokenizer(args.tokenizer), device=device,
-                        kv_dtype=args.kv_cache, act_dtype=act)
+                        kv_dtype=args.kv_cache, act_dtype=act, lookup_chunk=args.lookup_decode)
     result = pipe.generate_text(args.prompt, max_new_tokens=args.max_new_tokens, eos_token_id=args.eos_token_id,
                                 sampling=sampling)
     print(result.text)
@@ -345,11 +348,17 @@ def cmd_serve(args) -> int:
         return 2
     sampling = _sampling_args(args)
     pipe = _load_pipeline(args)
+    lookup_chunk = args.lookup_decode
+    if lookup_chunk and (sampling or {}).get("temperature", 0.0) != 0.0:
+        print("note: --lookup-decode requires greedy decoding; ignoring it because --temperature > 0",
+              file=sys.stderr)
+        lookup_chunk = 0
     if args.http or args.continuous:
         from .runtime.continuous import ContinuousOCREngine
 
         engine = ContinuousOCREngine(pipe, slots=args.batch_size, capacity=args.capacity,
-                                     page_size=args.page_size, pool_tokens=args.pool_tokens)
+                                     page_size=args.page_size, pool_tokens=args.pool_tokens,
+                                     lookup_chunk=lookup_chunk)
     else:
         from .runtime.engine import OCR2Engine
 
@@ -359,8 +368,8 @@ def cmd_serve(args) -> int:
 
         engine.start(ngram_size=args.no_repeat_ngram_size, sampling=sampling)
         server = OCRHttpServer(engine, host=args.host, port=args.port, include_token_ids=args.include_token_ids)
-        print(f"serving OCR at http://{args.host}:{server.port}/v1/ocr (slots={args.batch_size}); "
-              "Ctrl-C to stop", file=sys.stderr)
+        print(f"serving OCR at http://{args.host}:{server.port}/v1/ocr (slots={args.batch_size}, "
+              f"lookup={lookup_chunk or 'off'}); Ctrl-C to stop", file=sys.stderr)
         try:
             server.serve_forever()
         except KeyboardInterrupt:
@@ -387,6 +396,11 @@ def cmd_serve(args) -> int:
             print(f"  [prefill {res.prefill_seconds * 1e3:.0f} ms, decode {res.decode_seconds * 1e3:.0f} ms, "
                   f"{res.new_tokens} tokens]", file=sys.stderr)
     print(f"[{len(args.images)} pages in {dt:.2f}s = {len(args.images) / dt:.2f} pages/s]", file=sys.stderr)
+    if args.continuous and getattr(engine, "last_lookup_forwards", 0):
+        # A page's first token comes from its admission's prefill, not a chunk forward.
+        chunk_tokens = sum(r.new_tokens - 1 for r in results if r is not None)
+        print(f"[lookup: {chunk_tokens} tokens / {engine.last_lookup_forwards} chunk forwards = "
+              f"{chunk_tokens / engine.last_lookup_forwards:.2f} tok/forward]", file=sys.stderr)
     return 0
 
 

@@ -9,7 +9,9 @@ routed experts of a layer are stacked [E, I, H] / [E, H, I].
 Prefill attention runs kernel A (`ops.flash_attention.mha`, causal) on f32
 q/k/v after RoPE, at every prompt length. Decode attends over the
 preallocated contiguous cache with the plain `sdpa`, as the JAX package's
-default "pool" strategy does. The cache is updated in place.
+default "pool" strategy does: one token a row, or a chunk of S tokens
+(lookup decoding) at a shared or per-row position, each query masked to
+its own causal prefix. The cache is updated in place.
 
 Int8 and int4 weights (`quantize_lm_params`, the CLI's `--moe-int8`,
 `--int8` and `--int4`):
@@ -46,7 +48,7 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
-from ..ops.attention import decode_mask, sdpa
+from ..ops.attention import sdpa
 from ..ops.attn_fused import attn_decode_fused, fused_attn_enabled
 from ..ops.flash_attention import mha
 from ..ops.linear_q4 import from_jax_q4, quantize_linear_q4
@@ -56,7 +58,7 @@ from ..ops.moe_decode import moe_ffn_decode_q8_fused
 from ..ops.moe_q4 import dequantize_experts_q4, moe_ffn_decode_q4, moe_ffn_decode_q4_fused, quantize_experts_q4
 from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rope, rope_cache
+from ..ops.rope import apply_rope, apply_rope_rows, rope_cache, rope_rows
 
 Params = Dict[str, Any]
 
@@ -253,22 +255,34 @@ def qkv_proj(x2: torch.Tensor, layer, decode: bool):
     return F.linear(x2, layer["wq"]), F.linear(x2, layer["wk"]), F.linear(x2, layer["wv"])
 
 
-def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, is_prefill: bool):
+def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool):
+    """`pos`: an int shared by the rows, or (decode) per-row positions [B]
+    of x[:, 0]. Decode query j of row b sits at posq[b, j] = pos[b] + j and
+    sees the keys at positions <= posq[b, j]."""
     b, s, h = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
     q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill))
-    q32, k32 = apply_rope(q, k, rope[0], rope[1], start=pos)
     v32 = v.float()
     ck, cv = cache["k"][li], cache["v"][li]  # [B, Hh, cap, D] views
-    ck[:, :, pos : pos + s] = k32.to(ck.dtype)
-    cv[:, :, pos : pos + s] = v32.to(cv.dtype)
+    steps = torch.arange(s, device=x.device)
+    if torch.is_tensor(pos):  # per-row RoPE and a per-(row, step) cache write
+        posq = pos.long()[:, None] + steps  # [B, S]
+        q32, k32 = apply_rope_rows(q, k, *rope_rows(rope[0], rope[1], pos, s))
+        rows = torch.arange(b, device=x.device)[:, None]
+        ck[rows, :, posq] = k32.transpose(1, 2).to(ck.dtype)  # values [B, S, Hh, D]
+        cv[rows, :, posq] = v32.transpose(1, 2).to(cv.dtype)
+    else:
+        posq = (pos + steps)[None]  # [1, S]: the rows share it
+        q32, k32 = apply_rope(q, k, rope[0], rope[1], start=pos)
+        ck[:, :, pos : pos + s] = k32.to(ck.dtype)
+        cv[:, :, pos : pos + s] = v32.to(cv.dtype)
 
     scale = 1.0 / math.sqrt(d)
     if is_prefill:
         # Fresh f32 K/V for the prompt pass, through kernel A.
         ctx = mha(q32, k32, v32, scale=scale, mode="causal")  # f32 in, f32 out
     else:
-        mask = decode_mask(ck.shape[2], pos + s - 1, device=x.device)[None, None]
+        mask = torch.arange(ck.shape[2], device=x.device) > posq[:, None, :, None]  # [B or 1, 1, S, cap]
         ctx = sdpa(q32, ck, cv, scale=scale, mask=mask, out_dtype=torch.float32)
     ctx = ctx.transpose(1, 2).reshape(b * s, h).to(x.dtype)
     return qmm(ctx, layer["wo"], decode=not is_prefill).reshape(b, s, h)
@@ -326,18 +340,21 @@ def lm_forward(
     cfg: DeepseekV2Config,
     embeds: torch.Tensor,  # [B, S, H]
     cache: Dict[str, torch.Tensor],  # k/v [L, B, Hh, cap, D], updated in place
-    pos: int = 0,
+    pos=0,
     is_prefill: bool = True,
     rope=None,
 ) -> torch.Tensor:
     """Run the decoder stack; returns the final-normed hidden [B, S, H].
 
-    Prefill (S tokens at pos 0) or decode (S == 1 at `pos`). A decode step
-    of a layer with int8 attention weights runs kernel K unless
-    DEEPSEEK_FUSED_ATTN=0."""
+    Prefill (S tokens at pos 0) or decode: S >= 1 tokens at the int `pos`,
+    or at per-row positions `pos` [B] (a tensor; lookup decoding's ragged
+    chunks), each query attending to its own causal prefix. A decode step
+    of one token at an int `pos`, in a layer with int8 (int4) attention
+    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0; a chunk takes
+    the linears and the plain attention, as in the JAX package."""
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
     b, s, h = embeds.shape
-    fused = not is_prefill and s == 1 and fused_attn_enabled()
+    fused = not is_prefill and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled()
     pos_b = None
     x = embeds
     for li, layer in enumerate(params["layers"]):
@@ -353,6 +370,17 @@ def lm_forward(
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
         x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=not is_prefill).reshape(b, s, h)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
+def logits_all(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """lm_head on every position [B, S, V] (lookup decoding's verification):
+    in the model dtype, or in f32 through kernel H (L) over the B * S rows
+    when lm_head is int8 (int4)."""
+    head = params["lm_head"]
+    b, s, h = hidden.shape
+    if is_qlinear(head):
+        return qmm(hidden.reshape(b * s, h), head, decode=True, out_dtype=torch.float32).reshape(b, s, -1)
+    return F.linear(hidden, head)
 
 
 def logits_last(params: Params, hidden: torch.Tensor) -> torch.Tensor:

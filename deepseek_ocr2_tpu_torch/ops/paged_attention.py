@@ -18,6 +18,13 @@ The JAX kernel reads the layer index through scalar prefetch only because
 XLA copies a scan-sliced operand; here `k_pool[layer]` is a view of the pool
 and the kernel takes its pointer, so no layer is ever copied.
 
+Kernels Q and R (`paged_decode_attention_pool_chunk` and its `_q8` form)
+are the chunk forms of G and P that lookup decoding's verification step
+runs: ports of `_paged_kernel_pool_chunk` and `_paged_kernel_pool_chunk_q8`.
+S queries a row (the last token and its drafts) share the row's pages, each
+with its own causal budget `seq_lens[row, i]` (its position + 1); an
+int8tail row's open page is its last one by the row's largest budget.
+
 A wrapper runs its plain twin only for CPU tensors. For CUDA tensors it
 launches the kernel or raises; there is no fallback. `launches` counts
 kernel launches.
@@ -34,6 +41,7 @@ from . import cuda_build
 
 _HEAD_DIM = 128  # the LM's
 _MAX_PAGE = 128
+_MAX_CHUNK = 8  # the most queries a row kernels Q and R take
 
 
 def paged_decode_attention_reference(
@@ -199,3 +207,167 @@ def paged_decode_attention_pool_q8(
 
 
 paged_decode_attention_pool_q8.launches = 0
+
+
+def paged_decode_attention_chunk_reference(
+    q: torch.Tensor,  # [B, S, Hh, D]
+    k_pages: torch.Tensor,  # [P, Hh, page, D]: one layer of the pool
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    seq_lens: torch.Tensor,  # [B, S] int: per-query budgets
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Plain twin of Q, the JAX package's `paged_decode_attention_xla_chunk`:
+    gather every block-table page, full f32 score rows, -inf at key
+    positions >= the query's budget, exact softmax. Returns [B, S, Hh, D]
+    f32."""
+    b, _, hh, d = q.shape
+    max_pages = block_tables.shape[1]
+    page = k_pages.shape[2]
+    bt = block_tables.long()
+
+    def gather(pages):  # [B, max_pages, Hh, page, D] -> [B, Hh, max_pages * page, D]
+        return pages[bt].permute(0, 2, 1, 3, 4).reshape(b, hh, max_pages * page, d).float()
+
+    k, v = gather(k_pages), gather(v_pages)
+    s = torch.einsum("bshd,bhkd->bhsk", q.float(), k) * scale
+    k_pos = torch.arange(max_pages * page, device=q.device)
+    s = s.masked_fill(k_pos >= seq_lens.long()[:, None, :, None], float("-inf"))
+    return torch.einsum("bhsk,bhkd->bshd", torch.softmax(s, dim=-1), v)
+
+
+def _check_chunk(kernel: str, q, k_pool, block_tables, seq_lens) -> None:
+    b, s, _, d = q.shape
+    page = k_pool.shape[3]
+    if q.dtype != torch.float32 or d != _HEAD_DIM or q.dim() != 4:
+        raise ValueError(f"kernel {kernel} takes f32 q [B, S, Hh, {_HEAD_DIM}], got {q.dtype} {tuple(q.shape)}")
+    if not 2 <= s <= min(_MAX_CHUNK, page):
+        raise ValueError(f"kernel {kernel} takes 2..{_MAX_CHUNK} queries a row, at most a page ({page}); got {s}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("block_tables and seq_lens must be int32")
+    if block_tables.shape[0] != b or seq_lens.shape != (b, s):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs "
+                         f"q {tuple(q.shape)}")
+
+
+def paged_decode_attention_pool_chunk(
+    q: torch.Tensor,  # [B, S, Hh, D] f32: a row's last token and its drafts
+    k_pool: torch.Tensor,  # [L, P, Hh, page, D] f32 or bf16
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    seq_lens: torch.Tensor,  # [B, S] int32: per-query budgets
+    layer: int,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Kernel Q on layer `layer` of the pool. Returns [B, S, Hh, D] f32."""
+    k_pages, v_pages = k_pool[layer], v_pool[layer]  # views
+    if q.device.type == "cpu":
+        return paged_decode_attention_chunk_reference(q, k_pages, v_pages, block_tables, seq_lens, scale=scale)
+    b, s, hh, d = q.shape
+    n_pages, _, page, _ = k_pages.shape
+    _check_chunk("Q", q, k_pool, block_tables, seq_lens)
+    if k_pool.dtype not in (torch.float32, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"the pool must be f32 or bf16, got {k_pool.dtype} / {v_pool.dtype}")
+    if k_pages.shape != (n_pages, hh, page, d) or v_pages.shape != k_pages.shape or page > _MAX_PAGE:
+        raise ValueError(f"pool layer {tuple(k_pages.shape)} does not fit q {tuple(q.shape)} (page <= {_MAX_PAGE})")
+    cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_chunk_f32 if k_pool.dtype == torch.float32 else lib.paged_chunk_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    p = cuda_build.ptr
+    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(out),
+             b, s, hh, d, page, block_tables.shape[1], scale, cuda_build.stream_of(q))
+    cuda_build.check(err, "paged_attention (Q)")
+    paged_decode_attention_pool_chunk.launches += 1
+    return out
+
+
+paged_decode_attention_pool_chunk.launches = 0
+
+
+def paged_decode_attention_chunk_q8_reference(
+    q: torch.Tensor,  # [B, S, Hh, D]
+    k_pool: torch.Tensor,  # [L, P, Hh, page, D] int8
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, P, Hh, page] f32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    seq_lens: torch.Tensor,  # [B, S] int: per-query budgets
+    layer: int,
+    *,
+    scale: float,
+    open_k: Optional[torch.Tensor] = None,  # [L, B, Hh, page, D] bf16: int8tail
+    open_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain twin of R, the JAX package's CPU path: dequantize layer
+    `layer`, overwrite each row's last page by its largest budget
+    (seq_lens[:, -1]) with its open page (tail mode), then Q's gather twin.
+    [B, S, Hh, D] f32."""
+    k_layer = dequant_pages(k_pool[layer], k_scale[layer])
+    v_layer = dequant_pages(v_pool[layer], v_scale[layer])
+    if open_k is not None:
+        page = k_pool.shape[3]
+        rows = torch.arange(q.shape[0], device=q.device)
+        last_pg = block_tables.long()[rows, (seq_lens.long()[:, -1] - 1) // page]
+        k_layer[last_pg] = open_k[layer].float()
+        v_layer[last_pg] = open_v[layer].float()
+    return paged_decode_attention_chunk_reference(q, k_layer, v_layer, block_tables, seq_lens, scale=scale)
+
+
+def paged_decode_attention_pool_chunk_q8(
+    q: torch.Tensor,  # [B, S, Hh, D] f32
+    k_pool: torch.Tensor,  # [L, P, Hh, page, D] int8
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, P, Hh, page] f32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    seq_lens: torch.Tensor,  # [B, S] int32: per-query budgets
+    layer: int,
+    *,
+    scale: float,
+    open_k: Optional[torch.Tensor] = None,  # [L, B, Hh, page, D] bf16: int8tail
+    open_v: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel R on layer `layer` of an int8 pool; with open_k / open_v
+    (int8tail), each row's last page by its largest budget is read from its
+    open page. Returns [B, S, Hh, D] f32."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_chunk_q8_reference(q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens,
+                                                         layer, scale=scale, open_k=open_k, open_v=open_v)
+    b, s, hh, d = q.shape
+    n_layers, n_pages, _, page, _ = k_pool.shape
+    tail = open_k is not None
+    _check_chunk("R", q, k_pool, block_tables, seq_lens)
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 or k_scale.dtype != torch.float32 \
+            or v_scale.dtype != torch.float32:
+        raise ValueError(f"kernel R takes int8 pools and f32 scales, got {k_pool.dtype} / {k_scale.dtype}")
+    if k_pool.shape != (n_layers, n_pages, hh, page, d) or v_pool.shape != k_pool.shape or page > _MAX_PAGE \
+            or k_scale.shape != k_pool.shape[:4] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"pool {tuple(k_pool.shape)} / scales {tuple(k_scale.shape)} do not fit q "
+                         f"{tuple(q.shape)} (page <= {_MAX_PAGE})")
+    if tail and (open_v is None or open_k.dtype != torch.bfloat16 or open_v.dtype != torch.bfloat16
+                 or open_k.shape != (n_layers, b, hh, page, d) or open_v.shape != open_k.shape):
+        raise ValueError(f"open pages must be bf16 [{n_layers}, {b}, {hh}, {page}, {d}] (one a row), got "
+                         f"{None if open_k is None else tuple(open_k.shape)}")
+    views = [k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]]  # views, never copies
+    opens = [open_k[layer], open_v[layer]] if tail else []
+    cuda_build.require_cuda(q, *views, *opens, block_tables, seq_lens)
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_chunk_q8
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    p = cuda_build.ptr
+    open_ptrs = [p(t) for t in opens] if tail else [None, None]  # NULL pointers: no tail
+    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(out),
+             b, s, hh, d, page, block_tables.shape[1], int(tail), scale, cuda_build.stream_of(q))
+    cuda_build.check(err, "paged_attention (R)")
+    paged_decode_attention_pool_chunk_q8.launches += 1
+    return out
+
+
+paged_decode_attention_pool_chunk_q8.launches = 0

@@ -44,3 +44,22 @@ def apply_rope(
     q32 = q.float()
     k32 = k.float()
     return q32 * cos + _rotate_half(q32) * sin, k32 * cos + _rotate_half(k32) * sin
+
+
+def rope_rows(
+    cos_cache: torch.Tensor, sin_cache: torch.Tensor, pos: torch.Tensor, seq: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [B, 1, S, D] for each row's S tokens at positions pos[b] ..
+    pos[b] + S - 1 (per-row positions, `pos` [B] on the device)."""
+    posq = pos.long()[:, None] + torch.arange(seq, device=pos.device)
+    return cos_cache[posq][:, None], sin_cache[posq][:, None]
+
+
+def apply_rope_rows(
+    q: torch.Tensor, k: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE with the per-row tables of `rope_rows` on q, k [B, H, S, D];
+    returns f32 q, k (the arithmetic of `apply_rope`)."""
+    q32 = q.float()
+    k32 = k.float()
+    return q32 * cos_b + _rotate_half(q32) * sin_b, k32 * cos_b + _rotate_half(k32) * sin_b

@@ -31,10 +31,13 @@ Device and host:
   over the pool (per-slot positions, n-gram ban, EOS and budget; finished
   rows frozen and pointed at the scratch page). All decode state stays on
   the device and no step reads a value back; the host reads one packed
-  status tensor per chunk. That keeps a captured CUDA graph possible later.
-
-Out of this slice, refused with an error naming its slice: prompt-lookup
-decoding (`lookup_chunk`).
+  status tensor per chunk. That keeps a captured CUDA graph possible later;
+- prompt-lookup decoding (`lookup_chunk` >= 2, greedy only):
+  `decode_chunk_lookup` replaces the steps with `lookup_steps` chunk
+  forwards of `lookup_chunk` tokens a slot (the last token and its drafts,
+  attention kernel Q or R), 1..lookup_chunk accepted tokens each; pages
+  grow and admissions reserve `dispatch_tokens` (lookup_steps x
+  lookup_chunk), the most a dispatch can write.
 
 `DEEPSEEK_DEBUG_SERVE` (any value) prints a wall-clock trace of the serve
 loop to stderr: admission, decode chunk, harvest and preprocess waits.
@@ -53,12 +56,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
-from ..models.deepseek_v2 import lm_forward, logits_last, vocab_size_of
+from ..models.deepseek_v2 import lm_forward, logits_all, logits_last, vocab_size_of
 from ..ops import prng
 from ..ops.sampling import greedy_pick, ngram_ban_mask_batched, sample_pick
 from ..utils.debug import dbg_print, enabled
 from ..utils.tokenizer import decode_output, tokenize_with_image
 from .engine import batched_vision_prefill
+from .generate import _lookup_draft
 from .kv_cache import make_kv_cache
 from .paged_kv import PageAllocator, lm_decode_step_paged, make_paged_kv_cache, pages_for, write_prompt_pool_batched
 from .pipeline import GenerationResult, OCR2Pipeline
@@ -187,6 +191,63 @@ def decode_chunk(
         cur_lens.add_(active.to(torch.int32))
         done.logical_or_(newly_done)
     return torch.cat([cur_lens, done.to(torch.int32)])
+
+
+@torch.no_grad()
+def decode_chunk_lookup(
+    lm_params,
+    cfg: DeepseekV2Config,
+    cache,  # paged pool, updated in place
+    state: DecodeState,  # updated in place
+    block_tables: torch.Tensor,  # [B, max_pages] int32, on the device
+    *,
+    n_steps: int,
+    chunk: int,
+    match_n: int,
+    ngram_size: int,
+    eos_id: int,
+    rope,
+) -> torch.Tensor:
+    """Advance every active slot by `n_steps` prompt-lookup forwards (the
+    JAX package's function of this name): each feeds a slot its last token
+    and `chunk - 1` drafts (`_lookup_draft`) through one chunk decode over
+    the pool at per-row positions, then accepts the longest prefix that the
+    model's greedy picks (ban included) confirm, plus the first pick that
+    differs. The same ban positions and EOS / limit rule as `decode_chunk`,
+    so the tokens are the plain engine's up to chunk-width rounding. No
+    step reads a value back. Returns the packed status [cur_lens, done,
+    forwards] (int32 [2B + 1]) on the device; forwards counts the steps
+    with an active slot."""
+    tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
+    b, tok_cap = tokens.shape
+    vocab = vocab_size_of(lm_params)
+    rows = torch.arange(b, device=tokens.device)
+    scratch = torch.zeros_like(block_tables)
+    forwards = torch.zeros((), dtype=torch.int32, device=tokens.device)
+    for _ in range(n_steps):
+        active = ~done
+        forwards += active.any().to(torch.int32)
+        pos = (cur_lens - 1).clamp(0, tok_cap - 1)
+        last = tokens[rows, pos.long()]
+        draft = _lookup_draft(tokens, cur_lens, match_n, chunk - 1)  # [B, chunk - 1]
+        emb = F.embedding(torch.cat([last[:, None], draft], dim=1), lm_params["embed"])  # [B, chunk, H]
+        bt = torch.where(done[:, None], scratch, block_tables)
+        hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
+        logits = logits_all(lm_params, hidden)  # [B, chunk, V]
+        accepting = active
+        add = torch.zeros_like(cur_lens)
+        for i in range(chunk):
+            t_i = greedy_pick(logits[:, i], ngram_ban_mask_batched(tokens, cur_lens + i, ngram_size, vocab))
+            emit = accepting
+            wpos = (cur_lens + i).long().clamp(0, tok_cap - 1)
+            tokens[rows, wpos] = torch.where(emit, t_i, tokens[rows, wpos])
+            add += emit.to(torch.int32)
+            newly_done = emit & ((t_i == eos_id) | (cur_lens + i + 1 >= limits))
+            done.logical_or_(newly_done)
+            if i < chunk - 1:
+                accepting = emit & ~newly_done & (t_i == draft[:, i])
+        cur_lens.add_(add)
+    return torch.cat([cur_lens, done.to(torch.int32), forwards.reshape(1)])
 
 
 def _pow2_at_most(n: int) -> int:
@@ -348,16 +409,25 @@ class ContinuousOCREngine:
         page_size: int = 128,
         pool_tokens: Optional[int] = None,
         lookup_chunk: int = 0,
+        lookup_match_n: int = 3,
     ):
-        if lookup_chunk >= 2:
-            raise ValueError("lookup_chunk (prompt-lookup decoding) belongs to the lookup-decoding slice "
-                             "of the port, not ported yet")
         self.pipe = pipe
         self.slots = slots
         self.capacity = capacity
         self.chunk_steps = chunk_steps
         self.page_size = page_size
         self.pool_tokens = pool_tokens or slots * capacity
+        # Prompt-lookup decoding (greedy only): a dispatch runs lookup_steps
+        # chunk forwards of lookup_chunk tokens, so that it writes at most
+        # about the tokens a plain dispatch of chunk_steps does.
+        self.lookup_chunk = lookup_chunk
+        self.lookup_match_n = lookup_match_n
+        if lookup_chunk >= 2:
+            self.lookup_steps = max(1, chunk_steps // lookup_chunk)
+            self.dispatch_tokens = self.lookup_steps * lookup_chunk
+        else:
+            self.lookup_steps = 0
+            self.dispatch_tokens = chunk_steps
         self.max_pages_per_slot = pages_for(capacity, page_size)
         self.num_pages = pages_for(self.pool_tokens, page_size) + 1  # +1: page 0 is the scratch page
         if self.num_pages - 1 < self.max_pages_per_slot:
@@ -371,9 +441,11 @@ class ContinuousOCREngine:
         self._thread: Optional[threading.Thread] = None
         self._seq = 0
         # Counters of the latest serve loop: preemptions, decode steps run
-        # (chunks x chunk_steps) and the wall time of the decode chunks,
-        # each ending in its status readback.
+        # (chunks x chunk_steps, or x lookup_steps forwards with lookup),
+        # the wall time of the decode chunks, each ending in its status
+        # readback, and the lookup forwards that had an active slot.
         self.last_preempted = 0
+        self.last_lookup_forwards = 0
         self.last_decode_steps = 0
         self.last_decode_seconds = 0.0
         self.last_admissions = 0  # admission groups (one batched prefill each), re-admissions included
@@ -423,6 +495,7 @@ class ContinuousOCREngine:
         """Online mode: spawn the serve loop; `submit` feeds it."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
+        self._check_lookup(sampling)
         self._stop = False
         self._thread = threading.Thread(target=self._serve,
                                         kwargs=dict(ngram_size=ngram_size, sampling=sampling, online=True),
@@ -456,6 +529,11 @@ class ContinuousOCREngine:
 
     # ---- internals --------------------------------------------------------
 
+    def _check_lookup(self, sampling: Optional[dict]) -> None:
+        if self.lookup_chunk >= 2 and (sampling or {}).get("temperature", 0.0) != 0.0:
+            raise ValueError("lookup_chunk requires greedy decoding (temperature 0): the speculative accept test "
+                             "compares deterministic picks")
+
     def _make_request(self, image, prompt, max_new_tokens, no_crop, rotate, auto_rotate,
                       seq: Optional[int] = None, stream: bool = False) -> OCRRequest:
         prompt = prompt or self.pipe.cfg.default_ocr_prompt
@@ -482,6 +560,8 @@ class ContinuousOCREngine:
         samp = dict(temperature=sampling.get("temperature", 0.0), top_k=sampling.get("top_k", 0),
                     top_p=sampling.get("top_p", 1.0))
         base_seed = sampling.get("seed", 0)
+        self._check_lookup(sampling)
+        use_lookup = self.lookup_chunk >= 2
 
         # The quantized pools quantize at the pool boundary; the transient
         # contiguous prefill cache keeps the activation dtype.
@@ -492,6 +572,7 @@ class ContinuousOCREngine:
         alloc = PageAllocator(self.num_pages)
         self.alloc = alloc  # monitors read n_free while the loop runs
         self.last_decode_steps, self.last_decode_seconds, self.last_admissions = 0, 0.0, 0
+        self.last_lookup_forwards = 0
         block_tables_np = np.zeros((b, self.max_pages_per_slot), np.int32)
         state = DecodeState.empty(b, tok_cap, dev)
         done_np = np.ones((b,), bool)
@@ -533,7 +614,7 @@ class ContinuousOCREngine:
             # Lazy allocation: prompt + first token + first chunk; grow_pages tops up.
             page_ids = np.zeros((g, n_prompt_pages), np.int32)
             for row, (slot, req) in enumerate(zip(slot_ids, reqs)):
-                pages = alloc.allocate(pages_for(min(s + 1 + self.chunk_steps, s + req.max_new_tokens), page))
+                pages = alloc.allocate(pages_for(min(s + 1 + self.dispatch_tokens, s + req.max_new_tokens), page))
                 slot_pages[slot] = pages
                 block_tables_np[slot] = 0
                 block_tables_np[slot, : len(pages)] = pages
@@ -692,7 +773,7 @@ class ContinuousOCREngine:
                     if not group:
                         continue
                 g = _pow2_at_most(len(group))
-                needs = [pages_for(min(s0 + 1 + self.chunk_steps, s0 + r.max_new_tokens), page)
+                needs = [pages_for(min(s0 + 1 + self.dispatch_tokens, s0 + r.max_new_tokens), page)
                          for r in group[:g]]
                 # Halve the group while the pool is tight: one slot always fits.
                 while g > 1 and sum(needs[:g]) > alloc.n_free:
@@ -741,7 +822,7 @@ class ContinuousOCREngine:
             for slot in sorted(slot_req, key=lambda s2: admit_t[s2]):
                 if slot not in slot_req or done_np[slot]:
                     continue
-                needed = pages_for(min(int(lens_np[slot]) + self.chunk_steps, slot_limits[slot]), page)
+                needed = pages_for(min(int(lens_np[slot]) + self.dispatch_tokens, slot_limits[slot]), page)
                 have = len(slot_pages[slot])
                 if needed <= have:
                     continue
@@ -837,15 +918,24 @@ class ContinuousOCREngine:
                 t_it1 = time.perf_counter()
                 did_decode = bool(slot_req) and not all(done_np[s] for s in slot_req)
                 if did_decode:
-                    status = decode_chunk(
-                        lm, lm_cfg, cache, state, torch.from_numpy(block_tables_np).to(dev),
-                        n_steps=self.chunk_steps, ngram_size=ngram_size, eos_id=eos, rope=pipe.rope, **samp,
-                    )
+                    bt_dev = torch.from_numpy(block_tables_np).to(dev)
+                    if use_lookup:
+                        status = decode_chunk_lookup(
+                            lm, lm_cfg, cache, state, bt_dev, n_steps=self.lookup_steps, chunk=self.lookup_chunk,
+                            match_n=self.lookup_match_n, ngram_size=ngram_size, eos_id=eos, rope=pipe.rope,
+                        )
+                    else:
+                        status = decode_chunk(
+                            lm, lm_cfg, cache, state, bt_dev,
+                            n_steps=self.chunk_steps, ngram_size=ngram_size, eos_id=eos, rope=pipe.rope, **samp,
+                        )
                     status_h = status.cpu().numpy()  # the chunk's one readback
-                    self.last_decode_steps += self.chunk_steps
+                    self.last_decode_steps += self.lookup_steps if use_lookup else self.chunk_steps
                     self.last_decode_seconds += time.perf_counter() - t_it1
                     lens_np[:] = status_h[:b]
-                    done_np[:] = status_h[b:].astype(bool)
+                    done_np[:] = status_h[b : 2 * b].astype(bool)
+                    if use_lookup:
+                        self.last_lookup_forwards += int(status_h[2 * b])
                     emit_stream()
                 t_it2 = time.perf_counter()
                 harvest()

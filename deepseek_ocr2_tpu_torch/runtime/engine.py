@@ -6,7 +6,9 @@ chunks of `batch_size` pages, and each chunk runs one batched vision pass
 (the crops of all its pages flatten into one SAM batch), one batched LM
 prefill and the batched decode, greedy or sampled. With sampling, chunk i
 (counted over the crop-grid groups in order) draws with seed + i, so the
-chunks' streams differ, as in the JAX package.
+chunks' streams differ, as in the JAX package. With the pipeline's
+`lookup_chunk` > 1 a greedy chunk decodes by prompt lookup
+(`lookup_greedy_generate_batched`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from ..models import deepseek_ocr2 as ocr2
 from ..utils.tokenizer import decode_output, tokenize_with_image
-from .generate import greedy_generate
+from .generate import greedy_generate, lookup_greedy_generate_batched
 from .kv_cache import bucket_capacity
 from .pipeline import GenerationResult, OCR2Pipeline
 
@@ -92,11 +94,16 @@ class OCR2Engine:
         t1 = time.perf_counter()
 
         s = len(ids)
-        tokens, n_gen = greedy_generate(
-            pipe.params["lm"], cfg.lm, embeds, ids_t, max_new_tokens=max_new_tokens,
-            ngram_size=ngram_size, eos_id=cfg.eos_token_id, capacity=bucket_capacity(s + max_new_tokens),
-            kv_dtype=pipe.kv_dtype, rope=pipe.rope, **sampling,
-        )
+        gen = dict(max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=cfg.eos_token_id,
+                   kv_dtype=pipe.kv_dtype, rope=pipe.rope)
+        lookup = pipe.lookup_chunk
+        if lookup > 1 and not sampling:
+            tokens, n_gen = lookup_greedy_generate_batched(
+                pipe.params["lm"], cfg.lm, embeds, ids_t, capacity=bucket_capacity(s + max_new_tokens + lookup - 1),
+                chunk=lookup, **gen)
+        else:
+            tokens, n_gen = greedy_generate(pipe.params["lm"], cfg.lm, embeds, ids_t,
+                                            capacity=bucket_capacity(s + max_new_tokens), **gen, **sampling)
         tokens, n_gen = tokens.cpu(), n_gen.cpu()
         t2 = time.perf_counter()
         # Chunk-level phase walls: the pages of a chunk run together.

@@ -228,7 +228,9 @@ class OCRHttpServer:
             "slots": e.slots,
             "pool_tokens": e.pool_tokens,
             "page_size": e.page_size,
+            "lookup_chunk": e.lookup_chunk,
             "preempted": e.last_preempted,
+            "lookup_forwards": e.last_lookup_forwards,
         }
 
     def start_background(self):

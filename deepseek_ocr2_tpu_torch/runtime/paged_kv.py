@@ -7,14 +7,17 @@ Sequences of very different lengths share it, pages are recycled on
 completion, and capacity is bounded by the tokens in flight rather than
 slots x max_len. Page allocation is on the host (the engine owns the free
 list). Decode attention over the pages is kernel G
-(`ops.paged_attention.paged_decode_attention_pool`) on an f32 or bf16 pool.
+(`ops.paged_attention.paged_decode_attention_pool`) on an f32 or bf16 pool,
+and in the chunk mode of lookup decoding (S > 1 queries a row, each with its
+own causal budget) kernel Q (`paged_decode_attention_pool_chunk`).
 
 The quantized pools ("int8", "int8tail") hold int8 codes in "k"/"v" and
 per-(token, head) f32 absmax scales in "k_scale"/"v_scale": [L, P, Hh,
 page]. "int8tail" adds one bf16 open page a slot, "open_k"/"open_v": [L,
 slots, Hh, page, D], holding each row's newest page exactly; attention
 reads the row's last page from it. Decode attention over them is kernel P
-(`paged_decode_attention_pool_q8`).
+(`paged_decode_attention_pool_q8`), and in the chunk mode kernel R
+(`paged_decode_attention_pool_chunk_q8`).
 
 Page 0 is reserved as a scratch page: finished and empty slots of a batched
 decode step write their discarded K/V there, so they never clobber a live
@@ -22,9 +25,9 @@ sequence's pages. Duplicate writes to it are harmless: no live row reads it.
 
 The pool is updated in place. The JAX package's per-row
 dynamic_update_slice chain (paged_kv.py:221-241) works around XLA's copy of
-a scattered carry; here one `index_put_` per layer writes every row's token.
-Only plain decode (one query per row) is ported, with plain, int8 or int4
-weights: the chunk mode of lookup decoding belongs to a later slice.
+a scattered carry; here one `index_put_` per pool plane and layer writes
+every row's tokens, in plain decode (one a row) as in the chunk mode (S a
+row, each at its own page and offset).
 """
 
 from __future__ import annotations
@@ -38,7 +41,13 @@ from ..configs import DeepseekV2Config
 from ..models.deepseek_v2 import ffn, qkv_proj, rope_consts
 from ..ops.linear_q8 import qmm
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import paged_decode_attention_pool, paged_decode_attention_pool_q8
+from ..ops.rope import apply_rope_rows, rope_rows
+from ..ops.paged_attention import (
+    paged_decode_attention_pool,
+    paged_decode_attention_pool_chunk,
+    paged_decode_attention_pool_chunk_q8,
+    paged_decode_attention_pool_q8,
+)
 
 PagedKV = Dict[str, torch.Tensor]  # {"k": [L, P, Hh, page, D], "v": ...} (+ the quantized pools' planes)
 
@@ -182,11 +191,6 @@ def write_prompt_pool_batched(
     return cache
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
 def _paged_attention_step(
     xn: torch.Tensor,  # [B, S, H] normed input
     layer,
@@ -195,79 +199,78 @@ def _paged_attention_step(
     li: int,
     block_tables: torch.Tensor,  # [B, max_pages] int32
     pos: torch.Tensor,  # [B] position of xn[:, 0]
-    cos_b: torch.Tensor,  # [B, 1, 1, D]
+    cos_b: torch.Tensor,  # [B, 1, S, D]
     sin_b: torch.Tensor,
 ) -> torch.Tensor:
-    """QKV + per-row RoPE + paged KV write + attention + out projection,
-    for one query per row (S == 1). Row r's token lands in page
-    block_tables[r, pos // page] at offset pos % page, then attends over
-    its pos + 1 tokens: kernel G on an f32 / bf16 pool, P on a quantized
-    one (codes and scales written after RoPE; an int8tail pool also keeps
-    the exact K/V at open_k[li, r, :, pos % page] for every row, finished
-    rows included, as the JAX package does)."""
+    """QKV + per-row RoPE + paged KV write + attention + out projection.
+    Token j of row r sits at posq = pos + j, lands in page
+    block_tables[r, posq // page] at offset posq % page, and attends over
+    its posq + 1 tokens: kernel G (Q for S > 1) on an f32 / bf16 pool, P (R)
+    on a quantized one (codes and scales written after RoPE; an int8tail
+    pool also keeps the exact K/V at open_k[li, r, :, posq % page] for every
+    row and token, finished rows included, as the JAX package does: a chunk
+    that crosses a page boundary writes its later tokens at the open page's
+    low offsets, and its earlier ones land past the row's largest budget).
+    Tokens past a row's allocation land on the scratch page 0, whose
+    block-table entries fill the rest of the row."""
     b, s, h = xn.shape
-    if s != 1:
-        raise ValueError("paged decode takes one query per row here; the chunk mode (S > 1) "
-                         "belongs to the lookup-decoding slice of the port")
     nh, d = cfg.num_attention_heads, cfg.head_dim
-    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(xn.reshape(b, h), layer, True))
-    q32, k32 = q.float(), k.float()
-    q32 = q32 * cos_b + _rotate_half(q32) * sin_b
-    k32 = k32 * cos_b + _rotate_half(k32) * sin_b
-    v32 = v.float()
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(xn.reshape(b * s, h), layer, True))
+    q32, k32 = apply_rope_rows(q, k, cos_b, sin_b)
+    k_new, v_new = k32.transpose(1, 2), v.float().transpose(1, 2)  # [B, S, Hh, D]
 
     k_pool, v_pool = cache["k"], cache["v"]
     page = k_pool.shape[3]
-    rows = torch.arange(b, device=xn.device)
-    pos_l = pos.long()
-    page_ids = block_tables.long()[rows, pos_l // page]
-    off = pos_l % page
-    seq_lens = (pos + 1).to(torch.int32)
-    q_dec, scale = q32[:, :, 0, :].contiguous(), 1.0 / math.sqrt(d)
-    if "k_scale" in cache:
-        for name, new in (("k", k32[:, :, 0, :]), ("v", v32[:, :, 0, :])):
-            codes, scales = quantize_kv(new)  # [B, Hh, D] / [B, Hh]
-            cache[name][li][page_ids, :, off] = codes
-            cache[name + "_scale"][li][page_ids, :, off] = scales
-            if "open_" + name in cache:
-                cache["open_" + name][li][rows, :, off] = new.to(torch.bfloat16)
-        ctx = paged_decode_attention_pool_q8(
-            q_dec, k_pool, v_pool, cache["k_scale"], cache["v_scale"], block_tables, seq_lens, li, scale=scale,
-            open_k=cache.get("open_k"), open_v=cache.get("open_v"),
-        )
+    rows = torch.arange(b, device=xn.device)[:, None]
+    posq = pos.long()[:, None] + torch.arange(s, device=xn.device)  # [B, S]
+    # The JAX gather clamps a column past the table to its last one.
+    page_ids = block_tables.long()[rows, (posq // page).clamp(max=block_tables.shape[1] - 1)]
+    off = posq % page
+    seq_lens = (posq + 1).to(torch.int32)  # per-query budgets
+    scale = 1.0 / math.sqrt(d)
+    if s == 1:
+        q_in, seq_lens = q32[:, :, 0, :].contiguous(), seq_lens[:, 0]
     else:
-        k_pool[li][page_ids, :, off] = k32[:, :, 0, :].to(k_pool.dtype)  # one index_put_ per pool
-        v_pool[li][page_ids, :, off] = v32[:, :, 0, :].to(v_pool.dtype)
-        ctx = paged_decode_attention_pool(q_dec, k_pool, v_pool, block_tables, seq_lens, li, scale=scale)
-    return qmm(ctx.reshape(b, h).to(xn.dtype), layer["wo"], decode=True).reshape(b, 1, h)
-
-
-def _chunk_rope(cos: torch.Tensor, sin: torch.Tensor, pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin broadcastable to [B, Hh, 1, D] for per-row positions pos [B]."""
-    idx = pos.long()
-    return cos[idx][:, None, None, :], sin[idx][:, None, None, :]
+        q_in = q32.transpose(1, 2).contiguous()  # [B, S, Hh, D]
+    if "k_scale" in cache:
+        for name, new in (("k", k_new), ("v", v_new)):
+            codes, scales = quantize_kv(new.reshape(b * s, nh, d))  # [B * S, Hh, D] / [B * S, Hh]
+            cache[name][li][page_ids, :, off] = codes.reshape(b, s, nh, d)  # one index_put_ a plane
+            cache[name + "_scale"][li][page_ids, :, off] = scales.reshape(b, s, nh)
+            if "open_" + name in cache:
+                cache["open_" + name][li][rows.expand(b, s), :, off] = new.to(torch.bfloat16)
+        attend = paged_decode_attention_pool_q8 if s == 1 else paged_decode_attention_pool_chunk_q8
+        ctx = attend(q_in, k_pool, v_pool, cache["k_scale"], cache["v_scale"], block_tables, seq_lens, li,
+                     scale=scale, open_k=cache.get("open_k"), open_v=cache.get("open_v"))
+    else:
+        k_pool[li][page_ids, :, off] = k_new.to(k_pool.dtype)
+        v_pool[li][page_ids, :, off] = v_new.to(v_pool.dtype)
+        attend = paged_decode_attention_pool if s == 1 else paged_decode_attention_pool_chunk
+        ctx = attend(q_in, k_pool, v_pool, block_tables, seq_lens, li, scale=scale)
+    return qmm(ctx.reshape(b * s, h).to(xn.dtype), layer["wo"], decode=True).reshape(b, s, h)
 
 
 @torch.no_grad()
 def lm_decode_step_paged(
     params,
     cfg: DeepseekV2Config,
-    embeds: torch.Tensor,  # [B, 1, H]
+    embeds: torch.Tensor,  # [B, S, H]: S == 1 plain decode, S > 1 a lookup chunk
     cache: PagedKV,  # updated in place
     block_tables: torch.Tensor,  # [B, max_pages] int32
     pos: torch.Tensor,  # [B] per-row position of embeds[:, 0]
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step over the paged pool; returns the final-normed hidden
-    [B, 1, H]. The routed MoE of a layer is kernel F (J with int8 experts,
-    N with int4) when B * k > E (every slot counts, active or not), the
+    [B, S, H]. The routed MoE of a layer is kernel F (J with int8 experts,
+    N with int4) when B * S * k > E (every slot counts, active or not), the
     per-selection path (I with int8 experts, M with int4) otherwise; int8
-    linears run kernel H, int4 ones L, and the attention kernel G on an f32
-    or bf16 pool and P on a quantized one, whatever the weights (the JAX
-    package's `_lm_decode_step_paged_q8` is this loop)."""
-    cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
-    cos_b, sin_b = _chunk_rope(cos, sin, pos)
+    linears run kernel H, int4 ones L, and the attention kernel G (Q for a
+    chunk) on an f32 or bf16 pool and P (R) on a quantized one, whatever
+    the weights (the JAX package's `_lm_decode_step_paged_q8` is this
+    loop)."""
     b, s, h = embeds.shape
+    cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
+    cos_b, sin_b = rope_rows(cos, sin, pos, s)  # once a step, for every layer
     x = embeds
     for li, layer in enumerate(params["layers"]):
         res = x

@@ -5,8 +5,9 @@ above `crop_image_size`, unless `no_crop`), the crop grid, the letterbox to
 the base size and the crop tiles, with PIL imported only there. Device stage
 (`preprocess_finish` and `build_ocr_embeds`): ship the uint8 views,
 normalize on the device, vision towers, injection. Then generation, greedy
-or sampled (`sampling`). `generate_text` runs the LM alone on a text
-prompt.
+or sampled (`sampling`); with `lookup_chunk` > 1 a greedy page decodes
+by prompt lookup (`lookup_greedy_generate`). `generate_text` runs the LM
+alone on a text prompt.
 
 `kv_dtype` "int8" / "int8tail" selects the quantized paged pools, which
 only the continuous engine has; `generate_ocr` and the group engine refuse
@@ -16,6 +17,7 @@ them through `make_kv_cache`, as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -26,7 +28,7 @@ from ..configs import OCR2Config
 from ..models import deepseek_ocr2 as ocr2
 from ..models.deepseek_v2 import rope_consts
 from ..utils.tokenizer import decode_output, tokenize_text, tokenize_with_image
-from .generate import greedy_generate
+from .generate import greedy_generate, lookup_greedy_generate
 from .kv_cache import bucket_capacity
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -45,6 +47,7 @@ class GenerationResult:
     crop_ratio: Tuple[int, int] = (1, 1)  # the (w, h) crop grid; (1, 1) without crops
     logits0: Optional[torch.Tensor] = None  # step-0 logits [V] f32, CPU
     step_logits: Optional[List[torch.Tensor]] = None  # every step's [V], with keep_logits
+    lookup_forwards: Optional[int] = None  # decode forwards of lookup decoding (prefill included)
 
     @property
     def decode_tokens_per_sec(self) -> float:
@@ -62,6 +65,7 @@ class OCR2Pipeline:
         device: Union[str, torch.device] = "cuda",
         kv_dtype: str = "float32",
         act_dtype: str = "float32",
+        lookup_chunk: int = 0,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -71,6 +75,9 @@ class OCR2Pipeline:
         self.tokenizer = tokenizer
         self.kv_dtype = kv_dtype if kv_dtype in _QUANTIZED_KV else _DTYPES[kv_dtype]
         self.act_dtype = _DTYPES[act_dtype]
+        # > 1: prompt-lookup greedy decoding with this chunk width (greedy
+        # pages of generate_ocr and the engines; 1 is plain greedy).
+        self.lookup_chunk = lookup_chunk
         self.rope = rope_consts(cfg.lm, self.device)  # host-built once, not per page
 
     def preprocess_host(
@@ -160,7 +167,9 @@ class OCR2Pipeline:
         themselves; `result.crop_ratio` is the grid that ran).
         `keep_logits` copies every step's logits to the host (debugging).
         `sampling` takes the keys temperature, top_k, top_p and seed of
-        `greedy_generate`; None is greedy."""
+        `greedy_generate`; None is greedy, by prompt lookup when the
+        pipeline's `lookup_chunk` > 1 (stderr gets the JAX package's
+        `[lookup-decode: ...]` line; `keep_logits` keeps step 0's only)."""
         cfg = self.cfg
         eos = cfg.eos_token_id if eos_token_id is None else eos_token_id
         prompt = prompt or cfg.default_ocr_prompt
@@ -177,12 +186,22 @@ class OCR2Pipeline:
         vision_seconds = time.perf_counter() - t0
 
         stats: Dict[str, Any] = {}
-        tokens, n_gen = greedy_generate(
-            self.params["lm"], cfg.lm, embeds, torch.tensor(ids),
-            max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=eos,
-            capacity=bucket_capacity(len(ids) + max_new_tokens), kv_dtype=self.kv_dtype,
-            stats=stats, keep_logits=keep_logits, rope=self.rope, **(sampling or {}),
-        )
+        gen = dict(max_new_tokens=max_new_tokens, ngram_size=ngram_size, eos_id=eos, kv_dtype=self.kv_dtype,
+                   stats=stats, rope=self.rope)
+        forwards = None
+        if self.lookup_chunk > 1 and not sampling:  # chunk 1 is plain greedy
+            tokens, n_gen, forwards = lookup_greedy_generate(
+                self.params["lm"], cfg.lm, embeds, torch.tensor(ids), chunk=self.lookup_chunk, return_steps=True,
+                capacity=bucket_capacity(len(ids) + max_new_tokens + self.lookup_chunk - 1), **gen)
+            n = int(n_gen[0])
+            print(f"[lookup-decode: {n} tokens in {forwards} forwards = {n / forwards:.2f} tok/forward]",
+                  file=sys.stderr)
+        else:
+            tokens, n_gen = greedy_generate(
+                self.params["lm"], cfg.lm, embeds, torch.tensor(ids),
+                capacity=bucket_capacity(len(ids) + max_new_tokens), keep_logits=keep_logits, **gen,
+                **(sampling or {}),
+            )
         total = len(ids) + int(n_gen[0])
         all_ids = tokens[0, :total].tolist()
         gen_ids = all_ids[len(ids):]
@@ -196,7 +215,8 @@ class OCR2Pipeline:
             vision_seconds=vision_seconds,
             crop_ratio=crop_ratio,
             logits0=stats["logits0"][0],
-            step_logits=[lg[0] for lg in stats["logits"]] if keep_logits else None,
+            step_logits=[lg[0] for lg in stats["logits"]] if keep_logits and forwards is None else None,
+            lookup_forwards=forwards,
         )
 
     def generate_text(

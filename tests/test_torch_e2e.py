@@ -197,10 +197,12 @@ def test_cli_refuses_flags_outside_the_slice(cli_assets):
     from deepseek_ocr2_tpu_torch.cli import main
 
     d = cli_assets
-    with pytest.raises(SystemExit, match="--lookup-decode .*ROADMAP"):
-        main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
-              "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4",
-              "--lookup-decode", "4"])
+    base = ["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
+            "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4"]
+    # --lookup-decode is ported (tests/test_torch_lookup.py); these three are not.
+    for flags in (["--device-resize"], ["--profile-dir", str(d / "prof")], ["--trim-memory"]):
+        with pytest.raises(SystemExit, match=f"{flags[0]} .*ROADMAP"):
+            main([*base, *flags, "--lookup-decode", "4"])
     # generate-ocr's contiguous cache has no int8 kind: the JAX CLI's error.
     with pytest.raises(ValueError, match="int8/int8tail KV applies to the paged pool only"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
@@ -255,6 +257,9 @@ assert all(r.new_tokens >= 1 for r in cont)
 tail = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device="cpu", kv_dtype="int8tail")
 cont = ContinuousOCREngine(tail, slots=6, capacity=256, chunk_steps=2).run(
     pages, max_new_tokens=3, ngram_size=3, sampling=dict(temperature=0.8, top_k=50, top_p=0.9, seed=1))
+assert all(r.new_tokens >= 1 for r in cont)
+cont = ContinuousOCREngine(tail, slots=6, capacity=256, chunk_steps=2, lookup_chunk=4).run(
+    pages, max_new_tokens=6, ngram_size=3)
 assert all(r.new_tokens >= 1 for r in cont)
 from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
 ids = torch.tensor([[0, 5, 9], [0, 7, 3]])

@@ -1,9 +1,10 @@
-"""Kernels A-O of the PyTorch port: plain twins against the JAX Pallas
+"""Kernels A-R of the PyTorch port: plain twins against the JAX Pallas
 kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
 against their twins where a card is present. (D and E's CPU parity with the
 JAX package is in tests/test_torch_crop.py, F's in test_torch_moe_decode.py,
 G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
-test_torch_q4.py.)
+test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
+test_torch_lookup.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -425,6 +426,85 @@ def test_cuda_paged_q8_makes_no_host_sync(cuda):
         paged_attention.paged_decode_attention_pool_q8(*args, scale=0.1, open_k=ok, open_v=ov)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# Kernels Q and R (the chunk forms of G and P: S queries a row, each at its
+# own budget) against their twins. A row's budgets are largest - S + 1 ..
+# largest; the largest are S (the chunk opens the row), page + 2 (the chunk
+# crosses a page end), 2 page - 1, 700 and 2048; the last row is finished on
+# the scratch page 0 (in tail mode not compared, as for P).
+
+
+def _chunk_budgets(dev, s, page):
+    ends = torch.tensor([s, page + 2, 2 * page - 1, 700, 2048], dtype=torch.int32, device=dev)
+    return (ends[:, None] - s + 1 + torch.arange(s, dtype=torch.int32, device=dev)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 4, 8])
+@pytest.mark.parametrize("page", [16, 128])
+def test_cuda_paged_chunk_matches_twin(cuda, dtype, s, page):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    n_pages = 300
+    k_pool, v_pool = (torch.randn(3, n_pages, 10, page, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    lens = _chunk_budgets(cuda, s, page)
+    b = lens.shape[0]
+    bt = torch.randint(1, n_pages, (b, 2048 // page), generator=g, device=cuda, dtype=torch.int32)
+    bt[-1] = 0
+    q = torch.randn(b, s, 10, 128, generator=g, device=cuda)
+    before = paged_attention.paged_decode_attention_pool_chunk.launches
+    got = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 2, scale=128**-0.5)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention_pool_chunk.launches == before + 1
+    ref = paged_attention.paged_decode_attention_chunk_reference(q, k_pool[2], v_pool[2], bt, lens, scale=128**-0.5)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert float((got - ref).abs().max()) <= 1e-4  # f32 math on both sides, whatever the pool's type
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("s", [2, 4, 8])
+@pytest.mark.parametrize("page", [16, 128])
+def test_cuda_paged_chunk_q8_matches_twin(cuda, tail, s, page):
+    lens = _chunk_budgets(cuda, s, page)
+    _, (kc, vc), (ks, vs), (ok, ov), bt, _ = _paged_q8_case(cuda, tail, lens[:, -1].tolist(), page, finished=True)
+    q = torch.randn(lens.shape[0], s, 10, 128, generator=torch.Generator(device=cuda).manual_seed(9), device=cuda)
+    before = paged_attention.paged_decode_attention_pool_chunk_q8.launches
+    got = paged_attention.paged_decode_attention_pool_chunk_q8(q, kc, vc, ks, vs, bt, lens, 1, scale=128**-0.5,
+                                                               open_k=ok, open_v=ov)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention_pool_chunk_q8.launches == before + 1
+    ref = paged_attention.paged_decode_attention_chunk_q8_reference(q, kc, vc, ks, vs, bt, lens, 1,
+                                                                    scale=128**-0.5, open_k=ok, open_v=ov)
+    live = slice(None, -1) if tail else slice(None)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert float((got[live] - ref[live]).abs().max()) <= 1e-4  # f32 math on both sides
+
+
+@pytest.mark.gpu
+def test_cuda_paged_chunk_kernels_make_no_host_sync_and_check_s(cuda):
+    lens = _chunk_budgets(cuda, 4, 128)
+    _, (kc, vc), (ks, vs), (ok, ov), bt, _ = _paged_q8_case(cuda, True, lens[:, -1].tolist(), 128, finished=True)
+    q = torch.randn(lens.shape[0], 4, 10, 128, device=cuda)
+    pool = kc.float()
+    calls = [lambda: paged_attention.paged_decode_attention_pool_chunk(q, pool, pool, bt, lens, 1, scale=0.1),
+             lambda: paged_attention.paged_decode_attention_pool_chunk_q8(q, kc, vc, ks, vs, bt, lens, 1, scale=0.1,
+                                                                          open_k=ok, open_v=ov)]
+    for call in calls:
+        call()  # builds first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    q9 = torch.randn(lens.shape[0], 9, 10, 128, device=cuda)
+    with pytest.raises(ValueError, match="2..8 queries"):
+        paged_attention.paged_decode_attention_pool_chunk(q9, pool, pool, bt, lens.repeat(1, 3)[:, :9].contiguous(),
+                                                          1, scale=0.1)
 
 
 # ---------------------------------------------------------------------------

@@ -166,9 +166,23 @@ def test_lm_decode_step_paged_matches_jax(lm, b):
 
 
 def test_paged_step_refuses_chunk_mode(lm):
-    cfg, _, tp = lm
-    pool = tpaged.make_paged_kv_cache(cfg.num_hidden_layers, 3, cfg.num_attention_heads, 8, cfg.head_dim,
-                                      torch.float32)
-    with pytest.raises(ValueError, match="lookup"):
-        tpaged.lm_decode_step_paged(tp, cfg, torch.zeros(1, 2, cfg.hidden_size), pool,
-                                    torch.ones(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    """The chunk mode of lookup decoding, once refused, now runs: two rows
+    of three tokens at positions 6 and 7 over 8-token pages (row 1's chunk
+    crosses into its second page), hidden states and pool against the JAX
+    package's step (f32, the tolerances of the plain steps above)."""
+    cfg, jp, tp = lm
+    l, hh, d, page = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim, 8
+    rng = np.random.default_rng(11)
+    pool = rng.standard_normal((l, 6, hh, page, d)).astype(np.float32)
+    tpool = {"k": _t(pool), "v": _t(pool[::-1].copy())}
+    jpool = {"k": jnp.asarray(pool), "v": jnp.asarray(pool[::-1].copy())}
+    tables, pos = np.array([[1, 2], [3, 4]], np.int32), np.array([6, 7], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 3))
+    jh, jpool = jpaged.lm_decode_step_paged(jp, cfg, jnp.take(jp["embed"], jnp.asarray(toks), axis=0), jpool,
+                                            jnp.asarray(tables), jnp.asarray(pos), use_pallas=False)
+    th = tpaged.lm_decode_step_paged(tp, cfg, torch.nn.functional.embedding(_t(toks), tp["embed"]), tpool,
+                                     _t(tables), _t(pos))
+    assert th.shape == (2, 3, cfg.hidden_size)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tpool[name].numpy(), np.asarray(jpool[name]), rtol=1e-4, atol=1e-4)

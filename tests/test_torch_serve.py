@@ -2,7 +2,9 @@
 widths (f32): the group engine and the continuous engine against the JAX
 package's engines, and the continuous engine's scheduling (more pages than
 slots, a tight pool, growth and preemption, the online API, streaming)
-against the port's single-page pipeline, which tests/test_torch_e2e.py and
+against the port's single-page pipeline (the two longest preemption runs
+are in tests/test_torch_serve_preempt.py, so that they run beside this
+file on another worker), which tests/test_torch_e2e.py and
 test_torch_crop.py hold to the JAX package. Tokens are compared exactly.
 
 The tiny LM has 8 experts and top-2 routing, so a decode batch of 5 or more
@@ -11,7 +13,6 @@ path.
 """
 
 import dataclasses
-import signal
 
 import numpy as np
 import jax
@@ -139,41 +140,6 @@ def _tight_pool(cfg, pipe, page_size=16, max_new=64, chunk=8):
     full = pages_for(s + max_new, page_size)
     pool_pages = max(2 * per_admit + (full - per_admit) + (full - per_admit) // 2, pages_for(128, page_size))
     return dict(slots=2, capacity=128, chunk_steps=chunk, page_size=page_size, pool_tokens=pool_pages * page_size)
-
-
-def test_continuous_page_growth_preemption(setup):
-    """Lazy pages: admission claims prompt + first chunk, growth the rest, and
-    on exhaustion the younger slot is preempted and re-admitted; the results
-    stay token-exact (greedy decode is deterministic)."""
-    cfg, _, pipe = setup
-    pages = _pages(2)[1:2] * 2  # two identical no-crop pages
-    engine = ContinuousOCREngine(pipe, **_tight_pool(cfg, pipe))
-    results = engine.run(pages, max_new_tokens=64, ngram_size=3)
-    assert engine.last_preempted >= 1, "pool sizing did not force a preemption"
-    for s, b in zip(_singles(pipe, pages, max_new_tokens=64, ngram_size=3), results):
-        assert b.token_ids == s.token_ids
-
-
-def test_continuous_no_mutual_preemption_livelock(setup):
-    """Two crop pages that admit at 5 pages each and both need a 6th, in a
-    pool of 10: growth only preempts strictly younger slots, so the oldest
-    always finishes and the run ends, token-exact."""
-    _, _, pipe = setup
-
-    def bail(signum, frame):
-        raise TimeoutError("continuous engine livelocked (mutual preemption)")
-
-    pages = _pages(4)
-    old = signal.signal(signal.SIGALRM, bail)
-    signal.alarm(300)
-    try:
-        engine = ContinuousOCREngine(pipe, slots=2, capacity=128, chunk_steps=32, page_size=16, pool_tokens=160)
-        got = engine.run(pages, max_new_tokens=48, ngram_size=3)
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, old)
-    for w, g in zip(_singles(pipe, pages, max_new_tokens=48, ngram_size=3), got):
-        assert g.token_ids == w.token_ids
 
 
 def test_online_submit_while_running(setup):
@@ -318,8 +284,11 @@ def test_prestage_run_requests_token_exact(setup):
 
 def test_out_of_slice_options_name_their_slice(setup):
     _, _, pipe = setup
-    with pytest.raises(ValueError, match="lookup"):
-        ContinuousOCREngine(pipe, slots=2, capacity=128, lookup_chunk=4)
+    # Lookup decoding is ported (tests/test_torch_lookup.py): greedy only.
+    lookup = ContinuousOCREngine(pipe, slots=2, capacity=128, lookup_chunk=4)
+    assert lookup.run(_pages(1), max_new_tokens=2)[0].new_tokens >= 1
+    with pytest.raises(ValueError, match="lookup_chunk requires greedy"):
+        lookup.run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))
     # Sampling is ported: the engines run with it where they refused it.
     engine = ContinuousOCREngine(pipe, slots=2, capacity=128)
     res = engine.run(_pages(1), max_new_tokens=2, sampling=dict(temperature=1.0))
