@@ -15,7 +15,8 @@ Phases (each raises on failure, so the exit code is non-zero):
    abs error beside its
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
-   function, that call's time (`library_ms`); the grouped-GEMM MoE (D, E)
+   function, that call's time (`library_ms`; `torch._grouped_mm` for E, S and
+   T in bf16); the grouped-GEMM MoE (D, E)
    also whole against its grouped twin; D+E, F, H-O and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
@@ -84,6 +85,17 @@ Phases (each raises on failure, so the exit code is non-zero):
    single pages (the continuous one on an f32 and an int8tail pool, on
    which single pages decode the plain engine's way), and the card's lookup
    tokens against the CPU's, each under the margin rule.
+8. fine-tuning: phase 2 also holds S, T and E (the backward's recompute)
+   at a training step's MoE layer (B 4 x S 512, 12 288 rows) to their
+   twins, and the whole `moe_ffn_gmm` backward to autograd through the
+   grouped twin (one forward + backward under sync-debug "error"); then
+   the full-width 12-layer LM in bf16 takes 5 AdamW steps and one remat
+   step on one repeated batch through `runtime.train.adamw_train_step`
+   (the train CLI's step), loss finite and falling, launches held to
+   `train_launches_per_step`, with step ms, tokens/s, peak memory, the
+   forward + backward / update split and a profiled step's idle share;
+   8b: the loss and every gradient leaf of a 2-layer f32 LM, card against
+   CPU; 8c: a resumed run bit-identical to a straight one on the card.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -107,6 +119,7 @@ import torch
 import torch.nn.functional as F
 
 SEED = 0
+TRAIN_B, TRAIN_S = 4, 512  # the train CLI's --batch-size and --seq-len defaults
 PAGES = [(700, 500), (768, 768), (420, 640)]  # (w, h): both sides <= 768 -> no crop
 CROP_PAGES = [(1400, 800, (2, 1)), (1700, 2200, (2, 3))]  # (w, h, the crop grid it takes)
 KERNEL_SOURCES = ("moe_q4", "linear_q4", "attn_fused", "moe_q8", "flash_attention", "fused_mlp", "moe_gmm",
@@ -148,6 +161,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def row_bytes(n_rows: int, *tensors) -> int:
+    """Bytes of n_rows rows of each 2-D tensor: the N k real rows of an
+    expert-aligned buffer, whose pad slots and invalid tail tiles are no
+    part of the function's work."""
+    return sum(n_rows * t.shape[1] * t.element_size() for t in tensors)
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: torch.dtype):
@@ -276,7 +296,8 @@ def no_host_sync(dev, what: str, fn):
 
 def gmm_results(dev, randn, record) -> None:
     """Kernels D and E at the LM's MoE shapes (E = 64, k = 6, H = 1280,
-    I = 896) for the prompts of a 2-crop and a 6-crop page (N = 550, 1125),
+    I = 896) for the prompts of a 2-crop and a 6-crop page (N = 550, 1125)
+    and the forward of one training step (N = TRAIN_B x TRAIN_S = 2048),
     routed by a random f32 router: each kernel alone against its per-tile
     twin on the same aligned rows, then the whole `moe_ffn_gmm` against the
     grouped twin `moe_ffn_gmm_reference`, and the dense form's time at
@@ -285,7 +306,7 @@ def gmm_results(dev, randn, record) -> None:
     from deepseek_ocr2_tpu_torch.ops.moe import moe_ffn_dense, route
 
     e, k, h, i = 64, 6, 1280, 896
-    for n in (550, 1125):
+    for n in (550, 1125, TRAIN_B * TRAIN_S):
         for dt in (torch.bfloat16, torch.float32):
             x = randn(n, h, dtype=dt)
             ex = {
@@ -310,14 +331,15 @@ def gmm_results(dev, randn, record) -> None:
             record("D", f"swiglu {case}", act, got, tolerance(act, dt),
                    median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d)),
                    median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
-                   bound_ms(nbytes(x_al, act) + 2 * n_used * w_expert, flops_gu, dt))
+                   bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt))
             args_e = (act, ex["down"], e_tile, tile_valid)
             y = moe_gmm.gmm_down_reference(*args_e)
             got = moe_gmm.moe_gmm_down(*args_e)
             record("E", f"down {case}", y, got, tolerance(y, dt),
                    median_ms(lambda: moe_gmm.moe_gmm_down(*args_e)),
                    median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)),
-                   bound_ms(nbytes(act, y) + n_used * w_expert, flops_d, dt))
+                   bound_ms(row_bytes(n * k, act, y) + n_used * w_expert, flops_d, dt),
+                   grouped_mm_library("E", act, ex["down"], e_tile, tile_valid))
             del act, got, y, args_d, args_e
 
             args = (x, ex, weights, idx)
@@ -812,6 +834,141 @@ def q4_results(dev, randn, record) -> None:
     torch.cuda.empty_cache()
 
 
+def grouped_mm_library(kind: str, a, b, e_tile, tile_valid, n_experts: int = 0):
+    """One `torch._grouped_mm` call computing kernel `kind`'s function on
+    its aligned rows, for `library_ms`, or None (the reason printed): E
+    a_t W_e^T and S a_t W_e per expert group of rows (2-D x 3-D, `offs` the
+    groups' aligned ends); T dy^T x per group (2-D x 2-D, the groups along
+    K; bf16 out where the card's torch takes no out_dtype). bf16 only. The
+    operands are laid out as it asks (a transposed copy where the kernel
+    reads in place) outside the timing. Timed only; the port never calls it."""
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import GMM_BM, expert_tile_ranges
+
+    if not hasattr(torch, "_grouped_mm"):
+        print(f"[kernel] {kind} library: none (torch {torch.__version__} has no torch._grouped_mm)")
+        return None
+    if a.dtype != torch.bfloat16:
+        print(f"[kernel] {kind} library: none in {a.dtype} (torch._grouped_mm takes bf16)")
+        return None
+    e = n_experts or b.shape[0]
+    offs = (expert_tile_ranges(e_tile, tile_valid, e)[1:] * GMM_BM).to(torch.int32)
+    if kind == "E":
+        forms = [(a, b.transpose(1, 2))]
+    elif kind == "S":
+        forms = [(a, b), (a, b.transpose(1, 2).contiguous().transpose(1, 2))]
+    else:  # T: a = x [S, C], b = dy [S, O]
+        forms = [(b.t().contiguous(), a), (b.t().contiguous(), a.t().contiguous().t())]
+    errors = []
+    for mat_a, mat_b in forms:
+        for kw in ({"out_dtype": torch.float32}, {}) if kind == "T" else ({},):
+            try:
+                fn = (lambda mat_a=mat_a, mat_b=mat_b, kw=kw: torch._grouped_mm(mat_a, mat_b, offs=offs, **kw))
+                fn()
+                torch.cuda.synchronize()
+                return fn
+            except Exception as exc:  # a layout or option this torch refuses: try the next
+                errors.append(f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}")
+    print(f"[kernel] {kind} library: none (torch._grouped_mm refused every layout: {errors})")
+    return None
+
+
+# T: dW sums in f32 over the expert's rows (exact bf16 products in bf16),
+# another order than the twin's: the f32 bound relative to the largest
+# output, for both dtypes.
+def dw_tol(ref: torch.Tensor) -> float:
+    return F32_TOL * max(1.0, float(ref.abs().max()))
+
+
+# The Function's gradients against autograd through the grouped twin in
+# f32: f32 within 1e-4 of each leaf's largest entry (sums in other orders
+# through the backward); bf16 within 2e-2 (the Function rounds gate, up,
+# act, dy, dact, dgate, dup and dx to bf16, the f32 autograd nothing).
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def gmm_backward_results(dev, randn, record) -> None:
+    """Phase 8's kernels at one MoE layer of a training step at full width:
+    B 4 x S 512 = 2048 tokens, k 6 (12 288 assignments), E 64, H 1280,
+    I 896, bf16 (the main path's) then f32. E at the recompute's gate/up
+    shape (K 1280, N 896), S for dact = dy Wd and dx_gate = dgate Wg, T for
+    dW_gate = dgate^T x and dW_down = dy^T act, each against its twin on
+    the same aligned rows (D, E at the down shape and the whole forward at
+    this N are `gmm_results`'); then the whole backward of `moe_ffn_gmm`
+    (dx, dW, d_weights) against autograd through `moe_ffn_gmm_reference`,
+    and one forward and backward under sync-debug mode "error"."""
+    from deepseek_ocr2_tpu_torch.ops import moe_gmm
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    e, k, h, i = 64, 6, 1280, 896
+    n = TRAIN_B * TRAIN_S
+    for dt in (torch.bfloat16, torch.float32):
+        x = randn(n, h, dtype=dt)
+        ex = {
+            "gate": randn(e, i, h, std=h**-0.5, dtype=dt),
+            "up": randn(e, i, h, std=h**-0.5, dtype=dt),
+            "down": randn(e, h, i, std=i**-0.5, dtype=dt),
+        }
+        weights, idx = route(x, randn(e, h, std=h**-0.5), k)
+        x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+        dy = randn(x_al.shape[0], h, dtype=dt)  # the backward's [S, H] and [S, I] operands
+        act = randn(x_al.shape[0], i, dtype=dt)
+        dts = str(dt)[6:]
+        case = f"N {n} k {k}: {tile_valid.numel()} tiles, {int(tile_valid.sum())} valid, {dts}"
+        n_used = int(torch.unique(idx).numel())
+        w_expert = nbytes(ex["gate"][0])
+        flops = 2 * n * k * h * i  # every product here: M = N k rows by H by I
+
+        args = (x_al, ex["gate"], e_tile, tile_valid)
+        ref = moe_gmm.gmm_down_reference(*args)
+        record("E", f"recompute gate = x Wg^T (K {h}, N {i}), {case}", ref, moe_gmm.moe_gmm_down(*args),
+               tolerance(ref, dt), median_ms(lambda: moe_gmm.moe_gmm_down(*args)),
+               median_ms(lambda: moe_gmm.gmm_down_reference(*args)),
+               bound_ms(row_bytes(n * k, x_al, ref) + n_used * w_expert, flops, dt),
+               grouped_mm_library("E", *args), graph=lambda: moe_gmm.moe_gmm_down(*args))
+        for what, a, w in (("dact = dy Wd", dy, ex["down"]), ("dx_gate = dgate Wg", act, ex["gate"])):
+            args = (a, w, e_tile, tile_valid)
+            ref = moe_gmm.gmm_dx_reference(*args)
+            record("S", f"{what}, {tuple(a.shape)} x {tuple(w.shape)}, {case}", ref, moe_gmm.moe_gmm_dx(*args),
+                   tolerance(ref, dt), median_ms(lambda: moe_gmm.moe_gmm_dx(*args)),
+                   median_ms(lambda: moe_gmm.gmm_dx_reference(*args)),
+                   bound_ms(row_bytes(n * k, a, ref) + n_used * w_expert, flops, dt),
+                   grouped_mm_library("S", *args), graph=lambda: moe_gmm.moe_gmm_dx(*args))
+            del ref
+        for what, xx, yy in (("dW_gate = dgate^T x", x_al, act), ("dW_down = dy^T act", act, dy)):
+            args = (xx, yy, e_tile, tile_valid, e)
+            ref = moe_gmm.gmm_dw_reference(*args)
+            record("T", f"{what}, -> {tuple(ref.shape)} f32, {case}", ref, moe_gmm.moe_gmm_dw(*args),
+                   dw_tol(ref), median_ms(lambda: moe_gmm.moe_gmm_dw(*args)),
+                   median_ms(lambda: moe_gmm.gmm_dw_reference(*args), reps=3),
+                   bound_ms(row_bytes(n * k, xx, yy) + nbytes(ref), flops, dt),
+                   grouped_mm_library("T", *args), graph=lambda: moe_gmm.moe_gmm_dw(*args))
+            del ref
+        del x_al, dy, act
+
+        cot = randn(n, h)
+
+        def grads(fn, up):
+            leaves = [t.detach().to(up).requires_grad_() for t in (x, ex["gate"], ex["up"], ex["down"])]
+            w = weights.detach().clone().requires_grad_()
+            out = fn(leaves[0], dict(zip(("gate", "up", "down"), leaves[1:])), w, idx)
+            return torch.autograd.grad((out.float() * cot).sum(), [*leaves, w])
+
+        got = grads(moe_gmm.moe_ffn_gmm, dt)
+        want = grads(moe_gmm.moe_ffn_gmm_reference, torch.float32)
+        for name, a, b in zip(("dx", "dW_gate", "dW_up", "dW_down", "d_weights"), got, want):
+            err, scale = float((a.float() - b).abs().max()), float(b.abs().max())
+            tol = GRAD_RTOL[dt] * scale
+            print(f"[kernel] moe_ffn_gmm backward {name} {dts}: max_abs_err {err:.3e} (tol {tol:.3e}, "
+                  f"max |grad| {scale:.3e}) {'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                raise AssertionError(f"moe_ffn_gmm backward {name} {dts}: error {err} above {tol}")
+        del got, want
+        if dt == torch.bfloat16:
+            no_host_sync(dev, f"moe_ffn_gmm forward + backward ({case})", lambda: grads(moe_gmm.moe_ffn_gmm, dt))
+        del x, ex
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev) -> dict:
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
@@ -851,6 +1008,8 @@ def phase_kernels(dev) -> dict:
     q8_results(dev, randn, record)
     # L, M, N, O: the int4 decode step (--int4).
     q4_results(dev, randn, record)
+    # S, T (and E at the recompute's shape): a training step's MoE backward.
+    gmm_backward_results(dev, randn, record)
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
@@ -910,8 +1069,8 @@ def phase_kernels(dev) -> dict:
 def random_hf_flat(cfg, randn) -> dict:
     """HF-layout random weights for an OCR2Config. `randn(shape, std)`
     returns an f32 tensor; linears use std fan_in^-1/2, norms 1 + noise."""
-    lm, sam, qw = cfg.lm, cfg.sam, cfg.qwen2
-    flat = {}
+    sam, qw = cfg.sam, cfg.qwen2
+    flat = random_lm_hf_flat(cfg.lm, randn)
 
     def lin(name, out_f, in_f):
         flat[name] = randn((out_f, in_f), in_f**-0.5)
@@ -919,33 +1078,7 @@ def random_hf_flat(cfg, randn) -> dict:
     def ones(name, n):
         flat[name] = 1.0 + randn((n,), 0.02)
 
-    h = lm.hidden_size
-    flat["model.embed_tokens.weight"] = randn((lm.vocab_size, h), 1.0)
-    ones("model.norm.weight", h)
-    lin("lm_head.weight", lm.vocab_size, h)
-    for i in range(lm.num_hidden_layers):
-        lp = f"model.layers.{i}."
-        ones(lp + "input_layernorm.weight", h)
-        ones(lp + "post_attention_layernorm.weight", h)
-        for n in "qkvo":
-            lin(f"{lp}self_attn.{n}_proj.weight", h, h)
-        if i < lm.first_k_dense_replace:
-            lin(lp + "mlp.gate_proj.weight", lm.intermediate_size, h)
-            lin(lp + "mlp.up_proj.weight", lm.intermediate_size, h)
-            lin(lp + "mlp.down_proj.weight", h, lm.intermediate_size)
-        else:
-            lin(lp + "mlp.gate.weight", lm.n_routed_experts, h)
-            im = lm.moe_intermediate_size
-            for e in range(lm.n_routed_experts):
-                ep = f"{lp}mlp.experts.{e}."
-                lin(ep + "gate_proj.weight", im, h)
-                lin(ep + "up_proj.weight", im, h)
-                lin(ep + "down_proj.weight", h, im)
-            ish = im * lm.n_shared_experts
-            lin(lp + "mlp.shared_experts.gate_proj.weight", ish, h)
-            lin(lp + "mlp.shared_experts.up_proj.weight", ish, h)
-            lin(lp + "mlp.shared_experts.down_proj.weight", h, ish)
-
+    h = cfg.lm.hidden_size
     sp = "model.sam_model."
     e, p, side = sam.embed_dim, sam.patch_size, sam.tokens_per_side
     flat[sp + "patch_embed.proj.weight"] = randn((e, 3, p, p), (3 * p * p) ** -0.5)
@@ -1002,6 +1135,46 @@ def random_hf_flat(cfg, randn) -> dict:
     lin("model.projector.layers.weight", h, cfg.projector_in)
     flat["model.projector.layers.bias"] = randn((h,), 0.02)
     flat["model.view_seperator"] = randn((h,), 0.02)
+    return flat
+
+
+def random_lm_hf_flat(lm, randn) -> dict:
+    """The LM's part of `random_hf_flat` (a DeepseekV2Config), drawn first
+    and in the same order."""
+    flat = {}
+
+    def lin(name, out_f, in_f):
+        flat[name] = randn((out_f, in_f), in_f**-0.5)
+
+    def ones(name, n):
+        flat[name] = 1.0 + randn((n,), 0.02)
+
+    h = lm.hidden_size
+    flat["model.embed_tokens.weight"] = randn((lm.vocab_size, h), 1.0)
+    ones("model.norm.weight", h)
+    lin("lm_head.weight", lm.vocab_size, h)
+    for i in range(lm.num_hidden_layers):
+        lp = f"model.layers.{i}."
+        ones(lp + "input_layernorm.weight", h)
+        ones(lp + "post_attention_layernorm.weight", h)
+        for n in "qkvo":
+            lin(f"{lp}self_attn.{n}_proj.weight", h, h)
+        if i < lm.first_k_dense_replace:
+            lin(lp + "mlp.gate_proj.weight", lm.intermediate_size, h)
+            lin(lp + "mlp.up_proj.weight", lm.intermediate_size, h)
+            lin(lp + "mlp.down_proj.weight", h, lm.intermediate_size)
+        else:
+            lin(lp + "mlp.gate.weight", lm.n_routed_experts, h)
+            im = lm.moe_intermediate_size
+            for e in range(lm.n_routed_experts):
+                ep = f"{lp}mlp.experts.{e}."
+                lin(ep + "gate_proj.weight", im, h)
+                lin(ep + "up_proj.weight", im, h)
+                lin(ep + "down_proj.weight", h, im)
+            ish = im * lm.n_shared_experts
+            lin(lp + "mlp.shared_experts.gate_proj.weight", ish, h)
+            lin(lp + "mlp.shared_experts.up_proj.weight", ish, h)
+            lin(lp + "mlp.shared_experts.down_proj.weight", h, ish)
     return flat
 
 
@@ -1080,11 +1253,14 @@ def counters():
         paged_decode_attention_pool_chunk_q8,
     )
 
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_dw, moe_gmm_dx
+
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
             "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
             "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused, "L": linear_q4, "M": moe_ffn_decode_q4,
             "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8,
-            "Q": paged_decode_attention_pool_chunk, "R": paged_decode_attention_pool_chunk_q8}
+            "Q": paged_decode_attention_pool_chunk, "R": paged_decode_attention_pool_chunk_q8,
+            "S": moe_gmm_dx, "T": moe_gmm_dw}
 
 
 # The quantized tiers of the CLI: (flag, scope, bits).
@@ -1110,7 +1286,7 @@ def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool, q
     j = rows * lm.num_experts_per_tok > lm.n_routed_experts
     shared_h = 0 if (j or rows == 1) else 2 * n_moe
     att, sel, distinct, lin = "KIJH" if bits == 8 else "OMNL"
-    want = dict.fromkeys("FGHIJKLMNOPQR", 0)
+    want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
     want.update({
         att: lm.num_hidden_layers if full and not paged else 0,
         "P" if q8_pool else "G": lm.num_hidden_layers if paged else 0,
@@ -1710,7 +1886,7 @@ def phase_serving_kv(dev, pipe) -> dict:
         decoded = sum(r.new_tokens - 1 for r in res)
         attention = "G" if kv == "bfloat16" else "P"
         if tier == "bf16":
-            want = dict.fromkeys("FGHIJKLMNOPQR", 0)
+            want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
             want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
         else:
             want = {k: n * steps for k, n in quant_launches_per_step(lm, "full", 8, rows=16, paged=True,
@@ -1791,7 +1967,7 @@ def phase_serving_lookup(dev, pipe) -> dict:
         steps, fw = engine.last_decode_steps, engine.last_lookup_forwards
         decoded = sum(r.new_tokens - 1 for r in res)  # the first token of a page comes from its admission
         attention = "Q" if kv == "bfloat16" else "R"
-        want = dict.fromkeys("FGHIJKLMNOPQR", 0)
+        want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
         want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
         print(f"[serve-lookup] ContinuousOCREngine(slots=16, lookup_chunk=4), {tier} LM, {kv} pool: "
               f"{len(pages)} pages in {dt:.2f} s = {len(pages) / dt:.2f} pages/s; {steps} chunk forwards "
@@ -2100,6 +2276,273 @@ def phase_lookup_exact(dev, pipe, cpu_params) -> None:
           f"{cpu_lookup.token_ids == cpu_single.token_ids})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8
+
+
+TRAIN_LR = 1e-3  # large enough that AdamW's first steps move bf16 weights (ulp 2^-8 relative)
+TRAIN_STEPS = 5
+
+
+def train_launches_per_step(lm, remat: bool) -> dict:
+    """Kernel launches of one `adamw_train_step` at B * S > 512 rows, derived
+    from the code (models/deepseek_v2.py `lm_forward(training=True)`,
+    ops/moe_gmm.py `MoeFfnGmm`): each MoE layer's forward runs D and E
+    once; its backward E three times (gate, up and y recomputed), S three
+    times (dact, dx_gate, dx_up) and T three times (dW of gate, up, down);
+    `remat` runs each MoE layer's forward once more in the backward. The
+    attention is plain (no A), the dense and shared MLPs are F.linear."""
+    n_moe = lm.num_moe_layers
+    want = dict.fromkeys("ABCDEFGHIJKLMNOPQRST", 0)
+    want.update(D=n_moe * (1 + remat), E=n_moe * (4 + remat), S=3 * n_moe, T=3 * n_moe)
+    return want
+
+
+def _step_profile(dev, step) -> dict:
+    """Wall time, device busy time (the sum of every device activity's time
+    on the one stream) and device activities of one call of `step` under
+    torch.profiler; idle share = 1 - busy / wall. User annotations (e.g.
+    `Optimizer.step#AdamW.step`) span kernels already counted: left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    gmm = [e for e in rows if "gmm_" in e.key]  # kernels D, E, S, T
+    return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": sum(e.count for e in rows),
+            "gmm_ms": sum(e.self_device_time_total for e in gmm) / 1e3, "gmm_launches": sum(e.count for e in gmm),
+            "top": [(e.key[:100], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}
+
+
+def phase_train(dev) -> dict:
+    """Phase 8, the slice's main path: LM fine-tuning at full width and
+    depth (the default DeepseekV2Config: 12 layers, 11 of them MoE) in
+    bf16, random weights from a seeded generator on the card, through
+    `runtime.train.adamw_train_step` (the train CLI's step) at the CLI's
+    B 4 x S 512 on one repeated batch: TRAIN_STEPS steps with the counts
+    held to `train_launches_per_step`, the loss finite and falling, then
+    one step with remat. Prints step time, tokens/s, peak memory and, for
+    one more step under torch.profiler, the device's busy time and idle
+    share. Returns the run's launches."""
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+    from deepseek_ocr2_tpu_torch.io import DtypePolicy
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    lm = DeepseekV2Config()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    flat = random_lm_hf_flat(lm, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    params, report = dsv2.params_from_flat(flat, lm, device=dev, policy=DtypePolicy(default="bfloat16"))
+    report.raise_on_errors()
+    del flat
+    tx = train.make_optimizer(lr=TRAIN_LR)
+    state = tx.init(params)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 8).integers(2, lm.vocab_size, (TRAIN_B, TRAIN_S))).to(dev)
+    n_params = sum(t.numel() for _, t in train.param_items(params))
+    torch.cuda.synchronize(dev)
+    print(f"[train] LM {lm.num_hidden_layers} layers ({lm.num_moe_layers} MoE), {n_params / 1e9:.3f} B parameters "
+          f"bf16, AdamW moments bf16, made in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card; batch [{TRAIN_B}, {TRAIN_S}], "
+          f"lr {TRAIN_LR}")
+
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for step, remat in [(i, False) for i in range(TRAIN_STEPS)] + [(TRAIN_STEPS, True)]:
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        loss = float(train.adamw_train_step(params, state, lm, ids, tx, remat=remat))
+        dt = time.perf_counter() - t
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        want = train_launches_per_step(lm, remat)
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        print(f"[train] step {step + 1}{' (remat)' if remat else ''}: loss {loss:.4f}, {dt * 1e3:.1f} ms "
+              f"({TRAIN_B * TRAIN_S / dt:.0f} tokens/s), launches D {delta['D']} E {delta['E']} S {delta['S']} "
+              f"T {delta['T']}")
+        if bad or not math.isfinite(loss):
+            raise AssertionError(f"train step {step + 1}: loss {loss}, launches (got, want) {bad}")
+        losses.append(loss)
+        if not remat:
+            step_ms.append(dt * 1e3)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not losses[TRAIN_STEPS - 1] < losses[0]:
+        raise AssertionError(f"the training loss does not fall: {losses}")
+    steady = float(np.median(step_ms[1:]))
+    print(f"[train] losses {[round(v, 4) for v in losses]}; step {steady:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+          f"{TRAIN_B * TRAIN_S / steady * 1e3:.0f} tokens/s, peak memory {peak:.1f} GiB; first step "
+          f"{step_ms[0]:.1f} ms; launches over the phase {launches}")
+    # Where a step's time goes: forward + backward and the optimizer update
+    # timed apart (host clock to a synchronize), then one step under
+    # torch.profiler. These run after the counts were read.
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    _, grads = train.value_and_grad(train.lm_loss, params, lm, ids)
+    torch.cuda.synchronize(dev)
+    t_grad = time.perf_counter() - t
+    tx.update(grads, state, params)
+    torch.cuda.synchronize(dev)
+    t_update = time.perf_counter() - t - t_grad
+    del grads
+    print(f"[train] one step split: forward + backward {t_grad * 1e3:.1f} ms, AdamW update {t_update * 1e3:.1f} ms")
+    prof = _step_profile(dev, lambda: train.adamw_train_step(params, state, lm, ids, tx))
+    print(f"[train] one step under torch.profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms, idle share {1 - prof['device_ms'] / prof['wall_ms']:.3f}, "
+          f"{prof['launches']} device activities; kernels D, E, S, T {prof['gmm_ms']:.1f} ms in "
+          f"{prof['gmm_launches']} launches; top (name, ms, count) {prof['top']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lm2_flat(seed: int):
+    """The default LM's widths at 2 layers (one dense, one MoE), numpy-seeded
+    f32 weights in HF layout, and a [2, 300] batch (600 rows: above the
+    512-row cut-over, so the MoE layer runs MoeFfnGmm)."""
+    import dataclasses as dc
+
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+
+    lm = dc.replace(DeepseekV2Config(), num_hidden_layers=2)
+    rng = np.random.default_rng(seed)
+    flat = random_lm_hf_flat(
+        lm, lambda shape, std: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std)))
+    return lm, flat, torch.from_numpy(rng.integers(2, lm.vocab_size, (2, 300)))
+
+
+# Card vs CPU, f32: the loss within 1e-5 relative and each gradient leaf
+# within 1e-4 of its largest entry (cuBLAS and the kernels sum in other
+# orders than the CPU through two layers and the backward).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """Phase 8b: the loss and every gradient leaf of `lm_loss` at full
+    width, 2 layers, f32, card (D, E, S, T) against CPU (the twins). The
+    card routes first; the CPU run takes the card's expert selection (its
+    routing weights gathered from its own probabilities, still
+    differentiable), so that a near tie that rounds the other way on one
+    device cannot move a token to another expert; the rows whose
+    selection the CPU would have made otherwise are counted and printed."""
+    import torch.nn.functional as F_
+
+    from deepseek_ocr2_tpu_torch.io import DtypePolicy
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    lm, flat, ids = _lm2_flat(SEED + 9)
+    kernels = counters()
+    route, card_idx, flips = dsv2.route, [], []
+
+    def recording(x, w, k):
+        weights, idx = route(x, w, k)
+        card_idx.append(idx.cpu())
+        return weights, idx
+
+    def replaying(x, w, k):
+        own = route(x, w, k)[1]
+        idx = card_idx[len(flips)]
+        flips.append(int((own.sort(1).values != idx.sort(1).values).any(1).sum()))
+        probs = torch.softmax(F_.linear(x.float(), w.float()), dim=-1)
+        return probs.gather(1, idx), idx
+
+    out = {}
+    for device, patched in ((dev, recording), ("cpu", replaying)):
+        params, report = dsv2.params_from_flat({k: v.clone() for k, v in flat.items()}, lm, device=device,
+                                               policy=DtypePolicy(default="float32"))
+        report.raise_on_errors()
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        dsv2.route = patched
+        try:
+            loss, grads = train.value_and_grad(train.lm_loss, params, lm, ids.to(device))
+        finally:
+            dsv2.route = route
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items() if fn.launches != before[k]}
+        out[str(device)] = (float(loss), [g.cpu() for g in grads])
+        print(f"[train-cpu-vs-card] {device}: loss {float(loss):.6f}, {time.perf_counter() - t0:.1f} s, "
+              f"launches {delta}")
+        if device != "cpu" and delta != {"D": 1, "E": 4, "S": 3, "T": 3}:
+            raise AssertionError(f"the card's training step launched {delta}, expected D 1, E 4, S 3, T 3")
+        names = [n for n, _ in train.param_items(params)]
+        del params, grads
+    print(f"[train-cpu-vs-card] rows whose expert selection the CPU would have made otherwise: {flips}")
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
+    if not abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu):
+        raise AssertionError(f"loss: card {l_card}, CPU {l_cpu}")
+    worst = (0.0, "")
+    for name, a, b in zip(names, g_card, g_cpu):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel = err / max(scale, 1e-30)
+        worst = max(worst, (rel, name))
+        if not err <= TRAIN_GRAD_RTOL * scale:
+            raise AssertionError(f"gradient {name}: card vs CPU max_abs_err {err}, above {TRAIN_GRAD_RTOL} x {scale}")
+    print(f"[train-cpu-vs-card] loss card {l_card:.6f} CPU {l_cpu:.6f}; {len(names)} gradient leaves within "
+          f"{TRAIN_GRAD_RTOL} of each leaf's largest entry, worst {worst[0]:.2e} ({worst[1]})")
+
+
+def phase_train_resume(dev) -> None:
+    """Phase 8c: on the card, 4 AdamW steps straight against 2 steps,
+    `save_train_state`, `load_train_state` into fresh params and state, and
+    2 more steps: every parameter bit-identical. The 2-layer full-width LM
+    in bf16, B 4 x S 512; the file goes to the ignored build/ directory and
+    is removed."""
+    import os
+
+    from deepseek_ocr2_tpu_torch.io import DtypePolicy
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    lm, flat, _ = _lm2_flat(SEED + 10)
+    batches = [torch.from_numpy(np.random.default_rng(SEED + 10 + s).integers(2, lm.vocab_size, (TRAIN_B, TRAIN_S)))
+               .to(dev) for s in range(4)]
+    tx = train.make_optimizer(lr=TRAIN_LR)
+
+    def fresh():
+        params, report = dsv2.params_from_flat(flat, lm, device=dev, policy=DtypePolicy(default="bfloat16"))
+        report.raise_on_errors()
+        return params, tx.init(params)
+
+    t0 = time.perf_counter()
+    straight, st = fresh()
+    losses = [float(train.adamw_train_step(straight, st, lm, b, tx)) for b in batches]
+    first, st = fresh()
+    for b in batches[:2]:
+        train.adamw_train_step(first, st, lm, b, tx)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_state_smoke.safetensors")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t1 = time.perf_counter()
+    train.save_train_state(path, first, st, 2)
+    size = os.path.getsize(path)
+    del first, st
+    resumed, st = fresh()
+    step = train.load_train_state(path, resumed, st)
+    t_io = time.perf_counter() - t1
+    os.remove(path)
+    resumed_losses = [float(train.adamw_train_step(resumed, st, lm, b, tx)) for b in batches[2:]]
+    differ = [n for (n, a), (_, b) in zip(train.param_items(straight), train.param_items(resumed))
+              if not torch.equal(a, b)]
+    print(f"[train-resume] straight losses {losses}, resumed at step {step}: {resumed_losses}; state file "
+          f"{size / 2**30:.2f} GiB saved and loaded in {t_io:.1f} s; {time.perf_counter() - t0:.1f} s in all")
+    if step != 2 or resumed_losses != losses[2:] or differ:
+        raise AssertionError(f"the resumed run differs from the straight one: step {step}, leaves {differ[:4]}")
+    print("[train-resume] every parameter bit-identical to the straight run")
+    del straight, resumed, st
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2127,15 +2570,21 @@ def main() -> int:
     phase_serving_exact(dev, card_pipes["int4"], tier="int4")
     phase_kv_card_vs_cpu(dev, card_pipes["f32"].params, cpu_params)
     phase_lookup_exact(dev, card_pipes["f32"], cpu_params)
+    del card_pipes, cpu_params
+    torch.cuda.empty_cache()
+    train_launches = phase_train(dev)
+    phase_train_card_vs_cpu(dev)
+    phase_train_resume(dev)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
     # The main path is one page through generate_ocr (phase 4, and with
-    # quantized weights 4b and 4c, with lookup decoding 4d) and serving
+    # quantized weights 4b and 4c, with lookup decoding 4d), serving
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
-    # decoding 6e); each was driven with the counts at 0 and read after.
+    # decoding 6e) and fine-tuning (phase 8); each was driven with the
+    # counts at 0 and read after.
     runs = (main_launches, int8_launches, int4_launches, lookup_launches, serve_launches, serve_quant_launches,
-            serve_kv_launches, serve_lookup_launches)
+            serve_kv_launches, serve_lookup_launches, train_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
@@ -2169,21 +2618,27 @@ def main() -> int:
               "f32 / bf16 pool)", "deepseek_ocr2_tpu/ops/paged_attention.py:304"),
         "R": ("paged_attention.paged_decode_attention_pool_chunk_q8 (chunk paged attention of lookup decoding, "
               "int8 / int8tail pool)", "deepseek_ocr2_tpu/ops/paged_attention.py:808"),
+        "S": ("moe_gmm.moe_gmm_dx (grouped-GEMM MoE backward, a_t W_e: dact, dx_gate, dx_up)",
+              "deepseek_ocr2_tpu/ops/moe_gmm.py:381"),
+        "T": ("moe_gmm.moe_gmm_dw (grouped-GEMM MoE backward, per-expert dW = sum dy_t^T x_t, f32)",
+              "deepseek_ocr2_tpu/ops/moe_gmm.py:440"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
                "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu",
                "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu",
-               "P": "paged_attention.cu", "Q": "paged_attention.cu", "R": "paged_attention.cu"}
+               "P": "paged_attention.cu", "Q": "paged_attention.cu", "R": "paged_attention.cu",
+               "S": "moe_gmm.cu", "T": "moe_gmm.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJKLMNOPQR":
+    for k in "ABCDEFGHIJKLMNOPQRST":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
         # one row for H and L; one row with the pseudo-experts for I and M;
         # 16 rows for J and N; one row at pos 300 on an f32 cache for K and
         # O; an int8 pool at 16 slots for P; a bf16 pool at 16 slots for Q
-        # and an int8tail one for R (phase 6e's), S = 4.
+        # and an int8tail one for R (phase 6e's), S = 4; bf16 at a training
+        # step's MoE layer (2048 tokens) for S (dact) and T (dW_gate).
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

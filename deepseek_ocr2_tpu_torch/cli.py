@@ -1,5 +1,5 @@
-"""CLI of the port: `inspect`, `generate-text`, `generate-ocr`, `debug-rope`
-and `serve`.
+"""CLI of the port: `inspect`, `generate-text`, `generate-ocr`, `debug-rope`,
+`serve` and `train`.
 
 Same flags and defaults as the JAX package's commands of those names,
 except `--backend`, which picks cuda (default) or cpu. Crop mode is on by
@@ -14,7 +14,9 @@ selects the quantized paged pools of `serve --continuous` / `--http`
 greedy pages by prompt lookup (`generate-ocr` and every `serve` mode; with
 `--temperature > 0` serve notes that it ignores it). Flags for features the
 port does not have yet (device resize, profiling, memory trimming) raise a
-clear error instead of being ignored.
+clear error instead of being ignored. `train` fine-tunes the LM trunk with
+AdamW (packed text or masked SFT JSONL, `--resume`, `--out`), as the JAX
+CLI's `train`; `--mesh` (multi-device training) is refused.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
         --tokenizer tokenizer.json --image page.png
@@ -24,6 +26,8 @@ clear error instead of being ignored.
         --tokenizer tokenizer.json --prompt "..."
     python -m deepseek_ocr2_tpu_torch.cli inspect --weights W.safetensors
     python -m deepseek_ocr2_tpu_torch.cli debug-rope
+    python -m deepseek_ocr2_tpu_torch.cli train --weights W.safetensors \
+        --tokenizer tokenizer.json --data data.jsonl --steps 100 --out tuned.safetensors
 """
 
 from __future__ import annotations
@@ -139,6 +143,35 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--pool-tokens", type=int, default=None,
                     help="shared KV pool size in tokens (continuous; default slots * capacity)")
     sp.add_argument("--per-page-stats", action="store_true", help="print per-page phase timings")
+
+    sp = sub.add_parser("train", help="Fine-tune the LM trunk on a text dataset (AdamW + resume)")
+    sp.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    sp.add_argument("--weights", required=True)
+    sp.add_argument("--tokenizer", required=True)
+    sp.add_argument("--config", default=None, help="JSON model-config overrides")
+    sp.add_argument("--num-hidden-layers", type=int, default=None)
+    sp.add_argument("--data", required=True,
+                    help="JSONL per line: {'text': ...} packed LM loss, or {'prompt': ..., 'completion': ...} "
+                         "masked SFT loss; plain text also works")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--batch-size", type=int, default=4)
+    sp.add_argument("--seq-len", type=int, default=512)
+    sp.add_argument("--lr", type=float, default=1e-5)
+    sp.add_argument("--weight-decay", type=float, default=0.01)
+    sp.add_argument("--lr-schedule", choices=["constant", "cosine"], default="constant")
+    sp.add_argument("--warmup-steps", type=int, default=0)
+    sp.add_argument("--log-file", default=None, help="append per-step JSONL metrics here")
+    sp.add_argument("--clip-norm", type=float, default=1.0)
+    sp.add_argument("--remat", action="store_true",
+                    help="rematerialize MoE layers in the backward (min activation memory; ~1 extra forward "
+                         "of FLOPs)")
+    sp.add_argument("--grad-accum", type=int, default=1, help="micro-batches per optimizer update")
+    sp.add_argument("--eos-token-id", type=int, default=1)
+    sp.add_argument("--mesh", default=None, help="multi-device training: not available in the PyTorch port")
+    sp.add_argument("--save-every", type=int, default=0, help="0 = only at the end")
+    sp.add_argument("--state-out", default=None, help="train-state checkpoint path (params+opt+step)")
+    sp.add_argument("--resume", default=None, help="train-state checkpoint to resume")
+    sp.add_argument("--out", default=None, help="final params as a PyTorch-layout safetensors")
     return p
 
 
@@ -404,6 +437,151 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _train_data(args, tokenizer):
+    """The JAX CLI's dataset: packed text (one token stream, EOS after each
+    line) or prompt/completion pairs (loss on the completion and EOS),
+    never both. Returns (batch_at(step) -> (ids [B, S], mask [B, S] or
+    None) as numpy arrays, a description for the log)."""
+    import json
+
+    import numpy as np
+
+    stream, sft_examples = [], []
+    with open(args.data) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            sft = None
+            text = line
+            if line.startswith("{"):
+                try:
+                    obj = json.loads(line)
+                except json.JSONDecodeError:
+                    obj = None
+                if obj is not None:
+                    if isinstance(obj.get("prompt"), str) and isinstance(obj.get("completion"), str):
+                        sft = (obj["prompt"], obj["completion"])
+                    else:
+                        text = obj.get("text")
+                        if not isinstance(text, str):
+                            raise SystemExit(
+                                f"error: {args.data}:{lineno}: JSONL line has neither a string \"text\" field "
+                                f'nor "prompt"+"completion" fields (keys: {sorted(obj)})')
+            if sft is None:
+                stream.extend(tokenizer.encode(text, add_special_tokens=False).ids)
+                stream.append(args.eos_token_id)
+                continue
+            p_ids = tokenizer.encode(sft[0], add_special_tokens=False).ids
+            c_ids = tokenizer.encode(sft[1], add_special_tokens=False).ids
+            if len(p_ids) >= args.seq_len:
+                raise SystemExit(f"error: {args.data}:{lineno}: prompt alone is {len(p_ids)} tokens >= --seq-len "
+                                 f"{args.seq_len}; no completion tokens would carry loss")
+            ex = (p_ids + c_ids + [args.eos_token_id])[: args.seq_len]
+            m = ([0] * len(p_ids) + [1] * (len(c_ids) + 1))[: args.seq_len]
+            pad = args.seq_len - len(ex)
+            sft_examples.append((np.asarray(ex + [0] * pad, np.int64), np.asarray(m + [0] * pad, np.float32)))
+    if stream and sft_examples:
+        raise SystemExit(f"error: {args.data} mixes 'text' and 'prompt'/'completion' lines")
+    if sft_examples:
+        ex_ids = np.stack([e[0] for e in sft_examples])
+        ex_mask = np.stack([e[1] for e in sft_examples])
+        n_ex = len(sft_examples)
+
+        def batch_at(step: int):
+            idx = (np.arange(args.batch_size) + step * args.batch_size) % n_ex
+            return ex_ids[idx], ex_mask[idx]
+
+        cycled = args.steps * args.batch_size > n_ex
+        return batch_at, (f"{n_ex} prompt/completion examples -> {args.steps} steps of "
+                          f"[{args.batch_size}, {args.seq_len}] (masked SFT loss)" + (" (cycled)" if cycled else ""))
+    if not stream:
+        raise SystemExit(f"error: no tokens in {args.data}")
+    stream_np = np.asarray(stream, np.int64)
+    bs = args.batch_size * args.seq_len
+
+    def batch_at(step: int):
+        idx = (np.arange(bs, dtype=np.int64) + step * bs) % len(stream_np)
+        return stream_np[idx].reshape(args.batch_size, args.seq_len), None
+
+    cycled = args.steps * bs > len(stream_np)
+    return batch_at, (f"{len(stream_np)} tokens -> {args.steps} steps of [{args.batch_size}, {args.seq_len}]"
+                      + (" (cycled)" if cycled else ""))
+
+
+def cmd_train(args) -> int:
+    """LM fine-tuning, as the JAX CLI's `train`: packed next-token CE or
+    masked SFT, AdamW with global-norm clipping, full-state checkpoints.
+    The step is `runtime/train.py`'s; on the card its MoE layers above 512
+    rows run kernels D and E forward and E, S and T backward."""
+    import json
+    import time
+
+    import torch
+
+    from .configs import DeepseekV2Config, config_from_json
+    from .io import DtypePolicy, load_flat, save_flat
+    from .models import deepseek_v2 as dsv2
+    from .runtime.train import (adamw_sft_train_step, adamw_train_step, load_train_state, make_optimizer,
+                                save_train_state)
+    from .utils.tokenizer import load_tokenizer
+
+    if args.mesh:
+        raise SystemExit("error: --mesh (multi-device training) is not available in the PyTorch port yet; "
+                         "it is the multi-GPU slice of ROADMAP.md")
+    lm_cfg = config_from_json(args.config).lm if args.config else DeepseekV2Config()
+    if args.num_hidden_layers:
+        lm_cfg = dataclasses.replace(lm_cfg, num_hidden_layers=args.num_hidden_layers)
+    device = _device(args.backend)
+    flat = load_flat(args.weights, DtypePolicy(default=None), include_regex=[
+        r"^model\.embed_tokens\.", r"^model\.layers\.", r"^model\.norm\.", r"^lm_head\.",
+    ])
+    params, report = dsv2.params_from_flat(flat, lm_cfg, device=device)
+    print(report.summary(), file=sys.stderr)
+    report.raise_on_errors()
+    if report.missing:
+        raise SystemExit(f"error: {len(report.missing)} tensors missing, e.g. {report.missing[:4]}")
+    del flat
+
+    batch_at, described = _train_data(args, load_tokenizer(args.tokenizer))
+    print(f"dataset: {described}", file=sys.stderr)
+    tx = make_optimizer(lr=args.lr, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
+                        grad_accum=args.grad_accum, schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+                        total_steps=args.steps)
+    opt_state = tx.init(params)
+    start_step = 0
+    if args.resume:
+        start_step = load_train_state(args.resume, params, opt_state)
+        print(f"resumed from {args.resume} at step {start_step}", file=sys.stderr)
+
+    t0 = time.perf_counter()
+    for step in range(start_step, args.steps):
+        ids_np, mask_np = batch_at(step)
+        ids = torch.from_numpy(ids_np).to(device)
+        if mask_np is not None:
+            loss = adamw_sft_train_step(params, opt_state, lm_cfg, ids, torch.from_numpy(mask_np).to(device), tx,
+                                        remat=args.remat)
+        else:
+            loss = adamw_train_step(params, opt_state, lm_cfg, ids, tx, remat=args.remat)
+        loss_v = float(loss)  # also the step barrier
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        print(f"step {step + 1}/{args.steps}  loss {loss_v:.4f}  {dt * 1e3:.0f} ms")
+        if args.log_file:
+            with open(args.log_file, "a") as lf:
+                lf.write(json.dumps({"step": step + 1, "loss": loss_v, "ms": round(dt * 1e3, 1)}) + "\n")
+        if args.state_out and args.save_every and (step + 1) % args.save_every == 0:
+            save_train_state(args.state_out, params, opt_state, step + 1)
+            print(f"  saved {args.state_out}", file=sys.stderr)
+    if args.state_out:
+        save_train_state(args.state_out, params, opt_state, args.steps)
+        print(f"saved train state: {args.state_out}", file=sys.stderr)
+    if args.out:
+        save_flat(dsv2.flat_from_params(params, lm_cfg), args.out)
+        print(f"saved params: {args.out}", file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "inspect":
@@ -416,6 +594,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_generate_ocr(args)
     if args.command == "serve":
         return cmd_serve(args)
+    if args.command == "train":
+        return cmd_train(args)
     raise SystemExit(f"unknown command {args.command}")
 
 

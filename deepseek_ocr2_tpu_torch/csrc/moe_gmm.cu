@@ -1,9 +1,16 @@
-// Expert-aligned grouped-GEMM MoE prefill for sm_90a: kernels D and E.
+// Expert-aligned grouped-GEMM MoE for sm_90a: the prefill kernels D and E
+// and the backward kernels S and T.
 //
 // Replaces the Pallas TPU kernels of deepseek_ocr2_tpu/ops/moe_gmm.py:
 //   D  gmm_swiglu  <- _gmm_swiglu_kernel_al: act = round(round(silu(round(x Wg^T))) * round(x Wu^T))
 //   E  gmm_down    <- _gmm_down_kernel_al:   y   = round(act Wd^T)
-// Run one after the other they also replace _gmm_ffn_kernel_al, the fused
+//                     and, in the backward, _gmm_down_kernel (the
+//                     recompute of gate, up and y is E three times)
+//   S  gmm_dx      <- _gmm_dx_kernel:        out = round(a W_e), W_e [O, C]
+//                     contracted on its row dim (dact, dx_gate, dx_up)
+//   T  gmm_dw      <- _gmm_dw_kernel:        dW_e = sum over e's tiles of
+//                     dy_t^T x_t, [E, O, C] in f32
+// Run one after the other D and E also replace _gmm_ffn_kernel_al, the fused
 // visit the JAX package launches by default: it rounds act at the same
 // point, so the pair gives the same bits. round() is to the working type T
 // (identity for f32); every sum is accumulated in f32, silu is f32.
@@ -47,6 +54,25 @@
 // Shapes: N a multiple of 4, K a multiple of 4 (f32) or 8 (bf16: 16-byte
 // copies), x and the weights 16-byte aligned (checked by the wrapper);
 // ragged K and N edges are masked here.
+//
+// The backward (S, T) on the same layout and tiles:
+// - S reads the weight as it lies, [O, C] rows of length C, so no
+//   transposed copy is made: f32 stages [BK, BN] slices with float4 loads;
+//   bf16 copies [64, BN] slices with cp.async and builds the mma B
+//   fragments with ldmatrix.trans. Its grid is D/E's, (T, ceil(C / 128)).
+//   It is E with the weight read along the other dim: the same bounds.
+// - T contracts over rows, which are the slow dim of both operands. One
+//   block per (C block, O block, expert) walks that expert's tiles
+//   tile_lo[e] .. tile_lo[e + 1] in order and keeps its 64 x 64 block of
+//   sums in registers: a fixed summation order, no atomics, and an expert
+//   with no rows writes zeros. bf16 stages each 32-row tile of dy and x as
+//   it lies and feeds mma.sync with ldmatrix.trans (both operands
+//   transposed on the load); f32 runs 32 outer products per thread per row.
+//   Its work is the forward's (2 M O C operations), and each block rereads
+//   its expert's rows from L2 once per (O, C) block pair: the 12 288 rows
+//   of a 2048-token batch at k = 6 are 35 MB in bf16 for dW_gate, read
+//   20 x 14 times from L2. The blocks of one expert run together (expert
+//   slowest in the grid), so HBM sees the rows about once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +102,9 @@ __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 // Thread (ty, tx) owns rows 4 ty .. 4 ty + 3 of the tile and the columns
 // 4 tx + 64 j + {0..3}, j < TN / 4 (consecutive lanes read consecutive
 // float4s of the staged weights: no bank conflicts).
-template <int NW, int TN>
+// WKN (kernel S): the weight is [K, N] (rows along K) instead of [N, K];
+// its slices are staged as they lie.
+template <int NW, int TN, bool WKN = false>
 __global__ void __launch_bounds__(NT) gmm_kernel(
     const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1,
     const int* __restrict__ e_tile, const int* __restrict__ tile_valid, float* __restrict__ out,
@@ -121,6 +149,16 @@ __global__ void __launch_bounds__(NT) gmm_kernel(
     }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
+      if (WKN) {
+        for (int i = tid; i < BK * (BN / 4); i += NT) {
+          const int kr = i / (BN / 4), nc = 4 * (i % (BN / 4));
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (k0 + kr < k_dim && n0 + nc < n_dim)
+            v = *reinterpret_cast<const float4*>(wp[w] + (size_t)(k0 + kr) * n_dim + n0 + nc);
+          *reinterpret_cast<float4*>(ws[w] + kr * WS + nc) = v;
+        }
+        continue;
+      }
       for (int i = tid; i < BN * (BK / 4); i += NT) {
         const int n = i % BN, kc = 4 * (i / BN);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -295,18 +333,267 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
   }
 }
 
+// ldmatrix with .trans: lanes supply the addresses of 16-byte rows (lanes
+// 0-7 matrix 0, 8-15 matrix 1, ...); lane l receives, of each 8 x 8 matrix
+// M, the pair M[2 (l % 4)][l / 4], M[2 (l % 4) + 1][l / 4]. On rows along
+// k and columns along m (or n), that is the mma fragment of the transposed
+// operand.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned& r0, unsigned& r1, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(s) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+}
+
+// Kernel S in bf16: out [S, N] = round(a_t W_e), a [S, K] (K = the weight's
+// rows), W [E, K, N]. The grid, warps, A fragments and epilogue are E's
+// (gmm_mma_kernel with NW = 1); the [64, BN] weight slice is copied as it
+// lies, with rows padded to BN + 8 elements (16-byte aligned, and the 8
+// rows of an ldmatrix phase start in banks 0, 4, ..., 28).
+template <int BN>
+__global__ void __launch_bounds__(NT) gmm_dx_mma_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
+    const int* __restrict__ e_tile, const int* __restrict__ tile_valid,
+    __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
+  constexpr int NJ = BN / 16;
+  constexpr int WSN = BN + 8;
+  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * MS];
+  __shared__ __align__(16) __nv_bfloat16 ws[2][MK * WSN];
+
+  const int t = blockIdx.x;
+  if (!tile_valid[t]) return;
+  const int e = e_tile[t];
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
+  const __nv_bfloat16* at = a + (size_t)t * BM * k_dim;
+  const __nv_bfloat16* wp = w + (size_t)e * k_dim * n_dim;
+
+  auto stage = [&](int buf, int k0) {
+    for (int i = tid; i < BM * (MK / 8); i += NT) {
+      const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
+      const bool full = k0 + kc < k_dim;
+      cp_async16(&xs[buf][r * MS + kc], full ? at + (size_t)r * k_dim + k0 + kc : at, full);
+    }
+    for (int i = tid; i < MK * (BN / 8); i += NT) {
+      const int kr = i / (BN / 8), nc = 8 * (i % (BN / 8));
+      const bool full = k0 + kr < k_dim && n0 + nc < n_dim;
+      cp_async16(&ws[buf][kr * WSN + nc], full ? wp + (size_t)(k0 + kr) * n_dim + n0 + nc : wp, full);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  const int n_slices = (k_dim + MK - 1) / MK;
+  stage(0, 0);
+  for (int s = 0; s < n_slices; ++s) {
+    const int buf = s % 2;
+    if (s + 1 < n_slices) {
+      stage(buf ^ 1, (s + 1) * MK);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < MK; kk += 16) {
+      const __nv_bfloat16* xa = &xs[buf][(wm + g) * MS + kk + 2 * q];
+      unsigned af[4];
+      af[0] = *reinterpret_cast<const unsigned*>(xa);
+      af[1] = *reinterpret_cast<const unsigned*>(xa + 8 * MS);
+      af[2] = *reinterpret_cast<const unsigned*>(xa + 8);
+      af[3] = *reinterpret_cast<const unsigned*>(xa + 8 * MS + 8);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned b0, b1;
+        ldsm_x2_trans(b0, b1, &ws[buf][(kk + lane % 16) * WSN + wn + 8 * j]);
+        mma_bf16(acc[j], af, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * q;
+    if (col >= n_dim) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = (size_t)t * BM + wm + g + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(out + row * n_dim + col) =
+          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// Kernel T. Block (blockIdx.x, blockIdx.y, blockIdx.z) = (C block, O block,
+// expert) of dW [E, O, C] f32, DB x DB outputs, summed over the expert's
+// tiles in order (see the header).
+constexpr int DB = 64;
+constexpr int DS = DB + 8;  // bf16 row stride of a staged [BM, DB] slice
+
+__global__ void __launch_bounds__(NT) gmm_dw_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+    const int* __restrict__ tile_lo, float* __restrict__ dw, int c_dim, int o_dim) {
+  __shared__ __align__(16) __nv_bfloat16 ys[2][BM * DS];  // dy rows [BM][DB]: A^T (k = row, m = o)
+  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * DS];  // x rows [BM][DB]: B (k = row, n = c)
+
+  const int c0 = blockIdx.x * DB, o0 = blockIdx.y * DB, e = blockIdx.z;
+  const int t0 = tile_lo[e], t1 = tile_lo[e + 1];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);  // warp: 32 o x 32 c
+
+  auto stage = [&](int buf, int t) {
+    const __nv_bfloat16* yt = dy + (size_t)t * BM * o_dim;
+    const __nv_bfloat16* xt = x + (size_t)t * BM * c_dim;
+    for (int i = tid; i < BM * (DB / 8); i += NT) {
+      const int r = i / (DB / 8), cc = 8 * (i % (DB / 8));
+      const bool fy = o0 + cc < o_dim, fx = c0 + cc < c_dim;
+      cp_async16(&ys[buf][r * DS + cc], fy ? yt + (size_t)r * o_dim + o0 + cc : yt, fy);
+      cp_async16(&xs[buf][r * DS + cc], fx ? xt + (size_t)r * c_dim + c0 + cc : xt, fx);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][j][c] = 0.f;
+
+  // A fragment of m16 tile mi at k step kk: matrix l / 8 of ldmatrix.x4 is
+  // (k + 0, m + 0), (k + 0, m + 8), (k + 8, m + 0), (k + 8, m + 8).
+  const int a_row = lane % 8 + 8 * (lane / 16), a_col = 8 * ((lane / 8) % 2);
+  if (t0 < t1) stage(0, t0);
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) % 2;
+    if (t + 1 < t1) {
+      stage(buf ^ 1, t + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BM; kk += 16) {
+      unsigned af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4_trans(af[mi], &ys[buf][(kk + a_row) * DS + wm + 16 * mi + a_col]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned b0, b1;
+        ldsm_x2_trans(b0, b1, &xs[buf][(kk + lane % 16) * DS + wn + 8 * j]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][j], af[mi], b0, b1);
+      }
+    }
+    __syncthreads();  // everyone is done with buf before it is refilled
+  }
+
+  // Accumulator c of (mi, j): o row g (c < 2) or g + 8, c column 2q + c % 2.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + wn + 8 * j + 2 * q;
+      if (col >= c_dim) continue;  // c_dim is even: col + 1 is in range too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = o0 + wm + 16 * mi + g + 8 * h;
+        if (o < o_dim)
+          *reinterpret_cast<float2*>(dw + ((size_t)e * o_dim + o) * c_dim + col) =
+              make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Kernel T in f32 on the CUDA cores: thread (ty, tx) of 16 x 8 holds o rows
+// 4 ty .. 4 ty + 3 and c columns 4 tx + 32 j + {0..3}, j < 2; per staged
+// row, one float4 of dy and two of x (a warp reads 4 distinct dy float4s,
+// broadcast, and 8 consecutive x float4s: no bank conflicts).
+__global__ void __launch_bounds__(NT) gmm_dw_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy, const int* __restrict__ tile_lo,
+    float* __restrict__ dw, int c_dim, int o_dim) {
+  constexpr int FS = DB + 4;  // 16-byte aligned rows
+  __shared__ __align__(16) float ys[BM * FS];
+  __shared__ __align__(16) float xs[BM * FS];
+
+  const int c0 = blockIdx.x * DB, o0 = blockIdx.y * DB, e = blockIdx.z;
+  const int t0 = tile_lo[e], t1 = tile_lo[e + 1];
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = tid; i < BM * (DB / 4); i += NT) {
+      const int r = i / (DB / 4), cc = 4 * (i % (DB / 4));
+      const size_t row = (size_t)t * BM + r;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(ys + r * FS + cc) =
+          o0 + cc < o_dim ? *reinterpret_cast<const float4*>(dy + row * o_dim + o0 + cc) : zero;
+      *reinterpret_cast<float4*>(xs + r * FS + cc) =
+          c0 + cc < c_dim ? *reinterpret_cast<const float4*>(x + row * c_dim + c0 + cc) : zero;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < BM; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(ys + r * FS + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(xs + r * FS + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(xs + r * FS + 4 * tx + 32);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int o = o0 + 4 * ty + i;
+    if (o >= o_dim) continue;
+    float* orow = dw + ((size_t)e * o_dim + o) * c_dim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 4 * tx + 32 * (j / 4) + j % 4;
+      if (col < c_dim) orow[col] = acc[i][j];
+    }
+  }
+}
+
 bool bad_shape(int n_tiles, int bm, int k_dim, int n_dim, int k_align) {
   return bm != BM || n_tiles <= 0 || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
 }
 
-template <int NW, int TN>
+template <int NW, int TN, bool WKN = false>
 int launch_f32(const void* x, const void* w0, const void* w1, const void* e_tile,
                const void* tile_valid, void* out, int n_tiles, int bm, int k_dim, int n_dim,
                void* stream) {
   if (bad_shape(n_tiles, bm, k_dim, n_dim, 4)) return (int)cudaErrorInvalidValue;
   constexpr int BN = NTX * TN;
   const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
-  gmm_kernel<NW, TN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  gmm_kernel<NW, TN, WKN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(w1),
       static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid), static_cast<float*>(out),
       k_dim, n_dim);
@@ -353,4 +640,48 @@ extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* e_tile
                              const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
                              void* stream) {
   return launch_bf16<1, 128>(act, wd, wd, e_tile, tile_valid, y, n_tiles, bm, i, h, stream);
+}
+
+// S: a [S, O], w [E, O, C] (contracted on O, its row dim) -> out [S, C].
+extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, const void* tile_valid,
+                          void* out, int n_tiles, int bm, int o, int c, void* stream) {
+  return launch_f32<1, 8, true>(a, w, w, e_tile, tile_valid, out, n_tiles, bm, o, c, stream);
+}
+
+extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* e_tile, const void* tile_valid,
+                           void* out, int n_tiles, int bm, int o, int c, void* stream) {
+  if (bad_shape(n_tiles, bm, o, c, 8) || c % 8) return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  constexpr int BN = 128;
+  const dim3 grid(n_tiles, (c + BN - 1) / BN);
+  gmm_dx_mma_kernel<BN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const B*>(a), static_cast<const B*>(w), static_cast<const int*>(e_tile),
+      static_cast<const int*>(tile_valid), static_cast<B*>(out), o, c);
+  return (int)cudaGetLastError();
+}
+
+// T: x [S, C], dy [S, O], tile_lo [E + 1] (expert e owns tiles
+// tile_lo[e] .. tile_lo[e + 1] - 1) -> dw [E, O, C] f32, every element
+// written.
+extern "C" int gmm_dw_f32(const void* x, const void* dy, const void* tile_lo, void* dw, int n_experts,
+                          int c, int o, void* stream) {
+  if (n_experts <= 0 || n_experts > 65535 || c <= 0 || o <= 0 || c % 4 || o % 4)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((c + DB - 1) / DB, (o + DB - 1) / DB, n_experts);
+  gmm_dw_f32_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const int*>(tile_lo),
+      static_cast<float*>(dw), c, o);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gmm_dw_bf16(const void* x, const void* dy, const void* tile_lo, void* dw, int n_experts,
+                           int c, int o, void* stream) {
+  if (n_experts <= 0 || n_experts > 65535 || c <= 0 || o <= 0 || c % 8 || o % 8)
+    return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const dim3 grid((c + DB - 1) / DB, (o + DB - 1) / DB, n_experts);
+  gmm_dw_mma_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const B*>(x), static_cast<const B*>(dy), static_cast<const int*>(tile_lo),
+      static_cast<float*>(dw), c, o);
+  return (int)cudaGetLastError();
 }

@@ -7,7 +7,13 @@ in f32; GEMMs in the model dtype. Weights keep HF's [out, in] layout; the
 routed experts of a layer are stacked [E, I, H] / [E, H, I].
 
 Prefill attention runs kernel A (`ops.flash_attention.mha`, causal) on f32
-q/k/v after RoPE, at every prompt length. Decode attends over the
+q/k/v after RoPE, at every prompt length. Training (`lm_forward(...,
+training=True)`) takes no cache and the plain causal `sdpa` instead, the
+JAX package's XLA prefill branch: kernel A is forward-only in both
+packages. Its MoE layers above 512 rows run the differentiable grouped
+GEMM (`ops.moe_gmm.MoeFfnGmm`: D and E forward, E, S and T backward), and
+`remat=True` recomputes each MoE layer in the backward
+(`torch.utils.checkpoint`, as `jax.checkpoint(moe_layer_body)`). Decode attends over the
 preallocated contiguous cache with the plain `sdpa`, as the JAX package's
 default "pool" strategy does: one token a row, or a chunk of S tokens
 (lookup decoding) at a shared or per-row position, each query masked to
@@ -45,10 +51,11 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import DeepseekV2Config
 from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
-from ..ops.attention import sdpa
+from ..ops.attention import causal_mask, sdpa
 from ..ops.attn_fused import attn_decode_fused, fused_attn_enabled
 from ..ops.flash_attention import mha
 from ..ops.linear_q4 import from_jax_q4, quantize_linear_q4
@@ -102,6 +109,38 @@ def params_from_source(
 def params_from_flat(flat, cfg: DeepseekV2Config, device="cpu", policy=None) -> Tuple[Params, LoadReport]:
     src = FlatSource(flat, torch.device(device), policy or DtypePolicy(default=None))
     return params_from_source(src, cfg), src.report
+
+
+def flat_from_params(
+    params: Params, cfg: DeepseekV2Config, prefix: str = "model.", lm_head_key: str = "lm_head.weight"
+) -> Dict[str, torch.Tensor]:
+    """Inverse of `params_from_source`: HF names and layout, each routed
+    expert's matrices unstacked, so the file loads in either package (the
+    JAX package's `flat_from_params` writes the same names)."""
+    flat: Dict[str, torch.Tensor] = {
+        prefix + "embed_tokens.weight": params["embed"],
+        prefix + "norm.weight": params["norm"],
+    }
+    if is_qlinear(params["lm_head"]) or any("wqkv" in l or "experts_q8" in l for l in params["layers"]):
+        raise ValueError("flat_from_params takes unquantized LM params")
+    if lm_head_key:
+        flat[lm_head_key] = params["lm_head"]
+    for i, layer in enumerate(params["layers"]):
+        lp = f"{prefix}layers.{i}."
+        flat[lp + "input_layernorm.weight"] = layer["ln1"]
+        flat[lp + "post_attention_layernorm.weight"] = layer["ln2"]
+        for name in ("q", "k", "v", "o"):
+            flat[f"{lp}self_attn.{name}_proj.weight"] = layer["w" + name]
+        if "mlp" in layer:
+            for n in ("gate", "up", "down"):
+                flat[f"{lp}mlp.{n}_proj.weight"] = layer["mlp"][n]
+            continue
+        flat[lp + "mlp.gate.weight"] = layer["router"]
+        for n in ("gate", "up", "down"):
+            for e in range(cfg.n_routed_experts):
+                flat[f"{lp}mlp.experts.{e}.{n}_proj.weight"] = layer["experts"][n][e]
+            flat[f"{lp}mlp.shared_experts.{n}_proj.weight"] = layer["shared"][n]
+    return flat
 
 
 def params_from_jax(tree: Params, cfg: DeepseekV2Config, device="cpu") -> Params:
@@ -288,6 +327,27 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_pr
     return qmm(ctx, layer["wo"], decode=not is_prefill).reshape(b, s, h)
 
 
+def _train_attention(x, layer, cfg: DeepseekV2Config, rope):
+    """Training attention over the whole sequence, differentiable: RoPE and
+    the plain causal `sdpa` in f32 (the JAX package's XLA prefill branch),
+    no cache."""
+    b, s, h = x.shape
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, False))
+    q32, k32 = apply_rope(q, k, rope[0], rope[1], start=0)
+    mask = causal_mask(s, s, device=x.device)[None, None]
+    ctx = sdpa(q32, k32, v.float(), scale=1.0 / math.sqrt(d), mask=mask, out_dtype=torch.float32)
+    ctx = ctx.transpose(1, 2).reshape(b * s, h).to(x.dtype)
+    return F.linear(ctx, layer["wo"]).reshape(b, s, h)
+
+
+def _train_layer(x, layer, cfg: DeepseekV2Config, rope):
+    b, s, h = x.shape
+    x = x + _train_attention(rms_norm(x, layer["ln1"], cfg.rms_norm_eps), layer, cfg, rope)
+    xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+    return x + ffn(xn.reshape(b * s, h), layer, cfg, decode=False).reshape(b, s, h)
+
+
 def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, pos_b):
     """Kernel K (O for int4) for one decode step of a layer with quantized
     attention weights; the new token's K/V go into the cache at `pos`."""
@@ -339,12 +399,19 @@ def lm_forward(
     params: Params,
     cfg: DeepseekV2Config,
     embeds: torch.Tensor,  # [B, S, H]
-    cache: Dict[str, torch.Tensor],  # k/v [L, B, Hh, cap, D], updated in place
+    cache: Dict[str, torch.Tensor],  # k/v [L, B, Hh, cap, D], updated in place; None in training
     pos=0,
     is_prefill: bool = True,
     rope=None,
+    training: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run the decoder stack; returns the final-normed hidden [B, S, H].
+
+    `training`: a differentiable pass over the whole sequence (no cache;
+    plain causal attention, see the module docstring); `remat` recomputes
+    each MoE layer in the backward, trading one more forward of those
+    layers for their activations' memory.
 
     Prefill (S tokens at pos 0) or decode: S >= 1 tokens at the int `pos`,
     or at per-row positions `pos` [B] (a tensor; lookup decoding's ragged
@@ -353,6 +420,16 @@ def lm_forward(
     weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0; a chunk takes
     the linears and the plain attention, as in the JAX package."""
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
+    if training:
+        if is_qlinear(params["lm_head"]) or any("experts_q8" in l or "wqkv" in l for l in params["layers"]):
+            raise ValueError("training takes unquantized LM params")
+        x = embeds
+        for layer in params["layers"]:
+            if remat and "experts" in layer:
+                x = checkpoint(_train_layer, x, layer, cfg, rope, use_reentrant=False)
+            else:
+                x = _train_layer(x, layer, cfg, rope)
+        return rms_norm(x, params["norm"], cfg.rms_norm_eps)
     b, s, h = embeds.shape
     fused = not is_prefill and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled()
     pos_b = None

@@ -9,6 +9,9 @@ at import: the CPU tests import every module.
 
 Bound functions take every pointer and the stream as `ctypes.c_void_p` and
 return `cudaGetLastError()` after the launch; `check` raises on non-zero.
+Every wrapper checks its inputs with `require_cuda`, which also refuses an
+input that requires grad while grad mode is on (`refuse_autograd`): a
+kernel's output has no autograd history.
 """
 
 from __future__ import annotations
@@ -87,9 +90,27 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def refuse_autograd(*tensors: torch.Tensor) -> None:
+    """A kernel writes into a buffer it was handed, so autograd would see
+    its output as a fresh tensor with no history and cut the gradient off
+    from everything upstream. While grad mode is on, an input that requires
+    grad is refused: train through the kernel's autograd Function (the
+    grouped-GEMM MoE's `MoeFfnGmm`, whose forward and backward run with
+    grad mode off) or the plain path (`lm_forward(..., training=True)`),
+    or call it under `torch.no_grad()`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a hand-written CUDA kernel was given a tensor that requires grad with grad mode on; "
+            "its output would carry no gradient. Run it under torch.no_grad(), or train through "
+            "its autograd Function or the plain path (lm_forward(..., training=True))"
+        )
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """A wrapper takes its plain twin only for CPU tensors; anything else
-    must be a contiguous tensor on one CUDA device."""
+    must be a contiguous tensor on one CUDA device, and none may require
+    grad while grad mode is on (`refuse_autograd`)."""
+    refuse_autograd(*tensors)
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:

@@ -87,6 +87,7 @@ def device_schedule(idx: torch.Tensor, weights: torch.Tensor, e: int, b: int):
         raise ValueError(f"routing idx {tuple(idx.shape)} / weights {tuple(weights.shape)}, {b} rows, E {e}")
     if idx.device.type != "cuda" or weights.device != idx.device:
         raise ValueError(f"the schedule's inputs must share one CUDA device, got {idx.device} / {weights.device}")
+    cuda_build.refuse_autograd(weights)
     ve = torch.empty(e, dtype=torch.int32, device=idx.device)
     valid = torch.empty_like(ve)
     w_visit = torch.empty(e, b, dtype=torch.float32, device=idx.device)

@@ -1,16 +1,25 @@
-"""Expert-aligned grouped-GEMM MoE prefill, kernels D and E: CUDA wrappers,
-the device-side layout around them, and the plain twins.
+"""Expert-aligned grouped-GEMM MoE: the prefill kernels D and E, the
+backward kernels S and T, the device-side layout around them, the plain
+twins, and the differentiable `moe_ffn_gmm`.
 
-Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm`, forward only):
+Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
 - `aligned_layout` ports `_aligned_layout`: each expert's sorted group is
   padded to a multiple of `GMM_BM` rows, so every row tile holds one expert;
 - D, `moe_gmm_swiglu` (replaces `_gmm_swiglu_kernel_al`), and E,
   `moe_gmm_down` (replaces `_gmm_down_kernel_al`); run in turn they give the
   bits of the fused `_gmm_ffn_kernel_al` the JAX package runs by default.
-  The CUDA source is `csrc/moe_gmm.cu` (its header gives the design and
-  what bounds it);
+  The backward's recompute (`_gmm_down_kernel` there) is E three times;
+- S, `moe_gmm_dx` (replaces `_gmm_dx_kernel`): per tile a @ W_e, the
+  weight contracted on its row dim; T, `moe_gmm_dw` (replaces
+  `_gmm_dw_kernel`): per expert the sum of dy_t^T x_t over its tiles, in
+  f32. The CUDA source is `csrc/moe_gmm.cu` (its header gives the design
+  and what bounds each kernel);
+- `MoeFfnGmm`, the autograd Function: forward D then E, backward
+  `_moe_ffn_gmm_bwd`'s rounding points on the aligned layout (E x 3, S x 3,
+  T x 3). The kernels are forward-only outside it (`cuda_build.require_cuda`
+  refuses an input that requires grad while grad mode is on);
 - `moe_ffn_gmm_reference` is the grouped plain twin (the counterpart of
-  `moe_ffn_ragged`): what the CPU runs above the dense cut-over, and the
+  `moe_ffn_ragged`): the CPU's forward above the dense cut-over, and the
   oracle of the kernels on the card.
 
 Weights keep HF's [out, in] layout, stacked over experts: gate/up [E, I, H],
@@ -109,21 +118,24 @@ def gmm_down_reference(act, w_down, e_tile, tile_valid) -> torch.Tensor:
     return torch.where(tile_valid.bool()[:, None, None], y, 0).reshape(act.shape[0], -1)
 
 
-def _check(x, ws, e_tile, tile_valid, k_dim: int) -> None:
+def _align(dt) -> int:
+    return 4 if dt == torch.float32 else 8  # elements in a 16-byte load
+
+
+def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4) -> None:
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernels D and E take f32 or bf16, got {dt}")
+        raise ValueError(f"kernels D, E and S take f32 or bf16, got {dt}")
     if any(w.dtype != dt for w in ws):
         raise ValueError("weights must have the activations' dtype")
     if e_tile.dtype != torch.int32 or tile_valid.dtype != torch.int32:
         raise ValueError("e_tile and tile_valid must be int32")
-    k_align = 4 if dt == torch.float32 else 8  # 16-byte loads along K
-    if x.shape[1] != k_dim or k_dim % k_align or ws[0].shape[1] % 4:
-        raise ValueError(f"K = {x.shape[1]} must match the weights and be a multiple of {k_align}, "
-                         f"N = {ws[0].shape[1]} a multiple of 4")
+    if x.shape[1] != k_dim or k_dim % _align(dt) or n_dim % n_align:
+        raise ValueError(f"K = {x.shape[1]} must match the weights and be a multiple of {_align(dt)}, "
+                         f"N = {n_dim} a multiple of {n_align}")
     cuda_build.require_cuda(x, *ws, e_tile, tile_valid)
     if any(t.data_ptr() % 16 for t in (x, *ws)):
-        raise ValueError("kernels D and E read 16-byte aligned rows")
+        raise ValueError("kernels D, E and S read 16-byte aligned rows")
 
 
 def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid) -> torch.Tensor:
@@ -135,7 +147,7 @@ def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid) -> torch.Tensor:
     e, i, h = w_gate.shape
     if w_up.shape != (e, i, h):
         raise ValueError(f"gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} differ")
-    _check(x_al, (w_gate, w_up), e_tile, tile_valid, h)
+    _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i)
     lib = cuda_build.load("moe_gmm")
     fn = lib.gmm_swiglu_f32 if x_al.dtype == torch.float32 else lib.gmm_swiglu_bf16
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -158,7 +170,7 @@ def moe_gmm_down(act, w_down, e_tile, tile_valid) -> torch.Tensor:
         return gmm_down_reference(act, w_down, e_tile, tile_valid)
     n_tiles, bm = _tiles(act, e_tile)
     e, h, i = w_down.shape
-    _check(act, (w_down,), e_tile, tile_valid, i)
+    _check(act, (w_down,), e_tile, tile_valid, i, h)
     lib = cuda_build.load("moe_gmm")
     fn = lib.gmm_down_f32 if act.dtype == torch.float32 else lib.gmm_down_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -173,6 +185,94 @@ def moe_gmm_down(act, w_down, e_tile, tile_valid) -> torch.Tensor:
 
 
 moe_gmm_down.launches = 0
+
+
+def gmm_dx_reference(a, w, e_tile, tile_valid) -> torch.Tensor:
+    """Plain twin of S: each tile times its expert's [O, C] weight, rounded
+    to a's dtype. Rows of invalid tiles are zero."""
+    n_tiles, bm = _tiles(a, e_tile)
+    out = torch.bmm(a.reshape(n_tiles, bm, -1), w[e_tile.long()])
+    return torch.where(tile_valid.bool()[:, None, None], out, 0).reshape(a.shape[0], -1)
+
+
+def expert_tile_ranges(e_tile: torch.Tensor, tile_valid: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[E + 1] int32: expert e owns tiles tile_lo[e] .. tile_lo[e + 1] - 1
+    (valid tiles are sorted by expert; the invalid tail is keyed past E).
+    On the device, no host sync."""
+    key = torch.where(tile_valid.bool(), e_tile, n_experts).contiguous()
+    bounds = torch.arange(n_experts + 1, dtype=key.dtype, device=key.device)
+    return torch.searchsorted(key, bounds, out_int32=True)
+
+
+def gmm_dw_reference(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
+    """Plain twin of T: per tile dy_t^T x_t in f32 (the products of the
+    working dtype's values are exact in f32), summed into the tile's
+    expert. [E, O, C] f32; an expert with no tiles gets zeros."""
+    n_tiles, bm = _tiles(x, e_tile)
+    prod = torch.bmm(dy.float().reshape(n_tiles, bm, -1).transpose(1, 2), x.float().reshape(n_tiles, bm, -1))
+    key = torch.where(tile_valid.bool(), e_tile, n_experts).long()
+    out = torch.zeros(n_experts + 1, *prod.shape[1:], dtype=torch.float32, device=x.device)
+    return out.index_add_(0, key, prod)[:n_experts]
+
+
+def moe_gmm_dx(a, w, e_tile, tile_valid) -> torch.Tensor:
+    """Kernel S: a [S, O] (row tiles of one expert each), w [E, O, C] ->
+    a_t @ w[e_t], [S, C] in a.dtype (f32 sums). The weight is read as it
+    lies, contracted on its row dim: dact = dy Wd, dx = dgate Wg + dup Wu
+    with the port's HF-layout weights."""
+    if a.device.type == "cpu":
+        return gmm_dx_reference(a, w, e_tile, tile_valid)
+    n_tiles, bm = _tiles(a, e_tile)
+    e, o, c = w.shape
+    _check(a, (w,), e_tile, tile_valid, o, c, _align(a.dtype))
+    lib = cuda_build.load("moe_gmm")
+    fn = lib.gmm_dx_f32 if a.dtype == torch.float32 else lib.gmm_dx_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)
+    p = cuda_build.ptr
+    err = fn(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c, cuda_build.stream_of(a))
+    cuda_build.check(err, "moe_gmm dx")
+    moe_gmm_dx.launches += 1
+    return out
+
+
+moe_gmm_dx.launches = 0
+
+
+def moe_gmm_dw(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
+    """Kernel T: x [S, C], dy [S, O] on the same row tiles -> dW [E, O, C]
+    f32, dW[e] = sum over e's tiles of dy_t^T x_t, in tile order (no
+    atomics); an expert with no rows gets zeros."""
+    if x.device.type == "cpu":
+        return gmm_dw_reference(x, dy, e_tile, tile_valid, n_experts)
+    _tiles(x, e_tile)
+    c, o = x.shape[1], dy.shape[1]
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16) or dy.dtype != dt:
+        raise ValueError(f"kernel T takes x and dy of one dtype, f32 or bf16; got {dt}, {dy.dtype}")
+    if dy.shape[0] != x.shape[0] or c % _align(dt) or o % _align(dt):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)}: rows must match, C and O be "
+                         f"multiples of {_align(dt)}")
+    if not 0 < n_experts <= 65535:
+        raise ValueError(f"kernel T takes 1..65535 experts, got {n_experts}")
+    cuda_build.require_cuda(x, dy, e_tile, tile_valid)
+    if any(t.data_ptr() % 16 for t in (x, dy)):
+        raise ValueError("kernel T reads 16-byte aligned rows")
+    tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
+    lib = cuda_build.load("moe_gmm")
+    fn = lib.gmm_dw_f32 if dt == torch.float32 else lib.gmm_dw_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dw = torch.empty(n_experts, o, c, dtype=torch.float32, device=x.device)
+    p = cuda_build.ptr
+    err = fn(p(x), p(dy), p(tile_lo), p(dw), n_experts, c, o, cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_gmm dw")
+    moe_gmm_dw.launches += 1
+    return dw
+
+
+moe_gmm_dw.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -193,33 +293,42 @@ def _sort(idx: torch.Tensor):
     return flat, order, inv
 
 
-def align_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
-    """Sort the [N, k] assignments by expert and lay their rows out in
-    expert-aligned slots. Returns (x_al [S, H] with zero pad rows, e_tile
-    [T] int32, tile_valid [T] int32, rows [N * k] int64: the slot of each
-    assignment in token-major order)."""
+def aligned_assignments(idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
+    """Sort the [N, k] assignments by expert and lay them out in
+    expert-aligned slots. Returns (assign [S] int64: the token-major
+    assignment j each slot holds (token j // k, selection j % k), 0 in pad
+    slots; slot_valid [S] bool; e_tile [T] int32; tile_valid [T] int32;
+    rows [N * k] int64: the slot of each assignment in token-major order)."""
     m = idx.numel()
-    k = idx.shape[1]
     m_pad = -(-m // bm) * bm
     flat, order, inv = _sort(idx)
-    group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=x_flat.device)
+    group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=idx.device)
     group_sizes.scatter_add_(0, flat.long(), torch.ones_like(flat))
     src_slot, slot_valid, slot_of_sorted, e_tile, tile_valid = aligned_layout(group_sizes, m_pad, bm)
-    # The sort's gather and the aligned scatter compose into one row gather.
-    token_of = torch.zeros(m_pad, dtype=torch.long, device=x_flat.device)
-    token_of[:m] = order // k
-    token_of_slot = token_of.index_select(0, src_slot.long().clamp(0, m_pad - 1))
-    x_al = torch.where(slot_valid[:, None], x_flat.index_select(0, token_of_slot), 0)
-    # Assignment j (token j // k, selection j % k) sits at slot slot_of_sorted[inv[j]].
+    # The sort's gather and the aligned scatter compose into one gather.
+    sorted_assign = torch.zeros(m_pad, dtype=torch.long, device=idx.device)
+    sorted_assign[:m] = order
+    assign = sorted_assign.index_select(0, src_slot.long().clamp(0, m_pad - 1))
+    # Assignment j sits at slot slot_of_sorted[inv[j]].
     rows = slot_of_sorted.long().index_select(0, inv)
-    return x_al, e_tile, tile_valid, rows
+    return assign, slot_valid, e_tile, tile_valid, rows
 
 
-def moe_ffn_gmm_aligned(x_flat, experts: Dict[str, torch.Tensor], weights, idx) -> torch.Tensor:
-    """The aligned path of `_moe_ffn_gmm_impl`: `align_rows`, kernel D, then
-    kernel E, unsort, f32 combine. On CPU tensors D and E run their plain
-    twins (the tests use that)."""
-    x_al, e_tile, tile_valid, rows = align_rows(x_flat, idx, experts["gate"].shape[0])
+def _gather_rows(x_flat, assign, slot_valid, k: int) -> torch.Tensor:
+    return torch.where(slot_valid[:, None], x_flat.index_select(0, assign // k), 0)
+
+
+def align_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
+    """`aligned_assignments` and the rows of x in their slots. Returns
+    (x_al [S, H] with zero pad rows, e_tile [T] int32, tile_valid [T]
+    int32, rows [N * k] int64)."""
+    assign, slot_valid, e_tile, tile_valid, rows = aligned_assignments(idx, n_experts, bm)
+    return _gather_rows(x_flat, assign, slot_valid, idx.shape[1]), e_tile, tile_valid, rows
+
+
+def _forward_aligned(x_flat, experts, weights, layout, k: int) -> torch.Tensor:
+    assign, slot_valid, e_tile, tile_valid, rows = layout
+    x_al = _gather_rows(x_flat, assign, slot_valid, k)
     act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
     y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid)
     return _combine(y_al.index_select(0, rows), weights, x_flat.dtype)
@@ -246,9 +355,73 @@ def moe_ffn_gmm_reference(x_flat, experts: Dict[str, torch.Tensor], weights, idx
     return _combine(y_sorted[inv], weights, x_flat.dtype)
 
 
+class MoeFfnGmm(torch.autograd.Function):
+    """The grouped-GEMM MoE FFN with `_moe_ffn_gmm_bwd`'s backward, on the
+    aligned layout the forward uses. Saves x, the weights, the routing and
+    the layout (integers), no activations: the backward recomputes gate, up
+    and y with E, then
+    - d_weights = sum_h y * g_rows in f32; dy = round(g_rows * w);
+    - dact = S(dy, Wd); the SwiGLU backward in f32; dgate, dup rounded;
+    - dx_slots = S(dgate, Wg) + S(dup, Wu) in the working dtype, and each
+      token's k slots summed in f32 in selection order (a gather through
+      `rows`, no scatter-add);
+    - dWg = T(x, dgate), dWu = T(x, dup), dWd = T(act, dy), cast to the
+      weights' dtype. idx gets no gradient.
+    On CPU tensors every kernel is its twin and the forward is the grouped
+    twin `moe_ffn_gmm_reference` (the CPU's forward before the Function
+    existed); the layout is built there only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, x_flat, w_gate, w_up, w_down, weights, idx):
+        experts = {"gate": w_gate, "up": w_up, "down": w_down}
+        cpu, needs_grad = x_flat.device.type == "cpu", any(ctx.needs_input_grad)
+        layout = aligned_assignments(idx, w_gate.shape[0]) if needs_grad or not cpu else ()
+        if needs_grad:
+            ctx.save_for_backward(x_flat, w_gate, w_up, w_down, weights, *layout)
+        if cpu:
+            return moe_ffn_gmm_reference(x_flat, experts, weights, idx)
+        return _forward_aligned(x_flat, experts, weights, layout, idx.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x_flat, wg, wu, wd, weights, assign, slot_valid, e_tile, tile_valid, rows = ctx.saved_tensors
+        n, k = weights.shape
+        e = wg.shape[0]
+        dt = x_flat.dtype
+        valid = slot_valid[:, None]
+        x_al = _gather_rows(x_flat, assign, slot_valid, k)
+        # Recompute the pre-activations (kernel E: x W^T for gate and up too).
+        gate = moe_gmm_down(x_al, wg, e_tile, tile_valid)
+        up = moe_gmm_down(x_al, wu, e_tile, tile_valid)
+        gate_f = gate.float()
+        sig = torch.sigmoid(gate_f)
+        silu_g = gate_f * sig
+        act = silu_g.to(dt) * up
+        # Combine backward: out[n] = sum_j w[n, j] y[n, j] in f32.
+        g_slot = torch.where(valid, g.float().contiguous().index_select(0, assign // k), 0)
+        w_slot = weights.reshape(-1).float().index_select(0, assign)
+        dy_al = (g_slot * w_slot[:, None]).to(dt)
+        y_al = moe_gmm_down(act, wd, e_tile, tile_valid)
+        dwt = (y_al.float() * g_slot).sum(1)
+        d_weights = dwt.index_select(0, rows).reshape(n, k).to(weights.dtype)
+        del y_al, g_slot
+        # SwiGLU backward in f32: silu'(x) = sig(x) (1 + x (1 - sig(x))).
+        dact = moe_gmm_dx(dy_al, wd, e_tile, tile_valid).float()
+        dup = (dact * silu_g).to(dt)
+        dgate = (dact * up.float() * (sig * (1.0 + gate_f * (1.0 - sig)))).to(dt)
+        del dact, sig, silu_g, gate, gate_f, up
+        dx_al = moe_gmm_dx(dgate, wg, e_tile, tile_valid) + moe_gmm_dx(dup, wu, e_tile, tile_valid)
+        dx = dx_al.index_select(0, rows).reshape(n, k, -1).float().sum(1).to(dt)
+        del dx_al
+        dwg = moe_gmm_dw(x_al, dgate, e_tile, tile_valid, e).to(wg.dtype)
+        dwu = moe_gmm_dw(x_al, dup, e_tile, tile_valid, e).to(wu.dtype)
+        dwd = moe_gmm_dw(act, dy_al, e_tile, tile_valid, e).to(wd.dtype)
+        return dx, dwg, dwu, dwd, d_weights, None
+
+
 def moe_ffn_gmm(x_flat, experts: Dict[str, torch.Tensor], weights, idx) -> torch.Tensor:
-    """Exact grouped-GEMM MoE FFN at prefill scale. Returns [N, H] in x's
-    dtype: kernels D and E on CUDA tensors, the grouped twin on the CPU."""
-    if x_flat.device.type == "cpu":
-        return moe_ffn_gmm_reference(x_flat, experts, weights, idx)
-    return moe_ffn_gmm_aligned(x_flat, experts, weights, idx)
+    """Exact grouped-GEMM MoE FFN at prefill scale, differentiable in x, the
+    experts and the routing weights. Returns [N, H] in x's dtype: kernels D
+    and E on CUDA tensors (S, T and E in the backward), the grouped twin on
+    the CPU (the twins in the backward)."""
+    return MoeFfnGmm.apply(x_flat, experts["gate"], experts["up"], experts["down"], weights, idx)

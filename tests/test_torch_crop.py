@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 from deepseek_ocr2_tpu.configs import tiny_lm_config, tiny_ocr2_config
 from deepseek_ocr2_tpu.models import deepseek_ocr2 as jocr2
@@ -87,7 +88,7 @@ def test_gmm_twin_and_aligned_path_match_jax_gmm_and_ragged(dtype):
         want_ragged = np.asarray(jmoe.moe_ffn_ragged(jx, jex, w, idx).astype(jnp.float32))
     tol = F32 if dtype == "float32" else BF16
     twin = tgmm.moe_ffn_gmm_reference(tx, tex, tw, tidx)
-    aligned = tgmm.moe_ffn_gmm_aligned(tx, tex, tw, tidx)
+    aligned = tgmm._forward_aligned(tx, tex, tw, tgmm.aligned_assignments(tidx, tex["gate"].shape[0]), tidx.shape[1])
     assert twin.dtype == aligned.dtype == getattr(torch, dtype) and twin.shape == (600, 64)
     for got in (twin, aligned, tgmm.moe_ffn_gmm(tx, tex, tw, tidx)):
         np.testing.assert_allclose(got.float().numpy(), want_gmm, **tol)

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 from deepseek_ocr2_tpu_torch.configs import tiny_ocr2_config
 from deepseek_ocr2_tpu.io import DtypePolicy as JaxPolicy
@@ -266,6 +267,12 @@ ids = torch.tensor([[0, 5, 9], [0, 7, 3]])
 toks, n_gen = greedy_generate(params["lm"], cfg.lm, params["lm"]["embed"][ids], ids, max_new_tokens=4, capacity=64,
                               kv_dtype=torch.float32, temperature=0.7, top_p=0.9, seed=2)
 assert bool((n_gen >= 1).all())
+from deepseek_ocr2_tpu_torch.runtime.train import adamw_train_step, make_optimizer
+tx = make_optimizer(lr=1e-3)
+state = tx.init(params["lm"])
+ids = torch.randint(0, cfg.lm.vocab_size, (3, 200), generator=g)  # 600 rows: the grouped-GEMM Function
+losses = [float(adamw_train_step(params["lm"], state, cfg.lm, ids, tx)) for _ in range(2)]
+assert all(torch.isfinite(torch.tensor(losses))) and state["count"] == 2
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "deepseek_ocr2_tpu" or m.startswith("deepseek_ocr2_tpu."))
 print("JAX_MODULES", bad)
@@ -276,6 +283,7 @@ sys.exit(1 if bad else 0)
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"  # as `one_torch_thread` for the in-process tests
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

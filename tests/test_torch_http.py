@@ -21,6 +21,7 @@ from deepseek_ocr2_tpu_torch.runtime.http_server import OCRHttpServer
 from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
 import reference_torch_vision as refv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 
 def _tiny_tokenizer():

@@ -1,7 +1,9 @@
-"""Kernels A-R of the PyTorch port: plain twins against the JAX Pallas
+"""Kernels A-T of the PyTorch port: plain twins against the JAX Pallas
 kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
-against their twins where a card is present. (D and E's CPU parity with the
-JAX package is in tests/test_torch_crop.py, F's in test_torch_moe_decode.py,
+against their twins where a card is present, and the autograd guard every
+wrapper applies. (D and E's CPU parity with the
+JAX package is in tests/test_torch_crop.py, S's and T's and the
+differentiable MoE's in test_torch_train_gmm.py, F's in test_torch_moe_decode.py,
 G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
 test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
 test_torch_lookup.py.)
@@ -25,6 +27,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
@@ -160,6 +163,35 @@ def test_wrappers_refuse_non_cuda_devices():
             1, scale=1.0)
 
 
+def test_autograd_guard_refuses_grad_inputs_outside_a_function():
+    """A kernel's output has no autograd history: `refuse_autograd` (run by
+    every wrapper's `require_cuda`) raises for an input that requires grad
+    while grad mode is on, and lets it through under no_grad or when no
+    input requires grad."""
+    from deepseek_ocr2_tpu_torch.ops import cuda_build
+
+    w = torch.zeros(3, 4, requires_grad=True)
+    x = torch.zeros(2, 3)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_build.refuse_autograd(x, w)
+    cuda_build.refuse_autograd(x, w.detach())
+    with torch.no_grad():
+        cuda_build.refuse_autograd(x, w)
+    # The wrappers check before they look at the device: a meta tensor that
+    # requires grad is refused as such, not as a non-CUDA device.
+    tiles = torch.zeros(2, dtype=torch.int32, device="meta")
+    wd = torch.zeros(3, 16, 8, device="meta", requires_grad=True)
+    for call in (lambda: moe_gmm.moe_gmm_down(torch.zeros(64, 8, device="meta"), wd, tiles, tiles),
+                 lambda: moe_gmm.moe_gmm_dx(torch.zeros(64, 16, device="meta"), wd, tiles, tiles),
+                 lambda: moe_gmm.moe_gmm_dw(torch.zeros(64, 8, device="meta", requires_grad=True),
+                                            torch.zeros(64, 16, device="meta"), tiles, tiles, 3),
+                 lambda: mha(*(torch.zeros(1, 1, 4, 16, device="meta", requires_grad=True),) * 3, scale=1.0)):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError):
+            call()
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their twins (skip without a card)
 
@@ -267,6 +299,79 @@ def test_cuda_gmm_makes_no_host_sync(cuda):
     torch.cuda.set_sync_debug_mode("error")
     try:
         moe_gmm.moe_ffn_gmm(x, experts, weights, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _f32_tol(ref):
+    return 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,e,h,i,k,routing", [
+    (2048, 64, 1280, 896, 6, "router"),  # a training batch's MoE layer at full LM width
+    (77, 8, 200, 96, 2, "router"),  # ragged C and O edges
+    (200, 64, 256, 128, 2, "few"),  # most experts empty: T writes their zeros
+])
+def test_cuda_gmm_backward_kernels_match_twins(cuda, dtype, n, e, h, i, k, routing):
+    """S (dact = dy Wd, dx = dgate Wg), T (dW of gate and down) and E at
+    the gate/up shape (K = H, N = I), each against its twin on the same
+    aligned rows. T's sums are f32 over exact products: the f32 bound for
+    both dtypes."""
+    x, experts, weights, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
+    x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(x_al.shape[0], h, generator=g, device=cuda).to(dtype)
+    dgate = torch.randn(x_al.shape[0], i, generator=g, device=cuda).to(dtype)
+    before = (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches)
+    cases = [
+        (moe_gmm.moe_gmm_dx, moe_gmm.gmm_dx_reference, (dy, experts["down"], e_tile, tile_valid), _tol),
+        (moe_gmm.moe_gmm_dx, moe_gmm.gmm_dx_reference, (dgate, experts["gate"], e_tile, tile_valid), _tol),
+        (moe_gmm.moe_gmm_down, moe_gmm.gmm_down_reference, (x_al, experts["gate"], e_tile, tile_valid), _tol),
+        (moe_gmm.moe_gmm_dw, moe_gmm.gmm_dw_reference, (x_al, dgate, e_tile, tile_valid, e), None),
+        (moe_gmm.moe_gmm_dw, moe_gmm.gmm_dw_reference, (dgate, dy, e_tile, tile_valid, e), None),
+    ]
+    for kernel, twin, args, tol in cases:
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        ref = twin(*args)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        bound = _tol(ref.float(), dtype) if tol else _f32_tol(ref)
+        assert float((got.float() - ref.float()).abs().max()) <= bound, kernel.__name__
+    assert (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gmm_function_backward_matches_autograd_of_the_twin(cuda, dtype):
+    """`moe_ffn_gmm`'s gradients on the card (E, S, T) against plain
+    autograd through the grouped twin, computed in f32 from the same
+    inputs: f32 within 1e-4 of each leaf's largest entry; bf16 within
+    2e-2, the Function's bf16 rounding points against f32 autograd. Then a
+    forward and backward under sync-debug "error"."""
+    x, experts, weights, idx = _moe_case(cuda, dtype, 550, 64, 1280, 896, 6, "router")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cot = torch.randn(550, 1280, generator=g, device=cuda)
+
+    def grads(fn, up):
+        leaves = [t.detach().to(up).requires_grad_() for t in (x, experts["gate"], experts["up"], experts["down"])]
+        w = weights.detach().clone().requires_grad_()
+        out = fn(leaves[0], dict(zip(("gate", "up", "down"), leaves[1:])), w, idx)
+        return torch.autograd.grad((out.float() * cot).sum(), [*leaves, w])
+
+    counts = (moe_gmm.moe_gmm_down.launches, moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches)
+    got = grads(moe_gmm.moe_ffn_gmm, dtype)
+    torch.cuda.synchronize()
+    assert (moe_gmm.moe_gmm_down.launches, moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches) == (
+        counts[0] + 4, counts[1] + 3, counts[2] + 3)
+    want = grads(moe_gmm.moe_ffn_gmm_reference, torch.float32)
+    for a, b in zip(got, want):
+        scale = max(1e-6, float(b.abs().max()))
+        assert float((a.float() - b).abs().max()) <= (1e-4 if dtype == torch.float32 else 2e-2) * scale
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads(moe_gmm.moe_ffn_gmm, dtype)
     finally:
         torch.cuda.set_sync_debug_mode(0)
 

@@ -35,6 +35,7 @@ from deepseek_ocr2_tpu_torch.runtime.http_server import OCRHttpServer
 from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
 import reference_torch_vision as refv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 # Two slots of 80 tokens, 16-token pages and a 128-token pool over four
 # no-crop pages (20-token prompts, 48 new tokens; admission reserves 32

@@ -12,6 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 from deepseek_ocr2_tpu.ops import moe as jmoe
 from deepseek_ocr2_tpu.ops.moe_decode import _combine_table, _distinct_schedule

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 from deepseek_ocr2_tpu.configs import DeepseekV2Config, tiny_lm_config
 from deepseek_ocr2_tpu.models import deepseek_v2 as jdsv2

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 import torch.nn.functional as F
 from PIL import Image
 

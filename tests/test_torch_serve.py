@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 from PIL import Image
 
 from deepseek_ocr2_tpu_torch.configs import tiny_ocr2_config

@@ -11,6 +11,7 @@ import signal
 from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
 
 from test_torch_serve import _pages, _singles, _tight_pool, setup  # noqa: F401 (setup is a fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
 
 def test_continuous_page_growth_preemption(setup):
