@@ -22,6 +22,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
    cut-over, its int8 layer as I and as J, its int4 layer as M and as N;
+   and the kernels off the default paths: U (stacked-cache decode
+   attention, one and 16 rows), X (G's device code on a per-sequence
+   pool), V (SAM's windowed attention, the bias built in the kernel, at
+   win 14 and the 16 / 14 padded form) and W (the boundary-visit grouped
+   GEMM, both modes, its ffn mode also against D then E), each with its
+   time in a CUDA graph;
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
@@ -40,12 +46,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    `generate_ocr` on phase 3's bf16 LM: tokens, forwards and decode tok/s,
    held to no decode kernel at all (the chunk's attention is plain on the
    contiguous cache, its MoE the per-selection path at 4 rows x 6 <= 64);
+4e. (run after 6b) the JAX package's switches DEEPSEEK_DECODE_ATTN=stacked
+   and DEEPSEEK_SAM_WIN_KERNEL=1, set for the phase only: a no-crop and
+   the (2, 1) page (U 12 a decode step, V 8 and B 4 a SAM batch), the
+   group engine on 6b's 16 pages, one --int8 page (K never), tokens
+   against the default paths under phase 7's margin rule;
 5. card vs CPU: full widths at reduced depth, f32, the same numpy-seeded
    weights, a no-crop page and a (2, 1) crop page (over 512 prompt tokens:
    D and E on the card, the grouped twin on the CPU); step-0 logits within
    tolerance, greedy tokens compared; then the same with `--int8` (5b: the
    card's and the CPU's int8 codes equal, K, I and H on the card) and with
-   `--int4` (5c: levels and scales equal, O, M and L on the card);
+   `--int4` (5c: levels and scales equal, O, M and L on the card); 5d:
+   both switches, step-0 logits and tokens, U and V on the card;
 6. serving at full width, on phase 3's model: `OCR2Engine(batch_size=16)`
    on 16 no-crop and 2 crop pages; `ContinuousOCREngine(slots=16)` on 24
    pages with a pool that makes slots grow (and preempt); one
@@ -105,9 +117,11 @@ pages only if it is installed).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -576,6 +590,171 @@ def chunk_results(dev, record) -> None:
     torch.cuda.empty_cache()
 
 
+def stacked_results(dev, record) -> None:
+    """Kernel U at the decode shapes of DEEPSEEK_DECODE_ATTN=stacked (phase
+    4e): layer 11 of a [12, B, 10, 1024, 128] contiguous cache, one row at
+    position 300 and 16 rows at positions 260..1000, on an f32 cache (the
+    pipeline's) and a bf16 one; library: SDPA on the layer view with the
+    length mask. Kernel X (G's device code) at G's 16-row shape on a
+    per-sequence pool [64, 10, 128, 128] (no layer axis), f32 and bf16. One
+    launch of each in sync-debug mode."""
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        decode_attention_stacked,
+        decode_attention_stacked_reference,
+        paged_decode_attention,
+        paged_decode_attention_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    heads, d, cap, li, scale = 10, 128, 1024, 11, 128**-0.5
+    for dt in (torch.float32, torch.bfloat16):  # the f32 cache first: the main path's (phase 4e)
+        for b in (1, 16):
+            k_all, v_all = (torch.randn(12, b, heads, cap, d, generator=g, device=dev).to(dt) for _ in range(2))
+            q = torch.randn(b, heads, d, generator=g, device=dev)
+            pos = torch.tensor([300.0]) if b == 1 else torch.linspace(260, 1000, b)
+            lens = (pos.round() + 1).to(torch.int32).to(dev)
+            n_keys = int(lens.sum())
+            args = (q, k_all, v_all, li, lens)
+            ref = decode_attention_stacked_reference(*args, scale=scale)
+            got = decode_attention_stacked(*args, scale=scale)
+            attend = (torch.arange(cap, device=dev) < lens.long()[:, None])[:, None, None, :]
+            q4, k_l, v_l = q[:, :, None].to(dt), k_all[li], v_all[li]
+            record("U", f"cache {tuple(k_all.shape)} {str(dt)[6:]}, B {b}, positions "
+                   f"{int(pos.min())}..{int(pos.max())}, layer {li}", ref, got, F32_TOL,
+                   median_ms(lambda: decode_attention_stacked(*args, scale=scale)),
+                   median_ms(lambda: decode_attention_stacked_reference(*args, scale=scale)),
+                   bound_ms(nbytes(q, ref, lens) + 2 * n_keys * heads * d * k_all.element_size(),
+                            4 * n_keys * heads * d, torch.float32),
+                   lambda: F.scaled_dot_product_attention(q4, k_l, v_l, attn_mask=attend, scale=scale),
+                   graph=lambda: decode_attention_stacked(*args, scale=scale))
+            if b == 16 and dt == torch.float32:
+                no_host_sync(dev, "U (B 16, f32 cache)", lambda: decode_attention_stacked(*args, scale=scale))
+            del k_all, v_all, args, q4, k_l, v_l
+    torch.cuda.empty_cache()
+
+    n_pages, page, b = 64, 128, 16
+    bt = torch.randint(1, n_pages, (b, 2048 // page), device=dev, dtype=torch.int32, generator=g)
+    bt[-1] = 0  # a finished row: every page is the scratch page
+    lens = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32)
+    q = torch.randn(b, heads, d, generator=g, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        k_pages, v_pages = (torch.randn(n_pages, heads, page, d, generator=g, device=dev).to(dt) for _ in range(2))
+        args = (q, k_pages, v_pages, bt, lens)
+        ref = paged_decode_attention_reference(*args, scale=scale)
+        got = paged_decode_attention(*args, scale=scale)
+        n_keys = int(lens.sum())
+        record("X", f"per-sequence pool {tuple(k_pages.shape)} {str(dt)[6:]}, B {b}, lengths 260..2048", ref, got,
+               F32_TOL, median_ms(lambda: paged_decode_attention(*args, scale=scale)),
+               median_ms(lambda: paged_decode_attention_reference(*args, scale=scale)),
+               bound_ms(nbytes(q, ref, bt, lens) + 2 * n_keys * heads * d * k_pages.element_size(),
+                        4 * n_keys * heads * d, torch.float32),
+               graph=lambda: paged_decode_attention(*args, scale=scale))
+        if dt == torch.float32:
+            no_host_sync(dev, "X (B 16, f32 pool)", lambda: paged_decode_attention(*args, scale=scale))
+    torch.cuda.empty_cache()
+
+
+def window_results(dev, randn, record) -> None:
+    """Kernel V at the windowed SAM block of the no-crop global view (phase
+    4e runs it there): 25 windows x 12 heads at win = valid = 14 (T2 196) in
+    f32 (the vision dtype) and bf16, and the JAX package's 16 / 14 padded
+    form (T2 256, padded tokens zeroed, padded query rows not compared);
+    library: SDPA with the [T2, T2] bias built outside the timing, as for
+    B. The bound counts the valid queries and keys."""
+    from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_win, mha_win_reference, window_bias
+
+    scale = 1.0 / 8.0
+    for win, valid, dt in ((14, 14, torch.float32), (14, 14, torch.bfloat16), (16, 14, torch.float32)):
+        t2 = win * win
+        pos = torch.arange(t2, device=dev)
+        live = (pos // win < valid) & (pos % win < valid)
+        q, k, v = ((randn(25, 12, t2, 64) * live[:, None]).to(dt) for _ in range(3))
+        rhf, rwf = (F.pad(randn(valid, valid, 64, std=0.3), (0, 0, 0, win - valid, 0, win - valid))
+                    .permute(2, 0, 1).reshape(64, t2).contiguous() for _ in range(2))
+        kw = dict(scale=scale, win=win, valid=valid)
+        ref = mha_win_reference(q, k, v, rhf, rwf, **kw)
+        got = mha_win(q, k, v, rhf, rwf, **kw)
+        bias = window_bias(q, rhf, rwf, win, valid).to(dt)
+        n = 25 * 12 * valid * valid  # valid queries; each sees valid^2 keys
+        record("V", f"windows {tuple(q.shape)} win {win} valid {valid} {str(dt)[6:]}", ref[:, :, live],
+               got[:, :, live], tolerance(ref[:, :, live], dt),
+               median_ms(lambda: mha_win(q, k, v, rhf, rwf, **kw)),
+               median_ms(lambda: mha_win_reference(q, k, v, rhf, rwf, **kw)),
+               bound_ms(nbytes(q, k, v, rhf, rwf, ref), n * (4 * valid * valid + 4 * win) * 64, dt),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale),
+               graph=lambda: mha_win(q, k, v, rhf, rwf, **kw))
+        del q, k, v, ref, got, bias
+    torch.cuda.empty_cache()
+
+
+def visit_results(dev, randn, record) -> None:
+    """Kernel W, both modes, at the MoE layer of the (2, 1) crop page's
+    prompt (548 tokens x 6) and of the (2, 3) page's (1124 x 6), bf16 then
+    f32 (E = 64, H = 1280, I = 896, a random f32 router), on the JAX
+    package's own layout: the expert-sorted rows and `visit_schedule` at
+    `pick_bm` (64 at these sizes), against the visit twins on the N k real
+    rows; then the ffn mode against D then E on the aligned layout for the
+    same rows (the same sums in the same order: bit-equal expected). No
+    path runs W (neither package calls it), and no one PyTorch call computes
+    either mode."""
+    from deepseek_ocr2_tpu_torch.ops import moe_gmm
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    e, k, h, i = 64, 6, 1280, 896
+    for n in (548, 1124):
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(n, h, dtype=dt)
+            wg, wu = (randn(e, i, h, std=h**-0.5, dtype=dt) for _ in range(2))
+            wd = randn(e, h, i, std=i**-0.5, dtype=dt)
+            _, idx = route(x, randn(e, h, std=h**-0.5), k)
+            m, bm = n * k, moe_gmm.pick_bm(n * k)
+            x_sorted, sizes = moe_gmm.sorted_rows(x, idx, e, bm)
+            sched = moe_gmm.visit_schedule(sizes, x_sorted.shape[0], bm)
+            n_live = int((sched[3] > sched[2]).sum())
+            n_used = int(torch.unique(idx).numel())
+            w_expert = nbytes(wg[0])
+            flops_gu, flops_d = 2 * 2 * m * h * i, 2 * m * i * h
+            case = f"N {n} k {k}: bm {bm}, {sched[0].numel()} visit slots, {n_live} non-empty, {str(dt)[6:]}"
+            args = (x_sorted, wg, wu, sched, bm)
+            ref = moe_gmm.gmm_swiglu_visit_reference(*args)[:m]
+            got = moe_gmm.gmm_swiglu_visit(*args)[:m]
+            record("W", f"swiglu {case}", ref, got, tolerance(ref, dt),
+                   median_ms(lambda: moe_gmm.gmm_swiglu_visit(*args)),
+                   median_ms(lambda: moe_gmm.gmm_swiglu_visit_reference(*args)),
+                   bound_ms(row_bytes(m, x_sorted, ref) + 2 * n_used * w_expert, flops_gu, dt),
+                   graph=lambda: moe_gmm.gmm_swiglu_visit(*args))
+            args = (x_sorted, wg, wu, wd, sched, bm)
+            ref = moe_gmm.gmm_ffn_visit_reference(*args)[:m]
+            y = moe_gmm.gmm_ffn_visit(*args)
+            record("W", f"ffn {case}", ref, y[:m], tolerance(ref, dt),
+                   median_ms(lambda: moe_gmm.gmm_ffn_visit(*args)),
+                   median_ms(lambda: moe_gmm.gmm_ffn_visit_reference(*args)),
+                   bound_ms(row_bytes(m, x_sorted, ref) + 3 * n_used * w_expert, flops_gu + flops_d, dt),
+                   graph=lambda: moe_gmm.gmm_ffn_visit(*args))
+            # D then E on the aligned layout of the same sorted rows.
+            src, slot_valid, slot_of_sorted, e_tile, tile_valid = moe_gmm.aligned_layout(
+                sizes, x_sorted.shape[0], moe_gmm.GMM_BM)
+            x_al = torch.where(slot_valid[:, None], x_sorted[src.long().clamp(max=x_sorted.shape[0] - 1)], 0)
+
+            def pair():
+                return moe_gmm.moe_gmm_down(moe_gmm.moe_gmm_swiglu(x_al, wg, wu, e_tile, tile_valid), wd, e_tile,
+                                            tile_valid)
+
+            y_al = pair()[slot_of_sorted[:m].long()]
+            err = float((y[:m].float() - y_al.float()).abs().max())
+            tol = tolerance(y_al, dt)
+            print(f"[kernel] W ffn vs D then E on the aligned layout, the same rows, {case}: max_abs_err "
+                  f"{err:.3e} (tol {tol:.1e}), bit-equal {bool(torch.equal(y[:m], y_al))}; W ffn "
+                  f"{median_ms(lambda: moe_gmm.gmm_ffn_visit(*args)):.3f} ms, D then E {median_ms(pair):.3f} ms "
+                  f"{'ok' if err <= tol else 'FAIL'}")
+            if not err <= tol:
+                raise AssertionError(f"W ffn differs from D then E by {err}, above {tol}")
+            if n == 548 and dt == torch.bfloat16:
+                no_host_sync(dev, f"W ffn ({case})", lambda: moe_gmm.gmm_ffn_visit(*args))
+            del x, wg, wu, wd, x_sorted, x_al, args, ref, y, y_al
+    torch.cuda.empty_cache()
+
+
 def q8_results(dev, randn, record) -> None:
     """Kernels H, I, J and K at the int8 decode shapes of the full-width LM
     (H = 1280, 10 heads of 128, E = 64, k = 6, I = 896, 2 shared
@@ -1010,6 +1189,12 @@ def phase_kernels(dev) -> dict:
     q4_results(dev, randn, record)
     # S, T (and E at the recompute's shape): a training step's MoE backward.
     gmm_backward_results(dev, randn, record)
+    # U, X: decode attention on the stacked contiguous cache, and on a
+    # per-sequence pool; V: SAM's windowed attention, the bias built in the
+    # kernel; W: the boundary-visit grouped GEMM, both modes.
+    stacked_results(dev, record)
+    window_results(dev, randn, record)
+    visit_results(dev, randn, record)
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
@@ -1254,13 +1439,34 @@ def counters():
     )
 
     from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_dw, moe_gmm_dx
+    from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_win
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import gmm_ffn_visit, gmm_swiglu_visit
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import decode_attention_stacked, paged_decode_attention
 
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
             "F": moe_ffn_decode_fused, "G": paged_decode_attention_pool, "H": linear_q8, "I": moe_ffn_decode_q8,
             "J": moe_ffn_decode_q8_fused, "K": attn_decode_fused, "L": linear_q4, "M": moe_ffn_decode_q4,
             "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8,
             "Q": paged_decode_attention_pool_chunk, "R": paged_decode_attention_pool_chunk_q8,
-            "S": moe_gmm_dx, "T": moe_gmm_dw}
+            "S": moe_gmm_dx, "T": moe_gmm_dw, "U": decode_attention_stacked, "V": mha_win,
+            "W": LaunchSum(gmm_swiglu_visit, gmm_ffn_visit), "X": paged_decode_attention}
+
+
+class LaunchSum:
+    """The launch count of a kernel with two wrappers (W's two modes): reads
+    their sum, and a write sets both."""
+
+    def __init__(self, *fns):
+        self.fns = fns
+
+    @property
+    def launches(self) -> int:
+        return sum(fn.launches for fn in self.fns)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        for fn in self.fns:
+            fn.launches = value
 
 
 # The quantized tiers of the CLI: (flag, scope, bits).
@@ -1286,7 +1492,7 @@ def quant_launches_per_step(lm, scope: str, bits: int, rows: int, paged: bool, q
     j = rows * lm.num_experts_per_tok > lm.n_routed_experts
     shared_h = 0 if (j or rows == 1) else 2 * n_moe
     att, sel, distinct, lin = "KIJH" if bits == 8 else "OMNL"
-    want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
+    want = dict.fromkeys("FGHIJKLMNOPQRSTUVWX", 0)
     want.update({
         att: lm.num_hidden_layers if full and not paged else 0,
         "P" if q8_pool else "G": lm.num_hidden_layers if paged else 0,
@@ -1321,9 +1527,10 @@ def phase_main_path(dev):
     print(f"[main] pages handed to the pipeline as {pages[0][3]}")
     for fn in kernels.values():
         fn.launches = 0
+    results = {}
     for name, grid, page, _ in pages:
         before = {k: fn.launches for k, fn in kernels.items()}
-        r = pipe.generate_ocr(page, max_new_tokens=32, ngram_size=20)
+        r = results[name] = pipe.generate_ocr(page, max_new_tokens=32, ngram_size=20)
         delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
         finite = bool(torch.isfinite(r.logits0).all())
         print(f"[main] page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
@@ -1346,7 +1553,210 @@ def phase_main_path(dev):
     for k in "ABCDE":
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    return launches, pipe
+    return launches, pipe, results
+
+
+SWITCHES = {"DEEPSEEK_DECODE_ATTN": "stacked", "DEEPSEEK_SAM_WIN_KERNEL": "1"}
+
+
+@contextlib.contextmanager
+def switched(on: bool = True):
+    """Both of the JAX package's switches set, as a user sets them (on), or
+    both unset (the default paths); the environment restored after."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    if on:
+        os.environ.update(SWITCHES)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def uncounted(kernels: dict):
+    """A reference run inside a counted window: every count is restored on
+    exit, so its launches do not count as the main path's."""
+    saved = {k: fn.launches for k, fn in kernels.items()}
+    try:
+        yield
+    finally:
+        for k, fn in kernels.items():
+            fn.launches = saved[k]
+
+
+def _group_step_logits(pipe, pages, max_new_tokens: int, ngram_size: int):
+    """The tokens [B, S + max_new_tokens] and every step's logits [B, V]
+    (CPU f32) of the group engine's decode of `pages` (one chunk of no-crop
+    pages) on the current paths: the engine's own batched vision prefill
+    and greedy_generate, with the logits kept."""
+    from deepseek_ocr2_tpu_torch.runtime.engine import batched_vision_prefill
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+    from deepseek_ocr2_tpu_torch.runtime.kv_cache import bucket_capacity
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    cfg = pipe.cfg
+    bases = torch.cat([pipe.preprocess_finish(p if isinstance(p, dict) else pipe.preprocess_host(p))[0]
+                       for p in pages])
+    ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, (1, 1))
+    ids_t, embeds = batched_vision_prefill(pipe, ids, bases, None, start)
+    stats = {}
+    tokens, _ = greedy_generate(pipe.params["lm"], cfg.lm, embeds, ids_t, max_new_tokens=max_new_tokens,
+                                ngram_size=ngram_size, eos_id=cfg.eos_token_id, kv_dtype=pipe.kv_dtype, rope=pipe.rope,
+                                capacity=bucket_capacity(len(ids) + max_new_tokens), stats=stats, keep_logits=True)
+    return tokens.cpu(), stats["logits"]
+
+
+def phase_switched_main_path(dev, pipe, main_results, group_ref, group_pages) -> dict:
+    """Phase 4e (run after 6b, whose group run it compares with): the JAX
+    package's two switches, DEEPSEEK_DECODE_ATTN=stacked (kernel U in every
+    decode step on the contiguous cache) and DEEPSEEK_SAM_WIN_KERNEL=1
+    (kernel V in SAM's 8 windowed blocks, B in the 4 global ones), set for
+    this phase only, on phase 3's full-width model:
+    - generate_ocr on the first no-crop page and the (2, 1) crop page at 32
+      tokens (U 12 a decode step, V 8 and B 4 a SAM batch), vision ms and
+      decode tok/s beside the same pages on the default paths (whose tokens
+      must equal phase 4's);
+    - OCR2Engine(batch_size=16) on phase 6b's 16 pages (U 12 a step at 16
+      rows) against 6b's bf16 group run;
+    - one --int8 no-crop page (K 0: the fused attention runs only under
+      "pool"; U 12 a step) against the same page on the default paths (K).
+    Tokens under phase 7's top-2 margin rule, at the bf16 LM's bound
+    (`_first_difference`). Returns the launches of the switched runs alone:
+    the reference runs on the default paths inside the phase are
+    `uncounted`."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+    from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    lm_dtype = pipe.params["lm"]["embed"].dtype  # the LM's activations (bf16 here), int8 weights or not
+    n_glob = len(cfg.sam.global_attn_indexes)
+    n_win = cfg.sam.depth - n_glob
+    kernels = counters()
+    w, h, grid = CROP_PAGES[0]
+    pages = [(f"{PAGES[0][0]}x{PAGES[0][1]}", (1, 1), synthetic_page(*PAGES[0], cfg, seed=0)[0]),
+             (f"{w}x{h} crop", grid, synthetic_page(w, h, cfg, seed=10, grid=grid)[0])]
+    gen = dict(max_new_tokens=32, ngram_size=20)
+    defaults = {name: pipe.generate_ocr(page, keep_logits=True, **gen) for name, _, page in pages}
+    for name, r in defaults.items():
+        if r.token_ids != main_results[name].token_ids:
+            raise AssertionError(f"page {name}: the default paths' tokens differ from phase 4's")
+
+    def check(what, delta, want):
+        bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+        if bad:
+            raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+    for fn in kernels.values():
+        fn.launches = 0
+    with switched():
+        for name, _, page in pages:
+            before = {k: fn.launches for k, fn in kernels.items()}
+            r = pipe.generate_ocr(page, **gen)
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            ref = defaults[name]
+            n_sam = 1 if r.crop_ratio == (1, 1) else 2  # the global view, then the crops
+            note = _first_difference(ref, r, lm_dtype)
+            print(f"[switched] page {name}: vision {r.vision_seconds * 1e3:.1f} ms (default "
+                  f"{ref.vision_seconds * 1e3:.1f}), decode {r.decode_tokens_per_sec:.1f} tok/s (default "
+                  f"{ref.decode_tokens_per_sec:.1f}) for {r.new_tokens} tokens; tokens "
+                  f"{note or 'equal to phase 4'}; launches {delta}")
+            if not torch.isfinite(r.logits0).all():
+                raise AssertionError(f"switched page {name}: non-finite step-0 logits")
+            check(f"switched page {name}", delta, {"U": lm.num_hidden_layers * (r.new_tokens - 1),
+                                                   "V": n_win * n_sam, "B": n_glob * n_sam, "G": 0, "K": 0})
+
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        res = OCR2Engine(pipe, batch_size=16).run(group_pages, max_new_tokens=64, ngram_size=20)
+        dt = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        steps = max(r.new_tokens for r in res) - 1
+        chunks = {}  # one chunk a crop grid (at full width: the 16 pages are one no-crop chunk)
+        for r in res:
+            chunks.setdefault(r.crop_ratio, []).append(r.new_tokens - 1)
+        u_want = lm.num_hidden_layers * sum(max(c) for c in chunks.values())
+        n_sam = sum(1 if g == (1, 1) else 2 for g in chunks)
+        differ = [i for i, (a, b) in enumerate(zip(group_ref, res)) if a.token_ids != b.token_ids]
+        notes = []
+        if differ:  # the reference's own logits decide: 6b's group decode again, logits kept
+            with switched(False), uncounted(kernels):
+                tokens, logits = _group_step_logits(pipe, group_pages, 64, 20)
+            for i in differ:
+                ref_ids = group_ref[i].token_ids
+                if tokens[i, : len(ref_ids)].tolist() != ref_ids:
+                    raise AssertionError(f"page {i}: the default group decode did not repeat phase 6b's tokens")
+                ref = dataclasses.replace(group_ref[i], step_logits=[step[i] for step in logits])
+                notes.append(f"page {i}: {_first_difference(ref, res[i], lm_dtype)}")
+        print(f"[switched] OCR2Engine(batch_size=16), 16 pages: {dt:.2f} s = {16 / dt:.2f} pages/s, "
+              f"{16 * steps / res[0].decode_seconds:.1f} tok/s in decode; {16 - len(differ)} of 16 pages "
+              f"token-equal to phase 6b's bf16 group run {notes}; launches {delta}")
+        check("switched group engine", delta, {"U": u_want, "V": n_win * n_sam, "B": n_glob * n_sam, "K": 0})
+
+        bf16_lm = pipe.params["lm"]
+        pipe.params = {**pipe.params, "lm": quantize_lm_params(bf16_lm, scope="full", bits=8)}
+        try:
+            name, _, page = pages[0]
+            before = {k: fn.launches for k, fn in kernels.items()}
+            r = pipe.generate_ocr(page, **gen)
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            with switched(False), uncounted(kernels):  # the reference: the default paths (K)
+                ref = pipe.generate_ocr(page, keep_logits=True, **gen)
+        finally:
+            pipe.params = {**pipe.params, "lm": bf16_lm}
+            torch.cuda.empty_cache()
+        note = _first_difference(ref, r, lm_dtype)
+        print(f"[switched] --int8 page {name}: decode {r.decode_tokens_per_sec:.1f} tok/s (default, kernel K: "
+              f"{ref.decode_tokens_per_sec:.1f}); tokens {note or 'equal to the default paths'}; launches {delta}")
+        check("switched --int8 page", delta, {"U": lm.num_hidden_layers * (r.new_tokens - 1), "K": 0})
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[switched] launches over phase 4e {launches}")
+    return launches
+
+
+def phase_switched_card_vs_cpu(dev, card_pipe, cpu_params) -> None:
+    """Phase 5d: phase 5's reduced-depth f32 model with both switches, card
+    against CPU (U's and V's twins there): the no-crop and (2, 1) crop
+    pages, every step's logits up to the first token difference within
+    phase 5's tolerance, tokens under the margin rule on the CPU's logits,
+    U and V launched on the card."""
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg = card_pipe.cfg
+    cpu_pipe = OCR2Pipeline(cpu_params, cfg, StubTokenizer(cfg.lm.vocab_size), device="cpu", kv_dtype="float32",
+                            act_dtype="float32")
+    w, h, grid = CROP_PAGES[0]
+    pages = {"no-crop": synthetic_page(*PAGES[0], cfg, seed=99)[0],
+             f"{grid} crop": synthetic_page(w, h, cfg, seed=98, grid=grid)[0]}
+    kernels = counters()
+    with switched():
+        for name, page in pages.items():
+            cpu = cpu_pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20, keep_logits=True)
+            before = {k: fn.launches for k, fn in kernels.items()}
+            card = card_pipe.generate_ocr(page, max_new_tokens=8, ngram_size=20, keep_logits=True)
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            note = _first_difference(cpu, card)
+            # Every step up to the first token difference decodes the same
+            # prefix on both sides: its logits are held to the CPU's (U in
+            # each decode step, V and the prefill in step 0).
+            a, b = cpu.token_ids[cpu.prompt_len:], card.token_ids[card.prompt_len:]
+            same = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), min(len(a), len(b)))
+            steps = min(same + 1, len(cpu.step_logits), len(card.step_logits))
+            errs = [(float((c - g.cpu()).abs().max()), LOGITS_RTOL * float(c.abs().max()))
+                    for c, g in zip(cpu.step_logits[:steps], card.step_logits[:steps])]
+            print(f"[cpu-vs-card] switched {name}: logits max_abs_err (tol) over {steps} steps "
+                  f"{[f'{e:.3e} ({t:.3e})' for e, t in errs]}; tokens {note or 'equal'}; card launches "
+                  f"U {delta['U']} V {delta['V']} B {delta['B']}")
+            bad = [(i, e, t) for i, (e, t) in enumerate(errs) if not e <= t]
+            if bad:
+                raise AssertionError(f"switched {name}: logits differ above LOGITS_RTOL at (step, err, tol) {bad}")
+            if delta["U"] != cfg.lm.num_hidden_layers * (card.new_tokens - 1) or delta["V"] == 0:
+                raise AssertionError(f"switched {name}: the card did not run U / V as expected: {delta}")
 
 
 def decode_per_token(pipe, page, n: int = 16) -> dict:
@@ -1477,9 +1887,10 @@ def phase_lookup_main_path(dev, pipe) -> dict:
 
 def phase_decode_profile(pipe) -> None:
     """Device time and launches per decode token on a no-crop page at batch
-    1, for the LM in bf16, --int8, --moe-int8 and --int4, in this one call.
-    It runs after the timed serving phases: the profiler's tracing can slow
-    the launches of what runs after it."""
+    1, for the LM in bf16, --int8, --moe-int8 and --int4, and bf16 and
+    --int8 again under DEEPSEEK_DECODE_ATTN=stacked (kernel U; K off), in
+    this one call. It runs after the timed serving phases: the profiler's
+    tracing can slow the launches of what runs after it."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
 
     bf16_lm = pipe.params["lm"]
@@ -1489,9 +1900,12 @@ def phase_decode_profile(pipe) -> None:
         torch.cuda.empty_cache()
         pipe.params = {**pipe.params,
                        "lm": quantize_lm_params(bf16_lm, scope=scope, bits=bits) if scope else bf16_lm}
-        t = decode_per_token(pipe, page)
-        print(f"[profile] decode per token, no-crop page, batch 1, LM {tier}: device {t['device_ms']:.3f} ms, "
-              f"{t['launches']:.1f} device launches, wall {t['wall_ms']:.2f} ms (torch.profiler)")
+        for mode in ("pool", "stacked") if tier in ("bf16", "--int8") else ("pool",):
+            with switched(mode == "stacked"):
+                t = decode_per_token(pipe, page)
+            print(f"[profile] decode per token, no-crop page, batch 1, LM {tier}"
+                  f"{', DEEPSEEK_DECODE_ATTN=stacked' if mode == 'stacked' else ''}: device {t['device_ms']:.3f} "
+                  f"ms, {t['launches']:.1f} device launches, wall {t['wall_ms']:.2f} ms (torch.profiler)")
     pipe.params = {**pipe.params, "lm": bf16_lm}
     torch.cuda.empty_cache()
 
@@ -1740,7 +2154,8 @@ def phase_serving_quant(dev, pipe) -> dict:
     runs on the bf16 LM. Each run's decode launches are held to
     `quant_launches_per_step` (group: K / O 12, J / N 11, H / L 3 a step,
     and H / L once after the chunk's prefill; continuous: J / N 11, G 12,
-    H / L 27 a step, and H / L once an admission group)."""
+    H / L 27 a step, and H / L once an admission group). Returns the
+    launches and the bf16 group engine's results (phase 4e's reference)."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
     from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
     from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
@@ -1750,11 +2165,12 @@ def phase_serving_quant(dev, pipe) -> dict:
     bf16_lm = pipe.params["lm"]
     pages = _serve_pages(cfg, 16, 0, seed=600)
     # The same workload on the bf16 LM first, for the side-by-side rates.
+    bf16_runs = {}
     for name, make in (("OCR2Engine(batch_size=16)", lambda: OCR2Engine(pipe, batch_size=16)),
                        ("ContinuousOCREngine(slots=16)",
                         lambda: ContinuousOCREngine(pipe, slots=16, capacity=1024, chunk_steps=16, page_size=128))):
         t0 = time.perf_counter()
-        res = make().run(pages, max_new_tokens=64, ngram_size=20)
+        res = bf16_runs[name] = make().run(pages, max_new_tokens=64, ngram_size=20)
         dt = time.perf_counter() - t0
         print(f"[serve-quant] {name}, bf16 LM, the same 16 pages: {dt:.2f} s = {len(pages) / dt:.2f} pages/s, "
               f"{sum(r.new_tokens for r in res)} tokens")
@@ -1802,7 +2218,7 @@ def phase_serving_quant(dev, pipe) -> dict:
         torch.cuda.empty_cache()
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"[serve-quant] launches over phases 6b and 6c {launches}")
-    return launches
+    return launches, bf16_runs["OCR2Engine(batch_size=16)"]
 
 
 def _decode_chunk_sync_check(dev, pipe, kernels, kv_dtype=None, sampling=None) -> None:
@@ -1886,7 +2302,7 @@ def phase_serving_kv(dev, pipe) -> dict:
         decoded = sum(r.new_tokens - 1 for r in res)
         attention = "G" if kv == "bfloat16" else "P"
         if tier == "bf16":
-            want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
+            want = dict.fromkeys("FGHIJKLMNOPQRSTUVWX", 0)
             want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
         else:
             want = {k: n * steps for k, n in quant_launches_per_step(lm, "full", 8, rows=16, paged=True,
@@ -1967,7 +2383,7 @@ def phase_serving_lookup(dev, pipe) -> dict:
         steps, fw = engine.last_decode_steps, engine.last_lookup_forwards
         decoded = sum(r.new_tokens - 1 for r in res)  # the first token of a page comes from its admission
         attention = "Q" if kv == "bfloat16" else "R"
-        want = dict.fromkeys("FGHIJKLMNOPQRST", 0)
+        want = dict.fromkeys("FGHIJKLMNOPQRSTUVWX", 0)
         want.update({"F": lm.num_moe_layers * steps, attention: lm.num_hidden_layers * steps})
         print(f"[serve-lookup] ContinuousOCREngine(slots=16, lookup_chunk=4), {tier} LM, {kv} pool: "
               f"{len(pages)} pages in {dt:.2f} s = {len(pages) / dt:.2f} pages/s; {steps} chunk forwards "
@@ -1991,17 +2407,31 @@ def phase_serving_lookup(dev, pipe) -> dict:
     return launches
 
 
-def _first_difference(single, served) -> str:
+def _first_difference(single, served, lm_dtype: torch.dtype = torch.float32) -> str:
     """'' when the tokens agree; otherwise a note on the first difference,
-    or an AssertionError when the single run's choice there was not close."""
+    or an AssertionError when the single run's choice there was not close:
+    the top-2 margin among the tokens greedy could pick, those the 20-gram
+    ban (every phase decodes with ngram_size 20) leaves at that step, as
+    `_sampled_margin` masks them; a banned top-1 is no candidate. The bound
+    is LOGITS_RTOL of the largest logit for an f32 LM; for a bf16 LM (phase
+    4e) `bf16_tol`, 4 bf16 ulps of the largest logit: its hidden states
+    are rounded to bf16 in every layer, so two sums taken in another order
+    move the logits by ulps of that size, and one-ulp ties are common."""
+    from deepseek_ocr2_tpu_torch.ops.sampling import ngram_ban_mask_batched
+
     a, b = single.token_ids[single.prompt_len:], served.token_ids[served.prompt_len:]
     if a == b:
         return ""
     step = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), min(len(a), len(b)))
-    logits = single.step_logits[min(step, len(single.step_logits) - 1)]
-    top2 = torch.topk(logits, 2).values
-    margin, tol = float(top2[0] - top2[1]), LOGITS_RTOL * float(logits.abs().max())
-    note = f"first difference at step {step}: single-page top-2 margin {margin:.3e} (bound {tol:.3e})"
+    logits = single.step_logits[min(step, len(single.step_logits) - 1)].float()
+    n = single.prompt_len + step
+    ban = ngram_ban_mask_batched(torch.tensor([single.token_ids[:n]]), torch.tensor([n]), 20, logits.shape[-1])[0]
+    top2 = torch.topk(logits.masked_fill(ban, float("-inf")), 2).values
+    margin = float(top2[0] - top2[1])
+    tol = LOGITS_RTOL * float(logits.abs().max()) if lm_dtype == torch.float32 else bf16_tol(logits)
+    picks = f"{a[step] if step < len(a) else 'end'} / {b[step] if step < len(b) else 'end'}"
+    note = (f"first difference at step {step} ({picks}{', the top-1 banned' if ban[logits.argmax()] else ''}): "
+            f"single-page top-2 margin {margin:.3e} (bound {tol:.3e})")
     if not margin < tol:
         raise AssertionError(f"served tokens differ from the single page's, {note}")
     return note
@@ -2293,7 +2723,7 @@ def train_launches_per_step(lm, remat: bool) -> dict:
     `remat` runs each MoE layer's forward once more in the backward. The
     attention is plain (no A), the dense and shared MLPs are F.linear."""
     n_moe = lm.num_moe_layers
-    want = dict.fromkeys("ABCDEFGHIJKLMNOPQRST", 0)
+    want = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
     want.update(D=n_moe * (1 + remat), E=n_moe * (4 + remat), S=3 * n_moe, T=3 * n_moe)
     return want
 
@@ -2553,18 +2983,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_device()
     results = phase_kernels(dev)
-    main_launches, pipe = phase_main_path(dev)
+    main_launches, pipe, main_results = phase_main_path(dev)
     int8_launches = phase_quant_main_path(dev, pipe, (INT8, MOE_INT8), "int8")
     int4_launches = phase_quant_main_path(dev, pipe, (INT4,), "int4")
     lookup_launches = phase_lookup_main_path(dev, pipe)
     serve_launches = phase_serving(dev, pipe)
-    serve_quant_launches = phase_serving_quant(dev, pipe)
+    serve_quant_launches, group_ref = phase_serving_quant(dev, pipe)
+    switched_launches = phase_switched_main_path(dev, pipe, main_results, group_ref,
+                                                 _serve_pages(pipe.cfg, 16, 0, seed=600))
     serve_kv_launches = phase_serving_kv(dev, pipe)
     serve_lookup_launches = phase_serving_lookup(dev, pipe)
     phase_decode_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
     card_pipes, cpu_params = phase_card_vs_cpu(dev)
+    phase_switched_card_vs_cpu(dev, card_pipes["f32"], cpu_params)
     phase_serving_exact(dev, card_pipes["f32"])
     phase_serving_exact(dev, card_pipes["int8"], tier="int8")
     phase_serving_exact(dev, card_pipes["int4"], tier="int4")
@@ -2581,10 +3014,11 @@ def main() -> int:
     # The main path is one page through generate_ocr (phase 4, and with
     # quantized weights 4b and 4c, with lookup decoding 4d), serving
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
-    # decoding 6e) and fine-tuning (phase 8); each was driven with the
-    # counts at 0 and read after.
+    # decoding 6e), the two switched paths (phase 4e) and fine-tuning
+    # (phase 8); each was driven with the counts at 0 and read after. W
+    # and X run on no path (the JAX package calls neither): 0 launches.
     runs = (main_launches, int8_launches, int4_launches, lookup_launches, serve_launches, serve_quant_launches,
-            serve_kv_launches, serve_lookup_launches, train_launches)
+            switched_launches, serve_kv_launches, serve_lookup_launches, train_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),
@@ -2622,15 +3056,25 @@ def main() -> int:
               "deepseek_ocr2_tpu/ops/moe_gmm.py:381"),
         "T": ("moe_gmm.moe_gmm_dw (grouped-GEMM MoE backward, per-expert dW = sum dy_t^T x_t, f32)",
               "deepseek_ocr2_tpu/ops/moe_gmm.py:440"),
+        "U": ("paged_attention.decode_attention_stacked (decode attention on the layer-stacked contiguous "
+              "cache, DEEPSEEK_DECODE_ATTN=stacked)", "deepseek_ocr2_tpu/ops/paged_attention.py:494"),
+        "V": ("flash_attention.mha_win (SAM windowed attention, rel-pos bias built in the kernel, "
+              "DEEPSEEK_SAM_WIN_KERNEL=1)", "deepseek_ocr2_tpu/ops/flash_attention.py:147"),
+        "W": ("moe_gmm.gmm_ffn_visit / gmm_swiglu_visit (boundary-visit grouped GEMM: _gmm_ffn_kernel, and "
+              "_gmm_swiglu_kernel at moe_gmm.py:184; on no path of either package)",
+              "deepseek_ocr2_tpu/ops/moe_gmm.py:199"),
+        "X": ("paged_attention.paged_decode_attention (per-sequence paged decode attention, G's device code; "
+              "on no path of either package)", "deepseek_ocr2_tpu/ops/paged_attention.py:54"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
                "H": "linear_q8.cu", "I": "moe_q8.cu", "J": "moe_q8.cu", "K": "attn_fused.cu",
                "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu",
                "P": "paged_attention.cu", "Q": "paged_attention.cu", "R": "paged_attention.cu",
-               "S": "moe_gmm.cu", "T": "moe_gmm.cu"}
+               "S": "moe_gmm.cu", "T": "moe_gmm.cu", "U": "paged_attention.cu", "V": "flash_attention.cu",
+               "W": "moe_gmm.cu", "X": "paged_attention.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJKLMNOPQRST":
+    for k in "ABCDEFGHIJKLMNOPQRSTUVWX":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
@@ -2638,7 +3082,10 @@ def main() -> int:
         # 16 rows for J and N; one row at pos 300 on an f32 cache for K and
         # O; an int8 pool at 16 slots for P; a bf16 pool at 16 slots for Q
         # and an int8tail one for R (phase 6e's), S = 4; bf16 at a training
-        # step's MoE layer (2048 tokens) for S (dact) and T (dW_gate).
+        # step's MoE layer (2048 tokens) for S (dact) and T (dW_gate); one
+        # row on an f32 cache for U (phase 4e); the no-crop view's 14 x 14
+        # windows in f32 for V; the swiglu mode at the (2, 1) crop page's
+        # MoE layer in bf16 for W; an f32 pool at 16 rows for X.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

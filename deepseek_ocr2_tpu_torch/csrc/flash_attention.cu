@@ -1,8 +1,11 @@
 // Exact attention with an online f32 softmax, for sm_90a.
 //
-// Replaces two Pallas TPU kernels of deepseek_ocr2_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of deepseek_ocr2_tpu/ops/flash_attention.py:
 //   A: _attn_kernel        (modes none / causal / prefix; LM prefill uses causal)
 //   B: _attn_kernel_relpos (SAM's decomposed relative-position bias)
+//   V: _attn_kernel_relwin (SAM's windowed attention with the rel-pos bias
+//      built inside the kernel from the flattened tables; the windowed
+//      blocks under DEEPSEEK_SAM_WIN_KERNEL=1)
 // The TPU kernels keep a whole score row in VMEM and take an exact softmax
 // over it. A 64-query tile of f32 rows at SAM's 4096 global keys is 1 MB,
 // far over the 227 KB of shared memory a block may use on Hopper, so this
@@ -17,6 +20,16 @@
 //   A causal:  key > query                                   -> s = -1e4
 //   A prefix:  (query < P and key >= P) or
 //              (query >= P and key >= P and key > query)     -> s = -1e4
+//   V: per query block, the win rel-h and win rel-w dot products of each
+//      query with its own rows of the flattened tables rhf, rwf [D, T2] f32
+//      (rhf[c, h win + kh] = rel_h_table[h, kh, c]) go into shared memory,
+//      in f32 FMAs (no TF32): rel_h[q, kh] = q . rhf[:, (q / win) win + kh],
+//      rel_w[q, kw] = q . rwf[:, (q % win) win + kw]. They are then folded in
+//      as B's are, and keys of a padded window (key / win or key % win >=
+//      valid) get s = s - 1e30. The TPU kernel builds the same bias with four
+//      0/1 select dots over [T2, T2] tiles; its t2 % 128 == 0 assertion is
+//      the TPU's lane rule: any win works here (SAM's true 14 x 14 windows,
+//      T2 = 196, and the JAX package's 16 / 14 padded form).
 //   key padding (key >= Lk, the ragged last tile)            -> s = -inf
 //   o = softmax(s) @ v, written in the input type.
 // Fully masked causal tiles are still visited: with -1e4 (not -inf) they
@@ -30,10 +43,15 @@
 // with a padded row stride so the 16 column lanes hit 16 banks. bf16 inputs
 // are widened to f32 on load: products of bf16 values are exact in f32, which
 // is what the TPU kernel's bf16 MXU pass with f32 accumulation computes.
-// Tensor cores (wgmma) and TMA come in a later change.
+// Tensor cores (wgmma) and TMA come in a later change. V adds 2 win D FMAs
+// per query to B's 2 T2 D of the scores: at win 14, T2 196, 14 %; in
+// exchange the [B H, T2, win] rel tensors are never written or read.
 //
 // Layout: q [BH, Lq, D], k/v [BH, Lk, D], o [BH, Lq, D], rel_h [BH, Lq, Kh],
-// rel_w [BH, Lq, Kw] (f32), all contiguous. Grid (ceil(Lq / 64), BH),
+// rel_w [BH, Lq, Kw] (f32), all contiguous; for V (mode 4, through the
+// same entry points) rel_h / rel_w are the tables rhf / rwf [D, T2] f32
+// (shared by every window and head), Kh = Kw = win, Lq = Lk = T2, and the
+// n_prefix argument carries `valid`. Grid (ceil(Lq / 64), BH),
 // 256 threads: thread (ty, tx) = (tid / 16, tid % 16) owns query rows
 // 4*ty .. 4*ty+3 and key / output columns tx + 16*j.
 
@@ -48,7 +66,7 @@ constexpr int BK = 64;
 constexpr int NT = 256;
 constexpr float MASK_VALUE = -1.0e4f;
 
-enum Mode { NONE = 0, CAUSAL = 1, PREFIX = 2, RELPOS = 3 };
+enum Mode { NONE = 0, CAUSAL = 1, PREFIX = 2, RELPOS = 3, RELWIN = 4 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,7 +86,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(
   float* ks = qs + BQ * (D + 1);     // [BK][D + 1]
   float* vs = ks + BK * (D + 1);     // [BK][D]
   float* ps = vs + BK * D;           // [BQ][BK + 1] probabilities of the tile
-  float* rhs = ps + BQ * (BK + 1);   // [BQ][kh]   (relpos only)
+  float* rhs = ps + BQ * (BK + 1);   // [BQ][kh]   (relpos / relwin only)
   float* rws = rhs + BQ * kh;        // [BQ][kw]
 
   const int tid = threadIdx.x;
@@ -94,6 +112,26 @@ __global__ void __launch_bounds__(NT) attn_kernel(
     for (int i = tid; i < BQ * kw; i += NT) {
       const int r = i / kw;
       rws[i] = (q0 + r < lq) ? rwb[(size_t)(q0 + r) * kw + i % kw] : 0.f;
+    }
+  }
+  if (MODE == RELWIN) {
+    __syncthreads();  // the block's q rows are staged
+    const int win = kh;
+    for (int i = tid; i < BQ * win; i += NT) {
+      const int r = i / win, kk = i % win, qp = q0 + r;
+      float sh = 0.f, sw = 0.f;
+      if (qp < lq) {
+        const float* th = rel_h + (qp / win) * win + kk;  // rhf[:, (q / win) win + kk]
+        const float* tw = rel_w + (qp % win) * win + kk;
+#pragma unroll 8
+        for (int c = 0; c < D; ++c) {
+          const float qv = qs[r * (D + 1) + c];
+          sh = fmaf(qv, th[(size_t)c * lk], sh);
+          sw = fmaf(qv, tw[(size_t)c * lk], sw);
+        }
+      }
+      rhs[i] = sh;
+      rws[i] = sw;
     }
   }
 
@@ -148,7 +186,8 @@ __global__ void __launch_bounds__(NT) attn_kernel(
         if (kp >= lk) {
           x = -INFINITY;
         } else {
-          if (MODE == RELPOS) x = x + (rhs[r * kh + kp / kw] + rws[r * kw + kp % kw]);
+          if (MODE == RELPOS || MODE == RELWIN) x = x + (rhs[r * kh + kp / kw] + rws[r * kw + kp % kw]);
+          if (MODE == RELWIN && (kp / kw >= n_prefix || kp % kw >= n_prefix)) x = x + -1.0e30f;
           if (MODE == CAUSAL && kp > qp) x = MASK_VALUE;
           if (MODE == PREFIX) {
             const bool query_col = kp >= n_prefix;
@@ -209,7 +248,7 @@ template <typename T, int D, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, const void* rel_h,
            const void* rel_w, int bh, int lq, int lk, int n_prefix, int kh, int kw,
            float scale, cudaStream_t stream) {
-  const int rel = MODE == RELPOS ? BQ * (kh + kw) : 0;
+  const int rel = MODE == RELPOS || MODE == RELWIN ? BQ * (kh + kw) : 0;
   const size_t smem =
       sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + rel);
   auto kernel = attn_kernel<T, D, MODE>;
@@ -233,6 +272,7 @@ int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
     case CAUSAL: return launch<T, D, CAUSAL>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
     case PREFIX: return launch<T, D, PREFIX>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
     case RELPOS: return launch<T, D, RELPOS>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
+    case RELWIN: return launch<T, D, RELWIN>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -243,6 +283,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const void* r
              int kh, int kw, float scale, void* stream) {
   if (bh <= 0 || bh > 65535 || lq <= 0 || lk <= 0) return (int)cudaErrorInvalidValue;
   if (mode == RELPOS && (kh <= 0 || kw <= 0 || kh * kw != lk)) return (int)cudaErrorInvalidValue;
+  if (mode == RELWIN && (kh <= 0 || kw != kh || kh * kw != lk || lq != lk || n_prefix < 1 || n_prefix > kh))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return by_mode<T, 64>(mode, q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);

@@ -1,5 +1,5 @@
-// Expert-aligned grouped-GEMM MoE for sm_90a: the prefill kernels D and E
-// and the backward kernels S and T.
+// Grouped-GEMM MoE for sm_90a: the expert-aligned prefill kernels D and E,
+// the backward kernels S and T, and the boundary-visit forward W.
 //
 // Replaces the Pallas TPU kernels of deepseek_ocr2_tpu/ops/moe_gmm.py:
 //   D  gmm_swiglu  <- _gmm_swiglu_kernel_al: act = round(round(silu(round(x Wg^T))) * round(x Wu^T))
@@ -74,6 +74,34 @@
 //   20 x 14 times from L2. The blocks of one expert run together (expert
 //   slowest in the grid), so HBM sees the rows about once.
 
+//
+// Kernel W replaces the boundary-visit forward of the same file, which the
+// aligned D + E superseded and which no path of the JAX package calls:
+//   swiglu mode  <- _gmm_swiglu_kernel: act = D's function
+//   ffn mode     <- _gmm_ffn_kernel:    y = E(D(x)), the act rounded where
+//                   the split pair rounds it
+// on the boundary-visit schedule (ops/moe_gmm.visit_schedule, the port of
+// _visit_schedule): x [m_pad, H] holds the expert-sorted rows unpadded, and
+// visit v covers row tile vt[v] (bm = 32 or 64 rows, _pick_bm) against
+// expert ve[v], writing only the rows in [lo[v], hi[v]) (an empty visit
+// writes nothing). Visits that share a tile write disjoint rows: no atomics
+// and no read-modify-write. Rows [m, m_pad) are written by no visit.
+// A block is one BM = 32-row part of a visit (a 64-row tile is two parts),
+// VisitRows below; a part with no row in [lo, hi) returns at once.
+// - swiglu mode: D's kernel with VisitRows, grid (V bm / 32, ceil(I / BN)).
+// - ffn mode: one block per part runs the whole FFN: phase 1 computes the
+//   part's act for all I columns with D's sums into shared memory, phase 2
+//   reads it back as the A operand of E's sums. The act never leaves the
+//   SM. At bm = 64 and I = 896 a whole tile's f32 act (229 KB) would not fit
+//   the 227 KB a block may use; the part's 32 rows (bf16 57 KB, f32 129 KB
+//   transposed) do, so the block's rows are halved rather than staged
+//   through global memory.
+//   What bounds it: as D + E, streaming each visit's three expert matrices
+//   (6.9 MB in bf16) from L2 / HBM; one block per part is V bm / 32 blocks
+//   (232 at the (2, 1) crop page's 3288 rows), two waves at most, each
+//   block walking 14 + 10 column blocks in turn. W runs on no path of
+//   either package: the aligned D + E pair is the port's grouped GEMM.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,6 +122,43 @@ __device__ __forceinline__ float round_bf16(float x) {
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
 // ---------------------------------------------------------------------------
+// Which rows a block computes and writes.
+// AlignedRows (D, E, S): block b is row tile b, all of one expert, e_tile[b];
+// every row is written, or none when tile_valid[b] is 0.
+// VisitRows (W): block b is the BM-row part b % sub of visit v = b / sub
+// (sub = bm / BM): rows vt[v] bm + (b % sub) BM + [0, BM) of the
+// expert-sorted x, expert ve[v]; only the rows in [lo[v], hi[v]) are
+// written, and a part that holds none of them returns at once.
+struct AlignedRows {
+  const int* e_tile;
+  const int* tile_valid;
+  __device__ bool get(int b, int& row0, int& e, int& lo, int& hi) const {
+    if (!tile_valid[b]) return false;
+    row0 = b * BM;
+    e = e_tile[b];
+    lo = row0;
+    hi = row0 + BM;
+    return true;
+  }
+};
+
+struct VisitRows {
+  const int* vt;
+  const int* ve;
+  const int* v_lo;
+  const int* v_hi;
+  int bm;
+  __device__ bool get(int b, int& row0, int& e, int& lo, int& hi) const {
+    const int sub = bm / BM, v = b / sub;
+    row0 = vt[v] * bm + (b % sub) * BM;
+    e = ve[v];
+    lo = max(v_lo[v], row0);
+    hi = min(v_hi[v], row0 + BM);
+    return lo < hi;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // f32 on the CUDA cores.
 //
 // One (tile, column block) of out = f(x W0^T [, x W1^T]).
@@ -104,29 +169,24 @@ __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 // float4s of the staged weights: no bank conflicts).
 // WKN (kernel S): the weight is [K, N] (rows along K) instead of [N, K];
 // its slices are staged as they lie.
-template <int NW, int TN, bool WKN = false>
-__global__ void __launch_bounds__(NT) gmm_kernel(
-    const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1,
-    const int* __restrict__ e_tile, const int* __restrict__ tile_valid, float* __restrict__ out,
-    int k_dim, int n_dim) {
-  constexpr int BN = NTX * TN;
-  constexpr int XS = BM + 4;  // row stride of the transposed x slice [BK][XS]
-  constexpr int WS = BN + 4;  // row stride of a transposed weight slice [BK][WS]
-  __shared__ __align__(16) float xs[BK * XS];
-  __shared__ __align__(16) float ws[NW][BK * WS];
 
-  const int t = blockIdx.x;
-  if (!tile_valid[t]) return;
-  const int e = e_tile[t];
-  const int n0 = blockIdx.y * BN;
+constexpr int XS = BM + 4;  // row stride of a transposed [K][XS] copy of a tile's rows
+
+// The sums acc[w][i][j] = sum_k A[4 ty + i, k] W_w[col(j), k] (WKN:
+// W_w[k, col(j)]) of thread (ty, tx), col(j) = n0 + 4 tx + 64 (j / 4) + j % 4.
+// A is the tile's rows of x at xt (row stride k_dim), staged a BK slice at a
+// time into xs [BK][XS], or (a_s not null) a transposed [K'][XS] copy that
+// is already in shared memory, K' >= k_dim rounded up to BK, zero past
+// k_dim. ws holds NW [BK][BN + 4] weight slices. Starts with a barrier, so
+// the buffers of a previous call may be reused.
+template <int NW, int TN, bool WKN>
+__device__ __forceinline__ void f32_sums(const float* __restrict__ xt, const float* a_s,
+                                         const float* const (&wp)[NW], int n0, int k_dim, int n_dim, float* xs,
+                                         float* ws, float (&acc)[NW][TM][TN]) {
+  constexpr int BN = NTX * TN;
+  constexpr int WS = BN + 4;  // row stride of a transposed weight slice [BK][WS]
   const int tid = threadIdx.x;
   const int ty = tid / NTX, tx = tid % NTX;
-  const float* xt = x + (size_t)t * BM * k_dim;
-  const float* wp[NW];
-  wp[0] = w0 + (size_t)e * n_dim * k_dim;
-  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
-
-  float acc[NW][TM][TN];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
@@ -136,26 +196,29 @@ __global__ void __launch_bounds__(NT) gmm_kernel(
 
   for (int k0 = 0; k0 < k_dim; k0 += BK) {
     __syncthreads();  // the previous slice is consumed
-    for (int i = tid; i < BM * (BK / 4); i += NT) {
-      // Lanes on consecutive rows: conflict-free transposed stores; the
-      // rest of each 32-byte sector is read by the next warp, from L1.
-      const int r = i % BM, kc = 4 * (i / BM);
-      const float4 v = k0 + kc < k_dim ? *reinterpret_cast<const float4*>(xt + (size_t)r * k_dim + k0 + kc)
-                                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      xs[(kc + 0) * XS + r] = v.x;
-      xs[(kc + 1) * XS + r] = v.y;
-      xs[(kc + 2) * XS + r] = v.z;
-      xs[(kc + 3) * XS + r] = v.w;
+    if (a_s == nullptr) {
+      for (int i = tid; i < BM * (BK / 4); i += NT) {
+        // Lanes on consecutive rows: conflict-free transposed stores; the
+        // rest of each 32-byte sector is read by the next warp, from L1.
+        const int r = i % BM, kc = 4 * (i / BM);
+        const float4 v = k0 + kc < k_dim ? *reinterpret_cast<const float4*>(xt + (size_t)r * k_dim + k0 + kc)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        xs[(kc + 0) * XS + r] = v.x;
+        xs[(kc + 1) * XS + r] = v.y;
+        xs[(kc + 2) * XS + r] = v.z;
+        xs[(kc + 3) * XS + r] = v.w;
+      }
     }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
+      float* wsw = ws + w * BK * WS;
       if (WKN) {
         for (int i = tid; i < BK * (BN / 4); i += NT) {
           const int kr = i / (BN / 4), nc = 4 * (i % (BN / 4));
           float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
           if (k0 + kr < k_dim && n0 + nc < n_dim)
             v = *reinterpret_cast<const float4*>(wp[w] + (size_t)(k0 + kr) * n_dim + n0 + nc);
-          *reinterpret_cast<float4*>(ws[w] + kr * WS + nc) = v;
+          *reinterpret_cast<float4*>(wsw + kr * WS + nc) = v;
         }
         continue;
       }
@@ -164,22 +227,23 @@ __global__ void __launch_bounds__(NT) gmm_kernel(
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (n0 + n < n_dim && k0 + kc < k_dim)
           v = *reinterpret_cast<const float4*>(wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc);
-        ws[w][(kc + 0) * WS + n] = v.x;
-        ws[w][(kc + 1) * WS + n] = v.y;
-        ws[w][(kc + 2) * WS + n] = v.z;
-        ws[w][(kc + 3) * WS + n] = v.w;
+        wsw[(kc + 0) * WS + n] = v.x;
+        wsw[(kc + 1) * WS + n] = v.y;
+        wsw[(kc + 2) * WS + n] = v.z;
+        wsw[(kc + 3) * WS + n] = v.w;
       }
     }
     __syncthreads();
+    const float* ak = a_s == nullptr ? xs : a_s + (size_t)k0 * XS;
 #pragma unroll 4
     for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(xs + k * XS + ty * TM);
+      const float4 a = *reinterpret_cast<const float4*>(ak + k * XS + ty * TM);
       const float av[TM] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
 #pragma unroll
         for (int jj = 0; jj < TN / 4; ++jj) {
-          const float4 b = *reinterpret_cast<const float4*>(ws[w] + k * WS + tx * 4 + 64 * jj);
+          const float4 b = *reinterpret_cast<const float4*>(ws + w * BK * WS + k * WS + tx * 4 + 64 * jj);
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
             acc[w][i][4 * jj + 0] = fmaf(av[i], b.x, acc[w][i][4 * jj + 0]);
@@ -191,16 +255,46 @@ __global__ void __launch_bounds__(NT) gmm_kernel(
       }
     }
   }
+}
 
+// Thread (ty, tx)'s outputs of f32_sums (NW = 2: silu(gate) up), to
+// out[row rs + col cs] for tile rows row = row0 + 4 ty + i in [lo, hi) and
+// columns col < n_dim (rs, cs: n_dim, 1 for a row-major output; 1, XS for
+// a transposed copy in shared memory).
+template <int NW, int TN>
+__device__ __forceinline__ void f32_store(float* out, const float (&acc)[NW][TM][TN], int row0, int lo, int hi,
+                                          int n0, int n_dim, int rs, int cs) {
+  const int ty = threadIdx.x / NTX, tx = threadIdx.x % NTX;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    float* orow = out + ((size_t)t * BM + ty * TM + i) * n_dim;
+    const int row = row0 + ty * TM + i;
+    if (row < lo || row >= hi) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = n0 + tx * 4 + 64 * (j / 4) + j % 4;
-      if (col < n_dim) orow[col] = NW == 2 ? silu(acc[0][i][j]) * acc[NW - 1][i][j] : acc[0][i][j];
+      if (col < n_dim)
+        out[(size_t)row * rs + (size_t)col * cs] = NW == 2 ? silu(acc[0][i][j]) * acc[NW - 1][i][j] : acc[0][i][j];
     }
   }
+}
+
+template <int NW, int TN, bool WKN, class Rows>
+__global__ void __launch_bounds__(NT) gmm_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1, Rows rows,
+    float* __restrict__ out, int k_dim, int n_dim) {
+  constexpr int BN = NTX * TN;
+  __shared__ __align__(16) float xs[BK * XS];
+  __shared__ __align__(16) float ws[NW * BK * (BN + 4)];
+
+  int row0, e, lo, hi;
+  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
+  const int n0 = blockIdx.y * BN;
+  const float* wp[NW];
+  wp[0] = w0 + (size_t)e * n_dim * k_dim;
+  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
+  float acc[NW][TM][TN];
+  f32_sums<NW, TN, WKN>(x + (size_t)row0 * k_dim, nullptr, wp, n0, k_dim, n_dim, xs, ws, acc);
+  f32_store<NW, TN>(out, acc, row0, lo, hi, n0, n_dim, n_dim, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -231,45 +325,43 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The sums of one (BM-row tile, BN column block) of x W0^T [, x W1^T] on the
+// tensor cores, acc[w][j] the accumulators of the warp's n8 tile j. A is
+// the tile's rows of x at xt (row stride k_dim), copied a MK slice at a time
+// into xs [2][BM][MS], or (a_s not null) a [BM][as] copy already in shared
+// memory, zero from k_dim to k_dim rounded up to MK (as: a multiple of 8
+// and 4 mod 64 in 32-bit words, so fragment loads hit 32 banks). ws holds
+// [2][NW][BN][MS] weight slices. Ends with a barrier, so the buffers may be
+// reused by the next call.
 template <int NW, int BN>
-__global__ void __launch_bounds__(NT) gmm_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
-    const __nv_bfloat16* __restrict__ w1, const int* __restrict__ e_tile,
-    const int* __restrict__ tile_valid, __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
+__device__ __forceinline__ void mma_sums(const __nv_bfloat16* __restrict__ xt, const __nv_bfloat16* a_s, int as,
+                                         const __nv_bfloat16* const (&wp)[NW], int n0, int k_dim, int n_dim,
+                                         __nv_bfloat16* xs, __nv_bfloat16* ws, float (&acc)[NW][BN / 16][4]) {
   constexpr int NJ = BN / 16;  // n8 tiles per warp
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * MS];
-  __shared__ __align__(16) __nv_bfloat16 ws[2][NW][BN * MS];
-
-  const int t = blockIdx.x;
-  if (!tile_valid[t]) return;
-  const int e = e_tile[t];
-  const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;  // fragment row / column pair
   const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
-  const __nv_bfloat16* xt = x + (size_t)t * BM * k_dim;
-  const __nv_bfloat16* wp[NW];
-  wp[0] = w0 + (size_t)e * n_dim * k_dim;
-  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
 
   auto stage = [&](int buf, int k0) {
-    for (int i = tid; i < BM * (MK / 8); i += NT) {
-      const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
-      const bool full = k0 + kc < k_dim;
-      cp_async16(&xs[buf][r * MS + kc], full ? xt + (size_t)r * k_dim + k0 + kc : xt, full);
+    if (a_s == nullptr) {
+      for (int i = tid; i < BM * (MK / 8); i += NT) {
+        const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
+        const bool full = k0 + kc < k_dim;
+        cp_async16(&xs[buf * BM * MS + r * MS + kc], full ? xt + (size_t)r * k_dim + k0 + kc : xt, full);
+      }
     }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
+      __nv_bfloat16* wsw = ws + (buf * NW + w) * BN * MS;
       for (int i = tid; i < BN * (MK / 8); i += NT) {
         const int n = i / (MK / 8), kc = 8 * (i % (MK / 8));
         const bool full = n0 + n < n_dim && k0 + kc < k_dim;
-        cp_async16(&ws[buf][w][n * MS + kc], full ? wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc : wp[w], full);
+        cp_async16(&wsw[n * MS + kc], full ? wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc : wp[w], full);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  float acc[NW][NJ][4];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
@@ -288,19 +380,21 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
+    const __nv_bfloat16* abase = a_s == nullptr ? xs + buf * BM * MS : a_s + s * MK;
+    const int astr = a_s == nullptr ? MS : as;
 #pragma unroll
     for (int kk = 0; kk < MK; kk += 16) {
-      const __nv_bfloat16* xa = &xs[buf][(wm + g) * MS + kk + 2 * q];
+      const __nv_bfloat16* xa = abase + (wm + g) * astr + kk + 2 * q;
       unsigned a[4];
       a[0] = *reinterpret_cast<const unsigned*>(xa);
-      a[1] = *reinterpret_cast<const unsigned*>(xa + 8 * MS);
+      a[1] = *reinterpret_cast<const unsigned*>(xa + 8 * astr);
       a[2] = *reinterpret_cast<const unsigned*>(xa + 8);
-      a[3] = *reinterpret_cast<const unsigned*>(xa + 8 * MS + 8);
+      a[3] = *reinterpret_cast<const unsigned*>(xa + 8 * astr + 8);
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const __nv_bfloat16* wb = &ws[buf][w][(wn + 8 * j + g) * MS + kk + 2 * q];
+          const __nv_bfloat16* wb = ws + (buf * NW + w) * BN * MS + (wn + 8 * j + g) * MS + kk + 2 * q;
           mma_bf16(acc[w][j], a, *reinterpret_cast<const unsigned*>(wb),
                    *reinterpret_cast<const unsigned*>(wb + 8));
         }
@@ -308,7 +402,18 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
     }
     __syncthreads();  // everyone is done with buf before it is refilled
   }
+}
 
+// The warp's outputs of mma_sums (NW = 2: round(round(silu(round(gate)))
+// round(up))), to out[row os + col] for tile rows row = row0 + r in
+// [lo, hi) and columns col < n_dim (n_dim a multiple of 4).
+template <int NW, int BN>
+__device__ __forceinline__ void mma_store(__nv_bfloat16* out, const float (&acc)[NW][BN / 16][4], int row0, int lo,
+                                          int hi, int n0, int n_dim, int os) {
+  constexpr int NJ = BN / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
   // Accumulator c of n8 tile j: row g (c < 2) or g + 8, column 2q + c % 2.
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
@@ -316,6 +421,8 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
     if (col >= n_dim) continue;  // n_dim is a multiple of 4: col + 1 is in range too
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm + g + 8 * h;
+      if (row < lo || row >= hi) continue;
       float v[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -327,10 +434,27 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
           v[c] = acc[0][j][2 * h + c];
         }
       }
-      const size_t row = (size_t)t * BM + wm + g + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(out + row * n_dim + col) = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * os + col) = __floats2bfloat162_rn(v[0], v[1]);
     }
   }
+}
+
+template <int NW, int BN, class Rows>
+__global__ void __launch_bounds__(NT) gmm_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
+    const __nv_bfloat16* __restrict__ w1, Rows rows, __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
+  __shared__ __align__(16) __nv_bfloat16 xs[2 * BM * MS];
+  __shared__ __align__(16) __nv_bfloat16 ws[2 * NW * BN * MS];
+
+  int row0, e, lo, hi;
+  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
+  const int n0 = blockIdx.y * BN;
+  const __nv_bfloat16* wp[NW];
+  wp[0] = w0 + (size_t)e * n_dim * k_dim;
+  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
+  float acc[NW][BN / 16][4];
+  mma_sums<NW, BN>(x + (size_t)row0 * k_dim, nullptr, 0, wp, n0, k_dim, n_dim, xs, ws, acc);
+  mma_store<NW, BN>(out, acc, row0, lo, hi, n0, n_dim, n_dim);
 }
 
 // ldmatrix with .trans: lanes supply the addresses of 16-byte rows (lanes
@@ -586,31 +710,132 @@ bool bad_shape(int n_tiles, int bm, int k_dim, int n_dim, int k_align) {
   return bm != BM || n_tiles <= 0 || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
 }
 
-template <int NW, int TN, bool WKN = false>
-int launch_f32(const void* x, const void* w0, const void* w1, const void* e_tile,
-               const void* tile_valid, void* out, int n_tiles, int bm, int k_dim, int n_dim,
-               void* stream) {
-  if (bad_shape(n_tiles, bm, k_dim, n_dim, 4)) return (int)cudaErrorInvalidValue;
+bool bad_visits(int n_visits, int bm, int k_dim, int n_dim, int k_align) {
+  return n_visits <= 0 || bm <= 0 || bm % BM || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
+}
+
+AlignedRows aligned(const void* e_tile, const void* tile_valid) {
+  return AlignedRows{static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid)};
+}
+
+VisitRows visits(const void* vt, const void* ve, const void* lo, const void* hi, int bm) {
+  return VisitRows{static_cast<const int*>(vt), static_cast<const int*>(ve), static_cast<const int*>(lo),
+                   static_cast<const int*>(hi), bm};
+}
+
+template <int NW, int TN, bool WKN, class Rows>
+int launch_f32(const void* x, const void* w0, const void* w1, Rows rows, int n_blocks, void* out, int k_dim,
+               int n_dim, void* stream) {
   constexpr int BN = NTX * TN;
-  const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
-  gmm_kernel<NW, TN, WKN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(w1),
-      static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid), static_cast<float*>(out),
-      k_dim, n_dim);
+  const dim3 grid(n_blocks, (n_dim + BN - 1) / BN);
+  gmm_kernel<NW, TN, WKN, Rows><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(w1), rows,
+      static_cast<float*>(out), k_dim, n_dim);
   return (int)cudaGetLastError();
 }
 
-template <int NW, int BN>
-int launch_bf16(const void* x, const void* w0, const void* w1, const void* e_tile,
-                const void* tile_valid, void* out, int n_tiles, int bm, int k_dim, int n_dim,
-                void* stream) {
-  if (bad_shape(n_tiles, bm, k_dim, n_dim, 8)) return (int)cudaErrorInvalidValue;
+template <int NW, int BN, class Rows>
+int launch_bf16(const void* x, const void* w0, const void* w1, Rows rows, int n_blocks, void* out, int k_dim,
+                int n_dim, void* stream) {
   using B = __nv_bfloat16;
-  const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
-  gmm_mma_kernel<NW, BN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const B*>(x), static_cast<const B*>(w0), static_cast<const B*>(w1),
-      static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid), static_cast<B*>(out),
-      k_dim, n_dim);
+  const dim3 grid(n_blocks, (n_dim + BN - 1) / BN);
+  gmm_mma_kernel<NW, BN, Rows><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const B*>(x), static_cast<const B*>(w0), static_cast<const B*>(w1), rows,
+      static_cast<B*>(out), k_dim, n_dim);
+  return (int)cudaGetLastError();
+}
+
+// Kernel W, ffn mode, f32: one block per visit part (VisitRows). Phase 1
+// computes the part's act = silu(x Wg^T) (x Wu^T) for all I columns, 64 at
+// a time, into act_t, a transposed [I'][XS] copy in dynamic shared memory
+// (I' = I rounded up to BK, zero past I: 129 KB at I = 896); phase 2 runs
+// y = act Wd^T from it, 128 columns at a time, and writes the part's rows
+// in [lo, hi). The same f32_sums and f32_store as D and E, so the sums are
+// taken in their order.
+template <class Rows>
+__global__ void __launch_bounds__(NT) gmm_ffn_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ wg, const float* __restrict__ wu,
+    const float* __restrict__ wd, Rows rows, float* __restrict__ y, int h_dim, int i_dim) {
+  extern __shared__ __align__(16) float act_t[];
+  __shared__ __align__(16) float xs[BK * XS];
+  __shared__ __align__(16) float ws[2 * BK * (64 + 4)];  // two [BK][68] slices, or one [BK][132]
+
+  int row0, e, lo, hi;
+  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
+  const int i_pad = (i_dim + BK - 1) / BK * BK;
+  for (int idx = i_dim * XS + threadIdx.x; idx < i_pad * XS; idx += NT) act_t[idx] = 0.f;
+  const float* wgu[2] = {wg + (size_t)e * i_dim * h_dim, wu + (size_t)e * i_dim * h_dim};
+  for (int n0 = 0; n0 < i_dim; n0 += NTX * 4) {
+    float acc[2][TM][4];
+    f32_sums<2, 4, false>(x + (size_t)row0 * h_dim, nullptr, wgu, n0, h_dim, i_dim, xs, ws, acc);
+    f32_store<2, 4>(act_t, acc, 0, 0, BM, n0, i_dim, 1, XS);
+  }
+  const float* wdp[1] = {wd + (size_t)e * h_dim * i_dim};
+  for (int n0 = 0; n0 < h_dim; n0 += NTX * 8) {
+    float acc[1][TM][8];
+    f32_sums<1, 8, false>(nullptr, act_t, wdp, n0, i_dim, h_dim, xs, ws, acc);
+    f32_store<1, 8>(y, acc, row0, lo, hi, n0, h_dim, h_dim, 1);
+  }
+}
+
+// Kernel W, ffn mode, bf16: as the f32 form on the tensor cores (mma_sums
+// and mma_store of D and E). The part's act, rounded to bf16 where D
+// rounds it, stays in dynamic shared memory as [BM][I' + 8] (I' = I rounded
+// up to MK, zero past I: 57 KB at I = 896), and phase 2 reads its mma A
+// fragments straight from there.
+template <class Rows>
+__global__ void __launch_bounds__(NT) gmm_ffn_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
+    const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ wd, Rows rows,
+    __nv_bfloat16* __restrict__ y, int h_dim, int i_dim) {
+  extern __shared__ __align__(16) unsigned char act_raw[];
+  __shared__ __align__(16) __nv_bfloat16 xs[2 * BM * MS];
+  __shared__ __align__(16) __nv_bfloat16 ws[2 * 2 * 64 * MS];  // [2][2][64][MS], or [2][1][128][MS]
+
+  int row0, e, lo, hi;
+  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
+  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(act_raw);
+  const int i_pad = (i_dim + MK - 1) / MK * MK, as = i_pad + 8;
+  const int n_zero = i_pad - i_dim;
+  for (int idx = threadIdx.x; idx < BM * n_zero; idx += NT)
+    act[(idx / n_zero) * as + i_dim + idx % n_zero] = __float2bfloat16_rn(0.f);
+  const __nv_bfloat16* wgu[2] = {wg + (size_t)e * i_dim * h_dim, wu + (size_t)e * i_dim * h_dim};
+  for (int n0 = 0; n0 < i_dim; n0 += 64) {
+    float acc[2][4][4];
+    mma_sums<2, 64>(x + (size_t)row0 * h_dim, nullptr, 0, wgu, n0, h_dim, i_dim, xs, ws, acc);
+    mma_store<2, 64>(act, acc, 0, 0, BM, n0, i_dim, as);
+  }
+  const __nv_bfloat16* wdp[1] = {wd + (size_t)e * h_dim * i_dim};
+  for (int n0 = 0; n0 < h_dim; n0 += 128) {
+    float acc[1][8][4];
+    mma_sums<1, 128>(nullptr, act, as, wdp, n0, i_dim, h_dim, xs, ws, acc);
+    mma_store<1, 128>(y, acc, row0, lo, hi, n0, h_dim, h_dim);
+  }
+}
+
+template <typename T, class Rows>
+int launch_ffn(const void* x, const void* wg, const void* wu, const void* wd, Rows rows, int n_blocks, void* y,
+               int h_dim, int i_dim, void* stream) {
+  constexpr bool F32 = sizeof(T) == 4;
+  const size_t smem = F32 ? sizeof(float) * ((i_dim + BK - 1) / BK * BK) * XS
+                          : sizeof(__nv_bfloat16) * BM * ((i_dim + MK - 1) / MK * MK + 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F32) {
+    auto kernel = gmm_ffn_f32_kernel<Rows>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<n_blocks, NT, smem, s>>>(static_cast<const float*>(x), static_cast<const float*>(wg),
+                                      static_cast<const float*>(wu), static_cast<const float*>(wd), rows,
+                                      static_cast<float*>(y), h_dim, i_dim);
+  } else {
+    using B = __nv_bfloat16;
+    auto kernel = gmm_ffn_mma_kernel<Rows>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<n_blocks, NT, smem, s>>>(static_cast<const B*>(x), static_cast<const B*>(wg),
+                                      static_cast<const B*>(wu), static_cast<const B*>(wd), rows,
+                                      static_cast<B*>(y), h_dim, i_dim);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -620,32 +845,37 @@ int launch_bf16(const void* x, const void* w0, const void* w1, const void* e_til
 extern "C" int gmm_swiglu_f32(const void* x, const void* wg, const void* wu, const void* e_tile,
                               const void* tile_valid, void* act, int n_tiles, int bm, int h,
                               int i, void* stream) {
-  return launch_f32<2, 4>(x, wg, wu, e_tile, tile_valid, act, n_tiles, bm, h, i, stream);
+  if (bad_shape(n_tiles, bm, h, i, 4)) return (int)cudaErrorInvalidValue;
+  return launch_f32<2, 4, false>(x, wg, wu, aligned(e_tile, tile_valid), n_tiles, act, h, i, stream);
 }
 
 extern "C" int gmm_swiglu_bf16(const void* x, const void* wg, const void* wu, const void* e_tile,
                                const void* tile_valid, void* act, int n_tiles, int bm, int h,
                                int i, void* stream) {
-  return launch_bf16<2, 64>(x, wg, wu, e_tile, tile_valid, act, n_tiles, bm, h, i, stream);
+  if (bad_shape(n_tiles, bm, h, i, 8)) return (int)cudaErrorInvalidValue;
+  return launch_bf16<2, 64>(x, wg, wu, aligned(e_tile, tile_valid), n_tiles, act, h, i, stream);
 }
 
 // E: act [S, I], wd [E, H, I] -> y [S, H].
 extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile,
                             const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
                             void* stream) {
-  return launch_f32<1, 8>(act, wd, wd, e_tile, tile_valid, y, n_tiles, bm, i, h, stream);
+  if (bad_shape(n_tiles, bm, i, h, 4)) return (int)cudaErrorInvalidValue;
+  return launch_f32<1, 8, false>(act, wd, wd, aligned(e_tile, tile_valid), n_tiles, y, i, h, stream);
 }
 
 extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* e_tile,
                              const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
                              void* stream) {
-  return launch_bf16<1, 128>(act, wd, wd, e_tile, tile_valid, y, n_tiles, bm, i, h, stream);
+  if (bad_shape(n_tiles, bm, i, h, 8)) return (int)cudaErrorInvalidValue;
+  return launch_bf16<1, 128>(act, wd, wd, aligned(e_tile, tile_valid), n_tiles, y, i, h, stream);
 }
 
 // S: a [S, O], w [E, O, C] (contracted on O, its row dim) -> out [S, C].
 extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, const void* tile_valid,
                           void* out, int n_tiles, int bm, int o, int c, void* stream) {
-  return launch_f32<1, 8, true>(a, w, w, e_tile, tile_valid, out, n_tiles, bm, o, c, stream);
+  if (bad_shape(n_tiles, bm, o, c, 4)) return (int)cudaErrorInvalidValue;
+  return launch_f32<1, 8, true>(a, w, w, aligned(e_tile, tile_valid), n_tiles, out, o, c, stream);
 }
 
 extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* e_tile, const void* tile_valid,
@@ -684,4 +914,37 @@ extern "C" int gmm_dw_bf16(const void* x, const void* dy, const void* tile_lo, v
       static_cast<const B*>(x), static_cast<const B*>(dy), static_cast<const int*>(tile_lo),
       static_cast<float*>(dw), c, o);
   return (int)cudaGetLastError();
+}
+
+// W, swiglu mode: x [m_pad, H] (expert-sorted rows), wg / wu [E, I, H] and
+// the visit schedule vt / ve / lo / hi [V] int32 -> act [m_pad, I]; only
+// the rows of a visit's [lo, hi) are written (bm a multiple of 32).
+extern "C" int gmm_swiglu_visit_f32(const void* x, const void* wg, const void* wu, const void* vt, const void* ve,
+                                    const void* lo, const void* hi, void* act, int n_visits, int bm, int h, int i,
+                                    void* stream) {
+  if (bad_visits(n_visits, bm, h, i, 4)) return (int)cudaErrorInvalidValue;
+  return launch_f32<2, 4, false>(x, wg, wu, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), act, h, i, stream);
+}
+
+extern "C" int gmm_swiglu_visit_bf16(const void* x, const void* wg, const void* wu, const void* vt, const void* ve,
+                                     const void* lo, const void* hi, void* act, int n_visits, int bm, int h, int i,
+                                     void* stream) {
+  if (bad_visits(n_visits, bm, h, i, 8)) return (int)cudaErrorInvalidValue;
+  return launch_bf16<2, 64>(x, wg, wu, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), act, h, i, stream);
+}
+
+// W, ffn mode: as the swiglu mode, with wd [E, H, I] -> y [m_pad, H].
+extern "C" int gmm_ffn_visit_f32(const void* x, const void* wg, const void* wu, const void* wd, const void* vt,
+                                 const void* ve, const void* lo, const void* hi, void* y, int n_visits, int bm,
+                                 int h, int i, void* stream) {
+  if (bad_visits(n_visits, bm, h, i, 4) || i % 4) return (int)cudaErrorInvalidValue;
+  return launch_ffn<float>(x, wg, wu, wd, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), y, h, i, stream);
+}
+
+extern "C" int gmm_ffn_visit_bf16(const void* x, const void* wg, const void* wu, const void* wd, const void* vt,
+                                  const void* ve, const void* lo, const void* hi, void* y, int n_visits, int bm,
+                                  int h, int i, void* stream) {
+  if (bad_visits(n_visits, bm, h, i, 8) || i % 8) return (int)cudaErrorInvalidValue;
+  return launch_ffn<__nv_bfloat16>(x, wg, wu, wd, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), y, h, i,
+                                   stream);
 }

@@ -1,4 +1,5 @@
-// Paged decode attention over the layer-stacked pool for sm_90a: kernel G.
+// Decode attention for sm_90a: kernels G, P, Q and R over the layer-stacked
+// paged pool, X over a per-sequence pool and U over the contiguous cache.
 //
 // Replaces the Pallas TPU kernel deepseek_ocr2_tpu/ops/paged_attention.py:
 // _paged_kernel_pool (via paged_decode_attention_pool): one query per row
@@ -98,6 +99,41 @@
 // still far under the ridge. R reads P's bytes, 48.7 MB (0.0146 ms). The
 // shuffles of S reductions a key are the likeliest limit once the loads are
 // fast; wgmma/TMA and splitting pages across blocks are later work.
+//
+// Kernel X (the same paged_decode_f32 / paged_decode_bf16 entry points)
+// replaces deepseek_ocr2_tpu/ops/paged_attention.py: _paged_kernel (via
+// paged_decode_attention), the per-sequence decode kernel from before the
+// pool: one query per row over the row's block-table pages of a pool
+// [P, Hh, page, D] with no layer axis. That is exactly the [P, Hh, page, D]
+// view G walks, so X is G's device code behind its own wrapper
+// (ops/paged_attention.paged_decode_attention); no new device code.
+//
+// Kernel U (decode_stacked_f32 / decode_stacked_bf16) replaces
+// deepseek_ocr2_tpu/ops/paged_attention.py: _stacked_kernel (via
+// decode_attention_stacked), decode attention read straight from the
+// layer-stacked contiguous cache [L, B, Hh, cap, D] (the decode path of
+// DEEPSEEK_DECODE_ATTN=stacked). The wrapper passes the pointer of layer
+// li's [B, Hh, cap, D] view, so no layer is copied (the TPU kernel rides
+// the layer index through scalar prefetch for the same reason). Row b,
+// head h is one contiguous [cap, D] slab of K and one of V.
+//
+// Same layout as G: one block per (row, head), D = 128 threads; the block
+// walks the row's first len = seq_lens[row] keys (pos + 1: the new token's
+// K/V are written before attention) in tiles of 128, each tile as one of
+// G's pages: warp w scores keys w, w + 4, ... with xor-shuffle dot
+// products, the weights of the tile in shared memory, thread t owns output
+// dim t, f32 online softmax, out = acc / max(l, 1e-37). A tile holds only
+// valid keys (its last one is cut at len), so keys at or past seq_lens are
+// never read and never contribute, where the TPU kernel reads whole
+// 512-key chunks and masks them to -inf. The 512-key chunk and the
+// cap % 512 == 0 assertion were Mosaic tiling rules: any capacity works
+// here (bucket_capacity gives caps such as 1280).
+//
+// What bounds it: bytes. A row at position p reads 2 (p + 1) Hh D elements
+// of K/V per layer (1.0 MB of f32 at p = 1000) for 4 FLOP per element
+// pair. One row of 10 heads is 10 blocks on 132 SMs: at batch 1 the card
+// is mostly idle and the kernel is latency-bound; splitting a row's keys
+// across blocks (with a merge pass) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,6 +171,53 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// One page (G, X) or key tile (U) of the f32 online softmax of thread t's
+// output dim: the keys j < n_read of a [n_read, D] slab of K and of V at k /
+// v, keys j >= n_valid at -inf. Scores: warp w takes keys w, w + 4, ...,
+// each lane 4 of the 128 dims, xor-shuffle reductions; the tile's weights
+// sit in w [MAX_PAGE], the warps' maxima in wmax. Ends with a barrier, so
+// w and wmax may be rewritten by the next tile.
+template <typename T>
+__device__ __forceinline__ void attend_tile(const T* __restrict__ k, const T* __restrict__ v, int n_read,
+                                            int n_valid, const float (&qf)[4], float scale, float* w, float* wmax,
+                                            float& m, float& l, float& acc) {
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  float mx = -INFINITY;
+#pragma unroll 4
+  for (int j = warp; j < n_read; j += WARPS) {
+    float kf[4];
+    load4(k + (size_t)j * D + lane * 4, kf);
+    float d = qf[0] * kf[0];
+    d = fmaf(qf[1], kf[1], d);
+    d = fmaf(qf[2], kf[2], d);
+    d = fmaf(qf[3], kf[3], d);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
+    const float s = j < n_valid ? d * scale : -INFINITY;
+    if (lane == 0) w[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  if (lane == 0) wmax[warp] = mx;
+  __syncthreads();
+  float m_new = m;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) m_new = fmaxf(m_new, wmax[i]);
+  const float alpha = expf(m - m_new);  // m = -inf on the first tile: 0
+  if (t < n_read) w[t] = expf(w[t] - m_new);  // masked keys: exp(-inf) = 0
+  __syncthreads();
+  float psum = 0.f, pv = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < n_read; ++j) {
+    const float pj = w[j];
+    psum += pj;
+    pv = fmaf(pj, to_f32(v[(size_t)j * D + t]), pv);
+  }
+  l = alpha * l + psum;
+  acc = acc * alpha + pv;
+  m = m_new;
+  __syncthreads();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT) paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                                                    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
@@ -142,51 +225,17 @@ __global__ void __launch_bounds__(NT) paged_kernel(const float* __restrict__ q, 
                                                    int n_heads, int page, int max_pages, float scale) {
   __shared__ float w[MAX_PAGE];
   __shared__ float wmax[WARPS];
-  const int row = blockIdx.x, head = blockIdx.y;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x;
   const size_t qo = ((size_t)row * n_heads + head) * D;
   float qf[4];
-  load4(q + qo + lane * 4, qf);
+  load4(q + qo + t % 32 * 4, qf);  // lane l holds dims 4 l .. 4 l + 3
 
   const int len = seq_lens[row];
   float m = -INFINITY, l = 0.f, acc = 0.f;
   for (int p = 0; p < max_pages && p * page < len; ++p) {
     const int pg = block_tables[(size_t)row * max_pages + p];
     const size_t base = ((size_t)pg * n_heads + head) * page * D;
-    float mx = -INFINITY;
-#pragma unroll 4
-    for (int j = warp; j < page; j += WARPS) {
-      float kf[4];
-      load4(k_pages + base + (size_t)j * D + lane * 4, kf);
-      float d = qf[0] * kf[0];
-      d = fmaf(qf[1], kf[1], d);
-      d = fmaf(qf[2], kf[2], d);
-      d = fmaf(qf[3], kf[3], d);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
-      const float s = (p * page + j < len) ? d * scale : -INFINITY;
-      if (lane == 0) w[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    if (lane == 0) wmax[warp] = mx;
-    __syncthreads();
-    float m_new = m;
-#pragma unroll
-    for (int i = 0; i < WARPS; ++i) m_new = fmaxf(m_new, wmax[i]);
-    const float alpha = expf(m - m_new);  // m = -inf on the first page: 0
-    if (t < page) w[t] = expf(w[t] - m_new);  // masked keys: exp(-inf) = 0
-    __syncthreads();
-    float psum = 0.f, pv = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < page; ++j) {
-      const float pj = w[j];
-      psum += pj;
-      pv = fmaf(pj, to_f32(v_pages[base + (size_t)j * D + t]), pv);
-    }
-    l = alpha * l + psum;
-    acc = acc * alpha + pv;
-    m = m_new;
-    __syncthreads();  // w and wmax are rewritten by the next page
+    attend_tile(k_pages + base, v_pages + base, page, len - p * page, qf, scale, w, wmax, m, l, acc);
   }
   out[qo + t] = acc / fmaxf(l, 1e-37f);
 }
@@ -203,6 +252,43 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
       static_cast<const float*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
       static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads,
       page, max_pages, scale);
+  return (int)cudaGetLastError();
+}
+
+// Kernel U: see the header. k_layer / v_layer [B, Hh, cap, D].
+template <typename T>
+__global__ void __launch_bounds__(NT) stacked_kernel(const float* __restrict__ q, const T* __restrict__ k_layer,
+                                                     const T* __restrict__ v_layer, const int* __restrict__ seq_lens,
+                                                     float* __restrict__ out, int n_heads, int cap, float scale) {
+  constexpr int TILE = MAX_PAGE;  // keys a tile
+  __shared__ float w[TILE];
+  __shared__ float wmax[WARPS];
+  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x;
+  const size_t qo = ((size_t)row * n_heads + head) * D;
+  const size_t slab = qo * cap;  // ((row * Hh + head) * cap) * D
+  float qf[4];
+  load4(q + qo + t % 32 * 4, qf);  // lane l holds dims 4 l .. 4 l + 3
+
+  const int len = min(seq_lens[row], cap);
+  float m = -INFINITY, l = 0.f, acc = 0.f;
+  for (int t0 = 0; t0 < len; t0 += TILE) {
+    const int n = min(TILE, len - t0);  // valid keys of the tile
+    const size_t base = slab + (size_t)t0 * D;
+    attend_tile(k_layer + base, v_layer + base, n, n, qf, scale, w, wmax, m, l, acc);
+  }
+  out[qo + t] = acc / fmaxf(l, 1e-37f);
+}
+
+template <typename T>
+int launch_stacked(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens, void* out,
+                   int batch, int n_heads, int head_dim, int cap, float scale, void* stream) {
+  if (batch <= 0 || n_heads <= 0 || n_heads > 65535 || head_dim != D || cap <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch, n_heads);
+  stacked_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k_layer), static_cast<const T*>(v_layer),
+      static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads, cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -573,4 +659,20 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pages, const void*
                                  int max_pages, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, out, batch, n_heads, head_dim, page,
                                max_pages, scale, stream);
+}
+
+// Kernel U. q [B, Hh, D] f32; k_layer / v_layer: layer li of the stacked
+// cache, [B, Hh, cap, D] f32 or bf16; seq_lens [B] int32 (pos + 1, at most
+// cap); out [B, Hh, D] f32.
+extern "C" int decode_stacked_f32(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens,
+                                  void* out, int batch, int n_heads, int head_dim, int cap, float scale,
+                                  void* stream) {
+  return launch_stacked<float>(q, k_layer, v_layer, seq_lens, out, batch, n_heads, head_dim, cap, scale, stream);
+}
+
+extern "C" int decode_stacked_bf16(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens,
+                                   void* out, int batch, int n_heads, int head_dim, int cap, float scale,
+                                   void* stream) {
+  return launch_stacked<__nv_bfloat16>(q, k_layer, v_layer, seq_lens, out, batch, n_heads, head_dim, cap, scale,
+                                       stream);
 }

@@ -17,7 +17,11 @@ GEMM (`ops.moe_gmm.MoeFfnGmm`: D and E forward, E, S and T backward), and
 preallocated contiguous cache with the plain `sdpa`, as the JAX package's
 default "pool" strategy does: one token a row, or a chunk of S tokens
 (lookup decoding) at a shared or per-row position, each query masked to
-its own causal prefix. The cache is updated in place.
+its own causal prefix. The cache is updated in place. Under
+`DEEPSEEK_DECODE_ATTN=stacked` (`decode_attn_mode`) a one-token decode
+step attends through kernel U (`ops.paged_attention.decode_attention_stacked`)
+on the layer-stacked cache instead, in the JAX package's
+`_attention_decode_stacked` order.
 
 Int8 and int4 weights (`quantize_lm_params`, the CLI's `--moe-int8`,
 `--int8` and `--int4`):
@@ -46,6 +50,7 @@ the dtype cast, as the JAX package does) into the unquantized MoE forms.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -65,6 +70,7 @@ from ..ops.moe_decode import moe_ffn_decode_q8_fused
 from ..ops.moe_q4 import dequantize_experts_q4, moe_ffn_decode_q4, moe_ffn_decode_q4_fused, quantize_experts_q4
 from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import decode_attention_stacked
 from ..ops.rope import apply_rope, apply_rope_rows, rope_cache, rope_rows
 
 Params = Dict[str, Any]
@@ -294,10 +300,29 @@ def qkv_proj(x2: torch.Tensor, layer, decode: bool):
     return F.linear(x2, layer["wq"]), F.linear(x2, layer["wk"]), F.linear(x2, layer["wv"])
 
 
-def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool):
+def decode_attn_mode() -> str:
+    """`DEEPSEEK_DECODE_ATTN`, read at each call as the JAX package's
+    `_decode_attn_mode` does (default "pool"):
+    - "pool": the new token's K/V written into the cache in place, then the
+      plain `sdpa` over the layer's view;
+    - "stacked": the same write, then kernel U on the layer-stacked cache
+      (one-token steps; a chunk of S > 1 tokens takes "pool");
+    - "slice" (or any other value): the JAX package copies the layer out of
+      the cache and writes it back, a copy the port has no counterpart of
+      (a layer is a view), so it computes what "pool" computes.
+    Kernels K and O (quantized attention weights) run only under "pool", as
+    the JAX package's `_decode_attention` gates them. Unlike the JAX
+    package, "stacked" needs no Pallas: on CPU tensors U is its plain twin.
+    The paged engines never read it."""
+    return os.environ.get("DEEPSEEK_DECODE_ATTN", "pool")
+
+
+def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool, stacked_lens=None):
     """`pos`: an int shared by the rows, or (decode) per-row positions [B]
     of x[:, 0]. Decode query j of row b sits at posq[b, j] = pos[b] + j and
-    sees the keys at positions <= posq[b, j]."""
+    sees the keys at positions <= posq[b, j]. `stacked_lens` ([B] int32,
+    pos + 1; one-token decode under "stacked"): attend through kernel U
+    after the cache write."""
     b, s, h = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
     q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill))
@@ -320,6 +345,8 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_pr
     if is_prefill:
         # Fresh f32 K/V for the prompt pass, through kernel A.
         ctx = mha(q32, k32, v32, scale=scale, mode="causal")  # f32 in, f32 out
+    elif stacked_lens is not None:
+        ctx = decode_attention_stacked(q32[:, :, 0], cache["k"], cache["v"], li, stacked_lens, scale=scale)[:, :, None]
     else:
         mask = torch.arange(ck.shape[2], device=x.device) > posq[:, None, :, None]  # [B or 1, 1, S, cap]
         ctx = sdpa(q32, ck, cv, scale=scale, mask=mask, out_dtype=torch.float32)
@@ -417,8 +444,10 @@ def lm_forward(
     or at per-row positions `pos` [B] (a tensor; lookup decoding's ragged
     chunks), each query attending to its own causal prefix. A decode step
     of one token at an int `pos`, in a layer with int8 (int4) attention
-    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0; a chunk takes
-    the linears and the plain attention, as in the JAX package."""
+    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0 or the decode
+    mode is not "pool"; a chunk takes the linears and the plain attention,
+    as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
+    step attends through kernel U (`decode_attn_mode`)."""
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
     if training:
         if is_qlinear(params["lm_head"]) or any("experts_q8" in l or "wqkv" in l for l in params["layers"]):
@@ -431,7 +460,12 @@ def lm_forward(
                 x = _train_layer(x, layer, cfg, rope)
         return rms_norm(x, params["norm"], cfg.rms_norm_eps)
     b, s, h = embeds.shape
-    fused = not is_prefill and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled()
+    mode = None if is_prefill else decode_attn_mode()
+    fused = mode == "pool" and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled()
+    stacked_lens = None
+    if mode == "stacked" and s == 1:  # one fill a step, shared by the layers
+        stacked_lens = (pos.to(torch.int32) + 1 if torch.is_tensor(pos)
+                        else torch.full((b,), pos + 1, dtype=torch.int32, device=embeds.device))
     pos_b = None
     x = embeds
     for li, layer in enumerate(params["layers"]):
@@ -442,7 +476,7 @@ def lm_forward(
                 pos_b = torch.full((b,), pos, dtype=torch.int32, device=embeds.device)
             x = res + _fused_attention(xn, layer, cfg, rope, cache, li, pos, pos_b)
         else:
-            x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill)
+            x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill, stacked_lens)
         res = x
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
         x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=not is_prefill).reshape(b, s, h)

@@ -6,8 +6,13 @@ windows (196 keys; the TPU's 16x16 padding was a lane workaround), the
 in HF semantics), decomposed relative-position attention through kernel B
 (`ops.flash_attention.mha_relpos`) and every block MLP through kernel C
 (`ops.fused_mlp.mlp_gelu`). The rel_h / rel_w einsums stay outside the
-kernel, as in the JAX package. Weights keep HF layout ([out, in] linears,
-OIHW convs).
+kernel, as in the JAX package. Under `DEEPSEEK_SAM_WIN_KERNEL=1` (read at
+each call, as the JAX package reads it) the windowed blocks run kernel V
+(`ops.flash_attention.mha_win`) instead, which builds the bias inside the
+kernel from the flattened rel-pos tables; the global blocks stay on B. The
+JAX package takes that path only for windows padded 14 -> 16 (a TPU lane
+rule); the port runs V on its true 14 x 14 windows (win = valid = 14).
+Weights keep HF layout ([out, in] linears, OIHW convs).
 
 At the 768^2 crop views the absolute pos-embed (64 x 64) is resized to the
 48 x 48 patch grid (bicubic with antialias) and the global blocks' rel-pos
@@ -18,6 +23,7 @@ JAX package does with `jax.image.resize` (the same HF contract).
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -27,7 +33,7 @@ import torch.nn.functional as F
 from ..configs import SamConfig
 
 from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
-from ..ops.flash_attention import mha_relpos
+from ..ops.flash_attention import mha_relpos, mha_win
 from ..ops.fused_mlp import mlp_gelu
 from ..ops.norms import layer_norm
 
@@ -151,8 +157,10 @@ def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).to(pos.dtype)
 
 
-def _attention(x: torch.Tensor, blk: Params, num_heads: int) -> torch.Tensor:
-    """Decomposed rel-pos attention on [B, H, W, C] through kernel B."""
+def _attention(x: torch.Tensor, blk: Params, num_heads: int, win_kernel: bool = False) -> torch.Tensor:
+    """Decomposed rel-pos attention on [B, H, W, C] through kernel B, or
+    with `win_kernel` (square windows) through kernel V on the flattened
+    tables."""
     b, h, w, dim = x.shape
     hd = dim // num_heads
     l = h * w
@@ -163,14 +171,17 @@ def _attention(x: torch.Tensor, blk: Params, num_heads: int) -> torch.Tensor:
     k = qkv[:, :, 1].transpose(1, 2)
     v = qkv[:, :, 2].transpose(1, 2)
 
-    # Bias terms from the unscaled q, in f32.
     rh = get_rel_pos(h, h, blk["rel_h"])
     rw = get_rel_pos(w, w, blk["rel_w"])
-    r_q = q.float().reshape(b * num_heads, h, w, hd)
-    rel_h = torch.einsum("nhwc,hkc->nhwk", r_q, rh).reshape(b, num_heads, l, h)
-    rel_w = torch.einsum("nhwc,wkc->nhwk", r_q, rw).reshape(b, num_heads, l, w)
-
-    ctx = mha_relpos(q, k, v, rel_h, rel_w, scale=1.0 / math.sqrt(hd))
+    if win_kernel:  # rhf[c, i * win + j] = rh[i, j, c]
+        rhf, rwf = (t.permute(2, 0, 1).reshape(hd, l) for t in (rh, rw))
+        ctx = mha_win(q, k, v, rhf, rwf, scale=1.0 / math.sqrt(hd), win=h, valid=h)
+    else:
+        # Bias terms from the unscaled q, in f32.
+        r_q = q.float().reshape(b * num_heads, h, w, hd)
+        rel_h = torch.einsum("nhwc,hkc->nhwk", r_q, rh).reshape(b, num_heads, l, h)
+        rel_w = torch.einsum("nhwc,wkc->nhwk", r_q, rw).reshape(b, num_heads, l, w)
+        ctx = mha_relpos(q, k, v, rel_h, rel_w, scale=1.0 / math.sqrt(hd))
     ctx = ctx.transpose(1, 2).reshape(b, h, w, dim)
     return F.linear(ctx, blk["proj_w"].to(x.dtype)) + blk["proj_b"].to(x.dtype)
 
@@ -181,7 +192,8 @@ def _block(x: torch.Tensor, blk: Params, cfg: SamConfig, window: int) -> torch.T
     if window > 0:
         _, h, w, _ = x.shape
         wins, pad_hw = window_partition(x, window)
-        x = window_unpartition(_attention(wins, blk, cfg.num_heads), window, pad_hw, (h, w))
+        win_kernel = os.environ.get("DEEPSEEK_SAM_WIN_KERNEL", "") == "1"
+        x = window_unpartition(_attention(wins, blk, cfg.num_heads, win_kernel), window, pad_hw, (h, w))
     else:
         x = _attention(x, blk, cfg.num_heads)
     x = shortcut + x

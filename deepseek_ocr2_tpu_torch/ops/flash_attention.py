@@ -1,4 +1,4 @@
-"""Exact attention kernels A and B: CUDA wrappers and their plain twins.
+"""Exact attention kernels A, B and V: CUDA wrappers and their plain twins.
 
 Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
 - A, `mha` (replaces `_attn_kernel` via `mha_pallas`): modes none / causal /
@@ -7,8 +7,15 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   `mha_pallas(rel_h=, rel_w=)`): SAM attention with the decomposed relative
   position bias bias[q, kh*Kw + kw] = rel_h[q, kh] + rel_w[q, kw], folded in
   per score; the [L, L] bias is never built.
+- V, `mha_win` (replaces `_attn_kernel_relwin` via `mha_win_pallas`): SAM's
+  windowed attention with the decomposed bias built inside the kernel from
+  the flattened rel-pos tables rhf, rwf [D, T2] (each query's win rel-h and
+  win rel-w dot products), keys of a padded window (`valid < win`) at
+  -1e30. `models.sam` runs it in the windowed blocks under
+  `DEEPSEEK_SAM_WIN_KERNEL=1`. The TPU's `t2 % 128 == 0` assertion was a
+  lane rule: V takes any win.
 
-Both are one CUDA template, `csrc/flash_attention.cu` (see its header for the
+All three are one CUDA template, `csrc/flash_attention.cu` (see its header for the
 design: 64-query blocks streaming 64-key tiles with an online f32 softmax).
 The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
 tiling choices; the CUDA kernel takes every shape and masks the ragged edge.
@@ -29,7 +36,7 @@ from . import cuda_build
 from .attention import MASK_VALUE
 
 _MODES = {"none": 0, "causal": 1, "prefix": 2}
-_RELPOS = 3
+_RELPOS, _RELWIN = 3, 4
 _HEAD_DIMS = (64, 128)  # SAM, LM
 
 
@@ -140,3 +147,74 @@ def mha_relpos(
 
 
 mha_relpos.launches = 0
+
+
+def window_bias(q: torch.Tensor, rhf: torch.Tensor, rwf: torch.Tensor, win: int, valid: int) -> torch.Tensor:
+    """The explicit [B, H, T2, T2] f32 bias V builds inside the kernel (the
+    JAX package's test oracle): bias[q, kk] = q . rhf[:, (q // win) win +
+    kk // win] + q . rwf[:, (q % win) win + kk % win], and -1e30 on keys
+    whose row or column is >= valid."""
+    b, h, t2, _ = q.shape
+    q32 = q.float()
+    pos = torch.arange(t2, device=q.device)
+    col_h = ((pos // win)[:, None] * win + (pos // win)[None, :]).expand(b, h, t2, t2)
+    col_w = ((pos % win)[:, None] * win + (pos % win)[None, :]).expand(b, h, t2, t2)
+    bias = torch.gather(torch.matmul(q32, rhf.float()), -1, col_h) + \
+        torch.gather(torch.matmul(q32, rwf.float()), -1, col_w)
+    pad = (pos // win >= valid) | (pos % win >= valid)
+    return bias + torch.where(pad, -1.0e30, 0.0)
+
+
+def mha_win_reference(
+    q: torch.Tensor,  # [B, H, T2, D], T2 = win * win
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rhf: torch.Tensor,  # [D, T2] f32: rhf[c, h * win + kh] = rel_h_table[h, kh, c]
+    rwf: torch.Tensor,  # [D, T2] f32: rwf[c, w * win + kw] = rel_w_table[w, kw, c]
+    *,
+    scale: float,
+    win: int,
+    valid: int,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain twin of V: `window_bias` added to full f32 score rows, exact
+    softmax."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + window_bias(q, rhf, rwf, win, valid)
+    return torch.matmul(torch.softmax(scores, dim=-1), v.float()).to(out_dtype or q.dtype)
+
+
+def mha_win(
+    q: torch.Tensor,  # [B, H, T2, D], T2 = win * win
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rhf: torch.Tensor,  # [D, T2] f32
+    rwf: torch.Tensor,  # [D, T2] f32
+    *,
+    scale: float,
+    win: int,
+    valid: int,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Kernel V. Returns [B, H, T2, D] in out_dtype (q's dtype by default;
+    the kernel writes q's dtype, so on CUDA another one is refused). Rows
+    of padded queries are garbage, as in the JAX package: the caller slices
+    them off."""
+    b, h, t2, d = q.shape
+    if t2 != win * win or not 1 <= valid <= win:
+        raise ValueError(f"T2 = {t2} must be win * win = {win * win}, and 1 <= valid = {valid} <= win")
+    if q.device.type == "cpu":
+        return mha_win_reference(q, k, v, rhf, rwf, scale=scale, win=win, valid=valid, out_dtype=out_dtype)
+    if out_dtype not in (None, q.dtype):
+        raise ValueError(f"kernel V writes q's dtype {q.dtype}, not {out_dtype}")
+    if rhf.shape != (d, t2) or rwf.shape != (d, t2):
+        raise ValueError(f"rhf {tuple(rhf.shape)} / rwf {tuple(rwf.shape)} must be [{d}, {t2}]")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    rhf, rwf = rhf.float().contiguous(), rwf.float().contiguous()
+    cuda_build.require_cuda(q, k, v, rhf, rwf)
+    out = torch.empty_like(q)
+    _launch(q, k, v, out, rhf, rwf, _RELWIN, valid, win, win, scale)
+    mha_win.launches += 1
+    return out
+
+
+mha_win.launches = 0

@@ -20,7 +20,13 @@ Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
   refuses an input that requires grad while grad mode is on);
 - `moe_ffn_gmm_reference` is the grouped plain twin (the counterpart of
   `moe_ffn_ragged`): the CPU's forward above the dense cut-over, and the
-  oracle of the kernels on the card.
+  oracle of the kernels on the card;
+- W, the boundary-visit forward the aligned layout superseded, on the
+  port's copy of `_visit_schedule` and `_pick_bm` (`visit_schedule`,
+  `pick_bm`): `gmm_swiglu_visit` (replaces `_gmm_swiglu_kernel`) and
+  `gmm_ffn_visit` (replaces `_gmm_ffn_kernel`, the down product fused, the
+  act kept on chip). No path of the JAX package calls either, so none of the
+  port's does: the MoE above runs D and E.
 
 Weights keep HF's [out, in] layout, stacked over experts: gate/up [E, I, H],
 down [E, H, I]. Rounding points (identity for f32), as in the TPU kernels:
@@ -425,3 +431,172 @@ def moe_ffn_gmm(x_flat, experts: Dict[str, torch.Tensor], weights, idx) -> torch
     and E on CUDA tensors (S, T and E in the backward), the grouped twin on
     the CPU (the twins in the backward)."""
     return MoeFfnGmm.apply(x_flat, experts["gate"], experts["up"], experts["down"], weights, idx)
+
+
+# ---------------------------------------------------------------------------
+# Kernel W: the boundary-visit forward
+
+
+def pick_bm(m: int) -> int:
+    """Port of `_pick_bm`: the visit tile height for M sorted rows, 64 from
+    2048 rows, else 32. A caller that wants another height passes its own
+    `bm`."""
+    return 64 if m >= 2048 else 32
+
+
+def visit_schedule(group_sizes: torch.Tensor, m_pad: int, bm: int):
+    """Port of `_visit_schedule`, the same integers. From group sizes [E]
+    (sorted-row order), returns (tile [V], expert [V], lo [V], hi [V])
+    int32 with V = m_pad / bm + E: visit v covers row tile tile[v] against
+    expert expert[v] and owns the sorted rows [lo[v], hi[v]). Unused slots
+    point at the last tile with an empty range. On the device, no host
+    sync."""
+    dev = group_sizes.device
+    e = group_sizes.shape[0]
+    n_tiles = m_pad // bm
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), torch.cumsum(group_sizes.long(), 0)])
+    starts, ends = offsets[:-1].contiguous(), offsets[1:].contiguous()
+    tile_start = torch.arange(n_tiles, device=dev) * bm
+    e_first = torch.searchsorted(ends, tile_start, right=True)
+    e_last = torch.searchsorted(starts, tile_start + bm) - 1
+    count = (e_last - e_first + 1).clamp(min=0)
+    cum = torch.cumsum(count, 0)
+    v_ids = torch.arange(n_tiles + e, device=dev)
+    tile = torch.searchsorted(cum, v_ids, right=True)
+    valid = tile < n_tiles
+    tile_c = tile.clamp(max=n_tiles - 1)
+    rank = v_ids - torch.where(valid, cum[tile_c] - count[tile_c], 0)
+    expert = (e_first[tile_c] + rank).clamp(0, e - 1)
+    lo = torch.where(valid, torch.maximum(offsets[expert], tile_c * bm), 0)
+    hi = torch.where(valid, torch.minimum(offsets[expert + 1], tile_c * bm + bm), 0)
+    i32 = torch.int32
+    return tile_c.to(i32), expert.to(i32), lo.to(i32), hi.to(i32)
+
+
+def sorted_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int):
+    """The assignments sorted by expert, as the JAX package's `moe_ffn_gmm`
+    lays them out for the visit kernels: (x_sorted [m_pad, H], zero past
+    the N k real rows; group_sizes [E] int32), m_pad = N k rounded up to
+    bm."""
+    k = idx.shape[1]
+    m = idx.numel()
+    m_pad = -(-m // bm) * bm
+    flat, order, _ = _sort(idx)
+    group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=idx.device)
+    group_sizes.scatter_add_(0, flat.long(), torch.ones_like(flat))
+    x_sorted = torch.zeros(m_pad, x_flat.shape[1], dtype=x_flat.dtype, device=x_flat.device)
+    x_sorted[:m] = x_flat.index_select(0, order // k)
+    return x_sorted, group_sizes
+
+
+def _visit_rows(schedule, bm: int, m_pad: int):
+    """[V, bm] destination rows of each visit's tile rows: the row where it
+    owns it, m_pad (a discard row) elsewhere."""
+    vt, _, lo, hi = (t.long() for t in schedule)
+    rows = vt[:, None] * bm + torch.arange(bm, device=vt.device)
+    return torch.where((rows >= lo[:, None]) & (rows < hi[:, None]), rows, m_pad)
+
+
+def _visit_scatter(out_rows: torch.Tensor, schedule, bm: int, m_pad: int) -> torch.Tensor:
+    """[V, bm, N] per-visit tile results -> [m_pad, N], each row from the
+    visit that owns it, zero where none does."""
+    dest = _visit_rows(schedule, bm, m_pad).reshape(-1)
+    out = out_rows.new_zeros(m_pad + 1, out_rows.shape[-1])
+    out[dest] = out_rows.reshape(dest.shape[0], -1)
+    return out[:m_pad]
+
+
+def _visit_act(x, w_gate, w_up, schedule, bm: int) -> torch.Tensor:
+    """[V, bm, I] each visit's tile against its expert's gathered gate/up
+    weights at D's rounding points: silu in f32, the product in x's
+    dtype."""
+    vt, ve = schedule[0].long(), schedule[1].long()
+    xt = x[vt[:, None] * bm + torch.arange(bm, device=x.device)]  # [V, bm, H]
+    gate = torch.bmm(xt, w_gate[ve].transpose(1, 2))
+    up = torch.bmm(xt, w_up[ve].transpose(1, 2))
+    return F.silu(gate.float()).to(x.dtype) * up
+
+
+def gmm_swiglu_visit_reference(x, w_gate, w_up, schedule, bm: int) -> torch.Tensor:
+    """Plain twin of W's swiglu mode: each visit's act, each row taken from
+    the visit that owns it (zero where none does)."""
+    return _visit_scatter(_visit_act(x, w_gate, w_up, schedule, bm), schedule, bm, x.shape[0])
+
+
+def gmm_ffn_visit_reference(x, w_gate, w_up, w_down, schedule, bm: int) -> torch.Tensor:
+    """Plain twin of W's ffn mode: the swiglu twin's act per visit (rounded
+    to x's dtype), then round(act Wd^T), each row from the visit that owns
+    it (zero where none does)."""
+    act = _visit_act(x, w_gate, w_up, schedule, bm)
+    y = torch.bmm(act, w_down[schedule[1].long()].transpose(1, 2))
+    return _visit_scatter(y, schedule, bm, x.shape[0])
+
+
+def _check_visits(x, ws, schedule, bm: int, in_dims) -> int:
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(w.dtype != dt for w in ws):
+        raise ValueError(f"kernel W takes x and weights of one dtype, f32 or bf16; got {dt}, "
+                         f"{[w.dtype for w in ws]}")
+    if len(schedule) != 4 or any(t.dtype != torch.int32 or t.shape != schedule[0].shape for t in schedule):
+        raise ValueError("the schedule must be four int32 [V] tensors (tile, expert, lo, hi)")
+    if bm <= 0 or bm % GMM_BM or x.dim() != 2 or x.shape[0] % bm:
+        raise ValueError(f"kernel W takes bm a multiple of {GMM_BM} and m_pad rows a multiple of bm; "
+                         f"got bm {bm}, x {tuple(x.shape)}")
+    if any(d % _align(dt) for d in in_dims):
+        raise ValueError(f"H and I must be multiples of {_align(dt)}, got {in_dims}")
+    cuda_build.require_cuda(x, *ws, *schedule)
+    if any(t.data_ptr() % 16 for t in (x, *ws)):
+        raise ValueError("kernel W reads 16-byte aligned rows")
+    return schedule[0].shape[0]
+
+
+def gmm_swiglu_visit(x, w_gate, w_up, schedule, bm: int) -> torch.Tensor:
+    """Kernel W, swiglu mode: x [m_pad, H] (expert-sorted rows), w_gate /
+    w_up [E, I, H], schedule = `visit_schedule(...)` -> act [m_pad, I] in
+    x's dtype; rows no visit owns (those past the N k real rows) are zero."""
+    if x.device.type == "cpu":
+        return gmm_swiglu_visit_reference(x, w_gate, w_up, schedule, bm)
+    e, i, h = w_gate.shape
+    if w_up.shape != (e, i, h) or x.shape[1] != h:
+        raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} do not fit")
+    n_visits = _check_visits(x, (w_gate, w_up), schedule, bm, (h, i))
+    lib = cuda_build.load("moe_gmm")
+    fn = lib.gmm_swiglu_visit_f32 if x.dtype == torch.float32 else lib.gmm_swiglu_visit_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    act = torch.zeros(x.shape[0], i, dtype=x.dtype, device=x.device)
+    p = cuda_build.ptr
+    err = fn(p(x), p(w_gate), p(w_up), *(p(t) for t in schedule), p(act), n_visits, bm, h, i,
+             cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_gmm swiglu visit (W)")
+    gmm_swiglu_visit.launches += 1
+    return act
+
+
+gmm_swiglu_visit.launches = 0
+
+
+def gmm_ffn_visit(x, w_gate, w_up, w_down, schedule, bm: int) -> torch.Tensor:
+    """Kernel W, ffn mode: as `gmm_swiglu_visit` with w_down [E, H, I]
+    fused -> y [m_pad, H] in x's dtype."""
+    if x.device.type == "cpu":
+        return gmm_ffn_visit_reference(x, w_gate, w_up, w_down, schedule, bm)
+    e, i, h = w_gate.shape
+    if w_up.shape != (e, i, h) or w_down.shape != (e, h, i) or x.shape[1] != h:
+        raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)}, up {tuple(w_up.shape)} and down "
+                         f"{tuple(w_down.shape)} do not fit")
+    n_visits = _check_visits(x, (w_gate, w_up, w_down), schedule, bm, (h, i))
+    lib = cuda_build.load("moe_gmm")
+    fn = lib.gmm_ffn_visit_f32 if x.dtype == torch.float32 else lib.gmm_ffn_visit_bf16
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.zeros(x.shape[0], h, dtype=x.dtype, device=x.device)
+    p = cuda_build.ptr
+    err = fn(p(x), p(w_gate), p(w_up), p(w_down), *(p(t) for t in schedule), p(y), n_visits, bm, h, i,
+             cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_gmm ffn visit (W)")
+    gmm_ffn_visit.launches += 1
+    return y
+
+
+gmm_ffn_visit.launches = 0

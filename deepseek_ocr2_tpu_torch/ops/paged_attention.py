@@ -1,5 +1,5 @@
-"""Paged decode attention, kernels G and P: the CUDA wrappers and their
-plain twins.
+"""Decode attention, kernels G, P, Q, R, U and X: the CUDA wrappers and
+their plain twins.
 
 Port of `paged_decode_attention_pool` in deepseek_ocr2_tpu/ops/paged_attention.py
 (the Pallas kernel `_paged_kernel_pool`): one query per row against the
@@ -24,6 +24,21 @@ runs: ports of `_paged_kernel_pool_chunk` and `_paged_kernel_pool_chunk_q8`.
 S queries a row (the last token and its drafts) share the row's pages, each
 with its own causal budget `seq_lens[row, i]` (its position + 1); an
 int8tail row's open page is its last one by the row's largest budget.
+
+Kernel X (`paged_decode_attention`) ports `paged_decode_attention` (the
+Pallas kernel `_paged_kernel`): the per-sequence form from before the
+pool, one query per row over a pool [P, Hh, page, D] with no layer axis.
+That is the view G walks, so X launches G's device code; it has its own
+entry point and counter, and the twin is G's (the JAX package's
+`paged_decode_attention_xla`). The JAX package calls it only from its tests.
+
+Kernel U (`decode_attention_stacked`) ports `decode_attention_stacked` (the
+Pallas kernel `_stacked_kernel`): decode attention read straight from the
+layer-stacked contiguous cache [L, B, Hh, cap, D], the decode path of
+`DEEPSEEK_DECODE_ATTN=stacked` (`models.deepseek_v2.decode_attn_mode`).
+Like G it takes the pointer of the `k_all[layer]` view. It walks only each
+row's valid keys, so it needs neither the TPU kernel's 512-key chunk nor
+its `cap % 512 == 0` assertion (Mosaic tiling rules): any capacity works.
 
 A wrapper runs its plain twin only for CPU tensors. For CUDA tensors it
 launches the kernel or raises; there is no fallback. `launches` counts
@@ -71,6 +86,33 @@ def paged_decode_attention_reference(
     return torch.einsum("bhk,bhkd->bhd", torch.softmax(s, dim=-1), v)
 
 
+def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, kernel: str) -> torch.Tensor:
+    """G's device code (kernels G and X) on a [P, Hh, page, D] pool view."""
+    b, hh, d = q.shape
+    n_pages, _, page, _ = k_pages.shape
+    if q.dtype != torch.float32 or d != _HEAD_DIM:
+        raise ValueError(f"kernel {kernel} takes f32 q with head dim {_HEAD_DIM}, got {q.dtype} {tuple(q.shape)}")
+    if k_pages.dtype not in (torch.float32, torch.bfloat16) or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"the pool must be f32 or bf16, got {k_pages.dtype} / {v_pages.dtype}")
+    if k_pages.shape != (n_pages, hh, page, d) or v_pages.shape != k_pages.shape or page > _MAX_PAGE:
+        raise ValueError(f"pool pages {tuple(k_pages.shape)} do not fit q {tuple(q.shape)} (page <= {_MAX_PAGE})")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("block_tables and seq_lens must be int32")
+    if block_tables.shape[0] != b or seq_lens.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs {b} rows")
+    cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_decode_f32 if k_pages.dtype == torch.float32 else lib.paged_decode_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    p = cuda_build.ptr
+    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(out),
+             b, hh, d, page, block_tables.shape[1], scale, cuda_build.stream_of(q))
+    cuda_build.check(err, f"paged_attention ({kernel})")
+    return out
+
+
 def paged_decode_attention_pool(
     q: torch.Tensor,  # [B, Hh, D] f32
     k_pool: torch.Tensor,  # [L, P, Hh, page, D] f32 or bf16
@@ -85,33 +127,93 @@ def paged_decode_attention_pool(
     k_pages, v_pages = k_pool[layer], v_pool[layer]  # views
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pages, v_pages, block_tables, seq_lens, scale=scale)
-    b, hh, d = q.shape
-    n_pages, _, page, _ = k_pages.shape
-    if q.dtype != torch.float32 or d != _HEAD_DIM:
-        raise ValueError(f"kernel G takes f32 q with head dim {_HEAD_DIM}, got {q.dtype} {tuple(q.shape)}")
-    if k_pool.dtype not in (torch.float32, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"the pool must be f32 or bf16, got {k_pool.dtype} / {v_pool.dtype}")
-    if k_pages.shape != (n_pages, hh, page, d) or v_pages.shape != k_pages.shape or page > _MAX_PAGE:
-        raise ValueError(f"pool layer {tuple(k_pages.shape)} does not fit q {tuple(q.shape)} (page <= {_MAX_PAGE})")
-    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
-        raise ValueError("block_tables and seq_lens must be int32")
-    if block_tables.shape[0] != b or seq_lens.shape != (b,):
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs {b} rows")
-    cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.paged_decode_f32 if k_pool.dtype == torch.float32 else lib.paged_decode_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(q)
-    p = cuda_build.ptr
-    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(out),
-             b, hh, d, page, block_tables.shape[1], scale, cuda_build.stream_of(q))
-    cuda_build.check(err, "paged_attention")
+    out = _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale, "G")
     paged_decode_attention_pool.launches += 1
     return out
 
 
 paged_decode_attention_pool.launches = 0
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, Hh, D] f32
+    k_pages: torch.Tensor,  # [P, Hh, page, D] f32 or bf16: a per-sequence pool, no layer axis
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    seq_lens: torch.Tensor,  # [B] int32 (valid keys, the new token included)
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Kernel X (G's device code) on a per-sequence pool. Returns [B, Hh, D]
+    f32."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(q, k_pages, v_pages, block_tables, seq_lens, scale=scale)
+    out = _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale, "X")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def decode_attention_stacked_reference(
+    q: torch.Tensor,  # [B, Hh, D]
+    k_all: torch.Tensor,  # [L, B, Hh, cap, D]
+    v_all: torch.Tensor,
+    layer: int,
+    seq_lens: torch.Tensor,  # [B] int
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Plain twin of U, the masked-SDPA form of the JAX package's test
+    oracle: layer `layer`'s full f32 score rows, -inf at key positions >=
+    seq_lens[row], exact softmax. Returns [B, Hh, D] f32."""
+    k, v = k_all[layer].float(), v_all[layer].float()
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+    k_pos = torch.arange(k.shape[2], device=q.device)
+    s = s.masked_fill(k_pos[None, None, :] >= seq_lens.long()[:, None, None], float("-inf"))
+    return torch.einsum("bhk,bhkd->bhd", torch.softmax(s, dim=-1), v)
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,  # [B, Hh, D] f32: the new token's query, after RoPE
+    k_all: torch.Tensor,  # [L, B, Hh, cap, D] f32 or bf16: the contiguous layer-stacked cache
+    v_all: torch.Tensor,
+    layer: int,
+    seq_lens: torch.Tensor,  # [B] int32: pos + 1 (the new token's K/V already written)
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Kernel U on layer `layer` of the contiguous cache. Returns [B, Hh, D]
+    f32."""
+    if q.device.type == "cpu":
+        return decode_attention_stacked_reference(q, k_all, v_all, layer, seq_lens, scale=scale)
+    q = q.contiguous()
+    k_layer, v_layer = k_all[layer], v_all[layer]  # views, never copies
+    b, hh, d = q.shape
+    cap = k_all.shape[3]
+    if q.dtype != torch.float32 or d != _HEAD_DIM:
+        raise ValueError(f"kernel U takes f32 q with head dim {_HEAD_DIM}, got {q.dtype} {tuple(q.shape)}")
+    if k_all.dtype not in (torch.float32, torch.bfloat16) or v_all.dtype != k_all.dtype:
+        raise ValueError(f"the cache must be f32 or bf16, got {k_all.dtype} / {v_all.dtype}")
+    if k_layer.shape != (b, hh, cap, d) or v_layer.shape != k_layer.shape:
+        raise ValueError(f"cache layer {tuple(k_layer.shape)} does not fit q {tuple(q.shape)}")
+    if seq_lens.dtype != torch.int32 or seq_lens.shape != (b,):
+        raise ValueError(f"seq_lens must be int32 [{b}], got {seq_lens.dtype} {tuple(seq_lens.shape)}")
+    cuda_build.require_cuda(q, k_layer, v_layer, seq_lens)
+    lib = cuda_build.load("paged_attention")
+    fn = lib.decode_stacked_f32 if k_all.dtype == torch.float32 else lib.decode_stacked_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    p = cuda_build.ptr
+    err = fn(p(q), p(k_layer), p(v_layer), p(seq_lens), p(out), b, hh, d, cap, scale, cuda_build.stream_of(q))
+    cuda_build.check(err, "paged_attention (U)")
+    decode_attention_stacked.launches += 1
+    return out
+
+
+decode_attention_stacked.launches = 0
 
 
 def dequant_pages(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

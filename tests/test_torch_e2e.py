@@ -233,7 +233,15 @@ r = pipe.generate_ocr({"base": canvas.numpy(), "patches": crops.numpy(), "ratio"
                       max_new_tokens=4, ngram_size=3)
 assert r.crop_ratio == (2, 1) and r.prompt_len > cfg.image_token_count((2, 1))
 assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
-from deepseek_ocr2_tpu_torch.ops import paged_attention  # noqa: F401
+import os
+os.environ.update(DEEPSEEK_DECODE_ATTN="stacked", DEEPSEEK_SAM_WIN_KERNEL="1")  # kernels U and V (twins)
+r = pipe.generate_ocr({"base": canvas.numpy()}, max_new_tokens=4, ngram_size=3)
+assert r.new_tokens >= 1 and bool(torch.isfinite(r.logits0).all())
+del os.environ["DEEPSEEK_DECODE_ATTN"], os.environ["DEEPSEEK_SAM_WIN_KERNEL"]
+from deepseek_ocr2_tpu_torch.ops import moe_gmm, paged_attention  # noqa: F401
+xs, sizes = moe_gmm.sorted_rows(torch.randn(10, 16), torch.randint(0, 4, (10, 2)), 4, 32)  # kernel W's twins
+w = torch.randn(4, 8, 16)
+assert moe_gmm.gmm_ffn_visit(xs, w, w, w.transpose(1, 2), moe_gmm.visit_schedule(sizes, 32, 32), 32).shape == (32, 16)
 from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
 from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
 from deepseek_ocr2_tpu_torch.runtime.http_server import OCRHttpServer  # noqa: F401

@@ -1,4 +1,4 @@
-"""Kernels A-T of the PyTorch port: plain twins against the JAX Pallas
+"""Kernels A-X of the PyTorch port: plain twins against the JAX Pallas
 kernels (interpret mode on the CPU) and the JAX XLA paths; CUDA kernels
 against their twins where a card is present, and the autograd guard every
 wrapper applies. (D and E's CPU parity with the
@@ -6,7 +6,7 @@ JAX package is in tests/test_torch_crop.py, S's and T's and the
 differentiable MoE's in test_torch_train_gmm.py, F's in test_torch_moe_decode.py,
 G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
 test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
-test_torch_lookup.py.)
+test_torch_lookup.py, U, V, W and X's in test_torch_remaining_kernels.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -29,7 +29,7 @@ import pytest
 import torch
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture: one intra-op thread)
 
-from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
+from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos, mha_win, mha_win_reference
 from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
 from deepseek_ocr2_tpu_torch.ops import (attn_fused, linear_q4, linear_q8, moe_decode, moe_gmm, moe_q4, moe_q8,
                                          paged_attention)
@@ -161,6 +161,38 @@ def test_wrappers_refuse_non_cuda_devices():
             torch.zeros(4, 10, 128, device="meta"), codes, codes, scales, scales,
             torch.zeros(4, 2, dtype=torch.int32, device="meta"), torch.zeros(4, dtype=torch.int32, device="meta"),
             1, scale=1.0)
+
+
+def _remaining_calls(dev, grad=False):
+    """One call of each wrapper of U, V, W (both modes) and X on `dev`
+    tensors of valid shapes; with `grad`, the query or x requires grad."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+
+    q = torch.zeros(2, 10, 128, device=dev, requires_grad=grad)
+    cache, lens = z(3, 2, 10, 64, 128), z(2, dtype=torch.int32)
+    pool, bt = z(4, 10, 16, 128), z(2, 3, dtype=torch.int32)
+    qw = torch.zeros(2, 12, 196, 64, device=dev, requires_grad=grad)
+    x = torch.zeros(64, 16, device=dev, requires_grad=grad)
+    w, wd = z(3, 8, 16), z(3, 16, 8)
+    sched = tuple(z(4, dtype=torch.int32) for _ in range(4))
+    return (lambda: paged_attention.decode_attention_stacked(q, cache, cache, 1, lens, scale=1.0),
+            lambda: paged_attention.paged_decode_attention(q, pool, pool, bt, lens, scale=1.0),
+            lambda: mha_win(qw, qw, qw, z(64, 196), z(64, 196), scale=1.0, win=14, valid=14),
+            lambda: moe_gmm.gmm_swiglu_visit(x, w, w, sched, 32),
+            lambda: moe_gmm.gmm_ffn_visit(x, w, w, wd, sched, 32))
+
+
+def test_remaining_wrappers_refuse_other_devices_and_grad_inputs():
+    """U, V, W and X as the other wrappers: a non-CPU, non-CUDA tensor raises
+    (no fallback); an input that requires grad is refused with grad mode
+    on, before the device is looked at."""
+    for call in _remaining_calls("meta"):
+        with pytest.raises(ValueError):
+            call()
+    for call in _remaining_calls("meta", grad=True):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
 
 
 def test_autograd_guard_refuses_grad_inputs_outside_a_function():
@@ -943,3 +975,140 @@ def test_cuda_int4_kernels_make_no_host_sync_and_quantize_as_the_cpu(cuda):
     wc[7] = 0.0
     want, got = linear_q4.quantize_linear_q4(wc), linear_q4.quantize_linear_q4(wc.to(cuda))
     assert torch.equal(got["q4"].cpu(), want["q4"]) and torch.equal(got["scale"].cpu(), want["scale"])
+
+
+# ---------------------------------------------------------------------------
+# Kernels U (stacked-cache decode attention), V (windowed rel-pos attention,
+# the bias built in the kernel), W (boundary-visit grouped GEMM, both modes)
+# and X (per-sequence paged decode attention, G's device code).
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cap,lens", [
+    (5, 64, [1, 7, 33, 64, 40]),
+    (5, 1024, [1, 513, 1024, 640, 512]),
+    (16, 1280, "ragged"),  # a bucket_capacity cap, not a multiple of 512
+    (1, 1024, [301]),
+])
+def test_cuda_decode_stacked_matches_twin(cuda, dtype, b, cap, lens):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    k_all, v_all = (torch.randn(3, b, 10, cap, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    q = torch.randn(b, 10, 128, generator=g, device=cuda)
+    if lens == "ragged":
+        seq = torch.linspace(1, cap, b, device=cuda).round().to(torch.int32)
+    else:
+        seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for layer in (0, 2):
+        before = paged_attention.decode_attention_stacked.launches
+        got = paged_attention.decode_attention_stacked(q, k_all, v_all, layer, seq, scale=128**-0.5)
+        torch.cuda.synchronize()
+        assert paged_attention.decode_attention_stacked.launches == before + 1
+        ref = paged_attention.decode_attention_stacked_reference(q, k_all, v_all, layer, seq, scale=128**-0.5)
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        assert float((got - ref).abs().max()) <= 1e-4  # f32 math on both sides
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_matches_twin(cuda, dtype):
+    """Kernel X on a per-sequence pool [P, Hh, page, D] (one layer of G's
+    case, made contiguous: no layer axis)."""
+    q, k_pool, v_pool, bt, seq_lens = _paged_case(cuda, dtype)
+    k_pages, v_pages = k_pool[5].contiguous(), v_pool[5].contiguous()
+    before = (paged_attention.paged_decode_attention.launches, paged_attention.paged_decode_attention_pool.launches)
+    got = paged_attention.paged_decode_attention(q, k_pages, v_pages, bt, seq_lens, scale=128**-0.5)
+    torch.cuda.synchronize()
+    assert (paged_attention.paged_decode_attention.launches,
+            paged_attention.paged_decode_attention_pool.launches) == (before[0] + 1, before[1])
+    ref = paged_attention.paged_decode_attention_reference(q, k_pages, v_pages, bt, seq_lens, scale=128**-0.5)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,win,valid", [(25, 14, 14), (6, 16, 14), (4, 16, 16), (3, 7, 5)])
+def test_cuda_window_attention_matches_twin(cuda, dtype, b, win, valid):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    t2 = win * win
+    q, k, v = (torch.randn(b, 12, t2, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    rhf, rwf = (0.3 * torch.randn(64, t2, generator=g, device=cuda) for _ in range(2))
+    pos = torch.arange(t2, device=cuda)
+    live = (pos // win < valid) & (pos % win < valid)  # padded queries are garbage by contract
+    before = mha_win.launches
+    got = mha_win(q, k, v, rhf, rwf, scale=0.125, win=win, valid=valid)
+    torch.cuda.synchronize()
+    assert mha_win.launches == before + 1 and got.dtype == dtype
+    ref = mha_win_reference(q, k, v, rhf, rwf, scale=0.125, win=win, valid=valid)
+    err = float((got.float() - ref.float())[:, :, live].abs().max())
+    assert err <= _tol(ref[:, :, live].float(), dtype)
+
+
+def _visit_case(dev, dtype, n, k, e=64, h=1280, i=896, seed=14):
+    """The LM's MoE widths; experts 0-7 get no rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, generator=g, device=dev).to(dtype)
+    ws = [(torch.randn(e, i, h, generator=g, device=dev) * h**-0.5).to(dtype) for _ in range(2)]
+    ws.append((torch.randn(e, h, i, generator=g, device=dev) * i**-0.5).to(dtype))
+    idx = torch.randint(8, e, (n, k), generator=g, device=dev)
+    return x, ws, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(548, 6), (200, 6), (37, 1)])  # bm 64, 32, 32
+def test_cuda_gmm_visit_matches_twin_and_the_aligned_pair(cuda, dtype, n, k):
+    """Both modes of W against their twins on the first N k rows, and the
+    ffn mode bit for bit equal to D then E on the expert-aligned layout for
+    the same rows (the same sums in the same order, act rounded at the same
+    point); rows past N k are written by no visit."""
+    x, (wg, wu, wd), idx = _visit_case(cuda, dtype, n, k)
+    e, m = wg.shape[0], n * k
+    bm = moe_gmm.pick_bm(m)
+    x_sorted, sizes = moe_gmm.sorted_rows(x, idx, e, bm)
+    sched = moe_gmm.visit_schedule(sizes, x_sorted.shape[0], bm)
+    before = (moe_gmm.gmm_swiglu_visit.launches, moe_gmm.gmm_ffn_visit.launches)
+    act = moe_gmm.gmm_swiglu_visit(x_sorted, wg, wu, sched, bm)
+    y = moe_gmm.gmm_ffn_visit(x_sorted, wg, wu, wd, sched, bm)
+    torch.cuda.synchronize()
+    assert (moe_gmm.gmm_swiglu_visit.launches, moe_gmm.gmm_ffn_visit.launches) == (before[0] + 1, before[1] + 1)
+    ref_act = moe_gmm.gmm_swiglu_visit_reference(x_sorted, wg, wu, sched, bm)
+    ref_y = moe_gmm.gmm_ffn_visit_reference(x_sorted, wg, wu, wd, sched, bm)
+    for got, ref in ((act, ref_act), (y, ref_y)):
+        assert float((got[:m].float() - ref[:m].float()).abs().max()) <= _tol(ref[:m].float(), dtype)
+        assert not bool(got[m:].any())  # no visit owns them: the wrapper's zeros
+    # D then E on the aligned layout of the same assignments.
+    src_slot, slot_valid, slot_of_sorted, e_tile, tile_valid = moe_gmm.aligned_layout(sizes, x_sorted.shape[0],
+                                                                                      moe_gmm.GMM_BM)
+    x_al = torch.where(slot_valid[:, None], x_sorted[src_slot.long().clamp(max=x_sorted.shape[0] - 1)], 0)
+    act_al = moe_gmm.moe_gmm_swiglu(x_al, wg, wu, e_tile, tile_valid)
+    y_al = moe_gmm.moe_gmm_down(act_al, wd, e_tile, tile_valid)
+    rows = slot_of_sorted[:m].long()
+    assert torch.equal(act[:m], act_al[rows]) and torch.equal(y[:m], y_al[rows])
+
+
+@pytest.mark.gpu
+def test_cuda_remaining_kernels_make_no_host_sync(cuda):
+    x, (wg, wu, wd), idx = _visit_case(cuda, torch.bfloat16, 300, 6)
+    bm = moe_gmm.pick_bm(x.shape[0] * 6)
+    x_sorted, sizes = moe_gmm.sorted_rows(x, idx, wg.shape[0], bm)
+    sched = moe_gmm.visit_schedule(sizes, x_sorted.shape[0], bm)
+    cache = torch.randn(2, 4, 10, 512, 128, device=cuda)
+    q = torch.randn(4, 10, 128, device=cuda)
+    lens = torch.tensor([1, 100, 300, 512], dtype=torch.int32, device=cuda)
+    qw = torch.randn(25, 12, 196, 64, device=cuda)
+    tab = torch.randn(64, 196, device=cuda)
+    calls = [lambda: moe_gmm.gmm_swiglu_visit(x_sorted, wg, wu, sched, bm),
+             lambda: moe_gmm.gmm_ffn_visit(x_sorted, wg, wu, wd, sched, bm),
+             lambda: paged_attention.decode_attention_stacked(q, cache, cache, 1, lens, scale=0.1),
+             lambda: mha_win(qw, qw, qw, tab, tab, scale=0.125, win=14, valid=14)]
+    for call in calls:
+        call()  # builds first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
