@@ -99,13 +99,16 @@ Phases (each raises on failure, so the exit code is non-zero):
    tokens against the CPU's, each under the margin rule.
 8. fine-tuning: phase 2 also holds S, T and E (the backward's recompute)
    at a training step's MoE layer (B 4 x S 512, 12 288 rows) to their
-   twins, and the whole `moe_ffn_gmm` backward to autograd through the
+   twins (S and T called as the backward calls them, with the layer's
+   schedule; their library call timed in a CUDA graph too), and the whole
+   `moe_ffn_gmm` backward to autograd through the
    grouped twin (one forward + backward under sync-debug "error"); then
    the full-width 12-layer LM in bf16 takes 5 AdamW steps and one remat
    step on one repeated batch through `runtime.train.adamw_train_step`
    (the train CLI's step), loss finite and falling, launches held to
    `train_launches_per_step`, with step ms, tokens/s, peak memory, the
-   forward + backward / update split and a profiled step's idle share;
+   forward + backward / update split and a profiled step's idle share and
+   device ms of D, E, S and T;
    8b: the loss and every gradient leaf of a 2-layer f32 LM, card against
    CPU; 8c: a resumed run bit-identical to a straight one on the card.
 
@@ -1044,6 +1047,9 @@ def grouped_mm_library(kind: str, a, b, e_tile, tile_valid, n_experts: int = 0):
                 fn = (lambda mat_a=mat_a, mat_b=mat_b, kw=kw: torch._grouped_mm(mat_a, mat_b, offs=offs, **kw))
                 fn()
                 torch.cuda.synchronize()
+                if kind == "T":
+                    form = "out_dtype f32, the kernel's output" if kw else "bf16 out, half the bytes written"
+                    print(f"[kernel] T library: torch._grouped_mm with {form}")
                 return fn
             except Exception as exc:  # a layout or option this torch refuses: try the next
                 errors.append(f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}")
@@ -1104,23 +1110,34 @@ def gmm_backward_results(dev, randn, record) -> None:
                median_ms(lambda: moe_gmm.gmm_down_reference(*args)),
                bound_ms(row_bytes(n * k, x_al, ref) + n_used * w_expert, flops, dt),
                grouped_mm_library("E", *args), graph=lambda: moe_gmm.moe_gmm_down(*args))
+        # S and T as the backward calls them: the schedule built once for the
+        # layer and passed to each call (the wrapper's own time excludes it).
+        tile_lo = moe_gmm.expert_tile_ranges(e_tile, tile_valid, e)
+        sched_s, sched_t = (tile_lo, moe_gmm.row_block_lo(tile_lo)), (tile_lo,)
         for what, a, w in (("dact = dy Wd", dy, ex["down"]), ("dx_gate = dgate Wg", act, ex["gate"])):
             args = (a, w, e_tile, tile_valid)
             ref = moe_gmm.gmm_dx_reference(*args)
-            record("S", f"{what}, {tuple(a.shape)} x {tuple(w.shape)}, {case}", ref, moe_gmm.moe_gmm_dx(*args),
-                   tolerance(ref, dt), median_ms(lambda: moe_gmm.moe_gmm_dx(*args)),
+            record("S", f"{what}, {tuple(a.shape)} x {tuple(w.shape)}, {case}", ref,
+                   moe_gmm.moe_gmm_dx(*args, *sched_s), tolerance(ref, dt),
+                   median_ms(lambda: moe_gmm.moe_gmm_dx(*args, *sched_s)),
                    median_ms(lambda: moe_gmm.gmm_dx_reference(*args)),
                    bound_ms(row_bytes(n * k, a, ref) + n_used * w_expert, flops, dt),
-                   grouped_mm_library("S", *args), graph=lambda: moe_gmm.moe_gmm_dx(*args))
+                   grouped_mm_library("S", *args), graph=lambda: moe_gmm.moe_gmm_dx(*args, *sched_s),
+                   library_graph=True)
             del ref
         for what, xx, yy in (("dW_gate = dgate^T x", x_al, act), ("dW_down = dy^T act", act, dy)):
             args = (xx, yy, e_tile, tile_valid, e)
             ref = moe_gmm.gmm_dw_reference(*args)
-            record("T", f"{what}, -> {tuple(ref.shape)} f32, {case}", ref, moe_gmm.moe_gmm_dw(*args),
-                   dw_tol(ref), median_ms(lambda: moe_gmm.moe_gmm_dw(*args)),
+            record("T", f"{what}, -> {tuple(ref.shape)} f32, {case}", ref, moe_gmm.moe_gmm_dw(*args, *sched_t),
+                   dw_tol(ref), median_ms(lambda: moe_gmm.moe_gmm_dw(*args, *sched_t)),
                    median_ms(lambda: moe_gmm.gmm_dw_reference(*args), reps=3),
                    bound_ms(row_bytes(n * k, xx, yy) + nbytes(ref), flops, dt),
-                   grouped_mm_library("T", *args), graph=lambda: moe_gmm.moe_gmm_dw(*args))
+                   grouped_mm_library("T", *args), graph=lambda: moe_gmm.moe_gmm_dw(*args, *sched_t),
+                   library_graph=True)
+            if dt == torch.bfloat16 and xx is x_al:
+                # T's floor on this card: its f32 output written once, by a fill in a graph.
+                print(f"[kernel] T write floor: a fill of its {nbytes(ref) / 1e6:.1f} MB f32 output in a CUDA "
+                      f"graph {graph_ms(lambda: ref.fill_(0.0)):.4f} ms")
             del ref
         del x_al, dy, act
 
@@ -1159,24 +1176,34 @@ def phase_kernels(dev) -> dict:
 
     results = {}
 
-    def record(kernel, case, ref, got, tol, ms, plain_ms, bound=None, library=None, graph=None):
+    def record(kernel, case, ref, got, tol, ms, plain_ms, bound=None, library=None, graph=None,
+               library_graph=False):
         """`bound`: bound_ms of the case's work; `library`: a callable of one
         PyTorch call computing the same function, timed here, or None;
         `graph`: a callable of the kernel's wrapper, timed by `graph_ms`, or
-        None."""
+        None; `library_graph`: also time the library call by `graph_ms`
+        (device time against device time)."""
         err = float((got.float() - ref.float()).abs().max())
         ok = err <= tol and bool(torch.isfinite(got.float()).all())
         lib_ms = median_ms(library) if library is not None else None
         dev_ms = graph_ms(graph) if graph is not None else None
+        lib_dev_ms = None
+        if library is not None and library_graph:
+            try:
+                lib_dev_ms = graph_ms(library)
+            except RuntimeError as exc:  # a yardstick only: a call that cannot be captured is left out
+                print(f"[kernel] {kernel} library: not captured in a CUDA graph ({str(exc).splitlines()[0][:120]})")
         bound, by = bound if bound is not None else (None, None)
         print(f"[kernel] {kernel} {case}: max_abs_err {err:.3e} (tol {tol:.1e}) "
               f"kernel {ms:.3f} ms{'' if dev_ms is None else f' (in a CUDA graph {dev_ms:.4f})'}, "
               f"plain {plain_ms:.3f} ms, bound {'-' if bound is None else f'{bound:.4f}'} ms "
-              f"({by}), library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'} {'ok' if ok else 'FAIL'}")
+              f"({by}), library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}"
+              f"{'' if lib_dev_ms is None else f' (in a CUDA graph {lib_dev_ms:.4f})'} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {case}: error {err} above {tol}")
         results.setdefault(kernel, []).append(dict(case=case, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                                                   bound_ms=bound, bound_by=by, library_ms=lib_ms, graph_ms=dev_ms))
+                                                   bound_ms=bound, bound_by=by, library_ms=lib_ms, graph_ms=dev_ms,
+                                                   library_graph_ms=lib_dev_ms))
 
     # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
     # the CLI's LM dtype, first: it is the main-path case of the record).
@@ -2746,9 +2773,26 @@ def _step_profile(dev, step) -> dict:
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
     gmm = [e for e in rows if "gmm_" in e.key]  # kernels D, E, S, T
+    by_kernel = {}
+    for e in gmm:
+        ms, n = by_kernel.get(_gmm_kernel_of(e.key), (0.0, 0))
+        by_kernel[_gmm_kernel_of(e.key)] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return {"wall_ms": wall * 1e3, "device_ms": busy, "launches": sum(e.count for e in rows),
             "gmm_ms": sum(e.self_device_time_total for e in gmm) / 1e3, "gmm_launches": sum(e.count for e in gmm),
+            "gmm_by_kernel": by_kernel,
             "top": [(e.key[:100], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}
+
+
+def _gmm_kernel_of(name: str) -> str:
+    """Which of D, E, S, T a csrc/moe_gmm.cu kernel's profiler name is: S
+    and T by their own names (bf16 `gmm_dx_wgmma_kernel`, `gmm_dw_*`; S in
+    f32 is the f32 GEMM template with its weight-rows flag on), D and E by
+    the template's first argument (two weights: D; one: E)."""
+    if "gmm_dx" in name or re.search(r"gmm_kernel<1, \d+, true", name):
+        return "S"
+    if "gmm_dw" in name:
+        return "T"
+    return "D" if re.search(r"gmm_(mma_)?kernel<2", name) else "E"
 
 
 def phase_train(dev) -> dict:
@@ -2831,6 +2875,8 @@ def phase_train(dev) -> dict:
           f"{prof['device_ms']:.1f} ms, idle share {1 - prof['device_ms'] / prof['wall_ms']:.3f}, "
           f"{prof['launches']} device activities; kernels D, E, S, T {prof['gmm_ms']:.1f} ms in "
           f"{prof['gmm_launches']} launches; top (name, ms, count) {prof['top']}")
+    print("[train] grouped-GEMM kernels a step (device ms, launches): " + ", ".join(
+        f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in sorted(prof["gmm_by_kernel"].items())))
     del params, state
     torch.cuda.empty_cache()
     return launches

@@ -34,10 +34,10 @@
 // outrun HBM. Tiles of one expert follow each other, so the repeats come
 // from the 50 MB L2 and HBM sees each layer's 440 MB of expert weights
 // about once (0.13 ms at 3.35 TB/s).
-// - bf16 (the LM's dtype on the main path): tensor cores, mma.sync
-//   m16n8k16 with f32 sums, fed from a cp.async double buffer; bound by
-//   streaming the weight slices from L2 and HBM. wgmma, TMA and a
-//   persistent grid are later work.
+// - bf16 (the LM's dtype on the main path): tensor cores. D, E and W:
+//   mma.sync m16n8k16 with f32 sums, fed from a cp.async double buffer;
+//   bound by streaming the weight slices from L2 and HBM. S and T: wgmma
+//   m64n256k16 fed by TMA through an mbarrier ring (sm90.cuh; below).
 // - f32 (full f32, no TF32): FMAs on the CUDA cores, whose 67 TFLOP/s peak
 //   makes it compute-bound. 8 row groups x 16 column groups of threads
 //   each hold a 4 x TN tile of the sums, fed by float4 reads of x and the
@@ -55,25 +55,33 @@
 // copies), x and the weights 16-byte aligned (checked by the wrapper);
 // ragged K and N edges are masked here.
 //
-// The backward (S, T) on the same layout and tiles:
-// - S reads the weight as it lies, [O, C] rows of length C, so no
-//   transposed copy is made: f32 stages [BK, BN] slices with float4 loads;
-//   bf16 copies [64, BN] slices with cp.async and builds the mma B
-//   fragments with ldmatrix.trans. Its grid is D/E's, (T, ceil(C / 128)).
-//   It is E with the weight read along the other dim: the same bounds.
-// - T contracts over rows, which are the slow dim of both operands. One
-//   block per (C block, O block, expert) walks that expert's tiles
-//   tile_lo[e] .. tile_lo[e + 1] in order and keeps its 64 x 64 block of
-//   sums in registers: a fixed summation order, no atomics, and an expert
-//   with no rows writes zeros. bf16 stages each 32-row tile of dy and x as
-//   it lies and feeds mma.sync with ldmatrix.trans (both operands
-//   transposed on the load); f32 runs 32 outer products per thread per row.
-//   Its work is the forward's (2 M O C operations), and each block rereads
-//   its expert's rows from L2 once per (O, C) block pair: the 12 288 rows
-//   of a 2048-token batch at k = 6 are 35 MB in bf16 for dW_gate, read
-//   20 x 14 times from L2. The blocks of one expert run together (expert
-//   slowest in the grid), so HBM sees the rows about once.
-
+// The backward (S, T) on the same layout and tiles. Both read every operand
+// as it lies: the transposes are the wgmma operand modes in bf16 and the
+// staging order in f32.
+// - S replaces _gmm_dx_kernel (deepseek_ocr2_tpu/ops/moe_gmm.py:381):
+//   out = round(a_t W_e), the weight [O, C] contracted on its rows. bf16: a
+//   persistent grid walks work items of a row block of up to 4 tiles (128
+//   rows) of one expert by 256 columns, so it reads each [O, 256] weight
+//   slice once per 128 rows, not once per 32-row tile, and each item's
+//   epilogue leaves by TMA stores that drain under the next item. Bound at
+//   the dact shape (12 288 rows, O 1280, C 896, 64 experts): about 0.2 GB
+//   of bytes (the real rows in and out, the experts' weights once), 0.060
+//   ms at 3.35 TB/s. L2 traffic: weight reads about 0.96 GB with one block
+//   per 32-row tile (the mma.sync design this replaced), about 0.3 GB with
+//   128-row blocks; the rows about 0.29 GB read once per 128 columns, 0.17
+//   GB once per 256. f32: D/E's f32 kernel reading the weight's [BK, BN]
+//   slices as they lie (WKN), grid (T, ceil(C / 128)).
+// - T replaces _gmm_dw_kernel (moe_gmm.py:440): dW_e = sum over e's tiles
+//   of dy_t^T x_t in f32, the tiles in order, no atomics; an expert with no
+//   rows gets zeros. It contracts over rows, the slow dim of both operands.
+//   bf16: a persistent grid walks (expert, 128 o x 256 c) work items,
+//   expert slowest; the f32 sums leave through TMA stores that overlap the
+//   next item. Bound at dW_gate (O 896, C 1280): the 293.6 MB f32 write
+//   plus 53.5 MB of rows, 0.104 ms. L2 traffic of the rows: about 0.88 GB
+//   with 64 x 64 blocks (the design this replaced: every (O, C) block pair
+//   rereads its expert's rows), 0.46 GB with 128 x 128 items, 0.35 GB with
+//   128 x 256. f32: one block per (64 c, 64 o, expert), 32 outer products
+//   per thread per row.
 //
 // Kernel W replaces the boundary-visit forward of the same file, which the
 // aligned D + E superseded and which no path of the JAX package calls:
@@ -105,6 +113,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -457,197 +467,350 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
   mma_store<NW, BN>(out, acc, row0, lo, hi, n0, n_dim, n_dim);
 }
 
-// ldmatrix with .trans: lanes supply the addresses of 16-byte rows (lanes
-// 0-7 matrix 0, 8-15 matrix 1, ...); lane l receives, of each 8 x 8 matrix
-// M, the pair M[2 (l % 4)][l / 4], M[2 (l % 4) + 1][l / 4]. On rows along
-// k and columns along m (or n), that is the mma fragment of the transposed
-// operand.
-__device__ __forceinline__ void ldsm_x2_trans(unsigned& r0, unsigned& r1, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(s) : "memory");
+// ---------------------------------------------------------------------------
+// bf16 kernels S and T on Hopper: TMA loads into a ring of shared-memory
+// stages (one producer warp, mbarriers "full" and "empty" per stage), two
+// consumer warpgroups that run wgmma m64n256k16 on the stages that have
+// arrived (sm90.cuh). A block is 288 threads: warpgroups 0 and 1 consume,
+// warp 8 produces (its lane 0 issues every copy). Every operand is read as
+// it lies in memory; the transposes are wgmma's operand modes, so no
+// transposed copy and no ldmatrix.trans.
+
+constexpr int WG_BLOCK = 288;         // two consumer warpgroups + the producer warp
+constexpr int PRODUCER_WARP = 8;
+constexpr int CONSUMER_WARPS = 8;     // each releases a stage: the "empty" barrier's count
+constexpr int SX_TILES = 4;           // S: a work item's rows, up to 4 tiles (128 rows) of one expert
+constexpr int SX_ROWS = SX_TILES * BM;
+constexpr int SX_BN = 256;            // S: a work item's output columns
+constexpr int SX_BK = 64;             // S: k per stage, one 128-byte row of bf16
+constexpr int SX_STAGES = 3;
+constexpr int SX_A_BYTES = SX_ROWS * SX_BK * 2;           // [128 rows][64 k]: 16 KB
+constexpr int SX_B_BOX = SX_BK * 64 * 2;                  // a [64 k][64 n] weight box: 8 KB
+constexpr int SX_STAGE_BYTES = SX_A_BYTES + SX_BN / 64 * SX_B_BOX;  // + [64 k][256 n] as four boxes: 48 KB
+constexpr int SX_OUT_BOX = BM * 64 * 2;                   // an output box, [32 rows][64 n] bf16: 4 KB
+constexpr int SX_OUT_BYTES = 2 * SX_BN / 64 * SX_OUT_BOX; // a warpgroup's [64 rows][256 n]: 32 KB
+constexpr int DW_TILE_O = 128;        // T: a work item's o extent (64 a warpgroup)
+constexpr int DW_TILE_C = 256;        // T: a work item's c extent
+constexpr int DW_STAGES = 4;
+constexpr int DW_BOX_BYTES = BM * 64 * 2;                 // a [32 rows][64] bf16 box: 4 KB
+constexpr int DW_STAGE_BYTES = (DW_TILE_O + DW_TILE_C) / 64 * DW_BOX_BYTES;  // dy 2 boxes, x 4: 24 KB
+constexpr int DW_OUT_BYTES = 64 * DW_TILE_C * 4;          // a warpgroup's [64 o][256 c] f32: 64 KB
+
+// Dynamic shared memory: the stages from a 1024-byte aligned base (the
+// swizzle atom), then the output tiles, then the barriers; the slack
+// covers the alignment. S takes 214 064 bytes and T 230 464, within the
+// 232 448 a block may use.
+constexpr int SX_SMEM = SX_STAGES * SX_STAGE_BYTES + 2 * SX_OUT_BYTES + 2 * SX_STAGES * 8 + 1024;
+constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_OUT_BYTES + 2 * DW_STAGES * 8 + 1024;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
+// Stage ring position: the stage index and the phase parity of its barriers.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  template <int N>
+  __device__ __forceinline__ void next() {
+    if (++stage == N) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int n_stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
 }
 
-// Kernel S in bf16: out [S, N] = round(a_t W_e), a [S, K] (K = the weight's
-// rows), W [E, K, N]. The grid, warps, A fragments and epilogue are E's
-// (gmm_mma_kernel with NW = 1); the [64, BN] weight slice is copied as it
-// lies, with rows padded to BN + 8 elements (16-byte aligned, and the 8
-// rows of an ldmatrix phase start in banks 0, 4, ..., 28).
-template <int BN>
-__global__ void __launch_bounds__(NT) gmm_dx_mma_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
-    const int* __restrict__ e_tile, const int* __restrict__ tile_valid,
-    __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
-  constexpr int NJ = BN / 16;
-  constexpr int WSN = BN + 8;
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * MS];
-  __shared__ __align__(16) __nv_bfloat16 ws[2][MK * WSN];
+// A consumer warp is done with a stage: its wgmma reads have completed.
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(empty);
+}
 
-  const int t = blockIdx.x;
-  if (!tile_valid[t]) return;
-  const int e = e_tile[t];
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;
-  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
-  const __nv_bfloat16* at = a + (size_t)t * BM * k_dim;
-  const __nv_bfloat16* wp = w + (size_t)e * k_dim * n_dim;
+// Kernel S in bf16: out [S, C] = round(a_t W_e), a [S, O] (the row tiles of
+// the aligned layout), W [E, O, C] contracted on O.
+//
+// A persistent grid of at most one block per SM walks the work items i =
+// blockIdx.x, + gridDim.x, ...; item i is (row block b, 256-column block)
+// = (i / n_cb, i % n_cb), the column blocks of one row block next to each
+// other so that they run together and read the block's rows from L2. Row
+// block b of expert e covers its tiles tile_lo[e] + 4 (b - blk_lo[e]) +
+// [0, 4), clipped at tile_lo[e + 1]: blk_lo is the wrapper's prefix of
+// ceil(tiles / 4) over the experts (`row_block_lo`), and the item finds its
+// expert by a binary search on it (`dx_row_blocks` in ops/moe_gmm.py is the
+// same map). Row blocks past blk_lo[E] zero the rows of the invalid tail
+// tiles, 4 tiles each (the ceil(T / 4) + E + 1 rows of the walk cover every
+// case); the rest are skipped.
+//
+// Each stage: A = a [128 rows][64 k] (K-major; warpgroup g multiplies rows
+// 64 g .. 64 g + 63 by all 256 columns, m64n256k16), B = W_e [64 k][256 n]
+// as it lies (N-major: wgmma's transposed B), four [64][64] boxes 8 KB
+// apart. The A box is the block's 128 rows whatever the clip (rows of the
+// next expert, or zeros past the end). K past O and n past C read zeros
+// (the weight's map is 3-D, [E][O][C], so a box never reaches the next
+// expert). 256 columns, not 128: a block's rows are read from L2 once per
+// 256 columns (0.17 GB of row reads at the dact shape instead of 0.29).
+//
+// Epilogue: each warpgroup rounds its sums to bf16 into its 32 KB tile
+// (eight [32 rows][64 n] boxes, 128-byte swizzled: no bank conflicts) and
+// one thread stores the boxes of the expert's row tiles with TMA (the
+// next expert's rows in the block are not stored; columns past C are
+// clipped). The store drains while the next item loads and multiplies;
+// `wait_group.read 0` holds the tile until the store has read it.
+__global__ void __launch_bounds__(WG_BLOCK, 1) gmm_dx_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_out, const int* __restrict__ tile_lo, const int* __restrict__ blk_lo,
+    __nv_bfloat16* __restrict__ out, int n_experts, int n_tiles, int k_dim, int n_dim) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* out_smem = smem + SX_STAGES * SX_STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_smem + 2 * SX_OUT_BYTES);
+  uint64_t* empty = full + SX_STAGES;
+  init_ring(full, empty, SX_STAGES);
+  const int n_blocks = blk_lo[n_experts];
+  const int n_cb = (n_dim + SX_BN - 1) / SX_BN, n_k = (k_dim + SX_BK - 1) / SX_BK;
+  const int n_items = ((n_tiles + SX_TILES - 1) / SX_TILES + n_experts + 1) * n_cb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  auto stage = [&](int buf, int k0) {
-    for (int i = tid; i < BM * (MK / 8); i += NT) {
-      const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
-      const bool full = k0 + kc < k_dim;
-      cp_async16(&xs[buf][r * MS + kc], full ? at + (size_t)r * k_dim + k0 + kc : at, full);
+  // Row block b < n_blocks: its expert and first tile.
+  auto row_block = [&](int b, int& e, int& t0) {
+    int hi = n_experts;  // blk_lo[e] <= b < blk_lo[hi]
+    e = 0;
+    while (hi - e > 1) {
+      const int mid = (e + hi) / 2;
+      if (blk_lo[mid] <= b) e = mid; else hi = mid;
     }
-    for (int i = tid; i < MK * (BN / 8); i += NT) {
-      const int kr = i / (BN / 8), nc = 8 * (i % (BN / 8));
-      const bool full = k0 + kr < k_dim && n0 + nc < n_dim;
-      cp_async16(&ws[buf][kr * WSN + nc], full ? wp + (size_t)(k0 + kr) * n_dim + n0 + nc : wp, full);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
+    t0 = tile_lo[e] + SX_TILES * (b - blk_lo[e]);
   };
 
-  float acc[NJ][4];
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      Ring ring;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int b = item / n_cb, n0 = item % n_cb * SX_BN;
+        if (b >= n_blocks) continue;
+        int e, t0;
+        row_block(b, e, t0);
+        for (int ks = 0; ks < n_k; ++ks, ring.next<SX_STAGES>()) {
+          sm90::mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+          uint64_t* bar = &full[ring.stage];
+          unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
+          sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);
+          sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  const int n_slices = (k_dim + MK - 1) / MK;
-  stage(0, 0);
-  for (int s = 0; s < n_slices; ++s) {
-    const int buf = s % 2;
-    if (s + 1 < n_slices) {
-      stage(buf ^ 1, (s + 1) * MK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      const __nv_bfloat16* xa = &xs[buf][(wm + g) * MS + kk + 2 * q];
-      unsigned af[4];
-      af[0] = *reinterpret_cast<const unsigned*>(xa);
-      af[1] = *reinterpret_cast<const unsigned*>(xa + 8 * MS);
-      af[2] = *reinterpret_cast<const unsigned*>(xa + 8);
-      af[3] = *reinterpret_cast<const unsigned*>(xa + 8 * MS + 8);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        unsigned b0, b1;
-        ldsm_x2_trans(b0, b1, &ws[buf][(kk + lane % 16) * WSN + wn + 8 * j]);
-        mma_bf16(acc[j], af, b0, b1);
+          for (int j = 0; j < SX_BN / 64; ++j)
+            sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
+        }
       }
     }
-    __syncthreads();
+    return;
   }
 
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * q;
-    if (col >= n_dim) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t row = (size_t)t * BM + wm + g + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(out + row * n_dim + col) =
-          __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  unsigned char* ob = out_smem + wg * SX_OUT_BYTES;
+  Ring ring;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int b = item / n_cb, n0 = item % n_cb * SX_BN;
+    if (b >= n_blocks) {  // the invalid tail's rows read as zeros
+      const int t0 = tile_lo[n_experts] + SX_TILES * (b - n_blocks);
+      if (t0 >= n_tiles) continue;
+      const int r0 = t0 * BM, r1 = min(t0 + SX_TILES, n_tiles) * BM;
+      const int chunks = min(SX_BN, n_dim - n0) / 8;  // n_dim is a multiple of 8
+      for (int i = threadIdx.x; i < (r1 - r0) * chunks; i += 256)
+        *reinterpret_cast<uint4*>(out + (size_t)(r0 + i / chunks) * n_dim + n0 + 8 * (i % chunks)) =
+            make_uint4(0, 0, 0, 0);
+      continue;
     }
-  }
-}
+    int e, t0;
+    row_block(b, e, t0);
+    const int t_end = min(t0 + SX_TILES, tile_lo[e + 1]);
 
-// Kernel T. Block (blockIdx.x, blockIdx.y, blockIdx.z) = (C block, O block,
-// expert) of dW [E, O, C] f32, DB x DB outputs, summed over the expert's
-// tiles in order (see the header).
-constexpr int DB = 64;
-constexpr int DS = DB + 8;  // bf16 row stride of a staged [BM, DB] slice
-
-__global__ void __launch_bounds__(NT) gmm_dw_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-    const int* __restrict__ tile_lo, float* __restrict__ dw, int c_dim, int o_dim) {
-  __shared__ __align__(16) __nv_bfloat16 ys[2][BM * DS];  // dy rows [BM][DB]: A^T (k = row, m = o)
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM * DS];  // x rows [BM][DB]: B (k = row, n = c)
-
-  const int c0 = blockIdx.x * DB, o0 = blockIdx.y * DB, e = blockIdx.z;
-  const int t0 = tile_lo[e], t1 = tile_lo[e + 1];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;
-  const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);  // warp: 32 o x 32 c
-
-  auto stage = [&](int buf, int t) {
-    const __nv_bfloat16* yt = dy + (size_t)t * BM * o_dim;
-    const __nv_bfloat16* xt = x + (size_t)t * BM * c_dim;
-    for (int i = tid; i < BM * (DB / 8); i += NT) {
-      const int r = i / (DB / 8), cc = 8 * (i % (DB / 8));
-      const bool fy = o0 + cc < o_dim, fx = c0 + cc < c_dim;
-      cp_async16(&ys[buf][r * DS + cc], fy ? yt + (size_t)r * o_dim + o0 + cc : yt, fy);
-      cp_async16(&xs[buf][r * DS + cc], fx ? xt + (size_t)r * c_dim + c0 + cc : xt, fx);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < n_k; ++ks, ring.next<SX_STAGES>()) {
+      sm90::mbar_wait(&full[ring.stage], ring.phase);
+      const unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
+      const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128, 16, 1024);
+      const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, SX_B_BOX, 1024);
+      sm90::fence_acc(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SX_BK / 16; ++kk)
+        sm90::wgmma_m64n256k16<0, 1>(acc, sm90::desc_add(da, 32 * kk), sm90::desc_add(db, 16 * 128 * kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+      release(&empty[ring.stage]);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
 
-  float acc[2][4][4];
+    // acc[4 j + 2 h + c]: row rl = 16 (warp % 4) + lane / 4 + 8 h of the
+    // warpgroup's 64, column cl = 8 j + 2 (lane % 4) + c of 256: box
+    // (rl / 32) * 4 + cl / 64, row rl % 32, 16-byte chunk (cl % 64) / 8
+    // swizzled with rl % 8.
+    if (tid == 0) sm90::bulk_wait_read<0>();
+    sm90::bar_sync(1 + wg, 128);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][j][c] = 0.f;
-
-  // A fragment of m16 tile mi at k step kk: matrix l / 8 of ldmatrix.x4 is
-  // (k + 0, m + 0), (k + 0, m + 8), (k + 8, m + 0), (k + 8, m + 8).
-  const int a_row = lane % 8 + 8 * (lane / 16), a_col = 8 * ((lane / 8) % 2);
-  if (t0 < t1) stage(0, t0);
-  for (int t = t0; t < t1; ++t) {
-    const int buf = (t - t0) % 2;
-    if (t + 1 < t1) {
-      stage(buf ^ 1, t + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4_trans(af[mi], &ys[buf][(kk + a_row) * DS + wm + 16 * mi + a_col]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned b0, b1;
-        ldsm_x2_trans(b0, b1, &xs[buf][(kk + lane % 16) * DS + wn + 8 * j]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][j], af[mi], b0, b1);
-      }
-    }
-    __syncthreads();  // everyone is done with buf before it is refilled
-  }
-
-  // Accumulator c of (mi, j): o row g (c < 2) or g + 8, c column 2q + c % 2.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + wn + 8 * j + 2 * q;
-      if (col >= c_dim) continue;  // c_dim is even: col + 1 is in range too
+    for (int j = 0; j < SX_BN / 8; ++j) {
+      const int cl = 8 * j + 2 * (lane % 4);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int o = o0 + wm + 16 * mi + g + 8 * h;
-        if (o < o_dim)
-          *reinterpret_cast<float2*>(dw + ((size_t)e * o_dim + o) * c_dim + col) =
-              make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+        const int rl = 16 * (warp % 4) + lane / 4 + 8 * h, rr = rl % 32;
+        const int off = ((rl / 32) * 4 + cl / 64) * SX_OUT_BOX + rr * 128 + ((((cl % 64) / 8) ^ (rr % 8)) * 16) +
+                        (cl % 8) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(ob + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
+    sm90::fence_proxy_async();
+    sm90::bar_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        const int t = t0 + 2 * wg + rt;
+        if (t >= t_end) break;
+#pragma unroll
+        for (int j = 0; j < SX_BN / 64; ++j)
+          if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * 4 + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);
+      }
+      sm90::bulk_commit();
+    }
   }
+  if (tid == 0) sm90::bulk_wait<0>();
 }
 
-// Kernel T in f32 on the CUDA cores: thread (ty, tx) of 16 x 8 holds o rows
+// Kernel T in bf16: dW [E, O, C] f32, dW[e] = sum over e's tiles t of
+// dy_t^T x_t (dy [S, O], x [S, C] on the aligned layout's row tiles).
+//
+// A persistent grid of at most one block per SM walks the work items i =
+// blockIdx.x, + gridDim.x, ...; item i is (expert e, o block, c block) of
+// 128 x 256 outputs, expert slowest (`dw_work_items` in ops/moe_gmm.py is
+// the same order): the blocks in flight work on one or two experts at a
+// time, whose rows stay in L2. The producer streams the expert's tiles
+// tile_lo[e] .. tile_lo[e + 1] - 1 in order, a stage each: dy [32 rows][128
+// o] and x [32 rows][256 c] as [32][64] boxes (loads past O or C read
+// zeros). Warpgroup g sums o rows 64 g .. 64 g + 63 by all 256 c: A = dy^T
+// from its box (M-major: wgmma's transposed A), B = x (N-major: transposed
+// B), two k16 steps of m64n256k16 a stage. The tiles are summed in order,
+// no atomics; an expert with no tiles gets zeros. 256 c, not 128: the
+// kernel is bound by L2 traffic (the stage reads and the f32 stores), and
+// wider items read the rows 25 % fewer times.
+//
+// Epilogue: each warpgroup writes its f32 sums into its 64 KB tile (eight
+// [64 o][32 c] boxes, 128-byte swizzled like the loads: 2-way bank
+// conflicts at most) and one thread stores them with TMA (3-D map: a store
+// is clipped at the expert's O and at C). The store of item i drains while
+// item i + 1 loads and multiplies; `wait_group.read 0` before the tile is
+// written again holds it until the store has read it. (Storing the tile in
+// two halves, each reused once its own store has been read, measured no
+// faster: the write stream itself sets T's time.)
+__global__ void __launch_bounds__(WG_BLOCK, 1) gmm_dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_dy, const __grid_constant__ CUtensorMap map_x,
+    const __grid_constant__ CUtensorMap map_dw, const int* __restrict__ tile_lo, int n_experts, int o_dim,
+    int c_dim) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* out_smem = smem + DW_STAGES * DW_STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_smem + 2 * DW_OUT_BYTES);
+  uint64_t* empty = full + DW_STAGES;
+  init_ring(full, empty, DW_STAGES);
+  const int n_ot = (o_dim + DW_TILE_O - 1) / DW_TILE_O, n_ct = (c_dim + DW_TILE_C - 1) / DW_TILE_C;
+  const int n_items = n_experts * n_ot * n_ct;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      Ring ring;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int e = item / (n_ot * n_ct), oc = item % (n_ot * n_ct);
+        const int o0 = oc / n_ct * DW_TILE_O, c0 = oc % n_ct * DW_TILE_C;
+        const int t1 = tile_lo[e + 1];
+        for (int t = tile_lo[e]; t < t1; ++t, ring.next<DW_STAGES>()) {
+          sm90::mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+          uint64_t* bar = &full[ring.stage];
+          unsigned char* st = smem + ring.stage * DW_STAGE_BYTES;
+          sm90::mbar_arrive_expect_tx(bar, DW_STAGE_BYTES);
+#pragma unroll
+          for (int j = 0; j < DW_TILE_O / 64; ++j)
+            sm90::tma_load_2d(st + j * DW_BOX_BYTES, &map_dy, bar, o0 + 64 * j, t * BM);
+#pragma unroll
+          for (int j = 0; j < DW_TILE_C / 64; ++j)
+            sm90::tma_load_2d(st + (DW_TILE_O / 64 + j) * DW_BOX_BYTES, &map_x, bar, c0 + 64 * j, t * BM);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  unsigned char* ob = out_smem + wg * DW_OUT_BYTES;
+  Ring ring;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int e = item / (n_ot * n_ct), oc = item % (n_ot * n_ct);
+    const int o0 = oc / n_ct * DW_TILE_O, c0 = oc % n_ct * DW_TILE_C;
+    const int t1 = tile_lo[e + 1];
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int t = tile_lo[e]; t < t1; ++t, ring.next<DW_STAGES>()) {
+      sm90::mbar_wait(&full[ring.stage], ring.phase);
+      const unsigned char* st = smem + ring.stage * DW_STAGE_BYTES;
+      const uint64_t da = sm90::desc_sw128(st + wg * DW_BOX_BYTES, DW_BOX_BYTES, 1024);
+      const uint64_t db = sm90::desc_sw128(st + DW_TILE_O / 64 * DW_BOX_BYTES, DW_BOX_BYTES, 1024);
+      sm90::fence_acc(acc);
+      sm90::wgmma_fence();
+      sm90::wgmma_m64n256k16<1, 1>(acc, da, db);
+      sm90::wgmma_m64n256k16<1, 1>(acc, sm90::desc_add(da, 16 * 128), sm90::desc_add(db, 16 * 128));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc);
+      release(&empty[ring.stage]);
+    }
+
+    // acc[4 j + 2 h + c]: o row ol = 16 (warp % 4) + lane / 4 + 8 h of the
+    // warpgroup's 64, column cl = 8 j + 2 (lane % 4) + c of 256: box cl / 32,
+    // row ol, 16-byte chunk (cl % 32) / 4 swizzled with ol % 8.
+    if (tid == 0) sm90::bulk_wait_read<0>();
+    sm90::bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < DW_TILE_C / 8; ++j) {
+      const int cl = 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ol = 16 * (warp % 4) + lane / 4 + 8 * h;
+        const int off = (cl / 32) * (64 * 128) + ol * 128 + ((((cl % 32) / 4) ^ (ol % 8)) * 16) + (cl % 4) * 4;
+        *reinterpret_cast<float2*>(ob + off) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::bar_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int box = 0; box < DW_TILE_C / 32; ++box)
+        if (c0 + 32 * box < c_dim && o0 + 64 * wg < o_dim)
+          sm90::tma_store_3d(&map_dw, ob + box * (64 * 128), c0 + 32 * box, o0 + 64 * wg, e);
+      sm90::bulk_commit();
+    }
+  }
+  if (tid == 0) sm90::bulk_wait<0>();
+}
+
+// Kernel T in f32 on the CUDA cores. Block (blockIdx.x, blockIdx.y,
+// blockIdx.z) = (C block, O block, expert) of DB x DB outputs, the expert's
+// tiles summed in order (see the header).
+constexpr int DB = 64;
+
+// Thread (ty, tx) of 16 x 8 holds o rows
 // 4 ty .. 4 ty + 3 and c columns 4 tx + 32 j + {0..3}, j < 2; per staged
 // row, one float4 of dy and two of x (a warp reads 4 distinct dy float4s,
 // broadcast, and 8 consecutive x float4s: no bank conflicts).
@@ -878,15 +1041,27 @@ extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, cons
   return launch_f32<1, 8, true>(a, w, w, aligned(e_tile, tile_valid), n_tiles, out, o, c, stream);
 }
 
-extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* e_tile, const void* tile_valid,
-                           void* out, int n_tiles, int bm, int o, int c, void* stream) {
-  if (bad_shape(n_tiles, bm, o, c, 8) || c % 8) return (int)cudaErrorInvalidValue;
-  using B = __nv_bfloat16;
-  constexpr int BN = 128;
-  const dim3 grid(n_tiles, (c + BN - 1) / BN);
-  gmm_dx_mma_kernel<BN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const B*>(a), static_cast<const B*>(w), static_cast<const int*>(e_tile),
-      static_cast<const int*>(tile_valid), static_cast<B*>(out), o, c);
+// S in bf16: tile_lo [E + 1] (expert e owns tiles tile_lo[e] .. tile_lo[e + 1]
+// - 1) and blk_lo [E + 1] (its row blocks blk_lo[e] .. blk_lo[e + 1] - 1,
+// ops/moe_gmm.row_block_lo), n_blocks the persistent grid (ops/moe_gmm.dx_grid)
+// -> out [S, C]; every row is written, those of the invalid tail tiles with
+// zeros.
+extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out,
+                           int n_tiles, int bm, int o, int c, int n_experts, int n_blocks, void* stream) {
+  if (bad_shape(n_tiles, bm, o, c, 8) || c % 8 || n_experts <= 0 || n_blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w, map_out;
+  const uint64_t dims_a[2] = {(uint64_t)o, (uint64_t)n_tiles * BM}, dims_out[2] = {(uint64_t)c, (uint64_t)n_tiles * BM};
+  const uint64_t dims_w[3] = {(uint64_t)c, (uint64_t)o, (uint64_t)n_experts};
+  const uint32_t box_a[2] = {SX_BK, SX_ROWS}, box_w[3] = {64, SX_BK, 1}, box_out[2] = {64, BM};
+  int err = sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
+  if (!err) err = sm90::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w, dims_w, box_w);
+  if (!err) err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
+  if (!err) err = (int)cudaFuncSetAttribute(gmm_dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SX_SMEM);
+  if (err) return err;
+  gmm_dx_wgmma_kernel<<<n_blocks, WG_BLOCK, SX_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
+      static_cast<__nv_bfloat16*>(out), n_experts, n_tiles, o, c);
   return (int)cudaGetLastError();
 }
 
@@ -904,15 +1079,23 @@ extern "C" int gmm_dw_f32(const void* x, const void* dy, const void* tile_lo, vo
   return (int)cudaGetLastError();
 }
 
+// T in bf16: as gmm_dw_f32, with the rows' count n_rows (the tensor maps'
+// extent) and the persistent grid's n_blocks (ops/moe_gmm.dw_schedule).
 extern "C" int gmm_dw_bf16(const void* x, const void* dy, const void* tile_lo, void* dw, int n_experts,
-                           int c, int o, void* stream) {
-  if (n_experts <= 0 || n_experts > 65535 || c <= 0 || o <= 0 || c % 8 || o % 8)
+                           int c, int o, int n_rows, int n_blocks, void* stream) {
+  if (n_experts <= 0 || c <= 0 || o <= 0 || c % 8 || o % 8 || n_rows <= 0 || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  using B = __nv_bfloat16;
-  const dim3 grid((c + DB - 1) / DB, (o + DB - 1) / DB, n_experts);
-  gmm_dw_mma_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const B*>(x), static_cast<const B*>(dy), static_cast<const int*>(tile_lo),
-      static_cast<float*>(dw), c, o);
+  CUtensorMap map_dy, map_x, map_dw;
+  const uint64_t dims_dy[2] = {(uint64_t)o, (uint64_t)n_rows}, dims_x[2] = {(uint64_t)c, (uint64_t)n_rows};
+  const uint64_t dims_dw[3] = {(uint64_t)c, (uint64_t)o, (uint64_t)n_experts};
+  const uint32_t box_rows[2] = {64, BM}, box_dw[3] = {32, 64, 1};
+  int err = sm90::make_map(&map_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dy, dims_dy, box_rows);
+  if (!err) err = sm90::make_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, x, dims_x, box_rows);
+  if (!err) err = sm90::make_map(&map_dw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 3, dw, dims_dw, box_dw);
+  if (!err) err = (int)cudaFuncSetAttribute(gmm_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  if (err) return err;
+  gmm_dw_wgmma_kernel<<<n_blocks, WG_BLOCK, DW_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map_dy, map_x, map_dw, static_cast<const int*>(tile_lo), n_experts, o, c);
   return (int)cudaGetLastError();
 }
 

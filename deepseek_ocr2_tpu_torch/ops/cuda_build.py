@@ -82,7 +82,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The current stream of t's device, as a raw handle (without building a
+    torch.cuda.Stream object: a few microseconds less host time a launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return ctypes.c_void_p(raw(t.device.index) if raw is not None else torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check(err: int, what: str) -> None:

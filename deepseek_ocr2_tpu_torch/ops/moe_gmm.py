@@ -13,7 +13,12 @@ Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
   weight contracted on its row dim; T, `moe_gmm_dw` (replaces
   `_gmm_dw_kernel`): per expert the sum of dy_t^T x_t over its tiles, in
   f32. The CUDA source is `csrc/moe_gmm.cu` (its header gives the design
-  and what bounds each kernel);
+  and what bounds each kernel). In bf16 both run wgmma fed by TMA
+  (`csrc/sm90.cuh`) on persistent grids: S on (row block of up to 128 rows
+  of one expert, 256 columns) work items (`row_block_lo`, `dx_grid`;
+  `dx_row_blocks` is the plain form of its row-block map), T on (expert,
+  128 x 256 outputs) work items (`dw_grid`; `dw_work_items` the plain form
+  of its walk);
 - `MoeFfnGmm`, the autograd Function: forward D then E, backward
   `_moe_ffn_gmm_bwd`'s rounding points on the aligned layout (E x 3, S x 3,
   T x 3). The kernels are forward-only outside it (`cuda_build.require_cuda`
@@ -57,6 +62,30 @@ from . import cuda_build
 # 32 rows still reuse each staged weight element 32 times. The CUDA source
 # has the same constant and refuses any other.
 GMM_BM = 32
+
+# ctypes signatures of csrc/moe_gmm.cu's entry points ("p" a pointer or the
+# stream, "i" an int), set once when the library is first used.
+_SIGNATURES = {
+    "gmm_swiglu_f32": "ppppppiiiip", "gmm_swiglu_bf16": "ppppppiiiip",
+    "gmm_down_f32": "pppppiiiip", "gmm_down_bf16": "pppppiiiip",
+    "gmm_dx_f32": "pppppiiiip", "gmm_dx_bf16": "pppppiiiiiip",
+    "gmm_dw_f32": "ppppiiip", "gmm_dw_bf16": "ppppiiiiip",
+    "gmm_swiglu_visit_f32": "ppppppppiiiip", "gmm_swiglu_visit_bf16": "ppppppppiiiip",
+    "gmm_ffn_visit_f32": "pppppppppiiiip", "gmm_ffn_visit_bf16": "pppppppppiiiip",
+}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _fn(name: str):
+    """The library's entry point `name`, its argtypes set (builds the
+    library at first use)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load("moe_gmm"), name)
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in _SIGNATURES[name]]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
 def aligned_layout(group_sizes: torch.Tensor, m_pad: int, bm: int):
@@ -128,7 +157,9 @@ def _align(dt) -> int:
     return 4 if dt == torch.float32 else 8  # elements in a 16-byte load
 
 
-def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4) -> None:
+def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4, extra=()) -> None:
+    """The inputs of D, E and S; `extra`: more tensors that must share x's
+    device (S's schedule)."""
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernels D, E and S take f32 or bf16, got {dt}")
@@ -139,7 +170,9 @@ def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4) 
     if x.shape[1] != k_dim or k_dim % _align(dt) or n_dim % n_align:
         raise ValueError(f"K = {x.shape[1]} must match the weights and be a multiple of {_align(dt)}, "
                          f"N = {n_dim} a multiple of {n_align}")
-    cuda_build.require_cuda(x, *ws, e_tile, tile_valid)
+    cuda_build.require_cuda(x, *ws, e_tile, tile_valid, *extra)
+    # K and N in multiples of 16 bytes (checked above) also give S's TMA
+    # maps in bf16 the 16-byte row strides they need.
     if any(t.data_ptr() % 16 for t in (x, *ws)):
         raise ValueError("kernels D, E and S read 16-byte aligned rows")
 
@@ -154,10 +187,7 @@ def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid) -> torch.Tensor:
     if w_up.shape != (e, i, h):
         raise ValueError(f"gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} differ")
     _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i)
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_swiglu_f32 if x_al.dtype == torch.float32 else lib.gmm_swiglu_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn("gmm_swiglu_f32" if x_al.dtype == torch.float32 else "gmm_swiglu_bf16")
     act = torch.zeros(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)
     p = cuda_build.ptr
     err = fn(p(x_al), p(w_gate), p(w_up), p(e_tile), p(tile_valid), p(act), n_tiles, bm, h, i,
@@ -177,10 +207,7 @@ def moe_gmm_down(act, w_down, e_tile, tile_valid) -> torch.Tensor:
     n_tiles, bm = _tiles(act, e_tile)
     e, h, i = w_down.shape
     _check(act, (w_down,), e_tile, tile_valid, i, h)
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_down_f32 if act.dtype == torch.float32 else lib.gmm_down_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn("gmm_down_f32" if act.dtype == torch.float32 else "gmm_down_bf16")
     y = torch.zeros(act.shape[0], h, dtype=act.dtype, device=act.device)
     p = cuda_build.ptr
     err = fn(p(act), p(w_down), p(e_tile), p(tile_valid), p(y), n_tiles, bm, i, h,
@@ -210,6 +237,93 @@ def expert_tile_ranges(e_tile: torch.Tensor, tile_valid: torch.Tensor, n_experts
     return torch.searchsorted(key, bounds, out_int32=True)
 
 
+# Kernel S in bf16 takes an expert's rows a row block at a time: up to
+# DX_TILES tiles (128 rows), so it reads each weight slice once per 128
+# rows; the expert's last block may hold fewer tiles. A work item is a row
+# block by DX_COLS output columns.
+DX_TILES, DX_COLS = 4, 256
+_SMS: Dict[int, int] = {}
+
+
+def _n_sms(dev: torch.device) -> int:
+    """The card's SM count (the persistent grids' bound), read once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def row_block_lo(tile_lo: torch.Tensor) -> torch.Tensor:
+    """[E + 1] int32 from tile_lo [E + 1]: expert e's row blocks are S's
+    blocks blk_lo[e] .. blk_lo[e + 1] - 1, ceil(tiles / DX_TILES) of them.
+    On the device, no host sync."""
+    per_expert = torch.div(tile_lo[1:] - tile_lo[:-1] + (DX_TILES - 1), DX_TILES, rounding_mode="floor")
+    blk_lo = torch.zeros_like(tile_lo)
+    torch.cumsum(per_expert, 0, out=blk_lo[1:])
+    return blk_lo
+
+
+def dx_grid_rows(n_tiles: int, n_experts: int) -> int:
+    """Row blocks in S's static walk: enough for every expert's blocks and
+    for the blocks that zero the invalid tail, DX_TILES tiles each."""
+    return -(-n_tiles // DX_TILES) + n_experts + 1
+
+
+def dx_grid(n_tiles: int, n_experts: int, c_dim: int, n_sms: int) -> int:
+    """S's persistent grid: one block per SM, or one per work item (row
+    block by DX_COLS columns) if there are fewer."""
+    return min(n_sms, dx_grid_rows(n_tiles, n_experts) * -(-c_dim // DX_COLS))
+
+
+def dx_row_blocks(tile_lo: torch.Tensor, blk_lo: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """The plain form of S's row-block map (csrc/moe_gmm.cu
+    `gmm_dx_wgmma_kernel`): [dx_grid_rows, 3] int64, per row block b its
+    (expert, first tile, end tile); the kernel's work item i is row block
+    i // ceil(C / DX_COLS) by column block i % ceil(C / DX_COLS). Row block
+    b < blk_lo[E] multiplies tiles [first, end) of the expert e with
+    blk_lo[e] <= b < blk_lo[e + 1]; the next ones zero the invalid tail,
+    DX_TILES tiles each (expert -1); the rest have first = end = n_tiles
+    and do nothing."""
+    n_experts = tile_lo.shape[0] - 1
+    tile_lo, blk_lo = tile_lo.long(), blk_lo.long()
+    b = torch.arange(dx_grid_rows(n_tiles, n_experts), device=tile_lo.device)
+    e = (torch.searchsorted(blk_lo, b, right=True) - 1).clamp(0, n_experts - 1)
+    first = tile_lo[e] + DX_TILES * (b - blk_lo[e])
+    end = torch.minimum(first + DX_TILES, tile_lo[e + 1])
+    tail = b >= blk_lo[-1]
+    z = (tile_lo[-1] + DX_TILES * (b - blk_lo[-1])).clamp(max=n_tiles)
+    first = torch.where(tail, z, first)
+    end = torch.where(tail, (z + DX_TILES).clamp(max=n_tiles), end)
+    return torch.stack([torch.where(tail, -1, e), first, end], 1)
+
+
+# Kernel T in bf16: a work item is an expert's DW_TILE_O x DW_TILE_C block
+# of dW.
+DW_TILE_O, DW_TILE_C = 128, 256
+
+
+def dw_grid(n_experts: int, o_dim: int, c_dim: int, n_sms: int) -> int:
+    """T's persistent grid: one block per SM, or one per work item if there
+    are fewer."""
+    return min(n_sms, n_experts * -(-o_dim // DW_TILE_O) * -(-c_dim // DW_TILE_C))
+
+
+def dw_work_items(n_experts: int, o_dim: int, c_dim: int) -> torch.Tensor:
+    """The plain form of T's walk (csrc/moe_gmm.cu `gmm_dw_wgmma_kernel`):
+    [n_items, 3] int64 (expert, o0, c0) of item i, expert slowest, then the
+    o block, then the c block; block k of a grid of G takes items k, k + G,
+    k + 2 G, ..."""
+    n_ot, n_ct = -(-o_dim // DW_TILE_O), -(-c_dim // DW_TILE_C)
+    i = torch.arange(n_experts * n_ot * n_ct)
+    oc = i % (n_ot * n_ct)
+    return torch.stack([i // (n_ot * n_ct), oc // n_ct * DW_TILE_O, oc % n_ct * DW_TILE_C], 1)
+
+
+def _check_ranges(ranges: torch.Tensor, n_experts: int, what: str) -> None:
+    if ranges.dtype != torch.int32 or ranges.shape != (n_experts + 1,):
+        raise ValueError(f"{what} must be int32 [{n_experts + 1}], got {ranges.dtype} {tuple(ranges.shape)}")
+
+
 def gmm_dw_reference(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
     """Plain twin of T: per tile dy_t^T x_t in f32 (the products of the
     working dtype's values are exact in f32), summed into the tile's
@@ -221,23 +335,35 @@ def gmm_dw_reference(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
     return out.index_add_(0, key, prod)[:n_experts]
 
 
-def moe_gmm_dx(a, w, e_tile, tile_valid) -> torch.Tensor:
+def moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Tensor:
     """Kernel S: a [S, O] (row tiles of one expert each), w [E, O, C] ->
     a_t @ w[e_t], [S, C] in a.dtype (f32 sums). The weight is read as it
     lies, contracted on its row dim: dact = dy Wd, dx = dgate Wg + dup Wu
-    with the port's HF-layout weights."""
+    with the port's HF-layout weights. bf16 takes the schedule tile_lo
+    (`expert_tile_ranges`) and blk_lo (`row_block_lo`), built here unless
+    the caller passes them (the backward builds them once a layer)."""
     if a.device.type == "cpu":
         return gmm_dx_reference(a, w, e_tile, tile_valid)
     n_tiles, bm = _tiles(a, e_tile)
     e, o, c = w.shape
-    _check(a, (w,), e_tile, tile_valid, o, c, _align(a.dtype))
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_dx_f32 if a.dtype == torch.float32 else lib.gmm_dx_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)
+    bf16 = a.dtype == torch.bfloat16
+    if bf16:
+        if tile_lo is None:
+            tile_lo = expert_tile_ranges(e_tile, tile_valid, e)
+        if blk_lo is None:
+            blk_lo = row_block_lo(tile_lo)
+        _check_ranges(tile_lo, e, "tile_lo")
+        _check_ranges(blk_lo, e, "blk_lo")
+    _check(a, (w,), e_tile, tile_valid, o, c, _align(a.dtype), (tile_lo, blk_lo) if bf16 else ())
     p = cuda_build.ptr
-    err = fn(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c, cuda_build.stream_of(a))
+    stream = cuda_build.stream_of(a)
+    if not bf16:
+        out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)  # invalid tiles stay zero
+        err = _fn("gmm_dx_f32")(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c, stream)
+    else:
+        out = torch.empty(a.shape[0], c, dtype=a.dtype, device=a.device)  # the kernel writes every row
+        err = _fn("gmm_dx_bf16")(p(a), p(w), p(tile_lo), p(blk_lo), p(out), n_tiles, bm, o, c, e,
+                                 dx_grid(n_tiles, e, c, _n_sms(a.device)), stream)
     cuda_build.check(err, "moe_gmm dx")
     moe_gmm_dx.launches += 1
     return out
@@ -246,10 +372,11 @@ def moe_gmm_dx(a, w, e_tile, tile_valid) -> torch.Tensor:
 moe_gmm_dx.launches = 0
 
 
-def moe_gmm_dw(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
+def moe_gmm_dw(x, dy, e_tile, tile_valid, n_experts: int, tile_lo=None) -> torch.Tensor:
     """Kernel T: x [S, C], dy [S, O] on the same row tiles -> dW [E, O, C]
     f32, dW[e] = sum over e's tiles of dy_t^T x_t, in tile order (no
-    atomics); an expert with no rows gets zeros."""
+    atomics); an expert with no rows gets zeros. tile_lo
+    (`expert_tile_ranges`) is built here unless the caller passes it."""
     if x.device.type == "cpu":
         return gmm_dw_reference(x, dy, e_tile, tile_valid, n_experts)
     _tiles(x, e_tile)
@@ -257,22 +384,27 @@ def moe_gmm_dw(x, dy, e_tile, tile_valid, n_experts: int) -> torch.Tensor:
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16) or dy.dtype != dt:
         raise ValueError(f"kernel T takes x and dy of one dtype, f32 or bf16; got {dt}, {dy.dtype}")
+    # 16-byte loads (f32) and TMA's 16-byte row strides (bf16) both need
+    # C and O in multiples of 16 bytes.
     if dy.shape[0] != x.shape[0] or c % _align(dt) or o % _align(dt):
         raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)}: rows must match, C and O be "
                          f"multiples of {_align(dt)}")
     if not 0 < n_experts <= 65535:
         raise ValueError(f"kernel T takes 1..65535 experts, got {n_experts}")
-    cuda_build.require_cuda(x, dy, e_tile, tile_valid)
+    if tile_lo is None:
+        tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
+    _check_ranges(tile_lo, n_experts, "tile_lo")
+    cuda_build.require_cuda(x, dy, e_tile, tile_valid, tile_lo)
     if any(t.data_ptr() % 16 for t in (x, dy)):
         raise ValueError("kernel T reads 16-byte aligned rows")
-    tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_dw_f32 if dt == torch.float32 else lib.gmm_dw_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dw = torch.empty(n_experts, o, c, dtype=torch.float32, device=x.device)
     p = cuda_build.ptr
-    err = fn(p(x), p(dy), p(tile_lo), p(dw), n_experts, c, o, cuda_build.stream_of(x))
+    stream = cuda_build.stream_of(x)
+    if dt == torch.float32:
+        err = _fn("gmm_dw_f32")(p(x), p(dy), p(tile_lo), p(dw), n_experts, c, o, stream)
+    else:
+        err = _fn("gmm_dw_bf16")(p(x), p(dy), p(tile_lo), p(dw), n_experts, c, o, x.shape[0],
+                                 dw_grid(n_experts, o, c, _n_sms(x.device)), stream)
     cuda_build.check(err, "moe_gmm dw")
     moe_gmm_dw.launches += 1
     return dw
@@ -411,17 +543,21 @@ class MoeFfnGmm(torch.autograd.Function):
         dwt = (y_al.float() * g_slot).sum(1)
         d_weights = dwt.index_select(0, rows).reshape(n, k).to(weights.dtype)
         del y_al, g_slot
+        # S's and T's schedule, once for the layer's six calls.
+        tile_lo = expert_tile_ranges(e_tile, tile_valid, e)
+        blk_lo = row_block_lo(tile_lo)
         # SwiGLU backward in f32: silu'(x) = sig(x) (1 + x (1 - sig(x))).
-        dact = moe_gmm_dx(dy_al, wd, e_tile, tile_valid).float()
+        dact = moe_gmm_dx(dy_al, wd, e_tile, tile_valid, tile_lo, blk_lo).float()
         dup = (dact * silu_g).to(dt)
         dgate = (dact * up.float() * (sig * (1.0 + gate_f * (1.0 - sig)))).to(dt)
         del dact, sig, silu_g, gate, gate_f, up
-        dx_al = moe_gmm_dx(dgate, wg, e_tile, tile_valid) + moe_gmm_dx(dup, wu, e_tile, tile_valid)
+        dx_al = (moe_gmm_dx(dgate, wg, e_tile, tile_valid, tile_lo, blk_lo)
+                 + moe_gmm_dx(dup, wu, e_tile, tile_valid, tile_lo, blk_lo))
         dx = dx_al.index_select(0, rows).reshape(n, k, -1).float().sum(1).to(dt)
         del dx_al
-        dwg = moe_gmm_dw(x_al, dgate, e_tile, tile_valid, e).to(wg.dtype)
-        dwu = moe_gmm_dw(x_al, dup, e_tile, tile_valid, e).to(wu.dtype)
-        dwd = moe_gmm_dw(act, dy_al, e_tile, tile_valid, e).to(wd.dtype)
+        dwg = moe_gmm_dw(x_al, dgate, e_tile, tile_valid, e, tile_lo).to(wg.dtype)
+        dwu = moe_gmm_dw(x_al, dup, e_tile, tile_valid, e, tile_lo).to(wu.dtype)
+        dwd = moe_gmm_dw(act, dy_al, e_tile, tile_valid, e, tile_lo).to(wd.dtype)
         return dx, dwg, dwu, dwd, d_weights, None
 
 
@@ -560,10 +696,7 @@ def gmm_swiglu_visit(x, w_gate, w_up, schedule, bm: int) -> torch.Tensor:
     if w_up.shape != (e, i, h) or x.shape[1] != h:
         raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} do not fit")
     n_visits = _check_visits(x, (w_gate, w_up), schedule, bm, (h, i))
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_swiglu_visit_f32 if x.dtype == torch.float32 else lib.gmm_swiglu_visit_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn("gmm_swiglu_visit_f32" if x.dtype == torch.float32 else "gmm_swiglu_visit_bf16")
     act = torch.zeros(x.shape[0], i, dtype=x.dtype, device=x.device)
     p = cuda_build.ptr
     err = fn(p(x), p(w_gate), p(w_up), *(p(t) for t in schedule), p(act), n_visits, bm, h, i,
@@ -586,10 +719,7 @@ def gmm_ffn_visit(x, w_gate, w_up, w_down, schedule, bm: int) -> torch.Tensor:
         raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)}, up {tuple(w_up.shape)} and down "
                          f"{tuple(w_down.shape)} do not fit")
     n_visits = _check_visits(x, (w_gate, w_up, w_down), schedule, bm, (h, i))
-    lib = cuda_build.load("moe_gmm")
-    fn = lib.gmm_ffn_visit_f32 if x.dtype == torch.float32 else lib.gmm_ffn_visit_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _fn("gmm_ffn_visit_f32" if x.dtype == torch.float32 else "gmm_ffn_visit_bf16")
     y = torch.zeros(x.shape[0], h, dtype=x.dtype, device=x.device)
     p = cuda_build.ptr
     err = fn(p(x), p(w_gate), p(w_up), p(w_down), *(p(t) for t in schedule), p(y), n_visits, bm, h, i,

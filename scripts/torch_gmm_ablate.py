@@ -1,0 +1,120 @@
+"""Where kernels S and T (bf16) spend their time: each ablation removes one
+part of `csrc/moe_gmm.cu` in a copy of the package and times both kernels
+again, in a CUDA graph, at a training step's MoE layer (B 4 x S 512 tokens,
+k 6 of 64 experts, H 1280, I 896: 12 288 rows, chip_smoke's phase 2 shapes).
+
+Ablations (each a text patch of the source; the script stops if the source
+no longer holds the text it patches):
+- `none`: the kernels as they are (their errors against the twins printed);
+- `s_no_store`: S's epilogue computes its tile but issues no TMA store;
+- `s_no_mma`: S loads every stage but runs no wgmma;
+- `t_no_store`: T issues no TMA store of its f32 sums;
+- `t_no_mma`: T loads every stage but runs no wgmma.
+An ablated kernel's output is wrong; only its time means anything. Each
+ablation runs in its own process on its own build (under `build/gmm_ablate/`).
+The wrapper's host time per call is printed too (calls enqueued behind a
+long sleep kernel, so the card's time does not count).
+
+    python3 scripts/torch_gmm_ablate.py [none s_no_store ...]   # on the card
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = "deepseek_ocr2_tpu_torch/csrc/moe_gmm.cu"
+S_STORE = "if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * 4 + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);"
+S_MMA = "sm90::wgmma_m64n256k16<0, 1>(acc, sm90::desc_add(da, 32 * kk), sm90::desc_add(db, 16 * 128 * kk));"
+T_STORE = "sm90::tma_store_3d(&map_dw, ob + box * (64 * 128), c0 + 32 * box, o0 + 64 * wg, e);"
+T_MMA = ("sm90::wgmma_m64n256k16<1, 1>(acc, da, db);\n"
+         "      sm90::wgmma_m64n256k16<1, 1>(acc, sm90::desc_add(da, 16 * 128), sm90::desc_add(db, 16 * 128));")
+ABLATIONS = {
+    "none": [],
+    "s_no_store": [(S_STORE, ";")],
+    "s_no_mma": [(S_MMA, ";")],
+    "t_no_store": [(T_STORE, ";")],
+    "t_no_mma": [(T_MMA, ";")],
+}
+
+CHILD = r"""
+import sys, time
+sys.path.insert(0, {root!r})
+sys.path.insert(1, {repo!r})
+import torch
+import chip_smoke as cs
+from deepseek_ocr2_tpu_torch.ops import moe_gmm
+from deepseek_ocr2_tpu_torch.ops.moe import route
+
+assert moe_gmm.__file__.startswith({root!r}), moe_gmm.__file__
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+
+def randn(*shape, std=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+
+e, k, h, i, n, dt = 64, 6, 1280, 896, cs.TRAIN_B * cs.TRAIN_S, torch.bfloat16
+x = randn(n, h, dtype=dt)
+wd, wg = randn(e, h, i, std=i**-0.5, dtype=dt), randn(e, i, h, std=h**-0.5, dtype=dt)
+_, idx = route(x, randn(e, h, std=h**-0.5), k)
+x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+dy, act = randn(x_al.shape[0], h, dtype=dt), randn(x_al.shape[0], i, dtype=dt)
+tile_lo = moe_gmm.expert_tile_ranges(e_tile, tile_valid, e)
+blk_lo = moe_gmm.row_block_lo(tile_lo)
+cases = [
+    ("S dact", (dy, wd), lambda a, w: moe_gmm.moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo, blk_lo),
+     lambda a, w: moe_gmm.gmm_dx_reference(a, w, e_tile, tile_valid)),
+    ("S dx_gate", (act, wg), lambda a, w: moe_gmm.moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo, blk_lo),
+     lambda a, w: moe_gmm.gmm_dx_reference(a, w, e_tile, tile_valid)),
+    ("T dW_gate", (x_al, act), lambda a, b: moe_gmm.moe_gmm_dw(a, b, e_tile, tile_valid, e, tile_lo),
+     lambda a, b: moe_gmm.gmm_dw_reference(a, b, e_tile, tile_valid, e)),
+    ("T dW_down", (act, dy), lambda a, b: moe_gmm.moe_gmm_dw(a, b, e_tile, tile_valid, e, tile_lo),
+     lambda a, b: moe_gmm.gmm_dw_reference(a, b, e_tile, tile_valid, e)),
+]
+out = []
+for name, args, fn, twin in cases:
+    err = float((fn(*args).float() - twin(*args).float()).abs().max())
+    graph = min(cs.graph_ms(lambda: fn(*args)) for _ in range(3))
+    torch.cuda._sleep(400_000_000)  # the card busy for a while: the calls below only enqueue
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn(*args)
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    out.append(f"{{name}} graph {{graph:.4f}} ms (err {{err:.1e}}), host {{host_us:.1f}} us")
+print("[ablate {name}] " + "; ".join(out), flush=True)
+"""
+
+
+def main() -> int:
+    names = sys.argv[1:] or list(ABLATIONS)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    for name in names:
+        tree = os.path.join(ROOT, "build", "gmm_ablate", name)
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "deepseek_ocr2_tpu_torch"), os.path.join(tree, "deepseek_ocr2_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = os.path.join(tree, SRC)
+        text = open(path).read()
+        for old, new in ABLATIONS[name]:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {SRC} no longer holds the text this ablation patches: {old[:60]}")
+            text = text.replace(old, new)
+        open(path, "w").write(text)
+        child = CHILD.format(root=tree, repo=ROOT, name=name)
+        rc = subprocess.run([sys.executable, "-c", child], cwd=tree).returncode
+        if rc != 0:
+            print(f"[ablate {name}] failed: rc {rc}", flush=True)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

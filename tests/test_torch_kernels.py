@@ -278,8 +278,10 @@ def test_cuda_mlp_matches_twin(cuda, dtype, m, e, f):
 
 def _moe_case(dev, dtype, n, e, h, i, k, routing):
     """Experts with fan-in scaled weights; `routing` is "router" (a random
-    f32 router: realistic group sizes), "one" (every row on expert 5) or
-    "few" (every row on experts 0-2, the others empty)."""
+    f32 router: realistic group sizes), "one" (every row on expert 5),
+    "few" (every row on experts 0-2, the others empty) or "tiles" (k = 1,
+    e = 8, n = 515: groups of 32, 128, 160, 33, 0, 97, 1 and 64 rows, i.e.
+    1, 4, 5, 2, 0, 4, 1 and 2 row tiles, in a random order of tokens)."""
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(n, h, generator=g, device=dev).to(dtype)
     experts = {
@@ -291,6 +293,11 @@ def _moe_case(dev, dtype, n, e, h, i, k, routing):
     weights = torch.rand(n, k, generator=g, device=dev)
     if routing == "one":
         idx = torch.full((n, k), 5, device=dev)
+    elif routing == "tiles":
+        sizes = torch.tensor([32, 128, 160, 33, 0, 97, 1, 64], device=dev)
+        assert (n, k, e) == (int(sizes.sum()), 1, sizes.numel())
+        groups = torch.repeat_interleave(torch.arange(e, device=dev), sizes)
+        idx = groups[torch.randperm(n, generator=g, device=dev)][:, None]
     else:
         idx = torch.randint(0, 3, (n, k), generator=g, device=dev)
     return x, experts, weights, idx
@@ -344,13 +351,17 @@ def _f32_tol(ref):
 @pytest.mark.parametrize("n,e,h,i,k,routing", [
     (2048, 64, 1280, 896, 6, "router"),  # a training batch's MoE layer at full LM width
     (77, 8, 200, 96, 2, "router"),  # ragged C and O edges
+    (300, 8, 264, 136, 2, "router"),  # O and C not multiples of 128: 264 and 136 both ways
     (200, 64, 256, 128, 2, "few"),  # most experts empty: T writes their zeros
+    (515, 8, 256, 128, 1, "tiles"),  # experts of 1, 4 and 5 tiles: S's partial last row block
+    (2048, 64, 1280, 896, 6, "one"),  # 12 288 rows on one expert: T's longest walk, 96 S row blocks
 ])
 def test_cuda_gmm_backward_kernels_match_twins(cuda, dtype, n, e, h, i, k, routing):
     """S (dact = dy Wd, dx = dgate Wg), T (dW of gate and down) and E at
     the gate/up shape (K = H, N = I), each against its twin on the same
     aligned rows. T's sums are f32 over exact products: the f32 bound for
-    both dtypes."""
+    both dtypes. S's rows past the last valid tile must read as zeros: the
+    bf16 wrapper hands the kernel an uninitialized output."""
     x, experts, weights, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
     x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -365,6 +376,10 @@ def test_cuda_gmm_backward_kernels_match_twins(cuda, dtype, n, e, h, i, k, routi
         (moe_gmm.moe_gmm_dw, moe_gmm.gmm_dw_reference, (dgate, dy, e_tile, tile_valid, e), None),
     ]
     for kernel, twin, args, tol in cases:
+        if kernel is moe_gmm.moe_gmm_dx:
+            # NaNs in the block the wrapper's output will reuse: a row the
+            # kernel fails to write shows.
+            torch.full((args[0].shape[0], args[1].shape[2]), float("nan"), dtype=dtype, device=cuda)
         got = kernel(*args)
         torch.cuda.synchronize()
         ref = twin(*args)
