@@ -16,7 +16,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`; `torch._grouped_mm` for E, S and
-   T in bf16); the grouped-GEMM MoE (D, E)
+   T in bf16); A (at the no-crop and the (2, 3) crop prompt) and E (at the
+   prompts of the crop pages, a training step's forward and its recompute)
+   also in a CUDA graph beside the library call in one, with A's visited
+   and skipped key tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
    also whole against its grouped twin; D+E, F, H-O and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
@@ -99,7 +102,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    tokens against the CPU's, each under the margin rule.
 8. fine-tuning: phase 2 also holds S, T and E (the backward's recompute)
    at a training step's MoE layer (B 4 x S 512, 12 288 rows) to their
-   twins (S and T called as the backward calls them, with the layer's
+   twins (E, S and T called as the backward calls them, with the layer's
    schedule; their library call timed in a CUDA graph too), and the whole
    `moe_ffn_gmm` backward to autograd through the
    grouped twin (one forward + backward under sync-debug "error"); then
@@ -170,10 +173,15 @@ def tolerance(ref: torch.Tensor, dtype: torch.dtype) -> float:
 # larger of the bytes it must move (each input read once, each output
 # written once) over the memory rate, and its operations over the peak rate
 # of their type. NVIDIA H100 SXM data sheet, dense, at the full 700 W:
-# 3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside
-# them (f32 inputs: the port keeps TF32 off).
+# 3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores. f32 products: the
+# card's least time for f32-accurate products, 3xTF32 on the tensor cores
+# (each operand split into a TF32 high and low part, three products with
+# f32 sums, as kernel A does and PyTorch's own f32 attention): 495 / 3
+# TFLOP/s, faster than the 67 TFLOP/s of f32 FMAs on the CUDA cores, so a
+# tensor-core kernel cannot read above 100 % of its bound. (1xTF32, torch's
+# allow_tf32, is not f32-accurate and stays off.)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 
 def nbytes(*tensors) -> int:
@@ -350,13 +358,20 @@ def gmm_results(dev, randn, record) -> None:
                    median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
                    bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt))
             args_e = (act, ex["down"], e_tile, tile_valid)
+            # E as the forward calls it: bf16 on S's schedule, built once a
+            # layer (outside the wrapper's time).
+            sched = moe_gmm.row_schedule(e_tile, tile_valid, e) if dt == torch.bfloat16 else ()
             y = moe_gmm.gmm_down_reference(*args_e)
-            got = moe_gmm.moe_gmm_down(*args_e)
+            # NaNs in the block the wrapper's output will reuse: a row the
+            # kernel fails to write shows.
+            torch.full(y.shape, float("nan"), dtype=dt, device=dev)
+            got = moe_gmm.moe_gmm_down(*args_e, *sched)
             record("E", f"down {case}", y, got, tolerance(y, dt),
-                   median_ms(lambda: moe_gmm.moe_gmm_down(*args_e)),
+                   median_ms(lambda: moe_gmm.moe_gmm_down(*args_e, *sched)),
                    median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)),
                    bound_ms(row_bytes(n * k, act, y) + n_used * w_expert, flops_d, dt),
-                   grouped_mm_library("E", act, ex["down"], e_tile, tile_valid))
+                   grouped_mm_library("E", act, ex["down"], e_tile, tile_valid),
+                   graph=lambda: moe_gmm.moe_gmm_down(*args_e, *sched), library_graph=True)
             del act, got, y, args_d, args_e
 
             args = (x, ex, weights, idx)
@@ -1103,17 +1118,19 @@ def gmm_backward_results(dev, randn, record) -> None:
         w_expert = nbytes(ex["gate"][0])
         flops = 2 * n * k * h * i  # every product here: M = N k rows by H by I
 
+        # E, S and T as the backward calls them: the schedule built once for
+        # the layer and passed to each call (the wrapper's own time excludes it).
+        sched_s = moe_gmm.row_schedule(e_tile, tile_valid, e)
+        sched_t = sched_s[:1]
         args = (x_al, ex["gate"], e_tile, tile_valid)
         ref = moe_gmm.gmm_down_reference(*args)
-        record("E", f"recompute gate = x Wg^T (K {h}, N {i}), {case}", ref, moe_gmm.moe_gmm_down(*args),
-               tolerance(ref, dt), median_ms(lambda: moe_gmm.moe_gmm_down(*args)),
+        torch.full(ref.shape, float("nan"), dtype=dt, device=dev)  # an unwritten row shows
+        record("E", f"recompute gate = x Wg^T (K {h}, N {i}), {case}", ref, moe_gmm.moe_gmm_down(*args, *sched_s),
+               tolerance(ref, dt), median_ms(lambda: moe_gmm.moe_gmm_down(*args, *sched_s)),
                median_ms(lambda: moe_gmm.gmm_down_reference(*args)),
                bound_ms(row_bytes(n * k, x_al, ref) + n_used * w_expert, flops, dt),
-               grouped_mm_library("E", *args), graph=lambda: moe_gmm.moe_gmm_down(*args))
-        # S and T as the backward calls them: the schedule built once for the
-        # layer and passed to each call (the wrapper's own time excludes it).
-        tile_lo = moe_gmm.expert_tile_ranges(e_tile, tile_valid, e)
-        sched_s, sched_t = (tile_lo, moe_gmm.row_block_lo(tile_lo)), (tile_lo,)
+               grouped_mm_library("E", *args), graph=lambda: moe_gmm.moe_gmm_down(*args, *sched_s),
+               library_graph=True)
         for what, a, w in (("dact = dy Wd", dy, ex["down"]), ("dx_gate = dgate Wg", act, ex["gate"])):
             args = (a, w, e_tile, tile_valid)
             ref = moe_gmm.gmm_dx_reference(*args)
@@ -1166,7 +1183,7 @@ def gmm_backward_results(dev, randn, record) -> None:
 
 
 def phase_kernels(dev) -> dict:
-    from deepseek_ocr2_tpu_torch.ops.flash_attention import mha, mha_reference, mha_relpos
+    from deepseek_ocr2_tpu_torch.ops.flash_attention import TC_KW, mha, mha_reference, mha_relpos, tc_key_tiles
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1245,8 +1262,9 @@ def phase_kernels(dev) -> dict:
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale))
         del q, k, v, rh, rw, ref, got, bias
 
-    # A: LM prefill, causal, f32: a no-crop prompt [1, 10, 260, 128] and a
-    # 6-crop one [1, 10, 1125, 128].
+    # A: LM prefill, causal, f32 (3xTF32 on the tensor cores): a no-crop
+    # prompt [1, 10, 260, 128] and a 6-crop one [1, 10, 1125, 128]. The
+    # bound counts the causal products, 2 x 2 D per (query, key <= query).
     for length in (260, 1125):
         q, k, v = (randn(1, 10, length, 128) for _ in range(3))
         scale = 1.0 / math.sqrt(128)
@@ -1256,7 +1274,18 @@ def phase_kernels(dev) -> dict:
         plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, mode="causal"))
         record("A", f"causal {tuple(q.shape)} float32", ref, got, F32_TOL, ms, plain,
                bound_ms(nbytes(q, k, v, ref), 2 * 10 * 128 * length * (length + 1), torch.float32),
-               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale))
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale),
+               graph=lambda: mha(q, k, v, scale=scale, mode="causal"), library_graph=True)
+        if length == 1125:
+            # The walk of one head: TC_KW-key tiles each row group multiplies
+            # (halved between its two warps) and the block stages, against
+            # the tiles a walk of every key would visit.
+            tiles = tc_key_tiles(length, length, "causal")
+            n_all = -(-length // TC_KW)
+            staged = int(((tiles.max(1).values + 1) // 2).sum()) * 2
+            print(f"[kernel] A key tiles at {length} tokens, a head ({TC_KW} keys a tile): the row groups "
+                  f"multiply {int(tiles.sum())} of {tiles.numel() * n_all} ({tiles.numel() * n_all - int(tiles.sum())} "
+                  f"skipped), the blocks stage {staged} of {tiles.shape[0] * n_all}")
 
     # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view) and, f32,
     # M = 6 * 2304 = 13824 (six 768^2 crops in one batch).
@@ -2784,11 +2813,12 @@ def _step_profile(dev, step) -> dict:
 
 
 def _gmm_kernel_of(name: str) -> str:
-    """Which of D, E, S, T a csrc/moe_gmm.cu kernel's profiler name is: S
-    and T by their own names (bf16 `gmm_dx_wgmma_kernel`, `gmm_dw_*`; S in
-    f32 is the f32 GEMM template with its weight-rows flag on), D and E by
+    """Which of D, E, S, T a csrc/moe_gmm.cu kernel's profiler name is: in
+    bf16 S and E share `gmm_rows_wgmma_kernel`, S with the weight N-major
+    (`<1>`), E K-major (`<0>`); T is `gmm_dw_*`; in f32 S is the f32 GEMM
+    template with its weight-rows flag on, and D and E are told apart by
     the template's first argument (two weights: D; one: E)."""
-    if "gmm_dx" in name or re.search(r"gmm_kernel<1, \d+, true", name):
+    if "gmm_rows_wgmma_kernel<1>" in name or re.search(r"gmm_kernel<1, \d+, true", name):
         return "S"
     if "gmm_dw" in name:
         return "T"

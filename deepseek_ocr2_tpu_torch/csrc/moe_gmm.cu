@@ -21,7 +21,8 @@
 // rows of one expert only, e_tile[t]; pad rows are zero. The grid is the
 // static worst case, T = S / BM tiles. A tile past the last group has
 // tile_valid[t] == 0 and its blocks return at once (the wrapper zeroes the
-// output, so those rows read as zero).
+// output, so those rows read as zero); the bf16 kernels E and S zero those
+// rows themselves.
 //
 // Weights keep HF's [out, in] layout, stacked over experts (Wg, Wu
 // [E, I, H], Wd [E, H, I]), so both operands of each GEMM are contiguous
@@ -34,10 +35,12 @@
 // outrun HBM. Tiles of one expert follow each other, so the repeats come
 // from the 50 MB L2 and HBM sees each layer's 440 MB of expert weights
 // about once (0.13 ms at 3.35 TB/s).
-// - bf16 (the LM's dtype on the main path): tensor cores. D, E and W:
+// - bf16 (the LM's dtype on the main path): tensor cores. D and W:
 //   mma.sync m16n8k16 with f32 sums, fed from a cp.async double buffer;
-//   bound by streaming the weight slices from L2 and HBM. S and T: wgmma
-//   m64n256k16 fed by TMA through an mbarrier ring (sm90.cuh; below).
+//   bound by streaming the weight slices from L2 and HBM. E, S and T:
+//   wgmma m64n256k16 fed by TMA through an mbarrier ring (sm90.cuh; below);
+//   E and S are one kernel, gmm_rows_wgmma_kernel, over the weight's
+//   major-ness.
 // - f32 (full f32, no TF32): FMAs on the CUDA cores, whose 67 TFLOP/s peak
 //   makes it compute-bound. 8 row groups x 16 column groups of threads
 //   each hold a 4 x TN tile of the sums, fed by float4 reads of x and the
@@ -46,9 +49,10 @@
 //
 // Two launches, not one fused visit: at crop sizes a page has ~100-300
 // valid tiles, fewer than one block per SM each if a tile were one block,
-// as on the TPU's sequential grid. D's grid is (T, ceil(I / 64)) and E's
-// (T, ceil(H / 128)), so every tile's output columns are spread over 14
-// and 10 blocks. The [S, I] activation makes one round trip through HBM
+// as on the TPU's sequential grid. D's grid is (T, ceil(I / 64)), so every
+// tile's output columns are spread over 14 blocks; E in f32 has (T,
+// ceil(H / 128)), in bf16 S's persistent walk of (128-row block, 256
+// columns) items. The [S, I] activation makes one round trip through HBM
 // (13 MB in bf16 at S = 7424, a few microseconds).
 //
 // Shapes: N a multiple of 4, K a multiple of 4 (f32) or 8 (bf16: 16-byte
@@ -71,6 +75,11 @@
 //   128-row blocks; the rows about 0.29 GB read once per 128 columns, 0.17
 //   GB once per 256. f32: D/E's f32 kernel reading the weight's [BK, BN]
 //   slices as they lie (WKN), grid (T, ceil(C / 128)).
+// - E in bf16 is the same kernel with the weight [N, K] read K-major (its
+//   HF layout): out = round(act W_e^T). The recompute's gate shape (12 288
+//   rows, K 1280, N 896) is S's dact shape with the weight read the other
+//   way, and the same L2 arithmetic holds: the 32-row mma.sync kernel it
+//   replaced re-read each expert's weight slice for every tile.
 // - T replaces _gmm_dw_kernel (moe_gmm.py:440): dW_e = sum over e's tiles
 //   of dy_t^T x_t in f32, the tiles in order, no atomics; an expert with no
 //   rows gets zeros. It contracts over rows, the slow dim of both operands.
@@ -468,7 +477,7 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 kernels S and T on Hopper: TMA loads into a ring of shared-memory
+// bf16 kernels S, E and T on Hopper: TMA loads into a ring of shared-memory
 // stages (one producer warp, mbarriers "full" and "empty" per stage), two
 // consumer warpgroups that run wgmma m64n256k16 on the stages that have
 // arrived (sm90.cuh). A block is 288 threads: warpgroups 0 and 1 consume,
@@ -479,14 +488,14 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
 constexpr int WG_BLOCK = 288;         // two consumer warpgroups + the producer warp
 constexpr int PRODUCER_WARP = 8;
 constexpr int CONSUMER_WARPS = 8;     // each releases a stage: the "empty" barrier's count
-constexpr int SX_TILES = 4;           // S: a work item's rows, up to 4 tiles (128 rows) of one expert
+constexpr int SX_TILES = 4;           // S, E: a work item's rows, up to 4 tiles (128 rows) of one expert
 constexpr int SX_ROWS = SX_TILES * BM;
-constexpr int SX_BN = 256;            // S: a work item's output columns
-constexpr int SX_BK = 64;             // S: k per stage, one 128-byte row of bf16
+constexpr int SX_BN = 256;            // S, E: a work item's output columns
+constexpr int SX_BK = 64;             // S, E: k per stage, one 128-byte row of bf16
 constexpr int SX_STAGES = 3;
 constexpr int SX_A_BYTES = SX_ROWS * SX_BK * 2;           // [128 rows][64 k]: 16 KB
-constexpr int SX_B_BOX = SX_BK * 64 * 2;                  // a [64 k][64 n] weight box: 8 KB
-constexpr int SX_STAGE_BYTES = SX_A_BYTES + SX_BN / 64 * SX_B_BOX;  // + [64 k][256 n] as four boxes: 48 KB
+constexpr int SX_B_BOX = SX_BK * 64 * 2;                  // a 64 k x 64 n weight box: 8 KB
+constexpr int SX_STAGE_BYTES = SX_A_BYTES + SX_BN / 64 * SX_B_BOX;  // + 64 k x 256 n as four boxes: 48 KB
 constexpr int SX_OUT_BOX = BM * 64 * 2;                   // an output box, [32 rows][64 n] bf16: 4 KB
 constexpr int SX_OUT_BYTES = 2 * SX_BN / 64 * SX_OUT_BOX; // a warpgroup's [64 rows][256 n]: 32 KB
 constexpr int DW_TILE_O = 128;        // T: a work item's o extent (64 a warpgroup)
@@ -498,7 +507,7 @@ constexpr int DW_OUT_BYTES = 64 * DW_TILE_C * 4;          // a warpgroup's [64 o
 
 // Dynamic shared memory: the stages from a 1024-byte aligned base (the
 // swizzle atom), then the output tiles, then the barriers; the slack
-// covers the alignment. S takes 214 064 bytes and T 230 464, within the
+// covers the alignment. S and E take 214 064 bytes and T 230 464, within the
 // 232 448 a block may use.
 constexpr int SX_SMEM = SX_STAGES * SX_STAGE_BYTES + 2 * SX_OUT_BYTES + 2 * SX_STAGES * 8 + 1024;
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_OUT_BYTES + 2 * DW_STAGES * 8 + 1024;
@@ -537,8 +546,11 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if (threadIdx.x % 32 == 0) sm90::mbar_arrive(empty);
 }
 
-// Kernel S in bf16: out [S, C] = round(a_t W_e), a [S, O] (the row tiles of
-// the aligned layout), W [E, O, C] contracted on O.
+// Kernels S and E in bf16, one kernel: out [S, N] = round(a_t W_e~) on the
+// row tiles of the aligned layout, a [S, K], the weight [E, ...] read as
+// it lies. W_N_MAJOR = 1 (S): W [E, O, C] contracted on its rows, K = O,
+// N = C, each row of the weight runs along N. W_N_MAJOR = 0 (E): W [E, N,
+// K] in HF's [out, in] layout, out = a W_e^T, each row runs along K.
 //
 // A persistent grid of at most one block per SM walks the work items i =
 // blockIdx.x, + gridDim.x, ...; item i is (row block b, 256-column block)
@@ -553,21 +565,25 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 // case); the rest are skipped.
 //
 // Each stage: A = a [128 rows][64 k] (K-major; warpgroup g multiplies rows
-// 64 g .. 64 g + 63 by all 256 columns, m64n256k16), B = W_e [64 k][256 n]
-// as it lies (N-major: wgmma's transposed B), four [64][64] boxes 8 KB
-// apart. The A box is the block's 128 rows whatever the clip (rows of the
-// next expert, or zeros past the end). K past O and n past C read zeros
-// (the weight's map is 3-D, [E][O][C], so a box never reaches the next
+// 64 g .. 64 g + 63 by all 256 columns, m64n256k16), B = the expert's
+// [64 k] x [256 n] slice as four 8 KB boxes: S [64 k][64 n] boxes (N-major:
+// wgmma's transposed B; a k16 step is 16 rows, 2048 bytes on), E [64 n][64
+// k] boxes (K-major, as A: the four boxes are one [256 n][64 k] operand
+// with 1024 bytes between 8-row groups; a k16 step is 32 bytes on). The A
+// box is the block's 128 rows whatever the clip (rows of the next expert,
+// or zeros past the end). k past K and n past N read zeros (the weight's
+// map is 3-D with the expert outermost, so a box never reaches the next
 // expert). 256 columns, not 128: a block's rows are read from L2 once per
 // 256 columns (0.17 GB of row reads at the dact shape instead of 0.29).
 //
 // Epilogue: each warpgroup rounds its sums to bf16 into its 32 KB tile
 // (eight [32 rows][64 n] boxes, 128-byte swizzled: no bank conflicts) and
 // one thread stores the boxes of the expert's row tiles with TMA (the
-// next expert's rows in the block are not stored; columns past C are
+// next expert's rows in the block are not stored; columns past N are
 // clipped). The store drains while the next item loads and multiplies;
 // `wait_group.read 0` holds the tile until the store has read it.
-__global__ void __launch_bounds__(WG_BLOCK, 1) gmm_dx_wgmma_kernel(
+template <int W_N_MAJOR>
+__global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
     const __grid_constant__ CUtensorMap map_out, const int* __restrict__ tile_lo, const int* __restrict__ blk_lo,
     __nv_bfloat16* __restrict__ out, int n_experts, int n_tiles, int k_dim, int n_dim) {
@@ -608,8 +624,12 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_dx_wgmma_kernel(
           sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);
           sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);
 #pragma unroll
-          for (int j = 0; j < SX_BN / 64; ++j)
-            sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
+          for (int j = 0; j < SX_BN / 64; ++j) {
+            if (W_N_MAJOR)
+              sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
+            else
+              sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, ks * SX_BK, n0 + 64 * j, e);
+          }
         }
       }
     }
@@ -642,12 +662,13 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_dx_wgmma_kernel(
       sm90::mbar_wait(&full[ring.stage], ring.phase);
       const unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
       const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128, 16, 1024);
-      const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, SX_B_BOX, 1024);
+      const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, W_N_MAJOR ? SX_B_BOX : 16, 1024);
       sm90::fence_acc(acc);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < SX_BK / 16; ++kk)
-        sm90::wgmma_m64n256k16<0, 1>(acc, sm90::desc_add(da, 32 * kk), sm90::desc_add(db, 16 * 128 * kk));
+        sm90::wgmma_m64n256k16<0, W_N_MAJOR>(acc, sm90::desc_add(da, 32 * kk),
+                                             sm90::desc_add(db, (W_N_MAJOR ? 16 * 128 : 32) * kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_acc(acc);
@@ -1002,6 +1023,33 @@ int launch_ffn(const void* x, const void* wg, const void* wu, const void* wd, Ro
   return (int)cudaGetLastError();
 }
 
+// S (W_N_MAJOR = 1: w [E, K, N]) or E (0: w [E, N, K]) in bf16 on
+// gmm_rows_wgmma_kernel: a [S, K] -> out [S, N]. The tensor maps: a and
+// out 2-D over the n_tiles * BM rows; the weight 3-D with the expert
+// outermost, its boxes 64 wide along its contiguous dim.
+template <int W_N_MAJOR>
+int launch_rows_wgmma(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out, int n_tiles,
+                      int bm, int k_dim, int n_dim, int n_experts, int n_blocks, void* stream) {
+  if (bad_shape(n_tiles, bm, k_dim, n_dim, 8) || n_dim % 8 || n_experts <= 0 || n_blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w, map_out;
+  const uint64_t rows = (uint64_t)n_tiles * BM;
+  const uint64_t dims_a[2] = {(uint64_t)k_dim, rows}, dims_out[2] = {(uint64_t)n_dim, rows};
+  const uint64_t dims_w[3] = {(uint64_t)(W_N_MAJOR ? n_dim : k_dim), (uint64_t)(W_N_MAJOR ? k_dim : n_dim),
+                              (uint64_t)n_experts};
+  const uint32_t box_a[2] = {SX_BK, SX_ROWS}, box_w[3] = {64, 64, 1}, box_out[2] = {64, BM};
+  auto kernel = gmm_rows_wgmma_kernel<W_N_MAJOR>;
+  int err = sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
+  if (!err) err = sm90::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w, dims_w, box_w);
+  if (!err) err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
+  if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SX_SMEM);
+  if (err) return err;
+  kernel<<<n_blocks, WG_BLOCK, SX_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
+      static_cast<__nv_bfloat16*>(out), n_experts, n_tiles, k_dim, n_dim);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // D: x [S, H], wg / wu [E, I, H] -> act [S, I].
@@ -1027,11 +1075,11 @@ extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile,
   return launch_f32<1, 8, false>(act, wd, wd, aligned(e_tile, tile_valid), n_tiles, y, i, h, stream);
 }
 
-extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* e_tile,
-                             const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
-                             void* stream) {
-  if (bad_shape(n_tiles, bm, i, h, 8)) return (int)cudaErrorInvalidValue;
-  return launch_bf16<1, 128>(act, wd, wd, aligned(e_tile, tile_valid), n_tiles, y, i, h, stream);
+// E in bf16: act [S, I], wd [E, H, I] and S's schedule (tile_lo, blk_lo,
+// n_blocks; see gmm_dx_bf16) -> y [S, H], every row written.
+extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* tile_lo, const void* blk_lo, void* y,
+                             int n_tiles, int bm, int i, int h, int n_experts, int n_blocks, void* stream) {
+  return launch_rows_wgmma<0>(act, wd, tile_lo, blk_lo, y, n_tiles, bm, i, h, n_experts, n_blocks, stream);
 }
 
 // S: a [S, O], w [E, O, C] (contracted on O, its row dim) -> out [S, C].
@@ -1048,21 +1096,7 @@ extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, cons
 // zeros.
 extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out,
                            int n_tiles, int bm, int o, int c, int n_experts, int n_blocks, void* stream) {
-  if (bad_shape(n_tiles, bm, o, c, 8) || c % 8 || n_experts <= 0 || n_blocks <= 0)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w, map_out;
-  const uint64_t dims_a[2] = {(uint64_t)o, (uint64_t)n_tiles * BM}, dims_out[2] = {(uint64_t)c, (uint64_t)n_tiles * BM};
-  const uint64_t dims_w[3] = {(uint64_t)c, (uint64_t)o, (uint64_t)n_experts};
-  const uint32_t box_a[2] = {SX_BK, SX_ROWS}, box_w[3] = {64, SX_BK, 1}, box_out[2] = {64, BM};
-  int err = sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
-  if (!err) err = sm90::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w, dims_w, box_w);
-  if (!err) err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
-  if (!err) err = (int)cudaFuncSetAttribute(gmm_dx_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SX_SMEM);
-  if (err) return err;
-  gmm_dx_wgmma_kernel<<<n_blocks, WG_BLOCK, SX_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_a, map_w, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
-      static_cast<__nv_bfloat16*>(out), n_experts, n_tiles, o, c);
-  return (int)cudaGetLastError();
+  return launch_rows_wgmma<1>(a, w, tile_lo, blk_lo, out, n_tiles, bm, o, c, n_experts, n_blocks, stream);
 }
 
 // T: x [S, C], dy [S, O], tile_lo [E + 1] (expert e owns tiles

@@ -2,7 +2,11 @@
 
 Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
 - A, `mha` (replaces `_attn_kernel` via `mha_pallas`): modes none / causal /
-  prefix. LM prefill runs it in causal mode on f32 q/k/v after RoPE.
+  prefix. LM prefill runs it in causal mode on f32 q/k/v after RoPE. In f32
+  it runs on the tensor cores in 3xTF32 (each operand split into TF32 high
+  and low parts, three products with f32 sums: f32-accurate), skipping the
+  key tiles whose keys are all masked for a row group (`tc_key_tiles` is
+  the plain form of that walk); bf16 runs the CUDA-core template below.
 - B, `mha_relpos` (replaces `_attn_kernel_relpos` via
   `mha_pallas(rel_h=, rel_w=)`): SAM attention with the decomposed relative
   position bias bias[q, kh*Kw + kw] = rel_h[q, kh] + rel_w[q, kw], folded in
@@ -15,8 +19,10 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   `DEEPSEEK_SAM_WIN_KERNEL=1`. The TPU's `t2 % 128 == 0` assertion was a
   lane rule: V takes any win.
 
-All three are one CUDA template, `csrc/flash_attention.cu` (see its header for the
-design: 64-query blocks streaming 64-key tiles with an online f32 softmax).
+The CUDA source is `csrc/flash_attention.cu` (see its header for the
+designs: A in f32 a 3xTF32 tensor-core kernel, everything else one
+CUDA-core template of 64-query blocks streaming 64-key tiles, both with an
+online f32 softmax).
 The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
 tiling choices; the CUDA kernel takes every shape and masks the ragged edge.
 
@@ -38,6 +44,34 @@ from .attention import MASK_VALUE
 _MODES = {"none": 0, "causal": 1, "prefix": 2}
 _RELPOS, _RELWIN = 3, 4
 _HEAD_DIMS = (64, 128)  # SAM, LM
+
+
+# Kernel A in f32 (csrc/flash_attention.cu `attn_tc_kernel`): blocks of
+# TC_BQ query rows in row groups of 16; each step stages 2 * TC_KW keys,
+# and the two warps of a row group take TC_KW keys each (key tile t, of
+# TC_KW keys, goes to the warp of half t % 2), each with its own online
+# softmax, merged at the end.
+TC_BQ, TC_KW = 64, 32
+
+
+def tc_key_tiles(lq: int, lk: int, mode: str = "none", n_prefix: int = 0) -> torch.Tensor:
+    """The plain form of A's tile walk in f32: [ceil(Lq / TC_BQ), TC_BQ // 16]
+    int64, the TC_KW-key tiles that row group r of query block b needs (0
+    for a group past Lq): its half-0 warp multiplies the even ones, its
+    half-1 warp the odd ones, and the block stages ceil(max / 2) tiles of
+    2 TC_KW keys. The tiles past a group's count hold only keys masked for
+    all its rows (causal: key > row; prefix: key >= P and (row < P or key >
+    row)), which add exactly 0 to its softmax: skipped (see the kernel's
+    header)."""
+    r0 = torch.arange(0, -(-lq // TC_BQ) * TC_BQ, 16).reshape(-1, TC_BQ // 16)
+    q_max = (r0 + 16).clamp(max=lq) - 1
+    if mode == "causal":
+        keys = q_max + 1
+    elif mode == "prefix":
+        keys = torch.where(q_max < n_prefix, n_prefix, q_max + 1)
+    else:
+        keys = torch.full_like(q_max, lk)
+    return torch.where(r0 < lq, (keys.clamp(max=lk) + TC_KW - 1) // TC_KW, 0)
 
 
 def mha_reference(
@@ -72,6 +106,14 @@ def mha_reference(
     return torch.matmul(torch.softmax(scores, dim=-1), v.float()).to(q.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned start (A's f32 kernel loads
+    16-byte chunks; `_launch` holds every kernel of the file to it): a copy
+    where a view starts off that boundary."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -81,6 +123,8 @@ def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> Non
         raise ValueError(f"q/k/v must share one dtype, f32 or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("kernels A, B and V read 16-byte aligned q, k, v and write a 16-byte aligned output")
     lib = cuda_build.load("flash_attention")
     fn = lib.attn_f32 if q.dtype == torch.float32 else lib.attn_bf16
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -108,7 +152,7 @@ def mha(
         raise ValueError(f"mode {mode!r} not in {tuple(_MODES)}")
     if q.device.type == "cpu":
         return mha_reference(q, k, v, scale=scale, mode=mode, n_prefix=n_prefix)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     cuda_build.require_cuda(q, k, v)
     out = torch.empty_like(q)
     _launch(q, k, v, out, None, None, _MODES[mode], n_prefix, 0, 0, scale)
@@ -134,7 +178,7 @@ def mha_relpos(
         raise ValueError(f"rel-pos grid {kh}x{kw} does not cover {k.shape[2]} keys")
     if q.device.type == "cpu":
         return mha_reference(q, k, v, scale=scale, rel_h=rel_h, rel_w=rel_w)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     rel_h = rel_h.float().contiguous()
     rel_w = rel_w.float().contiguous()
     cuda_build.require_cuda(q, k, v, rel_h, rel_w)
@@ -208,7 +252,7 @@ def mha_win(
         raise ValueError(f"kernel V writes q's dtype {q.dtype}, not {out_dtype}")
     if rhf.shape != (d, t2) or rwf.shape != (d, t2):
         raise ValueError(f"rhf {tuple(rhf.shape)} / rwf {tuple(rwf.shape)} must be [{d}, {t2}]")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     rhf, rwf = rhf.float().contiguous(), rwf.float().contiguous()
     cuda_build.require_cuda(q, k, v, rhf, rwf)
     out = torch.empty_like(q)

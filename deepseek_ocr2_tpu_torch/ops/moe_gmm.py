@@ -6,16 +6,18 @@ Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
 - `aligned_layout` ports `_aligned_layout`: each expert's sorted group is
   padded to a multiple of `GMM_BM` rows, so every row tile holds one expert;
 - D, `moe_gmm_swiglu` (replaces `_gmm_swiglu_kernel_al`), and E,
-  `moe_gmm_down` (replaces `_gmm_down_kernel_al`); run in turn they give the
-  bits of the fused `_gmm_ffn_kernel_al` the JAX package runs by default.
-  The backward's recompute (`_gmm_down_kernel` there) is E three times;
+  `moe_gmm_down` (replaces `_gmm_down_kernel_al`); run in turn they compute
+  the fused `_gmm_ffn_kernel_al` the JAX package runs by default, with the
+  act rounded at the same point. The backward's recompute
+  (`_gmm_down_kernel` there) is E three times. In bf16 E runs S's kernel
+  (below) with the weight read K-major, on S's schedule;
 - S, `moe_gmm_dx` (replaces `_gmm_dx_kernel`): per tile a @ W_e, the
   weight contracted on its row dim; T, `moe_gmm_dw` (replaces
   `_gmm_dw_kernel`): per expert the sum of dy_t^T x_t over its tiles, in
   f32. The CUDA source is `csrc/moe_gmm.cu` (its header gives the design
   and what bounds each kernel). In bf16 both run wgmma fed by TMA
-  (`csrc/sm90.cuh`) on persistent grids: S on (row block of up to 128 rows
-  of one expert, 256 columns) work items (`row_block_lo`, `dx_grid`;
+  (`csrc/sm90.cuh`) on persistent grids: S and E on (row block of up to
+  128 rows of one expert, 256 columns) work items (`row_block_lo`, `dx_grid`;
   `dx_row_blocks` is the plain form of its row-block map), T on (expert,
   128 x 256 outputs) work items (`dw_grid`; `dw_work_items` the plain form
   of its walk);
@@ -67,7 +69,7 @@ GMM_BM = 32
 # stream, "i" an int), set once when the library is first used.
 _SIGNATURES = {
     "gmm_swiglu_f32": "ppppppiiiip", "gmm_swiglu_bf16": "ppppppiiiip",
-    "gmm_down_f32": "pppppiiiip", "gmm_down_bf16": "pppppiiiip",
+    "gmm_down_f32": "pppppiiiip", "gmm_down_bf16": "pppppiiiiiip",
     "gmm_dx_f32": "pppppiiiip", "gmm_dx_bf16": "pppppiiiiiip",
     "gmm_dw_f32": "ppppiiip", "gmm_dw_bf16": "ppppiiiiip",
     "gmm_swiglu_visit_f32": "ppppppppiiiip", "gmm_swiglu_visit_bf16": "ppppppppiiiip",
@@ -200,18 +202,27 @@ def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid) -> torch.Tensor:
 moe_gmm_swiglu.launches = 0
 
 
-def moe_gmm_down(act, w_down, e_tile, tile_valid) -> torch.Tensor:
-    """Kernel E: act [S, I], w_down [E, H, I] -> y [S, H] in act.dtype."""
+def moe_gmm_down(act, w_down, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Tensor:
+    """Kernel E: act [S, I], w_down [E, H, I] -> y [S, H] in act.dtype. bf16
+    runs S's row-block kernel on S's schedule (`row_schedule`), built here
+    unless the caller passes it (the forward and the backward build it once
+    a layer)."""
     if act.device.type == "cpu":
         return gmm_down_reference(act, w_down, e_tile, tile_valid)
     n_tiles, bm = _tiles(act, e_tile)
     e, h, i = w_down.shape
-    _check(act, (w_down,), e_tile, tile_valid, i, h)
-    fn = _fn("gmm_down_f32" if act.dtype == torch.float32 else "gmm_down_bf16")
-    y = torch.zeros(act.shape[0], h, dtype=act.dtype, device=act.device)
     p = cuda_build.ptr
-    err = fn(p(act), p(w_down), p(e_tile), p(tile_valid), p(y), n_tiles, bm, i, h,
-             cuda_build.stream_of(act))
+    if act.dtype == torch.bfloat16:
+        tile_lo, blk_lo = _checked_schedule(e_tile, tile_valid, e, tile_lo, blk_lo)
+        _check(act, (w_down,), e_tile, tile_valid, i, h, 8, (tile_lo, blk_lo))
+        y = torch.empty(act.shape[0], h, dtype=act.dtype, device=act.device)  # the kernel writes every row
+        err = _fn("gmm_down_bf16")(p(act), p(w_down), p(tile_lo), p(blk_lo), p(y), n_tiles, bm, i, h, e,
+                                   dx_grid(n_tiles, e, h, _n_sms(act.device)), cuda_build.stream_of(act))
+    else:
+        _check(act, (w_down,), e_tile, tile_valid, i, h)
+        y = torch.zeros(act.shape[0], h, dtype=act.dtype, device=act.device)  # invalid tiles stay zero
+        err = _fn("gmm_down_f32")(p(act), p(w_down), p(e_tile), p(tile_valid), p(y), n_tiles, bm, i, h,
+                                  cuda_build.stream_of(act))
     cuda_build.check(err, "moe_gmm down")
     moe_gmm_down.launches += 1
     return y
@@ -297,6 +308,25 @@ def dx_row_blocks(tile_lo: torch.Tensor, blk_lo: torch.Tensor, n_tiles: int) -> 
     return torch.stack([torch.where(tail, -1, e), first, end], 1)
 
 
+def row_schedule(e_tile: torch.Tensor, tile_valid: torch.Tensor, n_experts: int):
+    """(tile_lo, blk_lo): the schedule of S and E in bf16 for one layout,
+    on the device, no host sync."""
+    tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
+    return tile_lo, row_block_lo(tile_lo)
+
+
+def _checked_schedule(e_tile, tile_valid, n_experts: int, tile_lo, blk_lo):
+    """The caller's schedule, or one built here; refused unless each is
+    int32 [E + 1]."""
+    if tile_lo is None:
+        tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
+    if blk_lo is None:
+        blk_lo = row_block_lo(tile_lo)
+    _check_ranges(tile_lo, n_experts, "tile_lo")
+    _check_ranges(blk_lo, n_experts, "blk_lo")
+    return tile_lo, blk_lo
+
+
 # Kernel T in bf16: a work item is an expert's DW_TILE_O x DW_TILE_C block
 # of dW.
 DW_TILE_O, DW_TILE_C = 128, 256
@@ -346,24 +376,18 @@ def moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Ten
         return gmm_dx_reference(a, w, e_tile, tile_valid)
     n_tiles, bm = _tiles(a, e_tile)
     e, o, c = w.shape
-    bf16 = a.dtype == torch.bfloat16
-    if bf16:
-        if tile_lo is None:
-            tile_lo = expert_tile_ranges(e_tile, tile_valid, e)
-        if blk_lo is None:
-            blk_lo = row_block_lo(tile_lo)
-        _check_ranges(tile_lo, e, "tile_lo")
-        _check_ranges(blk_lo, e, "blk_lo")
-    _check(a, (w,), e_tile, tile_valid, o, c, _align(a.dtype), (tile_lo, blk_lo) if bf16 else ())
     p = cuda_build.ptr
-    stream = cuda_build.stream_of(a)
-    if not bf16:
-        out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)  # invalid tiles stay zero
-        err = _fn("gmm_dx_f32")(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c, stream)
-    else:
+    if a.dtype == torch.bfloat16:
+        tile_lo, blk_lo = _checked_schedule(e_tile, tile_valid, e, tile_lo, blk_lo)
+        _check(a, (w,), e_tile, tile_valid, o, c, 8, (tile_lo, blk_lo))
         out = torch.empty(a.shape[0], c, dtype=a.dtype, device=a.device)  # the kernel writes every row
         err = _fn("gmm_dx_bf16")(p(a), p(w), p(tile_lo), p(blk_lo), p(out), n_tiles, bm, o, c, e,
-                                 dx_grid(n_tiles, e, c, _n_sms(a.device)), stream)
+                                 dx_grid(n_tiles, e, c, _n_sms(a.device)), cuda_build.stream_of(a))
+    else:
+        _check(a, (w,), e_tile, tile_valid, o, c)
+        out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)  # invalid tiles stay zero
+        err = _fn("gmm_dx_f32")(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c,
+                                cuda_build.stream_of(a))
     cuda_build.check(err, "moe_gmm dx")
     moe_gmm_dx.launches += 1
     return out
@@ -468,7 +492,8 @@ def _forward_aligned(x_flat, experts, weights, layout, k: int) -> torch.Tensor:
     assign, slot_valid, e_tile, tile_valid, rows = layout
     x_al = _gather_rows(x_flat, assign, slot_valid, k)
     act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
-    y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid)
+    sched = row_schedule(e_tile, tile_valid, experts["down"].shape[0]) if act.dtype == torch.bfloat16 else ()
+    y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched)
     return _combine(y_al.index_select(0, rows), weights, x_flat.dtype)
 
 
@@ -528,9 +553,12 @@ class MoeFfnGmm(torch.autograd.Function):
         dt = x_flat.dtype
         valid = slot_valid[:, None]
         x_al = _gather_rows(x_flat, assign, slot_valid, k)
+        # The schedule of E and S, and T's tile_lo: once for the layer's
+        # nine calls.
+        tile_lo, blk_lo = row_schedule(e_tile, tile_valid, e)
         # Recompute the pre-activations (kernel E: x W^T for gate and up too).
-        gate = moe_gmm_down(x_al, wg, e_tile, tile_valid)
-        up = moe_gmm_down(x_al, wu, e_tile, tile_valid)
+        gate = moe_gmm_down(x_al, wg, e_tile, tile_valid, tile_lo, blk_lo)
+        up = moe_gmm_down(x_al, wu, e_tile, tile_valid, tile_lo, blk_lo)
         gate_f = gate.float()
         sig = torch.sigmoid(gate_f)
         silu_g = gate_f * sig
@@ -539,13 +567,10 @@ class MoeFfnGmm(torch.autograd.Function):
         g_slot = torch.where(valid, g.float().contiguous().index_select(0, assign // k), 0)
         w_slot = weights.reshape(-1).float().index_select(0, assign)
         dy_al = (g_slot * w_slot[:, None]).to(dt)
-        y_al = moe_gmm_down(act, wd, e_tile, tile_valid)
+        y_al = moe_gmm_down(act, wd, e_tile, tile_valid, tile_lo, blk_lo)
         dwt = (y_al.float() * g_slot).sum(1)
         d_weights = dwt.index_select(0, rows).reshape(n, k).to(weights.dtype)
         del y_al, g_slot
-        # S's and T's schedule, once for the layer's six calls.
-        tile_lo = expert_tile_ranges(e_tile, tile_valid, e)
-        blk_lo = row_block_lo(tile_lo)
         # SwiGLU backward in f32: silu'(x) = sig(x) (1 + x (1 - sig(x))).
         dact = moe_gmm_dx(dy_al, wd, e_tile, tile_valid, tile_lo, blk_lo).float()
         dup = (dact * silu_g).to(dt)

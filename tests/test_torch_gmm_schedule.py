@@ -1,12 +1,14 @@
-"""The schedules of kernels S and T in bf16 (deepseek_ocr2_tpu_torch/ops/moe_gmm.py)
+"""The schedules of kernels S, E and T in bf16 (deepseek_ocr2_tpu_torch/ops/moe_gmm.py)
 against brute-force Python loops, on the CPU.
 
-S multiplies row blocks of up to DX_TILES tiles of one expert: `row_block_lo`
+S and E (one kernel) multiply row blocks of up to DX_TILES tiles of one
+expert: `row_block_lo`
 is the prefix the wrapper builds on the device, `dx_row_blocks` the plain
 form of the kernel's block map on it (which block takes which tiles, and
 which blocks zero the invalid tail). T walks (expert, o block, c block)
 work items on a persistent grid: `dw_work_items` is the plain form of its
-order, `dw_grid` the grid the wrapper launches. The CUDA kernels run these
+order, `dw_grid` the grid the wrapper launches. `row_schedule` is the pair
+(tile_lo, blk_lo) the wrappers of S and E take. The CUDA kernels run these
 maps on the card (tests/test_torch_kernels.py, `gmm_backward`).
 """
 
@@ -56,6 +58,9 @@ CASES = {
 def test_row_blocks_match_a_loop(case):
     idx, n_experts = CASES[case]()
     tile_lo, blk_lo, n_tiles = _layout(idx, n_experts)
+    _, _, e_tile, tile_valid, _ = moe_gmm.aligned_assignments(idx, n_experts)
+    assert all(torch.equal(a, b) for a, b in zip(moe_gmm.row_schedule(e_tile, tile_valid, n_experts),
+                                                  (tile_lo, blk_lo)))
     lo = tile_lo.tolist()
     # Brute force: each expert's tiles in chunks of DX_TILES, then the
     # invalid tail in chunks; every other grid row does nothing.
@@ -70,7 +75,10 @@ def test_row_blocks_match_a_loop(case):
         want.append((-1, t, min(t + moe_gmm.DX_TILES, n_tiles)))
     rows = moe_gmm.dx_grid_rows(n_tiles, n_experts)
     assert len(want) <= rows  # the static walk covers every block and the whole tail
-    assert moe_gmm.dx_grid(n_tiles, n_experts, 896, 132) == min(132, rows * 4)  # 256-column items
+    # 256-column items: N 896 (S's dact, E's recompute of gate and up) and
+    # N 1280 (S's dx, E's down projection), 4 and 5 column blocks.
+    for n_cols, n_cb in ((896, 4), (1280, 5), (264, 2), (136, 1)):
+        assert moe_gmm.dx_grid(n_tiles, n_experts, n_cols, 132) == min(132, rows * n_cb)
     want += [(-1, n_tiles, n_tiles)] * (rows - len(want))
     got = moe_gmm.dx_row_blocks(tile_lo, blk_lo, n_tiles)
     assert got.tolist() == [list(w) for w in want]

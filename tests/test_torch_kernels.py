@@ -247,6 +247,36 @@ def test_cuda_attention_matches_twin(cuda, mode, lq, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["none", "causal", "prefix"])
+@pytest.mark.parametrize("lq", [1, 63, 64, 65, 260, 1125])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_attention_tc_matches_twin(cuda, mode, lq, d):
+    """Kernel A in f32 (3xTF32 on the tensor cores) at the edges of its
+    64-row query blocks and 32 / 64-key tiles and at the LM's prefill
+    lengths, BH = 6, within A's 1e-4 of the f32 twin."""
+    g = torch.Generator(device=cuda).manual_seed(lq + d)
+    q, k, v = (torch.randn(2, 3, lq, d, generator=g, device=cuda) for _ in range(3))
+    kw = dict(scale=1.0 / math.sqrt(d), mode=mode, n_prefix=lq // 2)
+    before = mha.launches
+    got = mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert mha.launches == before + 1
+    assert float((got - mha_reference(q, k, v, **kw)).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,lq,d", [("causal", 260, 128), ("prefix", 150, 128), ("none", 200, 64)])
+def test_cuda_attention_tc_large_scores(cuda, mode, lq, d):
+    """Scores up to ~80 (q and k scaled by 4): the 3xTF32 split's error
+    grows with them (2-3e-5 in the CPU emulation, tests/test_torch_attention_tc.py)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k = (4.0 * torch.randn(2, 3, lq, d, generator=g, device=cuda) for _ in range(2))
+    v = torch.randn(2, 3, lq, d, generator=g, device=cuda)
+    kw = dict(scale=1.0 / math.sqrt(d), mode=mode, n_prefix=lq // 2)
+    assert float((mha(q, k, v, **kw) - mha_reference(q, k, v, **kw)).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,side", [(1, 64), (25, 14), (2, 9)])
 def test_cuda_relpos_matches_twin(cuda, dtype, b, side):
@@ -353,40 +383,44 @@ def _f32_tol(ref):
     (77, 8, 200, 96, 2, "router"),  # ragged C and O edges
     (300, 8, 264, 136, 2, "router"),  # O and C not multiples of 128: 264 and 136 both ways
     (200, 64, 256, 128, 2, "few"),  # most experts empty: T writes their zeros
-    (515, 8, 256, 128, 1, "tiles"),  # experts of 1, 4 and 5 tiles: S's partial last row block
-    (2048, 64, 1280, 896, 6, "one"),  # 12 288 rows on one expert: T's longest walk, 96 S row blocks
+    (515, 8, 256, 128, 1, "tiles"),  # experts of 1, 4 and 5 tiles: S's and E's partial last row block
+    (2048, 64, 1280, 896, 6, "one"),  # 12 288 rows on one expert: T's longest walk, 96 S / E row blocks
 ])
 def test_cuda_gmm_backward_kernels_match_twins(cuda, dtype, n, e, h, i, k, routing):
     """S (dact = dy Wd, dx = dgate Wg), T (dW of gate and down) and E at
-    the gate/up shape (K = H, N = I), each against its twin on the same
-    aligned rows. T's sums are f32 over exact products: the f32 bound for
-    both dtypes. S's rows past the last valid tile must read as zeros: the
-    bf16 wrapper hands the kernel an uninitialized output."""
+    the gate/up shape (K = H, N = I) and the down shape (K = I, N = H),
+    each against its twin on the same aligned rows. T's sums are f32 over
+    exact products: the f32 bound for both dtypes. S's and E's rows past
+    the last valid tile must read as zeros: in bf16 (one kernel, S's row
+    blocks) the wrapper hands the kernel an uninitialized output."""
     x, experts, weights, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
     x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
     g = torch.Generator(device=cuda).manual_seed(6)
     dy = torch.randn(x_al.shape[0], h, generator=g, device=cuda).to(dtype)
     dgate = torch.randn(x_al.shape[0], i, generator=g, device=cuda).to(dtype)
-    before = (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches)
+    before = (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches, moe_gmm.moe_gmm_down.launches)
     cases = [
         (moe_gmm.moe_gmm_dx, moe_gmm.gmm_dx_reference, (dy, experts["down"], e_tile, tile_valid), _tol),
         (moe_gmm.moe_gmm_dx, moe_gmm.gmm_dx_reference, (dgate, experts["gate"], e_tile, tile_valid), _tol),
         (moe_gmm.moe_gmm_down, moe_gmm.gmm_down_reference, (x_al, experts["gate"], e_tile, tile_valid), _tol),
+        (moe_gmm.moe_gmm_down, moe_gmm.gmm_down_reference, (dgate, experts["down"], e_tile, tile_valid), _tol),
         (moe_gmm.moe_gmm_dw, moe_gmm.gmm_dw_reference, (x_al, dgate, e_tile, tile_valid, e), None),
         (moe_gmm.moe_gmm_dw, moe_gmm.gmm_dw_reference, (dgate, dy, e_tile, tile_valid, e), None),
     ]
     for kernel, twin, args, tol in cases:
-        if kernel is moe_gmm.moe_gmm_dx:
+        if kernel is not moe_gmm.moe_gmm_dw:
             # NaNs in the block the wrapper's output will reuse: a row the
             # kernel fails to write shows.
-            torch.full((args[0].shape[0], args[1].shape[2]), float("nan"), dtype=dtype, device=cuda)
+            n_out = args[1].shape[2] if kernel is moe_gmm.moe_gmm_dx else args[1].shape[1]
+            torch.full((args[0].shape[0], n_out), float("nan"), dtype=dtype, device=cuda)
         got = kernel(*args)
         torch.cuda.synchronize()
         ref = twin(*args)
         assert got.dtype == ref.dtype and got.shape == ref.shape
         bound = _tol(ref.float(), dtype) if tol else _f32_tol(ref)
         assert float((got.float() - ref.float()).abs().max()) <= bound, kernel.__name__
-    assert (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches) == (before[0] + 2, before[1] + 2)
+    assert (moe_gmm.moe_gmm_dx.launches, moe_gmm.moe_gmm_dw.launches, moe_gmm.moe_gmm_down.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
 
 
 @pytest.mark.gpu
