@@ -16,10 +16,11 @@ Phases (each raises on failure, so the exit code is non-zero):
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`; `torch._grouped_mm` for E, S and
-   T in bf16); A (at the no-crop and the (2, 3) crop prompt) and E (at the
-   prompts of the crop pages, a training step's forward and its recompute)
-   also in a CUDA graph beside the library call in one, with A's visited
-   and skipped key tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
+   T in bf16); A (at the no-crop and the (2, 3) crop prompt), B (SAM's four
+   shapes, f32 and bf16), E (at the prompts of the crop pages, a training
+   step's forward and its recompute) and L (at lm_head) also in a CUDA
+   graph beside the library call in one, with A's visited and skipped key
+   tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
    also whole against its grouped twin; D+E, F, H-O and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
@@ -951,7 +952,7 @@ def q4_results(dev, randn, record) -> None:
                tolerance(ref, ref.dtype), median_ms(lambda: linear_q4.linear_q4(x, w, out_dtype=od)),
                median_ms(lambda: linear_q4.linear_q4_reference(x, w, out_dtype=od)),
                bound_ms(nbytes(x, w["q4"], w["scale"], ref), 2 * b * in_dim * out_dim, bf),
-               int4pack(x, w, ref), graph=lambda: linear_q4.linear_q4(x, w, out_dtype=od))
+               int4pack(x, w, ref), graph=lambda: linear_q4.linear_q4(x, w, out_dtype=od), library_graph=True)
     del head
     no_host_sync(dev, "L", lambda: linear_q4.linear_q4(x, w, out_dtype=od))
 
@@ -1243,9 +1244,11 @@ def phase_kernels(dev) -> dict:
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
     # [6, 12, 2304, 64] (48 x 48) and windows [96, 12, 196, 64], f32.
-    cases = [("global", 1, 64, dt) for dt in (torch.float32, torch.bfloat16)]
-    cases += [("window", 25, 14, dt) for dt in (torch.float32, torch.bfloat16)]
-    cases += [("crop global", 6, 48, torch.float32), ("crop window", 96, 14, torch.float32)]
+    # f32 (the CLI's vision dtype) on the tensor cores, bf16 on the CUDA-core
+    # template; each also in a CUDA graph beside SDPA in one.
+    cases = [(case, b, side, dt) for case, b, side in (("global", 1, 64), ("window", 25, 14),
+                                                       ("crop global", 6, 48), ("crop window", 96, 14))
+             for dt in (torch.float32, torch.bfloat16)]
     for case, b, side, dt in cases:
         l = side * side
         q, k, v = (randn(b, 12, l, 64, dtype=dt) for _ in range(3))
@@ -1259,7 +1262,8 @@ def phase_kernels(dev) -> dict:
         bias = (rh[..., :, None] + rw[..., None, :]).reshape(b, 12, l, l).to(dt)
         record("B", f"{case} {tuple(q.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain,
                bound_ms(nbytes(q, k, v, rh, rw, ref), 4 * b * 12 * l * l * 64, dt),
-               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale))
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale),
+               graph=lambda: mha_relpos(q, k, v, rh, rw, scale=scale), library_graph=True)
         del q, k, v, rh, rw, ref, got, bias
 
     # A: LM prefill, causal, f32 (3xTF32 on the tensor cores): a no-crop

@@ -1,4 +1,4 @@
-// Exact attention for sm_90a: kernel A in f32 on the tensor cores
+// Exact attention for sm_90a: kernels A and B in f32 on the tensor cores
 // (3xTF32), and an online-softmax template on the CUDA cores for the rest.
 //
 // Replaces three Pallas TPU kernels of deepseek_ocr2_tpu/ops/flash_attention.py:
@@ -84,16 +84,33 @@
 //   One block of D 128 takes 202 752 bytes of shared memory: one block
 //   (8 warps) an SM.
 //
-// The CUDA-core template (attn_kernel: A in bf16, B and V in both types)
+// Kernel B in f32 (mode RELPOS of the same kernel, D 64). SAM's global
+// blocks ([1, 12, 4096, 64] a 1024^2 view, [6, 12, 2304, 64] six crops)
+// carry 90 % of a page's B work, 4 L^2 D operations a head with no mask;
+// at 3xTF32 the bound is 0.312 ms at 4096 keys. A's walk as it is (no
+// tile is skipped: B masks no key), plus the bias:
+// - At block start the block's 64 rows of rel_h [64, Kh] and rel_w [64,
+//   Kw] go into shared memory (33 KB at Kh = Kw = 64, padded strides so the
+//   fragment loads do not conflict), one block (8 warps) an SM: 139 KB.
+// - Each score gets rel_h[row, key / Kw] + rel_w[row, key % Kw] in f32
+//   after the scale, before the running max, as the twin adds the built
+//   [L, L] bias; key is the score fragment's own (k0 + 8 n + 2 t + c % 2),
+//   not P V's permuted k order. key / Kw is the high word of key times a
+//   multiplier computed on the host (exact for key Kw < 2^32), and with Kw
+//   even (every SAM shape) a key pair shares kh and reads kw, kw + 1 as a
+//   float2: 16 shared loads a lane a step.
+// - Keys past Lk (SAM's windows: 196 keys, the last 64-key tile partial)
+//   are -inf as A's key padding; rows past Lq are zero and not written.
+//
+// The CUDA-core template (attn_kernel: A and B in bf16, V in both types)
 // streams 64-key tiles with 256 threads a block, each owning a 4 x 4 score
 // sub-tile, in f32 FMAs read from shared memory (K's padded row stride puts
 // the 16 column lanes on 16 banks); every key tile is visited. bf16
 // inputs are widened to f32 on load: products of bf16 values are exact in
 // f32, which is what the TPU kernel's bf16 MXU pass with f32 accumulation
-// computes. B at SAM's global shape (12 heads x 4096 x 4096, D = 64) is
-// ~26 GFLOP of f32 FMAs. V adds 2 win D FMAs per query to B's 2 T2 D of
-// the scores: at win 14, T2 196, 14 %; in exchange the [B H, T2, win] rel
-// tensors are never written or read.
+// computes. V adds 2 win D FMAs per query to B's 2 T2 D of the scores:
+// at win 14, T2 196, 14 %; in exchange the [B H, T2, win] rel tensors are
+// never written or read.
 //
 // Layout: q [BH, Lq, D], k/v [BH, Lk, D], o [BH, Lq, D], rel_h [BH, Lq, Kh],
 // rel_w [BH, Lq, Kw] (f32), all contiguous (A in f32: 16-byte aligned);
@@ -178,6 +195,57 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fu
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0));
 }
 
+// B's staged rows: rel_h at an odd stride (the 8 rows of a fragment, one
+// kh, on 8 banks), rel_w at a stride of 8 mod 32 (a half-warp's float2
+// loads of 4 rows x 4 key pairs on 32 banks).
+__host__ __device__ __forceinline__ int rel_stride_h(int kh) { return kh | 1; }
+__host__ __device__ __forceinline__ int rel_stride_w(int kw) { return kw + (40 - kw % 32) % 32; }
+
+// key / Kw for key * Kw < 2^32: the high word of key * ceil(2^32 / Kw)
+// (magic 0 stands for Kw = 1).
+__device__ __forceinline__ int div_kw(int key, uint32_t magic) {
+  return magic ? (int)__umulhi((uint32_t)key, magic) : key;
+}
+
+// B: s[n][c] += rel_h[row, key / Kw] + rel_w[row, key % Kw] (the sum of
+// the two first, as the twin adds the built bias), for the lane's scores:
+// row g + 8 (c / 2) of the warp's 16 (rh, rw point at row g), key key0 + 8
+// n + (c & 1) -- the score fragment's own key, the same order the mask
+// uses (P V's permuted k order is the A fragment's, not the scores'). Keys
+// at or past Lk are left alone (they become -inf). With Kw even a key pair
+// (even, odd) shares kh and takes kw, kw + 1: one float2 load of rel_w.
+template <int NK>
+__device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh, const float* rw, int sh, int sw,
+                                             int key0, int lk, int kw, uint32_t magic) {
+#pragma unroll
+  for (int n = 0; n < NK; ++n) {
+    const int key = key0 + 8 * n;  // even
+    if (key >= lk) continue;
+    const int h0 = div_kw(key, magic), w0 = key - h0 * kw;
+    if ((kw & 1) == 0) {  // key + 1 < Lk = Kh Kw (even), same kh
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float bh = rh[8 * h * sh + h0];
+        const float2 bw = *reinterpret_cast<const float2*>(rw + 8 * h * sw + w0);
+        s[n][2 * h] += bh + bw.x;
+        s[n][2 * h + 1] += bh + bw.y;
+      }
+    } else {
+      int h1 = h0, w1 = w0 + 1;
+      if (w1 == kw) {
+        w1 = 0;
+        ++h1;
+      }
+      const bool odd_ok = key + 1 < lk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[n][2 * h] += rh[8 * h * sh + h0] + rw[8 * h * sw + w0];
+        if (odd_ok) s[n][2 * h + 1] += rh[8 * h * sh + h1] + rw[8 * h * sw + w1];
+      }
+    }
+  }
+}
+
 // Fragments (m16n8k8, lane = 4 g + t): A a0 (row g, k t), a1 (row g + 8,
 // k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4); B b0 (k t, n g), b1
 // (k t + 4, n g); C c0, c1 (row g, n 2t, 2t + 1), c2, c3 (row g + 8, the
@@ -192,7 +260,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fu
 template <int D, int MODE>
 __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ o,
-    int lq, int lk, int n_prefix, float scale) {
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w, int lq, int lk, int n_prefix, int kh, int kw,
+    uint32_t kw_magic, float scale) {
   using Tile = TcTile<D>;
   constexpr int KS = Tile::KS, VS = Tile::VS;
   constexpr int NK = TC_KW / 8;  // the scores' n8 tiles; P V's k8 steps
@@ -201,6 +270,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
   float* ks = smem;                   // [2][TC_BKV][KS]
   float* vs = ks + 2 * TC_BKV * KS;   // [2][TC_BKV][VS]
   uint4* qs = reinterpret_cast<uint4*>(smem + Tile::KV_FLOATS);  // [row group][ND][lane][2]
+  // B: the block's rows of rel_h [TC_BQ][sh] and rel_w [TC_BQ][sw] (zero
+  // past Lq), at the strides rel_stride_h / rel_stride_w give.
+  const int sh = rel_stride_h(kh), sw = rel_stride_w(kw);
+  float* rhs = smem + Tile::KV_FLOATS + Tile::Q_FLOATS;
+  float* rws = rhs + TC_BQ * sh;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;  // the latest query blocks first
@@ -230,6 +304,19 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
       split_tf32(x1.y, hi[3], lo[3]);
       qg[(kk * 32 + lane) * 2] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       qg[(kk * 32 + lane) * 2 + 1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+
+  if constexpr (MODE == RELPOS) {  // ordered before the reads by the first step's barrier
+    const float* rhb = rel_h + ((size_t)bh * lq + q0) * kh;
+    const float* rwb = rel_w + ((size_t)bh * lq + q0) * kw;
+    for (int i = threadIdx.x; i < TC_BQ * kh; i += TC_THREADS) {
+      const int r = i / kh;
+      rhs[r * sh + i - r * kh] = q0 + r < lq ? rhb[i] : 0.f;
+    }
+    for (int i = threadIdx.x; i < TC_BQ * kw; i += TC_THREADS) {
+      const int r = i / kw;
+      rws[r * sw + i - r * kw] = q0 + r < lq ? rwb[i] : 0.f;
     }
   }
 
@@ -291,13 +378,19 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
       }
 
       float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = ((s_lh[n][c] + s_hl[n][c]) + s_hh[n][c]) * scale;
+      if constexpr (MODE == RELPOS) add_rel_bias<NK>(s, rhs + (16 * rg + g) * sh, rws + (16 * rg + g) * sw, sh, sw,
+                                                     k0 + 2 * t, lk, kw, kw_magic);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = k0 + 8 * n + 2 * t + (c & 1), row = r0 + g + 8 * (c >> 1);
-          float x = ((s_lh[n][c] + s_hl[n][c]) + s_hh[n][c]) * scale;
+          float x = s[n][c];
           if (key >= lk) {
             x = -INFINITY;
           } else if (MODE == CAUSAL && key > row) {
@@ -400,15 +493,23 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
 }
 
 template <int D, int MODE>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int lq, int lk, int n_prefix,
-              float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, const void* rel_h, const void* rel_w, int bh,
+              int lq, int lk, int n_prefix, int kh, int kw, float scale, cudaStream_t stream) {
   auto kernel = attn_tc_kernel<D, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TcTile<D>::SMEM);
+  size_t smem = TcTile<D>::SMEM;
+  uint32_t magic = 0;
+  if (MODE == RELPOS) {
+    smem += sizeof(float) * TC_BQ * (rel_stride_h(kh) + rel_stride_w(kw));
+    if ((long long)lk * kw >= (1LL << 32) || smem > 232448) return (int)cudaErrorInvalidValue;
+    if (kw > 1) magic = (uint32_t)(((1ULL << 32) + kw - 1) / kw);
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (lq + TC_BQ - 1) / TC_BQ);
-  kernel<<<grid, TC_THREADS, TcTile<D>::SMEM, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                         static_cast<const float*>(v), static_cast<float*>(o), lq, lk,
-                                                         n_prefix, scale);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                             static_cast<const float*>(v), static_cast<float*>(o),
+                                             static_cast<const float*>(rel_h), static_cast<const float*>(rel_w), lq, lk,
+                                             n_prefix, kh, kw, magic, scale);
   return (int)cudaGetLastError();
 }
 
@@ -606,20 +707,24 @@ template <typename T, int D>
 int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
             const void* rel_h, const void* rel_w, int bh, int lq, int lk, int n_prefix,
             int kh, int kw, float scale, cudaStream_t s) {
-  constexpr bool F32 = sizeof(T) == 4;  // A in f32: the tensor-core kernel
+  constexpr bool F32 = sizeof(T) == 4;  // A and B in f32: the tensor-core kernel (B at D 64)
+#define TC(MODE) launch_tc<D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
+#define CORE(MODE) launch<T, D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
   switch (mode) {
     case NONE:
-      if constexpr (F32) return launch_tc<D, NONE>(q, k, v, o, bh, lq, lk, n_prefix, scale, s);
-      else return launch<T, D, NONE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
+      if constexpr (F32) return TC(NONE); else return CORE(NONE);
     case CAUSAL:
-      if constexpr (F32) return launch_tc<D, CAUSAL>(q, k, v, o, bh, lq, lk, n_prefix, scale, s);
-      else return launch<T, D, CAUSAL>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
+      if constexpr (F32) return TC(CAUSAL); else return CORE(CAUSAL);
     case PREFIX:
-      if constexpr (F32) return launch_tc<D, PREFIX>(q, k, v, o, bh, lq, lk, n_prefix, scale, s);
-      else return launch<T, D, PREFIX>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
-    case RELPOS: return launch<T, D, RELPOS>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
-    case RELWIN: return launch<T, D, RELWIN>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s);
+      if constexpr (F32) return TC(PREFIX); else return CORE(PREFIX);
+    case RELPOS:
+      if constexpr (!F32) return CORE(RELPOS);
+      else if constexpr (D == 64) return TC(RELPOS);
+      else return (int)cudaErrorInvalidValue;
+    case RELWIN: return CORE(RELWIN);
   }
+#undef TC
+#undef CORE
   return (int)cudaErrorInvalidValue;
 }
 

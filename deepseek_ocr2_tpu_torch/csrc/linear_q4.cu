@@ -14,7 +14,10 @@
 //
 // What bounds it: the weight bytes. lm_head is 129 280 x 1280 levels =
 // 82.7 MB of codes + 5.2 MB of scales, 0.026 ms at 3.35 TB/s, whatever
-// B <= 32.
+// B <= 32. At 1-4 rows of x (a decode step) a persistent kernel streams
+// whole code rows through shared memory by bulk async copies, so its loads
+// are long and every lane has work at any In (the streaming form in
+// linear_q4.cuh).
 
 #include "linear_q4.cuh"
 

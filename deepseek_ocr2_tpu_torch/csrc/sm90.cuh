@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, for kernels that feed the
 // tensor cores from a ring of TMA loads: mbarriers, TMA tensor loads and
-// stores (cp.async.bulk.tensor), the wgmma shared-memory descriptor for the
-// 128-byte swizzle, and wgmma m64n256k16 (bf16 in, f32 sums) with either
-// operand K-major or MN-major ("transposed"). Used by the bf16 kernels S and
-// T in moe_gmm.cu.
+// stores (cp.async.bulk.tensor), 1-D bulk copies, the wgmma shared-memory
+// descriptor for the 128-byte swizzle, and wgmma m64n256k16 (bf16 in, f32
+// sums) with either operand K-major or MN-major ("transposed"). Used by the
+// bf16 kernels S, E and T in moe_gmm.cu and by kernel L's streaming form
+// (linear_q4.cuh).
 //
 // Layout conventions (the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B):
 // a box whose inner dimension is 64 bf16 (128 bytes) lands in shared memory
@@ -106,6 +107,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
       "[%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

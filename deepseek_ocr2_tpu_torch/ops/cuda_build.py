@@ -9,6 +9,7 @@ at import: the CPU tests import every module.
 
 Bound functions take every pointer and the stream as `ctypes.c_void_p` and
 return `cudaGetLastError()` after the launch; `check` raises on non-zero.
+`entry` binds an entry point's argtypes once.
 Every wrapper checks its inputs with `require_cuda`, which also refuses an
 input that requires grad while grad mode is on (`refuse_autograd`): a
 kernel's output has no autograd history.
@@ -23,7 +24,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -77,6 +78,22 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def entry(name: str, fn: str, argtypes: List) -> ctypes._CFuncPtr:
+    """Entry point `fn` of `csrc/<name>.cu` returning an int, its argtypes
+    bound once (the library built at first use): binding them on every call
+    costs a wrapper host time."""
+    bound = _ENTRIES.get((name, fn))
+    if bound is None:
+        bound = getattr(load(name), fn)
+        bound.argtypes = argtypes
+        bound.restype = ctypes.c_int
+        _ENTRIES[(name, fn)] = bound
+    return bound
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -85,7 +102,7 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """The current stream of t's device, as a raw handle (without building a
     torch.cuda.Stream object: a few microseconds less host time a launch)."""
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return ctypes.c_void_p(raw(t.device.index) if raw is not None else torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(raw(t.get_device()) if raw is not None else torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def check(err: int, what: str) -> None:
@@ -114,9 +131,9 @@ def require_cuda(*tensors: torch.Tensor) -> None:
     must be a contiguous tensor on one CUDA device, and none may require
     grad while grad mode is on (`refuse_autograd`)."""
     refuse_autograd(*tensors)
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # an int: cheaper than building torch.device objects
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"kernel inputs must share one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")

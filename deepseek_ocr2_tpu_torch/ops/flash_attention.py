@@ -10,7 +10,9 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
 - B, `mha_relpos` (replaces `_attn_kernel_relpos` via
   `mha_pallas(rel_h=, rel_w=)`): SAM attention with the decomposed relative
   position bias bias[q, kh*Kw + kw] = rel_h[q, kh] + rel_w[q, kw], folded in
-  per score; the [L, L] bias is never built.
+  per score; the [L, L] bias is never built. In f32 (D 64, SAM's) it runs
+  A's tensor-core kernel with the block's rows of rel_h / rel_w staged in
+  shared memory; bf16 runs the CUDA-core template.
 - V, `mha_win` (replaces `_attn_kernel_relwin` via `mha_win_pallas`): SAM's
   windowed attention with the decomposed bias built inside the kernel from
   the flattened rel-pos tables rhf, rwf [D, T2] (each query's win rel-h and
@@ -20,7 +22,7 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   lane rule: V takes any win.
 
 The CUDA source is `csrc/flash_attention.cu` (see its header for the
-designs: A in f32 a 3xTF32 tensor-core kernel, everything else one
+designs: A and B in f32 a 3xTF32 tensor-core kernel, everything else one
 CUDA-core template of 64-query blocks streaming 64-key tiles, both with an
 online f32 softmax).
 The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
@@ -46,7 +48,7 @@ _RELPOS, _RELWIN = 3, 4
 _HEAD_DIMS = (64, 128)  # SAM, LM
 
 
-# Kernel A in f32 (csrc/flash_attention.cu `attn_tc_kernel`): blocks of
+# Kernels A and B in f32 (csrc/flash_attention.cu `attn_tc_kernel`): blocks of
 # TC_BQ query rows in row groups of 16; each step stages 2 * TC_KW keys,
 # and the two warps of a row group take TC_KW keys each (key tile t, of
 # TC_KW keys, goes to the warp of half t % 2), each with its own online
@@ -114,6 +116,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+
+
 def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> None:
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -123,12 +128,11 @@ def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> Non
         raise ValueError(f"q/k/v must share one dtype, f32 or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if mode_id == _RELPOS and q.dtype == torch.float32 and d != 64:
+        raise ValueError(f"kernel B in f32 takes head dim 64 (SAM's), not {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("kernels A, B and V read 16-byte aligned q, k, v and write a 16-byte aligned output")
-    lib = cuda_build.load("flash_attention")
-    fn = lib.attn_f32 if q.dtype == torch.float32 else lib.attn_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("flash_attention", "attn_f32" if q.dtype == torch.float32 else "attn_bf16", _ARGTYPES)
     rh = cuda_build.ptr(rel_h) if rel_h is not None else None
     rw = cuda_build.ptr(rel_w) if rel_w is not None else None
     err = fn(

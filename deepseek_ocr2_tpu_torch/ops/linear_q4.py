@@ -15,7 +15,9 @@ for bit; the JAX package pads In to 256 and packs block-local split halves
 with an offset low nibble for the TPU (`from_jax_q4` converts).
 
 - `linear_q4` is kernel L (`csrc/linear_q4.cu`, device code in
-  `csrc/linear_q4.cuh`): the skinny GEMM of a decode step. Its plain twin
+  `csrc/linear_q4.cuh`): the skinny GEMM of a decode step; at 1-4 rows of
+  x (lm_head at batch 1) a persistent kernel that streams whole code rows
+  through shared memory by bulk async copies. Its plain twin
   `linear_q4_reference` computes sum_g s_g * (x_g . q_g) in f32, the TPU
   kernel's rounding points (each group's f32 dot scaled, then summed).
   `launches` counts calls that launch L.
@@ -143,16 +145,20 @@ def linear_q4_plain(x: torch.Tensor, w: QLinear4, *, out_dtype=None) -> torch.Te
     return F.linear(x.float(), wd.float()).to(_out_dtype(x, out_dtype))
 
 
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def linear_q4(x: torch.Tensor, w: QLinear4, *, out_dtype=None) -> torch.Tensor:
     """Kernel L: x [B, In] (f32 or bf16) times the int4 linear. Returns
     [B, Out] in `out_dtype` (default x's dtype)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return linear_q4_reference(x, w, out_dtype=out_dtype)
     q, scale = w["q4"], w["scale"]
     od = _out_dtype(x, out_dtype)
     b, in_dim = x.shape
     out_dim = q.shape[0]
-    if x.dtype not in (torch.float32, torch.bfloat16) or od not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _DTYPES or od not in _DTYPES:
         raise ValueError(f"kernel L takes f32 or bf16 x and output, got {x.dtype} -> {od}")
     ip = padded(in_dim)
     if q.dtype != torch.uint8 or q.shape != (out_dim, ip // 2) or scale.dtype != torch.float32 \
@@ -163,16 +169,13 @@ def linear_q4(x: torch.Tensor, w: QLinear4, *, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"kernel L needs In ({in_dim}) a multiple of 32")
     x = x.contiguous()
     cuda_build.require_cuda(x, q, scale)
-    if x.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("kernel L reads 16-byte aligned rows")
-    out = torch.empty(b, out_dim, dtype=od, device=x.device)
-    lib = cuda_build.load("linear_q4")
-    fn = lib.linear_q4
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(p(x), p(q), p(scale), p(out), b, in_dim, out_dim, int(x.dtype == torch.bfloat16),
-             int(od == torch.bfloat16), cuda_build.stream_of(x))
+    xp, qp, sp = x.data_ptr(), q.data_ptr(), scale.data_ptr()
+    if (xp | qp | sp) % 16:
+        raise ValueError("kernel L reads 16-byte aligned x, codes and scales")
+    out = x.new_empty((b, out_dim), dtype=od)
+    err = cuda_build.entry("linear_q4", "linear_q4", _ARGTYPES)(
+        xp, qp, sp, out.data_ptr(), b, in_dim, out_dim, x.dtype == torch.bfloat16, od == torch.bfloat16,
+        cuda_build.stream_of(x))
     cuda_build.check(err, "linear_q4")
     linear_q4.launches += 1
     return out

@@ -75,19 +75,13 @@ _SIGNATURES = {
     "gmm_swiglu_visit_f32": "ppppppppiiiip", "gmm_swiglu_visit_bf16": "ppppppppiiiip",
     "gmm_ffn_visit_f32": "pppppppppiiiip", "gmm_ffn_visit_bf16": "pppppppppiiiip",
 }
-_FNS: Dict[str, ctypes._CFuncPtr] = {}
+_ARGTYPES = {name: [ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig] for name, sig in _SIGNATURES.items()}
 
 
 def _fn(name: str):
-    """The library's entry point `name`, its argtypes set (builds the
+    """The library's entry point `name`, its argtypes bound (builds the
     library at first use)."""
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(cuda_build.load("moe_gmm"), name)
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in _SIGNATURES[name]]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    return cuda_build.entry("moe_gmm", name, _ARGTYPES[name])
 
 
 def aligned_layout(group_sizes: torch.Tensor, m_pad: int, bm: int):

@@ -278,15 +278,31 @@ def test_cuda_attention_tc_large_scores(cuda, mode, lq, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,side", [(1, 64), (25, 14), (2, 9)])
+@pytest.mark.parametrize("b,side", [(1, 64), (25, 14), (2, 9), (6, 48), (96, 14)])
 def test_cuda_relpos_matches_twin(cuda, dtype, b, side):
+    """SAM's four shapes (the 1024^2 view's global and window attention,
+    six crops' global and window attention) and an odd grid; in f32 the
+    tensor-core kernel (Kw 9: the unpaired bias reads). The output's block
+    is filled with NaN first: a row left unwritten shows."""
     g = torch.Generator(device=cuda).manual_seed(1)
     l = side * side
     q, k, v = (torch.randn(b, 12, l, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
     rh, rw = (0.3 * torch.randn(b, 12, l, side, generator=g, device=cuda) for _ in range(2))
+    torch.full_like(q, float("nan"))
+    before = mha_relpos.launches
     got = mha_relpos(q, k, v, rh, rw, scale=0.125)
+    torch.cuda.synchronize()
+    assert mha_relpos.launches == before + 1
     ref = mha_reference(q, k, v, scale=0.125, rel_h=rh, rel_w=rw)
     assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_relpos_f32_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 2, 16, 128, device=cuda)
+    rh = torch.zeros(1, 2, 16, 4, device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        mha_relpos(q, q, q, rh, rh, scale=0.125)
 
 
 @pytest.mark.gpu
@@ -913,6 +929,31 @@ def test_cuda_linear_q4_matches_twin(cuda, dtype, b, in_dim, out_dim):
         ref = linear_q4.linear_q4_reference(x, w, out_dtype=out_dtype)
         assert got.dtype == ref.dtype and got.shape == (b, out_dim)
         assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), ref.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dim,out_dim", [(1280, 129280), (1280, 1000), (6848, 1280), (6848, 1001), (224, 1001)])
+def test_cuda_linear_q4_stream_matches_twin(cuda, dtype, in_dim, out_dim):
+    """L's streaming form (1-4 rows of x): lm_head, Out that leaves the
+    last stage partial (1000, 1001: its scales end off a 16-byte boundary
+    at In 6848 and 224), the dense down (In 6848, a stage of 16 rows) and a
+    partial group (In 224). The output's block is filled with NaN first: a
+    row left unwritten shows."""
+    w = _qlin4(cuda, out_dim, in_dim, seed=17)
+    gx = torch.Generator(device=cuda).manual_seed(18)
+    for b in (1, 2, 3, 4):
+        x = torch.randn(b, in_dim, generator=gx, device=cuda).to(dtype)
+        for out_dtype in (None, torch.float32):
+            od = out_dtype or dtype
+            torch.full((b, out_dim), float("nan"), dtype=od, device=cuda)
+            before = linear_q4.linear_q4.launches
+            got = linear_q4.linear_q4(x, w, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert linear_q4.linear_q4.launches == before + 1
+            ref = linear_q4.linear_q4_reference(x, w, out_dtype=out_dtype)
+            assert got.dtype == ref.dtype and got.shape == (b, out_dim)
+            assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), ref.dtype), (b, out_dtype)
 
 
 def _q4_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, n_sh=2, seed=9):
