@@ -29,9 +29,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    and the kernels off the default paths: U (stacked-cache decode
    attention, one and 16 rows), X (G's device code on a per-sequence
    pool), V (SAM's windowed attention, the bias built in the kernel, at
-   win 14 and the 16 / 14 padded form) and W (the boundary-visit grouped
-   GEMM, both modes, its ffn mode also against D then E), each with its
-   time in a CUDA graph;
+   win 14 for the 1024^2 view's 25 windows and six crops' 96, and the 16 /
+   14 padded form) and W (the boundary-visit grouped GEMM, both modes, its
+   ffn mode also against D then E), each with its time in a CUDA graph
+   (U and V with the library call's beside it);
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
    loaded through `params_from_flat` with the CLI's default dtype policy
@@ -645,7 +646,7 @@ def stacked_results(dev, record) -> None:
                    bound_ms(nbytes(q, ref, lens) + 2 * n_keys * heads * d * k_all.element_size(),
                             4 * n_keys * heads * d, torch.float32),
                    lambda: F.scaled_dot_product_attention(q4, k_l, v_l, attn_mask=attend, scale=scale),
-                   graph=lambda: decode_attention_stacked(*args, scale=scale))
+                   graph=lambda: decode_attention_stacked(*args, scale=scale), library_graph=True)
             if b == 16 and dt == torch.float32:
                 no_host_sync(dev, "U (B 16, f32 cache)", lambda: decode_attention_stacked(*args, scale=scale))
             del k_all, v_all, args, q4, k_l, v_l
@@ -674,34 +675,36 @@ def stacked_results(dev, record) -> None:
 
 
 def window_results(dev, randn, record) -> None:
-    """Kernel V at the windowed SAM block of the no-crop global view (phase
-    4e runs it there): 25 windows x 12 heads at win = valid = 14 (T2 196) in
-    f32 (the vision dtype) and bf16, and the JAX package's 16 / 14 padded
-    form (T2 256, padded tokens zeroed, padded query rows not compared);
+    """Kernel V at the windowed SAM blocks (phase 4e runs it there): the
+    no-crop global view's 25 windows x 12 heads and a 6-crop page's 96 at
+    win = valid = 14 (T2 196) in f32 (the vision dtype) and bf16 (serve's),
+    and the JAX package's 16 / 14 padded form (T2 256, padded tokens
+    zeroed, padded query rows not compared);
     library: SDPA with the [T2, T2] bias built outside the timing, as for
     B. The bound counts the valid queries and keys."""
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_win, mha_win_reference, window_bias
 
     scale = 1.0 / 8.0
-    for win, valid, dt in ((14, 14, torch.float32), (14, 14, torch.bfloat16), (16, 14, torch.float32)):
+    for nw, win, valid, dt in ((25, 14, 14, torch.float32), (25, 14, 14, torch.bfloat16), (96, 14, 14, torch.float32),
+                               (96, 14, 14, torch.bfloat16), (25, 16, 14, torch.float32)):
         t2 = win * win
         pos = torch.arange(t2, device=dev)
         live = (pos // win < valid) & (pos % win < valid)
-        q, k, v = ((randn(25, 12, t2, 64) * live[:, None]).to(dt) for _ in range(3))
+        q, k, v = ((randn(nw, 12, t2, 64) * live[:, None]).to(dt) for _ in range(3))
         rhf, rwf = (F.pad(randn(valid, valid, 64, std=0.3), (0, 0, 0, win - valid, 0, win - valid))
                     .permute(2, 0, 1).reshape(64, t2).contiguous() for _ in range(2))
         kw = dict(scale=scale, win=win, valid=valid)
         ref = mha_win_reference(q, k, v, rhf, rwf, **kw)
         got = mha_win(q, k, v, rhf, rwf, **kw)
         bias = window_bias(q, rhf, rwf, win, valid).to(dt)
-        n = 25 * 12 * valid * valid  # valid queries; each sees valid^2 keys
+        n = nw * 12 * valid * valid  # valid queries; each sees valid^2 keys
         record("V", f"windows {tuple(q.shape)} win {win} valid {valid} {str(dt)[6:]}", ref[:, :, live],
                got[:, :, live], tolerance(ref[:, :, live], dt),
                median_ms(lambda: mha_win(q, k, v, rhf, rwf, **kw)),
                median_ms(lambda: mha_win_reference(q, k, v, rhf, rwf, **kw)),
                bound_ms(nbytes(q, k, v, rhf, rwf, ref), n * (4 * valid * valid + 4 * win) * 64, dt),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale),
-               graph=lambda: mha_win(q, k, v, rhf, rwf, **kw))
+               graph=lambda: mha_win(q, k, v, rhf, rwf, **kw), library_graph=True)
         del q, k, v, ref, got, bias
     torch.cuda.empty_cache()
 
@@ -1244,8 +1247,8 @@ def phase_kernels(dev) -> dict:
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
     # [6, 12, 2304, 64] (48 x 48) and windows [96, 12, 196, 64], f32.
-    # f32 (the CLI's vision dtype) on the tensor cores, bf16 on the CUDA-core
-    # template; each also in a CUDA graph beside SDPA in one.
+    # f32 (the CLI's vision dtype) on the tensor cores, bf16 (serve's) on the
+    # CUDA-core template; each also in a CUDA graph beside SDPA in one.
     cases = [(case, b, side, dt) for case, b, side in (("global", 1, 64), ("window", 25, 14),
                                                        ("crop global", 6, 48), ("crop window", 96, 14))
              for dt in (torch.float32, torch.bfloat16)]
@@ -1302,7 +1305,8 @@ def phase_kernels(dev) -> dict:
         ms = median_ms(lambda: mlp_gelu(x, w1, b1, w2, b2))
         plain = median_ms(lambda: mlp_gelu_reference(x, w1, b1, w2, b2))
         record("C", f"{tuple(x.shape)} x {tuple(w1.shape)} {str(dt)[6:]}", ref, got, tolerance(ref, dt), ms, plain,
-               bound_ms(nbytes(x, w1, b1, w2, b2, ref), 2 * 2 * m * 768 * 3072, dt))
+               bound_ms(nbytes(x, w1, b1, w2, b2, ref), 2 * 2 * m * 768 * 3072, dt),
+               graph=lambda: mlp_gelu(x, w1, b1, w2, b2))
     torch.cuda.synchronize(dev)
     return results
 

@@ -1,5 +1,6 @@
-// Exact attention for sm_90a: kernels A and B in f32 on the tensor cores
-// (3xTF32), and an online-softmax template on the CUDA cores for the rest.
+// Exact attention for sm_90a: kernels A and B in f32 and V in f32 and bf16
+// on the tensor cores (TF32 mma.sync), and an online-softmax template on the
+// CUDA cores for A and B in bf16.
 //
 // Replaces three Pallas TPU kernels of deepseek_ocr2_tpu/ops/flash_attention.py:
 //   A: _attn_kernel        (modes none / causal / prefix; LM prefill uses causal)
@@ -9,7 +10,7 @@
 //      blocks under DEEPSEEK_SAM_WIN_KERNEL=1)
 // The TPU kernels keep a whole score row in VMEM and take an exact softmax
 // over it. A 64-query tile of f32 rows at SAM's 4096 global keys is 1 MB,
-// far over the 227 KB of shared memory a block may use on Hopper, so both
+// far over the 227 KB of shared memory a block may use on Hopper, so the
 // kernels here stream key tiles with an online softmax (running max and
 // sum, rescaled per tile). Their results differ from the full-row form by
 // f32 rounding only.
@@ -21,16 +22,15 @@
 //   A causal:  key > query                                   -> s = -1e4
 //   A prefix:  (query < P and key >= P) or
 //              (query >= P and key >= P and key > query)     -> s = -1e4
-//   V: per query block, the win rel-h and win rel-w dot products of each
-//      query with its own rows of the flattened tables rhf, rwf [D, T2] f32
-//      (rhf[c, h win + kh] = rel_h_table[h, kh, c]) go into shared memory,
-//      in f32 FMAs (no TF32): rel_h[q, kh] = q . rhf[:, (q / win) win + kh],
-//      rel_w[q, kw] = q . rwf[:, (q % win) win + kw]. They are then folded in
-//      as B's are, and keys of a padded window (key / win or key % win >=
-//      valid) get s = s - 1e30. The TPU kernel builds the same bias with four
-//      0/1 select dots over [T2, T2] tiles; its t2 % 128 == 0 assertion is
-//      the TPU's lane rule: any win works here (SAM's true 14 x 14 windows,
-//      T2 = 196, and the JAX package's 16 / 14 padded form).
+//   V: s = s + (rel_h[q, key / win] + rel_w[q, key % win]) with
+//      rel_h[q, kh] = q . rhf[:, (q / win) win + kh] and rel_w[q, kw] =
+//      q . rwf[:, (q % win) win + kw], the flattened tables rhf, rwf [D, T2]
+//      f32 (rhf[c, h win + kh] = rel_h_table[h, kh, c]); keys of a padded
+//      window (key / win or key % win >= valid) at -1e30 or below. The TPU
+//      kernel builds the same bias with four 0/1 select dots over [T2, T2]
+//      tiles; its t2 % 128 == 0 assertion is the TPU's lane rule: any win
+//      works here (SAM's true 14 x 14 windows, T2 = 196, and the JAX
+//      package's 16 / 14 padded form).
 //   key padding (key >= Lk, the ragged last tile)            -> s = -inf
 //   o = softmax(s) @ v, written in the input type.
 //
@@ -102,24 +102,55 @@
 // - Keys past Lk (SAM's windows: 196 keys, the last 64-key tile partial)
 //   are -inf as A's key padding; rows past Lq are zero and not written.
 //
-// The CUDA-core template (attn_kernel: A and B in bf16, V in both types)
-// streams 64-key tiles with 256 threads a block, each owning a 4 x 4 score
-// sub-tile, in f32 FMAs read from shared memory (K's padded row stride puts
-// the 16 column lanes on 16 banks); every key tile is visited. bf16
-// inputs are widened to f32 on load: products of bf16 values are exact in
-// f32, which is what the TPU kernel's bf16 MXU pass with f32 accumulation
-// computes. V adds 2 win D FMAs per query to B's 2 T2 D of the scores:
-// at win 14, T2 196, 14 %; in exchange the [B H, T2, win] rel tensors are
-// never written or read.
+// Kernel V (mode RELWIN of the same kernel, D 64, f32 and bf16). SAM's
+// windowed blocks: [25, 12, 196, 64] a 1024^2 view, [96, 12, 196, 64] six
+// crops, 1200 and 4608 blocks of 64 query rows; per block 4 steps of 64
+// keys (the last holds 4), so a block's own chain of steps, not the rate,
+// sets the time, as for A and B. B's walk with Kh = Kw = win, plus:
+// - The rel rows are built in the block, not read: each of its 64 rows
+//   takes its win rel-h and win rel-w dot products (four threads a row,
+//   up to 8 outputs each) into B's staging, in f32 FMAs on q as given, as
+//   the twin's q32 @ rhf (not from Q's TF32 split); the tables (100 KB at
+//   win 14, shared by every window and head) come through the read-only
+//   cache. That is 2 win D FMAs a query beside the scores' 2 T2 D (14 % at
+//   win 14), and the [B H, T2, win] rel tensors are never written or read.
+//   The first K/V step is in flight meanwhile.
+// - What this prologue costs: about 40 % of bf16 V's time and 25 % of
+//   f32's (`scripts/torch_win_ablate.py`, variant no_relrows). Each table
+//   value feeds one FMA, so the load pipe, not the FMAs, bounds it (4096
+//   warp loads a block against 896 cycles of FMAs). Fetching each table
+//   byte once a block (the tables streamed through shared memory by
+//   cp.async), or one column at a time for every row that shares it, timed
+//   no faster on the card; cutting the loads needs register tiles of rows
+//   that share columns (a window row's up to win rows for rel_h, the rows
+//   q = w mod win for rel_w) with the d sum split across threads.
+// - A padded window row kh >= valid carries -1e30 in rel_h and a column kw
+//   >= valid in rel_w, so a padded key's bias is -1e30 or -2e30 and no
+//   score needs a test: every row has key 0 unpadded, so its running max
+//   is a real score and exp(-1e30 - m) is an exact 0, as the twin's
+//   -1e30. A key half that sees only padded keys is weighed out by the
+//   merge (e^(m1 - m) = 0).
+// - bf16: a bf16 value is exact in TF32 (its low part is zero), so Q K^T
+//   is the one product hi.hi and P V the two P.lo V + P.hi V, with f32
+//   sums and the same f32 softmax; K and V are staged as bf16 (rows of D +
+//   8) and widened at fragment load, Q's split keeps only hi. 67 KB a
+//   block and at most 128 registers: two blocks (16 warps) an SM. The
+//   output is rounded to bf16 once.
+//
+// The CUDA-core template (attn_kernel: A and B in bf16) streams 64-key
+// tiles with 256 threads a block, each owning a 4 x 4 score sub-tile, in
+// f32 FMAs read from shared memory (K's padded row stride puts the 16
+// column lanes on 16 banks); every key tile is visited. bf16 inputs are
+// widened to f32 on load: products of bf16 values are exact in f32, which
+// is what the TPU kernel's bf16 MXU pass with f32 accumulation computes.
 //
 // Layout: q [BH, Lq, D], k/v [BH, Lk, D], o [BH, Lq, D], rel_h [BH, Lq, Kh],
-// rel_w [BH, Lq, Kw] (f32), all contiguous (A in f32: 16-byte aligned);
-// for V (mode 4, through the same entry points) rel_h / rel_w are the
-// tables rhf / rwf [D, T2] f32 (shared by every window and head), Kh = Kw =
-// win, Lq = Lk = T2, and the n_prefix argument carries `valid`. The
-// template's grid is (ceil(Lq / 64), BH), 256 threads: thread (ty, tx) =
-// (tid / 16, tid % 16) owns query rows 4*ty .. 4*ty+3 and key / output
-// columns tx + 16*j.
+// rel_w [BH, Lq, Kw] (f32), all contiguous and 16-byte aligned; for V (mode
+// 4, through the same entry points) rel_h / rel_w are the tables rhf / rwf
+// [D, T2] f32 (shared by every window and head), Kh = Kw = win, Lq = Lk =
+// T2, and the n_prefix argument carries `valid`. The template's grid is
+// (ceil(Lq / 64), BH), 256 threads: thread (ty, tx) = (tid / 16, tid % 16)
+// owns query rows 4*ty .. 4*ty+3 and key / output columns tx + 16*j.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,7 +175,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A in f32 on the tensor cores (see the header).
+// Kernels A and B in f32, V in f32 and bf16, on the tensor cores (see the
+// header).
 
 constexpr int TC_BQ = 64;      // query rows a block: 4 row groups of 16, two warps each
 constexpr int TC_KW = 32;      // keys a warp multiplies a step
@@ -152,14 +184,19 @@ constexpr int TC_SPLIT = 2;    // key halves: warps w and w + 4 share rows, each
 constexpr int TC_BKV = TC_SPLIT * TC_KW;  // keys a block stages a step
 constexpr int TC_THREADS = 32 * (TC_BQ / 16) * TC_SPLIT;  // 8 warps
 
-template <int D>
+template <typename T, int D>
 struct TcTile {
-  static constexpr int KS = D + 8;  // K row stride: a float2 fragment load hits 32 banks
-  static constexpr int VS = D + 4;  // V row stride: a scalar fragment load hits 32 banks
-  static constexpr int KV_FLOATS = 2 * TC_BKV * (KS + VS);  // the double buffer
-  // Q split once: [row group][k8 step][lane][hi a0..a3, lo a0..a3].
-  static constexpr int Q_FLOATS = (TC_BQ / 16) * (D / 8) * 32 * 8;
-  static constexpr size_t SMEM = sizeof(float) * (KV_FLOATS + Q_FLOATS);
+  static constexpr bool F32 = sizeof(T) == 4;
+  // Row strides in elements: a K pair load and a V scalar load each hit 32
+  // banks, and every row starts on 16 bytes (cp.async).
+  static constexpr int KS = D + 8;
+  static constexpr int VS = F32 ? D + 4 : D + 8;
+  static constexpr int KV_BYTES = (int)sizeof(T) * 2 * TC_BKV * (KS + VS);  // the double buffer
+  // Q split once: [row group][k8 step][lane][hi a0..a3 (f32: then lo a0..a3)].
+  // A bf16 value is exact in TF32: its lo part is zero and not kept.
+  static constexpr int Q_PARTS = F32 ? 2 : 1;
+  static constexpr int Q_BYTES = (TC_BQ / 16) * (D / 8) * 32 * 16 * Q_PARTS;
+  static constexpr size_t SMEM = KV_BYTES + Q_BYTES;
 };
 
 // Keys [0, keys_needed) hold every key that a row <= q_max may attend to:
@@ -195,9 +232,29 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fu
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0));
 }
 
-// B's staged rows: rel_h at an odd stride (the 8 rows of a fragment, one
-// kh, on 8 banks), rel_w at a stride of 8 mod 32 (a half-warp's float2
-// loads of 4 rows x 4 key pairs on 32 banks).
+// Two neighbouring elements as f32 (a bf16 pair widens exactly).
+__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// Four neighbouring elements as f32 (16-byte or 8-byte aligned).
+__device__ __forceinline__ float4 load_quad(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// B's and V's staged rows: rel_h at an odd stride (the 8 rows of a
+// fragment, one kh, on 8 banks), rel_w at a stride of 8 mod 32 (a
+// half-warp's float2 loads of 4 rows x 4 key pairs on 32 banks).
 __host__ __device__ __forceinline__ int rel_stride_h(int kh) { return kh | 1; }
 __host__ __device__ __forceinline__ int rel_stride_w(int kw) { return kw + (40 - kw % 32) % 32; }
 
@@ -207,7 +264,7 @@ __device__ __forceinline__ int div_kw(int key, uint32_t magic) {
   return magic ? (int)__umulhi((uint32_t)key, magic) : key;
 }
 
-// B: s[n][c] += rel_h[row, key / Kw] + rel_w[row, key % Kw] (the sum of
+// B, V: s[n][c] += rel_h[row, key / Kw] + rel_w[row, key % Kw] (the sum of
 // the two first, as the twin adds the built bias), for the lane's scores:
 // row g + 8 (c / 2) of the warp's 16 (rh, rw point at row g), key key0 + 8
 // n + (c & 1) -- the score fragment's own key, the same order the mask
@@ -246,6 +303,61 @@ __device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh,
   }
 }
 
+// V: the block's rows of rel_h[r, kh] = q . rhf[:, (q / win) win + kh] and
+// rel_w[r, kw] = q . rwf[:, (q % win) win + kw] (q = q0 + r; zero past Lq)
+// into B's staging, in f32 FMAs on q as given (the twin's q32 @ rhf, not
+// the TF32 split), a padded window row kh >= valid (column kw >= valid)
+// carrying -1e30 in rel_h (rel_w). Four threads a row, each taking outputs
+// j = p, p + 4, ... of the row's 2 win (rel_h for j < win, rel_w after),
+// RW_PER of them a pass. The tables [D, T2] (100 KB at win 14, shared by
+// every window and head) come through the read-only cache.
+constexpr int RW_PER = 8;
+
+template <typename T, int D>
+__device__ __forceinline__ void relwin_rows(const T* __restrict__ q, const float* __restrict__ rhf,
+                                            const float* __restrict__ rwf, float* rhs, float* rws, int sh, int sw,
+                                            int bh, int q0, int lq, int win, int valid) {
+  static_assert(TC_THREADS == 4 * TC_BQ, "four threads a row");
+  const int r = threadIdx.x / 4, p = threadIdx.x % 4, qp = q0 + r;
+  const bool live = qp < lq;
+  const int qc = live ? qp : 0;  // rows past Lq read row 0 and stage zeros
+  const T* qr = q + ((size_t)bh * lq + qc) * D;
+  const int t2 = win * win, hbase = qc / win * win, wbase = qc % win * win;
+  for (int j0 = p; j0 < 2 * win; j0 += 4 * RW_PER) {
+    const float* col[RW_PER];
+    float acc[RW_PER];
+#pragma unroll
+    for (int u = 0; u < RW_PER; ++u) {
+      const int j = min(j0 + 4 * u, 2 * win - 1);
+      col[u] = j < win ? rhf + hbase + j : rwf + wbase + (j - win);
+      acc[u] = 0.f;
+    }
+#pragma unroll 4
+    for (int c = 0; c < D; c += 4) {
+      const float4 x = load_quad(qr + c);
+#pragma unroll
+      for (int u = 0; u < RW_PER; ++u) {
+        const float* tc = col[u] + (size_t)c * t2;
+        acc[u] = fmaf(x.x, __ldg(tc), acc[u]);
+        acc[u] = fmaf(x.y, __ldg(tc + t2), acc[u]);
+        acc[u] = fmaf(x.z, __ldg(tc + 2 * t2), acc[u]);
+        acc[u] = fmaf(x.w, __ldg(tc + 3 * t2), acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RW_PER; ++u) {
+      const int j = j0 + 4 * u;
+      if (j >= 2 * win) break;
+      const float val = live ? acc[u] : 0.f;
+      if (j < win) {
+        rhs[r * sh + j] = j >= valid ? val + -1.0e30f : val;
+      } else {
+        rws[r * sw + j - win] = j - win >= valid ? val + -1.0e30f : val;
+      }
+    }
+  }
+}
+
 // Fragments (m16n8k8, lane = 4 g + t): A a0 (row g, k t), a1 (row g + 8,
 // k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4); B b0 (k t, n g), b1
 // (k t + 4, n g); C c0, c1 (row g, n 2t, 2t + 1), c2, c3 (row g + 8, the
@@ -257,23 +369,30 @@ __device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh,
 // keys; at the end the second half's state goes through shared memory and
 // the first merges it: m = max(m0, m1), l = l0 e^(m0 - m) + l1 e^(m1 - m),
 // O likewise. A half that saw no key has m1 = -inf and adds 0.
-template <int D, int MODE>
-__global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ o,
+//
+// T = float: each product in 3xTF32 (lo.hi + hi.lo + hi.hi). T = bf16 (V
+// only): q, k and v are exact in TF32 (their lo parts are zero), so Q K^T
+// is the one product hi.hi and P V the two P.lo V + P.hi V, with the same
+// f32 softmax; the output is rounded to bf16 once.
+template <typename T, int D, int MODE>
+__global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     const float* __restrict__ rel_h, const float* __restrict__ rel_w, int lq, int lk, int n_prefix, int kh, int kw,
     uint32_t kw_magic, float scale) {
-  using Tile = TcTile<D>;
-  constexpr int KS = Tile::KS, VS = Tile::VS;
+  using Tile = TcTile<T, D>;
+  constexpr bool F32 = Tile::F32;
+  constexpr int KS = Tile::KS, VS = Tile::VS, QP = Tile::Q_PARTS;
   constexpr int NK = TC_KW / 8;  // the scores' n8 tiles; P V's k8 steps
   constexpr int ND = D / 8;      // q k^T's k8 steps; O's n8 tiles
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                   // [2][TC_BKV][KS]
-  float* vs = ks + 2 * TC_BKV * KS;   // [2][TC_BKV][VS]
-  uint4* qs = reinterpret_cast<uint4*>(smem + Tile::KV_FLOATS);  // [row group][ND][lane][2]
-  // B: the block's rows of rel_h [TC_BQ][sh] and rel_w [TC_BQ][sw] (zero
+  constexpr int CE = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [2][TC_BKV][KS]
+  T* vs = ks + 2 * TC_BKV * KS;            // [2][TC_BKV][VS]
+  uint4* qs = reinterpret_cast<uint4*>(smem_raw + Tile::KV_BYTES);  // [row group][ND][lane][QP]
+  // B, V: the block's rows of rel_h [TC_BQ][sh] and rel_w [TC_BQ][sw] (zero
   // past Lq), at the strides rel_stride_h / rel_stride_w give.
   const int sh = rel_stride_h(kh), sw = rel_stride_w(kw);
-  float* rhs = smem + Tile::KV_FLOATS + Tile::Q_FLOATS;
+  float* rhs = reinterpret_cast<float*>(smem_raw + Tile::SMEM);
   float* rws = rhs + TC_BQ * sh;
 
   const int bh = blockIdx.x;
@@ -281,33 +400,54 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int rg = warp % (TC_BQ / 16), half = warp / (TC_BQ / 16);
   const int r0 = q0 + 16 * rg;  // the warp's first row
-  const float* kb = k + (size_t)bh * lk * D;
-  const float* vb = v + (size_t)bh * lk * D;
+  const T* kb = k + (size_t)bh * lk * D;
+  const T* vb = v + (size_t)bh * lk * D;
   const int n_steps = (keys_needed<MODE>(min(q0 + TC_BQ, lq) - 1, lk, n_prefix) + TC_BKV - 1) / TC_BKV;
   const int warp_keys = r0 < lq ? keys_needed<MODE>(min(r0 + 16, lq) - 1, lk, n_prefix) : 0;
+
+  auto stage = [&](int buf, int k0) {
+    constexpr int CH = D / CE;  // 16-byte chunks a row
+    T* kd = ks + buf * TC_BKV * KS;
+    T* vd = vs + buf * TC_BKV * VS;
+    for (int i = threadIdx.x; i < TC_BKV * CH; i += TC_THREADS) {
+      const int r = i / CH, c = CE * (i % CH);
+      const bool ok = k0 + r < lk;  // rows past Lk are zero-filled
+      const size_t off = (size_t)(ok ? k0 + r : 0) * D + c;
+      cp_async16(kd + r * KS + c, kb + off, ok);
+      cp_async16(vd + r * VS + c, vb + off, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0, 0);  // in flight while the block prepares Q and the bias rows
 
   // The row group's Q fragments (rows r0 + g, r0 + g + 8; zero past Lq),
   // split once by the key-half-0 warp into shared memory, where both warps
   // of the group read them a k8 step at a time (registers hold O and the
   // scores; the first step's barrier orders the writes before the reads).
-  uint4* qg = qs + rg * ND * 32 * 2;
+  uint4* qg = qs + rg * ND * 32 * QP;
   if (half == 0) {
-    const float* qr = q + ((size_t)bh * lq + r0 + g) * D;
+    const T* qr = q + ((size_t)bh * lq + r0 + g) * D;
     const bool ok0 = r0 + g < lq, ok1 = r0 + g + 8 < lq;
     for (int kk = 0; kk < ND; ++kk) {
-      const float2 x0 = ok0 ? *reinterpret_cast<const float2*>(qr + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
-      const float2 x1 = ok1 ? *reinterpret_cast<const float2*>(qr + 8 * D + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
-      uint32_t hi[4], lo[4];
-      split_tf32(x0.x, hi[0], lo[0]);
-      split_tf32(x1.x, hi[1], lo[1]);
-      split_tf32(x0.y, hi[2], lo[2]);
-      split_tf32(x1.y, hi[3], lo[3]);
-      qg[(kk * 32 + lane) * 2] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      qg[(kk * 32 + lane) * 2 + 1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      const float2 x0 = ok0 ? load_pair(qr + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
+      const float2 x1 = ok1 ? load_pair(qr + 8 * D + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
+      if constexpr (F32) {
+        uint32_t hi[4], lo[4];
+        split_tf32(x0.x, hi[0], lo[0]);
+        split_tf32(x1.x, hi[1], lo[1]);
+        split_tf32(x0.y, hi[2], lo[2]);
+        split_tf32(x1.y, hi[3], lo[3]);
+        qg[(kk * 32 + lane) * QP] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        qg[(kk * 32 + lane) * QP + 1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+        qg[kk * 32 + lane] = make_uint4(__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
+                                        __float_as_uint(x1.y));
+      }
     }
   }
 
-  if constexpr (MODE == RELPOS) {  // ordered before the reads by the first step's barrier
+  // Ordered before the reads by the first step's barrier.
+  if constexpr (MODE == RELPOS) {
     const float* rhb = rel_h + ((size_t)bh * lq + q0) * kh;
     const float* rwb = rel_w + ((size_t)bh * lq + q0) * kw;
     for (int i = threadIdx.x; i < TC_BQ * kh; i += TC_THREADS) {
@@ -319,20 +459,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
       rws[r * sw + i - r * kw] = q0 + r < lq ? rwb[i] : 0.f;
     }
   }
-
-  auto stage = [&](int buf, int k0) {
-    constexpr int CH = D / 4;  // 16-byte chunks a row
-    float* kd = ks + buf * TC_BKV * KS;
-    float* vd = vs + buf * TC_BKV * VS;
-    for (int i = threadIdx.x; i < TC_BKV * CH; i += TC_THREADS) {
-      const int r = i / CH, c = 4 * (i % CH);
-      const bool ok = k0 + r < lk;  // rows past Lk are zero-filled
-      const size_t off = (size_t)(ok ? k0 + r : 0) * D + c;
-      cp_async16(kd + r * KS + c, kb + off, ok);
-      cp_async16(vd + r * VS + c, vb + off, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+  if constexpr (MODE == RELWIN) relwin_rows<T, D>(q, rel_h, rel_w, rhs, rws, sh, sw, bh, q0, lq, kw, n_prefix);
 
   float acc[ND][4];
 #pragma unroll
@@ -341,7 +468,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l: this lane's columns
 
-  stage(0, 0);
   for (int j = 0; j < n_steps; ++j) {
     const int buf = j & 1, k0 = j * TC_BKV + half * TC_KW;  // the warp's first key
     if (j + 1 < n_steps) {
@@ -352,10 +478,10 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
     }
     __syncthreads();
     if (k0 < warp_keys) {  // else every key of the warp's 32 is masked for its rows: skipped (exact)
-      const float* kt = ks + (buf * TC_BKV + half * TC_KW) * KS;
-      const float* vt = vs + (buf * TC_BKV + half * TC_KW) * VS;
+      const T* kt = ks + (buf * TC_BKV + half * TC_KW) * KS;
+      const T* vt = vs + (buf * TC_BKV + half * TC_KW) * VS;
       // Scores: lo.hi, hi.lo and hi.hi in three accumulators (three
-      // independent mma chains), summed small terms first.
+      // independent mma chains), summed small terms first; bf16: hi.hi.
       float s_lh[NK][4], s_hl[NK][4], s_hh[NK][4];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -363,17 +489,26 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
         for (int c = 0; c < 4; ++c) s_lh[n][c] = s_hl[n][c] = s_hh[n][c] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < ND; ++kk) {
-        const uint4 h4 = qg[(kk * 32 + lane) * 2], l4 = qg[(kk * 32 + lane) * 2 + 1];
-        const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w}, ql[4] = {l4.x, l4.y, l4.z, l4.w};
+        const uint4 h4 = qg[(kk * 32 + lane) * QP];
+        const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
+        uint32_t ql[4] = {0u, 0u, 0u, 0u};
+        if constexpr (F32) {
+          const uint4 l4 = qg[(kk * 32 + lane) * QP + 1];
+          ql[0] = l4.x, ql[1] = l4.y, ql[2] = l4.z, ql[3] = l4.w;
+        }
 #pragma unroll
         for (int n = 0; n < NK; ++n) {
-          const float2 kv = *reinterpret_cast<const float2*>(kt + (8 * n + g) * KS + 8 * kk + 2 * t);
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(kv.x, bh0, bl0);
-          split_tf32(kv.y, bh1, bl1);
-          mma_tf32(s_lh[n], ql, bh0, bh1);
-          mma_tf32(s_hl[n], qh, bl0, bl1);
-          mma_tf32(s_hh[n], qh, bh0, bh1);
+          const float2 kv = load_pair(kt + (8 * n + g) * KS + 8 * kk + 2 * t);
+          if constexpr (F32) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(kv.x, bh0, bl0);
+            split_tf32(kv.y, bh1, bl1);
+            mma_tf32(s_lh[n], ql, bh0, bh1);
+            mma_tf32(s_hl[n], qh, bl0, bl1);
+            mma_tf32(s_hh[n], qh, bh0, bh1);
+          } else {
+            mma_tf32(s_hh[n], qh, __float_as_uint(kv.x), __float_as_uint(kv.y));
+          }
         }
       }
 
@@ -382,8 +517,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[n][c] = ((s_lh[n][c] + s_hl[n][c]) + s_hh[n][c]) * scale;
-      if constexpr (MODE == RELPOS) add_rel_bias<NK>(s, rhs + (16 * rg + g) * sh, rws + (16 * rg + g) * sw, sh, sw,
-                                                     k0 + 2 * t, lk, kw, kw_magic);
+      if constexpr (MODE == RELPOS || MODE == RELWIN)
+        add_rel_bias<NK>(s, rhs + (16 * rg + g) * sh, rws + (16 * rg + g) * sw, sh, sw, k0 + 2 * t, lk, kw, kw_magic);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -406,9 +541,10 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
       for (int h = 0; h < 2; ++h) {  // the 4 lanes of a quad share rows g and g + 8
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        // Finite: a visited tile holds key k0 < Lk, whose score is real
-        // or -1e4. (Half 0's tile 0 holds key 0, unmasked for every row;
-        // a half-1 row that sees only -1e4 is weighed out by the merge.)
+        // Finite: a visited tile holds key k0 < Lk, whose score is real,
+        // -1e4 or (V) about -1e30. (Half 0's tile 0 holds key 0, unmasked
+        // for every row; a half-1 row that sees only masked keys is
+        // weighed out by the merge.)
         const float m_new = fmaxf(m[h], mx[h]);
         alpha[h] = expf(m[h] - m_new);
         m[h] = m_new;
@@ -434,15 +570,21 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
         split_tf32(s[n][2], ph[1], pl[1]);
         split_tf32(s[n][1], ph[2], pl[2]);
         split_tf32(s[n][3], ph[3], pl[3]);
-        const float* vr = vt + (8 * n + 2 * t) * VS + g;
+        const T* vr = vt + (8 * n + 2 * t) * VS + g;
 #pragma unroll
         for (int dn = 0; dn < ND; ++dn) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(vr[8 * dn], bh0, bl0);
-          split_tf32(vr[VS + 8 * dn], bh1, bl1);
-          mma_tf32(acc[dn], pl, bh0, bh1);
-          mma_tf32(acc[dn], ph, bl0, bl1);
-          mma_tf32(acc[dn], ph, bh0, bh1);
+          if constexpr (F32) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vr[8 * dn], bh0, bl0);
+            split_tf32(vr[VS + 8 * dn], bh1, bl1);
+            mma_tf32(acc[dn], pl, bh0, bh1);
+            mma_tf32(acc[dn], ph, bl0, bl1);
+            mma_tf32(acc[dn], ph, bh0, bh1);
+          } else {
+            const uint32_t b0 = __float_as_uint(to_f32(vr[8 * dn])), b1 = __float_as_uint(to_f32(vr[VS + 8 * dn]));
+            mma_tf32(acc[dn], pl, b0, b1);
+            mma_tf32(acc[dn], ph, b0, b1);
+          }
         }
       }
     }
@@ -454,10 +596,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  // The second half's state through the (now free) K buffers: O as [row
+  // The second half's state through the (now free) K/V buffers: O as [row
   // group][dn][lane][4] (consecutive lanes, consecutive float4s), then m
   // and l as [row group][lane][4].
-  float4* o_sh = reinterpret_cast<float4*>(ks);
+  static_assert((TC_BQ / 16) * (ND + 1) * 32 * 16 <= Tile::KV_BYTES, "the merge fits the K/V buffers");
+  float4* o_sh = reinterpret_cast<float4*>(smem_raw);
   float4* ml_sh = o_sh + (TC_BQ / 16) * ND * 32;
   if (half == 1) {
 #pragma unroll
@@ -474,31 +617,31 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_tc_kernel(
   for (int h = 0; h < 2; ++h) {
     const float mm = fmaxf(m[h], m1[h]);  // finite: half 0 saw key 0
     a0[h] = expf(m[h] - mm);
-    a1[h] = expf(m1[h] - mm);  // 0 where half 1 saw no key, or only -1e4 (exact, as the skip)
+    a1[h] = expf(m1[h] - mm);  // 0 where half 1 saw no key, or only masked keys (exact, as the skip)
     inv[h] = 1.f / (l[h] * a0[h] + l1[h] * a1[h]);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + g + 8 * h;
     if (row >= lq) continue;
-    float* orow = o + ((size_t)bh * lq + row) * D + 2 * t;
+    T* orow = o + ((size_t)bh * lq + row) * D + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn) {
       const float4 o1 = o_sh[(rg * ND + dn) * 32 + lane];
       const float c0 = h ? o1.z : o1.x, c1 = h ? o1.w : o1.y;
-      *reinterpret_cast<float2*>(orow + 8 * dn) =
-          make_float2((acc[dn][2 * h] * a0[h] + c0 * a1[h]) * inv[h], (acc[dn][2 * h + 1] * a0[h] + c1 * a1[h]) * inv[h]);
+      store_pair(orow + 8 * dn, (acc[dn][2 * h] * a0[h] + c0 * a1[h]) * inv[h],
+                 (acc[dn][2 * h + 1] * a0[h] + c1 * a1[h]) * inv[h]);
     }
   }
 }
 
-template <int D, int MODE>
+template <typename T, int D, int MODE>
 int launch_tc(const void* q, const void* k, const void* v, void* o, const void* rel_h, const void* rel_w, int bh,
               int lq, int lk, int n_prefix, int kh, int kw, float scale, cudaStream_t stream) {
-  auto kernel = attn_tc_kernel<D, MODE>;
-  size_t smem = TcTile<D>::SMEM;
+  auto kernel = attn_tc_kernel<T, D, MODE>;
+  size_t smem = TcTile<T, D>::SMEM;
   uint32_t magic = 0;
-  if (MODE == RELPOS) {
+  if (MODE == RELPOS || MODE == RELWIN) {
     smem += sizeof(float) * TC_BQ * (rel_stride_h(kh) + rel_stride_w(kw));
     if ((long long)lk * kw >= (1LL << 32) || smem > 232448) return (int)cudaErrorInvalidValue;
     if (kw > 1) magic = (uint32_t)(((1ULL << 32) + kw - 1) / kw);
@@ -506,8 +649,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const void* 
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (lq + TC_BQ - 1) / TC_BQ);
-  kernel<<<grid, TC_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                             static_cast<const float*>(v), static_cast<float*>(o),
+  kernel<<<grid, TC_THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                             static_cast<const T*>(v), static_cast<T*>(o),
                                              static_cast<const float*>(rel_h), static_cast<const float*>(rel_w), lq, lk,
                                              n_prefix, kh, kw, magic, scale);
   return (int)cudaGetLastError();
@@ -526,7 +669,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(
   float* ks = qs + BQ * (D + 1);     // [BK][D + 1]
   float* vs = ks + BK * (D + 1);     // [BK][D]
   float* ps = vs + BK * D;           // [BQ][BK + 1] probabilities of the tile
-  float* rhs = ps + BQ * (BK + 1);   // [BQ][kh]   (relpos / relwin only)
+  float* rhs = ps + BQ * (BK + 1);   // [BQ][kh]   (relpos only)
   float* rws = rhs + BQ * kh;        // [BQ][kw]
 
   const int tid = threadIdx.x;
@@ -552,26 +695,6 @@ __global__ void __launch_bounds__(NT) attn_kernel(
     for (int i = tid; i < BQ * kw; i += NT) {
       const int r = i / kw;
       rws[i] = (q0 + r < lq) ? rwb[(size_t)(q0 + r) * kw + i % kw] : 0.f;
-    }
-  }
-  if (MODE == RELWIN) {
-    __syncthreads();  // the block's q rows are staged
-    const int win = kh;
-    for (int i = tid; i < BQ * win; i += NT) {
-      const int r = i / win, kk = i % win, qp = q0 + r;
-      float sh = 0.f, sw = 0.f;
-      if (qp < lq) {
-        const float* th = rel_h + (qp / win) * win + kk;  // rhf[:, (q / win) win + kk]
-        const float* tw = rel_w + (qp % win) * win + kk;
-#pragma unroll 8
-        for (int c = 0; c < D; ++c) {
-          const float qv = qs[r * (D + 1) + c];
-          sh = fmaf(qv, th[(size_t)c * lk], sh);
-          sw = fmaf(qv, tw[(size_t)c * lk], sw);
-        }
-      }
-      rhs[i] = sh;
-      rws[i] = sw;
     }
   }
 
@@ -626,8 +749,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(
         if (kp >= lk) {
           x = -INFINITY;
         } else {
-          if (MODE == RELPOS || MODE == RELWIN) x = x + (rhs[r * kh + kp / kw] + rws[r * kw + kp % kw]);
-          if (MODE == RELWIN && (kp / kw >= n_prefix || kp % kw >= n_prefix)) x = x + -1.0e30f;
+          if (MODE == RELPOS) x = x + (rhs[r * kh + kp / kw] + rws[r * kw + kp % kw]);
           if (MODE == CAUSAL && kp > qp) x = MASK_VALUE;
           if (MODE == PREFIX) {
             const bool query_col = kp >= n_prefix;
@@ -688,7 +810,7 @@ template <typename T, int D, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, const void* rel_h,
            const void* rel_w, int bh, int lq, int lk, int n_prefix, int kh, int kw,
            float scale, cudaStream_t stream) {
-  const int rel = MODE == RELPOS || MODE == RELWIN ? BQ * (kh + kw) : 0;
+  const int rel = MODE == RELPOS ? BQ * (kh + kw) : 0;
   const size_t smem =
       sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + rel);
   auto kernel = attn_kernel<T, D, MODE>;
@@ -707,8 +829,10 @@ template <typename T, int D>
 int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
             const void* rel_h, const void* rel_w, int bh, int lq, int lk, int n_prefix,
             int kh, int kw, float scale, cudaStream_t s) {
-  constexpr bool F32 = sizeof(T) == 4;  // A and B in f32: the tensor-core kernel (B at D 64)
-#define TC(MODE) launch_tc<D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
+  // A and B in f32 and V in both types: the tensor-core kernel (B and V at
+  // D 64, SAM's); A and B in bf16: the CUDA-core template.
+  constexpr bool F32 = sizeof(T) == 4;
+#define TC(MODE) launch_tc<T, D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
 #define CORE(MODE) launch<T, D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
   switch (mode) {
     case NONE:
@@ -721,7 +845,9 @@ int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
       if constexpr (!F32) return CORE(RELPOS);
       else if constexpr (D == 64) return TC(RELPOS);
       else return (int)cudaErrorInvalidValue;
-    case RELWIN: return CORE(RELWIN);
+    case RELWIN:
+      if constexpr (D == 64) return TC(RELWIN);
+      else return (int)cudaErrorInvalidValue;
   }
 #undef TC
 #undef CORE

@@ -117,27 +117,48 @@
 // the layer index through scalar prefetch for the same reason). Row b,
 // head h is one contiguous [cap, D] slab of K and one of V.
 //
-// Same layout as G: one block per (row, head), D = 128 threads; the block
-// walks the row's first len = seq_lens[row] keys (pos + 1: the new token's
-// K/V are written before attention) in tiles of 128, each tile as one of
-// G's pages: warp w scores keys w, w + 4, ... with xor-shuffle dot
-// products, the weights of the tile in shared memory, thread t owns output
-// dim t, f32 online softmax, out = acc / max(l, 1e-37). A tile holds only
-// valid keys (its last one is cut at len), so keys at or past seq_lens are
-// never read and never contribute, where the TPU kernel reads whole
-// 512-key chunks and masks them to -inf. The 512-key chunk and the
-// cap % 512 == 0 assertion were Mosaic tiling rules: any capacity works
-// here (bucket_capacity gives caps such as 1280).
-//
 // What bounds it: bytes. A row at position p reads 2 (p + 1) Hh D elements
 // of K/V per layer (1.0 MB of f32 at p = 1000) for 4 FLOP per element
-// pair. One row of 10 heads is 10 blocks on 132 SMs: at batch 1 the card
-// is mostly idle and the kernel is latency-bound; splitting a row's keys
-// across blocks (with a merge pass) is later work.
+// pair. One block per (row, head) walking every key would run 10 blocks a
+// row on 132 SMs and keep too few bytes in flight, so U is a split-key
+// decode:
+// - Each (row, head)'s keys are cut into chunks of U_CHUNK = 64 across
+//   blocks: grid (ceil(cap / 64), Hh, B), 64 threads. A block whose chunk
+//   starts at or past len = seq_lens[row] (pos + 1: the new token's K/V
+//   are written before attention) exits at once, and within a chunk only
+//   live keys are copied: keys at or past len are never read, where the
+//   TPU kernel reads whole 512-key chunks and masks them to -inf. The
+//   512-key chunk and the cap % 512 == 0 assertion were Mosaic tiling
+//   rules: any capacity works here (bucket_capacity gives caps such as
+//   1280).
+// - Each of a block's two warps takes 32 keys, one a lane, with its own
+//   online softmax and no block barrier: it copies its live K rows, then
+//   its V rows, into shared memory by cp.async (two groups, all in flight
+//   at once: 16 KB of bf16 or 32 KB of f32 a warp); lane j scores key j
+//   against the whole q (a copy a warp in shared memory; K rows padded so
+//   that 8 lanes' 16-byte loads hit 32 banks); the warp's max and sum come
+//   by xor shuffles (the same sum on every lane); each lane then owns 4
+//   output dims of P V, the weights passed by shuffle.
+// - At the end warp 1's (m, l, acc) goes through shared memory, warp 0
+//   merges it (a warp with no live key has m = -inf and adds exact zeros)
+//   and writes the chunk's partial (acc[D], m, l) to a workspace [B, Hh,
+//   ceil(cap / 64), D + 4] f32 that the wrapper allocates (torch.empty:
+//   no host sync, and a CUDA graph captures it).
+// - A second launch, one block of D threads per (row, head), merges the
+//   row's ceil(len / 64) partials in ascending chunk order
+//   (merge_partials): out = sum acc_c e^(m_c - m) / max(sum l_c e^(m_c -
+//   m), 1e-37), m = max m_c, as the one-block walk divided by max(l,
+//   1e-37). The order depends on len and the chunk size alone, never on B
+//   or cap, so a row's output is bit-identical from run to run and
+//   whatever the other rows hold. merge_partials is written for any set of
+//   partials: the paged kernels can split their pages the same way.
+// At 16 rows of 260..1000 tokens, 10 heads, that is about 1600 live blocks
+// of 64 keys (32 KB of bf16 K/V each); at one row at position 300, 50.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -171,9 +192,9 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// One page (G, X) or key tile (U) of the f32 online softmax of thread t's
-// output dim: the keys j < n_read of a [n_read, D] slab of K and of V at k /
-// v, keys j >= n_valid at -inf. Scores: warp w takes keys w, w + 4, ...,
+// One page (G, X) of the f32 online softmax of thread t's output dim: the
+// keys j < n_read of a [n_read, D] slab of K and of V at k / v, keys j >=
+// n_valid at -inf. Scores: warp w takes keys w, w + 4, ...,
 // each lane 4 of the 128 dims, xor-shuffle reductions; the tile's weights
 // sit in w [MAX_PAGE], the warps' maxima in wmax. Ends with a barrier, so
 // w and wmax may be rewritten by the next tile.
@@ -255,40 +276,198 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
   return (int)cudaGetLastError();
 }
 
-// Kernel U: see the header. k_layer / v_layer [B, Hh, cap, D].
-template <typename T>
-__global__ void __launch_bounds__(NT) stacked_kernel(const float* __restrict__ q, const T* __restrict__ k_layer,
-                                                     const T* __restrict__ v_layer, const int* __restrict__ seq_lens,
-                                                     float* __restrict__ out, int n_heads, int cap, float scale) {
-  constexpr int TILE = MAX_PAGE;  // keys a tile
-  __shared__ float w[TILE];
-  __shared__ float wmax[WARPS];
-  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x;
-  const size_t qo = ((size_t)row * n_heads + head) * D;
-  const size_t slab = qo * cap;  // ((row * Hh + head) * cap) * D
-  float qf[4];
-  load4(q + qo + t % 32 * 4, qf);  // lane l holds dims 4 l .. 4 l + 3
+// Kernel U: see the header. k_layer / v_layer [B, Hh, cap, D]; part
+// [B, Hh, n_chunks, U_PART] f32, the chunks' partials.
+constexpr int U_WARP_KEYS = 32;                     // keys a warp: one a lane
+constexpr int U_WARPS = 2;
+constexpr int U_CHUNK = U_WARPS * U_WARP_KEYS;      // keys a block: one chunk of a row's keys
+constexpr int U_PART = D + 4;                       // a partial: acc[D], m, l (16-byte rows)
 
-  const int len = min(seq_lens[row], cap);
-  float m = -INFINITY, l = 0.f, acc = 0.f;
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    const int n = min(TILE, len - t0);  // valid keys of the tile
-    const size_t base = slab + (size_t)t0 * D;
-    attend_tile(k_layer + base, v_layer + base, n, n, qf, scale, w, wmax, m, l, acc);
+template <typename T>
+struct UTile {
+  static constexpr int CE = 16 / (int)sizeof(T);    // elements a 16-byte chunk
+  static constexpr int KS = D + CE;  // K row stride: a lane reads its own row, 8 lanes' 16-byte loads on 32 banks
+  static constexpr int WARP_BYTES = (int)sizeof(T) * U_WARP_KEYS * (KS + D);  // a warp's K and V rows
+  static constexpr int Q_OFF = U_WARPS * WARP_BYTES;                          // a copy of q a warp
+  static constexpr int X_OFF = Q_OFF + U_WARPS * D * 4;                       // warp 1's state for the merge
+  static constexpr int SMEM = X_OFF + U_PART * 4;
+};
+
+// Eight neighbouring elements of a 16-byte aligned row as f32.
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  load4(p, out);
+  load4(p + 4, out + 4);
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
-  out[qo + t] = acc / fmaxf(l, 1e-37f);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// The fixed-order merge of n partials (acc[D], m, l at stride floats apart)
+// of one (row, head): out[t] = sum_c acc_c[t] e^(m_c - m) / max(sum_c l_c
+// e^(m_c - m), 1e-37), m = max_c m_c, summed in ascending c. A partial that
+// saw no key (m_c = -inf) adds exact zeros. The order depends on n alone,
+// so an output is bit-identical from run to run and whatever the other
+// rows hold. Thread t returns output dim t.
+__device__ __forceinline__ float merge_partials(const float* __restrict__ part, int n, int stride, int t) {
+  float m = -INFINITY;
+  for (int c = 0; c < n; ++c) m = fmaxf(m, part[(size_t)c * stride + D]);
+  float l = 0.f, acc = 0.f;
+  for (int c = 0; c < n; ++c) {
+    const float* pc = part + (size_t)c * stride;
+    const float mc = pc[D];
+    const float w = mc == -INFINITY ? 0.f : expf(mc - m);
+    l = fmaf(pc[D + 1], w, l);
+    acc = fmaf(pc[t], w, acc);
+  }
+  return acc / fmaxf(l, 1e-37f);
+}
+
+// One chunk of U_CHUNK keys of one (row, head): block (chunk, head, row),
+// U_WARPS warps of U_WARP_KEYS keys, each its own online softmax with no
+// block barrier until the in-block merge. A block whose chunk starts at or
+// past len exits at once; keys at or past len are never read.
+template <typename T>
+__global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
+    const float* __restrict__ q, const T* __restrict__ k_layer, const T* __restrict__ v_layer,
+    const int* __restrict__ seq_lens, float* __restrict__ part, int n_heads, int cap, int n_chunks, float scale) {
+  using Tile = UTile<T>;
+  constexpr int KS = Tile::KS, CE = Tile::CE, CH = D / CE;  // CH: 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunk = blockIdx.x, head = blockIdx.y, row = blockIdx.z;
+  const int len = min(seq_lens[row], cap);
+  const int c0 = chunk * U_CHUNK;
+  if (c0 >= len) return;  // the whole block: no key of its chunk is live
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* ks = reinterpret_cast<T*>(smem_raw + warp * Tile::WARP_BYTES);  // [U_WARP_KEYS][KS]
+  T* vs = ks + U_WARP_KEYS * KS;                                      // [U_WARP_KEYS][D]
+  float* qs = reinterpret_cast<float*>(smem_raw + Tile::Q_OFF) + warp * D;
+  const size_t qo = ((size_t)row * n_heads + head) * D;
+  const int k0 = c0 + warp * U_WARP_KEYS;                // the warp's first key
+  const int nk = max(0, min(U_WARP_KEYS, len - k0));    // its live keys (warp-uniform)
+
+  float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};  // lane: output dims 4 lane .. 4 lane + 3
+  if (nk > 0) {
+    // The warp's live K rows, then its V rows, in two cp.async groups.
+    const size_t base = qo * cap + (size_t)k0 * D;  // ((row Hh + head) cap + k0) D
+    for (int i = lane; i < nk * CH; i += 32) {
+      const int r = i / CH, c = CE * (i % CH);
+      cp_async16(ks + r * KS + c, k_layer + base + (size_t)r * D + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int i = lane; i < nk * CH; i += 32) {
+      const int r = i / CH, c = CE * (i % CH);
+      cp_async16(vs + r * D + c, v_layer + base + (size_t)r * D + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    *reinterpret_cast<float4*>(qs + 4 * lane) = *reinterpret_cast<const float4*>(q + qo + 4 * lane);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+
+    // Lane j scores key k0 + j against the whole q (four partial sums).
+    float s = -INFINITY;
+    if (lane < nk) {
+      const T* kr = ks + lane * KS;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int i = 0; i < D; i += 8) {
+        float kf[8];
+        load8(kr + i, kf);
+        const float4 qa = *reinterpret_cast<const float4*>(qs + i), qb = *reinterpret_cast<const float4*>(qs + i + 4);
+        d[0] = fmaf(qa.x, kf[0], d[0]);
+        d[1] = fmaf(qa.y, kf[1], d[1]);
+        d[2] = fmaf(qa.z, kf[2], d[2]);
+        d[3] = fmaf(qa.w, kf[3], d[3]);
+        d[0] = fmaf(qb.x, kf[4], d[0]);
+        d[1] = fmaf(qb.y, kf[5], d[1]);
+        d[2] = fmaf(qb.z, kf[6], d[2]);
+        d[3] = fmaf(qb.w, kf[7], d[3]);
+      }
+      s = ((d[0] + d[1]) + (d[2] + d[3])) * scale;
+    }
+    m = s;  // lane 0's key is live: m is finite
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+    const float p = expf(s - m);  // keys past len: exp(-inf) = 0
+    l = p;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(FULL, l, off);  // the same sum on every lane
+
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncwarp();
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      const float pj = __shfl_sync(FULL, p, j);
+      float vf[4];
+      load4(vs + j * D + 4 * lane, vf);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(pj, vf[i], acc[i]);
+    }
+  }
+
+  // In-block merge, warp 0 then warp 1 (a warp with no live key adds 0),
+  // and the chunk's partial out.
+  float* xs = reinterpret_cast<float*>(smem_raw + Tile::X_OFF);
+  if (warp == 1) {
+    *reinterpret_cast<float4*>(xs + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (lane == 0) xs[D] = m, xs[D + 1] = l;
+  }
+  __syncthreads();
+  if (warp == 1) return;
+  const float m1 = xs[D], l1 = xs[D + 1];
+  const float4 o1 = *reinterpret_cast<const float4*>(xs + 4 * lane);
+  const float mm = fmaxf(m, m1);  // finite: warp 0 saw key c0
+  const float a0 = expf(m - mm), a1 = m1 == -INFINITY ? 0.f : expf(m1 - mm);
+  float* pc = part + (qo / D * n_chunks + chunk) * U_PART;
+  *reinterpret_cast<float4*>(pc + 4 * lane) =
+      make_float4(fmaf(o1.x, a1, acc[0] * a0), fmaf(o1.y, a1, acc[1] * a0), fmaf(o1.z, a1, acc[2] * a0),
+                  fmaf(o1.w, a1, acc[3] * a0));
+  if (lane == 0) pc[D] = mm, pc[D + 1] = fmaf(l1, a1, l * a0);
+}
+
+// The merge pass: block (head, row), thread t = output dim t, over the row's
+// ceil(len / U_CHUNK) partials.
+__global__ void __launch_bounds__(NT) stacked_merge_kernel(const float* __restrict__ part,
+                                                           const int* __restrict__ seq_lens, float* __restrict__ out,
+                                                           int n_heads, int cap, int n_chunks) {
+  const int head = blockIdx.x, row = blockIdx.y;
+  const int len = min(seq_lens[row], cap);
+  const int n = max(0, (len + U_CHUNK - 1) / U_CHUNK);
+  const size_t rh = (size_t)row * n_heads + head;
+  out[rh * D + threadIdx.x] = merge_partials(part + rh * n_chunks * U_PART, n, U_PART, threadIdx.x);
 }
 
 template <typename T>
-int launch_stacked(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens, void* out,
-                   int batch, int n_heads, int head_dim, int cap, float scale, void* stream) {
-  if (batch <= 0 || n_heads <= 0 || n_heads > 65535 || head_dim != D || cap <= 0) {
+int launch_stacked(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens, void* part,
+                   void* out, int batch, int n_heads, int head_dim, int cap, float scale, void* stream) {
+  if (batch <= 0 || batch > 65535 || n_heads <= 0 || n_heads > 65535 || head_dim != D || cap <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(batch, n_heads);
-  stacked_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int n_chunks = (cap + U_CHUNK - 1) / U_CHUNK;
+  const auto kernel = stacked_chunk_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, UTile<T>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(n_chunks, n_heads, batch), U_WARPS * 32, UTile<T>::SMEM, s>>>(
       static_cast<const float*>(q), static_cast<const T*>(k_layer), static_cast<const T*>(v_layer),
-      static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads, cap, scale);
+      static_cast<const int*>(seq_lens), static_cast<float*>(part), n_heads, cap, n_chunks, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stacked_merge_kernel<<<dim3(n_heads, batch), NT, 0, s>>>(static_cast<const float*>(part),
+                                                           static_cast<const int*>(seq_lens),
+                                                           static_cast<float*>(out), n_heads, cap, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -663,16 +842,18 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pages, const void*
 
 // Kernel U. q [B, Hh, D] f32; k_layer / v_layer: layer li of the stacked
 // cache, [B, Hh, cap, D] f32 or bf16; seq_lens [B] int32 (pos + 1, at most
-// cap); out [B, Hh, D] f32.
+// cap); part: the workspace, [B, Hh, ceil(cap / 64), D + 4] f32 (written
+// and read before the call returns on the stream); out [B, Hh, D] f32.
 extern "C" int decode_stacked_f32(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens,
-                                  void* out, int batch, int n_heads, int head_dim, int cap, float scale,
+                                  void* part, void* out, int batch, int n_heads, int head_dim, int cap, float scale,
                                   void* stream) {
-  return launch_stacked<float>(q, k_layer, v_layer, seq_lens, out, batch, n_heads, head_dim, cap, scale, stream);
+  return launch_stacked<float>(q, k_layer, v_layer, seq_lens, part, out, batch, n_heads, head_dim, cap, scale,
+                               stream);
 }
 
 extern "C" int decode_stacked_bf16(const void* q, const void* k_layer, const void* v_layer, const void* seq_lens,
-                                   void* out, int batch, int n_heads, int head_dim, int cap, float scale,
+                                   void* part, void* out, int batch, int n_heads, int head_dim, int cap, float scale,
                                    void* stream) {
-  return launch_stacked<__nv_bfloat16>(q, k_layer, v_layer, seq_lens, out, batch, n_heads, head_dim, cap, scale,
-                                       stream);
+  return launch_stacked<__nv_bfloat16>(q, k_layer, v_layer, seq_lens, part, out, batch, n_heads, head_dim, cap,
+                                       scale, stream);
 }

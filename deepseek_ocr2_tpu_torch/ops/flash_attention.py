@@ -18,13 +18,15 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   the flattened rel-pos tables rhf, rwf [D, T2] (each query's win rel-h and
   win rel-w dot products), keys of a padded window (`valid < win`) at
   -1e30. `models.sam` runs it in the windowed blocks under
-  `DEEPSEEK_SAM_WIN_KERNEL=1`. The TPU's `t2 % 128 == 0` assertion was a
-  lane rule: V takes any win.
+  `DEEPSEEK_SAM_WIN_KERNEL=1`. It runs B's tensor-core kernel at D 64
+  (SAM's) in f32 and bf16, each block building its rows' rel-h and rel-w
+  dot products in f32 from the tables. The TPU's `t2 % 128 == 0`
+  assertion was a lane rule: V takes any win.
 
 The CUDA source is `csrc/flash_attention.cu` (see its header for the
-designs: A and B in f32 a 3xTF32 tensor-core kernel, everything else one
-CUDA-core template of 64-query blocks streaming 64-key tiles, both with an
-online f32 softmax).
+designs: A and B in f32 and V a tensor-core kernel (TF32 products, 3xTF32
+for f32 operands), A and B in bf16 a CUDA-core template of 64-query
+blocks streaming 64-key tiles, both with an online f32 softmax).
 The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
 tiling choices; the CUDA kernel takes every shape and masks the ragged edge.
 
@@ -109,9 +111,9 @@ def mha_reference(
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous with a 16-byte aligned start (A's f32 kernel loads
-    16-byte chunks; `_launch` holds every kernel of the file to it): a copy
-    where a view starts off that boundary."""
+    """t contiguous with a 16-byte aligned start (the kernels load 16-byte
+    chunks of q, k, v and V's tables; `_launch` holds q, k, v and the
+    output to it): a copy where a view starts off that boundary."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -130,6 +132,8 @@ def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> Non
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if mode_id == _RELPOS and q.dtype == torch.float32 and d != 64:
         raise ValueError(f"kernel B in f32 takes head dim 64 (SAM's), not {d}")
+    if mode_id == _RELWIN and d != 64:
+        raise ValueError(f"kernel V takes head dim 64 (SAM's), not {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("kernels A, B and V read 16-byte aligned q, k, v and write a 16-byte aligned output")
     fn = cuda_build.entry("flash_attention", "attn_f32" if q.dtype == torch.float32 else "attn_bf16", _ARGTYPES)
@@ -256,8 +260,7 @@ def mha_win(
         raise ValueError(f"kernel V writes q's dtype {q.dtype}, not {out_dtype}")
     if rhf.shape != (d, t2) or rwf.shape != (d, t2):
         raise ValueError(f"rhf {tuple(rhf.shape)} / rwf {tuple(rwf.shape)} must be [{d}, {t2}]")
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    rhf, rwf = rhf.float().contiguous(), rwf.float().contiguous()
+    q, k, v, rhf, rwf = (_aligned(t) for t in (q, k, v, rhf.float(), rwf.float()))
     cuda_build.require_cuda(q, k, v, rhf, rwf)
     out = torch.empty_like(q)
     _launch(q, k, v, out, rhf, rwf, _RELWIN, valid, win, win, scale)

@@ -36,9 +36,15 @@ Kernel U (`decode_attention_stacked`) ports `decode_attention_stacked` (the
 Pallas kernel `_stacked_kernel`): decode attention read straight from the
 layer-stacked contiguous cache [L, B, Hh, cap, D], the decode path of
 `DEEPSEEK_DECODE_ATTN=stacked` (`models.deepseek_v2.decode_attn_mode`).
-Like G it takes the pointer of the `k_all[layer]` view. It walks only each
-row's valid keys, so it needs neither the TPU kernel's 512-key chunk nor
-its `cap % 512 == 0` assertion (Mosaic tiling rules): any capacity works.
+Like G it takes the pointer of the `k_all[layer]` view. It is a split-key
+decode: a block takes one chunk of U_CHUNK keys of a (row, head) (blocks
+past the row's length exit at once), two warps of U_WARP_KEYS keys each
+with its own softmax, and writes the chunk's partial (acc, m, l) to a
+workspace the wrapper allocates; a second launch merges a row's partials
+in ascending chunk order, so a row's output is bit-identical whatever the
+other rows hold. It reads only each row's valid keys, so it needs neither
+the TPU kernel's 512-key chunk nor its `cap % 512 == 0` assertion (Mosaic
+tiling rules): any capacity works. `launches` counts one per call.
 
 A wrapper runs its plain twin only for CPU tensors. For CUDA tensors it
 launches the kernel or raises; there is no fallback. `launches` counts
@@ -57,6 +63,12 @@ from . import cuda_build
 _HEAD_DIM = 128  # the LM's
 _MAX_PAGE = 128
 _MAX_CHUNK = 8  # the most queries a row kernels Q and R take
+# Kernel U (csrc/paged_attention.cu): a block takes one chunk of U_CHUNK
+# keys of a (row, head), U_WARP_KEYS a warp, and writes its partial (acc[D],
+# m, l, in rows of U_PART floats) to a workspace that a second pass merges
+# in ascending chunk order.
+U_CHUNK, U_WARP_KEYS = 64, 32
+U_PART = _HEAD_DIM + 4
 
 
 def paged_decode_attention_reference(
@@ -175,6 +187,9 @@ def decode_attention_stacked_reference(
     return torch.einsum("bhk,bhkd->bhd", torch.softmax(s, dim=-1), v)
 
 
+_STACKED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+
+
 def decode_attention_stacked(
     q: torch.Tensor,  # [B, Hh, D] f32: the new token's query, after RoPE
     k_all: torch.Tensor,  # [L, B, Hh, cap, D] f32 or bf16: the contiguous layer-stacked cache
@@ -201,13 +216,13 @@ def decode_attention_stacked(
     if seq_lens.dtype != torch.int32 or seq_lens.shape != (b,):
         raise ValueError(f"seq_lens must be int32 [{b}], got {seq_lens.dtype} {tuple(seq_lens.shape)}")
     cuda_build.require_cuda(q, k_layer, v_layer, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.decode_stacked_f32 if k_all.dtype == torch.float32 else lib.decode_stacked_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("paged_attention", "decode_stacked_f32" if k_all.dtype == torch.float32
+                          else "decode_stacked_bf16", _STACKED_ARGTYPES)
     out = torch.empty_like(q)
+    part = torch.empty(b * hh * -(-cap // U_CHUNK) * U_PART, dtype=torch.float32, device=q.device)
     p = cuda_build.ptr
-    err = fn(p(q), p(k_layer), p(v_layer), p(seq_lens), p(out), b, hh, d, cap, scale, cuda_build.stream_of(q))
+    err = fn(p(q), p(k_layer), p(v_layer), p(seq_lens), p(part), p(out), b, hh, d, cap, scale,
+             cuda_build.stream_of(q))
     cuda_build.check(err, "paged_attention (U)")
     decode_attention_stacked.launches += 1
     return out

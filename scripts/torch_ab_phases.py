@@ -30,6 +30,17 @@ Phases:
 - `int4_head`: kernel L at the int4 lm_head (129 280 x 1280, bf16 x, f32
   out) at B 1 and 16, with `torch._weight_int4pack_mm` on the same levels
   and scales beside it, both through the wrapper and in a CUDA graph;
+- `sam_windows`: kernel V at SAM's two window shapes (the 1024^2 view's
+  [25, 12, 196, 64] and six crops' [96, 12, 196, 64], win = valid = 14),
+  f32 and bf16, with SDPA given the bias beside it, both through the
+  wrapper and in a CUDA graph; then chip_smoke's (2, 1) crop page's vision
+  profiled three times each on the default path and with the switches set
+  (`DEEPSEEK_SAM_WIN_KERNEL=1`: V in the windowed blocks), vision f32 and
+  bf16: wall ms, device ms, and the device ms and launches of B, V and C;
+- `stacked_decode`: chip_smoke's kernel U and X cases (`stacked_results`),
+  then its per-token decode profile of a no-crop page at batch 1, LM bf16,
+  on the default path (pool) and under `DEEPSEEK_DECODE_ATTN=stacked`
+  (kernel U), each twice, in turns;
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -203,6 +214,66 @@ def int4_head():
                graph=lambda: linear_q4.linear_q4(x, w, out_dtype=torch.float32))
 
 
+def sam_windows():
+    import torch.nn.functional as F
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_win, mha_win_reference, window_bias
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    for b in (25, 96):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(b, 12, 196, 64, dtype=dt) for _ in range(3))
+            rhf, rwf = randn(64, 196, std=0.3), randn(64, 196, std=0.3)
+            kw = dict(scale=0.125, win=14, valid=14)
+            bias = window_bias(q, rhf, rwf, 14, 14).to(dt)
+            ref = mha_win_reference(q, k, v, rhf, rwf, **kw)
+            record("V", f"windows {{tuple(q.shape)}} win 14 valid 14 {{str(dt)[6:]}}", ref, mha_win(q, k, v, rhf, rwf, **kw),
+                   cs.tolerance(ref, dt), cs.median_ms(lambda: mha_win(q, k, v, rhf, rwf, **kw)),
+                   cs.median_ms(lambda: mha_win_reference(q, k, v, rhf, rwf, **kw)), None,
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=0.125),
+                   graph=lambda: mha_win(q, k, v, rhf, rwf, **kw))
+            del q, k, v, bias, ref
+    torch.cuda.empty_cache()
+
+    cfg = OCR2Config()
+    flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    w, h, grid = cs.CROP_PAGES[0]
+    page, _ = cs.synthetic_page(w, h, cfg, seed=0, grid=grid)
+    for vision in ("float32", "bfloat16"):
+        params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype=vision)
+        pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device=dev, act_dtype=vision)
+        base, patches, ratio, _ = pipe.preprocess_finish(page if isinstance(page, dict) else pipe.preprocess_host(page))
+        ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
+        for on in (False, True):
+            with cs.switched(on):
+                profiled(f"crop {{grid}} vision {{vision}}{{', switched' if on else ''}}",
+                         lambda: pipe.build_ocr_embeds(ids, base, patches, start),
+                         lambda key: ("V" if ", 64, 4>" in key else "B") if "attn" in key
+                         else "C" if "mlp_kernel" in key else None)
+        del params, pipe
+        torch.cuda.empty_cache()
+
+
+def stacked_decode():
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cs.stacked_results(dev, record)
+    cfg = OCR2Config()
+    flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")
+    del flat
+    pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device=dev)
+    page = cs.synthetic_page(*cs.PAGES[0], cfg, seed=0)[0]
+    for mode in ("pool", "stacked", "stacked", "pool"):
+        with cs.switched(mode == "stacked"):
+            t = cs.decode_per_token(pipe, page)
+        print(f"[ab {{sys.argv[1]}}] decode per token, no-crop page, batch 1, LM bf16, {{mode}}: device "
+              f"{{t['device_ms']:.3f}} ms, {{t['launches']:.1f}} device launches, wall {{t['wall_ms']:.2f}} ms "
+              f"(torch.profiler)", flush=True)
+
+
 for phase in {phases!r}:
     if phase == "gmm_forward":
         cs.gmm_results(dev, randn, record)
@@ -218,6 +289,10 @@ for phase in {phases!r}:
         sam_attention()
     elif phase == "int4_head":
         int4_head()
+    elif phase == "sam_windows":
+        sam_windows()
+    elif phase == "stacked_decode":
+        stacked_decode()
     elif phase == "train":
         cs.phase_train(dev)
     else:

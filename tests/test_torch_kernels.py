@@ -1117,14 +1117,20 @@ def test_cuda_paged_decode_matches_twin(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,win,valid", [(25, 14, 14), (6, 16, 14), (4, 16, 16), (3, 7, 5)])
+@pytest.mark.parametrize("b,win,valid", [(25, 14, 14), (96, 14, 14), (6, 16, 14), (4, 16, 16), (3, 7, 5)])
 def test_cuda_window_attention_matches_twin(cuda, dtype, b, win, valid):
+    """Kernel V on the tensor cores: the 1024^2 view's 25 windows and six
+    crops' 96 at win = valid = 14 (T2 196: a 4-row last query block, a
+    4-key last key tile), the JAX package's padded 16 / 14 form, 16 / 16,
+    and an odd win (7 / 5: the unpaired bias reads). The output's block is
+    filled with NaN first: a row left unwritten shows."""
     g = torch.Generator(device=cuda).manual_seed(13)
     t2 = win * win
     q, k, v = (torch.randn(b, 12, t2, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
     rhf, rwf = (0.3 * torch.randn(64, t2, generator=g, device=cuda) for _ in range(2))
     pos = torch.arange(t2, device=cuda)
     live = (pos // win < valid) & (pos % win < valid)  # padded queries are garbage by contract
+    torch.full_like(q, float("nan"))
     before = mha_win.launches
     got = mha_win(q, k, v, rhf, rwf, scale=0.125, win=win, valid=valid)
     torch.cuda.synchronize()
@@ -1132,6 +1138,101 @@ def test_cuda_window_attention_matches_twin(cuda, dtype, b, win, valid):
     ref = mha_win_reference(q, k, v, rhf, rwf, scale=0.125, win=win, valid=valid)
     err = float((got.float() - ref.float())[:, :, live].abs().max())
     assert err <= _tol(ref[:, :, live].float(), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_window_attention_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 2, 196, 128, device=cuda)
+    tab = torch.zeros(128, 196, device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        mha_win(q, q, q, tab, tab, scale=0.1, win=14, valid=14)
+
+
+_STACKED_EDGES = [1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 301]  # U's 32-key warp halves, 64-key chunks
+
+
+def _stacked_case(dev, dtype, b, cap, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k_all, v_all = (torch.randn(2, b, 10, cap, 128, generator=g, device=dev).to(dtype) for _ in range(2))
+    q = torch.randn(b, 10, 128, generator=g, device=dev)
+    return g, q, k_all, v_all
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cap", [(1, 1024), (16, 1024), (17, 1280), (16, 1280)])
+def test_cuda_decode_stacked_split_chunk_edges(cuda, dtype, b, cap):
+    """Kernel U's split-key walk at B 1, 16 and 17 and caps 1024 and 1280
+    (a bucket_capacity cap): lengths at the edges of its 32-key warp halves
+    and 64-key chunks, and cap - 65, cap - 64, cap - 1 and cap, each row
+    taking each length in turn. The output's and the workspace's blocks are
+    filled with NaN first: a dim left unwritten or a partial read before it
+    was written shows."""
+    _, q, k_all, v_all = _stacked_case(cuda, dtype, b, cap, seed=30 + b)
+    edges = _STACKED_EDGES + [cap - 65, cap - 64, cap - 1, cap]
+    n_part = b * 10 * -(-cap // paged_attention.U_CHUNK) * paged_attention.U_PART
+    for shift in range(len(edges)):
+        seq = torch.tensor([edges[(i + shift) % len(edges)] for i in range(b)], dtype=torch.int32, device=cuda)
+        torch.full_like(q, float("nan"))
+        torch.full((n_part,), float("nan"), device=cuda)
+        before = paged_attention.decode_attention_stacked.launches
+        got = paged_attention.decode_attention_stacked(q, k_all, v_all, 1, seq, scale=128**-0.5)
+        torch.cuda.synchronize()
+        assert paged_attention.decode_attention_stacked.launches == before + 1
+        ref = paged_attention.decode_attention_stacked_reference(q, k_all, v_all, 1, seq, scale=128**-0.5)
+        assert float((got - ref).abs().max()) <= 1e-4, seq.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_stacked_is_bit_identical_and_row_independent(cuda, dtype):
+    """U's merge runs in ascending chunk order, fixed by a row's own length:
+    the same call twice is bit-equal, and so is a row whose neighbours'
+    lengths and K/V change, or that runs alone at B 1."""
+    b, cap = 17, 1280
+    g, q, k_all, v_all = _stacked_case(cuda, dtype, b, cap, seed=40)
+    seq = torch.linspace(1, cap, b, device=cuda).round().to(torch.int32)
+    kw = dict(scale=128**-0.5)
+    first = paged_attention.decode_attention_stacked(q, k_all, v_all, 0, seq, **kw)
+    again = paged_attention.decode_attention_stacked(q, k_all, v_all, 0, seq, **kw)
+    assert torch.equal(first, again)
+    others = torch.arange(b, device=cuda) % 2 == 1
+    seq2 = torch.where(others, cap + 1 - seq, seq).to(torch.int32)
+    k2, v2 = k_all.clone(), v_all.clone()
+    k2[:, others] = torch.randn(k2[:, others].shape, generator=g, device=cuda).to(dtype)
+    v2[:, others] = torch.randn(v2[:, others].shape, generator=g, device=cuda).to(dtype)
+    changed = paged_attention.decode_attention_stacked(q, k2, v2, 0, seq2, **kw)
+    assert torch.equal(changed[~others], first[~others])
+    for r in (0, 8, 16):
+        alone = paged_attention.decode_attention_stacked(q[r:r + 1], k_all[:, r:r + 1].contiguous(),
+                                                         v_all[:, r:r + 1].contiguous(), 0, seq[r:r + 1], **kw)
+        assert torch.equal(alone[0], first[r]), r
+
+
+@pytest.mark.gpu
+def test_cuda_decode_stacked_replays_in_a_cuda_graph(cuda):
+    """U captured once (its workspace allocated inside the capture) and
+    replayed after q and the lengths change in place, as a decode step's
+    graph would: each replay matches the twin on the new inputs."""
+    b, cap = 16, 1024
+    g, q, k_all, v_all = _stacked_case(cuda, torch.bfloat16, b, cap, seed=50)
+    seq = torch.linspace(260, 1000, b, device=cuda).round().to(torch.int32)
+    kw = dict(scale=128**-0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.decode_attention_stacked(q, k_all, v_all, 1, seq, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.decode_attention_stacked(q, k_all, v_all, 1, seq, **kw)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        seq.add_(step * 7 + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention.decode_attention_stacked_reference(q, k_all, v_all, 1, seq, **kw)
+        assert float((out - ref).abs().max()) <= 1e-4, step
 
 
 def _visit_case(dev, dtype, n, k, e=64, h=1280, i=896, seed=14):
