@@ -18,14 +18,15 @@ Phases (each raises on failure, so the exit code is non-zero):
    function, that call's time (`library_ms`; `torch._grouped_mm` for E, S and
    T in bf16); A (at the no-crop and the (2, 3) crop prompt), B (SAM's four
    shapes, f32 and bf16), E (at the prompts of the crop pages, a training
-   step's forward and its recompute) and L (at lm_head) also in a CUDA
-   graph beside the library call in one, with A's visited and skipped key
+   step's forward and its recompute), F (B 16 and 32 in bf16, 16 in f32)
+   and L (at lm_head) also in a CUDA graph, beside the library call in one
+   where there is one, with A's visited and skipped key
    tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
    also whole against its grouped twin; D+E, F, H-O and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
-   cut-over, its int8 layer as I and as J, its int4 layer as M and as N;
+   cut-over (F in a graph too), its int8 layer as I and as J, its int4 layer as M and as N;
    and the kernels off the default paths: U (stacked-cache decode
    attention, one and 16 rows), X (G's device code on a per-sequence
    pool), V (SAM's windowed attention, the bias built in the kernel, at
@@ -395,12 +396,13 @@ def gmm_results(dev, randn, record) -> None:
 def decode_results(dev, randn, record) -> None:
     """Kernels F and G at the serving shapes. F: the routed MoE of one
     decode step (E = 64, k = 6, H = 1280, I = 896) at B = 16 and 32 in bf16
-    and B = 16 in f32, against the visit twin; one call in sync-debug mode;
-    then one MoE layer at B = 8, 11, 16, 32 timed in its three forms (F,
-    the per-selection path, the dense form) around the B * k <= E cut-over
-    (11 rows). G: [12, P, 10, 128, 128] pools in f32 and bf16, 16 rows of
-    ragged lengths 260..2048 with random block tables, one row on the
-    scratch page 0, layers 0 and 11."""
+    and B = 16 in f32, against the visit twin, each also in a CUDA graph;
+    one call in sync-debug mode; then one MoE layer at B = 8, 11, 16, 32
+    timed in its three forms (F, the per-selection path, the dense form)
+    around the B * k <= E cut-over (11 rows), and F in a CUDA graph. G:
+    [12, P, 10, 128, 128] pools in f32 and bf16, 16 rows of ragged lengths
+    260..2048 with random block tables, one row on the scratch page 0,
+    layers 0 and 11."""
     from deepseek_ocr2_tpu_torch.ops import moe_decode
     from deepseek_ocr2_tpu_torch.ops import moe as moe_ops
     from deepseek_ocr2_tpu_torch.ops.paged_attention import (
@@ -425,7 +427,8 @@ def decode_results(dev, randn, record) -> None:
         record("F", f"B {b} k {k}: {n_visits} distinct experts, {str(dt)[6:]}", ref, got, tolerance(ref, dt),
                median_ms(lambda: moe_decode.moe_ffn_decode_fused(*args)),
                median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)),
-               bound_ms(nbytes(x, ref, *args[2:]) + n_visits * 3 * nbytes(ex["gate"][0]), 2 * b * k * 3 * h * i, dt))
+               bound_ms(nbytes(x, ref, *args[2:]) + n_visits * 3 * nbytes(ex["gate"][0]), 2 * b * k * 3 * h * i, dt),
+               graph=lambda: moe_decode.moe_ffn_decode_fused(*args))
         if b == 16 and dt == torch.bfloat16:
             no_host_sync(dev, "F (B 16 bf16)", lambda: moe_decode.moe_ffn_decode_fused(*args))
         del ex, args, ref, got
@@ -437,7 +440,9 @@ def decode_results(dev, randn, record) -> None:
         forms = {"F": moe_decode.moe_ffn_decode_fused, "per-selection": moe_ops.moe_ffn_decode_per_selection,
                  "dense": moe_ops.moe_ffn_dense}
         times = ", ".join(f"{name} {median_ms(lambda: fn(*args)):.3f} ms" for name, fn in forms.items())
-        print(f"[cut-over] one MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): {times}")
+        f_graph = graph_ms(lambda: moe_decode.moe_ffn_decode_fused(*args))
+        print(f"[cut-over] one MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): {times}; "
+              f"F in a CUDA graph {f_graph:.4f} ms")
     del ex
 
     scale = 128**-0.5
@@ -1246,9 +1251,10 @@ def phase_kernels(dev) -> dict:
 
     # B: SAM global [1, 12, 4096, 64] (64 x 64 grid) and windows [25, 12, 196, 64]
     # (14 x 14) of the 1024^2 view; at a 6-crop page the crops' global
-    # [6, 12, 2304, 64] (48 x 48) and windows [96, 12, 196, 64], f32.
-    # f32 (the CLI's vision dtype) on the tensor cores, bf16 (serve's) on the
-    # CUDA-core template; each also in a CUDA graph beside SDPA in one.
+    # [6, 12, 2304, 64] (48 x 48) and windows [96, 12, 196, 64]. Both dtypes
+    # on the tensor cores: f32 (the CLI's vision dtype) in 3xTF32, bf16
+    # (serve's) in bf16 m16n8k16 products; each also in a CUDA graph beside
+    # SDPA in one.
     cases = [(case, b, side, dt) for case, b, side in (("global", 1, 64), ("window", 25, 14),
                                                        ("crop global", 6, 48), ("crop window", 96, 14))
              for dt in (torch.float32, torch.bfloat16)]

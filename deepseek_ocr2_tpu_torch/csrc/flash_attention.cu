@@ -1,6 +1,7 @@
-// Exact attention for sm_90a: kernels A and B in f32 and V in f32 and bf16
-// on the tensor cores (TF32 mma.sync), and an online-softmax template on the
-// CUDA cores for A and B in bf16.
+// Exact attention for sm_90a: kernel A in f32 and kernels B and V in f32 and
+// bf16 on the tensor cores (mma.sync: 3xTF32 for f32, bf16 m16n8k16 for
+// bf16), and an online-softmax template on the CUDA cores for A in bf16
+// (which no path of the port runs: LM prefill runs A in f32).
 //
 // Replaces three Pallas TPU kernels of deepseek_ocr2_tpu/ops/flash_attention.py:
 //   A: _attn_kernel        (modes none / causal / prefix; LM prefill uses causal)
@@ -130,14 +131,36 @@
 //   is a real score and exp(-1e30 - m) is an exact 0, as the twin's
 //   -1e30. A key half that sees only padded keys is weighed out by the
 //   merge (e^(m1 - m) = 0).
-// - bf16: a bf16 value is exact in TF32 (its low part is zero), so Q K^T
-//   is the one product hi.hi and P V the two P.lo V + P.hi V, with f32
-//   sums and the same f32 softmax; K and V are staged as bf16 (rows of D +
-//   8) and widened at fragment load, Q's split keeps only hi. 67 KB a
-//   block and at most 128 registers: two blocks (16 warps) an SM. The
-//   output is rounded to bf16 once.
+// - bf16: the bf16 walk below, as B's.
 //
-// The CUDA-core template (attn_kernel: A and B in bf16) streams 64-key
+// The bf16 walk (B and V, D 64). SAM's vision in bf16 (`serve`'s default)
+// runs B here: [1, 12, 4096, 64] global a 1024^2 view, four calls a page.
+// - What bounds it: 4 L^2 D products a head, 0.052 ms at 989 TFLOP/s at
+//   the global shape, and the f32 softmax, about 20 instructions a score.
+//   On the CUDA cores (f32 FMAs) bf16 B took 12x SDPA's time, and TF32
+//   m16n8k8 products run at half the bf16 rate and half the k a step.
+// - Products: mma.sync m16n8k16 bf16 with f32 sums. Q K^T is one product
+//   (bf16 products are exact in f32); P is split into two bf16 parts, hi
+//   = rn(P) and lo = rn(P - hi), and P V is lo V + hi V: P to about 2^-16,
+//   far inside the bf16 output's rounding (one part, as SDPA does, is
+//   `scripts/torch_win_ablate.py` variant one_part_p, not the path).
+// - Fragments: each warp holds its 16 rows' Q fragments (4 k16 steps, 16
+//   registers); K fragments by ldmatrix, V's by ldmatrix.trans from the
+//   bf16 staging (rows of D + 8: 144 bytes, the 8 rows of a matrix on 8
+//   distinct 16-byte bank groups). In the k16 layout the score tiles 2j
+//   and 2j + 1 are P V's A fragment of step j as they lie (keys 16 j + 2t,
+//   2t + 1, 2t + 8, 2t + 9), so P stays in registers and each score's
+//   bias is read at its own key, the order P V reads it in too.
+// - Softmax in base 2: the scale and the staged bias rows carry log2(e),
+//   applied in one FMA a score (s scale + bias), and ex2.approx.ftz (one
+//   instruction) for expf. A warp whose step raised no row's max (alpha 1
+//   in all lanes) skips the rescale of O (exact), and a 32-key span with
+//   no padded key skips the padding test.
+// - 36 KB of K/V a block (plus B's bias rows, 34 KB at Kw 64), at most 128
+//   registers: two blocks (16 warps) an SM. The output is rounded to bf16
+//   once.
+//
+// The CUDA-core template (attn_kernel: A in bf16) streams 64-key
 // tiles with 256 threads a block, each owning a 4 x 4 score sub-tile, in
 // f32 FMAs read from shared memory (K's padded row stride puts the 16
 // column lanes on 16 banks); every key tile is visited. bf16 inputs are
@@ -156,6 +179,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -192,9 +217,9 @@ struct TcTile {
   static constexpr int KS = D + 8;
   static constexpr int VS = F32 ? D + 4 : D + 8;
   static constexpr int KV_BYTES = (int)sizeof(T) * 2 * TC_BKV * (KS + VS);  // the double buffer
-  // Q split once: [row group][k8 step][lane][hi a0..a3 (f32: then lo a0..a3)].
-  // A bf16 value is exact in TF32: its lo part is zero and not kept.
-  static constexpr int Q_PARTS = F32 ? 2 : 1;
+  // f32: Q split once, [row group][k8 step][lane][hi a0..a3, lo a0..a3];
+  // bf16 keeps its Q fragments in registers.
+  static constexpr int Q_PARTS = F32 ? 2 : 0;
   static constexpr int Q_BYTES = (TC_BQ / 16) * (D / 8) * 32 * 16 * Q_PARTS;
   static constexpr size_t SMEM = KV_BYTES + Q_BYTES;
 };
@@ -220,6 +245,33 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// The bf16 walk takes its softmax in base 2: scores and the staged bias
+// rows carry a factor log2(e), and ex2.approx.ftz (one instruction, 2^-22
+// relative; results under 2^-126, far below a bf16 output's rounding,
+// flush to 0) replaces expf.
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool BASE2>
+__device__ __forceinline__ float softmax_exp(float x) {
+  if constexpr (BASE2) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return expf(x);
+  }
+}
+
+// A pair of f32 values as two bf16 pairs, hi = rn(x) and lo = rn(x - hi):
+// x to about 2^-16 relative.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
       "{%0,%1,%2,%3};\n"
@@ -232,11 +284,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fu
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0));
 }
 
-// Two neighbouring elements as f32 (a bf16 pair widens exactly).
+// Two neighbouring f32 elements; an output pair in either type.
 __device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -265,15 +314,18 @@ __device__ __forceinline__ int div_kw(int key, uint32_t magic) {
 }
 
 // B, V: s[n][c] += rel_h[row, key / Kw] + rel_w[row, key % Kw] (the sum of
-// the two first, as the twin adds the built bias), for the lane's scores:
+// the two first, as the twin adds the built bias; SCALE: s[n][c] = s[n][c]
+// scale + that sum, one FMA, the bf16 walk's unscaled scores), for the
+// lane's scores:
 // row g + 8 (c / 2) of the warp's 16 (rh, rw point at row g), key key0 + 8
 // n + (c & 1) -- the score fragment's own key, the same order the mask
 // uses (P V's permuted k order is the A fragment's, not the scores'). Keys
 // at or past Lk are left alone (they become -inf). With Kw even a key pair
 // (even, odd) shares kh and takes kw, kw + 1: one float2 load of rel_w.
-template <int NK>
+template <int NK, bool SCALE = false>
 __device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh, const float* rw, int sh, int sw,
-                                             int key0, int lk, int kw, uint32_t magic) {
+                                             int key0, int lk, int kw, uint32_t magic, float scale = 1.f) {
+  auto add = [&](float& x, float bias) { x = SCALE ? fmaf(x, scale, bias) : x + bias; };
 #pragma unroll
   for (int n = 0; n < NK; ++n) {
     const int key = key0 + 8 * n;  // even
@@ -284,8 +336,8 @@ __device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh,
       for (int h = 0; h < 2; ++h) {
         const float bh = rh[8 * h * sh + h0];
         const float2 bw = *reinterpret_cast<const float2*>(rw + 8 * h * sw + w0);
-        s[n][2 * h] += bh + bw.x;
-        s[n][2 * h + 1] += bh + bw.y;
+        add(s[n][2 * h], bh + bw.x);
+        add(s[n][2 * h + 1], bh + bw.y);
       }
     } else {
       int h1 = h0, w1 = w0 + 1;
@@ -296,8 +348,8 @@ __device__ __forceinline__ void add_rel_bias(float (&s)[NK][4], const float* rh,
       const bool odd_ok = key + 1 < lk;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        s[n][2 * h] += rh[8 * h * sh + h0] + rw[8 * h * sw + w0];
-        if (odd_ok) s[n][2 * h + 1] += rh[8 * h * sh + h1] + rw[8 * h * sw + w1];
+        add(s[n][2 * h], rh[8 * h * sh + h0] + rw[8 * h * sw + w0]);
+        if (odd_ok) add(s[n][2 * h + 1], rh[8 * h * sh + h1] + rw[8 * h * sw + w1]);
       }
     }
   }
@@ -348,7 +400,7 @@ __device__ __forceinline__ void relwin_rows(const T* __restrict__ q, const float
     for (int u = 0; u < RW_PER; ++u) {
       const int j = j0 + 4 * u;
       if (j >= 2 * win) break;
-      const float val = live ? acc[u] : 0.f;
+      const float val = live ? (sizeof(T) == 4 ? acc[u] : acc[u] * LOG2E) : 0.f;  // bf16: base 2
       if (j < win) {
         rhs[r * sh + j] = j >= valid ? val + -1.0e30f : val;
       } else {
@@ -370,10 +422,9 @@ __device__ __forceinline__ void relwin_rows(const T* __restrict__ q, const float
 // the first merges it: m = max(m0, m1), l = l0 e^(m0 - m) + l1 e^(m1 - m),
 // O likewise. A half that saw no key has m1 = -inf and adds 0.
 //
-// T = float: each product in 3xTF32 (lo.hi + hi.lo + hi.hi). T = bf16 (V
-// only): q, k and v are exact in TF32 (their lo parts are zero), so Q K^T
-// is the one product hi.hi and P V the two P.lo V + P.hi V, with the same
-// f32 softmax; the output is rounded to bf16 once.
+// T = float: each product in 3xTF32 (lo.hi + hi.lo + hi.hi). T = bf16 (B
+// and V): the bf16 walk of the header, m16n8k16 products (Q K^T one, P V
+// lo V + hi V) and the softmax in base 2; the output rounded to bf16 once.
 template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
@@ -420,18 +471,22 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
   };
   stage(0, 0);  // in flight while the block prepares Q and the bias rows
 
-  // The row group's Q fragments (rows r0 + g, r0 + g + 8; zero past Lq),
-  // split once by the key-half-0 warp into shared memory, where both warps
-  // of the group read them a k8 step at a time (registers hold O and the
-  // scores; the first step's barrier orders the writes before the reads).
+  // f32: the row group's Q fragments (rows r0 + g, r0 + g + 8; zero past
+  // Lq), split once by the key-half-0 warp into shared memory, where both
+  // warps of the group read them a k8 step at a time (registers hold O and
+  // the scores; the first step's barrier orders the writes before the
+  // reads). bf16: every warp holds its row group's Q fragments of the k16
+  // steps in registers (a0..a3 of the m16n8k16 A operand; zero past Lq).
   uint4* qg = qs + rg * ND * 32 * QP;
-  if (half == 0) {
-    const T* qr = q + ((size_t)bh * lq + r0 + g) * D;
-    const bool ok0 = r0 + g < lq, ok1 = r0 + g + 8 < lq;
-    for (int kk = 0; kk < ND; ++kk) {
-      const float2 x0 = ok0 ? load_pair(qr + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
-      const float2 x1 = ok1 ? load_pair(qr + 8 * D + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
-      if constexpr (F32) {
+  constexpr int NQ = F32 ? 1 : D / 16;
+  uint32_t qa[NQ][4];
+  if constexpr (F32) {
+    if (half == 0) {
+      const T* qr = q + ((size_t)bh * lq + r0 + g) * D;
+      const bool ok0 = r0 + g < lq, ok1 = r0 + g + 8 < lq;
+      for (int kk = 0; kk < ND; ++kk) {
+        const float2 x0 = ok0 ? load_pair(qr + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
+        const float2 x1 = ok1 ? load_pair(qr + 8 * D + 8 * kk + 2 * t) : make_float2(0.f, 0.f);
         uint32_t hi[4], lo[4];
         split_tf32(x0.x, hi[0], lo[0]);
         split_tf32(x1.x, hi[1], lo[1]);
@@ -439,24 +494,33 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
         split_tf32(x1.y, hi[3], lo[3]);
         qg[(kk * 32 + lane) * QP] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
         qg[(kk * 32 + lane) * QP + 1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      } else {
-        qg[kk * 32 + lane] = make_uint4(__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
-                                        __float_as_uint(x1.y));
       }
+    }
+  } else {
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(q + ((size_t)bh * lq + r0 + g) * D) + t;
+    const bool ok0 = r0 + g < lq, ok1 = r0 + g + 8 < lq;
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      qa[kk][0] = ok0 ? qr[8 * kk] : 0u;
+      qa[kk][1] = ok1 ? qr[4 * D + 8 * kk] : 0u;
+      qa[kk][2] = ok0 ? qr[8 * kk + 4] : 0u;
+      qa[kk][3] = ok1 ? qr[4 * D + 8 * kk + 4] : 0u;
     }
   }
 
-  // Ordered before the reads by the first step's barrier.
+  // Ordered before the reads by the first step's barrier. bf16 stages the
+  // bias in base 2 (times log2(e)).
   if constexpr (MODE == RELPOS) {
+    const float mul = F32 ? 1.f : LOG2E;
     const float* rhb = rel_h + ((size_t)bh * lq + q0) * kh;
     const float* rwb = rel_w + ((size_t)bh * lq + q0) * kw;
     for (int i = threadIdx.x; i < TC_BQ * kh; i += TC_THREADS) {
       const int r = i / kh;
-      rhs[r * sh + i - r * kh] = q0 + r < lq ? rhb[i] : 0.f;
+      rhs[r * sh + i - r * kh] = q0 + r < lq ? rhb[i] * mul : 0.f;
     }
     for (int i = threadIdx.x; i < TC_BQ * kw; i += TC_THREADS) {
       const int r = i / kw;
-      rws[r * sw + i - r * kw] = q0 + r < lq ? rwb[i] : 0.f;
+      rws[r * sw + i - r * kw] = q0 + r < lq ? rwb[i] * mul : 0.f;
     }
   }
   if constexpr (MODE == RELWIN) relwin_rows<T, D>(q, rel_h, rel_w, rhs, rws, sh, sw, bh, q0, lq, kw, n_prefix);
@@ -480,62 +544,83 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
     if (k0 < warp_keys) {  // else every key of the warp's 32 is masked for its rows: skipped (exact)
       const T* kt = ks + (buf * TC_BKV + half * TC_KW) * KS;
       const T* vt = vs + (buf * TC_BKV + half * TC_KW) * VS;
-      // Scores: lo.hi, hi.lo and hi.hi in three accumulators (three
-      // independent mma chains), summed small terms first; bf16: hi.hi.
-      float s_lh[NK][4], s_hl[NK][4], s_hh[NK][4];
+      float s[NK][4];
+      if constexpr (F32) {
+        // Scores: lo.hi, hi.lo and hi.hi in three accumulators (three
+        // independent mma chains), summed small terms first.
+        float s_lh[NK][4], s_hl[NK][4], s_hh[NK][4];
 #pragma unroll
-      for (int n = 0; n < NK; ++n)
+        for (int n = 0; n < NK; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s_lh[n][c] = s_hl[n][c] = s_hh[n][c] = 0.f;
+          for (int c = 0; c < 4; ++c) s_lh[n][c] = s_hl[n][c] = s_hh[n][c] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < ND; ++kk) {
-        const uint4 h4 = qg[(kk * 32 + lane) * QP];
-        const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w};
-        uint32_t ql[4] = {0u, 0u, 0u, 0u};
-        if constexpr (F32) {
+        for (int kk = 0; kk < ND; ++kk) {
+          const uint4 h4 = qg[(kk * 32 + lane) * QP];
           const uint4 l4 = qg[(kk * 32 + lane) * QP + 1];
-          ql[0] = l4.x, ql[1] = l4.y, ql[2] = l4.z, ql[3] = l4.w;
-        }
+          const uint32_t qh[4] = {h4.x, h4.y, h4.z, h4.w}, ql[4] = {l4.x, l4.y, l4.z, l4.w};
 #pragma unroll
-        for (int n = 0; n < NK; ++n) {
-          const float2 kv = load_pair(kt + (8 * n + g) * KS + 8 * kk + 2 * t);
-          if constexpr (F32) {
+          for (int n = 0; n < NK; ++n) {
+            const float2 kv = load_pair(kt + (8 * n + g) * KS + 8 * kk + 2 * t);
             uint32_t bh0, bl0, bh1, bl1;
             split_tf32(kv.x, bh0, bl0);
             split_tf32(kv.y, bh1, bl1);
             mma_tf32(s_lh[n], ql, bh0, bh1);
             mma_tf32(s_hl[n], qh, bl0, bl1);
             mma_tf32(s_hh[n], qh, bh0, bh1);
-          } else {
-            mma_tf32(s_hh[n], qh, __float_as_uint(kv.x), __float_as_uint(kv.y));
           }
         }
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[n][c] = ((s_lh[n][c] + s_hl[n][c]) + s_hh[n][c]) * scale;
+      } else {
+        static_assert(F32 || MODE == RELPOS || MODE == RELWIN, "bf16 scales its scores with the bias");
+        // Scores: one bf16 product a k16 step (exact products, f32 sums).
+        // ldmatrix a pair of n8 key tiles: matrices (tile 2np, d lo / hi),
+        // (tile 2np + 1, d lo / hi), lane 8 j + r giving row r of matrix j.
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+        const T* krow = kt + (8 * (lane >> 4) + (lane & 7)) * KS + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int kk = 0; kk < NQ; ++kk)
+#pragma unroll
+          for (int np = 0; np < NK / 2; ++np) {
+            uint32_t b[4];
+            sm90::ldsm_x4(b, krow + 16 * np * KS + 16 * kk);
+            sm90::mma_bf16_16816(s[2 * np], qa[kk], b[0], b[1]);
+            sm90::mma_bf16_16816(s[2 * np + 1], qa[kk], b[2], b[3]);
+          }
       }
-
-      float s[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = ((s_lh[n][c] + s_hl[n][c]) + s_hh[n][c]) * scale;
+      // bf16: the scale (times log2(e), base 2) in one FMA with the bias.
       if constexpr (MODE == RELPOS || MODE == RELWIN)
-        add_rel_bias<NK>(s, rhs + (16 * rg + g) * sh, rws + (16 * rg + g) * sw, sh, sw, k0 + 2 * t, lk, kw, kw_magic);
+        add_rel_bias<NK, !F32>(s, rhs + (16 * rg + g) * sh, rws + (16 * rg + g) * sw, sh, sw, k0 + 2 * t, lk, kw,
+                               kw_magic, scale);
       float mx[2] = {-INFINITY, -INFINITY};
+      if (!F32 && k0 + TC_KW <= lk) {  // bf16 (B, V): no key of the warp's 32 is padding
 #pragma unroll
-      for (int n = 0; n < NK; ++n)
+        for (int n = 0; n < NK; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + 8 * n + 2 * t + (c & 1), row = r0 + g + 8 * (c >> 1);
-          float x = s[n][c];
-          if (key >= lk) {
-            x = -INFINITY;
-          } else if (MODE == CAUSAL && key > row) {
-            x = MASK_VALUE;
-          } else if (MODE == PREFIX && key >= n_prefix && (row < n_prefix || key > row)) {
-            x = MASK_VALUE;
+          for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = k0 + 8 * n + 2 * t + (c & 1), row = r0 + g + 8 * (c >> 1);
+            float x = s[n][c];
+            if (key >= lk) {
+              x = -INFINITY;
+            } else if (MODE == CAUSAL && key > row) {
+              x = MASK_VALUE;
+            } else if (MODE == PREFIX && key >= n_prefix && (row < n_prefix || key > row)) {
+              x = MASK_VALUE;
+            }
+            s[n][c] = x;
+            mx[c >> 1] = fmaxf(mx[c >> 1], x);
           }
-          s[n][c] = x;
-          mx[c >> 1] = fmaxf(mx[c >> 1], x);
-        }
+      }
       float alpha[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // the 4 lanes of a quad share rows g and g + 8
@@ -546,7 +631,7 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
         // for every row; a half-1 row that sees only masked keys is
         // weighed out by the merge.)
         const float m_new = fmaxf(m[h], mx[h]);
-        alpha[h] = expf(m[h] - m_new);
+        alpha[h] = softmax_exp<!F32>(m[h] - m_new);
         m[h] = m_new;
         l[h] *= alpha[h];
       }
@@ -554,36 +639,60 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[n][c] = expf(s[n][c] - m[c >> 1]);
+          s[n][c] = softmax_exp<!F32>(s[n][c] - m[c >> 1]);
           l[c >> 1] += s[n][c];
         }
+      // bf16: a step that raised no row's max of the warp (alpha 1, the
+      // common case past the first steps) leaves O as it is (exact).
+      if (F32 || __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
+        for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+          for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+      }
 
-      // O += P V: the scores' n8 tile n is P's k8 step n as it lies.
+      if constexpr (F32) {
+        // O += P V: the scores' n8 tile n is P's k8 step n as it lies.
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t ph[4], pl[4];
-        split_tf32(s[n][0], ph[0], pl[0]);
-        split_tf32(s[n][2], ph[1], pl[1]);
-        split_tf32(s[n][1], ph[2], pl[2]);
-        split_tf32(s[n][3], ph[3], pl[3]);
-        const T* vr = vt + (8 * n + 2 * t) * VS + g;
+        for (int n = 0; n < NK; ++n) {
+          uint32_t ph[4], pl[4];
+          split_tf32(s[n][0], ph[0], pl[0]);
+          split_tf32(s[n][2], ph[1], pl[1]);
+          split_tf32(s[n][1], ph[2], pl[2]);
+          split_tf32(s[n][3], ph[3], pl[3]);
+          const T* vr = vt + (8 * n + 2 * t) * VS + g;
 #pragma unroll
-        for (int dn = 0; dn < ND; ++dn) {
-          if constexpr (F32) {
+          for (int dn = 0; dn < ND; ++dn) {
             uint32_t bh0, bl0, bh1, bl1;
             split_tf32(vr[8 * dn], bh0, bl0);
             split_tf32(vr[VS + 8 * dn], bh1, bl1);
             mma_tf32(acc[dn], pl, bh0, bh1);
             mma_tf32(acc[dn], ph, bl0, bl1);
             mma_tf32(acc[dn], ph, bh0, bh1);
-          } else {
-            const uint32_t b0 = __float_as_uint(to_f32(vr[8 * dn])), b1 = __float_as_uint(to_f32(vr[VS + 8 * dn]));
-            mma_tf32(acc[dn], pl, b0, b1);
-            mma_tf32(acc[dn], ph, b0, b1);
+          }
+        }
+      } else {
+        // O += P V in k16 steps: score tiles 2j and 2j + 1 are P's A
+        // fragment of step j as they lie (keys 16 j + 2t, 2t + 1 and 16 j +
+        // 8 + 2t, 2t + 9), P split into two bf16 parts, lo first. V by
+        // ldmatrix.trans: matrices (keys lo / hi, d tile 2dp), (keys lo /
+        // hi, d tile 2dp + 1).
+        const T* vrow = vt + (8 * ((lane >> 3) & 1) + (lane & 7)) * VS + 8 * (lane >> 4);
+#pragma unroll
+        for (int jj = 0; jj < NK / 2; ++jj) {
+          uint32_t ph[4], pl[4];
+          split_bf16(s[2 * jj][0], s[2 * jj][1], ph[0], pl[0]);
+          split_bf16(s[2 * jj][2], s[2 * jj][3], ph[1], pl[1]);
+          split_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1], ph[2], pl[2]);
+          split_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3], ph[3], pl[3]);
+#pragma unroll
+          for (int dp = 0; dp < ND / 2; ++dp) {
+            uint32_t b[4];
+            sm90::ldsm_x4_trans(b, vrow + 16 * jj * VS + 16 * dp);
+            sm90::mma_bf16_16816(acc[2 * dp], pl, b[0], b[1]);
+            sm90::mma_bf16_16816(acc[2 * dp], ph, b[0], b[1]);
+            sm90::mma_bf16_16816(acc[2 * dp + 1], pl, b[2], b[3]);
+            sm90::mma_bf16_16816(acc[2 * dp + 1], ph, b[2], b[3]);
           }
         }
       }
@@ -616,8 +725,8 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2) attn_tc_ke
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float mm = fmaxf(m[h], m1[h]);  // finite: half 0 saw key 0
-    a0[h] = expf(m[h] - mm);
-    a1[h] = expf(m1[h] - mm);  // 0 where half 1 saw no key, or only masked keys (exact, as the skip)
+    a0[h] = softmax_exp<!F32>(m[h] - mm);
+    a1[h] = softmax_exp<!F32>(m1[h] - mm);  // 0 where half 1 saw no key, or only masked keys (exact, as the skip)
     inv[h] = 1.f / (l[h] * a0[h] + l1[h] * a1[h]);
   }
 #pragma unroll
@@ -652,7 +761,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const void* 
   kernel<<<grid, TC_THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                              static_cast<const T*>(v), static_cast<T*>(o),
                                              static_cast<const float*>(rel_h), static_cast<const float*>(rel_w), lq, lk,
-                                             n_prefix, kh, kw, magic, scale);
+                                             n_prefix, kh, kw, magic, sizeof(T) == 4 ? scale : scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -662,15 +771,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const void* 
 template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(NT) attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, const float* __restrict__ rel_h, const float* __restrict__ rel_w,
-    int lq, int lk, int n_prefix, int kh, int kw, float scale) {
+    T* __restrict__ o, int lq, int lk, int n_prefix, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D + 1]
   float* ks = qs + BQ * (D + 1);     // [BK][D + 1]
   float* vs = ks + BK * (D + 1);     // [BK][D]
   float* ps = vs + BK * D;           // [BQ][BK + 1] probabilities of the tile
-  float* rhs = ps + BQ * (BK + 1);   // [BQ][kh]   (relpos only)
-  float* rws = rhs + BQ * kh;        // [BQ][kw]
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -684,18 +790,6 @@ __global__ void __launch_bounds__(NT) attn_kernel(
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
     qs[r * (D + 1) + c] = (q0 + r < lq) ? to_f32(qb[(size_t)(q0 + r) * D + c]) : 0.f;
-  }
-  if (MODE == RELPOS) {
-    const float* rhb = rel_h + (size_t)bh * lq * kh;
-    const float* rwb = rel_w + (size_t)bh * lq * kw;
-    for (int i = tid; i < BQ * kh; i += NT) {
-      const int r = i / kh;
-      rhs[i] = (q0 + r < lq) ? rhb[(size_t)(q0 + r) * kh + i % kh] : 0.f;
-    }
-    for (int i = tid; i < BQ * kw; i += NT) {
-      const int r = i / kw;
-      rws[i] = (q0 + r < lq) ? rwb[(size_t)(q0 + r) * kw + i % kw] : 0.f;
-    }
   }
 
   constexpr int DC = D / 16;
@@ -749,7 +843,6 @@ __global__ void __launch_bounds__(NT) attn_kernel(
         if (kp >= lk) {
           x = -INFINITY;
         } else {
-          if (MODE == RELPOS) x = x + (rhs[r * kh + kp / kw] + rws[r * kw + kp % kw]);
           if (MODE == CAUSAL && kp > qp) x = MASK_VALUE;
           if (MODE == PREFIX) {
             const bool query_col = kp >= n_prefix;
@@ -807,12 +900,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(
 }
 
 template <typename T, int D, int MODE>
-int launch(const void* q, const void* k, const void* v, void* o, const void* rel_h,
-           const void* rel_w, int bh, int lq, int lk, int n_prefix, int kh, int kw,
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int lq, int lk, int n_prefix,
            float scale, cudaStream_t stream) {
-  const int rel = MODE == RELPOS ? BQ * (kh + kw) : 0;
-  const size_t smem =
-      sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + rel);
+  const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
   auto kernel = attn_kernel<T, D, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -820,8 +910,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* rel
   dim3 grid((lq + BQ - 1) / BQ, bh);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<const float*>(rel_h), static_cast<const float*>(rel_w),
-      lq, lk, n_prefix, kh, kw, scale);
+      static_cast<T*>(o), lq, lk, n_prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -829,11 +918,11 @@ template <typename T, int D>
 int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
             const void* rel_h, const void* rel_w, int bh, int lq, int lk, int n_prefix,
             int kh, int kw, float scale, cudaStream_t s) {
-  // A and B in f32 and V in both types: the tensor-core kernel (B and V at
-  // D 64, SAM's); A and B in bf16: the CUDA-core template.
+  // A in f32, B and V in both types: the tensor-core kernel (B and V at D
+  // 64, SAM's); A in bf16: the CUDA-core template.
   constexpr bool F32 = sizeof(T) == 4;
 #define TC(MODE) launch_tc<T, D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
-#define CORE(MODE) launch<T, D, MODE>(q, k, v, o, rel_h, rel_w, bh, lq, lk, n_prefix, kh, kw, scale, s)
+#define CORE(MODE) launch<T, D, MODE>(q, k, v, o, bh, lq, lk, n_prefix, scale, s)
   switch (mode) {
     case NONE:
       if constexpr (F32) return TC(NONE); else return CORE(NONE);
@@ -842,8 +931,7 @@ int by_mode(int mode, const void* q, const void* k, const void* v, void* o,
     case PREFIX:
       if constexpr (F32) return TC(PREFIX); else return CORE(PREFIX);
     case RELPOS:
-      if constexpr (!F32) return CORE(RELPOS);
-      else if constexpr (D == 64) return TC(RELPOS);
+      if constexpr (D == 64) return TC(RELPOS);
       else return (int)cudaErrorInvalidValue;
     case RELWIN:
       if constexpr (D == 64) return TC(RELWIN);

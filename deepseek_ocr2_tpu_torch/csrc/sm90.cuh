@@ -2,9 +2,11 @@
 // tensor cores from a ring of TMA loads: mbarriers, TMA tensor loads and
 // stores (cp.async.bulk.tensor), 1-D bulk copies, the wgmma shared-memory
 // descriptor for the 128-byte swizzle, and wgmma m64n256k16 (bf16 in, f32
-// sums) with either operand K-major or MN-major ("transposed"). Used by the
-// bf16 kernels S, E and T in moe_gmm.cu and by kernel L's streaming form
-// (linear_q4.cuh).
+// sums) with either operand K-major or MN-major ("transposed"), and the
+// warp-level mma.sync m16n8k16 with its ldmatrix loads. Used by the bf16
+// kernels S, E and T in moe_gmm.cu, by kernel L's streaming form
+// (linear_q4.cuh), by kernel F in bf16 (moe_decode.cu) and by the bf16
+// walk of kernels B and V (flash_attention.cu).
 //
 // Layout conventions (the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B):
 // a box whose inner dimension is 64 bf16 (128 bytes) lands in shared memory
@@ -218,6 +220,42 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level products: mma.sync m16n8k16 (bf16 in, f32 sums) and the
+// ldmatrix loads that feed it (kernels B and V in bf16, F in bf16).
+//
+// Fragments (lane = 4 g + t): A [16 x 16] a0 (row g, k 2t, 2t + 1), a1 (row
+// g + 8, the same k), a2 (row g, k 2t + 8, 2t + 9), a3 (row g + 8, those
+// k); B [16 x 8] b0 (k 2t, 2t + 1, n g), b1 (k 2t + 8, 2t + 9, n g); C c0,
+// c1 (row g, n 2t, 2t + 1), c2, c3 (row g + 8, the same n). Each register
+// holds two bf16, the lower k in the low half.
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 matrices of 16-bit values: lanes 8 j .. 8 j + 7 give the
+// addresses (16-byte aligned) of rows 0-7 of matrix j, and r[j] receives
+// the lane's pair (row g, columns 2t, 2t + 1) of matrix j; `_trans`
+// delivers the transpose, (rows 2t, 2t + 1, column g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -6,13 +6,15 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   it runs on the tensor cores in 3xTF32 (each operand split into TF32 high
   and low parts, three products with f32 sums: f32-accurate), skipping the
   key tiles whose keys are all masked for a row group (`tc_key_tiles` is
-  the plain form of that walk); bf16 runs the CUDA-core template below.
+  the plain form of that walk); bf16 (which no path runs) a CUDA-core
+  template.
 - B, `mha_relpos` (replaces `_attn_kernel_relpos` via
   `mha_pallas(rel_h=, rel_w=)`): SAM attention with the decomposed relative
   position bias bias[q, kh*Kw + kw] = rel_h[q, kh] + rel_w[q, kw], folded in
-  per score; the [L, L] bias is never built. In f32 (D 64, SAM's) it runs
-  A's tensor-core kernel with the block's rows of rel_h / rel_w staged in
-  shared memory; bf16 runs the CUDA-core template.
+  per score; the [L, L] bias is never built. It runs A's tensor-core kernel
+  at D 64 (SAM's) with the block's rows of rel_h / rel_w staged in shared
+  memory: f32 in 3xTF32, bf16 (`serve`'s vision dtype) in bf16 m16n8k16
+  products, P split into two bf16 parts for P V.
 - V, `mha_win` (replaces `_attn_kernel_relwin` via `mha_win_pallas`): SAM's
   windowed attention with the decomposed bias built inside the kernel from
   the flattened rel-pos tables rhf, rwf [D, T2] (each query's win rel-h and
@@ -24,9 +26,10 @@ Port of the Pallas kernels in deepseek_ocr2_tpu/ops/flash_attention.py:
   assertion was a lane rule: V takes any win.
 
 The CUDA source is `csrc/flash_attention.cu` (see its header for the
-designs: A and B in f32 and V a tensor-core kernel (TF32 products, 3xTF32
-for f32 operands), A and B in bf16 a CUDA-core template of 64-query
-blocks streaming 64-key tiles, both with an online f32 softmax).
+designs: A in f32 and B and V one tensor-core kernel (3xTF32 for f32
+operands, bf16 m16n8k16 products for bf16), A in bf16 a CUDA-core template
+of 64-query blocks streaming 64-key tiles, both with an online f32
+softmax).
 The TPU gates on these kernels (L % 128, L >= 256, S >= 256) were Mosaic
 tiling choices; the CUDA kernel takes every shape and masks the ragged edge.
 
@@ -50,7 +53,7 @@ _RELPOS, _RELWIN = 3, 4
 _HEAD_DIMS = (64, 128)  # SAM, LM
 
 
-# Kernels A and B in f32 (csrc/flash_attention.cu `attn_tc_kernel`): blocks of
+# Kernels A in f32, B and V (csrc/flash_attention.cu `attn_tc_kernel`): blocks of
 # TC_BQ query rows in row groups of 16; each step stages 2 * TC_KW keys,
 # and the two warps of a row group take TC_KW keys each (key tile t, of
 # TC_KW keys, goes to the warp of half t % 2), each with its own online
@@ -130,8 +133,8 @@ def _launch(q, k, v, out, rel_h, rel_w, mode_id, n_prefix, kh, kw, scale) -> Non
         raise ValueError(f"q/k/v must share one dtype, f32 or bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if mode_id == _RELPOS and q.dtype == torch.float32 and d != 64:
-        raise ValueError(f"kernel B in f32 takes head dim 64 (SAM's), not {d}")
+    if mode_id == _RELPOS and d != 64:
+        raise ValueError(f"kernel B takes head dim 64 (SAM's), not {d}")
     if mode_id == _RELWIN and d != 64:
         raise ValueError(f"kernel V takes head dim 64 (SAM's), not {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):

@@ -11,7 +11,8 @@ cheapest plan reads each selected expert once for the whole batch:
   zero where a row did not select the visit's expert and for pad visits;
 - kernel F (`csrc/moe_decode.cu`, whose header gives the design) runs the
   SwiGLU of every visit over all rows and sums y * w over the visits in
-  ascending expert id, in f32.
+  ascending expert id, in f32; in bf16 its products run on the tensor
+  cores, the expert weights streamed once by bulk copies.
 The JAX package lifts the layer-stacked experts out of its scan so the
 kernel can index the stack; the port keeps one expert stack per layer and
 needs no such lift.
@@ -30,8 +31,9 @@ Its source is `csrc/moe_q8.cu`, shared with kernel I.
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. `launches` counts calls that launch F or J
-(one per MoE layer per decode step; each is four CUDA launches, the
-schedule's included).
+(one per MoE layer per decode step). F in bf16 is three CUDA launches, the
+schedule's included (gate/up, then down with the combine folded in; two
+more per further group of 32 rows), F in f32 four.
 """
 
 from __future__ import annotations
@@ -101,6 +103,20 @@ def device_schedule(idx: torch.Tensor, weights: torch.Tensor, e: int, b: int):
     return ve, valid, w_visit
 
 
+def act_stride(i: int) -> int:
+    """Row stride, in elements, of F's bf16 act workspace [E, B, stride]
+    (`act_stride` in `csrc/moe_decode.cu`): I rounded up to 16, its 16-byte
+    units 1 mod 8, so that one bulk copy of a visit's rows lands in shared
+    memory with every ldmatrix free of bank conflicts."""
+    units = -(-i // 16) * 2
+    return (units + (9 - units % 8) % 8) * 8
+
+
+# F in bf16 keeps each consumer warp's x fragments (an eighth of H) in
+# registers: 10 k16 steps a warp.
+TC_MAX_H = 1280
+
+
 def moe_ffn_decode_visits_reference(
     x: torch.Tensor,  # [B, H]
     experts: Dict[str, torch.Tensor],  # gate / up [E, I, H], down [E, H, I]
@@ -149,21 +165,27 @@ def moe_ffn_decode_fused(
                          f"down {tuple(wd.shape)} do not fit")
     if h % 8 or i % 8:
         raise ValueError(f"kernel F needs H ({h}) and I ({i}) multiples of 8")
+    if dt == torch.bfloat16 and (h % 16 or i % 16 or h > TC_MAX_H):
+        raise ValueError(f"kernel F in bf16 needs H ({h}) and I ({i}) multiples of 16 and H <= {TC_MAX_H}")
     x = x.contiguous()
     cuda_build.require_cuda(x, wg, wu, wd)
     if any(t.data_ptr() % 16 for t in (x, wg, wu, wd)):
         raise ValueError("kernel F reads 16-byte aligned rows")
     ve, valid, w_visit = device_schedule(idx, weights, e, b)
-    act = torch.empty(e, b, i, dtype=dt, device=x.device)
-    yw = torch.empty(e, b, h, dtype=torch.float32, device=x.device)
+    if dt == torch.bfloat16:  # act at a padded stride; y * w summed in the down kernel
+        act = torch.empty(e, min(b, 32), act_stride(i), dtype=dt, device=x.device)
+        yw = None
+    else:
+        act = torch.empty(e, b, i, dtype=dt, device=x.device)
+        yw = torch.empty(e, b, h, dtype=torch.float32, device=x.device)
     out = torch.empty(b, h, dtype=dt, device=x.device)
     lib = cuda_build.load("moe_decode")
     fn = lib.moe_decode_f32 if dt == torch.float32 else lib.moe_decode_bf16
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
-    err = fn(p(x), p(wg), p(wu), p(wd), p(ve), p(valid), p(w_visit), p(act), p(yw), p(out),
-             b, e, h, i, cuda_build.stream_of(x))
+    err = fn(p(x), p(wg), p(wu), p(wd), p(ve), p(valid), p(w_visit), p(act), None if yw is None else p(yw),
+             p(out), b, e, h, i, cuda_build.stream_of(x))
     cuda_build.check(err, "moe_decode")
     moe_ffn_decode_fused.launches += 1
     return out

@@ -22,9 +22,9 @@ Phases:
 - `crop_vision`: the same page's vision (SAM, Qwen2 and the injection of
   its 1024^2 view and six 768^2 crops) profiled three times: wall ms,
   device ms, and the device ms and launches of B and C;
-- `sam_attention`: kernel B in f32 at SAM's four shapes (the 1024^2
-  view's global [1, 12, 4096, 64] and windows [25, 12, 196, 64], six
-  crops' global [6, 12, 2304, 64] and windows [96, 12, 196, 64]), with
+- `sam_attention`: kernel B in f32 and bf16 at SAM's four shapes (the
+  1024^2 view's global [1, 12, 4096, 64] and windows [25, 12, 196, 64],
+  six crops' global [6, 12, 2304, 64] and windows [96, 12, 196, 64]), with
   SDPA given the bias beside it, both through the wrapper and in a CUDA
   graph;
 - `int4_head`: kernel L at the int4 lm_head (129 280 x 1280, bf16 x, f32
@@ -41,6 +41,14 @@ Phases:
   then its per-token decode profile of a no-crop page at batch 1, LM bf16,
   on the default path (pool) and under `DEEPSEEK_DECODE_ATTN=stacked`
   (kernel U), each twice, in turns;
+- `decode_moe`: kernel F at one MoE decode layer (E 64, k 6, H 1280, I
+  896, a random f32 router) at B 8, 16 and 32 in bf16 and 16 in f32
+  against its visit twin, through the wrapper and in a CUDA graph, with
+  its bound; then one `decode_chunk` of 32 steps of the continuous engine
+  at 16 slots (full-width LM bf16, an f32 pool, lengths 260..700, as
+  `scripts/torch_serve_profile.py`) profiled three times: wall ms, device
+  ms, and the device ms and launches of F's parts (schedule, gate/up,
+  down, the f32 form's combine) and of G;
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -179,13 +187,16 @@ def sam_attention():
     import torch.nn.functional as F
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_reference, mha_relpos
 
-    for case, b, side in (("global", 1, 64), ("window", 25, 14), ("crop global", 6, 48), ("crop window", 96, 14)):
+    for (case, b, side), dt in ((c, dt) for dt in (torch.float32, torch.bfloat16)
+                                for c in (("global", 1, 64), ("window", 25, 14), ("crop global", 6, 48),
+                                          ("crop window", 96, 14))):
         l = side * side
-        q, k, v = (randn(b, 12, l, 64) for _ in range(3))
+        q, k, v = (randn(b, 12, l, 64, dtype=dt) for _ in range(3))
         rh, rw = randn(b, 12, l, side, std=0.3), randn(b, 12, l, side, std=0.3)
-        bias = (rh[..., :, None] + rw[..., None, :]).reshape(b, 12, l, l)
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(b, 12, l, l).to(dt)
         ref = mha_reference(q, k, v, scale=0.125, rel_h=rh, rel_w=rw)
-        record("B", f"{{case}} {{tuple(q.shape)}} float32", ref, mha_relpos(q, k, v, rh, rw, scale=0.125), cs.F32_TOL,
+        record("B", f"{{case}} {{tuple(q.shape)}} {{str(dt)[6:]}}", ref, mha_relpos(q, k, v, rh, rw, scale=0.125),
+               cs.tolerance(ref, dt),
                cs.median_ms(lambda: mha_relpos(q, k, v, rh, rw, scale=0.125)),
                cs.median_ms(lambda: mha_reference(q, k, v, scale=0.125, rel_h=rh, rel_w=rw)), None,
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=0.125),
@@ -255,6 +266,68 @@ def sam_windows():
         torch.cuda.empty_cache()
 
 
+def decode_moe():
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.ops import moe_decode
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for
+
+    e, k, h, i = 64, 6, 1280, 896
+    router = randn(e, h, std=h**-0.5)
+    for b, dt in ((8, torch.bfloat16), (16, torch.bfloat16), (32, torch.bfloat16), (16, torch.float32)):
+        ex = {{"gate": randn(e, i, h, std=h**-0.5, dtype=dt), "up": randn(e, i, h, std=h**-0.5, dtype=dt),
+               "down": randn(e, h, i, std=i**-0.5, dtype=dt)}}
+        x = randn(b, h, dtype=dt)
+        args = (x, ex, *route(x, router, k))
+        n_visits = int(moe_decode.distinct_schedule(args[3], e)[1].sum())
+        ref = moe_decode.moe_ffn_decode_visits_reference(*args)
+        record("F", f"B {{b}} k {{k}}: {{n_visits}} distinct experts, {{str(dt)[6:]}}", ref,
+               moe_decode.moe_ffn_decode_fused(*args), cs.tolerance(ref, dt),
+               cs.median_ms(lambda: moe_decode.moe_ffn_decode_fused(*args)),
+               cs.median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)),
+               cs.bound_ms(cs.nbytes(x, ref, *args[2:]) + n_visits * 3 * cs.nbytes(ex["gate"][0]),
+                           2 * b * k * 3 * h * i, dt),
+               graph=lambda: moe_decode.moe_ffn_decode_fused(*args))
+        del ex, args, ref
+    torch.cuda.empty_cache()
+
+    # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py.
+    cfg = OCR2Config()
+    lm = cfg.lm
+    flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")["lm"]
+    del flat
+    b, page, cap, steps = 16, 128, 1024, 32
+    per_row = pages_for(cap, page)
+    pool = make_paged_kv_cache(lm.num_hidden_layers, b * per_row + 1, lm.num_attention_heads, page, lm.head_dim,
+                               dtype=torch.float32, device=dev)
+    pool["k"].normal_(generator=g)
+    pool["v"].normal_(generator=g)
+    state = DecodeState.empty(b, cap, dev)
+    state.tokens.random_(2, lm.vocab_size, generator=g)
+    lens = torch.linspace(260, 700, b, device=dev).round().to(torch.int32)
+    state.cur_lens.copy_(lens)
+    state.done.zero_()
+    state.limits.fill_(cap)
+    tables = torch.arange(1, b * per_row + 1, dtype=torch.int32, device=dev).reshape(b, per_row)
+    chunk = dict(n_steps=steps, ngram_size=20, eos_id=-1, rope=rope_consts(lm, dev))
+    # F's launches by part (both forms): its schedule, gate/up, down, the f32 form's combine.
+    f_parts = (("schedule_kernel", "F schedule"), ("gu_tc_kernel", "F gate/up"), ("::swiglu_kernel<", "F gate/up"),
+               ("down_tc_kernel", "F down"), ("::down_kernel<", "F down"), ("combine_kernel", "F combine"))
+
+    def kind_of(key):
+        part = next((name for pat, name in f_parts if pat in key), None)
+        return part or ("G" if "paged_kernel" in key else None)
+
+    def step():
+        state.cur_lens.copy_(lens)
+        decode_chunk(params, lm, pool, state, tables, **chunk)
+
+    profiled(f"decode_chunk, {{b}} slots, {{steps}} steps, LM bf16, f32 pool, lengths 260..700", step, kind_of)
+
+
 def stacked_decode():
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
@@ -293,6 +366,8 @@ for phase in {phases!r}:
         sam_windows()
     elif phase == "stacked_decode":
         stacked_decode()
+    elif phase == "decode_moe":
+        decode_moe()
     elif phase == "train":
         cs.phase_train(dev)
     else:

@@ -298,8 +298,11 @@ def test_cuda_relpos_matches_twin(cuda, dtype, b, side):
 
 
 @pytest.mark.gpu
-def test_cuda_relpos_f32_refuses_other_head_dims(cuda):
-    q = torch.zeros(1, 2, 16, 128, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_relpos_refuses_other_head_dims(cuda, dtype):
+    """B runs the tensor-core kernel at SAM's head dim 64 only, in both
+    dtypes."""
+    q = torch.zeros(1, 2, 16, 128, device=cuda, dtype=dtype)
     rh = torch.zeros(1, 2, 16, 4, device=cuda)
     with pytest.raises(ValueError, match="head dim 64"):
         mha_relpos(q, q, q, rh, rh, scale=0.125)
@@ -492,9 +495,14 @@ def _decode_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, seed=5):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float32, 16),
-                                     (torch.bfloat16, 5), (torch.float32, 40)])
+                                     (torch.bfloat16, 5), (torch.float32, 40), (torch.bfloat16, 17),
+                                     (torch.bfloat16, 40)])
 def test_cuda_moe_decode_matches_twin(cuda, dtype, b):
+    """bf16 at B 17 (a second row tile holding one row) and 40 (a second
+    group of 32 rows). The output's block is filled with NaN first: a row
+    left unwritten shows."""
     x, experts, weights, idx = _decode_moe_case(cuda, dtype, b)
+    torch.full_like(x, float("nan"))
     before = moe_decode.moe_ffn_decode_fused.launches
     got = moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)
     torch.cuda.synchronize()
@@ -517,6 +525,25 @@ def test_cuda_moe_decode_rows_do_not_depend_on_the_batch(cuda):
     w2[1:] = w2[1:].flip(1)
     b = moe_decode.moe_ffn_decode_fused(x, experts, w2, idx2)
     assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_moe_decode_graph_replay_equals_eager(cuda, dtype):
+    """F captured in a CUDA graph (the static decode batch) replays to the
+    eager call's bits, on new inputs copied into the captured buffers."""
+    x, experts, weights, idx = _decode_moe_case(cuda, dtype, 16)
+    x2, _, w2, idx2 = _decode_moe_case(cuda, dtype, 16, seed=9)
+    moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_decode.moe_ffn_decode_fused(x, experts, weights, idx)
+    for xs, ws, ids in ((x, weights, idx), (x2, w2, idx2)):
+        x.copy_(xs), weights.copy_(ws), idx.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_decode.moe_ffn_decode_fused(x, experts, weights, idx))
 
 
 @pytest.mark.gpu
