@@ -402,7 +402,7 @@ def decode_results(dev, randn, record) -> None:
     around the B * k <= E cut-over (11 rows), and F in a CUDA graph. G:
     [12, P, 10, 128, 128] pools in f32 and bf16, 16 rows of ragged lengths
     260..2048 with random block tables, one row on the scratch page 0,
-    layers 0 and 11."""
+    layers 0 and 11, and one row of 300 tokens."""
     from deepseek_ocr2_tpu_torch.ops import moe_decode
     from deepseek_ocr2_tpu_torch.ops import moe as moe_ops
     from deepseek_ocr2_tpu_torch.ops.paged_attention import (
@@ -455,16 +455,19 @@ def decode_results(dev, randn, record) -> None:
                            generator=torch.Generator(device=dev).manual_seed(SEED))
         bt[-1] = 0  # a finished row: every page is the scratch page
         lens = torch.linspace(260, 2048, b, device=dev).round().to(torch.int32)
-        for li in (0, 11):
-            args = (q, k_pool, v_pool, bt, lens)
-            ref = paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens, scale=scale)
+        # The 16 rows at layers 0 and 11, then one row of 300 tokens (a
+        # batch-1 pool step).
+        for li, rows in ((0, b), (11, b), (11, 1)):
+            args = (q[:rows], k_pool, v_pool, bt[:rows], lens[:rows] if rows > 1 else torch.full_like(lens[:1], 300))
+            ref = paged_decode_attention_reference(args[0], k_pool[li], v_pool[li], *args[3:], scale=scale)
             got = paged_decode_attention_pool(*args, li, scale=scale)
-            n_keys = int(lens.sum())
-            record("G", f"pool {tuple(k_pool.shape)} {str(dt)[6:]}, B {b}, lengths 260..2048, layer {li}",
+            n_keys = int(args[4].sum())
+            what = "lengths 260..2048" if rows > 1 else "length 300"
+            record("G", f"pool {tuple(k_pool.shape)} {str(dt)[6:]}, B {rows}, {what}, layer {li}",
                    ref, got, F32_TOL, median_ms(lambda: paged_decode_attention_pool(*args, li, scale=scale)),
-                   median_ms(lambda: paged_decode_attention_reference(q, k_pool[li], v_pool[li], bt, lens,
+                   median_ms(lambda: paged_decode_attention_reference(args[0], k_pool[li], v_pool[li], *args[3:],
                                                                       scale=scale)),
-                   bound_ms(nbytes(q, ref, bt, lens) + 2 * n_keys * 10 * 128 * k_pool.element_size(),
+                   bound_ms(nbytes(args[0], ref, args[3], args[4]) + 2 * n_keys * 10 * 128 * k_pool.element_size(),
                             4 * n_keys * 10 * 128, torch.float32),
                    graph=lambda: paged_decode_attention_pool(*args, li, scale=scale))
         del k_pool, v_pool
@@ -1300,9 +1303,10 @@ def phase_kernels(dev) -> dict:
                   f"multiply {int(tiles.sum())} of {tiles.numel() * n_all} ({tiles.numel() * n_all - int(tiles.sum())} "
                   f"skipped), the blocks stage {staged} of {tiles.shape[0] * n_all}")
 
-    # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view) and, f32,
-    # M = 6 * 2304 = 13824 (six 768^2 crops in one batch).
-    for m, dt in ((4096, torch.float32), (4096, torch.bfloat16), (6 * 2304, torch.float32)):
+    # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view), f32 M = 6 *
+    # 2304 = 13824 (six 768^2 crops in one batch), bf16 M = 2304 (one crop,
+    # serve's vision dtype).
+    for m, dt in ((4096, torch.float32), (4096, torch.bfloat16), (6 * 2304, torch.float32), (2304, torch.bfloat16)):
         x = randn(m, 768, dtype=dt)
         w1, b1 = randn(3072, 768, std=768**-0.5, dtype=dt), randn(3072, std=0.02, dtype=dt)
         w2, b2 = randn(768, 3072, std=3072**-0.5, dtype=dt), randn(768, std=0.02, dtype=dt)

@@ -9,10 +9,7 @@
 // TPU kernel rides the layer index through scalar prefetch only because
 // XLA would copy a scan-sliced operand).
 //
-// One block per (row, head), D = 128 threads. The block walks the row's
-// pages while p * page < seq_len; page p of the head, pool[li, bt[row, p],
-// head], is a contiguous [page, D] slab of K and one of V. Per page, as the
-// TPU kernel does per grid step:
+// Per (row, head), as the TPU kernel does per grid step:
 //   s_j   = (q . k_j) * scale, -inf for key positions >= seq_len
 //   m_new = max(m, max_j s_j);  alpha = exp(m - m_new)
 //   p_j   = exp(s_j - m_new);   l = alpha * l + sum_j p_j
@@ -21,19 +18,31 @@
 // :192-206). Rows that point at the scratch page 0 (finished slots) read it
 // like any other page; their output is discarded by the caller.
 //
-// Scores: warp w takes keys w, w + 4, ...; each lane holds 4 of the 128
-// dims of q and reads 4 consecutive elements of the key row, so a warp
-// reads one 512-byte (f32) or 256-byte (bf16) row per key, then reduces
-// across lanes with xor shuffles. PV: thread t owns output dim t and walks
-// the page's keys, so a warp reads a contiguous 128-byte slice of each V
-// row. The scores and weights of a page live in shared memory.
-//
 // What bounds it: bytes. A row of 2048 tokens reads 2 MB of f32 K/V per
 // layer (1 MB in bf16) and does 4 FLOP per element read: far under the
-// card's ridge point. At B = 16 rows x 10 heads = 160 blocks, about one per
-// SM; a block's loads of a page are independent and unrolled. Splitting a
-// row's pages across blocks (a second pass to merge the partial softmaxes)
-// would fill the card at small B and is later work.
+// card's ridge point. One block per (row, head) walking its pages one
+// after another would run 160 blocks at 16 rows, with too few bytes in
+// flight, so G is a split-key decode on U's walk
+// (chunk_partial, merge_partials; below), in one launch:
+// - A (row, head)'s keys are cut into chunks that never cross a page end:
+//   ck = min(64, page) keys, ceil(page / ck) a page; block (chunk, head,
+//   row) finds its page through the block table. A block whose chunk starts
+//   at or past len = seq_lens[row] exits at once, and only live K/V rows
+//   are copied (cp.async); the two warps score and accumulate as U's do,
+//   and the chunk's partial (acc[D], m, l) goes to a workspace the wrapper
+//   makes with torch.empty (a CUDA graph captures it).
+// - The last block of a (row, head) to finish merges the row's partials in
+//   ascending chunk order (merge_partials): each block writes its partial,
+//   __threadfence()s and counts itself on an arrival counter of the (row,
+//   head); the block that brings the count to the number of live chunks
+//   merges, then sets the counter back to zero, ready for the next launch
+//   or a graph's next replay. The order depends on len, the page and the
+//   chunk size alone, never on B, the other rows or the pool's size, and
+//   not on which block merges: a row's output is bit-identical whatever
+//   else is in the batch. One launch, not U's two: the decode step is
+//   host-bound.
+// At 16 rows of 260..2048 tokens, 10 heads, pages of 128, that is 2960
+// live blocks of at most 64 keys (18464 keys a head).
 //
 // Shapes: D = 128 (the LM's head dim), page <= 128, f32 or bf16 pool, q
 // f32 (checked by the wrapper).
@@ -56,9 +65,8 @@
 //
 // What bounds it: bytes. A token of a (row, head) costs 2 * 128 code bytes
 // and 2 * 4 scale bytes, 264 bytes against G's 1024 (f32) and 512 (bf16);
-// the open page adds 2 * 2 * 128 bytes a token of the last page. The same
-// 160 blocks at 16 rows as G: splitting a row's pages across blocks is later
-// work.
+// the open page adds 2 * 2 * 128 bytes a token of the last page. 160 blocks
+// at 16 rows: P can take G's split-key walk in a later PR.
 //
 // Kernels Q (paged_chunk_f32 / paged_chunk_bf16) and R (paged_chunk_q8)
 // replace deepseek_ocr2_tpu/ops/paged_attention.py: _paged_kernel_pool_chunk
@@ -192,92 +200,9 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// One page (G, X) of the f32 online softmax of thread t's output dim: the
-// keys j < n_read of a [n_read, D] slab of K and of V at k / v, keys j >=
-// n_valid at -inf. Scores: warp w takes keys w, w + 4, ...,
-// each lane 4 of the 128 dims, xor-shuffle reductions; the tile's weights
-// sit in w [MAX_PAGE], the warps' maxima in wmax. Ends with a barrier, so
-// w and wmax may be rewritten by the next tile.
-template <typename T>
-__device__ __forceinline__ void attend_tile(const T* __restrict__ k, const T* __restrict__ v, int n_read,
-                                            int n_valid, const float (&qf)[4], float scale, float* w, float* wmax,
-                                            float& m, float& l, float& acc) {
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  float mx = -INFINITY;
-#pragma unroll 4
-  for (int j = warp; j < n_read; j += WARPS) {
-    float kf[4];
-    load4(k + (size_t)j * D + lane * 4, kf);
-    float d = qf[0] * kf[0];
-    d = fmaf(qf[1], kf[1], d);
-    d = fmaf(qf[2], kf[2], d);
-    d = fmaf(qf[3], kf[3], d);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
-    const float s = j < n_valid ? d * scale : -INFINITY;
-    if (lane == 0) w[j] = s;
-    mx = fmaxf(mx, s);
-  }
-  if (lane == 0) wmax[warp] = mx;
-  __syncthreads();
-  float m_new = m;
-#pragma unroll
-  for (int i = 0; i < WARPS; ++i) m_new = fmaxf(m_new, wmax[i]);
-  const float alpha = expf(m - m_new);  // m = -inf on the first tile: 0
-  if (t < n_read) w[t] = expf(w[t] - m_new);  // masked keys: exp(-inf) = 0
-  __syncthreads();
-  float psum = 0.f, pv = 0.f;
-#pragma unroll 8
-  for (int j = 0; j < n_read; ++j) {
-    const float pj = w[j];
-    psum += pj;
-    pv = fmaf(pj, to_f32(v[(size_t)j * D + t]), pv);
-  }
-  l = alpha * l + psum;
-  acc = acc * alpha + pv;
-  m = m_new;
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) paged_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
-                                                   const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-                                                   const int* __restrict__ seq_lens, float* __restrict__ out,
-                                                   int n_heads, int page, int max_pages, float scale) {
-  __shared__ float w[MAX_PAGE];
-  __shared__ float wmax[WARPS];
-  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x;
-  const size_t qo = ((size_t)row * n_heads + head) * D;
-  float qf[4];
-  load4(q + qo + t % 32 * 4, qf);  // lane l holds dims 4 l .. 4 l + 3
-
-  const int len = seq_lens[row];
-  float m = -INFINITY, l = 0.f, acc = 0.f;
-  for (int p = 0; p < max_pages && p * page < len; ++p) {
-    const int pg = block_tables[(size_t)row * max_pages + p];
-    const size_t base = ((size_t)pg * n_heads + head) * page * D;
-    attend_tile(k_pages + base, v_pages + base, page, len - p * page, qf, scale, w, wmax, m, l, acc);
-  }
-  out[qo + t] = acc / fmaxf(l, 1e-37f);
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
-           const void* seq_lens, void* out, int batch, int n_heads, int head_dim, int page, int max_pages,
-           float scale, void* stream) {
-  if (batch <= 0 || n_heads <= 0 || head_dim != D || page <= 0 || page > MAX_PAGE || max_pages <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(batch, n_heads);
-  paged_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads,
-      page, max_pages, scale);
-  return (int)cudaGetLastError();
-}
-
-// Kernel U: see the header. k_layer / v_layer [B, Hh, cap, D]; part
-// [B, Hh, n_chunks, U_PART] f32, the chunks' partials.
+// The split-key walk of kernels G, X and U: a chunk of at most U_CHUNK
+// keys of one (row, head) a block, U_WARP_KEYS a warp, and the chunks'
+// partials merged in ascending chunk order. U_PART floats a partial.
 constexpr int U_WARP_KEYS = 32;                     // keys a warp: one a lane
 constexpr int U_WARPS = 2;
 constexpr int U_CHUNK = U_WARPS * U_WARP_KEYS;      // keys a block: one chunk of a row's keys
@@ -320,63 +245,59 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // e^(m_c - m), 1e-37), m = max_c m_c, summed in ascending c. A partial that
 // saw no key (m_c = -inf) adds exact zeros. The order depends on n alone,
 // so an output is bit-identical from run to run and whatever the other
-// rows hold. Thread t returns output dim t.
+// rows hold. Thread t returns output dim t. The loads bypass L1 (ld.cg):
+// in G the partials were written by other blocks of the same launch.
 __device__ __forceinline__ float merge_partials(const float* __restrict__ part, int n, int stride, int t) {
   float m = -INFINITY;
-  for (int c = 0; c < n; ++c) m = fmaxf(m, part[(size_t)c * stride + D]);
+  for (int c = 0; c < n; ++c) m = fmaxf(m, __ldcg(part + (size_t)c * stride + D));
   float l = 0.f, acc = 0.f;
   for (int c = 0; c < n; ++c) {
     const float* pc = part + (size_t)c * stride;
-    const float mc = pc[D];
+    const float mc = __ldcg(pc + D);
     const float w = mc == -INFINITY ? 0.f : expf(mc - m);
-    l = fmaf(pc[D + 1], w, l);
-    acc = fmaf(pc[t], w, acc);
+    l = fmaf(__ldcg(pc + D + 1), w, l);
+    acc = fmaf(__ldcg(pc + t), w, acc);
   }
   return acc / fmaxf(l, 1e-37f);
 }
 
-// One chunk of U_CHUNK keys of one (row, head): block (chunk, head, row),
-// U_WARPS warps of U_WARP_KEYS keys, each its own online softmax with no
-// block barrier until the in-block merge. A block whose chunk starts at or
-// past len exits at once; keys at or past len are never read.
+// One chunk's partial: the n (1 <= n <= U_CHUNK) keys whose K and V rows lie
+// contiguous at k and v, against q [D] f32, into pc (acc[D], m, l) of
+// U_PART floats. U_WARPS warps of U_WARP_KEYS keys, each its own online
+// softmax with no block barrier until the in-block merge; keys past n are
+// never read. Every thread of the block calls it (one __syncthreads).
 template <typename T>
-__global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
-    const float* __restrict__ q, const T* __restrict__ k_layer, const T* __restrict__ v_layer,
-    const int* __restrict__ seq_lens, float* __restrict__ part, int n_heads, int cap, int n_chunks, float scale) {
+__device__ __forceinline__ void chunk_partial(const float* __restrict__ q, const T* __restrict__ k,
+                                              const T* __restrict__ v, int n, float scale, float* __restrict__ pc,
+                                              unsigned char* smem_raw) {
   using Tile = UTile<T>;
   constexpr int KS = Tile::KS, CE = Tile::CE, CH = D / CE;  // CH: 16-byte chunks a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int chunk = blockIdx.x, head = blockIdx.y, row = blockIdx.z;
-  const int len = min(seq_lens[row], cap);
-  const int c0 = chunk * U_CHUNK;
-  if (c0 >= len) return;  // the whole block: no key of its chunk is live
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   T* ks = reinterpret_cast<T*>(smem_raw + warp * Tile::WARP_BYTES);  // [U_WARP_KEYS][KS]
   T* vs = ks + U_WARP_KEYS * KS;                                      // [U_WARP_KEYS][D]
   float* qs = reinterpret_cast<float*>(smem_raw + Tile::Q_OFF) + warp * D;
-  const size_t qo = ((size_t)row * n_heads + head) * D;
-  const int k0 = c0 + warp * U_WARP_KEYS;                // the warp's first key
-  const int nk = max(0, min(U_WARP_KEYS, len - k0));    // its live keys (warp-uniform)
+  const int j0 = warp * U_WARP_KEYS;                     // the warp's first key of the chunk
+  const int nk = max(0, min(U_WARP_KEYS, n - j0));       // its live keys (warp-uniform)
 
   float m = -INFINITY, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};  // lane: output dims 4 lane .. 4 lane + 3
   if (nk > 0) {
     // The warp's live K rows, then its V rows, in two cp.async groups.
-    const size_t base = qo * cap + (size_t)k0 * D;  // ((row Hh + head) cap + k0) D
+    const size_t base = (size_t)j0 * D;
     for (int i = lane; i < nk * CH; i += 32) {
       const int r = i / CH, c = CE * (i % CH);
-      cp_async16(ks + r * KS + c, k_layer + base + (size_t)r * D + c);
+      cp_async16(ks + r * KS + c, k + base + (size_t)r * D + c);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     for (int i = lane; i < nk * CH; i += 32) {
       const int r = i / CH, c = CE * (i % CH);
-      cp_async16(vs + r * D + c, v_layer + base + (size_t)r * D + c);
+      cp_async16(vs + r * D + c, v + base + (size_t)r * D + c);
     }
     asm volatile("cp.async.commit_group;\n" ::);
-    *reinterpret_cast<float4*>(qs + 4 * lane) = *reinterpret_cast<const float4*>(q + qo + 4 * lane);
+    *reinterpret_cast<float4*>(qs + 4 * lane) = *reinterpret_cast<const float4*>(q + 4 * lane);
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncwarp();
 
-    // Lane j scores key k0 + j against the whole q (four partial sums).
+    // Lane j scores key j0 + j against the whole q (four partial sums).
     float s = -INFINITY;
     if (lane < nk) {
       const T* kr = ks + lane * KS;
@@ -400,7 +321,7 @@ __global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
     m = s;  // lane 0's key is live: m is finite
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-    const float p = expf(s - m);  // keys past len: exp(-inf) = 0
+    const float p = expf(s - m);  // keys past n: exp(-inf) = 0
     l = p;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(FULL, l, off);  // the same sum on every lane
@@ -418,7 +339,7 @@ __global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
   }
 
   // In-block merge, warp 0 then warp 1 (a warp with no live key adds 0),
-  // and the chunk's partial out.
+  // and the chunk's partial out by warp 0.
   float* xs = reinterpret_cast<float*>(smem_raw + Tile::X_OFF);
   if (warp == 1) {
     *reinterpret_cast<float4*>(xs + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -428,13 +349,31 @@ __global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
   if (warp == 1) return;
   const float m1 = xs[D], l1 = xs[D + 1];
   const float4 o1 = *reinterpret_cast<const float4*>(xs + 4 * lane);
-  const float mm = fmaxf(m, m1);  // finite: warp 0 saw key c0
+  const float mm = fmaxf(m, m1);  // finite: warp 0 saw key 0 of the chunk
   const float a0 = expf(m - mm), a1 = m1 == -INFINITY ? 0.f : expf(m1 - mm);
-  float* pc = part + (qo / D * n_chunks + chunk) * U_PART;
   *reinterpret_cast<float4*>(pc + 4 * lane) =
       make_float4(fmaf(o1.x, a1, acc[0] * a0), fmaf(o1.y, a1, acc[1] * a0), fmaf(o1.z, a1, acc[2] * a0),
                   fmaf(o1.w, a1, acc[3] * a0));
   if (lane == 0) pc[D] = mm, pc[D + 1] = fmaf(l1, a1, l * a0);
+}
+
+// Kernel U: block (chunk, head, row) over keys chunk * U_CHUNK ... of the
+// row's contiguous [cap, D] slabs; a block whose chunk starts at or past
+// len exits at once. k_layer / v_layer [B, Hh, cap, D]; part [B, Hh,
+// n_chunks, U_PART] f32.
+template <typename T>
+__global__ void __launch_bounds__(U_WARPS * 32) stacked_chunk_kernel(
+    const float* __restrict__ q, const T* __restrict__ k_layer, const T* __restrict__ v_layer,
+    const int* __restrict__ seq_lens, float* __restrict__ part, int n_heads, int cap, int n_chunks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunk = blockIdx.x, head = blockIdx.y, row = blockIdx.z;
+  const int len = min(seq_lens[row], cap);
+  const int c0 = chunk * U_CHUNK;
+  if (c0 >= len) return;  // the whole block: no key of its chunk is live
+  const size_t rh = (size_t)row * n_heads + head;
+  const size_t base = (rh * cap + c0) * D;
+  chunk_partial<T>(q + rh * D, k_layer + base, v_layer + base, min(U_CHUNK, len - c0), scale,
+                   part + (rh * n_chunks + chunk) * U_PART, smem_raw);
 }
 
 // The merge pass: block (head, row), thread t = output dim t, over the row's
@@ -468,6 +407,83 @@ int launch_stacked(const void* q, const void* k_layer, const void* v_layer, cons
   stacked_merge_kernel<<<dim3(n_heads, batch), NT, 0, s>>>(static_cast<const float*>(part),
                                                            static_cast<const int*>(seq_lens),
                                                            static_cast<float*>(out), n_heads, cap, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+// Kernels G and X: see the header. The keys of page p of a row are cut into
+// chunks of ck = min(U_CHUNK, page) keys that never cross a page end, cpp =
+// ceil(page / ck) a page; chunk c of the row is chunk c % cpp of its page
+// c / cpp, so chunks ascend with the key position. live_chunks: the chunks
+// that hold a key below len (len >= 1).
+__device__ __forceinline__ int live_chunks(int len, int page, int ck, int cpp) {
+  const int p_last = (len - 1) / page;
+  return p_last * cpp + (len - 1 - p_last * page) / ck + 1;
+}
+
+// Block (chunk, head, row): one chunk's partial into part [B, Hh, n_chunks,
+// U_PART]; the last block of the (row, head) to finish merges the row's
+// live partials in ascending order into out and resets its arrival count
+// (counters [B * Hh], zero between launches). A block whose chunk starts at
+// or past len exits at once; so does every block of a row with len <= 0
+// but chunk 0's, which writes zeros (the one-block walk's acc / max(l,
+// 1e-37) with no key).
+template <typename T>
+__global__ void __launch_bounds__(U_WARPS * 32) paged_split_kernel(
+    const float* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+    const int* __restrict__ block_tables, const int* __restrict__ seq_lens, float* __restrict__ part,
+    int* __restrict__ counters, float* __restrict__ out, int n_heads, int page, int max_pages, int n_chunks,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int merger;
+  const int chunk = blockIdx.x, head = blockIdx.y, row = blockIdx.z;
+  const size_t rh = (size_t)row * n_heads + head;
+  const int len = min(seq_lens[row], max_pages * page);
+  if (len <= 0) {
+    if (chunk == 0)
+      for (int t = threadIdx.x; t < D; t += U_WARPS * 32) out[rh * D + t] = 0.f;
+    return;
+  }
+  const int ck = min(U_CHUNK, page), cpp = (page + ck - 1) / ck;
+  const int p = chunk / cpp, off = chunk % cpp * ck;
+  const int k0 = p * page + off;  // the chunk's first key position
+  if (k0 >= len) return;
+  const int pg = block_tables[(size_t)row * max_pages + p];
+  const size_t base = (((size_t)pg * n_heads + head) * page + off) * D;
+  float* prh = part + rh * n_chunks * U_PART;
+  chunk_partial<T>(q + rh * D, k_pages + base, v_pages + base, min(min(ck, page - off), len - k0), scale,
+                   prh + (size_t)chunk * U_PART, smem_raw);
+
+  // Arrival: the partial is written (warp 0) and made visible device-wide
+  // before the count; the block that brings the count to the number of live
+  // chunks merges. Which block that is changes nothing in the bits.
+  const int n_live = live_chunks(len, page, ck, cpp);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) merger = atomicAdd(counters + rh, 1) == n_live - 1;
+  __syncthreads();
+  if (!merger) return;
+  __threadfence();
+  for (int t = threadIdx.x; t < D; t += U_WARPS * 32) out[rh * D + t] = merge_partials(prh, n_live, U_PART, t);
+  if (threadIdx.x == 0) counters[rh] = 0;  // ready for the next launch (and a graph's next replay)
+}
+
+template <typename T>
+int launch_paged(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
+                 const void* seq_lens, void* part, void* counters, void* out, int batch, int n_heads, int head_dim,
+                 int page, int max_pages, float scale, void* stream) {
+  if (batch <= 0 || batch > 65535 || n_heads <= 0 || n_heads > 65535 || head_dim != D || page <= 0 ||
+      page > MAX_PAGE || max_pages <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int ck = page < U_CHUNK ? page : U_CHUNK;
+  const int n_chunks = max_pages * ((page + ck - 1) / ck);
+  const auto kernel = paged_split_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, UTile<T>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_chunks, n_heads, batch), U_WARPS * 32, UTile<T>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<float*>(part),
+      static_cast<int*>(counters), static_cast<float*>(out), n_heads, page, max_pages, n_chunks, scale);
   return (int)cudaGetLastError();
 }
 
@@ -824,20 +840,23 @@ extern "C" int paged_decode_q8(const void* q, const void* k_pages, const void* v
   return (int)cudaGetLastError();
 }
 
-// q [B, Hh, D] f32; k_pages / v_pages: one layer of the pool, [P, Hh, page,
-// D]; block_tables [B, max_pages] int32; seq_lens [B] int32; out [B, Hh, D] f32.
+// Kernels G and X. q [B, Hh, D] f32; k_pages / v_pages: one layer of the
+// pool, [P, Hh, page, D]; block_tables [B, max_pages] int32; seq_lens [B]
+// int32; part: the workspace, [B, Hh, max_pages * ceil(page / min(64,
+// page)), D + 4] f32; counters: [B * Hh] int32, zero before the call and
+// left zero after it; out [B, Hh, D] f32.
 extern "C" int paged_decode_f32(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
-                                const void* seq_lens, void* out, int batch, int n_heads, int head_dim, int page,
-                                int max_pages, float scale, void* stream) {
-  return launch<float>(q, k_pages, v_pages, block_tables, seq_lens, out, batch, n_heads, head_dim, page,
-                       max_pages, scale, stream);
+                                const void* seq_lens, void* part, void* counters, void* out, int batch, int n_heads,
+                                int head_dim, int page, int max_pages, float scale, void* stream) {
+  return launch_paged<float>(q, k_pages, v_pages, block_tables, seq_lens, part, counters, out, batch, n_heads,
+                             head_dim, page, max_pages, scale, stream);
 }
 
 extern "C" int paged_decode_bf16(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
-                                 const void* seq_lens, void* out, int batch, int n_heads, int head_dim, int page,
-                                 int max_pages, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, out, batch, n_heads, head_dim, page,
-                               max_pages, scale, stream);
+                                 const void* seq_lens, void* part, void* counters, void* out, int batch, int n_heads,
+                                 int head_dim, int page, int max_pages, float scale, void* stream) {
+  return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, part, counters, out, batch,
+                                     n_heads, head_dim, page, max_pages, scale, stream);
 }
 
 // Kernel U. q [B, Hh, D] f32; k_layer / v_layer: layer li of the stacked

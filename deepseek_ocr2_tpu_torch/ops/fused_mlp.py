@@ -1,12 +1,14 @@
 """Fused ViT MLP, kernel C: CUDA wrapper and its plain twin.
 
 Port of the Pallas kernel `_mlp_kernel` (via `mlp_gelu`) in
-deepseek_ocr2_tpu/ops/fused_mlp.py: linear -> exact-erf GELU -> linear with
-the [M, F] intermediate kept on chip. The CUDA source is
-`csrc/fused_mlp.cu` (its header gives the design and what bounds it).
-The TPU gate (E and F multiples of 128) was a Mosaic tiling choice; the
-CUDA kernel takes every M and F and any E up to 768 (SAM's width; its
-accumulator lives in registers).
+deepseek_ocr2_tpu/ops/fused_mlp.py: linear -> exact-erf GELU -> linear. The
+CUDA source is `csrc/fused_mlp.cu` (its header gives the design and what
+bounds it): two launches of a TMA + wgmma GEMM on the tensor cores (bf16;
+f32 as three TF32 products), the bias and GELU fused into the first one's
+epilogue, the bias into the second's; the [M, F] intermediate goes through
+a workspace this wrapper allocates. The TPU gate (E and F multiples of
+128) was a Mosaic tiling choice; the CUDA kernel takes every M and any E
+and F that are multiples of 8 (16-byte rows for TMA).
 
 Weights are in HF nn.Linear layout: w1 [F, E], w2 [E, F].
 Rounding points (identity for f32), as in the TPU kernel and the XLA form:
@@ -49,22 +51,18 @@ def mlp_gelu(
     f = w1.shape[0]
     if w1.shape != (f, e) or w2.shape != (e, f) or b1.shape != (f,) or b2.shape != (e,):
         raise ValueError("expected w1 [F, E], b1 [F], w2 [E, F], b2 [E]")
-    if e % 4 or f % 4:
-        raise ValueError(f"kernel C loads 4-element vectors: E = {e} and F = {f} must be multiples of 4")
+    if e % 8 or f % 8:
+        raise ValueError(f"kernel C reads 16-byte rows: E = {e} and F = {f} must be multiples of 8")
     args = [t.to(dt).contiguous() for t in (x, w1, b1, w2, b2)]
     cuda_build.require_cuda(*args)
-    # 16-byte aligned for the kernel's vector loads (a view may start anywhere).
+    # 16-byte aligned for TMA and the vector loads (a view may start anywhere).
     x, w1, b1, w2, b2 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in args)
-    lib = cuda_build.load("fused_mlp")
-    lib.mlp_max_e.restype = ctypes.c_int
-    if e > lib.mlp_max_e():
-        raise ValueError(f"kernel C holds at most E = {lib.mlp_max_e()} columns, got {e}")
-    fn = lib.mlp_gelu_f32 if dt == torch.float32 else lib.mlp_gelu_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("fused_mlp", "mlp_gelu_f32" if dt == torch.float32 else "mlp_gelu_bf16",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    g = torch.empty((m, f), dtype=dt, device=x.device)  # the intermediate, written then read on the stream
     out = torch.empty_like(x)
     p = cuda_build.ptr
-    err = fn(p(x), p(w1), p(b1), p(w2), p(b2), p(out), m, e, f, cuda_build.stream_of(x))
+    err = fn(p(x), p(w1), p(b1), p(w2), p(b2), p(g), p(out), m, e, f, cuda_build.stream_of(x))
     cuda_build.check(err, "fused_mlp")
     mlp_gelu.launches += 1
     return out

@@ -6,10 +6,17 @@ Port of `paged_decode_attention_pool` in deepseek_ocr2_tpu/ops/paged_attention.p
 row's pages of the layer-stacked pool [L, P, Hh, page, D], listed by its
 block-table row, keys at or beyond `seq_lens[row]` masked to -inf, f32 online
 softmax. The CUDA source is `csrc/paged_attention.cu` (its header gives the
-design and what bounds it).
+design and what bounds it). G is a split-key decode in one launch: a block
+takes one chunk of min(U_CHUNK, page) keys of a (row, head), never across a
+page end (`paged_chunks`), and writes its partial (acc, m, l) to a workspace
+this wrapper allocates; the last block of the (row, head) to finish merges
+the partials in ascending chunk order, counted on a per-device buffer of
+arrival counters (`_arrival_counters`) that the merging block sets back to
+zero. A row's output is bit-identical whatever the other rows hold.
 
-Kernel P (`paged_decode_attention_pool_q8`) is the same walk over an int8
-pool: port of the Pallas kernel `_paged_kernel_pool_q8`. A page arrives as
+Kernel P (`paged_decode_attention_pool_q8`) is the same attention over an
+int8 pool, one block a (row, head) walking the row's pages: port of the
+Pallas kernel `_paged_kernel_pool_q8`. A page arrives as
 int8 codes plus a per-(token, head) f32 scale row and is widened to f32
 before the dot products; with the open pages of an int8tail pool, each
 row's last page is read exact in bf16 from its slot's open page instead.
@@ -63,10 +70,11 @@ from . import cuda_build
 _HEAD_DIM = 128  # the LM's
 _MAX_PAGE = 128
 _MAX_CHUNK = 8  # the most queries a row kernels Q and R take
-# Kernel U (csrc/paged_attention.cu): a block takes one chunk of U_CHUNK
-# keys of a (row, head), U_WARP_KEYS a warp, and writes its partial (acc[D],
-# m, l, in rows of U_PART floats) to a workspace that a second pass merges
-# in ascending chunk order.
+# Kernels G, X and U (csrc/paged_attention.cu): a block takes one chunk of
+# at most U_CHUNK keys of a (row, head), U_WARP_KEYS a warp, and writes its
+# partial (acc[D], m, l, in rows of U_PART floats) to a workspace whose
+# partials are merged in ascending chunk order (G, X: by the last block of
+# the row to finish; U: by a second launch).
 U_CHUNK, U_WARP_KEYS = 64, 32
 U_PART = _HEAD_DIM + 4
 
@@ -98,6 +106,34 @@ def paged_decode_attention_reference(
     return torch.einsum("bhk,bhkd->bhd", torch.softmax(s, dim=-1), v)
 
 
+def paged_chunks(page: int, max_pages: int) -> int:
+    """Chunks a row's keys take in G's split-key walk: min(U_CHUNK, page)
+    keys a chunk, never across a page end, ceil(page / chunk) a page."""
+    ck = min(U_CHUNK, page)
+    return max_pages * -(-page // ck)
+
+
+_COUNTERS: dict = {}  # device index -> int32 arrival counters of G and X, zero between launches
+_RETIRED: list = []  # counter buffers outgrown, kept alive for the CUDA graphs that captured them
+
+
+def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
+    """G's arrival counters ([n] int32 on q's device), zero between launches:
+    the merging block of each (row, head) sets its counter back to zero. One
+    buffer a device, made at first use by a fill kernel, so a CUDA graph
+    captured after a first call reuses it. A call with more (row, head)
+    pairs than the buffer holds gets a larger one; the old buffer is never
+    freed, since a graph captured earlier still launches on it. The launches
+    that share a buffer run on one stream."""
+    buf = _COUNTERS.get(q.get_device())
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=q.device)
+        _COUNTERS[q.get_device()] = buf
+    return buf
+
+
 def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, kernel: str) -> torch.Tensor:
     """G's device code (kernels G and X) on a [P, Hh, page, D] pool view."""
     b, hh, d = q.shape
@@ -113,14 +149,15 @@ def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, ker
     if block_tables.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs {b} rows")
     cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.paged_decode_f32 if k_pages.dtype == torch.float32 else lib.paged_decode_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("paged_attention", "paged_decode_f32" if k_pages.dtype == torch.float32 else
+                          "paged_decode_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    max_pages = block_tables.shape[1]
+    part = torch.empty((b, hh, paged_chunks(page, max_pages), U_PART), dtype=torch.float32, device=q.device)
+    counters = _arrival_counters(q, b * hh)
     out = torch.empty_like(q)
     p = cuda_build.ptr
-    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(out),
-             b, hh, d, page, block_tables.shape[1], scale, cuda_build.stream_of(q))
+    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(part), p(counters), p(out),
+             b, hh, d, page, max_pages, scale, cuda_build.stream_of(q))
     cuda_build.check(err, f"paged_attention ({kernel})")
     return out
 

@@ -108,10 +108,63 @@ def uniform(key: torch.Tensor, shape: Tuple[int, ...], minval: float = 0.0,
     return torch.maximum(lo, floats * span + lo)
 
 
+# XLA's f32 log on the CPU, the Cephes form its CPU backend emits (vectorised;
+# torch's and libm's log differ from it in the last bit for about one input
+# in five): x = 2^e m with m in [sqrt(1/2), sqrt(2)), a degree-8 polynomial
+# in m - 1 evaluated with fused multiply-adds, and log(2) e added in two
+# parts. Its nine coefficients, the two parts of log(2) and sqrt(1/2) are
+# Cephes' constants, rounded to f32 as XLA holds them.
+def _f32(x: float) -> float:
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+_LOG_P = tuple(_f32(c) for c in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+                                 1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+                                 3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+_SQRT_HALF = _f32(0.707106781186547524)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """XLA's f32 fused multiply-add a b + c, emulated (b, c f32 values, as
+    tensors or floats): the product of two f32 values is exact in f64, and
+    the f64 sum is then rounded to f32, so the result is rounded twice, not
+    once as a true fused multiply-add rounds it. The two can differ; over
+    the inputs `xla_log` takes from `gumbel` (every value `uniform` returns,
+    and their first logs) it was checked bit for bit against XLA's log, and
+    is not known to be exact outside them."""
+    return (a.double() * (b.double() if isinstance(b, torch.Tensor) else b) + c).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log for finite x > 0 (no zero, infinity or NaN), bit for
+    bit over the inputs `gumbel` gives it (see `_fma`)."""
+    bits = torch.clamp(x, min=_F32_TINY).view(torch.int32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # mantissa in [0.5, 1)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    small = m < _SQRT_HALF
+    z = torch.where(small, (m - 1.0) + m, m - 1.0)
+    e = torch.where(small, e - 1.0, e)
+    z2 = z * z
+    z3 = z2 * z
+    p = _LOG_P
+    y = _fma(_fma(z, p[0], p[1]), z, p[2])
+    y1 = _fma(_fma(z, p[3], p[4]), z, p[5])
+    y2 = _fma(_fma(z, p[6], p[7]), z, p[8])
+    y = _fma(_fma(y, z3, y1.double()), z3, y2.double())
+    y = _fma(y, z3, (_LOG_Q1 * e).double())
+    return ((z - 0.5 * z2) + y) + _LOG_Q2 * e
+
+
 def gumbel(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     """f32 `jax.random.gumbel` in its default "low" mode:
-    -log(-log(uniform(tiny, 1)))."""
-    return -torch.log(-torch.log(uniform(key, shape, minval=_F32_TINY)))
+    -log(-log(uniform(tiny, 1))). On the CPU the log is XLA's (`xla_log`),
+    so that the noise equals JAX's there bit for bit; on the card it is
+    torch's, one launch where `xla_log` dispatches 67 elementwise
+    operations (a sampled decode step draws the noise once)."""
+    u = uniform(key, shape, minval=_F32_TINY)
+    log = xla_log if u.device.type == "cpu" else torch.log
+    return -log(-log(u))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,17 @@ Phases:
   `scripts/torch_serve_profile.py`) profiled three times: wall ms, device
   ms, and the device ms and launches of F's parts (schedule, gate/up,
   down, the f32 form's combine) and of G;
+- `sam_mlp`: kernel C at SAM's MLP (768 -> 3072 -> 768) at M 4096 (one
+  1024^2 view), 2304 (one 768^2 crop) and 13 824 (six crops), f32 and
+  bf16, against its twin, through the wrapper and in a CUDA graph, with its
+  bound; then chip_smoke's (2, 3) crop page's vision in f32 and (2, 1)
+  page's in bf16, each profiled three times: wall ms, device ms, and the
+  device ms and launches of B and C;
+- `paged_decode`: kernel G at 16 rows of 260..2048 tokens and at one row
+  of 300, f32 and bf16 pools, and X at the 16 rows, each against the
+  twin, through the wrapper and in a CUDA graph, with its bound; then
+  `decode_moe`'s continuous-engine step on an f32 and on a bf16 pool,
+  profiled three times each (F's parts and G);
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -180,7 +191,7 @@ def crop_prefill():
 def crop_vision():
     pipe, params, cfg, ids, base, patches, start = crop_page()
     profiled("crop (2, 3) vision", lambda: pipe.build_ocr_embeds(ids, base, patches, start),
-             lambda key: "B" if "attn" in key else "C" if "mlp_kernel" in key else None)
+             lambda key: "B" if "attn" in key else "C" if "mlp_" in key else None)
 
 
 def sam_attention():
@@ -261,18 +272,14 @@ def sam_windows():
                 profiled(f"crop {{grid}} vision {{vision}}{{', switched' if on else ''}}",
                          lambda: pipe.build_ocr_embeds(ids, base, patches, start),
                          lambda key: ("V" if ", 64, 4>" in key else "B") if "attn" in key
-                         else "C" if "mlp_kernel" in key else None)
+                         else "C" if "mlp_" in key else None)
         del params, pipe
         torch.cuda.empty_cache()
 
 
 def decode_moe():
-    from deepseek_ocr2_tpu_torch.configs import OCR2Config
-    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
     from deepseek_ocr2_tpu_torch.ops import moe_decode
     from deepseek_ocr2_tpu_torch.ops.moe import route
-    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
-    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for
 
     e, k, h, i = 64, 6, 1280, 896
     router = randn(e, h, std=h**-0.5)
@@ -293,7 +300,17 @@ def decode_moe():
         del ex, args, ref
     torch.cuda.empty_cache()
 
-    # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py.
+    serve_step(torch.float32)
+
+
+def serve_step(pool_dtype):
+    # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py:
+    # 16 slots, 32 steps, the full-width LM in bf16, lengths 260..700.
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for
+
     cfg = OCR2Config()
     lm = cfg.lm
     flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
@@ -302,7 +319,7 @@ def decode_moe():
     b, page, cap, steps = 16, 128, 1024, 32
     per_row = pages_for(cap, page)
     pool = make_paged_kv_cache(lm.num_hidden_layers, b * per_row + 1, lm.num_attention_heads, page, lm.head_dim,
-                               dtype=torch.float32, device=dev)
+                               dtype=pool_dtype, device=dev)
     pool["k"].normal_(generator=g)
     pool["v"].normal_(generator=g)
     state = DecodeState.empty(b, cap, dev)
@@ -319,13 +336,100 @@ def decode_moe():
 
     def kind_of(key):
         part = next((name for pat, name in f_parts if pat in key), None)
-        return part or ("G" if "paged_kernel" in key else None)
+        return part or ("G" if "paged_kernel" in key or "paged_split_kernel" in key else None)
 
     def step():
         state.cur_lens.copy_(lens)
         decode_chunk(params, lm, pool, state, tables, **chunk)
 
-    profiled(f"decode_chunk, {{b}} slots, {{steps}} steps, LM bf16, f32 pool, lengths 260..700", step, kind_of)
+    profiled(f"decode_chunk, {{b}} slots, {{steps}} steps, LM bf16, {{str(pool_dtype)[6:]}} pool, lengths 260..700",
+             step, kind_of)
+    del params, pool, state
+    torch.cuda.empty_cache()
+
+
+def sam_mlp():
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    # Kernel C at SAM's MLP (768 -> 3072 -> 768): one 1024^2 view (M 4096),
+    # one 768^2 crop (M 2304) and six crops batched (M 13 824).
+    for m in (4096, 2304, 6 * 2304):
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn(m, 768, dtype=dt)
+            w1, b1 = randn(3072, 768, std=768**-0.5, dtype=dt), randn(3072, std=0.02, dtype=dt)
+            w2, b2 = randn(768, 3072, std=3072**-0.5, dtype=dt), randn(768, std=0.02, dtype=dt)
+            ref = mlp_gelu_reference(x, w1, b1, w2, b2)
+            record("C", f"{{tuple(x.shape)}} x (3072, 768) {{str(dt)[6:]}}", ref, mlp_gelu(x, w1, b1, w2, b2),
+                   cs.tolerance(ref, dt), cs.median_ms(lambda: mlp_gelu(x, w1, b1, w2, b2)),
+                   cs.median_ms(lambda: mlp_gelu_reference(x, w1, b1, w2, b2)),
+                   cs.bound_ms(cs.nbytes(x, w1, b1, w2, b2, ref), 2 * 2 * m * 768 * 3072, dt),
+                   graph=lambda: mlp_gelu(x, w1, b1, w2, b2))
+            del x, w1, b1, w2, b2, ref
+    torch.cuda.empty_cache()
+
+    # The pages' vision: the (2, 3) crop page in f32 (the CLI's vision
+    # dtype) and the (2, 1) page in bf16 (serve's).
+    cfg = OCR2Config()
+    flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    for (w, h, grid), vision in ((cs.CROP_PAGES[1], "float32"), (cs.CROP_PAGES[0], "bfloat16")):
+        page, _ = cs.synthetic_page(w, h, cfg, seed=0, grid=grid)
+        params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype=vision)
+        pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device=dev, act_dtype=vision)
+        base, patches, ratio, _ = pipe.preprocess_finish(page if isinstance(page, dict) else pipe.preprocess_host(page))
+        ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
+        profiled(f"crop {{grid}} vision {{vision}}", lambda: pipe.build_ocr_embeds(ids, base, patches, start),
+                 lambda key: "B" if "attn" in key else "C" if "mlp_" in key else None)
+        del params, pipe
+        torch.cuda.empty_cache()
+
+
+def paged_decode():
+    from deepseek_ocr2_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_pool,
+        paged_decode_attention_reference,
+    )
+
+    # Kernel G at the serving shape (16 rows of 260..2048 tokens, one row on
+    # the scratch page 0, pages of 128, 10 heads, layer 11 of 12) and at one
+    # row of 300 tokens, f32 and bf16 pools; X (G's device code on a
+    # per-sequence pool) at the 16 rows.
+    scale = 128**-0.5
+    for dt in (torch.float32, torch.bfloat16):
+        n_pages, page = 64, 128
+        k_pool = randn(12, n_pages, 10, page, 128, dtype=dt)
+        v_pool = randn(12, n_pages, 10, page, 128, dtype=dt)
+        for b in (16, 1):
+            q = randn(b, 10, 128)
+            bt = torch.randint(1, n_pages, (b, 2048 // page), device=dev, dtype=torch.int32, generator=g)
+            if b > 1:
+                bt[-1] = 0
+            lens = (torch.linspace(260, 2048, b, device=dev).round() if b > 1
+                    else torch.tensor([300.0], device=dev)).to(torch.int32)
+            n_keys = int(lens.sum())
+            ref = paged_decode_attention_reference(q, k_pool[11], v_pool[11], bt, lens, scale=scale)
+            bound = cs.bound_ms(cs.nbytes(q, ref, bt, lens) + 2 * n_keys * 10 * 128 * k_pool.element_size(),
+                                4 * n_keys * 10 * 128, torch.float32)
+            record("G", f"pool {{tuple(k_pool.shape)}} {{str(dt)[6:]}}, B {{b}}, {{n_keys}} keys", ref,
+                   paged_decode_attention_pool(q, k_pool, v_pool, bt, lens, 11, scale=scale), cs.F32_TOL,
+                   cs.median_ms(lambda: paged_decode_attention_pool(q, k_pool, v_pool, bt, lens, 11, scale=scale)),
+                   cs.median_ms(lambda: paged_decode_attention_reference(q, k_pool[11], v_pool[11], bt, lens,
+                                                                         scale=scale)),
+                   bound, graph=lambda: paged_decode_attention_pool(q, k_pool, v_pool, bt, lens, 11, scale=scale))
+            if b > 1:
+                record("X", f"per-sequence pool {{tuple(k_pool[11].shape)}} {{str(dt)[6:]}}, B {{b}}", ref,
+                       paged_decode_attention(q, k_pool[11], v_pool[11], bt, lens, scale=scale), cs.F32_TOL,
+                       cs.median_ms(lambda: paged_decode_attention(q, k_pool[11], v_pool[11], bt, lens, scale=scale)),
+                       cs.median_ms(lambda: paged_decode_attention_reference(q, k_pool[11], v_pool[11], bt, lens,
+                                                                             scale=scale)),
+                       bound, graph=lambda: paged_decode_attention(q, k_pool[11], v_pool[11], bt, lens, scale=scale))
+        del k_pool, v_pool
+        torch.cuda.empty_cache()
+    for dt in (torch.float32, torch.bfloat16):
+        serve_step(dt)
 
 
 def stacked_decode():
@@ -368,6 +472,10 @@ for phase in {phases!r}:
         stacked_decode()
     elif phase == "decode_moe":
         decode_moe()
+    elif phase == "sam_mlp":
+        sam_mlp()
+    elif phase == "paged_decode":
+        paged_decode()
     elif phase == "train":
         cs.phase_train(dev)
     else:

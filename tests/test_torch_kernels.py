@@ -310,18 +310,27 @@ def test_cuda_relpos_refuses_other_head_dims(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,e,f", [(4096, 768, 3072), (100, 32, 64), (33, 200, 96)])
+@pytest.mark.parametrize("m,e,f", [(4096, 768, 3072), (2304, 768, 3072), (13824, 768, 3072), (300, 768, 3072),
+                                   (100, 32, 64), (33, 200, 96)])
 def test_cuda_mlp_matches_twin(cuda, dtype, m, e, f):
+    """SAM's MLP at a 1024^2 view (M 4096), a 768^2 crop (2304), six crops
+    (13 824) and a ragged M (300: the last 128-row tile clipped), and
+    narrow widths. The blocks the output and the intermediate will reuse
+    are filled with NaN first: a tile left unwritten shows."""
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(m, e, generator=g, device=cuda).to(dtype)
     w1 = (torch.randn(f, e, generator=g, device=cuda) * e**-0.5).to(dtype)
     w2 = (torch.randn(e, f, generator=g, device=cuda) * f**-0.5).to(dtype)
     b1 = (0.02 * torch.randn(f, generator=g, device=cuda)).to(dtype)
     b2 = (0.02 * torch.randn(e, generator=g, device=cuda)).to(dtype)
+    torch.full((m, f), float("nan"), dtype=dtype, device=cuda)
+    torch.full((m, e), float("nan"), dtype=dtype, device=cuda)
     before = mlp_gelu.launches
     got = mlp_gelu(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
     assert mlp_gelu.launches == before + 1
     ref = mlp_gelu_reference(x, w1, b1, w2, b2)
+    assert bool(torch.isfinite(got).all())
     assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
 
 
@@ -594,6 +603,97 @@ def test_cuda_paged_attention_small_pages(cuda):
     got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq_lens, 3, scale=0.1)
     ref = paged_attention.paged_decode_attention_reference(q, k_pool[3], v_pool[3], bt, seq_lens, scale=0.1)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+_PAGED_EDGES = [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 300, 2047, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,page", [(1, 128), (16, 128), (13, 100), (13, 16)])
+def test_cuda_paged_attention_split_edges(cuda, dtype, b, page):
+    """G's split-key walk at one and 16 rows (pages of 128: two 64-key
+    chunks a page) and at pages of 100 (chunks of 64 and 36) and 16 (one
+    chunk a page): lengths at the edges of the warps', chunks' and pages'
+    keys, each row taking each length in turn. The output's and the
+    workspace's blocks are filled with NaN first: a dim left unwritten or a
+    partial read before it was written shows."""
+    q, k_pool, v_pool, bt, _ = _paged_case(cuda, dtype, b=b, n_pages=300 if page == 16 else 64, page=page)
+    max_pages = bt.shape[1]
+    n_part = b * 10 * paged_attention.paged_chunks(page, max_pages) * paged_attention.U_PART
+    edges = [n for n in _PAGED_EDGES if n <= max_pages * page]
+    for shift in range(len(edges)):
+        seq = torch.tensor([edges[(i + shift) % len(edges)] for i in range(b)], dtype=torch.int32, device=cuda)
+        torch.full_like(q, float("nan"))
+        torch.full((n_part,), float("nan"), device=cuda)
+        before = paged_attention.paged_decode_attention_pool.launches
+        got = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq, 5, scale=128**-0.5)
+        torch.cuda.synchronize()
+        assert paged_attention.paged_decode_attention_pool.launches == before + 1
+        ref = paged_attention.paged_decode_attention_reference(q, k_pool[5], v_pool[5], bt, seq, scale=128**-0.5)
+        assert float((got - ref).abs().max()) <= 1e-4, seq.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_is_bit_identical_and_row_independent(cuda, dtype):
+    """G merges a row's partials in ascending chunk order, fixed by the
+    row's own length and the page size, whichever block merges: the same
+    call twice is bit-equal, and so is a row whose neighbours' lengths,
+    block tables and pages change, or that runs alone at B 1."""
+    q, k_pool, v_pool, bt, seq = _paged_case(cuda, dtype, b=16, seed=60)
+    kw = dict(scale=128**-0.5)
+    first = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq, 2, **kw)
+    again = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq, 2, **kw)
+    assert torch.equal(first, again)
+    others = torch.arange(16, device=cuda) % 2 == 1
+    seq2 = torch.where(others, 2308 - seq, seq).to(torch.int32)
+    bt2 = bt.clone()
+    bt2[others] = bt[others].flip(1)
+    changed = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt2, seq2, 2, **kw)
+    assert torch.equal(changed[~others], first[~others])
+    for r in (0, 8, 15):
+        alone = paged_attention.paged_decode_attention_pool(q[r:r + 1], k_pool, v_pool, bt[r:r + 1], seq[r:r + 1],
+                                                            2, **kw)
+        assert torch.equal(alone[0], first[r]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 16])
+def test_cuda_paged_attention_replays_in_a_cuda_graph(cuda, b):
+    """G captured once (its workspace allocated inside the capture, its
+    arrival counters made by an eager call before) and replayed three times
+    after q and the lengths change in place, as a decode step's graph
+    would: each replay matches the twin on the new inputs, which it can
+    only if every merging block set its counter back to zero. Before the
+    second replay an eager call with more (row, head) pairs than the counter
+    buffer holds makes it grow: the graph still launches on the old buffer,
+    which must stay alive and zero."""
+    q, k_pool, v_pool, bt, seq = _paged_case(cuda, torch.bfloat16, b=b, seed=70)
+    if b == 1:
+        seq.fill_(300)
+    g = torch.Generator(device=cuda).manual_seed(71)
+    kw = dict(scale=128**-0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq, 7, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_decode_attention_pool(q, k_pool, v_pool, bt, seq, 7, **kw)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        seq.sub_(step * 37 + 1)
+        if step == 1:
+            wide = paged_attention._COUNTERS[q.get_device()].numel() // q.shape[1] + 1
+            paged_attention.paged_decode_attention_pool(q[:1].expand(wide, -1, -1).contiguous(), k_pool, v_pool,
+                                                        bt[:1].expand(wide, -1).contiguous(),
+                                                        seq[:1].expand(wide).contiguous(), 7, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention.paged_decode_attention_reference(q, k_pool[7], v_pool[7], bt, seq, **kw)
+        assert float((out - ref).abs().max()) <= 1e-4, step
 
 
 def _paged_q8_case(dev, tail, lens, page, finished, seed=7):
