@@ -359,7 +359,8 @@ def gmm_results(dev, randn, record) -> None:
             record("D", f"swiglu {case}", act, got, tolerance(act, dt),
                    median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d)),
                    median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
-                   bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt))
+                   bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt),
+                   graph=lambda: moe_gmm.moe_gmm_swiglu(*args_d))
             args_e = (act, ex["down"], e_tile, tile_valid)
             # E as the forward calls it: bf16 on S's schedule, built once a
             # layer (outside the wrapper's time).

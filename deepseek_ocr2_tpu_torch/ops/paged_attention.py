@@ -15,11 +15,13 @@ arrival counters (`_arrival_counters`) that the merging block sets back to
 zero. A row's output is bit-identical whatever the other rows hold.
 
 Kernel P (`paged_decode_attention_pool_q8`) is the same attention over an
-int8 pool, one block a (row, head) walking the row's pages: port of the
-Pallas kernel `_paged_kernel_pool_q8`. A page arrives as
-int8 codes plus a per-(token, head) f32 scale row and is widened to f32
-before the dot products; with the open pages of an int8tail pool, each
-row's last page is read exact in bf16 from its slot's open page instead.
+int8 pool on G's split-key walk, one launch: port of the Pallas kernel
+`_paged_kernel_pool_q8`. A page arrives as int8 codes plus a per-(token,
+head) f32 scale row; where the twin widens each key to f32 before the dot
+product, the kernel folds the scales out of its loops (s_j = scale ks_j
+(q . c_j), acc += p_j vs_j c_j), so its sums round differently, well within
+the tolerance. With the open pages of an int8tail pool, the chunks of each
+row's last page are read exact in bf16 from its slot's open page instead.
 
 The JAX kernel reads the layer index through scalar prefetch only because
 XLA copies a scan-sliced operand; here `k_pool[layer]` is a view of the pool
@@ -30,7 +32,12 @@ are the chunk forms of G and P that lookup decoding's verification step
 runs: ports of `_paged_kernel_pool_chunk` and `_paged_kernel_pool_chunk_q8`.
 S queries a row (the last token and its drafts) share the row's pages, each
 with its own causal budget `seq_lens[row, i]` (its position + 1); an
-int8tail row's open page is its last one by the row's largest budget.
+int8tail row's open page is its last one by the row's largest budget. Q is
+G's split-key walk up to the row's largest budget, each chunk's K and V read
+once for all S queries and S partials a chunk in the workspace; a query
+with no live key in a chunk adds exact zeros, so query i's output is G's at
+its budget, bit for bit. R keeps one block a (row, head) walking the row's
+pages.
 
 Kernel X (`paged_decode_attention`) ports `paged_decode_attention` (the
 Pallas kernel `_paged_kernel`): the per-sequence form from before the
@@ -70,11 +77,11 @@ from . import cuda_build
 _HEAD_DIM = 128  # the LM's
 _MAX_PAGE = 128
 _MAX_CHUNK = 8  # the most queries a row kernels Q and R take
-# Kernels G, X and U (csrc/paged_attention.cu): a block takes one chunk of
-# at most U_CHUNK keys of a (row, head), U_WARP_KEYS a warp, and writes its
-# partial (acc[D], m, l, in rows of U_PART floats) to a workspace whose
-# partials are merged in ascending chunk order (G, X: by the last block of
-# the row to finish; U: by a second launch).
+# Kernels G, X, P, Q and U (csrc/paged_attention.cu): a block takes one
+# chunk of at most U_CHUNK keys of a (row, head), U_WARP_KEYS a warp, and
+# writes its partial (acc[D], m, l, in rows of U_PART floats; Q one a query)
+# to a workspace whose partials are merged in ascending chunk order (G, X,
+# P, Q: by the last block of the row to finish; U: by a second launch).
 U_CHUNK, U_WARP_KEYS = 64, 32
 U_PART = _HEAD_DIM + 4
 
@@ -113,18 +120,20 @@ def paged_chunks(page: int, max_pages: int) -> int:
     return max_pages * -(-page // ck)
 
 
-_COUNTERS: dict = {}  # device index -> int32 arrival counters of G and X, zero between launches
+_COUNTERS: dict = {}  # device index -> int32 arrival counters of G, X, P and Q, zero between launches
 _RETIRED: list = []  # counter buffers outgrown, kept alive for the CUDA graphs that captured them
 
 
 def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
-    """G's arrival counters ([n] int32 on q's device), zero between launches:
-    the merging block of each (row, head) sets its counter back to zero. One
-    buffer a device, made at first use by a fill kernel, so a CUDA graph
-    captured after a first call reuses it. A call with more (row, head)
-    pairs than the buffer holds gets a larger one; the old buffer is never
-    freed, since a graph captured earlier still launches on it. The launches
-    that share a buffer run on one stream."""
+    """The arrival counters of G, X, P and Q ([n] int32 on q's device, n =
+    B * Hh, one a (row, head)), zero between launches: the merging block of
+    each (row, head) sets its counter back to zero. One buffer a device, made
+    at first use by a fill kernel, so a CUDA graph captured after a first
+    call reuses it. A call with more (row, head) pairs than the buffer holds
+    gets a larger one; the old buffer is never freed, since a graph captured
+    earlier still launches on it. The four kernels share a buffer because
+    launches on one stream run in order and each leaves every counter at
+    zero: the launches that share it must run on one stream."""
     buf = _COUNTERS.get(q.get_device())
     if buf is None or buf.numel() < n:
         if buf is not None:
@@ -132,6 +141,22 @@ def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=q.device)
         _COUNTERS[q.get_device()] = buf
     return buf
+
+
+def _split_workspace(q: torch.Tensor, page: int, max_pages: int, *per_chunk: int):
+    """The workspace of G's walk (G, X, P, Q): the partials [B, Hh, n_chunks,
+    *per_chunk, U_PART] f32 (Q: per_chunk = (S,), one a query), made with
+    torch.empty so that a CUDA graph captures them, and the arrival counters."""
+    b, hh = q.shape[0], q.shape[-2]
+    part = torch.empty((b, hh, paged_chunks(page, max_pages), *per_chunk, U_PART), dtype=torch.float32,
+                       device=q.device)
+    return part, _arrival_counters(q, b * hh)
+
+
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_Q8_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_CHUNK_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_CHUNK_Q8_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, kernel: str) -> torch.Tensor:
@@ -150,10 +175,9 @@ def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, ker
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / seq_lens {tuple(seq_lens.shape)} vs {b} rows")
     cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
     fn = cuda_build.entry("paged_attention", "paged_decode_f32" if k_pages.dtype == torch.float32 else
-                          "paged_decode_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                          "paged_decode_bf16", _PAGED_ARGTYPES)
     max_pages = block_tables.shape[1]
-    part = torch.empty((b, hh, paged_chunks(page, max_pages), U_PART), dtype=torch.float32, device=q.device)
-    counters = _arrival_counters(q, b * hh)
+    part, counters = _split_workspace(q, page, max_pages)
     out = torch.empty_like(q)
     p = cuda_build.ptr
     err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(part), p(counters), p(out),
@@ -346,15 +370,14 @@ def paged_decode_attention_pool_q8(
     views = [k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]]  # views, never copies
     opens = [open_k[layer], open_v[layer]] if tail else []
     cuda_build.require_cuda(q, *views, *opens, block_tables, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.paged_decode_q8
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("paged_attention", "paged_decode_q8", _Q8_ARGTYPES)
+    max_pages = block_tables.shape[1]
+    part, counters = _split_workspace(q, page, max_pages)
     out = torch.empty_like(q)
     p = cuda_build.ptr
     open_ptrs = [p(t) for t in opens] if tail else [None, None]  # NULL pointers: no tail
-    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(out),
-             b, hh, d, page, block_tables.shape[1], int(tail), scale, cuda_build.stream_of(q))
+    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(part), p(counters), p(out),
+             b, hh, d, page, max_pages, int(tail), scale, cuda_build.stream_of(q))
     cuda_build.check(err, "paged_attention (P)")
     paged_decode_attention_pool_q8.launches += 1
     return out
@@ -427,14 +450,14 @@ def paged_decode_attention_pool_chunk(
     if k_pages.shape != (n_pages, hh, page, d) or v_pages.shape != k_pages.shape or page > _MAX_PAGE:
         raise ValueError(f"pool layer {tuple(k_pages.shape)} does not fit q {tuple(q.shape)} (page <= {_MAX_PAGE})")
     cuda_build.require_cuda(q, k_pages, v_pages, block_tables, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.paged_chunk_f32 if k_pool.dtype == torch.float32 else lib.paged_chunk_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("paged_attention", "paged_chunk_f32" if k_pool.dtype == torch.float32 else
+                          "paged_chunk_bf16", _CHUNK_ARGTYPES)
+    max_pages = block_tables.shape[1]
+    part, counters = _split_workspace(q, page, max_pages, s)
     out = torch.empty_like(q)
     p = cuda_build.ptr
-    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(out),
-             b, s, hh, d, page, block_tables.shape[1], scale, cuda_build.stream_of(q))
+    err = fn(p(q), p(k_pages), p(v_pages), p(block_tables), p(seq_lens), p(part), p(counters), p(out),
+             b, s, hh, d, page, max_pages, scale, cuda_build.stream_of(q))
     cuda_build.check(err, "paged_attention (Q)")
     paged_decode_attention_pool_chunk.launches += 1
     return out
@@ -510,10 +533,7 @@ def paged_decode_attention_pool_chunk_q8(
     views = [k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]]  # views, never copies
     opens = [open_k[layer], open_v[layer]] if tail else []
     cuda_build.require_cuda(q, *views, *opens, block_tables, seq_lens)
-    lib = cuda_build.load("paged_attention")
-    fn = lib.paged_chunk_q8
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("paged_attention", "paged_chunk_q8", _CHUNK_Q8_ARGTYPES)
     out = torch.empty_like(q)
     p = cuda_build.ptr
     open_ptrs = [p(t) for t in opens] if tail else [None, None]  # NULL pointers: no tail

@@ -60,6 +60,16 @@ Phases:
   twin, through the wrapper and in a CUDA graph, with its bound; then
   `decode_moe`'s continuous-engine step on an f32 and on a bf16 pool,
   profiled three times each (F's parts and G);
+- `paged_q8`: chip_smoke's kernel P cases (`paged_q8_results`: 16 rows of
+  260..2048 tokens and one row of 1500, int8 and int8tail pools, through
+  the wrapper and in a CUDA graph, with the bound); then `decode_moe`'s
+  continuous-engine step on an int8 and on an int8tail pool, profiled three
+  times each (F's parts, G and P);
+- `paged_chunk`: chip_smoke's kernel Q and R cases (`chunk_results`: 16
+  rows, S = 4, f32 and bf16 pools for Q, int8 and int8tail for R); then
+  eight lookup forwards (`decode_chunk_lookup`, chunk 4) of the continuous
+  engine at 16 slots on a bf16 pool (the LM in bf16, lengths 260..700),
+  profiled three times (F's parts and Q);
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -303,12 +313,33 @@ def decode_moe():
     serve_step(torch.float32)
 
 
-def serve_step(pool_dtype):
+def paged_kind(key):
+    # The decode-attention kernel a profiler key names, in either checkout:
+    # paged_split_kernel<T, S, TAIL> runs G (S 1), P (int8 codes) and Q (S > 1)
+    # here; before, G alone (paged_split_kernel<T>), P paged_q8_kernel and Q
+    # paged_chunk_kernel. R is paged_chunk_q8_kernel in both.
+    import re
+
+    if "paged_chunk_q8_kernel" in key:
+        return "R"
+    if "paged_q8_kernel" in key:
+        return "P"
+    if "paged_chunk_kernel" in key:
+        return "Q"
+    m = re.search(r"paged_split_kernel<([^,>]+)(?:, (\d+))?", key)
+    if m:
+        return "P" if "char" in m.group(1) else "Q" if int(m.group(2) or 1) > 1 else "G"
+    return "G" if "paged_kernel" in key else None
+
+
+def serve_step(pool_dtype, lookup=False):
     # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py:
-    # 16 slots, 32 steps, the full-width LM in bf16, lengths 260..700.
+    # 16 slots, 32 steps, the full-width LM in bf16, lengths 260..700; the
+    # pool f32, bf16, "int8" or "int8tail" (random codes and scales). With
+    # `lookup`, eight lookup forwards of chunk 4 (decode_chunk_lookup) instead.
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
-    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk
+    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk, decode_chunk_lookup
     from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for
 
     cfg = OCR2Config()
@@ -319,9 +350,14 @@ def serve_step(pool_dtype):
     b, page, cap, steps = 16, 128, 1024, 32
     per_row = pages_for(cap, page)
     pool = make_paged_kv_cache(lm.num_hidden_layers, b * per_row + 1, lm.num_attention_heads, page, lm.head_dim,
-                               dtype=pool_dtype, device=dev)
-    pool["k"].normal_(generator=g)
-    pool["v"].normal_(generator=g)
+                               dtype=pool_dtype, device=dev, slots=b)
+    for name, t in pool.items():
+        if t.dtype == torch.int8:
+            t.random_(-127, 128, generator=g)
+        elif name.endswith("scale"):
+            t.uniform_(1e-3, 2e-2, generator=g)
+        else:
+            t.normal_(generator=g)
     state = DecodeState.empty(b, cap, dev)
     state.tokens.random_(2, lm.vocab_size, generator=g)
     lens = torch.linspace(260, 700, b, device=dev).round().to(torch.int32)
@@ -330,19 +366,21 @@ def serve_step(pool_dtype):
     state.limits.fill_(cap)
     tables = torch.arange(1, b * per_row + 1, dtype=torch.int32, device=dev).reshape(b, per_row)
     chunk = dict(n_steps=steps, ngram_size=20, eos_id=-1, rope=rope_consts(lm, dev))
+    if lookup:
+        chunk.update(n_steps=8, chunk=4, match_n=3)
     # F's launches by part (both forms): its schedule, gate/up, down, the f32 form's combine.
     f_parts = (("schedule_kernel", "F schedule"), ("gu_tc_kernel", "F gate/up"), ("::swiglu_kernel<", "F gate/up"),
                ("down_tc_kernel", "F down"), ("::down_kernel<", "F down"), ("combine_kernel", "F combine"))
 
     def kind_of(key):
-        part = next((name for pat, name in f_parts if pat in key), None)
-        return part or ("G" if "paged_kernel" in key or "paged_split_kernel" in key else None)
+        return next((name for pat, name in f_parts if pat in key), None) or paged_kind(key)
 
     def step():
         state.cur_lens.copy_(lens)
-        decode_chunk(params, lm, pool, state, tables, **chunk)
+        (decode_chunk_lookup if lookup else decode_chunk)(params, lm, pool, state, tables, **chunk)
 
-    profiled(f"decode_chunk, {{b}} slots, {{steps}} steps, LM bf16, {{str(pool_dtype)[6:]}} pool, lengths 260..700",
+    what = "decode_chunk_lookup, 8 forwards of chunk 4" if lookup else f"decode_chunk, {{steps}} steps"
+    profiled(f"{{what}}, {{b}} slots, LM bf16, {{str(pool_dtype).replace('torch.', '')}} pool, lengths 260..700",
              step, kind_of)
     del params, pool, state
     torch.cuda.empty_cache()
@@ -476,6 +514,13 @@ for phase in {phases!r}:
         sam_mlp()
     elif phase == "paged_decode":
         paged_decode()
+    elif phase == "paged_q8":
+        cs.paged_q8_results(dev, record)
+        for pool_dtype in ("int8", "int8tail"):
+            serve_step(pool_dtype)
+    elif phase == "paged_chunk":
+        cs.chunk_results(dev, record)
+        serve_step(torch.bfloat16, lookup=True)
     elif phase == "train":
         cs.phase_train(dev)
     else:

@@ -6,7 +6,8 @@ JAX package is in tests/test_torch_crop.py, S's and T's and the
 differentiable MoE's in test_torch_train_gmm.py, F's in test_torch_moe_decode.py,
 G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
 test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
-test_torch_lookup.py, U, V, W and X's in test_torch_remaining_kernels.py.)
+test_torch_lookup.py, U, V, W and X's in test_torch_remaining_kernels.py;
+P's and Q's split walks emulated in test_torch_paged_chunk_split.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -757,6 +758,93 @@ def test_cuda_paged_q8_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("b,page", [(1, 128), (16, 128), (17, 100), (17, 16)])
+def test_cuda_paged_q8_split_edges(cuda, tail, b, page):
+    """P's split-key walk (G's, over int8 codes) at one, 16 and 17 rows,
+    pages of 128 (two 64-key chunks a page), 100 (chunks of 64 and 36) and
+    16 (one chunk a page): lengths at the edges of the warps', chunks' and
+    pages' keys, each row taking each length in turn. The output's and the
+    workspace's blocks are filled with NaN first: a dim left unwritten or a
+    partial read before it was written shows. At B > 1 the last row is
+    finished on the scratch page 0, and in tail mode not compared (see
+    test_cuda_paged_q8_matches_twin)."""
+    for shift in range(len(_PAGED_EDGES)):
+        lens = [_PAGED_EDGES[(i + shift) % len(_PAGED_EDGES)] for i in range(b)]
+        q, (kc, vc), (ks, vs), (ok, ov), bt, seq = _paged_q8_case(cuda, tail, lens, page, finished=b > 1,
+                                                                 seed=shift)
+        n_part = b * 10 * paged_attention.paged_chunks(page, bt.shape[1]) * paged_attention.U_PART
+        torch.full_like(q, float("nan"))
+        torch.full((n_part,), float("nan"), device=cuda)
+        before = paged_attention.paged_decode_attention_pool_q8.launches
+        got = paged_attention.paged_decode_attention_pool_q8(q, kc, vc, ks, vs, bt, seq, 1, scale=128**-0.5,
+                                                             open_k=ok, open_v=ov)
+        torch.cuda.synchronize()
+        assert paged_attention.paged_decode_attention_pool_q8.launches == before + 1
+        ref = paged_attention.paged_decode_attention_q8_reference(q, kc, vc, ks, vs, bt, seq, 1, scale=128**-0.5,
+                                                                  open_k=ok, open_v=ov)
+        live = slice(None, -1) if tail and b > 1 else slice(None)
+        assert float((got[live] - ref[live]).abs().max()) <= 1e-4, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+def test_cuda_paged_q8_is_bit_identical_and_row_independent(cuda, tail):
+    """P merges a row's partials in ascending chunk order, fixed by the
+    row's own length and the page size, whichever block merges: the same
+    call twice is bit-equal, and so is a row whose neighbours' lengths and
+    block tables change, or that runs alone at B 1 (with its own open
+    page)."""
+    lens = torch.linspace(260, 2048, 16).round().int().tolist()
+    q, (kc, vc), (ks, vs), (ok, ov), bt, seq = _paged_q8_case(cuda, tail, lens, 128, finished=False, seed=61)
+    args, kw = (kc, vc, ks, vs), dict(scale=128**-0.5)
+    opens = dict(open_k=ok, open_v=ov)
+    first = paged_attention.paged_decode_attention_pool_q8(q, *args, bt, seq, 1, **kw, **opens)
+    again = paged_attention.paged_decode_attention_pool_q8(q, *args, bt, seq, 1, **kw, **opens)
+    assert torch.equal(first, again)
+    others = torch.arange(16, device=cuda) % 2 == 1
+    seq2 = torch.where(others, 2308 - seq, seq).to(torch.int32)
+    bt2 = bt.clone()
+    bt2[others] = bt[others].flip(1)
+    changed = paged_attention.paged_decode_attention_pool_q8(q, *args, bt2, seq2, 1, **kw, **opens)
+    assert torch.equal(changed[~others], first[~others])
+    for r in (0, 8, 15):
+        own = {k: v[:, r:r + 1].contiguous() for k, v in opens.items()} if tail else {}
+        alone = paged_attention.paged_decode_attention_pool_q8(q[r:r + 1], *args, bt[r:r + 1], seq[r:r + 1], 1, **kw,
+                                                               **own)
+        assert torch.equal(alone[0], first[r]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+def test_cuda_paged_q8_replays_in_a_cuda_graph(cuda, tail):
+    """P captured once (its workspace allocated inside the capture, the
+    shared arrival counters made by an eager call before) and replayed three
+    times after q and the lengths change in place: each replay matches the
+    twin on the new inputs, which it can only if every merging block set its
+    counter back to zero."""
+    lens = torch.linspace(260, 2048, 16).round().int().tolist()
+    q, (kc, vc), (ks, vs), (ok, ov), bt, seq = _paged_q8_case(cuda, tail, lens, 128, finished=False, seed=71)
+    g = torch.Generator(device=cuda).manual_seed(72)
+    args, kw = (kc, vc, ks, vs), dict(scale=128**-0.5, open_k=ok, open_v=ov)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_decode_attention_pool_q8(q, *args, bt, seq, 1, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_decode_attention_pool_q8(q, *args, bt, seq, 1, **kw)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        seq.sub_(step * 37 + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention.paged_decode_attention_q8_reference(q, *args, bt, seq, 1, **kw)
+        assert float((out - ref).abs().max()) <= 1e-4, step
+
+
 # ---------------------------------------------------------------------------
 # Kernels Q and R (the chunk forms of G and P: S queries a row, each at its
 # own budget) against their twins. A row's budgets are largest - S + 1 ..
@@ -834,6 +922,105 @@ def test_cuda_paged_chunk_kernels_make_no_host_sync_and_check_s(cuda):
     with pytest.raises(ValueError, match="2..8 queries"):
         paged_attention.paged_decode_attention_pool_chunk(q9, pool, pool, bt, lens.repeat(1, 3)[:, :9].contiguous(),
                                                           1, scale=0.1)
+
+
+def _chunk_case(dev, dtype, b, page, s, seed):
+    """Kernel Q's inputs: a [3, P, 10, page, 128] pool (300 pages at page
+    16), random block tables over pages 1.. reaching 2048 keys, the last
+    row on the scratch page 0, q [b, s, 10, 128]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 300 if page == 16 else 64
+    k_pool, v_pool = (torch.randn(3, n_pages, 10, page, 128, generator=g, device=dev).to(dtype) for _ in range(2))
+    bt = torch.randint(1, n_pages, (b, -(-2048 // page)), generator=g, device=dev, dtype=torch.int32)
+    bt[-1] = 0
+    return torch.randn(b, s, 10, 128, generator=g, device=dev), k_pool, v_pool, bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,page", [(1, 128), (16, 128), (17, 100), (17, 16)])
+def test_cuda_paged_chunk_split_edges(cuda, dtype, b, page):
+    """Q's split-key walk at S = 2..8, one, 16 and 17 rows, pages of 128,
+    100 and 16: each row's largest budget at the edges of the warps',
+    chunks' and pages' keys (at least S), its S budgets ending there, each
+    row taking each end in turn (every other one at each S); the output's
+    and the workspace's blocks filled with NaN first."""
+    for s in range(2, 9):
+        q, k_pool, v_pool, bt = _chunk_case(cuda, dtype, b, page, s, seed=s)
+        ends = [n for n in _PAGED_EDGES if n >= s]
+        n_part = b * 10 * paged_attention.paged_chunks(page, bt.shape[1]) * s * paged_attention.U_PART
+        for shift in range(s % 2, len(ends), 2):
+            end = torch.tensor([ends[(i + shift) % len(ends)] for i in range(b)], dtype=torch.int32, device=cuda)
+            lens = (end[:, None] - s + 1 + torch.arange(s, dtype=torch.int32, device=cuda)).contiguous()
+            torch.full_like(q, float("nan"))
+            torch.full((n_part,), float("nan"), device=cuda)
+            before = paged_attention.paged_decode_attention_pool_chunk.launches
+            got = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 2, scale=128**-0.5)
+            torch.cuda.synchronize()
+            assert paged_attention.paged_decode_attention_pool_chunk.launches == before + 1
+            ref = paged_attention.paged_decode_attention_chunk_reference(q, k_pool[2], v_pool[2], bt, lens,
+                                                                         scale=128**-0.5)
+            assert float((got - ref).abs().max()) <= 1e-4, (s, end.tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_chunk_is_bit_identical_and_row_independent(cuda, dtype):
+    """Q merges each query's partials in ascending chunk order and a query
+    with no live key in a chunk adds exact zeros: the same call twice is
+    bit-equal, so is a row whose neighbours' budgets and block tables change
+    or that runs alone at B 1, and query i of every row is bit-equal to
+    kernel G at its budget, whatever the other queries' budgets."""
+    s = 4
+    q, k_pool, v_pool, bt = _chunk_case(cuda, dtype, 16, 128, s, seed=62)
+    end = torch.linspace(260, 2048, 16, device=cuda).round().to(torch.int32)
+    lens = (end[:, None] - 3 * torch.arange(s, dtype=torch.int32, device=cuda).flip(0) ** 2).contiguous()
+    kw = dict(scale=128**-0.5)
+    first = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 1, **kw)
+    again = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 1, **kw)
+    assert torch.equal(first, again)
+    others = torch.arange(16, device=cuda) % 2 == 1
+    lens2 = torch.where(others[:, None], 2308 - lens, lens).to(torch.int32).contiguous()
+    bt2 = bt.clone()
+    bt2[others] = bt[others].flip(1)
+    changed = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt2, lens2, 1, **kw)
+    assert torch.equal(changed[~others], first[~others])
+    for r in (0, 8, 15):
+        alone = paged_attention.paged_decode_attention_pool_chunk(q[r:r + 1], k_pool, v_pool, bt[r:r + 1],
+                                                                  lens[r:r + 1], 1, **kw)
+        assert torch.equal(alone[0], first[r]), r
+    for i in range(s):
+        g_out = paged_attention.paged_decode_attention_pool(q[:, i].contiguous(), k_pool, v_pool, bt,
+                                                            lens[:, i].contiguous(), 1, **kw)
+        assert torch.equal(g_out, first[:, i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_chunk_replays_in_a_cuda_graph(cuda, dtype):
+    """Q captured once (workspace inside the capture, counters made by an
+    eager call before) and replayed three times after q and the budgets
+    change in place: each replay matches the twin on the new inputs."""
+    q, k_pool, v_pool, bt = _chunk_case(cuda, dtype, 16, 128, 4, seed=73)
+    end = torch.linspace(300, 2000, 16, device=cuda).round().to(torch.int32)
+    lens = (end[:, None] - 3 + torch.arange(4, dtype=torch.int32, device=cuda)).contiguous()
+    g = torch.Generator(device=cuda).manual_seed(74)
+    kw = dict(scale=128**-0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 0, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_decode_attention_pool_chunk(q, k_pool, v_pool, bt, lens, 0, **kw)
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        lens.sub_(step * 37 + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention.paged_decode_attention_chunk_reference(q, k_pool[0], v_pool[0], bt, lens, **kw)
+        assert float((out - ref).abs().max()) <= 1e-4, step
 
 
 # ---------------------------------------------------------------------------
