@@ -30,9 +30,13 @@
 // distinct experts the valid visits in ascending expert id, then the
 // pseudo-experts.
 //
-// Three launches, as F: swiglu (grid visit x I tile x row tile) writes act
-// [V, R, I] in T; down writes y * w [V, R, H] in f32; combine sums each
-// output's visits in that fixed order and casts once. No atomics, so a
+// Three launches, as F's f32 form: swiglu (grid visit x I tile x row tile)
+// writes act [V, R, I] in T; down writes y * w [V, R, H] in f32; combine
+// sums each output's visits in that fixed order and casts once. This is
+// the first form of J and N: N's distinct-expert plan runs it in both
+// dtypes, J only with f32 x or H above 1280 (with bf16 x J runs F's
+// bulk-copy tensor-core stream in moe_q8.cu: no yw, no combine launch; N is
+// meant to follow it). No atomics, so a
 // row's bits depend neither on the other rows of the batch nor on the run.
 // The products are the format's GEMV device code: for the distinct-expert
 // plan with bf16 x its tensor-core block dots (each block's warps split the

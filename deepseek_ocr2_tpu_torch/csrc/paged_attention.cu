@@ -40,7 +40,7 @@
 //   chunk size alone, never on B, the other rows or the pool's size, and
 //   not on which block merges: a row's output is bit-identical whatever
 //   else is in the batch. One launch, not U's two: the decode step is
-//   host-bound. G, X, P and Q share the counters ([B * Hh] int32, one
+//   host-bound. G, X, P, Q and R share the counters ([B * Hh] int32, one
 //   buffer a device): that holds because launches on one stream run in
 //   order and each leaves every counter at zero.
 // At 16 rows of 260..2048 tokens, 10 heads, pages of 128, that is 2960
@@ -80,47 +80,42 @@
 // seq_lens[row, i] (its position + 1): keys at positions >= the budget are
 // -inf for that query. Output [B, S, Hh, D] f32.
 //
-// Q is G's walk with S queries a block (paged_split_kernel<T, S>): the
-// chunks run up to the row's LARGEST budget max_len, each chunk's K and V
-// rows are copied once for all S queries, lane j scores key j against the
-// S queries (a copy of them a warp in shared memory) and owns 4 output
-// dims of each of the S accumulators; the weights of a key pass through
-// shared memory ([key][S], one broadcast load a key for four queries)
-// instead of S shuffles. A query whose budget ends before a warp's (or the
-// chunk's) first key has no live key there: its maximum is -inf, and the
-// softmax subtracts 0 instead (as merge_partials weighs such a partial by
-// 0), so the partial adds exact zeros. Query i's partials, its output
-// included, are then bit-identical to G's at len = seq_lens[row, i],
-// whatever the other queries' budgets. The workspace holds S partials a
-// chunk ([B, Hh, n_chunks, S, D + 4] f32) and the merging block merges all
-// S in ascending chunk order. CUDA cores, not mma: S <= 8 rows would fill
-// little of a tile, and the kernel is bound by bytes (4 S FLOP per K/V
-// element pair). At the serving shape (16 rows of 260..2048 tokens, 18464
-// tokens in all, 10 heads, S = 4) Q reads G's bytes once, 189 MB of f32
-// K/V (0.056 ms at 3.35 TB/s; 94 MB in bf16), and writes and reads back
+// Q and R are G's walk with S queries a block (paged_split_kernel<T, S,
+// TAIL>: Q f32 / bf16, R int8 codes): the chunks run up to the row's
+// LARGEST budget max_len, each chunk's K and V rows are copied once for all
+// S queries, lane j scores key j against the S queries (a copy of them a
+// warp in shared memory) and owns 4 output dims of each of the S
+// accumulators; the weights of a key pass through shared memory ([key][S],
+// one broadcast load a key for four queries) instead of S shuffles. A query
+// whose budget ends before a warp's (or the chunk's) first key has no live
+// key there: its maximum is -inf, and the softmax subtracts 0 instead (as
+// merge_partials weighs such a partial by 0), so the partial adds exact
+// zeros. Query i's partials, its output included, are then bit-identical to
+// the one-query walk's (G's, or P's on an int8 pool without a tail) at len =
+// seq_lens[row, i], whatever the other queries' budgets. The workspace holds
+// S partials a chunk ([B, Hh, n_chunks, S, D + 4] f32) and the merging block
+// merges all S in ascending chunk order. CUDA cores, not mma: S <= 8 rows
+// would fill little of a tile, and the kernel is bound by bytes (4 S FLOP
+// per K/V element pair). At the serving shape (16 rows of 260..2048 tokens,
+// 18464 tokens in all, 10 heads, S = 4) Q reads G's bytes once, 189 MB of
+// f32 K/V (0.056 ms at 3.35 TB/s; 94 MB in bf16), and writes and reads back
 // about 12 MB of partials.
 //
-// R keeps its first design: one block of D = 128 threads per (row, head)
-// walks the row's pages while p * page < max_len, max_len the largest of
-// the row's budgets, and on the last page only up to max_len. Each page's
-// K and V are read ONCE and all S queries are scored against them: a lane
-// holds 4 dims of every query (S x 4 registers), reads 4 elements of a key
-// row and reduces S dot products across the warp; the S score rows of the
-// page sit in shared memory. S online-softmax states (m, l, acc) in f32 per
-// thread, thread t owning output dim t of every query; the output is
-// acc / max(l, 1e-37). Every budget is >= 1, so page 0 holds a live key for
-// every query and m is finite after it; the update never takes
-// exp(-inf - (-inf)) all the same: a query whose keys so far are all
-// masked subtracts 0 instead of its -inf maximum. R reads int8 codes times
-// per-(token, head) f32 scales. In tail mode (int8tail pools) the row's
-// open page is its LAST page by the row's LARGEST budget, p == (max_len -
-// 1) / page, whatever each query's own budget: a chunk that crosses a page
-// boundary has written every token of the chunk at (row, position % page)
-// of the open page, and the earlier page's tokens that land there sit past
-// max_len. Finished rows point at the scratch page 0 and are walked like
-// any row; their output is discarded. R reads P's bytes, 48.7 MB (0.0146
-// ms) at the serving shape; 160 blocks at 16 rows: R takes P's reads in
-// Q's walk next.
+// R reads P's int8 codes and per-token scales, folded out of the loops as
+// P's are. In tail mode (int8tail pools) the chunks of the row's open page,
+// its LAST page by the row's LARGEST budget, p == (len - 1) / page with len
+// the largest budget, read the bf16 open page instead, whatever each
+// query's own budget: a chunk forward that crosses a page end has written
+// every token of the chunk at (row, position % page) of the open page, and
+// the earlier page's tokens that land there sit past len. (The budgets are
+// clamped to max_pages * page, which a block table's row covers: within
+// that, the open page is the one the twin patches, seq_lens[row, -1] of
+// ascending budgets.) So on an int8tail pool query i equals P's walk at its
+// budget only where all of the row's budgets lie in one page. The serving
+// shape's 16 rows read 48.7 MB of codes, scales and open pages (0.0155 ms
+// at 3.35 TB/s), and write and read back the same 12 MB of partials as Q.
+// Finished rows point at the scratch page 0 and are walked like any row;
+// their output is discarded.
 //
 // Kernel X (the same paged_decode_f32 / paged_decode_bf16 entry points)
 // replaces deepseek_ocr2_tpu/ops/paged_attention.py: _paged_kernel (via
@@ -173,8 +168,8 @@
 //   m), 1e-37), m = max m_c, as the one-block walk divided by max(l,
 //   1e-37). The order depends on len and the chunk size alone, never on B
 //   or cap, so a row's output is bit-identical from run to run and
-//   whatever the other rows hold. G, X, P and Q split their pages the same
-//   way (chunk_partial, merge_partials).
+//   whatever the other rows hold. G, X, P, Q and R split their pages the
+//   same way (chunk_partial, merge_partials).
 // At 16 rows of 260..1000 tokens, 10 heads, that is about 1600 live blocks
 // of 64 keys (32 KB of bf16 K/V each); at one row at position 300, 50.
 
@@ -188,8 +183,6 @@
 namespace {
 
 constexpr int D = 128;
-constexpr int NT = D;
-constexpr int WARPS = NT / 32;
 constexpr int MAX_PAGE = 128;
 constexpr int MAX_CHUNK = 8;
 constexpr unsigned FULL = 0xffffffffu;
@@ -226,7 +219,7 @@ __device__ __forceinline__ void load4(const signed char* p, float* out) {
   codes4(*reinterpret_cast<const uint32_t*>(p), out);
 }
 
-// The split-key walk of kernels G, X, P, Q and U: a chunk of at most
+// The split-key walk of kernels G, X, P, Q, R and U: a chunk of at most
 // U_CHUNK keys of one (row, head) a block, U_WARP_KEYS a warp, and the
 // chunks' partials merged in ascending chunk order. U_PART floats a
 // partial of one query.
@@ -537,7 +530,7 @@ int launch_stacked(const void* q, const void* k_layer, const void* v_layer, cons
   return (int)cudaGetLastError();
 }
 
-// Kernels G, X, P and Q: see the header. The keys of page p of a row are
+// Kernels G, X, P, Q and R: see the header. The keys of page p of a row are
 // cut into chunks of ck = min(U_CHUNK, page) keys that never cross a page
 // end, cpp = ceil(page / ck) a page; chunk c of the row is chunk c % cpp of
 // its page c / cpp, so chunks ascend with the key position. live_chunks:
@@ -548,17 +541,18 @@ __device__ __forceinline__ int live_chunks(int len, int page, int ck, int cpp) {
 }
 
 // Block (chunk, head, row) of S queries a row (q, out [B, S, Hh, D];
-// seq_lens [B, S]; G, X, P: S = 1): one chunk's S partials into part [B,
-// Hh, n_chunks, S, U_PART]; the last block of the (row, head) to finish
-// merges the row's live partials of each query in ascending order into out
-// and resets its arrival count (counters [B * Hh], zero between launches).
+// seq_lens [B, S]; G, X, P: S = 1; Q, R: S > 1): one chunk's S partials
+// into part [B, Hh, n_chunks, S, U_PART]; the last block of the (row, head)
+// to finish merges the row's live partials of each query in ascending order
+// into out and resets its arrival count (counters [B * Hh], zero between
+// launches).
 // The chunks run up to len, the largest of the row's budgets. A block whose
 // chunk starts at or past len exits at once; so does every block of a row
 // with len <= 0 but chunk 0's, which writes zeros (the one-block walk's acc
 // / max(l, 1e-37) with no key). T = signed char: int8 codes with scales
-// k_scale / v_scale [P, Hh, page] (kernel P); with TAIL the chunks of the
-// row's last page read its bf16 open page open_k / open_v [B, Hh, page, D]
-// instead.
+// k_scale / v_scale [P, Hh, page] (kernels P, R); with TAIL the chunks of
+// the row's last page read its bf16 open page open_k / open_v [B, Hh, page,
+// D] instead.
 template <typename T, int S, bool TAIL>
 __global__ void __launch_bounds__(U_WARPS * 32) paged_split_kernel(
     const float* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
@@ -655,149 +649,6 @@ int launch_split(const void* q, const void* k_pages, const void* v_pages, const 
   return (int)cudaGetLastError();
 }
 
-// One page of kernel R: the S queries against keys [0, kend) of the
-// page (absolute positions pos0 + j), then the online-softmax update of the
-// S states. load_k(j, kf) gives this lane's 4 dims of key j, load_v(j)
-// element t of value j. w / wmax are the block's shared score rows.
-template <int S, typename LoadK, typename LoadV>
-__device__ __forceinline__ void chunk_page(const float (&qf)[S][4], const int (&budget)[S], int pos0, int kend,
-                                           float scale, LoadK load_k, LoadV load_v, float (*w)[MAX_PAGE],
-                                           float (*wmax)[S], float (&m)[S], float (&l)[S], float (&acc)[S]) {
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  float mx[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) mx[i] = -INFINITY;
-  for (int j = warp; j < kend; j += WARPS) {
-    float kf[4];
-    load_k(j, kf);
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      float d = qf[i][0] * kf[0];
-      d = fmaf(qf[i][1], kf[1], d);
-      d = fmaf(qf[i][2], kf[2], d);
-      d = fmaf(qf[i][3], kf[3], d);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
-      const float s = (pos0 + j < budget[i]) ? d * scale : -INFINITY;
-      if (lane == 0) w[i][j] = s;
-      mx[i] = fmaxf(mx[i], s);
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < S; ++i) wmax[warp][i] = mx[i];
-  }
-  __syncthreads();
-  float alpha[S], mu[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    float m_new = m[i];
-#pragma unroll
-    for (int k = 0; k < WARPS; ++k) m_new = fmaxf(m_new, wmax[k][i]);
-    mu[i] = m_new == -INFINITY ? 0.f : m_new;  // no -inf - (-inf) below
-    alpha[i] = expf(m[i] - mu[i]);             // m = -inf: 0
-    m[i] = m_new;
-  }
-  if (t < kend) {
-#pragma unroll
-    for (int i = 0; i < S; ++i) w[i][t] = expf(w[i][t] - mu[i]);  // masked keys: 0
-  }
-  __syncthreads();
-  float psum[S], pv[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) psum[i] = pv[i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < kend; ++j) {
-    const float vj = load_v(j);
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      psum[i] += w[i][j];
-      pv[i] = fmaf(w[i][j], vj, pv[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    l[i] = alpha[i] * l[i] + psum[i];
-    acc[i] = acc[i] * alpha[i] + pv[i];
-  }
-  __syncthreads();  // w and wmax (and R's scale rows) are rewritten by the next page
-}
-
-// The S queries of (row, head), the budgets and their largest; zeroed states.
-template <int S>
-__device__ __forceinline__ int chunk_setup(const float* __restrict__ q, const int* __restrict__ seq_lens, int n_heads,
-                                           float (&qf)[S][4], int (&budget)[S], float (&m)[S], float (&l)[S],
-                                           float (&acc)[S]) {
-  const int row = blockIdx.x, head = blockIdx.y, lane = threadIdx.x % 32;
-  int max_len = 0;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    load4(q + (((size_t)row * S + i) * n_heads + head) * D + lane * 4, qf[i]);
-    budget[i] = seq_lens[(size_t)row * S + i];
-    max_len = max(max_len, budget[i]);
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc[i] = 0.f;
-  }
-  return max_len;
-}
-
-template <int S>
-__device__ __forceinline__ void chunk_store(float* __restrict__ out, int n_heads, const float (&acc)[S],
-                                            const float (&l)[S]) {
-  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < S; ++i) out[(((size_t)row * S + i) * n_heads + head) * D + t] = acc[i] / fmaxf(l[i], 1e-37f);
-}
-
-template <bool TAIL, int S>
-__global__ void __launch_bounds__(NT) paged_chunk_q8_kernel(
-    const float* __restrict__ q, const signed char* __restrict__ k_pages, const signed char* __restrict__ v_pages,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ open_k,
-    const __nv_bfloat16* __restrict__ open_v, const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-    float* __restrict__ out, int n_heads, int page, int max_pages, float scale) {
-  __shared__ float w[S][MAX_PAGE];
-  __shared__ float wmax[WARPS][S];
-  __shared__ float ks[MAX_PAGE];
-  __shared__ float vs[MAX_PAGE];
-  const int row = blockIdx.x, head = blockIdx.y, t = threadIdx.x, lane = t % 32;
-  float qf[S][4], m[S], l[S], acc[S];
-  int budget[S];
-  const int max_len = chunk_setup<S>(q, seq_lens, n_heads, qf, budget, m, l, acc);
-  const int last = (max_len - 1) / page;  // the open page: by the row's LARGEST budget
-  const size_t obase = ((size_t)row * n_heads + head) * page * D;
-  for (int p = 0; p < max_pages && p * page < max_len; ++p) {
-    const int pg = block_tables[(size_t)row * max_pages + p];
-    const size_t sbase = ((size_t)pg * n_heads + head) * page;
-    const size_t base = sbase * D;
-    const int kend = min(page, max_len - p * page);
-    if (TAIL && p == last) {
-      chunk_page<S>(
-          qf, budget, p * page, kend, scale,
-          [&](int j, float* kf) { load4(open_k + obase + (size_t)j * D + lane * 4, kf); },
-          [&](int j) { return __bfloat162float(open_v[obase + (size_t)j * D + t]); }, w, wmax, m, l, acc);
-      continue;
-    }
-    if (t < kend) {
-      ks[t] = k_scale[sbase + t];
-      vs[t] = v_scale[sbase + t];
-    }
-    __syncthreads();
-    chunk_page<S>(
-        qf, budget, p * page, kend, scale,
-        [&](int j, float* kf) {
-          const char4 c = *reinterpret_cast<const char4*>(k_pages + base + (size_t)j * D + lane * 4);
-          const float sj = ks[j];
-          kf[0] = (float)c.x * sj;
-          kf[1] = (float)c.y * sj;
-          kf[2] = (float)c.z * sj;
-          kf[3] = (float)c.w * sj;
-        },
-        [&](int j) { return (float)v_pages[base + (size_t)j * D + t] * vs[j]; }, w, wmax, m, l, acc);
-  }
-  chunk_store<S>(out, n_heads, acc, l);
-}
-
 // f(std::integral_constant<int, S>) for the runtime S; false if unsupported.
 template <typename F>
 bool with_chunk(int n_queries, F&& f) {
@@ -818,19 +669,26 @@ bool chunk_shape_ok(int batch, int n_queries, int n_heads, int head_dim, int pag
          n_queries >= 2 && n_queries <= MAX_CHUNK && n_queries <= page;
 }
 
+// Kernels Q (T = float / bf16) and R (T = signed char, with TAIL for
+// int8tail pools): paged_split_kernel<T, S, TAIL> for the runtime S.
 template <typename T>
-int launch_chunk(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
-                 const void* seq_lens, void* part, void* counters, void* out, int batch, int n_queries, int n_heads,
-                 int head_dim, int page, int max_pages, float scale, void* stream) {
+int launch_chunk(const void* q, const void* k_pages, const void* v_pages, const void* k_scale, const void* v_scale,
+                 const void* open_k, const void* open_v, const void* block_tables, const void* seq_lens, void* part,
+                 void* counters, void* out, int batch, int n_queries, int n_heads, int head_dim, int page,
+                 int max_pages, bool tail, float scale, void* stream) {
   if (!chunk_shape_ok(batch, n_queries, n_heads, head_dim, page, max_pages) ||
       !split_shape_ok(batch, n_heads, head_dim, page, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }
   int err = 0;
   with_chunk(n_queries, [&](auto s) {
-    err = launch_split<T, decltype(s)::value, false>(q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr,
-                                                     block_tables, seq_lens, part, counters, out, batch, n_heads,
-                                                     page, max_pages, scale, stream);
+    constexpr int S = decltype(s)::value;
+    auto launch = launch_split<T, S, false>;
+    if constexpr (sizeof(T) == 1) {  // int8tail: R only
+      if (tail) launch = launch_split<T, S, true>;
+    }
+    err = launch(q, k_pages, v_pages, k_scale, v_scale, open_k, open_v, block_tables, seq_lens, part, counters, out,
+                 batch, n_heads, page, max_pages, scale, stream);
   });
   return err;
 }
@@ -854,40 +712,31 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages, const 
 extern "C" int paged_chunk_f32(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
                                const void* seq_lens, void* part, void* counters, void* out, int batch, int n_queries,
                                int n_heads, int head_dim, int page, int max_pages, float scale, void* stream) {
-  return launch_chunk<float>(q, k_pages, v_pages, block_tables, seq_lens, part, counters, out, batch, n_queries,
-                             n_heads, head_dim, page, max_pages, scale, stream);
+  return launch_chunk<float>(q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr, block_tables, seq_lens, part,
+                             counters, out, batch, n_queries, n_heads, head_dim, page, max_pages, false, scale, stream);
 }
 
 extern "C" int paged_chunk_bf16(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
                                 const void* seq_lens, void* part, void* counters, void* out, int batch, int n_queries,
                                 int n_heads, int head_dim, int page, int max_pages, float scale, void* stream) {
-  return launch_chunk<__nv_bfloat16>(q, k_pages, v_pages, block_tables, seq_lens, part, counters, out, batch,
-                                     n_queries, n_heads, head_dim, page, max_pages, scale, stream);
+  return launch_chunk<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr, block_tables, seq_lens,
+                                     part, counters, out, batch, n_queries, n_heads, head_dim, page, max_pages, false,
+                                     scale, stream);
 }
 
 // Kernel R. As kernel Q over one layer of an int8 pool: k_pages / v_pages
 // [P, Hh, page, D] int8, k_scale / v_scale [P, Hh, page] f32, and when tail
-// is non-zero the layer's open pages open_k / open_v [B, Hh, page, D] bf16.
+// is non-zero the layer's open pages open_k / open_v [B, Hh, page, D] bf16;
+// part and counters as kernel Q's.
 extern "C" int paged_chunk_q8(const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
                               const void* v_scale, const void* open_k, const void* open_v, const void* block_tables,
-                              const void* seq_lens, void* out, int batch, int n_queries, int n_heads, int head_dim,
-                              int page, int max_pages, int tail, float scale, void* stream) {
-  if (!chunk_shape_ok(batch, n_queries, n_heads, head_dim, page, max_pages) ||
-      (tail && (open_k == nullptr || open_v == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(batch, n_heads);
-  with_chunk(n_queries, [&](auto s) {
-    constexpr int S = decltype(s)::value;
-    const auto kernel = tail ? paged_chunk_q8_kernel<true, S> : paged_chunk_q8_kernel<false, S>;
-    kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const signed char*>(k_pages),
-        static_cast<const signed char*>(v_pages), static_cast<const float*>(k_scale),
-        static_cast<const float*>(v_scale), static_cast<const __nv_bfloat16*>(open_k),
-        static_cast<const __nv_bfloat16*>(open_v), static_cast<const int*>(block_tables),
-        static_cast<const int*>(seq_lens), static_cast<float*>(out), n_heads, page, max_pages, scale);
-  });
-  return (int)cudaGetLastError();
+                              const void* seq_lens, void* part, void* counters, void* out, int batch, int n_queries,
+                              int n_heads, int head_dim, int page, int max_pages, int tail, float scale,
+                              void* stream) {
+  if (tail && (open_k == nullptr || open_v == nullptr)) return (int)cudaErrorInvalidValue;
+  return launch_chunk<signed char>(q, k_pages, v_pages, k_scale, v_scale, open_k, open_v, block_tables, seq_lens, part,
+                                   counters, out, batch, n_queries, n_heads, head_dim, page, max_pages, tail != 0,
+                                   scale, stream);
 }
 
 // Kernel P. q [B, Hh, D] f32; k_pages / v_pages: one layer of the int8 pool,

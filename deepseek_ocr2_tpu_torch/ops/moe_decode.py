@@ -21,19 +21,26 @@ needs no such lift.
 J take the same plan from one launch, `device_schedule` (`schedule_kernel`
 in `csrc/moe_decode.cu`), which reads nothing back to the host; the grid is
 the static E visits. Kernel J (`moe_ffn_decode_q8_fused`, port of the JAX
-function of that name and its Pallas kernels `_decode_q8_kernel` / `_decode_q8_pe_kernel`) is the
-same plan over int8 experts (`moe_q8.quantize_experts`), with the q8
-rounding points: gate and up stay in f32 after the scale (F rounds them to
-the model dtype before silu). When the experts carry the shared
-pseudo-experts (`pe_*` keys), their n_sh visits follow the E expert visits
-with weight 1 for every row, and the caller adds no separate shared term.
-Its source is `csrc/moe_q8.cu`, shared with kernel I.
+function of that name and its Pallas kernels `_decode_q8_kernel` /
+`_decode_q8_pe_kernel`) is the same plan over int8 experts
+(`moe_q8.quantize_experts`), with the q8 rounding points: gate and up stay
+in f32 after the scale (F rounds them to the model dtype before silu). When
+the experts carry the shared pseudo-experts (`pe_*` keys), their n_sh
+visits follow the valid expert visits with weight 1 for every row, and the
+caller adds no separate shared term. Its source is `csrc/moe_q8.cu`, shared
+with kernel I. With bf16 x, H <= TC_MAX_H and H and I multiples of 64, J
+runs F's bf16 design over the codes (`moe_q8_stream_bf16`: blocks of code
+rows by bulk copies into an mbarrier ring, mma.sync with the decode rows as
+A, the combine folded into down); f32 x and other shapes keep the first
+form (`moe_q8.launch_moe_quant`, shared with kernels I, M and N). The
+choice goes by dtype and shape alone (`q8_stream_takes`).
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. `launches` counts calls that launch F or J
-(one per MoE layer per decode step). F in bf16 is three CUDA launches, the
-schedule's included (gate/up, then down with the combine folded in; two
-more per further group of 32 rows), F in f32 four.
+(one per MoE layer per decode step). F in bf16 and J on the stream are
+three CUDA launches each, the schedule's included (gate/up, then down with
+the combine folded in; two more per further group of 32 rows); F in f32
+and J's first form four.
 """
 
 from __future__ import annotations
@@ -113,8 +120,16 @@ def act_stride(i: int) -> int:
 
 
 # F in bf16 keeps each consumer warp's x fragments (an eighth of H) in
-# registers: 10 k16 steps a warp.
+# registers: 10 k16 steps a warp. J's stream takes the same limit.
 TC_MAX_H = 1280
+
+
+def q8_stream_takes(x: torch.Tensor, eq: QExperts) -> bool:
+    """Whether kernel J runs on the stream (`moe_q8_stream_bf16`): bf16 x,
+    H <= TC_MAX_H (x's fragments in registers) and H and I multiples of 64
+    (its 64-wide contraction chunks); otherwise its first form."""
+    h, i = x.shape[-1], eq["gu_q8"].shape[1] // 2
+    return x.dtype == torch.bfloat16 and h <= TC_MAX_H and h % 64 == 0 and i % 64 == 0
 
 
 def moe_ffn_decode_visits_reference(
@@ -233,9 +248,48 @@ def moe_ffn_decode_q8_fused(
     e = eq["gu_q8"].shape[0]
     n_sh = eq["pe_gu_q8"].shape[0] if "pe_gu_q8" in eq else 0
     ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
-    out = launch_moe_quant(8, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+    if q8_stream_takes(x, eq):
+        out = _launch_q8_stream(x, eq, n_sh, ve, valid, w_visit)
+    else:
+        out = launch_moe_quant(8, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
     moe_ffn_decode_q8_fused.launches += 1
     return out
 
 
 moe_ffn_decode_q8_fused.launches = 0
+
+_Q8_STREAM_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _launch_q8_stream(x, eq: QExperts, n_sh: int, ve, valid, w_visit) -> torch.Tensor:
+    """Kernel J with bf16 x on F's bulk-copy tensor-core stream
+    (`moe_q8_stream_bf16` in `csrc/moe_q8.cu`): gate/up, then down with the
+    combine folded in, on the schedule's ve / valid / w_visit. Returns [B,
+    H] bf16."""
+    names = ("gu_q8", "gu_scale", "down_q8", "down_scale")
+    gu, gus, down, ds = (eq[n] for n in names)
+    e, i2, h = gu.shape
+    i, b = i2 // 2, x.shape[0]
+    shapes = ((i2, h), (i2,), (h, i), (h,))
+    pe = [eq[f"pe_{n}"] for n in names] if n_sh else []
+    if x.shape != (b, h) or not q8_stream_takes(x, eq) \
+            or any(t.shape != (e, *sh) for t, sh in zip((gu, gus, down, ds), shapes)) \
+            or any(t.shape != (n_sh, *sh) for t, sh in zip(pe, shapes)) \
+            or any(t.dtype != dt for t, dt in zip((gu, gus, down, ds, *pe), (torch.int8, torch.float32) * 4)):
+        raise ValueError(f"kernel J takes bf16 x [B, H] with H, I multiples of 64 and H <= {TC_MAX_H}, and int8 "
+                         f"experts: x {tuple(x.shape)} gu {tuple(gu.shape)} down {tuple(down.shape)}")
+    if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
+        raise ValueError("kernel J takes an int32 schedule and an f32 combine table")
+    x = x.contiguous()
+    cuda_build.require_cuda(x, gu, gus, down, ds, *pe, ve, valid, w_visit)
+    if any(t.data_ptr() % 16 for t in (x, gu, gus, down, ds, *pe)):
+        raise ValueError("kernel J reads 16-byte aligned rows and scales")
+    act = torch.empty(e + n_sh, min(b, 32), i, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    fn = cuda_build.entry("moe_q8", "moe_q8_stream_bf16", _Q8_STREAM_ARGTYPES)
+    p = cuda_build.ptr
+    pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
+    err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(ve), p(valid), p(w_visit), p(act),
+             p(out), b, e, n_sh, h, i, cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_q8 (J)")
+    return out

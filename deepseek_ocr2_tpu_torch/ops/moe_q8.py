@@ -16,8 +16,10 @@ top-k order and, with `with_shared`, the n_sh shared pseudo-experts
 1, summed in that order in f32. Its plain twin is
 `moe_ffn_decode_q8_reference`. The JAX package takes it while B * k <= E;
 above, kernel J (`moe_decode.moe_ffn_decode_q8_fused`) reads each distinct
-expert once. Both kernels share one CUDA source and its launcher here,
-`launch_moe_quant`, which also launches the int4 kernels M and N
+expert once. Both kernels share one CUDA source. Its launcher here,
+`launch_moe_quant`, launches I, J's first form (f32 x, or a shape the
+stream does not take: `moe_decode.q8_stream_takes`; otherwise J runs its
+own stream, `moe_decode._launch_q8_stream`) and the int4 kernels M and N
 (`moe_q4`).
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
@@ -112,10 +114,11 @@ def _stream_shapes(bits: int, rows: int, in_dim: int):
 
 def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, idx=None,
                      weights=None, ve=None, valid=None, w_visit=None) -> torch.Tensor:
-    """Launch kernel I (`per_sel`, with idx / weights) or J (with the visit
-    schedule ve / valid / w_visit) of `csrc/moe_q8.cu` over int8 experts
-    (bits 8), or M or N of `csrc/moe_q4.cu` over int4 ones (bits 4). One set
-    of kernels serves both (`csrc/moe_quant.cuh`). Returns [B, H]."""
+    """Launch kernel I (`per_sel`, with idx / weights) or J's first form
+    (with the visit schedule ve / valid / w_visit) of `csrc/moe_q8.cu` over
+    int8 experts (bits 8), or M or N of `csrc/moe_q4.cu` over int4 ones
+    (bits 4). One set of kernels serves both (`csrc/moe_quant.cuh`).
+    Returns [B, H]."""
     names = (f"gu_q{bits}", "gu_scale", f"down_q{bits}", "down_scale")
     gu, gus, down, ds = (eq[n] for n in names)
     e, i2 = gu.shape[:2]

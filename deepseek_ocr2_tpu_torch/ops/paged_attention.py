@@ -32,12 +32,12 @@ are the chunk forms of G and P that lookup decoding's verification step
 runs: ports of `_paged_kernel_pool_chunk` and `_paged_kernel_pool_chunk_q8`.
 S queries a row (the last token and its drafts) share the row's pages, each
 with its own causal budget `seq_lens[row, i]` (its position + 1); an
-int8tail row's open page is its last one by the row's largest budget. Q is
-G's split-key walk up to the row's largest budget, each chunk's K and V read
-once for all S queries and S partials a chunk in the workspace; a query
-with no live key in a chunk adds exact zeros, so query i's output is G's at
-its budget, bit for bit. R keeps one block a (row, head) walking the row's
-pages.
+int8tail row's open page is its last one by the row's largest budget. Both
+are G's split-key walk up to the row's largest budget (R over P's codes and
+scales), each chunk's K and V read once for all S queries and S partials a
+chunk in the workspace; a query with no live key in a chunk adds exact
+zeros, so query i's output is G's (Q) or P's (R, no tail) at its budget,
+bit for bit.
 
 Kernel X (`paged_decode_attention`) ports `paged_decode_attention` (the
 Pallas kernel `_paged_kernel`): the per-sequence form from before the
@@ -77,11 +77,12 @@ from . import cuda_build
 _HEAD_DIM = 128  # the LM's
 _MAX_PAGE = 128
 _MAX_CHUNK = 8  # the most queries a row kernels Q and R take
-# Kernels G, X, P, Q and U (csrc/paged_attention.cu): a block takes one
+# Kernels G, X, P, Q, R and U (csrc/paged_attention.cu): a block takes one
 # chunk of at most U_CHUNK keys of a (row, head), U_WARP_KEYS a warp, and
-# writes its partial (acc[D], m, l, in rows of U_PART floats; Q one a query)
-# to a workspace whose partials are merged in ascending chunk order (G, X,
-# P, Q: by the last block of the row to finish; U: by a second launch).
+# writes its partial (acc[D], m, l, in rows of U_PART floats; Q and R one a
+# query) to a workspace whose partials are merged in ascending chunk order
+# (G, X, P, Q, R: by the last block of the row to finish; U: by a second
+# launch).
 U_CHUNK, U_WARP_KEYS = 64, 32
 U_PART = _HEAD_DIM + 4
 
@@ -120,18 +121,18 @@ def paged_chunks(page: int, max_pages: int) -> int:
     return max_pages * -(-page // ck)
 
 
-_COUNTERS: dict = {}  # device index -> int32 arrival counters of G, X, P and Q, zero between launches
+_COUNTERS: dict = {}  # device index -> int32 arrival counters of G, X, P, Q and R, zero between launches
 _RETIRED: list = []  # counter buffers outgrown, kept alive for the CUDA graphs that captured them
 
 
 def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
-    """The arrival counters of G, X, P and Q ([n] int32 on q's device, n =
-    B * Hh, one a (row, head)), zero between launches: the merging block of
+    """The arrival counters of G, X, P, Q and R ([n] int32 on q's device, n
+    = B * Hh, one a (row, head)), zero between launches: the merging block of
     each (row, head) sets its counter back to zero. One buffer a device, made
     at first use by a fill kernel, so a CUDA graph captured after a first
     call reuses it. A call with more (row, head) pairs than the buffer holds
     gets a larger one; the old buffer is never freed, since a graph captured
-    earlier still launches on it. The four kernels share a buffer because
+    earlier still launches on it. The five kernels share a buffer because
     launches on one stream run in order and each leaves every counter at
     zero: the launches that share it must run on one stream."""
     buf = _COUNTERS.get(q.get_device())
@@ -144,9 +145,10 @@ def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _split_workspace(q: torch.Tensor, page: int, max_pages: int, *per_chunk: int):
-    """The workspace of G's walk (G, X, P, Q): the partials [B, Hh, n_chunks,
-    *per_chunk, U_PART] f32 (Q: per_chunk = (S,), one a query), made with
-    torch.empty so that a CUDA graph captures them, and the arrival counters."""
+    """The workspace of G's walk (G, X, P, Q, R): the partials [B, Hh,
+    n_chunks, *per_chunk, U_PART] f32 (Q, R: per_chunk = (S,), one a
+    query), made with torch.empty so that a CUDA graph captures them, and
+    the arrival counters."""
     b, hh = q.shape[0], q.shape[-2]
     part = torch.empty((b, hh, paged_chunks(page, max_pages), *per_chunk, U_PART), dtype=torch.float32,
                        device=q.device)
@@ -156,7 +158,7 @@ def _split_workspace(q: torch.Tensor, page: int, max_pages: int, *per_chunk: int
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 _Q8_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 _CHUNK_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-_CHUNK_Q8_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_CHUNK_Q8_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, seq_lens, scale: float, kernel: str) -> torch.Tensor:
@@ -534,11 +536,13 @@ def paged_decode_attention_pool_chunk_q8(
     opens = [open_k[layer], open_v[layer]] if tail else []
     cuda_build.require_cuda(q, *views, *opens, block_tables, seq_lens)
     fn = cuda_build.entry("paged_attention", "paged_chunk_q8", _CHUNK_Q8_ARGTYPES)
+    max_pages = block_tables.shape[1]
+    part, counters = _split_workspace(q, page, max_pages, s)
     out = torch.empty_like(q)
     p = cuda_build.ptr
     open_ptrs = [p(t) for t in opens] if tail else [None, None]  # NULL pointers: no tail
-    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(out),
-             b, s, hh, d, page, block_tables.shape[1], int(tail), scale, cuda_build.stream_of(q))
+    err = fn(p(q), *(p(t) for t in views), *open_ptrs, p(block_tables), p(seq_lens), p(part), p(counters), p(out),
+             b, s, hh, d, page, max_pages, int(tail), scale, cuda_build.stream_of(q))
     cuda_build.check(err, "paged_attention (R)")
     paged_decode_attention_pool_chunk_q8.launches += 1
     return out

@@ -68,8 +68,18 @@ Phases:
 - `paged_chunk`: chip_smoke's kernel Q and R cases (`chunk_results`: 16
   rows, S = 4, f32 and bf16 pools for Q, int8 and int8tail for R); then
   eight lookup forwards (`decode_chunk_lookup`, chunk 4) of the continuous
-  engine at 16 slots on a bf16 pool (the LM in bf16, lengths 260..700),
-  profiled three times (F's parts and Q);
+  engine at 16 slots on a bf16 pool and on an int8tail pool (the LM in
+  bf16, lengths 260..700), each profiled three times (F's parts and Q or
+  R);
+- `moe_q8`: chip_smoke's int8 kernel cases (`q8_results`: H, I, J at 16
+  and 32 rows, K, and the I / J cut-over line at B 8, 11 and 16) and int4
+  ones (`q4_results`: L, M, N, O, whose MoE kernels share J's first form);
+  then the
+  continuous engine's 32-step chunk at 16 slots with the LM quantized as
+  `--int8` (`quantize_lm_params(scope="full", bits=8)`, a bf16 pool),
+  profiled three times: wall ms, device ms, and the device ms and launches
+  of J's parts (schedule, gate/up, down, the first form's combine), H and
+  G;
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -314,10 +324,11 @@ def decode_moe():
 
 
 def paged_kind(key):
-    # The decode-attention kernel a profiler key names, in either checkout:
-    # paged_split_kernel<T, S, TAIL> runs G (S 1), P (int8 codes) and Q (S > 1)
-    # here; before, G alone (paged_split_kernel<T>), P paged_q8_kernel and Q
-    # paged_chunk_kernel. R is paged_chunk_q8_kernel in both.
+    # The decode-attention kernel a profiler key names, in any checkout since
+    # G's split walk: paged_split_kernel<T, S, TAIL> runs G (f32 / bf16, S 1),
+    # P (int8 codes, S 1), Q (f32 / bf16, S > 1) and R (int8 codes, S > 1);
+    # before, G alone (paged_split_kernel<T>), P paged_q8_kernel, Q
+    # paged_chunk_kernel and R paged_chunk_q8_kernel.
     import re
 
     if "paged_chunk_q8_kernel" in key:
@@ -328,17 +339,22 @@ def paged_kind(key):
         return "Q"
     m = re.search(r"paged_split_kernel<([^,>]+)(?:, (\d+))?", key)
     if m:
-        return "P" if "char" in m.group(1) else "Q" if int(m.group(2) or 1) > 1 else "G"
+        chunk = int(m.group(2) or 1) > 1
+        if "char" in m.group(1):
+            return "R" if chunk else "P"
+        return "Q" if chunk else "G"
     return "G" if "paged_kernel" in key else None
 
 
-def serve_step(pool_dtype, lookup=False):
+def serve_step(pool_dtype, lookup=False, int8=False):
     # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py:
     # 16 slots, 32 steps, the full-width LM in bf16, lengths 260..700; the
     # pool f32, bf16, "int8" or "int8tail" (random codes and scales). With
-    # `lookup`, eight lookup forwards of chunk 4 (decode_chunk_lookup) instead.
+    # `lookup`, eight lookup forwards of chunk 4 (decode_chunk_lookup) instead;
+    # with `int8`, the LM quantized as `--int8` (quantize_lm_params, scope
+    # "full", bits 8: J, H and the pool's attention kernel).
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
-    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params, rope_consts
     from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk, decode_chunk_lookup
     from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, pages_for
 
@@ -347,6 +363,8 @@ def serve_step(pool_dtype, lookup=False):
     flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
     params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")["lm"]
     del flat
+    if int8:
+        params = quantize_lm_params(params, scope="full", bits=8)
     b, page, cap, steps = 16, 128, 1024, 32
     per_row = pages_for(cap, page)
     pool = make_paged_kv_cache(lm.num_hidden_layers, b * per_row + 1, lm.num_attention_heads, page, lm.head_dim,
@@ -368,9 +386,16 @@ def serve_step(pool_dtype, lookup=False):
     chunk = dict(n_steps=steps, ngram_size=20, eos_id=-1, rope=rope_consts(lm, dev))
     if lookup:
         chunk.update(n_steps=8, chunk=4, match_n=3)
-    # F's launches by part (both forms): its schedule, gate/up, down, the f32 form's combine.
-    f_parts = (("schedule_kernel", "F schedule"), ("gu_tc_kernel", "F gate/up"), ("::swiglu_kernel<", "F gate/up"),
-               ("down_tc_kernel", "F down"), ("::down_kernel<", "F down"), ("combine_kernel", "F combine"))
+    # F's launches by part (both forms): its schedule, gate/up, down, the f32
+    # form's combine; with `int8` J's (the stream: gu_q8_kernel, down_q8_kernel;
+    # the first form: swiglu_mma_kernel, down_mma_kernel, combine_kernel) and H.
+    if int8:
+        f_parts = (("schedule_kernel", "J schedule"), ("gu_q8_kernel", "J gate/up"), ("swiglu_mma_kernel", "J gate/up"),
+                   ("down_q8_kernel", "J down"), ("down_mma_kernel", "J down"), ("combine_kernel", "J combine"),
+                   ("gemv", "H"))
+    else:
+        f_parts = (("schedule_kernel", "F schedule"), ("gu_tc_kernel", "F gate/up"), ("::swiglu_kernel<", "F gate/up"),
+                   ("down_tc_kernel", "F down"), ("::down_kernel<", "F down"), ("combine_kernel", "F combine"))
 
     def kind_of(key):
         return next((name for pat, name in f_parts if pat in key), None) or paged_kind(key)
@@ -380,7 +405,8 @@ def serve_step(pool_dtype, lookup=False):
         (decode_chunk_lookup if lookup else decode_chunk)(params, lm, pool, state, tables, **chunk)
 
     what = "decode_chunk_lookup, 8 forwards of chunk 4" if lookup else f"decode_chunk, {{steps}} steps"
-    profiled(f"{{what}}, {{b}} slots, LM bf16, {{str(pool_dtype).replace('torch.', '')}} pool, lengths 260..700",
+    lm_kind = "LM bf16, --int8" if int8 else "LM bf16"
+    profiled(f"{{what}}, {{b}} slots, {{lm_kind}}, {{str(pool_dtype).replace('torch.', '')}} pool, lengths 260..700",
              step, kind_of)
     del params, pool, state
     torch.cuda.empty_cache()
@@ -521,6 +547,11 @@ for phase in {phases!r}:
     elif phase == "paged_chunk":
         cs.chunk_results(dev, record)
         serve_step(torch.bfloat16, lookup=True)
+        serve_step("int8tail", lookup=True)
+    elif phase == "moe_q8":
+        cs.q8_results(dev, randn, record)
+        cs.q4_results(dev, randn, record)
+        serve_step(torch.bfloat16, int8=True)
     elif phase == "train":
         cs.phase_train(dev)
     else:

@@ -7,7 +7,8 @@ differentiable MoE's in test_torch_train_gmm.py, F's in test_torch_moe_decode.py
 G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
 test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
 test_torch_lookup.py, U, V, W and X's in test_torch_remaining_kernels.py;
-P's and Q's split walks emulated in test_torch_paged_chunk_split.py.)
+P's, Q's and R's split walks emulated in test_torch_paged_chunk_split.py,
+J's stream in test_torch_moe_q8_tc.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -1023,6 +1024,113 @@ def test_cuda_paged_chunk_replays_in_a_cuda_graph(cuda, dtype):
         assert float((out - ref).abs().max()) <= 1e-4, step
 
 
+def _chunk_q8_case(dev, tail, lens, page, finished, seed):
+    """Kernel R's inputs: P's (`_paged_q8_case`) for the rows' largest
+    budgets, and q [B, S, 10, 128]."""
+    q, codes, scales, opens, bt, _ = _paged_q8_case(dev, tail, lens.max(1).values.tolist(), page, finished, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    return torch.randn(lens.shape[0], lens.shape[1], 10, 128, generator=g, device=dev), codes, scales, opens, bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("b,page", [(1, 128), (16, 128), (17, 100), (17, 16)])
+def test_cuda_paged_chunk_q8_split_edges(cuda, tail, b, page):
+    """R's split-key walk (Q's, over P's codes) at S = 2..8, as
+    test_cuda_paged_chunk_split_edges: each row's largest budget at the
+    edges of the warps', chunks' and pages' keys, its S budgets ending
+    there; the output's and the workspace's blocks filled with NaN first; at
+    B > 1 the last row on the scratch page 0, in tail mode not compared."""
+    for s in range(2, 9):
+        ends = [n for n in _PAGED_EDGES if n >= s]
+        for shift in range(s % 2, len(ends), 2):
+            end = torch.tensor([ends[(i + shift) % len(ends)] for i in range(b)], dtype=torch.int32, device=cuda)
+            lens = (end[:, None] - s + 1 + torch.arange(s, dtype=torch.int32, device=cuda)).contiguous()
+            q, (kc, vc), (ks, vs), (ok, ov), bt = _chunk_q8_case(cuda, tail, lens, page, b > 1, seed=s + shift)
+            n_part = b * 10 * paged_attention.paged_chunks(page, bt.shape[1]) * s * paged_attention.U_PART
+            torch.full_like(q, float("nan"))
+            torch.full((n_part,), float("nan"), device=cuda)
+            kw = dict(scale=128**-0.5, open_k=ok, open_v=ov)
+            before = paged_attention.paged_decode_attention_pool_chunk_q8.launches
+            got = paged_attention.paged_decode_attention_pool_chunk_q8(q, kc, vc, ks, vs, bt, lens, 1, **kw)
+            torch.cuda.synchronize()
+            assert paged_attention.paged_decode_attention_pool_chunk_q8.launches == before + 1
+            ref = paged_attention.paged_decode_attention_chunk_q8_reference(q, kc, vc, ks, vs, bt, lens, 1, **kw)
+            live = slice(None, -1) if tail and b > 1 else slice(None)
+            assert float((got[live] - ref[live]).abs().max()) <= 1e-4, (s, end.tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+def test_cuda_paged_chunk_q8_is_bit_identical_and_row_independent(cuda, tail):
+    """R merges each query's partials in ascending chunk order: the same
+    call twice is bit-equal, so is a row whose neighbours' budgets and block
+    tables change or that runs alone at B 1 (with its own open page), and
+    query i of every row is bit-equal to kernel P at its budget: on an int8
+    pool at any budgets; on an int8tail pool where a row's budgets lie in
+    one page (the open page follows the row's largest budget), here all of
+    them."""
+    s = 4
+    end = torch.linspace(260, 2048, 16).round().int()
+    if tail:  # the row's four budgets in the page of its largest, out of order
+        end = (end - 1) // 128 * 128 + 4
+        lens = (end[:, None] - torch.tensor([3, 0, 2, 1])).to(torch.int32).to(cuda).contiguous()
+    else:
+        lens = (end[:, None] - 3 * torch.arange(s).flip(0) ** 2).to(torch.int32).to(cuda).contiguous()
+    q, (kc, vc), (ks, vs), (ok, ov), bt = _chunk_q8_case(cuda, tail, lens, 128, False, seed=63)
+    args, opens = (kc, vc, ks, vs), dict(open_k=ok, open_v=ov)
+    kw = dict(scale=128**-0.5)
+    first = paged_attention.paged_decode_attention_pool_chunk_q8(q, *args, bt, lens, 1, **kw, **opens)
+    again = paged_attention.paged_decode_attention_pool_chunk_q8(q, *args, bt, lens, 1, **kw, **opens)
+    assert torch.equal(first, again)
+    others = torch.arange(16, device=cuda) % 2 == 1
+    lens2 = torch.where(others[:, None], lens.flip(0), lens).to(torch.int32).contiguous()
+    bt2 = bt.clone()
+    bt2[others] = bt[others].flip(1)
+    changed = paged_attention.paged_decode_attention_pool_chunk_q8(q, *args, bt2, lens2, 1, **kw, **opens)
+    assert torch.equal(changed[~others], first[~others])
+    for r in (0, 8, 15):
+        own = {k: v[:, r:r + 1].contiguous() for k, v in opens.items()} if tail else {}
+        alone = paged_attention.paged_decode_attention_pool_chunk_q8(q[r:r + 1], *args, bt[r:r + 1], lens[r:r + 1], 1,
+                                                                     **kw, **own)
+        assert torch.equal(alone[0], first[r]), r
+    for i in range(s):
+        p_out = paged_attention.paged_decode_attention_pool_q8(q[:, i].contiguous(), *args, bt,
+                                                               lens[:, i].contiguous(), 1, **kw, **opens)
+        assert torch.equal(p_out, first[:, i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail", [False, True])
+def test_cuda_paged_chunk_q8_replays_in_a_cuda_graph(cuda, tail):
+    """R captured once (workspace inside the capture, counters made by an
+    eager call before) and replayed three times after q and the budgets
+    change in place: each replay matches the twin on the new inputs, and
+    every arrival counter is back at zero after it."""
+    end = torch.linspace(300, 2000, 16).round().int()
+    lens = (end[:, None] - 3 + torch.arange(4)).to(torch.int32).to(cuda).contiguous()
+    q, (kc, vc), (ks, vs), (ok, ov), bt = _chunk_q8_case(cuda, tail, lens, 128, False, seed=75)
+    g = torch.Generator(device=cuda).manual_seed(76)
+    args, kw = (kc, vc, ks, vs), dict(scale=128**-0.5, open_k=ok, open_v=ov)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention.paged_decode_attention_pool_chunk_q8(q, *args, bt, lens, 0, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention.paged_decode_attention_pool_chunk_q8(q, *args, bt, lens, 0, **kw)
+    counters = paged_attention._COUNTERS[q.get_device()]
+    for step in range(3):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda))
+        lens.sub_(step * 37 + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = paged_attention.paged_decode_attention_chunk_q8_reference(q, *args, bt, lens, 0, **kw)
+        assert float((out - ref).abs().max()) <= 1e-4, step
+        assert int(counters.abs().sum()) == 0, step
+
+
 # ---------------------------------------------------------------------------
 # The int8 kernels H (linear), I (per-selection MoE), J (distinct-expert MoE)
 # and K (fused decode attention) against their twins, at the LM's shapes
@@ -1089,14 +1197,28 @@ def test_cuda_moe_q8_matches_twin(cuda, dtype, b, k, with_shared):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,b,n_sh", [(torch.bfloat16, 16, 2), (torch.bfloat16, 32, 2), (torch.float32, 16, 2),
-                                          (torch.bfloat16, 11, 0), (torch.float32, 40, 2), (torch.bfloat16, 5, 2)])
-def test_cuda_moe_q8_fused_matches_twin(cuda, dtype, b, n_sh):
-    x, eq, weights, idx = _q8_moe_case(cuda, dtype, b, n_sh=n_sh)
+@pytest.mark.parametrize("dtype,b,n_sh,h", [(torch.bfloat16, 16, 2, 1280), (torch.bfloat16, 32, 2, 1280),
+                                            (torch.float32, 16, 2, 1280), (torch.bfloat16, 11, 0, 1280),
+                                            (torch.float32, 40, 2, 1280), (torch.bfloat16, 5, 2, 1280),
+                                            (torch.bfloat16, 17, 2, 1280), (torch.bfloat16, 40, 2, 1280),
+                                            (torch.bfloat16, 16, 2, 1536), (torch.bfloat16, 16, 0, 256),
+                                            (torch.bfloat16, 16, 2, 1216)])
+def test_cuda_moe_q8_fused_matches_twin(cuda, dtype, b, n_sh, h, monkeypatch):
+    """bf16 x with H <= 1280 takes the stream (B 17: a second row tile of
+    one row; B 40: a second group of 32 rows; H 256: warps with no chunk of
+    H; H 1216: 19 chunks, three for warps 0-2), f32 x and H 1536 the first
+    form; the output's block is filled with NaN first."""
+    x, eq, weights, idx = _q8_moe_case(cuda, dtype, b, h=h, n_sh=n_sh)
+    streamed = []
+    stream = moe_decode._launch_q8_stream
+    monkeypatch.setattr(moe_decode, "_launch_q8_stream", lambda *a: streamed.append(1) or stream(*a))
+    torch.full_like(x, float("nan"))
     before = moe_decode.moe_ffn_decode_q8_fused.launches
     got = moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)
     torch.cuda.synchronize()
     assert moe_decode.moe_ffn_decode_q8_fused.launches == before + 1
+    assert len(streamed) == int(dtype == torch.bfloat16 and h <= moe_decode.TC_MAX_H)
+    assert len(streamed) == int(moe_decode.q8_stream_takes(x, eq))
     ref = moe_decode.moe_ffn_decode_q8_visits_reference(x, eq, weights, idx)
     assert got.dtype == dtype and got.shape == x.shape
     assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), dtype)
@@ -1115,6 +1237,40 @@ def test_cuda_moe_q8_rows_do_not_depend_on_the_batch(cuda):
     assert torch.equal(a[0], moe_decode.moe_ffn_decode_q8_fused(x, eq, w2, idx2)[0])
     one = moe_q8.moe_ffn_decode_q8(x[:1], eq, weights[:1], idx[:1])
     assert torch.equal(one[0], moe_q8.moe_ffn_decode_q8(x, eq, weights, idx)[0])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_q8_stream_rows_alone_and_in_groups(cuda):
+    """J's stream: row 0 of 16 is bit-equal to the same row alone (B 1: one
+    row tile, its own visits), as row 0 of 32 (two row tiles) and of 40 (a
+    second group of 32 rows), whatever the other rows hold."""
+    x, eq, weights, idx = _q8_moe_case(cuda, torch.bfloat16, 40)
+    first = moe_decode.moe_ffn_decode_q8_fused(x[:16], eq, weights[:16], idx[:16])
+    for b in (1, 32, 40):
+        got = moe_decode.moe_ffn_decode_q8_fused(x[:b], eq, weights[:b], idx[:b])
+        assert torch.equal(got[0], first[0]), b
+    row = moe_decode.moe_ffn_decode_q8_fused(x[32:], eq, weights[32:], idx[32:])
+    assert torch.equal(row, moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)[32:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_moe_q8_fused_graph_replay_equals_eager(cuda, dtype):
+    """J captured in a CUDA graph (the static decode batch) replays to the
+    eager call's bits, on new inputs copied into the captured buffers: the
+    stream in bf16, the first form in f32."""
+    x, eq, weights, idx = _q8_moe_case(cuda, dtype, 16)
+    x2, _, w2, idx2 = _q8_moe_case(cuda, dtype, 16, seed=10)
+    moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx)
+    for xs, ws, ids in ((x, weights, idx), (x2, w2, idx2)):
+        x.copy_(xs), weights.copy_(ws), idx.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_decode.moe_ffn_decode_q8_fused(x, eq, weights, idx))
 
 
 def _attn_case(dev, dtype, kv_dtype, b, cap, hidden=1280, heads=10, seed=10):

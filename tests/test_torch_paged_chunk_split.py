@@ -1,8 +1,9 @@
-"""Kernels P and Q on G's split-key walk, emulated in torch on the CPU.
+"""Kernels P, Q and R on G's split-key walk, emulated in torch on the CPU.
 
 csrc/paged_attention.cu runs P (one query a row over an int8 / int8tail
-pool) and Q (S = 2..8 queries a row over an f32 / bf16 pool, each at its
-own causal budget) as G's `paged_split_kernel`: a row's keys are cut into
+pool), Q (S = 2..8 queries a row over an f32 / bf16 pool, each at its own
+causal budget) and R (Q's S queries over P's int8 / int8tail pool) as G's
+`paged_split_kernel`: a row's keys are cut into
 chunks of ck = min(U_CHUNK, page) keys that never cross a page end, up to
 the row's largest budget; within a chunk two warps of U_WARP_KEYS keys, one
 key a lane, each take their own softmax for each query (m = the largest
@@ -17,6 +18,8 @@ the (row, head) merges each query's partials in ascending chunk order.
   has no live key there. Its maximum is -inf, and the softmax subtracts 0
   instead (the guard), so the partial adds exact zeros; a warp with no
   live key of any query copies nothing and adds zeros as well.
+- R: Q's walk over P's reads; in tail mode the open page is the row's last
+  by its LARGEST budget, whatever each query's own.
 The emulation scores every chunk of every block-table entry unless told to
 keep to the live ones, so chunks past a row's length go through the merge
 too. It is held to:
@@ -24,21 +27,23 @@ too. It is held to:
   `paged_decode_attention_chunk_reference`) and the JAX package's Pallas
   kernels in interpret mode (`paged_decode_attention_pool_q8`, int8 and
   int8tail, as tests/test_torch_kvq8.py runs it;
-  `paged_decode_attention_pool_chunk`, f32 and bf16 pools, as
-  tests/test_torch_lookup.py runs it), at ragged lengths with 1 and the
+  `paged_decode_attention_pool_chunk`, f32 and bf16 pools, and
+  `paged_decode_attention_pool_chunk_q8`, int8 and int8tail, as
+  tests/test_torch_lookup.py runs them), at ragged lengths with 1 and the
   edges of a warp's, a chunk's and a page's keys, pages of 16, 100 and 128,
   budgets across a page end, S = 2, 4 and 8, and rows on the scratch page
   0;
 - itself: query i's output is bit-equal to the one-query walk at its own
   budget (the partials past a query's budget add exact zeros, whatever the
-  other queries' budgets), a row's bits do not depend on the other rows,
-  and without the guard a query with no live key in a warp makes its
-  output NaN.
+  other queries' budgets): Q's to G's, R's to P's (on an int8tail pool
+  only where the row's budgets lie in one page), a row's bits do not
+  depend on the other rows, and without the guard a query with no live key
+  in a warp makes its output NaN.
 Tolerances, f32 sums in another order on both sides: Q 1e-6 against its
 twin and 2e-6 against the JAX kernel (G's emulation's bounds; a bf16 pool
 1e-5 against the JAX kernel, which rounds its bf16 products elsewhere); P
-1e-5 against both (the bound of P's twin test: folding the scales rounds
-each score once more or less).
+and R 1e-5 against both (the bound of P's twin test: folding the scales
+rounds each score once more or less).
 The kernels themselves run on the card (tests/test_torch_kernels.py, -m gpu).
 """
 
@@ -56,6 +61,7 @@ from deepseek_ocr2_tpu_torch.ops.paged_attention import (
     U_CHUNK,
     U_WARP_KEYS,
     paged_chunks,
+    paged_decode_attention_chunk_q8_reference,
     paged_decode_attention_chunk_reference,
     paged_decode_attention_q8_reference,
 )
@@ -193,12 +199,20 @@ def _q8_inputs(page, lens, seed, hh=2, d=128, layers=2, scratch_rows=()):
     return q, codes, scales, opens, bt, np.asarray(lens, np.int32)
 
 
-def p_walk(q, codes, scales, opens, bt, lens, li, *, tail, scale, **kw):
+def r_walk(q, codes, scales, opens, bt, lens, li, *, tail, scale, **kw):
+    """R's walk: q [B, S, Hh, D], budgets lens [B, S] over layer li of an int8
+    pool (int8tail with `tail`)."""
     t = torch.from_numpy
     fetch = pool_fetch(t(codes[0][li]), t(codes[1][li]), t(bt), t(scales[0][li]), t(scales[1][li]),
                        *((_t(opens[0][li]), _t(opens[1][li])) if tail else ()))
     page = codes[0].shape[3]
-    return split_walk(t(q)[:, None], fetch, t(lens)[:, None], page, bt.shape[1], scale=scale, **kw)[:, 0]
+    return split_walk(t(q), fetch, t(lens), page, bt.shape[1], scale=scale, **kw)
+
+
+def p_walk(q, codes, scales, opens, bt, lens, li, *, tail, scale, **kw):
+    """P's walk: R's with one query a row (q [B, Hh, D], lens [B])."""
+    return r_walk(np.ascontiguousarray(q[:, None]), codes, scales, opens, bt, np.ascontiguousarray(lens[:, None]), li,
+                  tail=tail, scale=scale, **kw)[:, 0]
 
 
 P_CASES = [
@@ -346,3 +360,73 @@ def test_a_rows_bits_do_not_depend_on_the_other_rows():
     changed = q_walk(q, k2, v_pool, bt2, lens2, 0, scale=scale)
     alone = q_walk(q[:1], k_pool, v_pool, bt[:1, :3], lens[:1], 0, scale=scale)
     assert torch.equal(changed[0], first[0]) and torch.equal(alone[0], first[0])
+
+
+def _r_inputs(page, budgets, seed, hh=2, d=128, layers=2, scratch_rows=()):
+    """R's inputs for the rows' budgets [B, S]: q [B, S, Hh, D], P's int8
+    pool with its scales and open pages, row-exclusive block tables."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(budgets, np.int32)
+    b, s = lens.shape
+    max_pages = -(-int(lens.max()) // page)
+    n_pages = b * max_pages + 1
+    codes = [rng.integers(-127, 128, (layers, n_pages, hh, page, d), dtype=np.int8) for _ in range(2)]
+    scales = [(rng.random((layers, n_pages, hh, page)) * 0.02 + 1e-3).astype(np.float32) for _ in range(2)]
+    opens = [rng.standard_normal((layers, b, hh, page, d)).astype(ml_dtypes.bfloat16) for _ in range(2)]
+    q = rng.standard_normal((b, s, hh, d)).astype(np.float32)
+    return q, codes, scales, opens, _tables(rng, b, max_pages, n_pages, scratch_rows), lens
+
+
+R_CASES = [  # (page, s, row ends), as Q_CASES: edges of a warp's, a chunk's and a page's keys, page ends crossed
+    (16, 2, [2, 16, 17, 33, 100]),
+    (128, 4, [4, 32, 33, 64, 66, 127, 130, 300]),
+    (100, 8, [8, 64, 65, 100, 102, 165, 250]),
+]
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("page,s,ends", R_CASES)
+def test_r_split_matches_twin_and_jax(page, s, ends, tail):
+    """Row r's budgets ends[r] - s + 1 .. ends[r]; without the tail also a
+    row with budgets out of order (the twin patches the open page by the
+    last budget, the kernel by the largest: with a tail they must agree);
+    the last row finished on the scratch page 0, held to the JAX kernel
+    (which, as R, reads its open page for its last page only) but in tail
+    mode not to the twin (which patches every page-0 entry)."""
+    ends = ends + ([] if tail else [[3, 70, 34, 1, 66, 2, 65, 64][:s]]) + [20]
+    budgets = [e if isinstance(e, list) else list(range(e - s + 1, e + 1)) for e in ends]
+    q, codes, scales, opens, bt, lens = _r_inputs(page, budgets, seed=page + s + tail, scratch_rows=(len(ends) - 1,))
+    scale, li = 1.0 / math.sqrt(q.shape[-1]), 1
+    got = r_walk(q, codes, scales, opens, bt, lens, li, tail=tail, scale=scale).numpy()
+    topen = dict(open_k=_t(opens[0]), open_v=_t(opens[1])) if tail else {}
+    twin = paged_decode_attention_chunk_q8_reference(*map(torch.from_numpy, (q, *codes, *scales, bt, lens)), li,
+                                                     scale=scale, **topen).numpy()
+    jopen = dict(open_k=jnp.asarray(opens[0]), open_v=jnp.asarray(opens[1])) if tail else {}
+    want = np.asarray(jpa.paged_decode_attention_pool_chunk_q8(*map(jnp.asarray, (q, *codes, *scales, bt, lens)), li,
+                                                               scale=scale, interpret=True, **jopen))
+    live = slice(0, -1) if tail else slice(None)
+    np.testing.assert_allclose(got[live], twin[live], **P_TOL)
+    np.testing.assert_allclose(got, want, **P_TOL)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("page,s", [(16, 2), (128, 4), (100, 8)])
+def test_r_query_equals_the_one_query_p_walk_at_its_budget(page, s, tail):
+    """Query i of a row under R, over every block-table entry (the chunks
+    past the row's length included), is bit-equal to P's one-query walk
+    over its own live chunks at its budget: on an int8 pool for any budgets
+    (the partials past its budget add exact zeros), on an int8tail pool
+    where the row's budgets lie in one page (the open page follows the
+    row's largest budget), here in pages 0, 1 and 2, out of order."""
+    if tail:
+        budgets = [[p * page + 1 + (7 * j) % page for j in range(s)][::1 - 2 * (p % 2)] for p in range(3)]
+    else:
+        budgets = [[1, 64, 33, 2, 3, 4, 5, 6][:s], [page - 1, page + 5, 2 * page + 3, 64, 7, 8, 9, 10][:s]]
+    q, codes, scales, opens, bt, lens = _r_inputs(page, budgets, seed=13)
+    bt = np.concatenate([bt, bt[:, :2]], axis=1)  # entries past every budget
+    every = r_walk(q, codes, scales, opens, bt, lens, 0, tail=tail, scale=0.1)
+    assert torch.isfinite(every).all()
+    for i in range(s):
+        alone = p_walk(np.ascontiguousarray(q[:, i]), codes, scales, opens, bt, np.ascontiguousarray(lens[:, i]), 0,
+                       tail=tail, scale=0.1, live_only=True)
+        assert torch.equal(every[:, i], alone), i
