@@ -24,151 +24,138 @@
 // the wo GEMV (on the TPU the grid runs in order on one core), so this is
 // three launches: the two projections are linear_q8.cuh's int8 GEMV (kernel
 // H's device code) for K or linear_q4.cuh's int4 GEMV (kernel L's) for O,
-// and the attention runs one block per (row, head), the same for both. The
-// wrapper counts the three as one K or one O.
+// and the attention is one launch of a split-key walk, the same for both.
+// The wrapper counts the three as one K or one O.
 //
-// Attention: D = 128 threads; thread t owns dim t of q, k, v and of the
-// output. Keys go in tiles of 64: warp w scores keys w, w + 4, ... of the
-// tile (each lane 4 dims of the key row, xor-shuffle sum), the tile's
-// weights sit in shared memory, and each thread then accumulates its dim
-// over the tile's V rows; the TPU kernel's per-chunk update, with the
-// capacity walked in tiles of any length (the TPU kernel needs cap <= 512 or
-// a multiple of 512, and head_dim a multiple of 128, for its lane and chunk
-// layout; here any capacity works).
+// The attention (attn_split_kernel) is kernel U's walk in kernel G's one
+// launch (split_walk.cuh; paged_attention.cu's header gives the design) on
+// the contiguous [cap, D] slabs of a (row, head):
+// - blocks (chunk, head, row) over 64-key chunks of the row's pos[b] cached
+//   keys: two warps of 32 keys, each its own online softmax in f32, merged
+//   in the block into a partial (acc[D], m, l) in a workspace [B, Hh,
+//   ceil(cap / 64), D + 4] f32 (torch.empty: a CUDA graph captures it); a
+//   chunk at or past pos exits at once, but chunk 0 always runs, so that a
+//   row at pos 0 (no cached key) has its merging block;
+// - every block rotates its own q (RoPE at pos[b], in f32, from the qkv
+//   row: thread t owns dims t and t + 64, each the other's partner);
+// - the last block of a (row, head) to arrive (an arrival counter a (row,
+//   head), shared with kernels G, X, P, Q and R and set back to zero by the
+//   merging block, ready for the next launch or a graph's replay) merges:
+//   the current token's seed first (m = q . k_cur * scale, l = 1, acc =
+//   v_cur: attended once, in f32, before it is rounded into the cache),
+//   then the chunks' partials in ascending order (merge_partials), out =
+//   acc / max(l, 1e-37); it also writes k_new and v_new, once. The order
+//   depends on pos[b] alone, so a row's bits do not depend on the other
+//   rows; a warp with no live key adds exact zeros. The TPU kernel walks
+//   the capacity in 512-key chunks (it needs cap <= 512 or a multiple of
+//   512, and head_dim a multiple of 128); here any capacity works.
+// Its first form ran one block of 128 threads per (row, head) (10 blocks
+// at batch 1 on 132 SMs) walking every cached key in 64-key tiles, three
+// block barriers a tile: 0.049 ms (K) and 0.050 ms (O) in a CUDA graph at
+// batch 1, pos 300, f32 cache, on an H100 (PERF.md).
 //
-// What bounds it: bytes. At b = 1, capacity 1024, pos ~ 300: 4.9 MB of wqkv
-// + 1.6 MB of wo int8 + 1.5 MB of bf16 K/V, 2.4 us at 3.35 TB/s; in practice
-// three launches of a few microseconds each bound it. With int4 weights
-// (O), 3.5 MB of codes and scales: 0.002 ms with an f32 cache at pos 300.
+// What bounds it: bytes. At b = 1, capacity 1024, pos 300: 4.9 MB of wqkv
+// + 1.6 MB of wo int8 + 3.1 MB of f32 K/V, 2.9 us at 3.35 TB/s (K); with
+// int4 weights (O), 3.5 MB of codes and scales, 2.0 us. At these sizes the
+// three launches' latencies weigh as much as the bytes: on an H100 a K call
+// there spans 12.5 us in a CUDA graph, the attention 6.6 of it (40.5 in the
+// first form) and the two GEMVs 3.0 and 2.7 (PERF.md); at 16 rows of pos 0
+// .. 1023 the attention reads 84 MB of f32 K/V in 35 us.
 //
 // Shapes: D = 128; H = Hh * D a multiple of 16 (int8) or 32 (int4); T and
 // the cache f32 or bf16.
 
 #include "linear_q4.cuh"
 #include "linear_q8.cuh"
-
-#include <math.h>
+#include "split_walk.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int NT = D;
-constexpr int WARPS = NT / 32;
-constexpr int TILE = 64;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace split_walk;
 
-template <typename C>
-__device__ __forceinline__ void load4(const C* p, float* out);
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-// qkv [B, 3H] (T); k_cache / v_cache: layer li's [B, Hh, cap, D] view (C);
-// pos [B] int32; cos / sin [max_pos, D] f32; ctx [B, H] (T); k_new / v_new
-// [B, Hh, D] (C).
+// Block (chunk, head, row): keys [64 chunk, 64 chunk + 64) of the row's
+// pos[b] cached keys of that head (layer li's [B, Hh, cap, D] view of the
+// cache, C), as chunk_partial's two warps, into part [B, Hh, n_chunks,
+// U_PART]; chunk 0 runs even with no cached key (an empty partial), the
+// other chunks at or past pos exit at once. Every block rotates its own q
+// from qkv [B, 3H] (T): thread t owns dims t and t + 64, each the other's
+// RoPE partner. The last block of the (row, head) to arrive (counters [B
+// * Hh], zero between launches) merges: the current token's seed first,
+// then the chunks' partials in ascending order; it writes ctx [B, H] (T),
+// k_new / v_new [B, Hh, D] (C) and sets the counter back to zero.
 template <typename T, typename C>
-__global__ void __launch_bounds__(NT) attn_kernel(const T* __restrict__ qkv, const C* __restrict__ k_cache,
-                                                  const C* __restrict__ v_cache, const int* __restrict__ pos,
-                                                  const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                                                  T* __restrict__ ctx, C* __restrict__ k_new, C* __restrict__ v_new,
-                                                  int n_heads, int cap, int max_pos, float scale) {
-  __shared__ float qs[D];
-  __shared__ float ks[D];
-  __shared__ float w[TILE];
-  __shared__ float part[WARPS];
-  const int b = blockIdx.x, head = blockIdx.y;
+__global__ void __launch_bounds__(U_WARPS * 32) attn_split_kernel(
+    const T* __restrict__ qkv, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
+    const int* __restrict__ pos, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+    float* __restrict__ part, int* __restrict__ counters, T* __restrict__ ctx, C* __restrict__ k_new,
+    C* __restrict__ v_new, int n_heads, int cap, int max_pos, int n_chunks, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(16) float qr[D];
+  __shared__ __align__(16) float kr[D];
+  __shared__ float dots[U_WARPS];
+  __shared__ int merger;
+  constexpr int HALF = D / 2;
+  const int chunk = blockIdx.x, head = blockIdx.y, row = blockIdx.z;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int hidden = n_heads * D;
   // The caller keeps pos below the capacity and the RoPE tables; never read past either.
-  const int p = min(max(pos[b], 0), min(cap, max_pos) - 1);
-  const T* row = qkv + (size_t)b * 3 * hidden + head * D;
-  const float qv = gemv::to_f32(row[t]);
-  const float kv = gemv::to_f32(row[hidden + t]);
-  const float vv = gemv::to_f32(row[2 * hidden + t]);
-  qs[t] = qv;
-  ks[t] = kv;
-  __syncthreads();
+  const int p = min(max(pos[row], 0), min(cap, max_pos) - 1);
+  const int c0 = chunk * U_CHUNK;
+  if (chunk > 0 && c0 >= p) return;  // the whole block: no key of its chunk is cached
+  const int hidden = n_heads * D;
+  const T* src = qkv + (size_t)row * 3 * hidden + head * D;
+  const float* cs = cos_t + (size_t)p * D;
+  const float* sn = sin_t + (size_t)p * D;
   // RoPE, half-split: rot(x)[t] = -x[t + D/2] below D/2, x[t - D/2] above.
-  const int half = D / 2;
-  const float sgn = t < half ? -1.f : 1.f;
-  const int partner = t < half ? t + half : t - half;
-  const float c = cos_t[(size_t)p * D + t], s = sin_t[(size_t)p * D + t];
-  const float qr = qv * c + sgn * qs[partner] * s;
-  const float kr = kv * c + sgn * ks[partner] * s;
-  const size_t no = ((size_t)b * n_heads + head) * D + t;
-  k_new[no] = gemv::from_f32<C>(kr);
-  v_new[no] = gemv::from_f32<C>(vv);
-  __syncthreads();  // every thread has read qs / ks
-  qs[t] = qr;
-  float d = qr * kr;
+  {
+    const float q0 = gemv::to_f32(src[t]), q1 = gemv::to_f32(src[t + HALF]);
+    qr[t] = q0 * cs[t] - q1 * sn[t];
+    qr[t + HALF] = q1 * cs[t + HALF] + q0 * sn[t + HALF];
+  }
+  __syncthreads();
+  const size_t rh = (size_t)row * n_heads + head;
+  const size_t base = (rh * cap + c0) * D;
+  const int n = max(0, min(U_CHUNK, p - c0));
+  const int nq[1] = {n};
+  float* prh = part + rh * n_chunks * U_PART;
+  chunk_partial<C, 1>(qr, D, k_cache + base, v_cache + base, nullptr, nullptr, n, nq, scale,
+                      prh + (size_t)chunk * U_PART, smem_raw);
+
+  // Arrival, as paged_split_kernel's: the partial is written and made
+  // visible before the count; the block that brings it to the number of
+  // live chunks merges. Which block that is changes nothing in the bits.
+  const int n_live = max(1, (p + U_CHUNK - 1) / U_CHUNK);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) merger = atomicAdd(counters + rh, 1) == n_live - 1;
+  __syncthreads();
+  if (!merger) return;
+  __threadfence();
+  // The current token: k rotated as q, v as it is; both leave in the cache
+  // type, and seed the merge in f32 (m = q . k scale, l = 1, acc = v).
+  const float k0 = gemv::to_f32(src[hidden + t]), k1 = gemv::to_f32(src[hidden + t + HALF]);
+  kr[t] = k0 * cs[t] - k1 * sn[t];
+  kr[t + HALF] = k1 * cs[t + HALF] + k0 * sn[t + HALF];
+  const size_t no = rh * D;
+  k_new[no + t] = gemv::from_f32<C>(kr[t]);
+  k_new[no + t + HALF] = gemv::from_f32<C>(kr[t + HALF]);
+  v_new[no + t] = gemv::from_f32<C>(gemv::to_f32(src[2 * hidden + t]));
+  v_new[no + t + HALF] = gemv::from_f32<C>(gemv::to_f32(src[2 * hidden + t + HALF]));
+  float d = qr[t] * kr[t] + qr[t + HALF] * kr[t + HALF];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(FULL, d, off);
-  if (lane == 0) part[warp] = d;
+  if (lane == 0) dots[warp] = d;
   __syncthreads();
-  float m = (part[0] + part[1] + part[2] + part[3]) * scale;  // the current token's score
-  float l = 1.f, acc = vv;
-  float qf[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) qf[j] = qs[lane * 4 + j];
-  __syncthreads();  // part is rewritten below
-
-  const size_t base = ((size_t)b * n_heads + head) * cap * D;
-  for (int j0 = 0; j0 < p; j0 += TILE) {
-    float mx = -INFINITY;
-#pragma unroll 4
-    for (int j = warp; j < TILE; j += WARPS) {
-      float sj = -INFINITY;
-      if (j0 + j < p) {  // warp-uniform
-        float kf[4];
-        load4<C>(k_cache + base + (size_t)(j0 + j) * D + lane * 4, kf);
-        float dot = qf[0] * kf[0];
-        dot = fmaf(qf[1], kf[1], dot);
-        dot = fmaf(qf[2], kf[2], dot);
-        dot = fmaf(qf[3], kf[3], dot);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
-        sj = dot * scale;
-      }
-      if (lane == 0) w[j] = sj;
-      mx = fmaxf(mx, sj);
-    }
-    if (lane == 0) part[warp] = mx;
-    __syncthreads();
-    float m_new = m;
-#pragma unroll
-    for (int i = 0; i < WARPS; ++i) m_new = fmaxf(m_new, part[i]);
-    const float alpha = expf(m - m_new);
-    if (t < TILE) w[t] = expf(w[t] - m_new);  // masked keys: exp(-inf) = 0
-    __syncthreads();
-    const int n = min(TILE, p - j0);
-    float psum = 0.f, pv = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const float pj = w[j];
-      psum += pj;
-      pv = fmaf(pj, gemv::to_f32(v_cache[base + (size_t)(j0 + j) * D + t]), pv);
-    }
-    l = alpha * l + psum;
-    acc = acc * alpha + pv;
-    m = m_new;
-    __syncthreads();  // w and part are rewritten by the next tile
-  }
-  ctx[(size_t)b * hidden + head * D + t] = gemv::from_f32<T>(acc / fmaxf(l, 1e-37f));
+  if (t >= D / 4) return;
+  const float m0 = (dots[0] + dots[1]) * scale;
+  const T* vs = src + 2 * hidden + 4 * t;
+  const float4 v0 = make_float4(gemv::to_f32(vs[0]), gemv::to_f32(vs[1]), gemv::to_f32(vs[2]), gemv::to_f32(vs[3]));
+  const float4 o = merge_partials(prh, n_live, U_PART, t, m0, v0);
+  T* out = ctx + (size_t)row * hidden + head * D + 4 * t;
+  out[0] = gemv::from_f32<T>(o.x);
+  out[1] = gemv::from_f32<T>(o.y);
+  out[2] = gemv::from_f32<T>(o.z);
+  out[3] = gemv::from_f32<T>(o.w);
+  if (t == 0) counters[rh] = 0;  // ready for the next launch (and a graph's next replay)
 }
 
 // The projections: int8 (linear_q8.cuh) or int4 (linear_q4.cuh) weights.
@@ -181,19 +168,25 @@ inline int gemv(int bits, const void* x, const void* w, const void* ws, void* ou
 template <typename T, typename C>
 int launch(int bits, const void* xn, const void* wqkv, const void* wqkv_s, const void* wo, const void* wo_s,
            const void* k_cache, const void* v_cache, const void* pos, const void* cos_t, const void* sin_t, void* qkv,
-           void* ctx, void* out, void* k_new, void* v_new, int nb, int n_heads, int head_dim, int cap, int max_pos,
-           float scale, cudaStream_t s) {
+           void* ctx, void* part, void* counters, void* out, void* k_new, void* v_new, int nb, int n_heads,
+           int head_dim, int cap, int max_pos, float scale, cudaStream_t s) {
   const int hidden = n_heads * head_dim;
-  if (nb <= 0 || n_heads <= 0 || head_dim != D || cap <= 0 || max_pos <= 0 || (bits != 4 && bits != 8)) {
+  if (nb <= 0 || nb > 65535 || n_heads <= 0 || n_heads > 65535 || head_dim != D || cap <= 0 || max_pos <= 0 ||
+      (bits != 4 && bits != 8)) {
     return (int)cudaErrorInvalidValue;
   }
   constexpr bool TB = sizeof(T) == 2;
   int err = gemv(bits, xn, wqkv, wqkv_s, qkv, nb, hidden, 3 * hidden, TB, s);
   if (err) return err;
-  attn_kernel<T, C><<<dim3(nb, n_heads), NT, 0, s>>>(
+  const int n_chunks = (cap + U_CHUNK - 1) / U_CHUNK;
+  const auto kernel = attn_split_kernel<T, C>;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, UTile<C, 1>::SMEM);
+  if (err) return err;
+  kernel<<<dim3(n_chunks, n_heads, nb), U_WARPS * 32, UTile<C, 1>::SMEM, s>>>(
       static_cast<const T*>(qkv), static_cast<const C*>(k_cache), static_cast<const C*>(v_cache),
       static_cast<const int*>(pos), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<T*>(ctx), static_cast<C*>(k_new), static_cast<C*>(v_new), n_heads, cap, max_pos, scale);
+      static_cast<float*>(part), static_cast<int*>(counters), static_cast<T*>(ctx), static_cast<C*>(k_new),
+      static_cast<C*>(v_new), n_heads, cap, max_pos, n_chunks, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
   return gemv(bits, ctx, wo, wo_s, out, nb, hidden, hidden, TB, s);
@@ -206,17 +199,19 @@ int launch(int bits, const void* xn, const void* wqkv, const void* wqkv_s, const
 // [H, H_p / 2], wo_s f32 [H, H_p / 128] (H_p: H rounded up to 128).
 // xn [B, H] (T); k_cache / v_cache: layer li's [B, Hh, cap, D] (C); pos [B]
 // int32; cos / sin [max_pos, D] f32; workspaces qkv [B, 3H] and ctx [B, H]
-// (T); out [B, H] (T); k_new / v_new [B, Hh, D] (C). x_bf16 / kv_bf16 pick
-// bf16 for T / C, else f32.
+// (T) and part [B, Hh, ceil(cap / 64), D + 4] f32; counters [B * Hh]
+// int32, zero before the call and left zero after it; out [B, H] (T);
+// k_new / v_new [B, Hh, D] (C). x_bf16 / kv_bf16 pick bf16 for T / C, else
+// f32.
 extern "C" int attn_fused(int bits, const void* xn, const void* wqkv, const void* wqkv_s, const void* wo,
                           const void* wo_s, const void* k_cache, const void* v_cache, const void* pos,
-                          const void* cos_t, const void* sin_t, void* qkv, void* ctx, void* out, void* k_new,
-                          void* v_new, int nb, int n_heads, int head_dim, int cap, int max_pos, float scale,
-                          int x_bf16, int kv_bf16, void* stream) {
+                          const void* cos_t, const void* sin_t, void* qkv, void* ctx, void* part, void* counters,
+                          void* out, void* k_new, void* v_new, int nb, int n_heads, int head_dim, int cap,
+                          int max_pos, float scale, int x_bf16, int kv_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ATTN_LAUNCH(T, C)                                                                                       \
-  return launch<T, C>(bits, xn, wqkv, wqkv_s, wo, wo_s, k_cache, v_cache, pos, cos_t, sin_t, qkv, ctx, out, k_new, \
-                      v_new, nb, n_heads, head_dim, cap, max_pos, scale, s)
+#define ATTN_LAUNCH(T, C)                                                                                    \
+  return launch<T, C>(bits, xn, wqkv, wqkv_s, wo, wo_s, k_cache, v_cache, pos, cos_t, sin_t, qkv, ctx, part, \
+                      counters, out, k_new, v_new, nb, n_heads, head_dim, cap, max_pos, scale, s)
   if (x_bf16 && kv_bf16) ATTN_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (x_bf16) ATTN_LAUNCH(__nv_bfloat16, float);
   if (kv_bf16) ATTN_LAUNCH(float, __nv_bfloat16);

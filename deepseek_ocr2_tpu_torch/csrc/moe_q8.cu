@@ -96,7 +96,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 using gemv::FULL;
 using gemv::word;
+using moe_quant::count_valid;
 using moe_quant::silu;
+using moe_quant::visit_expert;
 
 constexpr int ROWS = 32;      // decode rows a launch pair: two m16 tiles
 constexpr int KC = 64;        // a chunk of the contraction: 16 codes a lane (one 16-byte load), 4 k16 steps
@@ -157,26 +159,6 @@ struct Streams {
   const int8_t* pdown;
   const float* pds;
 };
-
-// Valid visits (a prefix of the E visits), counted by a warp: 128 flags a
-// round of loads, counted by ballots. Every lane of the warp calls it.
-__device__ __forceinline__ int count_valid(const int* valid, int n_exp, int lane) {
-  int n = 0;
-  for (int v0 = 0; v0 < n_exp; v0 += 128) {
-    int f[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = v0 + 32 * i + lane < n_exp ? valid[v0 + 32 * i + lane] : 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) n += __popc(__ballot_sync(FULL, f[i] != 0));
-  }
-  return n;
-}
-
-// Visit v's expert: ve[v] for the nv valid visits, pseudo-expert v - nv
-// after (0 past the last visit).
-__device__ __forceinline__ int visit_expert(const int* ve, int v, int nv, int n_visits) {
-  return v >= n_visits ? 0 : v < nv ? ve[v] : v - nv;
-}
 
 // A gate/up stage: the item's 16 gate code rows (one bulk copy of 16 H
 // contiguous bytes), its 16 up rows (another), then their 32 scales.
@@ -511,16 +493,6 @@ __global__ void __launch_bounds__(32 * (DN_WARPS + 1), 1)
   }
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count > 0 ? count : 1;
-  }();
-  return n;
-}
-
 template <int MT>
 int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid, const float* w_visit, int ldw,
                 bf16* act, bf16* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
@@ -531,7 +503,7 @@ int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(down_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
   if (err != cudaSuccess) return (int)err;
-  gu_q8_kernel<MT><<<sm_count(), 32 * (GU_WARPS + 1), gl.smem, s>>>(x, w, ve, valid, act, nb, n_exp, n_sh, h_dim,
+  gu_q8_kernel<MT><<<q4::sm_count(), 32 * (GU_WARPS + 1), gl.smem, s>>>(x, w, ve, valid, act, nb, n_exp, n_sh, h_dim,
                                                                       i_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

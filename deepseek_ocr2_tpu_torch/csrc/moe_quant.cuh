@@ -33,10 +33,10 @@
 // Three launches, as F's f32 form: swiglu (grid visit x I tile x row tile)
 // writes act [V, R, I] in T; down writes y * w [V, R, H] in f32; combine
 // sums each output's visits in that fixed order and casts once. This is
-// the first form of J and N: N's distinct-expert plan runs it in both
-// dtypes, J only with f32 x or H above 1280 (with bf16 x J runs F's
-// bulk-copy tensor-core stream in moe_q8.cu: no yw, no combine launch; N is
-// meant to follow it). No atomics, so a
+// the first form of J and N: each runs it only with f32 x or a shape its
+// stream does not take (with bf16 x, J runs F's bulk-copy tensor-core
+// stream in moe_q8.cu, N the same design over int4 codes in moe_q4.cu: no
+// combine launch). No atomics, so a
 // row's bits depend neither on the other rows of the batch nor on the run.
 // The products are the format's GEMV device code: for the distinct-expert
 // plan with bf16 x its tensor-core block dots (each block's warps split the
@@ -115,6 +115,27 @@ struct Q4 {
 };
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+// Valid visits (a prefix of the E visits), counted by a warp: 128 flags a
+// round of loads, counted by ballots. Every lane of the warp calls it.
+__device__ __forceinline__ int count_valid(const int* valid, int n_exp, int lane) {
+  int n = 0;
+  for (int v0 = 0; v0 < n_exp; v0 += 128) {
+    int f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = v0 + 32 * i + lane < n_exp ? valid[v0 + 32 * i + lane] : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) n += __popc(__ballot_sync(gemv::FULL, f[i] != 0));
+  }
+  return n;
+}
+
+// Visit v's expert: ve[v] for the nv valid visits, pseudo-expert v - nv
+// after (0 past the last visit): the stream kernels' visit order (moe_q8.cu,
+// moe_q4.cu).
+__device__ __forceinline__ int visit_expert(const int* ve, int v, int nv, int n_visits) {
+  return v >= n_visits ? 0 : v < nv ? ve[v] : v - nv;
+}
 
 template <typename F>
 struct Experts {

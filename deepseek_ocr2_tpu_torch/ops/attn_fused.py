@@ -11,8 +11,16 @@ from registers (the current token is attended in f32, before it is rounded
 into the cache), the context rounded to the activation dtype, and the wo
 projection. The functions return (out [B, 1, H], k_new, v_new), the new
 token's K/V in the cache dtype; the caller writes them into
-cache[li, rows, :, pos]. `csrc/attn_fused.cu`'s
-header gives the design and what bounds it.
+cache[li, rows, :, pos]. `csrc/attn_fused.cu`'s header gives the design and
+what bounds it: the projections are kernel H's (int8) or L's (int4) device
+code, and the attention one launch of the split-key walk of kernels G and U
+(`csrc/split_walk.cuh`): blocks of 64 cached keys of a (row, head), each
+with its own online softmax, and the last block of the (row, head) to
+arrive merging the current token's seed and the chunks' partials in
+ascending order. It shares G's arrival counters (`paged_attention.
+_arrival_counters`) and writes its partials to a workspace made with
+torch.empty, so a CUDA graph captures the call; a row's bits depend on its
+own pos alone.
 
 The JAX package takes the fused kernel only when head_dim % 128 == 0 and
 cap <= 512 or cap % 512 == 0 (its lane and chunk layout); the port's K takes
@@ -39,6 +47,7 @@ import torch
 from . import cuda_build
 from .linear_q4 import GROUP, linear_q4_reference, padded
 from .linear_q8 import linear_q8_reference
+from .paged_attention import U_CHUNK, U_PART, _arrival_counters
 
 _HEAD_DIM = 128  # the LM's
 
@@ -129,20 +138,22 @@ def _launch(bits: int, name: str, xn, attn, cfg, cos, sin, k_all, v_all, li: int
         raise ValueError(f"kernel {name} reads 16-byte aligned rows")
     qkv = torch.empty(b, 3 * h, dtype=dt, device=xn.device)
     ctx = torch.empty(b, h, dtype=dt, device=xn.device)
+    part = torch.empty(b, nh, -(-cap // U_CHUNK), U_PART, dtype=torch.float32, device=xn.device)
+    counters = _arrival_counters(x2, b * nh)
     out = torch.empty(b, 1, h, dtype=dt, device=xn.device)
     k_new = torch.empty(b, nh, d, dtype=kv_dt, device=xn.device)
     v_new = torch.empty_like(k_new)
-    lib = cuda_build.load("attn_fused")
-    fn = lib.attn_fused
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.entry("attn_fused", "attn_fused", _ARGTYPES)
     p = cuda_build.ptr
     err = fn(bits, p(x2), p(codes[0]), p(wq["scale"]), p(codes[1]), p(wo["scale"]), p(kl), p(vl), p(pos_b), p(cos),
-             p(sin), p(qkv), p(ctx), p(out), p(k_new), p(v_new), b, nh, d, cap, cos.shape[0], 1.0 / math.sqrt(d),
-             int(dt == torch.bfloat16), int(kv_dt == torch.bfloat16), cuda_build.stream_of(x2))
+             p(sin), p(qkv), p(ctx), p(part), p(counters), p(out), p(k_new), p(v_new), b, nh, d, cap, cos.shape[0],
+             1.0 / math.sqrt(d), int(dt == torch.bfloat16), int(kv_dt == torch.bfloat16), cuda_build.stream_of(x2))
     cuda_build.check(err, "attn_fused")
     return out, k_new, v_new
+
+
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+    + [ctypes.c_void_p]
 
 
 def attn_decode_fused(

@@ -20,27 +20,37 @@ or scale: they are the JAX package's, transposed and repacked.
 Both run at the TPU kernels' rounding points (`_q4_swiglu`): gate and up
 kept in f32 after their group scales, act = round(silu(gate) * up) to x's
 dtype, the down product in f32 (`expert_swiglu_q4`). Both build from
-`csrc/moe_q4.cu`, the int4 instance of the kernels I and J share
-(`csrc/moe_quant.cuh`, whose header gives the design), launched by
-`moe_q8.launch_moe_quant`; their plain twins are
-`moe_ffn_decode_q4_reference` and `moe_ffn_decode_q4_visits_reference`.
+`csrc/moe_q4.cu`. M, and N with f32 x or a shape the stream does not take,
+run the int4 instance of the kernels I and J share (`csrc/moe_quant.cuh`),
+launched by `moe_q8.launch_moe_quant`. N with bf16 x, H and I multiples of
+128 and H <= STREAM_MAX_H (`q4_stream_takes`: dtype and shape alone) runs
+J's bulk-copy tensor-core stream over int4 codes (`moe_q4_stream_bf16`, the
+header of `csrc/moe_q4.cu` gives the design): gate/up, then down with the
+visits cut into parts at fixed expert ids (`down_split`, `part_bounds`),
+the parts' sums added in order by the last block of each column tile. The
+plain twins are `moe_ffn_decode_q4_reference` and
+`moe_ffn_decode_q4_visits_reference`.
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Nothing here reads a value back to the host.
-`launches` counts calls that launch M or N (three CUDA launches each, N's
-schedule a fourth).
+`launches` counts calls that launch M or N (M three CUDA launches; N on the
+stream three, its schedule's included, two more a further group of 32
+rows; N's first form four).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from .linear_q4 import dequantize_q4, q4_dot, quantize_q4
+from . import cuda_build
+from .linear_q4 import GROUP, dequantize_q4, q4_dot, quantize_q4
 from .moe_decode import combine_table, device_schedule, distinct_schedule
 from .moe_q8 import launch_moe_quant
+from .paged_attention import _arrival_counters
 
 QExperts4 = Dict[str, torch.Tensor]
 _NAMES = ("gu_q4", "gu_scale", "down_q4", "down_scale")
@@ -143,9 +153,83 @@ def moe_ffn_decode_q4_fused(x: torch.Tensor, eq: QExperts4, weights: torch.Tenso
     e = eq["gu_q4"].shape[0]
     n_sh = eq["pe_gu_q4"].shape[0] if "pe_gu_q4" in eq else 0
     ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
-    out = launch_moe_quant(4, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+    if q4_stream_takes(x, eq):
+        out = _launch_q4_stream(x, eq, n_sh, ve, valid, w_visit)
+    else:
+        out = launch_moe_quant(4, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
     moe_ffn_decode_q4_fused.launches += 1
     return out
 
 
 moe_ffn_decode_q4_fused.launches = 0
+
+STREAM_MAX_H = 1280  # gate/up: a compute warp for each 128-level group of H, 10 at most
+STREAM_ROWS = 32  # decode rows a launch pair
+ACT_PAD = 32  # act rows I + 32 apart
+
+
+def q4_stream_takes(x: torch.Tensor, eq: QExperts4) -> bool:
+    """Whether kernel N runs on the stream (`moe_q4_stream_bf16`): bf16 x, H
+    and I multiples of 128 (whole groups) and H <= STREAM_MAX_H; otherwise
+    its first form."""
+    h, i = x.shape[-1], eq["gu_q4"].shape[1] // 2
+    return x.dtype == torch.bfloat16 and h <= STREAM_MAX_H and h % GROUP == 0 and i % GROUP == 0
+
+
+def down_split(h: int, n_ids: int, sm_count: int):
+    """(consumer warps, parts) of N's down launch: a block takes 8 warps
+    columns of H, warps the largest divisor of H / 8 up to 10; the visits'
+    ids (E routed + n_sh pseudo) are cut into parts = SMs / tiles parts at
+    fixed ids (at most one an id). Neither depends on B, so a row's bits
+    do not either."""
+    warps = max(w for w in range(1, 11) if (h // 8) % w == 0)
+    return warps, max(1, min(sm_count // (h // (8 * warps)), n_ids))
+
+
+def part_bounds(n_ids: int, parts: int):
+    """The ids [lo, hi) of each part: part p holds [n_ids p / P, n_ids (p +
+    1) / P), routed expert e id e, pseudo-expert t id E + t."""
+    return [(n_ids * p // parts, n_ids * (p + 1) // parts) for p in range(parts)]
+
+
+_SM_COUNT: Dict[int, int] = {}
+_STREAM_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.Tensor:
+    """Kernel N with bf16 x on J's bulk-copy tensor-core stream
+    (`moe_q4_stream_bf16` in `csrc/moe_q4.cu`): gate/up, then down over the
+    visits cut into parts at fixed ids, the parts' sums added by the last
+    block of each column tile. Returns [B, H] bf16."""
+    gu, gus, down, ds = (eq[n] for n in _NAMES)
+    e, i2, _ = gu.shape
+    i, (b, h) = i2 // 2, x.shape
+    shapes = ((i2, h // 2), (i2, h // GROUP), (h, i // 2), (h, i // GROUP))
+    pe = [eq[f"pe_{n}"] for n in _NAMES] if n_sh else []
+    if not q4_stream_takes(x, eq) or x.dim() != 2 \
+            or any(t.shape != (e, *sh) for t, sh in zip((gu, gus, down, ds), shapes)) \
+            or any(t.shape != (n_sh, *sh) for t, sh in zip(pe, shapes)) \
+            or any(t.dtype != dt for t, dt in zip((gu, gus, down, ds, *pe), (torch.uint8, torch.float32) * 4)):
+        raise ValueError(f"kernel N takes bf16 x [B, H] with H, I multiples of {GROUP} and H <= {STREAM_MAX_H}, and "
+                         f"int4 experts: x {tuple(x.shape)} gu {tuple(gu.shape)} down {tuple(down.shape)}")
+    if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
+        raise ValueError("kernel N takes an int32 schedule and an f32 combine table")
+    x = x.contiguous()
+    cuda_build.require_cuda(x, gu, gus, down, ds, *pe, ve, valid, w_visit)
+    if any(t.data_ptr() % 16 for t in (x, gu, gus, down, ds, *pe)):
+        raise ValueError("kernel N reads 16-byte aligned rows and scales")
+    dev = x.get_device()
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps, parts = down_split(h, e + n_sh, _SM_COUNT[dev])
+    act = torch.empty(e + n_sh, STREAM_ROWS, i + ACT_PAD, dtype=x.dtype, device=x.device)
+    yw = torch.empty(parts, min(b, STREAM_ROWS), h, dtype=torch.float32, device=x.device)
+    counters = _arrival_counters(x, h // (8 * warps))
+    out = torch.empty_like(x)
+    fn = cuda_build.entry("moe_q4", "moe_q4_stream_bf16", _STREAM_ARGTYPES)
+    p = cuda_build.ptr
+    pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
+    err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(ve), p(valid), p(w_visit), p(act),
+             p(yw), p(counters), p(out), b, e, n_sh, h, i, warps, parts, cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_q4 (N)")
+    return out

@@ -132,9 +132,10 @@ def _arrival_counters(q: torch.Tensor, n: int) -> torch.Tensor:
     at first use by a fill kernel, so a CUDA graph captured after a first
     call reuses it. A call with more (row, head) pairs than the buffer holds
     gets a larger one; the old buffer is never freed, since a graph captured
-    earlier still launches on it. The five kernels share a buffer because
-    launches on one stream run in order and each leaves every counter at
-    zero: the launches that share it must run on one stream."""
+    earlier still launches on it. The five kernels share a buffer, and so do
+    K and O (one a (row, head)) and N's down launch (one a column tile),
+    because launches on one stream run in order and each leaves every
+    counter at zero: the launches that share it must run on one stream."""
     buf = _COUNTERS.get(q.get_device())
     if buf is None or buf.numel() < n:
         if buf is not None:

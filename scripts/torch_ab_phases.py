@@ -73,13 +73,23 @@ Phases:
   R);
 - `moe_q8`: chip_smoke's int8 kernel cases (`q8_results`: H, I, J at 16
   and 32 rows, K, and the I / J cut-over line at B 8, 11 and 16) and int4
-  ones (`q4_results`: L, M, N, O, whose MoE kernels share J's first form);
-  then the
-  continuous engine's 32-step chunk at 16 slots with the LM quantized as
-  `--int8` (`quantize_lm_params(scope="full", bits=8)`, a bf16 pool),
+  ones (`q4_results`: L, M, N, O); then the continuous engine's 32-step
+  chunk at 16 slots with the LM quantized as `--int8` and as `--int4`
+  (`quantize_lm_params(scope="full", bits=8 or 4)`, a bf16 pool), each
   profiled three times: wall ms, device ms, and the device ms and launches
-  of J's parts (schedule, gate/up, down, the first form's combine), H and
-  G;
+  of J's or N's parts (schedule, gate/up, down, the first form's combine),
+  H or L, and G;
+- `kernel_parts`: K and O at B 1 (cap 1024, pos 300, f32 and bf16 caches)
+  and B 16 (ragged positions from 0), and N at B 16 and 32, each replayed
+  in a CUDA graph under torch.profiler: every launch of one call (K's and
+  O's qkv GEMV, attention and wo GEMV; N's schedule, gate/up, down and the
+  first form's combine) with its device us and the gap before it. Put it
+  first in `--phases`: after the profiled phases the trace lost some of
+  its kernel events on the H100, and the split was then not printed;
+- `decode_quant`: decode per token of a no-crop page at batch 1 on the
+  contiguous cache, the LM as `--int8` and as `--int4`, two readings each:
+  device ms and launches a token, and K's or O's attention kernel's device
+  ms and its three launches' span on the device;
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -99,13 +109,17 @@ import sys
 
 CHILD = r"""
 import sys
+from concurrent.futures import ThreadPoolExecutor
 sys.path.insert(0, {root!r})
 import torch
 import chip_smoke as cs
 import deepseek_ocr2_tpu_torch  # noqa: F401  (the f32 numerics flags)
+from deepseek_ocr2_tpu_torch.ops import cuda_build
 
 dev = torch.device("cuda", 0)
 g = torch.Generator(device=dev).manual_seed(cs.SEED)
+with ThreadPoolExecutor(len(cs.KERNEL_SOURCES)) as pool:  # every library built first, nvcc side by side
+    list(pool.map(cuda_build.load, cs.KERNEL_SOURCES))
 
 
 def randn(*shape, std=1.0, dtype=torch.float32):
@@ -346,13 +360,14 @@ def paged_kind(key):
     return "G" if "paged_kernel" in key else None
 
 
-def serve_step(pool_dtype, lookup=False, int8=False):
+def serve_step(pool_dtype, lookup=False, bits=None):
     # One decode chunk of the continuous engine, as scripts/torch_serve_profile.py:
     # 16 slots, 32 steps, the full-width LM in bf16, lengths 260..700; the
     # pool f32, bf16, "int8" or "int8tail" (random codes and scales). With
     # `lookup`, eight lookup forwards of chunk 4 (decode_chunk_lookup) instead;
-    # with `int8`, the LM quantized as `--int8` (quantize_lm_params, scope
-    # "full", bits 8: J, H and the pool's attention kernel).
+    # with `bits` 8 or 4, the LM quantized as `--int8` or `--int4`
+    # (quantize_lm_params, scope "full": J and H, or N and L, and the pool's
+    # attention kernel).
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params, rope_consts
     from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState, decode_chunk, decode_chunk_lookup
@@ -363,8 +378,8 @@ def serve_step(pool_dtype, lookup=False, int8=False):
     flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
     params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")["lm"]
     del flat
-    if int8:
-        params = quantize_lm_params(params, scope="full", bits=8)
+    if bits:
+        params = quantize_lm_params(params, scope="full", bits=bits)
     b, page, cap, steps = 16, 128, 1024, 32
     per_row = pages_for(cap, page)
     pool = make_paged_kv_cache(lm.num_hidden_layers, b * per_row + 1, lm.num_attention_heads, page, lm.head_dim,
@@ -387,12 +402,15 @@ def serve_step(pool_dtype, lookup=False, int8=False):
     if lookup:
         chunk.update(n_steps=8, chunk=4, match_n=3)
     # F's launches by part (both forms): its schedule, gate/up, down, the f32
-    # form's combine; with `int8` J's (the stream: gu_q8_kernel, down_q8_kernel;
-    # the first form: swiglu_mma_kernel, down_mma_kernel, combine_kernel) and H.
-    if int8:
-        f_parts = (("schedule_kernel", "J schedule"), ("gu_q8_kernel", "J gate/up"), ("swiglu_mma_kernel", "J gate/up"),
-                   ("down_q8_kernel", "J down"), ("down_mma_kernel", "J down"), ("combine_kernel", "J combine"),
-                   ("gemv", "H"))
+    # form's combine; with `bits` 8 J's (the stream: gu_q8_kernel,
+    # down_q8_kernel; the first form: swiglu_mma_kernel, down_mma_kernel,
+    # combine_kernel) and H, with 4 N's (the stream: gu_q4_kernel,
+    # down_q4_kernel; the first form as J's) and L.
+    if bits:
+        kn, lin = ("J", "H") if bits == 8 else ("N", "L")
+        f_parts = (("schedule_kernel", f"{{kn}} schedule"), (f"gu_q{{bits}}_kernel", f"{{kn}} gate/up"),
+                   ("swiglu_mma_kernel", f"{{kn}} gate/up"), (f"down_q{{bits}}_kernel", f"{{kn}} down"),
+                   ("down_mma_kernel", f"{{kn}} down"), ("combine_kernel", f"{{kn}} combine"), ("gemv", lin))
     else:
         f_parts = (("schedule_kernel", "F schedule"), ("gu_tc_kernel", "F gate/up"), ("::swiglu_kernel<", "F gate/up"),
                    ("down_tc_kernel", "F down"), ("::down_kernel<", "F down"), ("combine_kernel", "F combine"))
@@ -405,7 +423,7 @@ def serve_step(pool_dtype, lookup=False, int8=False):
         (decode_chunk_lookup if lookup else decode_chunk)(params, lm, pool, state, tables, **chunk)
 
     what = "decode_chunk_lookup, 8 forwards of chunk 4" if lookup else f"decode_chunk, {{steps}} steps"
-    lm_kind = "LM bf16, --int8" if int8 else "LM bf16"
+    lm_kind = {{None: "LM bf16", 8: "LM bf16, --int8", 4: "LM bf16, --int4"}}[bits]
     profiled(f"{{what}}, {{b}} slots, {{lm_kind}}, {{str(pool_dtype).replace('torch.', '')}} pool, lengths 260..700",
              step, kind_of)
     del params, pool, state
@@ -515,6 +533,164 @@ def stacked_decode():
               f"(torch.profiler)", flush=True)
 
 
+def graph_parts(what, fn, reps=20):
+    # fn captured in a CUDA graph and replayed `reps` times under
+    # torch.profiler; from the exported trace, each replay's kernels in launch
+    # order: every launch's mean device us, the mean gap before it (from the
+    # end of the one before, inside a replay) and a replay's mean span.
+    import json
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"),
+                            key=lambda e: e["ts"])
+    # A replay's launches: the profiler may drop the first replay's first
+    # events, so the calls are read from the end.
+    n = round(len(events) / reps)
+    calls = [events[len(events) - (r + 1) * n:len(events) - r * n] for r in range(reps - 1)]
+    if n == 0 or any([e["name"] for e in c] != [e["name"] for e in calls[0]] for c in calls):
+        print(f"[ab {{sys.argv[1]}}] {{what}}: {{len(events)}} kernel events for {{reps}} replays", flush=True)
+        return
+    reps -= 1
+    cols = []
+    for j in range(n):
+        dur = sum(c[j]["dur"] for c in calls) / reps
+        gap = sum(c[j]["ts"] - (c[j - 1]["ts"] + c[j - 1]["dur"]) for c in calls) / reps if j else 0.0
+        name = calls[0][j]["name"].split("(")[0].split("<")[0].split("::")[-1]
+        cols.append(f"{{name}} {{dur:.2f}} us (gap before {{gap:.2f}})")
+    span = sum(c[-1]["ts"] + c[-1]["dur"] - c[0]["ts"] for c in calls) / reps
+    print(f"[ab {{sys.argv[1]}}] {{what}}: span {{span:.2f}} us a call in a graph; " + "; ".join(cols), flush=True)
+
+
+def kernel_parts():
+    # The launches inside one call of K and O (B 1, cap 1024, pos 300, f32
+    # and bf16 caches; B 16 at chip_smoke's ragged positions from 0) and of N
+    # (B 16 and 32, E 64, k 6, 2 pseudo-experts), each in a CUDA graph:
+    # every launch's device us and the gaps between them.
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import rope_consts
+    from deepseek_ocr2_tpu_torch.ops import attn_fused, linear_q4, linear_q8, moe_q4
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = DeepseekV2Config()
+    h, hh, d = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    cos, sin = rope_consts(cfg, dev)
+    for name, quant in (("K", linear_q8.quantize_linear), ("O", linear_q4.quantize_linear_q4)):
+        attn = {{"wqkv": quant(randn(3 * h, h, std=h**-0.5)), "wo": quant(randn(h, h, std=h**-0.5))}}
+        for b, kv_dt in ((1, f32), (1, bf), (16, f32), (16, bf)):
+            cap = 1024
+            k_all = randn(2, b, hh, cap, d, std=0.5, dtype=kv_dt)
+            v_all = randn(2, b, hh, cap, d, dtype=kv_dt)
+            xn = randn(b, 1, h, dtype=bf)
+            pos = [300] if b == 1 else [0] + torch.linspace(1, cap - 1, b - 1).round().int().tolist()
+            pos_b = torch.tensor(pos, dtype=torch.int32, device=dev)
+            graph_parts(f"{{name}} B {{b}} cap {{cap}} pos {{pos[0] if b == 1 else '0..1023'}}, {{str(kv_dt)[6:]}} cache",
+                        lambda: attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b))
+            del k_all, v_all
+    e, k, i, n_sh = 64, 6, 896, 2
+
+    def experts(n):
+        return moe_q4.quantize_experts_q4({{"gate": randn(n, i, h, std=h**-0.5), "up": randn(n, i, h, std=h**-0.5),
+                                           "down": randn(n, h, i, std=i**-0.5)}})
+
+    eq = {{**experts(e), **{{f"pe_{{n}}": t for n, t in experts(n_sh).items()}}}}
+    router = randn(e, h, std=h**-0.5)
+    for b in (16, 32):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        graph_parts(f"N B {{b}}: {{int(torch.unique(idx).numel())}} experts + {{n_sh}} pseudo-experts",
+                    lambda: moe_q4.moe_ffn_decode_q4_fused(x, eq, wts, idx))
+    del eq
+    torch.cuda.empty_cache()
+
+
+def decode_quant():
+    # Decode per token of a no-crop page at batch 1 on the contiguous cache,
+    # the LM quantized as --int8 (K, H, I) and as --int4 (O, L, M), two
+    # readings each: device ms and launches a token (as chip_smoke's
+    # decode_per_token: 1 and 17 new tokens under torch.profiler, the
+    # difference over 16), and K's or O's share: the device time of its
+    # attention kernel, and the span on the device of its three launches (a
+    # record_function range around the wrapper's launch: the range's GPU
+    # annotation).
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+    from deepseek_ocr2_tpu_torch.ops import attn_fused
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+    from deepseek_ocr2_tpu_torch.runtime.kv_cache import bucket_capacity
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+    from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
+
+    cfg = OCR2Config()
+    flat = cs.random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    params = cs.load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")
+    del flat
+    pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device=dev)
+    page = cs.synthetic_page(*cs.PAGES[0], cfg, seed=0)[0]
+    base, patches, ratio, _ = pipe.preprocess_finish(page if isinstance(page, dict) else pipe.preprocess_host(page))
+    ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
+    embeds = pipe.build_ocr_embeds(ids, base, patches, start)
+    launch = attn_fused._launch
+
+    def ranged(*a):
+        with record_function("fused attention"):
+            return launch(*a)
+
+    attn_fused._launch = ranged
+
+    def measure(lm, m):
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            greedy_generate(lm, cfg.lm, embeds, torch.tensor(ids), max_new_tokens=m, ngram_size=20, eos_id=-1,
+                            capacity=bucket_capacity(len(ids) + m), kv_dtype=pipe.kv_dtype, rope=pipe.rope)
+            torch.cuda.synchronize(dev)
+        rows = prof.key_averages()
+        kern = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        attn = sum(e.self_device_time_total for e in kern if "attn_" in e.key) / 1e3
+        rng = [e for e in rows if e.key == "fused attention" and e.device_type == torch.autograd.DeviceType.CPU]
+        calls = sum(e.count for e in rng)
+        # The range's span on the device (its GPU user annotation: from its
+        # first launch's start to its last one's end).
+        span = sum(e.self_device_time_total for e in rows if e.key == "fused attention"
+                   and e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return busy, sum(e.count for e in kern), attn, span, calls
+
+    bf16_lm = params["lm"]
+    for flag, bits, kernel in (("--int8", 8, "K"), ("--int4", 4, "O")):
+        lm = quantize_lm_params(bf16_lm, scope="full", bits=bits)
+        n = 16
+        measure(lm, n + 1)  # warm-up
+        for rep in range(2):
+            one, many = measure(lm, 1), measure(lm, n + 1)
+            dev_ms, launches, attn_ms, span_ms, calls = ((b - a) / n for a, b in zip(one, many))
+            print(f"[ab {{sys.argv[1]}}] decode per token, no-crop page, batch 1, LM {{flag}}, run {{rep}}: device "
+                  f"{{dev_ms:.3f}} ms in {{launches:.1f}} launches; {{kernel}}'s attention kernel {{attn_ms:.3f}} ms "
+                  f"({{100 * attn_ms / dev_ms:.1f}} %), {{kernel}}'s span on the device {{span_ms:.3f}} ms "
+                  f"({{100 * span_ms / dev_ms:.1f}} %) in {{calls:.1f}} calls", flush=True)
+        del lm
+        torch.cuda.empty_cache()
+    attn_fused._launch = launch
+
+
 for phase in {phases!r}:
     if phase == "gmm_forward":
         cs.gmm_results(dev, randn, record)
@@ -551,7 +727,12 @@ for phase in {phases!r}:
     elif phase == "moe_q8":
         cs.q8_results(dev, randn, record)
         cs.q4_results(dev, randn, record)
-        serve_step(torch.bfloat16, int8=True)
+        serve_step(torch.bfloat16, bits=8)
+        serve_step(torch.bfloat16, bits=4)
+    elif phase == "kernel_parts":
+        kernel_parts()
+    elif phase == "decode_quant":
+        decode_quant()
     elif phase == "train":
         cs.phase_train(dev)
     else:

@@ -8,7 +8,8 @@ G's in test_torch_paged.py, H-K's in test_torch_q8.py, L-O's in
 test_torch_q4.py, P's in test_torch_kvq8.py, Q and R's in
 test_torch_lookup.py, U, V, W and X's in test_torch_remaining_kernels.py;
 P's, Q's and R's split walks emulated in test_torch_paged_chunk_split.py,
-J's stream in test_torch_moe_q8_tc.py.)
+J's stream in test_torch_moe_q8_tc.py, N's in test_torch_moe_q4_tc.py, K's
+and O's split walk in test_torch_attn_fused_split.py.)
 
 Tolerances: f32 twins agree with the JAX kernels to 2e-5 (f32 summation
 order only; the JAX package's own kernel tests use the same bound). In
@@ -1459,8 +1460,9 @@ def test_cuda_moe_q4_matches_twin(cuda, dtype, b, k, with_shared):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b,n_sh,h,i", [
     (torch.bfloat16, 16, 2, 1280, 896), (torch.bfloat16, 32, 2, 1280, 896), (torch.float32, 16, 2, 1280, 896),
-    (torch.bfloat16, 11, 0, 1280, 896), (torch.float32, 40, 2, 1280, 896),
-    (torch.bfloat16, 12, 2, 320, 96),  # partial groups along H and I on the tensor cores
+    (torch.bfloat16, 11, 0, 1280, 896), (torch.float32, 40, 2, 1280, 896), (torch.bfloat16, 40, 2, 1280, 896),
+    (torch.bfloat16, 16, 2, 256, 128),  # the stream at another width: 33 down parts of 4 tiles
+    (torch.bfloat16, 12, 2, 320, 96),  # partial groups along H and I: the first form on the tensor cores
 ])
 def test_cuda_moe_q4_fused_matches_twin(cuda, dtype, b, n_sh, h, i):
     x, eq, weights, idx = _q4_moe_case(cuda, dtype, b, n_sh=n_sh, h=h, i=i)
@@ -1484,6 +1486,100 @@ def test_cuda_moe_q4_rows_do_not_depend_on_the_batch(cuda):
     assert torch.equal(a[0], moe_q4.moe_ffn_decode_q4_fused(x, eq, w2, idx2)[0])
     one = moe_q4.moe_ffn_decode_q4(x[:1], eq, weights[:1], idx[:1])
     assert torch.equal(one[0], moe_q4.moe_ffn_decode_q4(x, eq, weights, idx)[0])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_q4_stream_rows_alone_and_in_groups(cuda):
+    """N's stream: row 0 of 16 is bit-equal to the same row alone (B 1), as
+    row 0 of 32 (two row tiles) and of 40 (a second group of 32 rows), since
+    down's parts are cut at fixed expert ids whatever B is."""
+    x, eq, weights, idx = _q4_moe_case(cuda, torch.bfloat16, 40)
+    assert moe_q4.q4_stream_takes(x, eq)
+    first = moe_q4.moe_ffn_decode_q4_fused(x[:16], eq, weights[:16], idx[:16])
+    for b in (1, 32, 40):
+        got = moe_q4.moe_ffn_decode_q4_fused(x[:b], eq, weights[:b], idx[:b])
+        assert torch.equal(got[0], first[0]), b
+    row = moe_q4.moe_ffn_decode_q4_fused(x[32:], eq, weights[32:], idx[32:])
+    assert torch.equal(row, moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)[32:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_moe_q4_fused_graph_replay_equals_eager(cuda, dtype):
+    """N captured in a CUDA graph replays to the eager call's bits, on new
+    inputs copied into the captured buffers, twice (down's arrival counters
+    are back at zero after each replay): the stream in bf16, the first form
+    in f32."""
+    x, eq, weights, idx = _q4_moe_case(cuda, dtype, 16)
+    x2, _, w2, idx2 = _q4_moe_case(cuda, dtype, 16, seed=10)
+    moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)
+    for xs, ws, ids in ((x, weights, idx), (x2, w2, idx2), (x2, w2, idx2)):
+        x.copy_(xs), weights.copy_(ws), idx.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx))
+
+
+def _attn_weights(dev, bits):
+    if bits == 8:
+        return {"wqkv": _qlin(dev, 3 * 1280, 1280, seed=12), "wo": _qlin(dev, 1280, 1280, seed=13)}
+    return {"wqkv": _qlin4(dev, 3 * 1280, 1280, seed=12), "wo": _qlin4(dev, 1280, 1280, seed=13)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attn_fused_graph_replay_equals_eager(cuda, bits, kv_dtype):
+    """K (bits 8) and O (bits 4) captured in a CUDA graph replay to the
+    eager call's bits on new inputs (activations, positions from 0 to cap -
+    1, caches) copied into the captured buffers, replay after replay: the
+    merging blocks leave the arrival counters at zero."""
+    cap = 1024
+    cfg, _, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, torch.bfloat16, kv_dtype, 16, cap)
+    _, _, k2, v2, xn2, _ = _attn_case(cuda, torch.bfloat16, kv_dtype, 16, cap, seed=11)
+    attn = _attn_weights(cuda, bits)
+    pos_b = torch.tensor([0] + torch.linspace(1, cap - 1, 15).round().int().tolist(), dtype=torch.int32, device=cuda)
+    pos2 = pos_b.flip(0).clone()
+    attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    for xs, ks, vs, ps in ((xn, k_all, v_all, pos_b), (xn2, k2, v2, pos2), (xn2, k2, v2, pos2)):
+        xn.copy_(xs), k_all.copy_(ks), v_all.copy_(vs), pos_b.copy_(ps)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_attn_fused_rows_do_not_depend_on_the_batch(cuda, bits):
+    """K's and O's rows at pos 0 and cap - 1 (and the others) keep their bits
+    when the other rows' activations, positions and caches change: the
+    split walk's merge order depends on the row's own pos alone."""
+    cap = 1024
+    cfg, _, k_all, v_all, xn, (cos, sin) = _attn_case(cuda, torch.bfloat16, torch.bfloat16, 16, cap)
+    attn = _attn_weights(cuda, bits)
+    pos = [0] + torch.linspace(1, cap - 1, 15).round().int().tolist()
+    pos_b = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    first = attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)
+    assert all(torch.equal(a, b) for a, b in
+               zip(first, attn_fused.attn_decode_fused(xn, attn, cfg, cos, sin, k_all, v_all, 1, pos_b)))
+    for keep in (0, 15):
+        others = [r for r in range(16) if r != keep]
+        _, _, k2, v2, xn2, _ = _attn_case(cuda, torch.bfloat16, torch.bfloat16, 16, cap, seed=20 + keep)
+        xn2[keep], k2[:, keep], v2[:, keep] = xn[keep], k_all[:, keep], v_all[:, keep]
+        pos2 = pos_b.clone()
+        pos2[others] = pos_b[others].flip(0)
+        got = attn_fused.attn_decode_fused(xn2, attn, cfg, cos, sin, k2, v2, 1, pos2)
+        for a, b in zip(first, got):
+            assert torch.equal(a[keep], b[keep]), keep
 
 
 @pytest.mark.gpu
