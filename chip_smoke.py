@@ -15,10 +15,11 @@ Phases (each raises on failure, so the exit code is non-zero):
    abs error beside its
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
-   function, that call's time (`library_ms`; `torch._grouped_mm` for E, S and
-   T in bf16); A (at the no-crop and the (2, 3) crop prompt), B (SAM's four
-   shapes, f32 and bf16), E (at the prompts of the crop pages, a training
-   step's forward and its recompute), F (B 16 and 32 in bf16, 16 in f32)
+   function, that call's time (`library_ms`; `torch._grouped_mm` for D's
+   gate||up products, E, S and T in bf16); A (at the no-crop and the
+   (2, 3) crop prompt), B (SAM's four shapes, f32 and bf16), D and E (at
+   the prompts of the crop pages and a training step's forward, E also at
+   its recompute), F (B 16 and 32 in bf16, 16 in f32)
    and L (at lm_head) also in a CUDA graph, beside the library call in one
    where there is one, with A's visited and skipped key
    tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
@@ -353,18 +354,24 @@ def gmm_results(dev, randn, record) -> None:
             w_expert = nbytes(ex["gate"][0])
             flops_gu, flops_d = 2 * 2 * n * k * h * i, 2 * n * k * i * h
 
+            # D and E as the forward calls them: bf16 on S's schedule, built
+            # once a layer (outside the wrappers' time).
+            sched = moe_gmm.row_schedule(e_tile, tile_valid, e) if dt == torch.bfloat16 else ()
             args_d = (x_al, ex["gate"], ex["up"], e_tile, tile_valid)
             act = moe_gmm.gmm_swiglu_reference(*args_d)
-            got = moe_gmm.moe_gmm_swiglu(*args_d)
+            torch.full(act.shape, float("nan"), dtype=dt, device=dev)  # D's output block: an unwritten row shows
+            got = moe_gmm.moe_gmm_swiglu(*args_d, *sched)
+            # Library (bf16): the gate||up products alone ([E, 2I, H]
+            # concatenated outside the timing), no SwiGLU.
+            library = (grouped_mm_library("D", x_al, torch.cat([ex["gate"], ex["up"]], 1), e_tile, tile_valid)
+                       if dt == torch.bfloat16 else None)
             record("D", f"swiglu {case}", act, got, tolerance(act, dt),
-                   median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d)),
+                   median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d, *sched)),
                    median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
-                   bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt),
-                   graph=lambda: moe_gmm.moe_gmm_swiglu(*args_d))
+                   bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt), library,
+                   graph=lambda: moe_gmm.moe_gmm_swiglu(*args_d, *sched), library_graph=True)
+            del library
             args_e = (act, ex["down"], e_tile, tile_valid)
-            # E as the forward calls it: bf16 on S's schedule, built once a
-            # layer (outside the wrapper's time).
-            sched = moe_gmm.row_schedule(e_tile, tile_valid, e) if dt == torch.bfloat16 else ()
             y = moe_gmm.gmm_down_reference(*args_e)
             # NaNs in the block the wrapper's output will reuse: a row the
             # kernel fails to write shows.
@@ -1009,8 +1016,10 @@ def q4_results(dev, randn, record) -> None:
         x = randn(b, h, dtype=bf)
         args = (x, eq, *route(x, router, k))
         print(f"[cut-over] one int4 MoE decode layer, bf16, B {b} (B*k {'<=' if b * k <= e else '>'} E): "
-              f"M {median_ms(lambda: moe_q4.moe_ffn_decode_q4(*args)):.3f} ms, "
-              f"N {median_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)):.3f} ms")
+              f"M {median_ms(lambda: moe_q4.moe_ffn_decode_q4(*args)):.3f} ms "
+              f"(in a CUDA graph {graph_ms(lambda: moe_q4.moe_ffn_decode_q4(*args)):.4f}), "
+              f"N {median_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)):.3f} ms "
+              f"(in a CUDA graph {graph_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)):.4f})")
     del eq, eq_pe
 
     cfg = DeepseekV2Config()
@@ -1048,7 +1057,8 @@ def grouped_mm_library(kind: str, a, b, e_tile, tile_valid, n_experts: int = 0):
     """One `torch._grouped_mm` call computing kernel `kind`'s function on
     its aligned rows, for `library_ms`, or None (the reason printed): E
     a_t W_e^T and S a_t W_e per expert group of rows (2-D x 3-D, `offs` the
-    groups' aligned ends); T dy^T x per group (2-D x 2-D, the groups along
+    groups' aligned ends); D as E on the gate||up weight [E, 2I, H] (the
+    products alone, no SwiGLU); T dy^T x per group (2-D x 2-D, the groups along
     K; bf16 out where the card's torch takes no out_dtype). bf16 only. The
     operands are laid out as it asks (a transposed copy where the kernel
     reads in place) outside the timing. Timed only; the port never calls it."""
@@ -1062,7 +1072,7 @@ def grouped_mm_library(kind: str, a, b, e_tile, tile_valid, n_experts: int = 0):
         return None
     e = n_experts or b.shape[0]
     offs = (expert_tile_ranges(e_tile, tile_valid, e)[1:] * GMM_BM).to(torch.int32)
-    if kind == "E":
+    if kind in ("D", "E"):
         forms = [(a, b.transpose(1, 2))]
     elif kind == "S":
         forms = [(a, b), (a, b.transpose(1, 2).contiguous().transpose(1, 2))]
@@ -2833,15 +2843,17 @@ def _step_profile(dev, step) -> dict:
 
 def _gmm_kernel_of(name: str) -> str:
     """Which of D, E, S, T a csrc/moe_gmm.cu kernel's profiler name is: in
-    bf16 S and E share `gmm_rows_wgmma_kernel`, S with the weight N-major
-    (`<1>`), E K-major (`<0>`); T is `gmm_dw_*`; in f32 S is the f32 GEMM
-    template with its weight-rows flag on, and D and E are told apart by
-    the template's first argument (two weights: D; one: E)."""
+    bf16 D, S and E share `gmm_rows_wgmma_kernel`, S with the weight
+    N-major (`<1>`), E K-major (`<0>`), D with gate and up and the SwiGLU
+    (`<2>`); T is `gmm_dw_*`; in f32 S is the f32 GEMM template with its
+    weight-rows flag on, and D and E are told apart by the template's first
+    argument (two weights: D; one: E), as in bf16 before D's redesign
+    (`gmm_mma_kernel<2`)."""
     if "gmm_rows_wgmma_kernel<1>" in name or re.search(r"gmm_kernel<1, \d+, true", name):
         return "S"
     if "gmm_dw" in name:
         return "T"
-    return "D" if re.search(r"gmm_(mma_)?kernel<2", name) else "E"
+    return "D" if re.search(r"gmm_(mma_)?kernel<2|gmm_rows_wgmma_kernel<2>", name) else "E"
 
 
 def phase_train(dev) -> dict:

@@ -21,39 +21,46 @@
 // rows of one expert only, e_tile[t]; pad rows are zero. The grid is the
 // static worst case, T = S / BM tiles. A tile past the last group has
 // tile_valid[t] == 0 and its blocks return at once (the wrapper zeroes the
-// output, so those rows read as zero); the bf16 kernels E and S zero those
-// rows themselves.
+// output, so those rows read as zero); the bf16 kernels D, E and S zero
+// those rows themselves.
 //
 // Weights keep HF's [out, in] layout, stacked over experts (Wg, Wu
 // [E, I, H], Wd [E, H, I]), so both operands of each GEMM are contiguous
 // along K: out = x W^T.
 //
-// What bounds it: a valid tile reads its expert's weights (6.9 MB in bf16
-// for the three matrices at H = 1280, I = 896) and reuses each element for
-// BM rows: 2 * BM FLOP per weight element, 32 FLOP per byte in bf16, far
-// below the ~295 FLOP per byte at which the H100's bf16 tensor cores would
-// outrun HBM. Tiles of one expert follow each other, so the repeats come
-// from the 50 MB L2 and HBM sees each layer's 440 MB of expert weights
-// about once (0.13 ms at 3.35 TB/s).
-// - bf16 (the LM's dtype on the main path): tensor cores. D and W:
-//   mma.sync m16n8k16 with f32 sums, fed from a cp.async double buffer;
-//   bound by streaming the weight slices from L2 and HBM. E, S and T:
-//   wgmma m64n256k16 fed by TMA through an mbarrier ring (sm90.cuh; below);
-//   E and S are one kernel, gmm_rows_wgmma_kernel, over the weight's
-//   major-ness.
+// What bounds it: each layer's expert weights from HBM once (440 MB in
+// bf16 for the three matrices at H = 1280, I = 896, 64 experts: 0.13 ms at
+// 3.35 TB/s), and the repeats of each weight slice from L2. A design that
+// reads an expert's weights once per 32-row tile reuses each element for
+// 32 rows: 32 FLOP per byte of L2 traffic, far below the ~295 FLOP per
+// byte at which the H100's bf16 tensor cores would outrun HBM.
+// - bf16 (the LM's dtype on the main path): D, E and S run one kernel,
+//   gmm_rows_wgmma_kernel (below): wgmma fed by TMA through an mbarrier
+//   ring (sm90.cuh) on a persistent walk of (row block of up to 128 rows of
+//   one expert, column block) items, so each weight slice is read once per
+//   128 rows. D takes 128 columns of I an item and both weights a stage
+//   (gate and up, two m64n128k16 chains), with the SwiGLU epilogue. T:
+//   wgmma on (expert, 128 x 256 outputs) items. D before this walk was a
+//   32-row mma.sync kernel on a (tile, 64-column) grid fed by cp.async,
+//   which re-read the expert's whole 4.6 MB of gate||up for every 32-row
+//   tile (0.6 GB from L2 at N 550): 0.1880 ms in a CUDA graph, 49 % of its
+//   bound at N 550 (PERF.md). D's bound at N 550 is its selected experts'
+//   gate and up (294 MB, 0.088 ms) plus the rows; the walk reads the
+//   weights about once per expert from L2 at that shape (most experts hold
+//   one row block) and the block's rows once per 128 columns.
 // - f32 (full f32, no TF32): FMAs on the CUDA cores, whose 67 TFLOP/s peak
 //   makes it compute-bound. 8 row groups x 16 column groups of threads
 //   each hold a 4 x TN tile of the sums, fed by float4 reads of x and the
-//   weights, both staged transposed in shared memory.
+//   weights, both staged transposed in shared memory; grid (T, ceil(N /
+//   BN)), BN 64 for D (two weights), 128 for E and S.
 // BM = 32 keeps the pad rows at ~16 per expert (they cost full FMAs in f32).
 //
 // Two launches, not one fused visit: at crop sizes a page has ~100-300
 // valid tiles, fewer than one block per SM each if a tile were one block,
-// as on the TPU's sequential grid. D's grid is (T, ceil(I / 64)), so every
-// tile's output columns are spread over 14 blocks; E in f32 has (T,
-// ceil(H / 128)), in bf16 S's persistent walk of (128-row block, 256
-// columns) items. The [S, I] activation makes one round trip through HBM
-// (13 MB in bf16 at S = 7424, a few microseconds).
+// as on the TPU's sequential grid; D's and E's walks spread each row
+// block's columns over 7 (D, I = 896 by 128) or 5 (E, H = 1280 by 256)
+// items. The [S, I] activation makes one round trip through HBM (13 MB in
+// bf16 at S = 7424, a few microseconds).
 //
 // Shapes: N a multiple of 4, K a multiple of 4 (f32) or 8 (bf16: 16-byte
 // copies), x and the weights 16-byte aligned (checked by the wrapper);
@@ -76,7 +83,8 @@
 //   GB once per 256. f32: D/E's f32 kernel reading the weight's [BK, BN]
 //   slices as they lie (WKN), grid (T, ceil(C / 128)).
 // - E in bf16 is the same kernel with the weight [N, K] read K-major (its
-//   HF layout): out = round(act W_e^T). The recompute's gate shape (12 288
+//   HF layout): out = round(act W_e^T); D in bf16 the same with two such
+//   weights. The recompute's gate shape (12 288
 //   rows, K 1280, N 896) is S's dact shape with the weight read the other
 //   way, and the same L2 arithmetic holds: the 32-row mma.sync kernel it
 //   replaced re-read each expert's weight slice for every tile.
@@ -142,7 +150,7 @@ __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
 // ---------------------------------------------------------------------------
 // Which rows a block computes and writes.
-// AlignedRows (D, E, S): block b is row tile b, all of one expert, e_tile[b];
+// AlignedRows (D, E, S in f32): block b is row tile b, all of one expert, e_tile[b];
 // every row is written, or none when tile_valid[b] is 0.
 // VisitRows (W): block b is the BM-row part b % sub of visit v = b / sub
 // (sub = bm / BM): rows vt[v] bm + (b % sub) BM + [0, BM) of the
@@ -317,9 +325,10 @@ __global__ void __launch_bounds__(NT) gmm_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums).
+// bf16 on the tensor cores for kernel W: mma.sync m16n8k16 (bf16 in, f32
+// sums).
 //
-// The same (tile, column block) grid and epilogue. 4 warps: warp w takes
+// The f32 kernels' (tile, column block) grid and epilogue. 4 warps: warp w takes
 // rows 16 (w % 2) .. +15 of the tile and half of the BN columns, NJ = BN / 16
 // n8 tiles. K is streamed in 64-wide slices, copied with cp.async into a
 // double buffer (16-byte chunks, zero-filled past the K and N edges) while
@@ -477,9 +486,9 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 kernels S, E and T on Hopper: TMA loads into a ring of shared-memory
+// bf16 kernels D, S, E and T on Hopper: TMA loads into a ring of shared-memory
 // stages (one producer warp, mbarriers "full" and "empty" per stage), two
-// consumer warpgroups that run wgmma m64n256k16 on the stages that have
+// consumer warpgroups that run wgmma (m64n256k16; D two m64n128k16) on the stages that have
 // arrived (sm90.cuh). A block is 288 threads: warpgroups 0 and 1 consume,
 // warp 8 produces (its lane 0 issues every copy). Every operand is read as
 // it lies in memory; the transposes are wgmma's operand modes, so no
@@ -488,16 +497,15 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
 constexpr int WG_BLOCK = 288;         // two consumer warpgroups + the producer warp
 constexpr int PRODUCER_WARP = 8;
 constexpr int CONSUMER_WARPS = 8;     // each releases a stage: the "empty" barrier's count
-constexpr int SX_TILES = 4;           // S, E: a work item's rows, up to 4 tiles (128 rows) of one expert
+constexpr int SX_TILES = 4;           // D, S, E: a work item's rows, up to 4 tiles (128 rows) of one expert
 constexpr int SX_ROWS = SX_TILES * BM;
 constexpr int SX_BN = 256;            // S, E: a work item's output columns
-constexpr int SX_BK = 64;             // S, E: k per stage, one 128-byte row of bf16
+constexpr int SX_BK = 64;             // D, S, E: k per stage, one 128-byte row of bf16
 constexpr int SX_STAGES = 3;
 constexpr int SX_A_BYTES = SX_ROWS * SX_BK * 2;           // [128 rows][64 k]: 16 KB
 constexpr int SX_B_BOX = SX_BK * 64 * 2;                  // a 64 k x 64 n weight box: 8 KB
 constexpr int SX_STAGE_BYTES = SX_A_BYTES + SX_BN / 64 * SX_B_BOX;  // + 64 k x 256 n as four boxes: 48 KB
 constexpr int SX_OUT_BOX = BM * 64 * 2;                   // an output box, [32 rows][64 n] bf16: 4 KB
-constexpr int SX_OUT_BYTES = 2 * SX_BN / 64 * SX_OUT_BOX; // a warpgroup's [64 rows][256 n]: 32 KB
 constexpr int DW_TILE_O = 128;        // T: a work item's o extent (64 a warpgroup)
 constexpr int DW_TILE_C = 256;        // T: a work item's c extent
 constexpr int DW_STAGES = 4;
@@ -507,9 +515,8 @@ constexpr int DW_OUT_BYTES = 64 * DW_TILE_C * 4;          // a warpgroup's [64 o
 
 // Dynamic shared memory: the stages from a 1024-byte aligned base (the
 // swizzle atom), then the output tiles, then the barriers; the slack
-// covers the alignment. S and E take 214 064 bytes and T 230 464, within the
+// covers the alignment. S and E take 214 064 bytes (below), T 230 464, within the
 // 232 448 a block may use.
-constexpr int SX_SMEM = SX_STAGES * SX_STAGE_BYTES + 2 * SX_OUT_BYTES + 2 * SX_STAGES * 8 + 1024;
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_OUT_BYTES + 2 * DW_STAGES * 8 + 1024;
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -546,55 +553,90 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if (threadIdx.x % 32 == 0) sm90::mbar_arrive(empty);
 }
 
-// Kernels S and E in bf16, one kernel: out [S, N] = round(a_t W_e~) on the
-// row tiles of the aligned layout, a [S, K], the weight [E, ...] read as
-// it lies. W_N_MAJOR = 1 (S): W [E, O, C] contracted on its rows, K = O,
-// N = C, each row of the weight runs along N. W_N_MAJOR = 0 (E): W [E, N,
-// K] in HF's [out, in] layout, out = a W_e^T, each row runs along K.
+// Kernels S, E and D in bf16, one kernel on the row tiles of the aligned
+// layout, a [S, K], the weights [E, ...] read as they lie:
+// - KIND ROWS_N_MAJOR (S): out [S, N] = round(a_t W_e), W [E, O, C]
+//   contracted on its rows, K = O, N = C, each row of the weight along N;
+// - KIND ROWS_K_MAJOR (E): out = round(a_t W_e^T), W [E, N, K] in HF's
+//   [out, in] layout, each row along K;
+// - KIND ROWS_SWIGLU (D): act [S, I] = round(round(silu(round(a_t Wg_e^T)))
+//   * round(a_t Wu_e^T)), Wg and Wu [E, I, H] K-major as E's, K = H, N = I.
 //
 // A persistent grid of at most one block per SM walks the work items i =
-// blockIdx.x, + gridDim.x, ...; item i is (row block b, 256-column block)
-// = (i / n_cb, i % n_cb), the column blocks of one row block next to each
-// other so that they run together and read the block's rows from L2. Row
-// block b of expert e covers its tiles tile_lo[e] + 4 (b - blk_lo[e]) +
-// [0, 4), clipped at tile_lo[e + 1]: blk_lo is the wrapper's prefix of
-// ceil(tiles / 4) over the experts (`row_block_lo`), and the item finds its
-// expert by a binary search on it (`dx_row_blocks` in ops/moe_gmm.py is the
-// same map). Row blocks past blk_lo[E] zero the rows of the invalid tail
-// tiles, 4 tiles each (the ceil(T / 4) + E + 1 rows of the walk cover every
-// case); the rest are skipped.
+// blockIdx.x, + gridDim.x, ...; item i is (row block b, column block) =
+// (i / n_cb, i % n_cb) of BN columns (256 for S and E, 128 of I for D), the
+// column blocks of one row block next to each other so that they run
+// together and read the block's rows from L2. Row block b of expert e
+// covers its tiles tile_lo[e] + 4 (b - blk_lo[e]) + [0, 4), clipped at
+// tile_lo[e + 1]: blk_lo is the wrapper's prefix of ceil(tiles / 4) over
+// the experts (`row_block_lo`), and the item finds its expert by a binary
+// search on it (`dx_row_blocks` in ops/moe_gmm.py is the same map). Row
+// blocks past blk_lo[E] zero the rows of the invalid tail tiles, 4 tiles
+// each (the ceil(T / 4) + E + 1 rows of the walk cover every case); the
+// rest are skipped. A warpgroup whose 64 rows hold no tile of the expert
+// (a row block of one or two tiles) waits on and frees the stages but
+// multiplies nothing.
 //
 // Each stage: A = a [128 rows][64 k] (K-major; warpgroup g multiplies rows
-// 64 g .. 64 g + 63 by all 256 columns, m64n256k16), B = the expert's
-// [64 k] x [256 n] slice as four 8 KB boxes: S [64 k][64 n] boxes (N-major:
+// 64 g .. 64 g + 63), B = four 8 KB weight boxes. S and E: the expert's
+// [64 k] x [256 n] slice, m64n256k16: S [64 k][64 n] boxes (N-major:
 // wgmma's transposed B; a k16 step is 16 rows, 2048 bytes on), E [64 n][64
 // k] boxes (K-major, as A: the four boxes are one [256 n][64 k] operand
-// with 1024 bytes between 8-row groups; a k16 step is 32 bytes on). The A
-// box is the block's 128 rows whatever the clip (rows of the next expert,
-// or zeros past the end). k past K and n past N read zeros (the weight's
-// map is 3-D with the expert outermost, so a box never reaches the next
-// expert). 256 columns, not 128: a block's rows are read from L2 once per
-// 256 columns (0.17 GB of row reads at the dact shape instead of 0.29).
+// with 1024 bytes between 8-row groups; a k16 step is 32 bytes on). D: two
+// [64 n][64 k] boxes of gate, then two of up, each pair one [128 n][64 k]
+// K-major operand, and two m64n128k16 chains a k16 step, gate into acc[0,
+// 64) and up into acc[64, 128): the same 48 KB stage and the same 128
+// accumulators a thread as E. The A box is the block's 128 rows whatever
+// the clip (rows of the next expert, or zeros past the end). k past K and
+// n past N read zeros (the weights' maps are 3-D with the expert outermost,
+// so a box never reaches the next expert). S and E take 256 columns, not
+// 128: a block's rows are read from L2 once per 256 columns (0.17 GB of row
+// reads at the dact shape instead of 0.29).
 //
-// Epilogue: each warpgroup rounds its sums to bf16 into its 32 KB tile
-// (eight [32 rows][64 n] boxes, 128-byte swizzled: no bank conflicts) and
-// one thread stores the boxes of the expert's row tiles with TMA (the
-// next expert's rows in the block are not stored; columns past N are
-// clipped). The store drains while the next item loads and multiplies;
-// `wait_group.read 0` holds the tile until the store has read it.
-template <int W_N_MAJOR>
+// Epilogue: each warpgroup rounds its sums (D: the SwiGLU of gate and up at
+// the rounding points above) to bf16 into its tile ([32 rows][64 n] boxes,
+// 128-byte swizzled: no bank conflicts; eight for S and E, four for D) and
+// one thread stores the boxes of the expert's row tiles with TMA (the next
+// expert's rows in the block are not stored; columns past N are clipped).
+// The store drains while the next item loads and multiplies; `wait_group.read
+// 0` holds the tile until the store has read it.
+constexpr int ROWS_K_MAJOR = 0, ROWS_N_MAJOR = 1, ROWS_SWIGLU = 2;
+
+template <int KIND>
+constexpr int ROWS_BN = KIND == ROWS_SWIGLU ? 128 : SX_BN;  // a work item's columns
+// D's output tiles are half of S's and E's (128 columns), which leaves room
+// for a fourth stage: 230 464 bytes of shared memory.
+template <int KIND>
+constexpr int ROWS_STAGES = KIND == ROWS_SWIGLU ? 4 : SX_STAGES;
+template <int KIND>
+constexpr int ROWS_OUT_BYTES = 2 * ROWS_BN<KIND> / 64 * SX_OUT_BOX;  // a warpgroup's [64 rows][BN]
+template <int KIND>
+constexpr int ROWS_SMEM = ROWS_STAGES<KIND> * SX_STAGE_BYTES + 2 * ROWS_OUT_BYTES<KIND> + 2 * ROWS_STAGES<KIND> * 8 + 1024;
+
+// D's epilogue on the f32 sums. silu in f32 with the fast exponential and
+// division (a few f32 ulps, far below the bf16 rounding after it): with
+// expf and an IEEE division the epilogue took a fifth of D's time at N 550
+// (scripts/torch_gmm_ablate.py d_no_swiglu, PERF.md).
+__device__ __forceinline__ float swiglu(float gate, float up) {
+  const float g = round_bf16(gate);
+  return round_bf16(__fdividef(g, 1.f + __expf(-g))) * round_bf16(up);
+}
+
+template <int KIND>
 __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-    const __grid_constant__ CUtensorMap map_out, const int* __restrict__ tile_lo, const int* __restrict__ blk_lo,
-    __nv_bfloat16* __restrict__ out, int n_experts, int n_tiles, int k_dim, int n_dim) {
+    const __grid_constant__ CUtensorMap map_w2, const __grid_constant__ CUtensorMap map_out,
+    const int* __restrict__ tile_lo, const int* __restrict__ blk_lo, __nv_bfloat16* __restrict__ out,
+    int n_experts, int n_tiles, int k_dim, int n_dim) {
+  constexpr int BN = ROWS_BN<KIND>, STAGES = ROWS_STAGES<KIND>, OUT_BYTES = ROWS_OUT_BYTES<KIND>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  unsigned char* out_smem = smem + SX_STAGES * SX_STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(out_smem + 2 * SX_OUT_BYTES);
-  uint64_t* empty = full + SX_STAGES;
-  init_ring(full, empty, SX_STAGES);
+  unsigned char* out_smem = smem + STAGES * SX_STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_smem + 2 * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  init_ring(full, empty, STAGES);
   const int n_blocks = blk_lo[n_experts];
-  const int n_cb = (n_dim + SX_BN - 1) / SX_BN, n_k = (k_dim + SX_BK - 1) / SX_BK;
+  const int n_cb = (n_dim + BN - 1) / BN, n_k = (k_dim + SX_BK - 1) / SX_BK;
   const int n_items = ((n_tiles + SX_TILES - 1) / SX_TILES + n_experts + 1) * n_cb;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -613,22 +655,25 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     if (lane == 0) {
       Ring ring;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const int b = item / n_cb, n0 = item % n_cb * SX_BN;
+        const int b = item / n_cb, n0 = item % n_cb * BN;
         if (b >= n_blocks) continue;
         int e, t0;
         row_block(b, e, t0);
-        for (int ks = 0; ks < n_k; ++ks, ring.next<SX_STAGES>()) {
+        for (int ks = 0; ks < n_k; ++ks, ring.next<STAGES>()) {
           sm90::mbar_wait(&empty[ring.stage], ring.phase ^ 1);
           uint64_t* bar = &full[ring.stage];
           unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
           sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);
           sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);
 #pragma unroll
-          for (int j = 0; j < SX_BN / 64; ++j) {
-            if (W_N_MAJOR)
-              sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
-            else
-              sm90::tma_load_3d(st + SX_A_BYTES + j * SX_B_BOX, &map_w, bar, ks * SX_BK, n0 + 64 * j, e);
+          for (int j = 0; j < 4; ++j) {
+            unsigned char* dst = st + SX_A_BYTES + j * SX_B_BOX;
+            if (KIND == ROWS_N_MAJOR)
+              sm90::tma_load_3d(dst, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
+            else if (KIND == ROWS_K_MAJOR)
+              sm90::tma_load_3d(dst, &map_w, bar, ks * SX_BK, n0 + 64 * j, e);
+            else  // gate's two boxes, then up's
+              sm90::tma_load_3d(dst, j < 2 ? &map_w : &map_w2, bar, ks * SX_BK, n0 + 64 * (j % 2), e);
           }
         }
       }
@@ -637,15 +682,15 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
   }
 
   const int wg = warp / 4, tid = threadIdx.x % 128;
-  unsigned char* ob = out_smem + wg * SX_OUT_BYTES;
+  unsigned char* ob = out_smem + wg * OUT_BYTES;
   Ring ring;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int b = item / n_cb, n0 = item % n_cb * SX_BN;
+    const int b = item / n_cb, n0 = item % n_cb * BN;
     if (b >= n_blocks) {  // the invalid tail's rows read as zeros
       const int t0 = tile_lo[n_experts] + SX_TILES * (b - n_blocks);
       if (t0 >= n_tiles) continue;
       const int r0 = t0 * BM, r1 = min(t0 + SX_TILES, n_tiles) * BM;
-      const int chunks = min(SX_BN, n_dim - n0) / 8;  // n_dim is a multiple of 8
+      const int chunks = min(BN, n_dim - n0) / 8;  // n_dim is a multiple of 8
       for (int i = threadIdx.x; i < (r1 - r0) * chunks; i += 256)
         *reinterpret_cast<uint4*>(out + (size_t)(r0 + i / chunks) * n_dim + n0 + 8 * (i % chunks)) =
             make_uint4(0, 0, 0, 0);
@@ -654,43 +699,62 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     int e, t0;
     row_block(b, e, t0);
     const int t_end = min(t0 + SX_TILES, tile_lo[e + 1]);
+    const bool live = t0 + 2 * wg < t_end;  // this warpgroup's rows hold a tile of the expert
 
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    for (int ks = 0; ks < n_k; ++ks, ring.next<SX_STAGES>()) {
+    for (int ks = 0; ks < n_k; ++ks, ring.next<STAGES>()) {
       sm90::mbar_wait(&full[ring.stage], ring.phase);
-      const unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
-      const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128, 16, 1024);
-      const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, W_N_MAJOR ? SX_B_BOX : 16, 1024);
-      sm90::fence_acc(acc);
-      sm90::wgmma_fence();
+      if (live) {
+        const unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
+        const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128, 16, 1024);
+        const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, KIND == ROWS_N_MAJOR ? SX_B_BOX : 16, 1024);
+        sm90::fence_acc(acc);
+        sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < SX_BK / 16; ++kk)
-        sm90::wgmma_m64n256k16<0, W_N_MAJOR>(acc, sm90::desc_add(da, 32 * kk),
-                                             sm90::desc_add(db, (W_N_MAJOR ? 16 * 128 : 32) * kk));
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_acc(acc);
+        for (int kk = 0; kk < SX_BK / 16; ++kk) {
+          const uint64_t dak = sm90::desc_add(da, 32 * kk);
+          if constexpr (KIND == ROWS_SWIGLU) {
+            sm90::wgmma_m64n128k16<0>(acc, dak, sm90::desc_add(db, 32 * kk));
+            sm90::wgmma_m64n128k16<64>(acc, dak, sm90::desc_add(db, 2 * SX_B_BOX + 32 * kk));
+          } else {
+            sm90::wgmma_m64n256k16<0, KIND>(acc, dak, sm90::desc_add(db, (KIND == ROWS_N_MAJOR ? 16 * 128 : 32) * kk));
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(acc);
+      }
       release(&empty[ring.stage]);
     }
+    if (!live) continue;
 
-    // acc[4 j + 2 h + c]: row rl = 16 (warp % 4) + lane / 4 + 8 h of the
-    // warpgroup's 64, column cl = 8 j + 2 (lane % 4) + c of 256: box
-    // (rl / 32) * 4 + cl / 64, row rl % 32, 16-byte chunk (cl % 64) / 8
-    // swizzled with rl % 8.
+    // acc[4 j + 2 h + c] (D: gate, up acc[64 + ..]): row rl = 16 (warp % 4)
+    // + lane / 4 + 8 h of the warpgroup's 64, column cl = 8 j + 2 (lane % 4)
+    // + c of BN: box (rl / 32) (BN / 64) + cl / 64, row rl % 32, 16-byte
+    // chunk (cl % 64) / 8 swizzled with rl % 8.
     if (tid == 0) sm90::bulk_wait_read<0>();
     sm90::bar_sync(1 + wg, 128);
+    // Warps 2 and 3 of the warpgroup hold its second tile's rows: none to
+    // round where that tile is not the expert's.
+    const bool rows_live = t0 + 2 * wg + (warp % 4) / 2 < t_end;
 #pragma unroll
-    for (int j = 0; j < SX_BN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
+      if (!rows_live) break;
       const int cl = 8 * j + 2 * (lane % 4);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int rl = 16 * (warp % 4) + lane / 4 + 8 * h, rr = rl % 32;
-        const int off = ((rl / 32) * 4 + cl / 64) * SX_OUT_BOX + rr * 128 + ((((cl % 64) / 8) ^ (rr % 8)) * 16) +
-                        (cl % 8) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(ob + off) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        const int off = ((rl / 32) * (BN / 64) + cl / 64) * SX_OUT_BOX + rr * 128 +
+                        ((((cl % 64) / 8) ^ (rr % 8)) * 16) + (cl % 8) * 2;
+        const int a = 4 * j + 2 * h;
+        __nv_bfloat162 v;
+        if constexpr (KIND == ROWS_SWIGLU)
+          v = __floats2bfloat162_rn(swiglu(acc[a], acc[64 + a]), swiglu(acc[a + 1], acc[65 + a]));
+        else
+          v = __floats2bfloat162_rn(acc[a], acc[a + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(ob + off) = v;
       }
     }
     sm90::fence_proxy_async();
@@ -701,8 +765,8 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
         const int t = t0 + 2 * wg + rt;
         if (t >= t_end) break;
 #pragma unroll
-        for (int j = 0; j < SX_BN / 64; ++j)
-          if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * 4 + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);
+        for (int j = 0; j < BN / 64; ++j)
+          if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * (BN / 64) + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);
       }
       sm90::bulk_commit();
     }
@@ -1023,29 +1087,33 @@ int launch_ffn(const void* x, const void* wg, const void* wu, const void* wd, Ro
   return (int)cudaGetLastError();
 }
 
-// S (W_N_MAJOR = 1: w [E, K, N]) or E (0: w [E, N, K]) in bf16 on
+// S (KIND ROWS_N_MAJOR: w [E, K, N]), E (ROWS_K_MAJOR: w [E, N, K]) or D
+// (ROWS_SWIGLU: w, w2 = gate, up [E, N, K]) in bf16 on
 // gmm_rows_wgmma_kernel: a [S, K] -> out [S, N]. The tensor maps: a and
-// out 2-D over the n_tiles * BM rows; the weight 3-D with the expert
-// outermost, its boxes 64 wide along its contiguous dim.
-template <int W_N_MAJOR>
-int launch_rows_wgmma(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out, int n_tiles,
-                      int bm, int k_dim, int n_dim, int n_experts, int n_blocks, void* stream) {
+// out 2-D over the n_tiles * BM rows; the weights 3-D with the expert
+// outermost, their boxes 64 wide along their contiguous dim.
+template <int KIND>
+int launch_rows_wgmma(const void* a, const void* w, const void* w2, const void* tile_lo, const void* blk_lo,
+                      void* out, int n_tiles, int bm, int k_dim, int n_dim, int n_experts, int n_blocks,
+                      void* stream) {
   if (bad_shape(n_tiles, bm, k_dim, n_dim, 8) || n_dim % 8 || n_experts <= 0 || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w, map_out;
+  constexpr bool N_MAJOR = KIND == ROWS_N_MAJOR;
+  CUtensorMap map_a, map_w, map_w2, map_out;
   const uint64_t rows = (uint64_t)n_tiles * BM;
   const uint64_t dims_a[2] = {(uint64_t)k_dim, rows}, dims_out[2] = {(uint64_t)n_dim, rows};
-  const uint64_t dims_w[3] = {(uint64_t)(W_N_MAJOR ? n_dim : k_dim), (uint64_t)(W_N_MAJOR ? k_dim : n_dim),
+  const uint64_t dims_w[3] = {(uint64_t)(N_MAJOR ? n_dim : k_dim), (uint64_t)(N_MAJOR ? k_dim : n_dim),
                               (uint64_t)n_experts};
   const uint32_t box_a[2] = {SX_BK, SX_ROWS}, box_w[3] = {64, 64, 1}, box_out[2] = {64, BM};
-  auto kernel = gmm_rows_wgmma_kernel<W_N_MAJOR>;
+  auto kernel = gmm_rows_wgmma_kernel<KIND>;
   int err = sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
   if (!err) err = sm90::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w, dims_w, box_w);
+  if (!err) err = sm90::make_map(&map_w2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w2, dims_w, box_w);
   if (!err) err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
-  if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SX_SMEM);
+  if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ROWS_SMEM<KIND>);
   if (err) return err;
-  kernel<<<n_blocks, WG_BLOCK, SX_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map_a, map_w, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
+  kernel<<<n_blocks, WG_BLOCK, ROWS_SMEM<KIND>, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w, map_w2, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
       static_cast<__nv_bfloat16*>(out), n_experts, n_tiles, k_dim, n_dim);
   return (int)cudaGetLastError();
 }
@@ -1060,11 +1128,14 @@ extern "C" int gmm_swiglu_f32(const void* x, const void* wg, const void* wu, con
   return launch_f32<2, 4, false>(x, wg, wu, aligned(e_tile, tile_valid), n_tiles, act, h, i, stream);
 }
 
-extern "C" int gmm_swiglu_bf16(const void* x, const void* wg, const void* wu, const void* e_tile,
-                               const void* tile_valid, void* act, int n_tiles, int bm, int h,
-                               int i, void* stream) {
-  if (bad_shape(n_tiles, bm, h, i, 8)) return (int)cudaErrorInvalidValue;
-  return launch_bf16<2, 64>(x, wg, wu, aligned(e_tile, tile_valid), n_tiles, act, h, i, stream);
+// D in bf16: x [S, H], wg / wu [E, I, H] and S's schedule (tile_lo, blk_lo,
+// n_blocks: ops/moe_gmm.swiglu_grid) -> act [S, I], every row written, those
+// of the invalid tail tiles with zeros.
+extern "C" int gmm_swiglu_bf16(const void* x, const void* wg, const void* wu, const void* tile_lo,
+                               const void* blk_lo, void* act, int n_tiles, int bm, int h, int i, int n_experts,
+                               int n_blocks, void* stream) {
+  return launch_rows_wgmma<ROWS_SWIGLU>(x, wg, wu, tile_lo, blk_lo, act, n_tiles, bm, h, i, n_experts, n_blocks,
+                                        stream);
 }
 
 // E: act [S, I], wd [E, H, I] -> y [S, H].
@@ -1079,7 +1150,8 @@ extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile,
 // n_blocks; see gmm_dx_bf16) -> y [S, H], every row written.
 extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* tile_lo, const void* blk_lo, void* y,
                              int n_tiles, int bm, int i, int h, int n_experts, int n_blocks, void* stream) {
-  return launch_rows_wgmma<0>(act, wd, tile_lo, blk_lo, y, n_tiles, bm, i, h, n_experts, n_blocks, stream);
+  return launch_rows_wgmma<ROWS_K_MAJOR>(act, wd, wd, tile_lo, blk_lo, y, n_tiles, bm, i, h, n_experts, n_blocks,
+                                         stream);
 }
 
 // S: a [S, O], w [E, O, C] (contracted on O, its row dim) -> out [S, C].
@@ -1096,7 +1168,8 @@ extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, cons
 // zeros.
 extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out,
                            int n_tiles, int bm, int o, int c, int n_experts, int n_blocks, void* stream) {
-  return launch_rows_wgmma<1>(a, w, tile_lo, blk_lo, out, n_tiles, bm, o, c, n_experts, n_blocks, stream);
+  return launch_rows_wgmma<ROWS_N_MAJOR>(a, w, w, tile_lo, blk_lo, out, n_tiles, bm, o, c, n_experts, n_blocks,
+                                         stream);
 }
 
 // T: x [S, C], dy [S, O], tile_lo [E + 1] (expert e owns tiles

@@ -4,11 +4,11 @@
 // (via moe_ffn_decode_q4): one visit per (row, selection), plus the shared
 // pseudo-experts at one row. N replaces deepseek_ocr2_tpu/ops/moe_q4.py:
 // _decode_q4_kernel and _decode_q4_pe_kernel (via moe_ffn_decode_q4_fused):
-// one visit per distinct selected expert, then the pseudo-experts. M, and N
-// with f32 x or a shape the stream below does not take, run moe_quant.cuh's
-// kernels (kernels I's and J's first form) on linear_q4.cuh's int4 dots.
-// N with bf16 x otherwise runs the stream below. The layout (codes [.., In /
-// 2], group-128 scales [.., In / 128]) and the rounding points are
+// one visit per distinct selected expert, then the pseudo-experts. M and N
+// with f32 x or a shape their streams below do not take run moe_quant.cuh's
+// kernels (kernels I's and J's first form) on linear_q4.cuh's int4 dots;
+// with bf16 x they run the streams below. The layout (codes [.., In / 2],
+// group-128 scales [.., In / 128]) and the rounding points are
 // moe_quant.cuh's:
 //   gate = sum_g s_g (x_g . gate_g), up the same, each in f32;
 //   act  = bf16(silu(gate) * up);
@@ -16,7 +16,7 @@
 //   out  = bf16(sum over visits of y * w).
 //
 // What bounds it: the int4 expert bytes, 3 * H * I / 2 + scales = 1.83 MB
-// an expert at H = 1280, I = 896. M at b = 1 with the pseudo-experts: 8
+// an expert at H = 1280, I = 896. M at B = 1 with the pseudo-experts: 8
 // visits, 14.6 MB, 0.0044 ms at 3.35 TB/s per MoE layer. N at 16 rows:
 // about 53 distinct experts + 2 pseudo-experts, 100 MB, 0.030 ms: 67 MB of
 // gate/up and 34 MB of down.
@@ -93,6 +93,46 @@
 // (a gate/up compute warp for each group of H), 16-byte aligned codes and
 // scales (the wrapper checks them; ops/moe_q4.moe_ffn_decode_q4_fused
 // dispatches by dtype and shape).
+//
+// M with bf16 x (moe_q4_sel_bf16), the path of every --int4 MoE layer at
+// one decode row (k = 6 selections and the 2 pseudo-experts: 8 visits,
+// 14.6 MB, 0.0044 ms at 3.35 TB/s) and of 2-10 rows (B k <= E). M's first
+// form was three launches (swiglu, down writing y w [V, 1, H] f32, the
+// combine), each a grid of CUDA-core warp dots on code rows loaded with
+// nothing in flight ahead of them: 0.019 ms in a CUDA graph, 23 % of its
+// bound (PERF.md). The stream is two launches:
+// - gate/up (sel_gu_q4_kernel): units (visit, 8 columns of I) over a
+//   persistent grid of one block an SM, L's streaming form for one row of
+//   x: a producer warp copies a unit's 8 gate and 8 up code rows (two bulk
+//   copies of 8 H / 2 contiguous bytes) and their scales into a ring of up
+//   to 16 stages (128 KB of shared memory at most, x included); 8 consumer
+//   warps take the block's units in turn, each a whole dot over H on the
+//   tensor cores (stream_item_mma: the 16 code rows as A, the visit's x
+//   row as B's column 0), so no sums cross warps; act = bf16(silu(gate)
+//   up), written at pair_slot (the k order of the products). 8 visits x
+//   112 units = 896 at one row, 6.8 a block.
+// - down (sel_down_q4_kernel), the combine folded in: block (16 columns of
+//   H, row b) walks row b's kv visits, a stage each (the visit's 16 code
+//   rows, one bulk copy of 7 KB at I 896, and their scales), 8 consumer
+//   warps a visit each at a time; each visit's y = sum_g s_g (act_g .
+//   down_g) in group order times its weight goes to shared memory, and the
+//   block adds the kv y w from 0 in visit order (top-k order, then the
+//   pseudo-experts: the TPU grid's order) and rounds once. No yw
+//   workspace, no third launch.
+// - down is launched as a programmatic dependent of gate/up
+//   (cudaLaunchAttributeProgrammaticStreamSerialization; gate/up's blocks
+//   call griddepcontrol.launch_dependents at once): its blocks start while
+//   gate/up runs (90 KB + 76 KB of shared memory at one row fit an SM together) and
+//   stream their code rows (4.6 MB at one row) under gate/up's; only the
+//   act rows wait for gate/up to finish (griddepcontrol.wait). In plain
+//   stream order the pair took 0.017 ms at one row against 0.013; down
+//   alone takes about 7 us whether its code rows come from HBM or,
+//   prefetched by gate/up, from L2 (PERF.md).
+// Rows: a row's bits depend on its own x, routing and weights alone (its
+// units, its down blocks, fixed orders). Shapes: B H <= 16 * 1280 (x staged
+// in shared memory), (k + n_sh) I <= 32 * 1024 (a row's act rows), H and I
+// multiples of 128 (ops/moe_q4.q4_sel_takes; f32 x and other shapes take
+// the first form).
 
 #include "moe_quant.cuh"
 #include "sm90.cuh"
@@ -570,6 +610,293 @@ int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel M with bf16 x (moe_q4_sel_bf16; see the header): per-selection
+// visits v = b kv + j, kv = k + n_sh, row b's selection j < k (expert
+// idx[b, j]) or pseudo-expert j - k.
+
+constexpr int SEL_COLS = 8;             // columns of I a gate/up unit: its 8 gate and 8 up code rows, one m16 tile
+constexpr int SEL_WARPS = 8;            // gate/up consumer warps, a unit each at a time
+constexpr int SEL_MAX_STAGES = 16;
+constexpr int SEL_SMEM = 128 * 1024;    // a gate/up block's shared memory at most: a down block fits beside it
+constexpr int SEL_MAX_X = 16 * 1280;    // x values a gate/up block stages (B H)
+constexpr int SEL_MAX_ACT = 32 * 1024;  // act values a down block stages (kv I)
+constexpr int SD_ROWS = 16;             // down: output columns of H a block, one m16 tile
+constexpr int SD_WARPS = 8;             // down consumer warps, a visit each at a time
+constexpr int SD_MAX_STAGES = 8;
+// A ring slot is always consumed by the same warp (slot = j % stages, warp =
+// j % warps, stages a multiple of warps): a warp then never waits on a slot
+// whose previous phase another warp has yet to see complete, which the
+// barrier's parity could not tell from its own.
+static_assert(SD_MAX_STAGES % SD_WARPS == 0, "down: a ring slot belongs to one consumer warp");
+
+// Where logical column i of an act row or x row lies for stream_item_mma:
+// bits 0 and 1 of the position swapped (frag_order's order).
+__host__ __device__ __forceinline__ int pair_slot(int i) { return (i & ~3) | ((i & 1) << 1) | ((i >> 1) & 1); }
+
+__device__ __forceinline__ int sel_expert(const long long* idx, int v, int k, int kv, int ld, int n_exp) {
+  const int b = v / kv, j = v - b * kv;
+  return j < k ? (int)idx[(size_t)b * ld + j] : n_exp + j - k;
+}
+
+// Gate/up: x rows [nb][H] in fragment order, then the ring. A stage is one
+// unit (visit v, columns i0 .. i0 + 7 of I): its 8 gate code rows (one bulk
+// copy of 8 H / 2 contiguous bytes), its 8 up rows (another), then their
+// group scales (two more).
+struct SelGuLayout {
+  int rb, ng, x_bytes, stage_bytes, stages, bar_off;
+  size_t smem;
+  __host__ __device__ SelGuLayout(int h_dim, int nb) {
+    rb = h_dim / 2;
+    ng = h_dim / GROUP;
+    x_bytes = round128(nb * h_dim * 2);
+    stage_bytes = round128(2 * SEL_COLS * (rb + ng * 4));
+    const int fit = (SEL_SMEM - x_bytes - 2 * SEL_MAX_STAGES * 8) / stage_bytes;
+    stages = (fit < SEL_MAX_STAGES ? fit : SEL_MAX_STAGES) / SEL_WARPS * SEL_WARPS;  // a slot a warp's (below)
+    bar_off = x_bytes + stages * stage_bytes;
+    smem = bar_off + 2 * stages * 8;
+  }
+};
+
+// Launch 1. Units u = (visit u / (I / 8), 8 columns), block b taking u = b,
+// b + gridDim.x, ..., its j-th in ring slot j % stages; consumer warp w takes
+// the block's units j = w, w + SEL_WARPS, ... (stages a multiple of
+// SEL_WARPS, so a slot is always the same warp's: a warp that waited on a
+// slot another warp had not yet seen complete could take the barrier's
+// parity for its own phase and read a stale stage), each a whole dot over H: a
+// m16n8k16 tile of the 8 gate rows (A rows 0-7) and the 8 up rows (rows
+// 8-15) against the visit's x row (B column 0), group by group, each
+// group's f32 sum times its scale before it joins the sum (group order).
+// Lane (g, 0) then holds gate and up of column i0 + g: act = bf16(silu(gate)
+// up) to act [nb kv, I] at pair_slot. (A unit split over two warps, half of
+// H's groups each, measured slower: PERF.md.) The last warp produces.
+// Every block lets the down launch start at once (grid_dep_launch).
+__global__ void __launch_bounds__(32 * (SEL_WARPS + 1), 1)
+    sel_gu_q4_kernel(const bf16* __restrict__ x, Streams w, const long long* __restrict__ idx,
+                     bf16* __restrict__ act, int nb, int n_exp, int k, int ld, int n_sh, int h_dim, int i_dim) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SelGuLayout lay(h_dim, nb);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + lay.stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kv = k + n_sh, n_ct = i_dim / SEL_COLS, n_units = nb * kv * n_ct;
+  const int rb = lay.rb, ng = lay.ng;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < lay.stages; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], 1);
+    }
+    sm90::mbar_fence_init();
+  }
+  sm90::grid_dep_launch();
+  __syncthreads();
+
+  if (warp == SEL_WARPS) {  // the producer: lane 0 copies, lane l holds the expert of the unit 32 j' + l
+    int e_l = 0;
+    for (int u = blockIdx.x, j = 0; u < n_units; u += gridDim.x, ++j) {
+      if (j % 32 == 0) {
+        const int ul = u + lane * gridDim.x;
+        e_l = ul < n_units ? sel_expert(idx, ul / n_ct, k, kv, ld, n_exp) : 0;
+      }
+      const int e = __shfl_sync(FULL, e_l, j % 32);
+      if (lane == 0) {
+        const int i0 = SEL_COLS * (u % n_ct), slot = j % lay.stages;
+        sm90::mbar_wait(&empty[slot], ((j / lay.stages) & 1) ^ 1);  // a fresh slot passes at once
+        const bool pe = e >= n_exp;
+        const size_t row0 = (size_t)(pe ? e - n_exp : e) * 2 * i_dim;
+        const uint8_t* codes = pe ? w.pgu : w.gu;
+        const float* scales = pe ? w.pgus : w.gus;
+        unsigned char* dst = smem + lay.x_bytes + slot * lay.stage_bytes;
+        sm90::mbar_arrive_expect_tx(&full[slot], 2 * SEL_COLS * (rb + ng * 4));
+        sm90::bulk_load(dst, codes + (row0 + i0) * rb, SEL_COLS * rb, &full[slot]);
+        sm90::bulk_load(dst + SEL_COLS * rb, codes + (row0 + i_dim + i0) * rb, SEL_COLS * rb, &full[slot]);
+        sm90::bulk_load(dst + 2 * SEL_COLS * rb, scales + (row0 + i0) * ng, SEL_COLS * ng * 4, &full[slot]);
+        sm90::bulk_load(dst + 2 * SEL_COLS * rb + SEL_COLS * ng * 4, scales + (row0 + i_dim + i0) * ng,
+                        SEL_COLS * ng * 4, &full[slot]);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // The consumers stage x (16-byte chunks in fragment order), then take
+  // their units.
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  for (int c = threadIdx.x; c < nb * h_dim / 8; c += 32 * SEL_WARPS)
+    reinterpret_cast<uint4*>(xs)[c] = frag_order(__ldg(reinterpret_cast<const uint4*>(x) + c));
+  sm90::bar_sync(1, 32 * SEL_WARPS);
+  const int g = lane / 4, qd = lane % 4;
+  for (int u = blockIdx.x + warp * gridDim.x, j = warp; u < n_units; u += SEL_WARPS * gridDim.x, j += SEL_WARPS) {
+    const int slot = j % lay.stages;
+    const int v = u / n_ct, i0 = SEL_COLS * (u - v * n_ct);
+    const bf16* xrow = g == 0 ? xs + (size_t)(v / kv) * h_dim : nullptr;  // B's column 0: the visit's row
+    sm90::mbar_wait(&full[slot], (j / lay.stages) & 1);
+    const unsigned char* st = smem + lay.x_bytes + slot * lay.stage_bytes;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * SEL_COLS * rb);
+    float gate = 0.f, up = 0.f;
+#pragma unroll 2
+    for (int grp = 0; grp < ng; ++grp) {  // unrolled: two groups' products in flight, summed in order
+      float part[4];
+      q4::stream_item_mma(st + GB * grp, rb, xrow ? xrow + GROUP * grp : nullptr, part);
+      gate += part[0] * sc[g * ng + grp];
+      up += part[2] * sc[(SEL_COLS + g) * ng + grp];
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[slot]);  // the stage is read: refill it
+    if (qd == 0) act[(size_t)v * i_dim + pair_slot(i0 + g)] = __float2bfloat16_rn(silu(gate) * up);
+  }
+}
+
+// Down: the row's kv act rows (one bulk copy), the ring, the visits' y w
+// [kv][16] f32, the barriers. A stage is one visit: the block's 16 code
+// rows of its expert (one copy of 16 I / 2 contiguous bytes) and their
+// scales (one more).
+struct SelDnLayout {
+  int rb, ng, act_bytes, stage_bytes, stages, yw_off, bar_off;
+  size_t smem;
+  __host__ __device__ SelDnLayout(int i_dim, int kv) {
+    rb = i_dim / 2;
+    ng = i_dim / GROUP;
+    act_bytes = round128(kv * i_dim * 2);
+    stage_bytes = round128(SD_ROWS * (rb + ng * 4));
+    stages = kv < SD_MAX_STAGES ? kv : SD_MAX_STAGES;
+    yw_off = act_bytes + stages * stage_bytes;
+    bar_off = yw_off + round128(kv * SD_ROWS * 4);
+    smem = bar_off + (2 * stages + 1) * 8;
+  }
+};
+
+// Launch 2, the combine folded in. Block (h tile, row b): output columns
+// h0 .. h0 + 15 of row b over its kv visits. The producer (the last warp)
+// streams the visits' code rows from the start, while gate/up still runs
+// (a programmatic dependent launch: only the act rows wait for it,
+// grid_dep_wait), then the act rows; consumer warp w takes visits w, w +
+// SD_WARPS, ...: the 16 code rows as A, the visit's act row as B's column
+// 0, y = sum_g s_g (act_g . down_g) in group order, y * w to yw[j]. Then
+// the block's first 16 threads add the visits' y w in visit order (top-k
+// order, then the pseudo-experts) from 0 in f32 and round once.
+__global__ void __launch_bounds__(32 * (SD_WARPS + 1))
+    sel_down_q4_kernel(const bf16* __restrict__ act, Streams w, const long long* __restrict__ idx,
+                       const float* __restrict__ wts, bf16* __restrict__ out, int n_exp, int k, int ld, int n_sh,
+                       int h_dim, int i_dim) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kv = k + n_sh;
+  const SelDnLayout lay(i_dim, kv);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + lay.stages;
+  uint64_t* act_bar = empty + lay.stages;
+  float* yw = reinterpret_cast<float*>(smem + lay.yw_off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h0 = blockIdx.x * SD_ROWS, b = blockIdx.y;
+  const int rb = lay.rb, ng = lay.ng;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < lay.stages; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], 1);
+    }
+    sm90::mbar_init(act_bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == SD_WARPS) {  // the producer: lane 0 copies, lane l holds visit 32 j' + l's expert
+    auto load_act = [&] {
+      sm90::grid_dep_wait();  // gate/up has finished: act is written
+      sm90::mbar_arrive_expect_tx(act_bar, kv * i_dim * 2);
+      sm90::bulk_load(smem, act + (size_t)b * kv * i_dim, kv * i_dim * 2, act_bar);
+    };
+    int e_l = 0;
+    for (int j = 0; j < kv; ++j) {
+      if (j % 32 == 0) e_l = j + lane < kv ? sel_expert(idx, b * kv + j + lane, k, kv, ld, n_exp) : 0;
+      const int e = __shfl_sync(FULL, e_l, j % 32);
+      if (lane == 0) {
+        if (j == lay.stages) load_act();  // the ring is full: the act rows before its next stage
+        const int slot = j % lay.stages;
+        sm90::mbar_wait(&empty[slot], ((j / lay.stages) & 1) ^ 1);
+        const bool pe = e >= n_exp;
+        const size_t row0 = (size_t)(pe ? e - n_exp : e) * h_dim + h0;
+        unsigned char* dst = smem + lay.act_bytes + slot * lay.stage_bytes;
+        sm90::mbar_arrive_expect_tx(&full[slot], SD_ROWS * (rb + ng * 4));
+        sm90::bulk_load(dst, (pe ? w.pdown : w.down) + row0 * rb, SD_ROWS * rb, &full[slot]);
+        sm90::bulk_load(dst + SD_ROWS * rb, (pe ? w.pds : w.ds) + row0 * ng, SD_ROWS * ng * 4, &full[slot]);
+      }
+      __syncwarp();
+    }
+    if (lane == 0 && kv <= lay.stages) load_act();
+    return;
+  }
+
+  const int g = lane / 4, qd = lane % 4;
+  const bf16* as = reinterpret_cast<const bf16*>(smem);
+  sm90::mbar_wait(act_bar, 0);
+  for (int j = warp; j < kv; j += SD_WARPS) {
+    const float wt = j < k ? __ldg(wts + (size_t)b * ld + j) : 1.f;
+    const int slot = j % lay.stages;
+    sm90::mbar_wait(&full[slot], (j / lay.stages) & 1);
+    const unsigned char* st = smem + lay.act_bytes + slot * lay.stage_bytes;
+    const float* sc = reinterpret_cast<const float*>(st + SD_ROWS * rb);
+    const bf16* arow = g == 0 ? as + (size_t)j * i_dim : nullptr;
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll 2
+    for (int grp = 0; grp < ng; ++grp) {
+      float part[4];
+      q4::stream_item_mma(st + GB * grp, rb, arow ? arow + GROUP * grp : nullptr, part);
+      y0 += part[0] * sc[g * ng + grp];
+      y1 += part[2] * sc[(g + 8) * ng + grp];
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[slot]);
+    if (qd == 0) {
+      yw[j * SD_ROWS + g] = y0 * wt;
+      yw[j * SD_ROWS + g + 8] = y1 * wt;
+    }
+  }
+  sm90::bar_sync(1, 32 * SD_WARPS);
+  if (threadIdx.x < SD_ROWS) {
+    float o = 0.f;
+    for (int j = 0; j < kv; ++j) o += yw[j * SD_ROWS + threadIdx.x];
+    out[(size_t)b * h_dim + h0 + threadIdx.x] = __float2bfloat16_rn(o);
+  }
+}
+
+int launch_sel(const bf16* x, const Streams& w, const long long* idx, const float* wts, bf16* act, bf16* out, int nb,
+               int n_exp, int k, int ld, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
+  const int kv = k + n_sh;
+  const SelGuLayout gl(h_dim, nb);
+  const SelDnLayout dl(i_dim, kv);
+  if (gl.stages < SEL_WARPS || dl.smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // Both kernels ask for the SM's whole shared memory as such (not L1), so
+  // that a down block fits beside a gate/up block while gate/up runs.
+  cudaError_t err = cudaFuncSetAttribute(sel_gu_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gl.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sel_gu_q4_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sel_down_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sel_down_q4_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int n_units = nb * kv * (i_dim / SEL_COLS);
+  sel_gu_q4_kernel<<<min(n_units, q4::sm_count()), 32 * (SEL_WARPS + 1), gl.smem, s>>>(x, w, idx, act, nb, n_exp, k,
+                                                                                         ld, n_sh, h_dim, i_dim);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(h_dim / SD_ROWS, nb);
+  cfg.blockDim = dim3(32 * (SD_WARPS + 1));
+  cfg.dynamicSmemBytes = dl.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sel_down_q4_kernel, static_cast<const bf16*>(act), w, idx, wts, out, n_exp, k, ld,
+                           n_sh, h_dim, i_dim);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kernel N with bf16 x on the stream. x [B, H] bf16; gu / gus / down / ds
@@ -608,4 +935,28 @@ extern "C" int moe_q4_stream_bf16(const void* x, const void* gu, const void* gus
     if (err != 0) return err;
   }
   return 0;
+}
+
+// Kernel M with bf16 x on the stream (see the header). x [B, H] bf16; gu /
+// gus / down / ds the routed experts and pgu / pgus / pdown / pds the n_sh
+// pseudo-experts (null when n_sh = 0) in moe_quant.cuh's Q4 layout; idx
+// int64 and wts f32 [B, k], rows ld apart; act: a workspace [B (k + n_sh),
+// I] bf16; out [B, H] bf16. Shapes: H and I multiples of 128, B H <= 16 *
+// 1280, (k + n_sh) I <= 32 * 1024, room for x and 8 stages in gate/up's
+// shared memory.
+extern "C" int moe_q4_sel_bf16(const void* x, const void* gu, const void* gus, const void* down, const void* ds,
+                               const void* pgu, const void* pgus, const void* pdown, const void* pds, const void* idx,
+                               const void* wts, void* act, void* out, int nb, int n_exp, int k, int ld, int n_sh,
+                               int h_dim, int i_dim, void* stream) {
+  if (nb <= 0 || n_exp <= 0 || k <= 0 || ld < k || n_sh < 0 || h_dim <= 0 || i_dim <= 0 || h_dim % GROUP ||
+      i_dim % GROUP || nb * h_dim > SEL_MAX_X || (k + n_sh) * i_dim > SEL_MAX_ACT ||
+      (n_sh > 0 && (!pgu || !pgus || !pdown || !pds))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Streams w{static_cast<const uint8_t*>(gu),  static_cast<const float*>(gus), static_cast<const uint8_t*>(down),
+                  static_cast<const float*>(ds),    static_cast<const uint8_t*>(pgu), static_cast<const float*>(pgus),
+                  static_cast<const uint8_t*>(pdown), static_cast<const float*>(pds)};
+  return launch_sel(static_cast<const bf16*>(x), w, static_cast<const long long*>(idx), static_cast<const float*>(wts),
+                    static_cast<bf16*>(act), static_cast<bf16*>(out), nb, n_exp, k, ld, n_sh, h_dim, i_dim,
+                    static_cast<cudaStream_t>(stream));
 }

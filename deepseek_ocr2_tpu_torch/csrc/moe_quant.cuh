@@ -33,10 +33,11 @@
 // Three launches, as F's f32 form: swiglu (grid visit x I tile x row tile)
 // writes act [V, R, I] in T; down writes y * w [V, R, H] in f32; combine
 // sums each output's visits in that fixed order and casts once. This is
-// the first form of J and N: each runs it only with f32 x or a shape its
+// the first form of J, M and N: each runs it only with f32 x or a shape its
 // stream does not take (with bf16 x, J runs F's bulk-copy tensor-core
-// stream in moe_q8.cu, N the same design over int4 codes in moe_q4.cu: no
-// combine launch). No atomics, so a
+// stream in moe_q8.cu, N the same design over int4 codes in moe_q4.cu, M a
+// per-selection stream there: no combine launch). I runs it at every
+// shape. No atomics, so a
 // row's bits depend neither on the other rows of the batch nor on the run.
 // The products are the format's GEMV device code: for the distinct-expert
 // plan with bf16 x its tensor-core block dots (each block's warps split the

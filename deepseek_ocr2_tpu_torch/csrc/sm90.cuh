@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks in inline PTX, for kernels that feed the
 // tensor cores from a ring of TMA loads: mbarriers, TMA tensor loads and
-// stores (cp.async.bulk.tensor), 1-D bulk copies, the wgmma shared-memory
-// descriptor for the 128-byte swizzle, and wgmma m64n256k16 (bf16 in, f32
-// sums) with either operand K-major or MN-major ("transposed"), and the
-// warp-level mma.sync m16n8k16 with its ldmatrix loads. Used by the bf16
-// kernels S, E and T in moe_gmm.cu, by kernel L's streaming form
-// (linear_q4.cuh), by kernel F in bf16 (moe_decode.cu), by the bf16
-// walk of kernels B and V (flash_attention.cu) and by kernel C in bf16 and
-// f32 (fused_mlp.cu: wgmma .bf16 and .tf32 at other widths, below).
+// stores (cp.async.bulk.tensor), 1-D bulk copies, programmatic dependent
+// launch, the wgmma shared-memory descriptor for the 128-byte swizzle, and
+// wgmma m64n256k16 (bf16 in, f32 sums) with either operand K-major or
+// MN-major ("transposed"), and the warp-level mma.sync m16n8k16 with its
+// ldmatrix loads. Used by the bf16 kernels D, S, E and T in moe_gmm.cu (D:
+// two m64n128k16 chains), by kernel L's streaming form (linear_q4.cuh), by
+// kernels F (moe_decode.cu), J, M and N in bf16 (moe_q8.cu, moe_q4.cu), by
+// the bf16 walk of kernels B and V (flash_attention.cu) and by kernel C in
+// bf16 and f32 (fused_mlp.cu: wgmma .bf16 and .tf32 at other widths, below).
 //
 // Layout conventions (the ones TMA writes with CU_TENSOR_MAP_SWIZZLE_128B):
 // a box whose inner dimension is 64 bf16 (128 bytes) lands in shared memory
@@ -90,6 +91,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// Programmatic dependent launch. A kernel launched after another with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the one before has called grid_dep_launch (or exited);
+// grid_dep_wait returns once that kernel has finished and its writes are
+// visible. In a kernel launched without the attribute both are no-ops.
+__device__ __forceinline__ void grid_dep_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void grid_dep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------------
 // TMA. Loads complete on an mbarrier (the full box's bytes count, zeros
@@ -228,7 +237,8 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 // m64n{96, 128}k8 (tf32 takes K-major operands only; the hardware
 // reads the upper 19 bits of each f32 word, so the caller stores values
 // already rounded to tf32). The accumulator layout is m64n256k16's above,
-// with j < N / 8.
+// with j < N / 8. m64n128k16 sums into d[OFF, OFF + 64) of a larger array
+// too (kernel D's gate and up chains in one [128]).
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
@@ -256,7 +266,9 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+template <int OFF = 0, int N>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[N], uint64_t desc_a, uint64_t desc_b) {
+  static_assert(OFF + 64 <= N, "the accumulators lie in d[OFF, OFF + 64)");
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -266,14 +278,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 

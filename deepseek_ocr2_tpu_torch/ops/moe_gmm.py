@@ -10,17 +10,21 @@ Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
   the fused `_gmm_ffn_kernel_al` the JAX package runs by default, with the
   act rounded at the same point. The backward's recompute
   (`_gmm_down_kernel` there) is E three times. In bf16 E runs S's kernel
-  (below) with the weight read K-major, on S's schedule;
+  (below) with the weight read K-major, on S's schedule, and D the same
+  kernel with gate and up in each stage and the SwiGLU in its epilogue, on
+  (row block, SWIGLU_COLS columns of I) items (`swiglu_grid`): each weight
+  slice is read once per 128 rows, where D's first form, a 32-row mma.sync
+  kernel, re-read its expert's gate and up for every 32-row tile;
 - S, `moe_gmm_dx` (replaces `_gmm_dx_kernel`): per tile a @ W_e, the
   weight contracted on its row dim; T, `moe_gmm_dw` (replaces
   `_gmm_dw_kernel`): per expert the sum of dy_t^T x_t over its tiles, in
   f32. The CUDA source is `csrc/moe_gmm.cu` (its header gives the design
   and what bounds each kernel). In bf16 both run wgmma fed by TMA
-  (`csrc/sm90.cuh`) on persistent grids: S and E on (row block of up to
-  128 rows of one expert, 256 columns) work items (`row_block_lo`, `dx_grid`;
-  `dx_row_blocks` is the plain form of its row-block map), T on (expert,
-  128 x 256 outputs) work items (`dw_grid`; `dw_work_items` the plain form
-  of its walk);
+  (`csrc/sm90.cuh`) on persistent grids: S and E (and D, by 128 columns)
+  on (row block of up to 128 rows of one expert, 256 columns) work items
+  (`row_block_lo`, `dx_grid`; `dx_row_blocks` is the plain form of its
+  row-block map), T on (expert, 128 x 256 outputs) work items (`dw_grid`;
+  `dw_work_items` the plain form of its walk);
 - `MoeFfnGmm`, the autograd Function: forward D then E, backward
   `_moe_ffn_gmm_bwd`'s rounding points on the aligned layout (E x 3, S x 3,
   T x 3). The kernels are forward-only outside it (`cuda_build.require_cuda`
@@ -68,7 +72,7 @@ GMM_BM = 32
 # ctypes signatures of csrc/moe_gmm.cu's entry points ("p" a pointer or the
 # stream, "i" an int), set once when the library is first used.
 _SIGNATURES = {
-    "gmm_swiglu_f32": "ppppppiiiip", "gmm_swiglu_bf16": "ppppppiiiip",
+    "gmm_swiglu_f32": "ppppppiiiip", "gmm_swiglu_bf16": "ppppppiiiiiip",
     "gmm_down_f32": "pppppiiiip", "gmm_down_bf16": "pppppiiiiiip",
     "gmm_dx_f32": "pppppiiiip", "gmm_dx_bf16": "pppppiiiiiip",
     "gmm_dw_f32": "ppppiiip", "gmm_dw_bf16": "ppppiiiiip",
@@ -173,21 +177,30 @@ def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4, 
         raise ValueError("kernels D, E and S read 16-byte aligned rows")
 
 
-def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid) -> torch.Tensor:
+def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Tensor:
     """Kernel D: x_al [S, H] (row tiles of one expert each), w_gate / w_up
-    [E, I, H], e_tile / tile_valid [T] int32 -> act [S, I] in x_al.dtype."""
+    [E, I, H], e_tile / tile_valid [T] int32 -> act [S, I] in x_al.dtype.
+    bf16 runs E's row-block kernel with two weights and the SwiGLU
+    epilogue, on the schedule of `row_schedule`, built here unless the
+    caller passes it (the forward builds it once a layer for D and E)."""
     if x_al.device.type == "cpu":
         return gmm_swiglu_reference(x_al, w_gate, w_up, e_tile, tile_valid)
     n_tiles, bm = _tiles(x_al, e_tile)
     e, i, h = w_gate.shape
     if w_up.shape != (e, i, h):
         raise ValueError(f"gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} differ")
-    _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i)
-    fn = _fn("gmm_swiglu_f32" if x_al.dtype == torch.float32 else "gmm_swiglu_bf16")
-    act = torch.zeros(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)
     p = cuda_build.ptr
-    err = fn(p(x_al), p(w_gate), p(w_up), p(e_tile), p(tile_valid), p(act), n_tiles, bm, h, i,
-             cuda_build.stream_of(x_al))
+    if x_al.dtype == torch.bfloat16:
+        tile_lo, blk_lo = _checked_schedule(e_tile, tile_valid, e, tile_lo, blk_lo)
+        _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i, 8, (tile_lo, blk_lo))
+        act = torch.empty(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)  # the kernel writes every row
+        err = _fn("gmm_swiglu_bf16")(p(x_al), p(w_gate), p(w_up), p(tile_lo), p(blk_lo), p(act), n_tiles, bm, h, i,
+                                     e, swiglu_grid(n_tiles, e, i, _n_sms(x_al.device)), cuda_build.stream_of(x_al))
+    else:
+        _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i)
+        act = torch.zeros(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)  # invalid tiles stay zero
+        err = _fn("gmm_swiglu_f32")(p(x_al), p(w_gate), p(w_up), p(e_tile), p(tile_valid), p(act), n_tiles, bm, h,
+                                    i, cuda_build.stream_of(x_al))
     cuda_build.check(err, "moe_gmm swiglu")
     moe_gmm_swiglu.launches += 1
     return act
@@ -280,11 +293,23 @@ def dx_grid(n_tiles: int, n_experts: int, c_dim: int, n_sms: int) -> int:
     return min(n_sms, dx_grid_rows(n_tiles, n_experts) * -(-c_dim // DX_COLS))
 
 
+# Kernel D in bf16 walks S's row blocks by SWIGLU_COLS columns of I: a
+# stage holds both weights' slices, so half of S's 256 columns.
+SWIGLU_COLS = 128
+
+
+def swiglu_grid(n_tiles: int, n_experts: int, i_dim: int, n_sms: int) -> int:
+    """D's persistent grid: one block per SM, or one per work item (row
+    block by SWIGLU_COLS columns of I) if there are fewer."""
+    return min(n_sms, dx_grid_rows(n_tiles, n_experts) * -(-i_dim // SWIGLU_COLS))
+
+
 def dx_row_blocks(tile_lo: torch.Tensor, blk_lo: torch.Tensor, n_tiles: int) -> torch.Tensor:
     """The plain form of S's row-block map (csrc/moe_gmm.cu
     `gmm_dx_wgmma_kernel`): [dx_grid_rows, 3] int64, per row block b its
     (expert, first tile, end tile); the kernel's work item i is row block
-    i // ceil(C / DX_COLS) by column block i % ceil(C / DX_COLS). Row block
+    i // ceil(C / DX_COLS) by column block i % ceil(C / DX_COLS) (D's: by
+    SWIGLU_COLS columns of I). Row block
     b < blk_lo[E] multiplies tiles [first, end) of the expert e with
     blk_lo[e] <= b < blk_lo[e + 1]; the next ones zero the invalid tail,
     DX_TILES tiles each (expert -1); the rest have first = end = n_tiles
@@ -303,8 +328,8 @@ def dx_row_blocks(tile_lo: torch.Tensor, blk_lo: torch.Tensor, n_tiles: int) -> 
 
 
 def row_schedule(e_tile: torch.Tensor, tile_valid: torch.Tensor, n_experts: int):
-    """(tile_lo, blk_lo): the schedule of S and E in bf16 for one layout,
-    on the device, no host sync."""
+    """(tile_lo, blk_lo): the schedule of D, S and E in bf16 for one
+    layout, on the device, no host sync."""
     tile_lo = expert_tile_ranges(e_tile, tile_valid, n_experts)
     return tile_lo, row_block_lo(tile_lo)
 
@@ -485,8 +510,9 @@ def align_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int 
 def _forward_aligned(x_flat, experts, weights, layout, k: int) -> torch.Tensor:
     assign, slot_valid, e_tile, tile_valid, rows = layout
     x_al = _gather_rows(x_flat, assign, slot_valid, k)
-    act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
-    sched = row_schedule(e_tile, tile_valid, experts["down"].shape[0]) if act.dtype == torch.bfloat16 else ()
+    # The bf16 kernels' schedule, once for D and E.
+    sched = row_schedule(e_tile, tile_valid, experts["down"].shape[0]) if x_al.dtype == torch.bfloat16 else ()
+    act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid, *sched)
     y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched)
     return _combine(y_al.index_select(0, rows), weights, x_flat.dtype)
 

@@ -20,9 +20,17 @@ or scale: they are the JAX package's, transposed and repacked.
 Both run at the TPU kernels' rounding points (`_q4_swiglu`): gate and up
 kept in f32 after their group scales, act = round(silu(gate) * up) to x's
 dtype, the down product in f32 (`expert_swiglu_q4`). Both build from
-`csrc/moe_q4.cu`. M, and N with f32 x or a shape the stream does not take,
+`csrc/moe_q4.cu`. M and N with f32 x or a shape their streams do not take
 run the int4 instance of the kernels I and J share (`csrc/moe_quant.cuh`),
-launched by `moe_q8.launch_moe_quant`. N with bf16 x, H and I multiples of
+launched by `moe_q8.launch_moe_quant`. M with bf16 x, H and I multiples of
+128 and the rows and visits within the stream's shared memory
+(`q4_sel_takes`: dtype and shape alone) runs its own stream
+(`moe_q4_sel_bf16`, the header of `csrc/moe_q4.cu` gives the design):
+gate/up as units of 8 columns over every SM, each a warp's whole dot fed
+by bulk copies, then down with the combine folded in (a block owns 16
+columns of H of one row over its visits, adding y * w in visit order),
+launched as a programmatic dependent of gate/up so that its code rows
+stream while gate/up runs. N with bf16 x, H and I multiples of
 128 and H <= STREAM_MAX_H (`q4_stream_takes`: dtype and shape alone) runs
 J's bulk-copy tensor-core stream over int4 codes (`moe_q4_stream_bf16`, the
 header of `csrc/moe_q4.cu` gives the design): gate/up, then down with the
@@ -33,9 +41,9 @@ plain twins are `moe_ffn_decode_q4_reference` and
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Nothing here reads a value back to the host.
-`launches` counts calls that launch M or N (M three CUDA launches; N on the
-stream three, its schedule's included, two more a further group of 32
-rows; N's first form four).
+`launches` counts calls that launch M or N (M on its stream two CUDA
+launches, its first form three; N on the stream three, its schedule's
+included, two more a further group of 32 rows; N's first form four).
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ import torch.nn.functional as F
 from . import cuda_build
 from .linear_q4 import GROUP, dequantize_q4, q4_dot, quantize_q4
 from .moe_decode import combine_table, device_schedule, distinct_schedule
-from .moe_q8 import launch_moe_quant
+from .moe_q8 import launch_moe_quant, routing_rows
 from .paged_attention import _arrival_counters
 
 QExperts4 = Dict[str, torch.Tensor]
@@ -136,7 +144,10 @@ def moe_ffn_decode_q4(x: torch.Tensor, eq: QExperts4, weights: torch.Tensor, idx
     if x.device.type == "cpu":
         return moe_ffn_decode_q4_reference(x, eq, weights, idx, with_shared=with_shared)
     n_sh = eq["pe_gu_q4"].shape[0] if with_shared else 0
-    out = launch_moe_quant(4, True, x, eq, n_sh, idx=idx, weights=weights)
+    if q4_sel_takes(x, eq, idx.shape[1] + n_sh):
+        out = _launch_q4_sel(x, eq, n_sh, idx, weights)
+    else:
+        out = launch_moe_quant(4, True, x, eq, n_sh, idx=idx, weights=weights)
     moe_ffn_decode_q4.launches += 1
     return out
 
@@ -196,28 +207,41 @@ _SM_COUNT: Dict[int, int] = {}
 _STREAM_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
+def _stream_operands(x, eq: QExperts4, n_sh: int, takes: bool, kernel: str, rule: str):
+    """The routed experts' four tensors and the n_sh pseudo-experts' (an
+    empty list without them) for stream kernel `kernel`, checked: `takes`
+    (the stream's own dtype and shape rule, `rule` in words) and x 2-D, the
+    experts in `linear_q4`'s layout for x's H, on x's device and 16-byte
+    aligned. Returns (gu, gus, down, ds, pe, x contiguous)."""
+    gu, gus, down, ds = (eq[n] for n in _NAMES)
+    e, i2, _ = gu.shape
+    i, h = i2 // 2, x.shape[-1]
+    shapes = ((i2, h // 2), (i2, h // GROUP), (h, i // 2), (h, i // GROUP))
+    pe = [eq[f"pe_{n}"] for n in _NAMES] if n_sh else []
+    if not takes or x.dim() != 2 \
+            or any(t.shape != (e, *sh) for t, sh in zip((gu, gus, down, ds), shapes)) \
+            or any(t.shape != (n_sh, *sh) for t, sh in zip(pe, shapes)) \
+            or any(t.dtype != dt for t, dt in zip((gu, gus, down, ds, *pe), (torch.uint8, torch.float32) * 4)):
+        raise ValueError(f"kernel {kernel} takes {rule}, and int4 experts: x {tuple(x.shape)} gu {tuple(gu.shape)} "
+                         f"down {tuple(down.shape)}")
+    x = x.contiguous()
+    cuda_build.require_cuda(x, gu, gus, down, ds, *pe)
+    if any(t.data_ptr() % 16 for t in (x, gu, gus, down, ds, *pe)):
+        raise ValueError(f"kernel {kernel} reads 16-byte aligned rows and scales")
+    return gu, gus, down, ds, pe, x
+
+
 def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.Tensor:
     """Kernel N with bf16 x on J's bulk-copy tensor-core stream
     (`moe_q4_stream_bf16` in `csrc/moe_q4.cu`): gate/up, then down over the
     visits cut into parts at fixed ids, the parts' sums added by the last
     block of each column tile. Returns [B, H] bf16."""
-    gu, gus, down, ds = (eq[n] for n in _NAMES)
-    e, i2, _ = gu.shape
-    i, (b, h) = i2 // 2, x.shape
-    shapes = ((i2, h // 2), (i2, h // GROUP), (h, i // 2), (h, i // GROUP))
-    pe = [eq[f"pe_{n}"] for n in _NAMES] if n_sh else []
-    if not q4_stream_takes(x, eq) or x.dim() != 2 \
-            or any(t.shape != (e, *sh) for t, sh in zip((gu, gus, down, ds), shapes)) \
-            or any(t.shape != (n_sh, *sh) for t, sh in zip(pe, shapes)) \
-            or any(t.dtype != dt for t, dt in zip((gu, gus, down, ds, *pe), (torch.uint8, torch.float32) * 4)):
-        raise ValueError(f"kernel N takes bf16 x [B, H] with H, I multiples of {GROUP} and H <= {STREAM_MAX_H}, and "
-                         f"int4 experts: x {tuple(x.shape)} gu {tuple(gu.shape)} down {tuple(down.shape)}")
+    gu, gus, down, ds, pe, x = _stream_operands(
+        x, eq, n_sh, q4_stream_takes(x, eq), "N", f"bf16 x [B, H] with H, I multiples of {GROUP} and H <= {STREAM_MAX_H}")
     if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
         raise ValueError("kernel N takes an int32 schedule and an f32 combine table")
-    x = x.contiguous()
-    cuda_build.require_cuda(x, gu, gus, down, ds, *pe, ve, valid, w_visit)
-    if any(t.data_ptr() % 16 for t in (x, gu, gus, down, ds, *pe)):
-        raise ValueError("kernel N reads 16-byte aligned rows and scales")
+    cuda_build.require_cuda(x, ve, valid, w_visit)
+    e, i, (b, h) = gu.shape[0], gu.shape[1] // 2, x.shape
     dev = x.get_device()
     if dev not in _SM_COUNT:
         _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -232,4 +256,55 @@ def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.
     err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(ve), p(valid), p(w_visit), p(act),
              p(yw), p(counters), p(out), b, e, n_sh, h, i, warps, parts, cuda_build.stream_of(x))
     cuda_build.check(err, "moe_q4 (N)")
+    return out
+
+
+# Kernel M's stream (`moe_q4_sel_bf16`): x rows a gate/up block stages, act
+# values a down block stages.
+SEL_MAX_X = 16 * 1280
+SEL_MAX_ACT = 32 * 1024
+SEL_SMEM = 128 * 1024  # gate/up's shared memory at most: x, then a ring of stages, 8 at least
+_SEL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def q4_sel_takes(x: torch.Tensor, eq: QExperts4, kv: int) -> bool:
+    """Whether kernel M runs on its stream (`moe_q4_sel_bf16`): bf16 x, H
+    and I multiples of 128, B H <= SEL_MAX_X, kv I <= SEL_MAX_ACT (kv =
+    k + n_sh visits a row) and room for x and 8 stages in gate/up's shared
+    memory; otherwise its first form."""
+    h, i = x.shape[-1], eq["gu_q4"].shape[1] // 2
+    if not (x.dtype == torch.bfloat16 and h % GROUP == 0 and i % GROUP == 0 and x.shape[0] * h <= SEL_MAX_X
+            and kv * i <= SEL_MAX_ACT):
+        return False
+    # gate/up's ring (csrc/moe_q4.cu SelGuLayout): x's rows, then stages of
+    # 8 gate and 8 up code rows with their scales, a multiple of 8 of them.
+    x_bytes = -(-x.shape[0] * h * 2 // 128) * 128
+    stage = -(-16 * (h // 2 + h // GROUP * 4) // 128) * 128
+    return (SEL_SMEM - x_bytes - 256) // stage >= 8
+
+
+def _launch_q4_sel(x, eq: QExperts4, n_sh: int, idx, weights) -> torch.Tensor:
+    """Kernel M with bf16 x on its stream (`moe_q4_sel_bf16` in
+    `csrc/moe_q4.cu`): gate/up over every SM, then down with the combine
+    folded in, launched as a programmatic dependent of gate/up so that its
+    code rows stream while gate/up runs. Returns [B, H] bf16."""
+    idx, weights, ld = routing_rows(idx, weights)
+    k = idx.shape[1]
+    gu, gus, down, ds, pe, x = _stream_operands(
+        x, eq, n_sh, q4_sel_takes(x, eq, k + n_sh), "M",
+        f"bf16 x [B, H] with H, I multiples of {GROUP}, B H <= {SEL_MAX_X} and (k + n_sh) I <= {SEL_MAX_ACT}")
+    e, i, (b, h) = gu.shape[0], gu.shape[1] // 2, x.shape
+    if idx.shape != weights.shape or idx.shape[0] != b:
+        raise ValueError(f"routing idx {tuple(idx.shape)} / weights {tuple(weights.shape)} do not fit x")
+    cuda_build.refuse_autograd(idx, weights)
+    if idx.device != x.device or weights.device != x.device:
+        raise ValueError("kernel M's routing must lie on x's device")
+    act = torch.empty(b * (k + n_sh), i, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    fn = cuda_build.entry("moe_q4", "moe_q4_sel_bf16", _SEL_ARGTYPES)
+    p = cuda_build.ptr
+    pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
+    err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(idx), p(weights), p(act), p(out),
+             b, e, k, ld, n_sh, h, i, cuda_build.stream_of(x))
+    cuda_build.check(err, "moe_q4 (M)")
     return out

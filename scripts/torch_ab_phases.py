@@ -89,7 +89,14 @@ Phases:
 - `decode_quant`: decode per token of a no-crop page at batch 1 on the
   contiguous cache, the LM as `--int8` and as `--int4`, two readings each:
   device ms and launches a token, and K's or O's attention kernel's device
-  ms and its three launches' span on the device;
+  ms and its three launches' span on the device; with `--int4` also M's
+  device ms and launches a token (its stream's two kernels or its first
+  form's three);
+- `moe_q4_sel`: kernel M at one int4 MoE decode layer (E 64 + 2
+  pseudo-experts, k 6, H 1280, I 896) at B 1 with the pseudo-experts, 8
+  and 10 without, against its twin, through the wrapper and in a CUDA
+  graph, with its bound; then the layer as M and as N in a CUDA graph at
+  B 8, 11 and 16 (the B k <= E cut-over);
 - `train`: phase 8 (`phase_train`), the full-width LM's AdamW steps with
   the step time and the profiled step.
 
@@ -619,6 +626,50 @@ def kernel_parts():
     torch.cuda.empty_cache()
 
 
+def moe_q4_sel():
+    # Kernel M (the per-selection int4 MoE) at one int4 MoE decode layer of
+    # the served LM (E 64 + 2 pseudo-experts, k 6, H 1280, I 896, a random
+    # f32 router): B 1 with the pseudo-experts, 8 and 10 without, against
+    # its twin, through the wrapper and in a CUDA graph, with its bound;
+    # then the layer as M and as N in a CUDA graph at B 8, 11 and 16 (the
+    # B k <= E cut-over).
+    from deepseek_ocr2_tpu_torch.ops import moe_q4
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    bf = torch.bfloat16
+    e, k, h, i, n_sh = 64, 6, 1280, 896, 2
+
+    def experts(n):
+        return moe_q4.quantize_experts_q4({{"gate": randn(n, i, h, std=h**-0.5), "up": randn(n, i, h, std=h**-0.5),
+                                           "down": randn(n, h, i, std=i**-0.5)}})
+
+    eq = experts(e)
+    eq_pe = {{**eq, **{{f"pe_{{n}}": t for n, t in experts(n_sh).items()}}}}
+    router = randn(e, h, std=h**-0.5)
+    e_bytes = cs.nbytes(*(eq[n][0] for n in ("gu_q4", "gu_scale", "down_q4", "down_scale")))
+    for b, shared in ((1, True), (8, False), (10, False)):
+        x = randn(b, h, dtype=bf)
+        wts, idx = route(x, router, k)
+        args = (x, eq_pe, wts, idx)
+        n_read = int(torch.unique(idx).numel()) + (n_sh if shared else 0)
+        ref = moe_q4.moe_ffn_decode_q4_reference(*args, with_shared=shared)
+        record("M", f"B {{b}}{{' + 2 pseudo-experts' if shared else ''}}: {{n_read}} experts read, bf16", ref,
+               moe_q4.moe_ffn_decode_q4(*args, with_shared=shared), cs.tolerance(ref, bf),
+               cs.median_ms(lambda: moe_q4.moe_ffn_decode_q4(*args, with_shared=shared)),
+               cs.median_ms(lambda: moe_q4.moe_ffn_decode_q4_reference(*args, with_shared=shared)),
+               cs.bound_ms(cs.nbytes(x, ref, wts, idx) + n_read * e_bytes,
+                           2 * b * (k + (n_sh if shared else 0)) * 3 * h * i, bf),
+               graph=lambda: moe_q4.moe_ffn_decode_q4(*args, with_shared=shared))
+    for b in (8, 11, 16):
+        x = randn(b, h, dtype=bf)
+        args = (x, eq, *route(x, router, k))
+        print(f"[ab {{sys.argv[1]}}] cut-over, one int4 MoE decode layer, B {{b}}: M graph "
+              f"{{cs.graph_ms(lambda: moe_q4.moe_ffn_decode_q4(*args)):.4f}} ms, N graph "
+              f"{{cs.graph_ms(lambda: moe_q4.moe_ffn_decode_q4_fused(*args)):.4f}} ms", flush=True)
+    del eq, eq_pe
+    torch.cuda.empty_cache()
+
+
 def decode_quant():
     # Decode per token of a no-crop page at batch 1 on the contiguous cache,
     # the LM quantized as --int8 (K, H, I) and as --int4 (O, L, M), two
@@ -627,7 +678,7 @@ def decode_quant():
     # difference over 16), and K's or O's share: the device time of its
     # attention kernel, and the span on the device of its three launches (a
     # record_function range around the wrapper's launch: the range's GPU
-    # annotation).
+    # annotation); with --int4 M's device time and launches too.
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from deepseek_ocr2_tpu_torch.configs import OCR2Config
@@ -672,7 +723,15 @@ def decode_quant():
         # first launch's start to its last one's end).
         span = sum(e.self_device_time_total for e in rows if e.key == "fused attention"
                    and e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        return busy, sum(e.count for e in kern), attn, span, calls
+        m_rows = [e for e in kern if is_m(e.key)]
+        return (busy, sum(e.count for e in kern), attn, span, calls,
+                sum(e.self_device_time_total for e in m_rows) / 1e3, sum(e.count for e in m_rows))
+
+    def is_m(key):
+        # Kernel M's launches: its stream's two kernels, or its first form's
+        # three (moe_quant's int4 swiglu and down, the per-selection combine).
+        return ("sel_gu_q4" in key or "sel_down_q4" in key or ("moe_quant::" in key and "Q4" in key)
+                or "combine_kernel<__nv_bfloat16, true>" in key)
 
     bf16_lm = params["lm"]
     for flag, bits, kernel in (("--int8", 8, "K"), ("--int4", 4, "O")):
@@ -681,11 +740,12 @@ def decode_quant():
         measure(lm, n + 1)  # warm-up
         for rep in range(2):
             one, many = measure(lm, 1), measure(lm, n + 1)
-            dev_ms, launches, attn_ms, span_ms, calls = ((b - a) / n for a, b in zip(one, many))
+            dev_ms, launches, attn_ms, span_ms, calls, m_ms, m_launches = ((b - a) / n for a, b in zip(one, many))
+            m_part = f"; M {{m_ms:.3f}} ms in {{m_launches:.1f}} launches" if bits == 4 else ""
             print(f"[ab {{sys.argv[1]}}] decode per token, no-crop page, batch 1, LM {{flag}}, run {{rep}}: device "
                   f"{{dev_ms:.3f}} ms in {{launches:.1f}} launches; {{kernel}}'s attention kernel {{attn_ms:.3f}} ms "
                   f"({{100 * attn_ms / dev_ms:.1f}} %), {{kernel}}'s span on the device {{span_ms:.3f}} ms "
-                  f"({{100 * span_ms / dev_ms:.1f}} %) in {{calls:.1f}} calls", flush=True)
+                  f"({{100 * span_ms / dev_ms:.1f}} %) in {{calls:.1f}} calls{{m_part}}", flush=True)
         del lm
         torch.cuda.empty_cache()
     attn_fused._launch = launch
@@ -733,6 +793,8 @@ for phase in {phases!r}:
         kernel_parts()
     elif phase == "decode_quant":
         decode_quant()
+    elif phase == "moe_q4_sel":
+        moe_q4_sel()
     elif phase == "train":
         cs.phase_train(dev)
     else:

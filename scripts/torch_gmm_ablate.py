@@ -1,13 +1,23 @@
-"""Where kernels S and T (bf16) spend their time: each ablation removes one
-part of `csrc/moe_gmm.cu` in a copy of the package and times both kernels
-again, in a CUDA graph, at a training step's MoE layer (B 4 x S 512 tokens,
-k 6 of 64 experts, H 1280, I 896: 12 288 rows, chip_smoke's phase 2 shapes).
+"""Where kernels D, S and T (bf16) spend their time: each ablation removes
+one part of `csrc/moe_gmm.cu` in a copy of the package and times the
+kernels again, in a CUDA graph: D at the prompt of a 2-crop page (N 550)
+and at a training step's MoE layer, S and T at the training step's (B 4 x
+S 512 tokens, k 6 of 64 experts, H 1280, I 896: 12 288 rows, chip_smoke's
+phase 2 shapes).
 
 Ablations (each a text patch of the source; the script stops if the source
 no longer holds the text it patches):
-- `none`: the kernels as they are (their errors against the twins printed);
-- `s_no_store`: S's epilogue computes its tile but issues no TMA store;
-- `s_no_mma`: S loads every stage but runs no wgmma;
+- `none`: the kernels as they are (their errors against the twins printed),
+  and D's yardstick, one `torch._grouped_mm` call over the gate||up weight
+  (the products alone, no SwiGLU), in a CUDA graph;
+- `rows_no_store`: D's, E's and S's epilogue (gmm_rows_wgmma_kernel)
+  computes its tile but issues no TMA store;
+- `rows_no_load`: D's, E's and S's producer loads nothing (the stages
+  complete at once, stale): the consumers' time alone;
+- `d_no_mma`: D loads every stage but runs no wgmma;
+- `d_no_swiglu`: D's epilogue stores the gate sums, no SwiGLU;
+- `d_stages3`: D on three stages of 48 KB, as E and S, in place of four;
+- `s_no_mma`: S (and E) load every stage but run no wgmma;
 - `t_no_store`: T issues no TMA store of its f32 sums;
 - `t_no_mma`: T loads every stage but runs no wgmma.
 An ablated kernel's output is wrong; only its time means anything. Each
@@ -15,7 +25,7 @@ ablation runs in its own process on its own build (under `build/gmm_ablate/`).
 The wrapper's host time per call is printed too (calls enqueued behind a
 long sleep kernel, so the card's time does not count).
 
-    python3 scripts/torch_gmm_ablate.py [none s_no_store ...]   # on the card
+    python3 scripts/torch_gmm_ablate.py [none rows_no_store ...]   # on the card
 """
 
 from __future__ import annotations
@@ -27,14 +37,27 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = "deepseek_ocr2_tpu_torch/csrc/moe_gmm.cu"
-S_STORE = "if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * 4 + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);"
-S_MMA = "sm90::wgmma_m64n256k16<0, 1>(acc, sm90::desc_add(da, 32 * kk), sm90::desc_add(db, 16 * 128 * kk));"
+ROWS_STORE = ("if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * (BN / 64) + j) * SX_OUT_BOX, "
+              "n0 + 64 * j, t * BM);")
+ROWS_LOAD = ("          sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);\n"
+             "          sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);\n"
+             "#pragma unroll\n"
+             "          for (int j = 0; j < 4; ++j) {")
+D_MMA = ("            sm90::wgmma_m64n128k16<0>(acc, dak, sm90::desc_add(db, 32 * kk));\n"
+         "            sm90::wgmma_m64n128k16<64>(acc, dak, sm90::desc_add(db, 2 * SX_B_BOX + 32 * kk));")
+D_SWIGLU = "v = __floats2bfloat162_rn(swiglu(acc[a], acc[64 + a]), swiglu(acc[a + 1], acc[65 + a]));"
+S_MMA = ("sm90::wgmma_m64n256k16<0, KIND>(acc, dak, sm90::desc_add(db, (KIND == ROWS_N_MAJOR ? 16 * 128 : 32) * kk));")
 T_STORE = "sm90::tma_store_3d(&map_dw, ob + box * (64 * 128), c0 + 32 * box, o0 + 64 * wg, e);"
 T_MMA = ("sm90::wgmma_m64n256k16<1, 1>(acc, da, db);\n"
          "      sm90::wgmma_m64n256k16<1, 1>(acc, sm90::desc_add(da, 16 * 128), sm90::desc_add(db, 16 * 128));")
 ABLATIONS = {
     "none": [],
-    "s_no_store": [(S_STORE, ";")],
+    "rows_no_store": [(ROWS_STORE, ";")],
+    "rows_no_load": [(ROWS_LOAD, "          sm90::mbar_arrive(bar);\n          for (int j = 0; j < 0; ++j) {")],
+    "d_no_mma": [(D_MMA, "            ;")],
+    "d_no_swiglu": [(D_SWIGLU, "v = __floats2bfloat162_rn(acc[a], acc[a + 1]);")],
+    "d_stages3": [("constexpr int ROWS_STAGES = KIND == ROWS_SWIGLU ? 4 : SX_STAGES;",
+                   "constexpr int ROWS_STAGES = SX_STAGES;")],
     "s_no_mma": [(S_MMA, ";")],
     "t_no_store": [(T_STORE, ";")],
     "t_no_mma": [(T_MMA, ";")],
@@ -66,7 +89,17 @@ x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
 dy, act = randn(x_al.shape[0], h, dtype=dt), randn(x_al.shape[0], i, dtype=dt)
 tile_lo = moe_gmm.expert_tile_ranges(e_tile, tile_valid, e)
 blk_lo = moe_gmm.row_block_lo(tile_lo)
+# D at N 550 (a 2-crop prompt) on its own layout, and at the training rows.
+x5 = randn(550, h, dtype=dt)
+_, idx5 = route(x5, randn(e, h, std=h**-0.5), k)
+x5_al, e_tile5, tile_valid5, _ = moe_gmm.align_rows(x5, idx5, e)
+sched5 = moe_gmm.row_schedule(e_tile5, tile_valid5, e)
+wu = randn(e, i, h, std=h**-0.5, dtype=dt)
 cases = [
+    ("D N 550", (x5_al, wg, wu), lambda a, w, u: moe_gmm.moe_gmm_swiglu(a, w, u, e_tile5, tile_valid5, *sched5),
+     lambda a, w, u: moe_gmm.gmm_swiglu_reference(a, w, u, e_tile5, tile_valid5)),
+    ("D N 2048", (x_al, wg, wu), lambda a, w, u: moe_gmm.moe_gmm_swiglu(a, w, u, e_tile, tile_valid, tile_lo, blk_lo),
+     lambda a, w, u: moe_gmm.gmm_swiglu_reference(a, w, u, e_tile, tile_valid)),
     ("S dact", (dy, wd), lambda a, w: moe_gmm.moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo, blk_lo),
      lambda a, w: moe_gmm.gmm_dx_reference(a, w, e_tile, tile_valid)),
     ("S dx_gate", (act, wg), lambda a, w: moe_gmm.moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo, blk_lo),
@@ -87,6 +120,11 @@ for name, args, fn, twin in cases:
     host_us = (time.perf_counter() - t0) / 100 * 1e6
     torch.cuda.synchronize()
     out.append(f"{{name}} graph {{graph:.4f}} ms (err {{err:.1e}}), host {{host_us:.1f}} us")
+if {name!r} == "none":  # D's yardstick: one torch._grouped_mm call over gate||up, the products alone
+    for label, a, et, tv in (("D N 550", x5_al, e_tile5, tile_valid5), ("D N 2048", x_al, e_tile, tile_valid)):
+        lib = cs.grouped_mm_library("D", a, torch.cat([wg, wu], 1), et, tv)
+        if lib is not None:
+            out.append(f"{{label}} library graph {{cs.graph_ms(lib):.4f}} ms")
 print("[ablate {name}] " + "; ".join(out), flush=True)
 """
 

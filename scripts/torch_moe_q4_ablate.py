@@ -1,11 +1,15 @@
 """Where kernel N's stream (the int4 batched-decode MoE with bf16 x,
-`csrc/moe_q4.cu` `gu_q4_kernel` then `down_q4_kernel`) spends its time:
-each variant changes one part of the source in a copy of the package and
-times N again through its wrapper in a CUDA graph at one int4 MoE decode
-layer of the served LM (E 64 + 2 pseudo-experts, k 6, H 1280, I 896, a
-random f32 router) at B 8, 16 and 32, beside its bound (the experts read,
-codes and scales, once, over 3.35 TB/s); at B 16 also each of its three
-launches' device time (torch.profiler, 20 calls).
+`csrc/moe_q4.cu` `gu_q4_kernel` then `down_q4_kernel`) and kernel M's
+(the per-selection one, `sel_gu_q4_kernel` then `sel_down_q4_kernel`)
+spend their time: each variant changes one part of the source in a copy
+of the package and times the kernel again through its wrapper in a CUDA
+graph at one int4 MoE decode layer of the served LM (E 64 + 2
+pseudo-experts, k 6, H 1280, I 896, a random f32 router), beside its bound
+(the experts read, codes and scales, once, over 3.35 TB/s): N at B 8, 16
+and 32, at B 16 also each of its three launches' device time; M (the
+variants named `m_...`) at one row with the pseudo-experts and at B 8 and
+10 without, at one row also each of its two launches' device time and
+the span of a call (torch.profiler, 20 calls).
 
 Variants (each a text patch of the source; the script stops if the source
 no longer holds the text it patches):
@@ -30,8 +34,22 @@ no longer holds the text it patches):
 - `no_dn_mma`: down multiplies nothing;
 - `dn_no_copy`: down's producer copies nothing: its consumers' time alone;
 - `dn_no_act`: down copies no act rows (its products read stale rows).
-A patched kernel is wrong (all but `none`, `gu_red2`, `gu_nt2`, `gu_bufs1`
-and `dn_unroll2`); only its time means anything. Each variant runs in its own
+M's variants:
+- `m_none`: M as it is (the error against its twin printed);
+- `m_no_pdl`: down launched in plain stream order, not as a programmatic
+  dependent of gate/up (its weights no longer stream under gate/up);
+- `m_gu_only` / `m_down_only`: one of the two launches is not made;
+- `m_gu_no_copy` / `m_dn_no_copy`: gate/up's or down's producer copies no
+  code rows (the consumers read stale stages);
+- `m_gu_no_dots`: gate/up's consumers decode and multiply nothing (the
+  stages still arrive and are waited on);
+- `m_gu_no_x`: gate/up's consumers stage no x rows;
+- `m_gu_no_idx`: gate/up's producer reads no expert ids (visit v takes
+  expert v mod E);
+- `m_gu_one_unit`: each gate/up block takes one unit: the launch, the
+  staging, one unit's copies and dot and act's write alone.
+A patched kernel is wrong (all but `none`, `gu_red2`, `gu_nt2`, `gu_bufs1`,
+`dn_unroll2`, `m_none` and `m_no_pdl`); only its time means anything. Each variant runs in its own
 process on its own build (under `build/moe_q4_ablate/`); the builds run
 side by side first.
 
@@ -52,6 +70,11 @@ GU_COPY = ("      sm90::mbar_arrive_expect_tx(&full[slot], 2 * GU_COLS * (rb + n
            "      sm90::bulk_load(dst, codes + (size_t)i0 * rb, GU_COLS * rb, &full[slot]);\n")
 DN_COPY = ("        sm90::mbar_arrive_expect_tx(&full[slot], nb * lay.as * 2 + cols * (lay.rb + lay.ng * 4));\n"
            "        sm90::bulk_load(dst, act + (size_t)a * ROWS * lay.as, nb * lay.as * 2, &full[slot]);\n")
+SEL_GU_COPY = ("        sm90::mbar_arrive_expect_tx(&full[slot], 2 * SEL_COLS * (rb + ng * 4));\n"
+               "        sm90::bulk_load(dst, codes + (row0 + i0) * rb, SEL_COLS * rb, &full[slot]);\n")
+SEL_DN_COPY = ("        sm90::mbar_arrive_expect_tx(&full[slot], SD_ROWS * (rb + ng * 4));\n"
+               "        sm90::bulk_load(dst, (pe ? w.pdown : w.down) + row0 * rb, SD_ROWS * rb, &full[slot]);\n"
+               "        sm90::bulk_load(dst + SD_ROWS * rb, (pe ? w.pds : w.ds) + row0 * ng, SD_ROWS * ng * 4, &full[slot]);\n")
 VARIANTS = {
     "none": [],
     "gu_only": [("  down_q4_kernel<MT><<<", "  if (false) down_q4_kernel<MT><<<")],
@@ -82,6 +105,22 @@ VARIANTS = {
                    ("(pe ? w.pds : w.ds) + row0 * lay.ng, cols * lay.ng * 4, &full[slot]);\n",
                     "(pe ? w.pds : w.ds) + row0 * lay.ng, cols * lay.ng * 4, &full[slot]);\n        }\n")],
     "dn_no_act": [(DN_COPY, "        sm90::mbar_arrive_expect_tx(&full[slot], cols * (lay.rb + lay.ng * 4));\n")],
+    "m_none": [],
+    "m_no_pdl": [("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")],
+    "m_gu_only": [("  err = cudaLaunchKernelEx(&cfg, sel_down_q4_kernel,", "  if (false) err = cudaLaunchKernelEx(&cfg, sel_down_q4_kernel,")],
+    "m_down_only": [("  sel_gu_q4_kernel<<<", "  if (false) sel_gu_q4_kernel<<<")],
+    "m_gu_no_copy": [(SEL_GU_COPY, "        sm90::mbar_arrive(&full[slot]);\n        if (false) {\n" + SEL_GU_COPY.split("\n")[1] + "\n"),
+                     ("                        SEL_COLS * ng * 4, &full[slot]);\n",
+                      "                        SEL_COLS * ng * 4, &full[slot]);\n        }\n")],
+    "m_dn_no_copy": [(SEL_DN_COPY, "        sm90::mbar_arrive(&full[slot]);\n")],
+    "m_gu_no_dots": [("      q4::stream_item_mma(st + GB * grp, rb, xrow ? xrow + GROUP * grp : nullptr, part);",
+                      "      part[0] = part[2] = __int_as_float(grp);")],
+    "m_gu_no_x": [("  for (int c = threadIdx.x; c < nb * h_dim / 8; c += 32 * SEL_WARPS)",
+                   "  for (int c = threadIdx.x; c < 0; c += 32 * SEL_WARPS)")],
+    "m_gu_no_idx": [("        e_l = ul < n_units ? sel_expert(idx, ul / n_ct, k, kv, ld, n_exp) : 0;",
+                     "        e_l = (ul / n_ct) % n_exp;")],
+    "m_gu_one_unit": [("  const int kv = k + n_sh, n_ct = i_dim / SEL_COLS, n_units = nb * kv * n_ct;",
+                       "  const int kv = k + n_sh, n_ct = i_dim / SEL_COLS, n_units = min(nb * kv * n_ct, (int)gridDim.x);")],
 }
 
 CHILD = r"""
@@ -142,6 +181,72 @@ print("[ablate {name}] " + "; ".join(out), flush=True)
 """
 
 
+CHILD_M = r"""
+import sys
+sys.path.insert(0, {root!r})
+sys.path.insert(1, {repo!r})
+import torch
+import chip_smoke as cs
+from deepseek_ocr2_tpu_torch.ops import cuda_build, moe_q4
+from deepseek_ocr2_tpu_torch.ops.moe import route
+
+assert cuda_build.__file__.startswith({root!r}), cuda_build.__file__
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+
+def randn(*shape, std=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+
+e, k, h, i, n_sh = 64, 6, 1280, 896, 2
+
+
+def experts(n):
+    return moe_q4.quantize_experts_q4({{"gate": randn(n, i, h, std=h**-0.5), "up": randn(n, i, h, std=h**-0.5),
+                                       "down": randn(n, h, i, std=i**-0.5)}})
+
+
+eq = experts(e)
+eq.update({{f"pe_{{name}}": t for name, t in experts(n_sh).items()}})
+e_bytes = cs.nbytes(*(eq[name][0] for name in ("gu_q4", "gu_scale", "down_q4", "down_scale")))
+router = randn(e, h, std=h**-0.5)
+out = []
+for b, shared in ((1, True), (8, False), (10, False)):
+    x = randn(b, h, dtype=torch.bfloat16)
+    args = (x, eq, *route(x, router, k))
+    n_read = int(torch.unique(args[3]).numel()) + (n_sh if shared else 0)
+    err = float((moe_q4.moe_ffn_decode_q4(*args, with_shared=shared).float()
+                 - moe_q4.moe_ffn_decode_q4_reference(*args, with_shared=shared).float()).abs().max())
+    graph = min(cs.graph_ms(lambda: moe_q4.moe_ffn_decode_q4(*args, with_shared=shared)) for _ in range(3))
+    bound, _ = cs.bound_ms(cs.nbytes(x, x, *args[2:]) + n_read * e_bytes,
+                           2 * b * (k + (n_sh if shared else 0)) * 3 * h * i, torch.bfloat16)
+    line = f"B {{b}}{{' + 2 pseudo-experts' if shared else ''}} ({{n_read}} experts) graph {{graph:.4f}} ms, bound {{bound:.4f}} (err {{err:.1e}})"
+    if b == 1:  # each launch's device time and a call's span, mean of 20 calls under torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                moe_q4.moe_ffn_decode_q4(*args, with_shared=shared)
+            torch.cuda.synchronize()
+        parts = {{}}
+        for ev in prof.key_averages():
+            for name in ("sel_gu_q4_kernel", "sel_down_q4_kernel"):
+                if name in ev.key:
+                    parts[name] = parts.get(name, 0.0) + ev.self_device_time_total / 1e3 / 20
+        try:  # a call's span: its gate/up's start to its down's end, the median over the 20 calls
+            kern = sorted((ev for ev in prof.events()
+                           if "sel_" in ev.name and ev.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda ev: ev.time_range.start)
+            spans = [kern[j + 1].time_range.end - kern[j].time_range.start for j in range(0, len(kern) - 1, 2)]
+            span = sorted(spans)[len(spans) // 2] / 1e3 if spans else float("nan")
+        except (AttributeError, IndexError):
+            span = float("nan")
+        line += " [" + ", ".join(f"{{n}} {{ms:.4f}} ms" for n, ms in parts.items()) + f", span {{span:.4f}} ms]"
+    out.append(line)
+print("[ablate {name}] " + "; ".join(out), flush=True)
+"""
+
+
 def prepare(name: str) -> str:
     """The variant's copy of the package, patched and built."""
     tree = os.path.join(ROOT, "build", "moe_q4_ablate", name)
@@ -169,7 +274,7 @@ def main() -> int:
     with ThreadPoolExecutor(8) as pool:  # nvcc runs as a child process
         trees = list(pool.map(prepare, names))
     for name, tree in zip(names, trees):
-        child = CHILD.format(root=tree, repo=ROOT, name=name)
+        child = (CHILD_M if name.startswith("m_") else CHILD).format(root=tree, repo=ROOT, name=name)
         rc = subprocess.run([sys.executable, "-c", child], cwd=tree).returncode
         if rc != 0:
             print(f"[ablate {name}] failed: rc {rc}", flush=True)

@@ -371,6 +371,7 @@ def _moe_case(dev, dtype, n, e, h, i, k, routing):
     (77, 8, 200, 96, 2, "router"),  # ragged K and N edges
     (300, 8, 128, 64, 1, "one"),  # all rows on one expert
     (200, 64, 256, 128, 2, "few"),  # most experts empty
+    (2048, 64, 1280, 896, 6, "router"),  # a training step's 12 288 rows
 ])
 def test_cuda_gmm_matches_twin(cuda, dtype, n, e, h, i, k, routing):
     x, experts, weights, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
@@ -389,6 +390,55 @@ def test_cuda_gmm_matches_twin(cuda, dtype, n, e, h, i, k, routing):
     y = moe_gmm.gmm_down_reference(act, experts["down"], e_tile, tile_valid)
     got_y = moe_gmm.moe_gmm_down(act, experts["down"], e_tile, tile_valid)
     assert float((got_y.float() - y.float()).abs().max()) <= _tol(y.float(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,routing", [(550, "router"), (300, "one"), (200, "few")])
+def test_cuda_gmm_swiglu_writes_every_row(cuda, n, routing):
+    """D in bf16 takes its output from torch.empty: with the allocator's
+    next block filled with NaN first, every valid row equals the twin and
+    every row of the invalid tail tiles reads zero."""
+    e, k = (64, 6) if routing == "router" else (8, 1) if routing == "one" else (64, 2)
+    x, experts, _, idx = _moe_case(cuda, torch.bfloat16, n, e, 1280, 896, k, routing)
+    x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+    ref = moe_gmm.gmm_swiglu_reference(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
+    torch.full(ref.shape, float("nan"), dtype=ref.dtype, device=cuda)  # freed: the block the output reuses
+    got = moe_gmm.moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    tail = ~tile_valid.bool().repeat_interleave(moe_gmm.GMM_BM)
+    assert bool(tail.any()) and bool((got[tail] == 0).all())
+    assert float((got.float() - ref.float()).abs().max()) <= _tol(ref.float(), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_swiglu_graph_replay_equals_eager(cuda):
+    """D in bf16 captured in a CUDA graph replays to the eager call's bits
+    on a second routing's rows, layout and schedule copied into the
+    captured buffers (the same N k, so the same shapes)."""
+    e = 64
+    _, experts, _, _ = _moe_case(cuda, torch.bfloat16, 550, e, 1280, 896, 6, "router")
+    wg, wu = experts["gate"], experts["up"]
+    cases = []
+    for seed in (1, 2):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        x = torch.randn(550, 1280, generator=g, device=cuda).bfloat16()
+        _, idx = route(x, torch.randn(e, 1280, generator=g, device=cuda) * 1280**-0.5, 6)
+        x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+        cases.append((x_al, e_tile, tile_valid, *moe_gmm.row_schedule(e_tile, tile_valid, e)))
+    bufs = [t.clone() for t in cases[0]]
+    x_al, e_tile, tile_valid, tile_lo, blk_lo = bufs
+    moe_gmm.moe_gmm_swiglu(x_al, wg, wu, e_tile, tile_valid, tile_lo, blk_lo)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_gmm.moe_gmm_swiglu(x_al, wg, wu, e_tile, tile_valid, tile_lo, blk_lo)
+    for case in (cases[1], cases[0], cases[1]):
+        for buf, t in zip(bufs, case):
+            buf.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_gmm.moe_gmm_swiglu(*case[:1], wg, wu, *case[1:]))
 
 
 @pytest.mark.gpu
@@ -1445,7 +1495,8 @@ def _q4_moe_case(dev, dtype, b, e=64, h=1280, i=896, k=6, n_sh=2, seed=9):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,k,with_shared", [(1, 6, True), (8, 6, False), (3, 1, False), (1, 1, True)])
+@pytest.mark.parametrize("b,k,with_shared", [(1, 6, True), (8, 6, False), (3, 1, False), (1, 1, True),
+                                             (10, 6, False), (16, 6, False)])
 def test_cuda_moe_q4_matches_twin(cuda, dtype, b, k, with_shared):
     x, eq, weights, idx = _q4_moe_case(cuda, dtype, b, k=k)
     before = moe_q4.moe_ffn_decode_q4.launches
@@ -1501,6 +1552,27 @@ def test_cuda_moe_q4_stream_rows_alone_and_in_groups(cuda):
         assert torch.equal(got[0], first[0]), b
     row = moe_q4.moe_ffn_decode_q4_fused(x[32:], eq, weights[32:], idx[32:])
     assert torch.equal(row, moe_q4.moe_ffn_decode_q4_fused(x, eq, weights, idx)[32:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,with_shared", [(1, True), (8, False)])
+def test_cuda_moe_q4_graph_replay_equals_eager(cuda, b, with_shared):
+    """M in bf16 (its stream, down a programmatic dependent of gate/up)
+    captured in a CUDA graph replays to the eager call's bits on new x,
+    weights and routing copied into the captured buffers, twice."""
+    x, eq, weights, idx = _q4_moe_case(cuda, torch.bfloat16, b)
+    x2, _, w2, idx2 = _q4_moe_case(cuda, torch.bfloat16, b, seed=10)
+    assert moe_q4.q4_sel_takes(x, eq, idx.shape[1] + (2 if with_shared else 0))
+    moe_q4.moe_ffn_decode_q4(x, eq, weights, idx, with_shared=with_shared)  # builds the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_q4.moe_ffn_decode_q4(x, eq, weights, idx, with_shared=with_shared)
+    for xs, ws, ids in ((x2, w2, idx2), (x2, w2, idx2)):
+        x.copy_(xs), weights.copy_(ws), idx.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_q4.moe_ffn_decode_q4(x, eq, weights, idx, with_shared=with_shared))
 
 
 @pytest.mark.gpu
