@@ -53,6 +53,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    `generate_ocr` on phase 3's bf16 LM: tokens, forwards and decode tok/s,
    held to no decode kernel at all (the chunk's attention is plain on the
    contiguous cache, its MoE the per-selection path at 4 rows x 6 <= 64);
+4f. the device resize (`--device-resize`): the (2, 3) crop page 1700 x 2200
+   and the no-crop page 700 x 500 resized, letterboxed and tiled on the
+   card bit-equal to host PIL and to the CPU form, timed against host PIL;
+   generate_ocr with device_resize=True on the crop page equal to phase 4's
+   tokens; phase 4's four pages through the continuous engine (4 slots)
+   under DEEPSEEK_DEVICE_RESIZE=auto (the crop pages resized by the
+   prefetch worker on the serve stream) against their single runs;
+4g. (run after the per-token profile) the validate-hf harness on the (2, 1)
+   page, 32 tokens: a transcript against itself PASS, the device-resize
+   transcript against the host-resize one PASS, a perturbed projector FAIL
+   at the embedding fingerprints; one page under `device_trace`
+   (`--profile-dir`), whose trace must name B's and C's device kernels;
 4e. (run after 6b) the JAX package's switches DEEPSEEK_DECODE_ATTN=stacked
    and DEEPSEEK_SAM_WIN_KERNEL=1, set for the phase only: a no-crop and
    the (2, 1) page (U 12 a decode step, V 8 and B 4 a SAM batch), the
@@ -841,7 +853,7 @@ def q8_results(dev, randn, record) -> None:
                tolerance(ref, ref.dtype), median_ms(lambda: linear_q8.linear_q8(x, w, out_dtype=od)),
                median_ms(lambda: linear_q8.linear_q8_reference(x, w, out_dtype=od)),
                bound_ms(nbytes(x, w["q8"], w["scale"], ref), 2 * b * in_dim * out_dim, bf),
-               int8pack(x, w), graph=lambda: linear_q8.linear_q8(x, w, out_dtype=od))
+               int8pack(x, w), graph=lambda: linear_q8.linear_q8(x, w, out_dtype=od), library_graph=True)
     del head
     no_host_sync(dev, "H", lambda: linear_q8.linear_q8(x, w, out_dtype=od))
 
@@ -1970,6 +1982,203 @@ def phase_lookup_main_path(dev, pipe) -> dict:
     return launches
 
 
+def phase_device_resize(dev, pipe, main_results) -> dict:
+    """Phase 4f: the device resize (`--device-resize`,
+    preprocess/device_resize.py) at full width on phase 3's model.
+    - the (2, 3) crop page 1700 x 2200 and the no-crop page 700 x 500:
+      `device_preprocess_page` on the card bit-equal to host PIL
+      (`preprocess_base_u8` / `preprocess_tiles_u8`) and to its own CPU
+      form; its time (CUDA events, median of 10: ship + resize, and the
+      resize of an already shipped page) beside host PIL's (median of 10)
+      and the bytes each path ships;
+    - generate_ocr with device_resize=True on the crop page: phase 4's
+      tokens (the same pixels, the same model);
+    - phase 4's four pages (2 crop, 2 no-crop) through the continuous engine
+      (4 slots) under DEEPSEEK_DEVICE_RESIZE=auto, the crop pages resized on
+      the card by the prefetch worker: each page's tokens against its
+      single-page run under the margin rule of phase 4e (bf16 LM).
+    Counted: the device-resized generate_ocr (A-E as phase 4's crop page: D
+    and E 11) and the engine (G 12 a decode step, no F at 4 x 6 <= 64
+    selections); the single-page references are `uncounted`."""
+    from PIL import Image  # PIL is the oracle of this phase
+
+    from deepseek_ocr2_tpu_torch.preprocess.device_resize import (
+        bucket_pad, device_letterbox_u8, device_preprocess_page, device_tiles_u8, ship_image)
+    from deepseek_ocr2_tpu_torch.preprocess.image import preprocess_base_u8, preprocess_tiles_u8
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    t_phase = time.perf_counter()
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    lm_dtype = pipe.params["lm"]["embed"].dtype
+    s, c, pad = cfg.base_image_size, cfg.crop_image_size, cfg.pad_color
+    kernels = counters()
+    w, h, grid = CROP_PAGES[1]
+    crop_name = f"{w}x{h} crop"
+    crop_page = synthetic_page(w, h, cfg, seed=11, grid=grid)[0]
+    plain_page = synthetic_page(*PAGES[0], cfg, seed=0)[0]
+    if not isinstance(crop_page, Image.Image):
+        raise AssertionError("phase 4f needs PIL pages")
+    for name, page, ratio in ((crop_name, crop_page, grid), (f"{PAGES[0][0]}x{PAGES[0][1]}", plain_page, None)):
+        arr = np.asarray(page)
+        base, tiles = device_preprocess_page(arr, s, c, ratio, pad, device=dev)
+        cpu_base, cpu_tiles = device_preprocess_page(arr, s, c, ratio, pad, device="cpu")
+        pil_base = preprocess_base_u8(page, s, pad)
+        pil_tiles = preprocess_tiles_u8(page, c, ratio) if ratio else None
+        same = [np.array_equal(base.cpu().numpy(), pil_base), np.array_equal(cpu_base.numpy(), pil_base)]
+        if ratio:
+            same += [np.array_equal(tiles.cpu().numpy(), pil_tiles), np.array_equal(cpu_tiles.numpy(), pil_tiles)]
+        elif tiles is not None:
+            raise AssertionError(f"page {name}: tiles without a crop grid")
+        shipped = ship_image(arr, dev)
+        whole_ms = median_ms(lambda: device_preprocess_page(arr, s, c, ratio, pad, device=dev))
+
+        def resize_only():
+            if ratio:
+                device_tiles_u8(shipped, arr.shape[1], arr.shape[0], c, ratio)
+            device_letterbox_u8(shipped, arr.shape[1], arr.shape[0], s, pad)
+
+        resize_ms = median_ms(resize_only)
+        host_times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            preprocess_base_u8(page, s, pad)
+            if ratio:
+                preprocess_tiles_u8(page, c, ratio)
+            host_times.append((time.perf_counter() - t0) * 1e3)
+        host_bytes = pil_base.nbytes + (pil_tiles.nbytes if ratio else 0)
+        print(f"[resize] page {name}: device bit-equal to host PIL and to the CPU form: {all(same)}; device "
+              f"{whole_ms:.3f} ms with the ship ({bucket_pad(arr).nbytes} bytes of the padded page), {resize_ms:.3f} "
+              f"ms the resize alone; host PIL {float(np.median(host_times)):.3f} ms (median of 10; its views "
+              f"{host_bytes} bytes to ship)")
+        if not all(same):
+            raise AssertionError(f"page {name}: the device resize differs from PIL or its CPU form: {same}")
+        del base, tiles, shipped
+
+    dpipe = OCR2Pipeline(pipe.params, cfg, pipe.tokenizer, device=dev, kv_dtype="float32", act_dtype="float32",
+                         device_resize=True)
+    gen = dict(max_new_tokens=32, ngram_size=20)
+    for fn in kernels.values():
+        fn.launches = 0
+    r = dpipe.generate_ocr(crop_page, **gen)
+    want = main_results[crop_name]
+    print(f"[resize] generate_ocr(device_resize=True), page {crop_name}: vision {r.vision_seconds * 1e3:.1f} ms "
+          f"(phase 4, host resize: {want.vision_seconds * 1e3:.1f}); tokens equal to phase 4's: "
+          f"{r.token_ids == want.token_ids}; launches { {k: fn.launches for k, fn in kernels.items()} }")
+    if r.token_ids != want.token_ids or r.crop_ratio != grid:
+        raise AssertionError(f"page {crop_name}: device-resize tokens differ from phase 4's")
+    if kernels["D"].launches != lm.num_moe_layers or kernels["E"].launches != lm.num_moe_layers:
+        raise AssertionError("the device-resized crop page did not run D and E once a MoE layer")
+
+    names = [f"{w}x{h} crop" for w, h, _ in CROP_PAGES] + [f"{w}x{h}" for w, h in PAGES[:2]]
+    pages = [synthetic_page(w, h, cfg, seed=10 + i, grid=g)[0] for i, (w, h, g) in enumerate(CROP_PAGES)]
+    pages += [synthetic_page(w, h, cfg, seed=i)[0] for i, (w, h) in enumerate(PAGES[:2])]
+    with uncounted(kernels):
+        singles = [pipe.generate_ocr(p, keep_logits=True, **gen) for p in pages]
+    for name, single in zip(names, singles):
+        if single.token_ids != main_results[name].token_ids:
+            raise AssertionError(f"page {name}: the single-page reference did not repeat phase 4's tokens")
+    saved = os.environ.get("DEEPSEEK_DEVICE_RESIZE")
+    os.environ["DEEPSEEK_DEVICE_RESIZE"] = "auto"
+    try:
+        modes = [pipe.preprocess_host(p)["mode"] for p in pages]
+        before = {k: fn.launches for k, fn in kernels.items()}
+        engine = ContinuousOCREngine(pipe, slots=4, capacity=2048, chunk_steps=8)  # the (2, 3) prompt: 1124
+        t0 = time.perf_counter()
+        served = engine.run(pages, **gen)
+        dt = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("DEEPSEEK_DEVICE_RESIZE", None)
+        else:
+            os.environ["DEEPSEEK_DEVICE_RESIZE"] = saved
+    delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    notes = [_first_difference(single, r, lm_dtype) for single, r in zip(singles, served)]
+    steps = engine.last_decode_steps
+    print(f"[resize] ContinuousOCREngine(slots=4), DEEPSEEK_DEVICE_RESIZE=auto: preprocess modes {modes}, 4 pages "
+          f"in {dt:.2f} s, {steps} decode steps; {sum(not n for n in notes)} of 4 pages token-equal to their single "
+          f"runs {[n for n in notes if n]}; launches {delta}")
+    if modes != ["device", "device", "host", "host"]:
+        raise AssertionError(f"DEEPSEEK_DEVICE_RESIZE=auto chose {modes}")
+    if steps < 1 or delta["G"] != lm.num_hidden_layers * steps or delta["F"] != 0:
+        raise AssertionError(f"device-resize continuous engine: G {delta['G']} / F {delta['F']} launches in {steps} "
+                             f"steps, expected {lm.num_hidden_layers} / 0 a step")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[resize] launches over phase 4f {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_validate(dev, pipe) -> dict:
+    """Phase 4g: the validate-hf harness (runtime/validate.py) in-process on
+    the (2, 1) crop page, phase 3's model (LM bf16, vision f32), 32 tokens:
+    a transcript against a second one (PASS); the device-resize transcript
+    against the host-resize one (PASS); a transcript with the projector's
+    weights perturbed (FAIL, at the embedding fingerprints first); then one
+    generate_ocr of the page under `device_trace` (`--profile-dir`), whose
+    trace must name kernel B's (SAM attention, head dim 64) and C's device
+    kernels. It runs after the timed phases (the profiler). Counted: each
+    transcript runs two prefills of the 548-token prompt (the decode's and
+    step0_top10's), so D and E 22 a transcript."""
+    import glob
+    import tempfile
+
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+    from deepseek_ocr2_tpu_torch.runtime.validate import collect_transcript, compare_transcripts
+    from deepseek_ocr2_tpu_torch.utils.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    kernels = counters()
+    w, h, grid = CROP_PAGES[0]
+    page = synthetic_page(w, h, cfg, seed=10, grid=grid)[0]
+
+    def collect(p):
+        return collect_transcript(p, page, prompt=None, max_new_tokens=32, no_crop=False, rotate=0,
+                                  auto_rotate=False, ngram_size=20, eos_token_id=None)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    host = collect(pipe)
+    again = collect(pipe)
+    dpipe = OCR2Pipeline(pipe.params, cfg, pipe.tokenizer, device=dev, kv_dtype="float32", act_dtype="float32",
+                         device_resize=True)
+    dev_t = collect(dpipe)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    proj = pipe.params["projector_w"]
+    noisy = proj + 0.5 * torch.randn(proj.shape, generator=g, device=dev, dtype=proj.dtype) * proj.std()
+    bad = collect(OCR2Pipeline({**pipe.params, "projector_w": noisy}, cfg, pipe.tokenizer, device=dev,
+                               kv_dtype="float32", act_dtype="float32"))
+    n_transcripts = 4
+    for name, got in (("again", again), ("device resize", dev_t), ("perturbed projector", bad)):
+        ok, lines = compare_transcripts(got, host)
+        print(f"[validate] {name} against the host-resize transcript: {'PASS' if ok else 'FAIL'} {lines[:3]}")
+        if name == "perturbed projector" and (ok or not lines[0].startswith("FAIL inputs_embeds")):
+            raise AssertionError(f"the perturbed projector was not caught at the embeddings first: {lines[:3]}")
+        if name != "perturbed projector" and not ok:
+            raise AssertionError(f"validate: {name} FAILED against the host-resize transcript: {lines}")
+    d = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[validate] {len(host['generated_ids'])} tokens a transcript, crop grid {host['crop_ratio']}; launches {d}")
+    if d["D"] != 2 * lm.num_moe_layers * n_transcripts or d["E"] != 2 * lm.num_moe_layers * n_transcripts:
+        raise AssertionError(f"validate: D / E launched {d['D']} / {d['E']}, expected two prefills a transcript")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            pipe.generate_ocr(page, max_new_tokens=4, ngram_size=20)
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels_seen = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    b_names = sorted(n for n in kernels_seen if re.search(r"attn_tc_kernel<[^,]+, 64,", n))
+    c_names = sorted(n for n in kernels_seen if "mlp_gemm_kernel" in n)
+    print(f"[validate] --profile-dir trace ({len(traces)} file, {len(events)} events, {len(kernels_seen)} device "
+          f"kernels by name): B {b_names[:2]}, C {c_names[:2]}")
+    if len(traces) != 1 or not b_names or not c_names:
+        raise AssertionError("the device_trace trace does not name kernel B's and C's device kernels")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[validate] launches over phase 4g {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_decode_profile(pipe) -> None:
     """Device time and launches per decode token on a no-crop page at batch
     1, for the LM in bf16, --int8, --moe-int8 and --int4, and bf16 and
@@ -3094,6 +3303,7 @@ def main() -> int:
     int8_launches = phase_quant_main_path(dev, pipe, (INT8, MOE_INT8), "int8")
     int4_launches = phase_quant_main_path(dev, pipe, (INT4,), "int4")
     lookup_launches = phase_lookup_main_path(dev, pipe)
+    resize_launches = phase_device_resize(dev, pipe, main_results)
     serve_launches = phase_serving(dev, pipe)
     serve_quant_launches, group_ref = phase_serving_quant(dev, pipe)
     switched_launches = phase_switched_main_path(dev, pipe, main_results, group_ref,
@@ -3101,6 +3311,7 @@ def main() -> int:
     serve_kv_launches = phase_serving_kv(dev, pipe)
     serve_lookup_launches = phase_serving_lookup(dev, pipe)
     phase_decode_profile(pipe)
+    validate_launches = phase_validate(dev, pipe)
     del pipe
     torch.cuda.empty_cache()
     card_pipes, cpu_params = phase_card_vs_cpu(dev)
@@ -3119,13 +3330,15 @@ def main() -> int:
         raise AssertionError("jax or the JAX package was imported")
 
     # The main path is one page through generate_ocr (phase 4, and with
-    # quantized weights 4b and 4c, with lookup decoding 4d), serving
+    # quantized weights 4b and 4c, with lookup decoding 4d, with the device
+    # resize 4f, under validate-hf's harness 4g), serving
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
     # decoding 6e), the two switched paths (phase 4e) and fine-tuning
     # (phase 8); each was driven with the counts at 0 and read after. W
     # and X run on no path (the JAX package calls neither): 0 launches.
-    runs = (main_launches, int8_launches, int4_launches, lookup_launches, serve_launches, serve_quant_launches,
-            switched_launches, serve_kv_launches, serve_lookup_launches, train_launches)
+    runs = (main_launches, int8_launches, int4_launches, lookup_launches, resize_launches, validate_launches,
+            serve_launches, serve_quant_launches, switched_launches, serve_kv_launches, serve_lookup_launches,
+            train_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),

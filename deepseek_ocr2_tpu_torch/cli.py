@@ -1,5 +1,5 @@
 """CLI of the port: `inspect`, `generate-text`, `generate-ocr`, `debug-rope`,
-`serve` and `train`.
+`serve`, `convert`, `validate-hf` and `train`.
 
 Same flags and defaults as the JAX package's commands of those names,
 except `--backend`, which picks cuda (default) or cpu. Crop mode is on by
@@ -12,18 +12,29 @@ samples (with `--top-k`, `--top-p`, `--seed`); `--kv-cache int8|int8tail`
 selects the quantized paged pools of `serve --continuous` / `--http`
 (elsewhere it fails as in the JAX CLI). `--lookup-decode CHUNK` decodes
 greedy pages by prompt lookup (`generate-ocr` and every `serve` mode; with
-`--temperature > 0` serve notes that it ignores it). Flags for features the
-port does not have yet (device resize, profiling, memory trimming) raise a
-clear error instead of being ignored. `train` fine-tunes the LM trunk with
-AdamW (packed text or masked SFT JSONL, `--resume`, `--out`), as the JAX
-CLI's `train`; `--mesh` (multi-device training) is refused.
+`--temperature > 0` serve notes that it ignores it). `--device-resize
+[auto|always|off]` resizes, letterboxes and tiles pages on the device,
+bit-equal to PIL ("auto", the flag's bare form, only crop pages; unset, the
+`DEEPSEEK_DEVICE_RESIZE` variable decides). `--trim-memory` drops the
+weights file from the page cache and trims the heap after loading;
+`generate-ocr --profile-dir DIR` writes a torch.profiler trace of the page
+into DIR. `convert` rewrites a checkpoint under a dtype policy.
+`validate-hf` records (`--emit`) or checks (`--expected`) a transcript of
+one greedy page: token ids, embedding fingerprints and step-0 top-10, per
+tier with `--tiers bf16,int8,int4`; transcripts of either package are
+accepted. `train` fine-tunes the LM trunk with AdamW (packed text or
+masked SFT JSONL, `--resume`, `--out`), as the JAX CLI's `train`; `--mesh`
+(multi-device training) is refused.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
-        --tokenizer tokenizer.json --image page.png
+        --tokenizer tokenizer.json --image page.png [--device-resize] [--profile-dir DIR]
     python -m deepseek_ocr2_tpu_torch.cli serve --weights W.safetensors \
         --tokenizer tokenizer.json --images p1.png p2.png [--continuous | --http]
     python -m deepseek_ocr2_tpu_torch.cli generate-text --weights W.safetensors \
         --tokenizer tokenizer.json --prompt "..."
+    python -m deepseek_ocr2_tpu_torch.cli validate-hf --weights W.safetensors \
+        --tokenizer tokenizer.json --image page.png --emit golden.json   # then --expected golden.json
+    python -m deepseek_ocr2_tpu_torch.cli convert --weights W.safetensors --out W_bf16.safetensors
     python -m deepseek_ocr2_tpu_torch.cli inspect --weights W.safetensors
     python -m deepseek_ocr2_tpu_torch.cli debug-rope
     python -m deepseek_ocr2_tpu_torch.cli train --weights W.safetensors \
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from typing import List, Optional, Tuple
 
@@ -78,7 +90,9 @@ def _common_gen(sp, vision_default: Optional[str]) -> None:
                     help="prompt-lookup speculative greedy decoding with this chunk width "
                          "(verified drafts, greedy-exact output)")
     sp.add_argument("--device-resize", nargs="?", const="auto", default=None,
-                    choices=["auto", "always", "off"])
+                    choices=["auto", "always", "off"],
+                    help="resize / letterbox / tile on the device (PIL-bit-exact fixed-point GEMMs) instead of "
+                         "host PIL: 'auto' (the bare flag) only crop pages, 'always' every page")
     sp.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     sp.add_argument("--top-k", type=int, default=0)
     sp.add_argument("--top-p", type=float, default=1.0)
@@ -121,7 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--image-token-id", type=int, default=128815)
     sp.add_argument("--image-size", type=int, default=1024)
     sp.add_argument("--crop-image-size", type=int, default=768)
-    sp.add_argument("--profile-dir", default=None)
+    sp.add_argument("--profile-dir", default=None, help="write a torch.profiler trace of the run to this directory")
     sp.add_argument("--sam-dtype", type=_dtype_arg, default=None)
     sp.add_argument("--qwen2-dtype", type=_dtype_arg, default=None)
     sp.add_argument("--projector-dtype", type=_dtype_arg, default=None)
@@ -143,6 +157,28 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--pool-tokens", type=int, default=None,
                     help="shared KV pool size in tokens (continuous; default slots * capacity)")
     sp.add_argument("--per-page-stats", action="store_true", help="print per-page phase timings")
+
+    sp = sub.add_parser("convert", help="Re-write a checkpoint with a dtype policy (e.g. cast to bf16)")
+    sp.add_argument("--weights", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--dtype", type=_dtype_arg, default="bfloat16")
+    sp.add_argument("--keep-f32-prefix", action="append", default=[],
+                    help="tensor-name prefix to keep in float32 (repeatable)")
+
+    sp = sub.add_parser("validate-hf", help="Token-exact validation vs a recorded HF transcript (greedy OCR)")
+    _common_gen(sp, vision_default="float32")
+    sp.add_argument("--image", required=True)
+    sp.add_argument("--prompt", default=None)
+    sp.add_argument("--image-token-id", type=int, default=128815)
+    sp.add_argument("--expected", default=None, help="transcript JSON to validate against (as written by --emit)")
+    sp.add_argument("--emit", default=None,
+                    help="write the transcript JSON (generated token ids + text + fingerprints) here")
+    sp.add_argument("--tiers", default=None,
+                    help="comma-separated quantization tiers to validate in one run (subset of bf16,int8,int4): "
+                         "token ids, step-0 top-10 and embedding fingerprints per tier")
+    sp.add_argument("--fp-rtol", type=float, default=5e-3,
+                    help="relative tolerance for fingerprint channels (token ids are always exact)")
+    sp.add_argument("--fp-atol", type=float, default=1e-4, help="absolute tolerance for fingerprint channels")
 
     sp = sub.add_parser("train", help="Fine-tune the LM trunk on a text dataset (AdamW + resume)")
     sp.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
@@ -175,15 +211,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_outside_slice(args) -> None:
-    refused = [
-        (args.device_resize is not None, "--device-resize"),
-        (getattr(args, "profile_dir", None) is not None, "--profile-dir"),
-        (args.trim_memory, "--trim-memory"),
-    ]
-    for hit, flag in refused:
-        if hit:
-            raise SystemExit(f"error: {flag} is not available in the PyTorch port yet (see ROADMAP.md)")
+def _trim_memory(weights_path: str) -> None:
+    """Best-effort host memory hygiene after loading (the JAX CLI's
+    `_trim_memory`): drop the weights file's pages from the page cache
+    (posix_fadvise DONTNEED on that file) and return freed heap to the OS
+    (glibc malloc_trim); prints the resident set before and after."""
+    import ctypes
+    import ctypes.util
+
+    def rss_kb():
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1])
+        except OSError:
+            pass
+        return 0
+
+    before = rss_kb()
+    try:
+        fd = os.open(weights_path, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    except OSError as e:
+        print(f"trim-memory: posix_fadvise failed: {e}", file=sys.stderr)
+    ret = None
+    try:
+        libc = ctypes.CDLL(ctypes.util.find_library("c"))
+        ret = libc.malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+    after = rss_kb()
+    print(f"trim-memory: rss_kb {before}->{after} (d={after - before}), malloc_trim={ret}", file=sys.stderr)
 
 
 def _sampling_args(args) -> Optional[dict]:
@@ -228,7 +290,6 @@ def _load_pipeline(args):
     from .runtime.pipeline import OCR2Pipeline
     from .utils.tokenizer import load_tokenizer
 
-    _refuse_outside_slice(args)
     base_cfg = config_from_json(args.config) if args.config else OCR2Config()
     cfg = dataclasses.replace(
         base_cfg,
@@ -258,6 +319,8 @@ def _load_pipeline(args):
     if report.missing:
         raise SystemExit(f"error: {len(report.missing)} tensors missing, e.g. {report.missing[:4]}")
     del flat
+    if args.trim_memory:
+        _trim_memory(args.weights)
     scope, bits = int8_scope(args)
     if scope:
         from .models.deepseek_v2 import quantize_lm_params
@@ -267,7 +330,8 @@ def _load_pipeline(args):
 
     act = "float32" if vision_default == "float32" else "bfloat16"
     return OCR2Pipeline(params, cfg, load_tokenizer(args.tokenizer), device=device, kv_dtype=args.kv_cache,
-                        act_dtype=act, lookup_chunk=args.lookup_decode)
+                        act_dtype=act, lookup_chunk=args.lookup_decode,
+                        device_resize={"auto": "auto", "always": True, "off": False}.get(args.device_resize))
 
 
 def cmd_inspect(args) -> int:
@@ -293,7 +357,6 @@ def cmd_generate_text(args) -> int:
     from .runtime.pipeline import OCR2Pipeline
     from .utils.tokenizer import load_tokenizer
 
-    _refuse_outside_slice(args)
     sampling = _sampling_args(args)
     if args.config:
         lm_cfg = config_from_json(args.config).lm
@@ -310,6 +373,8 @@ def cmd_generate_text(args) -> int:
     print(report.summary(), file=sys.stderr)
     report.raise_on_errors()
     del flat
+    if args.trim_memory:
+        _trim_memory(args.weights)
     scope, bits = int8_scope(args)
     if scope:
         params = dsv2.quantize_lm_params(params, scope=scope, bits=bits)
@@ -348,19 +413,22 @@ def cmd_debug_rope(args) -> int:
 
 
 def cmd_generate_ocr(args) -> int:
+    from .utils.profiling import device_trace
+
     sampling = _sampling_args(args)
     pipe = _load_pipeline(args)
-    result = pipe.generate_ocr(
-        args.image,
-        prompt=args.prompt,
-        max_new_tokens=args.max_new_tokens,
-        no_crop=args.no_crop,
-        rotate=int(args.rotate),
-        auto_rotate=args.auto_rotate,
-        ngram_size=args.no_repeat_ngram_size,
-        eos_token_id=args.eos_token_id,
-        sampling=sampling,
-    )
+    with device_trace(args.profile_dir):
+        result = pipe.generate_ocr(
+            args.image,
+            prompt=args.prompt,
+            max_new_tokens=args.max_new_tokens,
+            no_crop=args.no_crop,
+            rotate=int(args.rotate),
+            auto_rotate=args.auto_rotate,
+            ngram_size=args.no_repeat_ngram_size,
+            eos_token_id=args.eos_token_id,
+            sampling=sampling,
+        )
     print(result.text)
     print(
         f"[vision {result.vision_seconds * 1e3:.0f} ms, prefill {result.prefill_seconds * 1e3:.0f} ms, "
@@ -434,6 +502,90 @@ def cmd_serve(args) -> int:
         chunk_tokens = sum(r.new_tokens - 1 for r in results if r is not None)
         print(f"[lookup: {chunk_tokens} tokens / {engine.last_lookup_forwards} chunk forwards = "
               f"{chunk_tokens / engine.last_lookup_forwards:.2f} tok/forward]", file=sys.stderr)
+    return 0
+
+
+def cmd_validate_hf(args) -> int:
+    """Golden-fingerprint harness for real-checkpoint bring-up (the JAX
+    CLI's `validate-hf`). With --emit: one greedy OCR page recorded as a
+    transcript (generated ids + text, the embedding slices at positions
+    0/1/last/289/545, step-0 top-10; `runtime/validate.py`). With
+    --expected: the page again, compared in causal order (embeddings ->
+    step-0 logits -> token ids), so the first FAIL line names the earliest
+    diverging stage. The golden transcript can come from either package's
+    --emit or from a debug-channel log through
+    tools/transcript_from_debug_log.py."""
+    import json
+
+    from .runtime.validate import collect_transcript, compare_transcripts
+
+    if args.lookup_decode:
+        # Validation runs the plain one-token greedy path: speculative chunks
+        # round the GEMMs at another width.
+        print("note: --lookup-decode is ignored for validate-hf", file=sys.stderr)
+        args.lookup_decode = 0
+    # The parity channels always print (the reference's fingerprint lines).
+    os.environ.setdefault("DEEPSEEK_DEBUG_OCR", "1")
+
+    def collect(pipe):
+        return collect_transcript(pipe, args.image, prompt=args.prompt, max_new_tokens=args.max_new_tokens,
+                                  no_crop=args.no_crop, rotate=int(args.rotate), auto_rotate=args.auto_rotate,
+                                  ngram_size=args.no_repeat_ngram_size, eos_token_id=args.eos_token_id)
+
+    if args.tiers:
+        # Each tier reloads (and quantizes) the checkpoint and records its own
+        # ids, step-0 top-10 and fingerprints.
+        names = [t.strip() for t in args.tiers.split(",") if t.strip()]
+        bad = [n for n in names if n not in ("bf16", "int8", "int4")]
+        if bad:
+            print(f"unknown tier(s) {bad}; valid: bf16,int8,int4", file=sys.stderr)
+            return 2
+        tiers = {}
+        for name in names:
+            targs = argparse.Namespace(**vars(args))
+            targs.int8, targs.int4, targs.moe_int8 = name == "int8", name == "int4", False
+            print(f"--- tier {name} ---", file=sys.stderr)
+            tiers[name] = {**collect(_load_pipeline(targs)), "tier": name}
+        transcript = {"version": 2, "tiers": tiers}
+        n_tok = {n: len(t["generated_ids"]) for n, t in tiers.items()}
+    else:
+        transcript = collect(_load_pipeline(args))
+        n_tok = len(transcript["generated_ids"])
+    if args.emit:
+        with open(args.emit, "w") as f:
+            json.dump(transcript, f, indent=1)
+        print(f"wrote transcript ({n_tok} tokens) to {args.emit}")
+    if args.expected:
+        with open(args.expected) as f:
+            want = json.load(f)
+        ok, lines = compare_transcripts(transcript, want, rtol=args.fp_rtol, atol=args.fp_atol)
+        for line in lines:
+            print(line)
+        if ok:
+            print(f"PASS: token-exact ({n_tok} tokens)")
+            return 0
+        print("hint: re-run with DEEPSEEK_DEBUG_TOPK=1 for per-step top-10 logits")
+        return 1
+    if not args.emit:
+        if args.tiers:
+            for name, t in transcript["tiers"].items():
+                print(f"[{name}] {t['text']}")
+        else:
+            print(transcript["text"])
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """As the JAX CLI's `convert`: every tensor through the dtype policy
+    (`--dtype`, `--keep-f32-prefix` kept in f32), written back."""
+    from .io import DtypePolicy, load_flat, save_flat
+
+    policy = DtypePolicy(default=args.dtype)
+    for prefix in args.keep_f32_prefix:
+        policy = policy.with_prefix(prefix, "float32")
+    flat = load_flat(args.weights, policy)
+    save_flat(flat, args.out)
+    print(f"wrote {len(flat)} tensors to {args.out}", file=sys.stderr)
     return 0
 
 
@@ -594,6 +746,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_generate_ocr(args)
     if args.command == "serve":
         return cmd_serve(args)
+    if args.command == "convert":
+        return cmd_convert(args)
+    if args.command == "validate-hf":
+        return cmd_validate_hf(args)
     if args.command == "train":
         return cmd_train(args)
     raise SystemExit(f"unknown command {args.command}")

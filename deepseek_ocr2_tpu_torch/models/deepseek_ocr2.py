@@ -142,3 +142,25 @@ def build_inputs_embeds(
     base = F.embedding(input_ids, params["lm"]["embed"])
     base[:, image_start : image_start + n] = vision_tokens.to(base.dtype)[None]
     return base
+
+
+def build_inputs_embeds_masked(
+    params: Params, input_ids: torch.Tensor, vision_tokens: torch.Tensor, image_mask: torch.Tensor
+) -> torch.Tensor:
+    """Token embeddings [1, S, H] where the n-th True position of
+    `image_mask` [S] receives `vision_tokens[n]` (all images' tokens in
+    prompt order): placeholder layouts that are not one contiguous block,
+    with HF `masked_scatter` semantics. The single-block case is
+    `build_inputs_embeds`."""
+    mask = image_mask.to(torch.bool).to(input_ids.device)
+    base = F.embedding(input_ids.masked_fill(mask[None], 0), params["lm"]["embed"])  # [1, S, H]
+    rank = (torch.cumsum(mask.long(), 0) - 1).clamp(0, vision_tokens.shape[0] - 1)  # running placeholder rank
+    vis = vision_tokens.to(base.dtype)[rank]  # [S, H]
+    return torch.where(mask[None, :, None], vis[None], base)
+
+
+def encode_views_multi(params: Params, cfg: OCR2Config, images: list) -> torch.Tensor:
+    """Vision tokens of several images, concatenated in prompt order: each
+    (image_base [1, 3, S, S], patches [P, 3, c, c] or None) contributes its
+    own local -> global -> separator block."""
+    return torch.cat([encode_views(params, cfg, base, patches) for base, patches in images], dim=0)

@@ -483,6 +483,51 @@ def lm_forward(
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
+@torch.no_grad()
+def lm_forward_debug(params: Params, cfg: DeepseekV2Config, embeds: torch.Tensor, rope=None) -> torch.Tensor:
+    """A prefill of `embeds` [B, S, H] layer by layer with the JAX package's
+    debug stat dumps (its `lm_forward_debug`): DEEPSEEK_DEBUG_ATTN (each
+    attention's input and output), DEEPSEEK_DEBUG_MOE (each MoE layer's
+    routing counts, its first four rows' picks and the layer's output) and
+    DEEPSEEK_DEBUG_LAYER0 (layer 0 after attention and at its end). The K/V
+    go to a throwaway f32 cache of S positions. Returns the final-normed
+    hidden [B, S, H]; debugging only."""
+    from ..runtime.kv_cache import make_kv_cache
+    from ..utils.debug import dbg_print, dbg_stats, enabled
+
+    rope = rope if rope is not None else rope_consts(cfg, embeds.device)
+    b, s, h = embeds.shape
+    cache = make_kv_cache(cfg.num_hidden_layers, b, cfg.num_attention_heads, s, cfg.head_dim,
+                          dtype=torch.float32, device=embeds.device)
+    x = embeds
+    for i, layer in enumerate(params["layers"]):
+        res = x
+        xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+        dbg_stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.in_x", xn)
+        attn_out = _attention(xn, layer, cfg, rope, cache, i, 0, True)
+        dbg_stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.out", attn_out)
+        x = res + attn_out
+        if i == 0:
+            dbg_stats("DEEPSEEK_DEBUG_LAYER0", "layer0.after_attn", x)
+        res = x
+        x_flat = rms_norm(x, layer["ln2"], cfg.rms_norm_eps).reshape(b * s, h)
+        moe = "mlp" not in layer
+        if moe and enabled("DEEPSEEK_DEBUG_MOE"):
+            weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
+            idx_h = idx.cpu().numpy()
+            counts = np.bincount(idx_h.reshape(-1), minlength=cfg.n_routed_experts)
+            dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe counts={counts.tolist()}")
+            dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe topk_idx[:4]={idx_h[:4].tolist()} "
+                                            f"topk_weight[:4]={weights.float().cpu().numpy()[:4].round(5).tolist()}")
+        mlp_out = ffn(x_flat, layer, cfg, decode=False)
+        if moe:
+            dbg_stats("DEEPSEEK_DEBUG_MOE", f"layer{i}.moe.out_total", mlp_out)
+        x = res + mlp_out.reshape(b, s, h)
+        if i == 0:
+            dbg_stats("DEEPSEEK_DEBUG_LAYER0", "layer0.out", x)
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
 def logits_all(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """lm_head on every position [B, S, V] (lookup decoding's verification):
     in the model dtype, or in f32 through kernel H (L) over the B * S rows

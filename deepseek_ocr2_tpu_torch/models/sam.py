@@ -18,6 +18,8 @@ At the 768^2 crop views the absolute pos-embed (64 x 64) is resized to the
 48 x 48 patch grid (bicubic with antialias) and the global blocks' rel-pos
 tables (127 rows) to 95 (linear), both in f32 with `F.interpolate`, as the
 JAX package does with `jax.image.resize` (the same HF contract).
+`DEEPSEEK_SAM_POS_RESIZE` selects the reference binary's pos-embed filters
+instead (`resize_pos_embed`).
 """
 
 from __future__ import annotations
@@ -146,14 +148,46 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     return rel[idx.to(rel.device)]
 
 
+def _keys_cubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] weights of `jax.image.resize(..., "bicubic",
+    antialias=False)` along one axis, in its f32 operation order
+    (`jax.image.scale.compute_weight_mat`): the Keys cubic (a = -0.5) at the
+    half-pixel sample points, each row normalized over the taps inside the
+    input. `F.interpolate`'s bicubic uses a = -0.75 and clamps at the edges
+    instead."""
+    f = np.float32
+    sample = (np.arange(out_size, dtype=f) + f(0.5)) * f(1.0 / (out_size / in_size)) - f(0.5)
+    x = np.abs(sample[:, None] - np.arange(in_size, dtype=f)[None, :])
+    near = ((f(1.5) * x - f(2.5)) * x) * x + f(1.0)
+    far = ((f(-0.5) * x + f(2.5)) * x - f(4.0)) * x + f(2.0)
+    w = np.where(x >= 2.0, f(0.0), np.where(x >= 1.0, far, near)).astype(f)
+    total = w.sum(axis=1, keepdims=True, dtype=f)
+    keep = np.abs(total) > 1000.0 * np.finfo(f).eps
+    return np.where(keep, w / np.where(total != 0, total, f(1.0)), f(0.0)).astype(f)
+
+
 def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[1, ph, pw, C] -> [1, h, w, C]: bicubic with antialias,
-    align_corners=False, in f32, cast back."""
+    align_corners=False, in f32, cast back (HF's `F.interpolate` contract).
+
+    DEEPSEEK_SAM_POS_RESIZE (read at each call, as the JAX package reads it)
+    selects the reference binary's approximations, for numeric-diff
+    debugging: "interp_bilinear" is bilinear without antialias (the
+    reference's default), "interp_bicubic" bicubic without antialias, each
+    as `jax.image.resize` computes it.
+    """
     if tuple(pos.shape[1:3]) == (h, w):
         return pos
-    out = F.interpolate(
-        pos.float().permute(0, 3, 1, 2), size=(h, w), mode="bicubic", antialias=True, align_corners=False
-    )
+    mode = os.environ.get("DEEPSEEK_SAM_POS_RESIZE", "")
+    x = pos.float().permute(0, 3, 1, 2)  # [1, C, ph, pw]
+    if mode == "interp_bicubic":
+        wh = torch.from_numpy(_keys_cubic_weights(pos.shape[1], h)).to(x.device)
+        ww = torch.from_numpy(_keys_cubic_weights(pos.shape[2], w)).to(x.device)
+        out = torch.einsum("yp,ncpq,xq->ncyx", wh, x, ww)
+    elif mode == "interp_bilinear":
+        out = F.interpolate(x, size=(h, w), mode="bilinear", antialias=False, align_corners=False)
+    else:
+        out = F.interpolate(x, size=(h, w), mode="bicubic", antialias=True, align_corners=False)
     return out.permute(0, 2, 3, 1).to(pos.dtype)
 
 

@@ -37,7 +37,12 @@ Device and host:
   forwards of `lookup_chunk` tokens a slot (the last token and its drafts,
   attention kernel Q or R), 1..lookup_chunk accepted tokens each; pages
   grow and admissions reserve `dispatch_tokens` (lookup_steps x
-  lookup_chunk), the most a dispatch can write.
+  lookup_chunk), the most a dispatch can write;
+- preprocessing: a worker thread runs the host stage of the next pending
+  pages and ships them, or on the device-resize path resizes them on the
+  card, enqueued on the serve thread's stream, so admission reads complete
+  pixels. Pages ship one at a time: the JAX package's stacked ship of
+  bucket-padded pages paid a per-transfer fee the card does not have.
 
 `DEEPSEEK_DEBUG_SERVE` (any value) prints a wall-clock trace of the serve
 loop to stderr: admission, decode chunk, harvest and preprocess waits.
@@ -642,11 +647,14 @@ class ContinuousOCREngine:
                 prefill_t[slot] = dt
 
         # Host preprocessing overlaps decode: a worker thread preprocesses
-        # and ships the next pending pages while the serve thread launches
-        # the decode chunks (both on the default stream).
+        # and ships the next pending pages (and on the device-resize path
+        # resizes them on the card) while the serve thread launches the
+        # decode chunks. The worker enqueues on the serve thread's stream, so
+        # an admission's kernels run after the page's pixels are complete.
         pre_in_flight: set = set()
         serve_done = False
         pre_ahead = max(2 * b, 8)
+        serve_stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         def drop_failed(req: OCRRequest, e: Exception):
             # Fail this request and drop it; retrying would starve the serve
@@ -671,7 +679,8 @@ class ContinuousOCREngine:
                     pre_in_flight.update(targets)
                 for t in targets:
                     try:
-                        out = self._preprocess(t)
+                        with torch.cuda.stream(serve_stream):  # None (CPU): no stream change
+                            out = self._preprocess(t)
                     except Exception as e:  # an unreadable image fails its request only
                         drop_failed(t, e)
                         continue

@@ -1,6 +1,7 @@
 """Group-batched multi-page OCR engine (port of deepseek_ocr2_tpu.runtime.engine).
 
-Pages are preprocessed on the host and grouped by crop grid (pages of a
+Pages are preprocessed (on the host, or on the device where the pipeline's
+`device_resize` says so) and grouped by crop grid (pages of a
 group share the prompt length and the vision shapes); each group is cut into
 chunks of `batch_size` pages, and each chunk runs one batched vision pass
 (the crops of all its pages flatten into one SAM batch), one batched LM

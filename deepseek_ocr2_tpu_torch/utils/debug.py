@@ -20,17 +20,24 @@ def enabled(channel: str) -> bool:
 
 
 def dbg_stats(channel: str, name: str, arr) -> None:
-    """Print tensor stats when `channel` is set (reference deepseek_v2.rs:18-43)."""
+    """Print tensor stats when `channel` is set (reference deepseek_v2.rs:18-43).
+    A torch tensor (any device, bf16 included) is read back to the host as
+    f32; its dtype prints by the JAX name ("float32", not "torch.float32")."""
     if not enabled(channel):
         return
-    a = np.asarray(arr).astype(np.float32)
+    if hasattr(arr, "detach"):  # a torch tensor
+        dtype = str(arr.dtype).replace("torch.", "")
+        a = arr.detach().float().cpu().numpy()
+    else:
+        dtype = getattr(arr, "dtype", "?")
+        a = np.asarray(arr).astype(np.float32)
     nan = int(np.isnan(a).sum())
     finite = a[~np.isnan(a)]
     mn = float(finite.min()) if finite.size else float("nan")
     mx = float(finite.max()) if finite.size else float("nan")
     print(
-        f"debug: {name}: nan={nan} min={mn} max={mx} shape={tuple(np.shape(arr))} "
-        f"dtype={getattr(arr, 'dtype', '?')}",
+        f"debug: {name}: nan={nan} min={mn} max={mx} shape={tuple(np.shape(a))} "
+        f"dtype={dtype}",
         file=sys.stderr,
     )
 

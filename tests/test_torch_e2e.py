@@ -1,10 +1,12 @@
 """The port's OCR path end to end on the CPU, against the JAX package:
 no-crop greedy tokens (f32), bf16-LM logits, the CLI on a no-crop and a crop
-page, `serve` (group and continuous engines), and the guarantees that the
+page, `serve` (group and continuous engines), the flags `--device-resize`,
+`--profile-dir` and `--trim-memory`, and the guarantees that the
 port imports neither jax nor anything of the JAX package (over a no-crop
 and a crop page, both serving engines and, with int8 weights, a page and
 the continuous engine; the int8tail continuous engine sampling, and a sampled
-`greedy_generate`) and never runs on the CPU when a GPU is asked for. Crop mode's
+`greedy_generate`, a device-resized crop page's validate transcript) and
+never runs on the CPU when a GPU is asked for. Crop mode's
 parity with the JAX package is in tests/test_torch_crop.py.
 """
 
@@ -194,16 +196,35 @@ def test_cli_serve_refuses_what_it_cannot_run(cli_assets):
             main(base)  # --backend cuda is the default
 
 
-def test_cli_refuses_flags_outside_the_slice(cli_assets):
+def test_cli_device_resize_profile_dir_and_trim_memory_run(cli_assets, capsys, tmp_path):
+    """The three flags the CLI refused until they were ported now run:
+    `--trim-memory` prints its line, `--profile-dir` writes a trace, and
+    `--device-resize always` gives the host path's tokens (validate-hf's
+    transcript of a crop page, with and without it)."""
     from deepseek_ocr2_tpu_torch.cli import main
 
     d = cli_assets
-    base = ["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
-            "--tokenizer", str(d / "tokenizer.json"), "--image", str(d / "page.png"), "--int4"]
-    # --lookup-decode is ported (tests/test_torch_lookup.py); these three are not.
-    for flags in (["--device-resize"], ["--profile-dir", str(d / "prof")], ["--trim-memory"]):
-        with pytest.raises(SystemExit, match=f"{flags[0]} .*ROADMAP"):
-            main([*base, *flags, "--lookup-decode", "4"])
+    base = ["--backend", "cpu", "--weights", str(d / "tiny.safetensors"), "--tokenizer", str(d / "tokenizer.json"),
+            "--config", str(d / "tiny_config.json"), "--image", str(d / "page_crop.png"), "--image-token-id", "500",
+            "--max-new-tokens", "6", "--no-repeat-ngram-size", "3"]
+    prof = tmp_path / "prof"
+    capsys.readouterr()
+    assert main(["generate-ocr", *base, "--trim-memory", "--profile-dir", str(prof), "--device-resize", "always",
+                 "--lookup-decode", "4"]) == 0
+    err = capsys.readouterr().err
+    assert "trim-memory: rss_kb" in err and "tokens" in err
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+    for flags in ([], ["--device-resize", "always"]):
+        assert main(["validate-hf", *base, "--emit", str(tmp_path / f"t{len(flags)}.json"), *flags]) == 0
+    host, dev = (json.loads((tmp_path / f"t{n}.json").read_text()) for n in (0, 2))
+    assert host["crop_ratio"] != [1, 1] and len(host["generated_ids"]) > 0
+    assert dev["generated_ids"] == host["generated_ids"]
+    assert dev["inputs_embeds"] == host["inputs_embeds"] and dev["step0_top10"] == host["step0_top10"]
+    assert main(["generate-text", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"), "--tokenizer",
+                 str(d / "tokenizer.json"), "--config", str(d / "tiny_config.json"), "--prompt", "hello",
+                 "--max-new-tokens", "3", "--num-hidden-layers", "3", "--trim-memory"]) == 0
+    assert "trim-memory: rss_kb" in capsys.readouterr().err
     # generate-ocr's contiguous cache has no int8 kind: the JAX CLI's error.
     with pytest.raises(ValueError, match="int8/int8tail KV applies to the paged pool only"):
         main(["generate-ocr", "--backend", "cpu", "--weights", str(d / "tiny.safetensors"),
@@ -270,6 +291,17 @@ assert all(r.new_tokens >= 1 for r in cont)
 cont = ContinuousOCREngine(tail, slots=6, capacity=256, chunk_steps=2, lookup_chunk=4).run(
     pages, max_new_tokens=6, ngram_size=3)
 assert all(r.new_tokens >= 1 for r in cont)
+import numpy as np
+from PIL import Image
+from deepseek_ocr2_tpu_torch.preprocess import device_resize
+from deepseek_ocr2_tpu_torch.runtime import validate
+from deepseek_ocr2_tpu_torch.utils.profiling import device_trace
+page = Image.fromarray(np.random.default_rng(0).integers(0, 256, (300, 500, 3), np.uint8))  # a crop page
+dev_pipe = OCR2Pipeline(params, cfg, cs.StubTokenizer(cfg.lm.vocab_size), device="cpu", device_resize=True)
+assert dev_pipe.preprocess_host(page)["mode"] == "device"
+with device_trace(None):
+    t = validate.collect_transcript(dev_pipe, page, None, 4, False, 0, False, 3, None)
+assert validate.compare_transcripts(t, t)[0] and t["crop_ratio"] != [1, 1]
 from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
 ids = torch.tensor([[0, 5, 9], [0, 7, 3]])
 toks, n_gen = greedy_generate(params["lm"], cfg.lm, params["lm"]["embed"][ids], ids, max_new_tokens=4, capacity=64,
