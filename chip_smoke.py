@@ -129,7 +129,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    forward + backward / update split and a profiled step's idle share and
    device ms of D, E, S and T;
    8b: the loss and every gradient leaf of a 2-layer f32 LM, card against
-   CPU; 8c: a resumed run bit-identical to a straight one on the card.
+   CPU; 8c: a resumed run bit-identical to a straight one on the card;
+   8d: OCR fine-tuning through the vision towers
+   (`runtime.train.adamw_ocr_train_step`) on a fresh full-width composite
+   with the CLI's dtype policy: 3 AdamW steps on 2 no-crop uint8 pages at
+   S 512, then 3 on a (2, 1) crop page at S 768, each held to
+   `train_launches_per_step` (D, E, S, T; B, C and V never: SAM's training
+   form), the loss finite and falling, every tower's gradient nonzero,
+   with step ms, tokens/s, peak memory, the forward + backward / update
+   split and a profiled step's idle share and top kernels; 8e: the loss
+   and every gradient leaf of `ocr_loss`, card against CPU, at full widths
+   and reduced depth in f32 (SAM 3 blocks at 1024^2, Qwen2 and the LM 2
+   layers each, 600 rows), under 8b's rule.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1474,13 +1485,13 @@ def load_model(cfg, flat, device, lm_dtype: str, vision_dtype: str):
     return params
 
 
-def synthetic_page(w: int, h: int, cfg, seed: int, grid=(1, 1)):
+def synthetic_page(w: int, h: int, cfg, seed: int, grid=(1, 1), host_stage: bool = False):
     """A page with text-like dark strokes. Returns a PIL image when PIL is
-    installed (the pipeline then decides the crop grid itself); otherwise
-    the host-stage dict of the pipeline: the page drawn straight at its
-    letterboxed size into a [1, 3, S, S] uint8 canvas of pad colour 127 and,
-    for a crop grid (gw, gh), drawn at gw x gh crop sizes and cut into
-    [gw * gh, 3, c, c] row-major tiles."""
+    installed and `host_stage` is false (the pipeline then decides the crop
+    grid itself); otherwise the host-stage dict of the pipeline: the page
+    drawn straight at its letterboxed size into a [1, 3, S, S] uint8 canvas
+    of pad colour 127 and, for a crop grid (gw, gh), drawn at gw x gh crop
+    sizes and cut into [gw * gh, 3, c, c] row-major tiles."""
     rng = np.random.default_rng(seed)
     try:
         from PIL import Image
@@ -1494,7 +1505,7 @@ def synthetic_page(w: int, h: int, cfg, seed: int, grid=(1, 1)):
             page[y : y + 6, x : x + int(rng.integers(20, 60))] = rng.integers(0, 60, 3, dtype=np.uint8)
         return page
 
-    if Image is not None:
+    if Image is not None and not host_stage:
         return Image.fromarray(draw(w, h)), "pil"
     size = cfg.base_image_size
     scale = min(size / w, size / h)
@@ -3173,22 +3184,24 @@ def _lm2_flat(seed: int):
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 
 
-def phase_train_card_vs_cpu(dev) -> None:
-    """Phase 8b: the loss and every gradient leaf of `lm_loss` at full
-    width, 2 layers, f32, card (D, E, S, T) against CPU (the twins). The
-    card routes first; the CPU run takes the card's expert selection (its
-    routing weights gathered from its own probabilities, still
-    differentiable), so that a near tie that rounds the other way on one
-    device cannot move a token to another expert; the rows whose
-    selection the CPU would have made otherwise are counted and printed."""
+def _grads_card_vs_cpu(dev, tag: str, lm, load, loss_fn, args) -> None:
+    """The loss and every gradient leaf of `loss_fn(params, *args(device))`
+    in f32, card (params `load(dev)`) against CPU (`load("cpu")`), the LM
+    (config `lm`) above 512 rows: the card must launch what
+    `train_launches_per_step` counts (D 1, E 4, S 3, T 3 a MoE layer) and no
+    other kernel. The card routes first; the CPU run takes the card's
+    expert selection (its routing weights gathered from its own
+    probabilities, still differentiable), so that a near tie that rounds
+    the other way on one device cannot move a token to another expert; the
+    rows whose selection the CPU would have made otherwise are counted and
+    printed. Held to TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL."""
     import torch.nn.functional as F_
 
-    from deepseek_ocr2_tpu_torch.io import DtypePolicy
     from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
     from deepseek_ocr2_tpu_torch.runtime import train
 
-    lm, flat, ids = _lm2_flat(SEED + 9)
     kernels = counters()
+    want = {k: n for k, n in train_launches_per_step(lm, remat=False).items() if n}
     route, card_idx, flips = dsv2.route, [], []
 
     def recording(x, w, k):
@@ -3205,25 +3218,22 @@ def phase_train_card_vs_cpu(dev) -> None:
 
     out = {}
     for device, patched in ((dev, recording), ("cpu", replaying)):
-        params, report = dsv2.params_from_flat({k: v.clone() for k, v in flat.items()}, lm, device=device,
-                                               policy=DtypePolicy(default="float32"))
-        report.raise_on_errors()
+        params = load(device)
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
         dsv2.route = patched
         try:
-            loss, grads = train.value_and_grad(train.lm_loss, params, lm, ids.to(device))
+            loss, grads = train.value_and_grad(loss_fn, params, *args(device))
         finally:
             dsv2.route = route
         delta = {k: fn.launches - before[k] for k, fn in kernels.items() if fn.launches != before[k]}
         out[str(device)] = (float(loss), [g.cpu() for g in grads])
-        print(f"[train-cpu-vs-card] {device}: loss {float(loss):.6f}, {time.perf_counter() - t0:.1f} s, "
-              f"launches {delta}")
-        if device != "cpu" and delta != {"D": 1, "E": 4, "S": 3, "T": 3}:
-            raise AssertionError(f"the card's training step launched {delta}, expected D 1, E 4, S 3, T 3")
+        print(f"[{tag}] {device}: loss {float(loss):.6f}, {time.perf_counter() - t0:.1f} s, launches {delta}")
+        if device != "cpu" and delta != want:
+            raise AssertionError(f"the card's training step launched {delta}, expected {want}")
         names = [n for n, _ in train.param_items(params)]
         del params, grads
-    print(f"[train-cpu-vs-card] rows whose expert selection the CPU would have made otherwise: {flips}")
+    print(f"[{tag}] rows whose expert selection the CPU would have made otherwise: {flips}")
     (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(dev)]
     if not abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu):
         raise AssertionError(f"loss: card {l_card}, CPU {l_cpu}")
@@ -3235,8 +3245,27 @@ def phase_train_card_vs_cpu(dev) -> None:
         worst = max(worst, (rel, name))
         if not err <= TRAIN_GRAD_RTOL * scale:
             raise AssertionError(f"gradient {name}: card vs CPU max_abs_err {err}, above {TRAIN_GRAD_RTOL} x {scale}")
-    print(f"[train-cpu-vs-card] loss card {l_card:.6f} CPU {l_cpu:.6f}; {len(names)} gradient leaves within "
+    print(f"[{tag}] loss card {l_card:.6f} CPU {l_cpu:.6f}; {len(names)} gradient leaves within "
           f"{TRAIN_GRAD_RTOL} of each leaf's largest entry, worst {worst[0]:.2e} ({worst[1]})")
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """Phase 8b: the loss and every gradient leaf of `lm_loss` at full
+    width, 2 layers, f32, card (D, E, S, T) against CPU (the twins), under
+    `_grads_card_vs_cpu`'s rule."""
+    from deepseek_ocr2_tpu_torch.io import DtypePolicy
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    lm, flat, ids = _lm2_flat(SEED + 9)
+
+    def load(device):
+        params, report = dsv2.params_from_flat({k: v.clone() for k, v in flat.items()}, lm, device=device,
+                                               policy=DtypePolicy(default="float32"))
+        report.raise_on_errors()
+        return params
+
+    _grads_card_vs_cpu(dev, "train-cpu-vs-card", lm, load, train.lm_loss, lambda device: (lm, ids.to(device)))
 
 
 def phase_train_resume(dev) -> None:
@@ -3289,6 +3318,157 @@ def phase_train_resume(dev) -> None:
     torch.cuda.empty_cache()
 
 
+OCR_TRAIN_STEPS = 3
+
+
+def ocr_train_batch(cfg, b: int, s: int, grid, seed: int, device):
+    """One OCR fine-tuning batch for `train.ocr_loss`: b synthetic uint8
+    pages (`synthetic_page`'s host-stage form: the letterboxed base view
+    and, for a crop grid, its tiles), ids [b, s] of BOS, the placeholder
+    block and transcript ids, the loss mask on the transcript. Returns
+    (ids, image_base, patches or None, image_start, loss_mask)."""
+    n_img = cfg.image_token_count(grid)
+    w, h = PAGES[0] if grid == (1, 1) else next((w, h) for w, h, g in CROP_PAGES if g == grid)
+    pages = [synthetic_page(w, h, cfg, seed=seed + i, grid=grid, host_stage=True)[0] for i in range(b)]
+    base = torch.from_numpy(np.concatenate([p["base"] for p in pages])).to(device)
+    patches = None if grid == (1, 1) else torch.from_numpy(np.stack([p["patches"] for p in pages])).to(device)
+    ids = np.full((b, s), cfg.image_token_id, np.int64)
+    ids[:, 0] = cfg.bos_token_id
+    ids[:, 1 + n_img :] = np.random.default_rng(seed).integers(2, cfg.lm.vocab_size, (b, s - 1 - n_img))
+    mask = np.zeros((b, s), np.float32)
+    mask[:, 1 + n_img :] = 1.0
+    return torch.from_numpy(ids).to(device), base, patches, 1, torch.from_numpy(mask).to(device)
+
+
+def phase_train_ocr(dev, smi: str) -> dict:
+    """Phase 8d: OCR fine-tuning through the vision towers at full width
+    and depth (the default OCR2Config, 3.389 B parameters), fresh HF-layout
+    random weights from a seeded generator on the card, loaded with the
+    CLI's dtype policy (LM bf16, towers f32), through
+    `runtime.train.adamw_ocr_train_step`: OCR_TRAIN_STEPS AdamW steps on one
+    repeated batch of 2 no-crop uint8 pages at S 512, then as many on one
+    (2, 1) crop page at S 768 (uint8 pixels: bf16 activations). Every step
+    launches D, E, S and T as `train_launches_per_step` counts them (more
+    than 512 rows) and no other kernel (SAM's training form: no B, C or V);
+    the loss is finite and falls on each batch. Then, per batch, the
+    forward + backward and the update timed apart, with every tower's
+    gradient nonzero, and one profiled crop step. Returns the counted
+    steps' launches."""
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    cfg = OCR2Config()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    flat = random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=dev) * std)
+    params = load_model(cfg, flat, dev, lm_dtype="bfloat16", vision_dtype="float32")
+    del flat
+    tx = train.make_optimizer(lr=TRAIN_LR)
+    state = tx.init(params)
+    groups = {"LM": ("lm.",), "SAM": ("sam.",), "Qwen2": ("qwen2.",), "projector": ("projector_",),
+              "separator": ("view_seperator",)}
+    names = [n for n, _ in train.param_items(params)]
+    sizes = {k: sum(t.numel() for n, t in train.param_items(params) if n.startswith(p)) for k, p in groups.items()}
+    torch.cuda.synchronize(dev)
+    print(f"[train-ocr] {smi}; OCR2Config {sum(sizes.values()) / 1e9:.3f} B parameters (LM {sizes['LM'] / 1e9:.3f} B "
+          f"bf16, towers {(sum(sizes.values()) - sizes['LM']) / 1e9:.3f} B f32), AdamW moments in each leaf's dtype, "
+          f"made in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB on the card")
+    batches = {"no-crop": ocr_train_batch(cfg, 2, 512, (1, 1), SEED + 11, dev),
+               "(2, 1) crop": ocr_train_batch(cfg, 1, 768, (2, 1), SEED + 12, dev)}
+
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    want = train_launches_per_step(cfg.lm, remat=False)
+    for name, batch in batches.items():
+        b, s = batch[0].shape
+        losses, step_ms = [], []
+        for step in range(OCR_TRAIN_STEPS):
+            before = {k: fn.launches for k, fn in kernels.items()}
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            loss = float(train.adamw_ocr_train_step(params, state, cfg, *batch, tx))
+            dt = time.perf_counter() - t
+            delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            bad = {k: (delta[k], n) for k, n in want.items() if delta[k] != n}
+            print(f"[train-ocr] {name} B {b} x S {s}, step {step + 1}: loss {loss:.4f}, {dt * 1e3:.1f} ms "
+                  f"({b * s / dt:.0f} tokens/s), launches D {delta['D']} E {delta['E']} S {delta['S']} T {delta['T']}")
+            if bad or not math.isfinite(loss):
+                raise AssertionError(f"OCR train step {step + 1} ({name}): loss {loss}, launches (got, want) {bad}")
+            losses.append(loss)
+            step_ms.append(dt * 1e3)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the OCR training loss does not fall on the {name} batch: {losses}")
+        steady = float(np.median(step_ms[1:]))
+        print(f"[train-ocr] {name}: losses {[round(v, 4) for v in losses]}; step {steady:.1f} ms (median of steps "
+              f"2-{OCR_TRAIN_STEPS}), {b * s / steady * 1e3:.0f} tokens/s; first step {step_ms[0]:.1f} ms")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[train-ocr] peak memory {peak:.1f} GiB over the {2 * OCR_TRAIN_STEPS} steps on {smi}; launches over "
+          f"the steps {launches}")
+    # Where a step's time goes, and where the gradients reach: forward +
+    # backward and the update timed apart (host clock to a synchronize),
+    # then one step under torch.profiler. These run after the counts were
+    # read.
+    for name, batch in batches.items():
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        _, grads = train.value_and_grad(train.ocr_loss, params, cfg, *batch)
+        torch.cuda.synchronize(dev)
+        t_grad = time.perf_counter() - t
+        norms = {k: float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            [gr for n, gr in zip(names, grads) if n.startswith(p)], 2, dtype=torch.float32)))) for k, p in groups.items()}
+        t = time.perf_counter()
+        tx.update(grads, state, params)
+        torch.cuda.synchronize(dev)
+        t_update = time.perf_counter() - t
+        del grads
+        print(f"[train-ocr] {name} one step split: forward + backward {t_grad * 1e3:.1f} ms, AdamW update "
+              f"{t_update * 1e3:.1f} ms; gradient L2 norms " + ", ".join(f"{k} {v:.3e}" for k, v in norms.items()))
+        if not all(v > 0 and math.isfinite(v) for v in norms.values()):
+            raise AssertionError(f"a tower's gradient is zero or not finite on the {name} batch: {norms}")
+    prof = _step_profile(dev, lambda: train.adamw_ocr_train_step(params, state, cfg, *batches["(2, 1) crop"], tx))
+    print(f"[train-ocr] one (2, 1) crop step under torch.profiler: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms, idle share {1 - prof['device_ms'] / prof['wall_ms']:.3f}, "
+          f"{prof['launches']} device activities; kernels D, E, S, T {prof['gmm_ms']:.1f} ms in "
+          f"{prof['gmm_launches']} launches; top (name, ms, count) {prof['top']}")
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_ocr_card_vs_cpu(dev) -> None:
+    """Phase 8e: the loss and every gradient leaf of `ocr_loss`, card
+    against CPU, under `_grads_card_vs_cpu`'s rule (phase 8b's): full
+    widths at reduced depth (SAM 3 blocks, the last global, at 1024^2;
+    Qwen2 2 layers; the LM 2 layers, dense then MoE), f32 weights and
+    pixels ([-1, 1]), the same numpy-seeded weights on both; one no-crop
+    page at S 600, so the card's MoE layer runs D, E, S, T and the CPU the
+    twins; SAM's training form on both (no B, C or V on the card)."""
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_ocr2 import normalize_pixels
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    base = OCR2Config()
+    cfg = dataclasses.replace(
+        base,
+        lm=dataclasses.replace(base.lm, num_hidden_layers=2),
+        qwen2=dataclasses.replace(base.qwen2, num_hidden_layers=2),
+        sam=dataclasses.replace(base.sam, depth=3, global_attn_indexes=(2,)),
+    )
+    rng = np.random.default_rng(SEED + 12)
+    flat = random_hf_flat(
+        cfg, lambda shape, std: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+    )
+    ids, image, _, start, mask = ocr_train_batch(cfg, 1, 600, (1, 1), SEED + 13, "cpu")
+    image = normalize_pixels(image, torch.float32)
+    _grads_card_vs_cpu(dev, "train-ocr-cpu-vs-card", cfg.lm,
+                       lambda device: load_model(cfg, flat, device, lm_dtype="float32", vision_dtype="float32"),
+                       train.ocr_loss,
+                       lambda device: (cfg, ids.to(device), image.to(device), None, start, mask.to(device)))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3326,6 +3506,8 @@ def main() -> int:
     train_launches = phase_train(dev)
     phase_train_card_vs_cpu(dev)
     phase_train_resume(dev)
+    ocr_train_launches = phase_train_ocr(dev, smi)
+    phase_train_ocr_card_vs_cpu(dev)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
@@ -3334,11 +3516,12 @@ def main() -> int:
     # resize 4f, under validate-hf's harness 4g), serving
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
     # decoding 6e), the two switched paths (phase 4e) and fine-tuning
-    # (phase 8); each was driven with the counts at 0 and read after. W
+    # (phase 8) and through the vision towers (phase 8d); each was driven
+    # with the counts at 0 and read after. W
     # and X run on no path (the JAX package calls neither): 0 launches.
     runs = (main_launches, int8_launches, int4_launches, lookup_launches, resize_launches, validate_launches,
             serve_launches, serve_quant_launches, switched_launches, serve_kv_launches, serve_lookup_launches,
-            train_launches)
+            train_launches, ocr_train_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),

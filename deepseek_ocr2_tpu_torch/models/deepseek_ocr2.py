@@ -50,6 +50,19 @@ def params_from_flat(
     return params, src.finish()
 
 
+def flat_from_params(params: Params, cfg: OCR2Config) -> Dict[str, torch.Tensor]:
+    """The whole composite -> HF names and layout (the inverse of
+    `params_from_flat`; the JAX package's `flat_from_params` writes the same
+    names and arrays). The projector is stored in HF layout already."""
+    flat = dsv2.flat_from_params(params["lm"], cfg.lm, prefix="model.")
+    flat.update(sam_mod.flat_from_params(params["sam"], cfg.sam))
+    flat.update(qwen2_mod.flat_from_params(params["qwen2"], cfg.qwen2))
+    flat["model.projector.layers.weight"] = params["projector_w"]
+    flat["model.projector.layers.bias"] = params["projector_b"]
+    flat["model.view_seperator"] = params["view_seperator"]
+    return flat
+
+
 def params_from_jax(tree: Params, cfg: OCR2Config, device="cpu") -> Params:
     """From the JAX package's parameter pytree given as numpy arrays
     (bf16 leaves as ml_dtypes arrays)."""
@@ -86,17 +99,19 @@ def encode_views(
 
 
 def encode_views_batched(
-    params: Params, cfg: OCR2Config, image_base: torch.Tensor, patches: Optional[torch.Tensor] = None
+    params: Params, cfg: OCR2Config, image_base: torch.Tensor, patches: Optional[torch.Tensor] = None,
+    training: bool = False,
 ) -> torch.Tensor:
     """Batched vision for multi-page serving: [B, 3, S, S] global views and,
     in crop mode, [B, P, 3, c, c] crops (pages of a batch share the crop
     grid) -> [B, n_img, lm_hidden]. The crops flatten into one SAM batch of
-    B * P tiles; each page's tokens go local -> global -> separator."""
+    B * P tiles; each page's tokens go local -> global -> separator.
+    `training`: SAM's differentiable form."""
     h = cfg.lm.hidden_size
     b = image_base.shape[0]
 
     def tower(imgs):
-        feats = sam_mod.sam_forward(params["sam"], cfg.sam, imgs)
+        feats = sam_mod.sam_forward(params["sam"], cfg.sam, imgs, training=training)
         feats = qwen2_mod.qwen2_encode(params["qwen2"], cfg.qwen2, feats)
         dt = feats.dtype
         return F.linear(feats, params["projector_w"].to(dt)) + params["projector_b"].to(dt)
@@ -117,10 +132,16 @@ def ocr_prefill_embeds_batched(
     image_base: torch.Tensor,  # [B, 3, S, S] normalized
     patches: Optional[torch.Tensor],  # [B, P, 3, c, c] normalized, or None
     image_start: int,
+    training: bool = False,
 ) -> torch.Tensor:
     """[B, S, H] prompt embeddings of a batch of pages sharing one prompt:
-    the placeholder block of every row replaced by that page's tokens."""
-    vision = encode_views_batched(params, cfg, image_base, patches)
+    the placeholder block of every row replaced by that page's tokens.
+    Under autograd the slice assignment (a copy into the embedding
+    lookup's output) gives the overwritten rows zero gradient, as
+    `dynamic_update_slice` does in the JAX package: the embedding rows
+    behind the placeholders get none. `training`: SAM's differentiable
+    form."""
+    vision = encode_views_batched(params, cfg, image_base, patches, training=training)
     n = vision.shape[1]
     input_ids = input_ids.clone()
     input_ids[:, image_start : image_start + n] = 0  # placeholder ids are never looked up

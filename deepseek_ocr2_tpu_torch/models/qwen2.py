@@ -10,7 +10,12 @@ attention in f32; the output is the query half.
 Attention is the plain `sdpa`, as the JAX package's default is
 (its flash kernel is off for Qwen2 there). q/k/v and gate/up are fused per
 layer along the output axis in HF [out, in] layout: [H + 2 KVH, H] and
-[2 I, H] (output columns are independent, so this is exact).
+[2 I, H] (output columns are independent, so this is exact);
+`flat_from_params` splits them back into HF's names. Weights are cast to
+the activation dtype, as SAM and the projector cast theirs: bf16
+activations (uint8 pixels in fine-tuning) run on f32 weights too.
+Everything here is plain PyTorch, so `qwen2_encode` is differentiable as
+it stands.
 """
 
 from __future__ import annotations
@@ -64,6 +69,30 @@ def params_from_flat(flat, cfg: Qwen2Config, device="cpu", policy=None) -> Tuple
     return params_from_source(src, cfg), src.report
 
 
+def flat_from_params(params: Params, cfg: Qwen2Config, prefix: str = "model.qwen2_model.") -> Dict[str, torch.Tensor]:
+    """Inverse of `params_from_source`: HF names and layout, the fused
+    q||k||v and gate||up split back (the JAX package's `flat_from_params`
+    writes the same names and arrays)."""
+    mp = prefix + "model.model."
+    h, kvh, i_dim = cfg.hidden_size, cfg.num_key_value_heads * cfg.head_dim, cfg.intermediate_size
+    flat = {}
+    for i, lp in enumerate(params["layers"]):
+        p = f"{mp}layers.{i}."
+        flat[p + "input_layernorm.weight"] = lp["ln1"]
+        flat[p + "post_attention_layernorm.weight"] = lp["ln2"]
+        for n, (a, b) in zip("qkv", ((0, h), (h, h + kvh), (h + kvh, h + 2 * kvh))):
+            flat[f"{p}self_attn.{n}_proj.weight"] = lp["wqkv"][a:b]
+            flat[f"{p}self_attn.{n}_proj.bias"] = lp["bqkv"][a:b]
+        flat[p + "self_attn.o_proj.weight"] = lp["wo"]
+        flat[p + "mlp.gate_proj.weight"] = lp["gateup"][:i_dim]
+        flat[p + "mlp.up_proj.weight"] = lp["gateup"][i_dim:]
+        flat[p + "mlp.down_proj.weight"] = lp["down"]
+    flat[mp + "norm.weight"] = params["norm"]
+    flat[prefix + "query_768.weight"] = params["query_768"]
+    flat[prefix + "query_1024.weight"] = params["query_1024"]
+    return flat
+
+
 def params_from_jax(tree: Params, cfg: Qwen2Config, device="cpu") -> Params:
     """From the JAX pytree: stacked [L, ...] layers, linears [in, out]."""
 
@@ -97,7 +126,7 @@ def _layer(x, lp, cfg: Qwen2Config, mask, cos, sin) -> torch.Tensor:
 
     res = x
     xn = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-    qkv = F.linear(xn, lp["wqkv"]) + lp["bqkv"].to(dt)
+    qkv = F.linear(xn, lp["wqkv"].to(dt)) + lp["bqkv"].to(dt)
     q = qkv[..., :h].reshape(b, s, nh, d).transpose(1, 2)
     k = qkv[..., h : h + kvh].reshape(b, s, nkv, d).transpose(1, 2)
     v = qkv[..., h + kvh :].reshape(b, s, nkv, d).transpose(1, 2)
@@ -106,14 +135,14 @@ def _layer(x, lp, cfg: Qwen2Config, mask, cos, sin) -> torch.Tensor:
     k32 = repeat_kv(k32, cfg.gqa_groups)
     v32 = repeat_kv(v.float(), cfg.gqa_groups)
     ctx = sdpa(q32, k32, v32, scale=1.0 / math.sqrt(d), mask=mask, out_dtype=dt)
-    x = res + F.linear(ctx.transpose(1, 2).reshape(b, s, h), lp["wo"])
+    x = res + F.linear(ctx.transpose(1, 2).reshape(b, s, h), lp["wo"].to(dt))
 
     res = x
     xn = rms_norm(x, lp["ln2"], cfg.rms_norm_eps)
-    gu = F.linear(xn, lp["gateup"])
+    gu = F.linear(xn, lp["gateup"].to(dt))
     i_dim = gu.shape[-1] // 2
     act = F.silu(gu[..., :i_dim].float()).to(dt) * gu[..., i_dim:]
-    return res + F.linear(act, lp["down"])
+    return res + F.linear(act, lp["down"].to(dt))
 
 
 def qwen2_encode(params: Params, cfg: Qwen2Config, feats: torch.Tensor) -> torch.Tensor:

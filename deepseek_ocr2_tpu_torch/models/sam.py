@@ -20,6 +20,13 @@ tables (127 rows) to 95 (linear), both in f32 with `F.interpolate`, as the
 JAX package does with `jax.image.resize` (the same HF contract).
 `DEEPSEEK_SAM_POS_RESIZE` selects the reference binary's pos-embed filters
 instead (`resize_pos_embed`).
+
+`sam_forward(..., training=True)` is the differentiable form for
+fine-tuning: every block's attention (global and windowed) is the plain
+rel-pos attention `mha_reference` and every MLP `mlp_gelu_reference`, the
+arithmetic of the JAX package's XLA path. Kernels B, C and V have no
+backward (nor do their Pallas originals), and their wrappers refuse an
+input that requires grad, so a training forward without the flag raises.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ import torch.nn.functional as F
 from ..configs import SamConfig
 
 from ..io.safetensors_torch import DtypePolicy, FlatSource, LoadReport, as_tensor
-from ..ops.flash_attention import mha_relpos, mha_win
-from ..ops.fused_mlp import mlp_gelu
+from ..ops.flash_attention import mha_reference, mha_relpos, mha_win
+from ..ops.fused_mlp import mlp_gelu, mlp_gelu_reference
 from ..ops.norms import layer_norm
 
 Params = Dict[str, Any]
@@ -71,6 +78,15 @@ def params_from_source(src: FlatSource, cfg: SamConfig, prefix: str = "model.sam
 def params_from_flat(flat, cfg: SamConfig, device="cpu", policy=None) -> Tuple[Params, LoadReport]:
     src = FlatSource(flat, torch.device(device), policy or DtypePolicy(default=None))
     return params_from_source(src, cfg), src.report
+
+
+def flat_from_params(params: Params, cfg: SamConfig, prefix: str = "model.sam_model.") -> Dict[str, torch.Tensor]:
+    """Inverse of `params_from_source`: HF names and layout (the JAX
+    package's `flat_from_params` writes the same names and arrays)."""
+    flat = {prefix + hf: params[k] for k, hf in _TOP_KEYS.items()}
+    for i, blk in enumerate(params["blocks"]):
+        flat.update({f"{prefix}blocks.{i}.{hf}": blk[k] for k, hf in _BLOCK_KEYS.items()})
+    return flat
 
 
 def params_from_jax(tree: Params, cfg: SamConfig, device="cpu") -> Params:
@@ -191,10 +207,11 @@ def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).to(pos.dtype)
 
 
-def _attention(x: torch.Tensor, blk: Params, num_heads: int, win_kernel: bool = False) -> torch.Tensor:
+def _attention(x: torch.Tensor, blk: Params, num_heads: int, win_kernel: bool = False,
+               training: bool = False) -> torch.Tensor:
     """Decomposed rel-pos attention on [B, H, W, C] through kernel B, or
     with `win_kernel` (square windows) through kernel V on the flattened
-    tables."""
+    tables, or with `training` through the plain differentiable form."""
     b, h, w, dim = x.shape
     hd = dim // num_heads
     l = h * w
@@ -207,7 +224,7 @@ def _attention(x: torch.Tensor, blk: Params, num_heads: int, win_kernel: bool = 
 
     rh = get_rel_pos(h, h, blk["rel_h"])
     rw = get_rel_pos(w, w, blk["rel_w"])
-    if win_kernel:  # rhf[c, i * win + j] = rh[i, j, c]
+    if win_kernel and not training:  # rhf[c, i * win + j] = rh[i, j, c]
         rhf, rwf = (t.permute(2, 0, 1).reshape(hd, l) for t in (rh, rw))
         ctx = mha_win(q, k, v, rhf, rwf, scale=1.0 / math.sqrt(hd), win=h, valid=h)
     else:
@@ -215,25 +232,27 @@ def _attention(x: torch.Tensor, blk: Params, num_heads: int, win_kernel: bool = 
         r_q = q.float().reshape(b * num_heads, h, w, hd)
         rel_h = torch.einsum("nhwc,hkc->nhwk", r_q, rh).reshape(b, num_heads, l, h)
         rel_w = torch.einsum("nhwc,wkc->nhwk", r_q, rw).reshape(b, num_heads, l, w)
-        ctx = mha_relpos(q, k, v, rel_h, rel_w, scale=1.0 / math.sqrt(hd))
+        attend = mha_reference if training else mha_relpos
+        ctx = attend(q, k, v, rel_h=rel_h, rel_w=rel_w, scale=1.0 / math.sqrt(hd))
     ctx = ctx.transpose(1, 2).reshape(b, h, w, dim)
     return F.linear(ctx, blk["proj_w"].to(x.dtype)) + blk["proj_b"].to(x.dtype)
 
 
-def _block(x: torch.Tensor, blk: Params, cfg: SamConfig, window: int) -> torch.Tensor:
+def _block(x: torch.Tensor, blk: Params, cfg: SamConfig, window: int, training: bool = False) -> torch.Tensor:
     shortcut = x
     x = layer_norm(x, blk["ln1_w"], blk["ln1_b"], cfg.layer_norm_eps)
     if window > 0:
         _, h, w, _ = x.shape
         wins, pad_hw = window_partition(x, window)
         win_kernel = os.environ.get("DEEPSEEK_SAM_WIN_KERNEL", "") == "1"
-        x = window_unpartition(_attention(wins, blk, cfg.num_heads, win_kernel), window, pad_hw, (h, w))
+        x = window_unpartition(_attention(wins, blk, cfg.num_heads, win_kernel, training), window, pad_hw, (h, w))
     else:
-        x = _attention(x, blk, cfg.num_heads)
+        x = _attention(x, blk, cfg.num_heads, training=training)
     x = shortcut + x
     xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"], cfg.layer_norm_eps)
     bb, hh, ww, cc = xn.shape
-    mlp = mlp_gelu(xn.reshape(bb * hh * ww, cc), blk["w1"], blk["b1"], blk["w2"], blk["b2"])
+    mlp = (mlp_gelu_reference if training else mlp_gelu)(
+        xn.reshape(bb * hh * ww, cc), blk["w1"], blk["b1"], blk["w2"], blk["b2"])
     return x + mlp.reshape(bb, hh, ww, cc)
 
 
@@ -243,14 +262,15 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tenso
     return y.permute(0, 2, 3, 1)
 
 
-def sam_forward(params: Params, cfg: SamConfig, x: torch.Tensor) -> torch.Tensor:
-    """[B, 3, S, S] image -> [B, net_3_chans, S/64, S/64] features."""
+def sam_forward(params: Params, cfg: SamConfig, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    """[B, 3, S, S] image -> [B, net_3_chans, S/64, S/64] features.
+    `training`: the differentiable form (see the module docstring)."""
     x = _patch_embed(x, params["patch_w"], params["patch_b"], cfg.patch_size)
     _, h, w, _ = x.shape
     x = x + resize_pos_embed(params["pos_embed"], h, w).to(x.dtype)
     for i, blk in enumerate(params["blocks"]):
         window = 0 if i in cfg.global_attn_indexes else cfg.window_size
-        x = _block(x, blk, cfg, window)
+        x = _block(x, blk, cfg, window, training)
 
     eps = cfg.layer_norm_eps
     x = torch.matmul(x, params["neck_conv1"][:, :, 0, 0].t().to(x.dtype))  # 1x1 conv

@@ -1,9 +1,13 @@
-"""LM fine-tuning (port of deepseek_ocr2_tpu.runtime.train, without optax).
+"""Fine-tuning (port of deepseek_ocr2_tpu.runtime.train, without optax).
 
 - `lm_loss` / `lm_loss_masked`: next-token cross-entropy in f32 over the
   training forward (`lm_forward(..., training=True)`: plain causal
   attention, the differentiable grouped-GEMM MoE above 512 rows); masked
   targets are made safe (0) before the CE, as in the JAX package.
+- `ocr_loss`: the masked CE through the whole composite on (image,
+  transcript) pairs: SAM's training form (plain rel-pos attention and MLP,
+  `models.sam`), Qwen2, the projector and separator, the injection into
+  the placeholder block, then the LM's training forward.
 - `make_optimizer` -> `AdamW`: optax's `chain(clip_by_global_norm,
   adamw)` (b1 0.9, b2 0.95, eps 1e-8, decay on every leaf), its constant,
   linear-warmup and `warmup_cosine_decay_schedule` (to lr / 10) learning
@@ -12,7 +16,8 @@
   updates), the step itself `torch.optim.AdamW(fused=True)`. Moments and
   the accumulator are stored in the params' dtype, as optax makes them;
   the arithmetic is f32.
-- `sgd_train_step`, `adamw_train_step`, `adamw_sft_train_step`: one step;
+- `sgd_train_step`, `adamw_train_step`, `adamw_sft_train_step`,
+  `adamw_ocr_train_step`: one step;
   the JAX functions return new params, these update the params (and the
   optimizer state) in place and return the loss, a 0-d tensor on the
   params' device (no host sync inside a step).
@@ -20,13 +25,12 @@
   counts in one safetensors file, written to a temporary file and moved
   into place; a resumed run is bit-identical to a straight one.
 
-The params are the port's LM tree (`models.deepseek_v2.params_from_flat`):
-nested dicts and lists of tensors, whose leaves `param_items` names by
-path ("layers.3.experts.gate"). The optimizer state holds one tensor per
-leaf, in that order.
-
-The ocr_loss / adamw_ocr_train_step of the JAX package (training through
-the vision towers) are not ported yet: see ROADMAP.md.
+The params are the port's LM tree (`models.deepseek_v2.params_from_flat`)
+or, for the OCR step, its composite tree (`models.deepseek_ocr2`: "lm",
+"sam", "qwen2", "projector_w", "projector_b", "view_seperator"): nested
+dicts and lists of tensors, whose leaves `param_items` names by path
+("layers.3.experts.gate", "sam.blocks.2.qkv_w"). The optimizer state holds
+one tensor per leaf, in that order.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 from ..io.safetensors_torch import load_flat, save_flat
+from ..models.deepseek_ocr2 import normalize_pixels, ocr_prefill_embeds_batched
 from ..models.deepseek_v2 import lm_forward, logits_all
 
 
@@ -79,12 +84,36 @@ def lm_loss_masked(params, cfg: DeepseekV2Config, ids: torch.Tensor, loss_mask: 
                    remat: bool = False) -> torch.Tensor:
     """Next-token CE restricted to positions where loss_mask is 1 (SFT:
     train on the completion, not the prompt or padding)."""
-    logits = _logits(params, cfg, ids, remat)
+    return _masked_ce(_logits(params, cfg, ids, remat), ids, loss_mask)
+
+
+def _masked_ce(logits: torch.Tensor, ids: torch.Tensor, loss_mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE of f32 logits [B, S, V] over the targets where
+    loss_mask[:, 1:] is 1; the other targets are made safe (0) first, since
+    pad and placeholder ids may be out of vocab."""
     m = loss_mask[:, 1:].float()
-    targets = torch.where(m > 0, ids[:, 1:], 0)  # pad ids may be out of vocab
+    targets = torch.where(m > 0, ids[:, 1:], 0)
     per_tok = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), targets.reshape(-1),
                               reduction="none").reshape(m.shape)
     return (per_tok * m).sum() / m.sum().clamp(min=1.0)
+
+
+def ocr_loss(params, cfg, ids: torch.Tensor, image_base: torch.Tensor, patches, image_start: int,
+             loss_mask: torch.Tensor) -> torch.Tensor:
+    """Masked next-token CE through the whole composite (an OCR2Config and
+    its params tree): `ids` [B, S] with the placeholder block at
+    `image_start`, `image_base` [B, 3, S_img, S_img] and `patches` [B, P,
+    3, c, c] or None, each [-1, 1] floats (kept in their dtype) or raw
+    uint8 (normalized with bf16 activations), `loss_mask` [B, S] 1.0 where
+    the token is a training target. Gradients reach SAM, Qwen2, the
+    projector and the separator as well as the LM."""
+    act = torch.bfloat16 if image_base.dtype == torch.uint8 else image_base.dtype
+    image_base = normalize_pixels(image_base, act)
+    if patches is not None:
+        patches = normalize_pixels(patches, act)
+    embeds = ocr_prefill_embeds_batched(params, cfg, ids, image_base, patches, image_start, training=True)
+    hidden = lm_forward(params["lm"], cfg.lm, embeds, None, training=True)
+    return _masked_ce(logits_all(params["lm"], hidden).float(), ids, loss_mask)
 
 
 def value_and_grad(loss_fn: Callable, params, *args, **kwargs) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -248,6 +277,16 @@ def adamw_sft_train_step(params, opt_state: dict, cfg: DeepseekV2Config, ids: to
                          loss_mask: torch.Tensor, tx: AdamW, remat: bool = False) -> torch.Tensor:
     """One AdamW step on (prompt, completion) pairs with the masked loss."""
     loss, grads = value_and_grad(lm_loss_masked, params, cfg, ids, loss_mask, remat)
+    tx.update(grads, opt_state, params)
+    return loss
+
+
+def adamw_ocr_train_step(params, opt_state: dict, cfg, ids: torch.Tensor, image_base: torch.Tensor, patches,
+                         image_start: int, loss_mask: torch.Tensor, tx: AdamW) -> torch.Tensor:
+    """One AdamW step on (image, transcript) pairs over every leaf of the
+    composite tree (`ocr_loss`); params and opt_state change in place.
+    Returns the loss."""
+    loss, grads = value_and_grad(ocr_loss, params, cfg, ids, image_base, patches, image_start, loss_mask)
     tx.update(grads, opt_state, params)
     return loss
 

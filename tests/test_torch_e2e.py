@@ -313,6 +313,16 @@ state = tx.init(params["lm"])
 ids = torch.randint(0, cfg.lm.vocab_size, (3, 200), generator=g)  # 600 rows: the grouped-GEMM Function
 losses = [float(adamw_train_step(params["lm"], state, cfg.lm, ids, tx)) for _ in range(2)]
 assert all(torch.isfinite(torch.tensor(losses))) and state["count"] == 2
+from deepseek_ocr2_tpu_torch.runtime.train import adamw_ocr_train_step, ocr_loss, value_and_grad
+n_img = cfg.image_token_count((2, 1))
+ids = torch.randint(2, cfg.lm.vocab_size - 20, (1, n_img + 24), generator=g)  # through the towers, uint8 pages
+ids[0, 0], ids[0, 1 : 1 + n_img] = cfg.bos_token_id, cfg.image_token_id
+mask = torch.zeros(ids.shape)
+mask[0, 1 + n_img :] = 1.0
+loss, grads = value_and_grad(ocr_loss, params, cfg, ids, canvas, crops[None], 1, mask)
+assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(t).all()) for t in grads)
+state = tx.init(params)
+assert bool(torch.isfinite(adamw_ocr_train_step(params, state, cfg, ids, canvas, crops[None], 1, mask, tx)))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "deepseek_ocr2_tpu" or m.startswith("deepseek_ocr2_tpu."))
 print("JAX_MODULES", bad)

@@ -312,6 +312,38 @@ def test_cuda_relpos_refuses_other_head_dims(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_cuda_sam_training_form_needs_its_flag(cuda):
+    """On the card SAM's default form runs B and C, whose wrappers refuse
+    an input that requires grad: a training forward without
+    `training=True` raises instead of cutting the gradient off. With the
+    flag the plain form runs (no B, C or V) and matches the default
+    form's features, and the gradient reaches every block."""
+    from reference_torch_vision import random_sam_flat
+
+    from deepseek_ocr2_tpu_torch.configs import tiny_sam_config
+    from deepseek_ocr2_tpu_torch.models import sam
+
+    cfg = tiny_sam_config(embed_dim=128, num_heads=2, window_size=7)  # head dim 64, B's
+    params, rep = sam.params_from_flat(random_sam_flat(cfg, seed=3), cfg, device=cuda)
+    rep.raise_on_errors()
+    x = torch.randn(2, 3, cfg.img_size, cfg.img_size, generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    with torch.no_grad():
+        want = sam.sam_forward(params, cfg, x)
+    leaves = [params["blocks"][i]["qkv_w"] for i in range(cfg.depth)]
+    for t in leaves:
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sam.sam_forward(params, cfg, x)
+    before = (mha_relpos.launches, mha_win.launches, mlp_gelu.launches)
+    got = sam.sam_forward(params, cfg, x, training=True)
+    grads = torch.autograd.grad(got.square().sum(), leaves)
+    assert (mha_relpos.launches, mha_win.launches, mlp_gelu.launches) == before
+    assert all(float(g.abs().sum()) > 0 for g in grads)
+    assert float((got.detach() - want).abs().max()) <= 1e-3 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,e,f", [(4096, 768, 3072), (2304, 768, 3072), (13824, 768, 3072), (300, 768, 3072),
                                    (100, 32, 64), (33, 200, 96)])
