@@ -19,7 +19,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    gate||up products, E, S and T in bf16); A (at the no-crop and the
    (2, 3) crop prompt), B (SAM's four shapes, f32 and bf16), D and E (at
    the prompts of the crop pages and a training step's forward, E also at
-   its recompute), F (B 16 and 32 in bf16, 16 in f32)
+   its recompute), F (B 16 and 32 in bf16, 16 in f32; and on one
+   rank's 32 experts under expert parallelism, local ids, out f32 and
+   bf16, with a batch none of whose selections is the rank's)
    and L (at lm_head) also in a CUDA graph, beside the library call in one
    where there is one, with A's visited and skipped key
    tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
@@ -141,6 +143,28 @@ Phases (each raises on failure, so the exit code is non-zero):
    and every gradient leaf of `ocr_loss`, card against CPU, at full widths
    and reduced depth in f32 (SAM 3 blocks at 1024^2, Qwen2 and the LM 2
    layers each, 600 rows), under 8b's rule.
+9. multi-GPU training on the one card (`phase_multi_gpu`): worlds started
+   through `parallel.launch`, ranks sharing the card over gloo (one rank
+   over NCCL). 9a: the LM at full width and 3 layers in f32, B 4 x S 512,
+   one forward and backward at (dp, mp) = (1, 1), (2, 1), (4, 1), (1, 2),
+   (2, 2): the loss within 1e-5 and every gathered gradient leaf within
+   1e-4 of its largest entry of (1, 1)'s, D, E, S, T on every rank (the
+   (1, 1) routing replayed), (1, 1) again alone over NCCL; 9b: the
+   full-width 12-layer LM in bf16 at (1, 2): the first batch's loss and
+   every gradient leaf against (1, 1)'s on the same weights (routing
+   replayed) within MESH_BF16_LOSS_RTOL and MESH_BF16_GRAD_RTOL, a planted
+   fault (`dropped_partial`) beyond the latter; then 3 AdamW steps, the
+   loss finite and falling, the first within MESH_BF16_LOSS_RTOL of the
+   (1, 1) forward's, each rank's launches held to `train_launches_per_step`, with
+   step ms, each rank's peak memory and a profiled step's share of
+   collective time; 9c: `greedy_generate` of 16 prompts of 256 tokens, 32
+   new, on 9b's trained shards (A, D, E in the prefill, F on each rank's
+   32 experts) against the whole params gathered to rank 0, under phase
+   7's margin rule; 9d: the OCR loss's gradients at reduced depth (8e's
+   widths, 2 pages at S 300) at (1, 1), (2, 1), (1, 2): the towers'
+   gradients equal on every rank and to (1, 1)'s, then the OCR prefill's
+   last logits at (2, 1) (a page a rank) and (1, 2) within
+   MESH_LOGITS_RTOL of (1, 1)'s (A, B, C, D, E on every rank).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -159,6 +183,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -428,7 +453,8 @@ def decode_results(dev, randn, record) -> None:
     """Kernels F and G at the serving shapes. F: the routed MoE of one
     decode step (E = 64, k = 6, H = 1280, I = 896) at B = 16 and 32 in bf16
     and B = 16 in f32, against the visit twin, each also in a CUDA graph;
-    one call in sync-debug mode; then one MoE layer at B = 8, 11, 16, 32
+    one call in sync-debug mode; one rank's 32 experts under expert
+    parallelism (phase 9c's decode), out f32 and bf16; then one MoE layer at B = 8, 11, 16, 32
     timed in its three forms (F, the per-selection path, the dense form)
     around the B * k <= E cut-over (11 rows), and F in a CUDA graph. G:
     [12, P, 10, 128, 128] pools in f32 and bf16, 16 rows of ragged lengths
@@ -463,6 +489,35 @@ def decode_results(dev, randn, record) -> None:
         if b == 16 and dt == torch.bfloat16:
             no_host_sync(dev, "F (B 16 bf16)", lambda: moe_decode.moe_ffn_decode_fused(*args))
         del ex, args, ref, got
+
+    # F under expert parallelism at mp 2 (phase 9c's decode): a rank's 32
+    # experts on the local ids of a 64-expert routing (`local_routing`: the
+    # other rank's selections id 32, weight 0), its partial in f32 (what
+    # `_ffn_mp` asks for) and in bf16; then a batch none of whose
+    # selections is rank 0's, where every visit is a pad and F adds zeros.
+    ex = experts(torch.bfloat16)
+    x = randn(16, h, dtype=torch.bfloat16)
+    weights, idx = moe_ops.route(x, router, k)
+    e_l = e // 2
+    for rank, sel, what in ((0, idx, "rank 0"), (1, idx, "rank 1"), (0, idx % e_l + e_l, "rank 0, none local")):
+        w_l, idx_l = moe_ops.local_routing(weights, sel, e_l, rank)
+        local = {n: t[rank * e_l:(rank + 1) * e_l] for n, t in ex.items()}
+        n_visits = int(moe_decode.distinct_schedule(idx_l, e_l)[1].sum())
+        for out_dt in (torch.float32, torch.bfloat16):
+            args = (x, local, w_l, idx_l, out_dt)
+            ref = moe_decode.moe_ffn_decode_visits_reference(*args)
+            got = moe_decode.moe_ffn_decode_fused(*args)
+            if got.dtype != out_dt or (n_visits == 0 and not torch.equal(got, torch.zeros_like(got))):
+                raise AssertionError(f"F on local ids, {what}: {got.dtype} out, {n_visits} visits, "
+                                     f"max |out| {float(got.float().abs().max())}")
+            record("F", f"EP {what}: 32 local experts, B 16 k {k}, {n_visits} visits, bf16, out {str(out_dt)[6:]}",
+                   ref, got, bf16_tol(ref), median_ms(lambda: moe_decode.moe_ffn_decode_fused(*args)),
+                   median_ms(lambda: moe_decode.moe_ffn_decode_visits_reference(*args)),
+                   bound_ms(nbytes(x, ref, w_l, idx_l) + n_visits * 3 * nbytes(ex["gate"][0]),
+                            2 * int((idx_l < e_l).sum()) * 3 * h * i, torch.bfloat16),
+                   graph=lambda: moe_decode.moe_ffn_decode_fused(*args))
+            del args, ref, got
+    del ex
 
     ex = experts(torch.bfloat16)
     for b in (8, 11, 16, 32):
@@ -3195,37 +3250,18 @@ def _grads_card_vs_cpu(dev, tag: str, lm, load, loss_fn, args) -> None:
     the other way on one device cannot move a token to another expert; the
     rows whose selection the CPU would have made otherwise are counted and
     printed. Held to TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL."""
-    import torch.nn.functional as F_
-
-    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
     from deepseek_ocr2_tpu_torch.runtime import train
 
     kernels = counters()
     want = {k: n for k, n in train_launches_per_step(lm, remat=False).items() if n}
-    route, card_idx, flips = dsv2.route, [], []
-
-    def recording(x, w, k):
-        weights, idx = route(x, w, k)
-        card_idx.append(idx.cpu())
-        return weights, idx
-
-    def replaying(x, w, k):
-        own = route(x, w, k)[1]
-        idx = card_idx[len(flips)]
-        flips.append(int((own.sort(1).values != idx.sort(1).values).any(1).sum()))
-        probs = torch.softmax(F_.linear(x.float(), w.float()), dim=-1)
-        return probs.gather(1, idx), idx
-
+    card_idx = []
     out = {}
-    for device, patched in ((dev, recording), ("cpu", replaying)):
+    for device, record in ((dev, True), ("cpu", False)):
         params = load(device)
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
-        dsv2.route = patched
-        try:
+        with routing(card_idx, record) as flips:
             loss, grads = train.value_and_grad(loss_fn, params, *args(device))
-        finally:
-            dsv2.route = route
         delta = {k: fn.launches - before[k] for k, fn in kernels.items() if fn.launches != before[k]}
         out[str(device)] = (float(loss), [g.cpu() for g in grads])
         print(f"[{tag}] {device}: loss {float(loss):.6f}, {time.perf_counter() - t0:.1f} s, launches {delta}")
@@ -3469,6 +3505,554 @@ def phase_train_ocr_card_vs_cpu(dev) -> None:
                        lambda device: (cfg, ids.to(device), image.to(device), None, start, mask.to(device)))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: multi-GPU training on the one card. `phase_multi_gpu` runs in the
+# parent; `chip_nccl_loss` and `chip_phase9` are the entries of the worlds
+# it starts (`parallel.launch` spawns the ranks, each of which imports this
+# script again to find them).
+
+# Phase 9b's bounds on the bf16 12-layer LM at (1, 2) against (1, 1) on the
+# same weights and batch, the (1, 1) routing replayed: two paths that round
+# the hidden states to bf16 at other points (the row-parallel products and
+# the routed experts summed over mp in f32) through 12 layers. The loss
+# within MESH_BF16_LOSS_RTOL; every gradient leaf within
+# MESH_BF16_GRAD_RTOL of its largest entry, a bound set between the sound
+# run's reading and that of a planted fault (`dropped_partial`), which
+# every run measures again and must exceed it. On an H100 80GB HBM3 at
+# 700 W the sound run read 4.07e-2 (layers.8.experts.gate) and the fault
+# 1.03, its loss 1.6e-4 from (1, 1)'s, well inside the loss bound: the
+# bound sits near their geometric mean (PERF.md, section 6).
+MESH_BF16_LOSS_RTOL = 5e-3
+MESH_BF16_GRAD_RTOL = 0.2
+# The planted fault: the forward's reduction over mp number MESH_FAULT_CALL
+# (each layer reduces wo's partials, then its MLP's: 3 is layer 1's MoE
+# layer) sums rank 0's partial alone.
+MESH_FAULT_CALL = 3
+# 9d's OCR prefill logits at (2, 1) and (1, 2) against (1, 1)'s, f32, the
+# routing replayed: within this share of the largest logit (read 7.8e-7).
+MESH_LOGITS_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def routing(log: list, record: bool, mesh=None):
+    """Record every MoE layer's expert selection (`log` gets each call's
+    [N, k] ids of the whole batch, on the host), or replay a recorded one:
+    each call takes its rows (the mesh's dp rows) of the next entry, its
+    routing weights gathered from its own probabilities (still
+    differentiable), so that a near tie rounded the other way in another
+    summation order cannot move a row to another expert. Yields the list,
+    per call, of the rows whose own selection differs."""
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.parallel.mesh import dp_rows
+
+    orig, flips = dsv2.route, []
+
+    def recording(x, w, k):
+        weights, idx = orig(x, w, k)
+        log.append(idx.cpu())
+        return weights, idx
+
+    def replaying(x, w, k):
+        own = orig(x, w, k)[1]
+        idx = dp_rows(log[len(flips)], mesh).to(x.device)
+        flips.append(int((own.sort(1).values != idx.sort(1).values).any(1).sum()))
+        probs = torch.softmax(F.linear(x.float(), w.float()), dim=-1)
+        return probs.gather(1, idx), idx
+
+    dsv2.route = recording if record else replaying
+    try:
+        yield flips
+    finally:
+        dsv2.route = orig
+
+
+@contextlib.contextmanager
+def dropped_partial(on: bool):
+    """The planted fault, when `on`: the forward's reduction over mp number
+    MESH_FAULT_CALL (`reduce_from_mp`) sums rank 0's partial alone, as if
+    the other ranks' values were lost. Their gradient still flows (x -
+    x.detach() is 0 with x's gradient), so every leaf keeps a gradient and
+    every rank's backward runs the same collectives: the fault shows only
+    through the hidden states it changes."""
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+
+    orig, calls = dsv2.reduce_from_mp, []
+
+    def faulty(x, mesh):
+        calls.append(1)
+        return orig(x - x.detach() if len(calls) - 1 == MESH_FAULT_CALL and mesh.mp_rank else x, mesh)
+
+    dsv2.reduce_from_mp = faulty if on else orig
+    try:
+        yield
+    finally:
+        dsv2.reduce_from_mp = orig
+
+
+@contextlib.contextmanager
+def counted(out: dict):
+    """Every kernel count (`counters`) set to 0 on entry; `out` holds the
+    block's launches on exit."""
+    kernels = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    yield
+    out.update({k: fn.launches for k, fn in kernels.items()})
+
+
+def _launches(counts: dict, mesh) -> dict:
+    """{letter: [the launches of each rank of the mesh]}, on every rank."""
+    from deepseek_ocr2_tpu_torch.parallel.runs import every_rank
+
+    keys = sorted(counts)
+    per_rank = every_rank(torch.tensor([counts[k] for k in keys], device=mesh.device), mesh).cpu()
+    return {k: per_rank[:, i].tolist() for i, k in enumerate(keys)}
+
+
+def _worst_leaf(names, got, ref) -> list:
+    """[the largest |got - ref| over its leaf's largest |ref|, that leaf]."""
+    worst = [0.0, ""]
+    for name, a, b in zip(names, got, ref):
+        rel = float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > worst[0]:
+            worst = [rel, name]
+    return worst
+
+
+def _broadcast_log(log: list, group=None) -> list:
+    """The routing log of the first rank of `group` (default: the world) on
+    every rank of it."""
+    import torch.distributed as dist
+
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    box = [log if dist.get_rank() == src else None]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def _ref_parts(names, ref, shards, mesh) -> list:
+    """The whole gradient `ref` (on the mesh's first rank; None on the
+    others) cut as the mesh cuts the leaves: each rank gets its part of
+    every split leaf (the first rank sends the others theirs), and the whole
+    leaves stay on the first rank (None on the others)."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.collectives import broadcast_
+    from deepseek_ocr2_tpu_torch.parallel.sharding import split_dim
+
+    src, first = dist.get_global_rank(mesh.mp_group, 0), mesh.mp_rank == 0
+    parts = []
+    for i, name in enumerate(names):
+        dim = split_dim(name)
+        if dim is None:
+            parts.append(ref[i] if first else None)
+            continue
+        n = shards[i].shape[dim]
+        mine = ref[i].narrow(dim, 0, n).clone() if first else None
+        for r in range(1, mesh.mp):
+            buf = ref[i].narrow(dim, r * n, n).contiguous() if first else torch.empty_like(shards[i])
+            broadcast_(buf, src, mesh.mp_group)
+            mine = buf if mesh.mp_rank == r else mine
+        parts.append(mine)
+    return parts
+
+
+def _leaf_gaps(grads, parts, mesh) -> torch.Tensor:
+    """[leaves]: each leaf's largest |grad - part| over the mesh's ranks (a
+    rank without a part adds 0), on every rank."""
+    from deepseek_ocr2_tpu_torch.parallel.runs import every_rank
+
+    zero = torch.zeros((), device=mesh.device)
+    gaps = torch.stack([zero if r is None else (g.float() - r.float()).abs().max() for g, r in zip(grads, parts)])
+    return every_rank(gaps, mesh).amax(0)
+
+
+def _phase9a(device, spec, out) -> None:
+    """Full width, reduced depth, f32: one forward and backward at each
+    mesh, the losses and gathered gradients held to (1, 1)'s on rank 0, the
+    routing of (1, 1) replayed."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.mesh import dp_rows, make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import shard_lm
+    from deepseek_ocr2_tpu_torch.parallel.sharding import gather_leaves
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    cfg = spec["cfg_a"]
+    ids = torch.as_tensor(spec["ids_a"])
+    params = {"random": spec["seed"], "dtype": torch.float32}
+    log, ref = [], None
+    for i, (dp, mp) in enumerate(spec["meshes_a"]):
+        log = _broadcast_log(log)
+        mesh = make_mesh(dp, mp, ranks=range(dp * mp), device=device)
+        if mesh is not None:
+            p = shard_lm(params, cfg, mesh)
+            counts = {}
+            t0 = time.perf_counter()
+            with counted(counts), routing(log, i == 0, mesh) as flips:
+                loss, grads = train.value_and_grad(train.lm_loss, p, cfg, dp_rows(ids, mesh).to(device))
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            names = [n for n, _ in train.param_items(p)]
+            whole = gather_leaves(names, grads, mesh)
+            launches = _launches(counts, mesh)
+            if mesh.rank == 0:
+                res = {"loss": float(loss), "seconds": seconds, "launches": launches, "flips": flips,
+                       "backend": mesh.backend}
+                if ref is None:
+                    ref = (float(loss), [t.clone() for t in whole])
+                else:
+                    res["loss_rel"] = abs(float(loss) - ref[0]) / abs(ref[0])
+                    res["worst"] = _worst_leaf(names, whole, ref[1])
+                out[f"9a {dp}x{mp}"] = res
+            del p, grads, whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def _phase9bc(device, spec, out) -> None:
+    """9b: the full-width, full-depth LM in bf16. The (1, 1) loss and
+    gradients of the batch on rank 0 (its routing recorded); at (1, 2) the
+    same with that routing replayed, sound and with the planted fault
+    (`dropped_partial`): each leaf's gap to (1, 1)'s over the leaf's
+    largest entry; then AdamW steps (their time, each rank's launches and
+    peak memory, one profiled step with its collectives timed, whether the
+    whole leaves stay equal on both ranks). 9c: `greedy_generate` on the
+    trained shards against the whole params gathered to rank 0."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.collectives import equal_across, timed
+    from deepseek_ocr2_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import every_rank, shard_lm
+    from deepseek_ocr2_tpu_torch.parallel.sharding import gather_params, split_dim
+    from deepseek_ocr2_tpu_torch.runtime import train
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+
+    cfg, steps = spec["cfg_b"], spec["steps_b"]
+    rows = torch.as_tensor(spec["ids_b"]).to(device)
+    params = {"random": spec["seed"] + 1, "dtype": torch.bfloat16}
+    single = make_mesh(1, 1, ranks=[0], device=device)
+    mesh = make_mesh(1, 2, ranks=[0, 1], device=device)
+    if mesh is not None:
+        log, ref, ref_loss, scales = [], None, None, None
+        if single is not None:
+            p = shard_lm(params, cfg, single)
+            with routing(log, True):
+                loss, ref = train.value_and_grad(train.lm_loss, p, cfg, rows)
+            ref_loss = float(loss)
+            scales = torch.stack([g.abs().max().float() for g in ref]).clamp(min=1e-30)
+            del p
+            torch.cuda.empty_cache()
+        log = _broadcast_log(log, mesh.mp_group)
+        p = shard_lm(params, cfg, mesh)
+        items = train.param_items(p)
+        names = [n for n, _ in items]
+        parts = _ref_parts(names, ref, [t for _, t in items], mesh)
+        del ref
+        torch.cuda.empty_cache()
+        gaps = {}
+        for fault in (False, True):
+            with routing(log, False, mesh) as flips, dropped_partial(fault):
+                loss, grads = train.value_and_grad(train.lm_loss, p, cfg, rows)
+            worst = _leaf_gaps(grads, parts, mesh)
+            del grads
+            if mesh.rank == 0:
+                rel = (worst / scales).cpu()
+                j = int(rel.argmax())
+                gaps["fault" if fault else "sound"] = {
+                    "loss": float(loss), "loss_rel": abs(float(loss) - ref_loss) / abs(ref_loss),
+                    "worst": [float(rel[j]), names[j]], "flips": flips}
+        del parts
+        torch.cuda.empty_cache()
+        opt = train.make_optimizer(lr=spec["lr_b"])
+        state = opt.init(p)
+        torch.cuda.reset_peak_memory_stats(device)
+        counts: dict = {}
+        losses, step_ms = [], []
+        with counted(counts):
+            for _ in range(steps):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                losses.append(float(train.adamw_train_step(p, state, cfg, rows, opt)))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = every_rank(torch.tensor([torch.cuda.max_memory_allocated(device) / 2**30], device=device), mesh)
+        launches = _launches(counts, mesh)
+        with timed() as times:
+            prof = _step_profile(device, lambda: train.adamw_train_step(p, state, cfg, rows, opt))
+        prof.update(collective_ms=times["seconds"] * 1e3, calls=times["calls"], mib=times["bytes"] / 2**20,
+                    share=times["seconds"] * 1e3 / prof["wall_ms"])
+        replicated_equal = equal_across([t for n, t in train.param_items(p) if split_dim(n) is None], mesh, "mp")
+        del state, opt
+        torch.cuda.empty_cache()
+        ids_c = torch.as_tensor(spec["ids_c"]).to(device)
+        kw = dict(max_new_tokens=spec["new_c"], ngram_size=20, eos_id=-1, capacity=ids_c.shape[1] + spec["new_c"],
+                  kv_dtype=torch.bfloat16)
+        counts_c: dict = {}
+        with counted(counts_c):
+            tokens, _ = greedy_generate(p, cfg, F.embedding(ids_c, p["embed"]), ids_c, **kw)
+        launches_c = _launches(counts_c, mesh)
+        same = equal_across([tokens], mesh, "mp")
+        whole = gather_params(p)
+        del p
+        if mesh.rank == 0:
+            stats: dict = {}
+            ref_c, _ = greedy_generate(whole, cfg, F.embedding(ids_c, whole["embed"]), ids_c, stats=stats,
+                                       keep_logits=True, **kw)
+            s = ids_c.shape[1]
+            rows_out = []
+            for b in range(ids_c.shape[0]):
+                a, c = ref_c[b].tolist(), tokens[b].tolist()
+                step = next((i for i in range(s, len(a)) if a[i] != c[i]), None)
+                rows_out.append({"single": a, "sharded": c, "step": None if step is None else step - s,
+                                 "logits": None if step is None else stats["logits"][step - s][b]})
+            out["9b"] = {"losses": losses, "ref_loss": ref_loss, "step_ms": step_ms,
+                         "peak_gib": peak.reshape(-1).tolist(), "launches": launches, "profile": prof,
+                         "replicated_equal": replicated_equal, **gaps}
+            out["9c"] = {"rows": rows_out, "launches": launches_c, "same_on_every_rank": same, "prompt_len": s}
+        del whole
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def _phase9d(device, spec, out) -> None:
+    """The OCR step's loss and gradients at reduced depth on each mesh of
+    `meshes_d`, the towers' gradients equal on every rank and held, with
+    the loss and the LM's gradients, to (1, 1)'s; then the OCR prefill's
+    last logits on each mesh (at dp 2 a page a rank) against (1, 1)'s. The
+    routing of (1, 1) replayed in both."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.collectives import equal_across
+    from deepseek_ocr2_tpu_torch.parallel.mesh import dp_rows, make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import ocr_prefill, shard_ocr
+    from deepseek_ocr2_tpu_torch.parallel.sharding import gather_leaves
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    cfg = spec["cfg_d"]
+    params = dict(spec["towers_d"], lm={"random": spec["seed"] + 2, "dtype": torch.float32})
+    ids, image, mask = (torch.as_tensor(spec[k]) for k in ("ids_d", "image_d", "mask_d"))
+    log, ref = [], None
+    for i, (dp, mp) in enumerate(spec["meshes_d"]):
+        log = _broadcast_log(log)
+        mesh = make_mesh(dp, mp, ranks=range(dp * mp), device=device)
+        if mesh is not None:
+            p = shard_ocr(params, cfg, mesh)
+            local = [dp_rows(t, mesh).to(device) for t in (ids, image, mask)]
+            counts: dict = {}
+            with counted(counts), routing(log, i == 0, mesh) as flips:
+                loss, grads = train.value_and_grad(train.ocr_loss, p, cfg, local[0], local[1], None,
+                                                   spec["start_d"], local[2])
+            names = [n for n, _ in train.param_items(p)]
+            towers = [g for n, g in zip(names, grads) if not n.startswith("lm.")]
+            equal = equal_across(towers, mesh, "mp") and equal_across(towers, mesh, "dp")
+            whole = gather_leaves(names, grads, mesh)
+            launches = _launches(counts, mesh)
+            if mesh.rank == 0:
+                res = {"loss": float(loss), "towers_equal": equal, "launches": launches, "flips": flips}
+                if ref is None:
+                    ref = (float(loss), [t.clone() for t in whole])
+                else:
+                    pick = [j for j, n in enumerate(names) if not n.startswith("lm.")]
+                    res["loss_rel"] = abs(float(loss) - ref[0]) / abs(ref[0])
+                    res["worst_tower"] = _worst_leaf([names[j] for j in pick], [whole[j] for j in pick],
+                                                     [ref[1][j] for j in pick])
+                    res["worst"] = _worst_leaf(names, whole, ref[1])
+                out[f"9d {dp}x{mp}"] = res
+            del p, grads, whole, towers
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log, ref = [], None
+    for i, (dp, mp) in enumerate(spec["meshes_d"]):
+        log = _broadcast_log(log)
+        mesh = make_mesh(dp, mp, ranks=range(dp * mp), device=device)
+        if mesh is not None:
+            counts = {}
+            with counted(counts), routing(log, i == 0, mesh) as flips:
+                logits = ocr_prefill(mesh, cfg, params, ids[:, : spec["prefill_len_d"]], image,
+                                     spec["start_d"])["logits"]
+            launches = _launches(counts, mesh)
+            if mesh.rank == 0:
+                res = {"finite": bool(torch.isfinite(logits).all()), "shape": list(logits.shape),
+                       "launches": launches, "flips": flips}
+                if ref is None:
+                    ref = logits
+                else:
+                    res["rel"] = float((logits - ref).abs().max() / ref.abs().max())
+                out[f"9d prefill {dp}x{mp}"] = res
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def chip_phase9(rank: int, world: int, device, spec: dict) -> dict:
+    """Phase 9 in one world of ranks that share the card over gloo (a
+    `parallel.launch` entry): 9a, 9b with 9c, 9d (see each part's
+    docstring). Rank 0 returns the measurements and the checks' inputs;
+    `phase_multi_gpu` holds them to their bounds."""
+    out: dict = {}
+    for part in (_phase9a, _phase9bc, _phase9d):
+        t0 = time.perf_counter()
+        part(device, spec, out)
+        torch.cuda.empty_cache()
+        out[part.__name__ + " seconds"] = time.perf_counter() - t0
+    return out
+
+
+def chip_nccl_loss(rank: int, world: int, device, spec: dict) -> dict:
+    """9a's (1, 1) loss in a world of one rank over NCCL (`launch` picks
+    NCCL where each rank has a card), with its launches."""
+    from deepseek_ocr2_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import shard_lm
+    from deepseek_ocr2_tpu_torch.runtime import train
+
+    mesh = make_mesh(1, 1, device=device)
+    p = shard_lm({"random": spec["seed"], "dtype": torch.float32}, spec["cfg_a"], mesh)
+    counts: dict = {}
+    with counted(counts):
+        loss, _ = train.value_and_grad(train.lm_loss, p, spec["cfg_a"], torch.as_tensor(spec["ids_a"]).to(device))
+    return {"loss": float(loss), "backend": mesh.backend, "launches": counts}
+
+
+def phase_multi_gpu(dev) -> dict:
+    """Phase 9 (see the module docstring): builds the inputs here, runs
+    `chip_nccl_loss` in a one-rank NCCL world and `chip_phase9` in a 4-rank
+    gloo world on the card (the kernels built here first), holds the
+    results to their bounds and returns the launches of every rank,
+    summed."""
+    from deepseek_ocr2_tpu_torch.configs import DeepseekV2Config, OCR2Config
+    from deepseek_ocr2_tpu_torch.models.deepseek_ocr2 import normalize_pixels
+    from deepseek_ocr2_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = DeepseekV2Config()
+    rng = np.random.default_rng(SEED + 20)
+    base = OCR2Config()
+    cfg_d = dataclasses.replace(
+        base, lm=dataclasses.replace(base.lm, num_hidden_layers=2),
+        qwen2=dataclasses.replace(base.qwen2, num_hidden_layers=2),
+        sam=dataclasses.replace(base.sam, depth=3, global_attn_indexes=(2,)))
+    # The towers whole (made here once, f32); each rank makes the LM itself.
+    small = dataclasses.replace(cfg_d, lm=dataclasses.replace(cfg_d.lm, num_hidden_layers=1, vocab_size=1024))
+    flat = random_hf_flat(small, lambda shape, std: torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32) * np.float32(std)))
+    towers = {k: v for k, v in load_model(small, flat, "cpu", "float32", "float32").items() if k != "lm"}
+    del flat
+    ids_d, image_d, _, start_d, mask_d = ocr_train_batch(cfg_d, 2, 300, (1, 1), SEED + 21, "cpu")
+    spec = dict(
+        seed=SEED + 20,
+        cfg_a=dataclasses.replace(lm, num_hidden_layers=3), ids_a=rng.integers(2, lm.vocab_size, (4, 512)),
+        meshes_a=[(1, 1), (2, 1), (4, 1), (1, 2), (2, 2)],
+        cfg_b=lm, ids_b=rng.integers(2, lm.vocab_size, (4, 512)), steps_b=3, lr_b=TRAIN_LR,
+        ids_c=rng.integers(2, lm.vocab_size, (16, 256)), new_c=32,
+        cfg_d=cfg_d, towers_d=towers, ids_d=ids_d, image_d=normalize_pixels(image_d, torch.float32), mask_d=mask_d,
+        start_d=start_d, meshes_d=[(1, 1), (2, 1), (1, 2)], prefill_len_d=300,
+    )
+    kernels = ("moe_gmm", "moe_decode", "flash_attention", "fused_mlp")
+    t = time.perf_counter()
+    nccl = launch(chip_nccl_loss, 1, (spec,), device_type="cuda", kernels=kernels)
+    t_nccl = time.perf_counter() - t
+    t = time.perf_counter()
+    out = launch(chip_phase9, 4, (spec,), device_type="cuda", kernels=kernels)
+    t_world = time.perf_counter() - t
+    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
+
+    def add(launches: dict, want=None, what="") -> None:
+        for k, per_rank in launches.items():
+            totals[k] += sum(per_rank)
+            if want is not None and any(n != want.get(k, 0) for n in per_rank):
+                raise AssertionError(f"{what}: kernel {k} launched {per_rank} a rank, expected {want.get(k, 0)}")
+
+    # 9a: every mesh against (1, 1), and (1, 1) over NCCL.
+    want_a = train_launches_per_step(spec["cfg_a"], remat=False)
+    ref = out["9a 1x1"]
+    if nccl["backend"] != "nccl" or ref["backend"] != "gloo":
+        raise AssertionError(f"backends: (1, 1) world {nccl['backend']}, shared-card world {ref['backend']}")
+    if not abs(nccl["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]):
+        raise AssertionError(f"9a: the NCCL (1, 1) loss {nccl['loss']} differs from the gloo world's {ref['loss']}")
+    add({k: [n] for k, n in nccl["launches"].items()}, want_a, "9a NCCL")
+    print(f"[mesh] 9a (1, 1): loss {ref['loss']:.6f} (NCCL world {nccl['loss']:.6f}, "
+          f"{'bit-equal' if nccl['loss'] == ref['loss'] else 'differs'}), {ref['seconds'] * 1e3:.0f} ms")
+    add(ref["launches"], want_a, "9a 1x1")
+    for dp, mp in spec["meshes_a"][1:]:
+        r = out[f"9a {dp}x{mp}"]
+        add(r["launches"], want_a, f"9a {dp}x{mp}")
+        print(f"[mesh] 9a ({dp}, {mp}): loss {r['loss']:.6f}, rel err {r['loss_rel']:.2e}; gradients worst "
+              f"{r['worst'][0]:.2e} of the leaf's largest ({r['worst'][1]}); rows whose own routing differs "
+              f"{r['flips']}; {r['seconds'] * 1e3:.0f} ms; launches a rank D {r['launches']['D']} E "
+              f"{r['launches']['E']} S {r['launches']['S']} T {r['launches']['T']}")
+        if not (r["loss_rel"] <= TRAIN_LOSS_RTOL and r["worst"][0] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"9a ({dp}, {mp}) against (1, 1): loss {r['loss_rel']}, gradient {r['worst']}")
+    # 9b: the 12-layer LM in bf16 at (1, 2): its gradients against (1, 1),
+    # sound and with the planted fault, then the steps.
+    b = out["9b"]
+    sound, fault = b["sound"], b["fault"]
+    print(f"[mesh] 9b gradients of the first batch at (1, 2) against (1, 1), same bf16 weights, routing replayed: "
+          f"worst leaf {sound['worst'][0]:.3e} of its largest entry ({sound['worst'][1]}), loss rel "
+          f"{sound['loss_rel']:.2e}, rows whose own routing differs {sound['flips']}; with the planted fault "
+          f"(reduction {MESH_FAULT_CALL} sums rank 0's partial alone) {fault['worst'][0]:.3e} ({fault['worst'][1]}), "
+          f"loss rel {fault['loss_rel']:.2e}; bound {MESH_BF16_GRAD_RTOL}")
+    if not (sound["worst"][0] <= MESH_BF16_GRAD_RTOL < fault["worst"][0] and sound["loss_rel"] <= MESH_BF16_LOSS_RTOL):
+        raise AssertionError(f"9b gradients against (1, 1): sound {sound}, planted fault {fault['worst']}, "
+                             f"bound {MESH_BF16_GRAD_RTOL}")
+    want_b = {k: n * spec["steps_b"] for k, n in train_launches_per_step(lm, remat=False).items()}
+    add(b["launches"], want_b, "9b")
+    gap = abs(b["losses"][0] - b["ref_loss"]) / abs(b["ref_loss"])
+    prof = b["profile"]
+    print(f"[mesh] 9b (1, 2) bf16 12 layers: losses {[round(v, 4) for v in b['losses']]}, first against the "
+          f"(1, 1) forward {b['ref_loss']:.4f}: rel gap {gap:.2e} (bound {MESH_BF16_LOSS_RTOL}); step ms "
+          f"{[round(v, 1) for v in b['step_ms']]}; peak memory a rank {[round(v, 2) for v in b['peak_gib']]} GiB; "
+          f"launches a rank D {b['launches']['D']} E {b['launches']['E']} S {b['launches']['S']} "
+          f"T {b['launches']['T']}")
+    print(f"[mesh] 9b one profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, collectives "
+          f"{prof['collective_ms']:.1f} ms in {prof['calls']} calls, {prof['mib']:.0f} MiB ({prof['share']:.3f} of "
+          f"the wall, each timed between two device synchronizations); device busy {prof['device_ms']:.1f} ms")
+    print(f"[mesh] 9b whole leaves (embed, norms, routers) bit-equal on both ranks after 4 steps: "
+          f"{b['replicated_equal']}")
+    if not (all(math.isfinite(v) for v in b["losses"]) and b["losses"][-1] < b["losses"][0]
+            and gap <= MESH_BF16_LOSS_RTOL and b["replicated_equal"]):
+        raise AssertionError(f"9b: losses {b['losses']}, (1, 1) {b['ref_loss']}, gap {gap}")
+    # 9c: greedy on 9b's trained shards against the gathered whole params.
+    c = out["9c"]
+    n_moe, steps_c = lm.num_moe_layers, spec["new_c"] - 1
+    add(c["launches"], {"A": lm.num_hidden_layers, "D": n_moe, "E": n_moe, "F": n_moe * steps_c}, "9c")
+    notes = []
+    for row in c["rows"]:
+        step = row["step"]
+        logits = [None] * (step or 0) + [None if row["logits"] is None else torch.from_numpy(row["logits"])]
+        single = types.SimpleNamespace(token_ids=row["single"], prompt_len=c["prompt_len"], step_logits=logits)
+        served = types.SimpleNamespace(token_ids=row["sharded"], prompt_len=c["prompt_len"])
+        notes.append(_first_difference(single, served, torch.bfloat16))
+    if not c["same_on_every_rank"]:
+        raise AssertionError("9c: the ranks' tokens differ")
+    print(f"[mesh] 9c greedy 16 x 32 tokens at (1, 2) against (1, 1): {sum(not n for n in notes)} rows equal; "
+          f"{[n for n in notes if n]}; launches a rank A {c['launches']['A']} D {c['launches']['D']} "
+          f"E {c['launches']['E']} F {c['launches']['F']}")
+    # 9d: the OCR loss's gradients, then the prefill.
+    want_d = train_launches_per_step(cfg_d.lm, remat=False)
+    add(out["9d 1x1"]["launches"], want_d, "9d 1x1")
+    for dp, mp in spec["meshes_d"][1:]:
+        r = out[f"9d {dp}x{mp}"]
+        add(r["launches"], want_d, f"9d {dp}x{mp}")
+        print(f"[mesh] 9d OCR ({dp}, {mp}): loss rel err {r['loss_rel']:.2e}; towers' gradients equal on every "
+              f"rank {r['towers_equal']}, worst against (1, 1) {r['worst_tower'][0]:.2e} ({r['worst_tower'][1]}); "
+              f"all leaves worst {r['worst'][0]:.2e} ({r['worst'][1]}); rows whose own routing differs {r['flips']}")
+        if not (r["towers_equal"] and r["loss_rel"] <= TRAIN_LOSS_RTOL and r["worst"][0] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"9d ({dp}, {mp}): {r}")
+    for dp, mp in spec["meshes_d"]:
+        pre = out[f"9d prefill {dp}x{mp}"]
+        add(pre["launches"])
+        rel = pre.get("rel", 0.0)
+        print(f"[mesh] 9d OCR prefill ({dp}, {mp}): last logits {pre['shape']} finite {pre['finite']}, against "
+              f"(1, 1) {rel:.2e} of the largest (bound {MESH_LOGITS_RTOL}); rows whose own routing differs "
+              f"{pre['flips']}; launches a rank { {k: v for k, v in pre['launches'].items() if any(v)} }")
+        if not pre["finite"] or rel > MESH_LOGITS_RTOL or any(min(pre["launches"][k]) < 1 for k in "ABCDE"):
+            raise AssertionError(f"9d prefill ({dp}, {mp}): {pre}")
+    print(f"[mesh] phase 9: {time.perf_counter() - t0:.1f} s (NCCL world {t_nccl:.1f} s, 4-rank world "
+          f"{t_world:.1f} s: 9a {out['_phase9a seconds']:.1f}, 9b+9c {out['_phase9bc seconds']:.1f}, 9d "
+          f"{out['_phase9d seconds']:.1f})")
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3508,6 +4092,7 @@ def main() -> int:
     phase_train_resume(dev)
     ocr_train_launches = phase_train_ocr(dev, smi)
     phase_train_ocr_card_vs_cpu(dev)
+    mesh_launches = phase_multi_gpu(dev)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
@@ -3516,12 +4101,13 @@ def main() -> int:
     # resize 4f, under validate-hf's harness 4g), serving
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
     # decoding 6e), the two switched paths (phase 4e) and fine-tuning
-    # (phase 8) and through the vision towers (phase 8d); each was driven
+    # (phase 8) and through the vision towers (phase 8d), and on a mesh
+    # (phase 9, every rank's launches summed); each was driven
     # with the counts at 0 and read after. W
     # and X run on no path (the JAX package calls neither): 0 launches.
     runs = (main_launches, int8_launches, int4_launches, lookup_launches, resize_launches, validate_launches,
             serve_launches, serve_quant_launches, switched_launches, serve_kv_launches, serve_lookup_launches,
-            train_launches, ocr_train_launches)
+            train_launches, ocr_train_launches, mesh_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),

@@ -11,8 +11,13 @@ reference. The layout mirrors it module for module:
 - runtime:  KV caches (contiguous; paged f32 / bf16 / int8 / int8tail),
             greedy or sampled generation, the OCR pipeline, the serving
             engines and the HTTP front end
-- cli:      `inspect`, `generate-text`, `generate-ocr`, `debug-rope` and
-            `serve`
+- parallel: the (dp, mp) mesh over torch.distributed, the TP / EP / DP
+            layout of the LM's weights, the collectives of the sharded
+            forward and backward, and `launch`, which starts a world of
+            ranks (gloo on the CPU and on a shared card, NCCL with a GPU
+            a rank)
+- cli:      `inspect`, `generate-text`, `generate-ocr`, `debug-rope`,
+            `serve`, `convert`, `validate-hf` and `train` (`--mesh dp,mp`)
 
 The port imports nothing of `deepseek_ocr2_tpu`, not even its modules that
 import no jax: the config dataclasses, the dtype policy, the tokenizer and

@@ -23,8 +23,9 @@ into DIR. `convert` rewrites a checkpoint under a dtype policy.
 one greedy page: token ids, embedding fingerprints and step-0 top-10, per
 tier with `--tiers bf16,int8,int4`; transcripts of either package are
 accepted. `train` fine-tunes the LM trunk with AdamW (packed text or
-masked SFT JSONL, `--resume`, `--out`), as the JAX CLI's `train`; `--mesh`
-(multi-device training) is refused.
+masked SFT JSONL, `--resume`, `--out`), as the JAX CLI's `train`; `--mesh
+dp,mp` trains on dp * mp ranks that it starts itself (`parallel.launch`):
+gloo on the CPU and where ranks share a card, NCCL with a GPU a rank.
 
     python -m deepseek_ocr2_tpu_torch.cli generate-ocr --weights W.safetensors \
         --tokenizer tokenizer.json --image page.png [--device-resize] [--profile-dir DIR]
@@ -203,7 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "of FLOPs)")
     sp.add_argument("--grad-accum", type=int, default=1, help="micro-batches per optimizer update")
     sp.add_argument("--eos-token-id", type=int, default=1)
-    sp.add_argument("--mesh", default=None, help="multi-device training: not available in the PyTorch port")
+    sp.add_argument("--mesh", default=None,
+                    help="dp,mp: train on dp * mp ranks (data parallel over dp; heads, MLP columns, experts and "
+                         "vocab split over mp), started by this command")
     sp.add_argument("--save-every", type=int, default=0, help="0 = only at the end")
     sp.add_argument("--state-out", default=None, help="train-state checkpoint path (params+opt+step)")
     sp.add_argument("--resume", default=None, help="train-state checkpoint to resume")
@@ -665,38 +668,82 @@ def cmd_train(args) -> int:
     """LM fine-tuning, as the JAX CLI's `train`: packed next-token CE or
     masked SFT, AdamW with global-norm clipping, full-state checkpoints.
     The step is `runtime/train.py`'s; on the card its MoE layers above 512
-    rows run kernels D and E forward and E, S and T backward."""
+    rows run kernels D and E forward and E, S and T backward. `--mesh
+    dp,mp` starts dp * mp ranks (`parallel.launch`), each running
+    `_train_rank`; a failed rank fails the command."""
+    from .configs import DeepseekV2Config, config_from_json
+
+    lm_cfg = config_from_json(args.config).lm if args.config else DeepseekV2Config()
+    if args.num_hidden_layers:
+        lm_cfg = dataclasses.replace(lm_cfg, num_hidden_layers=args.num_hidden_layers)
+    device = _device(args.backend)
+    if not args.mesh:
+        _train(args, lm_cfg, device, None)
+        return 0
+    from .parallel.launch import launch
+    from .parallel.sharding import check_mp
+
+    try:
+        dp, mp = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        raise SystemExit(f"error: --mesh takes dp,mp (two integers), got {args.mesh!r}")
+    if args.batch_size % dp:
+        raise SystemExit(f"error: --batch-size must be divisible by dp={dp}")
+    try:
+        check_mp(lm_cfg, mp)
+    except ValueError as e:
+        raise SystemExit(f"error: --mesh {args.mesh}: {e}")
+    if os.environ.get("RANK", "0") == "0":  # under torchrun every rank runs this
+        print(f"mesh: dp={dp} mp={mp} ({dp * mp} devices)", file=sys.stderr)
+    try:
+        launch(_train_rank, dp * mp, (args, lm_cfg, dp, mp), device_type=device.type, kernels=("moe_gmm",))
+    except RuntimeError as e:
+        raise SystemExit(f"error: train --mesh {args.mesh}: {e}")
+    return 0
+
+
+def _train_rank(rank: int, world: int, device, args, lm_cfg, dp: int, mp: int) -> None:
+    """One rank of `train --mesh dp,mp`: its mesh, then `_train`."""
+    from .parallel.mesh import make_mesh
+
+    _train(args, lm_cfg, device, make_mesh(dp, mp, device=device))
+
+
+def _train(args, lm_cfg, device, mesh) -> None:
+    """The train command's body on one process, or on one rank of a mesh:
+    the rank's shards of the weights, its dp rows of every batch; only the
+    mesh's first rank prints the step lines and writes the log, the state
+    file (whole leaves, gathered) and `--out`."""
     import json
     import time
 
     import torch
 
-    from .configs import DeepseekV2Config, config_from_json
     from .io import DtypePolicy, load_flat, save_flat
     from .models import deepseek_v2 as dsv2
+    from .parallel.mesh import dp_rows
+    from .parallel.sharding import gather_params, lm_param_specs, shard_params
     from .runtime.train import (adamw_sft_train_step, adamw_train_step, load_train_state, make_optimizer,
                                 save_train_state)
     from .utils.tokenizer import load_tokenizer
 
-    if args.mesh:
-        raise SystemExit("error: --mesh (multi-device training) is not available in the PyTorch port yet; "
-                         "it is the multi-GPU slice of ROADMAP.md")
-    lm_cfg = config_from_json(args.config).lm if args.config else DeepseekV2Config()
-    if args.num_hidden_layers:
-        lm_cfg = dataclasses.replace(lm_cfg, num_hidden_layers=args.num_hidden_layers)
-    device = _device(args.backend)
+    lead = mesh is None or mesh.rank == 0
     flat = load_flat(args.weights, DtypePolicy(default=None), include_regex=[
         r"^model\.embed_tokens\.", r"^model\.layers\.", r"^model\.norm\.", r"^lm_head\.",
     ])
-    params, report = dsv2.params_from_flat(flat, lm_cfg, device=device)
-    print(report.summary(), file=sys.stderr)
+    params, report = dsv2.params_from_flat(flat, lm_cfg, device="cpu" if mesh is not None else device)
+    if lead:
+        print(report.summary(), file=sys.stderr)
     report.raise_on_errors()
     if report.missing:
         raise SystemExit(f"error: {len(report.missing)} tensors missing, e.g. {report.missing[:4]}")
     del flat
+    if mesh is not None:
+        params = shard_params(params, mesh, lm_param_specs(lm_cfg))
 
     batch_at, described = _train_data(args, load_tokenizer(args.tokenizer))
-    print(f"dataset: {described}", file=sys.stderr)
+    if lead:
+        print(f"dataset: {described}", file=sys.stderr)
     tx = make_optimizer(lr=args.lr, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
                         grad_accum=args.grad_accum, schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
                         total_steps=args.steps)
@@ -704,34 +751,39 @@ def cmd_train(args) -> int:
     start_step = 0
     if args.resume:
         start_step = load_train_state(args.resume, params, opt_state)
-        print(f"resumed from {args.resume} at step {start_step}", file=sys.stderr)
+        if lead:
+            print(f"resumed from {args.resume} at step {start_step}", file=sys.stderr)
 
     t0 = time.perf_counter()
     for step in range(start_step, args.steps):
         ids_np, mask_np = batch_at(step)
-        ids = torch.from_numpy(ids_np).to(device)
+        ids = dp_rows(torch.from_numpy(ids_np), mesh).to(device)
         if mask_np is not None:
-            loss = adamw_sft_train_step(params, opt_state, lm_cfg, ids, torch.from_numpy(mask_np).to(device), tx,
-                                        remat=args.remat)
+            mask = dp_rows(torch.from_numpy(mask_np), mesh).to(device)
+            loss = adamw_sft_train_step(params, opt_state, lm_cfg, ids, mask, tx, remat=args.remat)
         else:
             loss = adamw_train_step(params, opt_state, lm_cfg, ids, tx, remat=args.remat)
         loss_v = float(loss)  # also the step barrier
         dt = time.perf_counter() - t0
         t0 = time.perf_counter()
-        print(f"step {step + 1}/{args.steps}  loss {loss_v:.4f}  {dt * 1e3:.0f} ms")
-        if args.log_file:
+        if lead:
+            print(f"step {step + 1}/{args.steps}  loss {loss_v:.4f}  {dt * 1e3:.0f} ms", flush=True)
+        if lead and args.log_file:
             with open(args.log_file, "a") as lf:
                 lf.write(json.dumps({"step": step + 1, "loss": loss_v, "ms": round(dt * 1e3, 1)}) + "\n")
         if args.state_out and args.save_every and (step + 1) % args.save_every == 0:
             save_train_state(args.state_out, params, opt_state, step + 1)
-            print(f"  saved {args.state_out}", file=sys.stderr)
+            if lead:
+                print(f"  saved {args.state_out}", file=sys.stderr)
     if args.state_out:
         save_train_state(args.state_out, params, opt_state, args.steps)
-        print(f"saved train state: {args.state_out}", file=sys.stderr)
+        if lead:
+            print(f"saved train state: {args.state_out}", file=sys.stderr)
     if args.out:
-        save_flat(dsv2.flat_from_params(params, lm_cfg), args.out)
-        print(f"saved params: {args.out}", file=sys.stderr)
-    return 0
+        whole = gather_params(params)
+        if lead:
+            save_flat(dsv2.flat_from_params(whole, lm_cfg), args.out)
+            print(f"saved params: {args.out}", file=sys.stderr)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -24,7 +24,10 @@
 //      AP = act_stride(I) elements) for the valid visits;
 //   2. down and combine: down_tc_kernel, one block an H tile of 16
 //      columns, walks the valid visits in ascending order and sums y * w
-//      in registers; it writes out [B, H] (no yw, no combine launch).
+//      in registers; it writes out [B, H] (no yw, no combine launch),
+//      in bf16 (moe_decode_bf16) or, unrounded, in f32
+//      (moe_decode_bf16_out_f32: a rank's partial under expert
+//      parallelism, summed over the ranks in f32 and rounded once).
 // f32 experts (only the reduced-depth f32 check phases run them) keep the
 // CUDA-core form, three launches after the schedule's:
 //   1. swiglu: grid (visit, I tile, row tile) writes act [E, B, I] (T);
@@ -431,14 +434,21 @@ struct DnLayout {
   }
 };
 
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<uint32_t*>(p) = bf16_pair(v.x, v.y);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+
 // Launch 2 (bf16). Block b: output columns [16 b, 16 b + 16) of every row;
 // its stage j holds visit j's act rows [nb][ap] and the tile's 16 down
-// rows Wd[ve[j], h0 + r, :] at stride ap. w_visit rows ldw apart.
-template <int MT>
+// rows Wd[ve[j], h0 + r, :] at stride ap. w_visit rows ldw apart. OutT:
+// out's type (bf16, or f32 with the sums not rounded).
+template <int MT, typename OutT>
 __global__ void __launch_bounds__(32 * (DN_WARPS + 1), 1)
     down_tc_kernel(const __nv_bfloat16* __restrict__ act, const __nv_bfloat16* __restrict__ wd,
                    const int* __restrict__ ve, const int* __restrict__ valid, const float* __restrict__ w_visit,
-                   int ldw, __nv_bfloat16* __restrict__ out, int nb, int n_exp, int h_dim, int i_dim, int ap) {
+                   int ldw, OutT* __restrict__ out, int nb, int n_exp, int h_dim, int i_dim, int ap) {
   extern __shared__ __align__(128) unsigned char smem[];
   const DnLayout<MT> lay(ap);
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -539,8 +549,7 @@ __global__ void __launch_bounds__(32 * (DN_WARPS + 1), 1)
       o_sum.y = __fadd_rn(o_sum.y, __fmul_rn(y.y, wv));
     }
   }
-  if (owner && ucol < h_dim)
-    *reinterpret_cast<uint32_t*>(out + (size_t)urow * h_dim + ucol) = bf16_pair(o_sum.x, o_sum.y);
+  if (owner && ucol < h_dim) store_pair(out + (size_t)urow * h_dim + ucol, o_sum);
 }
 
 int sm_count() {
@@ -553,29 +562,30 @@ int sm_count() {
   return n;
 }
 
-template <int MT>
+template <int MT, typename OutT>
 int launch_tc_rows(const __nv_bfloat16* x, const __nv_bfloat16* wg, const __nv_bfloat16* wu,
                    const __nv_bfloat16* wd, const int* ve, const int* valid, const float* w_visit, int ldw,
-                   __nv_bfloat16* act, __nv_bfloat16* out, int nb, int n_exp, int h_dim, int i_dim, int ap,
+                   __nv_bfloat16* act, OutT* out, int nb, int n_exp, int h_dim, int i_dim, int ap,
                    cudaStream_t stream) {
   const GuLayout<MT> gl(h_dim);
   const DnLayout<MT> dl(ap);
   if (gl.smem > 232448 || dl.smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gu_tc_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gl.smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(down_tc_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
+  err = cudaFuncSetAttribute(down_tc_kernel<MT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
   if (err != cudaSuccess) return (int)err;
   gu_tc_kernel<MT><<<sm_count(), 32 * (GU_WARPS + 1), gl.smem, stream>>>(x, wg, wu, ve, valid, act, nb, n_exp,
                                                                            h_dim, i_dim, ap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_tc_kernel<MT><<<(h_dim + DN_COLS - 1) / DN_COLS, 32 * (DN_WARPS + 1), dl.smem, stream>>>(
+  down_tc_kernel<MT, OutT><<<(h_dim + DN_COLS - 1) / DN_COLS, 32 * (DN_WARPS + 1), dl.smem, stream>>>(
       act, wd, ve, valid, w_visit, ldw, out, nb, n_exp, h_dim, i_dim, ap);
   return (int)cudaGetLastError();
 }
 
 // bf16: groups of up to TC_MAX_ROWS rows, each its own launch pair on the
 // same act workspace (stream order keeps them apart).
+template <typename OutT>
 int launch_tc(const void* x, const void* wg, const void* wu, const void* wd, const void* ve, const void* valid,
               const void* w_visit, void* act, void* out, int nb, int n_exp, int h_dim, int i_dim, int ap,
               cudaStream_t stream) {
@@ -585,14 +595,14 @@ int launch_tc(const void* x, const void* wg, const void* wu, const void* wd, con
   for (int b0 = 0; b0 < nb; b0 += TC_MAX_ROWS) {
     const int rows = min(TC_MAX_ROWS, nb - b0);
     const bf* xg = static_cast<const bf*>(x) + (size_t)b0 * h_dim;
-    bf* og = static_cast<bf*>(out) + (size_t)b0 * h_dim;
+    OutT* og = static_cast<OutT*>(out) + (size_t)b0 * h_dim;
     const float* wv = static_cast<const float*>(w_visit) + b0;
     const int err =
-        rows <= 16 ? launch_tc_rows<1>(xg, static_cast<const bf*>(wg), static_cast<const bf*>(wu),
+        rows <= 16 ? launch_tc_rows<1, OutT>(xg, static_cast<const bf*>(wg), static_cast<const bf*>(wu),
                                        static_cast<const bf*>(wd), static_cast<const int*>(ve),
                                        static_cast<const int*>(valid), wv, nb, static_cast<bf*>(act), og, rows,
                                        n_exp, h_dim, i_dim, ap, stream)
-                   : launch_tc_rows<2>(xg, static_cast<const bf*>(wg), static_cast<const bf*>(wu),
+                   : launch_tc_rows<2, OutT>(xg, static_cast<const bf*>(wg), static_cast<const bf*>(wu),
                                        static_cast<const bf*>(wd), static_cast<const int*>(ve),
                                        static_cast<const int*>(valid), wv, nb, static_cast<bf*>(act), og, rows,
                                        n_exp, h_dim, i_dim, ap, stream);
@@ -626,7 +636,7 @@ int launch_rb(const void* x, const void* wg, const void* wu, const void* wd, con
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename OutT = T>
 int launch(const void* x, const void* wg, const void* wu, const void* wd, const void* ve, const void* valid,
            const void* w_visit, void* act, void* yw, void* out, int nb, int n_exp, int h_dim, int i_dim,
            void* stream) {
@@ -635,7 +645,8 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd, const 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 2) {
-    return launch_tc(x, wg, wu, wd, ve, valid, w_visit, act, out, nb, n_exp, h_dim, i_dim, act_stride(i_dim), s);
+    return launch_tc<OutT>(x, wg, wu, wd, ve, valid, w_visit, act, out, nb, n_exp, h_dim, i_dim, act_stride(i_dim),
+                           s);
   } else {
     if (nb <= 8) return launch_rb<T, 8>(x, wg, wu, wd, ve, valid, w_visit, act, yw, out, nb, n_exp, h_dim, i_dim, s);
     if (nb <= 16)
@@ -648,7 +659,8 @@ int launch(const void* x, const void* wg, const void* wu, const void* wd, const 
 
 // x [B, H]; wg / wu [E, I, H]; wd [E, H, I]; ve / valid [E] int32; w_visit
 // [E, B] f32; out [B, H]. Workspaces: f32 act [E, B, I] and yw [E, B, H];
-// bf16 act [E, min(B, 32), act_stride(I)] and no yw (null).
+// bf16 act [E, min(B, 32), act_stride(I)] and no yw (null). out is x's type,
+// or f32 for moe_decode_bf16_out_f32 (bf16 x and experts).
 extern "C" int moe_decode_f32(const void* x, const void* wg, const void* wu, const void* wd, const void* ve,
                               const void* valid, const void* w_visit, void* act, void* yw, void* out, int nb,
                               int n_exp, int h_dim, int i_dim, void* stream) {
@@ -660,6 +672,13 @@ extern "C" int moe_decode_bf16(const void* x, const void* wg, const void* wu, co
                                int n_exp, int h_dim, int i_dim, void* stream) {
   return launch<__nv_bfloat16>(x, wg, wu, wd, ve, valid, w_visit, act, yw, out, nb, n_exp, h_dim, i_dim,
                                stream);
+}
+
+extern "C" int moe_decode_bf16_out_f32(const void* x, const void* wg, const void* wu, const void* wd,
+                                       const void* ve, const void* valid, const void* w_visit, void* act, void* yw,
+                                       void* out, int nb, int n_exp, int h_dim, int i_dim, void* stream) {
+  return launch<__nv_bfloat16, float>(x, wg, wu, wd, ve, valid, w_visit, act, yw, out, nb, n_exp, h_dim, i_dim,
+                                      stream);
 }
 
 // The visit schedule of F and J in one launch (the semantics of
@@ -708,7 +727,9 @@ __global__ void schedule_kernel(const long long* __restrict__ idx, const float* 
   __syncthreads();
   const int v = e;  // thread e also writes visit v = e
   const bool ok = v < n_distinct;
-  const int vid = ids[ok ? v : max(n_distinct - 1, 0)];
+  // An id outside [0, E) (another rank's expert under EP) matches no thread:
+  // no visit. With no visit at all, every pad repeats expert 0.
+  const int vid = n_distinct > 0 ? ids[ok ? v : n_distinct - 1] : 0;
   ve[v] = vid;
   valid[v] = ok;
   for (int b = 0; b < nb; ++b) {

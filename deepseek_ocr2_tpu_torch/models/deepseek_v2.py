@@ -65,13 +65,14 @@ from ..ops.attn_fused import attn_decode_fused, fused_attn_enabled
 from ..ops.flash_attention import mha
 from ..ops.linear_q4 import from_jax_q4, quantize_linear_q4
 from ..ops.linear_q8 import is_qlinear, qmm, quantize_linear, swiglu_q8
-from ..ops.moe import moe_ffn_decode, moe_ffn_prefill, route, swiglu
+from ..ops.moe import local_routing, moe_ffn_decode, moe_ffn_prefill, route, swiglu
 from ..ops.moe_decode import moe_ffn_decode_q8_fused
 from ..ops.moe_q4 import dequantize_experts_q4, moe_ffn_decode_q4, moe_ffn_decode_q4_fused, quantize_experts_q4
 from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import decode_attention_stacked
 from ..ops.rope import apply_rope, apply_rope_rows, rope_cache, rope_rows
+from ..parallel.collectives import copy_to_mp, gather_from_mp, reduce_from_mp
 
 Params = Dict[str, Any]
 
@@ -284,8 +285,17 @@ def dequantize_experts(eq, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
 
 
 def vocab_size_of(params: Params) -> int:
+    """The whole vocabulary (lm_head's rows times mp under a mesh)."""
     head = params["lm_head"]
-    return (head.get("q8", head.get("q4")) if is_qlinear(head) else head).shape[0]
+    mesh = params.get("mesh")
+    return (head.get("q8", head.get("q4")) if is_qlinear(head) else head).shape[0] * (mesh.mp if mesh else 1)
+
+
+def _sharded_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """Under a mesh: the rank's vocab slice of the logits, gathered over mp
+    into the whole [..., V] (every mp rank the same values)."""
+    mesh = params["mesh"]
+    return gather_from_mp(F.linear(copy_to_mp(hidden, mesh), params["lm_head"]), mesh)
 
 
 def rope_consts(cfg: DeepseekV2Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -317,14 +327,39 @@ def decode_attn_mode() -> str:
     return os.environ.get("DEEPSEEK_DECODE_ATTN", "pool")
 
 
-def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool, stacked_lens=None):
+def n_heads(layer, cfg: DeepseekV2Config) -> int:
+    """The layer's attention heads: its wq rows over head_dim, the rank's
+    heads under a mesh (all of them unsharded)."""
+    return layer["wq"].shape[0] // cfg.head_dim if "wq" in layer else cfg.num_attention_heads
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """x W^T for a weight whose input columns split over mp (wo, down): each
+    rank's partial product in f32, summed over mp in f32 and rounded once
+    to x's dtype, as the unsharded product rounds its f32 accumulator."""
+    return reduce_from_mp(F.linear(x.float(), w.float()), mesh).to(x.dtype)
+
+
+def _out_proj(ctx: torch.Tensor, wo, mesh, decode: bool) -> torch.Tensor:
+    """The attention's wo: `row_parallel` under a mesh with mp > 1, else
+    `qmm` (plain, int8 or int4)."""
+    if mesh is not None and mesh.mp > 1:
+        return row_parallel(ctx, wo, mesh)
+    return qmm(ctx, wo, decode=decode)
+
+
+def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool, stacked_lens=None,
+               mesh=None):
     """`pos`: an int shared by the rows, or (decode) per-row positions [B]
     of x[:, 0]. Decode query j of row b sits at posq[b, j] = pos[b] + j and
     sees the keys at positions <= posq[b, j]. `stacked_lens` ([B] int32,
     pos + 1; one-token decode under "stacked"): attend through kernel U
-    after the cache write."""
+    after the cache write. Under a `mesh` with mp > 1 the layer holds the
+    rank's heads (and the cache their K/V) and wo's partial products are
+    reduced over mp."""
     b, s, h = x.shape
-    nh, d = cfg.num_attention_heads, cfg.head_dim
+    nh, d = n_heads(layer, cfg), cfg.head_dim
+    x = copy_to_mp(x, mesh)
     q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill))
     v32 = v.float()
     ck, cv = cache["k"][li], cache["v"][li]  # [B, Hh, cap, D] views
@@ -350,29 +385,30 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_pr
     else:
         mask = torch.arange(ck.shape[2], device=x.device) > posq[:, None, :, None]  # [B or 1, 1, S, cap]
         ctx = sdpa(q32, ck, cv, scale=scale, mask=mask, out_dtype=torch.float32)
-    ctx = ctx.transpose(1, 2).reshape(b * s, h).to(x.dtype)
-    return qmm(ctx, layer["wo"], decode=not is_prefill).reshape(b, s, h)
+    ctx = ctx.transpose(1, 2).reshape(b * s, nh * d).to(x.dtype)
+    return _out_proj(ctx, layer["wo"], mesh, not is_prefill).reshape(b, s, h)
 
 
-def _train_attention(x, layer, cfg: DeepseekV2Config, rope):
+def _train_attention(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
     """Training attention over the whole sequence, differentiable: RoPE and
     the plain causal `sdpa` in f32 (the JAX package's XLA prefill branch),
-    no cache."""
+    no cache. Under a mesh as `_attention`."""
     b, s, h = x.shape
-    nh, d = cfg.num_attention_heads, cfg.head_dim
+    nh, d = n_heads(layer, cfg), cfg.head_dim
+    x = copy_to_mp(x, mesh)
     q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, False))
     q32, k32 = apply_rope(q, k, rope[0], rope[1], start=0)
     mask = causal_mask(s, s, device=x.device)[None, None]
     ctx = sdpa(q32, k32, v.float(), scale=1.0 / math.sqrt(d), mask=mask, out_dtype=torch.float32)
-    ctx = ctx.transpose(1, 2).reshape(b * s, h).to(x.dtype)
-    return F.linear(ctx, layer["wo"]).reshape(b, s, h)
+    ctx = ctx.transpose(1, 2).reshape(b * s, nh * d).to(x.dtype)
+    return _out_proj(ctx, layer["wo"], mesh, False).reshape(b, s, h)
 
 
-def _train_layer(x, layer, cfg: DeepseekV2Config, rope):
+def _train_layer(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
     b, s, h = x.shape
-    x = x + _train_attention(rms_norm(x, layer["ln1"], cfg.rms_norm_eps), layer, cfg, rope)
+    x = x + _train_attention(rms_norm(x, layer["ln1"], cfg.rms_norm_eps), layer, cfg, rope, mesh)
     xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-    return x + ffn(xn.reshape(b * s, h), layer, cfg, decode=False).reshape(b, s, h)
+    return x + ffn(xn.reshape(b * s, h), layer, cfg, decode=False, mesh=mesh).reshape(b, s, h)
 
 
 def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, pos_b):
@@ -384,14 +420,50 @@ def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos
     return out
 
 
-def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool) -> torch.Tensor:
+def _ffn_mp(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, decode: bool, mesh) -> torch.Tensor:
+    """`ffn` under a mesh with mp > 1 (unquantized weights): the rank's
+    columns of the dense or shared MLP, its partial down product in f32;
+    its routed experts (EP) on the replicated routing, whose weights enter
+    through `copy_to_mp` (each rank's d_weights holds its selections only;
+    the sum is the whole), selections of other ranks' experts taking no
+    work; the partials summed over mp in f32 (one all-reduce for routed and
+    shared together) and each rounded once. The MoE cut-overs read the
+    global row count (rows times dp) and expert count."""
+    xc = copy_to_mp(x_flat, mesh)
+
+    def mlp_partial(m):
+        gate, up = F.linear(xc, m["gate"]), F.linear(xc, m["up"])
+        act = F.silu(gate.float()).to(gate.dtype) * up
+        return F.linear(act.float(), m["down"].float())
+
+    m = layer.get("mlp")
+    if m is not None:
+        return reduce_from_mp(mlp_partial(m), mesh).to(x_flat.dtype)
+    experts = layer["experts"]
+    weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
+    weights, idx = local_routing(copy_to_mp(weights, mesh), idx, experts["gate"].shape[0], mesh.mp_rank)
+    n_rows = x_flat.shape[0] * mesh.dp
+    if decode:
+        routed = moe_ffn_decode(xc, experts, weights, idx, n_rows=n_rows, n_experts=cfg.n_routed_experts,
+                                out_dtype=torch.float32)
+    else:
+        routed = moe_ffn_prefill(xc, experts, weights, idx, n_rows=n_rows, out_dtype=torch.float32)
+    both = reduce_from_mp(torch.stack([routed, mlp_partial(layer["shared"])]), mesh)
+    return both[0].to(x_flat.dtype) + both[1].to(x_flat.dtype)
+
+
+def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool, mesh=None) -> torch.Tensor:
     """A layer's MLP on [N, H] rows: the dense SwiGLU, or the routed experts
     plus the shared MLP, each weight plain, int8 or int4. Quantized experts
     in decode follow the JAX package's `_q8_ffn`, keyed on `gu_q4`: kernel J
     (N for int4) once N * k > E, kernel I (M) otherwise; the shared
     pseudo-experts, when present, are folded into J / N always and into
     I / M at N = 1, and the shared MLP is then not added again. Prefill
-    dequantizes the experts into the unquantized forms."""
+    dequantizes the experts into the unquantized forms. Under a `mesh`
+    with mp > 1: `_ffn_mp`."""
+    if mesh is not None and mesh.mp > 1:
+        return _ffn_mp(x_flat, layer, cfg, decode, mesh)
+    n_rows = x_flat.shape[0] * (mesh.dp if mesh is not None else 1)
     m = layer.get("mlp")
     if m is not None:
         return swiglu_q8(x_flat, m["gu"], m["down"], decode=decode) if "gu" in m else \
@@ -401,7 +473,8 @@ def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool) -> 
     eq = layer.get("experts_q8")
     merged = False
     if eq is None:
-        routed = (moe_ffn_decode if decode else moe_ffn_prefill)(x_flat, layer["experts"], weights, idx)
+        routed = (moe_ffn_decode if decode else moe_ffn_prefill)(x_flat, layer["experts"], weights, idx,
+                                                                 n_rows=n_rows)
     elif not decode:
         routed = moe_ffn_prefill(x_flat, dequantize_experts(eq, x_flat.dtype), weights, idx)
     else:
@@ -447,17 +520,22 @@ def lm_forward(
     weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0 or the decode
     mode is not "pool"; a chunk takes the linears and the plain attention,
     as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
-    step attends through kernel U (`decode_attn_mode`)."""
+    step attends through kernel U (`decode_attn_mode`).
+
+    Params sharded onto a mesh (`parallel.shard_params`) run the rank's
+    heads, columns and experts, with the mesh's collectives (`_attention`,
+    `_ffn_mp`); the rows are the rank's dp rows."""
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
+    mesh = params.get("mesh")
     if training:
         if is_qlinear(params["lm_head"]) or any("experts_q8" in l or "wqkv" in l for l in params["layers"]):
             raise ValueError("training takes unquantized LM params")
         x = embeds
         for layer in params["layers"]:
             if remat and "experts" in layer:
-                x = checkpoint(_train_layer, x, layer, cfg, rope, use_reentrant=False)
+                x = checkpoint(_train_layer, x, layer, cfg, rope, mesh, use_reentrant=False)
             else:
-                x = _train_layer(x, layer, cfg, rope)
+                x = _train_layer(x, layer, cfg, rope, mesh)
         return rms_norm(x, params["norm"], cfg.rms_norm_eps)
     b, s, h = embeds.shape
     mode = None if is_prefill else decode_attn_mode()
@@ -476,10 +554,10 @@ def lm_forward(
                 pos_b = torch.full((b,), pos, dtype=torch.int32, device=embeds.device)
             x = res + _fused_attention(xn, layer, cfg, rope, cache, li, pos, pos_b)
         else:
-            x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill, stacked_lens)
+            x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill, stacked_lens, mesh)
         res = x
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=not is_prefill).reshape(b, s, h)
+        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=not is_prefill, mesh=mesh).reshape(b, s, h)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
@@ -534,6 +612,8 @@ def logits_all(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     when lm_head is int8 (int4)."""
     head = params["lm_head"]
     b, s, h = hidden.shape
+    if params.get("mesh") is not None:
+        return _sharded_logits(params, hidden)
     if is_qlinear(head):
         return qmm(hidden.reshape(b * s, h), head, decode=True, out_dtype=torch.float32).reshape(b, s, -1)
     return F.linear(hidden, head)
@@ -544,6 +624,8 @@ def logits_last(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     f32 through kernel H (L) when lm_head is int8 (int4) (rows here are at
     most the decode batch)."""
     head = params["lm_head"]
+    if params.get("mesh") is not None:
+        return _sharded_logits(params, hidden[:, -1, :])
     if is_qlinear(head):
         return qmm(hidden[:, -1, :], head, decode=True, out_dtype=torch.float32)
     return F.linear(hidden[:, -1, :], head)

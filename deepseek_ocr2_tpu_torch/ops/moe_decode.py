@@ -58,16 +58,17 @@ from .moe_q8 import QExperts, expert_swiglu_q8, launch_moe_quant, pseudo_experts
 def distinct_schedule(idx: torch.Tensor, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Port of `_distinct_schedule`: (ve [E] int32, the distinct selected
     experts ascending, padded by repeating the last; valid [E] int32, 1 for
-    a real visit)."""
+    a real visit). Id E (another rank's expert, under EP) is no visit; with
+    no visit at all every entry is a pad of expert 0."""
     flat = idx.reshape(-1).long()
-    counts = torch.zeros(e, dtype=torch.int32, device=idx.device)
+    counts = torch.zeros(e + 1, dtype=torch.int32, device=idx.device)
     counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-    present = counts > 0
+    present = counts[:e] > 0
     ids = torch.arange(e, device=idx.device)
     ve_sorted = torch.sort(torch.where(present, ids, e)).values  # distinct first, then E
     n_distinct = torch.cumsum(present.long(), 0)[-1:]  # [1], stays on the device
     last = ve_sorted.gather(0, (n_distinct - 1).clamp(min=0))
-    ve = torch.where(ve_sorted == e, last, ve_sorted)
+    ve = torch.where(ve_sorted == e, last, ve_sorted) % e  # E only where nothing is present
     return ve.to(torch.int32), (ids < n_distinct).to(torch.int32)
 
 
@@ -81,7 +82,7 @@ def combine_table(
     """Port of `_combine_table`: dense per-(visit, row) combine weights
     [E, B] f32 (the JAX [V, B_pad, 1] without the TPU's row padding)."""
     b = idx.shape[0]
-    w_full = torch.zeros(e, b, dtype=torch.float32, device=idx.device)
+    w_full = torch.zeros(e + 1, b, dtype=torch.float32, device=idx.device)  # row E: other ranks' experts
     rows = torch.arange(b, device=idx.device)[:, None].expand_as(idx)
     w_full.index_put_((idx.long(), rows), weights.float(), accumulate=True)
     return w_full.index_select(0, ve.long()) * valid[:, None].float()
@@ -137,12 +138,14 @@ def moe_ffn_decode_visits_reference(
     experts: Dict[str, torch.Tensor],  # gate / up [E, I, H], down [E, H, I]
     weights: torch.Tensor,  # [B, k] f32
     idx: torch.Tensor,  # [B, k]
+    out_dtype=None,
 ) -> torch.Tensor:
     """Plain twin of F: every visit of the schedule over all rows, at F's
     rounding points (gate and up each accumulated in f32 and rounded once,
     silu in f32, y = act Wd^T kept in f32), summed over the visits in
     order. Pad visits repeat a real expert with zero weights, so they add
-    exact zeros, as they do in the kernel. Returns [B, H] in x's dtype."""
+    exact zeros, as they do in the kernel. Returns [B, H] in `out_dtype`
+    (x's dtype by default; f32 leaves the sum unrounded)."""
     e = experts["gate"].shape[0]
     dt = x.dtype
     ve, valid = distinct_schedule(idx, e)
@@ -156,7 +159,7 @@ def moe_ffn_decode_visits_reference(
         up = F.linear(x32, wu).to(dt)
         act = F.silu(gate.float()).to(dt) * up
         out += F.linear(act.float(), wd) * w_visit[v][:, None]
-    return out.to(dt)
+    return out.to(out_dtype or dt)
 
 
 def moe_ffn_decode_fused(
@@ -164,17 +167,22 @@ def moe_ffn_decode_fused(
     experts: Dict[str, torch.Tensor],
     weights: torch.Tensor,  # [B, k] f32
     idx: torch.Tensor,  # [B, k]
+    out_dtype=None,
 ) -> torch.Tensor:
     """Kernel F: the distinct-expert batched-decode MoE FFN. Returns [B, H]
-    in x's dtype."""
+    in `out_dtype`: x's dtype (the default) or f32, the visits' sum not
+    rounded (`moe_decode_bf16_out_f32` for bf16 x)."""
     if x.device.type == "cpu":
-        return moe_ffn_decode_visits_reference(x, experts, weights, idx)
+        return moe_ffn_decode_visits_reference(x, experts, weights, idx, out_dtype)
     wg, wu, wd = experts["gate"], experts["up"], experts["down"]
     e, i, h = wg.shape
     b = x.shape[0]
     dt = x.dtype
+    out_dt = out_dtype or dt
     if dt not in (torch.float32, torch.bfloat16) or any(w.dtype != dt for w in (wg, wu, wd)):
         raise ValueError(f"kernel F takes f32 or bf16 x and experts of the same dtype, got {dt}")
+    if out_dt not in (dt, torch.float32):
+        raise ValueError(f"kernel F writes x's dtype or f32, not {out_dt}")
     if x.shape != (b, h) or wu.shape != (e, i, h) or wd.shape != (e, h, i):
         raise ValueError(f"shapes x {tuple(x.shape)} gate {tuple(wg.shape)} up {tuple(wu.shape)} "
                          f"down {tuple(wd.shape)} do not fit")
@@ -193,9 +201,12 @@ def moe_ffn_decode_fused(
     else:
         act = torch.empty(e, b, i, dtype=dt, device=x.device)
         yw = torch.empty(e, b, h, dtype=torch.float32, device=x.device)
-    out = torch.empty(b, h, dtype=dt, device=x.device)
+    out = torch.empty(b, h, dtype=out_dt, device=x.device)
     lib = cuda_build.load("moe_decode")
-    fn = lib.moe_decode_f32 if dt == torch.float32 else lib.moe_decode_bf16
+    if dt == torch.float32:
+        fn = lib.moe_decode_f32
+    else:
+        fn = lib.moe_decode_bf16_out_f32 if out_dt == torch.float32 else lib.moe_decode_bf16
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     p = cuda_build.ptr

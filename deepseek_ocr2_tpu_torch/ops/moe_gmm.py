@@ -479,12 +479,16 @@ def aligned_assignments(idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
     expert-aligned slots. Returns (assign [S] int64: the token-major
     assignment j each slot holds (token j // k, selection j % k), 0 in pad
     slots; slot_valid [S] bool; e_tile [T] int32; tile_valid [T] int32;
-    rows [N * k] int64: the slot of each assignment in token-major order)."""
+    rows [N * k] int64: the slot of each assignment in token-major order).
+    An assignment to id n_experts (another rank's expert under EP) takes
+    no slot; its entry of `rows` is some slot, which the callers mask."""
     m = idx.numel()
     m_pad = -(-m // bm) * bm
     flat, order, inv = _sort(idx)
-    group_sizes = torch.zeros(n_experts, dtype=torch.int32, device=idx.device)
+    # Id n_experts (another rank's expert, under EP) sorts last and takes no slot.
+    group_sizes = torch.zeros(n_experts + 1, dtype=torch.int32, device=idx.device)
     group_sizes.scatter_add_(0, flat.long(), torch.ones_like(flat))
+    group_sizes = group_sizes[:n_experts]
     src_slot, slot_valid, slot_of_sorted, e_tile, tile_valid = aligned_layout(group_sizes, m_pad, bm)
     # The sort's gather and the aligned scatter compose into one gather.
     sorted_assign = torch.zeros(m_pad, dtype=torch.long, device=idx.device)
@@ -507,25 +511,27 @@ def align_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int 
     return _gather_rows(x_flat, assign, slot_valid, idx.shape[1]), e_tile, tile_valid, rows
 
 
-def _forward_aligned(x_flat, experts, weights, layout, k: int) -> torch.Tensor:
+def _forward_aligned(x_flat, experts, weights, layout, k: int, out_dtype=None) -> torch.Tensor:
     assign, slot_valid, e_tile, tile_valid, rows = layout
     x_al = _gather_rows(x_flat, assign, slot_valid, k)
     # The bf16 kernels' schedule, once for D and E.
     sched = row_schedule(e_tile, tile_valid, experts["down"].shape[0]) if x_al.dtype == torch.bfloat16 else ()
     act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid, *sched)
     y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched)
-    return _combine(y_al.index_select(0, rows), weights, x_flat.dtype)
+    return _combine(y_al.index_select(0, rows), weights, out_dtype or x_flat.dtype)
 
 
-def moe_ffn_gmm_reference(x_flat, experts: Dict[str, torch.Tensor], weights, idx) -> torch.Tensor:
+def moe_ffn_gmm_reference(x_flat, experts: Dict[str, torch.Tensor], weights, idx, out_dtype=None) -> torch.Tensor:
     """Grouped plain twin: sort by expert, one F.linear chain per non-empty
-    group (group sizes read on the host), unsort, f32 combine over k."""
+    group (group sizes read on the host), unsort, f32 combine over k, cast
+    to `out_dtype` (x's dtype by default). Assignments to id E (another
+    rank's expert) sort last and give zeros."""
     k = idx.shape[1]
     e = experts["gate"].shape[0]
     flat, order, inv = _sort(idx)
     x_sorted = x_flat[order // k]
-    sizes = torch.bincount(flat.long(), minlength=e).tolist()
-    y_sorted = torch.empty(x_sorted.shape[0], experts["down"].shape[1], dtype=x_flat.dtype, device=x_flat.device)
+    sizes = torch.bincount(flat.long(), minlength=e)[:e].tolist()
+    y_sorted = torch.zeros(x_sorted.shape[0], experts["down"].shape[1], dtype=x_flat.dtype, device=x_flat.device)
     start = 0
     for ex, size in enumerate(sizes):
         if size:
@@ -535,7 +541,7 @@ def moe_ffn_gmm_reference(x_flat, experts: Dict[str, torch.Tensor], weights, idx
             act = F.silu(gate.float()).to(gate.dtype) * up
             y_sorted[start : start + size] = F.linear(act, experts["down"][ex])
         start += size
-    return _combine(y_sorted[inv], weights, x_flat.dtype)
+    return _combine(y_sorted[inv], weights, out_dtype or x_flat.dtype)
 
 
 class MoeFfnGmm(torch.autograd.Function):
@@ -552,22 +558,27 @@ class MoeFfnGmm(torch.autograd.Function):
       weights' dtype. idx gets no gradient.
     On CPU tensors every kernel is its twin and the forward is the grouped
     twin `moe_ffn_gmm_reference` (the CPU's forward before the Function
-    existed); the layout is built there only when a gradient is wanted."""
+    existed); the layout is built there only when a gradient is wanted.
+    Under EP, selections of id E (another rank's experts) take no slot and
+    get zero d_weights and no dx; `out_dtype` f32 keeps the combine's sum
+    unrounded for the reduction over mp."""
 
     @staticmethod
-    def forward(ctx, x_flat, w_gate, w_up, w_down, weights, idx):
+    def forward(ctx, x_flat, w_gate, w_up, w_down, weights, idx, out_dtype=None):
         experts = {"gate": w_gate, "up": w_up, "down": w_down}
+        out_dtype = out_dtype or x_flat.dtype
         cpu, needs_grad = x_flat.device.type == "cpu", any(ctx.needs_input_grad)
         layout = aligned_assignments(idx, w_gate.shape[0]) if needs_grad or not cpu else ()
         if needs_grad:
-            ctx.save_for_backward(x_flat, w_gate, w_up, w_down, weights, *layout)
+            mine = idx.reshape(-1) < w_gate.shape[0]
+            ctx.save_for_backward(x_flat, w_gate, w_up, w_down, weights, *layout, mine)
         if cpu:
-            return moe_ffn_gmm_reference(x_flat, experts, weights, idx)
-        return _forward_aligned(x_flat, experts, weights, layout, idx.shape[1])
+            return moe_ffn_gmm_reference(x_flat, experts, weights, idx, out_dtype)
+        return _forward_aligned(x_flat, experts, weights, layout, idx.shape[1], out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x_flat, wg, wu, wd, weights, assign, slot_valid, e_tile, tile_valid, rows = ctx.saved_tensors
+        x_flat, wg, wu, wd, weights, assign, slot_valid, e_tile, tile_valid, rows, mine = ctx.saved_tensors
         n, k = weights.shape
         e = wg.shape[0]
         dt = x_flat.dtype
@@ -589,7 +600,7 @@ class MoeFfnGmm(torch.autograd.Function):
         dy_al = (g_slot * w_slot[:, None]).to(dt)
         y_al = moe_gmm_down(act, wd, e_tile, tile_valid, tile_lo, blk_lo)
         dwt = (y_al.float() * g_slot).sum(1)
-        d_weights = dwt.index_select(0, rows).reshape(n, k).to(weights.dtype)
+        d_weights = torch.where(mine, dwt.index_select(0, rows), 0).reshape(n, k).to(weights.dtype)
         del y_al, g_slot
         # SwiGLU backward in f32: silu'(x) = sig(x) (1 + x (1 - sig(x))).
         dact = moe_gmm_dx(dy_al, wd, e_tile, tile_valid, tile_lo, blk_lo).float()
@@ -598,20 +609,21 @@ class MoeFfnGmm(torch.autograd.Function):
         del dact, sig, silu_g, gate, gate_f, up
         dx_al = (moe_gmm_dx(dgate, wg, e_tile, tile_valid, tile_lo, blk_lo)
                  + moe_gmm_dx(dup, wu, e_tile, tile_valid, tile_lo, blk_lo))
-        dx = dx_al.index_select(0, rows).reshape(n, k, -1).float().sum(1).to(dt)
+        dx_sel = torch.where(mine[:, None], dx_al.index_select(0, rows), 0)
+        dx = dx_sel.reshape(n, k, -1).float().sum(1).to(dt)
         del dx_al
         dwg = moe_gmm_dw(x_al, dgate, e_tile, tile_valid, e, tile_lo).to(wg.dtype)
         dwu = moe_gmm_dw(x_al, dup, e_tile, tile_valid, e, tile_lo).to(wu.dtype)
         dwd = moe_gmm_dw(act, dy_al, e_tile, tile_valid, e, tile_lo).to(wd.dtype)
-        return dx, dwg, dwu, dwd, d_weights, None
+        return dx, dwg, dwu, dwd, d_weights, None, None
 
 
-def moe_ffn_gmm(x_flat, experts: Dict[str, torch.Tensor], weights, idx) -> torch.Tensor:
+def moe_ffn_gmm(x_flat, experts: Dict[str, torch.Tensor], weights, idx, out_dtype=None) -> torch.Tensor:
     """Exact grouped-GEMM MoE FFN at prefill scale, differentiable in x, the
-    experts and the routing weights. Returns [N, H] in x's dtype: kernels D
-    and E on CUDA tensors (S, T and E in the backward), the grouped twin on
-    the CPU (the twins in the backward)."""
-    return MoeFfnGmm.apply(x_flat, experts["gate"], experts["up"], experts["down"], weights, idx)
+    experts and the routing weights. Returns [N, H] in `out_dtype` (x's
+    dtype by default): kernels D and E on CUDA tensors (S, T and E in the
+    backward), the grouped twin on the CPU (the twins in the backward)."""
+    return MoeFfnGmm.apply(x_flat, experts["gate"], experts["up"], experts["down"], weights, idx, out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,11 @@ model's own greedy picks (ban included) confirm, plus the first pick that
 differs: 1..chunk tokens a forward, the tokens of plain greedy decoding up
 to chunk-width rounding. Greedy only; eager and on the device, one flag
 read back a forward.
+
+On params sharded onto a mesh (`parallel.shard_params`), `greedy_generate`
+takes the whole batch on every rank, decodes the rank's dp rows with the
+rank's heads (its cache holds their K/V) and experts, and gathers the
+tokens over dp: every rank returns the same tokens.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
 
-from ..models.deepseek_v2 import lm_forward, logits_all, logits_last, rope_consts, vocab_size_of
+from ..models.deepseek_v2 import lm_forward, logits_all, logits_last, n_heads, rope_consts, vocab_size_of
 from ..ops import prng
 from ..ops.sampling import greedy_pick, ngram_ban_mask_batched, sample_pick
+from ..parallel.collectives import all_gather_dp
+from ..parallel.mesh import dp_rows
 from .kv_cache import make_kv_cache
 
 
@@ -67,19 +74,25 @@ def greedy_generate(
     each ending in a device sync) and `logits0`, the step-0 logits [B, V]
     as f32 on the CPU; with `keep_logits` also `logits`, every step's.
     `rope` takes the (cos, sin) tables of `rope_consts` when the caller
-    keeps them across calls (they are built on the host).
+    keeps them across calls (they are built on the host). Sharded params:
+    see the module docstring (`stats` then hold the rank's rows).
     """
     device = inputs_embeds.device
-    b, s, _ = inputs_embeds.shape
+    mesh = params.get("mesh")
+    b_all, s, _ = inputs_embeds.shape
     if s + max_new_tokens > capacity:
         raise ValueError(f"capacity {capacity} < prompt {s} + max_new_tokens {max_new_tokens}")
     if prompt_ids.ndim == 1:
         prompt_ids = prompt_ids[None]
+    inputs_embeds = dp_rows(inputs_embeds, mesh)
+    if prompt_ids.shape[0] == b_all > 1:
+        prompt_ids = dp_rows(prompt_ids, mesh)
+    b = inputs_embeds.shape[0]
     vocab = vocab_size_of(params)  # lm_head may be int8 or int4
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
     cache = make_kv_cache(
-        cfg.num_hidden_layers, b, cfg.num_attention_heads, capacity, cfg.head_dim,
+        cfg.num_hidden_layers, b, n_heads(params["layers"][0], cfg), capacity, cfg.head_dim,
         dtype=kv_dtype, device=device,
     )
 
@@ -99,7 +112,7 @@ def greedy_generate(
         keys = None
         if temperature != 0.0:
             key, sub = prng.split(key)
-            keys = prng.split(sub, b)
+            keys = dp_rows(prng.split(sub, b_all), mesh)
         return sample_pick(logits, keys, ban, temperature=temperature, top_k=top_k, top_p=top_p)
 
     tok = pick(logits, s)
@@ -131,7 +144,7 @@ def greedy_generate(
     if stats is not None:
         _sync(device)
         stats["decode_s"] = time.perf_counter() - t1
-    return tokens, n_gen
+    return all_gather_dp(tokens, mesh), all_gather_dp(n_gen, mesh)
 
 
 def _lookup_draft_n(hist: torch.Tensor, cur_len: torch.Tensor, n: int, draft_k: int):
@@ -198,12 +211,14 @@ def lookup_greedy_generate_batched(
         raise ValueError(f"capacity {capacity} < prompt {s} + max_new_tokens {max_new_tokens} + chunk {chunk} - 1")
     if chunk < 2 or match_n < 1:
         raise ValueError(f"lookup decoding takes chunk >= 2 and match_n >= 1, got {chunk}, {match_n}")
+    if params.get("mesh") is not None:
+        raise ValueError("lookup decoding takes unsharded params")
     if prompt_ids.ndim == 1:
         prompt_ids = prompt_ids[None]
     vocab = vocab_size_of(params)
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
-    cache = make_kv_cache(cfg.num_hidden_layers, b, cfg.num_attention_heads, capacity, cfg.head_dim,
+    cache = make_kv_cache(cfg.num_hidden_layers, b, n_heads(params["layers"][0], cfg), capacity, cfg.head_dim,
                           dtype=kv_dtype, device=device)
     rows = torch.arange(b, device=device)
 

@@ -90,6 +90,8 @@ class OCR2Pipeline:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but no CUDA device is available")
+        if isinstance(params.get("lm"), dict) and "mesh" in params["lm"]:
+            raise ValueError("the OCR pipeline and the serving engines take unsharded params")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

@@ -25,6 +25,15 @@
   counts in one safetensors file, written to a temporary file and moved
   into place; a resumed run is bit-identical to a straight one.
 
+Params sharded onto a (dp, mp) mesh (`parallel.shard_params`; the JAX
+package's `train --mesh`): each rank passes its dp rows; the losses are
+the rank's share of the batch's (the masked ones divide by the mask count
+summed over dp), `value_and_grad` means the loss and the gradients over
+dp, the optimizer's global norm sums the split leaves' squares over mp
+(each replicated leaf counted once), and a state file holds whole leaves
+(gathered on save, each rank's slice taken on load), the same file an
+unsharded run writes and reads.
+
 The params are the port's LM tree (`models.deepseek_v2.params_from_flat`)
 or, for the OCR step, its composite tree (`models.deepseek_ocr2`: "lm",
 "sam", "qwen2", "projector_w", "projector_b", "view_seperator"): nested
@@ -47,6 +56,9 @@ from ..configs import DeepseekV2Config
 from ..io.safetensors_torch import load_flat, save_flat
 from ..models.deepseek_ocr2 import normalize_pixels, ocr_prefill_embeds_batched
 from ..models.deepseek_v2 import lm_forward, logits_all
+from ..parallel.collectives import all_reduce_sum, dp_mean_, mp_broadcast_
+from ..parallel.mesh import mesh_of
+from ..parallel.sharding import gather_leaves, local_slice, split_dim
 
 
 def param_items(params) -> List[Tuple[str, torch.Tensor]]:
@@ -68,6 +80,21 @@ def param_items(params) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
+def tree_like(params, tensors: Sequence[torch.Tensor]):
+    """The tensors (in `param_items` order) in the tree of `params`; its
+    other leaves (a mesh) are left out."""
+    it = iter(tensors)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node) if isinstance(node[k], (torch.Tensor, dict, list, tuple))}
+        return [build(v) for v in node]
+
+    return build(params)
+
+
 def _logits(params, cfg: DeepseekV2Config, ids: torch.Tensor, remat: bool) -> torch.Tensor:
     embeds = F.embedding(ids, params["embed"])
     hidden = lm_forward(params, cfg, embeds, None, training=True, remat=remat)
@@ -84,18 +111,23 @@ def lm_loss_masked(params, cfg: DeepseekV2Config, ids: torch.Tensor, loss_mask: 
                    remat: bool = False) -> torch.Tensor:
     """Next-token CE restricted to positions where loss_mask is 1 (SFT:
     train on the completion, not the prompt or padding)."""
-    return _masked_ce(_logits(params, cfg, ids, remat), ids, loss_mask)
+    return _masked_ce(_logits(params, cfg, ids, remat), ids, loss_mask, params.get("mesh"))
 
 
-def _masked_ce(logits: torch.Tensor, ids: torch.Tensor, loss_mask: torch.Tensor) -> torch.Tensor:
+def _masked_ce(logits: torch.Tensor, ids: torch.Tensor, loss_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean next-token CE of f32 logits [B, S, V] over the targets where
     loss_mask[:, 1:] is 1; the other targets are made safe (0) first, since
-    pad and placeholder ids may be out of vocab."""
+    pad and placeholder ids may be out of vocab. Under a mesh the rows are
+    the rank's dp rows and the mean is over the whole batch's targets: the
+    count is summed over dp, and the rank's sum is scaled by dp so that the
+    dp mean of the ranks' losses is the batch's."""
     m = loss_mask[:, 1:].float()
     targets = torch.where(m > 0, ids[:, 1:], 0)
     per_tok = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), targets.reshape(-1),
                               reduction="none").reshape(m.shape)
-    return (per_tok * m).sum() / m.sum().clamp(min=1.0)
+    if mesh is None or mesh.dp == 1:
+        return (per_tok * m).sum() / m.sum().clamp(min=1.0)
+    return (per_tok * m).sum() * mesh.dp / all_reduce_sum(m.sum(), mesh, "dp").clamp(min=1.0)
 
 
 def ocr_loss(params, cfg, ids: torch.Tensor, image_base: torch.Tensor, patches, image_start: int,
@@ -113,13 +145,17 @@ def ocr_loss(params, cfg, ids: torch.Tensor, image_base: torch.Tensor, patches, 
         patches = normalize_pixels(patches, act)
     embeds = ocr_prefill_embeds_batched(params, cfg, ids, image_base, patches, image_start, training=True)
     hidden = lm_forward(params["lm"], cfg.lm, embeds, None, training=True)
-    return _masked_ce(logits_all(params["lm"], hidden).float(), ids, loss_mask)
+    return _masked_ce(logits_all(params["lm"], hidden).float(), ids, loss_mask, mesh_of(params))
 
 
 def value_and_grad(loss_fn: Callable, params, *args, **kwargs) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(loss, grads) of loss_fn(params, *args) with respect to every leaf of
     `params`, grads in `param_items` order (zeros for a leaf the loss does
-    not reach). The leaves require grad only during the call."""
+    not reach). The leaves require grad only during the call. Under a mesh
+    the loss and the gradients are their means over dp, and a composite
+    tree's vision towers (whole on every rank) take the gradient of the mp
+    group's first rank: on the card their backward sums with atomic adds,
+    whose order differs between ranks."""
     leaves = [t for _, t in param_items(params)]
     try:
         with torch.enable_grad():
@@ -131,7 +167,15 @@ def value_and_grad(loss_fn: Callable, params, *args, **kwargs) -> Tuple[torch.Te
         for t in leaves:
             t.requires_grad_(False)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    return loss.detach(), grads
+    loss = loss.detach()
+    mesh = mesh_of(params)
+    if mesh is not None and mesh.size > 1:
+        grads = [g.contiguous() for g in grads]
+        loss = loss.clone()
+        dp_mean_([loss, *grads], mesh)
+        if "lm" in params:
+            mp_broadcast_([g for (n, _), g in zip(param_items(params), grads) if not n.startswith("lm.")], mesh)
+    return loss, grads
 
 
 @torch.no_grad()
@@ -210,8 +254,10 @@ class AdamW:
         moments the state's tensors (f32 arithmetic, stored in the leaves'
         dtypes). Its decoupled decay p (1 - lr wd) and step p - (lr / bc1)
         mu / (sqrt(nu) / sqrt(bc2) + eps) are optax's p - lr (mu_hat /
-        (sqrt(nu_hat) + eps) + wd p) with other rounding."""
-        leaves = [t for _, t in param_items(params)]
+        (sqrt(nu_hat) + eps) + wd p) with other rounding. Under a mesh the
+        norm sums the split leaves' squares over mp."""
+        items = param_items(params)
+        leaves = [t for _, t in items]
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} parameters")
         # The multi-tensor kernels walk each tensor's memory flat: a gradient
@@ -228,7 +274,15 @@ class AdamW:
             grads = state["acc"]
         # clip_by_global_norm: kept below clip_norm, else scaled to it; the
         # norm stays on the device.
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)))
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        mesh = mesh_of(params)
+        if mesh is None or mesh.mp == 1:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            split = [split_dim(n) is not None for n, _ in items]
+            sq_split = sum(v * v for v, s in zip(norms, split) if s)
+            sq_whole = sum(v * v for v, s in zip(norms, split) if not s)
+            norm = torch.sqrt(sq_whole + all_reduce_sum(sq_split, mesh, "mp"))
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
         grads = torch._foreach_mul(grads, scale)
         opt = torch.optim.AdamW(leaves, lr=self.learning_rate(state["count"]), betas=(self.b1, self.b2),
@@ -301,15 +355,22 @@ def save_train_state(path: str, params, opt_state: dict, step: int) -> None:
     """Params, moments, accumulator, counts and the train step in one
     safetensors file ("params/<path>", "mu/<path>", "nu/<path>",
     "acc/<path>", "count", "mini_step", "step"), written to `path`.tmp and
-    moved into place, so a crash mid-save leaves the previous file."""
+    moved into place, so a crash mid-save leaves the previous file. Under
+    a mesh every rank takes part (the leaves are gathered over mp) and the
+    mesh's first rank writes the whole leaves, the file an unsharded run
+    writes."""
     flat: Dict[str, torch.Tensor] = {}
     items = param_items(params)
     names = [n for n, _ in items]
-    for name, t in items:
+    mesh = mesh_of(params)
+    for name, t in zip(names, gather_leaves(names, [t for _, t in items], mesh)):
         flat["params/" + name] = t
     for key in ("mu", "nu", "acc"):
-        for name, t in zip(names, opt_state.get(key, ())):
-            flat[f"{key}/{name}"] = t
+        if key in opt_state:
+            for name, t in zip(names, gather_leaves(names, opt_state[key], mesh)):
+                flat[f"{key}/{name}"] = t
+    if mesh is not None and mesh.rank != 0:
+        return
     for key in _COUNTS:
         if key in opt_state:
             flat[key] = torch.tensor([opt_state[key]], dtype=torch.int64)
@@ -323,8 +384,10 @@ def save_train_state(path: str, params, opt_state: dict, step: int) -> None:
 def load_train_state(path: str, params, opt_state: dict) -> int:
     """Restore a `save_train_state` file into `params` and `opt_state` (as
     made by `AdamW.init` for these params) in place, each tensor cast to
-    its template's dtype; returns the saved train step."""
+    its template's dtype; returns the saved train step. Sharded params take
+    their rank's slice of each whole leaf."""
     flat = load_flat(path)
+    mesh = mesh_of(params)
     names = [n for n, _ in param_items(params)]
     targets = [("params", [t for _, t in param_items(params)])]
     targets += [(key, opt_state[key]) for key in ("mu", "nu", "acc") if key in opt_state]
@@ -333,9 +396,10 @@ def load_train_state(path: str, params, opt_state: dict) -> int:
             key = f"{prefix}/{name}"
             if key not in flat:
                 raise KeyError(f"checkpoint {path} is missing {key!r}")
-            if tuple(flat[key].shape) != tuple(t.shape):
+            src = local_slice(name, flat[key], mesh)
+            if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(flat[key].shape)}, model {tuple(t.shape)}")
-            t.copy_(flat[key].to(t.dtype))
+            t.copy_(src.to(t.dtype))
     for key in _COUNTS:
         if key in opt_state:
             opt_state[key] = int(flat[key].reshape(()))

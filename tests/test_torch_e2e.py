@@ -236,6 +236,9 @@ _NO_JAX_SCRIPT = """
 import dataclasses, sys
 import torch
 import deepseek_ocr2_tpu_torch
+import deepseek_ocr2_tpu_torch.parallel
+import deepseek_ocr2_tpu_torch.parallel.launch
+import deepseek_ocr2_tpu_torch.parallel.runs
 from deepseek_ocr2_tpu_torch.configs import tiny_ocr2_config
 from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 import chip_smoke as cs

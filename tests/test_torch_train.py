@@ -15,7 +15,7 @@ widths (`tiny_lm_config`, 2 layers: one dense, one MoE).
 - Three AdamW steps' losses against the jitted `adamw_train_step`; `remat`
   and a resumed run are bit-identical to a plain, straight run; SFT
   masking; the CLI's loss lines, resume and `--out`, loaded by the JAX
-  package.
+  package, and its `--mesh` shape refusals.
 """
 
 import dataclasses
@@ -285,6 +285,11 @@ def test_cli_train_resume_sft_and_export_loads_in_jax(cli_assets, capsys, lm):
     assert len(sft) == 2 and all(np.isfinite(sft))
     with pytest.raises(SystemExit, match="mixes"):
         _train(d, capsys, "--steps", "1", data="mixed.jsonl")
-    with pytest.raises(SystemExit, match="--mesh"):
+    # --mesh checks its shape before it reads a file: dp must divide the
+    # batch, mp the default config's 10 heads.
+    with pytest.raises(SystemExit, match="divisible by dp=3"):
         cli.main(["train", "--backend", "cpu", "--weights", "w", "--tokenizer", "t", "--data", "d",
-                  "--mesh", "2,1"])
+                  "--mesh", "3,1"])
+    with pytest.raises(SystemExit, match="mp=4 does not divide num_attention_heads=10"):
+        cli.main(["train", "--backend", "cpu", "--weights", "w", "--tokenizer", "t", "--data", "d",
+                  "--mesh", "1,4"])
