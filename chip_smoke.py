@@ -164,7 +164,28 @@ Phases (each raises on failure, so the exit code is non-zero):
    widths, 2 pages at S 300) at (1, 1), (2, 1), (1, 2): the towers'
    gradients equal on every rank and to (1, 1)'s, then the OCR prefill's
    last logits at (2, 1) (a page a rank) and (1, 2) within
-   MESH_LOGITS_RTOL of (1, 1)'s (A, B, C, D, E on every rank).
+   MESH_LOGITS_RTOL of (1, 1)'s (A, B, C, D, E on every rank). Phase 2
+   also runs H on wqkv's 640-column contraction slice (f32 out), L on half
+   of wqkv's and wo's rows, and I, J, M, N on one rank's 32 experts with
+   `local_routing` ids (ranks 0 and 1, B 1 and 16, out f32 and bf16, and a
+   batch with no local selection: exact zeros).
+10. sharded quantized and serving paths on the one card
+   (`phase_mesh_serving`, a 2-rank gloo world): 10a: the full-width
+   12-layer LM, random bf16 weights quantized `--int8`, `--int4` and
+   `--moe-int8`, at (1, 2) on 16 prompts of 256 tokens, 32 greedy tokens,
+   against (1, 1) on rank 0 on the same quantized weights under phase 7's
+   margin rule; the prefill's and the first decode step's logits (routing
+   replayed) within MESH_Q_LOGITS_RTOL of (1, 1)'s, and two planted faults
+   beyond it (a dropped partial in the prefill, the pseudo-experts folded
+   on both ranks at the decode step); each rank's launches held to
+   `quant_mesh_launches` (H / L, J / N, D, E, A; K and O never), its peak
+   memory, decode ms a step, and one profiled decode step's device ms and
+   collectives' share; 10b: `--int8` in latency mode, one prompt at (1, 2)
+   (I, H); 10c: the continuous engine (16 slots, bf16 pool) on an
+   OCR2Pipeline whose bf16 LM is sharded at (1, 2), towers whole, 8 pages
+   (one (2, 1) crop) with lookup 0 and 4, against the unsharded pipeline's
+   single pages under the margin rule (A-F, and G, or Q with lookup, on both
+   ranks).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -443,10 +464,43 @@ def gmm_results(dev, randn, record) -> None:
             if n == 550:
                 print(f"[kernel] dense all-expert MoE N {n} {dts}: "
                       f"{median_ms(lambda: moe_ffn_dense(*args)):.3f} ms")
+            if n == 550 and dt == torch.bfloat16:
+                _ffn_gmm_times(args, x_al, ex, e_tile, tile_valid, case)
             if n == 1125 and dt == torch.bfloat16:
                 no_host_sync(dev, f"D+E ({case})", lambda: moe_gmm.moe_ffn_gmm(*args))
             del x, ex, args, ref, got
     torch.cuda.empty_cache()
+
+
+def _ffn_gmm_times(args, x_al, ex, e_tile, tile_valid, case) -> None:
+    """The whole `moe_ffn_gmm` (the JAX package's `_gmm_ffn_kernel_al`,
+    ported as D then E) in a CUDA graph, beside its library form: D's and
+    E's products by two `torch._grouped_mm` calls on the aligned rows (the
+    SwiGLU, the routing's layout and the combine left out)."""
+    from deepseek_ocr2_tpu_torch.ops import moe_gmm
+
+    def graph_or_none(fn):
+        try:
+            return graph_ms(fn)
+        except RuntimeError as exc:
+            print(f"[kernel] not captured in a CUDA graph: {str(exc).splitlines()[0][:120]}")
+            return None
+
+    whole = graph_or_none(lambda: moe_gmm.moe_ffn_gmm(*args))
+    lib_d = grouped_mm_library("D", x_al, torch.cat([ex["gate"], ex["up"]], 1), e_tile, tile_valid)
+    act = moe_gmm.gmm_swiglu_reference(x_al, ex["gate"], ex["up"], e_tile, tile_valid)
+    lib_e = grouped_mm_library("E", act, ex["down"], e_tile, tile_valid)
+    lib_ms = lib_graph = None
+    if lib_d is not None and lib_e is not None:
+        def both():
+            lib_d()
+            lib_e()
+
+        lib_ms, lib_graph = median_ms(both), graph_or_none(both)
+    fmt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
+    print(f"[kernel] :247 whole moe_ffn_gmm (D then E with the routing's layout and combine), {case}: in a CUDA "
+          f"graph {fmt(whole)} ms; library D then E by torch._grouped_mm {fmt(lib_ms)} ms (in a CUDA graph "
+          f"{fmt(lib_graph)})")
 
 
 def decode_results(dev, randn, record) -> None:
@@ -812,7 +866,9 @@ def visit_results(dev, randn, record) -> None:
     rows; then the ffn mode against D then E on the aligned layout for the
     same rows (the same sums in the same order: bit-equal expected). No
     path runs W (neither package calls it), and no one PyTorch call computes
-    either mode."""
+    either mode (the swiglu mode's library time is the gate||up products
+    alone by `torch._grouped_mm` on the aligned layout of the same rows, as
+    D's)."""
     from deepseek_ocr2_tpu_torch.ops import moe_gmm
     from deepseek_ocr2_tpu_torch.ops.moe import route
 
@@ -831,14 +887,22 @@ def visit_results(dev, randn, record) -> None:
             w_expert = nbytes(wg[0])
             flops_gu, flops_d = 2 * 2 * m * h * i, 2 * m * i * h
             case = f"N {n} k {k}: bm {bm}, {sched[0].numel()} visit slots, {n_live} non-empty, {str(dt)[6:]}"
+            # The aligned layout of the same sorted rows: D's and E's input,
+            # and the library's (the gate||up products by torch._grouped_mm,
+            # bf16, as D's row times them).
+            src, slot_valid, slot_of_sorted, e_tile, tile_valid = moe_gmm.aligned_layout(
+                sizes, x_sorted.shape[0], moe_gmm.GMM_BM)
+            x_al = torch.where(slot_valid[:, None], x_sorted[src.long().clamp(max=x_sorted.shape[0] - 1)], 0)
             args = (x_sorted, wg, wu, sched, bm)
             ref = moe_gmm.gmm_swiglu_visit_reference(*args)[:m]
             got = moe_gmm.gmm_swiglu_visit(*args)[:m]
+            library = grouped_mm_library("D", x_al, torch.cat([wg, wu], 1), e_tile, tile_valid)
             record("W", f"swiglu {case}", ref, got, tolerance(ref, dt),
                    median_ms(lambda: moe_gmm.gmm_swiglu_visit(*args)),
                    median_ms(lambda: moe_gmm.gmm_swiglu_visit_reference(*args)),
-                   bound_ms(row_bytes(m, x_sorted, ref) + 2 * n_used * w_expert, flops_gu, dt),
-                   graph=lambda: moe_gmm.gmm_swiglu_visit(*args))
+                   bound_ms(row_bytes(m, x_sorted, ref) + 2 * n_used * w_expert, flops_gu, dt), library,
+                   graph=lambda: moe_gmm.gmm_swiglu_visit(*args), library_graph=library is not None)
+            del library
             args = (x_sorted, wg, wu, wd, sched, bm)
             ref = moe_gmm.gmm_ffn_visit_reference(*args)[:m]
             y = moe_gmm.gmm_ffn_visit(*args)
@@ -848,10 +912,6 @@ def visit_results(dev, randn, record) -> None:
                    bound_ms(row_bytes(m, x_sorted, ref) + 3 * n_used * w_expert, flops_gu + flops_d, dt),
                    graph=lambda: moe_gmm.gmm_ffn_visit(*args))
             # D then E on the aligned layout of the same sorted rows.
-            src, slot_valid, slot_of_sorted, e_tile, tile_valid = moe_gmm.aligned_layout(
-                sizes, x_sorted.shape[0], moe_gmm.GMM_BM)
-            x_al = torch.where(slot_valid[:, None], x_sorted[src.long().clamp(max=x_sorted.shape[0] - 1)], 0)
-
             def pair():
                 return moe_gmm.moe_gmm_down(moe_gmm.moe_gmm_swiglu(x_al, wg, wu, e_tile, tile_valid), wd, e_tile,
                                             tile_valid)
@@ -1131,6 +1191,88 @@ def q4_results(dev, randn, record) -> None:
     torch.cuda.empty_cache()
 
 
+def ep_quant_results(dev, randn, record) -> None:
+    """Kernels H, I, J, L, M and N on one rank's shards at mp 2 (phase 10's
+    sharded quantized decode), bf16 activations. I, J (int8) and M, N
+    (int4) on rank 0's and rank 1's 32 of 64 experts, `local_routing` ids
+    (another rank's selection: id 32, weight 0), at B 1 and 16, out f32
+    (the rank's partial, what `_ffn_mp` asks for) and, at B 16, bf16; then
+    a B 16 batch none of whose selections is rank 0's, where each kernel
+    must write exact zeros. H on wqkv's 640-column contraction slice (f32
+    out: the partial summed over mp), L on half of wqkv's and wo's rows."""
+    from deepseek_ocr2_tpu_torch.ops import linear_q4, linear_q8, moe_decode, moe_q4, moe_q8
+    from deepseek_ocr2_tpu_torch.ops.moe import local_routing, route
+
+    bf, f32 = torch.bfloat16, torch.float32
+    e, k, h, i = 64, 6, 1280, 896
+    e_l = e // 2
+    for b in (1, 16):
+        x = randn(b, h // 2, dtype=bf)
+        w = linear_q8.quantize_linear(randn(3 * h, h // 2, std=h**-0.5))
+        ref = linear_q8.linear_q8_reference(x, w, out_dtype=f32)
+        got = linear_q8.linear_q8(x, w, out_dtype=f32)
+        record("H", f"mp 2: wqkv's contraction slice B {b} [{3 * h}, {h // 2}] bf16 -> float32", ref, got,
+               tolerance(ref, f32), median_ms(lambda: linear_q8.linear_q8(x, w, out_dtype=f32)),
+               median_ms(lambda: linear_q8.linear_q8_reference(x, w, out_dtype=f32)),
+               bound_ms(nbytes(x, w["q8"], w["scale"], ref), 2 * b * (h // 2) * 3 * h, bf),
+               graph=lambda: linear_q8.linear_q8(x, w, out_dtype=f32))
+    for name, rows in (("wqkv", 3 * h // 2), ("wo", h // 2)):
+        x = randn(16, h, dtype=bf)
+        w = linear_q4.quantize_linear_q4(randn(rows, h, std=h**-0.5))
+        ref = linear_q4.linear_q4_reference(x, w)
+        got = linear_q4.linear_q4(x, w)
+        record("L", f"mp 2: half of {name}'s rows B 16 [{rows}, {h}] bf16 -> bfloat16", ref, got,
+               tolerance(ref, bf), median_ms(lambda: linear_q4.linear_q4(x, w)),
+               median_ms(lambda: linear_q4.linear_q4_reference(x, w)),
+               bound_ms(nbytes(x, w["q4"], w["scale"], ref), 2 * 16 * h * rows, bf),
+               graph=lambda: linear_q4.linear_q4(x, w))
+    router = randn(e, h, std=h**-0.5)
+    for bits in (8, 4):
+        raw = {"gate": randn(e, i, h, std=h**-0.5), "up": randn(e, i, h, std=h**-0.5),
+               "down": randn(e, h, i, std=i**-0.5)}
+        eq = (moe_q8.quantize_experts if bits == 8 else moe_q4.quantize_experts_q4)(raw)
+        del raw
+        names = (f"gu_q{bits}", "gu_scale", f"down_q{bits}", "down_scale")
+        e_bytes = nbytes(*(eq[n][0] for n in names))
+        if bits == 8:
+            forms = {"I": (moe_q8.moe_ffn_decode_q8, moe_q8.moe_ffn_decode_q8_reference),
+                     "J": (moe_decode.moe_ffn_decode_q8_fused, moe_decode.moe_ffn_decode_q8_visits_reference)}
+        else:
+            forms = {"M": (moe_q4.moe_ffn_decode_q4, moe_q4.moe_ffn_decode_q4_reference),
+                     "N": (moe_q4.moe_ffn_decode_q4_fused, moe_q4.moe_ffn_decode_q4_visits_reference)}
+        xs = {b: randn(b, h, dtype=bf) for b in (1, 16)}
+        cases = [(rank, b, None) for b in (1, 16) for rank in (0, 1)] + [(0, 16, "none local")]
+        for rank, b, what in cases:
+            x = xs[b]
+            weights, idx = route(x, router, k)
+            if what:
+                idx = idx % e_l + e_l  # every selection rank 1's
+            w_l, idx_l = local_routing(weights, idx, e_l, rank)
+            local = {n: t[rank * e_l:(rank + 1) * e_l] for n, t in eq.items()}
+            n_sel = int((idx_l < e_l).sum())
+            n_read = int(torch.unique(idx_l[idx_l < e_l]).numel())
+            for letter, (fn, twin) in forms.items():
+                for out_dt in ((f32, bf) if b == 16 and not what else (f32,)):
+                    def call(fn=fn, out_dt=out_dt):
+                        return fn(x, local, w_l, idx_l, out_dtype=out_dt)
+
+                    def plain(twin=twin, out_dt=out_dt):
+                        return twin(x, local, w_l, idx_l, out_dtype=out_dt)
+
+                    ref, got = plain(), call()
+                    if got.dtype != out_dt or (n_sel == 0 and not torch.equal(got, torch.zeros_like(got))):
+                        raise AssertionError(f"{letter} on local ids, rank {rank} B {b} {what or ''}: {got.dtype} "
+                                             f"out, {n_sel} local selections, max |out| "
+                                             f"{float(got.float().abs().max())}")
+                    record(letter, f"EP rank {rank}{', ' + what if what else ''}: 32 local experts, B {b} k {k}, "
+                                   f"{n_sel} local selections, {n_read} experts read, bf16, out {str(out_dt)[6:]}",
+                           ref, got, bf16_tol(ref), median_ms(call), median_ms(plain),
+                           bound_ms(nbytes(x, ref, w_l, idx_l) + n_read * e_bytes, 2 * n_sel * 3 * h * i, bf),
+                           graph=call)
+        del eq, local
+    torch.cuda.empty_cache()
+
+
 def grouped_mm_library(kind: str, a, b, e_tile, tile_valid, n_experts: int = 0):
     """One `torch._grouped_mm` call computing kernel `kind`'s function on
     its aligned rows, for `library_ms`, or None (the reason printed): E
@@ -1332,6 +1474,8 @@ def phase_kernels(dev) -> dict:
     q8_results(dev, randn, record)
     # L, M, N, O: the int4 decode step (--int4).
     q4_results(dev, randn, record)
+    # H, I, J, L, M, N on one rank's shards at mp 2 (phase 10).
+    ep_quant_results(dev, randn, record)
     # S, T (and E at the recompute's shape): a training step's MoE backward.
     gmm_backward_results(dev, randn, record)
     # U, X: decode attention on the stacked contiguous cache, and on a
@@ -3619,9 +3763,9 @@ def _worst_leaf(names, got, ref) -> list:
     return worst
 
 
-def _broadcast_log(log: list, group=None) -> list:
-    """The routing log of the first rank of `group` (default: the world) on
-    every rank of it."""
+def _broadcast_log(log, group=None):
+    """The routing log (or any object) of the first rank of `group`
+    (default: the world) on every rank of it."""
     import torch.distributed as dist
 
     src = 0 if group is None else dist.get_global_rank(group, 0)
@@ -4052,6 +4196,397 @@ def phase_multi_gpu(dev) -> dict:
           f"{out['_phase9d seconds']:.1f})")
     return totals
 
+# Phase 10: the sharded quantized and serving paths, at (1, 2) on the card.
+# Prefill and first-decode-step logits of the 16 rows against (1, 1)'s on
+# the same weights (routing replayed), within this share of the largest
+# logit; each planted fault (`dropped_partial` in the prefill, the
+# pseudo-experts folded on both ranks at the decode step) must land above.
+MESH_Q_LOGITS_RTOL = 0.05
+# The quantized tiers of 10a: (tag, scope, bits).
+MESH_TIERS = (("int8", "full", 8), ("int4", "full", 4), ("moe-int8", "experts", 8))
+
+
+@contextlib.contextmanager
+def pseudo_experts_folded(on: bool):
+    """The planted fault of 10a's decode step, when `on`: the sharded MoE
+    hands the decode kernels the experts with their pseudo-experts, so that
+    J / N (and I / M at one row) fold the whole shared MLP into every
+    rank's partial and the sum over mp counts it once a rank."""
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+
+    orig = dsv2.routed_only
+    dsv2.routed_only = (lambda eq: eq) if on else orig
+    try:
+        yield
+    finally:
+        dsv2.routed_only = orig
+
+
+def quant_mesh_launches(lm, scope: str, bits: int, rows: int, steps: int, prompt_rows: int) -> dict:
+    """Each rank's launches in a sharded quantized greedy run at mp > 1:
+    the prefill (A a layer; D and E a MoE layer above 512 prompt rows; the
+    head's H / L once), then `steps` decode steps: the int8 / int4 linears
+    (wqkv, wo and two MLP streams a layer, the head: H or L), the routed
+    experts (J / N above E / k rows, else I / M), no K or O."""
+    n_moe, n_layers = lm.num_moe_layers, lm.num_hidden_layers
+    q8 = bits == 8
+    out = {"A": n_layers}
+    if prompt_rows > 512:
+        out.update(D=n_moe, E=n_moe)
+    fused = rows * lm.num_experts_per_tok > lm.n_routed_experts
+    out[("J" if fused else "I") if q8 else ("N" if fused else "M")] = n_moe * steps
+    if scope == "full":
+        out["H" if q8 else "L"] = (4 * n_layers + 1) * steps + 1
+    return out
+
+
+def _tier_params(cfg, seed: int, scope: str, bits: int, device):
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.parallel.runs import random_lm_params
+
+    full = random_lm_params(cfg, seed, device, torch.bfloat16)
+    q = dsv2.quantize_lm_params(full, scope, bits)
+    del full
+    return q
+
+
+def _shared_stream(params):
+    """The unsharded reference of a sharded quantized run: the same params
+    with the pseudo-experts left out, so that the shared MLP runs as its
+    own stream (as under mp > 1) and not folded into I / J / M / N (whose
+    int8 pseudo-experts hold their own down scales, per half)."""
+    from deepseek_ocr2_tpu_torch.ops.moe_q8 import routed_only
+
+    layers = [{**l, "experts_q8": routed_only(l["experts_q8"])} if "experts_q8" in l else l for l in params["layers"]]
+    return {**params, "layers": layers}
+
+
+def _decode_step_profile(p, cfg, ids, device) -> dict:
+    """One decode step (16 rows) of the sharded LM after a prefill: device
+    busy ms and wall under torch.profiler, then the collectives' share of
+    another step's wall (`timed`, each collective between two device
+    synchronizations)."""
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.parallel.collectives import timed
+    from deepseek_ocr2_tpu_torch.runtime.kv_cache import make_kv_cache
+
+    b, s = ids.shape
+    cache = make_kv_cache(cfg.num_hidden_layers, b, dsv2.n_heads(cfg, p["mesh"]), s + 4, cfg.head_dim,
+                          dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        dsv2.lm_forward(p, cfg, F.embedding(ids, p["embed"]), cache, pos=0, is_prefill=True)
+        emb = F.embedding(ids[:, -1:], p["embed"])
+
+        def step(pos=[s]):
+            dsv2.logits_last(p, dsv2.lm_forward(p, cfg, emb, cache, pos=pos[0], is_prefill=False))
+            pos[0] += 1
+
+        step()
+        prof = _step_profile(device, step)
+        torch.cuda.synchronize(device)
+        with timed() as times:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+    return {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"], "timed_wall_ms": wall * 1e3,
+            "collective_ms": times["seconds"] * 1e3, "calls": times["calls"], "mib": times["bytes"] / 2**20,
+            "share": times["seconds"] / wall}
+
+
+def _greedy_rows(p, cfg, ids, new: int, stats=None, keep: bool = False):
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+
+    kw = dict(max_new_tokens=new, ngram_size=20, eos_id=-1, capacity=ids.shape[1] + new, kv_dtype=torch.bfloat16)
+    return greedy_generate(p, cfg, F.embedding(ids, p["embed"]), ids, stats=stats, keep_logits=keep, **kw)[0]
+
+
+def _forced_logits(p, cfg, ids, first):
+    """The last prompt position's logits and the next step's with `first`
+    [B] fed as every row's first token (the reference's pick, so that a
+    near-tie picked the other way does not change the input): [B, V] f32
+    each, on the host."""
+    from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
+    from deepseek_ocr2_tpu_torch.runtime.kv_cache import make_kv_cache
+
+    b, s = ids.shape
+    cache = make_kv_cache(cfg.num_hidden_layers, b, dsv2.n_heads(cfg, p.get("mesh")), s + 1, cfg.head_dim,
+                          dtype=torch.bfloat16, device=ids.device)
+    with torch.no_grad():
+        l0 = dsv2.logits_last(p, dsv2.lm_forward(p, cfg, F.embedding(ids, p["embed"]), cache, pos=0))
+        step = F.embedding(first.to(ids.device)[:, None], p["embed"])
+        l1 = dsv2.logits_last(p, dsv2.lm_forward(p, cfg, step, cache, pos=s, is_prefill=False))
+    return l0.float().cpu(), l1.float().cpu()
+
+
+def _rel(a, ref) -> float:
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def _phase10ab(device, spec, out) -> None:
+    """10a: each tier of MESH_TIERS at (1, 2) on 16 prompts of 256 tokens,
+    32 greedy tokens, against (1, 1) on rank 0 on the same quantized
+    weights (its routing recorded): the tokens (counted launches, peak
+    memory, decode wall; the margin rule is applied by the caller), one
+    profiled decode step with its collectives' share, the prefill and
+    first-step logits with the routing replayed, sound and with each
+    planted fault. 10b: int8 "full" in latency mode, one prompt, (1, 2)
+    against (1, 1). (1, 1) runs the shared MLP as its own stream
+    (`_shared_stream`), as every rank does under mp > 1."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import every_rank
+    from deepseek_ocr2_tpu_torch.parallel.sharding import lm_param_specs_q8, shard_params
+
+    cfg, new = spec["cfg"], spec["new"]
+    ids = torch.as_tensor(spec["ids_a"]).to(device)
+    single = make_mesh(1, 1, ranks=[0], device=device)
+    mesh = make_mesh(1, 2, ranks=[0, 1], device=device)
+    for tag, scope, bits in MESH_TIERS:
+        t0 = time.perf_counter()
+        full = _tier_params(cfg, spec["seed"], scope, bits, device)
+        log, res = [], {}
+        if single is not None:
+            stats: dict = {}
+            with routing(log, True):
+                ref_tokens = _greedy_rows(_shared_stream(full), cfg, ids, new, stats, keep=True)
+            res["ref_logits"] = [stats["logits"][0], stats["logits"][1]]
+            res["ref_rows"] = ref_tokens.cpu()
+            res["step_logits"] = stats["logits"]
+        log, first = _broadcast_log((log, None if single is None else res["ref_rows"][:, ids.shape[1]]),
+                                    mesh.mp_group)
+        p = shard_params(full, mesh, lm_param_specs_q8(cfg, full))
+        if tag != "int8" or mesh.mp_rank:
+            del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        counts: dict = {}
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        with counted(counts):
+            stats = {}
+            tokens = _greedy_rows(p, cfg, ids, new, stats)
+        wall = time.perf_counter() - t1
+        peak = every_rank(torch.tensor([torch.cuda.max_memory_allocated(device) / 2**30], device=device), mesh)
+        launches = _launches(counts, mesh)
+        prof = _decode_step_profile(p, cfg, ids, device)
+        got = {}
+        with routing(log, False, mesh) as flips:
+            got["sound"] = _forced_logits(p, cfg, ids, first)
+        got["flips"] = flips
+        with routing(log, False, mesh), dropped_partial(True):
+            got["fault_prefill"] = _forced_logits(p, cfg, ids, first)[0]
+        if scope == "full":
+            with routing(log, False, mesh), pseudo_experts_folded(True):
+                got["fault_step"] = _forced_logits(p, cfg, ids, first)[1]
+        if mesh.rank == 0:
+            ref = res["ref_logits"]
+            out[f"10a {tag}"] = {
+                "notes": _margin_notes(res["ref_rows"].tolist(), tokens.tolist(), res["step_logits"], ids.shape[1],
+                                       range(ids.shape[0])),
+                "launches": launches, "peak_gib": peak.reshape(-1).tolist(),
+                "decode_s": stats["decode_s"], "prefill_s": stats["prefill_s"], "wall_s": wall, "profile": prof,
+                "prefill_rel": _rel(got["sound"][0], ref[0]), "step_rel": _rel(got["sound"][1], ref[1]),
+                "fault_prefill_rel": _rel(got["fault_prefill"], ref[0]),
+                "fault_step_rel": _rel(got["fault_step"], ref[1]) if "fault_step" in got else None,
+                "flips": got["flips"], "seconds": time.perf_counter() - t0}
+        if tag == "int8":
+            _phase10b(device, spec, out, full if mesh.mp_rank == 0 else None, p, mesh, single)
+            full = None
+        del p
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def _phase10b(device, spec, out, full, p, mesh, single) -> None:
+    from deepseek_ocr2_tpu_torch.parallel.runs import every_rank
+
+    cfg, new = spec["cfg"], spec["new"]
+    ids = torch.as_tensor(spec["ids_b"]).to(device)
+    log, res = [], {}
+    if single is not None:
+        stats: dict = {}
+        with routing(log, True):
+            res["ref_rows"] = _greedy_rows(_shared_stream(full), cfg, ids, new, stats, keep=True).cpu()
+        res["step_logits"] = stats["logits"]
+    del full
+    log, first = _broadcast_log((log, None if single is None else res["ref_rows"][:, ids.shape[1]]), mesh.mp_group)
+    counts: dict = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    with counted(counts):
+        stats = {}
+        tokens = _greedy_rows(p, cfg, ids, new, stats)
+    peak = every_rank(torch.tensor([torch.cuda.max_memory_allocated(device) / 2**30], device=device), mesh)
+    launches = _launches(counts, mesh)
+    with routing(log, False, mesh):
+        sound = _forced_logits(p, cfg, ids, first)
+    if mesh.rank == 0:
+        out["10b"] = {"notes": _margin_notes(res["ref_rows"].tolist(), tokens.tolist(), res["step_logits"],
+                                             ids.shape[1], range(1)),
+                      "launches": launches, "peak_gib": peak.reshape(-1).tolist(),
+                      "decode_s": stats["decode_s"], "prefill_rel": _rel(sound[0], res["step_logits"][0]),
+                      "step_rel": _rel(sound[1], res["step_logits"][1])}
+
+
+def _phase10c(device, spec, out) -> None:
+    """The continuous engine (16 slots, a bf16 pool) on an OCR2Pipeline
+    whose bf16 LM is sharded at (1, 2), the towers whole on both ranks, on
+    8 pages (7 no-crop, one (2, 1) crop), with lookup 0 and 4; on rank 0
+    first the unsharded pipeline's single pages (every step's logits) and
+    its engine on the same pages."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.sharding import lm_param_specs, shard_params
+    from deepseek_ocr2_tpu_torch.runtime.continuous import ContinuousOCREngine
+    from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
+
+    cfg = spec["ocr_cfg"]
+    g = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+    flat = random_hf_flat(cfg, lambda shape, std: torch.randn(shape, generator=g, device=device) * std)
+    params = load_model(cfg, flat, device, lm_dtype="bfloat16", vision_dtype="bfloat16")
+    del flat
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, 2, ranks=[0, 1], device=device)
+    pages = _serve_pages(cfg, 7, 1, seed=spec["seed"] + 900)
+    gen = dict(max_new_tokens=spec["new_c"], ngram_size=20)
+    eng = dict(slots=16, capacity=1024, chunk_steps=8)
+    res: dict = {}
+    if mesh.rank == 0:
+        whole = OCR2Pipeline(params, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="bfloat16",
+                             act_dtype="bfloat16")
+        res["singles"] = [whole.generate_ocr(pg, keep_logits=True, **gen) for pg in pages]
+        for lookup in (0, 4):
+            res[f"plain {lookup}"] = ContinuousOCREngine(whole, lookup_chunk=lookup, **eng).run(pages, **gen)
+        del whole
+    dist.barrier()
+    sharded = {**params, "lm": shard_params(params["lm"], mesh, lm_param_specs(cfg.lm))}
+    del params
+    torch.cuda.empty_cache()
+    pipe = OCR2Pipeline(sharded, cfg, StubTokenizer(cfg.lm.vocab_size), device=device, kv_dtype="bfloat16",
+                        act_dtype="bfloat16")
+    for lookup in (0, 4):
+        counts: dict = {}
+        t0 = time.perf_counter()
+        with counted(counts):
+            served = ContinuousOCREngine(pipe, lookup_chunk=lookup, **eng).run(pages, **gen)
+        seconds = time.perf_counter() - t0
+        launches = _launches(counts, mesh)
+        if mesh.rank == 0:
+            out[f"10c {lookup}"] = {
+                "notes": [_first_difference(a, r, torch.bfloat16) for a, r in zip(res["singles"], served)],
+                "same_plain": sum(r.token_ids == q.token_ids for r, q in zip(served, res[f"plain {lookup}"])),
+                "launches": launches, "seconds": seconds}
+    del pipe, sharded
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def chip_phase10(rank: int, world: int, device, spec: dict) -> dict:
+    """Phase 10 in one world of two ranks that share the card over gloo (a
+    `parallel.launch` entry): 10a with 10b, 10c. Rank 0 returns the
+    measurements and the checks' inputs; `phase_mesh_serving` holds them to
+    their bounds."""
+    out: dict = {}
+    for part in (_phase10ab, _phase10c):
+        t0 = time.perf_counter()
+        part(device, spec, out)
+        torch.cuda.empty_cache()
+        out[part.__name__ + " seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _margin_notes(rows_ref, rows, step_logits, prompt_len: int, b_rows) -> list:
+    """The margin rule (`_first_difference`, bf16) on each row of a greedy
+    batch: its tokens against the reference run's, whose every step's
+    logits [B, V] are `step_logits`."""
+    notes = []
+    for b in b_rows:
+        logits = [torch.as_tensor(lg[b]) for lg in step_logits]
+        single = types.SimpleNamespace(token_ids=list(rows_ref[b]), prompt_len=prompt_len, step_logits=logits)
+        served = types.SimpleNamespace(token_ids=list(rows[b]), prompt_len=prompt_len)
+        notes.append(_first_difference(single, served, torch.bfloat16))
+    return notes
+
+
+def phase_mesh_serving(dev) -> dict:
+    """Phase 10 (see the module docstring): runs `chip_phase10` in a 2-rank
+    gloo world on the card (the kernels built here first), holds the
+    results to their bounds and returns the launches of both ranks,
+    summed."""
+    from deepseek_ocr2_tpu_torch.configs import OCR2Config
+    from deepseek_ocr2_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ocr_cfg = OCR2Config()
+    lm = ocr_cfg.lm
+    rng = np.random.default_rng(SEED + 40)
+    spec = dict(seed=SEED + 40, cfg=lm, ocr_cfg=ocr_cfg, new=32, new_c=24,
+                ids_a=rng.integers(2, lm.vocab_size, (16, 256)),
+                ids_b=rng.integers(2, lm.vocab_size, (1, 256)))
+    kernels = ("moe_gmm", "moe_decode", "flash_attention", "fused_mlp", "moe_q8", "moe_q4", "linear_q8",
+               "linear_q4", "paged_attention")
+    out = launch(chip_phase10, 2, (spec,), device_type="cuda", kernels=kernels)
+    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
+    for launches in [out[f"10a {t}"]["launches"] for t, _, _ in MESH_TIERS] + [out["10b"]["launches"]] + \
+            [out[f"10c {n}"]["launches"] for n in (0, 4)]:
+        for k, per_rank in launches.items():
+            totals[k] += sum(per_rank)
+    steps = spec["new"] - 1
+    readings = []
+    for tag, scope, bits in MESH_TIERS:
+        r = out[f"10a {tag}"]
+        want = quant_mesh_launches(lm, scope, bits, 16, steps, 16 * 256)
+        bad = {k: v for k, v in r["launches"].items() if any(n != want.get(k, 0) for n in v)}
+        notes, prof = r["notes"], r["profile"]
+        fault_step = "-" if r["fault_step_rel"] is None else f"{r['fault_step_rel']:.3e}"
+        print(f"[mesh-q] 10a {tag} (1, 2), 16 x 256 prompts, {spec['new']} tokens: {sum(not n for n in notes)} of 16 "
+              f"rows equal to (1, 1)'s; {[n for n in notes if n]}")
+        print(f"[mesh-q] 10a {tag}: prefill logits {r['prefill_rel']:.3e} of the largest against (1, 1), first "
+              f"decode step {r['step_rel']:.3e} (routing replayed; rows whose own routing differs {r['flips']}); "
+              f"planted faults: a dropped partial in the prefill {r['fault_prefill_rel']:.3e}, the pseudo-experts "
+              f"folded on both ranks {fault_step}; "
+              f"bound {MESH_Q_LOGITS_RTOL}")
+        print(f"[mesh-q] 10a {tag}: a rank's launches { {k: v for k, v in r['launches'].items() if any(v)} }; peak "
+              f"memory a rank {[round(v, 2) for v in r['peak_gib']]} GiB; prefill {r['prefill_s'] * 1e3:.0f} ms, "
+              f"decode {r['decode_s'] * 1e3:.0f} ms for {steps} steps ({r['decode_s'] * 1e3 / steps:.1f} ms a step "
+              f"of 16 tokens); one decode step on rank 0: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_ms']:.2f} ms ({prof['device_ms'] / 16:.3f} ms a token), collectives "
+              f"{prof['collective_ms']:.1f} of {prof['timed_wall_ms']:.1f} ms in {prof['calls']} calls, "
+              f"{prof['mib']:.1f} MiB ({prof['share']:.3f} of the step); {r['seconds']:.1f} s")
+        readings.append((tag, r["prefill_rel"], r["step_rel"], r["fault_prefill_rel"], r["fault_step_rel"]))
+        if bad:
+            raise AssertionError(f"10a {tag}: launches {bad}, expected a rank {want}")
+        if not (r["prefill_rel"] <= MESH_Q_LOGITS_RTOL < r["fault_prefill_rel"] and r["step_rel"] <= MESH_Q_LOGITS_RTOL
+                and (r["fault_step_rel"] is None or r["fault_step_rel"] > MESH_Q_LOGITS_RTOL)):
+            raise AssertionError(f"10a {tag} logits against (1, 1): {readings[-1]}, bound {MESH_Q_LOGITS_RTOL}")
+    b = out["10b"]
+    want = quant_mesh_launches(lm, "full", 8, 1, steps, 256)
+    bad = {k: v for k, v in b["launches"].items() if any(n != want.get(k, 0) for n in v)}
+    notes = b["notes"]
+    print(f"[mesh-q] 10b latency mode int8 (1, 2), one prompt of 256, {spec['new']} tokens: "
+          f"{'equal to (1, 1)' if not notes[0] else notes[0]}; prefill logits {b['prefill_rel']:.3e}, first step "
+          f"{b['step_rel']:.3e} of the largest; decode {b['decode_s'] * 1e3 / steps:.2f} ms a token; peak memory a "
+          f"rank {[round(v, 2) for v in b['peak_gib']]} GiB; launches a rank "
+          f"{ {k: v for k, v in b['launches'].items() if any(v)} }")
+    if bad or b["prefill_rel"] > MESH_Q_LOGITS_RTOL or b["step_rel"] > MESH_Q_LOGITS_RTOL:
+        raise AssertionError(f"10b: launches {bad} (expected {want}), logits {b['prefill_rel']}, {b['step_rel']}")
+    for lookup in (0, 4):
+        c = out[f"10c {lookup}"]
+        notes, same_plain = c["notes"], c["same_plain"]
+        print(f"[mesh-q] 10c continuous engine, bf16 LM at (1, 2), bf16 pool, lookup {lookup}, 8 pages (one (2, 1) "
+              f"crop), 16 slots: {sum(not n for n in notes)} of 8 pages equal to unsharded single pages "
+              f"{[n for n in notes if n]}, {same_plain} of 8 to the unsharded engine; {c['seconds']:.1f} s; "
+              f"launches a rank { {k: v for k, v in c['launches'].items() if any(v)} }")
+        need = "ABCDEF" + ("Q" if lookup else "G")  # a lookup chunk attends through Q, not G
+        if any(min(c["launches"][k]) < 1 for k in need):
+            raise AssertionError(f"10c lookup {lookup}: a kernel of {need} did not launch on a rank: {c['launches']}")
+    print(f"[mesh-q] phase 10: {time.perf_counter() - t0:.1f} s (10a+10b {out['_phase10ab seconds']:.1f}, "
+          f"10c {out['_phase10c seconds']:.1f})")
+    return totals
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -4093,6 +4628,7 @@ def main() -> int:
     ocr_train_launches = phase_train_ocr(dev, smi)
     phase_train_ocr_card_vs_cpu(dev)
     mesh_launches = phase_multi_gpu(dev)
+    mesh_serve_launches = phase_mesh_serving(dev)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
@@ -4102,12 +4638,13 @@ def main() -> int:
     # (phase 6, and 6b, 6c and, on the quantized pools, 6d, with lookup
     # decoding 6e), the two switched paths (phase 4e) and fine-tuning
     # (phase 8) and through the vision towers (phase 8d), and on a mesh
-    # (phase 9, every rank's launches summed); each was driven
+    # (phase 9, and the sharded quantized and serving paths of phase 10,
+    # every rank's launches summed); each was driven
     # with the counts at 0 and read after. W
     # and X run on no path (the JAX package calls neither): 0 launches.
     runs = (main_launches, int8_launches, int4_launches, lookup_launches, resize_launches, validate_launches,
             serve_launches, serve_quant_launches, switched_launches, serve_kv_launches, serve_lookup_launches,
-            train_launches, ocr_train_launches, mesh_launches)
+            train_launches, ocr_train_launches, mesh_launches, mesh_serve_launches)
     launches = {k: sum(r[k] for r in runs) for k in main_launches}
     meta = {
         "A": ("flash_attention.mha causal (LM prefill)", "deepseek_ocr2_tpu/ops/flash_attention.py:54"),

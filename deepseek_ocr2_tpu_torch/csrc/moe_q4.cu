@@ -89,7 +89,16 @@
 //   (not at places in the visit list), and a visit the row did not select
 //   adds nothing.
 //
-// Shapes of the stream: bf16 x and out, H and I multiples of 128, H <= 1280
+// Expert parallelism (ops/moe.local_routing: another rank's selection has
+// the id E and weight 0). N: the schedule lists only the rank's experts, so
+// a pad visit is neither read nor added, and a batch with no local
+// selection writes zeros. M: such a selection is a unit with no work in
+// gate/up (its ring slot passes without a copy) and a visit with no work
+// in down, left out of the row's sum. Both write out in bf16 or, with
+// out_f32, the rank's partial in f32 unrounded (summed over the ranks
+// before one rounding).
+//
+// Shapes of the stream: bf16 x, bf16 or f32 out, H and I multiples of 128, H <= 1280
 // (a gate/up compute warp for each group of H), 16-byte aligned codes and
 // scales (the wrapper checks them; ops/moe_q4.moe_ffn_decode_q4_fused
 // dispatches by dtype and shape).
@@ -424,12 +433,12 @@ struct DnLayout {
 // the consumers keep their sums in registers, write the part's sums to yw
 // [P, nb, H] f32, and the last block of the tile to arrive (counters[tile])
 // adds the P sums in part order into out [nb, H]. w_visit rows ldw apart;
-// act [nv + n_sh, ROWS, I + ACT_PAD].
-template <int MT>
+// act [nv + n_sh, ROWS, I + ACT_PAD]; out in TO (bf16, or f32 unrounded).
+template <int MT, typename TO>
 __global__ void __launch_bounds__(32 * (DN_MAX_WARPS + 1), 1)
     down_q4_kernel(const bf16* __restrict__ act, Streams w, const int* __restrict__ ve, const int* __restrict__ valid,
                    const float* __restrict__ w_visit, int ldw, float* __restrict__ yw, int* __restrict__ counters,
-                   bf16* __restrict__ out, int nb, int n_exp, int n_sh, int h_dim, int i_dim) {
+                   TO* __restrict__ out, int nb, int n_exp, int n_sh, int h_dim, int i_dim) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int merger;
   const int nw = blockDim.x / 32 - 1;
@@ -585,29 +594,49 @@ __global__ void __launch_bounds__(32 * (DN_MAX_WARPS + 1), 1)
       s0 += v.x;
       s1 += v.y;
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * h_dim + col) = __floats2bfloat162_rn(s0, s1);
+    if constexpr (sizeof(TO) == 4) {
+      *reinterpret_cast<float2*>(out + (size_t)r * h_dim + col) = make_float2(s0, s1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * h_dim + col) = __floats2bfloat162_rn(s0, s1);
+    }
   }
   if (threadIdx.x == 0) counters[tile] = 0;  // ready for the next launch (and a graph's next replay)
 }
 
-template <int MT>
+template <int MT, typename TO>
 int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid, const float* w_visit, int ldw,
-                bf16* act, float* yw, int* counters, bf16* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim,
+                bf16* act, float* yw, int* counters, TO* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim,
                 int dn_warps, int parts, cudaStream_t s) {
   const GuLayout<MT> gl(h_dim);
   const DnLayout<MT> dl(i_dim, dn_warps);
   if (gl.stages < 2 || dl.stages < 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gu_q4_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gl.smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(down_q4_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
+  err = cudaFuncSetAttribute(down_q4_kernel<MT, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
   if (err != cudaSuccess) return (int)err;
   gu_q4_kernel<MT><<<q4::sm_count(), 32 * (gl.warps + GU_RED + 1), gl.smem, s>>>(x, w, ve, valid, act, nb, n_exp, n_sh,
                                                                         h_dim, i_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_q4_kernel<MT><<<dim3(h_dim / (8 * dn_warps), parts), 32 * (dn_warps + 1), dl.smem, s>>>(
+  down_q4_kernel<MT, TO><<<dim3(h_dim / (8 * dn_warps), parts), 32 * (dn_warps + 1), dl.smem, s>>>(
       act, w, ve, valid, w_visit, ldw, yw, counters, out, nb, n_exp, n_sh, h_dim, i_dim);
   return (int)cudaGetLastError();
+}
+
+// Groups of up to 32 rows, each its own launch pair on the same workspaces
+// (stream order keeps them apart).
+template <typename TO>
+int launch_groups(const bf16* x, const Streams& w, const int* ve, const int* valid, const float* w_visit, bf16* act,
+                  float* yw, int* counters, TO* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim, int dn_warps,
+                  int parts, cudaStream_t s) {
+  for (int b0 = 0; b0 < nb; b0 += ROWS) {
+    const int rows = min(ROWS, nb - b0);
+    const auto launch = rows <= 16 ? launch_rows<1, TO> : launch_rows<2, TO>;
+    const int err = launch(x + (size_t)b0 * h_dim, w, ve, valid, w_visit + b0, nb, act, yw, counters,
+                           out + (size_t)b0 * h_dim, rows, n_exp, n_sh, h_dim, i_dim, dn_warps, parts, s);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -634,9 +663,14 @@ static_assert(SD_MAX_STAGES % SD_WARPS == 0, "down: a ring slot belongs to one c
 // bits 0 and 1 of the position swapped (frag_order's order).
 __host__ __device__ __forceinline__ int pair_slot(int i) { return (i & ~3) | ((i & 1) << 1) | ((i >> 1) & 1); }
 
+// Visit v's expert: selection j < k of its row, pseudo-expert j - k (id E +
+// j - k) after; -1 for a selection of another rank's expert (id >= E), a
+// visit with no work.
 __device__ __forceinline__ int sel_expert(const long long* idx, int v, int k, int kv, int ld, int n_exp) {
   const int b = v / kv, j = v - b * kv;
-  return j < k ? (int)idx[(size_t)b * ld + j] : n_exp + j - k;
+  if (j >= k) return n_exp + j - k;
+  const long long e = idx[(size_t)b * ld + j];
+  return e >= n_exp ? -1 : (int)e;
 }
 
 // Gate/up: x rows [nb][H] in fragment order, then the ring. A stage is one
@@ -702,17 +736,21 @@ __global__ void __launch_bounds__(32 * (SEL_WARPS + 1), 1)
       if (lane == 0) {
         const int i0 = SEL_COLS * (u % n_ct), slot = j % lay.stages;
         sm90::mbar_wait(&empty[slot], ((j / lay.stages) & 1) ^ 1);  // a fresh slot passes at once
-        const bool pe = e >= n_exp;
-        const size_t row0 = (size_t)(pe ? e - n_exp : e) * 2 * i_dim;
-        const uint8_t* codes = pe ? w.pgu : w.gu;
-        const float* scales = pe ? w.pgus : w.gus;
-        unsigned char* dst = smem + lay.x_bytes + slot * lay.stage_bytes;
-        sm90::mbar_arrive_expect_tx(&full[slot], 2 * SEL_COLS * (rb + ng * 4));
-        sm90::bulk_load(dst, codes + (row0 + i0) * rb, SEL_COLS * rb, &full[slot]);
-        sm90::bulk_load(dst + SEL_COLS * rb, codes + (row0 + i_dim + i0) * rb, SEL_COLS * rb, &full[slot]);
-        sm90::bulk_load(dst + 2 * SEL_COLS * rb, scales + (row0 + i0) * ng, SEL_COLS * ng * 4, &full[slot]);
-        sm90::bulk_load(dst + 2 * SEL_COLS * rb + SEL_COLS * ng * 4, scales + (row0 + i_dim + i0) * ng,
-                        SEL_COLS * ng * 4, &full[slot]);
+        if (e < 0) {  // no work: the slot passes with no bytes
+          sm90::mbar_arrive(&full[slot]);
+        } else {
+          const bool pe = e >= n_exp;
+          const size_t row0 = (size_t)(pe ? e - n_exp : e) * 2 * i_dim;
+          const uint8_t* codes = pe ? w.pgu : w.gu;
+          const float* scales = pe ? w.pgus : w.gus;
+          unsigned char* dst = smem + lay.x_bytes + slot * lay.stage_bytes;
+          sm90::mbar_arrive_expect_tx(&full[slot], 2 * SEL_COLS * (rb + ng * 4));
+          sm90::bulk_load(dst, codes + (row0 + i0) * rb, SEL_COLS * rb, &full[slot]);
+          sm90::bulk_load(dst + SEL_COLS * rb, codes + (row0 + i_dim + i0) * rb, SEL_COLS * rb, &full[slot]);
+          sm90::bulk_load(dst + 2 * SEL_COLS * rb, scales + (row0 + i0) * ng, SEL_COLS * ng * 4, &full[slot]);
+          sm90::bulk_load(dst + 2 * SEL_COLS * rb + SEL_COLS * ng * 4, scales + (row0 + i_dim + i0) * ng,
+                          SEL_COLS * ng * 4, &full[slot]);
+        }
       }
       __syncwarp();
     }
@@ -730,20 +768,23 @@ __global__ void __launch_bounds__(32 * (SEL_WARPS + 1), 1)
     const int slot = j % lay.stages;
     const int v = u / n_ct, i0 = SEL_COLS * (u - v * n_ct);
     const bf16* xrow = g == 0 ? xs + (size_t)(v / kv) * h_dim : nullptr;  // B's column 0: the visit's row
+    const bool work = sel_expert(idx, v, k, kv, ld, n_exp) >= 0;  // warp-uniform
     sm90::mbar_wait(&full[slot], (j / lay.stages) & 1);
     const unsigned char* st = smem + lay.x_bytes + slot * lay.stage_bytes;
     const float* sc = reinterpret_cast<const float*>(st + 2 * SEL_COLS * rb);
     float gate = 0.f, up = 0.f;
+    if (work) {
 #pragma unroll 2
-    for (int grp = 0; grp < ng; ++grp) {  // unrolled: two groups' products in flight, summed in order
-      float part[4];
-      q4::stream_item_mma(st + GB * grp, rb, xrow ? xrow + GROUP * grp : nullptr, part);
-      gate += part[0] * sc[g * ng + grp];
-      up += part[2] * sc[(SEL_COLS + g) * ng + grp];
+      for (int grp = 0; grp < ng; ++grp) {  // unrolled: two groups' products in flight, summed in order
+        float part[4];
+        q4::stream_item_mma(st + GB * grp, rb, xrow ? xrow + GROUP * grp : nullptr, part);
+        gate += part[0] * sc[g * ng + grp];
+        up += part[2] * sc[(SEL_COLS + g) * ng + grp];
+      }
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[slot]);  // the stage is read: refill it
-    if (qd == 0) act[(size_t)v * i_dim + pair_slot(i0 + g)] = __float2bfloat16_rn(silu(gate) * up);
+    if (work && qd == 0) act[(size_t)v * i_dim + pair_slot(i0 + g)] = __float2bfloat16_rn(silu(gate) * up);
   }
 }
 
@@ -774,10 +815,12 @@ struct SelDnLayout {
 // SD_WARPS, ...: the 16 code rows as A, the visit's act row as B's column
 // 0, y = sum_g s_g (act_g . down_g) in group order, y * w to yw[j]. Then
 // the block's first 16 threads add the visits' y w in visit order (top-k
-// order, then the pseudo-experts) from 0 in f32 and round once.
+// order, then the pseudo-experts; a visit with no work left out) from 0 in
+// f32 and write the sum in TO (bf16, rounded once, or f32).
+template <typename TO>
 __global__ void __launch_bounds__(32 * (SD_WARPS + 1))
     sel_down_q4_kernel(const bf16* __restrict__ act, Streams w, const long long* __restrict__ idx,
-                       const float* __restrict__ wts, bf16* __restrict__ out, int n_exp, int k, int ld, int n_sh,
+                       const float* __restrict__ wts, TO* __restrict__ out, int n_exp, int k, int ld, int n_sh,
                        int h_dim, int i_dim) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kv = k + n_sh;
@@ -813,12 +856,16 @@ __global__ void __launch_bounds__(32 * (SD_WARPS + 1))
         if (j == lay.stages) load_act();  // the ring is full: the act rows before its next stage
         const int slot = j % lay.stages;
         sm90::mbar_wait(&empty[slot], ((j / lay.stages) & 1) ^ 1);
-        const bool pe = e >= n_exp;
-        const size_t row0 = (size_t)(pe ? e - n_exp : e) * h_dim + h0;
-        unsigned char* dst = smem + lay.act_bytes + slot * lay.stage_bytes;
-        sm90::mbar_arrive_expect_tx(&full[slot], SD_ROWS * (rb + ng * 4));
-        sm90::bulk_load(dst, (pe ? w.pdown : w.down) + row0 * rb, SD_ROWS * rb, &full[slot]);
-        sm90::bulk_load(dst + SD_ROWS * rb, (pe ? w.pds : w.ds) + row0 * ng, SD_ROWS * ng * 4, &full[slot]);
+        if (e < 0) {  // no work: the slot passes with no bytes
+          sm90::mbar_arrive(&full[slot]);
+        } else {
+          const bool pe = e >= n_exp;
+          const size_t row0 = (size_t)(pe ? e - n_exp : e) * h_dim + h0;
+          unsigned char* dst = smem + lay.act_bytes + slot * lay.stage_bytes;
+          sm90::mbar_arrive_expect_tx(&full[slot], SD_ROWS * (rb + ng * 4));
+          sm90::bulk_load(dst, (pe ? w.pdown : w.down) + row0 * rb, SD_ROWS * rb, &full[slot]);
+          sm90::bulk_load(dst + SD_ROWS * rb, (pe ? w.pds : w.ds) + row0 * ng, SD_ROWS * ng * 4, &full[slot]);
+        }
       }
       __syncwarp();
     }
@@ -831,22 +878,25 @@ __global__ void __launch_bounds__(32 * (SD_WARPS + 1))
   sm90::mbar_wait(act_bar, 0);
   for (int j = warp; j < kv; j += SD_WARPS) {
     const float wt = j < k ? __ldg(wts + (size_t)b * ld + j) : 1.f;
+    const bool work = sel_expert(idx, b * kv + j, k, kv, ld, n_exp) >= 0;  // warp-uniform
     const int slot = j % lay.stages;
     sm90::mbar_wait(&full[slot], (j / lay.stages) & 1);
     const unsigned char* st = smem + lay.act_bytes + slot * lay.stage_bytes;
     const float* sc = reinterpret_cast<const float*>(st + SD_ROWS * rb);
     const bf16* arow = g == 0 ? as + (size_t)j * i_dim : nullptr;
     float y0 = 0.f, y1 = 0.f;
+    if (work) {
 #pragma unroll 2
-    for (int grp = 0; grp < ng; ++grp) {
-      float part[4];
-      q4::stream_item_mma(st + GB * grp, rb, arow ? arow + GROUP * grp : nullptr, part);
-      y0 += part[0] * sc[g * ng + grp];
-      y1 += part[2] * sc[(g + 8) * ng + grp];
+      for (int grp = 0; grp < ng; ++grp) {
+        float part[4];
+        q4::stream_item_mma(st + GB * grp, rb, arow ? arow + GROUP * grp : nullptr, part);
+        y0 += part[0] * sc[g * ng + grp];
+        y1 += part[2] * sc[(g + 8) * ng + grp];
+      }
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[slot]);
-    if (qd == 0) {
+    if (work && qd == 0) {
       yw[j * SD_ROWS + g] = y0 * wt;
       yw[j * SD_ROWS + g + 8] = y1 * wt;
     }
@@ -854,12 +904,15 @@ __global__ void __launch_bounds__(32 * (SD_WARPS + 1))
   sm90::bar_sync(1, 32 * SD_WARPS);
   if (threadIdx.x < SD_ROWS) {
     float o = 0.f;
-    for (int j = 0; j < kv; ++j) o += yw[j * SD_ROWS + threadIdx.x];
-    out[(size_t)b * h_dim + h0 + threadIdx.x] = __float2bfloat16_rn(o);
+    for (int j = 0; j < kv; ++j) {
+      if (sel_expert(idx, b * kv + j, k, kv, ld, n_exp) >= 0) o += yw[j * SD_ROWS + threadIdx.x];
+    }
+    out[(size_t)b * h_dim + h0 + threadIdx.x] = gemv::from_f32<TO>(o);
   }
 }
 
-int launch_sel(const bf16* x, const Streams& w, const long long* idx, const float* wts, bf16* act, bf16* out, int nb,
+template <typename TO>
+int launch_sel(const bf16* x, const Streams& w, const long long* idx, const float* wts, bf16* act, TO* out, int nb,
                int n_exp, int k, int ld, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
   const int kv = k + n_sh;
   const SelGuLayout gl(h_dim, nb);
@@ -871,9 +924,9 @@ int launch_sel(const bf16* x, const Streams& w, const long long* idx, const floa
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(sel_gu_q4_kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sel_down_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
+    err = cudaFuncSetAttribute(sel_down_q4_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sel_down_q4_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(sel_down_q4_kernel<TO>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int n_units = nb * kv * (i_dim / SEL_COLS);
@@ -891,7 +944,7 @@ int launch_sel(const bf16* x, const Streams& w, const long long* idx, const floa
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sel_down_q4_kernel, static_cast<const bf16*>(act), w, idx, wts, out, n_exp, k, ld,
+  err = cudaLaunchKernelEx(&cfg, sel_down_q4_kernel<TO>, static_cast<const bf16*>(act), w, idx, wts, out, n_exp, k, ld,
                            n_sh, h_dim, i_dim);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -905,15 +958,14 @@ int launch_sel(const bf16* x, const Streams& w, const long long* idx, const floa
 // and w_visit f32 [E, B] from the schedule; act: a workspace [E + n_sh, 32,
 // I + 32] bf16; yw: a workspace [parts, min(B, 32), H] f32; counters:
 // [H / (8 dn_warps)] int32, zero before the call and left zero after it;
-// out [B, H] bf16. down's tiles are 8 dn_warps columns of H (1 <= dn_warps
-// <= 10, H a multiple of 8 dn_warps), its visits cut into `parts` parts at
-// fixed ids. Groups of up to 32 rows, each its own launch pair on the same
-// workspaces (stream order keeps them apart).
+// out [B, H] bf16, or f32 when out_f32. down's tiles are 8 dn_warps
+// columns of H (1 <= dn_warps <= 10, H a multiple of 8 dn_warps), its
+// visits cut into `parts` parts at fixed ids. Groups of up to 32 rows.
 extern "C" int moe_q4_stream_bf16(const void* x, const void* gu, const void* gus, const void* down, const void* ds,
                                   const void* pgu, const void* pgus, const void* pdown, const void* pds,
                                   const void* ve, const void* valid, const void* w_visit, void* act, void* yw,
                                   void* counters, void* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim,
-                                  int dn_warps, int parts, void* stream) {
+                                  int dn_warps, int parts, int out_f32, void* stream) {
   if (nb <= 0 || n_exp <= 0 || n_sh < 0 || h_dim <= 0 || i_dim <= 0 || h_dim % GROUP || i_dim % GROUP ||
       h_dim > GROUP * GU_MAX_WARPS || dn_warps < 1 || dn_warps > DN_MAX_WARPS || h_dim % (8 * dn_warps) ||
       parts < 1 || parts > 65535 || (n_sh > 0 && (!pgu || !pgus || !pdown || !pds))) {
@@ -923,31 +975,32 @@ extern "C" int moe_q4_stream_bf16(const void* x, const void* gu, const void* gus
                   static_cast<const float*>(ds),    static_cast<const uint8_t*>(pgu), static_cast<const float*>(pgus),
                   static_cast<const uint8_t*>(pdown), static_cast<const float*>(pds)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int b0 = 0; b0 < nb; b0 += ROWS) {
-    const int rows = min(ROWS, nb - b0);
-    const bf16* xg = static_cast<const bf16*>(x) + (size_t)b0 * h_dim;
-    bf16* og = static_cast<bf16*>(out) + (size_t)b0 * h_dim;
-    const float* wv = static_cast<const float*>(w_visit) + b0;
-    const auto launch = rows <= 16 ? launch_rows<1> : launch_rows<2>;
-    const int err = launch(xg, w, static_cast<const int*>(ve), static_cast<const int*>(valid), wv, nb,
-                           static_cast<bf16*>(act), static_cast<float*>(yw), static_cast<int*>(counters), og, rows,
-                           n_exp, n_sh, h_dim, i_dim, dn_warps, parts, s);
-    if (err != 0) return err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int* v = static_cast<const int*>(ve);
+  const int* vd = static_cast<const int*>(valid);
+  const float* wv = static_cast<const float*>(w_visit);
+  bf16* a = static_cast<bf16*>(act);
+  float* y = static_cast<float*>(yw);
+  int* c = static_cast<int*>(counters);
+  if (out_f32) {
+    return launch_groups(xb, w, v, vd, wv, a, y, c, static_cast<float*>(out), nb, n_exp, n_sh, h_dim, i_dim,
+                         dn_warps, parts, s);
   }
-  return 0;
+  return launch_groups(xb, w, v, vd, wv, a, y, c, static_cast<bf16*>(out), nb, n_exp, n_sh, h_dim, i_dim, dn_warps,
+                       parts, s);
 }
 
 // Kernel M with bf16 x on the stream (see the header). x [B, H] bf16; gu /
 // gus / down / ds the routed experts and pgu / pgus / pdown / pds the n_sh
 // pseudo-experts (null when n_sh = 0) in moe_quant.cuh's Q4 layout; idx
 // int64 and wts f32 [B, k], rows ld apart; act: a workspace [B (k + n_sh),
-// I] bf16; out [B, H] bf16. Shapes: H and I multiples of 128, B H <= 16 *
-// 1280, (k + n_sh) I <= 32 * 1024, room for x and 8 stages in gate/up's
-// shared memory.
+// I] bf16; out [B, H] bf16, or f32 when out_f32. Shapes: H and I multiples
+// of 128, B H <= 16 * 1280, (k + n_sh) I <= 32 * 1024, room for x and 8
+// stages in gate/up's shared memory.
 extern "C" int moe_q4_sel_bf16(const void* x, const void* gu, const void* gus, const void* down, const void* ds,
                                const void* pgu, const void* pgus, const void* pdown, const void* pds, const void* idx,
                                const void* wts, void* act, void* out, int nb, int n_exp, int k, int ld, int n_sh,
-                               int h_dim, int i_dim, void* stream) {
+                               int h_dim, int i_dim, int out_f32, void* stream) {
   if (nb <= 0 || n_exp <= 0 || k <= 0 || ld < k || n_sh < 0 || h_dim <= 0 || i_dim <= 0 || h_dim % GROUP ||
       i_dim % GROUP || nb * h_dim > SEL_MAX_X || (k + n_sh) * i_dim > SEL_MAX_ACT ||
       (n_sh > 0 && (!pgu || !pgus || !pdown || !pds))) {
@@ -956,7 +1009,11 @@ extern "C" int moe_q4_sel_bf16(const void* x, const void* gu, const void* gus, c
   const Streams w{static_cast<const uint8_t*>(gu),  static_cast<const float*>(gus), static_cast<const uint8_t*>(down),
                   static_cast<const float*>(ds),    static_cast<const uint8_t*>(pgu), static_cast<const float*>(pgus),
                   static_cast<const uint8_t*>(pdown), static_cast<const float*>(pds)};
-  return launch_sel(static_cast<const bf16*>(x), w, static_cast<const long long*>(idx), static_cast<const float*>(wts),
-                    static_cast<bf16*>(act), static_cast<bf16*>(out), nb, n_exp, k, ld, n_sh, h_dim, i_dim,
-                    static_cast<cudaStream_t>(stream));
+  const bf16* xb = static_cast<const bf16*>(x);
+  const long long* ix = static_cast<const long long*>(idx);
+  const float* wt = static_cast<const float*>(wts);
+  bf16* a = static_cast<bf16*>(act);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_f32) return launch_sel(xb, w, ix, wt, a, static_cast<float*>(out), nb, n_exp, k, ld, n_sh, h_dim, i_dim, s);
+  return launch_sel(xb, w, ix, wt, a, static_cast<bf16*>(out), nb, n_exp, k, ld, n_sh, h_dim, i_dim, s);
 }

@@ -80,7 +80,12 @@
 //   and the visit order are fixed, and a visit the row did not select adds
 //   nothing.
 //
-// Shapes of the stream: bf16 x and out, H and I multiples of 64, H <= 1536
+// Under expert parallelism (ops/moe.local_routing) the schedule lists only
+// the rank's own experts, so a pad visit is neither read nor added, a batch
+// with no local selection writes zeros, and out may be f32 (out_f32: the
+// rank's partial unrounded, summed over the ranks before one rounding).
+//
+// Shapes of the stream: bf16 x, bf16 or f32 out, H and I multiples of 64, H <= 1536
 // (x's fragments in registers: 3 chunks a warp), 16-byte aligned codes and
 // scales (the wrapper checks them; ops/moe_decode.moe_ffn_decode_q8_fused
 // dispatches by dtype and shape).
@@ -355,10 +360,11 @@ struct DnLayout {
 // row with weight 1), a stage a part; the consumers take the stages in
 // order until the end mark. The products: the tile's 16 code rows as A
 // (m16), the part's act rows as B (n8). w_visit rows ldw apart; act [nv +
-// n_sh, nb, I].
+// n_sh, nb, I]; out in TO (bf16, or f32 unrounded).
+template <typename TO>
 __global__ void __launch_bounds__(32 * (DN_WARPS + 1), 1)
     down_q8_kernel(const bf16* __restrict__ act, Streams w, const int* __restrict__ ve, const int* __restrict__ valid,
-                   const float* __restrict__ w_visit, int ldw, bf16* __restrict__ out, int nb, int n_exp, int n_sh,
+                   const float* __restrict__ w_visit, int ldw, TO* __restrict__ out, int nb, int n_exp, int n_sh,
                    int h_dim, int i_dim) {
   extern __shared__ __align__(128) unsigned char smem[];
   const DnLayout lay(i_dim);
@@ -488,28 +494,47 @@ __global__ void __launch_bounds__(32 * (DN_WARPS + 1), 1)
   sm90::bar_sync(1, 32 * DN_WARPS);
   for (int i = u; i < nb * DN_COLS / 2; i += 32 * DN_WARPS) {
     const int row = i / (DN_COLS / 2), col = 2 * (i % (DN_COLS / 2));
-    const __nv_bfloat162 pair = __floats2bfloat162_rn(out_s[row * DN_COLS + col], out_s[row * DN_COLS + col + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * h_dim + h0 + col) = pair;
+    const float s0 = out_s[row * DN_COLS + col], s1 = out_s[row * DN_COLS + col + 1];
+    if constexpr (sizeof(TO) == 4) {
+      *reinterpret_cast<float2*>(out + (size_t)row * h_dim + h0 + col) = make_float2(s0, s1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * h_dim + h0 + col) = __floats2bfloat162_rn(s0, s1);
+    }
   }
 }
 
-template <int MT>
+template <int MT, typename TO>
 int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid, const float* w_visit, int ldw,
-                bf16* act, bf16* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
+                bf16* act, TO* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
   const GuLayout<MT> gl(h_dim);
   const DnLayout dl(i_dim);
   if (gl.stages < 2 || dl.stages < 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gu_q8_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gl.smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(down_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
+  err = cudaFuncSetAttribute(down_q8_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dl.smem);
   if (err != cudaSuccess) return (int)err;
   gu_q8_kernel<MT><<<q4::sm_count(), 32 * (GU_WARPS + 1), gl.smem, s>>>(x, w, ve, valid, act, nb, n_exp, n_sh, h_dim,
                                                                       i_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  down_q8_kernel<<<h_dim / DN_COLS, 32 * (DN_WARPS + 1), dl.smem, s>>>(act, w, ve, valid, w_visit, ldw, out, nb,
-                                                                        n_exp, n_sh, h_dim, i_dim);
+  down_q8_kernel<TO><<<h_dim / DN_COLS, 32 * (DN_WARPS + 1), dl.smem, s>>>(act, w, ve, valid, w_visit, ldw, out, nb,
+                                                                            n_exp, n_sh, h_dim, i_dim);
   return (int)cudaGetLastError();
+}
+
+// Groups of up to 32 rows, each its own launch pair on the same act (stream
+// order keeps them apart).
+template <typename TO>
+int launch_groups(const bf16* x, const Streams& w, const int* ve, const int* valid, const float* w_visit, bf16* act,
+                  TO* out, int nb, int n_exp, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
+  for (int b0 = 0; b0 < nb; b0 += ROWS) {
+    const int rows = min(ROWS, nb - b0);
+    const auto launch = rows <= 16 ? launch_rows<1, TO> : launch_rows<2, TO>;
+    const int err = launch(x + (size_t)b0 * h_dim, w, ve, valid, w_visit + b0, nb, act, out + (size_t)b0 * h_dim,
+                           rows, n_exp, n_sh, h_dim, i_dim, s);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -518,12 +543,13 @@ int launch_rows(const bf16* x, const Streams& w, const int* ve, const int* valid
 // the routed experts and pgu / pgus / pdown / pds the n_sh pseudo-experts
 // (null when n_sh = 0) in moe_quant.cuh's layout; ve / valid int32 [E] and
 // w_visit f32 [E, B] from the schedule; act: the workspace, [E + n_sh,
-// min(B, 32), I] bf16; out [B, H] bf16. Groups of up to 32 rows, each its
-// own launch pair on the same act (stream order keeps them apart).
+// min(B, 32), I] bf16; out [B, H] bf16, or f32 when out_f32. Groups of up
+// to 32 rows, each its own launch pair on the same act (stream order keeps
+// them apart).
 extern "C" int moe_q8_stream_bf16(const void* x, const void* gu, const void* gus, const void* down, const void* ds,
                                   const void* pgu, const void* pgus, const void* pdown, const void* pds,
                                   const void* ve, const void* valid, const void* w_visit, void* act, void* out, int nb,
-                                  int n_exp, int n_sh, int h_dim, int i_dim, void* stream) {
+                                  int n_exp, int n_sh, int h_dim, int i_dim, int out_f32, void* stream) {
   if (nb <= 0 || n_exp <= 0 || n_sh < 0 || h_dim <= 0 || i_dim <= 0 || h_dim % KC || i_dim % KC ||
       h_dim > KC * GU_WARPS * GU_CPW || (n_sh > 0 && (!pgu || !pgus || !pdown || !pds))) {
     return (int)cudaErrorInvalidValue;
@@ -532,15 +558,11 @@ extern "C" int moe_q8_stream_bf16(const void* x, const void* gu, const void* gus
                   static_cast<const float*>(ds),   static_cast<const int8_t*>(pgu), static_cast<const float*>(pgus),
                   static_cast<const int8_t*>(pdown), static_cast<const float*>(pds)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int b0 = 0; b0 < nb; b0 += ROWS) {
-    const int rows = min(ROWS, nb - b0);
-    const bf16* xg = static_cast<const bf16*>(x) + (size_t)b0 * h_dim;
-    bf16* og = static_cast<bf16*>(out) + (size_t)b0 * h_dim;
-    const float* wv = static_cast<const float*>(w_visit) + b0;
-    const auto launch = rows <= 16 ? launch_rows<1> : launch_rows<2>;
-    const int err = launch(xg, w, static_cast<const int*>(ve), static_cast<const int*>(valid), wv, nb,
-                           static_cast<bf16*>(act), og, rows, n_exp, n_sh, h_dim, i_dim, s);
-    if (err != 0) return err;
-  }
-  return 0;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int* v = static_cast<const int*>(ve);
+  const int* vd = static_cast<const int*>(valid);
+  const float* wv = static_cast<const float*>(w_visit);
+  bf16* a = static_cast<bf16*>(act);
+  if (out_f32) return launch_groups(xb, w, v, vd, wv, a, static_cast<float*>(out), nb, n_exp, n_sh, h_dim, i_dim, s);
+  return launch_groups(xb, w, v, vd, wv, a, static_cast<bf16*>(out), nb, n_exp, n_sh, h_dim, i_dim, s);
 }

@@ -17,12 +17,21 @@
 // linear_q4.cuh's layout). The pseudo-experts the same with n_sh in place of
 // E. Expert ids at or above E name pseudo-expert id - E.
 //
+// Under expert parallelism a rank holds E = E_local experts and the router's
+// selections of other ranks' experts carry the id E with weight 0
+// (ops/moe.local_routing). Per selection such a selection is a visit with no
+// work: it reads no expert and adds nothing to its row's sum, so a row with
+// no local selection comes out an exact zero. (The distinct-expert plan
+// never lists it: the schedule gives it no visit.) out is written in T, or
+// in f32 unrounded (out_f32: the rank's partial, summed over the ranks
+// before one rounding).
+//
 // Rounding points, those of the TPU kernels (_q8_kernel, _decode_q8_kernel,
 // _q4_swiglu; round() is to x's type T, identity for f32; every sum in f32):
 //   gate = x . gu[i] scaled,  up = x . gu[I + i] scaled               (f32)
 //   act  = round(silu_f32(gate) * up)
 //   y    = act . down[h] scaled                                        (f32)
-//   out  = round(sum over visits of y * w)
+//   out  = round(sum over visits of y * w)    (not rounded with out_f32)
 // where "scaled" is the dot times the row's scale (int8) or each group's dot
 // times its scale, summed (int4). This differs from kernel F, which rounds
 // gate and up before silu. The sum runs in the TPU grid's order: per
@@ -173,8 +182,15 @@ __device__ __forceinline__ Row<F> down_row(const Experts<F>& w, int ex, int r, i
   return {(pe ? w.pdown : w.down) + row * F::row_bytes(i_dim), (pe ? w.pds : w.ds) + row * F::scales_per_row(i_dim)};
 }
 
-// Visit v of the plan -> (expert id, first row of x), or false for a pad
-// visit of the distinct-expert plan.
+// Whether selection j of row b names another rank's expert (id >= E):
+// a per-selection visit with no work.
+__device__ __forceinline__ bool not_local(const long long* idx, int b, int j, int k, int ld, int n_exp) {
+  return j < k && idx[(size_t)b * ld + j] >= n_exp;
+}
+
+// Visit v of the plan -> (expert id, first row of x), or false for a visit
+// with no work: a pad visit of the distinct-expert plan, or a selection of
+// another rank's expert.
 //   PER_SEL: v = b * kv + j; expert idx[b, j] (row stride ld) for j < k,
 //   else E + j - k.
 //   else: expert ve[v] for a valid v < E, v itself for v >= E.
@@ -183,6 +199,7 @@ __device__ __forceinline__ bool visit(int v, const long long* idx, const int* ve
                                       int ld, int n_exp, int* ex, int* row) {
   if (PER_SEL) {
     const int b = v / kv, j = v % kv;
+    if (not_local(idx, b, j, k, ld, n_exp)) return false;
     *ex = j < k ? (int)idx[(size_t)b * ld + j] : n_exp + j - k;
     *row = b;
     return true;
@@ -361,30 +378,48 @@ __global__ void __launch_bounds__(NT) down_mma_kernel(const __nv_bfloat16* __res
       }
 }
 
-// out[b, h] = round(sum of row b's visits in order): per selection the
-// visits b * kv .. b * kv + kv - 1; distinct experts the valid visits
-// v = 0 .. V - 1.
-template <typename T, bool PER_SEL>
-__global__ void __launch_bounds__(NT) combine_kernel(const float* __restrict__ yw, const int* valid, T* __restrict__ out,
-                                                     int nb, int n_visits, int kv, int n_exp, int h_dim) {
+// out[b, h] = round(sum of row b's visits in order) in TO (T, or f32 for
+// the unrounded sum): per selection the visits b * kv .. b * kv + kv - 1
+// that have work; distinct experts the valid visits v = 0 .. V - 1.
+template <typename TO, bool PER_SEL>
+__global__ void __launch_bounds__(NT) combine_kernel(const float* __restrict__ yw, const long long* sel,
+                                                     const int* valid, TO* __restrict__ out, int nb, int n_visits,
+                                                     int k, int kv, int ld, int n_exp, int h_dim) {
   const int idx = blockIdx.x * NT + threadIdx.x;
   if (idx >= nb * h_dim) return;
   const int b = idx / h_dim, h = idx % h_dim;
   float s = 0.f;
   if (PER_SEL) {
-    for (int j = 0; j < kv; ++j) s += yw[((size_t)b * kv + j) * h_dim + h];
+    for (int j = 0; j < kv; ++j) {
+      if (!not_local(sel, b, j, k, ld, n_exp)) s += yw[((size_t)b * kv + j) * h_dim + h];
+    }
   } else {
     for (int v = 0; v < n_visits; ++v) {
       if (v >= n_exp || valid[v]) s += yw[((size_t)v * nb + b) * h_dim + h];
     }
   }
-  out[idx] = gemv::from_f32<T>(s);
+  out[idx] = gemv::from_f32<TO>(s);
+}
+
+// The combine launch, its output in T or (out_f32) in f32.
+template <typename T, bool PER_SEL>
+cudaError_t launch_combine(const float* yw, const long long* idx, const int* valid, void* out, bool out_f32, int nb,
+                           int n_visits, int k, int kv, int ld, int n_exp, int h_dim, cudaStream_t s) {
+  const int blocks = (nb * h_dim + NT - 1) / NT;
+  if (out_f32) {
+    combine_kernel<float, PER_SEL><<<blocks, NT, 0, s>>>(yw, idx, valid, static_cast<float*>(out), nb, n_visits, k,
+                                                          kv, ld, n_exp, h_dim);
+  } else {
+    combine_kernel<T, PER_SEL><<<blocks, NT, 0, s>>>(yw, idx, valid, static_cast<T*>(out), nb, n_visits, k, kv, ld,
+                                                      n_exp, h_dim);
+  }
+  return cudaGetLastError();
 }
 
 template <typename F, typename T, bool PER_SEL, int RB, int C1, int C2>
 int launch_cfg(const void* x, const Experts<F>& w, const long long* idx, const float* wts, const int* ve,
-               const int* valid, const float* w_visit, void* act, void* yw, void* out, int nb, int k, int ld,
-               int n_sh, int h_dim, int i_dim, cudaStream_t s) {
+               const int* valid, const float* w_visit, void* act, void* yw, void* out, bool out_f32, int nb, int k,
+               int ld, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
   const int kv = k + n_sh;
   const int n_visits = PER_SEL ? nb * kv : w.n_exp + n_sh;
   const int row_tiles = PER_SEL ? 1 : (nb + RB - 1) / RB;
@@ -398,16 +433,13 @@ int launch_cfg(const void* x, const Experts<F>& w, const long long* idx, const f
                                                        static_cast<float*>(yw), nb, k, kv, ld, h_dim, i_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_out = nb * h_dim;
-  combine_kernel<T, PER_SEL><<<(n_out + NT - 1) / NT, NT, 0, s>>>(static_cast<const float*>(yw), valid,
-                                                                  static_cast<T*>(out), nb, n_visits, kv, w.n_exp,
-                                                                  h_dim);
-  return (int)cudaGetLastError();
+  return (int)launch_combine<T, PER_SEL>(static_cast<const float*>(yw), idx, valid, out, out_f32, nb, n_visits, k,
+                                         kv, ld, w.n_exp, h_dim, s);
 }
 
 template <typename F, int NTL>
 int launch_mma(const void* x, const Experts<F>& w, const int* ve, const int* valid, const float* w_visit, void* act,
-               void* yw, void* out, int nb, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
+               void* yw, void* out, bool out_f32, int nb, int n_sh, int h_dim, int i_dim, cudaStream_t s) {
   constexpr int MT = 2;
   const int n_visits = w.n_exp + n_sh;
   const int row_tiles = (nb + 8 * NTL - 1) / (8 * NTL);
@@ -419,16 +451,14 @@ int launch_mma(const void* x, const Experts<F>& w, const int* ve, const int* val
       static_cast<const __nv_bfloat16*>(act), w, ve, valid, w_visit, static_cast<float*>(yw), nb, h_dim, i_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_out = nb * h_dim;
-  combine_kernel<__nv_bfloat16, false><<<(n_out + NT - 1) / NT, NT, 0, s>>>(
-      static_cast<const float*>(yw), valid, static_cast<__nv_bfloat16*>(out), nb, n_visits, 0, w.n_exp, h_dim);
-  return (int)cudaGetLastError();
+  return (int)launch_combine<__nv_bfloat16, false>(static_cast<const float*>(yw), nullptr, valid, out, out_f32, nb,
+                                                   n_visits, 0, 0, 0, w.n_exp, h_dim, s);
 }
 
 template <typename F, typename T>
 int launch(int per_sel, const void* x, const Experts<F>& w, const void* idx, const void* wts, const void* ve,
            const void* valid, const void* w_visit, void* act, void* yw, void* out, int nb, int k, int ld, int n_sh,
-           int h_dim, int i_dim, void* stream) {
+           int h_dim, int i_dim, int out_f32, void* stream) {
   if (nb <= 0 || k <= 0 || ld < k || n_sh < 0 || w.n_exp <= 0 || h_dim % F::KV || i_dim % F::KV || h_dim <= 0 ||
       i_dim <= 0 || (n_sh > 0 && (!w.pgu || !w.pdown))) {
     return (int)cudaErrorInvalidValue;
@@ -442,14 +472,16 @@ int launch(int per_sel, const void* x, const Experts<F>& w, const void* idx, con
   // The distinct-expert plan with bf16 x takes the tensor cores; per-selection
   // visits have one row each.
   if (!per_sel && sizeof(T) == 2 && F::mma_ok(h_dim, i_dim)) {
-#define MOE_QUANT_MMA(NTL) return launch_mma<F, NTL>(x, w, v, vd, wv, act, yw, out, nb, n_sh, h_dim, i_dim, s)
+#define MOE_QUANT_MMA(NTL) \
+  return launch_mma<F, NTL>(x, w, v, vd, wv, act, yw, out, out_f32 != 0, nb, n_sh, h_dim, i_dim, s)
     if (nb <= 8) MOE_QUANT_MMA(1);
     if (nb <= 16) MOE_QUANT_MMA(2);
     MOE_QUANT_MMA(4);
 #undef MOE_QUANT_MMA
   }
 #define MOE_QUANT_LAUNCH(PS, RB, C1, C2) \
-  return launch_cfg<F, T, PS, RB, C1, C2>(x, w, ix, wt, v, vd, wv, act, yw, out, nb, k, ld, n_sh, h_dim, i_dim, s)
+  return launch_cfg<F, T, PS, RB, C1, C2>(x, w, ix, wt, v, vd, wv, act, yw, out, out_f32 != 0, nb, k, ld, n_sh, h_dim, \
+                                          i_dim, s)
   if (per_sel) MOE_QUANT_LAUNCH(true, 1, 4, 4);
   if (nb <= 8) MOE_QUANT_LAUNCH(false, 8, 2, 2);
   if (nb <= 16) MOE_QUANT_LAUNCH(false, 16, 1, 2);
@@ -465,13 +497,13 @@ int launch(int per_sel, const void* x, const Experts<F>& w, const void* idx, con
 // of the router's sorted [B, E] outputs needs no copy); workspaces act
 // [B * (k + n_sh), 1, I] (T) and yw [B * (k + n_sh), 1, H] (f32).
 // per_sel = 0: ve / valid int32 [E], w_visit f32 [E, B]; act [E + n_sh, B, I],
-// yw [E + n_sh, B, H]. out [B, H] in T.
+// yw [E + n_sh, B, H]. out [B, H] in T, or in f32 (unrounded) when out_f32.
 #define MOE_QUANT_ENTRY(NAME, F, T)                                                                            \
   extern "C" int NAME(int per_sel, const void* x, const void* gu, const void* gus, const void* down,            \
                       const void* ds, const void* pgu, const void* pgus, const void* pdown, const void* pds,      \
                       const void* idx, const void* wts, const void* ve, const void* valid, const void* w_visit,    \
                       void* act, void* yw, void* out, int nb, int n_exp, int k, int ld, int n_sh, int h_dim,      \
-                      int i_dim, void* stream) {                                                               \
+                      int i_dim, int out_f32, void* stream) {                                                  \
     using C = F::Code;                                                                                         \
     moe_quant::Experts<F> w{static_cast<const C*>(gu),    static_cast<const float*>(gus),                      \
                             static_cast<const C*>(down),  static_cast<const float*>(ds),                       \
@@ -479,5 +511,5 @@ int launch(int per_sel, const void* x, const Experts<F>& w, const void* idx, con
                             static_cast<const C*>(pdown), static_cast<const float*>(pds),                      \
                             n_exp};                                                                            \
     return moe_quant::launch<F, T>(per_sel, x, w, idx, wts, ve, valid, w_visit, act, yw, out, nb, k, ld, n_sh, \
-                                   h_dim, i_dim, stream);                                                      \
+                                   h_dim, i_dim, out_f32, stream);                                             \
   }

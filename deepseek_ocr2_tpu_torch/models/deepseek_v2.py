@@ -45,6 +45,39 @@ with the JAX package's dispatch, K or O for the attention block on the
 contiguous cache. Prefill: the linears through `linear_q8_plain` or
 `linear_q4_plain` and each layer's experts dequantized (scale folded before
 the dtype cast, as the JAX package does) into the unquantized MoE forms.
+
+Under a mesh with mp > 1 (`parallel.shard_params`; the layout is
+`parallel.sharding`'s) a layer runs its rank's shards; every partial sum
+stays in f32 until it has been summed over mp (`reduce_from_mp`) and is
+rounded once, as the unsharded product rounds its f32 accumulator once:
+- plain weights: the rank's heads (wq, wk, wv rows), wo's and the MLPs'
+  down partials over the rank's columns (`row_parallel`);
+- int8 linears split their contraction: the rank's columns of x through H
+  (decode) or the prefill form into an f32 partial, summed over mp. After
+  wqkv's sum every rank holds the whole q, k and v and keeps its heads, the
+  ones wo's columns take; a SwiGLU's gu partial is summed before the
+  nonlinearity and the rank's slice of I feeds down's partial: one sum a
+  projection, as the JAX package's GSPMD inserts one psum a projection;
+- int4 linears split their output rows: L (decode) or the prefill form on
+  the rank's rows, gathered over mp (`gather_from_mp`) into the whole
+  output, bit for bit the unsharded product's. wqkv's and gu's cuts need
+  not fall on a q / k / v or gate / up boundary, so the whole output is
+  gathered first and split after; wo takes the whole context, gathered
+  from the ranks' heads; the cache holds the rank's heads in every scope;
+- the routed experts (EP, plain, int8 or int4) run on `local_routing`'s
+  ids, each rank's partial in f32, summed over mp together with a plain or
+  int8 shared MLP's partial in one all-reduce; the shared pseudo-experts
+  are never folded in (they are whole on every rank: the sum over mp would
+  count them once a rank), the shared MLP runs as its split stream;
+- the fused attention kernels K and O are off: before wqkv's sum a rank
+  holds only a partial of q, k and v, and K's in-kernel GEMV has no whole
+  input to take (the JAX package's `fused_attn_enabled` turns them off in
+  any multi-device process). A mesh with mp = 1 (dp only) holds whole
+  weights, so its rows take K and O as the unsharded model does;
+- lm_head's rank rows (plain, or int8 / int4 through H / L in f32) give
+  the rank's slice of the vocabulary, gathered over mp.
+A layer whose weights are in a layout this module was not written for
+raises; no rank ever gathers whole weights.
 """
 
 from __future__ import annotations
@@ -68,11 +101,11 @@ from ..ops.linear_q8 import is_qlinear, qmm, quantize_linear, swiglu_q8
 from ..ops.moe import local_routing, moe_ffn_decode, moe_ffn_prefill, route, swiglu
 from ..ops.moe_decode import moe_ffn_decode_q8_fused
 from ..ops.moe_q4 import dequantize_experts_q4, moe_ffn_decode_q4, moe_ffn_decode_q4_fused, quantize_experts_q4
-from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts
+from ..ops.moe_q8 import moe_ffn_decode_q8, quantize_experts, routed_only
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import decode_attention_stacked
 from ..ops.rope import apply_rope, apply_rope_rows, rope_cache, rope_rows
-from ..parallel.collectives import copy_to_mp, gather_from_mp, reduce_from_mp
+from ..parallel.collectives import copy_to_mp, gather_from_mp, mp_on, reduce_from_mp
 
 Params = Dict[str, Any]
 
@@ -128,7 +161,7 @@ def flat_from_params(
         prefix + "embed_tokens.weight": params["embed"],
         prefix + "norm.weight": params["norm"],
     }
-    if is_qlinear(params["lm_head"]) or any("wqkv" in l or "experts_q8" in l for l in params["layers"]):
+    if is_quantized(params):
         raise ValueError("flat_from_params takes unquantized LM params")
     if lm_head_key:
         flat[lm_head_key] = params["lm_head"]
@@ -219,6 +252,12 @@ def params_from_jax(tree: Params, cfg: DeepseekV2Config, device="cpu") -> Params
     return {"embed": t(tree["embed"]), "layers": layers, "norm": t(tree["norm"]), "lm_head": head}
 
 
+def is_quantized(params: Params) -> bool:
+    """Whether an LM tree holds int8 or int4 weights (`quantize_lm_params`,
+    either scope)."""
+    return is_qlinear(params["lm_head"]) or any("wqkv" in l or "experts_q8" in l for l in params["layers"])
+
+
 def quantize_lm_params(params: Params, scope: str = "experts", bits: int = 8) -> Params:
     """Weight-only int8 or int4 quantization (port of the JAX function; see
     the module docstring for the two scopes). Returns new params; the
@@ -293,20 +332,54 @@ def vocab_size_of(params: Params) -> int:
 
 def _sharded_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """Under a mesh: the rank's vocab slice of the logits, gathered over mp
-    into the whole [..., V] (every mp rank the same values)."""
-    mesh = params["mesh"]
-    return gather_from_mp(F.linear(copy_to_mp(hidden, mesh), params["lm_head"]), mesh)
+    into the whole [..., V] (every mp rank the same values): in the model
+    dtype, or in f32 through kernel H (L) when lm_head is int8 (int4)."""
+    mesh, head = params["mesh"], params["lm_head"]
+    if is_qlinear(head):
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        part = qmm(h2, head, decode=True, out_dtype=torch.float32)
+        return gather_from_mp(part, mesh).reshape(*hidden.shape[:-1], -1)
+    return gather_from_mp(F.linear(copy_to_mp(hidden, mesh), head), mesh)
 
 
 def rope_consts(cfg: DeepseekV2Config, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return rope_cache(cfg.max_position_embeddings, cfg.head_dim, cfg.rope_theta, device=device)
 
 
-def qkv_proj(x2: torch.Tensor, layer, decode: bool):
-    """q, k, v [N, H] each: three linears, or the fused int8 or int4 [3H, H]
-    stream split after the product."""
+def _rank_cols(t: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The rank's n columns of the whole t [N, mp n]."""
+    return t.narrow(-1, mesh.mp_rank * n, n)
+
+
+def _contraction_partial(x: torch.Tensor, w, mesh, decode: bool) -> torch.Tensor:
+    """x [N, In] (whole) times an int8 linear split on its contraction: the
+    rank's columns of x through H (decode) or the prefill form, its f32
+    partial [N, Out], not yet summed over mp."""
+    cols = w["q8"].shape[1]
+    return qmm(_rank_cols(x, mesh, cols).contiguous(), w, decode=decode, out_dtype=torch.float32)
+
+
+def _qlinear_mp(x: torch.Tensor, w, mesh, decode: bool, out_dtype=None) -> torch.Tensor:
+    """The whole x W^T [N, Out] of a quantized linear under mp > 1, in
+    `out_dtype` (x's by default): an int8 one's partials summed over mp in
+    f32 and rounded once, an int4 one's rows gathered over mp."""
+    if "q4" in w:
+        return gather_from_mp(qmm(x, w, decode=decode, out_dtype=out_dtype), mesh)
+    if "q8" not in w:
+        raise ValueError(f"a quantized linear under a mesh holds q8 or q4 codes, not {sorted(w)}")
+    return reduce_from_mp(_contraction_partial(x, w, mesh, decode), mesh).to(out_dtype or x.dtype)
+
+
+def qkv_proj(x2: torch.Tensor, layer, decode: bool, cfg: DeepseekV2Config = None, mesh=None):
+    """q, k, v [N, Hh D] each: three linears, or the fused int8 or int4 [3H,
+    H] stream split after the product. Under a mesh with mp > 1 the rank's
+    heads (its Hh of them): its rows of wq / wk / wv, or the whole fused
+    output (`_qlinear_mp`) cut to its heads."""
     if "wqkv" in layer:
-        return qmm(x2, layer["wqkv"], decode=decode).chunk(3, dim=-1)
+        if not mp_on(mesh):
+            return qmm(x2, layer["wqkv"], decode=decode).chunk(3, dim=-1)
+        whole = _qlinear_mp(x2, layer["wqkv"], mesh, decode).chunk(3, dim=-1)
+        return tuple(_rank_cols(t, mesh, n_heads(cfg, mesh) * cfg.head_dim) for t in whole)
     return F.linear(x2, layer["wq"]), F.linear(x2, layer["wk"]), F.linear(x2, layer["wv"])
 
 
@@ -327,10 +400,10 @@ def decode_attn_mode() -> str:
     return os.environ.get("DEEPSEEK_DECODE_ATTN", "pool")
 
 
-def n_heads(layer, cfg: DeepseekV2Config) -> int:
-    """The layer's attention heads: its wq rows over head_dim, the rank's
-    heads under a mesh (all of them unsharded)."""
-    return layer["wq"].shape[0] // cfg.head_dim if "wq" in layer else cfg.num_attention_heads
+def n_heads(cfg: DeepseekV2Config, mesh=None) -> int:
+    """The attention heads a rank computes and caches: all of them
+    unsharded, num_attention_heads / mp under a mesh."""
+    return cfg.num_attention_heads // (mesh.mp if mesh is not None else 1)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
@@ -340,12 +413,20 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     return reduce_from_mp(F.linear(x.float(), w.float()), mesh).to(x.dtype)
 
 
-def _out_proj(ctx: torch.Tensor, wo, mesh, decode: bool) -> torch.Tensor:
-    """The attention's wo: `row_parallel` under a mesh with mp > 1, else
-    `qmm` (plain, int8 or int4)."""
-    if mesh is not None and mesh.mp > 1:
+def out_proj(ctx: torch.Tensor, wo, mesh, decode: bool) -> torch.Tensor:
+    """The attention's wo on ctx [N, Hh D] (the rank's heads), `qmm`
+    (plain, int8 or int4) unsharded. Under a mesh with mp > 1: plain and
+    int8 wo hold the rank's heads' columns, a partial summed over mp
+    (`row_parallel`, or H / the prefill form in f32); an int4 wo holds
+    output rows and takes the whole context, gathered from the ranks'
+    heads."""
+    if not mp_on(mesh):
+        return qmm(ctx, wo, decode=decode)
+    if not is_qlinear(wo):
         return row_parallel(ctx, wo, mesh)
-    return qmm(ctx, wo, decode=decode)
+    if "q4" in wo:
+        return _qlinear_mp(gather_from_mp(ctx, mesh), wo, mesh, decode)
+    return reduce_from_mp(qmm(ctx, wo, decode=decode, out_dtype=torch.float32), mesh).to(ctx.dtype)
 
 
 def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_prefill: bool, stacked_lens=None,
@@ -358,9 +439,10 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_pr
     rank's heads (and the cache their K/V) and wo's partial products are
     reduced over mp."""
     b, s, h = x.shape
-    nh, d = n_heads(layer, cfg), cfg.head_dim
+    nh, d = n_heads(cfg, mesh), cfg.head_dim
     x = copy_to_mp(x, mesh)
-    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill))
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2)
+               for t in qkv_proj(x.reshape(b * s, h), layer, not is_prefill, cfg, mesh))
     v32 = v.float()
     ck, cv = cache["k"][li], cache["v"][li]  # [B, Hh, cap, D] views
     steps = torch.arange(s, device=x.device)
@@ -386,7 +468,7 @@ def _attention(x, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, is_pr
         mask = torch.arange(ck.shape[2], device=x.device) > posq[:, None, :, None]  # [B or 1, 1, S, cap]
         ctx = sdpa(q32, ck, cv, scale=scale, mask=mask, out_dtype=torch.float32)
     ctx = ctx.transpose(1, 2).reshape(b * s, nh * d).to(x.dtype)
-    return _out_proj(ctx, layer["wo"], mesh, not is_prefill).reshape(b, s, h)
+    return out_proj(ctx, layer["wo"], mesh, not is_prefill).reshape(b, s, h)
 
 
 def _train_attention(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
@@ -394,14 +476,14 @@ def _train_attention(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
     the plain causal `sdpa` in f32 (the JAX package's XLA prefill branch),
     no cache. Under a mesh as `_attention`."""
     b, s, h = x.shape
-    nh, d = n_heads(layer, cfg), cfg.head_dim
+    nh, d = n_heads(cfg, mesh), cfg.head_dim
     x = copy_to_mp(x, mesh)
-    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, False))
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(x.reshape(b * s, h), layer, False, cfg, mesh))
     q32, k32 = apply_rope(q, k, rope[0], rope[1], start=0)
     mask = causal_mask(s, s, device=x.device)[None, None]
     ctx = sdpa(q32, k32, v.float(), scale=1.0 / math.sqrt(d), mask=mask, out_dtype=torch.float32)
     ctx = ctx.transpose(1, 2).reshape(b * s, nh * d).to(x.dtype)
-    return _out_proj(ctx, layer["wo"], mesh, False).reshape(b, s, h)
+    return out_proj(ctx, layer["wo"], mesh, False).reshape(b, s, h)
 
 
 def _train_layer(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
@@ -420,36 +502,74 @@ def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos
     return out
 
 
-def _ffn_mp(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, decode: bool, mesh) -> torch.Tensor:
-    """`ffn` under a mesh with mp > 1 (unquantized weights): the rank's
-    columns of the dense or shared MLP, its partial down product in f32;
-    its routed experts (EP) on the replicated routing, whose weights enter
-    through `copy_to_mp` (each rank's d_weights holds its selections only;
-    the sum is the whole), selections of other ranks' experts taking no
-    work; the partials summed over mp in f32 (one all-reduce for routed and
-    shared together) and each rounded once. The MoE cut-overs read the
-    global row count (rows times dp) and expert count."""
-    xc = copy_to_mp(x_flat, mesh)
+def _mlp_whole(m) -> bool:
+    """Whether `_mlp_mp` gives the MLP m's whole output (an int4 down,
+    split on its output rows) rather than the rank's partial."""
+    return is_qlinear(m["down"]) and "q4" in m["down"]
 
-    def mlp_partial(m):
+
+def _mlp_mp(xc: torch.Tensor, m, mesh, decode: bool) -> torch.Tensor:
+    """A dense or shared SwiGLU MLP under mp > 1: the rank's f32 down
+    partial, to be summed over mp, for plain weights (the rank's gate / up
+    rows, down columns) and int8 ones (gu's partials summed over mp before
+    the nonlinearity, then the rank's slice of I through down); for int4
+    ones (`_mlp_whole`) the whole output in x's dtype (gu's rows gathered,
+    then down's), the unsharded `swiglu_q8` bit for bit."""
+    if "gate" in m:
         gate, up = F.linear(xc, m["gate"]), F.linear(xc, m["up"])
         act = F.silu(gate.float()).to(gate.dtype) * up
         return F.linear(act.float(), m["down"].float())
+    h2 = _qlinear_mp(xc, m["gu"], mesh, decode, out_dtype=torch.float32)
+    i = h2.shape[-1] // 2
+    act = (F.silu(h2[:, :i]) * h2[:, i:]).to(xc.dtype)
+    if _mlp_whole(m):
+        return _qlinear_mp(act, m["down"], mesh, decode)
+    return _contraction_partial(act, m["down"], mesh, decode)
 
+
+def _ffn_mp(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, decode: bool, mesh) -> torch.Tensor:
+    """`ffn` under a mesh with mp > 1: the dense or shared MLP as `_mlp_mp`;
+    the routed experts (EP, plain, int8 or int4) on the replicated routing,
+    whose weights enter through `copy_to_mp` (each rank's d_weights holds
+    its selections only; the sum is the whole), selections of other ranks'
+    experts taking no work, the rank's partial in f32; the partials summed
+    over mp in f32 (one all-reduce for the routed experts and a plain or
+    int8 shared MLP together) and each rounded once. Quantized experts
+    decode through J / N (N k > E) or I / M without the pseudo-experts, and
+    prefill dequantized into the plain forms. The MoE cut-overs read the
+    global row count (rows times dp) and expert count."""
+    xc = copy_to_mp(x_flat, mesh)
+    dt = x_flat.dtype
     m = layer.get("mlp")
     if m is not None:
-        return reduce_from_mp(mlp_partial(m), mesh).to(x_flat.dtype)
-    experts = layer["experts"]
+        out = _mlp_mp(xc, m, mesh, decode)
+        return out if _mlp_whole(m) else reduce_from_mp(out, mesh).to(dt)
+    eq = layer.get("experts_q8")
+    e_local = (layer["experts"]["gate"] if eq is None else eq["gu_q4" if "gu_q4" in eq else "gu_q8"]).shape[0]
     weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
-    weights, idx = local_routing(copy_to_mp(weights, mesh), idx, experts["gate"].shape[0], mesh.mp_rank)
+    weights, idx = local_routing(copy_to_mp(weights, mesh), idx, e_local, mesh.mp_rank)
     n_rows = x_flat.shape[0] * mesh.dp
-    if decode:
-        routed = moe_ffn_decode(xc, experts, weights, idx, n_rows=n_rows, n_experts=cfg.n_routed_experts,
-                                out_dtype=torch.float32)
+    f32 = torch.float32
+    if eq is None:
+        if decode:
+            routed = moe_ffn_decode(xc, layer["experts"], weights, idx, n_rows=n_rows,
+                                    n_experts=cfg.n_routed_experts, out_dtype=f32)
+        else:
+            routed = moe_ffn_prefill(xc, layer["experts"], weights, idx, n_rows=n_rows, out_dtype=f32)
+    elif not decode:
+        routed = moe_ffn_prefill(xc, dequantize_experts(routed_only(eq), dt), weights, idx, n_rows=n_rows,
+                                 out_dtype=f32)
     else:
-        routed = moe_ffn_prefill(xc, experts, weights, idx, n_rows=n_rows, out_dtype=torch.float32)
-    both = reduce_from_mp(torch.stack([routed, mlp_partial(layer["shared"])]), mesh)
-    return both[0].to(x_flat.dtype) + both[1].to(x_flat.dtype)
+        eq, q4 = routed_only(eq), "gu_q4" in eq
+        if n_rows * cfg.num_experts_per_tok > cfg.n_routed_experts:
+            routed = (moe_ffn_decode_q4_fused if q4 else moe_ffn_decode_q8_fused)(xc, eq, weights, idx, f32)
+        else:
+            routed = (moe_ffn_decode_q4 if q4 else moe_ffn_decode_q8)(xc, eq, weights, idx, out_dtype=f32)
+    shared = _mlp_mp(xc, layer["shared"], mesh, decode)
+    if _mlp_whole(layer["shared"]):
+        return reduce_from_mp(routed, mesh).to(dt) + shared
+    both = reduce_from_mp(torch.stack([routed, shared]), mesh)
+    return both[0].to(dt) + both[1].to(dt)
 
 
 def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool, mesh=None) -> torch.Tensor:
@@ -469,22 +589,21 @@ def ffn(x_flat: torch.Tensor, layer, cfg: DeepseekV2Config, *, decode: bool, mes
         return swiglu_q8(x_flat, m["gu"], m["down"], decode=decode) if "gu" in m else \
             swiglu(x_flat, m["gate"], m["up"], m["down"])
     weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
-    n = x_flat.shape[0]
     eq = layer.get("experts_q8")
     merged = False
     if eq is None:
         routed = (moe_ffn_decode if decode else moe_ffn_prefill)(x_flat, layer["experts"], weights, idx,
                                                                  n_rows=n_rows)
     elif not decode:
-        routed = moe_ffn_prefill(x_flat, dequantize_experts(eq, x_flat.dtype), weights, idx)
+        routed = moe_ffn_prefill(x_flat, dequantize_experts(eq, x_flat.dtype), weights, idx, n_rows=n_rows)
     else:
         q4 = "gu_q4" in eq
         pe_key = "pe_gu_q4" if q4 else "pe_gu_q8"
-        if n * cfg.num_experts_per_tok > cfg.n_routed_experts:
+        if n_rows * cfg.num_experts_per_tok > cfg.n_routed_experts:
             merged = pe_key in eq
             routed = (moe_ffn_decode_q4_fused if q4 else moe_ffn_decode_q8_fused)(x_flat, eq, weights, idx)
         else:
-            merged = pe_key in eq and n == 1
+            merged = pe_key in eq and n_rows == 1
             routed = (moe_ffn_decode_q4 if q4 else moe_ffn_decode_q8)(x_flat, eq, weights, idx,
                                                                        with_shared=merged)
     if merged:
@@ -517,9 +636,9 @@ def lm_forward(
     or at per-row positions `pos` [B] (a tensor; lookup decoding's ragged
     chunks), each query attending to its own causal prefix. A decode step
     of one token at an int `pos`, in a layer with int8 (int4) attention
-    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0 or the decode
-    mode is not "pool"; a chunk takes the linears and the plain attention,
-    as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
+    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0, the decode
+    mode is not "pool" or the params are split over mp > 1; a chunk takes
+    the linears and the plain attention, as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
     step attends through kernel U (`decode_attn_mode`).
 
     Params sharded onto a mesh (`parallel.shard_params`) run the rank's
@@ -528,7 +647,7 @@ def lm_forward(
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
     mesh = params.get("mesh")
     if training:
-        if is_qlinear(params["lm_head"]) or any("experts_q8" in l or "wqkv" in l for l in params["layers"]):
+        if is_quantized(params):
             raise ValueError("training takes unquantized LM params")
         x = embeds
         for layer in params["layers"]:
@@ -539,7 +658,7 @@ def lm_forward(
         return rms_norm(x, params["norm"], cfg.rms_norm_eps)
     b, s, h = embeds.shape
     mode = None if is_prefill else decode_attn_mode()
-    fused = mode == "pool" and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled()
+    fused = mode == "pool" and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled() and not mp_on(mesh)
     stacked_lens = None
     if mode == "stacked" and s == 1:  # one fill a step, shared by the layers
         stacked_lens = (pos.to(torch.int32) + 1 if torch.is_tensor(pos)
@@ -573,6 +692,8 @@ def lm_forward_debug(params: Params, cfg: DeepseekV2Config, embeds: torch.Tensor
     from ..runtime.kv_cache import make_kv_cache
     from ..utils.debug import dbg_print, dbg_stats, enabled
 
+    if params.get("mesh") is not None:
+        raise ValueError("the debug prefill takes unsharded params")
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
     b, s, h = embeds.shape
     cache = make_kv_cache(cfg.num_hidden_layers, b, cfg.num_attention_heads, s, cfg.head_dim,
@@ -612,7 +733,7 @@ def logits_all(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     when lm_head is int8 (int4)."""
     head = params["lm_head"]
     b, s, h = hidden.shape
-    if params.get("mesh") is not None:
+    if mp_on(params.get("mesh")):
         return _sharded_logits(params, hidden)
     if is_qlinear(head):
         return qmm(hidden.reshape(b * s, h), head, decode=True, out_dtype=torch.float32).reshape(b, s, -1)
@@ -624,7 +745,7 @@ def logits_last(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     f32 through kernel H (L) when lm_head is int8 (int4) (rows here are at
     most the decode batch)."""
     head = params["lm_head"]
-    if params.get("mesh") is not None:
+    if mp_on(params.get("mesh")):
         return _sharded_logits(params, hidden[:, -1, :])
     if is_qlinear(head):
         return qmm(hidden[:, -1, :], head, decode=True, out_dtype=torch.float32)

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .moe_q8 import QExperts, expert_swiglu_q8, launch_moe_quant, pseudo_experts, routing_rows
+from .moe_q8 import QExperts, check_out_dtype, expert_swiglu_q8, launch_moe_quant, pseudo_experts, routing_rows
 
 
 def distinct_schedule(idx: torch.Tensor, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,11 +225,14 @@ def moe_ffn_decode_q8_visits_reference(
     eq: QExperts,  # gu_q8 [E, 2I, H], gu_scale, down_q8 [E, H, I], down_scale (+ pe_* streams)
     weights: torch.Tensor,  # [B, k] f32
     idx: torch.Tensor,  # [B, k]
+    out_dtype=None,
 ) -> torch.Tensor:
     """Plain twin of J: every visit of the schedule over all rows at the q8
     rounding points (`moe_q8.expert_swiglu_q8`), y * w summed in f32 in
-    visit order, then the pseudo-experts with weight 1. Returns [B, H] in
-    x's dtype."""
+    visit order, then the pseudo-experts with weight 1. Pad visits (and,
+    under EP, another rank's selections: no visit) add exact zeros. Returns
+    [B, H] in `out_dtype` (x's dtype by default; f32 leaves the sum
+    unrounded)."""
     e = eq["gu_q8"].shape[0]
     ve, valid = distinct_schedule(idx, e)
     w_visit = combine_table(idx, weights, ve, valid, e)
@@ -242,7 +245,7 @@ def moe_ffn_decode_q8_visits_reference(
     if "pe_gu_q8" in eq:
         for pe in pseudo_experts(eq):
             out = out + expert_swiglu_q8(x32, *pe, x.dtype)
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def moe_ffn_decode_q8_fused(
@@ -250,33 +253,35 @@ def moe_ffn_decode_q8_fused(
     eq: QExperts,
     weights: torch.Tensor,  # [B, k] f32
     idx: torch.Tensor,  # [B, k]
+    out_dtype=None,
 ) -> torch.Tensor:
     """Kernel J: the int8 distinct-expert batched-decode MoE FFN, the shared
-    pseudo-experts folded in when `eq` has them. Returns [B, H] in x's
-    dtype."""
+    pseudo-experts folded in when `eq` has them. Returns [B, H] in
+    `out_dtype` (x's dtype by default, or f32)."""
     if x.device.type == "cpu":
-        return moe_ffn_decode_q8_visits_reference(x, eq, weights, idx)
+        return moe_ffn_decode_q8_visits_reference(x, eq, weights, idx, out_dtype)
+    check_out_dtype(x, out_dtype, "J")
     e = eq["gu_q8"].shape[0]
     n_sh = eq["pe_gu_q8"].shape[0] if "pe_gu_q8" in eq else 0
     ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
     if q8_stream_takes(x, eq):
-        out = _launch_q8_stream(x, eq, n_sh, ve, valid, w_visit)
+        out = _launch_q8_stream(x, eq, n_sh, ve, valid, w_visit, out_dtype)
     else:
-        out = launch_moe_quant(8, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+        out = launch_moe_quant(8, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit, out_dtype=out_dtype)
     moe_ffn_decode_q8_fused.launches += 1
     return out
 
 
 moe_ffn_decode_q8_fused.launches = 0
 
-_Q8_STREAM_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_Q8_STREAM_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def _launch_q8_stream(x, eq: QExperts, n_sh: int, ve, valid, w_visit) -> torch.Tensor:
+def _launch_q8_stream(x, eq: QExperts, n_sh: int, ve, valid, w_visit, out_dtype=None) -> torch.Tensor:
     """Kernel J with bf16 x on F's bulk-copy tensor-core stream
     (`moe_q8_stream_bf16` in `csrc/moe_q8.cu`): gate/up, then down with the
     combine folded in, on the schedule's ve / valid / w_visit. Returns [B,
-    H] bf16."""
+    H] bf16, or f32 (`out_dtype`)."""
     names = ("gu_q8", "gu_scale", "down_q8", "down_scale")
     gu, gus, down, ds = (eq[n] for n in names)
     e, i2, h = gu.shape
@@ -296,11 +301,11 @@ def _launch_q8_stream(x, eq: QExperts, n_sh: int, ve, valid, w_visit) -> torch.T
     if any(t.data_ptr() % 16 for t in (x, gu, gus, down, ds, *pe)):
         raise ValueError("kernel J reads 16-byte aligned rows and scales")
     act = torch.empty(e + n_sh, min(b, 32), i, dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=check_out_dtype(x, out_dtype, "J"))
     fn = cuda_build.entry("moe_q8", "moe_q8_stream_bf16", _Q8_STREAM_ARGTYPES)
     p = cuda_build.ptr
     pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
     err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(ve), p(valid), p(w_visit), p(act),
-             p(out), b, e, n_sh, h, i, cuda_build.stream_of(x))
+             p(out), b, e, n_sh, h, i, int(out.dtype == torch.float32), cuda_build.stream_of(x))
     cuda_build.check(err, "moe_q8 (J)")
     return out

@@ -37,7 +37,9 @@ header of `csrc/moe_q4.cu` gives the design): gate/up, then down with the
 visits cut into parts at fixed expert ids (`down_split`, `part_bounds`),
 the parts' sums added in order by the last block of each column tile. The
 plain twins are `moe_ffn_decode_q4_reference` and
-`moe_ffn_decode_q4_visits_reference`.
+`moe_ffn_decode_q4_visits_reference`. Under expert parallelism both take
+another rank's selection (id E_local) and write f32 partials as I and J do
+(`moe_q8`'s docstring).
 
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Nothing here reads a value back to the host.
@@ -57,7 +59,7 @@ import torch.nn.functional as F
 from . import cuda_build
 from .linear_q4 import GROUP, dequantize_q4, q4_dot, quantize_q4
 from .moe_decode import combine_table, device_schedule, distinct_schedule
-from .moe_q8 import launch_moe_quant, routing_rows
+from .moe_q8 import check_out_dtype, launch_moe_quant, routing_rows, selection_terms
 from .paged_attention import _arrival_counters
 
 QExperts4 = Dict[str, torch.Tensor]
@@ -100,27 +102,33 @@ def pseudo_experts_q4(eq: QExperts4):
     return [tuple(eq[f"pe_{n}"][t] for n in _NAMES) for t in range(eq["pe_gu_q4"].shape[0])]
 
 
-def moe_ffn_decode_q4_reference(x, eq: QExperts4, weights, idx, *, with_shared: bool = False) -> torch.Tensor:
+def moe_ffn_decode_q4_reference(x, eq: QExperts4, weights, idx, *, with_shared: bool = False,
+                                out_dtype=None) -> torch.Tensor:
     """Plain twin of M: each row's selections in top-k order (the selected
-    experts gathered per row), then the pseudo-experts with weight 1,
-    accumulated in f32 in that order. Returns [B, H] in x's dtype."""
+    experts gathered per row; another rank's selection, id E, adds
+    nothing), then the pseudo-experts with weight 1, accumulated in f32 in
+    that order. Returns [B, H] in `out_dtype` (x's dtype by default; f32
+    leaves the sum unrounded)."""
     x32 = x.float()
+    e = eq["gu_q4"].shape[0]
     out = torch.zeros(x.shape[0], eq["down_q4"].shape[1], dtype=torch.float32, device=x.device)
     for j in range(idx.shape[1]):
-        ex = idx[:, j].long()
+        local = idx[:, j] < e
+        ex = idx[:, j].long().clamp(max=e - 1)
         y = expert_swiglu_q4(x32, *(eq[n][ex] for n in _NAMES), x.dtype)
-        out = out + y * weights[:, j : j + 1].float()
+        out = selection_terms(out, y, weights[:, j], local)
     if with_shared:
         for pe in pseudo_experts_q4(eq):
             out = out + expert_swiglu_q4(x32, *pe, x.dtype)
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
-def moe_ffn_decode_q4_visits_reference(x, eq: QExperts4, weights, idx) -> torch.Tensor:
+def moe_ffn_decode_q4_visits_reference(x, eq: QExperts4, weights, idx, out_dtype=None) -> torch.Tensor:
     """Plain twin of N: every visit of the schedule over all rows, y * w
     summed in f32 in visit order (pad visits repeat a real expert with zero
-    weights, so they add exact zeros), then the pseudo-experts with weight
-    1. Returns [B, H] in x's dtype."""
+    weights, so they add exact zeros; another rank's selection, id E, is no
+    visit), then the pseudo-experts with weight 1. Returns [B, H] in
+    `out_dtype` (x's dtype by default, or f32)."""
     e = eq["gu_q4"].shape[0]
     ve, valid = distinct_schedule(idx, e)
     w_visit = combine_table(idx, weights, ve, valid, e)
@@ -133,21 +141,22 @@ def moe_ffn_decode_q4_visits_reference(x, eq: QExperts4, weights, idx) -> torch.
     if "pe_gu_q4" in eq:
         for pe in pseudo_experts_q4(eq):
             out = out + expert_swiglu_q4(x32, *pe, x.dtype)
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def moe_ffn_decode_q4(x: torch.Tensor, eq: QExperts4, weights: torch.Tensor, idx: torch.Tensor, *,
-                      with_shared: bool = False) -> torch.Tensor:
+                      with_shared: bool = False, out_dtype=None) -> torch.Tensor:
     """Kernel M: the per-selection int4 MoE decode FFN. With `with_shared`
     the shared pseudo-experts are folded in and the caller adds no separate
-    shared term. Returns [B, H] in x's dtype."""
+    shared term. Returns [B, H] in `out_dtype` (x's dtype by default, or
+    f32)."""
     if x.device.type == "cpu":
-        return moe_ffn_decode_q4_reference(x, eq, weights, idx, with_shared=with_shared)
+        return moe_ffn_decode_q4_reference(x, eq, weights, idx, with_shared=with_shared, out_dtype=out_dtype)
     n_sh = eq["pe_gu_q4"].shape[0] if with_shared else 0
     if q4_sel_takes(x, eq, idx.shape[1] + n_sh):
-        out = _launch_q4_sel(x, eq, n_sh, idx, weights)
+        out = _launch_q4_sel(x, eq, n_sh, idx, weights, out_dtype)
     else:
-        out = launch_moe_quant(4, True, x, eq, n_sh, idx=idx, weights=weights)
+        out = launch_moe_quant(4, True, x, eq, n_sh, idx=idx, weights=weights, out_dtype=out_dtype)
     moe_ffn_decode_q4.launches += 1
     return out
 
@@ -155,19 +164,21 @@ def moe_ffn_decode_q4(x: torch.Tensor, eq: QExperts4, weights: torch.Tensor, idx
 moe_ffn_decode_q4.launches = 0
 
 
-def moe_ffn_decode_q4_fused(x: torch.Tensor, eq: QExperts4, weights: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def moe_ffn_decode_q4_fused(x: torch.Tensor, eq: QExperts4, weights: torch.Tensor, idx: torch.Tensor,
+                            out_dtype=None) -> torch.Tensor:
     """Kernel N: the int4 distinct-expert batched-decode MoE FFN, the shared
-    pseudo-experts folded in when `eq` has them. Returns [B, H] in x's
-    dtype."""
+    pseudo-experts folded in when `eq` has them. Returns [B, H] in
+    `out_dtype` (x's dtype by default, or f32)."""
     if x.device.type == "cpu":
-        return moe_ffn_decode_q4_visits_reference(x, eq, weights, idx)
+        return moe_ffn_decode_q4_visits_reference(x, eq, weights, idx, out_dtype)
+    check_out_dtype(x, out_dtype, "N")
     e = eq["gu_q4"].shape[0]
     n_sh = eq["pe_gu_q4"].shape[0] if "pe_gu_q4" in eq else 0
     ve, valid, w_visit = device_schedule(idx, weights, e, x.shape[0])
     if q4_stream_takes(x, eq):
-        out = _launch_q4_stream(x, eq, n_sh, ve, valid, w_visit)
+        out = _launch_q4_stream(x, eq, n_sh, ve, valid, w_visit, out_dtype)
     else:
-        out = launch_moe_quant(4, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit)
+        out = launch_moe_quant(4, False, x, eq, n_sh, ve=ve, valid=valid, w_visit=w_visit, out_dtype=out_dtype)
     moe_ffn_decode_q4_fused.launches += 1
     return out
 
@@ -204,7 +215,7 @@ def part_bounds(n_ids: int, parts: int):
 
 
 _SM_COUNT: Dict[int, int] = {}
-_STREAM_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_STREAM_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _stream_operands(x, eq: QExperts4, n_sh: int, takes: bool, kernel: str, rule: str):
@@ -231,11 +242,11 @@ def _stream_operands(x, eq: QExperts4, n_sh: int, takes: bool, kernel: str, rule
     return gu, gus, down, ds, pe, x
 
 
-def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.Tensor:
+def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit, out_dtype=None) -> torch.Tensor:
     """Kernel N with bf16 x on J's bulk-copy tensor-core stream
     (`moe_q4_stream_bf16` in `csrc/moe_q4.cu`): gate/up, then down over the
     visits cut into parts at fixed ids, the parts' sums added by the last
-    block of each column tile. Returns [B, H] bf16."""
+    block of each column tile. Returns [B, H] bf16, or f32 (`out_dtype`)."""
     gu, gus, down, ds, pe, x = _stream_operands(
         x, eq, n_sh, q4_stream_takes(x, eq), "N", f"bf16 x [B, H] with H, I multiples of {GROUP} and H <= {STREAM_MAX_H}")
     if ve.dtype != torch.int32 or valid.dtype != torch.int32 or w_visit.dtype != torch.float32:
@@ -249,12 +260,13 @@ def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.
     act = torch.empty(e + n_sh, STREAM_ROWS, i + ACT_PAD, dtype=x.dtype, device=x.device)
     yw = torch.empty(parts, min(b, STREAM_ROWS), h, dtype=torch.float32, device=x.device)
     counters = _arrival_counters(x, h // (8 * warps))
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=check_out_dtype(x, out_dtype, "N"))
     fn = cuda_build.entry("moe_q4", "moe_q4_stream_bf16", _STREAM_ARGTYPES)
     p = cuda_build.ptr
     pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
     err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(ve), p(valid), p(w_visit), p(act),
-             p(yw), p(counters), p(out), b, e, n_sh, h, i, warps, parts, cuda_build.stream_of(x))
+             p(yw), p(counters), p(out), b, e, n_sh, h, i, warps, parts, int(out.dtype == torch.float32),
+             cuda_build.stream_of(x))
     cuda_build.check(err, "moe_q4 (N)")
     return out
 
@@ -264,7 +276,7 @@ def _launch_q4_stream(x, eq: QExperts4, n_sh: int, ve, valid, w_visit) -> torch.
 SEL_MAX_X = 16 * 1280
 SEL_MAX_ACT = 32 * 1024
 SEL_SMEM = 128 * 1024  # gate/up's shared memory at most: x, then a ring of stages, 8 at least
-_SEL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SEL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def q4_sel_takes(x: torch.Tensor, eq: QExperts4, kv: int) -> bool:
@@ -283,11 +295,12 @@ def q4_sel_takes(x: torch.Tensor, eq: QExperts4, kv: int) -> bool:
     return (SEL_SMEM - x_bytes - 256) // stage >= 8
 
 
-def _launch_q4_sel(x, eq: QExperts4, n_sh: int, idx, weights) -> torch.Tensor:
+def _launch_q4_sel(x, eq: QExperts4, n_sh: int, idx, weights, out_dtype=None) -> torch.Tensor:
     """Kernel M with bf16 x on its stream (`moe_q4_sel_bf16` in
     `csrc/moe_q4.cu`): gate/up over every SM, then down with the combine
     folded in, launched as a programmatic dependent of gate/up so that its
-    code rows stream while gate/up runs. Returns [B, H] bf16."""
+    code rows stream while gate/up runs. Returns [B, H] bf16, or f32
+    (`out_dtype`)."""
     idx, weights, ld = routing_rows(idx, weights)
     k = idx.shape[1]
     gu, gus, down, ds, pe, x = _stream_operands(
@@ -300,11 +313,11 @@ def _launch_q4_sel(x, eq: QExperts4, n_sh: int, idx, weights) -> torch.Tensor:
     if idx.device != x.device or weights.device != x.device:
         raise ValueError("kernel M's routing must lie on x's device")
     act = torch.empty(b * (k + n_sh), i, dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=check_out_dtype(x, out_dtype, "M"))
     fn = cuda_build.entry("moe_q4", "moe_q4_sel_bf16", _SEL_ARGTYPES)
     p = cuda_build.ptr
     pgu, pgus, pdown, pds = (p(t) for t in pe) if pe else (None,) * 4
     err = fn(p(x), p(gu), p(gus), p(down), p(ds), pgu, pgus, pdown, pds, p(idx), p(weights), p(act), p(out),
-             b, e, k, ld, n_sh, h, i, cuda_build.stream_of(x))
+             b, e, k, ld, n_sh, h, i, int(out.dtype == torch.float32), cuda_build.stream_of(x))
     cuda_build.check(err, "moe_q4 (M)")
     return out

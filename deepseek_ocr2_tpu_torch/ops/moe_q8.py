@@ -22,6 +22,16 @@ stream does not take: `moe_decode.q8_stream_takes`; otherwise J runs its
 own stream, `moe_decode._launch_q8_stream`) and the int4 kernels M and N
 (`moe_q4`).
 
+Under expert parallelism (`ops.moe.local_routing`) a rank holds E_local
+experts and another rank's selection carries the id E_local and weight 0:
+I (and M) take it as a visit with no work, which reads no expert and adds
+nothing, so a row with no local selection gives an exact zero; J and N
+never see it (their schedule gives it no visit). Every kernel here writes
+x's dtype or, with `out_dtype=torch.float32`, the rank's partial
+unrounded, summed over the ranks before one rounding. The sharded forward
+passes `routed_only(eq)`: the pseudo-experts are whole on every rank, and
+folded into each rank's partial they would be counted once a rank.
+
 A wrapper runs its plain twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. Nothing here reads a value back to the host.
 `launches` counts calls that launch I (three CUDA launches each).
@@ -67,27 +77,45 @@ def expert_swiglu_q8(x32: torch.Tensor, gu, gus, down, ds, dtype: torch.dtype) -
     return torch.einsum("ni,nhi->nh", act, down.float()) * ds
 
 
+def routed_only(eq: QExperts) -> QExperts:
+    """The routed experts of `eq` without the shared pseudo-experts (`pe_*`
+    keys), int8 or int4."""
+    return {k: v for k, v in eq.items() if not k.startswith("pe_")}
+
+
+def selection_terms(out: torch.Tensor, y: torch.Tensor, w: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """out + y * w for the rows whose selection is one of the rank's
+    experts (`local`), out unchanged for the others: the per-selection
+    kernels' rule for another rank's selection (no term at all)."""
+    return torch.where(local[:, None], out + y * w.float()[:, None], out)
+
+
 def pseudo_experts(eq: QExperts):
     """The n_sh shared pseudo-experts as (gu, gus, down, ds) tuples."""
     return [(eq["pe_gu_q8"][t], eq["pe_gu_scale"][t], eq["pe_down_q8"][t], eq["pe_down_scale"][t])
             for t in range(eq["pe_gu_q8"].shape[0])]
 
 
-def moe_ffn_decode_q8_reference(x, eq: QExperts, weights, idx, *, with_shared: bool = False) -> torch.Tensor:
+def moe_ffn_decode_q8_reference(x, eq: QExperts, weights, idx, *, with_shared: bool = False,
+                                out_dtype=None) -> torch.Tensor:
     """Plain twin of I: each row's selections in top-k order (the selected
-    experts gathered per row), then the pseudo-experts with weight 1,
-    accumulated in f32 in that order. Returns [B, H] in x's dtype."""
+    experts gathered per row; another rank's selection, id E, adds
+    nothing), then the pseudo-experts with weight 1, accumulated in f32 in
+    that order. Returns [B, H] in `out_dtype` (x's dtype by default; f32
+    leaves the sum unrounded)."""
     x32 = x.float()
+    e = eq["gu_q8"].shape[0]
     out = torch.zeros(x.shape[0], eq["down_q8"].shape[1], dtype=torch.float32, device=x.device)
     for j in range(idx.shape[1]):
-        ex = idx[:, j].long()
+        local = idx[:, j] < e
+        ex = idx[:, j].long().clamp(max=e - 1)
         y = expert_swiglu_q8(x32, eq["gu_q8"][ex], eq["gu_scale"][ex], eq["down_q8"][ex], eq["down_scale"][ex],
                              x.dtype)
-        out = out + y * weights[:, j : j + 1].float()
+        out = selection_terms(out, y, weights[:, j], local)
     if with_shared:
         for pe in pseudo_experts(eq):
             out = out + expert_swiglu_q8(x32, *pe, x.dtype)
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def routing_rows(idx: torch.Tensor, weights: torch.Tensor):
@@ -112,13 +140,21 @@ def _stream_shapes(bits: int, rows: int, in_dim: int):
     return (rows, padded(in_dim) // 2), (rows, padded(in_dim) // GROUP)
 
 
+def check_out_dtype(x: torch.Tensor, out_dtype, name: str) -> torch.dtype:
+    """The output dtype of a decode MoE kernel: x's (the default) or f32."""
+    od = out_dtype or x.dtype
+    if od not in (x.dtype, torch.float32):
+        raise ValueError(f"kernel {name} writes x's dtype or f32, not {od}")
+    return od
+
+
 def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_sh: int, *, idx=None,
-                     weights=None, ve=None, valid=None, w_visit=None) -> torch.Tensor:
+                     weights=None, ve=None, valid=None, w_visit=None, out_dtype=None) -> torch.Tensor:
     """Launch kernel I (`per_sel`, with idx / weights) or J's first form
     (with the visit schedule ve / valid / w_visit) of `csrc/moe_q8.cu` over
     int8 experts (bits 8), or M or N of `csrc/moe_q4.cu` over int4 ones
     (bits 4). One set of kernels serves both (`csrc/moe_quant.cuh`).
-    Returns [B, H]."""
+    Returns [B, H] in `out_dtype` (x's dtype by default, or f32)."""
     names = (f"gu_q{bits}", "gu_scale", f"down_q{bits}", "down_scale")
     gu, gus, down, ds = (eq[n] for n in names)
     e, i2 = gu.shape[:2]
@@ -129,6 +165,7 @@ def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_
     code_dt, align = (torch.int8, 16) if bits == 8 else (torch.uint8, 32)
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel {name} takes f32 or bf16 x, got {dt}")
+    od = check_out_dtype(x, out_dtype, name)
     (cg, sg), (cd, sd) = _stream_shapes(bits, i2, h), _stream_shapes(bits, h, i)
     if gu.shape != (e, *cg) or gus.shape != (e, *sg) or down.shape != (e, *cd) or ds.shape != (e, *sd) \
             or gu.dtype != code_dt or down.dtype != code_dt or gus.dtype != torch.float32 \
@@ -158,10 +195,10 @@ def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_
         n_rows, n_visits = b, e + n_sh
     act = torch.empty(n_visits, n_rows, i, dtype=dt, device=x.device)
     yw = torch.empty(n_visits, n_rows, h, dtype=torch.float32, device=x.device)
-    out = torch.empty(b, h, dtype=dt, device=x.device)
+    out = torch.empty(b, h, dtype=od, device=x.device)
     lib = cuda_build.load(f"moe_q{bits}")
     fn = getattr(lib, f"moe_q{bits}_{'f32' if dt == torch.float32 else 'bf16'}")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def p(t: Optional[torch.Tensor]):
@@ -171,20 +208,21 @@ def launch_moe_quant(bits: int, per_sel: bool, x: torch.Tensor, eq: QExperts, n_
     k = idx.shape[1] if per_sel else 1
     err = fn(int(per_sel), p(x), p(gu), p(gus), p(down), p(ds), p(pgu), p(pgus), p(pdown), p(pds),
              p(idx), p(weights), p(ve), p(valid), p(w_visit), p(act), p(yw), p(out),
-             b, e, k, ld, n_sh, h, i, cuda_build.stream_of(x))
+             b, e, k, ld, n_sh, h, i, int(od == torch.float32), cuda_build.stream_of(x))
     cuda_build.check(err, f"moe_q{bits}")
     return out
 
 
 def moe_ffn_decode_q8(x: torch.Tensor, eq: QExperts, weights: torch.Tensor, idx: torch.Tensor, *,
-                      with_shared: bool = False) -> torch.Tensor:
+                      with_shared: bool = False, out_dtype=None) -> torch.Tensor:
     """Kernel I: the per-selection int8 MoE decode FFN. With `with_shared`
     the shared pseudo-experts are folded in and the caller adds no separate
-    shared term. Returns [B, H] in x's dtype."""
+    shared term. Returns [B, H] in `out_dtype` (x's dtype by default, or
+    f32)."""
     if x.device.type == "cpu":
-        return moe_ffn_decode_q8_reference(x, eq, weights, idx, with_shared=with_shared)
+        return moe_ffn_decode_q8_reference(x, eq, weights, idx, with_shared=with_shared, out_dtype=out_dtype)
     n_sh = eq["pe_gu_q8"].shape[0] if with_shared else 0
-    out = launch_moe_quant(8, True, x, eq, n_sh, idx=idx, weights=weights)
+    out = launch_moe_quant(8, True, x, eq, n_sh, idx=idx, weights=weights, out_dtype=out_dtype)
     moe_ffn_decode_q8.launches += 1
     return out
 

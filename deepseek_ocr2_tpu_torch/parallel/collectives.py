@@ -96,7 +96,8 @@ def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
-def _mp_on(mesh: Optional[Mesh]) -> bool:
+def mp_on(mesh: Optional[Mesh]) -> bool:
+    """Whether `mesh` splits the params over more than one mp rank."""
     return mesh is not None and mesh.mp > 1
 
 
@@ -133,17 +134,17 @@ class _GatherFromMp(torch.autograd.Function):
 
 
 def copy_to_mp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    return _CopyToMp.apply(x, mesh) if _mp_on(mesh) else x
+    return _CopyToMp.apply(x, mesh) if mp_on(mesh) else x
 
 
 def reduce_from_mp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    return _ReduceFromMp.apply(x, mesh) if _mp_on(mesh) else x
+    return _ReduceFromMp.apply(x, mesh) if mp_on(mesh) else x
 
 
 def gather_from_mp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """[..., V / mp] on each mp rank -> [..., V], the ranks' slices in mp
     order."""
-    return _GatherFromMp.apply(x, mesh) if _mp_on(mesh) else x
+    return _GatherFromMp.apply(x, mesh) if mp_on(mesh) else x
 
 
 def all_reduce_sum(t: torch.Tensor, mesh: Optional[Mesh], axis: str) -> torch.Tensor:
@@ -173,7 +174,7 @@ def mp_broadcast_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> None
     adds (the vision towers' index backward on the card), whose sums may
     round differently from rank to rank and run to run; the replicas then
     stay equal."""
-    if not _mp_on(mesh):
+    if not mp_on(mesh):
         return
     src = dist.get_global_rank(mesh.mp_group, 0)
     for t in tensors:

@@ -92,6 +92,14 @@ def mesh_of(params) -> Optional[Mesh]:
     return lm.get("mesh") if isinstance(lm, dict) else None
 
 
+def replicated_rows(mesh: Mesh) -> Mesh:
+    """`mesh` as a caller whose rows are whole on every rank sees it (the
+    OCR pipeline and the serving engines, whose pages every rank runs): dp
+    1, the same mp group. Every dp row of the mesh is then a whole replica,
+    and the MoE cut-overs read the rows as they are."""
+    return dataclasses.replace(mesh, dp=1, dp_rank=0, dp_group=None)
+
+
 def dp_rows(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Dp rank d's rows [d B / dp, (d + 1) B / dp) of a global batch [B, ...]
     (the JAX package's `P("dp", None)`); the whole batch without a mesh."""

@@ -11,13 +11,25 @@ always the mesh's first rank and returns {case name: result}. The kinds:
 - "lm_steps": the LM's loss and gathered gradients (`value_and_grad`),
   then AdamW steps; whether the replicated leaves stayed equal over mp;
   how many grouped-GEMM MoE forms each rank's forward built;
-- "greedy": `greedy_generate` on the sharded LM;
+- "greedy": `greedy_generate` on the sharded LM (plain, int8 or int4),
+  with the prefill's last logits gathered over dp;
+- "lookup": `lookup_greedy_generate_batched` on the sharded LM;
+- "paged_lookup": `decode_chunk_lookup` over a fresh paged pool of the
+  rank's heads, every rank on every row;
+- "engine": the continuous engine on an `OCR2Pipeline` whose LM is
+  sharded, every rank on every page;
+- "ffn": one layer's `ffn` on given rows (a decode or prefill MoE or MLP
+  under the mesh);
+- "qlinear": the whole output of quantized linears split over mp
+  (`_qlinear_mp`), and of an int4 SwiGLU MLP;
 - "ocr_prefill": the OCR prefill's last logits on each dp rank's pages;
 - "ocr_steps": `ocr_loss`'s gathered gradients, whether the vision
   towers' gradients are equal on every rank, then AdamW OCR steps.
-Params arrive whole (a CPU tree, e.g. from `params_from_jax`) or as a
-recipe for random ones made on the rank's device ({"random": seed,
-"dtype": ...}); every rank cuts its own shards.
+Params arrive whole (a CPU tree, e.g. from `params_from_jax`, plain or
+quantized) or as a recipe for random ones made on the rank's device
+({"random": seed, "dtype": ..., and "quant": (scope, bits) to quantize
+them there}); every rank cuts its own shards (`lm_param_specs`, or
+`lm_param_specs_q8` for a quantized tree).
 """
 
 from __future__ import annotations
@@ -32,11 +44,11 @@ import torch.nn.functional as F
 from ..models import deepseek_v2 as dsv2
 from ..models.deepseek_ocr2 import ocr_prefill_embeds_batched
 from ..runtime import train
-from ..runtime.generate import greedy_generate
+from ..runtime.generate import greedy_generate, lookup_greedy_generate_batched
 from ..runtime.kv_cache import make_kv_cache
 from .collectives import _all_gather, all_gather_dp, equal_across
-from .mesh import Mesh, dp_rows, make_mesh
-from .sharding import gather_leaves, lm_param_specs, shard_params, split_dim
+from .mesh import Mesh, dp_rows, make_mesh, replicated_rows
+from .sharding import gather_leaves, lm_param_specs, lm_param_specs_q8, local_slice, shard_params, split_dim
 
 
 def random_lm_params(cfg, seed: int, device, dtype=torch.float32) -> Dict[str, Any]:
@@ -83,13 +95,16 @@ def replicate(tree, device):
 
 
 def shard_lm(spec, cfg, mesh: Mesh):
-    """This rank's shards of the LM `spec`: a whole tree, or a recipe for
-    random params made on the rank's device ({"random": seed, "dtype"})."""
+    """This rank's shards of the LM `spec`: a whole tree (plain or
+    quantized), or a recipe for random params made on the rank's device
+    ({"random": seed, "dtype", and optionally "quant": (scope, bits))."""
     if isinstance(spec, dict) and "random" in spec:
         full = random_lm_params(cfg, spec["random"], mesh.device, spec.get("dtype", torch.float32))
+        if spec.get("quant"):
+            full = dsv2.quantize_lm_params(full, *spec["quant"])
     else:
         full = spec
-    out = shard_params(full, mesh, lm_param_specs(cfg))
+    out = shard_params(full, mesh, lm_param_specs_q8(cfg, full) if dsv2.is_quantized(full) else lm_param_specs(cfg))
     del full
     return out
 
@@ -153,13 +168,133 @@ def lm_steps(mesh: Mesh, cfg, params, ids, mask=None, steps: int = 0, tx=None, g
     return res
 
 
+def _same(tensors, mesh: Mesh) -> bool:
+    return equal_across(tensors, mesh, "mp") and equal_across(tensors, mesh, "dp")
+
+
 def greedy(mesh: Mesh, cfg, params, ids, **kw) -> Dict[str, Any]:
     p = shard_lm(params, cfg, mesh)
     ids = torch.as_tensor(ids).to(mesh.device)
-    tokens, n_gen = greedy_generate(p, cfg, F.embedding(ids, p["embed"]), ids, **kw)
-    return {"tokens": tokens.cpu(), "n_gen": n_gen.cpu(),
-            "same_on_every_rank": equal_across([tokens, n_gen], mesh, "mp") and
-            equal_across([tokens, n_gen], mesh, "dp")}
+    stats: Dict[str, Any] = {}
+    tokens, n_gen = greedy_generate(p, cfg, F.embedding(ids, p["embed"]), ids, stats=stats, **kw)
+    logits0 = all_gather_dp(stats["logits0"].to(mesh.device), mesh)
+    return {"tokens": tokens.cpu(), "n_gen": n_gen.cpu(), "logits0": logits0.cpu(),
+            "same_on_every_rank": _same([tokens, n_gen], mesh)}
+
+
+def lookup(mesh: Mesh, cfg, params, ids, **kw) -> Dict[str, Any]:
+    p = shard_lm(params, cfg, mesh)
+    ids = torch.as_tensor(ids).to(mesh.device)
+    tokens, n_gen = lookup_greedy_generate_batched(p, cfg, F.embedding(ids, p["embed"]), ids, **kw)
+    return {"tokens": tokens.cpu(), "n_gen": n_gen.cpu(), "same_on_every_rank": _same([tokens, n_gen], mesh)}
+
+
+def paged_lookup(mesh: Mesh, cfg, params, tokens, cur_len: int, page: int, kv_dtype=torch.float32,
+                 **kw) -> Dict[str, Any]:
+    """`decode_chunk_lookup` from `tokens` [B, tok_cap] (cur_len valid a
+    row, limit tok_cap) over a fresh pool of the rank's heads, page i + 1
+    the i-th page of the rows in order; every rank runs every row."""
+    from ..runtime.continuous import DecodeState, decode_chunk_lookup
+    from ..runtime.paged_kv import make_paged_kv_cache, pages_for
+
+    p = shard_lm(params, cfg, mesh)
+    p["mesh"] = replicated_rows(mesh)
+    dev = mesh.device
+    b, tok_cap = tokens.shape
+    n_per = pages_for(tok_cap, page)
+    pool = make_paged_kv_cache(cfg.num_hidden_layers, b * n_per + 1, dsv2.n_heads(cfg, mesh), page, cfg.head_dim,
+                               dtype=kv_dtype, device=dev, slots=b)
+    state = DecodeState.empty(b, tok_cap, dev)
+    state.tokens.copy_(torch.as_tensor(tokens))
+    state.cur_lens.fill_(cur_len)
+    state.done.fill_(False)
+    state.limits.fill_(tok_cap)
+    tables = torch.arange(1, b * n_per + 1, dtype=torch.int32, device=dev).reshape(b, n_per)
+    status = decode_chunk_lookup(p, cfg, pool, state, tables, rope=dsv2.rope_consts(cfg, dev), **kw)
+    return {"tokens": state.tokens.cpu(), "status": status.cpu(), "same_on_every_rank": _same([state.tokens], mesh)}
+
+
+def engine(mesh: Mesh, cfg, params, tokenizer_json: str, pages, lookups, slots: int, capacity: int,
+           chunk_steps: int, kv_dtype: str = "float32", act_dtype: str = "float32", single: bool = False,
+           late_rank: int = -1, late_seconds: float = 0.0, **kw) -> Dict[str, Any]:
+    """The continuous engine on every page (uint8 HWC arrays) for each
+    lookup chunk of `lookups`; {lookup: [token ids of each page]}, "start":
+    the refusal of online serving on the sharded pipeline (None if it
+    started), and with `single` "single": `generate_ocr`'s token ids of the
+    first page on the same pipeline. On rank `late_rank` every page after
+    the first is preprocessed `late_seconds` late."""
+    from PIL import Image
+    from tokenizers import Tokenizer
+
+    from ..runtime.continuous import ContinuousOCREngine
+    from ..runtime.pipeline import OCR2Pipeline
+
+    pipe = OCR2Pipeline(shard_ocr(params, cfg, mesh), cfg, Tokenizer.from_str(tokenizer_json), device=mesh.device,
+                        kv_dtype=kv_dtype, act_dtype=act_dtype)
+    images = [Image.fromarray(a) for a in pages]
+    out: Dict[str, Any] = {}
+    for chunk in lookups:
+        eng = ContinuousOCREngine(pipe, slots=slots, capacity=capacity, chunk_steps=chunk_steps, lookup_chunk=chunk)
+        if dist.get_rank() == late_rank:
+            eng._preprocess = _late(eng._preprocess, late_seconds)
+        out[chunk] = [r.token_ids for r in eng.run(images, **kw)]
+    probe = ContinuousOCREngine(pipe, slots=slots, capacity=capacity, chunk_steps=chunk_steps)
+    try:
+        probe.start()
+        probe.stop()
+        out["start"] = None
+    except ValueError as e:
+        out["start"] = str(e)
+    if single:
+        out["single"] = pipe.generate_ocr(images[0], **kw).token_ids
+    return out
+
+
+def _late(preprocess, seconds: float):
+    """`preprocess` that sleeps `seconds` first on every page but the first."""
+    calls = []
+
+    def late(req):
+        if calls:
+            time.sleep(seconds)
+        calls.append(req)
+        return preprocess(req)
+
+    return late
+
+
+def ffn(mesh: Mesh, cfg, params, layer: int, x, decode: bool) -> Dict[str, Any]:
+    """Layer `layer`'s `ffn` on the rows x [N, H] (every rank the same
+    rows: the mesh seen with dp 1)."""
+    p = shard_lm(params, cfg, mesh)
+    x = torch.as_tensor(x).to(mesh.device)
+    with torch.no_grad():
+        out = dsv2.ffn(x, p["layers"][layer], cfg, decode=decode, mesh=replicated_rows(mesh))
+    return {"out": out.cpu(), "same_on_every_rank": equal_across([out], mesh, "mp")}
+
+
+def qlinear(mesh: Mesh, linears, x, mlp=None) -> Dict[str, Any]:
+    """The whole outputs of the quantized linears `linears` ({name:
+    {"q8" or "q4", "scale"}} whole) on x, each split over mp as
+    `lm_param_specs_q8` splits wqkv (`_qlinear_mp`, decode and prefill
+    forms), and of the int4 SwiGLU `mlp` ({"gu", "down"}) split as the
+    dense MLP."""
+    x = torch.as_tensor(x).to(mesh.device)
+
+    def cut(w, owner):
+        return {leaf: local_slice(f"layers.0.{owner}.{leaf}", t, mesh).to(mesh.device).contiguous()
+                for leaf, t in w.items()}
+
+    res: Dict[str, Any] = {}
+    with torch.no_grad():
+        for name, w in linears.items():
+            shard = cut(w, "wqkv")
+            for decode in (True, False):
+                res[f"{name}.{'decode' if decode else 'prefill'}"] = dsv2._qlinear_mp(x, shard, mesh, decode).cpu()
+        if mlp is not None:
+            shards = {"gu": cut(mlp["gu"], "mlp.gu"), "down": cut(mlp["down"], "mlp.down")}
+            res["mlp"] = dsv2._mlp_mp(x, shards, mesh, True).cpu()
+    return res
 
 
 def shard_ocr(params, cfg, mesh: Mesh):
@@ -177,7 +312,7 @@ def ocr_prefill(mesh: Mesh, cfg, params, ids, images, image_start: int = 1) -> D
     with torch.no_grad():
         embeds = ocr_prefill_embeds_batched(p, cfg, ids_l, imgs, None, image_start)
         lm, b, s = cfg.lm, ids_l.shape[0], ids_l.shape[1]
-        cache = make_kv_cache(lm.num_hidden_layers, b, dsv2.n_heads(p["lm"]["layers"][0], lm), s, lm.head_dim,
+        cache = make_kv_cache(lm.num_hidden_layers, b, dsv2.n_heads(lm, mesh), s, lm.head_dim,
                               dtype=torch.float32, device=mesh.device)
         hidden = dsv2.lm_forward(p["lm"], lm, embeds, cache, pos=0, is_prefill=True)
         logits = all_gather_dp(dsv2.logits_last(p["lm"], hidden), mesh)
@@ -206,7 +341,8 @@ def ocr_steps(mesh: Mesh, cfg, params, ids, images, patches, image_start: int, m
     return res
 
 
-KINDS = {"lm_steps": lm_steps, "greedy": greedy, "ocr_prefill": ocr_prefill, "ocr_steps": ocr_steps}
+KINDS = {"lm_steps": lm_steps, "greedy": greedy, "lookup": lookup, "paged_lookup": paged_lookup, "engine": engine,
+         "ffn": ffn, "qlinear": qlinear, "ocr_prefill": ocr_prefill, "ocr_steps": ocr_steps}
 
 
 def run_cases(rank: int, world: int, device, cases: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -44,6 +44,18 @@ Device and host:
   pixels. Pages ship one at a time: the JAX package's stacked ship of
   bucket-padded pages paid a per-transfer fee the card does not have.
 
+On a pipeline whose LM is sharded onto a mesh (`OCR2Pipeline` takes one)
+every rank runs this same scheduler on the same pages, its host and
+device state replicated (the JAX engine's uncommitted state is), the
+vision towers whole; the pool holds the rank's heads, and the LM's
+collectives run over mp alone (the pipeline's view of the mesh has dp 1:
+each rank holds every slot). The ranks' schedules stay equal because
+nothing in them reads a clock or another thread's progress there: an
+admission waits for the head of the queue to be preprocessed (no grace
+for pages still in flight), and preemption picks its victims by admission
+order. Online serving (`start`) is refused on such a pipeline: each rank's
+submissions would arrive at its own times.
+
 `DEEPSEEK_DEBUG_SERVE` (any value) prints a wall-clock trace of the serve
 loop to stderr: admission, decode chunk, harvest and preprocess waits.
 """
@@ -61,9 +73,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import DeepseekV2Config
-from ..models.deepseek_v2 import lm_forward, logits_all, logits_last, vocab_size_of
+from ..models.deepseek_v2 import lm_forward, logits_all, logits_last, n_heads, vocab_size_of
 from ..ops import prng
 from ..ops.sampling import greedy_pick, ngram_ban_mask_batched, sample_pick
+from ..parallel.mesh import mesh_of
 from ..utils.debug import dbg_print, enabled
 from ..utils.tokenizer import decode_output, tokenize_with_image
 from .engine import batched_vision_prefill
@@ -111,7 +124,7 @@ def admit_prefill(
     Hh, cap, D], v, first token [G]); the first token is greedy, also when
     the engine samples."""
     g, s, _ = embeds.shape
-    cache = make_kv_cache(cfg.num_hidden_layers, g, cfg.num_attention_heads, capacity, cfg.head_dim,
+    cache = make_kv_cache(cfg.num_hidden_layers, g, n_heads(cfg, lm_params.get("mesh")), capacity, cfg.head_dim,
                           dtype=kv_dtype, device=embeds.device)
     hidden = lm_forward(lm_params, cfg, embeds, cache, pos=0, is_prefill=True, rope=rope)
     logits = logits_last(lm_params, hidden)  # [G, V]
@@ -500,6 +513,9 @@ class ContinuousOCREngine:
         """Online mode: spawn the serve loop; `submit` feeds it."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
+        if mesh_of(self.pipe.params) is not None:
+            raise ValueError("online serving takes an unsharded LM: on a sharded one every rank must admit the "
+                             "same pages at the same step, which its own arrival times cannot promise; use run()")
         self._check_lookup(sampling)
         self._stop = False
         self._thread = threading.Thread(target=self._serve,
@@ -567,12 +583,13 @@ class ContinuousOCREngine:
         base_seed = sampling.get("seed", 0)
         self._check_lookup(sampling)
         use_lookup = self.lookup_chunk >= 2
+        sharded = mesh_of(pipe.params) is not None  # every rank must schedule alike: see the module docstring
 
         # The quantized pools quantize at the pool boundary; the transient
         # contiguous prefill cache keeps the activation dtype.
         quantized = isinstance(pipe.kv_dtype, str)
         prefill_kv = pipe.act_dtype if quantized else pipe.kv_dtype
-        cache = make_paged_kv_cache(lm_cfg.num_hidden_layers, self.num_pages, lm_cfg.num_attention_heads, page,
+        cache = make_paged_kv_cache(lm_cfg.num_hidden_layers, self.num_pages, n_heads(lm_cfg, lm.get("mesh")), page,
                                     lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev, slots=b)
         alloc = PageAllocator(self.num_pages)
         self.alloc = alloc  # monitors read n_free while the loop runs
@@ -590,8 +607,10 @@ class ContinuousOCREngine:
         prompt_lens: Dict[int, int] = {}
         slot_limits: Dict[int, int] = {}
         admit_t: Dict[int, float] = {}
+        admit_no: Dict[int, int] = {}  # admission order, which preemption reads (equal on every rank)
         prefill_t: Dict[int, float] = {}
         n_preempted = 0
+        n_admitted = 0
 
         def group_key(req: OCRRequest):
             return (req.pre[2], req.prompt)
@@ -599,6 +618,7 @@ class ContinuousOCREngine:
         def admit_group(slot_ids: List[int], reqs: List[OCRRequest]):
             """One batched vision pass + LM prefill + pool scatter for pages
             sharing a crop grid and prompt (max_new may vary)."""
+            nonlocal n_admitted
             t0 = time.perf_counter()
             g = len(reqs)
             pre = [r.pre for r in reqs]
@@ -644,6 +664,8 @@ class ContinuousOCREngine:
                 done_np[slot] = bool(done0_h[row])
                 lens_np[slot] = s + 1
                 admit_t[slot] = time.perf_counter()
+                admit_no[slot] = n_admitted
+                n_admitted += 1
                 prefill_t[slot] = dt
 
         # Host preprocessing overlaps decode: a worker thread preprocesses
@@ -735,14 +757,15 @@ class ContinuousOCREngine:
             """Admit pending pages into free slots in power-of-two groups that
             share (crop grid, prompt). With the decoder idle, admit as soon as
             some pages are ready (after a short grace for the rest) instead
-            of waiting for the whole head of the queue."""
+            of waiting for the whole head of the queue; on a sharded LM it
+            waits, so that every rank admits the same pages."""
             free = [s for s in range(b) if s not in slot_req]
             while free:
                 with cv:
                     take = list(pending[: len(free)])
                 if not take:
                     return
-                if not slot_req:
+                if not slot_req and not sharded:
                     grace = 0.25
                     t_first = None
                     with cv:
@@ -761,7 +784,10 @@ class ContinuousOCREngine:
                             cv.wait(timeout=0.05)
                     take = ready if ready else ensure_preprocessed(take)
                 else:
+                    n_take = len(take)
                     take = ensure_preprocessed(take)
+                    if len(take) < n_take:
+                        continue  # failures left the queue: look again, so that every rank takes the same pages
                 if not take:
                     continue  # failures dropped; look again
                 key0 = group_key(take[0])
@@ -810,7 +836,7 @@ class ContinuousOCREngine:
             req = slot_req.pop(slot)
             alloc.release(slot_pages.pop(slot))
             block_tables_np[slot] = 0
-            for d in (prompt_lens, slot_limits, admit_t, prefill_t):
+            for d in (prompt_lens, slot_limits, admit_t, admit_no, prefill_t):
                 d.pop(slot)
             done_np[slot] = True
             state.done[slot] = True
@@ -828,7 +854,7 @@ class ContinuousOCREngine:
             and evicts A, ...). With strictly younger victims the oldest
             sequence always finishes and the pool drains. A slot that finds
             no younger victim gives its own pages back and waits."""
-            for slot in sorted(slot_req, key=lambda s2: admit_t[s2]):
+            for slot in sorted(slot_req, key=lambda s2: admit_no[s2]):
                 if slot not in slot_req or done_np[slot]:
                     continue
                 needed = pages_for(min(int(lens_np[slot]) + self.dispatch_tokens, slot_limits[slot]), page)
@@ -838,9 +864,9 @@ class ContinuousOCREngine:
                 preempted_self = False
                 while alloc.n_free < needed - have:
                     victims = [s2 for s2 in slot_req
-                               if s2 != slot and not done_np[s2] and admit_t[s2] > admit_t[slot]]
+                               if s2 != slot and not done_np[s2] and admit_no[s2] > admit_no[slot]]
                     if victims:
-                        preempt(max(victims, key=lambda s2: admit_t[s2]))
+                        preempt(max(victims, key=lambda s2: admit_no[s2]))
                         continue
                     if not any(s2 != slot and not done_np[s2] for s2 in slot_req):
                         raise RuntimeError("KV page pool exhausted with one active slot; "
@@ -885,6 +911,7 @@ class ContinuousOCREngine:
                 all_ids = toks_h[row, : int(lens_np[slot])].tolist()
                 p_len = prompt_lens.pop(slot)
                 slot_limits.pop(slot)
+                admit_no.pop(slot)
                 gen_ids = all_ids[p_len:]
                 alloc.release(slot_pages.pop(slot))
                 block_tables_np[slot] = 0

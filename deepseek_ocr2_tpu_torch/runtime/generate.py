@@ -17,10 +17,13 @@ differs: 1..chunk tokens a forward, the tokens of plain greedy decoding up
 to chunk-width rounding. Greedy only; eager and on the device, one flag
 read back a forward.
 
-On params sharded onto a mesh (`parallel.shard_params`), `greedy_generate`
-takes the whole batch on every rank, decodes the rank's dp rows with the
-rank's heads (its cache holds their K/V) and experts, and gathers the
-tokens over dp: every rank returns the same tokens.
+On params sharded onto a mesh (`parallel.shard_params`, plain, int8 or
+int4), `greedy_generate` and `lookup_greedy_generate_batched` take the
+whole batch on every rank, decode the rank's dp rows with the rank's heads
+(its cache holds their K/V) and experts, and gather the tokens over dp:
+every rank returns the same tokens. The mp ranks of a dp row hold the same
+rows and the same logits, so they leave their loops together; the dp rows
+meet only in the final gather.
 """
 
 from __future__ import annotations
@@ -92,8 +95,7 @@ def greedy_generate(
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
     cache = make_kv_cache(
-        cfg.num_hidden_layers, b, n_heads(params["layers"][0], cfg), capacity, cfg.head_dim,
-        dtype=kv_dtype, device=device,
+        cfg.num_hidden_layers, b, n_heads(cfg, mesh), capacity, cfg.head_dim, dtype=kv_dtype, device=device,
     )
 
     t0 = time.perf_counter()
@@ -204,22 +206,26 @@ def lookup_greedy_generate_batched(
     [B, S + max_new] int64, n_generated [B]) as `greedy_generate` does, and
     with return_steps the forwards run (the prefill counts as one) as a
     third element. `stats` and `rope` as in `greedy_generate` (no
-    per-step logits)."""
+    per-step logits). Sharded params: see the module docstring (the
+    forwards are the rank's rows')."""
     device = inputs_embeds.device
-    b, s, _ = inputs_embeds.shape
+    mesh = params.get("mesh")
+    b_all, s, _ = inputs_embeds.shape
     if s + max_new_tokens + chunk - 1 > capacity:
         raise ValueError(f"capacity {capacity} < prompt {s} + max_new_tokens {max_new_tokens} + chunk {chunk} - 1")
     if chunk < 2 or match_n < 1:
         raise ValueError(f"lookup decoding takes chunk >= 2 and match_n >= 1, got {chunk}, {match_n}")
-    if params.get("mesh") is not None:
-        raise ValueError("lookup decoding takes unsharded params")
     if prompt_ids.ndim == 1:
         prompt_ids = prompt_ids[None]
+    inputs_embeds = dp_rows(inputs_embeds, mesh)
+    if prompt_ids.shape[0] == b_all > 1:
+        prompt_ids = dp_rows(prompt_ids, mesh)
+    b = inputs_embeds.shape[0]
     vocab = vocab_size_of(params)
     t_buf = s + max_new_tokens
     rope = rope if rope is not None else rope_consts(cfg, device)
-    cache = make_kv_cache(cfg.num_hidden_layers, b, n_heads(params["layers"][0], cfg), capacity, cfg.head_dim,
-                          dtype=kv_dtype, device=device)
+    cache = make_kv_cache(cfg.num_hidden_layers, b, n_heads(cfg, mesh), capacity, cfg.head_dim, dtype=kv_dtype,
+                          device=device)
     rows = torch.arange(b, device=device)
 
     t0 = time.perf_counter()
@@ -263,6 +269,7 @@ def lookup_greedy_generate_batched(
     if stats is not None:
         _sync(device)
         stats["decode_s"] = time.perf_counter() - t1
+    tokens, n_gen = all_gather_dp(tokens, mesh), all_gather_dp(n_gen, mesh)
     return (tokens, n_gen, steps) if return_steps else (tokens, n_gen)
 
 

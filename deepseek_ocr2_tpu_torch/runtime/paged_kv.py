@@ -28,6 +28,14 @@ dynamic_update_slice chain (paged_kv.py:221-241) works around XLA's copy of
 a scattered carry; here one `index_put_` per pool plane and layer writes
 every row's tokens, in plain decode (one a row) as in the chunk mode (S a
 row, each at its own page and offset).
+
+On params sharded onto a mesh (`parallel.shard_params`) the pool holds the
+rank's heads (`models.deepseek_v2.n_heads`), Hh = heads / mp, and a step
+runs the rank's heads, columns and experts with the mesh's collectives
+(the projections of `models.deepseek_v2`: `qkv_proj`, `out_proj`, `ffn`).
+The int8 pools quantize each (token, head) vector on its own, so a rank's
+pool of its heads holds exactly the codes and scales of those heads in the
+whole pool: they need nothing more under mp.
 """
 
 from __future__ import annotations
@@ -38,8 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..configs import DeepseekV2Config
-from ..models.deepseek_v2 import ffn, qkv_proj, rope_consts
-from ..ops.linear_q8 import qmm
+from ..models.deepseek_v2 import ffn, n_heads, out_proj, qkv_proj, rope_consts
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_rows, rope_rows
 from ..ops.paged_attention import (
@@ -201,8 +208,10 @@ def _paged_attention_step(
     pos: torch.Tensor,  # [B] position of xn[:, 0]
     cos_b: torch.Tensor,  # [B, 1, S, D]
     sin_b: torch.Tensor,
+    mesh=None,
 ) -> torch.Tensor:
-    """QKV + per-row RoPE + paged KV write + attention + out projection.
+    """QKV + per-row RoPE + paged KV write + attention + out projection
+    (the rank's heads under a `mesh`).
     Token j of row r sits at posq = pos + j, lands in page
     block_tables[r, posq // page] at offset posq % page, and attends over
     its posq + 1 tokens: kernel G (Q for S > 1) on an f32 / bf16 pool, P (R)
@@ -214,8 +223,8 @@ def _paged_attention_step(
     Tokens past a row's allocation land on the scratch page 0, whose
     block-table entries fill the rest of the row."""
     b, s, h = xn.shape
-    nh, d = cfg.num_attention_heads, cfg.head_dim
-    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(xn.reshape(b * s, h), layer, True))
+    nh, d = n_heads(cfg, mesh), cfg.head_dim
+    q, k, v = (t.reshape(b, s, nh, d).transpose(1, 2) for t in qkv_proj(xn.reshape(b * s, h), layer, True, cfg, mesh))
     q32, k32 = apply_rope_rows(q, k, cos_b, sin_b)
     k_new, v_new = k32.transpose(1, 2), v.float().transpose(1, 2)  # [B, S, Hh, D]
 
@@ -247,7 +256,7 @@ def _paged_attention_step(
         v_pool[li][page_ids, :, off] = v_new.to(v_pool.dtype)
         attend = paged_decode_attention_pool if s == 1 else paged_decode_attention_pool_chunk
         ctx = attend(q_in, k_pool, v_pool, block_tables, seq_lens, li, scale=scale)
-    return qmm(ctx.reshape(b * s, h).to(xn.dtype), layer["wo"], decode=True).reshape(b, s, h)
+    return out_proj(ctx.reshape(b * s, nh * d).to(xn.dtype), layer["wo"], mesh, True).reshape(b, s, h)
 
 
 @torch.no_grad()
@@ -267,16 +276,17 @@ def lm_decode_step_paged(
     linears run kernel H, int4 ones L, and the attention kernel G (Q for a
     chunk) on an f32 or bf16 pool and P (R) on a quantized one, whatever
     the weights (the JAX package's `_lm_decode_step_paged_q8` is this
-    loop)."""
+    loop). Sharded params: see the module docstring."""
     b, s, h = embeds.shape
     cos, sin = rope if rope is not None else rope_consts(cfg, embeds.device)
     cos_b, sin_b = rope_rows(cos, sin, pos, s)  # once a step, for every layer
+    mesh = params.get("mesh")
     x = embeds
     for li, layer in enumerate(params["layers"]):
         res = x
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        x = res + _paged_attention_step(xn, layer, cfg, cache, li, block_tables, pos, cos_b, sin_b)
+        x = res + _paged_attention_step(xn, layer, cfg, cache, li, block_tables, pos, cos_b, sin_b, mesh)
         res = x
         xn = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=True).reshape(b, s, h)
+        x = res + ffn(xn.reshape(b * s, h), layer, cfg, decode=True, mesh=mesh).reshape(b, s, h)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)

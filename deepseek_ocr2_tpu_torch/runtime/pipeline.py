@@ -28,6 +28,14 @@ DEEPSEEK_DEBUG_TOKENS (each generated id), and through
 `kv_dtype` "int8" / "int8tail" selects the quantized paged pools, which
 only the continuous engine has; `generate_ocr` and the group engine refuse
 them through `make_kv_cache`, as the JAX package does.
+
+The LM may be sharded onto a mesh (`parallel.shard_params`, plain, int8 or
+int4; the towers stay whole): every rank then runs the same pages, as the
+JAX package's pipeline runs its uncommitted inputs replicated, so the
+pipeline keeps the mesh with dp 1 (`parallel.mesh.replicated_rows`: every
+rank holds every row, the LM's collectives run over mp alone).
+`generate_ocr`, the group engine and the continuous engine all run on it
+through the sharded forward; the debug prefill dumps refuse it.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from ..configs import OCR2Config
 from ..models import deepseek_ocr2 as ocr2
 from ..models.deepseek_v2 import rope_consts
+from ..parallel.mesh import mesh_of, replicated_rows
 from ..utils.debug import dbg_print, dbg_stats, enabled
 from ..utils.tokenizer import decode_output, tokenize_text, tokenize_with_image
 from .generate import greedy_generate, lookup_greedy_generate
@@ -90,8 +99,11 @@ class OCR2Pipeline:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but no CUDA device is available")
-        if isinstance(params.get("lm"), dict) and "mesh" in params["lm"]:
-            raise ValueError("the OCR pipeline and the serving engines take unsharded params")
+        mesh = mesh_of(params)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the LM's shards lie on {mesh.device}, the pipeline runs on {self.device}")
+            params = {**params, "lm": {**params["lm"], "mesh": replicated_rows(mesh)}}
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

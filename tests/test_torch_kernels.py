@@ -1973,3 +1973,46 @@ def test_cuda_remaining_kernels_make_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 1), (torch.bfloat16, 16), (torch.bfloat16, 40),
+                                     (torch.float32, 16)])
+def test_cuda_moe_quant_on_local_ids(cuda, bits, fused, dtype, b):
+    """I / M (per selection) and J / N (visits) on one rank's 32 of 64
+    experts under expert parallelism (`local_routing` ids: another rank's
+    selection id 32, weight 0), every form (bf16 x: the streams; f32 x:
+    the first form; B 40: two groups of 32 rows): f32 out within the
+    twin's tolerance and the two ranks' partials summing to the whole; x's
+    dtype out the same sum rounded once (within the tolerance); a batch
+    with no local selection exact zeros; no pseudo-expert is read."""
+    from deepseek_ocr2_tpu_torch.ops.moe import local_routing
+
+    case = _q8_moe_case if bits == 8 else _q4_moe_case
+    x, eq, weights, idx = case(cuda, dtype, b, n_sh=0)
+    if bits == 8:
+        fn, twin = ((moe_decode.moe_ffn_decode_q8_fused, moe_decode.moe_ffn_decode_q8_visits_reference) if fused
+                    else (moe_q8.moe_ffn_decode_q8, moe_q8.moe_ffn_decode_q8_reference))
+    else:
+        fn, twin = ((moe_q4.moe_ffn_decode_q4_fused, moe_q4.moe_ffn_decode_q4_visits_reference) if fused
+                    else (moe_q4.moe_ffn_decode_q4, moe_q4.moe_ffn_decode_q4_reference))
+    whole = twin(x, eq, weights, idx, out_dtype=torch.float32)
+    parts = []
+    for rank, sel in ((0, idx), (1, idx), (0, idx % 32 + 32)):
+        w_l, idx_l = local_routing(weights, sel, 32, rank)
+        local = {n: t[rank * 32:(rank + 1) * 32] for n, t in eq.items()}
+        got = fn(x, local, w_l, idx_l, out_dtype=torch.float32)
+        rounded = fn(x, local, w_l, idx_l)
+        torch.cuda.synchronize()
+        ref = twin(x, local, w_l, idx_l, out_dtype=torch.float32)
+        assert got.dtype == torch.float32 and rounded.dtype == dtype
+        assert float((got - ref).abs().max()) <= _tol(whole, torch.bfloat16)
+        assert float((rounded.float() - ref).abs().max()) <= _tol(whole, dtype if dtype == torch.bfloat16
+                                                                   else torch.bfloat16)
+        if sel is not idx:
+            assert torch.equal(got, torch.zeros_like(got)) and torch.equal(rounded, torch.zeros_like(rounded))
+        else:
+            parts.append(got)
+    assert float((parts[0] + parts[1] - whole).abs().max()) <= _tol(whole, torch.bfloat16)
