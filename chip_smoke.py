@@ -21,11 +21,15 @@ Phases (each raises on failure, so the exit code is non-zero):
    the prompts of the crop pages and a training step's forward, E also at
    its recompute), F (B 16 and 32 in bf16, 16 in f32; and on one
    rank's 32 experts under expert parallelism, local ids, out f32 and
-   bf16, with a batch none of whose selections is the rank's)
-   and L (at lm_head) also in a CUDA graph, beside the library call in one
+   bf16, with a batch none of whose selections is the rank's), Y (the
+   grouped-GEMM MoE's forward, below) and L (at lm_head) also in a CUDA graph, beside the library call in one
    where there is one, with A's visited and skipped key
-   tiles at 1125 tokens; the grouped-GEMM MoE (D, E)
-   also whole against its grouped twin; D+E, F, H-O and P once each
+   tiles at 1125 tokens; the grouped-GEMM MoE's forward whole (Y, the
+   routed chain: the layout kernel against its twin integer for integer,
+   D through its slot -> token map, E through its slot -> row map, the
+   combine run twice bit-equal) against its grouped twin, with its launches
+   a call (at most 5) and its CUDA-graph replay against eager; Y, F, H-O
+   and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
    batched-decode MoE layer timed in its three forms at the B * k <= E
@@ -34,8 +38,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    attention, one and 16 rows), X (G's device code on a per-sequence
    pool), V (SAM's windowed attention, the bias built in the kernel, at
    win 14 for the 1024^2 view's 25 windows and six crops' 96, and the 16 /
-   14 padded form) and W (the boundary-visit grouped GEMM, both modes, its
-   ffn mode also against D then E), each with its time in a CUDA graph
+   14 padded form) and W (the boundary-visit grouped GEMM, both modes, on
+   D's and E's kernels, its ffn mode also against D then E), each with its
+   time in a CUDA graph
    (U and V with the library call's beside it);
 3. model: HF-layout random weights for the full-width default OCR2Config
    (about 3.4 B parameters) from a seeded torch.Generator on the card,
@@ -393,13 +398,19 @@ def no_host_sync(dev, what: str, fn):
 
 
 def gmm_results(dev, randn, record) -> None:
-    """Kernels D and E at the LM's MoE shapes (E = 64, k = 6, H = 1280,
-    I = 896) for the prompts of a 2-crop and a 6-crop page (N = 550, 1125)
-    and the forward of one training step (N = TRAIN_B x TRAIN_S = 2048),
-    routed by a random f32 router: each kernel alone against its per-tile
-    twin on the same aligned rows, then the whole `moe_ffn_gmm` against the
-    grouped twin `moe_ffn_gmm_reference`, and the dense form's time at
-    N = 550 (the 512-row cut-over). One call runs in sync-debug mode."""
+    """Kernels D and E and the routed chain Y at the LM's MoE shapes (E = 64,
+    k = 6, H = 1280, I = 896) for the prompts of a 2-crop and a 6-crop page
+    (N = 550, 1125) and the forward of one training step (N = TRAIN_B x
+    TRAIN_S = 2048), routed by a random f32 router: the layout kernel
+    integer for integer against its twin (the torch forms); D as the
+    forward calls it (x through the slot -> token map) and E (each slot's y
+    to its token-major row) against their per-tile twins on the aligned
+    rows; the whole `moe_ffn_gmm` (Y: the layout kernel, D, E, the combine
+    kernel) against the grouped twin `moe_ffn_gmm_reference`, the combine
+    run twice bit-equal; at bf16 the chain's launches a call, its CUDA-graph
+    replay against eager and D against the gather + D it replaced; the
+    dense form's time at N = 550 (the 512-row cut-over). One call runs in
+    sync-debug mode."""
     from deepseek_ocr2_tpu_torch.ops import moe_gmm
     from deepseek_ocr2_tpu_torch.ops.moe import moe_ffn_dense, route
 
@@ -413,94 +424,157 @@ def gmm_results(dev, randn, record) -> None:
                 "down": randn(e, h, i, std=i**-0.5, dtype=dt),
             }
             weights, idx = route(x, randn(e, h, std=h**-0.5), k)
-            x_al, e_tile, tile_valid, _ = moe_gmm.align_rows(x, idx, e)
+            lay = moe_gmm.routed_layout(idx, e)
+            twin = moe_gmm.routed_layout_reference(idx, e)
+            bad = [name for name, a, b in zip(twin._fields, lay, twin) if a.dtype != b.dtype or not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"the layout kernel differs from its twin at N {n}: {bad}")
+            x_al, e_tile, tile_valid, rows = moe_gmm.align_rows(x, idx, e)  # the twins' aligned rows
             n_valid = int(tile_valid.sum())
             dts = str(dt)[6:]
             case = f"N {n} k {k}: {tile_valid.numel()} tiles, {n_valid} valid, {dts}"
+            print(f"[kernel] Y layout {case}: equal to its twin integer for integer ok")
             # This routing's work: the selected experts' weights once, the
             # N * k (row, expert) products.
             n_used = int(torch.unique(idx).numel())
             w_expert = nbytes(ex["gate"][0])
             flops_gu, flops_d = 2 * 2 * n * k * h * i, 2 * n * k * i * h
+            sched = (lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo)
 
-            # D and E as the forward calls them: bf16 on S's schedule, built
-            # once a layer (outside the wrappers' time).
-            sched = moe_gmm.row_schedule(e_tile, tile_valid, e) if dt == torch.bfloat16 else ()
+            # D as the forward calls it: x through the slot -> token map.
+            def d_call():
+                return moe_gmm.moe_gmm_swiglu(x, ex["gate"], ex["up"], *sched, x_rows=lay.x_rows)
+
             args_d = (x_al, ex["gate"], ex["up"], e_tile, tile_valid)
             act = moe_gmm.gmm_swiglu_reference(*args_d)
             torch.full(act.shape, float("nan"), dtype=dt, device=dev)  # D's output block: an unwritten row shows
-            got = moe_gmm.moe_gmm_swiglu(*args_d, *sched)
+            got = d_call()
             # Library (bf16): the gate||up products alone ([E, 2I, H]
             # concatenated outside the timing), no SwiGLU.
             library = (grouped_mm_library("D", x_al, torch.cat([ex["gate"], ex["up"]], 1), e_tile, tile_valid)
                        if dt == torch.bfloat16 else None)
-            record("D", f"swiglu {case}", act, got, tolerance(act, dt),
-                   median_ms(lambda: moe_gmm.moe_gmm_swiglu(*args_d, *sched)),
+            record("D", f"swiglu {case}", act, got, tolerance(act, dt), median_ms(d_call),
                    median_ms(lambda: moe_gmm.gmm_swiglu_reference(*args_d)),
                    bound_ms(row_bytes(n * k, x_al, act) + 2 * n_used * w_expert, flops_gu, dt), library,
-                   graph=lambda: moe_gmm.moe_gmm_swiglu(*args_d, *sched), library_graph=True)
+                   graph=d_call, library_graph=True)
+            if dt == torch.bfloat16:
+                # The forward before the chain: the rows gathered into an
+                # [S, H] copy by torch, then D on it.
+                def gather_d():
+                    xs = moe_gmm._gather_rows(x, lay.assign, lay.slot_valid, k)
+                    return moe_gmm.moe_gmm_swiglu(xs, ex["gate"], ex["up"], *sched)
+
+                same = torch.equal(got, gather_d())
+                print(f"[kernel] D {case}: with its row map {graph_ms(d_call):.4f} ms in a CUDA graph, the torch "
+                      f"gather + D on the aligned copy {graph_ms(gather_d):.4f}; bit-equal {same}")
+                if not same:
+                    raise AssertionError(f"D with its row map differs from D on the gathered rows, {case}")
             del library
+
+            # E as the forward calls it: each slot's y to its token-major row.
+            def e_call():
+                out = torch.empty(n * k, h, dtype=dt, device=dev)
+                return moe_gmm.moe_gmm_down(act, ex["down"], *sched, out_rows=lay.y_rows, out=out)
+
             args_e = (act, ex["down"], e_tile, tile_valid)
-            y = moe_gmm.gmm_down_reference(*args_e)
+            y = moe_gmm.gmm_down_reference(*args_e).index_select(0, rows)
             # NaNs in the block the wrapper's output will reuse: a row the
             # kernel fails to write shows.
             torch.full(y.shape, float("nan"), dtype=dt, device=dev)
-            got = moe_gmm.moe_gmm_down(*args_e, *sched)
-            record("E", f"down {case}", y, got, tolerance(y, dt),
-                   median_ms(lambda: moe_gmm.moe_gmm_down(*args_e, *sched)),
+            got = e_call()
+            record("E", f"down {case}", y, got, tolerance(y, dt), median_ms(e_call),
                    median_ms(lambda: moe_gmm.gmm_down_reference(*args_e)),
                    bound_ms(row_bytes(n * k, act, y) + n_used * w_expert, flops_d, dt),
                    grouped_mm_library("E", act, ex["down"], e_tile, tile_valid),
-                   graph=lambda: moe_gmm.moe_gmm_down(*args_e, *sched), library_graph=True)
-            del act, got, y, args_d, args_e
+                   graph=e_call, library_graph=True)
+            combined = [moe_gmm.moe_combine(got, weights, idx, e, dt) for _ in range(2)]
+            if not torch.equal(*combined):
+                raise AssertionError(f"the combine kernel gave two results on the same inputs, {case}")
+            # The forward before the chain: D and E on the torch-gathered
+            # rows, the unsort by index_select, the torch combine.
+            before = moe_gmm._combine(moe_gmm.moe_gmm_down(moe_gmm.moe_gmm_swiglu(
+                moe_gmm._gather_rows(x, lay.assign, lay.slot_valid, k), ex["gate"], ex["up"], *sched),
+                ex["down"], *sched).index_select(0, rows), weights, dt)
+            same = torch.equal(moe_gmm.moe_ffn_gmm(x, ex, weights, idx), before)
+            print(f"[kernel] Y {case}: bit-equal to the forward before the chain (torch gather, D, E, index_select, "
+                  f"torch combine) {same}")
+            if not same:
+                raise AssertionError(f"the routed chain's output differs from the forward before it, {case}")
+            del got, y, args_d, args_e, combined
 
             args = (x, ex, weights, idx)
             ref = moe_gmm.moe_ffn_gmm_reference(*args)
             got = moe_gmm.moe_ffn_gmm(*args)
-            record("D+E", f"moe_ffn_gmm vs grouped twin, {case}", ref, got, tolerance(ref, dt),
+            # Library (bf16): D's and E's products alone, two torch._grouped_mm
+            # calls on the aligned rows (the SwiGLU, layout and combine left out).
+            lib_d = grouped_mm_library("D", x_al, torch.cat([ex["gate"], ex["up"]], 1), e_tile, tile_valid)
+            lib_e = grouped_mm_library("E", act, ex["down"], e_tile, tile_valid)
+            library = None
+            if lib_d is not None and lib_e is not None:
+                def library():
+                    lib_d()
+                    lib_e()
+
+            record("Y", f"moe_ffn_gmm routed chain vs grouped twin, {case}", ref, got, tolerance(ref, dt),
                    median_ms(lambda: moe_gmm.moe_ffn_gmm(*args)),
                    median_ms(lambda: moe_gmm.moe_ffn_gmm_reference(*args)),
-                   bound_ms(nbytes(x, ref, weights, idx) + 3 * n_used * w_expert, flops_gu + flops_d, dt))
+                   bound_ms(nbytes(x, ref, weights, idx) + 3 * n_used * w_expert, flops_gu + flops_d, dt), library,
+                   graph=lambda: moe_gmm.moe_ffn_gmm(*args), library_graph=True)
+            if dt == torch.bfloat16:
+                _ffn_gmm_chain(dev, args, got, case)
             if n == 550:
                 print(f"[kernel] dense all-expert MoE N {n} {dts}: "
                       f"{median_ms(lambda: moe_ffn_dense(*args)):.3f} ms")
-            if n == 550 and dt == torch.bfloat16:
-                _ffn_gmm_times(args, x_al, ex, e_tile, tile_valid, case)
             if n == 1125 and dt == torch.bfloat16:
-                no_host_sync(dev, f"D+E ({case})", lambda: moe_gmm.moe_ffn_gmm(*args))
-            del x, ex, args, ref, got
+                no_host_sync(dev, f"Y ({case})", lambda: moe_gmm.moe_ffn_gmm(*args))
+            del x, ex, args, ref, got, act, library, lib_d, lib_e, lay, twin
     torch.cuda.empty_cache()
 
 
-def _ffn_gmm_times(args, x_al, ex, e_tile, tile_valid, case) -> None:
-    """The whole `moe_ffn_gmm` (the JAX package's `_gmm_ffn_kernel_al`,
-    ported as D then E) in a CUDA graph, beside its library form: D's and
-    E's products by two `torch._grouped_mm` calls on the aligned rows (the
-    SwiGLU, the routing's layout and the combine left out)."""
+def device_activities(dev, fn) -> int:
+    """Kernels, memsets and copies one call of fn puts on the card
+    (torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+
+
+# The forward of `moe_ffn_gmm` at N 550, k 6, bf16 before the routed chain
+# (PERF.md §6, the `:247` row's earlier times, an H100 80GB HBM3 at 700.00
+# W): the wrapper's median eager ms and its ms in a CUDA graph; printed
+# beside this run's.
+PARENT_CHAIN_MS = {"eager": 1.574, "graph": 0.4228}
+
+
+def _ffn_gmm_chain(dev, args, eager, case) -> None:
+    """The routed chain of `moe_ffn_gmm` (the JAX package's
+    `_gmm_ffn_kernel_al` with its glue): its device launches a call, and its
+    replay in a CUDA graph on the same inputs equal to the eager call's
+    bits. At most 5 launches: the layout kernel, D, E and the combine."""
     from deepseek_ocr2_tpu_torch.ops import moe_gmm
 
-    def graph_or_none(fn):
-        try:
-            return graph_ms(fn)
-        except RuntimeError as exc:
-            print(f"[kernel] not captured in a CUDA graph: {str(exc).splitlines()[0][:120]}")
-            return None
-
-    whole = graph_or_none(lambda: moe_gmm.moe_ffn_gmm(*args))
-    lib_d = grouped_mm_library("D", x_al, torch.cat([ex["gate"], ex["up"]], 1), e_tile, tile_valid)
-    act = moe_gmm.gmm_swiglu_reference(x_al, ex["gate"], ex["up"], e_tile, tile_valid)
-    lib_e = grouped_mm_library("E", act, ex["down"], e_tile, tile_valid)
-    lib_ms = lib_graph = None
-    if lib_d is not None and lib_e is not None:
-        def both():
-            lib_d()
-            lib_e()
-
-        lib_ms, lib_graph = median_ms(both), graph_or_none(both)
-    fmt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
-    print(f"[kernel] :247 whole moe_ffn_gmm (D then E with the routing's layout and combine), {case}: in a CUDA "
-          f"graph {fmt(whole)} ms; library D then E by torch._grouped_mm {fmt(lib_ms)} ms (in a CUDA graph "
-          f"{fmt(lib_graph)})")
+    n_launch = device_activities(dev, lambda: moe_gmm.moe_ffn_gmm(*args))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_gmm.moe_ffn_gmm(*args)  # warm-up off the capture, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = moe_gmm.moe_ffn_gmm(*args)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    same = torch.equal(captured, eager)
+    print(f"[kernel] :247 Y, the routed chain of moe_ffn_gmm, {case}: {n_launch} device launches a call, graph "
+          f"replay bit-equal to eager {same} (before the chain, N 550 bf16: {PARENT_CHAIN_MS['eager']} ms eager, "
+          f"{PARENT_CHAIN_MS['graph']} in a CUDA graph, PERF.md)")
+    if n_launch > 5 or not same:
+        raise AssertionError(f"the routed chain, {case}: {n_launch} launches (at most 5), graph equal {same}")
 
 
 def decode_results(dev, randn, record) -> None:
@@ -1747,7 +1821,7 @@ def counters():
 
     from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_gmm_dw, moe_gmm_dx
     from deepseek_ocr2_tpu_torch.ops.flash_attention import mha_win
-    from deepseek_ocr2_tpu_torch.ops.moe_gmm import gmm_ffn_visit, gmm_swiglu_visit
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import gmm_ffn_visit, gmm_swiglu_visit, moe_combine, routed_layout
     from deepseek_ocr2_tpu_torch.ops.paged_attention import decode_attention_stacked, paged_decode_attention
 
     return {"A": mha, "B": mha_relpos, "C": mlp_gelu, "D": moe_gmm_swiglu, "E": moe_gmm_down,
@@ -1756,12 +1830,15 @@ def counters():
             "N": moe_ffn_decode_q4_fused, "O": attn_decode_fused_q4, "P": paged_decode_attention_pool_q8,
             "Q": paged_decode_attention_pool_chunk, "R": paged_decode_attention_pool_chunk_q8,
             "S": moe_gmm_dx, "T": moe_gmm_dw, "U": decode_attention_stacked, "V": mha_win,
-            "W": LaunchSum(gmm_swiglu_visit, gmm_ffn_visit), "X": paged_decode_attention}
+            "W": LaunchSum(gmm_swiglu_visit, gmm_ffn_visit), "X": paged_decode_attention,
+            "Y": LaunchSum(routed_layout, moe_combine)}
 
 
 class LaunchSum:
-    """The launch count of a kernel with two wrappers (W's two modes): reads
-    their sum, and a write sets both."""
+    """The launch count of a kernel with two wrappers (W's two modes; Y, the
+    routed chain's layout and combine kernels around D and E): reads their
+    sum; a write sets the first to the value and the others to 0, so the
+    sum reads back what was written (`uncounted` restores a saved sum)."""
 
     def __init__(self, *fns):
         self.fns = fns
@@ -1772,8 +1849,8 @@ class LaunchSum:
 
     @launches.setter
     def launches(self, value: int) -> None:
-        for fn in self.fns:
-            fn.launches = value
+        for i, fn in enumerate(self.fns):
+            fn.launches = value if i == 0 else 0
 
 
 # The quantized tiers of the CLI: (flag, scope, bits).
@@ -1850,14 +1927,14 @@ def phase_main_path(dev):
         if r.crop_ratio != grid:
             raise AssertionError(f"page {name}: crop grid {r.crop_ratio}, expected {grid}")
         moe_launches = cfg.lm.num_moe_layers if grid != (1, 1) else 0  # crop prompts are > 512 rows
-        if delta["D"] != moe_launches or delta["E"] != moe_launches:
-            raise AssertionError(f"page {name}: D/E launched {delta['D']}/{delta['E']} times, "
-                                 f"expected {moe_launches} (one per MoE layer in prefill)")
+        if delta["D"] != moe_launches or delta["E"] != moe_launches or delta["Y"] != 2 * moe_launches:
+            raise AssertionError(f"page {name}: D/E/Y launched {delta['D']}/{delta['E']}/{delta['Y']} times, "
+                                 f"expected {moe_launches} (one per MoE layer in prefill; Y: layout and combine)")
         if grid != (1, 1) and min(delta[k] for k in "ABC") == 0:
             raise AssertionError(f"page {name}: a kernel of A, B, C did not launch: {delta}")
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"[main] launches over {len(pages)} pages {launches}")
-    for k in "ABCDE":
+    for k in "ABCDEY":
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     return launches, pipe, results
@@ -2142,7 +2219,7 @@ def phase_quant_main_path(dev, pipe, tiers, tag: str) -> dict:
             want = {k: n * steps for k, n in per_step.items()}
             want["H" if bits == 8 else "L"] += 1 if scope == "full" else 0  # the quantized lm_head after prefill
             moe_prefill = lm.num_moe_layers if grid != (1, 1) else 0
-            want.update(D=moe_prefill, E=moe_prefill)
+            want.update(D=moe_prefill, E=moe_prefill, Y=2 * moe_prefill)
             finite = bool(torch.isfinite(r.logits0).all())
             print(f"[{tag}] {flag} page {name}: crop grid {r.crop_ratio}, prompt {r.prompt_len} tokens, "
                   f"vision {r.vision_seconds * 1e3:.1f} ms, prefill {r.prefill_seconds * 1e3:.1f} ms, "
@@ -2277,8 +2354,9 @@ def phase_device_resize(dev, pipe, main_results) -> dict:
           f"{r.token_ids == want.token_ids}; launches { {k: fn.launches for k, fn in kernels.items()} }")
     if r.token_ids != want.token_ids or r.crop_ratio != grid:
         raise AssertionError(f"page {crop_name}: device-resize tokens differ from phase 4's")
-    if kernels["D"].launches != lm.num_moe_layers or kernels["E"].launches != lm.num_moe_layers:
-        raise AssertionError("the device-resized crop page did not run D and E once a MoE layer")
+    if (kernels["D"].launches != lm.num_moe_layers or kernels["E"].launches != lm.num_moe_layers
+            or kernels["Y"].launches != 2 * lm.num_moe_layers):
+        raise AssertionError("the device-resized crop page did not run D, E and Y's two once a MoE layer")
 
     names = [f"{w}x{h} crop" for w, h, _ in CROP_PAGES] + [f"{w}x{h}" for w, h in PAGES[:2]]
     pages = [synthetic_page(w, h, cfg, seed=10 + i, grid=g)[0] for i, (w, h, g) in enumerate(CROP_PAGES)]
@@ -2368,8 +2446,10 @@ def phase_validate(dev, pipe) -> dict:
             raise AssertionError(f"validate: {name} FAILED against the host-resize transcript: {lines}")
     d = {k: fn.launches for k, fn in kernels.items()}
     print(f"[validate] {len(host['generated_ids'])} tokens a transcript, crop grid {host['crop_ratio']}; launches {d}")
-    if d["D"] != 2 * lm.num_moe_layers * n_transcripts or d["E"] != 2 * lm.num_moe_layers * n_transcripts:
-        raise AssertionError(f"validate: D / E launched {d['D']} / {d['E']}, expected two prefills a transcript")
+    if (d["D"] != 2 * lm.num_moe_layers * n_transcripts or d["E"] != 2 * lm.num_moe_layers * n_transcripts
+            or d["Y"] != 4 * lm.num_moe_layers * n_transcripts):
+        raise AssertionError(f"validate: D / E / Y launched {d['D']} / {d['E']} / {d['Y']}, expected two prefills "
+                             f"a transcript")
 
     with tempfile.TemporaryDirectory() as tmp:
         with device_trace(tmp):
@@ -2464,7 +2544,7 @@ def phase_card_vs_cpu(dev):
                 delta = {k: fn.launches - before[k] for k, fn in kernels.items()}
                 print(f"[cpu-vs-card] {tier} {name} page on {device}: prompt {r.prompt_len} tokens, "
                       f"{time.perf_counter() - t0:.1f} s, launches {delta}")
-                if device != "cpu" and name != "no-crop" and (delta["D"] == 0 or delta["E"] == 0):
+                if device != "cpu" and name != "no-crop" and min(delta[k] for k in "DEY") == 0:
                     raise AssertionError(f"{tier} {name} page: the card's MoE did not run D and E")
                 need = {"f32": "", "int8": "HIK", "int4": "LMO"}[tier]
                 if device != "cpu" and need and min(delta[k] for k in need) == 0:
@@ -2578,8 +2658,8 @@ def phase_serving(dev, pipe) -> dict:
     if steps16 < 1 or steps_crop < 1 or delta["F"] != moe_layers * steps16 or delta["G"] != 0:
         raise AssertionError(f"OCR2Engine: F {delta['F']} / G {delta['G']} launches, expected F "
                              f"{moe_layers} x {steps16} steps of the 16-page chunk only, and no G")
-    if min(delta[k] for k in "ABCDE") == 0:
-        raise AssertionError(f"the group engine's batched admissions did not run every kernel of A-E: {delta}")
+    if min(delta[k] for k in "ABCDEY") == 0:
+        raise AssertionError(f"the group engine's batched admissions did not run every kernel of A-E, Y: {delta}")
 
     # Continuous engine, 16 slots, a pool of 56 pages: admission takes 3 (no
     # crop) or 5 (crop) pages a slot, a full page 4 or 6, so slots grow.
@@ -2603,8 +2683,8 @@ def phase_serving(dev, pipe) -> dict:
     if delta["F"] != moe_layers * steps or delta["G"] != lm.num_hidden_layers * steps:
         raise AssertionError(f"continuous decode: F {delta['F']} / G {delta['G']} launches in {steps} steps, "
                              f"expected {moe_layers} / {lm.num_hidden_layers} a step")
-    if min(delta[k] for k in "ABCDE") == 0:
-        raise AssertionError(f"the batched admissions did not run every kernel of A-E: {delta}")
+    if min(delta[k] for k in "ABCDEY") == 0:
+        raise AssertionError(f"the batched admissions did not run every kernel of A-E, Y: {delta}")
     if engine.alloc.n_free != 56:
         raise AssertionError("the engine did not return every page to the pool")
 
@@ -3222,13 +3302,14 @@ def train_launches_per_step(lm, remat: bool) -> dict:
     """Kernel launches of one `adamw_train_step` at B * S > 512 rows, derived
     from the code (models/deepseek_v2.py `lm_forward(training=True)`,
     ops/moe_gmm.py `MoeFfnGmm`): each MoE layer's forward runs D and E
-    once; its backward E three times (gate, up and y recomputed), S three
+    once and Y's two kernels (the routing layout and the k-combine); its
+    backward E three times (gate, up and y recomputed), S three
     times (dact, dx_gate, dx_up) and T three times (dW of gate, up, down);
     `remat` runs each MoE layer's forward once more in the backward. The
     attention is plain (no A), the dense and shared MLPs are F.linear."""
     n_moe = lm.num_moe_layers
-    want = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
-    want.update(D=n_moe * (1 + remat), E=n_moe * (4 + remat), S=3 * n_moe, T=3 * n_moe)
+    want = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWXY", 0)
+    want.update(D=n_moe * (1 + remat), E=n_moe * (4 + remat), S=3 * n_moe, T=3 * n_moe, Y=2 * n_moe * (1 + remat))
     return want
 
 
@@ -3249,7 +3330,7 @@ def _step_profile(dev, step) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    gmm = [e for e in rows if "gmm_" in e.key]  # kernels D, E, S, T
+    gmm = [e for e in rows if _gmm_kernel_of(e.key) is not None]  # kernels D, E, S, T, Y
     by_kernel = {}
     for e in gmm:
         ms, n = by_kernel.get(_gmm_kernel_of(e.key), (0.0, 0))
@@ -3260,19 +3341,24 @@ def _step_profile(dev, step) -> dict:
             "top": [(e.key[:100], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]}
 
 
-def _gmm_kernel_of(name: str) -> str:
-    """Which of D, E, S, T a csrc/moe_gmm.cu kernel's profiler name is: in
-    bf16 D, S and E share `gmm_rows_wgmma_kernel`, S with the weight
-    N-major (`<1>`), E K-major (`<0>`), D with gate and up and the SwiGLU
-    (`<2>`); T is `gmm_dw_*`; in f32 S is the f32 GEMM template with its
-    weight-rows flag on, and D and E are told apart by the template's first
-    argument (two weights: D; one: E), as in bf16 before D's redesign
-    (`gmm_mma_kernel<2`)."""
-    if "gmm_rows_wgmma_kernel<1>" in name or re.search(r"gmm_kernel<1, \d+, true", name):
+def _gmm_kernel_of(name: str):
+    """Which of D, E, S, T, Y a csrc/moe_gmm.cu kernel's profiler name is, or
+    None for another kernel: in bf16 D, S and E share
+    `gmm_rows_wgmma_kernel`, S with the weight N-major (`<1, ...>`), E
+    K-major (`<0, ...>`), D with gate and up and the SwiGLU (`<2, ...>`); T
+    is `gmm_dw_*`; in f32 S is the f32 GEMM template with its weight-rows
+    flag on, and D and E are told apart by the template's first argument
+    (two weights: D; one: E); Y's two are `route_layout_kernel` and
+    `moe_combine_kernel`."""
+    if "route_layout_kernel" in name or "moe_combine_kernel" in name:
+        return "Y"
+    if "gmm_" not in name:
+        return None
+    if re.search(r"gmm_rows_wgmma_kernel<1\b", name) or re.search(r"gmm_kernel<1, \d+, true", name):
         return "S"
     if "gmm_dw" in name:
         return "T"
-    return "D" if re.search(r"gmm_(mma_)?kernel<2|gmm_rows_wgmma_kernel<2>", name) else "E"
+    return "D" if re.search(r"gmm_(mma_)?kernel<2|gmm_rows_wgmma_kernel<2\b", name) else "E"
 
 
 def phase_train(dev) -> dict:
@@ -3387,7 +3473,7 @@ def _grads_card_vs_cpu(dev, tag: str, lm, load, loss_fn, args) -> None:
     """The loss and every gradient leaf of `loss_fn(params, *args(device))`
     in f32, card (params `load(dev)`) against CPU (`load("cpu")`), the LM
     (config `lm`) above 512 rows: the card must launch what
-    `train_launches_per_step` counts (D 1, E 4, S 3, T 3 a MoE layer) and no
+    `train_launches_per_step` counts (D 1, E 4, S 3, T 3, Y 2 a MoE layer) and no
     other kernel. The card routes first; the CPU run takes the card's
     expert selection (its routing weights gathered from its own
     probabilities, still differentiable), so that a near tie that rounds
@@ -4098,7 +4184,7 @@ def phase_multi_gpu(dev) -> dict:
     t = time.perf_counter()
     out = launch(chip_phase9, 4, (spec,), device_type="cuda", kernels=kernels)
     t_world = time.perf_counter() - t
-    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
+    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWXY", 0)
 
     def add(launches: dict, want=None, what="") -> None:
         for k, per_rank in launches.items():
@@ -4158,7 +4244,8 @@ def phase_multi_gpu(dev) -> dict:
     # 9c: greedy on 9b's trained shards against the gathered whole params.
     c = out["9c"]
     n_moe, steps_c = lm.num_moe_layers, spec["new_c"] - 1
-    add(c["launches"], {"A": lm.num_hidden_layers, "D": n_moe, "E": n_moe, "F": n_moe * steps_c}, "9c")
+    add(c["launches"], {"A": lm.num_hidden_layers, "D": n_moe, "E": n_moe, "Y": 2 * n_moe, "F": n_moe * steps_c},
+        "9c")
     notes = []
     for row in c["rows"]:
         step = row["step"]
@@ -4189,7 +4276,7 @@ def phase_multi_gpu(dev) -> dict:
         print(f"[mesh] 9d OCR prefill ({dp}, {mp}): last logits {pre['shape']} finite {pre['finite']}, against "
               f"(1, 1) {rel:.2e} of the largest (bound {MESH_LOGITS_RTOL}); rows whose own routing differs "
               f"{pre['flips']}; launches a rank { {k: v for k, v in pre['launches'].items() if any(v)} }")
-        if not pre["finite"] or rel > MESH_LOGITS_RTOL or any(min(pre["launches"][k]) < 1 for k in "ABCDE"):
+        if not pre["finite"] or rel > MESH_LOGITS_RTOL or any(min(pre["launches"][k]) < 1 for k in "ABCDEY"):
             raise AssertionError(f"9d prefill ({dp}, {mp}): {pre}")
     print(f"[mesh] phase 9: {time.perf_counter() - t0:.1f} s (NCCL world {t_nccl:.1f} s, 4-rank world "
           f"{t_world:.1f} s: 9a {out['_phase9a seconds']:.1f}, 9b+9c {out['_phase9bc seconds']:.1f}, 9d "
@@ -4224,7 +4311,7 @@ def pseudo_experts_folded(on: bool):
 
 def quant_mesh_launches(lm, scope: str, bits: int, rows: int, steps: int, prompt_rows: int) -> dict:
     """Each rank's launches in a sharded quantized greedy run at mp > 1:
-    the prefill (A a layer; D and E a MoE layer above 512 prompt rows; the
+    the prefill (A a layer; D, E and Y's two a MoE layer above 512 prompt rows; the
     head's H / L once), then `steps` decode steps: the int8 / int4 linears
     (wqkv, wo and two MLP streams a layer, the head: H or L), the routed
     experts (J / N above E / k rows, else I / M), no K or O."""
@@ -4232,7 +4319,7 @@ def quant_mesh_launches(lm, scope: str, bits: int, rows: int, steps: int, prompt
     q8 = bits == 8
     out = {"A": n_layers}
     if prompt_rows > 512:
-        out.update(D=n_moe, E=n_moe)
+        out.update(D=n_moe, E=n_moe, Y=2 * n_moe)
     fused = rows * lm.num_experts_per_tok > lm.n_routed_experts
     out[("J" if fused else "I") if q8 else ("N" if fused else "M")] = n_moe * steps
     if scope == "full":
@@ -4529,7 +4616,7 @@ def phase_mesh_serving(dev) -> dict:
     kernels = ("moe_gmm", "moe_decode", "flash_attention", "fused_mlp", "moe_q8", "moe_q4", "linear_q8",
                "linear_q4", "paged_attention")
     out = launch(chip_phase10, 2, (spec,), device_type="cuda", kernels=kernels)
-    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWX", 0)
+    totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWXY", 0)
     for launches in [out[f"10a {t}"]["launches"] for t, _, _ in MESH_TIERS] + [out["10b"]["launches"]] + \
             [out[f"10c {n}"]["launches"] for n in (0, 4)]:
         for k, per_rank in launches.items():
@@ -4580,7 +4667,7 @@ def phase_mesh_serving(dev) -> dict:
               f"crop), 16 slots: {sum(not n for n in notes)} of 8 pages equal to unsharded single pages "
               f"{[n for n in notes if n]}, {same_plain} of 8 to the unsharded engine; {c['seconds']:.1f} s; "
               f"launches a rank { {k: v for k, v in c['launches'].items() if any(v)} }")
-        need = "ABCDEF" + ("Q" if lookup else "G")  # a lookup chunk attends through Q, not G
+        need = "ABCDEFY" + ("Q" if lookup else "G")  # a lookup chunk attends through Q, not G
         if any(min(c["launches"][k]) < 1 for k in need):
             raise AssertionError(f"10c lookup {lookup}: a kernel of {need} did not launch on a rank: {c['launches']}")
     print(f"[mesh-q] phase 10: {time.perf_counter() - t0:.1f} s (10a+10b {out['_phase10ab seconds']:.1f}, "
@@ -4687,10 +4774,13 @@ def main() -> int:
         "V": ("flash_attention.mha_win (SAM windowed attention, rel-pos bias built in the kernel, "
               "DEEPSEEK_SAM_WIN_KERNEL=1)", "deepseek_ocr2_tpu/ops/flash_attention.py:147"),
         "W": ("moe_gmm.gmm_ffn_visit / gmm_swiglu_visit (boundary-visit grouped GEMM: _gmm_ffn_kernel, and "
-              "_gmm_swiglu_kernel at moe_gmm.py:184; on no path of either package)",
-              "deepseek_ocr2_tpu/ops/moe_gmm.py:199"),
+              "_gmm_swiglu_kernel at moe_gmm.py:184, on D's and E's device code with the slot -> sorted-row map; "
+              "on no path of either package)", "deepseek_ocr2_tpu/ops/moe_gmm.py:199"),
         "X": ("paged_attention.paged_decode_attention (per-sequence paged decode attention, G's device code; "
               "on no path of either package)", "deepseek_ocr2_tpu/ops/paged_attention.py:54"),
+        "Y": ("moe_gmm.moe_ffn_gmm routed chain (_gmm_ffn_kernel_al with its glue: routed_layout and "
+              "moe_combine kernels around D and E on row maps; launches: the layout and combine kernels)",
+              "deepseek_ocr2_tpu/ops/moe_gmm.py:247"),
     }
     sources = {"A": "flash_attention.cu", "B": "flash_attention.cu", "C": "fused_mlp.cu",
                "D": "moe_gmm.cu", "E": "moe_gmm.cu", "F": "moe_decode.cu", "G": "paged_attention.cu",
@@ -4698,9 +4788,9 @@ def main() -> int:
                "L": "linear_q4.cu", "M": "moe_q4.cu", "N": "moe_q4.cu", "O": "attn_fused.cu",
                "P": "paged_attention.cu", "Q": "paged_attention.cu", "R": "paged_attention.cu",
                "S": "moe_gmm.cu", "T": "moe_gmm.cu", "U": "paged_attention.cu", "V": "flash_attention.cu",
-               "W": "moe_gmm.cu", "X": "paged_attention.cu"}
+               "W": "moe_gmm.cu", "X": "paged_attention.cu", "Y": "moe_gmm.cu"}
     record = {"kernels": []}
-    for k in "ABCDEFGHIJKLMNOPQRSTUVWX":
+    for k in "ABCDEFGHIJKLMNOPQRSTUVWXY":
         # The first case is the main path's: f32 at the no-crop shapes for
         # A, B (SAM global) and C; bf16 at the 2-crop prompt for D and E;
         # bf16 at 16 slots for F; an f32 pool at 16 slots for G; lm_head at
@@ -4711,7 +4801,8 @@ def main() -> int:
         # step's MoE layer (2048 tokens) for S (dact) and T (dW_gate); one
         # row on an f32 cache for U (phase 4e); the no-crop view's 14 x 14
         # windows in f32 for V; the swiglu mode at the (2, 1) crop page's
-        # MoE layer in bf16 for W; an f32 pool at 16 rows for X.
+        # MoE layer in bf16 for W; an f32 pool at 16 rows for X; the whole
+        # moe_ffn_gmm at the 2-crop prompt in bf16 for Y.
         main_case = results[k][0]
         record["kernels"].append({
             "name": meta[k][0],

@@ -1,5 +1,6 @@
-// Grouped-GEMM MoE for sm_90a: the expert-aligned prefill kernels D and E,
-// the backward kernels S and T, and the boundary-visit forward W.
+// Grouped-GEMM MoE for sm_90a: the prefill forward as one routed chain
+// (the routing layout, kernels D and E on row maps, the k-combine), and the
+// backward kernels S and T.
 //
 // Replaces the Pallas TPU kernels of deepseek_ocr2_tpu/ops/moe_gmm.py:
 //   D  gmm_swiglu  <- _gmm_swiglu_kernel_al: act = round(round(silu(round(x Wg^T))) * round(x Wu^T))
@@ -10,19 +11,29 @@
 //                     contracted on its row dim (dact, dx_gate, dx_up)
 //   T  gmm_dw      <- _gmm_dw_kernel:        dW_e = sum over e's tiles of
 //                     dy_t^T x_t, [E, O, C] in f32
-// Run one after the other D and E also replace _gmm_ffn_kernel_al, the fused
-// visit the JAX package launches by default: it rounds act at the same
-// point, so the pair gives the same bits. round() is to the working type T
-// (identity for f32); every sum is accumulated in f32, silu is f32.
+// and, as a chain of four launches, the whole forward that the JAX package
+// runs as its glue around _gmm_ffn_kernel_al (its default fused visit,
+// _moe_ffn_gmm_impl): route_layout (the stable sort by expert, the
+// expert-aligned slots and D's and E's schedule), D reading x through the
+// slot -> token map, E writing each slot's y to its token-major row, and
+// moe_combine (the f32 weighted sum over the k selections). D then E round
+// act where the fused visit does, so the pair gives its bits. The
+// boundary-visit forward (_gmm_swiglu_kernel, _gmm_ffn_kernel) runs on the
+// same D and E with the slot -> sorted-row map on D's loads and on D's or
+// E's stores (ops/moe_gmm.py gmm_swiglu_visit / gmm_ffn_visit). round() is
+// to the working type T (identity for f32); every sum is accumulated in
+// f32, silu is f32.
 //
-// Layout (built on the device by ops/moe_gmm.py, with no host sync): the
-// token -> expert assignments are sorted by expert and each expert's group
-// is padded to a multiple of BM = 32 rows, so row tile t of x [S, K] holds
-// rows of one expert only, e_tile[t]; pad rows are zero. The grid is the
-// static worst case, T = S / BM tiles. A tile past the last group has
-// tile_valid[t] == 0 and its blocks return at once (the wrapper zeroes the
-// output, so those rows read as zero); the bf16 kernels D, E and S zero
-// those rows themselves.
+// Layout (route_layout, below, or its plain twin in ops/moe_gmm.py): the
+// token -> expert assignments are sorted by expert, stably, and each
+// expert's group is padded to a multiple of BM = 32 slots, so row tile t
+// of the slots holds rows of one expert only, e_tile[t]. Pad slots read
+// zeros. The grid is the static worst case, S = m_pad + E BM slots, T = S /
+// BM tiles. A tile past the last group has tile_valid[t] == 0; D, E and S
+// on the aligned layout write zeros there, D and E through a row map write
+// nothing there. Row maps: a_rows[s] is the row of x that slot s reads (-1:
+// zeros), out_rows[s] the row of the output it writes (-1: none). With no
+// map a slot reads and writes its own row.
 //
 // Weights keep HF's [out, in] layout, stacked over experts (Wg, Wu
 // [E, I, H], Wd [E, H, I]), so both operands of each GEMM are contiguous
@@ -55,12 +66,19 @@
 //   BN)), BN 64 for D (two weights), 128 for E and S.
 // BM = 32 keeps the pad rows at ~16 per expert (they cost full FMAs in f32).
 //
-// Two launches, not one fused visit: at crop sizes a page has ~100-300
-// valid tiles, fewer than one block per SM each if a tile were one block,
-// as on the TPU's sequential grid; D's and E's walks spread each row
-// block's columns over 7 (D, I = 896 by 128) or 5 (E, H = 1280 by 256)
-// items. The [S, I] activation makes one round trip through HBM (13 MB in
-// bf16 at S = 7424, a few microseconds).
+// Why a chain of four launches and not the torch glue it replaced: at N 550
+// (a 2-crop page's prompt) D and E took 0.18 ms of the layer's 0.42 in a
+// CUDA graph, and the argsort, the layout's ~30 elementwise ops, the row
+// gather into an [S, H] copy of x, the index_select of y and the combine's
+// four ops the rest, in ~60 launches that the host issues one at a time
+// (1.57 ms eager). The layout is one block (a few thousand assignments);
+// the gather moves into D's loads and the unsort into E's stores, so
+// neither [S, H] copy exists. Two launches (D, E), not one fused visit: at
+// crop sizes a page has ~100-300 valid tiles, fewer than one block per SM
+// each if a tile were one block, as on the TPU's sequential grid; D's and
+// E's walks spread each row block's columns over 7 (D, I = 896 by 128) or 5
+// (E, H = 1280 by 256) items. The [S, I] activation makes one round trip
+// through HBM (13 MB in bf16 at S = 7424, a few microseconds).
 //
 // Shapes: N a multiple of 4, K a multiple of 4 (f32) or 8 (bf16: 16-byte
 // copies), x and the weights 16-byte aligned (checked by the wrapper);
@@ -99,33 +117,6 @@
 //   rereads its expert's rows), 0.46 GB with 128 x 128 items, 0.35 GB with
 //   128 x 256. f32: one block per (64 c, 64 o, expert), 32 outer products
 //   per thread per row.
-//
-// Kernel W replaces the boundary-visit forward of the same file, which the
-// aligned D + E superseded and which no path of the JAX package calls:
-//   swiglu mode  <- _gmm_swiglu_kernel: act = D's function
-//   ffn mode     <- _gmm_ffn_kernel:    y = E(D(x)), the act rounded where
-//                   the split pair rounds it
-// on the boundary-visit schedule (ops/moe_gmm.visit_schedule, the port of
-// _visit_schedule): x [m_pad, H] holds the expert-sorted rows unpadded, and
-// visit v covers row tile vt[v] (bm = 32 or 64 rows, _pick_bm) against
-// expert ve[v], writing only the rows in [lo[v], hi[v]) (an empty visit
-// writes nothing). Visits that share a tile write disjoint rows: no atomics
-// and no read-modify-write. Rows [m, m_pad) are written by no visit.
-// A block is one BM = 32-row part of a visit (a 64-row tile is two parts),
-// VisitRows below; a part with no row in [lo, hi) returns at once.
-// - swiglu mode: D's kernel with VisitRows, grid (V bm / 32, ceil(I / BN)).
-// - ffn mode: one block per part runs the whole FFN: phase 1 computes the
-//   part's act for all I columns with D's sums into shared memory, phase 2
-//   reads it back as the A operand of E's sums. The act never leaves the
-//   SM. At bm = 64 and I = 896 a whole tile's f32 act (229 KB) would not fit
-//   the 227 KB a block may use; the part's 32 rows (bf16 57 KB, f32 129 KB
-//   transposed) do, so the block's rows are halved rather than staged
-//   through global memory.
-//   What bounds it: as D + E, streaming each visit's three expert matrices
-//   (6.9 MB in bf16) from L2 / HBM; one block per part is V bm / 32 blocks
-//   (232 at the (2, 1) crop page's 3288 rows), two waves at most, each
-//   block walking 14 + 10 column blocks in turn. W runs on no path of
-//   either package: the aligned D + E pair is the port's grouped GEMM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,41 +139,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
-// ---------------------------------------------------------------------------
-// Which rows a block computes and writes.
-// AlignedRows (D, E, S in f32): block b is row tile b, all of one expert, e_tile[b];
-// every row is written, or none when tile_valid[b] is 0.
-// VisitRows (W): block b is the BM-row part b % sub of visit v = b / sub
-// (sub = bm / BM): rows vt[v] bm + (b % sub) BM + [0, BM) of the
-// expert-sorted x, expert ve[v]; only the rows in [lo[v], hi[v]) are
-// written, and a part that holds none of them returns at once.
-struct AlignedRows {
+// Which slots a block of the f32 kernels computes: block b is row tile b,
+// all of one expert, e_tile[b], or nothing when tile_valid[b] is 0. Slot s
+// reads row a_rows[s] of x (zeros where it is -1) and writes row
+// out_rows[s] of out (nothing where it is -1); a null map is the identity.
+struct TileRows {
   const int* e_tile;
   const int* tile_valid;
-  __device__ bool get(int b, int& row0, int& e, int& lo, int& hi) const {
-    if (!tile_valid[b]) return false;
-    row0 = b * BM;
-    e = e_tile[b];
-    lo = row0;
-    hi = row0 + BM;
-    return true;
-  }
-};
-
-struct VisitRows {
-  const int* vt;
-  const int* ve;
-  const int* v_lo;
-  const int* v_hi;
-  int bm;
-  __device__ bool get(int b, int& row0, int& e, int& lo, int& hi) const {
-    const int sub = bm / BM, v = b / sub;
-    row0 = vt[v] * bm + (b % sub) * BM;
-    e = ve[v];
-    lo = max(v_lo[v], row0);
-    hi = min(v_hi[v], row0 + BM);
-    return lo < hi;
-  }
+  const int* a_rows;
+  const int* out_rows;
 };
 
 // ---------------------------------------------------------------------------
@@ -201,13 +166,11 @@ constexpr int XS = BM + 4;  // row stride of a transposed [K][XS] copy of a tile
 
 // The sums acc[w][i][j] = sum_k A[4 ty + i, k] W_w[col(j), k] (WKN:
 // W_w[k, col(j)]) of thread (ty, tx), col(j) = n0 + 4 tx + 64 (j / 4) + j % 4.
-// A is the tile's rows of x at xt (row stride k_dim), staged a BK slice at a
-// time into xs [BK][XS], or (a_s not null) a transposed [K'][XS] copy that
-// is already in shared memory, K' >= k_dim rounded up to BK, zero past
-// k_dim. ws holds NW [BK][BN + 4] weight slices. Starts with a barrier, so
-// the buffers of a previous call may be reused.
+// A's row r is row src[r] of x (row stride k_dim; zeros where src[r] < 0),
+// staged a BK slice at a time into xs [BK][XS]. ws holds NW [BK][BN + 4]
+// weight slices. Starts with a barrier, so src may be written just before.
 template <int NW, int TN, bool WKN>
-__device__ __forceinline__ void f32_sums(const float* __restrict__ xt, const float* a_s,
+__device__ __forceinline__ void f32_sums(const float* __restrict__ x, const int* src,
                                          const float* const (&wp)[NW], int n0, int k_dim, int n_dim, float* xs,
                                          float* ws, float (&acc)[NW][TM][TN]) {
   constexpr int BN = NTX * TN;
@@ -223,18 +186,17 @@ __device__ __forceinline__ void f32_sums(const float* __restrict__ xt, const flo
 
   for (int k0 = 0; k0 < k_dim; k0 += BK) {
     __syncthreads();  // the previous slice is consumed
-    if (a_s == nullptr) {
-      for (int i = tid; i < BM * (BK / 4); i += NT) {
-        // Lanes on consecutive rows: conflict-free transposed stores; the
-        // rest of each 32-byte sector is read by the next warp, from L1.
-        const int r = i % BM, kc = 4 * (i / BM);
-        const float4 v = k0 + kc < k_dim ? *reinterpret_cast<const float4*>(xt + (size_t)r * k_dim + k0 + kc)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-        xs[(kc + 0) * XS + r] = v.x;
-        xs[(kc + 1) * XS + r] = v.y;
-        xs[(kc + 2) * XS + r] = v.z;
-        xs[(kc + 3) * XS + r] = v.w;
-      }
+    for (int i = tid; i < BM * (BK / 4); i += NT) {
+      // Lanes on consecutive rows: conflict-free transposed stores; the
+      // rest of each 32-byte sector is read by the next warp, from L1.
+      const int r = i % BM, kc = 4 * (i / BM), sr = src[r];
+      const float4 v = sr >= 0 && k0 + kc < k_dim
+                           ? *reinterpret_cast<const float4*>(x + (size_t)sr * k_dim + k0 + kc)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      xs[(kc + 0) * XS + r] = v.x;
+      xs[(kc + 1) * XS + r] = v.y;
+      xs[(kc + 2) * XS + r] = v.z;
+      xs[(kc + 3) * XS + r] = v.w;
     }
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
@@ -261,10 +223,9 @@ __device__ __forceinline__ void f32_sums(const float* __restrict__ xt, const flo
       }
     }
     __syncthreads();
-    const float* ak = a_s == nullptr ? xs : a_s + (size_t)k0 * XS;
 #pragma unroll 4
     for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(ak + k * XS + ty * TM);
+      const float4 a = *reinterpret_cast<const float4*>(xs + k * XS + ty * TM);
       const float av[TM] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
@@ -284,205 +245,48 @@ __device__ __forceinline__ void f32_sums(const float* __restrict__ xt, const flo
   }
 }
 
-// Thread (ty, tx)'s outputs of f32_sums (NW = 2: silu(gate) up), to
-// out[row rs + col cs] for tile rows row = row0 + 4 ty + i in [lo, hi) and
-// columns col < n_dim (rs, cs: n_dim, 1 for a row-major output; 1, XS for
-// a transposed copy in shared memory).
-template <int NW, int TN>
-__device__ __forceinline__ void f32_store(float* out, const float (&acc)[NW][TM][TN], int row0, int lo, int hi,
-                                          int n0, int n_dim, int rs, int cs) {
-  const int ty = threadIdx.x / NTX, tx = threadIdx.x % NTX;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty * TM + i;
-    if (row < lo || row >= hi) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * 4 + 64 * (j / 4) + j % 4;
-      if (col < n_dim)
-        out[(size_t)row * rs + (size_t)col * cs] = NW == 2 ? silu(acc[0][i][j]) * acc[NW - 1][i][j] : acc[0][i][j];
-    }
-  }
-}
-
-template <int NW, int TN, bool WKN, class Rows>
+template <int NW, int TN, bool WKN>
 __global__ void __launch_bounds__(NT) gmm_kernel(
-    const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1, Rows rows,
+    const float* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ w1, TileRows rows,
     float* __restrict__ out, int k_dim, int n_dim) {
   constexpr int BN = NTX * TN;
   __shared__ __align__(16) float xs[BK * XS];
   __shared__ __align__(16) float ws[NW * BK * (BN + 4)];
+  __shared__ int src[BM];
 
-  int row0, e, lo, hi;
-  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
-  const int n0 = blockIdx.y * BN;
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if (!rows.tile_valid[blockIdx.x]) {
+    // An invalid tail tile: zeros on the aligned layout, nothing through a map.
+    if (rows.out_rows == nullptr) {
+      const int chunks = min(BN, n_dim - n0) / 4;  // n_dim is a multiple of 4
+      for (int i = threadIdx.x; i < BM * chunks; i += NT)
+        *reinterpret_cast<float4*>(out + (size_t)(row0 + i / chunks) * n_dim + n0 + 4 * (i % chunks)) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  if (threadIdx.x < BM) src[threadIdx.x] = rows.a_rows ? rows.a_rows[row0 + threadIdx.x] : row0 + threadIdx.x;
+  const int e = rows.e_tile[blockIdx.x];
   const float* wp[NW];
   wp[0] = w0 + (size_t)e * n_dim * k_dim;
   if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
   float acc[NW][TM][TN];
-  f32_sums<NW, TN, WKN>(x + (size_t)row0 * k_dim, nullptr, wp, n0, k_dim, n_dim, xs, ws, acc);
-  f32_store<NW, TN>(out, acc, row0, lo, hi, n0, n_dim, n_dim, 1);
-}
+  f32_sums<NW, TN, WKN>(x, src, wp, n0, k_dim, n_dim, xs, ws, acc);
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores for kernel W: mma.sync m16n8k16 (bf16 in, f32
-// sums).
-//
-// The f32 kernels' (tile, column block) grid and epilogue. 4 warps: warp w takes
-// rows 16 (w % 2) .. +15 of the tile and half of the BN columns, NJ = BN / 16
-// n8 tiles. K is streamed in 64-wide slices, copied with cp.async into a
-// double buffer (16-byte chunks, zero-filled past the K and N edges) while
-// the previous slice is multiplied. x and the weights are both staged as
-// they lie in memory, K fastest, with rows padded to 72 elements: a
-// fragment word at (row g, k 2t) then sits in bank 4g + t, so the 32 lanes
-// of a fragment load hit 32 banks.
-
-constexpr int MK = 64;       // K slice
-constexpr int MS = MK + 8;   // row stride of a staged slice, in bf16
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The sums of one (BM-row tile, BN column block) of x W0^T [, x W1^T] on the
-// tensor cores, acc[w][j] the accumulators of the warp's n8 tile j. A is
-// the tile's rows of x at xt (row stride k_dim), copied a MK slice at a time
-// into xs [2][BM][MS], or (a_s not null) a [BM][as] copy already in shared
-// memory, zero from k_dim to k_dim rounded up to MK (as: a multiple of 8
-// and 4 mod 64 in 32-bit words, so fragment loads hit 32 banks). ws holds
-// [2][NW][BN][MS] weight slices. Ends with a barrier, so the buffers may be
-// reused by the next call.
-template <int NW, int BN>
-__device__ __forceinline__ void mma_sums(const __nv_bfloat16* __restrict__ xt, const __nv_bfloat16* a_s, int as,
-                                         const __nv_bfloat16* const (&wp)[NW], int n0, int k_dim, int n_dim,
-                                         __nv_bfloat16* xs, __nv_bfloat16* ws, float (&acc)[NW][BN / 16][4]) {
-  constexpr int NJ = BN / 16;  // n8 tiles per warp
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;  // fragment row / column pair
-  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
-
-  auto stage = [&](int buf, int k0) {
-    if (a_s == nullptr) {
-      for (int i = tid; i < BM * (MK / 8); i += NT) {
-        const int r = i / (MK / 8), kc = 8 * (i % (MK / 8));
-        const bool full = k0 + kc < k_dim;
-        cp_async16(&xs[buf * BM * MS + r * MS + kc], full ? xt + (size_t)r * k_dim + k0 + kc : xt, full);
-      }
-    }
+  // Thread (ty, tx)'s outputs (NW = 2: silu(gate) up), each slot's to its row.
+  const int ty = threadIdx.x / NTX, tx = threadIdx.x % NTX;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      __nv_bfloat16* wsw = ws + (buf * NW + w) * BN * MS;
-      for (int i = tid; i < BN * (MK / 8); i += NT) {
-        const int n = i / (MK / 8), kc = 8 * (i % (MK / 8));
-        const bool full = n0 + n < n_dim && k0 + kc < k_dim;
-        cp_async16(&wsw[n * MS + kc], full ? wp[w] + (size_t)(n0 + n) * k_dim + k0 + kc : wp[w], full);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
+  for (int i = 0; i < TM; ++i) {
+    const int slot = row0 + ty * TM + i;
+    const int dst = rows.out_rows ? rows.out_rows[slot] : slot;
+    if (dst < 0) continue;
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[w][j][c] = 0.f;
-
-  const int n_slices = (k_dim + MK - 1) / MK;
-  stage(0, 0);
-  for (int s = 0; s < n_slices; ++s) {
-    const int buf = s % 2;
-    if (s + 1 < n_slices) {
-      stage(buf ^ 1, (s + 1) * MK);  // the buffer read in step s - 1, freed by its closing barrier
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const __nv_bfloat16* abase = a_s == nullptr ? xs + buf * BM * MS : a_s + s * MK;
-    const int astr = a_s == nullptr ? MS : as;
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      const __nv_bfloat16* xa = abase + (wm + g) * astr + kk + 2 * q;
-      unsigned a[4];
-      a[0] = *reinterpret_cast<const unsigned*>(xa);
-      a[1] = *reinterpret_cast<const unsigned*>(xa + 8 * astr);
-      a[2] = *reinterpret_cast<const unsigned*>(xa + 8);
-      a[3] = *reinterpret_cast<const unsigned*>(xa + 8 * astr + 8);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const __nv_bfloat16* wb = ws + (buf * NW + w) * BN * MS + (wn + 8 * j + g) * MS + kk + 2 * q;
-          mma_bf16(acc[w][j], a, *reinterpret_cast<const unsigned*>(wb),
-                   *reinterpret_cast<const unsigned*>(wb + 8));
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with buf before it is refilled
-  }
-}
-
-// The warp's outputs of mma_sums (NW = 2: round(round(silu(round(gate)))
-// round(up))), to out[row os + col] for tile rows row = row0 + r in
-// [lo, hi) and columns col < n_dim (n_dim a multiple of 4).
-template <int NW, int BN>
-__device__ __forceinline__ void mma_store(__nv_bfloat16* out, const float (&acc)[NW][BN / 16][4], int row0, int lo,
-                                          int hi, int n0, int n_dim, int os) {
-  constexpr int NJ = BN / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, q = lane % 4;
-  const int wm = 16 * (warp % 2), wn = (BN / 2) * (warp / 2);
-  // Accumulator c of n8 tile j: row g (c < 2) or g + 8, column 2q + c % 2.
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * q;
-    if (col >= n_dim) continue;  // n_dim is a multiple of 4: col + 1 is in range too
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + wm + g + 8 * h;
-      if (row < lo || row >= hi) continue;
-      float v[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (NW == 2) {
-          const float gate = round_bf16(acc[0][j][2 * h + c]);
-          const float up = round_bf16(acc[NW - 1][j][2 * h + c]);
-          v[c] = round_bf16(silu(gate)) * up;
-        } else {
-          v[c] = acc[0][j][2 * h + c];
-        }
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * os + col) = __floats2bfloat162_rn(v[0], v[1]);
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx * 4 + 64 * (j / 4) + j % 4;
+      if (col < n_dim)
+        out[(size_t)dst * n_dim + col] = NW == 2 ? silu(acc[0][i][j]) * acc[NW - 1][i][j] : acc[0][i][j];
     }
   }
-}
-
-template <int NW, int BN, class Rows>
-__global__ void __launch_bounds__(NT) gmm_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w0,
-    const __nv_bfloat16* __restrict__ w1, Rows rows, __nv_bfloat16* __restrict__ out, int k_dim, int n_dim) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2 * BM * MS];
-  __shared__ __align__(16) __nv_bfloat16 ws[2 * NW * BN * MS];
-
-  int row0, e, lo, hi;
-  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
-  const int n0 = blockIdx.y * BN;
-  const __nv_bfloat16* wp[NW];
-  wp[0] = w0 + (size_t)e * n_dim * k_dim;
-  if (NW > 1) wp[NW - 1] = w1 + (size_t)e * n_dim * k_dim;
-  float acc[NW][BN / 16][4];
-  mma_sums<NW, BN>(x + (size_t)row0 * k_dim, nullptr, 0, wp, n0, k_dim, n_dim, xs, ws, acc);
-  mma_store<NW, BN>(out, acc, row0, lo, hi, n0, n_dim, n_dim);
 }
 
 // ---------------------------------------------------------------------------
@@ -490,9 +294,11 @@ __global__ void __launch_bounds__(NT) gmm_mma_kernel(
 // stages (one producer warp, mbarriers "full" and "empty" per stage), two
 // consumer warpgroups that run wgmma (m64n256k16; D two m64n128k16) on the stages that have
 // arrived (sm90.cuh). A block is 288 threads: warpgroups 0 and 1 consume,
-// warp 8 produces (its lane 0 issues every copy). Every operand is read as
-// it lies in memory; the transposes are wgmma's operand modes, so no
-// transposed copy and no ldmatrix.trans.
+// warp 8 produces (its lane 0 issues every TMA copy); with a row map on A,
+// 384: a producer warpgroup whose 128 threads copy A's rows and whose first
+// issues the TMA copies. Every operand is read as it lies in memory; the
+// transposes are wgmma's operand modes, so no transposed copy and no
+// ldmatrix.trans.
 
 constexpr int WG_BLOCK = 288;         // two consumer warpgroups + the producer warp
 constexpr int PRODUCER_WARP = 8;
@@ -515,8 +321,8 @@ constexpr int DW_OUT_BYTES = 64 * DW_TILE_C * 4;          // a warpgroup's [64 o
 
 // Dynamic shared memory: the stages from a 1024-byte aligned base (the
 // swizzle atom), then the output tiles, then the barriers; the slack
-// covers the alignment. S and E take 214 064 bytes (below), T 230 464, within the
-// 232 448 a block may use.
+// covers the alignment. S and E take 214 576 bytes (below), D 230 976, T
+// 230 464, within the 232 448 a block may use.
 constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_OUT_BYTES + 2 * DW_STAGES * 8 + 1024;
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -536,10 +342,13 @@ struct Ring {
   }
 };
 
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int n_stages) {
+// The "full" barrier of a stage counts full_arrivals: the producer's
+// arrive with the TMA bytes, and with a row map on A one more a producer
+// lane, made when the lane's copies of the stage have landed.
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int n_stages, int full_arrivals = 1) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_stages; ++s) {
-      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[s], full_arrivals);
       sm90::mbar_init(&empty[s], CONSUMER_WARPS);
     }
     sm90::mbar_fence_init();
@@ -553,6 +362,19 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if (threadIdx.x % 32 == 0) sm90::mbar_arrive(empty);
 }
 
+// A 16-byte copy global -> shared; zeros where !full (the source is not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_u32(smem)), "l"(gmem),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued has landed
+// (counted in the barrier's arrivals: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(sm90::smem_u32(bar)) : "memory");
+}
+
 // Kernels S, E and D in bf16, one kernel on the row tiles of the aligned
 // layout, a [S, K], the weights [E, ...] read as they lie:
 // - KIND ROWS_N_MAJOR (S): out [S, N] = round(a_t W_e), W [E, O, C]
@@ -561,6 +383,9 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 //   [out, in] layout, each row along K;
 // - KIND ROWS_SWIGLU (D): act [S, I] = round(round(silu(round(a_t Wg_e^T)))
 //   * round(a_t Wu_e^T)), Wg and Wu [E, I, H] K-major as E's, K = H, N = I.
+// GATHER (D): slot s's row of A is row a_rows[s] of a [R, K] (zeros where
+// -1), copied by the producer warp; SCATTER (D, E): slot s's output goes to
+// row out_rows[s] of out (none where -1), by the consumers' stores.
 //
 // A persistent grid of at most one block per SM walks the work items i =
 // blockIdx.x, + gridDim.x, ...; item i is (row block b, column block) =
@@ -568,14 +393,15 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 // column blocks of one row block next to each other so that they run
 // together and read the block's rows from L2. Row block b of expert e
 // covers its tiles tile_lo[e] + 4 (b - blk_lo[e]) + [0, 4), clipped at
-// tile_lo[e + 1]: blk_lo is the wrapper's prefix of ceil(tiles / 4) over
-// the experts (`row_block_lo`), and the item finds its expert by a binary
-// search on it (`dx_row_blocks` in ops/moe_gmm.py is the same map). Row
-// blocks past blk_lo[E] zero the rows of the invalid tail tiles, 4 tiles
-// each (the ceil(T / 4) + E + 1 rows of the walk cover every case); the
-// rest are skipped. A warpgroup whose 64 rows hold no tile of the expert
-// (a row block of one or two tiles) waits on and frees the stages but
-// multiplies nothing.
+// tile_lo[e + 1]: blk_lo is the prefix of ceil(tiles / 4) over the experts
+// (`row_block_lo`, or route_layout's), and the item finds its expert by a
+// binary search on it (`dx_row_blocks` in ops/moe_gmm.py is the same map).
+// Row blocks past blk_lo[E] zero the rows of the invalid tail tiles, 4
+// tiles each, on the aligned layout (the ceil(T / 4) + E + 1 rows of the
+// walk cover every case); the rest are skipped, and all of them under
+// SCATTER. A warpgroup whose 64 rows hold no tile of the expert (a row
+// block of one or two tiles) waits on and frees the stages but multiplies
+// nothing.
 //
 // Each stage: A = a [128 rows][64 k] (K-major; warpgroup g multiplies rows
 // 64 g .. 64 g + 63), B = four 8 KB weight boxes. S and E: the expert's
@@ -586,32 +412,51 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 // [64 n][64 k] boxes of gate, then two of up, each pair one [128 n][64 k]
 // K-major operand, and two m64n128k16 chains a k16 step, gate into acc[0,
 // 64) and up into acc[64, 128): the same 48 KB stage and the same 128
-// accumulators a thread as E. The A box is the block's 128 rows whatever
-// the clip (rows of the next expert, or zeros past the end). k past K and
-// n past N read zeros (the weights' maps are 3-D with the expert outermost,
-// so a box never reaches the next expert). S and E take 256 columns, not
-// 128: a block's rows are read from L2 once per 256 columns (0.17 GB of row
-// reads at the dact shape instead of 0.29).
+// accumulators a thread as E. Without GATHER the A box is the block's 128
+// rows whatever the clip (rows of the next expert, or zeros past the end),
+// by TMA. With GATHER there is no TMA gather on sm_90 (gather4 is sm_100's):
+// the producer warpgroup's 128 threads copy each row's 128-byte k slice as
+// eight 16-byte cp.async into the 128-byte-swizzled position TMA would have
+// written (chunk j of row r at chunk j ^ (r % 8)), eight threads a row so a
+// warp instruction reads four whole 128-byte lines; rows of tiles past the
+// expert's and pad slots are zero-filled, not read. Each thread's copies
+// arrive on the stage's "full" barrier when they land (cp.async.mbarrier
+// .arrive.noinc), and the consumers fence the async proxy before wgmma
+// reads what the generic proxy wrote. Measured at N 550 in a CUDA graph
+// (scripts/torch_gmm_ablate.py, PERF.md): with the warpgroup 0.120 ms, as D
+// on the aligned rows by TMA (0.119) and near D with no row copies at all
+// (0.115); with one producer warp issuing all 1024 copies of a stage,
+// 0.173-0.193. A 1-row TMA box a row (the swizzle follows the shared
+// address, so the layout comes out right) was slower than one warp. k past K and n past N read zeros
+// (the weights' maps are 3-D with the expert outermost, so a box never
+// reaches the next expert). S and E take 256 columns, not 128: a block's
+// rows are read from L2 once per 256 columns (0.17 GB of row reads at the
+// dact shape instead of 0.29).
 //
 // Epilogue: each warpgroup rounds its sums (D: the SwiGLU of gate and up at
 // the rounding points above) to bf16 into its tile ([32 rows][64 n] boxes,
-// 128-byte swizzled: no bank conflicts; eight for S and E, four for D) and
-// one thread stores the boxes of the expert's row tiles with TMA (the next
-// expert's rows in the block are not stored; columns past N are clipped).
-// The store drains while the next item loads and multiplies; `wait_group.read
-// 0` holds the tile until the store has read it.
+// 128-byte swizzled: no bank conflicts; eight for S and E, four for D).
+// Without SCATTER one thread stores the boxes of the expert's row tiles with
+// TMA (the next expert's rows in the block are not stored; columns past N
+// are clipped); the store drains while the next item loads and multiplies,
+// and `wait_group.read 0` holds the tile until the store has read it. With
+// SCATTER the warpgroup's threads copy the tile's rows out, a row's 16-byte
+// chunks by consecutive threads (whole 512- or 256-byte rows a warp
+// instruction), each to its row out_rows[s].
 constexpr int ROWS_K_MAJOR = 0, ROWS_N_MAJOR = 1, ROWS_SWIGLU = 2;
 
 template <int KIND>
 constexpr int ROWS_BN = KIND == ROWS_SWIGLU ? 128 : SX_BN;  // a work item's columns
 // D's output tiles are half of S's and E's (128 columns), which leaves room
-// for a fourth stage: 230 464 bytes of shared memory.
+// for a fourth stage.
 template <int KIND>
 constexpr int ROWS_STAGES = KIND == ROWS_SWIGLU ? 4 : SX_STAGES;
 template <int KIND>
 constexpr int ROWS_OUT_BYTES = 2 * ROWS_BN<KIND> / 64 * SX_OUT_BOX;  // a warpgroup's [64 rows][BN]
+// + the producer's row map of an item (GATHER), SX_ROWS ints after the barriers.
 template <int KIND>
-constexpr int ROWS_SMEM = ROWS_STAGES<KIND> * SX_STAGE_BYTES + 2 * ROWS_OUT_BYTES<KIND> + 2 * ROWS_STAGES<KIND> * 8 + 1024;
+constexpr int ROWS_SMEM = ROWS_STAGES<KIND> * SX_STAGE_BYTES + 2 * ROWS_OUT_BYTES<KIND> + 2 * ROWS_STAGES<KIND> * 8 +
+                          SX_ROWS * 4 + 1024;
 
 // D's epilogue on the f32 sums. silu in f32 with the fast exponential and
 // division (a few f32 ulps, far below the bf16 rounding after it): with
@@ -622,10 +467,19 @@ __device__ __forceinline__ float swiglu(float gate, float up) {
   return round_bf16(__fdividef(g, 1.f + __expf(-g))) * round_bf16(up);
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
+// GATHER's block: the two consumer warpgroups and a producer warpgroup,
+// whose 128 threads share the row copies (eight cp.async a thread a stage).
+constexpr int GATHER_BLOCK = 384;
+constexpr int GATHER_PRODUCERS = GATHER_BLOCK - 256;
+
+template <bool GATHER>
+constexpr int ROWS_BLOCK = GATHER ? GATHER_BLOCK : WG_BLOCK;
+
+template <int KIND, bool GATHER, bool SCATTER>
+__global__ void __launch_bounds__(ROWS_BLOCK<GATHER>, 1) gmm_rows_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
     const __grid_constant__ CUtensorMap map_w2, const __grid_constant__ CUtensorMap map_out,
+    const __nv_bfloat16* __restrict__ a, const int* __restrict__ a_rows, const int* __restrict__ out_rows,
     const int* __restrict__ tile_lo, const int* __restrict__ blk_lo, __nv_bfloat16* __restrict__ out,
     int n_experts, int n_tiles, int k_dim, int n_dim) {
   constexpr int BN = ROWS_BN<KIND>, STAGES = ROWS_STAGES<KIND>, OUT_BYTES = ROWS_OUT_BYTES<KIND>;
@@ -634,7 +488,8 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
   unsigned char* out_smem = smem + STAGES * SX_STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(out_smem + 2 * OUT_BYTES);
   uint64_t* empty = full + STAGES;
-  init_ring(full, empty, STAGES);
+  int* prow = reinterpret_cast<int*>(empty + STAGES);  // GATHER: the item's source rows
+  init_ring(full, empty, STAGES, GATHER ? 1 + GATHER_PRODUCERS : 1);
   const int n_blocks = blk_lo[n_experts];
   const int n_cb = (n_dim + BN - 1) / BN, n_k = (k_dim + SX_BK - 1) / SX_BK;
   const int n_items = ((n_tiles + SX_TILES - 1) / SX_TILES + n_experts + 1) * n_cb;
@@ -651,29 +506,50 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     t0 = tile_lo[e] + SX_TILES * (b - blk_lo[e]);
   };
 
-  if (warp == PRODUCER_WARP) {
-    if (lane == 0) {
+  if (warp >= PRODUCER_WARP) {
+    const int p = threadIdx.x - 32 * PRODUCER_WARP;  // the producer thread: 0, or 0 .. 127 under GATHER
+    if (GATHER || lane == 0) {
       Ring ring;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int b = item / n_cb, n0 = item % n_cb * BN;
         if (b >= n_blocks) continue;
         int e, t0;
         row_block(b, e, t0);
+        if constexpr (GATHER) {
+          const int t_end = min(t0 + SX_TILES, tile_lo[e + 1]);
+          sm90::bar_sync(3, GATHER_PRODUCERS);  // the previous item's reads of prow are done
+          prow[p] = t0 + p / BM < t_end ? a_rows[(size_t)t0 * BM + p] : -1;  // SX_ROWS == GATHER_PRODUCERS
+          sm90::bar_sync(3, GATHER_PRODUCERS);
+        }
         for (int ks = 0; ks < n_k; ++ks, ring.next<STAGES>()) {
           sm90::mbar_wait(&empty[ring.stage], ring.phase ^ 1);
           uint64_t* bar = &full[ring.stage];
           unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
-          sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);
-          sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);
+          if (p == 0) {
+            sm90::mbar_arrive_expect_tx(bar, GATHER ? SX_STAGE_BYTES - SX_A_BYTES : SX_STAGE_BYTES);
+            if (!GATHER) sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            unsigned char* dst = st + SX_A_BYTES + j * SX_B_BOX;
-            if (KIND == ROWS_N_MAJOR)
-              sm90::tma_load_3d(dst, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
-            else if (KIND == ROWS_K_MAJOR)
-              sm90::tma_load_3d(dst, &map_w, bar, ks * SX_BK, n0 + 64 * j, e);
-            else  // gate's two boxes, then up's
-              sm90::tma_load_3d(dst, j < 2 ? &map_w : &map_w2, bar, ks * SX_BK, n0 + 64 * (j % 2), e);
+            for (int j = 0; j < 4; ++j) {
+              unsigned char* dst = st + SX_A_BYTES + j * SX_B_BOX;
+              if (KIND == ROWS_N_MAJOR)
+                sm90::tma_load_3d(dst, &map_w, bar, n0 + 64 * j, ks * SX_BK, e);
+              else if (KIND == ROWS_K_MAJOR)
+                sm90::tma_load_3d(dst, &map_w, bar, ks * SX_BK, n0 + 64 * j, e);
+              else  // gate's two boxes, then up's
+                sm90::tma_load_3d(dst, j < 2 ? &map_w : &map_w2, bar, ks * SX_BK, n0 + 64 * (j % 2), e);
+            }
+          }
+          if constexpr (GATHER) {
+            // Thread p: chunk c = p % 8 of rows 16 q + p / 8, q < 8 (a warp
+            // instruction: four whole 128-byte row slices).
+            const int c = p % 8, k0 = ks * SX_BK + 8 * c;
+#pragma unroll
+            for (int q = 0; q < SX_ROWS / 16; ++q) {
+              const int r = 16 * q + p / 8, src = prow[r];
+              const bool live = src >= 0 && k0 < k_dim;  // k_dim is a multiple of 8
+              cp_async16(st + r * 128 + ((c ^ (r % 8)) * 16), live ? a + (size_t)src * k_dim + k0 : a, live);
+            }
+            cp_async_arrive(bar);
           }
         }
       }
@@ -686,7 +562,8 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
   Ring ring;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int b = item / n_cb, n0 = item % n_cb * BN;
-    if (b >= n_blocks) {  // the invalid tail's rows read as zeros
+    if (b >= n_blocks) {  // the invalid tail's rows read as zeros (aligned output only)
+      if (SCATTER) continue;
       const int t0 = tile_lo[n_experts] + SX_TILES * (b - n_blocks);
       if (t0 >= n_tiles) continue;
       const int r0 = t0 * BM, r1 = min(t0 + SX_TILES, n_tiles) * BM;
@@ -707,6 +584,7 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
     for (int ks = 0; ks < n_k; ++ks, ring.next<STAGES>()) {
       sm90::mbar_wait(&full[ring.stage], ring.phase);
       if (live) {
+        if (GATHER) sm90::fence_proxy_async();  // A's rows were written by cp.async (the generic proxy)
         const unsigned char* st = smem + ring.stage * SX_STAGE_BYTES;
         const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128, 16, 1024);
         const uint64_t db = sm90::desc_sw128(st + SX_A_BYTES, KIND == ROWS_N_MAJOR ? SX_B_BOX : 16, 1024);
@@ -757,18 +635,33 @@ __global__ void __launch_bounds__(WG_BLOCK, 1) gmm_rows_wgmma_kernel(
         *reinterpret_cast<__nv_bfloat162*>(ob + off) = v;
       }
     }
-    sm90::fence_proxy_async();
-    sm90::bar_sync(1 + wg, 128);
-    if (tid == 0) {
-#pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        const int t = t0 + 2 * wg + rt;
-        if (t >= t_end) break;
-#pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * (BN / 64) + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);
+    if constexpr (SCATTER) {
+      sm90::bar_sync(1 + wg, 128);
+      constexpr int CH = BN / 8, ROWS_AT_ONCE = 128 / CH;  // 16-byte chunks a row; rows a pass
+      const int c = tid % CH, col = n0 + 8 * c;
+      for (int r = tid / CH; r < 64; r += ROWS_AT_ONCE) {
+        if (t0 + 2 * wg + r / BM >= t_end) break;  // the next expert's rows, and past them
+        const int dst = out_rows[(size_t)(t0 + 2 * wg) * BM + r];
+        if (dst < 0 || col >= n_dim) continue;  // n_dim is a multiple of 8
+        const int rr = r % BM;
+        const int off = ((r / BM) * (BN / 64) + c / 8) * SX_OUT_BOX + rr * 128 + (((c % 8) ^ (rr % 8)) * 16);
+        *reinterpret_cast<uint4*>(out + (size_t)dst * n_dim + col) = *reinterpret_cast<const uint4*>(ob + off);
       }
-      sm90::bulk_commit();
+      // The next item's first barrier orders these reads before ob is rewritten.
+    } else {
+      sm90::fence_proxy_async();
+      sm90::bar_sync(1 + wg, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+          const int t = t0 + 2 * wg + rt;
+          if (t >= t_end) break;
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * (BN / 64) + j) * SX_OUT_BOX, n0 + 64 * j, t * BM);
+        }
+        sm90::bulk_commit();
+      }
     }
   }
   if (tid == 0) sm90::bulk_wait<0>();
@@ -954,211 +847,413 @@ __global__ void __launch_bounds__(NT) gmm_dw_f32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The routing layout: idx [N, k] -> the expert-aligned slots, in one block.
+//
+// Replaces the JAX package's glue before _gmm_ffn_kernel_al
+// (_moe_ffn_gmm_impl: the stable argsort of the flat ids, bincount,
+// _aligned_layout, the row gather's map) and the port's torch forms of it
+// (ops/moe_gmm.py `aligned_assignments` and `row_schedule`, its plain
+// twin): every integer equal to theirs. Assignment j = token * k +
+// selection has bucket b = idx[token, selection], or E for an id outside
+// [0, E) (another rank's expert under expert parallelism: no slot; it
+// sorts last).
+//
+// A stable counting sort with 32 warps: warp w owns the contiguous segment
+// w of the assignments and walks it 32 at a time in order. Pass 1 counts
+// each warp's buckets (lanes of equal bucket found by __match_any_sync,
+// the group's lowest lane adds the group's size: no atomics); one thread
+// scans the bucket totals into the sorted starts and lays out the aligned
+// groups (E is small: a loop over the experts); pass 2 places each
+// assignment at its bucket's start + the counts of earlier warps + its
+// rank among the equal lanes of its step, so equal ids keep index order,
+// as jnp.argsort(stable=True). Pass 3 fills the slots from the sorted
+// order. What bounds it: a few microseconds of latency (two passes over
+// N k ids of a few kB, then ~S slots written), one block on one SM.
+//
+// Outputs (S = m_pad + E BM slots, T = S / BM tiles, m = N k):
+//   assign [S] int64: the sorted assignment each slot's source row holds
+//     (pad slots: that of the clamped source row, 0 past m, as the torch form)
+//   slot_valid [S] bool, e_tile [T], tile_valid [T], rows [m] int64 (the
+//     slot of each assignment; an id-E assignment's is the clamped one)
+//   tile_lo [E + 1], blk_lo [E + 1]: D's, E's and S's schedule
+//   x_rows [S]: assign / k where valid, else -1 (D's map onto x's tokens)
+//   y_rows [S]: assign where valid, else -1 (E's map onto y's rows)
+//   order [m]: scratch, the sorted order.
+// Measured at N 550 in a CUDA graph: 0.019 ms, as much with the order and
+// each assignment's bucket kept in shared memory (PERF.md).
+
+constexpr int LAYOUT_WARPS = 32;
+
+struct LayoutOut {
+  long long* assign;
+  bool* slot_valid;
+  int* e_tile;
+  int* tile_valid;
+  long long* rows;
+  int* tile_lo;
+  int* blk_lo;
+  int* x_rows;
+  int* y_rows;
+  int* order;
+};
+
+// The number of values in a[0, n) that are <= v (a ascending).
+__device__ __forceinline__ int upper_bound(const int* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <typename I>
+__global__ void __launch_bounds__(LAYOUT_WARPS * 32) route_layout_kernel(const I* __restrict__ idx, int ld,
+                                                                          int n_tok, int k, int n_experts,
+                                                                          LayoutOut o) {
+  extern __shared__ int lsm[];
+  const int E = n_experts, NB = E + 1;
+  int* hist = lsm;                        // [LAYOUT_WARPS][NB]: counts, then each warp's running start
+  int* start = hist + LAYOUT_WARPS * NB;  // [NB + 1]: sorted start of each bucket
+  int* aend = start + NB + 1;             // [E]: aligned end of each expert's slots
+  int* shift = aend + E;                  // [E]: slot = sorted row + shift[e]
+  const int m = n_tok * k, m_pad = (m + BM - 1) / BM * BM, s_total = m_pad + E * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int seg = ((m + LAYOUT_WARPS - 1) / LAYOUT_WARPS + 31) / 32 * 32;
+  const int j_lo = min(warp * seg, m), j_hi = min(j_lo + seg, m);
+  int* mine = hist + warp * NB;
+  auto bucket = [&](int j) -> int {
+    const int t = j / k;
+    const long long v = idx[(size_t)t * ld + (j - t * k)];
+    return v >= 0 && v < E ? (int)v : E;
+  };
+
+  for (int i = threadIdx.x; i < LAYOUT_WARPS * NB; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
+    const int j = j0 + lane, b = j < j_hi ? bucket(j) : -1;
+    const unsigned same = __match_any_sync(0xffffffffu, b);
+    if (b >= 0 && lane == __ffs(same) - 1) mine[b] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+  // Each bucket's count over the warps, and each warp's start within it.
+  for (int b = threadIdx.x; b < NB; b += blockDim.x) {
+    int run = 0;
+    for (int w = 0; w < LAYOUT_WARPS; ++w) {
+      const int c = hist[w * NB + b];
+      hist[w * NB + b] = run;
+      run += c;
+    }
+    start[b] = run;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0, aligned = 0, blocks = 0;
+    for (int b = 0; b < NB; ++b) {
+      const int c = start[b];
+      start[b] = run;
+      if (b < E) {
+        const int tiles = (c + BM - 1) / BM;
+        o.tile_lo[b] = aligned / BM;
+        o.blk_lo[b] = blocks;
+        shift[b] = aligned - run;
+        aligned += tiles * BM;
+        aend[b] = aligned;
+        blocks += (tiles + SX_TILES - 1) / SX_TILES;
+      }
+      run += c;
+    }
+    start[NB] = run;
+    o.tile_lo[E] = aligned / BM;
+    o.blk_lo[E] = blocks;
+  }
+  __syncthreads();
+  for (int j0 = j_lo; j0 < j_hi; j0 += 32) {
+    const int j = j0 + lane, b = j < j_hi ? bucket(j) : -1;
+    const unsigned same = __match_any_sync(0xffffffffu, b);
+    if (b >= 0) {
+      const int pos = start[b] + mine[b] + __popc(same & ((1u << lane) - 1));
+      o.order[pos] = j;
+      o.rows[j] = pos + shift[b < E ? b : E - 1];
+    }
+    __syncwarp();
+    if (b >= 0 && lane == __ffs(same) - 1) mine[b] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < s_total; s += blockDim.x) {
+    const int e = min(upper_bound(aend, E, s), E - 1);
+    const int src = s - shift[e];
+    const bool valid = s < aend[e] && src < start[e + 1];
+    const int sc = min(max(src, 0), m_pad - 1);
+    const int j = sc < m ? o.order[sc] : 0;
+    o.assign[s] = j;
+    o.slot_valid[s] = valid;
+    o.x_rows[s] = valid ? j / k : -1;
+    o.y_rows[s] = valid ? j : -1;
+  }
+  const int total = aend[E - 1];
+  for (int t = threadIdx.x; t < s_total / BM; t += blockDim.x) {
+    const bool valid = t * BM < total;
+    o.e_tile[t] = min(upper_bound(aend, E, valid ? t * BM : max(total - 1, 0)), E - 1);
+    o.tile_valid[t] = valid;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The k-combine: out[t] = sum over the selections s = 0 .. k-1 of token t
+// whose id is in [0, E) of float(y[t k + s]) * w[t, s], in f32, cast once
+// to out's type (the rounding points of the torch combine it replaces,
+// `(y.float() * w).sum(1)`; product and sum rounded apart, no FMA), and in
+// that sum's order on the card: four running sums, selection s of each
+// whole group of four into sum s % 4, the rest into sums 0, 1, 2, then
+// the four added in order (measured bit-equal for k 1-12; a sum in
+// selection order moved the LM's bf16 logits enough to flip a token of
+// chip_smoke's phase 9c). So the chain gives the forward's bits before it.
+// A selection of another rank's expert adds nothing (its row of y is never
+// written, so it is not read). No atomics: each output is one thread's.
+// Thread: 16 bytes of y a selection (8 bf16 or 4 f32 columns) of one token.
+// Bound: y read once, out written once (8.4 MB + 1.4 MB at N 550 in bf16).
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[16 / sizeof(T)]);
+
+template <>
+__device__ __forceinline__ void load_vec<float>(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T, typename O, typename I>
+__global__ void __launch_bounds__(256) moe_combine_kernel(const T* __restrict__ y, const float* __restrict__ w,
+                                                         int ldw, const I* __restrict__ idx, int ldi,
+                                                         O* __restrict__ out, int n_tok, int k, int h,
+                                                         int n_experts) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_tok = h / V;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (long long)n_tok * per_tok) return;
+  const int t = (int)(g / per_tok), c = (int)(g % per_tok) * V;
+  float acc[4][V];  // the four running sums
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[a][i] = 0.f;
+  // Selection s into sum a (a compile-time index: the sums stay in registers).
+  auto add = [&](int a_sum, int s) {
+    const long long id = idx[(size_t)t * ldi + s];
+    if (id < 0 || id >= n_experts) return;
+    const float ws = w[(size_t)t * ldw + s];
+    float v[V];
+    load_vec(y + ((size_t)t * k + s) * h + c, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[a_sum][i] = __fadd_rn(acc[a_sum][i], __fmul_rn(v[i], ws));
+  };
+  const int full = k / 4 * 4;
+  for (int s0 = 0; s0 < full; s0 += 4) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) add(a, s0 + a);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    if (full + a < k) add(a, full + a);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    store_out(out + (size_t)t * h + c + i, __fadd_rn(__fadd_rn(__fadd_rn(acc[0][i], acc[1][i]), acc[2][i]), acc[3][i]));
+}
+
 bool bad_shape(int n_tiles, int bm, int k_dim, int n_dim, int k_align) {
   return bm != BM || n_tiles <= 0 || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
 }
 
-bool bad_visits(int n_visits, int bm, int k_dim, int n_dim, int k_align) {
-  return n_visits <= 0 || bm <= 0 || bm % BM || k_dim <= 0 || k_dim % k_align || n_dim <= 0 || n_dim % 4;
-}
-
-AlignedRows aligned(const void* e_tile, const void* tile_valid) {
-  return AlignedRows{static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid)};
-}
-
-VisitRows visits(const void* vt, const void* ve, const void* lo, const void* hi, int bm) {
-  return VisitRows{static_cast<const int*>(vt), static_cast<const int*>(ve), static_cast<const int*>(lo),
-                   static_cast<const int*>(hi), bm};
-}
-
-template <int NW, int TN, bool WKN, class Rows>
-int launch_f32(const void* x, const void* w0, const void* w1, Rows rows, int n_blocks, void* out, int k_dim,
+template <int NW, int TN, bool WKN>
+int launch_f32(const void* x, const void* w0, const void* w1, TileRows rows, int n_tiles, void* out, int k_dim,
                int n_dim, void* stream) {
   constexpr int BN = NTX * TN;
-  const dim3 grid(n_blocks, (n_dim + BN - 1) / BN);
-  gmm_kernel<NW, TN, WKN, Rows><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n_tiles, (n_dim + BN - 1) / BN);
+  gmm_kernel<NW, TN, WKN><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(w1), rows,
       static_cast<float*>(out), k_dim, n_dim);
   return (int)cudaGetLastError();
 }
 
-template <int NW, int BN, class Rows>
-int launch_bf16(const void* x, const void* w0, const void* w1, Rows rows, int n_blocks, void* out, int k_dim,
-                int n_dim, void* stream) {
-  using B = __nv_bfloat16;
-  const dim3 grid(n_blocks, (n_dim + BN - 1) / BN);
-  gmm_mma_kernel<NW, BN, Rows><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const B*>(x), static_cast<const B*>(w0), static_cast<const B*>(w1), rows,
-      static_cast<B*>(out), k_dim, n_dim);
-  return (int)cudaGetLastError();
-}
-
-// Kernel W, ffn mode, f32: one block per visit part (VisitRows). Phase 1
-// computes the part's act = silu(x Wg^T) (x Wu^T) for all I columns, 64 at
-// a time, into act_t, a transposed [I'][XS] copy in dynamic shared memory
-// (I' = I rounded up to BK, zero past I: 129 KB at I = 896); phase 2 runs
-// y = act Wd^T from it, 128 columns at a time, and writes the part's rows
-// in [lo, hi). The same f32_sums and f32_store as D and E, so the sums are
-// taken in their order.
-template <class Rows>
-__global__ void __launch_bounds__(NT) gmm_ffn_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ wg, const float* __restrict__ wu,
-    const float* __restrict__ wd, Rows rows, float* __restrict__ y, int h_dim, int i_dim) {
-  extern __shared__ __align__(16) float act_t[];
-  __shared__ __align__(16) float xs[BK * XS];
-  __shared__ __align__(16) float ws[2 * BK * (64 + 4)];  // two [BK][68] slices, or one [BK][132]
-
-  int row0, e, lo, hi;
-  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
-  const int i_pad = (i_dim + BK - 1) / BK * BK;
-  for (int idx = i_dim * XS + threadIdx.x; idx < i_pad * XS; idx += NT) act_t[idx] = 0.f;
-  const float* wgu[2] = {wg + (size_t)e * i_dim * h_dim, wu + (size_t)e * i_dim * h_dim};
-  for (int n0 = 0; n0 < i_dim; n0 += NTX * 4) {
-    float acc[2][TM][4];
-    f32_sums<2, 4, false>(x + (size_t)row0 * h_dim, nullptr, wgu, n0, h_dim, i_dim, xs, ws, acc);
-    f32_store<2, 4>(act_t, acc, 0, 0, BM, n0, i_dim, 1, XS);
-  }
-  const float* wdp[1] = {wd + (size_t)e * h_dim * i_dim};
-  for (int n0 = 0; n0 < h_dim; n0 += NTX * 8) {
-    float acc[1][TM][8];
-    f32_sums<1, 8, false>(nullptr, act_t, wdp, n0, i_dim, h_dim, xs, ws, acc);
-    f32_store<1, 8>(y, acc, row0, lo, hi, n0, h_dim, h_dim, 1);
-  }
-}
-
-// Kernel W, ffn mode, bf16: as the f32 form on the tensor cores (mma_sums
-// and mma_store of D and E). The part's act, rounded to bf16 where D
-// rounds it, stays in dynamic shared memory as [BM][I' + 8] (I' = I rounded
-// up to MK, zero past I: 57 KB at I = 896), and phase 2 reads its mma A
-// fragments straight from there.
-template <class Rows>
-__global__ void __launch_bounds__(NT) gmm_ffn_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-    const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ wd, Rows rows,
-    __nv_bfloat16* __restrict__ y, int h_dim, int i_dim) {
-  extern __shared__ __align__(16) unsigned char act_raw[];
-  __shared__ __align__(16) __nv_bfloat16 xs[2 * BM * MS];
-  __shared__ __align__(16) __nv_bfloat16 ws[2 * 2 * 64 * MS];  // [2][2][64][MS], or [2][1][128][MS]
-
-  int row0, e, lo, hi;
-  if (!rows.get(blockIdx.x, row0, e, lo, hi)) return;
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(act_raw);
-  const int i_pad = (i_dim + MK - 1) / MK * MK, as = i_pad + 8;
-  const int n_zero = i_pad - i_dim;
-  for (int idx = threadIdx.x; idx < BM * n_zero; idx += NT)
-    act[(idx / n_zero) * as + i_dim + idx % n_zero] = __float2bfloat16_rn(0.f);
-  const __nv_bfloat16* wgu[2] = {wg + (size_t)e * i_dim * h_dim, wu + (size_t)e * i_dim * h_dim};
-  for (int n0 = 0; n0 < i_dim; n0 += 64) {
-    float acc[2][4][4];
-    mma_sums<2, 64>(x + (size_t)row0 * h_dim, nullptr, 0, wgu, n0, h_dim, i_dim, xs, ws, acc);
-    mma_store<2, 64>(act, acc, 0, 0, BM, n0, i_dim, as);
-  }
-  const __nv_bfloat16* wdp[1] = {wd + (size_t)e * h_dim * i_dim};
-  for (int n0 = 0; n0 < h_dim; n0 += 128) {
-    float acc[1][8][4];
-    mma_sums<1, 128>(nullptr, act, as, wdp, n0, i_dim, h_dim, xs, ws, acc);
-    mma_store<1, 128>(y, acc, row0, lo, hi, n0, h_dim, h_dim);
-  }
-}
-
-template <typename T, class Rows>
-int launch_ffn(const void* x, const void* wg, const void* wu, const void* wd, Rows rows, int n_blocks, void* y,
-               int h_dim, int i_dim, void* stream) {
-  constexpr bool F32 = sizeof(T) == 4;
-  const size_t smem = F32 ? sizeof(float) * ((i_dim + BK - 1) / BK * BK) * XS
-                          : sizeof(__nv_bfloat16) * BM * ((i_dim + MK - 1) / MK * MK + 8);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F32) {
-    auto kernel = gmm_ffn_f32_kernel<Rows>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<n_blocks, NT, smem, s>>>(static_cast<const float*>(x), static_cast<const float*>(wg),
-                                      static_cast<const float*>(wu), static_cast<const float*>(wd), rows,
-                                      static_cast<float*>(y), h_dim, i_dim);
-  } else {
-    using B = __nv_bfloat16;
-    auto kernel = gmm_ffn_mma_kernel<Rows>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<n_blocks, NT, smem, s>>>(static_cast<const B*>(x), static_cast<const B*>(wg),
-                                      static_cast<const B*>(wu), static_cast<const B*>(wd), rows,
-                                      static_cast<B*>(y), h_dim, i_dim);
-  }
-  return (int)cudaGetLastError();
+TileRows tile_rows(const void* e_tile, const void* tile_valid, const void* a_rows, const void* out_rows) {
+  return TileRows{static_cast<const int*>(e_tile), static_cast<const int*>(tile_valid),
+                  static_cast<const int*>(a_rows), static_cast<const int*>(out_rows)};
 }
 
 // S (KIND ROWS_N_MAJOR: w [E, K, N]), E (ROWS_K_MAJOR: w [E, N, K]) or D
 // (ROWS_SWIGLU: w, w2 = gate, up [E, N, K]) in bf16 on
-// gmm_rows_wgmma_kernel: a [S, K] -> out [S, N]. The tensor maps: a and
-// out 2-D over the n_tiles * BM rows; the weights 3-D with the expert
-// outermost, their boxes 64 wide along their contiguous dim.
-template <int KIND>
+// gmm_rows_wgmma_kernel: a [S, K] (GATHER: a [R, K] through a_rows) -> out
+// [S, N] (SCATTER: rows of out through out_rows). The tensor maps: a and
+// out 2-D over the n_tiles * BM rows (not built under GATHER / SCATTER);
+// the weights 3-D with the expert outermost, their boxes 64 wide along
+// their contiguous dim.
+template <int KIND, bool GATHER, bool SCATTER>
 int launch_rows_wgmma(const void* a, const void* w, const void* w2, const void* tile_lo, const void* blk_lo,
-                      void* out, int n_tiles, int bm, int k_dim, int n_dim, int n_experts, int n_blocks,
-                      void* stream) {
+                      const void* a_rows, const void* out_rows, void* out, int n_tiles, int bm, int k_dim,
+                      int n_dim, int n_experts, int n_blocks, void* stream) {
   if (bad_shape(n_tiles, bm, k_dim, n_dim, 8) || n_dim % 8 || n_experts <= 0 || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   constexpr bool N_MAJOR = KIND == ROWS_N_MAJOR;
-  CUtensorMap map_a, map_w, map_w2, map_out;
+  CUtensorMap map_a{}, map_w{}, map_w2{}, map_out{};
   const uint64_t rows = (uint64_t)n_tiles * BM;
   const uint64_t dims_a[2] = {(uint64_t)k_dim, rows}, dims_out[2] = {(uint64_t)n_dim, rows};
   const uint64_t dims_w[3] = {(uint64_t)(N_MAJOR ? n_dim : k_dim), (uint64_t)(N_MAJOR ? k_dim : n_dim),
                               (uint64_t)n_experts};
   const uint32_t box_a[2] = {SX_BK, SX_ROWS}, box_w[3] = {64, 64, 1}, box_out[2] = {64, BM};
-  auto kernel = gmm_rows_wgmma_kernel<KIND>;
-  int err = sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
+  auto kernel = gmm_rows_wgmma_kernel<KIND, GATHER, SCATTER>;
+  int err = GATHER ? 0 : sm90::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, a, dims_a, box_a);
   if (!err) err = sm90::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w, dims_w, box_w);
   if (!err) err = sm90::make_map(&map_w2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, w2, dims_w, box_w);
-  if (!err) err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
+  if (!err && !SCATTER)
+    err = sm90::make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, out, dims_out, box_out);
   if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ROWS_SMEM<KIND>);
   if (err) return err;
-  kernel<<<n_blocks, WG_BLOCK, ROWS_SMEM<KIND>, static_cast<cudaStream_t>(stream)>>>(
-      map_a, map_w, map_w2, map_out, static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
+  kernel<<<n_blocks, ROWS_BLOCK<GATHER>, ROWS_SMEM<KIND>, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w, map_w2, map_out, static_cast<const __nv_bfloat16*>(a), static_cast<const int*>(a_rows),
+      static_cast<const int*>(out_rows), static_cast<const int*>(tile_lo), static_cast<const int*>(blk_lo),
       static_cast<__nv_bfloat16*>(out), n_experts, n_tiles, k_dim, n_dim);
   return (int)cudaGetLastError();
 }
 
+template <typename I>
+int launch_layout(const void* idx, int ld, int n_tok, int k, int n_experts, LayoutOut o, void* stream) {
+  const int smem = (LAYOUT_WARPS * (n_experts + 1) + n_experts + 2 + 2 * n_experts) * (int)sizeof(int);
+  auto kernel = route_layout_kernel<I>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<1, LAYOUT_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(static_cast<const I*>(idx), ld, n_tok,
+                                                                             k, n_experts, o);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename O, typename I>
+int launch_combine(const void* y, const void* w, int ldw, const void* idx, int ldi, void* out, int n_tok, int k,
+                   int h, int n_experts, void* stream) {
+  const long long threads = (long long)n_tok * (h / (16 / (int)sizeof(T)));
+  moe_combine_kernel<T, O, I><<<(unsigned)((threads + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<const float*>(w), ldw, static_cast<const I*>(idx), ldi,
+      static_cast<O*>(out), n_tok, k, h, n_experts);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename O>
+int launch_combine_idx(const void* y, const void* w, int ldw, const void* idx, int idx64, int ldi, void* out,
+                       int n_tok, int k, int h, int n_experts, void* stream) {
+  return idx64 ? launch_combine<T, O, long long>(y, w, ldw, idx, ldi, out, n_tok, k, h, n_experts, stream)
+               : launch_combine<T, O, int>(y, w, ldw, idx, ldi, out, n_tok, k, h, n_experts, stream);
+}
+
 }  // namespace
 
-// D: x [S, H], wg / wu [E, I, H] -> act [S, I].
+// The routing layout of idx [N, k] (int64 when idx64, else int32; row
+// stride ld elements, selections contiguous) over n_experts experts into
+// the buffers of LayoutOut (see route_layout_kernel), one block.
+extern "C" int route_layout(const void* idx, int idx64, int ld, int n_tok, int k, int n_experts, void* assign,
+                            void* slot_valid, void* e_tile, void* tile_valid, void* rows, void* tile_lo,
+                            void* blk_lo, void* x_rows, void* y_rows, void* order, void* stream) {
+  if (n_tok <= 0 || k <= 0 || n_experts <= 0 || n_experts > 1024 || ld < k || (long long)n_tok * k > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  const LayoutOut o{static_cast<long long*>(assign), static_cast<bool*>(slot_valid), static_cast<int*>(e_tile),
+                    static_cast<int*>(tile_valid), static_cast<long long*>(rows), static_cast<int*>(tile_lo),
+                    static_cast<int*>(blk_lo), static_cast<int*>(x_rows), static_cast<int*>(y_rows),
+                    static_cast<int*>(order)};
+  return idx64 ? launch_layout<long long>(idx, ld, n_tok, k, n_experts, o, stream)
+               : launch_layout<int>(idx, ld, n_tok, k, n_experts, o, stream);
+}
+
+// The k-combine: y [N k, H] (bf16 when y_bf16, else f32), w [N, k] f32 (row
+// stride ldw), idx [N, k] (int64 when idx64, row stride ldi) -> out [N, H]
+// (bf16 when out_bf16, else f32). H a multiple of 16 bytes of y.
+extern "C" int moe_combine(const void* y, const void* w, int ldw, const void* idx, int idx64, int ldi, void* out,
+                           int n_tok, int k, int h, int n_experts, int y_bf16, int out_bf16, void* stream) {
+  if (n_tok <= 0 || k <= 0 || h <= 0 || h % (y_bf16 ? 8 : 4) || ldw < k || ldi < k)
+    return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  if (y_bf16)
+    return out_bf16 ? launch_combine_idx<B, B>(y, w, ldw, idx, idx64, ldi, out, n_tok, k, h, n_experts, stream)
+                    : launch_combine_idx<B, float>(y, w, ldw, idx, idx64, ldi, out, n_tok, k, h, n_experts, stream);
+  return out_bf16 ? launch_combine_idx<float, B>(y, w, ldw, idx, idx64, ldi, out, n_tok, k, h, n_experts, stream)
+                  : launch_combine_idx<float, float>(y, w, ldw, idx, idx64, ldi, out, n_tok, k, h, n_experts, stream);
+}
+
+// D: x [S, H] (or [R, H] through x_rows [S], -1 reading zeros), wg / wu
+// [E, I, H] -> act [S, I], the invalid tail tiles' rows zero; or, with
+// out_rows, slot s's act to row out_rows[s] of act (none where -1).
 extern "C" int gmm_swiglu_f32(const void* x, const void* wg, const void* wu, const void* e_tile,
-                              const void* tile_valid, void* act, int n_tiles, int bm, int h,
-                              int i, void* stream) {
+                              const void* tile_valid, const void* x_rows, const void* out_rows, void* act,
+                              int n_tiles, int bm, int h, int i, void* stream) {
   if (bad_shape(n_tiles, bm, h, i, 4)) return (int)cudaErrorInvalidValue;
-  return launch_f32<2, 4, false>(x, wg, wu, aligned(e_tile, tile_valid), n_tiles, act, h, i, stream);
+  return launch_f32<2, 4, false>(x, wg, wu, tile_rows(e_tile, tile_valid, x_rows, out_rows), n_tiles, act, h, i,
+                                 stream);
 }
 
-// D in bf16: x [S, H], wg / wu [E, I, H] and S's schedule (tile_lo, blk_lo,
-// n_blocks: ops/moe_gmm.swiglu_grid) -> act [S, I], every row written, those
-// of the invalid tail tiles with zeros.
+// D in bf16: x [S, H] (or [R, H] through x_rows), wg / wu [E, I, H] and
+// the schedule (tile_lo, blk_lo, n_blocks: ops/moe_gmm.swiglu_grid) -> act
+// [S, I], every row written, those of the invalid tail tiles with zeros;
+// or, with out_rows (x_rows then required), slot s's act to row
+// out_rows[s] of act (none where -1).
 extern "C" int gmm_swiglu_bf16(const void* x, const void* wg, const void* wu, const void* tile_lo,
-                               const void* blk_lo, void* act, int n_tiles, int bm, int h, int i, int n_experts,
-                               int n_blocks, void* stream) {
-  return launch_rows_wgmma<ROWS_SWIGLU>(x, wg, wu, tile_lo, blk_lo, act, n_tiles, bm, h, i, n_experts, n_blocks,
-                                        stream);
+                               const void* blk_lo, const void* x_rows, const void* out_rows, void* act,
+                               int n_tiles, int bm, int h, int i, int n_experts, int n_blocks, void* stream) {
+  if (out_rows)
+    return x_rows ? launch_rows_wgmma<ROWS_SWIGLU, true, true>(x, wg, wu, tile_lo, blk_lo, x_rows, out_rows, act,
+                                                               n_tiles, bm, h, i, n_experts, n_blocks, stream)
+                  : (int)cudaErrorInvalidValue;
+  if (x_rows)
+    return launch_rows_wgmma<ROWS_SWIGLU, true, false>(x, wg, wu, tile_lo, blk_lo, x_rows, nullptr, act, n_tiles,
+                                                       bm, h, i, n_experts, n_blocks, stream);
+  return launch_rows_wgmma<ROWS_SWIGLU, false, false>(x, wg, wu, tile_lo, blk_lo, nullptr, nullptr, act, n_tiles,
+                                                      bm, h, i, n_experts, n_blocks, stream);
 }
 
-// E: act [S, I], wd [E, H, I] -> y [S, H].
-extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile,
-                            const void* tile_valid, void* y, int n_tiles, int bm, int i, int h,
-                            void* stream) {
+// E: act [S, I], wd [E, H, I] -> y [S, H], or through y_rows [S] the row
+// y_rows[s] of y (none where -1).
+extern "C" int gmm_down_f32(const void* act, const void* wd, const void* e_tile, const void* tile_valid,
+                            const void* y_rows, void* y, int n_tiles, int bm, int i, int h, void* stream) {
   if (bad_shape(n_tiles, bm, i, h, 4)) return (int)cudaErrorInvalidValue;
-  return launch_f32<1, 8, false>(act, wd, wd, aligned(e_tile, tile_valid), n_tiles, y, i, h, stream);
+  return launch_f32<1, 8, false>(act, wd, wd, tile_rows(e_tile, tile_valid, nullptr, y_rows), n_tiles, y, i, h,
+                                 stream);
 }
 
 // E in bf16: act [S, I], wd [E, H, I] and S's schedule (tile_lo, blk_lo,
-// n_blocks; see gmm_dx_bf16) -> y [S, H], every row written.
-extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* tile_lo, const void* blk_lo, void* y,
-                             int n_tiles, int bm, int i, int h, int n_experts, int n_blocks, void* stream) {
-  return launch_rows_wgmma<ROWS_K_MAJOR>(act, wd, wd, tile_lo, blk_lo, y, n_tiles, bm, i, h, n_experts, n_blocks,
-                                         stream);
+// n_blocks; see gmm_dx_bf16) -> y [S, H], every row written; or through
+// y_rows as gmm_down_f32.
+extern "C" int gmm_down_bf16(const void* act, const void* wd, const void* tile_lo, const void* blk_lo,
+                             const void* y_rows, void* y, int n_tiles, int bm, int i, int h, int n_experts,
+                             int n_blocks, void* stream) {
+  if (y_rows)
+    return launch_rows_wgmma<ROWS_K_MAJOR, false, true>(act, wd, wd, tile_lo, blk_lo, nullptr, y_rows, y, n_tiles,
+                                                        bm, i, h, n_experts, n_blocks, stream);
+  return launch_rows_wgmma<ROWS_K_MAJOR, false, false>(act, wd, wd, tile_lo, blk_lo, nullptr, nullptr, y, n_tiles,
+                                                       bm, i, h, n_experts, n_blocks, stream);
 }
 
 // S: a [S, O], w [E, O, C] (contracted on O, its row dim) -> out [S, C].
 extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, const void* tile_valid,
                           void* out, int n_tiles, int bm, int o, int c, void* stream) {
   if (bad_shape(n_tiles, bm, o, c, 4)) return (int)cudaErrorInvalidValue;
-  return launch_f32<1, 8, true>(a, w, w, aligned(e_tile, tile_valid), n_tiles, out, o, c, stream);
+  return launch_f32<1, 8, true>(a, w, w, tile_rows(e_tile, tile_valid, nullptr, nullptr), n_tiles, out, o, c,
+                                stream);
 }
 
 // S in bf16: tile_lo [E + 1] (expert e owns tiles tile_lo[e] .. tile_lo[e + 1]
@@ -1168,8 +1263,8 @@ extern "C" int gmm_dx_f32(const void* a, const void* w, const void* e_tile, cons
 // zeros.
 extern "C" int gmm_dx_bf16(const void* a, const void* w, const void* tile_lo, const void* blk_lo, void* out,
                            int n_tiles, int bm, int o, int c, int n_experts, int n_blocks, void* stream) {
-  return launch_rows_wgmma<ROWS_N_MAJOR>(a, w, w, tile_lo, blk_lo, out, n_tiles, bm, o, c, n_experts, n_blocks,
-                                         stream);
+  return launch_rows_wgmma<ROWS_N_MAJOR, false, false>(a, w, w, tile_lo, blk_lo, nullptr, nullptr, out, n_tiles,
+                                                       bm, o, c, n_experts, n_blocks, stream);
 }
 
 // T: x [S, C], dy [S, O], tile_lo [E + 1] (expert e owns tiles
@@ -1204,37 +1299,4 @@ extern "C" int gmm_dw_bf16(const void* x, const void* dy, const void* tile_lo, v
   gmm_dw_wgmma_kernel<<<n_blocks, WG_BLOCK, DW_SMEM, static_cast<cudaStream_t>(stream)>>>(
       map_dy, map_x, map_dw, static_cast<const int*>(tile_lo), n_experts, o, c);
   return (int)cudaGetLastError();
-}
-
-// W, swiglu mode: x [m_pad, H] (expert-sorted rows), wg / wu [E, I, H] and
-// the visit schedule vt / ve / lo / hi [V] int32 -> act [m_pad, I]; only
-// the rows of a visit's [lo, hi) are written (bm a multiple of 32).
-extern "C" int gmm_swiglu_visit_f32(const void* x, const void* wg, const void* wu, const void* vt, const void* ve,
-                                    const void* lo, const void* hi, void* act, int n_visits, int bm, int h, int i,
-                                    void* stream) {
-  if (bad_visits(n_visits, bm, h, i, 4)) return (int)cudaErrorInvalidValue;
-  return launch_f32<2, 4, false>(x, wg, wu, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), act, h, i, stream);
-}
-
-extern "C" int gmm_swiglu_visit_bf16(const void* x, const void* wg, const void* wu, const void* vt, const void* ve,
-                                     const void* lo, const void* hi, void* act, int n_visits, int bm, int h, int i,
-                                     void* stream) {
-  if (bad_visits(n_visits, bm, h, i, 8)) return (int)cudaErrorInvalidValue;
-  return launch_bf16<2, 64>(x, wg, wu, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), act, h, i, stream);
-}
-
-// W, ffn mode: as the swiglu mode, with wd [E, H, I] -> y [m_pad, H].
-extern "C" int gmm_ffn_visit_f32(const void* x, const void* wg, const void* wu, const void* wd, const void* vt,
-                                 const void* ve, const void* lo, const void* hi, void* y, int n_visits, int bm,
-                                 int h, int i, void* stream) {
-  if (bad_visits(n_visits, bm, h, i, 4) || i % 4) return (int)cudaErrorInvalidValue;
-  return launch_ffn<float>(x, wg, wu, wd, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), y, h, i, stream);
-}
-
-extern "C" int gmm_ffn_visit_bf16(const void* x, const void* wg, const void* wu, const void* wd, const void* vt,
-                                  const void* ve, const void* lo, const void* hi, void* y, int n_visits, int bm,
-                                  int h, int i, void* stream) {
-  if (bad_visits(n_visits, bm, h, i, 8) || i % 8) return (int)cudaErrorInvalidValue;
-  return launch_ffn<__nv_bfloat16>(x, wg, wu, wd, visits(vt, ve, lo, hi, bm), n_visits * (bm / BM), y, h, i,
-                                   stream);
 }

@@ -1,20 +1,32 @@
-"""Expert-aligned grouped-GEMM MoE: the prefill kernels D and E, the
-backward kernels S and T, the device-side layout around them, the plain
-twins, and the differentiable `moe_ffn_gmm`.
+"""Expert-aligned grouped-GEMM MoE: the prefill forward as one routed chain
+(the routing layout, kernels D and E on row maps, the k-combine), the
+backward kernels S and T, the plain twins, and the differentiable
+`moe_ffn_gmm`.
 
 Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
 - `aligned_layout` ports `_aligned_layout`: each expert's sorted group is
   padded to a multiple of `GMM_BM` rows, so every row tile holds one expert;
+- `routed_layout` is the whole layout of a routing idx [N, k] in one CUDA
+  launch (`route_layout` in csrc/moe_gmm.cu: a stable counting sort, the
+  aligned slots, D's and E's schedule and their row maps), the counterpart
+  of the glue before `_gmm_ffn_kernel_al` in `_moe_ffn_gmm_impl` (the
+  stable argsort, bincount, `_aligned_layout`); its plain twin
+  `routed_layout_reference` is `aligned_assignments` + `row_schedule`, the
+  torch forms every integer of the kernel equals;
 - D, `moe_gmm_swiglu` (replaces `_gmm_swiglu_kernel_al`), and E,
   `moe_gmm_down` (replaces `_gmm_down_kernel_al`); run in turn they compute
   the fused `_gmm_ffn_kernel_al` the JAX package runs by default, with the
-  act rounded at the same point. The backward's recompute
-  (`_gmm_down_kernel` there) is E three times. In bf16 E runs S's kernel
-  (below) with the weight read K-major, on S's schedule, and D the same
-  kernel with gate and up in each stage and the SwiGLU in its epilogue, on
-  (row block, SWIGLU_COLS columns of I) items (`swiglu_grid`): each weight
-  slice is read once per 128 rows, where D's first form, a 32-row mma.sync
-  kernel, re-read its expert's gate and up for every 32-row tile;
+  act rounded at the same point. D reads x through a slot -> row map (no
+  [S, H] copy of x) and E writes each slot's y through a slot -> row map
+  (no unsort), and `moe_combine` sums each token's k rows in f32: the
+  forward of a MoE layer on CUDA is four launches, `_forward_routed`. The
+  backward's recompute (`_gmm_down_kernel` there) is E three times. In
+  bf16 E runs S's kernel (below) with the weight read K-major, on S's
+  schedule, and D the same kernel with gate and up in each stage and the
+  SwiGLU in its epilogue, on (row block, SWIGLU_COLS columns of I) items
+  (`swiglu_grid`): each weight slice is read once per 128 rows, where D's
+  first form, a 32-row mma.sync kernel, re-read its expert's gate and up
+  for every 32-row tile;
 - S, `moe_gmm_dx` (replaces `_gmm_dx_kernel`): per tile a @ W_e, the
   weight contracted on its row dim; T, `moe_gmm_dw` (replaces
   `_gmm_dw_kernel`): per expert the sum of dy_t^T x_t over its tiles, in
@@ -25,19 +37,21 @@ Port of deepseek_ocr2_tpu/ops/moe_gmm.py (`moe_ffn_gmm` and its custom VJP):
   (`row_block_lo`, `dx_grid`; `dx_row_blocks` is the plain form of its
   row-block map), T on (expert, 128 x 256 outputs) work items (`dw_grid`;
   `dw_work_items` the plain form of its walk);
-- `MoeFfnGmm`, the autograd Function: forward D then E, backward
-  `_moe_ffn_gmm_bwd`'s rounding points on the aligned layout (E x 3, S x 3,
-  T x 3). The kernels are forward-only outside it (`cuda_build.require_cuda`
-  refuses an input that requires grad while grad mode is on);
+- `MoeFfnGmm`, the autograd Function: forward the routed chain, backward
+  `_moe_ffn_gmm_bwd`'s rounding points on the same saved layout (E x 3,
+  S x 3, T x 3). The kernels are forward-only outside it
+  (`cuda_build.require_cuda` refuses an input that requires grad while grad
+  mode is on);
 - `moe_ffn_gmm_reference` is the grouped plain twin (the counterpart of
   `moe_ffn_ragged`): the CPU's forward above the dense cut-over, and the
   oracle of the kernels on the card;
 - W, the boundary-visit forward the aligned layout superseded, on the
   port's copy of `_visit_schedule` and `_pick_bm` (`visit_schedule`,
   `pick_bm`): `gmm_swiglu_visit` (replaces `_gmm_swiglu_kernel`) and
-  `gmm_ffn_visit` (replaces `_gmm_ffn_kernel`, the down product fused, the
-  act kept on chip). No path of the JAX package calls either, so none of the
-  port's does: the MoE above runs D and E.
+  `gmm_ffn_visit` (replaces `_gmm_ffn_kernel`), run on D and E with the
+  slot -> sorted-row map of the sorted rows' own aligned layout, on their
+  loads and on D's (swiglu) or E's (ffn) stores; no device code of its own.
+  No path of the JAX package calls either, so none of the port's does.
 
 Weights keep HF's [out, in] layout, stacked over experts: gate/up [E, I, H],
 down [E, H, I]. Rounding points (identity for f32), as in the TPU kernels:
@@ -45,15 +59,15 @@ gate = round(x Wg^T), up = round(x Wu^T), act = round(round(silu_f32(gate))
 * up), y = round(act Wd^T), each product accumulated in f32; the routed
 outputs are combined over k in f32 with the routing weights.
 
-On CUDA nothing here reads a value back to the host: group sizes come from
-`scatter_add_` (not `bincount`), the layout from `cumsum` and
-`searchsorted`, and the grid is the static worst case.
+On CUDA nothing here reads a value back to the host: the layout is built on
+the device (by the layout kernel, or by the twin's `scatter_add_`,
+`cumsum` and `searchsorted`), and the grid is the static worst case.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,12 +86,11 @@ GMM_BM = 32
 # ctypes signatures of csrc/moe_gmm.cu's entry points ("p" a pointer or the
 # stream, "i" an int), set once when the library is first used.
 _SIGNATURES = {
-    "gmm_swiglu_f32": "ppppppiiiip", "gmm_swiglu_bf16": "ppppppiiiiiip",
-    "gmm_down_f32": "pppppiiiip", "gmm_down_bf16": "pppppiiiiiip",
+    "route_layout": "piiiiippppppppppp", "moe_combine": "ppipiipiiiiiip",
+    "gmm_swiglu_f32": "ppppppppiiiip", "gmm_swiglu_bf16": "ppppppppiiiiiip",
+    "gmm_down_f32": "ppppppiiiip", "gmm_down_bf16": "ppppppiiiiiip",
     "gmm_dx_f32": "pppppiiiip", "gmm_dx_bf16": "pppppiiiiiip",
     "gmm_dw_f32": "ppppiiip", "gmm_dw_bf16": "ppppiiiiip",
-    "gmm_swiglu_visit_f32": "ppppppppiiiip", "gmm_swiglu_visit_bf16": "ppppppppiiiip",
-    "gmm_ffn_visit_f32": "pppppppppiiiip", "gmm_ffn_visit_bf16": "pppppppppiiiip",
 }
 _ARGTYPES = {name: [ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig] for name, sig in _SIGNATURES.items()}
 
@@ -177,30 +190,76 @@ def _check(x, ws, e_tile, tile_valid, k_dim: int, n_dim: int, n_align: int = 4, 
         raise ValueError("kernels D, E and S read 16-byte aligned rows")
 
 
-def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Tensor:
-    """Kernel D: x_al [S, H] (row tiles of one expert each), w_gate / w_up
-    [E, I, H], e_tile / tile_valid [T] int32 -> act [S, I] in x_al.dtype.
-    bf16 runs E's row-block kernel with two weights and the SwiGLU
-    epilogue, on the schedule of `row_schedule`, built here unless the
-    caller passes it (the forward builds it once a layer for D and E)."""
-    if x_al.device.type == "cpu":
-        return gmm_swiglu_reference(x_al, w_gate, w_up, e_tile, tile_valid)
-    n_tiles, bm = _tiles(x_al, e_tile)
+def _slot_rows(x: torch.Tensor, x_rows: torch.Tensor) -> torch.Tensor:
+    """[S, K]: row x_rows[s] of x for each slot s, zeros where it is -1 (the
+    plain form of D's loads through a map)."""
+    return torch.where(x_rows[:, None] >= 0, x.index_select(0, x_rows.clamp(min=0).long()), 0)
+
+
+def _put_rows(out: torch.Tensor, vals: torch.Tensor, out_rows: torch.Tensor) -> torch.Tensor:
+    """Slot s's row of vals into row out_rows[s] of out, none where -1 (the
+    plain form of D's and E's stores through a map); returns out."""
+    keep = out_rows >= 0
+    out[out_rows[keep].long()] = vals[keep].to(out.dtype)
+    return out
+
+
+def _mapped(x, x_rows, e_tile, out_rows, out, n_cols: int, dtype) -> Tuple[int, int]:
+    """(n_tiles, bm) of a D or E call: S slots, x [S, K] or x [R, K] read
+    through x_rows [S] int32; `out` [R', n_cols] given exactly when
+    out_rows [S] int32 is."""
+    n_slots = x.shape[0] if x_rows is None else x_rows.shape[0]
+    n_tiles = e_tile.shape[0]
+    if x.dim() != 2 or n_tiles == 0 or n_slots % n_tiles:
+        raise ValueError(f"{n_slots} slots are not {n_tiles} row tiles")
+    for rows in (x_rows, out_rows):
+        if rows is not None and (rows.dtype != torch.int32 or rows.shape != (n_slots,)):
+            raise ValueError(f"a row map must be int32 [{n_slots}], got {rows.dtype} {tuple(rows.shape)}")
+    if (out is None) != (out_rows is None):
+        raise ValueError("out and out_rows go together")
+    if out is not None and (out.dim() != 2 or out.shape[1] != n_cols or out.dtype != dtype):
+        raise ValueError(f"out must be [rows, {n_cols}] {dtype}, got {out.dtype} {tuple(out.shape)}")
+    return n_tiles, n_slots // n_tiles
+
+
+def _opt(t):
+    """A tensor's pointer, or NULL for an absent map."""
+    return None if t is None else cuda_build.ptr(t)
+
+
+def moe_gmm_swiglu(x, w_gate, w_up, e_tile, tile_valid, tile_lo=None, blk_lo=None, x_rows=None, out_rows=None,
+                   out=None) -> torch.Tensor:
+    """Kernel D: slots of x (x [S, H], row tiles of one expert each; or, with
+    x_rows [S] int32, slot s reads row x_rows[s] of x [R, H], zeros where
+    -1), w_gate / w_up [E, I, H], e_tile / tile_valid [T] int32 -> act [S,
+    I] in x.dtype, the invalid tail tiles' rows zero; or, with out_rows [S]
+    int32 (and x_rows), slot s's act into row out_rows[s] of `out` (none
+    where -1), which is returned. bf16 runs E's row-block kernel with two
+    weights and the SwiGLU epilogue, on the schedule of `row_schedule`,
+    built here unless the caller passes it (the forward's layout carries
+    it)."""
+    n_tiles, bm = _mapped(x, x_rows, e_tile, out_rows, out, w_gate.shape[1], x.dtype)
+    if x.device.type == "cpu":
+        act = gmm_swiglu_reference(x if x_rows is None else _slot_rows(x, x_rows), w_gate, w_up, e_tile, tile_valid)
+        return act if out_rows is None else _put_rows(out, act, out_rows)
     e, i, h = w_gate.shape
     if w_up.shape != (e, i, h):
         raise ValueError(f"gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} differ")
+    if out_rows is not None and x_rows is None:
+        raise ValueError("kernel D stores through a row map only when it loads through one")
+    maps = tuple(t for t in (x_rows, out_rows, out) if t is not None)
+    act = torch.empty(n_tiles * bm, i, dtype=x.dtype, device=x.device) if out is None else out
     p = cuda_build.ptr
-    if x_al.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16:
         tile_lo, blk_lo = _checked_schedule(e_tile, tile_valid, e, tile_lo, blk_lo)
-        _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i, 8, (tile_lo, blk_lo))
-        act = torch.empty(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)  # the kernel writes every row
-        err = _fn("gmm_swiglu_bf16")(p(x_al), p(w_gate), p(w_up), p(tile_lo), p(blk_lo), p(act), n_tiles, bm, h, i,
-                                     e, swiglu_grid(n_tiles, e, i, _n_sms(x_al.device)), cuda_build.stream_of(x_al))
+        _check(x, (w_gate, w_up), e_tile, tile_valid, h, i, 8, (tile_lo, blk_lo, *maps))
+        err = _fn("gmm_swiglu_bf16")(p(x), p(w_gate), p(w_up), p(tile_lo), p(blk_lo), _opt(x_rows), _opt(out_rows),
+                                     p(act), n_tiles, bm, h, i, e, swiglu_grid(n_tiles, e, i, _n_sms(x.device)),
+                                     cuda_build.stream_of(x))
     else:
-        _check(x_al, (w_gate, w_up), e_tile, tile_valid, h, i)
-        act = torch.zeros(x_al.shape[0], i, dtype=x_al.dtype, device=x_al.device)  # invalid tiles stay zero
-        err = _fn("gmm_swiglu_f32")(p(x_al), p(w_gate), p(w_up), p(e_tile), p(tile_valid), p(act), n_tiles, bm, h,
-                                    i, cuda_build.stream_of(x_al))
+        _check(x, (w_gate, w_up), e_tile, tile_valid, h, i, extra=maps)
+        err = _fn("gmm_swiglu_f32")(p(x), p(w_gate), p(w_up), p(e_tile), p(tile_valid), _opt(x_rows), _opt(out_rows),
+                                    p(act), n_tiles, bm, h, i, cuda_build.stream_of(x))
     cuda_build.check(err, "moe_gmm swiglu")
     moe_gmm_swiglu.launches += 1
     return act
@@ -209,27 +268,30 @@ def moe_gmm_swiglu(x_al, w_gate, w_up, e_tile, tile_valid, tile_lo=None, blk_lo=
 moe_gmm_swiglu.launches = 0
 
 
-def moe_gmm_down(act, w_down, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Tensor:
-    """Kernel E: act [S, I], w_down [E, H, I] -> y [S, H] in act.dtype. bf16
+def moe_gmm_down(act, w_down, e_tile, tile_valid, tile_lo=None, blk_lo=None, out_rows=None, out=None) -> torch.Tensor:
+    """Kernel E: act [S, I], w_down [E, H, I] -> y [S, H] in act.dtype, the
+    invalid tail tiles' rows zero; or, with out_rows [S] int32, slot s's y
+    into row out_rows[s] of `out` (none where -1), which is returned. bf16
     runs S's row-block kernel on S's schedule (`row_schedule`), built here
-    unless the caller passes it (the forward and the backward build it once
-    a layer)."""
+    unless the caller passes it (the forward's layout carries it, the
+    backward builds it once a layer)."""
+    n_tiles, bm = _mapped(act, None, e_tile, out_rows, out, w_down.shape[1], act.dtype)
     if act.device.type == "cpu":
-        return gmm_down_reference(act, w_down, e_tile, tile_valid)
-    n_tiles, bm = _tiles(act, e_tile)
+        y = gmm_down_reference(act, w_down, e_tile, tile_valid)
+        return y if out_rows is None else _put_rows(out, y, out_rows)
     e, h, i = w_down.shape
+    maps = tuple(t for t in (out_rows, out) if t is not None)
+    y = torch.empty(act.shape[0], h, dtype=act.dtype, device=act.device) if out is None else out
     p = cuda_build.ptr
     if act.dtype == torch.bfloat16:
         tile_lo, blk_lo = _checked_schedule(e_tile, tile_valid, e, tile_lo, blk_lo)
-        _check(act, (w_down,), e_tile, tile_valid, i, h, 8, (tile_lo, blk_lo))
-        y = torch.empty(act.shape[0], h, dtype=act.dtype, device=act.device)  # the kernel writes every row
-        err = _fn("gmm_down_bf16")(p(act), p(w_down), p(tile_lo), p(blk_lo), p(y), n_tiles, bm, i, h, e,
-                                   dx_grid(n_tiles, e, h, _n_sms(act.device)), cuda_build.stream_of(act))
+        _check(act, (w_down,), e_tile, tile_valid, i, h, 8, (tile_lo, blk_lo, *maps))
+        err = _fn("gmm_down_bf16")(p(act), p(w_down), p(tile_lo), p(blk_lo), _opt(out_rows), p(y), n_tiles, bm, i, h,
+                                   e, dx_grid(n_tiles, e, h, _n_sms(act.device)), cuda_build.stream_of(act))
     else:
-        _check(act, (w_down,), e_tile, tile_valid, i, h)
-        y = torch.zeros(act.shape[0], h, dtype=act.dtype, device=act.device)  # invalid tiles stay zero
-        err = _fn("gmm_down_f32")(p(act), p(w_down), p(e_tile), p(tile_valid), p(y), n_tiles, bm, i, h,
-                                  cuda_build.stream_of(act))
+        _check(act, (w_down,), e_tile, tile_valid, i, h, extra=maps)
+        err = _fn("gmm_down_f32")(p(act), p(w_down), p(e_tile), p(tile_valid), _opt(out_rows), p(y), n_tiles, bm, i,
+                                  h, cuda_build.stream_of(act))
     cuda_build.check(err, "moe_gmm down")
     moe_gmm_down.launches += 1
     return y
@@ -404,7 +466,7 @@ def moe_gmm_dx(a, w, e_tile, tile_valid, tile_lo=None, blk_lo=None) -> torch.Ten
                                  dx_grid(n_tiles, e, c, _n_sms(a.device)), cuda_build.stream_of(a))
     else:
         _check(a, (w,), e_tile, tile_valid, o, c)
-        out = torch.zeros(a.shape[0], c, dtype=a.dtype, device=a.device)  # invalid tiles stay zero
+        out = torch.empty(a.shape[0], c, dtype=a.dtype, device=a.device)  # the kernel zeroes the invalid tiles
         err = _fn("gmm_dx_f32")(p(a), p(w), p(e_tile), p(tile_valid), p(out), n_tiles, bm, o, c,
                                 cuda_build.stream_of(a))
     cuda_build.check(err, "moe_gmm dx")
@@ -477,11 +539,12 @@ def _sort(idx: torch.Tensor):
 def aligned_assignments(idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
     """Sort the [N, k] assignments by expert and lay them out in
     expert-aligned slots. Returns (assign [S] int64: the token-major
-    assignment j each slot holds (token j // k, selection j % k), 0 in pad
-    slots; slot_valid [S] bool; e_tile [T] int32; tile_valid [T] int32;
-    rows [N * k] int64: the slot of each assignment in token-major order).
-    An assignment to id n_experts (another rank's expert under EP) takes
-    no slot; its entry of `rows` is some slot, which the callers mask."""
+    assignment j each slot holds (token j // k, selection j % k); a pad
+    slot holds that of its clamped source row, 0 past the N k real ones;
+    slot_valid [S] bool; e_tile [T] int32; tile_valid [T] int32; rows
+    [N * k] int64: the slot of each assignment in token-major order). An
+    assignment to id n_experts (another rank's expert under EP) takes no
+    slot; its entry of `rows` is some slot, which the callers mask."""
     m = idx.numel()
     m_pad = -(-m // bm) * bm
     flat, order, inv = _sort(idx)
@@ -499,6 +562,130 @@ def aligned_assignments(idx: torch.Tensor, n_experts: int, bm: int = GMM_BM):
     return assign, slot_valid, e_tile, tile_valid, rows
 
 
+class RoutedLayout(NamedTuple):
+    """The layout of a routing idx [N, k] on E experts: S = m_pad + E GMM_BM
+    slots (m = N k rounded up to GMM_BM), T = S / GMM_BM tiles."""
+
+    assign: torch.Tensor  # [S] int64, `aligned_assignments`
+    slot_valid: torch.Tensor  # [S] bool
+    e_tile: torch.Tensor  # [T] int32
+    tile_valid: torch.Tensor  # [T] int32
+    rows: torch.Tensor  # [N k] int64: each assignment's slot
+    tile_lo: torch.Tensor  # [E + 1] int32, `row_schedule`
+    blk_lo: torch.Tensor  # [E + 1] int32
+    x_rows: torch.Tensor  # [S] int32: the token each slot reads (D's map), -1 in pad slots
+    y_rows: torch.Tensor  # [S] int32: the token-major row each slot writes (E's map), -1 in pad slots
+
+
+def routed_layout_reference(idx: torch.Tensor, n_experts: int) -> RoutedLayout:
+    """Plain twin of the layout kernel: the torch forms (`aligned_assignments`,
+    `row_schedule`) and D's and E's maps from them."""
+    assign, slot_valid, e_tile, tile_valid, rows = aligned_assignments(idx, n_experts)
+    tile_lo, blk_lo = row_schedule(e_tile, tile_valid, n_experts)
+    x_rows = torch.where(slot_valid, assign // idx.shape[1], -1).to(torch.int32)
+    y_rows = torch.where(slot_valid, assign, -1).to(torch.int32)
+    return RoutedLayout(assign, slot_valid, e_tile, tile_valid, rows, tile_lo, blk_lo, x_rows, y_rows)
+
+
+def _rows_view(t: torch.Tensor) -> torch.Tensor:
+    """t [N, k] as the layout and combine kernels read it: selections
+    contiguous, any row stride (route's top-k slices are such views)."""
+    return t if t.stride(1) == 1 and t.stride(0) >= t.shape[1] else t.contiguous()
+
+
+def _check_idx(idx: torch.Tensor) -> torch.Tensor:
+    if idx.dim() != 2 or idx.dtype not in (torch.int64, torch.int32) or idx.numel() == 0:
+        raise ValueError(f"idx must be a non-empty int64 or int32 [N, k], got {idx.dtype} {tuple(idx.shape)}")
+    return _rows_view(idx)
+
+
+def routed_layout(idx: torch.Tensor, n_experts: int) -> RoutedLayout:
+    """The `RoutedLayout` of idx [N, k] (an id outside [0, n_experts): no
+    slot, as id E under expert parallelism). CUDA: one launch of
+    `route_layout` (csrc/moe_gmm.cu), every integer equal to
+    `routed_layout_reference`'s, which the CPU runs."""
+    if idx.device.type == "cpu":
+        return routed_layout_reference(idx, n_experts)
+    idx = _check_idx(idx)
+    n, k = idx.shape
+    if not 0 < n_experts <= 1024:
+        raise ValueError(f"the layout kernel takes 1..1024 experts, got {n_experts}")
+    cuda_build.require_cuda(idx[:1])  # one row: contiguous at any row stride
+    m = n * k
+    s_total = -(-m // GMM_BM) * GMM_BM + n_experts * GMM_BM
+    t, dev = s_total // GMM_BM, idx.device
+    # Three allocations carved into the outputs and the sort's scratch.
+    i64 = torch.empty(s_total + m, dtype=torch.int64, device=dev)
+    cuts = [t, t, n_experts + 1, n_experts + 1, s_total, s_total, m]
+    e_tile, tile_valid, tile_lo, blk_lo, x_rows, y_rows, order = torch.empty(
+        sum(cuts), dtype=torch.int32, device=dev).split(cuts)
+    slot_valid = torch.empty(s_total, dtype=torch.bool, device=dev)
+    assign, rows = i64[:s_total], i64[s_total:]
+    p = cuda_build.ptr
+    err = _fn("route_layout")(p(idx), int(idx.dtype == torch.int64), idx.stride(0), n, k, n_experts, p(assign),
+                              p(slot_valid), p(e_tile), p(tile_valid), p(rows), p(tile_lo), p(blk_lo), p(x_rows),
+                              p(y_rows), p(order), cuda_build.stream_of(idx))
+    cuda_build.check(err, "moe_gmm route_layout")
+    routed_layout.launches += 1
+    return RoutedLayout(assign, slot_valid, e_tile, tile_valid, rows, tile_lo, blk_lo, x_rows, y_rows)
+
+
+routed_layout.launches = 0
+
+
+def moe_combine_reference(y: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, n_experts: int,
+                          out_dtype) -> torch.Tensor:
+    """Plain twin of the combine kernel: out[t] = the sum over selections s =
+    0 .. k-1 of token t with an id in [0, n_experts) of float(y[t k + s]) *
+    weights[t, s], in f32, cast to out_dtype, in the order `_combine`'s
+    `.sum(1)` takes on the card: four running sums, selection s of each
+    whole group of four into sum s % 4, the rest into sums 0, 1, 2, then the
+    four added in order. Other selections add nothing (their rows of y are
+    never written)."""
+    n, k = idx.shape
+    yk = y.reshape(n, k, -1)
+    mine = (idx >= 0) & (idx < n_experts)
+    acc = [torch.zeros(n, y.shape[1], dtype=torch.float32, device=y.device) for _ in range(4)]
+    full = k // 4 * 4
+    for s in range(k):
+        a = s % 4 if s < full else s - full
+        acc[a] = acc[a] + torch.where(mine[:, s, None], yk[:, s].float() * weights[:, s, None].float(), 0.0)
+    return (((acc[0] + acc[1]) + acc[2]) + acc[3]).to(out_dtype)
+
+
+def moe_combine(y: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, n_experts: int, out_dtype) -> torch.Tensor:
+    """The k-combine kernel (csrc/moe_gmm.cu `moe_combine`): y [N k, H]
+    token-major (f32 or bf16), weights [N, k] f32, idx [N, k] -> [N, H] in
+    out_dtype (f32 or bf16), each token's selections of an id in [0,
+    n_experts) summed in f32 in `_combine`'s order on the card (its twin's
+    docstring); deterministic (no atomics)."""
+    if y.device.type == "cpu":
+        return moe_combine_reference(y, weights, idx, n_experts, out_dtype)
+    idx = _check_idx(idx)
+    n, k = idx.shape
+    if y.dim() != 2 or y.shape[0] != n * k or y.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"y must be f32 or bf16 [{n * k}, H], got {y.dtype} {tuple(y.shape)}")
+    if weights.shape != (n, k) or weights.dtype != torch.float32:
+        raise ValueError(f"weights must be f32 [{n}, {k}], got {weights.dtype} {tuple(weights.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16) or y.shape[1] % _align(y.dtype):
+        raise ValueError(f"out_dtype {out_dtype} must be f32 or bf16, H = {y.shape[1]} a multiple of 16 bytes")
+    weights = _rows_view(weights)
+    cuda_build.require_cuda(y, weights[:1], idx[:1])  # one row each: contiguous at any row stride
+    if y.data_ptr() % 16:
+        raise ValueError("the combine kernel reads 16-byte aligned rows")
+    out = torch.empty(n, y.shape[1], dtype=out_dtype, device=y.device)
+    p = cuda_build.ptr
+    err = _fn("moe_combine")(p(y), p(weights), weights.stride(0), p(idx), int(idx.dtype == torch.int64),
+                             idx.stride(0), p(out), n, k, y.shape[1], n_experts, int(y.dtype == torch.bfloat16),
+                             int(out_dtype == torch.bfloat16), cuda_build.stream_of(y))
+    cuda_build.check(err, "moe_gmm combine")
+    moe_combine.launches += 1
+    return out
+
+
+moe_combine.launches = 0
+
+
 def _gather_rows(x_flat, assign, slot_valid, k: int) -> torch.Tensor:
     return torch.where(slot_valid[:, None], x_flat.index_select(0, assign // k), 0)
 
@@ -511,14 +698,16 @@ def align_rows(x_flat: torch.Tensor, idx: torch.Tensor, n_experts: int, bm: int 
     return _gather_rows(x_flat, assign, slot_valid, idx.shape[1]), e_tile, tile_valid, rows
 
 
-def _forward_aligned(x_flat, experts, weights, layout, k: int, out_dtype=None) -> torch.Tensor:
-    assign, slot_valid, e_tile, tile_valid, rows = layout
-    x_al = _gather_rows(x_flat, assign, slot_valid, k)
-    # The bf16 kernels' schedule, once for D and E.
-    sched = row_schedule(e_tile, tile_valid, experts["down"].shape[0]) if x_al.dtype == torch.bfloat16 else ()
-    act = moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid, *sched)
-    y_al = moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched)
-    return _combine(y_al.index_select(0, rows), weights, out_dtype or x_flat.dtype)
+def _forward_routed(x_flat, experts, weights, idx, lay: RoutedLayout, out_dtype) -> torch.Tensor:
+    """The routed chain: D reads x through the slot -> token map, E writes
+    each slot's y to its token-major row (rows of id-E selections are not
+    written), the combine sums each token's k rows. Four launches with the
+    layout's, none between them."""
+    act = moe_gmm_swiglu(x_flat, experts["gate"], experts["up"], lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo,
+                         x_rows=lay.x_rows)
+    y = torch.empty(idx.numel(), experts["down"].shape[1], dtype=x_flat.dtype, device=x_flat.device)
+    moe_gmm_down(act, experts["down"], lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo, out_rows=lay.y_rows, out=y)
+    return moe_combine(y, weights.float(), idx, experts["gate"].shape[0], out_dtype)
 
 
 def moe_ffn_gmm_reference(x_flat, experts: Dict[str, torch.Tensor], weights, idx, out_dtype=None) -> torch.Tensor:
@@ -568,25 +757,25 @@ class MoeFfnGmm(torch.autograd.Function):
         experts = {"gate": w_gate, "up": w_up, "down": w_down}
         out_dtype = out_dtype or x_flat.dtype
         cpu, needs_grad = x_flat.device.type == "cpu", any(ctx.needs_input_grad)
-        layout = aligned_assignments(idx, w_gate.shape[0]) if needs_grad or not cpu else ()
+        layout = routed_layout(idx, w_gate.shape[0]) if needs_grad or not cpu else ()
         if needs_grad:
             mine = idx.reshape(-1) < w_gate.shape[0]
-            ctx.save_for_backward(x_flat, w_gate, w_up, w_down, weights, *layout, mine)
+            ctx.save_for_backward(x_flat, w_gate, w_up, w_down, weights, *layout[:7], mine)
         if cpu:
             return moe_ffn_gmm_reference(x_flat, experts, weights, idx, out_dtype)
-        return _forward_aligned(x_flat, experts, weights, layout, idx.shape[1], out_dtype)
+        return _forward_routed(x_flat, experts, weights, idx, layout, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x_flat, wg, wu, wd, weights, assign, slot_valid, e_tile, tile_valid, rows, mine = ctx.saved_tensors
+        (x_flat, wg, wu, wd, weights, assign, slot_valid, e_tile, tile_valid, rows, tile_lo, blk_lo,
+         mine) = ctx.saved_tensors
         n, k = weights.shape
         e = wg.shape[0]
         dt = x_flat.dtype
         valid = slot_valid[:, None]
         x_al = _gather_rows(x_flat, assign, slot_valid, k)
-        # The schedule of E and S, and T's tile_lo: once for the layer's
-        # nine calls.
-        tile_lo, blk_lo = row_schedule(e_tile, tile_valid, e)
+        # The forward's schedule of E and S, and T's tile_lo, for the
+        # layer's nine calls.
         # Recompute the pre-activations (kernel E: x W^T for gate and up too).
         gate = moe_gmm_down(x_al, wg, e_tile, tile_valid, tile_lo, blk_lo)
         up = moe_gmm_down(x_al, wu, e_tile, tile_valid, tile_lo, blk_lo)
@@ -621,8 +810,9 @@ class MoeFfnGmm(torch.autograd.Function):
 def moe_ffn_gmm(x_flat, experts: Dict[str, torch.Tensor], weights, idx, out_dtype=None) -> torch.Tensor:
     """Exact grouped-GEMM MoE FFN at prefill scale, differentiable in x, the
     experts and the routing weights. Returns [N, H] in `out_dtype` (x's
-    dtype by default): kernels D and E on CUDA tensors (S, T and E in the
-    backward), the grouped twin on the CPU (the twins in the backward)."""
+    dtype by default): on CUDA tensors the routed chain (the layout kernel,
+    D, E, the combine kernel; S, T and E in the backward), on the CPU the
+    grouped twin (the twins in the backward)."""
     return MoeFfnGmm.apply(x_flat, experts["gate"], experts["up"], experts["down"], weights, idx, out_dtype)
 
 
@@ -725,7 +915,7 @@ def gmm_ffn_visit_reference(x, w_gate, w_up, w_down, schedule, bm: int) -> torch
     return _visit_scatter(y, schedule, bm, x.shape[0])
 
 
-def _check_visits(x, ws, schedule, bm: int, in_dims) -> int:
+def _check_visits(x, ws, schedule, bm: int, in_dims) -> None:
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16) or any(w.dtype != dt for w in ws):
         raise ValueError(f"kernel W takes x and weights of one dtype, f32 or bf16; got {dt}, "
@@ -737,28 +927,38 @@ def _check_visits(x, ws, schedule, bm: int, in_dims) -> int:
                          f"got bm {bm}, x {tuple(x.shape)}")
     if any(d % _align(dt) for d in in_dims):
         raise ValueError(f"H and I must be multiples of {_align(dt)}, got {in_dims}")
-    cuda_build.require_cuda(x, *ws, *schedule)
-    if any(t.data_ptr() % 16 for t in (x, *ws)):
-        raise ValueError("kernel W reads 16-byte aligned rows")
-    return schedule[0].shape[0]
+    if x.device.type != "cpu":
+        cuda_build.require_cuda(x, *ws, *schedule)
+
+
+def _visit_layout(schedule, m_pad: int, n_experts: int) -> RoutedLayout:
+    """The routed layout of W's expert-sorted rows: each expert's group size
+    is the sum of its visits' [lo, hi), sorted row r takes the id of its
+    group (n_experts past the real rows: no slot), and `routed_layout` of
+    those ids as one selection a row. Its maps are then the slot ->
+    sorted-row map both ways: x_rows and y_rows are the sorted row a slot
+    holds, -1 in pad slots. On the device, no host sync."""
+    vt, ve, lo, hi = schedule
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=vt.device).scatter_add_(0, ve.long(), hi - lo)
+    rows = torch.arange(m_pad, dtype=torch.int32, device=vt.device)
+    ids = torch.searchsorted(torch.cumsum(sizes, 0, dtype=torch.int32), rows, right=True)
+    return routed_layout(ids[:, None], n_experts)
 
 
 def gmm_swiglu_visit(x, w_gate, w_up, schedule, bm: int) -> torch.Tensor:
     """Kernel W, swiglu mode: x [m_pad, H] (expert-sorted rows), w_gate /
     w_up [E, I, H], schedule = `visit_schedule(...)` -> act [m_pad, I] in
-    x's dtype; rows no visit owns (those past the N k real rows) are zero."""
-    if x.device.type == "cpu":
-        return gmm_swiglu_visit_reference(x, w_gate, w_up, schedule, bm)
+    x's dtype; rows no visit owns (those past the N k real rows) are zero.
+    Runs D on the sorted rows' own aligned layout (`_visit_layout`), loading
+    and storing through the slot -> sorted-row map; the twins on the CPU."""
     e, i, h = w_gate.shape
     if w_up.shape != (e, i, h) or x.shape[1] != h:
         raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)} and up {tuple(w_up.shape)} do not fit")
-    n_visits = _check_visits(x, (w_gate, w_up), schedule, bm, (h, i))
-    fn = _fn("gmm_swiglu_visit_f32" if x.dtype == torch.float32 else "gmm_swiglu_visit_bf16")
+    _check_visits(x, (w_gate, w_up), schedule, bm, (h, i))
+    lay = _visit_layout(schedule, x.shape[0], e)
     act = torch.zeros(x.shape[0], i, dtype=x.dtype, device=x.device)
-    p = cuda_build.ptr
-    err = fn(p(x), p(w_gate), p(w_up), *(p(t) for t in schedule), p(act), n_visits, bm, h, i,
-             cuda_build.stream_of(x))
-    cuda_build.check(err, "moe_gmm swiglu visit (W)")
+    moe_gmm_swiglu(x, w_gate, w_up, lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo, x_rows=lay.x_rows,
+                   out_rows=lay.y_rows, out=act)
     gmm_swiglu_visit.launches += 1
     return act
 
@@ -767,21 +967,18 @@ gmm_swiglu_visit.launches = 0
 
 
 def gmm_ffn_visit(x, w_gate, w_up, w_down, schedule, bm: int) -> torch.Tensor:
-    """Kernel W, ffn mode: as `gmm_swiglu_visit` with w_down [E, H, I]
-    fused -> y [m_pad, H] in x's dtype."""
-    if x.device.type == "cpu":
-        return gmm_ffn_visit_reference(x, w_gate, w_up, w_down, schedule, bm)
+    """Kernel W, ffn mode: as `gmm_swiglu_visit` with w_down [E, H, I] ->
+    y [m_pad, H] in x's dtype: D loading through the map onto the aligned
+    act, then E storing through it."""
     e, i, h = w_gate.shape
     if w_up.shape != (e, i, h) or w_down.shape != (e, h, i) or x.shape[1] != h:
         raise ValueError(f"x {tuple(x.shape)}, gate {tuple(w_gate.shape)}, up {tuple(w_up.shape)} and down "
                          f"{tuple(w_down.shape)} do not fit")
-    n_visits = _check_visits(x, (w_gate, w_up, w_down), schedule, bm, (h, i))
-    fn = _fn("gmm_ffn_visit_f32" if x.dtype == torch.float32 else "gmm_ffn_visit_bf16")
+    _check_visits(x, (w_gate, w_up, w_down), schedule, bm, (h, i))
+    lay = _visit_layout(schedule, x.shape[0], e)
+    act = moe_gmm_swiglu(x, w_gate, w_up, lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo, x_rows=lay.x_rows)
     y = torch.zeros(x.shape[0], h, dtype=x.dtype, device=x.device)
-    p = cuda_build.ptr
-    err = fn(p(x), p(w_gate), p(w_up), p(w_down), *(p(t) for t in schedule), p(y), n_visits, bm, h, i,
-             cuda_build.stream_of(x))
-    cuda_build.check(err, "moe_gmm ffn visit (W)")
+    moe_gmm_down(act, w_down, lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo, out_rows=lay.y_rows, out=y)
     gmm_ffn_visit.launches += 1
     return y
 

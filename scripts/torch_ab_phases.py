@@ -8,6 +8,13 @@ over the call falls on both. Compare two commits only inside one such run.
 Phases:
 - `gmm_forward`: phase 2's grouped-GEMM forward cases (D, E and the whole
   `moe_ffn_gmm` at N 550, 1125 and 2048, bf16 and f32);
+- `gmm_chain`: the whole `moe_ffn_gmm` forward (the prefill MoE layer)
+  at N 550, 1125 and 2048, k 6, bf16: median eager ms, ms in a CUDA graph
+  and the device launches of one call; at N 550 every launch of one call
+  in a CUDA graph with its device us and the gap before it;
+- `visit`: phase 2's kernel W cases (`visit_results`: both modes at 548
+  and 1124 tokens x 6, bf16 and f32, through the wrapper and in a CUDA
+  graph, and the ffn mode against D then E);
 - `gmm_backward`: phase 2's grouped-GEMM backward cases (S, T and E at a
   training step's MoE layer, bf16 and f32), every case's line as
   chip_smoke prints it;
@@ -226,7 +233,40 @@ def crop_prefill():
                                rope=pipe.rope)
 
     profiled(f"crop (2, 3) prefill, {{len(ids)}} tokens", prefill,
-             lambda key: "A" if "attn" in key else cs._gmm_kernel_of(key) if "gmm_" in key else None)
+             lambda key: "A" if "attn" in key else cs._gmm_kernel_of(key) if "gmm_" in key or "route_layout" in key
+             or "moe_combine" in key else None)
+
+
+def gmm_chain():
+    # The whole moe_ffn_gmm forward (the prefill MoE layer) at N 550, 1125
+    # and 2048, k 6, bf16, full LM width, a random f32 router: median eager
+    # ms, ms in a CUDA graph, and the device launches of one eager call;
+    # then at N 550 each launch of one call in a CUDA graph with its device
+    # us and the gap before it.
+    from torch.profiler import ProfilerActivity, profile
+    from deepseek_ocr2_tpu_torch.ops import moe_gmm
+    from deepseek_ocr2_tpu_torch.ops.moe import route
+
+    e, k, h, i = 64, 6, 1280, 896
+    for n in (550, 1125, 2048):
+        x = randn(n, h, dtype=torch.bfloat16)
+        ex = {{"gate": randn(e, i, h, std=h**-0.5, dtype=torch.bfloat16),
+              "up": randn(e, i, h, std=h**-0.5, dtype=torch.bfloat16),
+              "down": randn(e, h, i, std=i**-0.5, dtype=torch.bfloat16)}}
+        weights, idx = route(x, randn(e, h, std=h**-0.5), k)
+        call = lambda: moe_gmm.moe_ffn_gmm(x, ex, weights, idx)  # noqa: E731
+        call()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize(dev)
+        launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"[ab {{sys.argv[1]}}] moe_ffn_gmm N {{n}} k {{k}} bf16: eager {{cs.median_ms(call):.4f}} ms, in a CUDA "
+              f"graph {{cs.graph_ms(call):.4f}} ms, {{launches}} device launches a call", flush=True)
+        if n == 550:
+            graph_parts(f"moe_ffn_gmm N {{n}} bf16", call)
+        del x, ex
+    torch.cuda.empty_cache()
 
 
 def crop_vision():
@@ -754,6 +794,10 @@ def decode_quant():
 for phase in {phases!r}:
     if phase == "gmm_forward":
         cs.gmm_results(dev, randn, record)
+    elif phase == "gmm_chain":
+        gmm_chain()
+    elif phase == "visit":
+        cs.visit_results(dev, randn, record)
     elif phase == "gmm_backward":
         cs.gmm_backward_results(dev, randn, record)
     elif phase == "prefill_attention":

@@ -1,8 +1,10 @@
 """Where kernels D, S and T (bf16) spend their time: each ablation removes
 one part of `csrc/moe_gmm.cu` in a copy of the package and times the
 kernels again, in a CUDA graph: D at the prompt of a 2-crop page (N 550)
-and at a training step's MoE layer, S and T at the training step's (B 4 x
-S 512 tokens, k 6 of 64 experts, H 1280, I 896: 12 288 rows, chip_smoke's
+and at a training step's MoE layer, D through its row map (the forward's
+form) at N 550 and at a 6-crop page's 1124 tokens, the whole routed chain
+(`moe_ffn_gmm`) and the layout kernel alone at N 550, S and T at the training step's (B 4 x S
+512 tokens, k 6 of 64 experts, H 1280, I 896: 12 288 rows, chip_smoke's
 phase 2 shapes).
 
 Ablations (each a text patch of the source; the script stops if the source
@@ -12,8 +14,16 @@ no longer holds the text it patches):
   (the products alone, no SwiGLU), in a CUDA graph;
 - `rows_no_store`: D's, E's and S's epilogue (gmm_rows_wgmma_kernel)
   computes its tile but issues no TMA store;
-- `rows_no_load`: D's, E's and S's producer loads nothing (the stages
-  complete at once, stale): the consumers' time alone;
+- `rows_no_load`: D's, E's and S's producer loads nothing by TMA (the
+  stages complete at once, stale): the consumers' time alone (D through
+  its row map still copies its rows);
+- `d_gather_one_warp`: D through its row map with one producer warp (32
+  threads, 32 copies each a stage) in place of a producer warpgroup (128
+  threads, 8 each);
+- `d_gather_no_fence`: D through its row map without the consumers' proxy
+  fence before wgmma;
+- `d_gather_no_copy`: D through its row map issues no row copy (its A
+  stale): the map's control flow and the weights' loads alone;
 - `d_no_mma`: D loads every stage but runs no wgmma;
 - `d_no_swiglu`: D's epilogue stores the gate sums, no SwiGLU;
 - `d_stages3`: D on three stages of 48 KB, as E and S, in place of four;
@@ -39,10 +49,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = "deepseek_ocr2_tpu_torch/csrc/moe_gmm.cu"
 ROWS_STORE = ("if (n0 + 64 * j < n_dim) sm90::tma_store_2d(&map_out, ob + (rt * (BN / 64) + j) * SX_OUT_BOX, "
               "n0 + 64 * j, t * BM);")
-ROWS_LOAD = ("          sm90::mbar_arrive_expect_tx(bar, SX_STAGE_BYTES);\n"
-             "          sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);\n"
+ROWS_LOAD = ("            sm90::mbar_arrive_expect_tx(bar, GATHER ? SX_STAGE_BYTES - SX_A_BYTES : SX_STAGE_BYTES);\n"
+             "            if (!GATHER) sm90::tma_load_2d(st, &map_a, bar, ks * SX_BK, t0 * BM);\n"
              "#pragma unroll\n"
-             "          for (int j = 0; j < 4; ++j) {")
+             "            for (int j = 0; j < 4; ++j) {")
+GATHER_COPY = ("cp_async16(st + r * 128 + ((c ^ (r % 8)) * 16), live ? a + (size_t)src * k_dim + k0 : a, live);")
+GATHER_FENCE = "if (GATHER) sm90::fence_proxy_async();"
 D_MMA = ("            sm90::wgmma_m64n128k16<0>(acc, dak, sm90::desc_add(db, 32 * kk));\n"
          "            sm90::wgmma_m64n128k16<64>(acc, dak, sm90::desc_add(db, 2 * SX_B_BOX + 32 * kk));")
 D_SWIGLU = "v = __floats2bfloat162_rn(swiglu(acc[a], acc[64 + a]), swiglu(acc[a + 1], acc[65 + a]));"
@@ -53,7 +65,15 @@ T_MMA = ("sm90::wgmma_m64n256k16<1, 1>(acc, da, db);\n"
 ABLATIONS = {
     "none": [],
     "rows_no_store": [(ROWS_STORE, ";")],
-    "rows_no_load": [(ROWS_LOAD, "          sm90::mbar_arrive(bar);\n          for (int j = 0; j < 0; ++j) {")],
+    "rows_no_load": [(ROWS_LOAD, "            sm90::mbar_arrive(bar);\n            for (int j = 0; j < 0; ++j) {")],
+    "d_gather_one_warp": [("constexpr int GATHER_BLOCK = 384;", "constexpr int GATHER_BLOCK = 288;"),
+                          ("const int r = 16 * q + p / 8, src = prow[r];", "const int r = 4 * q + p / 8, src = prow[r];"),
+                          ("for (int q = 0; q < SX_ROWS / 16; ++q) {", "for (int q = 0; q < SX_ROWS / 4; ++q) {"),
+                          ("prow[p] = t0 + p / BM < t_end ? a_rows[(size_t)t0 * BM + p] : -1;",
+                           "for (int r = p; r < SX_ROWS; r += 32) prow[r] = t0 + r / BM < t_end ? "
+                           "a_rows[(size_t)t0 * BM + r] : -1;")],
+    "d_gather_no_fence": [(GATHER_FENCE, ";")],
+    "d_gather_no_copy": [(GATHER_COPY, ";")],
     "d_no_mma": [(D_MMA, "            ;")],
     "d_no_swiglu": [(D_SWIGLU, "v = __floats2bfloat162_rn(acc[a], acc[a + 1]);")],
     "d_stages3": [("constexpr int ROWS_STAGES = KIND == ROWS_SWIGLU ? 4 : SX_STAGES;",
@@ -109,6 +129,23 @@ cases = [
     ("T dW_down", (act, dy), lambda a, b: moe_gmm.moe_gmm_dw(a, b, e_tile, tile_valid, e, tile_lo),
      lambda a, b: moe_gmm.gmm_dw_reference(a, b, e_tile, tile_valid, e)),
 ]
+# D through its row map, as the forward calls it, and the whole chain.
+for n_tok in (550, 1124):
+    xm = randn(n_tok, h, dtype=dt)
+    wts, idm = route(xm, randn(e, h, std=h**-0.5), k)
+    lay = moe_gmm.routed_layout(idm, e)
+    xm_al, et_m, tv_m, _ = moe_gmm.align_rows(xm, idm, e)
+    sched_m = (lay.e_tile, lay.tile_valid, lay.tile_lo, lay.blk_lo)
+    cases.append((f"Dmap N {{n_tok}}", (xm, wg, wu),
+                  lambda a, w, u, sched_m=sched_m, lay=lay: moe_gmm.moe_gmm_swiglu(a, w, u, *sched_m,
+                                                                                    x_rows=lay.x_rows),
+                  lambda a, w, u, xm_al=xm_al, et_m=et_m, tv_m=tv_m: moe_gmm.gmm_swiglu_reference(
+                      xm_al, w, u, et_m, tv_m)))
+    if n_tok == 550:
+        ex5 = {{"gate": wg, "up": wu, "down": wd}}
+        cases.append(("Y N 550", (xm, ex5, wts, idm), moe_gmm.moe_ffn_gmm, moe_gmm.moe_ffn_gmm_reference))
+        cases.append(("layout N 550", (idm,), lambda i: moe_gmm.routed_layout(i, e).rows,
+                      lambda i: moe_gmm.routed_layout_reference(i, e).rows))
 out = []
 for name, args, fn, twin in cases:
     err = float((fn(*args).float() - twin(*args).float()).abs().max())

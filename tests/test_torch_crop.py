@@ -78,9 +78,10 @@ def _moe_case(dtype, n, seed=0, e=8, h=64, i=32, k=2):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gmm_twin_and_aligned_path_match_jax_gmm_and_ragged(dtype):
     """The grouped twin (the CPU path above 512 rows) and the aligned path
-    (layout, gather, D and E as their plain twins, unsort, combine: what the
-    card runs around the kernels) against JAX `moe_ffn_gmm` in interpret
-    mode and `moe_ffn_ragged`, at N = 600 > 512."""
+    (the routed chain's layout, D through its row map, E through its row
+    map and the combine as their plain twins: what the card runs) against
+    JAX `moe_ffn_gmm` in interpret mode and `moe_ffn_ragged`, at N = 600 >
+    512."""
     (jx, jex, w, idx), (tx, tex, tw, tidx) = _moe_case(dtype, 600)
     # bf16 at DEFAULT precision, as tests/test_moe_gmm.py runs it.
     with jax.default_matmul_precision("default") if dtype == "bfloat16" else nullcontext():
@@ -88,7 +89,7 @@ def test_gmm_twin_and_aligned_path_match_jax_gmm_and_ragged(dtype):
         want_ragged = np.asarray(jmoe.moe_ffn_ragged(jx, jex, w, idx).astype(jnp.float32))
     tol = F32 if dtype == "float32" else BF16
     twin = tgmm.moe_ffn_gmm_reference(tx, tex, tw, tidx)
-    aligned = tgmm._forward_aligned(tx, tex, tw, tgmm.aligned_assignments(tidx, tex["gate"].shape[0]), tidx.shape[1])
+    aligned = tgmm._forward_routed(tx, tex, tw, tidx, tgmm.routed_layout(tidx, tex["gate"].shape[0]), tx.dtype)
     assert twin.dtype == aligned.dtype == getattr(torch, dtype) and twin.shape == (600, 64)
     for got in (twin, aligned, tgmm.moe_ffn_gmm(tx, tex, tw, tidx)):
         np.testing.assert_allclose(got.float().numpy(), want_gmm, **tol)

@@ -485,6 +485,142 @@ def test_cuda_gmm_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
 
 
+def _routing(dev, case):
+    """(idx [N, k], E) of the routed chain's layout cases."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    if case == "router":  # a 2-crop prompt at full LM width
+        x = torch.randn(550, 1280, generator=g, device=dev)
+        return route(x, torch.randn(64, 1280, generator=g, device=dev) * 1280**-0.5, 6)[1], 64
+    if case == "training":  # a training step's 12 288 assignments
+        x = torch.randn(2048, 1280, generator=g, device=dev)
+        return route(x, torch.randn(64, 1280, generator=g, device=dev) * 1280**-0.5, 6)[1], 64
+    if case == "empty experts":
+        return torch.randint(0, 3, (200, 2), generator=g, device=dev), 64
+    if case == "one expert":
+        return torch.full((300, 1), 5, device=dev), 8
+    if case == "ragged":  # N k = 111
+        return torch.randint(0, 5, (37, 3), generator=g, device=dev).to(torch.int32), 5
+    # expert parallelism: id E is another rank's expert
+    idx = torch.randint(0, 32, (550, 6), generator=g, device=dev)
+    return torch.where(torch.rand(550, 6, generator=g, device=dev) < 0.5, 32, idx), 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["router", "training", "empty experts", "one expert", "ragged", "expert parallel"])
+def test_cuda_routed_layout_equals_its_twin(cuda, case):
+    """The layout kernel integer for integer (and dtype for dtype) equal to
+    its twin, the torch forms run on the same device; route's strided idx
+    read in place; one launch."""
+    idx, e = _routing(cuda, case)
+    before = moe_gmm.routed_layout.launches
+    got = moe_gmm.routed_layout(idx, e)
+    torch.cuda.synchronize()
+    assert moe_gmm.routed_layout.launches == before + 1
+    want = moe_gmm.routed_layout_reference(idx, e)
+    for name, a, b in zip(want._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,e,h,i,k,routing", [
+    (550, 64, 1280, 896, 6, "router"),
+    (200, 64, 256, 128, 2, "few"),  # most experts empty
+    (515, 8, 256, 128, 1, "tiles"),  # experts of 1, 4 and 5 tiles: partial last row blocks
+    (77, 8, 200, 96, 2, "router"),  # ragged K and N edges
+])
+def test_cuda_gmm_row_maps_bit_equal_to_the_aligned_kernels(cuda, dtype, n, e, h, i, k, routing):
+    """D reading x through the slot -> token map gives D's act on the
+    materialized aligned rows bit for bit (every slot row written: its
+    output block was NaN first); E writing through the slot -> row map
+    puts at each assignment's row the bits E gives its slot on the aligned
+    layout, and writes no other row."""
+    x, experts, _, idx = _moe_case(cuda, dtype, n, e, h, i, k, routing)
+    lay = moe_gmm.routed_layout(idx, e)
+    x_al, e_tile, tile_valid, rows = moe_gmm.align_rows(x, idx, e)
+    sched = (lay.tile_lo, lay.blk_lo)
+    want_act = moe_gmm.moe_gmm_swiglu(x_al, experts["gate"], experts["up"], e_tile, tile_valid, *sched)
+    torch.full(want_act.shape, float("nan"), dtype=dtype, device=cuda)  # freed: the block the output reuses
+    act = moe_gmm.moe_gmm_swiglu(x, experts["gate"], experts["up"], e_tile, tile_valid, *sched, x_rows=lay.x_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(act, want_act)
+    want_y = moe_gmm.moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched)
+    y = torch.full((n * k, h), float("nan"), dtype=dtype, device=cuda)
+    moe_gmm.moe_gmm_down(act, experts["down"], e_tile, tile_valid, *sched, out_rows=lay.y_rows, out=y)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y.index_select(0, rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("y_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                                               (torch.float32, torch.float32)])
+def test_cuda_combine_is_deterministic_and_matches_twin(cuda, y_dtype, out_dtype):
+    """The combine twice on the same inputs: the same bits (no atomics);
+    against its twin on the same inputs: f32 products and sums in the same
+    order, so equal up to the cast (4 bf16 ulps bound all the same); rows of
+    another rank's selections (NaN here) never read; with every selection
+    local, bit-equal to the torch combine it replaced (`_combine`)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, k, h, e = 550, 6, 1280, 64
+    idx = torch.randint(0, e + 1, (n, k), generator=g, device=cuda)
+    w = torch.rand(n, k, generator=g, device=cuda)
+    y_all = torch.randn(n * k, h, generator=g, device=cuda).to(y_dtype)
+    y = y_all.masked_fill((idx.reshape(-1) == e)[:, None], float("nan"))
+    a = moe_gmm.moe_combine(y, w, idx, e, out_dtype)
+    b = moe_gmm.moe_combine(y, w, idx, e, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    ref = moe_gmm.moe_combine_reference(y, w, idx, e, out_dtype)
+    assert float((a.float() - ref.float()).abs().max()) <= _tol(ref.float(), out_dtype)
+    local = idx.clamp(max=e - 1)
+    assert torch.equal(moe_gmm.moe_combine(y_all, w, local, e, out_dtype), moe_gmm._combine(y_all, w, out_dtype))
+
+
+def _device_activities(fn) -> int:
+    """Kernels, memsets and copies fn() puts on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_routed_chain_launches_graph_and_sync(cuda, dtype):
+    """The forward of `moe_ffn_gmm` on the card is the layout kernel, D, E
+    and the combine: 4 device launches a call (at most 5), no host sync, and
+    its replay in a CUDA graph on a second routing (inputs copied into the
+    captured buffers) equal to an eager call's bits."""
+    x, experts, weights, idx = _moe_case(cuda, dtype, 550, 64, 1280, 896, 6, "router")
+    moe_gmm.moe_ffn_gmm(x, experts, weights, idx)  # builds first
+    counts = [f.launches for f in (moe_gmm.routed_layout, moe_gmm.moe_gmm_swiglu, moe_gmm.moe_gmm_down,
+                                   moe_gmm.moe_combine)]
+    assert _device_activities(lambda: moe_gmm.moe_ffn_gmm(x, experts, weights, idx)) <= 5
+    assert [f.launches for f in (moe_gmm.routed_layout, moe_gmm.moe_gmm_swiglu, moe_gmm.moe_gmm_down,
+                                 moe_gmm.moe_combine)] == [c + 1 for c in counts]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe_gmm.moe_ffn_gmm(x, experts, weights, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x2 = torch.randn(550, 1280, generator=g, device=cuda).to(dtype)
+    w2, idx2 = route(x2, torch.randn(64, 1280, generator=g, device=cuda) * 1280**-0.5, 6)
+    bufs = [t.clone() for t in (x, weights, idx)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe_gmm.moe_ffn_gmm(bufs[0], experts, bufs[1], bufs[2])
+    for case in ((x2, w2, idx2), (x, weights, idx)):
+        for buf, t in zip(bufs, case):
+            buf.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, moe_gmm.moe_ffn_gmm(case[0], experts, case[1], case[2]))
+
+
 def _f32_tol(ref):
     return 1e-4 * max(1.0, float(ref.abs().max()))
 
