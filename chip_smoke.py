@@ -16,8 +16,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    tolerance, both median times (CUDA events), the least time the card
    could take (`bound_ms`) and, where one PyTorch call computes the same
    function, that call's time (`library_ms`; `torch._grouped_mm` for D's
-   gate||up products, E, S and T in bf16); A (at the no-crop and the
-   (2, 3) crop prompt), B (SAM's four shapes, f32 and bf16), D and E (at
+   gate||up products, E, S and T in bf16); A (causal at the no-crop and
+   the (2, 3) crop prompt; prefix mode at Qwen2's two shapes, the 1024^2
+   view [1, 14, 512, 64] and six crops [6, 14, 288, 64], against SDPA
+   given the prefix-LM mask, with Qwen2's 24 layers through A beside its
+   `sdpa`: the ablation of the JAX package's DEEPSEEK_QWEN2_SDPA=0),
+   B (SAM's four shapes, f32 and bf16), D and E (at
    the prompts of the crop pages and a training step's forward, E also at
    its recompute), F (B 16 and 32 in bf16, 16 in f32; and on one
    rank's 32 experts under expert parallelism, local ids, out f32 and
@@ -28,7 +32,9 @@ Phases (each raises on failure, so the exit code is non-zero):
    routed chain: the layout kernel against its twin integer for integer,
    D through its slot -> token map, E through its slot -> row map, the
    combine run twice bit-equal) against its grouped twin, with its launches
-   a call (at most 5) and its CUDA-graph replay against eager; Y, F, H-O
+   a call (at most 5) and its CUDA-graph replay against eager, and beside
+   the dense form at the no-crop and (2, 3) prompts (260 and 1124 rows, the
+   ablation of the JAX package's DEEPSEEK_MOE_PREFILL); Y, F, H-O
    and P once each
    and Q, R under `torch.cuda.set_sync_debug_mode("error")` (no host
    sync); one
@@ -190,7 +196,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    OCR2Pipeline whose bf16 LM is sharded at (1, 2), towers whole, 8 pages
    (one (2, 1) crop) with lookup 0 and 4, against the unsharded pipeline's
    single pages under the margin rule (A-F, and G, or Q with lookup, on both
-   ranks).
+   ranks); 10d: the debug prefill (`lm_forward_debug`, DEEPSEEK_DEBUG_ATTN,
+   _MOE, _LAYER0) of the full-width LM cut to 3 layers in f32, B 2 x S 512,
+   at (1, 2) against (1, 1) (routing replayed, so the counts and top-k
+   lines match by construction): the same lines, printed once by rank 0,
+   their numbers within MESH_LOGITS_RTOL of the line's largest (A 3, D 2,
+   E 2, Y 4 a rank).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -202,6 +213,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -528,6 +540,42 @@ def gmm_results(dev, randn, record) -> None:
             if n == 1125 and dt == torch.bfloat16:
                 no_host_sync(dev, f"Y ({case})", lambda: moe_gmm.moe_ffn_gmm(*args))
             del x, ex, args, ref, got, act, library, lib_d, lib_e, lay, twin
+    torch.cuda.empty_cache()
+
+
+def moe_form_ablation(dev, randn) -> None:
+    """The two prefill MoE forms on either side of the 512-row cut-over
+    (`ops.moe.GMM_ROWS`; the JAX package's DEEPSEEK_MOE_PREFILL=gmm|dense
+    forces one): the routed chain Y (`moe_ffn_gmm`) and the dense form
+    (`moe_ffn_dense`) at the LM's MoE shapes in bf16 for the no-crop
+    page's 260 prompt rows and the (2, 3) crop page's 1124, routed by a
+    random f32 router; each within tolerance of the grouped twin, each's
+    device activities a call, eager and CUDA-graph ms a layer and over the
+    prefill's 11 MoE layers."""
+    from deepseek_ocr2_tpu_torch.ops.moe import moe_ffn_dense, route
+    from deepseek_ocr2_tpu_torch.ops.moe_gmm import moe_ffn_gmm, moe_ffn_gmm_reference
+
+    e, k, h, i, layers, dt = 64, 6, 1280, 896, 11, torch.bfloat16
+    for n in (260, 1124):
+        x = randn(n, h, dtype=dt)
+        ex = {"gate": randn(e, i, h, std=h**-0.5, dtype=dt), "up": randn(e, i, h, std=h**-0.5, dtype=dt),
+              "down": randn(e, h, i, std=i**-0.5, dtype=dt)}
+        weights, idx = route(x, randn(e, h, std=h**-0.5), k)
+        args = (x, ex, weights, idx)
+        ref = moe_ffn_gmm_reference(*args)
+        tol = tolerance(ref, dt)
+        parts = []
+        for name, fn in (("Y", moe_ffn_gmm), ("dense", moe_ffn_dense)):
+            err = float((fn(*args).float() - ref.float()).abs().max())
+            if err > tol:
+                raise AssertionError(f"the {name} MoE form at N {n}: error {err} above {tol}")
+            call = functools.partial(fn, *args)
+            eager, graphed = median_ms(call), graph_ms(call)
+            parts.append(f"{name} {eager:.3f} ms eager, {graphed:.4f} in a CUDA graph ({layers} layers "
+                         f"{layers * eager:.3f} / {layers * graphed:.4f}), {device_activities(dev, call)} device "
+                         f"activities a call, max_abs_err {err:.3e} (tol {tol:.1e})")
+        print(f"[ablation] prefill MoE N {n} k {k} bf16: " + "; ".join(parts))
+        del x, ex, weights, idx, args, ref
     torch.cuda.empty_cache()
 
 
@@ -1499,6 +1547,59 @@ def gmm_backward_results(dev, randn, record) -> None:
         torch.cuda.empty_cache()
 
 
+def prefix_pairs(n_prefix: int) -> int:
+    """The (query, key) pairs a prefix-LM mask allows over 2 n_prefix
+    tokens, a head: each prefix row sees the prefix, query row j the prefix
+    and itself causally."""
+    n = n_prefix
+    return n * n + n * n + n * (n + 1) // 2
+
+
+def prefix_results(dev, randn, record) -> None:
+    """A in prefix mode at Qwen2's attention (the JAX package runs it there
+    under DEEPSEEK_QWEN2_SDPA=0), f32 after RoPE and repeat_kv, 14 heads of
+    64: the 1024^2 view [1, 14, 512, 64] with 256 prefix tokens and six
+    768^2 crops [6, 14, 288, 64] with 144. The bound counts the allowed
+    (query, key) pairs (`prefix_pairs`). Library: SDPA given the prefix-LM
+    mask. The ablation of that switch: a view batch's 24 Qwen2 layers
+    through A against the port's Qwen2 attention, `ops.attention.sdpa`
+    with the mask as `models.qwen2` calls it, eager and in a CUDA graph."""
+    from deepseek_ocr2_tpu_torch.ops.attention import prefix_lm_mask, sdpa
+    from deepseek_ocr2_tpu_torch.ops.flash_attention import TC_KW, mha, mha_reference, tc_key_tiles
+
+    for b, n in ((1, 256), (6, 144)):
+        q, k, v = (randn(b, 14, 2 * n, 64) for _ in range(3))
+        scale = 1.0 / 8.0
+        ref = mha_reference(q, k, v, scale=scale, mode="prefix", n_prefix=n)
+        got = mha(q, k, v, scale=scale, mode="prefix", n_prefix=n)
+        ms = median_ms(lambda: mha(q, k, v, scale=scale, mode="prefix", n_prefix=n))
+        plain = median_ms(lambda: mha_reference(q, k, v, scale=scale, mode="prefix", n_prefix=n))
+        allowed = ~prefix_lm_mask(2 * n, n, device=dev)
+        record("A", f"prefix {tuple(q.shape)} n_prefix {n} float32", ref, got, F32_TOL, ms, plain,
+               bound_ms(nbytes(q, k, v, ref), 2 * 2 * 64 * b * 14 * prefix_pairs(n), torch.float32),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=scale),
+               graph=lambda: mha(q, k, v, scale=scale, mode="prefix", n_prefix=n), library_graph=True)
+        tiles = tc_key_tiles(2 * n, 2 * n, "prefix", n)
+        n_all = -(-2 * n // TC_KW)
+        print(f"[kernel] A prefix key tiles at {2 * n} tokens, a head: the row groups multiply {int(tiles.sum())} "
+              f"of {tiles.numel() * n_all}; allowed pairs {prefix_pairs(n)} of {4 * n * n}")
+        mask = prefix_lm_mask(2 * n, n, device=dev)[None, None]
+
+        def qwen2_attn():
+            return sdpa(q, k, v, scale=scale, mask=mask)
+
+        gap = float((qwen2_attn() - got).abs().max())
+        layers = 24  # Qwen2's layers, one attention each a view batch
+        print(f"[ablation] Qwen2 attention {tuple(q.shape)}, {layers} layers: A prefix "
+              f"{layers * median_ms(lambda: mha(q, k, v, scale=scale, mode='prefix', n_prefix=n)):.3f} ms eager, "
+              f"{layers * graph_ms(lambda: mha(q, k, v, scale=scale, mode='prefix', n_prefix=n)):.4f} in a CUDA graph; "
+              f"sdpa {layers * median_ms(qwen2_attn):.3f} / {layers * graph_ms(qwen2_attn):.4f}; "
+              f"max_abs_err between them {gap:.3e} (tol {F32_TOL:.1e})")
+        if gap > F32_TOL:
+            raise AssertionError(f"A prefix against Qwen2's sdpa at {tuple(q.shape)}: {gap}")
+        del q, k, v, ref, got, allowed, mask
+
+
 def phase_kernels(dev) -> dict:
     from deepseek_ocr2_tpu_torch.ops.flash_attention import TC_KW, mha, mha_reference, mha_relpos, tc_key_tiles
     from deepseek_ocr2_tpu_torch.ops.fused_mlp import mlp_gelu, mlp_gelu_reference
@@ -1542,6 +1643,7 @@ def phase_kernels(dev) -> dict:
     # D, E: the routed-expert MoE of a crop prompt at full LM width (bf16,
     # the CLI's LM dtype, first: it is the main-path case of the record).
     gmm_results(dev, randn, record)
+    moe_form_ablation(dev, randn)
     # F, G: the decode step of the 16-slot serving batch.
     decode_results(dev, randn, record)
     # H, I, J, K: the int8 decode step (--int8 and --moe-int8).
@@ -1609,6 +1711,8 @@ def phase_kernels(dev) -> dict:
             print(f"[kernel] A key tiles at {length} tokens, a head ({TC_KW} keys a tile): the row groups "
                   f"multiply {int(tiles.sum())} of {tiles.numel() * n_all} ({tiles.numel() * n_all - int(tiles.sum())} "
                   f"skipped), the blocks stage {staged} of {tiles.shape[0] * n_all}")
+
+    prefix_results(dev, randn, record)
 
     # C: SAM MLP 768 -> 3072 -> 768, M = 4096 (one 1024^2 view), f32 M = 6 *
     # 2304 = 13824 (six 768^2 crops in one batch), bf16 M = 2304 (one crop,
@@ -4570,13 +4674,43 @@ def _phase10c(device, spec, out) -> None:
     dist.barrier()
 
 
+def _phase10d(device, spec, out) -> None:
+    """The debug prefill (`lm_forward_debug` with DEEPSEEK_DEBUG_ATTN, _MOE
+    and _LAYER0 on) of the full-width LM cut to 3 layers in f32, B 2 x S
+    512, at (1, 1) on rank 0 (its routing recorded) and at (1, 2) on both
+    ranks (replayed): rank 0's lines of each, how many each rank printed,
+    the final hidden, and each rank's launches."""
+    import torch.distributed as dist
+
+    from deepseek_ocr2_tpu_torch.parallel.mesh import make_mesh
+    from deepseek_ocr2_tpu_torch.parallel.runs import debug_prefill
+
+    params = {"random": spec["seed"] + 1, "dtype": torch.float32}
+    log = []
+    for i, (dp, mp) in enumerate(((1, 1), (1, 2))):
+        log = _broadcast_log(log)
+        mesh = make_mesh(dp, mp, ranks=range(dp * mp), device=device)
+        if mesh is not None:
+            counts = {}
+            t0 = time.perf_counter()
+            with counted(counts), routing(log, i == 0, mesh) as flips:
+                res = debug_prefill(mesh, spec["cfg_d"], params, spec["ids_d"])
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            launches = _launches(counts, mesh)
+            if mesh.rank == 0:
+                out[f"10d {dp}x{mp}"] = {**res, "launches": launches, "flips": flips, "seconds": seconds}
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+
 def chip_phase10(rank: int, world: int, device, spec: dict) -> dict:
     """Phase 10 in one world of two ranks that share the card over gloo (a
-    `parallel.launch` entry): 10a with 10b, 10c. Rank 0 returns the
+    `parallel.launch` entry): 10a with 10b, 10c, 10d. Rank 0 returns the
     measurements and the checks' inputs; `phase_mesh_serving` holds them to
     their bounds."""
     out: dict = {}
-    for part in (_phase10ab, _phase10c):
+    for part in (_phase10ab, _phase10c, _phase10d):
         t0 = time.perf_counter()
         part(device, spec, out)
         torch.cuda.empty_cache()
@@ -4612,13 +4746,14 @@ def phase_mesh_serving(dev) -> dict:
     rng = np.random.default_rng(SEED + 40)
     spec = dict(seed=SEED + 40, cfg=lm, ocr_cfg=ocr_cfg, new=32, new_c=24,
                 ids_a=rng.integers(2, lm.vocab_size, (16, 256)),
-                ids_b=rng.integers(2, lm.vocab_size, (1, 256)))
+                ids_b=rng.integers(2, lm.vocab_size, (1, 256)),
+                cfg_d=dataclasses.replace(lm, num_hidden_layers=3), ids_d=rng.integers(2, lm.vocab_size, (2, 512)))
     kernels = ("moe_gmm", "moe_decode", "flash_attention", "fused_mlp", "moe_q8", "moe_q4", "linear_q8",
                "linear_q4", "paged_attention")
     out = launch(chip_phase10, 2, (spec,), device_type="cuda", kernels=kernels)
     totals = dict.fromkeys("ABCDEFGHIJKLMNOPQRSTUVWXY", 0)
     for launches in [out[f"10a {t}"]["launches"] for t, _, _ in MESH_TIERS] + [out["10b"]["launches"]] + \
-            [out[f"10c {n}"]["launches"] for n in (0, 4)]:
+            [out[f"10c {n}"]["launches"] for n in (0, 4)] + [out["10d 1x2"]["launches"]]:
         for k, per_rank in launches.items():
             totals[k] += sum(per_rank)
     steps = spec["new"] - 1
@@ -4670,8 +4805,28 @@ def phase_mesh_serving(dev) -> dict:
         need = "ABCDEFY" + ("Q" if lookup else "G")  # a lookup chunk attends through Q, not G
         if any(min(c["launches"][k]) < 1 for k in need):
             raise AssertionError(f"10c lookup {lookup}: a kernel of {need} did not launch on a rank: {c['launches']}")
+    from deepseek_ocr2_tpu_torch.utils.debug import debug_line_gap
+
+    d, ref = out["10d 1x2"], out["10d 1x1"]
+    gap = debug_line_gap(d["lines"], ref["lines"])
+    hidden_rel = _rel(torch.as_tensor(d["hidden"]), torch.as_tensor(ref["hidden"]))
+    printed = torch.as_tensor(d["printed"]).reshape(-1).tolist()
+    n_lines = 2 * spec["cfg_d"].num_hidden_layers + 2 + 3 * spec["cfg_d"].num_moe_layers  # ATTN, LAYER0, MOE
+    n_moe = spec["cfg_d"].num_moe_layers  # 1024 rows: the grouped form, Y's chain a MoE layer
+    want = {"A": spec["cfg_d"].num_hidden_layers, "D": n_moe, "E": n_moe, "Y": 2 * n_moe}
+    bad = {k: v for k, v in d["launches"].items() if any(n != want.get(k, 0) for n in v)}
+    print(f"[mesh-q] 10d debug prefill, the LM at 3 layers in f32, B 2 x S 512, (1, 2) against (1, 1): {len(d['lines'])} "
+          f"lines (expected {n_lines}), printed a rank {printed}; the stat lines' worst gap {gap:.3e} of the line's "
+          f"largest value (bound {MESH_LOGITS_RTOL}), final hidden {hidden_rel:.3e}; equal over mp "
+          f"{d['same_over_mp']}; routing replayed, rows whose own routing differs {d['flips']}; {d['seconds']:.1f} s "
+          f"((1, 1) {ref['seconds']:.1f} s); launches a rank { {k: v for k, v in d['launches'].items() if any(v)} }")
+    for line in d["lines"][:3] + d["lines"][-2:]:
+        print(f"[mesh-q] 10d   {line}")
+    if len(d["lines"]) != n_lines or printed != [n_lines, 0] or gap > MESH_LOGITS_RTOL or not d["same_over_mp"] or bad:
+        raise AssertionError(f"10d: {len(d['lines'])} lines, printed {printed}, gap {gap}, over mp "
+                             f"{d['same_over_mp']}, launches {bad} (expected a rank {want})")
     print(f"[mesh-q] phase 10: {time.perf_counter() - t0:.1f} s (10a+10b {out['_phase10ab seconds']:.1f}, "
-          f"10c {out['_phase10c seconds']:.1f})")
+          f"10c {out['_phase10c seconds']:.1f}, 10d {out['_phase10d seconds']:.1f})")
     return totals
 
 

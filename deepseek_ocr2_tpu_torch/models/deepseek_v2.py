@@ -688,42 +688,61 @@ def lm_forward_debug(params: Params, cfg: DeepseekV2Config, embeds: torch.Tensor
     routing counts, its first four rows' picks and the layer's output) and
     DEEPSEEK_DEBUG_LAYER0 (layer 0 after attention and at its end). The K/V
     go to a throwaway f32 cache of S positions. Returns the final-normed
-    hidden [B, S, H]; debugging only."""
+    hidden [B, S, H]; debugging only.
+
+    Params sharded onto a mesh run the sharded layer forward (`_attention`,
+    `ffn`) on the rank's dp rows, as `lm_forward` does. What the lines read
+    is whole on every rank of a dp row: the norms' outputs and the router's
+    picks are computed on replicated rows, and the attention's and MLP's
+    outputs come after their reduction over mp. Each is gathered over dp,
+    so a line covers the global batch as the JAX package's global arrays
+    do, and only global rank 0 prints (every rank takes part in the
+    gathers)."""
+    from ..parallel.collectives import all_gather_dp
     from ..runtime.kv_cache import make_kv_cache
     from ..utils.debug import dbg_print, dbg_stats, enabled
 
-    if params.get("mesh") is not None:
-        raise ValueError("the debug prefill takes unsharded params")
+    mesh = params.get("mesh")
+    printer = mesh is None or torch.distributed.get_rank() == 0
+
+    def stats(channel, name, t):
+        if enabled(channel):
+            t = all_gather_dp(t, mesh)
+            if printer:
+                dbg_stats(channel, name, t)
+
     rope = rope if rope is not None else rope_consts(cfg, embeds.device)
     b, s, h = embeds.shape
-    cache = make_kv_cache(cfg.num_hidden_layers, b, cfg.num_attention_heads, s, cfg.head_dim,
+    cache = make_kv_cache(cfg.num_hidden_layers, b, n_heads(cfg, mesh), s, cfg.head_dim,
                           dtype=torch.float32, device=embeds.device)
     x = embeds
     for i, layer in enumerate(params["layers"]):
         res = x
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
-        dbg_stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.in_x", xn)
-        attn_out = _attention(xn, layer, cfg, rope, cache, i, 0, True)
-        dbg_stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.out", attn_out)
+        stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.in_x", xn)
+        attn_out = _attention(xn, layer, cfg, rope, cache, i, 0, True, mesh=mesh)
+        stats("DEEPSEEK_DEBUG_ATTN", f"layer{i}.attn.out", attn_out)
         x = res + attn_out
         if i == 0:
-            dbg_stats("DEEPSEEK_DEBUG_LAYER0", "layer0.after_attn", x)
+            stats("DEEPSEEK_DEBUG_LAYER0", "layer0.after_attn", x)
         res = x
         x_flat = rms_norm(x, layer["ln2"], cfg.rms_norm_eps).reshape(b * s, h)
         moe = "mlp" not in layer
         if moe and enabled("DEEPSEEK_DEBUG_MOE"):
             weights, idx = route(x_flat, layer["router"], cfg.num_experts_per_tok)
-            idx_h = idx.cpu().numpy()
-            counts = np.bincount(idx_h.reshape(-1), minlength=cfg.n_routed_experts)
-            dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe counts={counts.tolist()}")
-            dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe topk_idx[:4]={idx_h[:4].tolist()} "
-                                            f"topk_weight[:4]={weights.float().cpu().numpy()[:4].round(5).tolist()}")
-        mlp_out = ffn(x_flat, layer, cfg, decode=False)
+            weights, idx = all_gather_dp(weights, mesh), all_gather_dp(idx, mesh)
+            if printer:
+                idx_h = idx.cpu().numpy()
+                counts = np.bincount(idx_h.reshape(-1), minlength=cfg.n_routed_experts)
+                dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe counts={counts.tolist()}")
+                dbg_print("DEEPSEEK_DEBUG_MOE", f"layer{i} moe topk_idx[:4]={idx_h[:4].tolist()} "
+                                                f"topk_weight[:4]={weights.float().cpu().numpy()[:4].round(5).tolist()}")
+        mlp_out = ffn(x_flat, layer, cfg, decode=False, mesh=mesh)
         if moe:
-            dbg_stats("DEEPSEEK_DEBUG_MOE", f"layer{i}.moe.out_total", mlp_out)
+            stats("DEEPSEEK_DEBUG_MOE", f"layer{i}.moe.out_total", mlp_out)
         x = res + mlp_out.reshape(b, s, h)
         if i == 0:
-            dbg_stats("DEEPSEEK_DEBUG_LAYER0", "layer0.out", x)
+            stats("DEEPSEEK_DEBUG_LAYER0", "layer0.out", x)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 

@@ -24,7 +24,9 @@ always the mesh's first rank and returns {case name: result}. The kinds:
   (`_qlinear_mp`), and of an int4 SwiGLU MLP;
 - "ocr_prefill": the OCR prefill's last logits on each dp rank's pages;
 - "ocr_steps": `ocr_loss`'s gathered gradients, whether the vision
-  towers' gradients are equal on every rank, then AdamW OCR steps.
+  towers' gradients are equal on every rank, then AdamW OCR steps;
+- "debug": the debug prefill (`lm_forward_debug`) with its channels on,
+  the lines rank 0 printed and how many each rank printed.
 Params arrive whole (a CPU tree, e.g. from `params_from_jax`, plain or
 quantized) or as a recipe for random ones made on the rank's device
 ({"random": seed, "dtype": ..., and "quant": (scope, bits) to quantize
@@ -341,8 +343,40 @@ def ocr_steps(mesh: Mesh, cfg, params, ids, images, patches, image_start: int, m
     return res
 
 
+DEBUG_CHANNELS = ("DEEPSEEK_DEBUG_ATTN", "DEEPSEEK_DEBUG_MOE", "DEEPSEEK_DEBUG_LAYER0")
+
+
+def debug_prefill(mesh: Mesh, cfg, params, ids) -> Dict[str, Any]:
+    """`lm_forward_debug` on the sharded LM over ids [B, S] (each dp rank
+    its rows) with DEBUG_CHANNELS set for the call: the "debug: " lines
+    this rank printed (rank 0's are the run's), the count each rank
+    printed, the final hidden gathered over dp and whether it is bit-equal
+    over mp."""
+    import contextlib
+    import io
+    import os
+
+    p = shard_lm(params, cfg, mesh)
+    ids_l = dp_rows(torch.as_tensor(ids), mesh).to(mesh.device)
+    saved = {k: os.environ.get(k) for k in DEBUG_CHANNELS}
+    os.environ.update(dict.fromkeys(DEBUG_CHANNELS, "1"))
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf), torch.no_grad():
+            hidden = dsv2.lm_forward_debug(p, cfg, F.embedding(ids_l, p["embed"]))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = [line for line in buf.getvalue().splitlines() if line.startswith("debug: ")]
+    return {"lines": lines, "printed": every_rank(torch.tensor([len(lines)], device=mesh.device), mesh).cpu(),
+            "hidden": all_gather_dp(hidden, mesh).float().cpu(), "same_over_mp": equal_across([hidden], mesh, "mp")}
+
+
 KINDS = {"lm_steps": lm_steps, "greedy": greedy, "lookup": lookup, "paged_lookup": paged_lookup, "engine": engine,
-         "ffn": ffn, "qlinear": qlinear, "ocr_prefill": ocr_prefill, "ocr_steps": ocr_steps}
+         "ffn": ffn, "qlinear": qlinear, "ocr_prefill": ocr_prefill, "ocr_steps": ocr_steps, "debug": debug_prefill}
 
 
 def run_cases(rank: int, world: int, device, cases: List[Dict[str, Any]]) -> Dict[str, Any]:

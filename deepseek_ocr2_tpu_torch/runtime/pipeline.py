@@ -35,7 +35,8 @@ JAX package's pipeline runs its uncommitted inputs replicated, so the
 pipeline keeps the mesh with dp 1 (`parallel.mesh.replicated_rows`: every
 rank holds every row, the LM's collectives run over mp alone).
 `generate_ocr`, the group engine and the continuous engine all run on it
-through the sharded forward; the debug prefill dumps refuse it.
+through the sharded forward, and so do the debug prefill dumps (printed
+once, by rank 0).
 """
 
 from __future__ import annotations

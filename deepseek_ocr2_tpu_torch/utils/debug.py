@@ -9,7 +9,9 @@ DEEPSEEK_DEBUG_OCR). Dumps print nan/min/max/shape/dtype to stderr.
 
 from __future__ import annotations
 
+import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -45,3 +47,36 @@ def dbg_stats(channel: str, name: str, arr) -> None:
 def dbg_print(channel: str, msg: str) -> None:
     if enabled(channel):
         print(f"debug: {msg}", file=sys.stderr)
+
+
+_STATS = re.compile(r"debug: (\S+): nan=(\d+) min=(\S+) max=(\S+) shape=(\(.*\)) dtype=(\S+)$")
+_PICKS = re.compile(r"debug: (layer\d+) moe topk_idx\[:4\]=(.*) topk_weight\[:4\]=(.*)$")
+
+
+def debug_line_gap(lines, ref_lines) -> float:
+    """The worst gap between two runs' debug prefill lines: each line's
+    exact part (a stat line's name, nan count, shape and dtype; the routing
+    counts; the top-k ids) must be equal, and its numbers (min and max;
+    the top-k weights) are compared as max |a - b| over the line's largest
+    |b|. Raises on a difference in an exact part."""
+
+    def parse(line):
+        m = _STATS.match(line)
+        if m:
+            name, nan, lo, hi, shape, dtype = m.groups()
+            return (name, nan, shape, dtype), [float(lo), float(hi)]
+        m = _PICKS.match(line)
+        if m:
+            return (m.group(1), m.group(2)), list(np.ravel(json.loads(m.group(3))))
+        return line, []
+
+    if len(lines) != len(ref_lines):
+        raise AssertionError(f"debug prefill: {len(lines)} lines against {len(ref_lines)}")
+    worst = 0.0
+    for line, ref in zip(lines, ref_lines):
+        (key, a), (ref_key, b) = parse(line), parse(ref)
+        if key != ref_key:
+            raise AssertionError(f"debug prefill: {line!r} against {ref!r}")
+        if b:
+            worst = max(worst, float(np.abs(np.subtract(a, b)).max()) / max(float(np.abs(b).max()), 1e-30))
+    return worst

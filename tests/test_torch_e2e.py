@@ -305,6 +305,10 @@ assert dev_pipe.preprocess_host(page)["mode"] == "device"
 with device_trace(None):
     t = validate.collect_transcript(dev_pipe, page, None, 4, False, 0, False, 3, None)
 assert validate.compare_transcripts(t, t)[0] and t["crop_ratio"] != [1, 1]
+os.environ.update(DEEPSEEK_DEBUG_ATTN="1", DEEPSEEK_DEBUG_MOE="1", DEEPSEEK_DEBUG_LAYER0="1")
+assert pipe.generate_ocr(page, max_new_tokens=2, ngram_size=3).new_tokens >= 1
+for k in ("DEEPSEEK_DEBUG_ATTN", "DEEPSEEK_DEBUG_MOE", "DEEPSEEK_DEBUG_LAYER0"):
+    del os.environ[k]
 from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
 ids = torch.tensor([[0, 5, 9], [0, 7, 3]])
 toks, n_gen = greedy_generate(params["lm"], cfg.lm, params["lm"]["embed"][ids], ids, max_new_tokens=4, capacity=64,
