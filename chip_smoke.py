@@ -111,7 +111,17 @@ Phases (each raises on failure, so the exit code is non-zero):
    pool (Q or R 12 and F 11 a chunk forward, G and P none), and on a
    full-width LM that emits a cycle of period 24 (attention and MLPs zero,
    embedding -> lm_head a shift): there the drafts accept, forwards under
-   half the tokens;
+   half the tokens; 6f: the captured decode (runtime/decode_graph.py:
+   every decode above replays CUDA graphs, its launches counted through the
+   runner's replay accounting) against the same loops with every step
+   called eagerly, tier by tier (bf16, --int8, --moe-int8, --int4): 4's,
+   4b's and 4c's page (32 tokens, every step's logits), 4e's under the
+   switches, 4d's with lookup, the group engine's decode at 16 rows and
+   the continuous engine's chunks at 16 slots on the f32, bf16 and
+   int8tail pools, lookup on and off; equal tokens, logits within 4 bf16
+   ulps, each capture's ms and pool MiB, graph replays a page and each
+   chunk's wall ms a step on both sides; then the per-token profile,
+   eager and captured side by side;
 7. serving is token-exact: on phase 5's card model, both engines (16
    slots) against each page's single-page `generate_ocr`, in bf16-free f32
    weights and again with `--int8` (7b) and `--int4` (7c); a difference
@@ -2247,14 +2257,19 @@ def phase_switched_card_vs_cpu(dev, card_pipe, cpu_params) -> None:
                 raise AssertionError(f"switched {name}: the card did not run U / V as expected: {delta}")
 
 
-def decode_per_token(pipe, page, n: int = 16) -> dict:
+def decode_per_token(pipe, page, n: int = 16, eager: bool = False) -> dict:
     """Device kernel time, device launches and wall time per decode token of
     one page, on the pipeline's current LM weights: greedy_generate with
     1 and with n + 1 new tokens (no EOS stop) under torch.profiler, the
-    difference over n. Launches count every device activity the profiler
-    records (kernels, copies, fills)."""
+    device time and launches as the difference over n, the wall as the
+    n + 1 call's decode wall (`stats["decode_s"]`, to its last readback)
+    over n, clear of the prefill's spread. Launches count every device
+    activity the profiler records (kernels, copies, fills). `eager`: every
+    step called (`decode_graph._eager`); else replays of the captured step
+    (the warm-up call captures it)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
     from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
     from deepseek_ocr2_tpu_torch.runtime.kv_cache import bucket_capacity
     from deepseek_ocr2_tpu_torch.utils.tokenizer import tokenize_with_image
@@ -2265,26 +2280,26 @@ def decode_per_token(pipe, page, n: int = 16) -> dict:
     ids, _, start = tokenize_with_image(pipe.tokenizer, cfg.default_ocr_prompt, cfg, ratio)
     embeds = pipe.build_ocr_embeds(ids, base, patches, start)
 
-    def gen(m):
-        return greedy_generate(pipe.params["lm"], cfg.lm, embeds, torch.tensor(ids), max_new_tokens=m,
-                               ngram_size=20, eos_id=-1, capacity=bucket_capacity(len(ids) + m),
-                               kv_dtype=pipe.kv_dtype, rope=pipe.rope)
+    def gen(m, stats=None):
+        with decode_graph._eager() if eager else contextlib.nullcontext():
+            return greedy_generate(pipe.params["lm"], cfg.lm, embeds, torch.tensor(ids), max_new_tokens=m,
+                                   ngram_size=20, eos_id=-1, capacity=bucket_capacity(len(ids) + m),
+                                   kv_dtype=pipe.kv_dtype, rope=pipe.rope, stats=stats)
 
-    gen(n + 1)  # warm-up
+    gen(n + 1)  # warm-up: the captured step, and both calls' buffers
+    gen(1)
 
     def measure(m):
+        stats = {}
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            gen(m)
-            torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t0
+            gen(m, stats)
         rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return wall, sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+        return stats["decode_s"], sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
 
-    w1, d1, c1 = measure(1)
+    _, d1, c1 = measure(1)
     wn, dn, cn = measure(n + 1)
-    return {"wall_ms": (wn - w1) * 1e3 / n, "device_ms": (dn - d1) / n, "launches": (cn - c1) / n}
+    return {"wall_ms": wn * 1e3 / n, "device_ms": (dn - d1) / n, "launches": (cn - c1) / n}
 
 
 def phase_quant_main_path(dev, pipe, tiers, tag: str) -> dict:
@@ -2574,11 +2589,12 @@ def phase_validate(dev, pipe) -> dict:
 
 
 def phase_decode_profile(pipe) -> None:
-    """Device time and launches per decode token on a no-crop page at batch
-    1, for the LM in bf16, --int8, --moe-int8 and --int4, and bf16 and
-    --int8 again under DEEPSEEK_DECODE_ATTN=stacked (kernel U; K off), in
-    this one call. It runs after the timed serving phases: the profiler's
-    tracing can slow the launches of what runs after it."""
+    """Device time, launches and wall time per decode token on a no-crop
+    page at batch 1, eager and captured side by side, for the LM in bf16,
+    --int8, --moe-int8 and --int4, and bf16 and --int8 again under
+    DEEPSEEK_DECODE_ATTN=stacked (kernel U; K off), in this one call. It
+    runs after the timed serving phases: the profiler's tracing can slow
+    the launches of what runs after it."""
     from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
 
     bf16_lm = pipe.params["lm"]
@@ -2590,12 +2606,211 @@ def phase_decode_profile(pipe) -> None:
                        "lm": quantize_lm_params(bf16_lm, scope=scope, bits=bits) if scope else bf16_lm}
         for mode in ("pool", "stacked") if tier in ("bf16", "--int8") else ("pool",):
             with switched(mode == "stacked"):
-                t = decode_per_token(pipe, page)
+                t = {form: decode_per_token(pipe, page, eager=form == "eager") for form in ("eager", "captured")}
+            e, c = t["eager"], t["captured"]
             print(f"[profile] decode per token, no-crop page, batch 1, LM {tier}"
-                  f"{', DEEPSEEK_DECODE_ATTN=stacked' if mode == 'stacked' else ''}: device {t['device_ms']:.3f} "
-                  f"ms, {t['launches']:.1f} device launches, wall {t['wall_ms']:.2f} ms (torch.profiler)")
+                  f"{', DEEPSEEK_DECODE_ATTN=stacked' if mode == 'stacked' else ''}: eager / captured: device "
+                  f"{e['device_ms']:.3f} / {c['device_ms']:.3f} ms, {e['launches']:.1f} / {c['launches']:.1f} "
+                  f"device launches, wall {e['wall_ms']:.2f} / {c['wall_ms']:.2f} ms (torch.profiler)")
     pipe.params = {**pipe.params, "lm": bf16_lm}
     torch.cuda.empty_cache()
+
+
+def _capture_notes(n0: int) -> list:
+    """Each capture since the runner's n0-th: its key's label, capture ms
+    and the MiB its graph's private pool holds (0 once the graph is gone)."""
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
+
+    runner = decode_graph.RUNNER
+    pools = {g["serial"]: g["pool_mib"] for g in runner.report()}
+    return [f"{c['label']}: capture {c['capture_ms']:.1f} ms, pool {pools.get(c['serial'], 0.0):.1f} MiB"
+            for c in runner.log[n0:]]
+
+
+def _captured_and_eager(run):
+    """run("captured") replaying captured decode steps (the default), then
+    run("eager") under `decode_graph._eager`; returns (captured result,
+    eager result, graph replays and the capture notes of the captured
+    run)."""
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
+
+    runner = decode_graph.RUNNER
+    r0, n0 = runner.replays, len(runner.log)
+    captured = run("captured")
+    torch.cuda.synchronize()
+    replays, notes = runner.replays - r0, _capture_notes(n0)
+    with decode_graph._eager():
+        eager = run("eager")
+    torch.cuda.synchronize()
+    return captured, eager, replays, notes
+
+
+def _logit_gaps(eager_logits, captured_logits) -> list:
+    """Each step's largest |eager - captured| logit beside bf16_tol of the
+    eager step's logits; raises where one is above it."""
+    gaps = [(float((a.float() - b.float()).abs().max()), bf16_tol(a.float()))
+            for a, b in zip(eager_logits, captured_logits)]
+    bad = [(i, g, t) for i, (g, t) in enumerate(gaps) if not g <= t]
+    if len(eager_logits) != len(captured_logits) or bad:
+        raise AssertionError(f"captured step logits against eager: {len(captured_logits)} / {len(eager_logits)} "
+                             f"steps, above 4 bf16 ulps at (step, gap, bound) {bad[:4]}")
+    return gaps
+
+
+def _chunk_case(lm, kv, dev, seed: int):
+    """A continuous engine's 16 slots mid-decode, without vision: each
+    slot's 260-token prompt as random K/V (numpy-free, a seeded generator on
+    the card) written into its first 3 pages of 128 (quantized on an int8 /
+    int8tail pool), random tokens, ragged lengths 261..276 and limits far
+    ahead. Returns (pool, DecodeState, block tables)."""
+    from deepseek_ocr2_tpu_torch.runtime.continuous import DecodeState
+    from deepseek_ocr2_tpu_torch.runtime.paged_kv import make_paged_kv_cache, write_prompt_pool_batched
+
+    b, page, per = 16, 128, 4
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = make_paged_kv_cache(lm.num_hidden_layers, b * per + 1, lm.num_attention_heads, page, lm.head_dim,
+                               dtype=kv, device=dev, slots=b)
+    tables = torch.arange(1, b * per + 1, dtype=torch.int32, device=dev).reshape(b, per)
+    shape = (lm.num_hidden_layers, b, lm.num_attention_heads, 3 * page, lm.head_dim)
+    k_new, v_new = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    write_prompt_pool_batched(pool, k_new, v_new, tables[:, :3].contiguous(), 260,
+                              slot_ids=torch.arange(b, device=dev))
+    del k_new, v_new
+    state = DecodeState.empty(b, per * page, dev)
+    state.tokens.random_(2, lm.vocab_size, generator=g)
+    state.cur_lens.copy_(torch.arange(261, 261 + b, dtype=torch.int32, device=dev))
+    state.done.zero_()
+    state.limits.fill_(per * page)
+    state.seeds.copy_(torch.arange(b, device=dev))
+    return pool, state, tables
+
+
+def _chunks_against_eager(pipe, lm_params, tier: str, kv, lookup: int) -> str:
+    """Two calls of decode_chunk (16 steps, the engines' chunk_steps) or,
+    with `lookup`, decode_chunk_lookup (4 forwards of `lookup` tokens) on
+    `_chunk_case`, captured and eager from equal states: tokens and status
+    equal. Returns the note with each side's wall ms a step of its second
+    call (the first captures)."""
+    from deepseek_ocr2_tpu_torch.runtime import continuous as cont
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
+
+    lm, dev = pipe.cfg.lm, pipe.device
+    kw = dict(ngram_size=20, eos_id=pipe.cfg.eos_token_id, rope=pipe.rope)
+    if lookup:
+        kw.update(n_steps=16 // lookup, chunk=lookup, match_n=3)
+    else:
+        kw.update(n_steps=16)
+    fn = cont.decode_chunk_lookup if lookup else cont.decode_chunk
+    sides = {}
+    for form in ("captured", "eager"):
+        pool, state, tables = _chunk_case(lm, kv, dev, seed=77)
+        n0, ms = len(decode_graph.RUNNER.log), []
+        with decode_graph._eager() if form == "eager" else contextlib.nullcontext():
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                status = fn(lm_params, lm, pool, state, tables, **kw).cpu()  # the engine's one readback
+                ms.append((time.perf_counter() - t0) * 1e3 / kw["n_steps"])
+        sides[form] = (status, state.tokens.cpu(), ms[1], len(decode_graph.RUNNER.log) - n0, _capture_notes(n0))
+        del pool, state
+    (sc, tc, mc, n_cap, notes), (se, te, me, _, _) = sides["captured"], sides["eager"]
+    if not (torch.equal(sc, se) and torch.equal(tc, te)) or n_cap != 1:
+        raise AssertionError(f"{tier} LM, {kv} pool{f', lookup {lookup}' if lookup else ''}: captured chunks "
+                             f"differ from eager (or captured {n_cap} times)")
+    pool = str(kv).replace("torch.", "")
+    what = f"{'decode_chunk_lookup' if lookup else 'decode_chunk'}, 16 slots, {tier} LM, {pool} pool"
+    return (f"{what}: tokens equal over 2 calls; wall {me:.2f} eager / {mc:.2f} captured ms a "
+            f"{'forward' if lookup else 'step'} {notes}")
+
+
+def phase_captured_decode(dev, pipe) -> None:
+    """Phase 6f: the captured decode (runtime/decode_graph.py) against the
+    same loops with every step called eagerly (`decode_graph._eager`), on
+    phase 3's model, tier by tier (bf16, --int8, --moe-int8, --int4):
+    - phases 4, 4b, 4c: generate_ocr on the first no-crop page, 32 tokens,
+      every step's logits kept; 4e: the same under both switches (bf16,
+      --int8); 4d: with lookup_chunk 4, 64 tokens (bf16);
+    - phases 6, 6b, 6c (the group engine's decode): greedy_generate of 16
+      rows of 260 random prompt tokens, 32 new, logits kept;
+    - phases 6, 6b-6e (the continuous engine's chunks): `_chunks_against_
+      eager` on 16 slots, the f32 pool (every tier but --moe-int8), bf16
+      and int8tail pools (bf16; int8tail also --int8), and lookup 4 on the
+      bf16 and int8tail pools (bf16).
+    The rule: equal tokens (and forwards), every step's logits within
+    bf16_tol (4 bf16 ulps of the largest) of eager's. Prints the graph
+    replays a page, each capture's ms and its pool's MiB, and each chunk's
+    wall ms a step on both sides; at the end every captured key must have
+    been captured once."""
+    from deepseek_ocr2_tpu_torch.models.deepseek_v2 import quantize_lm_params
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
+    from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+
+    cfg, lm = pipe.cfg, pipe.cfg.lm
+    bf16_lm = pipe.params["lm"]
+    page = synthetic_page(*PAGES[0], cfg, seed=0)[0]
+    g = torch.Generator(device=dev).manual_seed(660)
+    ids16 = torch.randint(2, lm.vocab_size, (16, 260), generator=g, device=dev)
+    for tier, scope, bits in (("bf16", None, 8), INT8, MOE_INT8, INT4):
+        pipe.params = {**pipe.params, "lm": bf16_lm}
+        torch.cuda.empty_cache()
+        lm_params = quantize_lm_params(bf16_lm, scope=scope, bits=bits) if scope else bf16_lm
+        pipe.params = {**pipe.params, "lm": lm_params}
+        cases = [("4" if tier == "bf16" else "4c" if bits == 4 else "4b", False, 0)]
+        if tier in ("bf16", "--int8"):
+            cases.append(("4e", True, 0))
+        if tier == "bf16":
+            cases.append(("4d", False, 4))
+        for phase, stacked, lookup in cases:
+            pipe.lookup_chunk = lookup
+            try:
+                with switched(stacked):
+                    cap, eag, replays, notes = _captured_and_eager(lambda form: pipe.generate_ocr(
+                        page, max_new_tokens=64 if lookup else 32, ngram_size=20, keep_logits=not lookup))
+            finally:
+                pipe.lookup_chunk = 0
+            if cap.token_ids != eag.token_ids or cap.lookup_forwards != eag.lookup_forwards:
+                raise AssertionError(f"phase {phase}, {tier} LM: captured tokens differ from eager")
+            gaps = [] if lookup else _logit_gaps(eag.step_logits, cap.step_logits)
+            print(f"[captured] phase {phase} page, {tier} LM{', switched' if stacked else ''}"
+                  f"{f', lookup {lookup}' if lookup else ''}: tokens equal ({cap.new_tokens}"
+                  f"{f' in {cap.lookup_forwards} forwards' if lookup else ''}), largest logit gap "
+                  f"{max((g for g, _ in gaps), default=0.0):.3e} (bound {min((t for _, t in gaps), default=0.0):.3e}); "
+                  f"{replays} graph replays a page; decode {eag.decode_seconds * 1e3:.1f} eager / "
+                  f"{cap.decode_seconds * 1e3:.1f} captured ms {notes}")
+        if scope != "experts":
+            stats = {"captured": {}, "eager": {}}
+
+            def group(form):
+                return greedy_generate(lm_params, lm, F.embedding(ids16, lm_params["embed"]), ids16,
+                                       max_new_tokens=32, ngram_size=20, eos_id=cfg.eos_token_id, capacity=1024,
+                                       kv_dtype=pipe.kv_dtype, rope=pipe.rope, stats=stats[form], keep_logits=True)
+
+            t_c = time.perf_counter()
+            (tc, nc), (te, ne), replays, notes = _captured_and_eager(group)
+            if not (torch.equal(tc, te) and torch.equal(nc, ne)):
+                raise AssertionError(f"group decode, {tier} LM: captured tokens differ from eager")
+            gaps = _logit_gaps(stats["eager"]["logits"], stats["captured"]["logits"])
+            print(f"[captured] phases 6/6b/6c group decode, 16 rows, {tier} LM: tokens equal, largest logit gap "
+                  f"{max(g for g, _ in gaps):.3e}; {replays} replays; decode {stats['eager']['decode_s'] * 1e3:.1f} "
+                  f"eager / {stats['captured']['decode_s'] * 1e3:.1f} captured ms for 31 steps "
+                  f"({time.perf_counter() - t_c:.1f} s both) {notes}")
+            pools = [torch.float32] + (["bfloat16", "int8tail"] if tier == "bf16" else
+                                       ["int8tail"] if tier == "--int8" else [])
+            for kv in pools:
+                kv_t = torch.bfloat16 if kv == "bfloat16" else kv
+                print(f"[captured] {_chunks_against_eager(pipe, lm_params, tier, kv_t, 0)}")
+            if tier == "bf16":
+                for kv in (torch.bfloat16, "int8tail"):
+                    print(f"[captured] {_chunks_against_eager(pipe, lm_params, tier, kv, 4)}")
+        del lm_params
+    pipe.params = {**pipe.params, "lm": bf16_lm}
+    torch.cuda.empty_cache()
+    runner = decode_graph.RUNNER
+    most = max(runner.captures.values(), default=0)
+    print(f"[captured] {len(runner.log)} captures so far, {len(runner.captures)} keys live, at most {most} a key; "
+          f"{runner.replays} replays")
+    if most > 1 or not runner.log or runner.replays < 1:
+        raise AssertionError("a decode key was captured more than once, or nothing replayed")
 
 
 # ---------------------------------------------------------------------------
@@ -3326,6 +3541,7 @@ def phase_lookup_exact(dev, pipe, cpu_params) -> None:
     from types import SimpleNamespace
 
     from deepseek_ocr2_tpu_torch.runtime import continuous as cont
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
     from deepseek_ocr2_tpu_torch.runtime.engine import OCR2Engine
     from deepseek_ocr2_tpu_torch.runtime.pipeline import OCR2Pipeline
 
@@ -3363,7 +3579,8 @@ def phase_lookup_exact(dev, pipe, cpu_params) -> None:
         if chunk == 0:
             cont.logits_last = lambda params, hidden: logits.append(orig(params, hidden).float()) or logits[-1]
         try:
-            tail[chunk] = engine.run_requests(reqs, ngram_size=20)
+            with decode_graph._eager() if chunk == 0 else contextlib.nullcontext():  # every step's logits kept
+                tail[chunk] = engine.run_requests(reqs, ngram_size=20)
         finally:
             cont.logits_last = orig
     for i in range(len(pages)):
@@ -3875,9 +4092,12 @@ def routing(log: list, record: bool, mesh=None):
     routing weights gathered from its own probabilities (still
     differentiable), so that a near tie rounded the other way in another
     summation order cannot move a row to another expert. Yields the list,
-    per call, of the rows whose own selection differs."""
+    per call, of the rows whose own selection differs. Decodes inside run
+    their steps eagerly (a captured step would not call the hook)."""
     from deepseek_ocr2_tpu_torch.models import deepseek_v2 as dsv2
     from deepseek_ocr2_tpu_torch.parallel.mesh import dp_rows
+
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
 
     orig, flips = dsv2.route, []
 
@@ -3895,7 +4115,8 @@ def routing(log: list, record: bool, mesh=None):
 
     dsv2.route = recording if record else replaying
     try:
-        yield flips
+        with decode_graph._eager():  # each step calls the patched `route`: no graph replays it
+            yield flips
     finally:
         dsv2.route = orig
 
@@ -4851,6 +5072,7 @@ def main() -> int:
                                                  _serve_pages(pipe.cfg, 16, 0, seed=600))
     serve_kv_launches = phase_serving_kv(dev, pipe)
     serve_lookup_launches = phase_serving_lookup(dev, pipe)
+    phase_captured_decode(dev, pipe)
     phase_decode_profile(pipe)
     validate_launches = phase_validate(dev, pipe)
     del pipe
@@ -4873,6 +5095,15 @@ def main() -> int:
     mesh_serve_launches = phase_mesh_serving(dev)
     if any(m == "jax" or m.startswith(("jax.", "deepseek_ocr2_tpu.")) or m == "deepseek_ocr2_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
+    from deepseek_ocr2_tpu_torch.runtime import decode_graph
+
+    runner = decode_graph.RUNNER
+    most = max(runner.captures.values(), default=0)
+    print(f"[captured] over the run: {len(runner.log)} captures, {len(runner.captures)} keys live at the end (at "
+          f"most {most} a key), {runner.replays} graph replays, capture ms median "
+          f"{float(np.median([c['capture_ms'] for c in runner.log])) if runner.log else 0.0:.1f}")
+    if most > 1 or not runner.log or runner.replays < 1:
+        raise AssertionError("a decode key was captured more than once, or no decode replayed a graph")
 
     # The main path is one page through generate_ocr (phase 4, and with
     # quantized weights 4b and 4c, with lookup decoding 4d, with the device

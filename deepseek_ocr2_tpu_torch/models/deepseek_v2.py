@@ -493,12 +493,19 @@ def _train_layer(x, layer, cfg: DeepseekV2Config, rope, mesh=None):
     return x + ffn(xn.reshape(b * s, h), layer, cfg, decode=False, mesh=mesh).reshape(b, s, h)
 
 
-def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos: int, pos_b):
+def _fused_attention(xn, layer, cfg: DeepseekV2Config, rope, cache, li: int, pos, pos_b: torch.Tensor):
     """Kernel K (O for int4) for one decode step of a layer with quantized
-    attention weights; the new token's K/V go into the cache at `pos`."""
+    attention weights at `pos`, an int or per-row positions [B] (pos_b:
+    the same as int32 [B] on the device); the new token's K/V go into the
+    cache there."""
     out, k_new, v_new = attn_decode_fused(xn, layer, cfg, rope[0], rope[1], cache["k"], cache["v"], li, pos_b)
-    cache["k"][li][:, :, pos] = k_new
-    cache["v"][li][:, :, pos] = v_new
+    if torch.is_tensor(pos):
+        rows = torch.arange(pos_b.shape[0], device=pos_b.device)
+        cache["k"][li][rows, :, pos.long()] = k_new  # values [B, Hh, D]
+        cache["v"][li][rows, :, pos.long()] = v_new
+    else:
+        cache["k"][li][:, :, pos] = k_new
+        cache["v"][li][:, :, pos] = v_new
     return out
 
 
@@ -633,12 +640,15 @@ def lm_forward(
     layers for their activations' memory.
 
     Prefill (S tokens at pos 0) or decode: S >= 1 tokens at the int `pos`,
-    or at per-row positions `pos` [B] (a tensor; lookup decoding's ragged
-    chunks), each query attending to its own causal prefix. A decode step
-    of one token at an int `pos`, in a layer with int8 (int4) attention
-    weights, runs kernel K (O) unless DEEPSEEK_FUSED_ATTN=0, the decode
-    mode is not "pool" or the params are split over mp > 1; a chunk takes
-    the linears and the plain attention, as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
+    at a device position shared by the rows (a 0-d tensor, as a captured
+    decode step passes it: no Python int is baked into the graph), or at
+    per-row positions `pos` [B] (lookup decoding's ragged chunks), each
+    query attending to its own causal prefix. An int and a tensor position
+    give the same bits. A decode step of one token, in a layer with int8
+    (int4) attention weights, runs kernel K (O) unless
+    DEEPSEEK_FUSED_ATTN=0, the decode mode is not "pool" or the params are
+    split over mp > 1; a chunk takes the linears and the plain attention,
+    as in the JAX package. Under `DEEPSEEK_DECODE_ATTN=stacked` a one-token
     step attends through kernel U (`decode_attn_mode`).
 
     Params sharded onto a mesh (`parallel.shard_params`) run the rank's
@@ -657,20 +667,23 @@ def lm_forward(
                 x = _train_layer(x, layer, cfg, rope, mesh)
         return rms_norm(x, params["norm"], cfg.rms_norm_eps)
     b, s, h = embeds.shape
+    if torch.is_tensor(pos) and pos.dim() == 0:  # shared by the rows
+        pos = pos.expand(b)
     mode = None if is_prefill else decode_attn_mode()
-    fused = mode == "pool" and s == 1 and not torch.is_tensor(pos) and fused_attn_enabled() and not mp_on(mesh)
-    stacked_lens = None
-    if mode == "stacked" and s == 1:  # one fill a step, shared by the layers
+    fused = (mode == "pool" and s == 1 and fused_attn_enabled() and not mp_on(mesh)
+             and any("wqkv" in layer for layer in params["layers"]))
+    pos_b = stacked_lens = None  # one fill a step, shared by the layers
+    if fused:
+        pos_b = (pos.to(torch.int32) if torch.is_tensor(pos)
+                 else torch.full((b,), pos, dtype=torch.int32, device=embeds.device))
+    if mode == "stacked" and s == 1:
         stacked_lens = (pos.to(torch.int32) + 1 if torch.is_tensor(pos)
                         else torch.full((b,), pos + 1, dtype=torch.int32, device=embeds.device))
-    pos_b = None
     x = embeds
     for li, layer in enumerate(params["layers"]):
         res = x
         xn = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
         if fused and "wqkv" in layer:
-            if pos_b is None:  # one fill a step, shared by the layers
-                pos_b = torch.full((b,), pos, dtype=torch.int32, device=embeds.device)
             x = res + _fused_attention(xn, layer, cfg, rope, cache, li, pos, pos_b)
         else:
             x = res + _attention(xn, layer, cfg, rope, cache, li, pos, is_prefill, stacked_lens, mesh)

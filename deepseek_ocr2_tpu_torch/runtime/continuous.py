@@ -27,15 +27,24 @@ Device and host:
   (power-of-two sizes): one batched vision pass, one batched LM prefill
   (`admit_prefill`) and one scatter of the prompts' K/V into their pages
   (`insert_group`, in place);
-- decoding: `decode_chunk` advances every slot `chunk_steps` eager steps
-  over the pool (per-slot positions, n-gram ban, EOS and budget; finished
-  rows frozen and pointed at the scratch page). All decode state stays on
-  the device and no step reads a value back; the host reads one packed
-  status tensor per chunk. That keeps a captured CUDA graph possible later;
+- decoding: `decode_chunk` advances every slot `chunk_steps` steps over
+  the pool (per-slot positions, n-gram ban, EOS and budget; finished rows
+  frozen and pointed at the scratch page). All decode state stays on the
+  device (`DecodeState`, updated in place) and no step reads a value
+  back; the host reads one packed status tensor per chunk. On the card,
+  with an LM on no mesh, the whole chunk is one CUDA graph, the JAX
+  package's `scan` (`runtime.decode_graph`): captured once for the
+  engine's pool and state, the runner's static buffers for the pool's
+  shape (kept across serve loops until a decode of another key needs its
+  own), and replayed after the block tables are copied into the state's
+  static `tables`. On
+  CPU tensors, and on a sharded LM (whose collectives a CUDA graph cannot
+  capture), the same chunk runs eagerly;
 - prompt-lookup decoding (`lookup_chunk` >= 2, greedy only):
   `decode_chunk_lookup` replaces the steps with `lookup_steps` chunk
   forwards of `lookup_chunk` tokens a slot (the last token and its drafts,
-  attention kernel Q or R), 1..lookup_chunk accepted tokens each; pages
+  attention kernel Q or R; one graph too), 1..lookup_chunk accepted tokens
+  each; pages
   grow and admissions reserve `dispatch_tokens` (lookup_steps x
   lookup_chunk), the most a dispatch can write;
 - preprocessing: a worker thread runs the host stage of the next pending
@@ -79,6 +88,7 @@ from ..ops.sampling import greedy_pick, ngram_ban_mask_batched, sample_pick
 from ..parallel.mesh import mesh_of
 from ..utils.debug import dbg_print, enabled
 from ..utils.tokenizer import decode_output, tokenize_with_image
+from . import decode_graph
 from .engine import batched_vision_prefill
 from .generate import _lookup_draft
 from .kv_cache import make_kv_cache
@@ -95,6 +105,8 @@ class DecodeState:
     done: torch.Tensor  # [B] bool: finished or empty
     limits: torch.Tensor  # [B] int32: stop length (prompt + max_new)
     seeds: torch.Tensor  # [B] int64: sampling seed of the slot's page
+    # [B, max_pages] int32: the block tables a captured chunk reads, copied in before each replay
+    tables: Optional[torch.Tensor] = None
 
     @classmethod
     def empty(cls, slots: int, tok_cap: int, device) -> "DecodeState":
@@ -105,6 +117,12 @@ class DecodeState:
             limits=torch.zeros(slots, dtype=torch.int32, device=device),
             seeds=torch.zeros(slots, dtype=torch.long, device=device),
         )
+
+    def reset(self) -> None:
+        """Back to `empty`'s values, in place."""
+        for t in (self.tokens, self.cur_lens, self.limits, self.seeds):
+            t.zero_()
+        self.done.fill_(True)
 
 
 @torch.no_grad()
@@ -160,6 +178,22 @@ def insert_group(
     state.seeds.index_copy_(0, slot_ids, group_seeds)
 
 
+def _chunk_runner(kind: tuple, label: str, lm_params, cache, state: "DecodeState", block_tables: torch.Tensor,
+                  rope, step_of) -> torch.Tensor:
+    """Run one chunk `step_of(bt)` over the state, the pool and the block
+    tables: eagerly, or as the replay of its graph (`runtime.decode_graph`),
+    which reads the tables from the state's static `tables`, copied into
+    first. Returns the chunk's packed status."""
+    device = state.tokens.device
+    if not decode_graph.graphed(device, lm_params):
+        return step_of(block_tables)
+    if state.tables is None or state.tables.shape != block_tables.shape:
+        state.tables = torch.empty_like(block_tables)
+    state.tables.copy_(block_tables)
+    return decode_graph.RUNNER.steps(kind, label, lm_params, (cache, list(vars(state).values()), rope),
+                                     lambda: step_of(state.tables), device, True)(1)
+
+
 @torch.no_grad()
 def decode_chunk(
     lm_params,
@@ -179,36 +213,43 @@ def decode_chunk(
     """Advance every active slot by up to `n_steps` steps, greedy at
     temperature 0, else sampled with the row key fold_in(fold_in(
     PRNGKey(0), seed), cur_len). Finished rows are frozen (their K/V goes
-    to the scratch page 0). No step reads a value back to the host. Returns
-    the packed status [cur_lens, done] (int32 [2B]) on the device, for the
-    caller's one readback."""
+    to the scratch page 0). No step reads a value back to the host; on the
+    card the chunk is one captured graph, the JAX package's `scan`
+    (`_chunk_runner`). Returns the packed status [cur_lens, done] (int32
+    [2B]) on the device, for the caller's one readback."""
     tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
     b, tok_cap = tokens.shape
     vocab = vocab_size_of(lm_params)  # lm_head may be int8 or int4
-    rows = torch.arange(b, device=tokens.device)
-    scratch = torch.zeros_like(block_tables)
-    base_keys = prng.fold_in(prng.prng_key(0, tokens.device), state.seeds) if temperature != 0.0 else None
-    for _ in range(n_steps):
-        active = ~done
-        pos = (cur_lens - 1).clamp(0, tok_cap - 1)
-        last = tokens[rows, pos.long()]
-        emb = F.embedding(last, lm_params["embed"])[:, None, :]
-        bt = torch.where(done[:, None], scratch, block_tables)
-        hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
-        logits = logits_last(lm_params, hidden)  # [B, V]
-        ban = ngram_ban_mask_batched(tokens, cur_lens, ngram_size, vocab)
-        if base_keys is None:
-            nxt = greedy_pick(logits, ban)
-        else:
-            nxt = sample_pick(logits, prng.fold_in(base_keys, cur_lens), ban, temperature=temperature,
-                              top_k=top_k, top_p=top_p)
-        nxt = torch.where(active, nxt, last)
-        widx = cur_lens.long().clamp(0, tok_cap - 1)
-        tokens[rows, widx] = torch.where(active, nxt, tokens[rows, widx])
-        newly_done = active & ((nxt == eos_id) | (cur_lens + 1 >= limits))
-        cur_lens.add_(active.to(torch.int32))
-        done.logical_or_(newly_done)
-    return torch.cat([cur_lens, done.to(torch.int32)])
+
+    def chunk(bt_live: torch.Tensor) -> torch.Tensor:
+        rows = torch.arange(b, device=tokens.device)
+        scratch = torch.zeros_like(bt_live)
+        base_keys = prng.fold_in(prng.prng_key(0, tokens.device), state.seeds) if temperature != 0.0 else None
+        for _ in range(n_steps):
+            active = ~done
+            pos = (cur_lens - 1).clamp(0, tok_cap - 1)
+            last = tokens[rows, pos.long()]
+            emb = F.embedding(last, lm_params["embed"])[:, None, :]
+            bt = torch.where(done[:, None], scratch, bt_live)
+            hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
+            logits = logits_last(lm_params, hidden)  # [B, V]
+            ban = ngram_ban_mask_batched(tokens, cur_lens, ngram_size, vocab)
+            if base_keys is None:
+                nxt = greedy_pick(logits, ban)
+            else:
+                nxt = sample_pick(logits, prng.fold_in(base_keys, cur_lens), ban, temperature=temperature,
+                                  top_k=top_k, top_p=top_p)
+            nxt = torch.where(active, nxt, last)
+            widx = cur_lens.long().clamp(0, tok_cap - 1)
+            tokens[rows, widx] = torch.where(active, nxt, tokens[rows, widx])
+            newly_done = active & ((nxt == eos_id) | (cur_lens + 1 >= limits))
+            cur_lens.add_(active.to(torch.int32))
+            done.logical_or_(newly_done)
+        return torch.cat([cur_lens, done.to(torch.int32)])
+
+    return _chunk_runner(("chunk", vocab, n_steps, ngram_size, eos_id, temperature, top_k, top_p),
+                         f"decode_chunk B={b} steps={n_steps}{' sampled' if temperature else ''} "
+                         f"pool={_pool_kind(cache)}", lm_params, cache, state, block_tables, rope, chunk)
 
 
 @torch.no_grad()
@@ -233,39 +274,52 @@ def decode_chunk_lookup(
     model's greedy picks (ban included) confirm, plus the first pick that
     differs. The same ban positions and EOS / limit rule as `decode_chunk`,
     so the tokens are the plain engine's up to chunk-width rounding. No
-    step reads a value back. Returns the packed status [cur_lens, done,
-    forwards] (int32 [2B + 1]) on the device; forwards counts the steps
-    with an active slot."""
+    step reads a value back; on the card the n_steps forwards are one
+    captured graph. Returns the packed status [cur_lens, done, forwards]
+    (int32 [2B + 1]) on the device; forwards counts the steps with an
+    active slot."""
     tokens, cur_lens, done, limits = state.tokens, state.cur_lens, state.done, state.limits
     b, tok_cap = tokens.shape
     vocab = vocab_size_of(lm_params)
-    rows = torch.arange(b, device=tokens.device)
-    scratch = torch.zeros_like(block_tables)
-    forwards = torch.zeros((), dtype=torch.int32, device=tokens.device)
-    for _ in range(n_steps):
-        active = ~done
-        forwards += active.any().to(torch.int32)
-        pos = (cur_lens - 1).clamp(0, tok_cap - 1)
-        last = tokens[rows, pos.long()]
-        draft = _lookup_draft(tokens, cur_lens, match_n, chunk - 1)  # [B, chunk - 1]
-        emb = F.embedding(torch.cat([last[:, None], draft], dim=1), lm_params["embed"])  # [B, chunk, H]
-        bt = torch.where(done[:, None], scratch, block_tables)
-        hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
-        logits = logits_all(lm_params, hidden)  # [B, chunk, V]
-        accepting = active
-        add = torch.zeros_like(cur_lens)
-        for i in range(chunk):
-            t_i = greedy_pick(logits[:, i], ngram_ban_mask_batched(tokens, cur_lens + i, ngram_size, vocab))
-            emit = accepting
-            wpos = (cur_lens + i).long().clamp(0, tok_cap - 1)
-            tokens[rows, wpos] = torch.where(emit, t_i, tokens[rows, wpos])
-            add += emit.to(torch.int32)
-            newly_done = emit & ((t_i == eos_id) | (cur_lens + i + 1 >= limits))
-            done.logical_or_(newly_done)
-            if i < chunk - 1:
-                accepting = emit & ~newly_done & (t_i == draft[:, i])
-        cur_lens.add_(add)
-    return torch.cat([cur_lens, done.to(torch.int32), forwards.reshape(1)])
+
+    def forwards_of(bt_live: torch.Tensor) -> torch.Tensor:
+        rows = torch.arange(b, device=tokens.device)
+        scratch = torch.zeros_like(bt_live)
+        forwards = torch.zeros((), dtype=torch.int32, device=tokens.device)
+        for _ in range(n_steps):
+            active = ~done
+            forwards += active.any().to(torch.int32)
+            pos = (cur_lens - 1).clamp(0, tok_cap - 1)
+            last = tokens[rows, pos.long()]
+            draft = _lookup_draft(tokens, cur_lens, match_n, chunk - 1)  # [B, chunk - 1]
+            emb = F.embedding(torch.cat([last[:, None], draft], dim=1), lm_params["embed"])  # [B, chunk, H]
+            bt = torch.where(done[:, None], scratch, bt_live)
+            hidden = lm_decode_step_paged(lm_params, cfg, emb, cache, bt, pos, rope=rope)
+            logits = logits_all(lm_params, hidden)  # [B, chunk, V]
+            accepting = active
+            add = torch.zeros_like(cur_lens)
+            for i in range(chunk):
+                t_i = greedy_pick(logits[:, i], ngram_ban_mask_batched(tokens, cur_lens + i, ngram_size, vocab))
+                emit = accepting
+                wpos = (cur_lens + i).long().clamp(0, tok_cap - 1)
+                tokens[rows, wpos] = torch.where(emit, t_i, tokens[rows, wpos])
+                add += emit.to(torch.int32)
+                newly_done = emit & ((t_i == eos_id) | (cur_lens + i + 1 >= limits))
+                done.logical_or_(newly_done)
+                if i < chunk - 1:
+                    accepting = emit & ~newly_done & (t_i == draft[:, i])
+            cur_lens.add_(add)
+        return torch.cat([cur_lens, done.to(torch.int32), forwards.reshape(1)])
+
+    return _chunk_runner(("lookup", vocab, n_steps, chunk, match_n, ngram_size, eos_id),
+                         f"decode_chunk_lookup B={b} forwards={n_steps} chunk={chunk} pool={_pool_kind(cache)}",
+                         lm_params, cache, state, block_tables, rope, forwards_of)
+
+
+def _pool_kind(cache) -> str:
+    if "open_k" in cache:
+        return "int8tail"
+    return str(cache["k"].dtype).replace("torch.", "")
 
 
 def _pow2_at_most(n: int) -> int:
@@ -572,6 +626,30 @@ class ContinuousOCREngine:
         return self.pipe.preprocess_finish(pre)
 
     def _serve(self, ngram_size: int, sampling: Optional[dict], online: bool):
+        """The serve loop on its pool and decode state: made for the loop,
+        or, where the chunks replay captured graphs, the runner's static
+        ones for the pool's shape (`decode_graph.DecodeGraphs.buffers`),
+        kept across serve loops, the pool zeroed and the state emptied
+        again, so that a chunk's graph is captured once, not once a loop."""
+        pipe, lm_cfg, dev = self.pipe, self.pipe.cfg.lm, self.pipe.device
+        lm = pipe.params["lm"]
+        b, heads = self.slots, n_heads(lm_cfg, lm.get("mesh"))
+        graph = decode_graph.graphed(dev, lm)
+
+        def make():
+            return (make_paged_kv_cache(lm_cfg.num_hidden_layers, self.num_pages, heads, self.page_size,
+                                        lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev, slots=b),
+                    DecodeState.empty(b, self.capacity, dev))
+
+        key = ("engine", pipe.kv_dtype, self.num_pages, self.page_size, b, self.capacity, dev)
+        with decode_graph.RUNNER.buffers(key, lm, make, graph) as (cache, state):
+            if graph:
+                for t in cache.values():
+                    t.zero_()
+                state.reset()
+            self._serve_loop(cache, state, ngram_size, sampling, online)
+
+    def _serve_loop(self, cache, state: DecodeState, ngram_size: int, sampling: Optional[dict], online: bool):
         pipe = self.pipe
         cfg, lm, lm_cfg, dev = pipe.cfg, pipe.params["lm"], pipe.cfg.lm, pipe.device
         b, tok_cap, page = self.slots, self.capacity, self.page_size
@@ -589,14 +667,11 @@ class ContinuousOCREngine:
         # contiguous prefill cache keeps the activation dtype.
         quantized = isinstance(pipe.kv_dtype, str)
         prefill_kv = pipe.act_dtype if quantized else pipe.kv_dtype
-        cache = make_paged_kv_cache(lm_cfg.num_hidden_layers, self.num_pages, n_heads(lm_cfg, lm.get("mesh")), page,
-                                    lm_cfg.head_dim, dtype=pipe.kv_dtype, device=dev, slots=b)
         alloc = PageAllocator(self.num_pages)
         self.alloc = alloc  # monitors read n_free while the loop runs
         self.last_decode_steps, self.last_decode_seconds, self.last_admissions = 0, 0.0, 0
         self.last_lookup_forwards = 0
         block_tables_np = np.zeros((b, self.max_pages_per_slot), np.int32)
-        state = DecodeState.empty(b, tok_cap, dev)
         done_np = np.ones((b,), bool)
         lens_np = np.zeros((b,), np.int32)
 

@@ -9,7 +9,11 @@ prefill and the batched decode, greedy or sampled. With sampling, chunk i
 (counted over the crop-grid groups in order) draws with seed + i, so the
 chunks' streams differ, as in the JAX package. With the pipeline's
 `lookup_chunk` > 1 a greedy chunk decodes by prompt lookup
-(`lookup_greedy_generate_batched`).
+(`lookup_greedy_generate_batched`). On the card a chunk's decode replays
+the captured step of its function (`runtime.decode_graph`), one graph per
+batch size and capacity bucket (and, for lookup, token budget); the
+buffers and graphs of the last chunk's key are kept until a chunk of
+another key needs its own.
 """
 
 from __future__ import annotations

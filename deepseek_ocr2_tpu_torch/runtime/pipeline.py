@@ -10,7 +10,9 @@ letterboxed and tiled on the device bit-equal to PIL by
 injection. Then generation, greedy or sampled (`sampling`); with
 `lookup_chunk` > 1 a greedy page decodes by prompt lookup
 (`lookup_greedy_generate`). `generate_text` runs the LM alone on a text
-prompt.
+prompt. On the card either decode replays its captured step
+(`runtime.decode_graph`); `keep_logits` copies each step's logits to the
+host, a readback a step.
 
 `device_resize`: True (always), False (never), "auto" (exactly when the page
 is cropped) or None, which reads `DEEPSEEK_DEVICE_RESIZE` ("auto", "1", "0")

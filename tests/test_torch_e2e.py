@@ -310,6 +310,8 @@ assert pipe.generate_ocr(page, max_new_tokens=2, ngram_size=3).new_tokens >= 1
 for k in ("DEEPSEEK_DEBUG_ATTN", "DEEPSEEK_DEBUG_MOE", "DEEPSEEK_DEBUG_LAYER0"):
     del os.environ[k]
 from deepseek_ocr2_tpu_torch.runtime.generate import greedy_generate
+from deepseek_ocr2_tpu_torch.runtime import decode_graph  # the captured decode's runner, its wrappers' modules too
+assert decode_graph.SYNC_EVERY >= 1 and len(decode_graph.counted_wrappers()) >= 25
 ids = torch.tensor([[0, 5, 9], [0, 7, 3]])
 toks, n_gen = greedy_generate(params["lm"], cfg.lm, params["lm"]["embed"][ids], ids, max_new_tokens=4, capacity=64,
                               kv_dtype=torch.float32, temperature=0.7, top_p=0.9, seed=2)
